@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
-"""Smoke run of comd_tpu_torch's main path on one NVIDIA GPU.
+"""Smoke run of comd_tpu_torch's main paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, one line each, failing (non-zero exit, no result line) on the first
-error:
+Phases, one line or more each, failing (non-zero exit, no result line) on
+the first error:
   1. device   -- a CUDA card is required; prints nvidia-smi's name and
                  power limit
-  2. build    -- compiles the cell-stencil kernel (csrc/stencil.cu) with nvcc
-  3. kernel   -- the kernel against its plain PyTorch version on the same
-                 CUDA tensors (thermalized 10^3 lattice, T = 600 K), EAM
-                 pass 1 and pass 3, f32/Chebyshev and f64/table
-  4. golden   -- T = 0 Adams Cu cohesive energy at 6^3, f64, through the
-                 kernel: -3.538079224691 eV/atom within 1e-9
+  2. build    -- compiles the cell-stencil kernels (csrc/stencil.cu) with nvcc
+  3. kernel   -- K1 against its plain PyTorch version on the same CUDA
+                 tensors (thermalized 10^3 lattice, T = 600 K), EAM pass 1
+                 and pass 3, f32/Chebyshev and f64/table
+  4. golden   -- T = 0 Adams Cu cohesive energy at 6^3, f64, through K1:
+                 -3.538079224691 eV/atom within 1e-9
   5. main     -- the headline run: 63^3 FCC Cu (1,000,188 atoms), EAM
                  funcfl, f32, auto commensurate cells, lazy-shell stepping,
                  10 x step_block(10); checks atom count, overflow, energy
-                 drift and that every step launched both kernel passes, then
+                 drift and that every step launched both K1 passes, then
                  times each pass against its plain version at that shape.
+  6. half kernel -- K2 against its plain version on the same CUDA tensors
+                 (thermalized 10^3): EAM passes 1 (with and without energy)
+                 and 3 at f32/Chebyshev and f64/table, and LJ; K1's LJ
+                 variant likewise.  Dense unfolded outputs are compared (both
+                 use the same half map).  Tolerances: f32 forces atol 1e-4
+                 eV/A and scalars 1e-5 of their largest value (another
+                 summation order, K2's with atomics in run-to-run order);
+                 f64 1e-12 relative.
+  7. goldens  -- f64 through the kernels, within 1e-9: Adams 6^3 with
+                 --halfShell; LJ 6^3 full and half; 5-sigma LJ 8^3 (A = 256
+                 on a 2^3 grid) full and half.
+  8. half main -- the headline run with --halfShell (K2 for passes 1 and 3),
+                 the same checks; K2 against K1's force at the initial and
+                 final states; K2's times beside K1's and the plain versions.
+  9. LJ main  -- 63^3 LJ f32 (A = 32, 35^3 cells), full (K1) and
+                 --halfShell (K2), 100 steps each, the same checks and times.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
-Imports torch and comd_tpu_torch only; builds everything from this
-checkout.
+Each main path runs with the launch counts set to 0 just before it and
+read just after.  Imports torch and comd_tpu_torch only; builds everything
+from this checkout.
 """
 from __future__ import annotations
 
@@ -34,8 +51,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 POTS = os.path.join(ROOT, "pots")
 GOLDEN_EAM_ADAMS = -3.538079224691
-REPLACES = "comd_tpu/ops/pallas/stencil.py:48"
+GOLDEN_LJ = -1.243619295058
+GOLDEN_LJ_5SIGMA = -1.406590686466
 SOURCE = "comd_tpu_torch/csrc/stencil.cu"
+REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
+            "half": "comd_tpu/ops/pallas/stencil.py:204"}
+HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
+# NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def say(phase: str, msg: str) -> None:
@@ -59,6 +83,13 @@ def max_rel(a, b) -> float:
                              torch.zeros_like(d)).max())
 
 
+def norm_rel(a, b) -> float:
+    """max |a - b| / max |b|: dense half-shell sums hold partial sums on
+    halo rows, some near zero, so they are held against their largest
+    value."""
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device time of fn() over reps launches (CUDA events)."""
     import torch
@@ -76,7 +107,7 @@ def cuda_ms(fn, reps: int) -> float:
 
 def compare_passes(sim, tag: str, f_atol: float, s_rtol: float,
                    f_rtol: float = 0.0):
-    """Kernel vs plain version for pass 1 and pass 3 on sim's state.
+    """K1 vs plain version for EAM pass 1 and pass 3 on sim's state.
     Returns {pass: max_abs_err of the force}."""
     import torch
     from comd_tpu_torch.ops import binning
@@ -119,6 +150,255 @@ def compare_passes(sim, tag: str, f_atol: float, s_rtol: float,
     return errs, (r, nbr, ev, dfe, chunk)
 
 
+def compare_half(sim, tag: str, f_atol: float, s_rtol: float,
+                 f_rtol: float = 0.0):
+    """K2 vs plain version for EAM passes 1 (with and without energy) and 3
+    on sim's state, dense unfolded outputs.  Returns ({half pass: max abs
+    force err}, (r, half map, evaluator, dfEmbed, chunk))."""
+    import torch
+    from comd_tpu_torch.ops import binning
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.ops.sweep import fold_halo_serial
+    r, hm, ev = sim.state.r, sim.maps.half_nbr_map, sim.pair_eval
+    chunk = sim.cfg.resolved_box_chunk
+    errs = {}
+    fp, phip, rhop = st.eam_pass1_half_plain(r, hm, ev, want_energy=True,
+                                             box_chunk=chunk)
+    fmax = float(fp.abs().max())
+    e_f = []
+    for energy in (True, False):
+        fk, phik, rhok = st.eam_pass1_half(r, hm, ev, want_energy=energy)
+        torch.cuda.synchronize()
+        e_f.append(float((fk - fp).abs().max()))
+        e_s = max(norm_rel(rhok, rhop),
+                  norm_rel(phik, phip) if energy else 0.0)
+        check(e_f[-1] <= f_atol + f_rtol * fmax and e_s <= s_rtol
+              and (phik is None) != energy,
+              f"{tag} half pass 1 (energy {energy}): force err "
+              f"{e_f[-1]:.3e}, scalar err {e_s:.3e}")
+    errs["half_eam_pass1"] = max(e_f)
+    rhobar = fold_halo_serial(sim.geom, sim.maps, rhop)
+    dfe = torch.zeros(r.shape[1:], dtype=r.dtype, device=r.device)
+    dfe[:sim.geom.n_local] = sim.f_eval(rhobar)[1]
+    binning.fill_halo_scalar_serial(sim.geom, sim.maps, dfe)
+    f3k = st.eam_pass3_half(r, hm, ev, dfe)
+    f3p = st.eam_pass3_half_plain(r, hm, ev, dfe, box_chunk=chunk)
+    torch.cuda.synchronize()
+    errs["half_eam_pass3"] = float((f3k - f3p).abs().max())
+    f3max = float(f3p.abs().max())
+    check(errs["half_eam_pass3"] <= f_atol + f_rtol * f3max,
+          f"{tag} half pass 3 force err {errs['half_eam_pass3']:.3e}")
+    say("half", f"{tag}: K2 pass1 |df|max {errs['half_eam_pass1']:.3e} "
+        f"(|f|max {fmax:.3e}); pass3 |df|max "
+        f"{errs['half_eam_pass3']:.3e} (|f|max {f3max:.3e})")
+    return errs, (r, hm, ev, dfe, chunk)
+
+
+def compare_lj(sim, tag: str, f_atol: float, s_rtol: float,
+               f_rtol: float = 0.0):
+    """K1's and K2's LJ variants vs their plain versions on sim's state,
+    with and without energy.  Returns {kernel: max abs force err}."""
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    r, ev = sim.state.r, sim.pair_eval
+    chunk = sim.cfg.resolved_box_chunk
+    errs = {}
+    for key, fn, plain, nbr in (
+            ("lj", st.lj_pass, st.lj_pass_plain, sim.maps.nbr_map),
+            ("half_lj", st.lj_pass_half, st.lj_pass_half_plain,
+             sim.maps.half_nbr_map)):
+        fp, ep = plain(r, nbr, ev, box_chunk=chunk)
+        fmax = float(fp.abs().max())
+        e_f = []
+        for energy in (True, False):
+            fk, ek = fn(r, nbr, ev, want_energy=energy)
+            torch.cuda.synchronize()
+            e_f.append(float((fk - fp).abs().max()))
+            e_s = norm_rel(ek, ep) if energy else 0.0
+            check(e_f[-1] <= f_atol + f_rtol * fmax and e_s <= s_rtol
+                  and (ek is None) != energy,
+                  f"{tag} {key} (energy {energy}): force err "
+                  f"{e_f[-1]:.3e}, energy err {e_s:.3e}")
+        errs[key] = max(e_f)
+        say("lj", f"{tag}: {key} |df|max {errs[key]:.3e} "
+            f"(|f|max {fmax:.3e})")
+    return errs
+
+
+def pair_work(sim, half: bool, chunk: int = 1024):
+    """(candidate pairs, pairs inside the cutoff) of one sweep on sim's
+    state: candidates are occupied i-slot x occupied j-slot pairs of the
+    27 (or, half shell, 14 with the self-cell triangle) neighbor cells."""
+    import torch
+    r = sim.state.r
+    n = sim.state.n_atoms.to(torch.int64)
+    nbr = (sim.maps.half_nbr_map if half else sim.maps.nbr_map).to(
+        torch.int64)
+    n_local, n_nbr = nbr.shape
+    A = r.shape[2]
+    nl = n[:n_local]
+    if half:
+        cand = (nl * n[nbr[:, 1:]].sum(1) + nl * (nl - 1) // 2).sum()
+    else:
+        cand = (nl * n[nbr].sum(1)).sum()
+    ok = torch.ones((A, n_nbr * A), dtype=torch.bool, device=r.device)
+    if half:
+        ok[:, :A] = torch.triu(ok[:, :A], diagonal=1)
+    inside = 0
+    for c0 in range(0, n_local, chunk):
+        nb = nbr[c0:c0 + chunk]
+        ri = r[:, c0:c0 + len(nb)]
+        rj = r[:, nb].reshape(3, len(nb), n_nbr * A)
+        dr = ri[:, :, :, None] - rj[:, :, None, :]
+        r2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+        inside += int(((r2 <= sim.pair_eval.rcut2) & (r2 > 0) & ok).sum())
+    return int(cand), inside
+
+
+def bound(sim, key: str, energy: bool = False):
+    """(bound_ms, bound_by) of one launch of ``key`` on sim's state: the
+    larger of flops / f32 peak and bytes / HBM rate.
+
+    Flops: 8 per candidate pair (3 differences, 3 products, 2 sums for r2)
+    plus, per pair inside the cutoff, the evaluator (Chebyshev: 4 for the
+    transform and argument, 2 per output to start the recurrence, 2 + 2
+    per output for each further term, 3 for the derivative factor, 1 per
+    derivative output; LJ: 1 division, 3 for r6, 5 for the coefficient),
+    the pair's coefficient (EAM pass 1: 1, pass 3: 3), 6 for the force
+    sum, 1 per scalar sum, and, half shell, 3 + 1 per scalar for the
+    j side.  A division counts as one.  Bytes: positions, neighbor map and
+    dfEmbed read once, the outputs written once."""
+    from comd_tpu_torch.ops.cuda import stencil as st
+    half = key.startswith("half_")
+    pair = key[5:] if half else key
+    ev, r = sim.pair_eval, sim.state.r
+    B, A = r.shape[1], r.shape[2]
+    n_local = sim.geom.n_local
+    esize = r.element_size()
+
+    def cheb(wants, n_der):
+        n_terms = st._cheb_params(ev, wants).n_terms
+        n_out = len(wants)
+        return 4 + 2 * n_out + (n_terms - 2) * (2 + 2 * n_out) + 3 + n_der
+
+    if pair == "eam_pass1":
+        wants = ([("phi", "val")] if energy else []) + \
+            [("phi", "der"), ("rho", "val")]
+        ns = len(wants) - 1
+        per = cheb(wants, 1) + 1 + 6 + ns
+    elif pair == "eam_pass3":
+        ns = 0
+        per = cheb([("rho", "der")], 1) + 3 + 6
+    else:
+        ns = 1 if energy else 0
+        per = 1 + 3 + 5 + 6 + (4 if energy else 0)
+    if half:
+        per += 3 + ns
+    cand, inside = pair_work(sim, half)
+    flops = 8 * cand + per * inside
+    n_nbr = 14 if half else 27
+    nbytes = (3 * B * A * esize + n_local * n_nbr * 4
+              + (B * A * esize if pair == "eam_pass3" else 0)
+              + (3 + ns) * (B if half else n_local) * A * esize)
+    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_row(sim, key: str, launches: dict, err: float, ms: float,
+               plain_ms: float) -> dict:
+    """The kernels-line entry of launch counter ``key``, timed on sim's
+    state (pass 1 and LJ without energy, as 99 of 100 steps run them), and
+    its [timing] line."""
+    half = key.startswith("half_")
+    b_ms, b_by = bound(sim, key)
+    say("timing", f"{key} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return {"name": key if half else f"stencil_{key}", "route": "cuda",
+            "source": SOURCE, "replaces": REPLACES["half" if half
+                                                   else "stencil"],
+            "launches": launches[key], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def half_vs_full(sim) -> float:
+    """max |f_K2 - f_K1| of the EAM force on sim's state (f32: the two
+    differ by summation order only)."""
+    from comd_tpu_torch.ops import binning, force_eam
+    s = sim.state
+    f_half, _u, _e = sim.force(s.r, s.n_atoms, want_energy=False)
+    f_full, _u, _d = force_eam.eam_force(
+        sim.geom, sim.maps.nbr_map, s.r, sim.pair_eval, sim.f_eval,
+        lambda x: binning.fill_halo_scalar_serial(sim.geom, sim.maps, x),
+        want_energy=False)
+    return float((f_half - f_full).abs().max())
+
+
+def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,
+             on_init=None, **kw):
+    """One main path at full width through the user entry points
+    (init_simulation, step_block), launch counts zeroed just before and read
+    just after.  ``on_init(sim)`` runs on the initial state, its launches
+    taken out of the counts.  Checks atom count, overflow,
+    |eFinal/eInitial - 1| < 1e-4 and that each kernel in ``keys`` launched at
+    least once per step.  Returns (sim, launches in this run)."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import stencil as st
+    n = HEADLINE_N
+    cfg = Config(nx=n, ny=n, nz=n, temperature=600.0, dtype="float32",
+                 max_atoms=0, cell_mode="auto", pot_dir=POTS, device="cuda",
+                 **kw)
+    st.reset_launch_counts()
+    t0 = time.perf_counter()
+    sim = init_simulation(cfg)
+    t_init = time.perf_counter() - t0
+    n = sim.n_global
+    e0 = (sim.e_potential + sim.kinetic_energy()) / n
+    at_init = dict(st.LAUNCHES)
+    if on_init is not None:
+        on_init(sim)
+        st.LAUNCHES.update(at_init)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_blocks):
+        sim.step_block(block)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    launches = dict(st.LAUNCHES)
+    n_steps = n_blocks * block
+    e1 = (sim.e_potential + sim.kinetic_energy()) / n
+    n_atoms = sim.sum_atoms()
+    check(n_atoms == n, f"{tag}: atoms lost: {n_atoms} of {n}")
+    check(not bool(sim.state.overflow), f"{tag}: cell capacity overflow")
+    check(abs(e1 / e0 - 1.0) < 1e-4, f"{tag}: eFinal/eInitial {e1 / e0!r}")
+    for k in keys:
+        check(launches[k] - at_init[k] >= n_steps,
+              f"{tag}: {k} launched {launches[k] - at_init[k]} times in "
+              f"{n_steps} steps")
+    ms_step = 1e3 * t_loop / n_steps
+    say(tag, f"{HEADLINE_N}^3 n={n} A={sim.cfg.max_atoms} "
+        f"grid={sim.geom.grid} "
+        f"mode={sim.cfg.cell_mode} skin={sim.skin:.4f} "
+        f"rebuckets={sim.n_rebucket} init {t_init:.2f} s; "
+        f"{n_steps} steps {ms_step:.3f} ms/step "
+        f"{n * n_steps / t_loop:.4e} atom-steps/s; eInitial {e0:.12f} "
+        f"eFinal {e1:.12f} ratio-1 {e1 / e0 - 1.0:.3e}; launches "
+        f"{ {k: launches[k] for k in keys} }")
+    return sim, launches
+
+
+def golden(tag: str, value: float, **kw) -> None:
+    from comd_tpu_torch import Config, init_simulation
+    sim = init_simulation(Config(temperature=0.0, initial_delta=0.0,
+                                 dtype="float64", pot_dir=POTS,
+                                 device="cuda", **kw))
+    e_atom = sim.e_potential / sim.n_global
+    check(abs(e_atom - value) < 1e-9, f"golden {tag} {e_atom!r} vs {value}")
+    say("golden", f"{tag} A={sim.cfg.max_atoms} grid={sim.geom.grid} f64: "
+        f"{e_atom:.12f} eV/atom (|diff| {abs(e_atom - value):.2e})")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -148,10 +428,11 @@ def main() -> int:
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
                                              text)]
     say("build", f"nvcc sm_90a in {st.BUILD_SECONDS:.1f} s; "
-        f"registers {min(regs, default=0)}..{max(regs, default=0)}, "
-        f"max spill stores {max(spills, default=0)} bytes")
+        f"{len(regs)} kernels, registers {min(regs, default=0)}.."
+        f"{max(regs, default=0)}, max spill stores "
+        f"{max(spills, default=0)} bytes")
 
-    # 3. kernel vs plain version on a thermalized 10^3 lattice
+    # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
             ("float32", "cheb", 1e-4, 1e-5, 0.0),
             ("float64", "rows", 0.0, 1e-12, 1e-12)):
@@ -162,57 +443,17 @@ def main() -> int:
         compare_passes(sim, f"10^3 {dtype}/{sim.pair_eval.kind} "
                        f"A={sim.cfg.max_atoms}", f_atol, s_rtol, f_rtol)
 
-    # 4. golden on the card (f64, exact table evaluator through the kernel)
-    sim = init_simulation(Config(
-        nx=6, ny=6, nz=6, doeam=True, temperature=0.0, initial_delta=0.0,
-        dtype="float64", pot_dir=POTS, device="cuda"))
-    e_atom = sim.e_potential / sim.n_global
-    check(abs(e_atom - GOLDEN_EAM_ADAMS) < 1e-9,
-          f"golden {e_atom!r} vs {GOLDEN_EAM_ADAMS}")
-    say("golden", f"Adams Cu 6^3 T=0 f64: {e_atom:.12f} eV/atom "
-        f"(|diff| {abs(e_atom - GOLDEN_EAM_ADAMS):.2e})")
+    # 4. golden on the card (f64, exact table evaluator through K1)
+    golden("Adams Cu 6^3 T=0", GOLDEN_EAM_ADAMS, nx=6, ny=6, nz=6,
+           doeam=True)
 
     # 5. main path at full width: the 63^3 headline run
-    cfg = Config(nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
-                 dtype="float32", max_atoms=0, cell_mode="auto",
-                 pot_dir=POTS, device="cuda")
-    st.reset_launch_counts()
-    t0 = time.perf_counter()
-    sim = init_simulation(cfg)
-    t_init = time.perf_counter() - t0
-    n = sim.n_global
-    e0 = (sim.e_potential + sim.kinetic_energy()) / n
-    at_init = dict(st.LAUNCHES)
-    n_blocks, block = 10, 10
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_blocks):
-        sim.step_block(block)
-    torch.cuda.synchronize()
-    t_loop = time.perf_counter() - t0
-    launches = dict(st.LAUNCHES)
-    n_steps = n_blocks * block
-    e1 = (sim.e_potential + sim.kinetic_energy()) / n
-    n_atoms = sim.sum_atoms()
-    check(n_atoms == n, f"atoms lost: {n_atoms} of {n}")
-    check(not bool(sim.state.overflow), "cell capacity overflow")
-    check(abs(e1 / e0 - 1.0) < 1e-4, f"eFinal/eInitial {e1 / e0!r}")
-    for k in launches:
-        check(launches[k] - at_init[k] >= n_steps,
-              f"{k} launched {launches[k] - at_init[k]} times in "
-              f"{n_steps} steps")
-    ms_step = 1e3 * t_loop / n_steps
-    say("main", f"63^3 n={n} A={sim.cfg.max_atoms} grid={sim.geom.grid} "
-        f"mode={sim.cfg.cell_mode} skin={sim.skin:.4f} "
-        f"rebuckets={sim.n_rebucket} init {t_init:.2f} s; "
-        f"{n_steps} steps {ms_step:.3f} ms/step "
-        f"{n * n_steps / t_loop:.4e} atom-steps/s; eInitial {e0:.12f} "
-        f"eFinal {e1:.12f} ratio-1 {e1 / e0 - 1.0:.3e}; launches {launches}")
-
-    # kernel vs plain at the main path's shape (not counted: read above)
+    sim, launches = run_main("main", ("eam_pass1", "eam_pass3"), doeam=True)
+    rows = {}
+    # K1 vs plain at the main path's shape (not counted: read above)
     errs, (r, nbr, ev, dfe, chunk) = compare_passes(
-        sim, "63^3 float32/cheb", 1e-4, 1e-5)
-    times = {
+        sim, f"{HEADLINE_N}^3 float32/cheb", 1e-4, 1e-5)
+    k1_ms = {
         "eam_pass1": (
             cuda_ms(lambda: st.eam_pass1(r, nbr, ev, want_energy=False), 20),
             cuda_ms(lambda: st.eam_pass1_plain(
@@ -222,14 +463,90 @@ def main() -> int:
             cuda_ms(lambda: st.eam_pass3_plain(r, nbr, ev, dfe,
                                                box_chunk=chunk), 2)),
     }
-    for k, (ms, plain) in times.items():
-        say("timing", f"{k} kernel {ms:.4f} ms, plain {plain:.4f} ms "
-            f"(box_chunk {chunk})")
+    for k, (ms, plain) in k1_ms.items():
+        rows[k] = kernel_row(sim, k, launches, errs[k], ms, plain)
+    del sim, r, nbr, ev, dfe
 
-    kernels = [{"name": f"stencil_{k}", "route": "cuda", "source": SOURCE,
-                "replaces": REPLACES, "launches": launches[k],
-                "max_abs_err": errs[k], "ms": times[k][0],
-                "plain_ms": times[k][1]} for k in ("eam_pass1", "eam_pass3")]
+    # 6. K2 (EAM, LJ) and K1's LJ variant vs plain versions at 10^3
+    for dtype, impl, f_atol, s_rtol, f_rtol in (
+            ("float32", "cheb", 1e-4, 1e-5, 0.0),
+            ("float64", "rows", 0.0, 1e-12, 1e-12)):
+        for doeam in (True, False):
+            sim = init_simulation(Config(
+                nx=10, ny=10, nz=10, doeam=doeam, half_shell=True,
+                temperature=600.0, dtype=dtype, interp_impl=impl,
+                pot_dir=POTS, device="cuda"))
+            sim.step_block(10)
+            tag = (f"10^3 {dtype}/{sim.pair_eval.kind} "
+                   f"A={sim.cfg.max_atoms}")
+            if doeam:
+                compare_half(sim, tag, f_atol, s_rtol, f_rtol)
+            else:
+                compare_lj(sim, tag, f_atol, s_rtol, f_rtol)
+
+    # 7. goldens through the kernels (f64)
+    golden("Adams Cu 6^3 T=0 --halfShell", GOLDEN_EAM_ADAMS, nx=6, ny=6,
+           nz=6, doeam=True, half_shell=True)
+    for half in (False, True):
+        hs = " --halfShell" if half else ""
+        golden(f"LJ 6^3 T=0{hs}", GOLDEN_LJ, nx=6, ny=6, nz=6,
+               half_shell=half)
+        golden(f"LJ 5sigma 8^3 T=0{hs}", GOLDEN_LJ_5SIGMA, nx=8, ny=8, nz=8,
+               lj_cutoff_factor=5.0, half_shell=half)
+
+    # 8. the headline run with --halfShell (K2)
+    # K2's force against K1's at the initial and final states, bound 1e-4
+    # eV/A (f32, the two differ by summation order only)
+    d_init = []
+    sim, launches = run_main("half main", ("half_eam_pass1",
+                                           "half_eam_pass3"),
+                             on_init=lambda x: d_init.append(half_vs_full(x)),
+                             doeam=True, half_shell=True)
+    d_final = half_vs_full(sim)
+    check(max(d_init[0], d_final) <= 1e-4, f"half vs full force: initial "
+          f"{d_init[0]:.3e}, final {d_final:.3e}")
+    errs, (r, hm, ev, dfe, chunk) = compare_half(
+        sim, f"{HEADLINE_N}^3 float32/cheb", 1e-4, 1e-5)
+    nbr = sim.maps.nbr_map
+    times = {
+        "half_eam_pass1": (
+            cuda_ms(lambda: st.eam_pass1_half(r, hm, ev, want_energy=False),
+                    20),
+            cuda_ms(lambda: st.eam_pass1_half_plain(
+                r, hm, ev, want_energy=False, box_chunk=chunk), 2)),
+        "half_eam_pass3": (
+            cuda_ms(lambda: st.eam_pass3_half(r, hm, ev, dfe), 20),
+            cuda_ms(lambda: st.eam_pass3_half_plain(r, hm, ev, dfe,
+                                                    box_chunk=chunk), 2)),
+    }
+    k1_here = (cuda_ms(lambda: st.eam_pass1(r, nbr, ev, want_energy=False),
+                       20),
+               cuda_ms(lambda: st.eam_pass3(r, nbr, ev, dfe), 20))
+    for k, (ms, plain) in times.items():
+        rows[k] = kernel_row(sim, k, launches, errs[k], ms, plain)
+    say("timing", f"K1 at the same state: pass1 {k1_here[0]:.4f} ms, "
+        f"pass3 {k1_here[1]:.4f} ms; |f_half - f_full|max final "
+        f"{d_final:.3e} (initial {d_init[0]:.3e})")
+    del sim, r, hm, nbr, ev, dfe
+
+    # 9. LJ at 63^3: full shell (K1) and --halfShell (K2)
+    for half, key in ((False, "lj"), (True, "half_lj")):
+        sim, launches = run_main("LJ half main" if half else "LJ main",
+                                 (key,), half_shell=half)
+        errs = compare_lj(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5)
+        r, ev, chunk = sim.state.r, sim.pair_eval, sim.cfg.resolved_box_chunk
+        fn, plain = ((st.lj_pass_half, st.lj_pass_half_plain) if half
+                     else (st.lj_pass, st.lj_pass_plain))
+        nbr = sim.maps.half_nbr_map if half else sim.maps.nbr_map
+        ms = cuda_ms(lambda: fn(r, nbr, ev, want_energy=False), 20)
+        plain_ms = cuda_ms(lambda: plain(r, nbr, ev, want_energy=False,
+                                         box_chunk=chunk), 2)
+        rows[key] = kernel_row(sim, key, launches, errs[key], ms, plain_ms)
+        del sim, r, ev, nbr
+
+    kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
+                                 "half_eam_pass1", "half_eam_pass3",
+                                 "half_lj")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="comd-tpu-torch",
         description="CoMD on PyTorch + CUDA: classical molecular dynamics "
-                    "(EAM) with link cells on one GPU.")
+                    "(EAM or Lennard-Jones) with link cells on one GPU.")
     a = p.add_argument
     a("-d", "--potDir", default="pots", help="potential directory")
     a("-p", "--potName", default="", help="potential name")
@@ -101,14 +101,15 @@ def build_parser() -> argparse.ArgumentParser:
            "kernel-initiated analog (comm_ki)")
     a("--halfShell", action="store_true",
       help="Newton's-3rd-law pair-once sweeps (the reference half-list "
-           "kernels; with -m cta_cell, the Pallas dual-delivery kernel)")
+           "kernels): every cell method runs the one half-shell CUDA "
+           "kernel")
     a("--halfFetch", default="slices", choices=["slices", "window"],
-      help="half-sweep j delivery: per-offset dynamic slices or one "
-           "contiguous per-chunk window (static in-window views)")
+      help="accepted for parity with comd_tpu (its XLA half-sweep j "
+           "delivery); the port has one half kernel and ignores it")
     a("--halfMaterialize", action="store_true",
-      help="half sweeps: materialize the pair block behind an optimization "
-           "barrier before the dual i/j reduction (keeps XLA from "
-           "rematerializing the pair chain once per reduce side)")
+      help="accepted for parity with comd_tpu (an XLA optimization "
+           "barrier in its half sweep); the port has one half kernel and "
+           "ignores it")
     a("--haloMsgFactor", type=float, default=0.6,
       help="count-packed atom halo messages: per-face entry capacity as a "
            "fraction of the full two-plane slot count (0 ships full planes; "

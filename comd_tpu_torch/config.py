@@ -150,27 +150,32 @@ class Config:
                                 # forms avoid the padded-minor-axis gather
                                 # traffic that dominates at A<32 (round-3
                                 # measurement); "auto" picks by capacity
-    half_shell: bool = False    # cell sweeps: evaluate each pair once
-                                # (Newton's 3rd law) and deliver the j side
-                                # by overlap-added shifted slices + a halo
-                                # fold (the reference's half-list kernels,
-                                # ljForce.c:146-265).  Measured on v5e the
-                                # full sweep WINS despite 1.9x more pair
-                                # evaluations (the i- and j-side reductions
-                                # each rematerialize the pair block, and
-                                # the dense j-delivery adds traffic; see
-                                # docs/BENCHMARKS.md), so this is a parity/
-                                # correctness path, off by default.
-                                # Ignored by *_nl, cta_cell and -a.
-    half_fetch: str = "slices"  # half-sweep j delivery: "slices" (one
-                                # dynamic slice per stencil offset, 14 per
-                                # chunk -- the round-2 formulation) or
-                                # "window" (ONE contiguous window per chunk,
-                                # offsets as static in-window views -- the
-                                # round-3d window fetch applied to the half
-                                # sweep; VERDICT r3 item 2a re-test)
-    half_materialize: bool = False  # half sweep: optimization_barrier the
-                                # per-pair products before the dual i/j
+    half_shell: bool = False    # port: every cell method runs the half-shell
+                                # CUDA kernel (K2, ops/cuda/stencil.py).
+                                # comd_tpu: cell sweeps evaluate each pair
+                                # once (Newton's 3rd law) and deliver the j
+                                # side by overlap-added shifted slices + a
+                                # halo fold (the reference's half-list
+                                # kernels, ljForce.c:146-265).  Measured on
+                                # v5e the full sweep WINS despite 1.9x more
+                                # pair evaluations (the i- and j-side
+                                # reductions each rematerialize the pair
+                                # block, and the dense j-delivery adds
+                                # traffic; see docs/BENCHMARKS.md), so this
+                                # is a parity/correctness path, off by
+                                # default.  Ignored by *_nl, cta_cell, -a.
+    half_fetch: str = "slices"  # port: accepted and ignored (one half
+                                # kernel).  comd_tpu: half-sweep j delivery:
+                                # "slices" (one dynamic slice per stencil
+                                # offset, 14 per chunk -- the round-2
+                                # formulation) or "window" (ONE contiguous
+                                # window per chunk, offsets as static
+                                # in-window views -- the round-3d window
+                                # fetch applied to the half sweep; VERDICT
+                                # r3 item 2a re-test)
+    half_materialize: bool = False  # port: accepted and ignored.
+                                # comd_tpu: half sweep: optimization_barrier
+                                # the per-pair products before the dual i/j
                                 # reduction, forcing ONE materialization of
                                 # the pair block instead of a remat per
                                 # reduce side (the suspected round-2

@@ -1,16 +1,21 @@
-"""Carry a comd_tpu state into the port.
+"""Carry a comd_tpu state and potential into the port.
 
 ``state_from_numpy`` turns a comd_tpu ``SimState`` passed as
 ``{field: np.asarray(getattr(state, field))}`` into the port's SimState, so
-both packages can step from the identical state.  The potential needs no
-conversion: both read the same ``pots/`` file and fit the same Chebyshev
-coefficients.
+both packages can step from the identical state.  ``lj_potential_from_fields``
+builds the port's LjPotential from a comd_tpu LjPotential's fields
+(``dataclasses.asdict``), so a test can show both packages hold the same LJ
+parameters.  An EAM potential needs no conversion: both packages read the
+same ``pots/`` file and fit the same Chebyshev coefficients.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from .potentials.lj import LjPotential
 from .sim import SimState
 
 FIELDS = ("r", "p", "f", "gid", "n_atoms", "e_potential", "n_local",
@@ -27,3 +32,13 @@ def state_from_numpy(arrays: dict, device) -> SimState:
     return SimState(**{
         k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
         for k in FIELDS})
+
+
+def lj_potential_from_fields(fields: dict) -> LjPotential:
+    """The port's LjPotential from a comd_tpu LjPotential's fields, given as
+    plain numbers and strings keyed by field name."""
+    names = [f.name for f in dataclasses.fields(LjPotential)]
+    if sorted(fields) != sorted(names):
+        raise KeyError(f"lj_potential_from_fields: expected fields {names}, "
+                       f"got {sorted(fields)}")
+    return LjPotential(**fields)

@@ -31,17 +31,35 @@ EMPTY_GID = np.int32(2**31 - 1)
 
 @dataclasses.dataclass(frozen=True)
 class GeomMaps:
-    """The CellGeometry index maps as device tensors (built once)."""
+    """The CellGeometry index maps as device tensors (built once).
+
+    ``half_nbr_map`` is the half-shell neighbor set: self first, then one
+    offset of each +/- pair.  ``nbr_map`` orders its 27 offsets as
+    9(dx+1) + 3(dy+1) + (dz+1), so the index of -o is 26 - (index of o) and
+    columns 13..26 (self, then the offsets with index > 13) hold self and
+    exactly one of every opposite pair.  It is taken by that geometric rule
+    from ``nbr_map``'s columns, never by sorting box ids (which -H Hilbert
+    numbering would scramble).  comd_tpu's half sweeps use the other half
+    (positive offsets in dense x-fastest order), so folded results agree
+    with comd_tpu's only up to reassociation and the unfolded halo rows
+    differ.
+    """
     nbr_map: torch.Tensor       # [n_local, 27] int32
+    half_nbr_map: torch.Tensor  # [n_local, 14] int32, self first
     halo_src: torch.Tensor      # [n_halo] int64
     halo_shift: torch.Tensor    # [n_halo, 3] dynamics dtype
     box_of_tuple: torch.Tensor  # [gx, gy, gz] int64 local numbering
 
 
+#: column of the self cell in ``nbr_map`` (offset (0, 0, 0))
+SELF_COLUMN = 13
+
+
 def geom_maps(geom: CellGeometry, dtype: torch.dtype, device) -> GeomMaps:
+    nbr = torch.as_tensor(geom.nbr_map, dtype=torch.int32, device=device)
     return GeomMaps(
-        nbr_map=torch.as_tensor(geom.nbr_map, dtype=torch.int32,
-                                device=device).contiguous(),
+        nbr_map=nbr.contiguous(),
+        half_nbr_map=nbr[:, SELF_COLUMN:].contiguous(),
         halo_src=torch.as_tensor(geom.halo_src, dtype=torch.int64,
                                  device=device),
         halo_shift=torch.as_tensor(geom.halo_shift, dtype=dtype,

@@ -8,11 +8,12 @@ Algorithm per the reference (src-mpi/eam.c:44-86):
   -- halo fill of dfEmbed (haloExchange(forceExchange), eam.c:241/370) --
   pass 3 (pairs): f_i -= (dfEmbed_i + dfEmbed_j) * rho'(r_ij) * rhat
 
-Passes 1 and 3 run on the CUDA cell-stencil kernel (ops/cuda/stencil.py;
-its plain PyTorch version on CPU tensors).  Pass 2 is per-atom, 27x fewer
-evaluations than a pair pass, and stays torch ops: the direct quadratic
-interpolation of F (eam.c:557-579).  This is comd_tpu's eam_force_pallas
-contract (half=False).
+Passes 1 and 3 run on the CUDA cell-stencil kernels (ops/cuda/stencil.py;
+their plain PyTorch versions on CPU tensors): the full-shell K1 in
+``eam_force`` and the half-shell K2 in ``eam_force_half``.  Pass 2 is
+per-atom, 27x fewer evaluations than a pair pass, and stays torch ops: the
+direct quadratic interpolation of F (eam.c:557-579).  These are comd_tpu's
+eam_force_pallas contracts (half=False and half=True).
 """
 from __future__ import annotations
 
@@ -95,6 +96,48 @@ def eam_force(
 
     f3 = stencil.eam_pass3(r, nbr_map, ev, df_embed, box_chunk=box_chunk)
     return f1 + f3, u, df_embed
+
+
+def eam_force_half(
+    geom: CellGeometry,
+    half_nbr_map: torch.Tensor,  # [n_local, 14] int32 on r's device
+    r: torch.Tensor,             # [3, B, A] with halo cells filled
+    ev: PairEvaluator,
+    f_eval: Callable,            # make_f_eval
+    fill_halo_scalar: Callable,  # [B, A] field -> field with halo filled
+    fold: Callable,              # [..., B, A] -> [..., n_local, A]
+    *,
+    e_dtype: torch.dtype = torch.float64,
+    want_energy: bool = True,
+    box_chunk: int = 256,
+):
+    """EAM with Newton's-3rd-law half sweeps for passes 1 and 3 (each pair
+    evaluated once, the reference's half-list kernels, eam.c:266-419).
+
+    Pass 1 on K2, then ``fold`` delivers the halo rows of rhobar and
+    phi_sum to their owners; pass 2 as in ``eam_force``; the dfEmbed halo
+    fill; pass 3 on K2; the two dense force passes are folded once (fold is
+    linear).  Returns (force [3, n_local, A], U_raw [n_local, A] | None,
+    dfEmbed [B, A]).
+    """
+    B, A = r.shape[1], r.shape[2]
+    n_local = geom.n_local
+
+    f1d, phi_d, rho_d = stencil.eam_pass1_half(
+        r, half_nbr_map, ev, want_energy=want_energy, box_chunk=box_chunk)
+    rhobar = fold(rho_d)
+
+    f_emb, df_emb = f_eval(rhobar)
+    u = (0.5 * fold(phi_d).to(e_dtype) + f_emb.to(e_dtype)
+         if want_energy else None)
+
+    df_embed = torch.zeros((B, A), dtype=r.dtype, device=r.device)
+    df_embed[:n_local] = df_emb
+    df_embed = fill_halo_scalar(df_embed)
+
+    f3d = stencil.eam_pass3_half(r, half_nbr_map, ev, df_embed,
+                                 box_chunk=box_chunk)
+    return fold(f1d + f3d), u, df_embed
 
 
 def finalize_eam_energy(u, valid_mask, e_dtype=torch.float64):

@@ -1,0 +1,69 @@
+"""Lennard-Jones force and energy over link cells.
+
+Physics of the reference CPU oracle (ljForceCpuNL, src-mpi/ljForce.c:
+146-265), as comd_tpu.ops.force_lj computes it:
+
+  e_pair = r6*(r6-1) - eShift          (unscaled; x 4*epsilon at the end)
+  f_i   += 4*eps*r6*invr2*(12*r6-6) * (r_i - r_j)
+
+``lj_force`` sweeps the full 27-cell shell on K1 (every pair visited from
+both sides, energy halved); ``lj_force_half`` evaluates each pair once on
+K2 and folds the halo rows back to their owners.  Both run the CUDA kernels
+of ops/cuda/stencil.py on CUDA tensors and their plain PyTorch versions on
+CPU tensors.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..potentials.lj import LjPotential
+from ..potentials.tables import as_dtype
+from .cuda import stencil
+from .cuda.stencil import PairEvaluator
+
+
+def make_lj_evaluator(pot: LjPotential, dtype: torch.dtype) -> PairEvaluator:
+    """The LJ pair constants rounded to ``dtype``, as comd_tpu rounds them
+    (``dtype.type(...)`` in make_lj_pair_fn)."""
+    return PairEvaluator(
+        kind="lj", dtype=dtype, rcut2=as_dtype(pot.cutoff * pot.cutoff, dtype),
+        s6=as_dtype(pot.s6, dtype), eps4=as_dtype(4.0 * pot.epsilon, dtype),
+        e_shift=as_dtype(pot.e_shift, dtype))
+
+
+def _energy(pot: LjPotential, e, e_dtype):
+    # the atom sum counts every pair twice (full sweep, or both deliveries
+    # of the half sweep) -> x0.5, then the global 4*epsilon (ljForce.c:
+    # 256-261)
+    u = (0.5 * 4.0 * pot.epsilon) * e.to(e_dtype)
+    return u, u.sum()
+
+
+def lj_force(nbr_map: torch.Tensor, pot: LjPotential, r: torch.Tensor,
+             ev: PairEvaluator, *, e_dtype: torch.dtype = torch.float64,
+             want_energy: bool = True, box_chunk: int = 256):
+    """LJ on K1.  Returns (force [3, n_local, A], U [n_local, A] | None,
+    ePot | None); U and ePot in ``e_dtype``."""
+    f, e = stencil.lj_pass(r, nbr_map, ev, want_energy=want_energy,
+                           box_chunk=box_chunk)
+    if not want_energy:
+        return f, None, None
+    return (f,) + _energy(pot, e, e_dtype)
+
+
+def lj_force_half(half_nbr_map: torch.Tensor, pot: LjPotential,
+                  r: torch.Tensor, ev: PairEvaluator, fold: Callable, *,
+                  e_dtype: torch.dtype = torch.float64,
+                  want_energy: bool = True, box_chunk: int = 256):
+    """LJ on K2, each pair evaluated once; ``fold`` maps the dense
+    [..., B, A] contributions to [..., n_local, A].  Returns
+    (force [3, n_local, A], U [n_local, A] | None, ePot | None)."""
+    fd, ed = stencil.lj_pass_half(r, half_nbr_map, ev,
+                                  want_energy=want_energy,
+                                  box_chunk=box_chunk)
+    f = fold(fd)
+    if not want_energy:
+        return f, None, None
+    return (f,) + _energy(pot, fold(ed), e_dtype)

@@ -1,4 +1,4 @@
-"""Simulation assembly and the velocity-Verlet step (serial, EAM).
+"""Simulation assembly and the velocity-Verlet step (serial, EAM and LJ).
 
 Port of comd_tpu.sim's serial half on PyTorch:
   - SimFlat / SimGpu state          -> one SimState dataclass of tensors
@@ -26,9 +26,11 @@ import torch
 from . import cells, lattice
 from .config import Config
 from .constants import KB_EV
-from .ops import binning, force_eam
+from .ops import binning, force_eam, force_lj
 from .ops.neighborlist import needs_rebuild
+from .ops.sweep import fold_halo_serial
 from .potentials.eam import EamPotential, init_eam_pot
+from .potentials.lj import LjPotential, init_lj_pot
 
 
 @dataclasses.dataclass
@@ -61,14 +63,10 @@ def not_ported(what: str, item: str):
 
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a configuration outside the port."""
-    if not cfg.doeam:
-        not_ported("Lennard-Jones (a run without -e)", "7")
     if cfg.lj_interpolation:
         not_ported("-I table-interpolated LJ", "7")
     if cfg.spline:
         not_ported("-P spline tables", "8")
-    if cfg.half_shell:
-        not_ported("--halfShell", "9")
     if cfg.use_nl or cfg.use_pairlist:
         not_ported(f"the neighbor-list methods (-m {cfg.method}, -L)", "11")
     if cfg.nprocs > 1:
@@ -83,7 +81,7 @@ def check_slice(cfg: Config) -> None:
 class Simulation:
     """Host-side handle: static params + device state + step functions."""
     cfg: Config
-    pot: EamPotential
+    pot: EamPotential | LjPotential
     geom: cells.CellGeometry
     global_extent: np.ndarray        # [3]
     n_global: int
@@ -96,10 +94,14 @@ class Simulation:
         self.device = torch.device(cfg.device)
         self.dtype = cfg.torch_dtype
         self.maps = binning.geom_maps(self.geom, self.dtype, self.device)
-        self.pair_eval = force_eam.make_pair_evaluator(
-            self.pot, self.dtype, self.device, cfg.resolved_interp_impl)
-        self.f_eval = force_eam.make_f_eval(self.pot, self.dtype,
-                                            self.device)
+        self.is_eam = isinstance(self.pot, EamPotential)
+        if self.is_eam:
+            self.pair_eval = force_eam.make_pair_evaluator(
+                self.pot, self.dtype, self.device, cfg.resolved_interp_impl)
+            self.f_eval = force_eam.make_f_eval(self.pot, self.dtype,
+                                                self.device)
+        else:
+            self.pair_eval = force_lj.make_lj_evaluator(self.pot, self.dtype)
         self.last_r = None
         self.n_rebucket = 0          # lazy/eager rebuckets so far
         slot = torch.arange(cfg.max_atoms, device=self.device)
@@ -129,17 +131,39 @@ class Simulation:
     # ---------------- force + energy ----------------
 
     def force(self, r, n_atoms, want_energy: bool = True):
-        """The EAM force (comd_tpu's ``_force_fn``): returns (f_loc
-        [3, n_local, A], U [n_local, A] | None, ePot | None);
-        ``want_energy=False`` skips the energy terms."""
-        geom = self.geom
-        f_loc, u_raw, _dfe = force_eam.eam_force(
-            geom, self.maps.nbr_map, r, self.pair_eval, self.f_eval,
-            lambda x: binning.fill_halo_scalar_serial(geom, self.maps, x),
-            e_dtype=self.cfg.torch_energy_dtype, want_energy=want_energy,
-            box_chunk=self.cfg.resolved_box_chunk)
+        """The force (comd_tpu's ``_force_fn``): EAM or LJ, on the
+        full-shell K1 or, with ``--halfShell`` (whatever the cell method),
+        the half-shell K2.  Returns (f_loc [3, n_local, A],
+        U [n_local, A] | None, ePot | None); ``want_energy=False`` skips the
+        energy terms."""
+        geom, maps, cfg = self.geom, self.maps, self.cfg
+        kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
+                  box_chunk=cfg.resolved_box_chunk)
+        half = cfg.half_shell
+
+        def fold(x):
+            return fold_halo_serial(geom, maps, x)
+
+        def fill(x):
+            return binning.fill_halo_scalar_serial(geom, maps, x)
+
+        if not self.is_eam:
+            if half:
+                return force_lj.lj_force_half(maps.half_nbr_map, self.pot, r,
+                                              self.pair_eval, fold, **kw)
+            return force_lj.lj_force(maps.nbr_map, self.pot, r,
+                                     self.pair_eval, **kw)
+        if half:
+            f_loc, u_raw, _dfe = force_eam.eam_force_half(
+                geom, maps.half_nbr_map, r, self.pair_eval, self.f_eval,
+                fill, fold, **kw)
+        else:
+            f_loc, u_raw, _dfe = force_eam.eam_force(
+                geom, maps.nbr_map, r, self.pair_eval, self.f_eval, fill,
+                **kw)
         if u_raw is None:
             return f_loc, None, None
+        # EAM: pass 2 gives every slot F(rhobar = 0) != 0; mask the empties
         valid = self._slot < n_atoms[:geom.n_local, None]
         u, e_pot = force_eam.finalize_eam_energy(
             u_raw, valid, self.cfg.torch_energy_dtype)
@@ -267,11 +291,12 @@ def _sync(device: torch.device) -> None:
 
 def init_simulation(cfg: Config, timers=None) -> Simulation:
     """Build the initial state (initSimulation, CoMD.c:200-327) on
-    ``cfg.device``.  Serial EAM only: other configurations raise
+    ``cfg.device``.  Serial EAM or LJ: other configurations raise
     NotImplementedError (``check_slice``)."""
     cfg = cfg.resolve()
     check_slice(cfg)
-    pot = init_eam_pot(cfg.pot_dir, cfg.pot_name, cfg.pot_type)
+    pot = (init_eam_pot(cfg.pot_dir, cfg.pot_name, cfg.pot_type)
+           if cfg.doeam else init_lj_pot(cfg.lj_cutoff_factor))
 
     lat = cfg.lat if cfg.lat > 0 else pot.lat
     global_extent = np.array([cfg.nx, cfg.ny, cfg.nz], np.float64) * lat

@@ -2,10 +2,13 @@
 
 ``python -m comd_tpu_torch.cli`` must print the same "Initial energy",
 per-step energies and validation numbers as ``python -m comd_tpu.cli`` for
-the same command line (within 1e-9 at f64), with no atoms lost.  Every
-option outside the ported slice raises NotImplementedError naming the
-ROADMAP.md item that ports it, instead of running something else.
+the same command line (within 1e-9 at f64), with no atoms lost: EAM, LJ,
+and both with ``--halfShell``.  ``--halfFetch``/``--halfMaterialize`` are
+accepted and change nothing.  Every option outside the ported slice raises
+NotImplementedError naming the ROADMAP.md item that ports it, instead of
+running something else.
 """
+import io
 import os
 import re
 import subprocess
@@ -24,8 +27,8 @@ ARGS = ["-e", "-x", "4", "-y", "4", "-z", "4", "-N", "10", "-n", "5",
         "--dtype", "float64"]
 
 
-def _run(module, *extra):
-    out = subprocess.run([sys.executable, "-m", module, *ARGS, *extra],
+def _run(module, *extra, args=ARGS):
+    out = subprocess.run([sys.executable, "-m", module, *args, *extra],
                          capture_output=True, text=True, cwd=REPO, env=ENV,
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
@@ -59,6 +62,38 @@ def test_cli_matches_comd_tpu():
     assert got[3] == ref[3] == 256
 
 
+@pytest.mark.parametrize("extra", [[], ["--halfShell"], ["-e", "--halfShell"]])
+def test_cli_lj_and_half_shell_match_comd_tpu(extra):
+    """LJ (no -e) full and half, and EAM --halfShell: the same printThings
+    table as comd_tpu's CLI on the same flags, energies within 1e-9."""
+    args = [a for a in ARGS if a != "-e"] + extra
+    ref = _numbers(_run("comd_tpu.cli", args=args))
+    out = _run("comd_tpu_torch.cli", "--device", "cpu", args=args)
+    assert ("Lennard-Jones" in out) == ("-e" not in extra)
+    got = _numbers(out)
+    assert got[0] == pytest.approx(ref[0], abs=1e-9)
+    assert len(got[1]) == len(ref[1]) == 3
+    for row_t, row_j in zip(got[1], ref[1]):
+        assert row_t[:3] == pytest.approx(row_j[:3], abs=1e-9)
+        assert row_t[3] == pytest.approx(row_j[3], abs=1e-4)
+    for k in ref[2]:
+        assert got[2][k] == pytest.approx(ref[2][k], abs=1e-9)
+    assert got[3] == ref[3] == 256
+
+
+def test_half_fetch_changes_nothing():
+    """--halfFetch window and --halfMaterialize are accepted for parity and
+    ignored: the printed numbers are those of the plain --halfShell run."""
+    outs = []
+    for extra in ([], ["--halfFetch", "window", "--halfMaterialize"]):
+        buf = io.StringIO()
+        tcli.run(tcli.config_from_args(tcli.build_parser().parse_args(
+            ARGS + ["-N", "4", "-n", "2", "--halfShell", "--device", "cpu"]
+            + extra)), out=buf)
+        outs.append(_numbers(buf.getvalue()))
+    assert outs[0] == outs[1]
+
+
 @pytest.mark.parametrize("method", ["thread_atom", "warp_atom", "cta_cell"])
 def test_cell_methods_run_the_stencil(method, capsys):
     """Every cell-sweep method name runs the one stencil path."""
@@ -69,10 +104,10 @@ def test_cell_methods_run_the_stencil(method, capsys):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["-x", "4"], "7"),                     # no -e: Lennard-Jones
+    (["-I"], "7"),                          # table-interpolated LJ
     (["-e", "-I"], "7"),
     (["-e", "-P"], "8"),
-    (["-e", "--halfShell"], "9"),
+    (["-I", "--halfShell"], "7"),
     (["-e", "-m", "thread_atom_nl"], "11"),
     (["-e", "-m", "warp_atom_nl"], "11"),
     (["-e", "-m", "cpu_nl"], "11"),

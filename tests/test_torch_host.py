@@ -4,10 +4,18 @@ The port copies comd_tpu's numpy host code (lattice, per-gid RNG streams,
 cell geometry and planning, table readers, Chebyshev fits); these tests hold
 every such array equal to the reference's, and check that the port never
 imports jax.
+
+Both packages build the native scene library (native/comd_init.cpp) at first
+use.  comd_tpu's loader compiles straight into its final path, so a test
+process that loads it while another process is still writing it falls back
+for good to numpy's gasdev, which is 1 ulp off glibc for ~0.1% of draws;
+the bit-equality test therefore waits until the reference's library really
+loads and checks that both packages draw natively.
 """
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -17,11 +25,13 @@ from comd_tpu import cells as jcells, lattice as jlattice, rng as jrng
 from comd_tpu.potentials import eam as jeam
 from comd_tpu.sim import plan_geometry as j_plan_geometry
 from comd_tpu.config import Config as JConfig
+from comd_tpu.utils import native as jnative
 
 from comd_tpu_torch import cells as tcells, lattice as tlattice, rng as trng
 from comd_tpu_torch.potentials import eam as team
 from comd_tpu_torch.sim import plan_geometry as t_plan_geometry
 from comd_tpu_torch.config import Config as TConfig
+from comd_tpu_torch.utils import native as tnative
 
 torch.set_num_threads(1)
 
@@ -38,8 +48,23 @@ def _scene(pkg_lattice, n, temp, delta, mass):
     return r, gid, p
 
 
+def _wait_for_reference_native(timeout: float = 180.0) -> bool:
+    """True once comd_tpu's native library is loaded.  Its loader gives up
+    for good after one failed load (``_tried``), which is what a load of a
+    library still being written by a concurrent build gives; reset it and
+    retry until that build is done, for at most ``timeout`` seconds."""
+    deadline = time.monotonic() + timeout
+    while not jnative.available() and time.monotonic() < deadline:
+        time.sleep(0.5)
+        with jnative._lock:
+            jnative._tried, jnative._lib = False, None
+    return jnative.available()
+
+
 @pytest.mark.parametrize("n,temp,delta", [(6, 600.0, 0.0), (5, 1500.0, 0.2)])
 def test_lattice_and_momenta_bit_equal(n, temp, delta):
+    assert _wait_for_reference_native(), "comd_tpu's native library"
+    assert tnative.available(), "comd_tpu_torch's native library"
     mass = jeam.read_funcfl(os.path.join(POTS, "Cu_u6.eam")).mass
     rj, gj, pj = _scene(jlattice, n, temp, delta, mass)
     rt, gt, pt = _scene(tlattice, n, temp, delta, mass)
@@ -122,7 +147,10 @@ def test_tables_and_cheb_coefficients_bit_equal(fname, reader):
 
 def test_port_never_imports_jax():
     code = ("import sys, comd_tpu_torch, comd_tpu_torch.cli, "
-            "comd_tpu_torch.interop, comd_tpu_torch.ops.cuda.stencil; "
+            "comd_tpu_torch.interop, comd_tpu_torch.ops.cuda.stencil, "
+            "comd_tpu_torch.ops.force_lj, comd_tpu_torch.potentials.lj; "
+            "from comd_tpu_torch.ops.cuda.stencil import eam_pass1_half, "
+            "eam_pass3_half, lj_pass_half, lj_pass; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'comd_tpu' or "
             "m.startswith('comd_tpu.')]; print(bad); "

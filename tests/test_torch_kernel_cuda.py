@@ -1,4 +1,5 @@
-"""The CUDA cell-stencil kernel on the card, against its plain version.
+"""The CUDA cell-stencil kernels (K1, K2) on the card, against their plain
+versions.
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -6,8 +7,10 @@ Run on a machine with an NVIDIA GPU and nvcc:
 
 Imports torch and comd_tpu_torch only (the card's machine has no jax).
 Without a CUDA device every test skips.  Tolerances: f32/Chebyshev forces
-atol 1e-4 eV/A and phi-sum/rhobar rtol 1e-5 (the kernel sums in another
-order); f64/table rtol 1e-12 (forces also atol 1e-12 * max|f|).
+atol 1e-4 eV/A and phi-sum/rhobar rtol 1e-5 (the kernels sum in another
+order, K2 with atomics in an order that changes from run to run); f64
+rtol 1e-12 (forces also atol 1e-12 * max|f|).  K2's outputs are compared
+dense and unfolded: kernel and plain version use the same half map.
 """
 import os
 
@@ -24,6 +27,8 @@ POTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "pots")
 GOLDEN_EAM_ADAMS = -3.538079224691
 GOLDEN_EAM_MISHIN = -3.539999969176
+GOLDEN_LJ = -1.243619295058
+GOLDEN_LJ_5SIGMA = -1.406590686466
 
 pytestmark = pytest.mark.cuda
 
@@ -35,8 +40,8 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _sim(dtype, impl, n, device, **kw):
-    sim = init_simulation(Config(nx=n, ny=n, nz=n, doeam=True,
+def _sim(dtype, impl, n, device, doeam=True, **kw):
+    sim = init_simulation(Config(nx=n, ny=n, nz=n, doeam=doeam,
                                  temperature=600.0, dtype=dtype,
                                  interp_impl=impl, pot_dir=POTS,
                                  device=device, **kw))
@@ -57,7 +62,7 @@ def _close(a, b, atol, rtol):
 def test_kernel_matches_plain(cuda_device, dtype, impl, n, max_atoms):
     sim = _sim(dtype, impl, n, "cuda", max_atoms=max_atoms)
     if max_atoms:
-        assert sim.cfg.max_atoms == st.MAX_A
+        assert sim.cfg.max_atoms == max_atoms
     r, nbr, ev = sim.state.r, sim.maps.nbr_map, sim.pair_eval
     f_atol, s_rtol, f_rtol = ((1e-4, 1e-5, 0.0) if dtype == "float32"
                               else (0.0, 1e-12, 1e-12))
@@ -77,7 +82,76 @@ def test_kernel_matches_plain(cuda_device, dtype, impl, n, max_atoms):
     binning.fill_halo_scalar_serial(sim.geom, sim.maps, dfe)
     f3k = st.eam_pass3(r, nbr, ev, dfe)
     _close(f3k, st.eam_pass3_plain(r, nbr, ev, dfe), f_atol, f_rtol)
-    assert st.LAUNCHES == {"eam_pass1": 2, "eam_pass3": 1}
+    assert (st.LAUNCHES["eam_pass1"], st.LAUNCHES["eam_pass3"]) == (2, 1)
+
+
+def _tols(dtype):
+    return (1e-4, 1e-5, 0.0) if dtype == "float32" else (0.0, 1e-12, 1e-12)
+
+
+@pytest.mark.parametrize("dtype,impl,n,max_atoms", [
+    ("float32", "cheb", 6, 0), ("float32", "cheb", 10, 0),
+    ("float64", "rows", 6, 0), ("float32", "cheb", 6, 40),
+    ("float64", "rows", 6, 40)])
+def test_half_kernel_matches_plain(cuda_device, dtype, impl, n, max_atoms):
+    """K2, EAM passes 1 (with and without energy) and 3, dense outputs;
+    at A = 40 a cell's threads span two warps."""
+    sim = _sim(dtype, impl, n, "cuda", half_shell=True, max_atoms=max_atoms)
+    r, hm, ev = sim.state.r, sim.maps.half_nbr_map, sim.pair_eval
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    st.reset_launch_counts()
+    fk, pk, rk = st.eam_pass1_half(r, hm, ev, want_energy=True)
+    fk2, pk2, rk2 = st.eam_pass1_half(r, hm, ev, want_energy=False)
+    fp, pp, rp = st.eam_pass1_half_plain(r, hm, ev, want_energy=True)
+    assert pk2 is None and fk.shape == (3, sim.geom.n_total, r.shape[2])
+    for f in (fk, fk2):
+        _close(f, fp, f_atol, f_rtol)
+    for s_k, s_p in ((pk, pp), (rk, rp), (rk2, rp)):
+        _close(s_k, s_p, 0.0, s_rtol)
+    dfe = sim.state.r.new_zeros(r.shape[1:])
+    dfe[:sim.geom.n_local] = sim.f_eval(rp[:sim.geom.n_local])[1]
+    binning.fill_halo_scalar_serial(sim.geom, sim.maps, dfe)
+    _close(st.eam_pass3_half(r, hm, ev, dfe),
+           st.eam_pass3_half_plain(r, hm, ev, dfe), f_atol, f_rtol)
+    assert (st.LAUNCHES["half_eam_pass1"], st.LAUNCHES["half_eam_pass3"]) \
+        == (2, 1)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lj_kernels_match_plain(cuda_device, dtype):
+    """K1's and K2's LJ variants, with and without energy."""
+    sim = _sim(dtype, "auto", 8, "cuda", doeam=False)
+    r, ev = sim.state.r, sim.pair_eval
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    st.reset_launch_counts()
+    for fn, plain, nbr in ((st.lj_pass, st.lj_pass_plain, sim.maps.nbr_map),
+                           (st.lj_pass_half, st.lj_pass_half_plain,
+                            sim.maps.half_nbr_map)):
+        fp, ep = plain(r, nbr, ev)
+        fk, ek = fn(r, nbr, ev)
+        fk2, ek2 = fn(r, nbr, ev, want_energy=False)
+        assert ek2 is None
+        for f in (fk, fk2):
+            _close(f, fp, f_atol, f_rtol)
+        _close(ek, ep, 1e-6 * float(ep.abs().max()), s_rtol)
+    assert (st.LAUNCHES["lj"], st.LAUNCHES["half_lj"]) == (2, 2)
+
+
+@pytest.mark.parametrize("doeam,n,factor,golden", [
+    (False, 6, 2.5, GOLDEN_LJ), (False, 8, 5.0, GOLDEN_LJ_5SIGMA),
+    (True, 6, 2.5, GOLDEN_EAM_ADAMS)])
+@pytest.mark.parametrize("half", [False, True])
+def test_lj_and_half_goldens_on_card(cuda_device, doeam, n, factor, golden,
+                                     half):
+    """The LJ goldens (5 sigma: A ~ 256 on a 2^3 grid, the kernels' tiled
+    i and j loops) and the Adams golden with --halfShell, f64, T = 0."""
+    sim = init_simulation(Config(nx=n, ny=n, nz=n, doeam=doeam,
+                                 lj_cutoff_factor=factor, half_shell=half,
+                                 temperature=0.0, dtype="float64",
+                                 pot_dir=POTS, device="cuda"))
+    if factor == 5.0:
+        assert sim.cfg.max_atoms > 128 and sim.geom.grid == (2, 2, 2)
+    assert sim.e_potential / sim.n_global == pytest.approx(golden, abs=1e-9)
 
 
 def test_kernel_rejects_oversized_cells(cuda_device):

@@ -146,7 +146,7 @@ def test_wrapper_runs_plain_on_cpu_without_launching(f32):
     st.reset_launch_counts()
     got1 = st.eam_pass1(rt, nbr, ev)
     got3 = st.eam_pass3(rt, nbr, ev, dt)
-    assert st.LAUNCHES == {"eam_pass1": 0, "eam_pass3": 0}
+    assert all(v == 0 for v in st.LAUNCHES.values())
     for a, b in zip(got1, st.eam_pass1_plain(rt, nbr, ev)):
         assert torch.equal(a, b)
     assert torch.equal(got3, st.eam_pass3_plain(rt, nbr, ev, dt))
