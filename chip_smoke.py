@@ -34,13 +34,32 @@ the first error:
                  final states; K2's times beside K1's and the plain versions.
   9. LJ main  -- 63^3 LJ f32 (A = 32, 35^3 cells), full (K1) and
                  --halfShell (K2), 100 steps each, the same checks and times.
+ 10. comm kernels -- K3 (ring_push) and K4 (pass2_push) against their plain
+                 versions on a thermalized 10^3 EAM state on a 2x2x2 mesh of
+                 shards, f32 and f64, bitwise: K3 for the dfEmbed planes of
+                 all three stages and for the atom buffers, K4 against pass
+                 2's F' at the same rows.
+ 11. sharded goldens -- f64, T = 0, within 1e-9: Adams 6^3 on 2x2x2 with
+                 --commImpl ki_fused, full shell and --halfShell; LJ 12x8x4
+                 on 3x2x1 with --commImpl ki (2 cells per shard axis).
+ 12. sharded main -- the 63^3 headline on a 2x2x2 mesh of shards on the one
+                 card, --commImpl ki_fused, then collective: the run_main
+                 checks, K1 passes 1 and 3, K3 and K4 launched on every step,
+                 the final r and ePot of the two transports equal bit for
+                 bit, the initial ePot within 1e-6 of phase 5's; K3 and K4
+                 against their plain versions at that state and their times
+                 beside their plain versions and bounds.  Eight shards on
+                 one card measure the decomposition's overhead against the
+                 serial run, not scaling.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch and comd_tpu_torch only; builds everything
-from this checkout.
+from this checkout (the two kernel sources with one nvcc each, in
+parallel).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import re
@@ -54,8 +73,12 @@ GOLDEN_EAM_ADAMS = -3.538079224691
 GOLDEN_LJ = -1.243619295058
 GOLDEN_LJ_5SIGMA = -1.406590686466
 SOURCE = "comd_tpu_torch/csrc/stencil.cu"
+COMM_SOURCE = "comd_tpu_torch/csrc/comm.cu"
 REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
-            "half": "comd_tpu/ops/pallas/stencil.py:204"}
+            "half": "comd_tpu/ops/pallas/stencil.py:204",
+            "ring_push": "comd_tpu/parallel/pallas_comm.py:39",
+            "pass2_push": "comd_tpu/parallel/pallas_comm.py:265"}
+MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -328,10 +351,103 @@ def half_vs_full(sim) -> float:
     s = sim.state
     f_half, _u, _e = sim.force(s.r, s.n_atoms, want_energy=False)
     f_full, _u, _d = force_eam.eam_force(
-        sim.geom, sim.maps.nbr_map, s.r, sim.pair_eval, sim.f_eval,
-        lambda x: binning.fill_halo_scalar_serial(sim.geom, sim.maps, x),
-        want_energy=False)
+        sim.maps.nbr_map, [s.r], sim.pair_eval, sim.f_eval,
+        lambda xs, _rhobar: [binning.fill_halo_scalar_serial(
+            sim.geom, sim.maps, x) for x in xs],
+        want_energy=False)[0]
     return float((f_half - f_full).abs().max())
+
+
+def check_comm(sim, tag: str) -> dict:
+    """K3 and K4 against their plain versions on sim's shards (CUDA
+    tensors), bitwise.  K3: every dfEmbed push of the staged exchange, in
+    order (the y and z planes carry what x and y delivered), and the atom
+    message of every face.  K4: both x-stage pushes; its local planes equal
+    pass 2's F' at the same rows and the written rows equal the plain
+    version's.  Returns ({kernel: max abs error}, (dfEmbed, rhobar))."""
+    import torch
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import stencil as st
+    h, states = sim.halo, sim.states
+    nbr, ev = sim.maps.nbr_map, sim.pair_eval
+    rhobar = [st.eam_pass1(s.r, nbr, ev, want_energy=False)[2]
+              for s in states]
+    dfe = []
+    for s, rho in zip(states, rhobar):
+        d = torch.zeros_like(s.gid, dtype=s.r.dtype)
+        d[:rho.shape[0]] = sim.f_eval(rho)[1]
+        dfe.append(d)
+
+    def diff(a, b):
+        return max(float((x.double() - y.double()).abs().max())
+                   for x, y in zip(a, b))
+
+    err = {"ring_push": 0.0, "pass2_push": 0.0}
+    a = [d.clone() for d in dfe]
+    b = [d.clone() for d in dfe]
+    n_push = 0
+    for axis in range(3):
+        (s_m, s_p), (r_m, r_p) = h.force_send[axis], h.force_recv[axis]
+        for to, send, recv in ((h.minus[axis], s_m, r_p),
+                               (h.plus[axis], s_p, r_m)):
+            cm.ring_push([(a, a)], to, send, recv)
+            cm.ring_push_plain([(b, b)], to, send, recv)
+            torch.cuda.synchronize()
+            check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                  f"{tag}: K3 dfEmbed push, axis {axis}: "
+                  f"|diff| {diff(a, b):.3e}")
+            n_push += 1
+    fields = [[s.r for s in states], [s.p for s in states],
+              [s.gid for s in states], [s.n_atoms for s in states]]
+    for axis in range(3):
+        for d, to in ((0, h.minus[axis]), (1, h.plus[axis])):
+            ids = h.atom_send[axis][d]
+            outs = []
+            for fn in (cm.ring_push, cm.ring_push_plain):
+                buf = [[torch.full((f[0].shape[0], ids.numel(), f[0].shape[2])
+                                   if f[0].dim() == 3 else
+                                   (ids.numel(),) + tuple(f[0].shape[1:]),
+                                   -1, dtype=f[0].dtype, device=f[0].device)
+                        for _ in f] for f in fields]
+                fn(list(zip(fields, buf)), to, ids)
+                outs.append(buf)
+            torch.cuda.synchronize()
+            for fk, fp in zip(*outs):
+                check(all(torch.equal(x, y) for x, y in zip(fk, fp)),
+                      f"{tag}: K3 atom message, axis {axis}, dir {d}")
+            n_push += 1
+    (s_m, s_p), (r_m, r_p) = h.force_send[0], h.force_recv[0]
+    for to, send, recv in ((h.minus[0], s_m, r_p), (h.plus[0], s_p, r_m)):
+        a = [d.clone() for d in dfe]
+        b = [d.clone() for d in dfe]
+        loc_k = cm.pass2_push(rhobar, a, to, send, recv, sim.f_eval)
+        loc_p = cm.pass2_push_plain(rhobar, b, to, send, recv, sim.f_eval)
+        ref = [sim.f_eval(rho)[1][send] for rho in rhobar]
+        torch.cuda.synchronize()
+        e = max(diff(loc_k, ref), diff(a, b))
+        err["pass2_push"] = max(err["pass2_push"], e)
+        check(all(torch.equal(x, y) for x, y in zip(loc_k, ref)) and
+              all(torch.equal(x, y) for x, y in zip(loc_p, ref)) and
+              all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{tag}: K4 against pass 2's F': |diff| {e:.3e}")
+    say("comm", f"{tag}: K3 bitwise on {n_push} pushes (6 dfEmbed planes, "
+        f"6 atom messages), K4 bitwise on both x pushes")
+    return err, (dfe, rhobar)
+
+
+def comm_bound(sim, rows: int, n_launch: int, read_table: bool) -> tuple:
+    """(bound_ms, "bytes") of one launch of ``n_launch`` K3 or K4 pushes
+    moving ``rows`` cell rows of every shard in all: each value read once
+    and written once (K4: read rho, write the local plane and the
+    neighbor's rows), the row lists read once, K4's table once."""
+    A = sim.cfg.max_atoms
+    esize = sim.states[0].r.element_size()
+    S = len(sim.states)
+    per_value = 3 if read_table else 2
+    nbytes = S * rows * A * esize * per_value + rows * 4 * 2
+    if read_table:
+        nbytes += n_launch * sim.f_eval.table.numel() * esize
+    return 1e3 * nbytes / PEAK_BYTES / n_launch, "bytes"
 
 
 def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,
@@ -370,13 +486,14 @@ def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,
     e1 = (sim.e_potential + sim.kinetic_energy()) / n
     n_atoms = sim.sum_atoms()
     check(n_atoms == n, f"{tag}: atoms lost: {n_atoms} of {n}")
-    check(not bool(sim.state.overflow), f"{tag}: cell capacity overflow")
+    check(not sim.overflow, f"{tag}: capacity overflow")
     check(abs(e1 / e0 - 1.0) < 1e-4, f"{tag}: eFinal/eInitial {e1 / e0!r}")
     for k in keys:
         check(launches[k] - at_init[k] >= n_steps,
               f"{tag}: {k} launched {launches[k] - at_init[k]} times in "
               f"{n_steps} steps")
     ms_step = 1e3 * t_loop / n_steps
+    sim.ms_step = ms_step
     say(tag, f"{HEADLINE_N}^3 n={n} A={sim.cfg.max_atoms} "
         f"grid={sim.geom.grid} "
         f"mode={sim.cfg.cell_mode} skin={sim.skin:.4f} "
@@ -406,6 +523,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import comm as cm
     from comd_tpu_torch.ops.cuda import stencil as st
 
     # 1. device
@@ -418,19 +536,25 @@ def main() -> int:
     say("device", f"{kind}, {count} visible, torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # 2. build
-    st.build()
-    log = os.path.join(st.BUILD_DIR, "stencil_ptxas.log")
-    regs, spills = [], []
-    if os.path.exists(log):
-        text = open(log).read()
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                             text)]
-    say("build", f"nvcc sm_90a in {st.BUILD_SECONDS:.1f} s; "
-        f"{len(regs)} kernels, registers {min(regs, default=0)}.."
-        f"{max(regs, default=0)}, max spill stores "
-        f"{max(spills, default=0)} bytes")
+    # 2. build: one nvcc per source, started together
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        list(pool.map(lambda m: m.build(), (st, cm)))
+    t_build = time.perf_counter() - t0
+    for mod, stem in ((st, "stencil"), (cm, "comm")):
+        log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
+        regs, spills = [], []
+        if os.path.exists(log):
+            text = open(log).read()
+            regs = [int(x) for x in re.findall(r"Used (\d+) registers",
+                                               text)]
+            spills = [int(x) for x in re.findall(
+                r"(\d+) bytes spill stores", text)]
+        say("build", f"{stem}.cu: nvcc sm_90a in {mod.BUILD_SECONDS:.1f} s; "
+            f"{len(regs)} kernels, registers {min(regs, default=0)}.."
+            f"{max(regs, default=0)}, max spill stores "
+            f"{max(spills, default=0)} bytes")
+    say("build", f"both sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -448,7 +572,11 @@ def main() -> int:
            doeam=True)
 
     # 5. main path at full width: the 63^3 headline run
-    sim, launches = run_main("main", ("eam_pass1", "eam_pass3"), doeam=True)
+    serial_epot = []
+    sim, launches = run_main(
+        "main", ("eam_pass1", "eam_pass3"), doeam=True,
+        on_init=lambda x: serial_epot.append(x.e_potential))
+    serial_ms = sim.ms_step
     rows = {}
     # K1 vs plain at the main path's shape (not counted: read above)
     errs, (r, nbr, ev, dfe, chunk) = compare_passes(
@@ -544,9 +672,95 @@ def main() -> int:
         rows[key] = kernel_row(sim, key, launches, errs[key], ms, plain_ms)
         del sim, r, ev, nbr
 
+    # 10. K3 and K4 against their plain versions, thermalized 10^3 EAM
+    for dtype in ("float32", "float64"):
+        sim = init_simulation(Config(
+            nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+            dtype=dtype, pot_dir=POTS, device="cuda", comm_impl="ki_fused",
+            **MESH))
+        sim.step_block(10)
+        check_comm(sim, f"10^3 {dtype} 2x2x2 A={sim.cfg.max_atoms} "
+                        f"grid={sim.geom.grid}")
+        del sim
+
+    # 11. sharded goldens (f64, T = 0)
+    for half in (False, True):
+        golden(f"Adams Cu 6^3 T=0 2x2x2 ki_fused"
+               f"{' --halfShell' if half else ''}", GOLDEN_EAM_ADAMS,
+               nx=6, ny=6, nz=6, doeam=True, half_shell=half,
+               comm_impl="ki_fused", **MESH)
+    golden("LJ 12x8x4 T=0 3x2x1 ki", GOLDEN_LJ, nx=12, ny=8, nz=4, xproc=3,
+           yproc=2, zproc=1, comm_impl="ki")
+
+    # 12. the headline on a 2x2x2 mesh of shards: ki_fused, then collective
+    final = {}
+    for ci in ("ki_fused", "collective"):
+        keys = ("eam_pass1", "eam_pass3") + (
+            ("ring_push", "pass2_push") if ci == "ki_fused" else ())
+        e0 = []
+        sim, launches_ci = run_main(
+            f"sharded main {ci}", keys, doeam=True, comm_impl=ci,
+            on_init=lambda x: e0.append(x.e_potential), **MESH)
+        rel = abs(e0[0] / serial_epot[0] - 1.0)
+        check(rel < 1e-6, f"sharded {ci}: initial ePot {e0[0]!r} vs serial "
+              f"{serial_epot[0]!r}")
+        say("sharded main", f"{ci}: initial ePot rel. diff to the serial "
+            f"run {rel:.3e}; {sim.ms_step:.3f} ms/step on 8 shards against "
+            f"{serial_ms:.3f} serial (phase 5)")
+        final[ci] = ([s.r for s in sim.states], sim.e_potential)
+        if ci == "ki_fused":
+            launches = launches_ci
+            sharded = sim
+        else:
+            del sim
+    same_r = all(torch.equal(a, b) for a, b in zip(final["ki_fused"][0],
+                                                     final["collective"][0]))
+    check(same_r and final["ki_fused"][1] == final["collective"][1],
+          f"ki_fused and collective differ: r equal {same_r}, ePot "
+          f"{final['ki_fused'][1]!r} vs {final['collective'][1]!r}")
+    say("sharded main", f"final r and ePot of ki_fused and collective equal "
+        f"bit for bit (ePot {final['ki_fused'][1]:.6f})")
+    del final
+    errs, (dfe, rhobar) = check_comm(sharded, f"{HEADLINE_N}^3 float32 2x2x2")
+    h = sharded.halo
+    x = [d.clone() for d in dfe]
+    yz = [(h.minus[a], h.force_send[a][0], h.force_recv[a][1])
+          for a in (1, 2)] + [(h.plus[a], h.force_send[a][1],
+                               h.force_recv[a][0]) for a in (1, 2)]
+    xs = [(h.minus[0], h.force_send[0][0], h.force_recv[0][1]),
+          (h.plus[0], h.force_send[0][1], h.force_recv[0][0])]
+
+    def pushes(fn):
+        for to, send, recv in yz:
+            fn([(x, x)], to, send, recv)
+
+    def fused(fn):
+        for to, send, recv in xs:
+            fn(rhobar, x, to, send, recv, sharded.f_eval)
+
+    times = {
+        "ring_push": (cuda_ms(lambda: pushes(cm.ring_push), 20) / 4,
+                      cuda_ms(lambda: pushes(cm.ring_push_plain), 20) / 4,
+                      comm_bound(sharded, sum(v[1].numel() for v in yz), 4,
+                                 False)),
+        "pass2_push": (cuda_ms(lambda: fused(cm.pass2_push), 20) / 2,
+                       cuda_ms(lambda: fused(cm.pass2_push_plain), 20) / 2,
+                       comm_bound(sharded, sum(v[1].numel() for v in xs), 2,
+                                  True)),
+    }
+    for k, (ms, plain_ms, (b_ms, b_by)) in times.items():
+        say("timing", f"{k} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({b_by}); {launches[k]} launches in "
+            f"the main path's run (init and 100 steps)")
+        rows[k] = {"name": k, "route": "cuda", "source": COMM_SOURCE,
+                   "replaces": REPLACES[k], "launches": launches[k],
+                   "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del sharded, x, dfe, rhobar
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
-                                 "half_lj")]
+                                 "half_lj", "ring_push", "pass2_push")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 
     python -m comd_tpu_torch.cli -e -x 63 -y 63 -z 63      # on the GPU
     python -m comd_tpu_torch.cli -e -x 4 -y 4 -z 4 --device cpu
+    python -m comd_tpu_torch.cli -e -i 2 -j 2 -k 2 --commImpl ki_fused
 
 Every option of comd_tpu.cli is accepted (flag table: src-mpi/mycommand.c:
 225-251) plus ``--device``.  The run loop reproduces the reference main():
@@ -29,7 +30,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="comd-tpu-torch",
         description="CoMD on PyTorch + CUDA: classical molecular dynamics "
-                    "(EAM or Lennard-Jones) with link cells on one GPU.")
+                    "(EAM or Lennard-Jones) with link cells on one GPU, "
+                    "optionally decomposed into a mesh of shards "
+                    "(-i/-j/-k).")
     a = p.add_argument
     a("-d", "--potDir", default="pots", help="potential directory")
     a("-p", "--potName", default="", help="potential name")
@@ -97,8 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
       help="EAM table evaluator (auto = cheb for f32, twolevel for f64)")
     a("--commImpl", default="collective",
       choices=["collective", "ki", "ki_fused"],
-      help="halo transport: XLA collectives or the Pallas RDMA "
-           "kernel-initiated analog (comm_ki)")
+      help="halo transport of a mesh run: plain torch copies, or the "
+           "kernel-initiated CUDA pushes (ki: K3; ki_fused: K4 on the x "
+           "stage of the dfEmbed exchange, K3 elsewhere)")
     a("--halfShell", action="store_true",
       help="Newton's-3rd-law pair-once sweeps (the reference half-list "
            "kernels): every cell method runs the one half-shell CUDA "
@@ -217,11 +221,20 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
     sim = init_simulation(cfg, timers=timers)
     cfg = sim.cfg
 
+    serial = cfg.nprocs == 1
     for key, val in sim.pot.describe():
         print(f"  {key:<17}: {val}", file=out)
+    print(f"  {'Processors':<17}: {cfg.xproc} x {cfg.yproc} x {cfg.zproc}"
+          + ("" if serial else
+             f" shards on {sim.device}, --commImpl {cfg.comm_impl}"),
+          file=out)
     print(file=out)
-
-    if cfg.gpu_async > 0:
+    if serial and cfg.comm_impl != "collective":
+        print(f"# WARNING: --commImpl {cfg.comm_impl} selects a halo "
+              "TRANSPORT and only applies to multi-device runs (-i/-j/-k); "
+              "this serial run has no halo exchange to transport.",
+              file=out)
+    if serial and cfg.gpu_async > 0:
         # the serial implementation has no exchange to overlap
         print("# WARNING: -a 1 overlaps interior force compute with the "
               "halo collectives and only applies to multi-device runs "
@@ -247,11 +260,13 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         dt_wall = time.perf_counter() - t0
         timers.stop("timestep")
         i_step += n_block
-        if bool(sim.state.overflow):
+        if sim.overflow:
             raise RuntimeError(
                 f"capacity overflow at step {i_step}: a cell exceeded "
-                f"--maxAtoms (max_atoms={cfg.max_atoms}). Raise it and "
-                f"rerun.")
+                f"--maxAtoms (max_atoms={cfg.max_atoms}) or a packed halo "
+                f"message exceeded --haloMsgFactor (current "
+                f"{cfg.halo_msg_factor}; 0 ships full planes). Raise the "
+                f"matching knob and rerun.")
         print_things(sim, i_step, dt_wall, n_block, out=out, timers=timers)
     timers.stop("loop")
 
@@ -286,7 +301,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
     if args.numProcs > 1:
-        not_ported("multi-process launch (--numProcs)", "12")
+        not_ported("multi-process launch (--numProcs/--coordinator)", "14")
     try:
         run(cfg, out=sys.stdout, yaml_dir=args.yaml, analyze=args.analyze,
             restore=args.restore, checkpoint=args.checkpoint,

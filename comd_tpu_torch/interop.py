@@ -2,11 +2,15 @@
 
 ``state_from_numpy`` turns a comd_tpu ``SimState`` passed as
 ``{field: np.asarray(getattr(state, field))}`` into the port's SimState, so
-both packages can step from the identical state.  ``lj_potential_from_fields``
-builds the port's LjPotential from a comd_tpu LjPotential's fields
-(``dataclasses.asdict``), so a test can show both packages hold the same LJ
-parameters.  An EAM potential needs no conversion: both packages read the
-same ``pots/`` file and fit the same Chebyshev coefficients.
+both packages can step from the identical state.  ``shards_from_numpy``
+and ``shards_to_numpy`` carry comd_tpu's sharded state -- array fields with
+a leading [Px, Py, Pz] mesh index, replicated scalars -- into the port's
+per-shard SimStates (shard order x-major, as parallel.mesh.Mesh) and back.
+``lj_potential_from_fields`` builds the port's LjPotential from a comd_tpu
+LjPotential's fields (``dataclasses.asdict``), so a test can show both
+packages hold the same LJ parameters.  An EAM potential needs no
+conversion: both packages read the same ``pots/`` file and fit the same
+Chebyshev coefficients.
 """
 from __future__ import annotations
 
@@ -42,3 +46,33 @@ def lj_potential_from_fields(fields: dict) -> LjPotential:
         raise KeyError(f"lj_potential_from_fields: expected fields {names}, "
                        f"got {sorted(fields)}")
     return LjPotential(**fields)
+
+
+SCALARS = ("e_potential", "n_local", "overflow")
+
+
+def shards_from_numpy(arrays: dict, device) -> list:
+    """Per-shard SimStates on ``device`` from comd_tpu's sharded state as
+    numpy arrays: each array field [Px, Py, Pz, ...] is cut into its shards
+    in np.ndindex order; the replicated scalars are shared by all shards."""
+    missing = [k for k in FIELDS if k not in arrays]
+    if missing:
+        raise KeyError(f"shards_from_numpy: missing fields {missing}")
+    grid = np.asarray(arrays["n_atoms"]).shape[:3]
+    scalars = {k: torch.as_tensor(np.array(arrays[k], copy=True).reshape(()),
+                                  device=device) for k in SCALARS}
+    return [SimState(**{
+        k: torch.as_tensor(np.array(np.asarray(arrays[k])[idx], copy=True),
+                           device=device)
+        for k in FIELDS if k not in SCALARS}, **scalars)
+        for idx in np.ndindex(*grid)]
+
+
+def shards_to_numpy(states: list, grid) -> dict:
+    """comd_tpu's sharded layout from per-shard SimStates: array fields
+    stacked to [Px, Py, Pz, ...], the scalars from the first shard."""
+    out = {k: np.stack([getattr(s, k).cpu().numpy() for s in states])
+           .reshape(tuple(grid) + tuple(getattr(states[0], k).shape))
+           for k in FIELDS if k not in SCALARS}
+    out.update({k: getattr(states[0], k).cpu().numpy() for k in SCALARS})
+    return out

@@ -126,8 +126,27 @@ def wrap_pbc(r: torch.Tensor, global_extent) -> torch.Tensor:
     return torch.where(r >= L, r - L, r)
 
 
+def _run_rank(box_s: torch.Tensor, n_bins: int):
+    """(rank of each entry within its run of equal sorted box ids, per-box
+    run lengths [n_bins]): position minus the start of its run, the
+    exclusive prefix sum of the run lengths (comd_tpu's ops/scan.run_rank)."""
+    run_len = torch.zeros(n_bins, dtype=torch.int64, device=box_s.device)
+    run_len.scatter_add_(0, box_s, torch.ones_like(box_s))
+    run_start = torch.cumsum(run_len, 0) - run_len
+    rank = torch.arange(box_s.numel(), device=box_s.device) - run_start[box_s]
+    return rank, run_len
+
+
+def _sort_by_box_gid(box: torch.Tensor, gid: torch.Tensor):
+    """Canonical (cell, gid) order: one stable sort on box << 31 | gid
+    (gid < 2^31, so the key orders by box, then gid).  Returns the sorted
+    box ids and the permutation."""
+    key_s, perm = torch.sort((box << 31) | gid.to(torch.int64), stable=True)
+    return key_s >> 31, perm
+
+
 def rebucket(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms, *,
-             wrap_extent=None):
+             wrap_extent=None, keep_halo: bool = False):
     """Re-bin all local atoms into the canonical (cell, gid) dense layout.
 
     Args:
@@ -136,10 +155,14 @@ def rebucket(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms, *,
       n_atoms: [B] int32 occupancy.
       wrap_extent: if given (serial/periodic case), coordinates are wrapped
         into [0, L) so every atom lands in a local cell.
+      keep_halo: sharded case -- atoms that bin into halo cells (they
+        drifted off this shard) are kept in those halo cells so the staged
+        exchange can ship them to their new owner (timestep.c:222-276).
 
     Returns new tensors (r, p, gid, n_atoms, n_migrating, overflow) with
-    halo boxes emptied and every box's atoms sorted by gid and compacted to
-    the front.  ``n_migrating`` and ``overflow`` stay on the device.
+    stale halo boxes emptied and every box's atoms sorted by gid and
+    compacted to the front.  ``n_migrating`` and ``overflow`` stay on the
+    device.
     """
     A = r.shape[-1]
     B = r.shape[1]
@@ -174,20 +197,11 @@ def rebucket(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms, *,
     migrating = valid & (box >= n_local)
     n_migrating = migrating.sum(dtype=torch.int32)
 
-    # canonical (cell, gid) order: one stable sort on box << 31 | gid
-    # (gid < 2^31, so the key orders by box, then gid)
-    key = (box << 31) | gl.to(torch.int64)
-    key_s, perm = torch.sort(key, stable=True)
-    box_s = key_s >> 31
+    box_s, perm = _sort_by_box_gid(box, gl)
+    rank, run_len = _run_rank(box_s, geom.n_total + 1)
 
-    # rank within destination cell: position minus the start of its run,
-    # the exclusive prefix sum of the per-box run lengths
-    run_len = torch.zeros(geom.n_total + 1, dtype=torch.int64, device=dev)
-    run_len.scatter_add_(0, box_s, torch.ones_like(box_s))
-    run_start = torch.cumsum(run_len, 0) - run_len
-    rank = torch.arange(flat_n, device=dev) - run_start[box_s]
-
-    in_cell = box_s < n_local
+    max_box = geom.n_total if keep_halo else n_local
+    in_cell = box_s < max_box
     overflow = (in_cell & (rank >= A)).any()
     dest = torch.where(in_cell & (rank < A), box_s * A + rank, B * A)
 
@@ -200,10 +214,62 @@ def rebucket(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms, *,
     new_r = torch.stack([scatter(rl[a], EMPTY_POS) for a in range(3)])
     new_p = torch.stack([scatter(pl[a], 0.0) for a in range(3)])
     new_gid = scatter(gl, int(EMPTY_GID))
-    # occupancy counts every atom binned into a local box, kept or not
+    # occupancy counts every atom binned into a kept box, stored or not
     counts = torch.zeros(B, dtype=torch.int32, device=dev)
-    counts[:n_local] = run_len[:n_local].to(torch.int32)
+    counts[:max_box] = run_len[:max_box].to(torch.int32)
     return new_r, new_p, new_gid, counts, n_migrating, overflow
+
+
+def append_arrivals(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms,
+                    arr_r, arr_p, arr_gid, arr_valid):
+    """Merge exchange arrivals into cells by coordinate binning.
+
+    ``arr_*`` are flat arrival buffers ([3, M] / [M]).  Each valid arrival
+    is binned with the ownership rules (getBoxFromCoord) into a local cell
+    (a migrated atom) or a halo cell (a ghost) and appended after the
+    cell's current contents; ``sort_cells`` restores the canonical in-cell
+    gid order afterwards.  Reference analog: unloadAtomsBuffer ->
+    computeBoxIds + UnloadAtomsBufferPacked (gpu_redistribute.h:497-620).
+
+    Returns new tensors (r, p, gid, n_atoms, overflow); ``n_atoms`` counts
+    every arrival binned into a cell, stored or not.
+    """
+    A = r.shape[-1]
+    B = r.shape[1]
+    box = box_from_coord(geom, maps, arr_r)
+    box = torch.where(arr_valid, box, geom.n_total)
+    # invalid entries sort last whatever their gid holds
+    box_s, perm = _sort_by_box_gid(
+        box, torch.where(arr_valid, arr_gid, int(EMPTY_GID)))
+    rank, run_len = _run_rank(box_s, geom.n_total + 1)
+
+    in_cell = box_s < geom.n_total
+    slot = n_atoms.to(torch.int64)[box_s.clamp(max=B - 1)] + rank
+    overflow = (in_cell & (slot >= A)).any()
+    dest = torch.where(in_cell & (slot < A), box_s * A + slot, B * A)
+
+    def scatter(field, vals):
+        out = torch.cat([field.reshape(B * A), field.new_empty(1)])
+        out[dest] = vals[perm]               # slot B*A collects the drops
+        return out[:B * A].reshape(B, A)
+
+    r = torch.stack([scatter(r[a], arr_r[a]) for a in range(3)])
+    p = torch.stack([scatter(p[a], arr_p[a]) for a in range(3)])
+    gid = scatter(gid, arr_gid)
+    n_atoms = n_atoms + run_len[:B].to(torch.int32)
+    return r, p, gid, n_atoms, overflow
+
+
+def sort_cells(r, p, gid):
+    """Canonical in-cell gid sort of every cell, [B, A] row-wise.
+
+    With gid-canonical cells a ghost cell's slot order equals its owner
+    cell's, so the EAM dfEmbed exchange is a plain slot-aligned block copy
+    (replaces the reference's SortAtomsByGlobalId / hash-table machinery,
+    gpu_redistribute.h:735-848, hashTable.c).  Returns new tensors."""
+    gid, order = torch.sort(gid, dim=-1, stable=True)
+    idx = order.expand(3, *order.shape)
+    return torch.gather(r, -1, idx), torch.gather(p, -1, idx), gid
 
 
 def refresh_halo_positions(geom: CellGeometry, maps: GeomMaps, r):

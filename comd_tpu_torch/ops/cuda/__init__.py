@@ -1,0 +1,14 @@
+"""The hand-written CUDA kernels (csrc/) and their wrappers.
+
+``LAUNCHES`` counts kernel launches per wrapper, bumped right after each
+successful launch and nowhere else; a run zeroes it with
+``reset_launch_counts`` to show which kernels its path went through.
+"""
+LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
+            "half_eam_pass1": 0, "half_eam_pass3": 0, "half_lj": 0,
+            "ring_push": 0, "pass2_push": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

@@ -33,7 +33,7 @@ artefacts and are gone.
 Beside each kernel sits its plain PyTorch version (ops/sweep.py sweeps with
 the same pair functions, ``*_plain``).  The wrappers take it only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` counts kernel launches per wrapper.
+``LAUNCHES`` (ops/cuda/__init__.py) counts kernel launches per wrapper.
 
 The 27-neighbor and half-map orders differ from the Pallas kernels' dense
 offset orders, so f32 results agree with comd_tpu up to reassociation; f64
@@ -43,12 +43,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
 import os
-import shutil
-import subprocess
 import threading
-import time
 from typing import Optional
 
 import torch
@@ -56,6 +52,8 @@ import torch
 from ...potentials import tables
 from ...potentials.tables import ChebFused
 from ..sweep import cell_pair_sweep, cell_pair_sweep_half
+from . import LAUNCHES, reset_launch_counts  # noqa: F401 (re-exported)
+from .nvcc import BUILD_DIR, CSRC, build_library  # noqa: F401
 
 #: largest cell capacity the kernels take (they loop over i-slots and stage
 #: j-slots in tiles of 128, so this bounds only the work per block)
@@ -63,21 +61,9 @@ MAX_A = 512
 #: coefficient slots per Chebyshev output in the kernel's parameter struct
 MAX_CHEB = 40
 
-#: kernel launches per wrapper, bumped right after each successful launch
-LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
-            "half_eam_pass1": 0, "half_eam_pass3": 0, "half_lj": 0}
-
-_PKG = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-SOURCE = os.path.join(_PKG, "csrc", "stencil.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCE = os.path.join(CSRC, "stencil.cu")
 _TRANSFORM_ID = {"u": 0, "inv_u": 1, "log_u": 2}
 _PAIR_ID = {"eam_pass1": 0, "eam_pass3": 1, "lj": 2}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,42 +226,13 @@ _lib_lock = threading.Lock()
 BUILD_SECONDS = None   # wall time of the nvcc build in this process
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the cell-stencil kernels are "
-                           "built from csrc/stencil.cu at first use on the "
-                           "card")
-    return found
-
-
 def build():
     """Compile csrc/stencil.cu for sm_90a (first use) and bind it."""
     global _lib, BUILD_SECONDS
     with _lib_lock:
         if _lib is not None:
             return _lib
-        with open(SOURCE, "rb") as fh:
-            digest = hashlib.sha1(fh.read()).hexdigest()[:12]
-        path = os.path.join(BUILD_DIR, f"libcomd_stencil_{digest}.so")
-        t0 = time.perf_counter()
-        if not os.path.exists(path):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
-            cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-                   "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-                   "-Xptxas", "-v", "-o", tmp, SOURCE]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed to build the cell-stencil "
-                                   f"kernels:\n{res.stderr[-4000:]}")
-            with open(os.path.join(BUILD_DIR, "stencil_ptxas.log"), "w") as fh:
-                fh.write(res.stderr)
-            os.replace(tmp, path)
-        lib = ctypes.CDLL(path)
+        lib, BUILD_SECONDS = build_library(SOURCE, "stencil")
         lib.comd_stencil.restype = ctypes.c_int
         lib.comd_stencil.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -288,7 +245,6 @@ def build():
             ctypes.POINTER(_LjParams), ctypes.c_void_p]
         lib.comd_cuda_error_string.restype = ctypes.c_char_p
         lib.comd_cuda_error_string.argtypes = [ctypes.c_int]
-        BUILD_SECONDS = time.perf_counter() - t0
         _lib = lib
         return lib
 

@@ -13,15 +13,17 @@ their plain PyTorch versions on CPU tensors): the full-shell K1 in
 ``eam_force`` and the half-shell K2 in ``eam_force_half``.  Pass 2 is
 per-atom, 27x fewer evaluations than a pair pass, and stays torch ops: the
 direct quadratic interpolation of F (eam.c:557-579).  These are comd_tpu's
-eam_force_pallas contracts (half=False and half=True).
+eam_force_pallas contracts (half=False and half=True), taken over the
+shards of a mesh: every argument and result that is per shard is a list
+with one entry per shard (a single domain is a mesh of one), and the halo
+fill and fold are the mesh's exchanges, run once over all shards.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
-from ..cells import CellGeometry
 from ..potentials import tables
 from ..potentials.eam import EamPotential
 from .cuda import stencil
@@ -49,95 +51,105 @@ def make_pair_evaluator(pot: EamPotential, dtype: torch.dtype, device,
         inv_dx=tables.as_dtype(pot.phi.inv_dx, dtype))
 
 
-def make_f_eval(pot: EamPotential, dtype: torch.dtype, device) -> Callable:
+def make_f_eval(pot: EamPotential, dtype: torch.dtype,
+                device) -> tables.EmbedTable:
     """Pass-2 embedding evaluator F(rhobar) -> (F, dF/drhobar): the direct
     quadratic interpolation of the F table, whatever ``interp_impl`` the
     pair passes use (F is not Chebyshev-fit: rhobar's domain edge has
     sqrt-like curvature that a global fit handles poorly)."""
-    tab = pot.f.device_table(dtype, device)
-    n, x0 = pot.f.n, pot.f.x0
-    inv_dx = tables.as_dtype(pot.f.inv_dx, dtype)
-    return lambda rho: tables.interpolate(tab, n, x0, inv_dx, rho)
+    return tables.EmbedTable(
+        table=pot.f.device_table(dtype, device), n=pot.f.n, x0=pot.f.x0,
+        inv_dx=tables.as_dtype(pot.f.inv_dx, dtype))
+
+
+def _local_field(v: torch.Tensor, B: int) -> torch.Tensor:
+    """[B, A] field holding ``v`` [n_local, A] in its local rows, 0 in the
+    halo rows (filled by the halo exchange)."""
+    out = v.new_zeros((B, v.shape[1]))
+    out[:v.shape[0]] = v
+    return out
 
 
 def eam_force(
-    geom: CellGeometry,
     nbr_map: torch.Tensor,       # [n_local, 27] int32 on r's device
-    r: torch.Tensor,             # [3, B, A] with halo cells filled
+    rs: Sequence[torch.Tensor],  # per shard: [3, B, A], halo cells filled
     ev: PairEvaluator,
-    f_eval: Callable,            # make_f_eval
-    fill_halo_scalar: Callable,  # [B, A] field -> field with halo filled
+    f_eval: tables.EmbedTable,   # make_f_eval
+    fill_halo_scalar: Callable,  # (dfEmbed per shard, rhobar per shard)
+                                 # -> dfEmbed per shard, halo rows filled
     *,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
     box_chunk: int = 256,
 ):
-    """Returns (force [3, n_local, A], U_raw [n_local, A], dfEmbed [B, A]).
+    """The full-shell force of every shard of a mesh (one shard on a single
+    domain).  Passes 1 and 2 run shard by shard, the dfEmbed fill once over
+    all shards (it is the mesh's halo exchange), then pass 3 shard by
+    shard -- comd_tpu's per-shard eam_force under shard_map, with the fill
+    as its collective.  ``fill_halo_scalar`` also gets each shard's rhobar
+    [n_local, A], which the fused transport evaluates at its planes.
 
-    ``want_energy=False`` (dynamics-only steps between reporting
-    boundaries) skips the phi-value work and returns U_raw=None.
+    Returns, per shard, (force [3, n_local, A], U_raw [n_local, A] | None,
+    dfEmbed [B, A]).  ``want_energy=False`` (dynamics-only steps between
+    reporting boundaries) skips the phi-value work and returns U_raw=None.
     ``box_chunk`` only chunks the plain version (CPU tensors).
     """
-    B, A = r.shape[1], r.shape[2]
-    n_local = geom.n_local
-
-    f1, phi_sum, rhobar = stencil.eam_pass1(
-        r, nbr_map, ev, want_energy=want_energy, box_chunk=box_chunk)
-
+    p1 = [stencil.eam_pass1(r, nbr_map, ev, want_energy=want_energy,
+                            box_chunk=box_chunk) for r in rs]
     # pass 2 (eam.c:351-366): every slot gets F(rhobar); empty slots are
     # masked by the caller (finalize_eam_energy)
-    f_emb, df_emb = f_eval(rhobar)
-    u = (0.5 * phi_sum.to(e_dtype) + f_emb.to(e_dtype)
-         if want_energy else None)
-
-    df_embed = torch.zeros((B, A), dtype=r.dtype, device=r.device)
-    df_embed[:n_local] = df_emb
-    df_embed = fill_halo_scalar(df_embed)
-
-    f3 = stencil.eam_pass3(r, nbr_map, ev, df_embed, box_chunk=box_chunk)
-    return f1 + f3, u, df_embed
+    emb = [f_eval(rhobar) for _f1, _phi, rhobar in p1]
+    u = [0.5 * phi.to(e_dtype) + f_emb.to(e_dtype) if want_energy else None
+         for (_f1, phi, _rho), (f_emb, _df) in zip(p1, emb)]
+    dfe = fill_halo_scalar(
+        [_local_field(df, r.shape[1]) for r, (_f, df) in zip(rs, emb)],
+        [rhobar for _f1, _phi, rhobar in p1])
+    return [(f1 + stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk),
+             u_s, d)
+            for r, (f1, _phi, _rho), u_s, d in zip(rs, p1, u, dfe)]
 
 
 def eam_force_half(
-    geom: CellGeometry,
     half_nbr_map: torch.Tensor,  # [n_local, 14] int32 on r's device
-    r: torch.Tensor,             # [3, B, A] with halo cells filled
+    rs: Sequence[torch.Tensor],  # per shard: [3, B, A], halo cells filled
     ev: PairEvaluator,
-    f_eval: Callable,            # make_f_eval
-    fill_halo_scalar: Callable,  # [B, A] field -> field with halo filled
-    fold: Callable,              # [..., B, A] -> [..., n_local, A]
+    f_eval: tables.EmbedTable,   # make_f_eval
+    fill_halo_scalar: Callable,  # as in eam_force
+    fold: Callable,              # per shard [..., B, A] -> [..., n_local, A]
     *,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
     box_chunk: int = 256,
 ):
     """EAM with Newton's-3rd-law half sweeps for passes 1 and 3 (each pair
-    evaluated once, the reference's half-list kernels, eam.c:266-419).
+    evaluated once, the reference's half-list kernels, eam.c:266-419), for
+    every shard of a mesh.
 
     Pass 1 on K2, then ``fold`` delivers the halo rows of rhobar and
     phi_sum to their owners; pass 2 as in ``eam_force``; the dfEmbed halo
     fill; pass 3 on K2; the two dense force passes are folded once (fold is
-    linear).  Returns (force [3, n_local, A], U_raw [n_local, A] | None,
+    linear).  ``fold`` and ``fill_halo_scalar`` run over all shards.
+    Returns, per shard, (force [3, n_local, A], U_raw [n_local, A] | None,
     dfEmbed [B, A]).
     """
-    B, A = r.shape[1], r.shape[2]
-    n_local = geom.n_local
-
-    f1d, phi_d, rho_d = stencil.eam_pass1_half(
-        r, half_nbr_map, ev, want_energy=want_energy, box_chunk=box_chunk)
-    rhobar = fold(rho_d)
-
-    f_emb, df_emb = f_eval(rhobar)
-    u = (0.5 * fold(phi_d).to(e_dtype) + f_emb.to(e_dtype)
-         if want_energy else None)
-
-    df_embed = torch.zeros((B, A), dtype=r.dtype, device=r.device)
-    df_embed[:n_local] = df_emb
-    df_embed = fill_halo_scalar(df_embed)
-
-    f3d = stencil.eam_pass3_half(r, half_nbr_map, ev, df_embed,
-                                 box_chunk=box_chunk)
-    return fold(f1d + f3d), u, df_embed
+    p1 = [stencil.eam_pass1_half(r, half_nbr_map, ev,
+                                 want_energy=want_energy,
+                                 box_chunk=box_chunk) for r in rs]
+    rhobar = fold([rho_d for _f, _phi, rho_d in p1])
+    emb = [f_eval(rho) for rho in rhobar]
+    if want_energy:
+        phi = fold([phi_d for _f, phi_d, _rho in p1])
+        u = [0.5 * ph.to(e_dtype) + f_emb.to(e_dtype)
+             for ph, (f_emb, _df) in zip(phi, emb)]
+    else:
+        u = [None] * len(rs)
+    dfe = fill_halo_scalar(
+        [_local_field(df, r.shape[1]) for r, (_f, df) in zip(rs, emb)],
+        rhobar)
+    f = fold([f1d + stencil.eam_pass3_half(r, half_nbr_map, ev, d,
+                                           box_chunk=box_chunk)
+              for r, (f1d, _phi, _rho), d in zip(rs, p1, dfe)])
+    return list(zip(f, u, dfe))
 
 
 def finalize_eam_energy(u, valid_mask, e_dtype=torch.float64):

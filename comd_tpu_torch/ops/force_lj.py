@@ -10,11 +10,12 @@ Physics of the reference CPU oracle (ljForceCpuNL, src-mpi/ljForce.c:
 both sides, energy halved); ``lj_force_half`` evaluates each pair once on
 K2 and folds the halo rows back to their owners.  Both run the CUDA kernels
 of ops/cuda/stencil.py on CUDA tensors and their plain PyTorch versions on
-CPU tensors.
+CPU tensors, over the shards of a mesh (per-shard lists, as in
+ops/force_eam.py; a single domain is a mesh of one).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
 import torch
 
@@ -41,29 +42,35 @@ def _energy(pot: LjPotential, e, e_dtype):
     return u, u.sum()
 
 
-def lj_force(nbr_map: torch.Tensor, pot: LjPotential, r: torch.Tensor,
-             ev: PairEvaluator, *, e_dtype: torch.dtype = torch.float64,
-             want_energy: bool = True, box_chunk: int = 256):
-    """LJ on K1.  Returns (force [3, n_local, A], U [n_local, A] | None,
-    ePot | None); U and ePot in ``e_dtype``."""
-    f, e = stencil.lj_pass(r, nbr_map, ev, want_energy=want_energy,
-                           box_chunk=box_chunk)
-    if not want_energy:
-        return f, None, None
-    return (f,) + _energy(pot, e, e_dtype)
+def lj_force(nbr_map: torch.Tensor, pot: LjPotential,
+             rs: Sequence[torch.Tensor], ev: PairEvaluator, *,
+             e_dtype: torch.dtype = torch.float64, want_energy: bool = True,
+             box_chunk: int = 256):
+    """LJ on K1 for every shard (positions ``rs``, one [3, B, A] per
+    shard).  Returns, per shard, (force [3, n_local, A], U [n_local, A] |
+    None, ePot | None); U and ePot in ``e_dtype``."""
+    out = []
+    for r in rs:
+        f, e = stencil.lj_pass(r, nbr_map, ev, want_energy=want_energy,
+                               box_chunk=box_chunk)
+        out.append((f,) + (_energy(pot, e, e_dtype) if want_energy
+                           else (None, None)))
+    return out
 
 
 def lj_force_half(half_nbr_map: torch.Tensor, pot: LjPotential,
-                  r: torch.Tensor, ev: PairEvaluator, fold: Callable, *,
-                  e_dtype: torch.dtype = torch.float64,
+                  rs: Sequence[torch.Tensor], ev: PairEvaluator,
+                  fold: Callable, *, e_dtype: torch.dtype = torch.float64,
                   want_energy: bool = True, box_chunk: int = 256):
-    """LJ on K2, each pair evaluated once; ``fold`` maps the dense
-    [..., B, A] contributions to [..., n_local, A].  Returns
+    """LJ on K2 for every shard, each pair evaluated once; ``fold`` maps
+    the shards' dense [..., B, A] contributions to [..., n_local, A] (the
+    mesh's halo fold, run over all shards).  Returns, per shard,
     (force [3, n_local, A], U [n_local, A] | None, ePot | None)."""
-    fd, ed = stencil.lj_pass_half(r, half_nbr_map, ev,
-                                  want_energy=want_energy,
-                                  box_chunk=box_chunk)
-    f = fold(fd)
+    sweeps = [stencil.lj_pass_half(r, half_nbr_map, ev,
+                                   want_energy=want_energy,
+                                   box_chunk=box_chunk) for r in rs]
+    f = fold([fd for fd, _ed in sweeps])
     if not want_energy:
-        return f, None, None
-    return (f,) + _energy(pot, fold(ed), e_dtype)
+        return [(f_s, None, None) for f_s in f]
+    e = fold([ed for _fd, ed in sweeps])
+    return [(f_s,) + _energy(pot, e_s, e_dtype) for f_s, e_s in zip(f, e)]

@@ -1,0 +1,280 @@
+"""Spatial domain decomposition over a mesh of shards (-i/-j/-k).
+
+Port of comd_tpu.parallel.sharded.  The reference's MPI rank grid
+(initDecomposition, src-mpi/decomposition.c) is a ``Mesh`` of shards; each
+shard owns one brick of the box in its own local frame and holds its own
+``SimState``.  All shards share one CellGeometry, GeomMaps and
+ExchangePlan, as comd_tpu's shards run one program.  comd_tpu runs each
+step as one ``shard_map`` program; here the shards live in one process on
+one device, and a step is a Python loop over them with the mesh's
+exchanges between the per-shard phases:
+
+  - ``ppermute`` along an axis -> a ring shift over the shards' tensors
+    (parallel/exchange.py, or the K3/K4 kernels of parallel/ki_comm.py
+    under ``--commImpl ki|ki_fused``);
+  - ``psum`` -> a sum over shards.  The lazy trigger is read on the host
+    once per step, as in the serial port; ePot, n_local and the overflow
+    flag stay on the device.
+
+Each shard's SimState carries the replicated scalars (e_potential,
+n_local, overflow) as the same tensors, as comd_tpu's replicated leaves.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import cells, lattice
+from ..config import Config
+from ..constants import KB_EV
+from ..interop import state_from_numpy
+from ..ops import binning
+from ..ops.neighborlist import needs_rebuild
+from ..sim import (Physics, SimState, _sync, _tscope, bin_atoms_host_np,
+                   init_potential, plan_geometry)
+from . import exchange, ki_comm
+from .mesh import Mesh, gen_shard_atoms, make_mesh
+
+
+@dataclasses.dataclass
+class ShardedSimulation(Physics):
+    """The Simulation interface over a mesh of shards."""
+    cfg: Config
+    pot: object
+    geom: cells.CellGeometry          # per-shard geometry (local frame)
+    plan: exchange.ExchangePlan
+    mesh: Mesh
+    global_extent: np.ndarray
+    n_global: int
+    states: list                      # one SimState per shard
+    lattice_const: float
+    skin_eff: Optional[float] = None  # resolved trigger skin (plan_cells)
+
+    def __post_init__(self):
+        self._setup_physics()
+        self.halo = exchange.make_halo(self.mesh, self.geom, self.maps,
+                                       self.plan, self.dtype)
+        self.last_r = None            # per shard, at the last rebucket
+        if self.cfg.comm_impl not in ("collective", "ki", "ki_fused"):
+            raise ValueError(f"invalid comm_impl {self.cfg.comm_impl!r}")
+
+    # ---------------- the transports ----------------
+
+    def _fill(self, x, rhobar):
+        """dfEmbed halo fill over the mesh, per --commImpl."""
+        if self.cfg.comm_impl == "ki_fused":
+            return ki_comm.exchange_scalar_ki_fused(self.halo, x, rhobar,
+                                                    self.f_eval)
+        if self.cfg.comm_impl == "ki":
+            return ki_comm.exchange_scalar_ki(self.halo, x)
+        return exchange.exchange_scalar(self.halo, x)
+
+    def _fold(self, x):
+        return exchange.fold_halo(self.halo, x)
+
+    def _exchange_atoms(self, r, p, gid, n_atoms):
+        """Atom exchange per --commImpl, then the canonical in-cell sort.
+        Returns lists (r, p, gid, n_atoms) and the overflow flag."""
+        xatoms = (exchange.exchange_atoms
+                  if self.cfg.comm_impl == "collective"
+                  else ki_comm.exchange_atoms_ki)
+        r, p, gid, n_atoms, ovf = xatoms(self.halo, r, p, gid, n_atoms)
+        out = [binning.sort_cells(*t) for t in zip(r, p, gid)]
+        return ([o[0] for o in out], [o[1] for o in out],
+                [o[2] for o in out], n_atoms, ovf)
+
+    # ---------------- stepping ----------------
+
+    def _redistribute(self, r, p, gid, n_atoms):
+        """Rebucket every shard (halo landers kept), exchange, sort."""
+        out = [binning.rebucket(self.geom, self.maps, *t, keep_halo=True)
+               for t in zip(r, p, gid, n_atoms)]
+        ovf = torch.stack([o[5] for o in out]).any()
+        r, p, gid, n_atoms, ovf2 = self._exchange_atoms(
+            [o[0] for o in out], [o[1] for o in out], [o[2] for o in out],
+            [o[3] for o in out])
+        self.n_rebucket += 1
+        return r, p, gid, n_atoms, ovf | ovf2
+
+    def _finish(self, states, r, p, gid, n_atoms, ovf, want_energy: bool):
+        """Force, second half kick and the mesh reductions."""
+        res = self.forces(r, n_atoms, self._fill, self._fold, want_energy)
+        s0 = states[0]
+        e_pot = (torch.stack([e for _f, _u, e in res]).sum() if want_energy
+                 else s0.e_potential)
+        nl = self.geom.n_local
+        n_local = torch.stack([n[:nl].sum(dtype=torch.int32)
+                               for n in n_atoms]).sum(dtype=torch.int32)
+        overflow = s0.overflow | ovf
+        half_dt = self._c(0.5 * self.cfg.dt)
+        out = []
+        for s, (f_loc, _u, _e) in enumerate(res):
+            f = self._full_force(f_loc, states[s].f)
+            out.append(SimState(r=r[s], p=p[s] + half_dt * f, f=f,
+                                gid=gid[s], n_atoms=n_atoms[s],
+                                e_potential=e_pot, n_local=n_local,
+                                overflow=overflow))
+        return out
+
+    def step_eager(self, states, want_energy: bool = True):
+        """One step with a rebucket and atom exchange every step (comd_tpu's
+        ``_shard_step``, the reference's per-step redistribution)."""
+        rp = [self._drift(s) for s in states]
+        r, p, gid, n_atoms, ovf = self._redistribute(
+            [x[0] for x in rp], [x[1] for x in rp],
+            [s.gid for s in states], [s.n_atoms for s in states])
+        return self._finish(states, r, p, gid, n_atoms, ovf, want_energy)
+
+    def step_lazy(self, states, last_r, want_energy: bool = True):
+        """Lazy-shell step over the mesh (comd_tpu's ``_shard_step_lazy``,
+        the main family): the full redistribution only when some atom of
+        some shard moved skin/2 since the last rebucket, otherwise the
+        slot-aligned ghost-position refresh.  Returns (states, last_r)."""
+        rp = [self._drift(s) for s in states]
+        r = [x[0] for x in rp]
+        p = [x[1] for x in rp]
+        nl = self.geom.n_local
+        dirty = torch.stack([needs_rebuild(lr, rs, nl, self.skin)
+                             for lr, rs in zip(last_r, r)]).any()
+        if bool(dirty):
+            r, p, gid, n_atoms, ovf = self._redistribute(
+                r, p, [s.gid for s in states], [s.n_atoms for s in states])
+            last_r = r
+        else:
+            exchange.exchange_positions(self.halo, r)
+            gid = [s.gid for s in states]
+            n_atoms = [s.n_atoms for s in states]
+            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy),
+                last_r)
+
+    def step_block(self, n_steps: int) -> None:
+        """Run n_steps of velocity-Verlet; the energy terms only on the
+        block's last step unless ``cfg.energy_every_step`` (as
+        Simulation.step_block)."""
+        for k in range(n_steps):
+            want = (k == n_steps - 1 or n_steps == 1
+                    or self.cfg.energy_every_step)
+            if self.uses_lazy:
+                if self.last_r is None:
+                    self.last_r = [s.r for s in self.states]
+                self.states, self.last_r = self.step_lazy(
+                    self.states, self.last_r, want)
+            else:
+                self.states = self.step_eager(self.states, want)
+
+    def compute_force(self) -> None:
+        """Force-only evaluation of every shard (used at init)."""
+        st = self.states
+        res = self.forces([s.r for s in st], [s.n_atoms for s in st],
+                          self._fill, self._fold)
+        e_pot = torch.stack([e for _f, _u, e in res]).sum()
+        self.states = [dataclasses.replace(
+            s, f=self._full_force(f_loc, s.f), e_potential=e_pot)
+            for s, (f_loc, _u, _e) in zip(st, res)]
+
+    def initial_exchange(self) -> None:
+        """The first ghost fill: the atom exchange on the freshly binned
+        shards (comd_tpu's ``_initial_exchange_fn``); an undersized packed
+        message capacity can already raise the overflow flag here."""
+        st = self.states
+        r, p, gid, n_atoms, ovf = self._exchange_atoms(
+            [s.r for s in st], [s.p for s in st], [s.gid for s in st],
+            [s.n_atoms for s in st])
+        overflow = st[0].overflow | ovf
+        self.states = [dataclasses.replace(
+            s, r=r[i], p=p[i], gid=gid[i], n_atoms=n_atoms[i],
+            overflow=overflow) for i, s in enumerate(st)]
+
+    # ---------------- reductions over the mesh ----------------
+
+    def kinetic_energy(self) -> float:
+        nl = self.geom.n_local
+        e_dtype = self.cfg.torch_energy_dtype
+        total = torch.stack([(s.p[:, :nl].to(e_dtype) ** 2).sum()
+                             for s in self.states]).sum()
+        return float(0.5 * (1.0 / self.mass) * total)
+
+    @property
+    def e_potential(self) -> float:
+        return float(self.states[0].e_potential)
+
+    @property
+    def overflow(self) -> bool:
+        return bool(self.states[0].overflow)
+
+    def sum_atoms(self) -> int:
+        nl = self.geom.n_local
+        return int(sum(int(s.n_atoms[:nl].sum()) for s in self.states))
+
+    def temperature(self) -> float:
+        return self.kinetic_energy() / self.n_global / KB_EV / 1.5
+
+    def max_occupancy(self) -> int:
+        nl = self.geom.n_local
+        return int(max(int(s.n_atoms[:nl].max()) for s in self.states))
+
+
+def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:
+    """Sharded initSimulation: decompose, generate each shard's atoms, bin
+    them in the shard's local frame, exchange ghosts, first force.
+
+    Every shard generates only its own brick (initAtoms.c:81-124), and the
+    momenta come from the global (vcm, scale) of the gid-seeded streams, so
+    the state equals the single-domain one atom for atom."""
+    cfg = cfg.resolve()
+    pot = init_potential(cfg)
+
+    lat = cfg.lat if cfg.lat > 0 else pot.lat
+    global_extent = np.array([cfg.nx, cfg.ny, cfg.nz], np.float64) * lat
+    pgrid = np.array([cfg.xproc, cfg.yproc, cfg.zproc])
+    local_extent = global_extent / pgrid
+    n_global = 4 * cfg.nx * cfg.ny * cfg.nz
+    mesh = make_mesh(cfg.xproc, cfg.yproc, cfg.zproc, cfg.device)
+
+    # positions first: the cell plan needs the t=0 occupancy
+    shard_atoms = {c: gen_shard_atoms(cfg, lat, global_extent, local_extent,
+                                      c) for c in mesh.coords}
+    # every atom, in the global frame: the shards partition the box
+    r_all = np.concatenate([a[0] for a in shard_atoms.values()])
+    # per-shard geometry in the shard-local frame [0, local_extent)
+    cfg, geom, cplan = plan_geometry(
+        cfg, pot, lat, r_all, (cfg.nx, cfg.ny, cfg.nz),
+        (cfg.xproc, cfg.yproc, cfg.zproc), np.zeros(3), local_extent)
+    plan = exchange.make_plan(geom, msg_factor=cfg.halo_msg_factor,
+                              max_atoms=cfg.max_atoms)
+
+    # momenta: global (vcm, scale), applied to each shard's atoms (bitwise
+    # equal to the single-domain setTemperature)
+    vcm, scale = lattice.temperature_params(pot.mass, cfg.temperature,
+                                            n_global)
+    dev = torch.device(cfg.device)
+    e_pot = torch.zeros((), dtype=cfg.torch_energy_dtype, device=dev)
+    n_local = torch.tensor(n_global, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.bool, device=dev)
+    states = []
+    for c in mesh.coords:
+        r_s, gid_s = shard_atoms[c]
+        p_s = lattice.apply_temperature(gid_s, pot.mass, cfg.temperature,
+                                        vcm, scale)
+        d = bin_atoms_host_np(geom, cfg, r_s - np.asarray(c) * local_extent,
+                              p_s, gid_s)
+        d.update(e_potential=0.0, n_local=0, overflow=False)
+        states.append(dataclasses.replace(
+            state_from_numpy(d, dev), e_potential=e_pot, n_local=n_local,
+            overflow=overflow))
+
+    sim = ShardedSimulation(
+        cfg=cfg, pot=pot, geom=geom, plan=plan, mesh=mesh,
+        global_extent=global_extent, n_global=n_global, states=states,
+        lattice_const=lat, skin_eff=cplan.skin)
+    with _tscope(timers, "redistribute"), _tscope(timers, "atomHalo"):
+        sim.initial_exchange()
+        _sync(sim.device)
+    with _tscope(timers, "force"):
+        sim.compute_force()
+        _sync(sim.device)
+    return sim

@@ -76,6 +76,22 @@ def interpolate(table: torch.Tensor, n: int, x0: float, inv_dx: float,
     return f, df
 
 
+@dataclasses.dataclass(frozen=True)
+class EmbedTable:
+    """A table with its interpolation constants, callable as
+    ``interpolate``: ``table`` is the [n+4] device array of
+    ``InterpTable.device_table``, ``inv_dx`` rounded to its dtype.  Pass 2
+    evaluates the EAM embedding F with it, and the fused push kernel (K4,
+    ops/cuda/comm.py) reads the same constants."""
+    table: torch.Tensor
+    n: int
+    x0: float
+    inv_dx: float
+
+    def __call__(self, rho: torch.Tensor):
+        return interpolate(self.table, self.n, self.x0, self.inv_dx, rho)
+
+
 def _sample_reference(tab: InterpTable, r: np.ndarray):
     """Reference quadratic interpolation (eam.c:557-579), f64 numpy.
 

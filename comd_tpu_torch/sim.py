@@ -1,6 +1,7 @@
-"""Simulation assembly and the velocity-Verlet step (serial, EAM and LJ).
+"""Simulation assembly and the velocity-Verlet step (EAM and LJ).
 
-Port of comd_tpu.sim's serial half on PyTorch:
+Port of comd_tpu.sim's serial half on PyTorch (with -i/-j/-k > 1,
+``init_simulation`` hands over to parallel/sharded.py):
   - SimFlat / SimGpu state          -> one SimState dataclass of tensors
   - initSimulation                  -> init_simulation (CoMD.c:200-327)
   - timestep velocity-Verlet loop   -> Simulation.step_block, an eager
@@ -69,27 +70,21 @@ def check_slice(cfg: Config) -> None:
         not_ported("-P spline tables", "8")
     if cfg.use_nl or cfg.use_pairlist:
         not_ported(f"the neighbor-list methods (-m {cfg.method}, -L)", "11")
-    if cfg.nprocs > 1:
-        not_ported("multi-device runs (-i/-j/-k > 1)", "12")
-    if cfg.comm_impl != "collective":
-        not_ported(f"--commImpl {cfg.comm_impl}", "13")
+    if cfg.nprocs > 1 and cfg.gpu_async > 0:
+        not_ported("-a 1 (the interior/boundary split) on a multi-device "
+                   "mesh", "15")
     if cfg.gpu_profile:
         not_ported("-s profiling mode", "6")
 
 
-@dataclasses.dataclass
-class Simulation:
-    """Host-side handle: static params + device state + step functions."""
-    cfg: Config
-    pot: EamPotential | LjPotential
-    geom: cells.CellGeometry
-    global_extent: np.ndarray        # [3]
-    n_global: int
-    state: SimState
-    lattice_const: float
-    skin_eff: Optional[float] = None   # resolved trigger skin (plan_cells)
+class Physics:
+    """What a single-domain and a sharded simulation share: the device,
+    dtype and cell maps, the pair and embedding evaluators, the stepping
+    constants, and the force over a list of shards (a single domain is a
+    mesh of one).  Subclasses are dataclasses with ``cfg``, ``pot``,
+    ``geom`` and ``skin_eff`` and call ``_setup_physics`` first."""
 
-    def __post_init__(self):
+    def _setup_physics(self) -> None:
         cfg = self.cfg
         self.device = torch.device(cfg.device)
         self.dtype = cfg.torch_dtype
@@ -102,7 +97,6 @@ class Simulation:
                                                 self.device)
         else:
             self.pair_eval = force_lj.make_lj_evaluator(self.pot, self.dtype)
-        self.last_r = None
         self.n_rebucket = 0          # lazy/eager rebuckets so far
         slot = torch.arange(cfg.max_atoms, device=self.device)
         self._slot = slot[None, :]
@@ -128,51 +122,86 @@ class Simulation:
         """A step constant rounded to the dynamics dtype."""
         return float(np.asarray(x, dtype=np.dtype(self.cfg.dtype)))
 
-    # ---------------- force + energy ----------------
-
-    def force(self, r, n_atoms, want_energy: bool = True):
-        """The force (comd_tpu's ``_force_fn``): EAM or LJ, on the
-        full-shell K1 or, with ``--halfShell`` (whatever the cell method),
-        the half-shell K2.  Returns (f_loc [3, n_local, A],
-        U [n_local, A] | None, ePot | None); ``want_energy=False`` skips the
-        energy terms."""
-        geom, maps, cfg = self.geom, self.maps, self.cfg
-        kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
-                  box_chunk=cfg.resolved_box_chunk)
-        half = cfg.half_shell
-
-        def fold(x):
-            return fold_halo_serial(geom, maps, x)
-
-        def fill(x):
-            return binning.fill_halo_scalar_serial(geom, maps, x)
-
-        if not self.is_eam:
-            if half:
-                return force_lj.lj_force_half(maps.half_nbr_map, self.pot, r,
-                                              self.pair_eval, fold, **kw)
-            return force_lj.lj_force(maps.nbr_map, self.pot, r,
-                                     self.pair_eval, **kw)
-        if half:
-            f_loc, u_raw, _dfe = force_eam.eam_force_half(
-                geom, maps.half_nbr_map, r, self.pair_eval, self.f_eval,
-                fill, fold, **kw)
-        else:
-            f_loc, u_raw, _dfe = force_eam.eam_force(
-                geom, maps.nbr_map, r, self.pair_eval, self.f_eval, fill,
-                **kw)
-        if u_raw is None:
-            return f_loc, None, None
-        # EAM: pass 2 gives every slot F(rhobar = 0) != 0; mask the empties
-        valid = self._slot < n_atoms[:geom.n_local, None]
-        u, e_pot = force_eam.finalize_eam_energy(
-            u_raw, valid, self.cfg.torch_energy_dtype)
-        return f_loc, u, e_pot
+    def _drift(self, s: SimState):
+        p = s.p + self._c(0.5 * self.cfg.dt) * s.f
+        r = s.r + p * self._c(self.cfg.dt * (1.0 / self.mass))
+        return r, p
 
     def _full_force(self, f_loc, like):
         f = torch.zeros_like(like)
         f[:, :self.geom.n_local] = f_loc.to(like.dtype)
         return f
+
+    def forces(self, rs, n_atoms, fill, fold, want_energy: bool = True):
+        """The force of every shard (comd_tpu's ``_force_fn``): EAM or LJ,
+        on the full-shell K1 or, with ``--halfShell`` (whatever the cell
+        method), the half-shell K2.  ``rs``/``n_atoms`` hold one entry per
+        shard; ``fill`` (dfEmbed halo fill) and ``fold`` (half-shell halo
+        fold) run over all shards.  Returns per shard (f_loc [3, n_local,
+        A], U [n_local, A] | None, ePot | None); ``want_energy=False``
+        skips the energy terms."""
+        geom, maps, cfg = self.geom, self.maps, self.cfg
+        kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
+                  box_chunk=cfg.resolved_box_chunk)
+        half = cfg.half_shell
+        if not self.is_eam:
+            if half:
+                return force_lj.lj_force_half(maps.half_nbr_map, self.pot,
+                                              rs, self.pair_eval, fold, **kw)
+            return force_lj.lj_force(maps.nbr_map, self.pot, rs,
+                                     self.pair_eval, **kw)
+        if half:
+            out = force_eam.eam_force_half(
+                maps.half_nbr_map, rs, self.pair_eval, self.f_eval, fill,
+                fold, **kw)
+        else:
+            out = force_eam.eam_force(maps.nbr_map, rs, self.pair_eval,
+                                      self.f_eval, fill, **kw)
+        res = []
+        for (f_loc, u_raw, _dfe), n in zip(out, n_atoms):
+            if u_raw is None:
+                res.append((f_loc, None, None))
+                continue
+            # EAM: pass 2 gives every slot F(rhobar = 0) != 0; mask empties
+            valid = self._slot < n[:geom.n_local, None]
+            u, e_pot = force_eam.finalize_eam_energy(
+                u_raw, valid, cfg.torch_energy_dtype)
+            res.append((f_loc, u, e_pot))
+        return res
+
+
+@dataclasses.dataclass
+class Simulation(Physics):
+    """Host-side handle: static params + device state + step functions."""
+    cfg: Config
+    pot: EamPotential | LjPotential
+    geom: cells.CellGeometry
+    global_extent: np.ndarray        # [3]
+    n_global: int
+    state: SimState
+    lattice_const: float
+    skin_eff: Optional[float] = None   # resolved trigger skin (plan_cells)
+
+    def __post_init__(self):
+        self._setup_physics()
+        self.last_r = None
+
+    # ---------------- force + energy ----------------
+
+    def force(self, r, n_atoms, want_energy: bool = True):
+        """The force of the single domain: (f_loc [3, n_local, A],
+        U [n_local, A] | None, ePot | None), with the serial periodic halo
+        fill and fold."""
+        geom, maps = self.geom, self.maps
+
+        def fold(xs):
+            return [fold_halo_serial(geom, maps, x) for x in xs]
+
+        def fill(xs, _rhobar):
+            return [binning.fill_halo_scalar_serial(geom, maps, x)
+                    for x in xs]
+
+        return self.forces([r], [n_atoms], fill, fold, want_energy)[0]
 
     def _finish(self, s: SimState, r, p, gid, n_atoms, ovf,
                 want_energy: bool) -> SimState:
@@ -186,11 +215,6 @@ class Simulation:
         return SimState(r=r, p=p, f=f, gid=gid, n_atoms=n_atoms,
                         e_potential=e_pot, n_local=n_local,
                         overflow=s.overflow | ovf)
-
-    def _drift(self, s: SimState):
-        p = s.p + self._c(0.5 * self.cfg.dt) * s.f
-        r = s.r + p * self._c(self.cfg.dt * (1.0 / self.mass))
-        return r, p
 
     def _rebucket(self, r, p, gid, n_atoms):
         r_l, p_l, gid2, n2, _nm, ovf = binning.rebucket(
@@ -268,6 +292,11 @@ class Simulation:
     def e_potential(self) -> float:
         return float(self.state.e_potential)
 
+    @property
+    def overflow(self) -> bool:
+        """Any capacity overflow so far."""
+        return bool(self.state.overflow)
+
     def sum_atoms(self) -> int:
         return int(self.state.n_atoms[:self.geom.n_local].sum())
 
@@ -289,14 +318,23 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def init_simulation(cfg: Config, timers=None) -> Simulation:
+def init_potential(cfg: Config):
+    if cfg.doeam:
+        return init_eam_pot(cfg.pot_dir, cfg.pot_name, cfg.pot_type)
+    return init_lj_pot(cfg.lj_cutoff_factor)
+
+
+def init_simulation(cfg: Config, timers=None):
     """Build the initial state (initSimulation, CoMD.c:200-327) on
-    ``cfg.device``.  Serial EAM or LJ: other configurations raise
-    NotImplementedError (``check_slice``)."""
+    ``cfg.device``: a Simulation, or with -i/-j/-k > 1 a ShardedSimulation
+    over a mesh of shards (parallel/sharded.py).  EAM or LJ: other
+    configurations raise NotImplementedError (``check_slice``)."""
     cfg = cfg.resolve()
     check_slice(cfg)
-    pot = (init_eam_pot(cfg.pot_dir, cfg.pot_name, cfg.pot_type)
-           if cfg.doeam else init_lj_pot(cfg.lj_cutoff_factor))
+    if cfg.nprocs > 1:
+        from .parallel.sharded import init_sharded_simulation
+        return init_sharded_simulation(cfg, timers=timers)
+    pot = init_potential(cfg)
 
     lat = cfg.lat if cfg.lat > 0 else pot.lat
     global_extent = np.array([cfg.nx, cfg.ny, cfg.nz], np.float64) * lat

@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Where the time of a comd_tpu_torch step goes on one NVIDIA GPU.
+
+    python3 profile_step.py                        # serial EAM headline
+    python3 profile_step.py --mesh 2 2 2 --comm ki_fused
+    python3 profile_step.py --mesh 2 2 2 --comm collective --half
+
+Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
+phases 5, 8 and 12) through ``init_simulation`` and ``step_block``: warm-up
+blocks of 10 steps up to the first rebucket (its kernels load on first
+use), ``--steps`` steps (blocks of 10) timed by the host clock, then as
+many under torch.profiler (device activity only).  Prints one JSON
+line: ms/step, the device's busy time per step (the sum of the kernels'
+durations: one stream, so they do not overlap) and its idle share of the
+unprofiled wall clock, kernel launches per step, the kernels that take the
+most device time, and the device time of one launch of each hand-written
+kernel.  Needs a CUDA device; prints the card's
+name and power limit beside the numbers.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=63, help="unit cells per axis")
+    ap.add_argument("--mesh", type=int, nargs=3, default=(1, 1, 1))
+    ap.add_argument("--comm", default="collective",
+                    choices=["collective", "ki", "ki_fused"])
+    ap.add_argument("--half", action="store_true", help="--halfShell")
+    ap.add_argument("--steps", type=int, default=50)
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    px, py, pz = args.mesh
+    sim = init_simulation(Config(
+        nx=args.n, ny=args.n, nz=args.n, doeam=True, temperature=600.0,
+        dtype="float32", pot_dir=os.path.join(ROOT, "pots"), device="cuda",
+        xproc=px, yproc=py, zproc=pz, comm_impl=args.comm,
+        half_shell=args.half))
+    # warm up through a rebucket: its kernels load on their first launch
+    for _ in range(20):
+        sim.step_block(10)
+        if sim.n_rebucket:
+            break
+    blocks = args.steps // 10
+    steps = 10 * blocks
+    # the wall clock without the profiler, then the device's kernels under
+    # it (CUDA activity only: the host-side tracing would slow the loop)
+    torch.cuda.synchronize()
+    rebuckets = sim.n_rebucket
+    t0 = time.perf_counter()
+    for _ in range(blocks):
+        sim.step_block(10)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rebuckets = sim.n_rebucket - rebuckets
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(blocks):
+            sim.step_block(10)
+        torch.cuda.synchronize()
+    kern = {}
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and dev_us > 0 and \
+                "Loading" not in e.key:
+            kern[e.key] = (dev_us, e.count)
+    busy_us = sum(v[0] for v in kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    print(smi)
+    print(json.dumps({
+        "run": (f"{args.n}^3 EAM f32 lazy, mesh {px}x{py}x{pz}, "
+                f"--commImpl {args.comm}" + (" --halfShell"
+                                             if args.half else "")),
+        "ms_per_step": 1e3 * wall / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+        "kernel_launches_per_step": sum(v[1] for v in kern.values()) / steps,
+        "rebuckets_in_timed_steps": rebuckets,
+        "hand_written_launches": {k: v for k, v in LAUNCHES.items() if v},
+        "top_kernels_ms_per_step": [
+            {"name": k[:90], "ms": us / 1e3 / steps, "calls": n / steps}
+            for k, (us, n) in top],
+        # the device time of one launch of each hand-written kernel
+        "hand_written_us_per_launch": {
+            k[:90]: us / n for k, (us, n) in kern.items()
+            if any(w in k for w in ("stencil_kernel", "ring_push_kernel",
+                                    "pass2_push_kernel"))},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,10 +3,12 @@
 ``python -m comd_tpu_torch.cli`` must print the same "Initial energy",
 per-step energies and validation numbers as ``python -m comd_tpu.cli`` for
 the same command line (within 1e-9 at f64), with no atoms lost: EAM, LJ,
-and both with ``--halfShell``.  ``--halfFetch``/``--halfMaterialize`` are
-accepted and change nothing.  Every option outside the ported slice raises
-NotImplementedError naming the ROADMAP.md item that ports it, instead of
-running something else.
+and both with ``--halfShell``; a 2x2x2 mesh under ``--commImpl ki_fused``
+prints comd_tpu's rows to the printed digits.  ``--halfFetch``/
+``--halfMaterialize`` are accepted and change nothing; ``--commImpl`` on a
+serial run warns, and an undersized ``--haloMsgFactor`` aborts.  Every
+option outside the ported slice raises NotImplementedError naming the
+ROADMAP.md item that ports it, instead of running something else.
 """
 import io
 import os
@@ -33,6 +35,14 @@ def _run(module, *extra, args=ARGS):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     return out.stdout
+
+
+def _rows(text):
+    """The printThings rows as printed: step, time, total, potential and
+    kinetic energy per atom, temperature (the timing column dropped)."""
+    return [m.group(1) for m in re.finditer(
+        r"^( +\d+ +[\d.]+ +-?[\d.]+ +-?[\d.]+ +-?[\d.]+ +-?[\d.]+) ",
+        text, re.M)]
 
 
 def _numbers(text):
@@ -112,10 +122,10 @@ def test_cell_methods_run_the_stencil(method, capsys):
     (["-e", "-m", "warp_atom_nl"], "11"),
     (["-e", "-m", "cpu_nl"], "11"),
     (["-e", "-L"], "11"),
-    (["-e", "-i", "2"], "12"),
-    (["-e", "--numProcs", "2"], "12"),
-    (["-e", "--commImpl", "ki"], "13"),
-    (["-e", "--commImpl", "ki_fused"], "13"),
+    (["-e", "-i", "2", "-j", "2", "-k", "2", "-a", "1"], "15"),
+    (["-e", "--numProcs", "2"], "14"),
+    (["-e", "-i", "2", "-j", "2", "-k", "2", "-m", "thread_atom_nl"], "11"),
+    (["-i", "2", "-j", "2", "-k", "2", "-L"], "11"),
     (["-e", "--restore", "ckpt"], "6"),
     (["-e", "--checkpoint", "ckpt"], "6"),
     (["-e", "-s"], "6"),
@@ -126,3 +136,44 @@ def test_out_of_slice_options_raise(extra, item):
     argv = ["-x", "4", "-y", "4", "-z", "4", "-N", "1", "--device", "cpu"]
     with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
         tcli.main(argv + extra)
+
+
+MESH_ARGS = ["-e", "-x", "8", "-y", "8", "-z", "8", "-i", "2", "-j", "2",
+             "-k", "2", "-N", "4", "-n", "2", "--dtype", "float64"]
+
+
+def test_cli_mesh_ki_fused_matches_comd_tpu():
+    """A 2x2x2 mesh at 8^3 under --commImpl ki_fused prints comd_tpu's
+    printThings rows to the printed digits.  comd_tpu's own ki_fused runs
+    only on a TPU (its interpret mode moves remote copies on 1-D meshes
+    only), so its collective run of the same flags is the reference; the
+    two transports are bitwise equal in both packages."""
+    ref = _run("comd_tpu.cli", "--commImpl", "collective", args=MESH_ARGS)
+    out = _run("comd_tpu_torch.cli", "--commImpl", "ki_fused", "--device",
+               "cpu", args=MESH_ARGS)
+    assert "Processors       : 2 x 2 x 2 shards on cpu, --commImpl " \
+        "ki_fused" in out
+    assert len(_rows(out)) == len(_rows(ref)) == 3     # steps 0, 2, 4
+    assert _rows(out) == _rows(ref)
+    got, want = _numbers(out), _numbers(ref)
+    assert got[0] == want[0] and got[3] == want[3] == 2048
+
+
+def test_cli_serial_comm_impl_warns():
+    buf = io.StringIO()
+    res = tcli.run(tcli.config_from_args(tcli.build_parser().parse_args(
+        ARGS + ["-N", "1", "-n", "1", "--commImpl", "ki", "--device",
+                "cpu"])), out=buf)
+    assert "# WARNING: --commImpl ki selects a halo TRANSPORT" in \
+        buf.getvalue()
+    assert res["atoms_lost"] == 0
+
+
+def test_cli_packed_message_overflow_aborts():
+    """An undersized --haloMsgFactor raises the overflow flag, and the run
+    aborts naming the knob."""
+    argv = MESH_ARGS + ["-N", "1", "-n", "1", "--haloMsgFactor", "1e-6",
+                        "--device", "cpu"]
+    with pytest.raises(RuntimeError, match="haloMsgFactor"):
+        tcli.run(tcli.config_from_args(tcli.build_parser().parse_args(argv)),
+                 out=io.StringIO())

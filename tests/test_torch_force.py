@@ -43,9 +43,10 @@ def _port_force(sim, r, impl, want_energy=True):
     ev = tforce.make_pair_evaluator(pot, rt.dtype, "cpu", impl)
     f_eval = tforce.make_f_eval(pot, rt.dtype, "cpu")
     f, u, dfe = tforce.eam_force(
-        sim.geom, maps.nbr_map, rt, ev, f_eval,
-        lambda x: tbin.fill_halo_scalar_serial(sim.geom, maps, x),
-        want_energy=want_energy)
+        maps.nbr_map, [rt], ev, f_eval,
+        lambda xs, _rhobar: [tbin.fill_halo_scalar_serial(sim.geom, maps, x)
+                             for x in xs],
+        want_energy=want_energy)[0]
     return f, u, dfe
 
 

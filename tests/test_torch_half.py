@@ -183,8 +183,8 @@ def test_lj_half_matches_pallas_half_f32():
         sim.geom, sim.pot, jnp.asarray(r), lambda x: j_fold(sim.geom, x),
         chunk=128, interpret=True)
     ft, ut, et = tlj.lj_force_half(
-        maps.half_nbr_map, pot, torch.from_numpy(r), ev,
-        lambda x: fold_halo_serial(sim.geom, maps, x))
+        maps.half_nbr_map, pot, [torch.from_numpy(r)], ev,
+        lambda xs: [fold_halo_serial(sim.geom, maps, x) for x in xs])[0]
     _close(ft.numpy(), np.asarray(fj), 1e-4, 0.0)
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=1e-5,
                                atol=1e-6 * np.abs(np.asarray(uj)).max())
@@ -196,8 +196,8 @@ def test_lj_half_matches_xla_half_f64():
     fj, uj, ej = jlj.lj_force_half(sim.geom, sim.pot, jnp.asarray(r),
                                    lambda x: j_fold(sim.geom, x), chunk=32)
     ft, ut, et = tlj.lj_force_half(
-        maps.half_nbr_map, pot, torch.from_numpy(r), ev,
-        lambda x: fold_halo_serial(sim.geom, maps, x))
+        maps.half_nbr_map, pot, [torch.from_numpy(r)], ev,
+        lambda xs: [fold_halo_serial(sim.geom, maps, x) for x in xs])[0]
     _close(ft.numpy(), np.asarray(fj), 0.0, 1e-12)
     _close(ut.numpy(), np.asarray(uj), 0.0, 1e-12)
     assert float(et) == pytest.approx(float(ej), rel=1e-12)

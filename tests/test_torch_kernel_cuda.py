@@ -1,5 +1,5 @@
-"""The CUDA cell-stencil kernels (K1, K2) on the card, against their plain
-versions.
+"""The CUDA kernels on the card against their plain versions: the
+cell-stencil kernels (K1, K2) and the halo push kernels (K3, K4).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -10,7 +10,10 @@ Without a CUDA device every test skips.  Tolerances: f32/Chebyshev forces
 atol 1e-4 eV/A and phi-sum/rhobar rtol 1e-5 (the kernels sum in another
 order, K2 with atomics in an order that changes from run to run); f64
 rtol 1e-12 (forces also atol 1e-12 * max|f|).  K2's outputs are compared
-dense and unfolded: kernel and plain version use the same half map.
+dense and unfolded: kernel and plain version use the same half map.  K3
+and K4 only move and evaluate values, so they are held bit for bit (K4
+against pass 2's own F' at the same rows), and a sharded run gives the
+same bits under every transport.
 """
 import os
 
@@ -21,6 +24,7 @@ import torch
 from comd_tpu_torch import Config, init_simulation
 from comd_tpu_torch.interop import FIELDS, state_from_numpy
 from comd_tpu_torch.ops import binning
+from comd_tpu_torch.ops.cuda import comm as cm
 from comd_tpu_torch.ops.cuda import stencil as st
 
 POTS = os.path.join(os.path.dirname(os.path.dirname(
@@ -188,4 +192,115 @@ def test_card_trajectory_matches_cpu(cuda_device):
                                    getattr(cpu.state, k).numpy(),
                                    rtol=0, atol=1e-10)
     assert torch.equal(gpu.state.gid.cpu(), cpu.state.gid)
+    assert gpu.e_potential == pytest.approx(cpu.e_potential, rel=1e-12)
+
+
+MESH = dict(xproc=2, yproc=2, zproc=2)
+# 864 atoms displaced so that some change shard within a few steps
+TRAJ = dict(nx=6, ny=6, nz=6, doeam=True, temperature=600.0,
+            initial_delta=0.8, pot_dir=POTS, **MESH)
+
+
+def _mesh_sim(dtype, **kw):
+    sim = init_simulation(Config(nx=8, ny=8, nz=8, doeam=True,
+                                 temperature=600.0, dtype=dtype,
+                                 pot_dir=POTS, device="cuda", **MESH, **kw))
+    sim.step_block(5)
+    return sim
+
+
+def _equal(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_ring_push_matches_plain(cuda_device, dtype):
+    """K3: the six dfEmbed pushes of the staged exchange, in order, and the
+    six atom messages (r, p, gid, counts), bit for bit."""
+    sim = _mesh_sim(dtype, comm_impl="ki")
+    h = sim.halo
+    torch.manual_seed(0)
+    a = [torch.randn(s.gid.shape, dtype=sim.dtype, device=cuda_device)
+         for s in sim.states]
+    b = [v.clone() for v in a]
+    st.reset_launch_counts()
+    for axis in range(3):
+        (s_m, s_p), (r_m, r_p) = h.force_send[axis], h.force_recv[axis]
+        for to, send, recv in ((h.minus[axis], s_m, r_p),
+                               (h.plus[axis], s_p, r_m)):
+            cm.ring_push([(a, a)], to, send, recv)
+            cm.ring_push_plain([(b, b)], to, send, recv)
+            assert _equal(a, b)
+    fields = [[getattr(s, k) for s in sim.states]
+              for k in ("r", "p", "gid", "n_atoms")]
+    for axis in range(3):
+        for d, to in ((0, h.minus[axis]), (1, h.plus[axis])):
+            ids = h.atom_send[axis][d]
+            outs = []
+            for fn in (cm.ring_push, cm.ring_push_plain):
+                buf = [[f[0].new_zeros(
+                    (3, ids.numel(), f[0].shape[2]) if f[0].dim() == 3
+                    else (ids.numel(),) + tuple(f[0].shape[1:]))
+                    for _ in f] for f in fields]
+                fn(list(zip(fields, buf)), to, ids)
+                outs.append(buf)
+            for fk, fp in zip(*outs):
+                assert _equal(fk, fp)
+            assert outs[0][2][0].ne(0).any()          # gids arrived
+    assert st.LAUNCHES["ring_push"] == 12
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pass2_push_matches_pass2(cuda_device, dtype):
+    """K4: F'(rhobar) of both x-face planes equals pass 2's F' of the same
+    rows bit for bit, and lands in the neighbors' rows as the plain version
+    puts it."""
+    sim = _mesh_sim(dtype, comm_impl="ki_fused")
+    h = sim.halo
+    rhobar = [st.eam_pass1(s.r, sim.maps.nbr_map, sim.pair_eval,
+                           want_energy=False)[2] for s in sim.states]
+    st.reset_launch_counts()
+    (s_m, s_p), (r_m, r_p) = h.force_send[0], h.force_recv[0]
+    for to, send, recv in ((h.minus[0], s_m, r_p), (h.plus[0], s_p, r_m)):
+        a = [torch.zeros_like(s.gid, dtype=sim.dtype) for s in sim.states]
+        b = [v.clone() for v in a]
+        local = cm.pass2_push(rhobar, a, to, send, recv, sim.f_eval)
+        plain = cm.pass2_push_plain(rhobar, b, to, send, recv, sim.f_eval)
+        ref = [sim.f_eval(rho)[1][send] for rho in rhobar]
+        assert _equal(local, ref) and _equal(plain, ref) and _equal(a, b)
+        assert all(v[recv].ne(0).all() for v in a)
+    assert st.LAUNCHES["pass2_push"] == 2
+
+
+@pytest.mark.parametrize("comm_impl", ["ki", "ki_fused"])
+def test_transports_bit_equal_on_card(cuda_device, comm_impl):
+    """Eager f64 steps (an atom exchange every step) on the full-shell K1,
+    whose sums are deterministic: K3/K4 give the collective run's bits."""
+    sims = []
+    for ci in ("collective", comm_impl):
+        sim = init_simulation(Config(dtype="float64", lazy_shell=False,
+                                     comm_impl=ci, device="cuda", **TRAJ))
+        sim.step_block(5)
+        sims.append(sim)
+    assert sims[1].e_potential == sims[0].e_potential
+    for x, y in zip(*[s.states for s in sims]):
+        for k in ("r", "p", "f", "gid", "n_atoms"):
+            assert torch.equal(getattr(x, k), getattr(y, k)), k
+
+
+def test_sharded_card_matches_cpu(cuda_device):
+    """10 f64 lazy steps of the ki_fused mesh on the card against the
+    collective mesh on the CPU (plain versions): summation order only."""
+    cpu = init_simulation(Config(dtype="float64", device="cpu", **TRAJ))
+    gpu = init_simulation(Config(dtype="float64", device="cuda",
+                                 comm_impl="ki_fused", **TRAJ))
+    cpu.step_block(10)
+    gpu.step_block(10)
+    assert gpu.n_rebucket == cpu.n_rebucket >= 1
+    for c, g in zip(cpu.states, gpu.states):
+        assert torch.equal(g.gid.cpu(), c.gid)
+        for k in ("r", "p"):
+            np.testing.assert_allclose(getattr(g, k).cpu().numpy(),
+                                       getattr(c, k).numpy(), rtol=0,
+                                       atol=1e-10)
     assert gpu.e_potential == pytest.approx(cpu.e_potential, rel=1e-12)

@@ -81,7 +81,7 @@ def test_potential_carried_over(factor):
 
 def test_lj_plain_matches_pallas_f32(f32):
     sim, r, pot, ev, maps, (fj, uj, ej) = f32
-    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, torch.from_numpy(r), ev)
+    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, [torch.from_numpy(r)], ev)[0]
     _close(ft.numpy(), fj, 1e-4, 0.0)
     np.testing.assert_allclose(ut.numpy(), uj, rtol=1e-5,
                                atol=1e-6 * np.abs(uj).max())
@@ -91,8 +91,8 @@ def test_lj_plain_matches_pallas_f32(f32):
 
 def test_lj_no_energy_variant_f32(f32):
     sim, r, pot, ev, maps, (fj, _uj, _ej) = f32
-    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, torch.from_numpy(r), ev,
-                              want_energy=False)
+    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, [torch.from_numpy(r)], ev,
+                              want_energy=False)[0]
     assert ut is None and et is None
     _close(ft.numpy(), fj, 1e-4, 0.0)
 
@@ -100,7 +100,7 @@ def test_lj_no_energy_variant_f32(f32):
 def test_lj_plain_matches_xla_f64():
     sim, r, pot, ev, maps = _setup("float64")
     fj, uj, ej = jlj.lj_force(sim.geom, sim.pot, jnp.asarray(r), chunk=32)
-    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, torch.from_numpy(r), ev)
+    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, [torch.from_numpy(r)], ev)[0]
     _close(ft.numpy(), np.asarray(fj), 0.0, 1e-12)
     _close(ut.numpy(), np.asarray(uj), 0.0, 1e-12)
     assert float(et) == pytest.approx(float(ej), rel=1e-12)
