@@ -7,7 +7,8 @@ Phases, one line or more each, failing (non-zero exit, no result line) on
 the first error:
   1. device   -- a CUDA card is required; prints nvidia-smi's name and
                  power limit
-  2. build    -- compiles the cell-stencil kernels (csrc/stencil.cu) with nvcc
+  2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
+                 probe.cu) with nvcc, one process each, in parallel
   3. kernel   -- K1 against its plain PyTorch version on the same CUDA
                  tensors (thermalized 10^3 lattice, T = 600 K), EAM pass 1
                  and pass 3, f32/Chebyshev and f64/table
@@ -51,11 +52,24 @@ the first error:
                  beside their plain versions and bounds.  Eight shards on
                  one card measure the decomposition's overhead against the
                  serial run, not scaling.
+ 13. probes   -- the archive probes through their commands
+                 (comd_tpu_torch.probes.window P1, P2, P3, P3 --lj;
+                 .lookup P4, P5, P6), then window_pair against its plain
+                 version (P1, P2, P3 EAM and LJ at the probes' shapes and
+                 P3 at 72 chunks, 509.6M pairs ~ one K1 pass of phase 5:
+                 each element within 1e-5 of the sum of its terms'
+                 magnitudes and each output within 1e-5 of its largest
+                 value, all finite) and row_lookup / lane_lookup bit for
+                 bit at scale 1e-12 and 1, also on tables whose columns
+                 differ; times beside plain versions and bounds (flops
+                 the function needs: r2 on every pair, the pair function
+                 on the pairs inside the cutoff), the 72-chunk time per
+                 pair beside K1's pass 1.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
-read just after.  Imports torch and comd_tpu_torch only; builds everything
-from this checkout (the two kernel sources with one nvcc each, in
-parallel).
+read just after.  Imports torch, numpy and comd_tpu_torch only; builds
+everything from this checkout (the three kernel sources with one nvcc each,
+in parallel).
 """
 from __future__ import annotations
 
@@ -74,10 +88,17 @@ GOLDEN_LJ = -1.243619295058
 GOLDEN_LJ_5SIGMA = -1.406590686466
 SOURCE = "comd_tpu_torch/csrc/stencil.cu"
 COMM_SOURCE = "comd_tpu_torch/csrc/comm.cu"
+PROBE_SOURCE = "comd_tpu_torch/csrc/probe.cu"
+PROBE_KEYS = ("window_pair", "row_lookup", "lane_lookup")
 REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             "half": "comd_tpu/ops/pallas/stencil.py:204",
             "ring_push": "comd_tpu/parallel/pallas_comm.py:39",
-            "pass2_push": "comd_tpu/parallel/pallas_comm.py:265"}
+            "pass2_push": "comd_tpu/parallel/pallas_comm.py:265",
+            "window_pair": "tools/archive/pallas_probe.py:22, "
+                           "tools/archive/pallas_probe2.py:38, "
+                           "tools/archive/pallas_probe3.py:62,94",
+            "row_lookup": "tools/archive/gather_probe.py:94",
+            "lane_lookup": "tools/archive/gather_probe2.py:59,87"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -111,21 +132,6 @@ def norm_rel(a, b) -> float:
     halo rows, some near zero, so they are held against their largest
     value."""
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
-
-
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches (CUDA events)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
 
 
 def compare_passes(sim, tag: str, f_atol: float, s_rtol: float,
@@ -450,6 +456,161 @@ def comm_bound(sim, rows: int, n_launch: int, read_table: bool) -> tuple:
     return 1e3 * nbytes / PEAK_BYTES / n_launch, "bytes"
 
 
+def window_bound(sp, n_cols: int, row_len: int, n_close: int) -> tuple:
+    """(bound_ms, bound_by, flops) of one window_pair launch of probe spec
+    ``sp`` over ``n_cols`` columns of an rp with ``row_len`` lanes, whose
+    data put ``n_close`` candidate pairs inside the cutoff.
+
+    Flops, as ``bound()`` counts K1's (an FMA as 2, a division or
+    reciprocal as 1, compares, selects, clip and conversions as 0): 8 per
+    candidate pair for r2 (3 differences, 3 products, 2 sums), then per
+    pair inside the cutoff what the sums need of it: P1 4 (reciprocal, the
+    force product and sum, the r2 sum); LJ 13 (reciprocal, r6 2, the
+    coefficient 4, the energy 2, the force product and sum 2, 2 sums);
+    Clenshaw 2 for t2, 3 (N - 2) + 4 for a chain of N coefficients, 1 for
+    -2 dphi, 2 for the force and 2 sums.  The kernel evaluates every
+    candidate pair branch-free; the terms outside the cutoff are zeros the
+    function does not need, so they are not counted.  Bytes: rp read once,
+    the outputs written once."""
+    from comd_tpu_torch.probes import window
+    A = window.SLOTS
+    if sp.physics == "inv_r2":
+        per = 4
+    elif sp.physics == "lj":
+        per = 13
+    else:
+        per = 2 + sum(3 * (len(c) - 2) + 4
+                      for c in (sp.phi, sp.dphi, sp.rho)) + 1 + 2 + 2
+    flops = 8 * window.n_pairs(sp, n_cols) + per * n_close
+    nbytes = 4 * (3 * A * row_len + sp.n_out * A * n_cols)
+    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops)
+
+
+def lookup_bound(x, tab, flops_per_value: int) -> tuple:
+    """(bound_ms, bound_by) of one lookup launch: x read and the output
+    written once, the table read once; flops per value from the kernel
+    (P4 8: u, 3 adds, 2 products, the scale and the add to x; P5 4)."""
+    nbytes = 4 * (2 * x.numel() + tab.numel())
+    t_ops = 1e3 * flops_per_value * x.numel() / PEAK_F32_FLOPS
+    t_bytes = 1e3 * nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def run_probes(k1_pass1: tuple) -> dict:
+    """Phase 13: the probe commands P1-P6 with the launch counts zeroed
+    just before and read just after; then each kernel against its plain
+    version at the probes' own shapes (window_pair: every element within
+    1e-5 of its own scale, the sum of its terms' magnitudes, and every
+    output within 1e-5 of its largest value, all finite; the lookups bit
+    for bit at scale 1e-12 and 1, on the probes' tables and on tables
+    whose columns differ); times beside plain versions and bounds; P3's
+    physics at 72 chunks beside K1's pass 1 (``k1_pass1``: ms, slot pairs,
+    occupied candidate pairs, flops the function needs).
+    Returns the three kernels-line rows."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.probes import lookup, time_ms, window
+    st.reset_launch_counts()
+    for argv in (["1"], ["2"], ["3"], ["3", "--lj"]):
+        window.main(argv)
+    for probe in ("4", "5", "6"):
+        lookup.main([probe])
+    launches = {k: st.LAUNCHES[k] for k in PROBE_KEYS}
+    for k, n in launches.items():
+        check(n > 0, f"probes: {k} launched {n} times by the commands")
+    say("probes", f"launches in the probe commands' run: {launches}")
+
+    timed = {}
+    for sp, chunks in ((window.P1, None), (window.P2, None),
+                       (window.P3, None), (window.P3_LJ, None),
+                       (window.P3, 72), (window.P3_LJ, 72)):
+        probe = int(sp.name[1])
+        rp = torch.from_numpy(window.make_inputs(probe, chunks)).cuda()
+        got = window.window_pair(rp, sp)
+        want = window.window_pair_plain(rp, sp)
+        scale = window.window_pair_magnitude(rp, sp)
+        n_close = window.n_in_cutoff(rp, sp)
+        check(all(bool(torch.isfinite(t).all()) for t in got + want),
+              f"window_pair {sp.name}: non-finite sums")
+        rel = max(norm_rel(a, b) for a, b in zip(got, want))
+        elem = window.element_error(got, want, scale)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        n_cols = got[0].shape[1]
+        tag = f"{sp.name} {n_cols // window.CHUNK} chunks"
+        check(rel <= 1e-5 and elem <= 1e-5,
+              f"window_pair {tag}: max|a-b|/max|b| {rel:.3e}, max|a-b|/S "
+              f"{elem:.3e}")
+        del got, want, scale
+        ms = time_ms(lambda: window.window_pair(rp, sp), 20)
+        plain_ms = time_ms(lambda: window.window_pair_plain(rp, sp), 2)
+        b_ms, b_by, flops = window_bound(sp, n_cols, rp.shape[2], n_close)
+        pairs = window.n_pairs(sp, n_cols)
+        say("timing", f"window_pair {tag} ({pairs:,} pairs, {n_close:,} "
+            f"inside the cutoff): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms; bound {b_ms:.4f} ms ({b_by}); {pairs / ms / 1e6:.2f} "
+            f"Gpairs/s, {flops / ms / 1e9:.3f} TFLOP/s needed; max|a-b|/S "
+            f"{elem:.2e}, max|a-b|/max|b| {rel:.2e}")
+        timed[tag] = (err, ms, plain_ms, b_ms, b_by, pairs, flops)
+        del rp
+    k1_ms, k1_slots, k1_cand, k1_flops = k1_pass1
+    for name in ("P3", "P3 LJ"):
+        _e, ms, _p, _b, _by, pairs, flops = timed[f"{name} 72 chunks"]
+        say("probes", f"{name} at 72 chunks: {pairs:,} candidate pairs in "
+            f"{ms:.4f} ms = {1e9 * ms / pairs:.3f} ps a pair, "
+            f"{flops / ms / 1e9:.3f} TFLOP/s needed; K1 EAM pass 1 (phase "
+            f"5): {k1_slots:,} slot pairs ({k1_cand:,} occupied) in "
+            f"{k1_ms:.4f} ms = {1e9 * k1_ms / k1_slots:.3f} "
+            f"({1e9 * k1_ms / k1_cand:.3f}) ps a pair, "
+            f"{k1_flops / k1_ms / 1e9:.3f} TFLOP/s needed")
+
+    rng = np.random.default_rng(7)
+    x4, t4 = (torch.from_numpy(a).cuda() for a in lookup.make_inputs(4))
+    x5, t5 = (torch.from_numpy(a).cuda() for a in lookup.make_inputs(5))
+    other4 = torch.from_numpy(rng.normal(size=tuple(t4.shape)).astype(
+        np.float32)).cuda()
+    other5 = torch.from_numpy(rng.normal(size=tuple(t5.shape)).astype(
+        np.float32)).cuda()
+    for scale in (lookup.SCALE, 1.0):
+        for tab in (t4, other4):
+            check(torch.equal(lookup.row_lookup(x4, tab, scale),
+                              lookup.row_lookup_plain(x4, tab, scale)),
+                  f"row_lookup differs from its plain version (scale "
+                  f"{scale})")
+        for tab in (t5, other5):
+            got = lookup.lane_lookup(x5, tab, scale)
+            check(torch.equal(got, lookup.lane_lookup_plain(x5, tab, scale))
+                  and torch.equal(lookup.onehot_lookup(x5, tab, scale), got),
+                  f"lane_lookup differs from its plain version (scale "
+                  f"{scale})")
+    say("probes", "row_lookup (P4) and lane_lookup (P5 = P6) bit for bit "
+        "against their plain versions at scale 1e-12 and 1, on the probes' "
+        "tables and on tables whose columns differ")
+
+    e, ms, plain_ms, b_ms, b_by, _pairs, _fl = timed["P3 8 chunks"]
+    rows = {"window_pair": (e, ms, plain_ms, b_ms, b_by)}
+    for key, fn, plain, x, tab, per in (
+            ("row_lookup", lookup.row_lookup, lookup.row_lookup_plain, x4, t4,
+             8),
+            ("lane_lookup", lookup.lane_lookup, lookup.lane_lookup_plain, x5,
+             t5, 4)):
+        ms = time_ms(lambda: fn(x, tab), 20)
+        plain_ms = time_ms(lambda: plain(x, tab), 20)
+        b_ms, b_by = lookup_bound(x, tab, per)
+        say("timing", f"{key} {x.numel():,} lookups: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+            f"{x.numel() / ms / 1e6:.2f} G lookups/s, "
+            f"{8 * x.numel() / ms / 1e9:.3f} TB/s of x and out")
+        rows[key] = (0.0, ms, plain_ms, b_ms, b_by)
+    return {k: {"name": k, "route": "cuda", "source": PROBE_SOURCE,
+                "replaces": REPLACES[k], "launches": launches[k],
+                "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            for k, (e, ms, plain_ms, b_ms, b_by) in rows.items()}
+
+
 def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,
              on_init=None, **kw):
     """One main path at full width through the user entry points
@@ -524,7 +685,9 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from comd_tpu_torch import Config, init_simulation
     from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import probe as pr
     from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.probes import time_ms
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -538,10 +701,10 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        list(pool.map(lambda m: m.build(), (st, cm)))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        list(pool.map(lambda m: m.build(), (st, cm, pr)))
     t_build = time.perf_counter() - t0
-    for mod, stem in ((st, "stencil"), (cm, "comm")):
+    for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
         regs, spills = [], []
         if os.path.exists(log):
@@ -554,7 +717,7 @@ def main() -> int:
             f"{len(regs)} kernels, registers {min(regs, default=0)}.."
             f"{max(regs, default=0)}, max spill stores "
             f"{max(spills, default=0)} bytes")
-    say("build", f"both sources in {t_build:.1f} s")
+    say("build", f"three sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -583,16 +746,24 @@ def main() -> int:
         sim, f"{HEADLINE_N}^3 float32/cheb", 1e-4, 1e-5)
     k1_ms = {
         "eam_pass1": (
-            cuda_ms(lambda: st.eam_pass1(r, nbr, ev, want_energy=False), 20),
-            cuda_ms(lambda: st.eam_pass1_plain(
+            time_ms(lambda: st.eam_pass1(r, nbr, ev, want_energy=False), 20),
+            time_ms(lambda: st.eam_pass1_plain(
                 r, nbr, ev, want_energy=False, box_chunk=chunk), 2)),
         "eam_pass3": (
-            cuda_ms(lambda: st.eam_pass3(r, nbr, ev, dfe), 20),
-            cuda_ms(lambda: st.eam_pass3_plain(r, nbr, ev, dfe,
+            time_ms(lambda: st.eam_pass3(r, nbr, ev, dfe), 20),
+            time_ms(lambda: st.eam_pass3_plain(r, nbr, ev, dfe,
                                                box_chunk=chunk), 2)),
     }
     for k, (ms, plain) in k1_ms.items():
         rows[k] = kernel_row(sim, k, launches, errs[k], ms, plain)
+    # K1 pass 1 beside the window probe (phase 13): its time, slot pairs,
+    # occupied candidate pairs and flops (its bound is operations)
+    check(rows["eam_pass1"]["bound_by"] == "operations",
+          "K1 pass 1 bound by bytes")
+    k1_pass1 = (k1_ms["eam_pass1"][0],
+                sim.geom.n_local * 27 * sim.cfg.max_atoms ** 2,
+                pair_work(sim, False)[0],
+                rows["eam_pass1"]["bound_ms"] * PEAK_F32_FLOPS / 1e3)
     del sim, r, nbr, ev, dfe
 
     # 6. K2 (EAM, LJ) and K1's LJ variant vs plain versions at 10^3
@@ -638,18 +809,18 @@ def main() -> int:
     nbr = sim.maps.nbr_map
     times = {
         "half_eam_pass1": (
-            cuda_ms(lambda: st.eam_pass1_half(r, hm, ev, want_energy=False),
+            time_ms(lambda: st.eam_pass1_half(r, hm, ev, want_energy=False),
                     20),
-            cuda_ms(lambda: st.eam_pass1_half_plain(
+            time_ms(lambda: st.eam_pass1_half_plain(
                 r, hm, ev, want_energy=False, box_chunk=chunk), 2)),
         "half_eam_pass3": (
-            cuda_ms(lambda: st.eam_pass3_half(r, hm, ev, dfe), 20),
-            cuda_ms(lambda: st.eam_pass3_half_plain(r, hm, ev, dfe,
+            time_ms(lambda: st.eam_pass3_half(r, hm, ev, dfe), 20),
+            time_ms(lambda: st.eam_pass3_half_plain(r, hm, ev, dfe,
                                                     box_chunk=chunk), 2)),
     }
-    k1_here = (cuda_ms(lambda: st.eam_pass1(r, nbr, ev, want_energy=False),
+    k1_here = (time_ms(lambda: st.eam_pass1(r, nbr, ev, want_energy=False),
                        20),
-               cuda_ms(lambda: st.eam_pass3(r, nbr, ev, dfe), 20))
+               time_ms(lambda: st.eam_pass3(r, nbr, ev, dfe), 20))
     for k, (ms, plain) in times.items():
         rows[k] = kernel_row(sim, k, launches, errs[k], ms, plain)
     say("timing", f"K1 at the same state: pass1 {k1_here[0]:.4f} ms, "
@@ -666,8 +837,8 @@ def main() -> int:
         fn, plain = ((st.lj_pass_half, st.lj_pass_half_plain) if half
                      else (st.lj_pass, st.lj_pass_plain))
         nbr = sim.maps.half_nbr_map if half else sim.maps.nbr_map
-        ms = cuda_ms(lambda: fn(r, nbr, ev, want_energy=False), 20)
-        plain_ms = cuda_ms(lambda: plain(r, nbr, ev, want_energy=False,
+        ms = time_ms(lambda: fn(r, nbr, ev, want_energy=False), 20)
+        plain_ms = time_ms(lambda: plain(r, nbr, ev, want_energy=False,
                                          box_chunk=chunk), 2)
         rows[key] = kernel_row(sim, key, launches, errs[key], ms, plain_ms)
         del sim, r, ev, nbr
@@ -739,12 +910,12 @@ def main() -> int:
             fn(rhobar, x, to, send, recv, sharded.f_eval)
 
     times = {
-        "ring_push": (cuda_ms(lambda: pushes(cm.ring_push), 20) / 4,
-                      cuda_ms(lambda: pushes(cm.ring_push_plain), 20) / 4,
+        "ring_push": (time_ms(lambda: pushes(cm.ring_push), 20) / 4,
+                      time_ms(lambda: pushes(cm.ring_push_plain), 20) / 4,
                       comm_bound(sharded, sum(v[1].numel() for v in yz), 4,
                                  False)),
-        "pass2_push": (cuda_ms(lambda: fused(cm.pass2_push), 20) / 2,
-                       cuda_ms(lambda: fused(cm.pass2_push_plain), 20) / 2,
+        "pass2_push": (time_ms(lambda: fused(cm.pass2_push), 20) / 2,
+                       time_ms(lambda: fused(cm.pass2_push_plain), 20) / 2,
                        comm_bound(sharded, sum(v[1].numel() for v in xs), 2,
                                   True)),
     }
@@ -758,9 +929,13 @@ def main() -> int:
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
     del sharded, x, dfe, rhobar
 
+    # 13. the archive probes P1-P6 on their kernels
+    rows.update(run_probes(k1_pass1))
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
-                                 "half_lj", "ring_push", "pass2_push")]
+                                 "half_lj", "ring_push", "pass2_push")
+               + PROBE_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

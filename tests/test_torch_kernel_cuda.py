@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain versions: the
-cell-stencil kernels (K1, K2) and the halo push kernels (K3, K4).
+cell-stencil kernels (K1, K2), the halo push kernels (K3, K4) and the
+archive probes' kernels (P1-P6: window_pair, row_lookup, lane_lookup).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -25,7 +26,9 @@ from comd_tpu_torch import Config, init_simulation
 from comd_tpu_torch.interop import FIELDS, state_from_numpy
 from comd_tpu_torch.ops import binning
 from comd_tpu_torch.ops.cuda import comm as cm
+from comd_tpu_torch.ops.cuda import probe as cuda_probe
 from comd_tpu_torch.ops.cuda import stencil as st
+from comd_tpu_torch.probes import lookup, window
 
 POTS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "pots")
@@ -286,6 +289,77 @@ def test_transports_bit_equal_on_card(cuda_device, comm_impl):
     for x, y in zip(*[s.states for s in sims]):
         for k in ("r", "p", "f", "gid", "n_atoms"):
             assert torch.equal(getattr(x, k), getattr(y, k)), k
+
+
+@pytest.mark.parametrize("probe,lj,chunks", [(1, False, 2), (2, False, 1),
+                                             (3, False, 2), (3, True, 2)])
+def test_window_pair_matches_plain(cuda_device, probe, lj, chunks):
+    """The probes' window kernel (P1, P2, P3 EAM and LJ) against its plain
+    version (another summation order, FMA contraction in the Clenshaw
+    chains): every element within 1e-5 of the sum of its terms'
+    magnitudes, every output within 1e-5 of its largest value, all values
+    finite."""
+    sp = window.spec(probe, lj)
+    rp = torch.from_numpy(window.make_inputs(probe, chunks)).to(cuda_device)
+    st.reset_launch_counts()
+    got = window.window_pair(rp, sp)
+    want = window.window_pair_plain(rp, sp)
+    assert len(got) == len(want) == sp.n_out
+    for a, b in zip(got, want):
+        assert a.shape == (window.SLOTS, chunks * window.CHUNK)
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert window.element_error(
+        got, want, window.window_pair_magnitude(rp, sp)) <= 1e-5
+    assert st.LAUNCHES["window_pair"] == 1
+
+
+@pytest.mark.parametrize("scale", [lookup.SCALE, 1.0])
+def test_lookups_match_plain_bitwise(cuda_device, scale):
+    """P4's row lookup and P5's (= P6's) lane lookup against their plain
+    versions bit for bit: the probes' tables and tables whose columns
+    differ, an x length off the float4 width, 64 lanes (two column
+    slices), indices past the table."""
+    rng = np.random.default_rng(3)
+    x4, t4 = (torch.from_numpy(a).to(cuda_device)
+              for a in lookup.make_inputs(4, 1 << 16))
+    t4b = torch.from_numpy(rng.normal(size=(512, 4)).astype(np.float32)
+                           ).to(cuda_device)
+    st.reset_launch_counts()
+    for x in (x4, x4[:1001], x4 * 1.1 - 20.0):
+        for tab in (t4, t4b):
+            assert torch.equal(lookup.row_lookup(x, tab, scale),
+                               lookup.row_lookup_plain(x, tab, scale))
+    x5, t5 = (torch.from_numpy(a).to(cuda_device)
+              for a in lookup.make_inputs(5, 1 << 16))
+    t5b = torch.from_numpy(rng.normal(size=(512, 128)).astype(np.float32)
+                           ).to(cuda_device)
+    for x, tab in ((x5, t5), (x5, t5b), (x5[:, :64].contiguous(),
+                                         t5b[:, :64].contiguous()),
+                   (x5 * 1.1 - 20.0, t5b)):
+        got = lookup.lane_lookup(x, tab, scale)
+        assert torch.equal(got, lookup.lane_lookup_plain(x, tab, scale))
+        assert torch.equal(lookup.onehot_lookup(x, tab, scale), got)
+    assert (st.LAUNCHES["row_lookup"], st.LAUNCHES["lane_lookup"]) == (6, 8)
+
+
+def test_probe_kernels_refuse_what_they_do_not_take(cuda_device):
+    x, tab = (torch.from_numpy(a).to(cuda_device)
+              for a in lookup.make_inputs(5, 1024))
+    with pytest.raises(ValueError, match="float32"):
+        cuda_probe.lane_lookup(x.double(), tab.double(), 1.0)
+    with pytest.raises(ValueError, match="lanes"):
+        cuda_probe.lane_lookup(x, tab[:, :64].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        cuda_probe.lane_lookup(x[:, :40].contiguous(),
+                               tab[:, :40].contiguous(), 1.0)
+    with pytest.raises(ValueError, match="table"):
+        cuda_probe.row_lookup(x, tab, 1.0)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_probe.row_lookup(x.reshape(-1)[1:], tab[:, :4].contiguous(), 1.0)
+    rp = torch.from_numpy(window.make_inputs(1, 1)).to(cuda_device)
+    with pytest.raises(ValueError, match="fit"):
+        cuda_probe.window_pair(rp, window.spec(1), 512)
 
 
 def test_sharded_card_matches_cpu(cuda_device):
