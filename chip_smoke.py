@@ -8,7 +8,9 @@ the first error:
   1. device   -- a CUDA card is required; prints nvidia-smi's name and
                  power limit
   2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
-                 probe.cu) with nvcc, one process each, in parallel
+                 probe.cu) with nvcc, one process each, in parallel; prints
+                 registers and spill stores (stencil.cu's by variant) and
+                 fails if an f32 stencil kernel spills
   3. kernel   -- K1 against its plain PyTorch version on the same CUDA
                  tensors (thermalized 10^3 lattice, T = 600 K), EAM pass 1
                  and pass 3, f32/Chebyshev and f64/table
@@ -18,7 +20,9 @@ the first error:
                  funcfl, f32, auto commensurate cells, lazy-shell stepping,
                  10 x step_block(10); checks atom count, overflow, energy
                  drift and that every step launched both K1 passes, then
-                 times each pass against its plain version at that shape.
+                 times each pass against its plain version at that shape
+                 and checks that two launches of K1 pass 1 (with and
+                 without energy) and pass 3 give the same bits.
   6. half kernel -- K2 against its plain version on the same CUDA tensors
                  (thermalized 10^3): EAM passes 1 (with and without energy)
                  and 3 at f32/Chebyshev and f64/table, and LJ; K1's LJ
@@ -285,8 +289,9 @@ def pair_work(sim, half: bool, chunk: int = 1024):
 
 
 def bound(sim, key: str, energy: bool = False):
-    """(bound_ms, bound_by) of one launch of ``key`` on sim's state: the
-    larger of flops / f32 peak and bytes / HBM rate.
+    """(bound_ms, bound_by, flops, candidate pairs) of one launch of
+    ``key`` on sim's state: the bound is the larger of flops / f32 peak and
+    bytes / HBM rate.
 
     Flops: 8 per candidate pair (3 differences, 3 products, 2 sums for r2)
     plus, per pair inside the cutoff, the evaluator (Chebyshev: 4 for the
@@ -330,18 +335,35 @@ def bound(sim, key: str, energy: bool = False):
               + (B * A * esize if pair == "eam_pass3" else 0)
               + (3 + ns) * (B if half else n_local) * A * esize)
     t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, cand)
 
 
 def kernel_row(sim, key: str, launches: dict, err: float, ms: float,
                plain_ms: float) -> dict:
     """The kernels-line entry of launch counter ``key``, timed on sim's
     state (pass 1 and LJ without energy, as 99 of 100 steps run them), and
-    its [timing] line."""
+    its [timing] line: time a candidate pair (occupied i-slot x occupied
+    j-slot), the needed-flop rate, and the launch shape (brick, threads,
+    shared memory, resident blocks an SM, list capacity)."""
+    from comd_tpu_torch.ops.cuda import stencil as st
     half = key.startswith("half_")
-    b_ms, b_by = bound(sim, key)
+    b_ms, b_by, flops, cand = bound(sim, key)
+    pair = key[5:] if half else key
+    nbr = sim.maps.half_nbr_map if half else sim.maps.nbr_map
+    shp = st.launch_shape(pair, half, sim.state.r, nbr, sim.pair_eval)
     say("timing", f"{key} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"bound {b_ms:.4f} ms ({b_by}); {1e9 * ms / cand:.3f} ps a "
+        f"candidate pair ({cand:,}), {flops / ms / 1e9:.3f} TFLOP/s "
+        f"needed; brick {shp['brick']} x {shp['bricks']}, "
+        f"{shp['threads']} threads, {shp['smem_bytes']} B shared, "
+        f"{shp['blocks_per_sm']} blocks/SM, list {shp['list_cap']}")
+    if half:
+        tiles = sim.geom.n_local * 14
+        say("timing", f"{key} j-side flushes: {shp['region_boxes']:,} "
+            f"staged region boxes against {tiles:,} (cell, column) tiles "
+            f"of the tile-flush design, {tiles / shp['region_boxes']:.2f}x "
+            f"fewer global atomics at most")
     return {"name": key if half else f"stencil_{key}", "route": "cuda",
             "source": SOURCE, "replaces": REPLACES["half" if half
                                                    else "stencil"],
@@ -706,17 +728,34 @@ def main() -> int:
     t_build = time.perf_counter() - t0
     for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
-        regs, spills = [], []
+        entries = []       # (mangled name, registers, spill store bytes)
         if os.path.exists(log):
-            text = open(log).read()
-            regs = [int(x) for x in re.findall(r"Used (\d+) registers",
-                                               text)]
-            spills = [int(x) for x in re.findall(
-                r"(\d+) bytes spill stores", text)]
+            for block in open(log).read().split(
+                    "Compiling entry function '")[1:]:
+                regs = re.search(r"Used (\d+) registers", block)
+                spill = re.search(r"(\d+) bytes spill stores", block)
+                entries.append((block.split("'")[0],
+                                int(regs.group(1)) if regs else 0,
+                                int(spill.group(1)) if spill else 0))
+        regs = [e[1] for e in entries]
         say("build", f"{stem}.cu: nvcc sm_90a in {mod.BUILD_SECONDS:.1f} s; "
-            f"{len(regs)} kernels, registers {min(regs, default=0)}.."
+            f"{len(entries)} kernels, registers {min(regs, default=0)}.."
             f"{max(regs, default=0)}, max spill stores "
-            f"{max(spills, default=0)} bytes")
+            f"{max((e[2] for e in entries), default=0)} bytes")
+        if stem == "stencil":
+            # stencil_kernel<T, PAIR, EVAL, ...>: f32 K1/K2 on the main
+            # paths are the Chebyshev (EVAL 0) and LJ variants
+            spill = {}
+            for name, nreg, nspill in entries:
+                m = re.search(r"stencil_kernelI([fd])Li(\d)ELi(\d)E", name)
+                if m:
+                    tag = ("f32" if m.group(1) == "f" else "f64") + (
+                        " table" if m.group(3) == "1" else "")
+                    spill[tag] = max(spill.get(tag, 0), nspill)
+            say("build", "stencil.cu spill stores by variant (bytes, max): "
+                + ", ".join(f"{k} {v}" for k, v in sorted(spill.items())))
+            check(spill.get("f32", 0) == 0,
+                  f"f32 stencil kernels spill {spill.get('f32')} bytes")
     say("build", f"three sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
@@ -760,10 +799,21 @@ def main() -> int:
     # occupied candidate pairs and flops (its bound is operations)
     check(rows["eam_pass1"]["bound_by"] == "operations",
           "K1 pass 1 bound by bytes")
+    _b, _by, k1_flops, k1_cand = bound(sim, "eam_pass1")
     k1_pass1 = (k1_ms["eam_pass1"][0],
-                sim.geom.n_local * 27 * sim.cfg.max_atoms ** 2,
-                pair_work(sim, False)[0],
-                rows["eam_pass1"]["bound_ms"] * PEAK_F32_FLOPS / 1e3)
+                sim.geom.n_local * 27 * sim.cfg.max_atoms ** 2, k1_cand,
+                k1_flops)
+    # K1 sums each i's pairs in one fixed order: two launches, same bits
+    for energy in (True, False):
+        a = st.eam_pass1(r, nbr, ev, want_energy=energy)
+        b = st.eam_pass1(r, nbr, ev, want_energy=energy)
+        check(all(x is y or torch.equal(x, y) for x, y in zip(a, b)),
+              f"K1 pass 1 (energy {energy}) differs between two launches")
+    check(torch.equal(st.eam_pass3(r, nbr, ev, dfe),
+                      st.eam_pass3(r, nbr, ev, dfe)),
+          "K1 pass 3 differs between two launches")
+    say("kernel", f"{HEADLINE_N}^3: two launches of K1 pass 1 (with and "
+        f"without energy) and pass 3 give the same bits")
     del sim, r, nbr, ev, dfe
 
     # 6. K2 (EAM, LJ) and K1's LJ variant vs plain versions at 10^3

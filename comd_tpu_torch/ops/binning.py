@@ -53,11 +53,14 @@ class GeomMaps:
 
 #: column of the self cell in ``nbr_map`` (offset (0, 0, 0))
 SELF_COLUMN = 13
+#: the 27 neighbor offsets in ``nbr_map``'s column order
+NBR_OFFSETS = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
+                                   indexing="ij"), axis=-1).reshape(27, 3)
 
 
 def geom_maps(geom: CellGeometry, dtype: torch.dtype, device) -> GeomMaps:
     nbr = torch.as_tensor(geom.nbr_map, dtype=torch.int32, device=device)
-    return GeomMaps(
+    maps = GeomMaps(
         nbr_map=nbr.contiguous(),
         half_nbr_map=nbr[:, SELF_COLUMN:].contiguous(),
         halo_src=torch.as_tensor(geom.halo_src, dtype=torch.int64,
@@ -67,6 +70,120 @@ def geom_maps(geom: CellGeometry, dtype: torch.dtype, device) -> GeomMaps:
         box_of_tuple=torch.as_tensor(geom.local_box_of_tuple,
                                      dtype=torch.int64, device=device),
     )
+    # the stencil kernels take a neighbor map and find its geometry, and
+    # the brick plans built from it, on the tensor (``brick_plan_for``)
+    for t, half in ((maps.nbr_map, False), (maps.half_nbr_map, True)):
+        t.brick_plans = (geom, half, {})
+    return maps
+
+
+# --------------------------------------------------------------------------
+# the brick plan of the cell-stencil kernels
+# --------------------------------------------------------------------------
+
+#: slots a stencil block aims to hold: a brick's cells times their capacity
+BRICK_SLOTS = 256
+
+
+def brick_shape(A: int, grid) -> tuple:
+    """Brick of local cells for cell capacity ``A``: the largest power-of-
+    two count of cells whose slots fit ``BRICK_SLOTS``, doubled along x, y,
+    z in turn (4x2x2 at A = 16, 2x2x2 at A = 32, one cell from A = 129),
+    clipped to the grid."""
+    n = max(1, BRICK_SLOTS // A)
+    shape = [1, 1, 1]
+    axis = 0
+    while 2 * shape[0] * shape[1] * shape[2] <= n:
+        shape[axis] *= 2
+        axis = (axis + 1) % 3
+    return tuple(min(b, g) for b, g in zip(shape, grid))
+
+
+@dataclasses.dataclass(frozen=True)
+class BrickPlan:
+    """Static brick plan of one geometry, for the full (27 columns) or half
+    (14, self first) neighbor map; numpy arrays or device tensors.
+
+    ``cells[b, c]``: local box id of cell c of brick b (c = x + bx (y + by
+    z) within the brick), -1 past the grid's edge.  Brick b's region is
+    ``region_box[region_ptr[b]:region_ptr[b + 1]]``, the box ids of the
+    union of its cells' neighbor boxes, ordered by grid coordinates (z, y,
+    x).  ``slot[b, c, k]``: the place in that region of column k's box of
+    cell c (0 where the cell is -1).
+    """
+    shape: tuple            # (bx, by, bz) cells
+    half: bool
+    cells: object           # [n_bricks, cpb] int32
+    region_ptr: object      # [n_bricks + 1] int32
+    region_box: object      # [n_region] int32
+    slot: object            # [n_bricks, cpb, n_nbr] int16
+    max_region: int
+
+    @property
+    def n_bricks(self) -> int:
+        return self.cells.shape[0]
+
+
+def build_brick_plan(geom: CellGeometry, shape, half: bool) -> BrickPlan:
+    """The brick plan (numpy) from the cells' grid coordinates
+    (``geom.tuple_of_box``) and ``geom.nbr_map``, never from box ids (which
+    -H Hilbert numbering scrambles).  Serves every shard of a mesh (they
+    share one geometry), edge bricks where the grid does not divide, and
+    grids smaller than one brick."""
+    n_local = geom.n_local
+    cols = np.arange(SELF_COLUMN, 27) if half else np.arange(27)
+    t = geom.tuple_of_box[:n_local].astype(np.int64)        # [n_local, 3]
+    boxes = geom.nbr_map[:, cols]                            # [n_local, n]
+    ntup = t[:, None, :] + NBR_OFFSETS[cols][None]           # -1 .. g
+    b = np.asarray(shape, np.int64)
+    n_b = -(-np.asarray(geom.grid, np.int64) // b)           # bricks/axis
+    bt = t // b
+    brick = bt[:, 0] + n_b[0] * (bt[:, 1] + n_b[1] * bt[:, 2])
+    w = t - bt * b
+    within = w[:, 0] + b[0] * (w[:, 1] + b[1] * w[:, 2])
+    n_bricks, cpb = int(np.prod(n_b)), int(np.prod(b))
+    cells = np.full((n_bricks, cpb), -1, np.int32)
+    cells[brick, within] = np.arange(n_local, dtype=np.int32)
+    # one region entry per (brick, neighbor grid coordinate)
+    gx, gy, gz = geom.grid
+    code = ((ntup[..., 2] + 1) * (gy + 2) + ntup[..., 1] + 1) * (gx + 2) + \
+        ntup[..., 0] + 1
+    n_code = (gx + 2) * (gy + 2) * (gz + 2)
+    key = (brick[:, None] * n_code + code).reshape(-1)
+    uniq, first, inv = np.unique(key, return_index=True, return_inverse=True)
+    region_box = boxes.reshape(-1)[first].astype(np.int32)
+    if not np.array_equal(region_box[inv.reshape(-1)], boxes.reshape(-1)):
+        raise ValueError("the neighbor map gives one grid coordinate two "
+                         "boxes")
+    count = np.bincount(uniq // n_code, minlength=n_bricks)
+    region_ptr = np.zeros(n_bricks + 1, np.int32)
+    region_ptr[1:] = np.cumsum(count)
+    slot = np.zeros((n_bricks, cpb, len(cols)), np.int16)
+    slot[brick, within] = (inv.reshape(n_local, len(cols))
+                           - region_ptr[brick][:, None])
+    return BrickPlan(shape=tuple(int(v) for v in shape), half=half,
+                     cells=cells, region_ptr=region_ptr,
+                     region_box=region_box, slot=slot,
+                     max_region=int(count.max()))
+
+
+def brick_plan_for(nbr_map: torch.Tensor, A: int) -> BrickPlan:
+    """The brick plan, as tensors on the map's device, of a neighbor map
+    made by ``geom_maps`` (its ``nbr_map`` or ``half_nbr_map``) for cell
+    capacity ``A``; built once per brick shape."""
+    owner = getattr(nbr_map, "brick_plans", None)
+    if owner is None:
+        raise ValueError("the cell-stencil kernels take the nbr_map or "
+                         "half_nbr_map of a GeomMaps (binning.geom_maps), "
+                         "whose geometry gives the brick plan")
+    geom, half, plans = owner
+    shape = brick_shape(A, geom.grid)
+    if shape not in plans:
+        p = build_brick_plan(geom, shape, half)
+        plans[shape] = dataclasses.replace(p, **{
+            k: torch.as_tensor(getattr(p, k), device=nbr_map.device)
+            for k in ("cells", "region_ptr", "region_box", "slot")})
+    return plans[shape]
 
 
 def box_from_tuple(geom: CellGeometry, maps: GeomMaps, ix, iy, iz):

@@ -14,21 +14,34 @@ Two kernels, one source (csrc/stencil.cu), one build:
   Wrappers ``eam_pass1_half``, ``eam_pass3_half``, ``lj_pass_half``.
 
 What bounds them on the card: pair arithmetic.  At the 63^3 EAM headline
-(74,088 local cells, A = 16) one K1 pass tests 74,088 * 27 * 16 * 16 =
-512 M candidate pairs, ~12% of them inside the cutoff, and reads ~22 MB of
-cell data, so it is compute-bound; K2 tests about half as many.  Design:
-TI = min(A, 128) threads per cell, each owning one i-slot (looping over
-i-slots in steps of TI when A > TI), several cells per block (>= 128
-threads); the block stages one neighbor cell per cell at a time in shared
-memory, in tiles of TI slots (positions, plus dfEmbed for pass 3), and every
-i-thread walks the staged slots; the pair evaluation runs only for pairs
-inside the cutoff.  K2 gathers each pair's j-side terms in shared memory and
-adds them to the dense output with one global atomicAdd per (j-slot,
-output) per tile, so its float sums change in the last bits from run to
-run.  The kernels read the state's own [3, B, A] layout and the
-``GeomMaps`` neighbor maps directly: comd_tpu's transposed cells-on-lanes
-window, its locality plane and its overlap-added chunk spills were TPU lane
-artefacts and are gone.
+(74,088 local cells, A = 16) one K1 pass tests 364 M candidate pairs of
+occupied slots, 43 M of them inside the cutoff, and reads ~22 MB, so it is
+compute-bound; K2 tests about half as many.  The first design (one thread
+per i-slot, the pair function under the cutoff branch) lost most of its
+time to divergence: ~2 of a warp's 32 lanes did useful work in the pair
+function.  The design now (csrc/stencil.cu's header has the numbers):
+
+- one block per brick of local cells (ops/binning.BrickPlan, e.g. 4x2x2
+  cells at A = 16), whose neighbor boxes are staged once in shared memory
+  with cp.async as one 16-byte record a slot;
+- each thread tests r2 for its i-slot and lists the j inside the cutoff;
+  full warps drain the lists through the pair function, summing each i's
+  pairs in the order found, so K1 is bit-for-bit deterministic;
+- K2 adds each pair's j side into per-(staged slot, output) shared
+  accumulators (a 128-bit compare-and-swap a pair in f32) and flushes them
+  once per brick with one global atomicAdd per value, so its float sums
+  change in the last bits from run to run.
+
+On an NVIDIA H100 80GB HBM3 at 700 W, at the 63^3 headline states, K1
+takes 0.69 / 0.64 ms for EAM passes 1 / 3 and 0.92 for LJ (the first
+design 1.37 / 1.21 / 1.05), K2 0.72 / 0.66 / 1.05 (1.28 / 1.09 / 1.24).
+What bounds them now (stencil_breakdown.py): K1's r2 walk, 45-55% of it,
+then the pair function; K2's j-side compare-and-swap, 27-32% of it.
+
+The kernels read the state's own [3, B, A] layout and the ``GeomMaps``
+neighbor maps (and, through them, the brick plan) directly: comd_tpu's
+transposed cells-on-lanes window, its locality plane and its overlap-added
+chunk spills were TPU lane artefacts and are gone.
 
 Beside each kernel sits its plain PyTorch version (ops/sweep.py sweeps with
 the same pair functions, ``*_plain``).  The wrappers take it only for
@@ -51,12 +64,14 @@ import torch
 
 from ...potentials import tables
 from ...potentials.tables import ChebFused
+from .. import binning
 from ..sweep import cell_pair_sweep, cell_pair_sweep_half
 from . import LAUNCHES, reset_launch_counts  # noqa: F401 (re-exported)
 from .nvcc import BUILD_DIR, CSRC, build_library  # noqa: F401
 
-#: largest cell capacity the kernels take (they loop over i-slots and stage
-#: j-slots in tiles of 128, so this bounds only the work per block)
+#: largest cell capacity the kernels take (they loop over i-slots in rounds
+#: of 256 and stage a region too large for shared memory in chunks of
+#: boxes, so this bounds only the work per block)
 MAX_A = 512
 #: coefficient slots per Chebyshev output in the kernel's parameter struct
 MAX_CHEB = 40
@@ -237,12 +252,15 @@ def build():
         lib.comd_stencil.argtypes = [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int,                                   # pair..energy
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # r nbr n_nbr
-            ctypes.c_void_p, ctypes.c_void_p,               # dfe out
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # r dfe out
             ctypes.c_int, ctypes.c_int, ctypes.c_int,       # sizes
-            ctypes.c_double,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,                                # brick plan
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,       # its sizes
+            ctypes.c_double,                                # rcut2
             ctypes.POINTER(_ChebParams), ctypes.POINTER(_TableParams),
-            ctypes.POINTER(_LjParams), ctypes.c_void_p]
+            ctypes.POINTER(_LjParams), ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_int)]                   # shape query
         lib.comd_cuda_error_string.restype = ctypes.c_char_p
         lib.comd_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -296,35 +314,21 @@ def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27):
         raise ValueError(f"df_embed must be {tuple(r.shape[1:])} {r.dtype}")
 
 
-def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
-            want_energy: bool, dfe=None):
-    """Launch K1 (``half`` False) or K2 for one pair function.  Returns
-    (force [3, rows, A], [scalars [rows, A] ...]) with rows = n_local for
-    K1 and B (dense, halo rows pending the fold) for K2."""
-    if r.device.type != "cuda":
-        raise ValueError(f"the cell-stencil kernels run CUDA tensors, got "
-                         f"{r.device}")
-    if r.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {r.dtype}")
-    if (pair == "lj") != (ev.kind == "lj"):
-        raise ValueError(f"evaluator kind {ev.kind!r} does not fit {pair}")
-    B, A = r.shape[1], r.shape[2]
-    if not 1 <= A <= MAX_A:
-        raise ValueError(f"cell capacity A={A} exceeds the kernels' limit "
-                         f"{MAX_A}")
-    for t in (r, nbr_map) + ((dfe,) if dfe is not None else ()):
-        if not t.is_contiguous():
-            raise ValueError("the stencil operands must be contiguous")
-    lib = build()
-    n_local = nbr_map.shape[0]
+def _n_scalars(pair: str, want_energy: bool) -> int:
     if pair == "eam_pass1":
-        n_s = 2 if want_energy else 1
-    else:
-        n_s = 1 if pair == "lj" and want_energy else 0
-    # K1 writes every slot of its rows; K2 adds into a zeroed buffer
-    alloc = torch.zeros if half else torch.empty
-    out = alloc((3 + n_s, B if half else n_local, A), dtype=r.dtype,
-                device=r.device)
+        return 2 if want_energy else 1
+    return 1 if pair == "lj" and want_energy else 0
+
+
+def _call(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
+          want_energy: bool, dfe, out, shape_out=None) -> int:
+    """One comd_stencil call on ``nbr_map``'s brick plan: a launch, or with
+    ``shape_out`` (5 c_ints) the launch shape's report."""
+    B, A = r.shape[1], r.shape[2]
+    plan = binning.brick_plan_for(nbr_map, A)
+    if plan.half != half:
+        raise ValueError(f"{'K2' if half else 'K1'} needs the "
+                         f"{'half' if half else 'full'} neighbor map")
     cheb = tab = lj = None
     kind = 0
     if ev.kind == "cheb":
@@ -345,17 +349,70 @@ def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
 
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
-        err = lib.comd_stencil(
+        return build().comd_stencil(
             _PAIR_ID[pair], int(half), dtype_id, kind, int(want_energy),
-            r.data_ptr(), nbr_map.data_ptr(), nbr_map.shape[1],
-            None if dfe is None else dfe.data_ptr(), out.data_ptr(),
-            n_local, B, A, ev.rcut2, ref(cheb), ref(tab), ref(lj), stream)
+            r.data_ptr(), None if dfe is None else dfe.data_ptr(),
+            None if out is None else out.data_ptr(), nbr_map.shape[0], B, A,
+            plan.cells.data_ptr(), plan.region_ptr.data_ptr(),
+            plan.region_box.data_ptr(), plan.slot.data_ptr(), plan.n_bricks,
+            plan.cells.shape[1], plan.max_region, ev.rcut2,
+            ref(cheb), ref(tab), ref(lj), stream, shape_out)
+
+
+def _raise(err: int, what: str):
+    msg = build().comd_cuda_error_string(err).decode()
+    raise RuntimeError(f"cell-stencil kernel {what} failed: {msg} "
+                       f"(cudaError {err})")
+
+
+def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
+            want_energy: bool, dfe=None):
+    """Launch K1 (``half`` False) or K2 for one pair function.  Returns
+    (force [3, rows, A], [scalars [rows, A] ...]) with rows = n_local for
+    K1 and B (dense, halo rows pending the fold) for K2."""
+    if r.device.type != "cuda":
+        raise ValueError(f"the cell-stencil kernels run CUDA tensors, got "
+                         f"{r.device}")
+    if r.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {r.dtype}")
+    if (pair == "lj") != (ev.kind == "lj"):
+        raise ValueError(f"evaluator kind {ev.kind!r} does not fit {pair}")
+    B, A = r.shape[1], r.shape[2]
+    if not 1 <= A <= MAX_A:
+        raise ValueError(f"cell capacity A={A} exceeds the kernels' limit "
+                         f"{MAX_A}")
+    for t in (r, nbr_map) + ((dfe,) if dfe is not None else ()):
+        if not t.is_contiguous():
+            raise ValueError("the stencil operands must be contiguous")
+    n_local = nbr_map.shape[0]
+    n_s = _n_scalars(pair, want_energy)
+    # K1 writes every slot of its rows; K2 adds into a zeroed buffer
+    alloc = torch.zeros if half else torch.empty
+    out = alloc((3 + n_s, B if half else n_local, A), dtype=r.dtype,
+                device=r.device)
+    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, out)
     if err != 0:
-        msg = lib.comd_cuda_error_string(err).decode()
-        raise RuntimeError(f"cell-stencil kernel launch failed: {msg} "
-                           f"(cudaError {err})")
+        _raise(err, "launch")
     LAUNCHES[name] += 1
     return out[:3], list(out[3:])
+
+
+def launch_shape(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
+                 want_energy: bool = False) -> dict:
+    """How K1 (``half`` False) or K2 launches for these operands, without
+    launching: the brick, threads a block, shared memory a block, resident
+    blocks an SM, list entries a thread, bricks and staged region boxes in
+    all."""
+    q = (ctypes.c_int * 5)()
+    # pass 3 needs a dfEmbed pointer; nothing is read from it
+    dfe = r[0] if pair == "eam_pass3" else None
+    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, None, q)
+    if err != 0:
+        _raise(err, "shape query")
+    plan = binning.brick_plan_for(nbr_map, r.shape[2])
+    return {"brick": plan.shape, "threads": q[0], "smem_bytes": q[2],
+            "blocks_per_sm": q[3], "list_cap": q[4],
+            "bricks": plan.n_bricks, "region_boxes": int(plan.region_ptr[-1])}
 
 
 # --------------------------------------------------------------------------

@@ -11,7 +11,9 @@ Without a CUDA device every test skips.  Tolerances: f32/Chebyshev forces
 atol 1e-4 eV/A and phi-sum/rhobar rtol 1e-5 (the kernels sum in another
 order, K2 with atomics in an order that changes from run to run); f64
 rtol 1e-12 (forces also atol 1e-12 * max|f|).  K2's outputs are compared
-dense and unfolded: kernel and plain version use the same half map.  K3
+dense and unfolded: kernel and plain version use the same half map.  K1
+adds each atom's pairs in one fixed order, so two launches on the same
+inputs must give the same bits.  K3
 and K4 only move and evaluate values, so they are held bit for bit (K4
 against pass 2's own F' at the same rows), and a sharded run gives the
 same bits under every transport.
@@ -142,6 +144,123 @@ def test_lj_kernels_match_plain(cuda_device, dtype):
             _close(f, fp, f_atol, f_rtol)
         _close(ek, ep, 1e-6 * float(ep.abs().max()), s_rtol)
     assert (st.LAUNCHES["lj"], st.LAUNCHES["half_lj"]) == (2, 2)
+
+
+def _dfe(sim, r, seed=3):
+    """A numpy-seeded halo-filled dfEmbed field on r's device."""
+    d = np.random.default_rng(seed).uniform(-100.0, -90.0,
+                                            size=tuple(r.shape[1:]))
+    dfe = torch.as_tensor(d, dtype=r.dtype, device=r.device)
+    binning.fill_halo_scalar_serial(sim.geom, sim.maps, dfe)
+    return dfe
+
+
+def _same(a, b):
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_k1_bit_for_bit_across_launches(cuda_device, dtype, impl):
+    """K1 sums each i's pairs in one fixed order with no atomics on the i
+    side: two launches on the same inputs give the same bits (EAM passes 1
+    with and without energy and 3, LJ with and without energy)."""
+    sim = _sim(dtype, impl, 10, "cuda")
+    r, nbr, ev = sim.state.r, sim.maps.nbr_map, sim.pair_eval
+    for energy in (True, False):
+        assert _same(st.eam_pass1(r, nbr, ev, want_energy=energy),
+                     st.eam_pass1(r, nbr, ev, want_energy=energy))
+    dfe = _dfe(sim, r)
+    assert torch.equal(st.eam_pass3(r, nbr, ev, dfe),
+                       st.eam_pass3(r, nbr, ev, dfe))
+    lj = _sim(dtype, "auto", 8, "cuda", doeam=False)
+    for energy in (True, False):
+        args = (lj.state.r, lj.maps.nbr_map, lj.pair_eval)
+        assert _same(st.lj_pass(*args, want_energy=energy),
+                     st.lj_pass(*args, want_energy=energy))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_5sigma_lj_lists_drain_many_times(cuda_device, dtype):
+    """5-sigma LJ: A ~ 256 on a 2^3 grid and ~550 pairs an atom inside the
+    cutoff, so every thread's list fills and drains many times; K1 and K2
+    with and without energy against their plain versions."""
+    sim = _sim(dtype, "auto", 8, "cuda", doeam=False, lj_cutoff_factor=5.0)
+    assert sim.cfg.max_atoms > 128 and sim.geom.grid == (2, 2, 2)
+    r, ev = sim.state.r, sim.pair_eval
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    for fn, plain, nbr in ((st.lj_pass, st.lj_pass_plain, sim.maps.nbr_map),
+                           (st.lj_pass_half, st.lj_pass_half_plain,
+                            sim.maps.half_nbr_map)):
+        fp, ep = plain(r, nbr, ev)
+        for energy in (True, False):
+            fk, ek = fn(r, nbr, ev, want_energy=energy)
+            _close(fk, fp, f_atol, f_rtol)
+            if energy:
+                _close(ek, ep, 1e-6 * float(ep.abs().max()), s_rtol)
+
+
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_empty_and_one_atom_cells(cuda_device, dtype, impl):
+    """Cells emptied to the sentinel and cells holding one atom behind
+    empty slots: K1 and K2, EAM passes 1 and 3, against the plain
+    versions."""
+    sim = _sim(dtype, impl, 6, "cuda")
+    r = sim.state.r.clone()
+    n_local, A = sim.geom.n_local, r.shape[2]
+    cells = torch.arange(n_local, device=r.device)
+    single = cells[cells % 5 == 1]
+    empty = cells[(cells % 3 == 0) & (cells % 5 != 1)]
+    r[:, single, 3] = r[:, single, 0]
+    keep = r[:, single, 3].clone()
+    r[:, empty] = binning.EMPTY_POS
+    r[:, single] = binning.EMPTY_POS
+    r[:, single, 3] = keep
+    binning.refresh_halo_positions(sim.geom, sim.maps, r)
+    assert A > 4 and int((r[0, :n_local] < 1e9).sum()) > 0
+    ev, dfe = sim.pair_eval, _dfe(sim, r)
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    for nbr, p1, p1p, p3, p3p in (
+            (sim.maps.nbr_map, st.eam_pass1, st.eam_pass1_plain,
+             st.eam_pass3, st.eam_pass3_plain),
+            (sim.maps.half_nbr_map, st.eam_pass1_half,
+             st.eam_pass1_half_plain, st.eam_pass3_half,
+             st.eam_pass3_half_plain)):
+        fk, pk, rk = p1(r, nbr, ev)
+        fp, pp, rp = p1p(r, nbr, ev)
+        _close(fk, fp, f_atol, f_rtol)
+        for s_k, s_p in ((pk, pp), (rk, rp)):
+            _close(s_k, s_p, 0.0, s_rtol)
+        assert float(fk[:, empty].abs().max()) == 0.0 or nbr.shape[1] == 14
+        _close(p3(r, nbr, ev, dfe), p3p(r, nbr, ev, dfe), f_atol, f_rtol)
+
+
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_grid_smaller_than_a_brick(cuda_device, dtype, impl):
+    """A 2^3 grid, smaller than the A = 16 brick of 4x2x2 cells: one brick
+    clipped to the grid, K1 and K2 against their plain versions."""
+    sim = _sim(dtype, impl, 3, "cuda")
+    A = sim.state.r.shape[2]
+    assert sim.geom.grid == (2, 2, 2)
+    assert any(b > 2 for b in binning.brick_shape(A, (64, 64, 64)))
+    r, ev = sim.state.r, sim.pair_eval
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    dfe = _dfe(sim, r)
+    for nbr, p1, p1p, p3, p3p in (
+            (sim.maps.nbr_map, st.eam_pass1, st.eam_pass1_plain,
+             st.eam_pass3, st.eam_pass3_plain),
+            (sim.maps.half_nbr_map, st.eam_pass1_half,
+             st.eam_pass1_half_plain, st.eam_pass3_half,
+             st.eam_pass3_half_plain)):
+        fk, pk, rk = p1(r, nbr, ev)
+        fp, pp, rp = p1p(r, nbr, ev)
+        _close(fk, fp, f_atol, f_rtol)
+        for s_k, s_p in ((pk, pp), (rk, rp)):
+            _close(s_k, s_p, 0.0, s_rtol)
+        _close(p3(r, nbr, ev, dfe), p3p(r, nbr, ev, dfe), f_atol, f_rtol)
 
 
 @pytest.mark.parametrize("doeam,n,factor,golden", [
