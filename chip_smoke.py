@@ -39,21 +39,31 @@ the first error:
                  final states; K2's times beside K1's and the plain versions.
   9. LJ main  -- 63^3 LJ f32 (A = 32, 35^3 cells), full (K1) and
                  --halfShell (K2), 100 steps each, the same checks and times.
- 10. comm kernels -- K3 (ring_push) and K4 (pass2_push) against their plain
-                 versions on a thermalized 10^3 EAM state on a 2x2x2 mesh of
-                 shards, f32 and f64, bitwise: K3 for the dfEmbed planes of
-                 all three stages and for the atom buffers, K4 against pass
-                 2's F' at the same rows.
+ 10. comm kernels -- the halo kernels against their plain versions on a
+                 thermalized 10^3 EAM state on a 2x2x2 mesh of shards, f32
+                 and f64, bitwise: the dfEmbed fill in one launch (halo_fill;
+                 ki: K3's plane copies, ki_fused: K4's F' on the x stage),
+                 K4 alone (pass2_push, a one-stage fill) against pass 2's F'
+                 at the same rows, and the atom stage push (ring_push, K3)
+                 of all three stages.
  11. sharded goldens -- f64, T = 0, within 1e-9: Adams 6^3 on 2x2x2 with
                  --commImpl ki_fused, full shell and --halfShell; LJ 12x8x4
                  on 3x2x1 with --commImpl ki (2 cells per shard axis).
  12. sharded main -- the 63^3 headline on a 2x2x2 mesh of shards on the one
-                 card, --commImpl ki_fused, then collective: the run_main
-                 checks, K1 passes 1 and 3, K3 and K4 launched on every step,
-                 the final r and ePot of the two transports equal bit for
-                 bit, the initial ePot within 1e-6 of phase 5's; K3 and K4
-                 against their plain versions at that state and their times
-                 beside their plain versions and bounds.  Eight shards on
+                 card, --commImpl ki_fused, ki, then collective: the run_main
+                 checks, K1 passes 1 and 3 on every step, under ki and
+                 ki_fused exactly one fill launch a force (init and every
+                 step) and three ring_push launches an atom exchange, the
+                 final r and ePot of the three transports equal bit for bit,
+                 the initial ePot within 1e-6 of phase 5's; the halo kernels
+                 against their plain versions at that state; one whole fill
+                 timed (mean of 20, CUDA events; the host's time a call; the
+                 device's, torch.profiler) under ki, ki_fused and, as the
+                 torch-ops comparison, collective (exchange.exchange_scalar),
+                 and one atom stage push, beside their plain versions and
+                 bounds (bytes of the stages / 3.35 TB/s); the ki fill's
+                 device time cut to its first one and two stages (what a
+                 stage and its grid barrier cost).  Eight shards on
                  one card measure the decomposition's overhead against the
                  serial run, not scaling.
  13. probes   -- the archive probes through their commands
@@ -96,8 +106,9 @@ PROBE_SOURCE = "comd_tpu_torch/csrc/probe.cu"
 PROBE_KEYS = ("window_pair", "row_lookup", "lane_lookup")
 REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             "half": "comd_tpu/ops/pallas/stencil.py:204",
+            "halo_fill": "comd_tpu/parallel/pallas_comm.py:39",
+            "halo_fill_fused": "comd_tpu/parallel/pallas_comm.py:265, :39",
             "ring_push": "comd_tpu/parallel/pallas_comm.py:39",
-            "pass2_push": "comd_tpu/parallel/pallas_comm.py:265",
             "window_pair": "tools/archive/pallas_probe.py:22, "
                            "tools/archive/pallas_probe2.py:38, "
                            "tools/archive/pallas_probe3.py:62,94",
@@ -387,22 +398,24 @@ def half_vs_full(sim) -> float:
 
 
 def check_comm(sim, tag: str) -> dict:
-    """K3 and K4 against their plain versions on sim's shards (CUDA
-    tensors), bitwise.  K3: every dfEmbed push of the staged exchange, in
-    order (the y and z planes carry what x and y delivered), and the atom
-    message of every face.  K4: both x-stage pushes; its local planes equal
-    pass 2's F' at the same rows and the written rows equal the plain
-    version's.  Returns ({kernel: max abs error}, (dfEmbed, rhobar))."""
+    """The halo kernels against their plain versions on sim's shards (CUDA
+    tensors), bitwise: the whole dfEmbed fill in one launch under ki (plane
+    copies) and ki_fused (the x stage from F'(rhobar)), on a field whose
+    local rows pass 2 filled and whose halo rows hold -1; K4 alone
+    (pass2_push, both x pushes), its local planes equal to pass 2's F' at
+    the same rows; the atom stage push of every stage.  Returns ({kernels
+    line key: max abs error}, (dfEmbed, rhobar))."""
     import torch
     from comd_tpu_torch.ops.cuda import comm as cm
     from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.parallel import ki_comm
     h, states = sim.halo, sim.states
-    nbr, ev = sim.maps.nbr_map, sim.pair_eval
+    nbr, ev, nl = sim.maps.nbr_map, sim.pair_eval, sim.geom.n_local
     rhobar = [st.eam_pass1(s.r, nbr, ev, want_energy=False)[2]
               for s in states]
     dfe = []
     for s, rho in zip(states, rhobar):
-        d = torch.zeros_like(s.gid, dtype=s.r.dtype)
+        d = torch.full(s.gid.shape, -1.0, dtype=s.r.dtype, device=s.r.device)
         d[:rho.shape[0]] = sim.f_eval(rho)[1]
         dfe.append(d)
 
@@ -410,40 +423,21 @@ def check_comm(sim, tag: str) -> dict:
         return max(float((x.double() - y.double()).abs().max())
                    for x, y in zip(a, b))
 
-    err = {"ring_push": 0.0, "pass2_push": 0.0}
-    a = [d.clone() for d in dfe]
-    b = [d.clone() for d in dfe]
-    n_push = 0
-    for axis in range(3):
-        (s_m, s_p), (r_m, r_p) = h.force_send[axis], h.force_recv[axis]
-        for to, send, recv in ((h.minus[axis], s_m, r_p),
-                               (h.plus[axis], s_p, r_m)):
-            cm.ring_push([(a, a)], to, send, recv)
-            cm.ring_push_plain([(b, b)], to, send, recv)
-            torch.cuda.synchronize()
-            check(all(torch.equal(x, y) for x, y in zip(a, b)),
-                  f"{tag}: K3 dfEmbed push, axis {axis}: "
-                  f"|diff| {diff(a, b):.3e}")
-            n_push += 1
-    fields = [[s.r for s in states], [s.p for s in states],
-              [s.gid for s in states], [s.n_atoms for s in states]]
-    for axis in range(3):
-        for d, to in ((0, h.minus[axis]), (1, h.plus[axis])):
-            ids = h.atom_send[axis][d]
-            outs = []
-            for fn in (cm.ring_push, cm.ring_push_plain):
-                buf = [[torch.full((f[0].shape[0], ids.numel(), f[0].shape[2])
-                                   if f[0].dim() == 3 else
-                                   (ids.numel(),) + tuple(f[0].shape[1:]),
-                                   -1, dtype=f[0].dtype, device=f[0].device)
-                        for _ in f] for f in fields]
-                fn(list(zip(fields, buf)), to, ids)
-                outs.append(buf)
-            torch.cuda.synchronize()
-            for fk, fp in zip(*outs):
-                check(all(torch.equal(x, y) for x, y in zip(fk, fp)),
-                      f"{tag}: K3 atom message, axis {axis}, dir {d}")
-            n_push += 1
+    def same(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    err = {}
+    plan = ki_comm.fill_plan(h, dfe[0])
+    for key, extra in (("halo_fill", ()),
+                       ("halo_fill_fused", (rhobar, sim.f_eval))):
+        a = cm.halo_fill(plan, [d.clone() for d in dfe], *extra)
+        b = cm.halo_fill_plain(plan, [d.clone() for d in dfe], *extra)
+        torch.cuda.synchronize()
+        err[key] = diff(a, b)
+        check(same(a, b), f"{tag}: {key} differs from its plain version: "
+              f"|diff| {err[key]:.3e}")
+        check(all(bool((v[nl:] != -1.0).all()) for v in a),
+              f"{tag}: {key} left halo rows unwritten")
     (s_m, s_p), (r_m, r_p) = h.force_send[0], h.force_recv[0]
     for to, send, recv in ((h.minus[0], s_m, r_p), (h.plus[0], s_p, r_m)):
         a = [d.clone() for d in dfe]
@@ -453,29 +447,75 @@ def check_comm(sim, tag: str) -> dict:
         ref = [sim.f_eval(rho)[1][send] for rho in rhobar]
         torch.cuda.synchronize()
         e = max(diff(loc_k, ref), diff(a, b))
-        err["pass2_push"] = max(err["pass2_push"], e)
-        check(all(torch.equal(x, y) for x, y in zip(loc_k, ref)) and
-              all(torch.equal(x, y) for x, y in zip(loc_p, ref)) and
-              all(torch.equal(x, y) for x, y in zip(a, b)),
-              f"{tag}: K4 against pass 2's F': |diff| {e:.3e}")
-    say("comm", f"{tag}: K3 bitwise on {n_push} pushes (6 dfEmbed planes, "
-        f"6 atom messages), K4 bitwise on both x pushes")
+        err["halo_fill_fused"] = max(err["halo_fill_fused"], e)
+        check(same(loc_k, ref) and same(loc_p, ref) and same(a, b),
+              f"{tag}: K4 (pass2_push) against pass 2's F': |diff| {e:.3e}")
+    fields = [[s.r for s in states], [s.p for s in states],
+              [s.gid for s in states], [s.n_atoms for s in states]]
+    err["ring_push"] = 0.0
+    for axis in range(3):
+        aplan = ki_comm.atom_plan(h, axis, fields)
+        got = cm.ring_push(aplan, fields)
+        want = cm.ring_push_plain(aplan, fields)
+        torch.cuda.synchronize()
+        err["ring_push"] = max(err["ring_push"], diff(got, want))
+        check(same(got, want), f"{tag}: ring_push, stage {axis}: |diff| "
+              f"{err['ring_push']:.3e}")
+    widths = [f.vec_bytes for f in aplan.fields]
+    say("comm", f"{tag}: halo_fill (ki, ki_fused: one launch a fill) "
+        f"bitwise; K4 alone (pass2_push) bitwise on both x pushes; "
+        f"ring_push bitwise on the 3 atom stages (field moves {widths} "
+        f"bytes)")
     return err, (dfe, rhobar)
 
 
-def comm_bound(sim, rows: int, n_launch: int, read_table: bool) -> tuple:
-    """(bound_ms, "bytes") of one launch of ``n_launch`` K3 or K4 pushes
-    moving ``rows`` cell rows of every shard in all: each value read once
-    and written once (K4: read rho, write the local plane and the
-    neighbor's rows), the row lists read once, K4's table once."""
-    A = sim.cfg.max_atoms
-    esize = sim.states[0].r.element_size()
-    S = len(sim.states)
-    per_value = 3 if read_table else 2
-    nbytes = S * rows * A * esize * per_value + rows * 4 * 2
-    if read_table:
-        nbytes += n_launch * sim.f_eval.table.numel() * esize
-    return 1e3 * nbytes / PEAK_BYTES / n_launch, "bytes"
+def fill_bound(plan, table_bytes: int = 0) -> tuple:
+    """(bound_ms, "bytes") of one fill of ``plan``: every value of the
+    three stages read once and written once (the fused x stage reads
+    rhobar where the others read the field), the row lists and rings read
+    once, the fused stage's table once."""
+    esize, A, S = plan.dtype.itemsize, plan.shape[1], plan.n_shards
+    nbytes = table_bytes
+    for n, dirs in zip(plan.n_rows, plan.stages):
+        nbytes += len(dirs) * (2 * S * n * A * esize + 2 * 4 * n + 4 * S)
+    return 1e3 * nbytes / PEAK_BYTES, "bytes"
+
+
+def push_bound(plan) -> tuple:
+    """(bound_ms, "bytes") of one atom stage push of ``plan``: every field
+    value of the sent rows read once and written once, the row lists and
+    rings read once."""
+    S, n = plan.n_shards, plan.n_rows
+    nbytes = len(plan.dirs) * (4 * n + 4 * S)
+    for f in plan.fields:
+        nbytes += 2 * len(plan.dirs) * S * n * f.planes * f.row_vecs * \
+            f.vec_bytes
+    return 1e3 * nbytes / PEAK_BYTES, "bytes"
+
+
+def host_and_device_ms(fn, reps: int = 20) -> tuple:
+    """(host ms, device ms) of one call of fn: the host's wall clock a call
+    over ``reps`` calls (the device runs behind), and the device's kernel
+    time a call under torch.profiler (the sum of its kernels' durations)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0) / reps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "Loading" not in e.key)
+    return host, us / 1e3 / reps
 
 
 def window_bound(sp, n_cols: int, row_len: int, n_close: int) -> tuple:
@@ -913,13 +953,14 @@ def main() -> int:
     golden("LJ 12x8x4 T=0 3x2x1 ki", GOLDEN_LJ, nx=12, ny=8, nz=4, xproc=3,
            yproc=2, zproc=1, comm_impl="ki")
 
-    # 12. the headline on a 2x2x2 mesh of shards: ki_fused, then collective
-    final = {}
-    for ci in ("ki_fused", "collective"):
+    # 12. the headline on a 2x2x2 mesh of shards: ki_fused, ki, collective
+    final, launches = {}, {}
+    steps = 100                          # run_main's 10 x step_block(10)
+    for ci in ("ki_fused", "ki", "collective"):
         keys = ("eam_pass1", "eam_pass3") + (
-            ("ring_push", "pass2_push") if ci == "ki_fused" else ())
+            ("halo_fill",) if ci != "collective" else ())
         e0 = []
-        sim, launches_ci = run_main(
+        sim, launches[ci] = run_main(
             f"sharded main {ci}", keys, doeam=True, comm_impl=ci,
             on_init=lambda x: e0.append(x.e_potential), **MESH)
         rel = abs(e0[0] / serial_epot[0] - 1.0)
@@ -928,63 +969,107 @@ def main() -> int:
         say("sharded main", f"{ci}: initial ePot rel. diff to the serial "
             f"run {rel:.3e}; {sim.ms_step:.3f} ms/step on 8 shards against "
             f"{serial_ms:.3f} serial (phase 5)")
+        if ci != "collective":
+            n_fill = launches[ci]["halo_fill"]
+            n_ring = launches[ci]["ring_push"]
+            exchanges = sim.n_rebucket + 1   # the rebuckets and the first
+            check(n_fill == steps + 1,
+                  f"sharded {ci}: {n_fill} fill launches for the initial "
+                  f"force and {steps} steps, not one a force")
+            check(n_ring == 3 * exchanges,
+                  f"sharded {ci}: {n_ring} ring_push launches for "
+                  f"{exchanges} atom exchanges, not three each")
+            say("sharded main", f"{ci}: halo_fill launched {n_fill} times "
+                f"(one a force: the initial one and every step), ring_push "
+                f"{n_ring} times ({exchanges} atom exchanges, three "
+                f"stages each)")
         final[ci] = ([s.r for s in sim.states], sim.e_potential)
         if ci == "ki_fused":
-            launches = launches_ci
             sharded = sim
         else:
             del sim
-    same_r = all(torch.equal(a, b) for a, b in zip(final["ki_fused"][0],
-                                                     final["collective"][0]))
-    check(same_r and final["ki_fused"][1] == final["collective"][1],
-          f"ki_fused and collective differ: r equal {same_r}, ePot "
-          f"{final['ki_fused'][1]!r} vs {final['collective'][1]!r}")
-    say("sharded main", f"final r and ePot of ki_fused and collective equal "
-        f"bit for bit (ePot {final['ki_fused'][1]:.6f})")
+    for ci in ("ki", "collective"):
+        same_r = all(torch.equal(a, b) for a, b in zip(final["ki_fused"][0],
+                                                         final[ci][0]))
+        check(same_r and final["ki_fused"][1] == final[ci][1],
+              f"ki_fused and {ci} differ: r equal {same_r}, ePot "
+              f"{final['ki_fused'][1]!r} vs {final[ci][1]!r}")
+    say("sharded main", f"final r and ePot of ki_fused, ki and collective "
+        f"equal bit for bit (ePot {final['ki_fused'][1]:.6f})")
     del final
     errs, (dfe, rhobar) = check_comm(sharded, f"{HEADLINE_N}^3 float32 2x2x2")
-    h = sharded.halo
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    h, f_eval = sharded.halo, sharded.f_eval
     x = [d.clone() for d in dfe]
-    yz = [(h.minus[a], h.force_send[a][0], h.force_recv[a][1])
-          for a in (1, 2)] + [(h.plus[a], h.force_send[a][1],
-                               h.force_recv[a][0]) for a in (1, 2)]
-    xs = [(h.minus[0], h.force_send[0][0], h.force_recv[0][1]),
-          (h.plus[0], h.force_send[0][1], h.force_recv[0][0])]
+    plan = ki_comm.fill_plan(h, x[0])
+    fields = [[getattr(s, k) for s in sharded.states]
+              for k in ("r", "p", "gid", "n_atoms")]
+    aplans = [ki_comm.atom_plan(h, axis, fields) for axis in range(3)]
 
-    def pushes(fn):
-        for to, send, recv in yz:
-            fn([(x, x)], to, send, recv)
+    def stages(push):
+        for ap in aplans:
+            push(ap, fields)
 
-    def fused(fn):
-        for to, send, recv in xs:
-            fn(rhobar, x, to, send, recv, sharded.f_eval)
-
-    times = {
-        "ring_push": (time_ms(lambda: pushes(cm.ring_push), 20) / 4,
-                      time_ms(lambda: pushes(cm.ring_push_plain), 20) / 4,
-                      comm_bound(sharded, sum(v[1].numel() for v in yz), 4,
-                                 False)),
-        "pass2_push": (time_ms(lambda: fused(cm.pass2_push), 20) / 2,
-                       time_ms(lambda: fused(cm.pass2_push_plain), 20) / 2,
-                       comm_bound(sharded, sum(v[1].numel() for v in xs), 2,
-                                  True)),
+    table_bytes = f_eval.table.numel() * f_eval.table.element_size()
+    timed = {     # key: (kernel, plain version, (bound ms, by), calls)
+        "halo_fill": (lambda: cm.halo_fill(plan, x),
+                      lambda: cm.halo_fill_plain(plan, x),
+                      fill_bound(plan), 1),
+        "halo_fill_fused": (
+            lambda: cm.halo_fill(plan, x, rhobar, f_eval),
+            lambda: cm.halo_fill_plain(plan, x, rhobar, f_eval),
+            fill_bound(plan, table_bytes), 1),
+        "ring_push": (lambda: stages(cm.ring_push),
+                      lambda: stages(cm.ring_push_plain),
+                      (sum(push_bound(ap)[0] for ap in aplans) / 3,
+                       "bytes"), 3),
     }
-    for k, (ms, plain_ms, (b_ms, b_by)) in times.items():
-        say("timing", f"{k} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by}); {launches[k]} launches in "
-            f"the main path's run (init and 100 steps)")
+    launched = {"halo_fill": launches["ki"]["halo_fill"],
+                "halo_fill_fused": launches["ki_fused"]["halo_fill"],
+                "ring_push": launches["ki_fused"]["ring_push"]}
+    what = {"halo_fill": "one fill (ki)",
+            "halo_fill_fused": "one fill (ki_fused)",
+            "ring_push": "one atom stage push (mean of the 3 stages)"}
+    for k, (fn, plain, (b_ms, b_by), calls) in timed.items():
+        ms = time_ms(fn, 20) / calls
+        plain_ms = time_ms(plain, 20) / calls
+        host, dev = (t / calls for t in host_and_device_ms(fn))
+        say("timing", f"{k}, {what[k]}: {ms:.4f} ms (CUDA events, mean of "
+            f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
+            f"(torch.profiler); plain {plain_ms:.4f} ms; bound {b_ms:.6f} ms "
+            f"({b_by}); {launched[k]} launches in the main path's run (init "
+            f"and {steps} steps)")
         rows[k] = {"name": k, "route": "cuda", "source": COMM_SOURCE,
-                   "replaces": REPLACES[k], "launches": launches[k],
+                   "replaces": REPLACES[k], "launches": launched[k],
                    "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    del sharded, x, dfe, rhobar
+    # what the fill's device time is made of: the same launch cut to its
+    # first one and two stages (one stage has no grid barrier)
+    cut = [cm.FillPlan(plan.stages[:k], plan.shape, plan.dtype, plan.device)
+           for k in (1, 2)] + [plan]
+    dev_by_stages = [host_and_device_ms(lambda: cm.halo_fill(p, x))[1]
+                     for p in cut]
+    say("timing", "halo_fill (ki) cut to its first 1, 2, 3 stages: device "
+        + ", ".join(f"{1e3 * d:.2f}" for d in dev_by_stages) + " us "
+        f"(torch.profiler); a further stage and its grid barrier "
+        f"{1e3 * (dev_by_stages[2] - dev_by_stages[0]) / 2:.2f} us")
+    # the collective transport's fill, torch ops: a comparison for the
+    # kernel's, not a library call (no single PyTorch call does a fill)
+    ms = time_ms(lambda: exchange.exchange_scalar(h, x), 20)
+    host, dev = host_and_device_ms(lambda: exchange.exchange_scalar(h, x))
+    say("timing", f"collective fill (exchange.exchange_scalar, torch ops; "
+        f"the comparison for halo_fill): {ms:.4f} ms (CUDA events, mean of "
+        f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
+        f"(torch.profiler); bound {fill_bound(plan)[0]:.6f} ms (bytes)")
+    del sharded, x, dfe, rhobar, fields
 
     # 13. the archive probes P1-P6 on their kernels
     rows.update(run_probes(k1_pass1))
 
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
-                                 "half_lj", "ring_push", "pass2_push")
+                                 "half_lj", "halo_fill", "halo_fill_fused",
+                                 "ring_push")
                + PROBE_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))

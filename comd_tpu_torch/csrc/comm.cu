@@ -1,138 +1,162 @@
-// Kernel-initiated halo transports for Hopper (sm_90a): the plane push (K3)
-// and the fused embedding-derivative evaluation and push (K4).
+// Kernel-initiated halo transports for Hopper (sm_90a): the dfEmbed halo
+// fill (K3's plane pushes and K4's fused F'(rhobar) push, one launch a
+// fill) and the atom exchange's stage push (K3, one launch a stage).
 //
-// K3 `ring_push` replaces comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
-// (driven by _ring_push): a remote copy of a halo plane to the +-1 ring
-// neighbor of one mesh axis.  Here it fuses what the Pallas path does in
-// three steps (the x[send] gather, the push, and x.at[recv].set on the
-// receiver, pallas_comm.py:117-124): for every shard s and every field f of
-// the launch it copies rows send[k] of s's field into rows recv[k] (or row k
-// when recv is null) of the buffer of the shard s pushes to.  A field is a
-// stack of planes of rows of 32-bit words, so typed fields (f64 positions,
-// int32 gids, int32 counts) move as they are and the Pallas path's int
-// packing into float buffers (_pack_ints) is not needed.  Users: the dfEmbed
-// exchange (one field, the receiver's own [B, A] field as destination, 6
-// pushes per force) and the atom exchange (four fields r, p, gid, counts
-// into per-shard arrival buffers, 6 pushes per rebucket).
-//
-// K4 `pass2_push` replaces pallas_comm.py::_pass2_push_kernel (driven by
-// _pass2_push): for the x-face planes of every shard it evaluates
-// F'(rhobar) -- the quadratic interpolation of the embedding table F,
-// eam.c:557-579, as comd_tpu_torch/potentials/tables.interpolate computes
-// it -- and writes the value straight into the x neighbor's dfEmbed halo
-// rows, plus a local copy of the plane.  The Pallas kernel's 0/1
+// What they replace.  comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
+// (K3, driven by _ring_push) remote-copies one plane to the +-1 ring
+// neighbor of one mesh axis after a neighbor barrier, with DMA semaphores;
+// exchange_scalar_ki runs it once per (stage, direction) of the dfEmbed
+// fill and exchange_atoms_ki once per (stage, direction) for the packed
+// atom buffer.  _pass2_push_kernel (K4, driven by _pass2_push) evaluates
+// F'(rhobar) of an x-face plane -- the quadratic interpolation of the
+// embedding table F, eam.c:557-579, as comd_tpu_torch/potentials/
+// tables.interpolate computes it -- and pushes it; exchange_scalar_ki_fused
+// runs it for the x stage and K3 for y and z.  The Pallas kernel's 0/1
 // selection-matmul table read was a Mosaic workaround; this is a direct
 // table read.
 //
-// Ordering.  The Pallas kernels signal both ring neighbors on a barrier
-// semaphore and wait (the destination must exist before the remote copy
-// lands), then wait on DMA semaphores (pallas_comm.py:56-76).  Here every
-// shard of the mesh lives on one device and every launch goes on PyTorch's
-// current stream, after the kernels that wrote the source planes and before
-// those that read the destination, so stream order is the handshake and no
-// flag or semaphore is needed.  Inside one launch the shards push along one
-// ring direction, so every destination buffer is written by one shard only,
-// and the rows a launch reads (send rows) are never rows it writes (recv
-// rows: the halo plane on the other side of the axis), which also holds
+// halo_fill_kernel: the whole staged dfEmbed fill of every shard's [B, A]
+// field.  Stage by stage (x, y, z: haloExchange.c:345-475's growing cross
+// section), for both directions d and every shard s, rows send[d][k] of
+// s's field go into rows recv[d][k] of the field of shard to[d][s]; with
+// `fused` the x stage writes F'(rhobar[s] at rows send[d][k]) instead (K4).
+// The y stage forwards what the x stage wrote and z what y wrote, so the
+// stages are separated by a grid-wide barrier: a cooperative launch
+// (cudaLaunchCooperativeKernel, cooperative_groups::this_grid().sync(); no
+// -rdc since CUDA 11), its grid no larger than the blocks the card holds at
+// once (occupancy x SMs, queried once a device), so every block is resident
+// and the barrier cannot deadlock.  A card without cooperative launch is
+// refused (cudaErrorNotSupported), never worked around.  No host round trip
+// between the stages.  The barrier orders the stages' global writes; the
+// copies read with ld.global.cg (L2, not L1) so no stale L1 line of an
+// earlier stage is read.  K4 alone (pass2_push) is a one-stage fill with a
+// local copy of each plane.
+//
+// ring_push_kernel: one stage of the atom exchange.  For every field f (r,
+// p, gid, counts), both directions d and every shard s, rows send[d][k] of
+// s's field go into row k of the arrival buffer of shard to[d][s] for
+// direction d ([n_dirs, S, planes, n, row]).  Each field moves at its own
+// vector width: r, p and gid at 16 bytes where the row allows, the counts
+// ([B]: one word a row) at 4.  append_arrivals runs between the stages on
+// the host's stream (torch ops), so one launch never reads another stage's
+// arrivals.
+//
+// Ordering across launches.  Every shard lives on one device and every
+// launch goes on PyTorch's current stream, after the kernels that wrote the
+// source rows and before those that read the destination, so stream order
+// is the Pallas kernels' barrier and semaphores.  Inside one stage every
+// destination row is written by one (shard, direction) only (the rings are
+// permutations, and the two directions write different halo planes or
+// different arrival buffers), and the rows a stage reads (send) are never
+// rows it writes (recv: the halo planes on the other side of the axis), also
 // when a shard pushes to itself (an axis of size 1).  Shards on several
-// cards need the cross-device ready flag of comm_ki.cuh instead.
+// cards need comm_ki.cuh's cross-device ready flag per (stage, shard) where
+// the grid barrier stands now (ROADMAP item 14).
 //
-// Bound: bytes.  Both kernels move each word once (K4 also reads its
-// table, ~4 KB, from cache) with a few integer operations per word.  K3
-// runs one thread per vector of 1, 2 or 4 words (the widest the fields'
-// rows and pointers allow), grid-strided over rows; K4 one thread per
-// (row, slot).  No reduction, no shared memory.
+// Bound: bytes.  Both kernels move each word once (the fused stage also
+// reads its ~4 KB table from cache) with a few integer operations a word;
+// a fill moves ~3 MB over the 8 shards of the 63^3 headline, ~1 us at
+// 3.35 TB/s, so latency, the two barriers and the launch set its time.
+// Work split: the lanes of a warp are cut into groups of 2^lg lanes, one
+// row a group (2^lg the power of two at or above the row's vectors, at
+// most 32), so a 64-byte row of A = 16 floats is four 16-byte moves on
+// four lanes and a warp moves eight rows at once; row and lane come from the
+// block and thread indices with shifts and masks, never a divide.  The grid
+// strides over rows (x) and over (direction, shard) entries (y; ring_push:
+// shards y, fields z).  No shared memory.
 //
-// Built with -fmad=false: K4 must round F' operation by operation, as
-// PyTorch's eager kernels do for the interior values of pass 2, so the
-// planes it pushes equal the interior values bit for bit.
+// Built with -fmad=false: the fused stage must round F' operation by
+// operation, as PyTorch's eager kernels do for the interior values of pass
+// 2, so the planes it pushes equal the interior values bit for bit.
 //
 // Plain C interface for ctypes: each entry point returns the cudaError_t of
 // its launch (0 = success) and does not synchronize.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <cstdint>
+namespace cg = cooperative_groups;
 
-constexpr int kMaxFields = 4;     // fields per K3 launch
-constexpr int kMaxEntries = 192;  // (field, shard) pairs per K3 launch
-constexpr int kMaxShards = 128;   // shards per K4 launch
+constexpr int kMaxShards = 64;   // shards a launch
+constexpr int kMaxStages = 3;    // stages a fill
+constexpr int kMaxFields = 4;    // fields a ring_push launch
+constexpr int kMaxDevices = 64;  // devices the co-residency cache holds
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-// K3: one field's shape, the same for every shard of the launch.
+// One stage of a fill: its directions' row lists and rings (device int32).
+struct FillStage {
+  const int* send[2];   // [d]: rows each shard sends in direction d
+  const int* recv[2];   // [d]: the rows they land in at the receiver
+  const int* to[2];     // [d]: to[d][s], the shard s pushes to
+  int n_rows;           // rows a (shard, direction)
+};
+
+struct FillArgs {
+  int n_shards, n_dirs, n_stages;
+  int fused;            // the first stage evaluates F'(rhobar) (K4)
+  int elem_bytes;       // 4 (float) or 8 (double)
+  int vec_bytes;        // 16, 8 or 4: the copy stages' vector
+  int row_elems;        // A: elements a row
+  int row_vecs;         // vectors a row in the copy stages
+  int vec_lg;           // log2 of the lanes a row, copy stages
+  int elem_lg;          // log2 of the lanes a row, the F' stage
+  int grid_x, grid_y;   // blocks wanted (x clamped to co-residency)
+  int device;           // the CUDA device of every pointer
+  FillStage stage[kMaxStages];
+  int embed_n;          // F's table: InterpTable.device_table, [n + 4]
+  double embed_x0, embed_inv_dx;
+  const void* embed_table;
+  void* x[kMaxShards];           // shard s's [B, A] field
+  const void* rho[kMaxShards];   // shard s's rhobar [n_local, A] (fused)
+  void* local[kMaxShards];       // shard s's copy of its F' plane, or null
+};
+
+// One field of a ring_push launch, the same for every shard.
 struct PushField {
-  int n_planes;                // planes stacked in the field
-  int row_words;               // 32-bit words per row
-  long long src_plane_words;   // words from one source plane to the next
-  long long dst_plane_words;   // words from one destination plane to the next
+  int n_planes;          // planes stacked in the field (r, p: 3)
+  int row_vecs;          // vectors a row
+  int vec_bytes;         // 16, 8 or 4
+  int lg;                // log2 of the lanes a row
+  long long src_plane;   // vectors from one source plane to the next
 };
 
 struct PushArgs {
-  int n_fields, n_shards;
+  int n_fields, n_shards, n_dirs, n_rows;
+  int grid_x;
+  int device;
+  const int* send[2];    // [d]: rows each shard sends in direction d
+  const int* to[2];      // [d]: to[d][s], the shard s pushes to
   PushField field[kMaxFields];
-  const void* src[kMaxEntries];   // [field * n_shards + s]: shard s's field
-  void* dst[kMaxEntries];         // the buffer shard s pushes into
-};
-
-// K4: the F table, as the host holds it (InterpTable.device_table: [n+4]
-// values of the kernel's precision).
-struct EmbedParams {
-  int n;
-  double x0, inv_dx;
-  const void* table;
-};
-
-struct Pass2Args {
-  int n_shards;
-  const void* rho[kMaxShards];   // shard s's rhobar [n_local, A]
-  void* dst[kMaxShards];         // the dfEmbed [B, A] shard s pushes into
-  void* local[kMaxShards];       // shard s's local copy [n_rows, A]
+  const void* src[kMaxFields][kMaxShards];   // shard s's field f
+  void* dst[kMaxFields];  // field f's arrivals [n_dirs, S, planes, n, row]
 };
 
 namespace {
 
 template <typename V>
-__global__ void ring_push_kernel(const PushArgs a, const int* send,
-                                 const int* recv, int n_rows) {
-  constexpr int W = sizeof(V) / 4;   // words per vector
-  const int e = blockIdx.y;
-  const PushField f = a.field[e / a.n_shards];
-  const long long rv = f.row_words / W;          // vectors per row
-  const long long per_plane = rv * n_rows;
-  const long long total = per_plane * f.n_planes;
-  const long long src_plane = f.src_plane_words / W;
-  const long long dst_plane = f.dst_plane_words / W;
-  const V* src = static_cast<const V*>(a.src[e]);
-  V* dst = static_cast<V*>(a.dst[e]);
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long q = i / per_plane;
-    const long long rem = i - q * per_plane;
-    const long long k = rem / rv;
-    const long long w = rem - k * rv;
-    const long long to_row = recv != nullptr ? recv[k] : k;
-    dst[q * dst_plane + to_row * rv + w] = src[q * src_plane + send[k] * rv + w];
-  }
-}
+__device__ __forceinline__ V load_cg(const V* p) { return __ldcg(p); }
 
+// Rows first, first + stride, ... of n_rows: rows send[k] of src go into
+// rows recv[k] (row k when recv is null) of dst, plane by plane, each row
+// by the 2^lg lanes of its group.
 template <typename V>
-cudaError_t launch_push(const PushArgs& a, const int* send, const int* recv,
-                        int n_rows, cudaStream_t stream) {
-  constexpr int W = sizeof(V) / 4;
-  long long most = 0;
-  for (int f = 0; f < a.n_fields; ++f) {
-    const long long t = static_cast<long long>(a.field[f].n_planes) * n_rows *
-                        (a.field[f].row_words / W);
-    if (t > most) most = t;
+__device__ __forceinline__ void copy_rows(const V* src, V* dst,
+                                          const int* send, const int* recv,
+                                          int n_rows, int n_planes,
+                                          int row_vecs, int lg,
+                                          long long src_plane,
+                                          long long dst_plane, int first,
+                                          int stride) {
+  const int sub = threadIdx.x & ((1 << lg) - 1);
+  for (int k = first; k < n_rows; k += stride) {
+    const long long from = static_cast<long long>(send[k]) * row_vecs;
+    const long long into =
+        static_cast<long long>(recv != nullptr ? recv[k] : k) * row_vecs;
+    for (int q = 0; q < n_planes; ++q)
+      for (int w = sub; w < row_vecs; w += 1 << lg)
+        dst[q * dst_plane + into + w] = load_cg(src + q * src_plane + from + w);
   }
-  constexpr int kThreads = 256;
-  long long blocks = (most + kThreads - 1) / kThreads;
-  if (blocks > 8192) blocks = 8192;
-  if (blocks == 0) return cudaSuccess;
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(a.n_fields * a.n_shards));
-  ring_push_kernel<V><<<grid, kThreads, 0, stream>>>(a, send, recv, n_rows);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -161,91 +185,224 @@ __device__ __forceinline__ T embed_derivative(T rho, const Embed<T>& p) {
   return T(0.5) * (g1 + frac * (g2 - g1)) * p.inv_dx;
 }
 
+// The fused stage's rows for (direction d, shard s -> r): F'(rhobar) of
+// s's rows send[d][k] into rows recv[d][k] of r's field (and row k of s's
+// local copy, when there is one).
 template <typename T>
-__global__ void pass2_push_kernel(const Pass2Args a, const Embed<T> p,
-                                  const int* send, const int* recv,
-                                  int n_rows, int A) {
-  const int s = blockIdx.y;
+__device__ __forceinline__ void embed_rows(const FillArgs& a,
+                                           const FillStage& g, int d, int s,
+                                           int r, int first, int stride) {
+  const Embed<T> p{a.embed_n, static_cast<T>(a.embed_x0),
+                   static_cast<T>(a.embed_inv_dx),
+                   static_cast<const T*>(a.embed_table)};
+  const int A = a.row_elems;
+  const int sub = threadIdx.x & ((1 << a.elem_lg) - 1);
   const T* rho = static_cast<const T*>(a.rho[s]);
-  T* dst = static_cast<T*>(a.dst[s]);
+  T* dst = static_cast<T*>(a.x[r]);
   T* local = static_cast<T*>(a.local[s]);
-  const long long total = static_cast<long long>(n_rows) * A;
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       i < total; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long k = i / A;
-    const long long slot = i - k * A;
-    const T df = embed_derivative(rho[send[k] * static_cast<long long>(A) +
-                                      slot], p);
-    local[i] = df;
-    dst[recv[k] * static_cast<long long>(A) + slot] = df;
+  for (int k = first; k < g.n_rows; k += stride) {
+    const long long from = static_cast<long long>(g.send[d][k]) * A;
+    const long long into = static_cast<long long>(g.recv[d][k]) * A;
+    for (int w = sub; w < A; w += 1 << a.elem_lg) {
+      const T df = embed_derivative(rho[from + w], p);
+      dst[into + w] = df;
+      if (local != nullptr) local[static_cast<long long>(k) * A + w] = df;
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch_pass2(const Pass2Args& a, const EmbedParams& e,
-                         const int* send, const int* recv, int n_rows, int A,
-                         cudaStream_t stream) {
-  const Embed<T> p{e.n, static_cast<T>(e.x0), static_cast<T>(e.inv_dx),
-                   static_cast<const T*>(e.table)};
-  constexpr int kThreads = 256;
-  long long blocks = (static_cast<long long>(n_rows) * A + kThreads - 1) /
-                     kThreads;
-  if (blocks > 8192) blocks = 8192;
-  if (blocks == 0) return cudaSuccess;
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(a.n_shards));
-  pass2_push_kernel<T><<<grid, kThreads, 0, stream>>>(a, p, send, recv,
-                                                      n_rows, A);
+template <typename T, typename V>
+__global__ void __launch_bounds__(kThreads)
+    halo_fill_kernel(const __grid_constant__ FillArgs a) {
+  const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const int n_entries = a.n_dirs * a.n_shards;
+  for (int st = 0; st < a.n_stages; ++st) {
+    if (st > 0) cg::this_grid().sync();
+    const FillStage& g = a.stage[st];
+    const bool eval = a.fused && st == 0;
+    const int lg = eval ? a.elem_lg : a.vec_lg;
+    const int rows_per_warp = 32 >> lg;
+    const int first = warp * rows_per_warp + (lane >> lg);
+    const int stride = gridDim.x * kWarps * rows_per_warp;
+    for (int e = blockIdx.y; e < n_entries; e += gridDim.y) {
+      const int d = e < a.n_shards ? 0 : 1;
+      const int s = e - d * a.n_shards;
+      const int r = g.to[d][s];
+      if (eval)
+        embed_rows<T>(a, g, d, s, r, first, stride);
+      else
+        copy_rows<V>(static_cast<const V*>(a.x[s]), static_cast<V*>(a.x[r]),
+                     g.send[d], g.recv[d], g.n_rows, 1, a.row_vecs, lg, 0, 0,
+                     first, stride);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    ring_push_kernel(const __grid_constant__ PushArgs a) {
+  const int s = blockIdx.y;
+  const int f = blockIdx.z;
+  const PushField& fd = a.field[f];
+  const int lane = threadIdx.x & 31;
+  const int rows_per_warp = 32 >> fd.lg;
+  const int first = (blockIdx.x * kWarps + (threadIdx.x >> 5)) *
+                        rows_per_warp + (lane >> fd.lg);
+  const int stride = gridDim.x * kWarps * rows_per_warp;
+  const long long dst_plane = static_cast<long long>(a.n_rows) * fd.row_vecs;
+  for (int d = 0; d < a.n_dirs; ++d) {
+    // the receiver's slab of direction d's arrivals
+    const long long slab =
+        (static_cast<long long>(d) * a.n_shards + a.to[d][s]) * fd.n_planes *
+        dst_plane;
+    if (fd.vec_bytes == 16)
+      copy_rows(static_cast<const uint4*>(a.src[f][s]),
+                static_cast<uint4*>(a.dst[f]) + slab, a.send[d], nullptr,
+                a.n_rows, fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane,
+                dst_plane, first, stride);
+    else if (fd.vec_bytes == 8)
+      copy_rows(static_cast<const uint2*>(a.src[f][s]),
+                static_cast<uint2*>(a.dst[f]) + slab, a.send[d], nullptr,
+                a.n_rows, fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane,
+                dst_plane, first, stride);
+    else
+      copy_rows(static_cast<const unsigned int*>(a.src[f][s]),
+                static_cast<unsigned int*>(a.dst[f]) + slab, a.send[d],
+                nullptr, a.n_rows, fd.n_planes, fd.row_vecs, fd.lg,
+                fd.src_plane, dst_plane, first, stride);
+  }
+}
+
+// Makes `device` current for the launch and puts the caller's back.
+struct DeviceGuard {
+  int prev = -1;
+  cudaError_t err = cudaSuccess;
+  explicit DeviceGuard(int device) {
+    err = cudaGetDevice(&prev);
+    if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  }
+  ~DeviceGuard() {
+    int cur = -1;
+    if (prev >= 0 && cudaGetDevice(&cur) == cudaSuccess && cur != prev)
+      cudaSetDevice(prev);
+  }
+};
+
+// Blocks of halo_fill_kernel<T, V> the device holds at once (0: not yet
+// asked; -1: no cooperative launch).
+template <typename T, typename V>
+cudaError_t co_resident(int device, int* blocks) {
+  static int cache[kMaxDevices] = {0};
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (cache[device] == 0) {
+    int coop = 0, sms = 0, per_sm = 0;
+    cudaError_t err =
+        cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+    if (err != cudaSuccess) return err;
+    if (!coop) {
+      cache[device] = -1;
+    } else {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                   device);
+      if (err != cudaSuccess) return err;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, halo_fill_kernel<T, V>, kThreads, 0);
+      if (err != cudaSuccess) return err;
+      cache[device] = sms * per_sm > 0 ? sms * per_sm : -1;
+    }
+  }
+  if (cache[device] < 0) return cudaErrorNotSupported;
+  *blocks = cache[device];
+  return cudaSuccess;
+}
+
+template <typename T, typename V>
+cudaError_t launch_fill(const FillArgs& a, cudaStream_t stream) {
+  int cap = 0;
+  cudaError_t err = co_resident<T, V>(a.device, &cap);
+  if (err != cudaSuccess) return err;
+  const int gy = a.grid_y < cap ? a.grid_y : cap;
+  int gx = cap / gy;
+  if (gx > a.grid_x) gx = a.grid_x;
+  if (gx < 1) gx = 1;
+  void* params[] = {const_cast<FillArgs*>(&a)};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(halo_fill_kernel<T, V>),
+      dim3(static_cast<unsigned>(gx), static_cast<unsigned>(gy)),
+      dim3(kThreads), params, 0, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
+
+template <typename T>
+cudaError_t launch_fill_vec(const FillArgs& a, cudaStream_t stream) {
+  if (a.vec_bytes == 16) return launch_fill<T, uint4>(a, stream);
+  if (a.vec_bytes == 8) return launch_fill<T, uint2>(a, stream);
+  return launch_fill<T, unsigned int>(a, stream);
+}
+
+bool lg_ok(int lg) { return lg >= 0 && lg <= 5; }
 
 }  // namespace
 
 extern "C" {
 
-// K3.  vec_words: 1, 2 or 4 words per thread (every field's row_words and
-// plane strides, and every pointer, must allow it).  recv may be null
-// (row k of the destination).  Returns the launch's cudaError_t.
-int comd_ring_push(const PushArgs* args, const void* send, const void* recv,
-                   int n_rows, int vec_words, void* stream) {
-  if (args == nullptr || send == nullptr || n_rows < 0 ||
-      args->n_fields < 1 || args->n_fields > kMaxFields ||
-      args->n_shards < 1 ||
-      args->n_fields * args->n_shards > kMaxEntries)
+// The dfEmbed fill (or K4 alone).  Returns the launch's cudaError_t;
+// cudaErrorNotSupported when the device has no cooperative launch.
+int comd_halo_fill(const FillArgs* a, void* stream) {
+  if (a == nullptr || a->n_shards < 1 || a->n_shards > kMaxShards ||
+      a->n_dirs < 1 || a->n_dirs > 2 || a->n_stages < 1 ||
+      a->n_stages > kMaxStages || a->row_elems < 1 || a->row_vecs < 1 ||
+      !lg_ok(a->vec_lg) || !lg_ok(a->elem_lg) || a->grid_x < 1 ||
+      a->grid_y != a->n_dirs * a->n_shards ||
+      (a->elem_bytes != 4 && a->elem_bytes != 8) ||
+      (a->vec_bytes != 4 && a->vec_bytes != 8 && a->vec_bytes != 16) ||
+      (a->fused && (a->embed_table == nullptr || a->embed_n < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  for (int f = 0; f < args->n_fields; ++f) {
-    const PushField& fd = args->field[f];
-    if (fd.n_planes < 1 || fd.row_words < 1 || fd.row_words % vec_words ||
-        fd.src_plane_words % vec_words || fd.dst_plane_words % vec_words)
-      return static_cast<int>(cudaErrorInvalidValue);
+  for (int st = 0; st < a->n_stages; ++st) {
+    const FillStage& g = a->stage[st];
+    if (g.n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+    for (int d = 0; d < a->n_dirs; ++d)
+      if (g.send[d] == nullptr || g.recv[d] == nullptr || g.to[d] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int* s = static_cast<const int*>(send);
-  const int* r = static_cast<const int*>(recv);
+  for (int s = 0; s < a->n_shards; ++s)
+    if (a->x[s] == nullptr || (a->fused && a->rho[s] == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(a->device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec_words == 4) return launch_push<uint4>(*args, s, r, n_rows, st);
-  if (vec_words == 2) return launch_push<uint2>(*args, s, r, n_rows, st);
-  if (vec_words == 1)
-    return launch_push<unsigned int>(*args, s, r, n_rows, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (a->elem_bytes == 4) return static_cast<int>(launch_fill_vec<float>(*a, st));
+  return static_cast<int>(launch_fill_vec<double>(*a, st));
 }
 
-// K4.  dtype: 0 float, 1 double.  Returns the launch's cudaError_t.
-int comd_pass2_push(const Pass2Args* args, const EmbedParams* embed,
-                    int dtype, const void* send, const void* recv, int n_rows,
-                    int A, void* stream) {
-  if (args == nullptr || embed == nullptr || embed->table == nullptr ||
-      send == nullptr || recv == nullptr || n_rows < 0 || A < 1 ||
-      args->n_shards < 1 || args->n_shards > kMaxShards || embed->n < 1)
+// One atom-exchange stage.  Returns the launch's cudaError_t.
+int comd_ring_push(const PushArgs* a, void* stream) {
+  if (a == nullptr || a->n_fields < 1 || a->n_fields > kMaxFields ||
+      a->n_shards < 1 || a->n_shards > kMaxShards || a->n_dirs < 1 ||
+      a->n_dirs > 2 || a->n_rows < 1 || a->grid_x < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int* s = static_cast<const int*>(send);
-  const int* r = static_cast<const int*>(recv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_pass2<float>(*args, *embed, s, r, n_rows, A, st);
-  if (dtype == 1)
-    return launch_pass2<double>(*args, *embed, s, r, n_rows, A, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  for (int d = 0; d < a->n_dirs; ++d)
+    if (a->send[d] == nullptr || a->to[d] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+  for (int f = 0; f < a->n_fields; ++f) {
+    const PushField& fd = a->field[f];
+    if (fd.n_planes < 1 || fd.row_vecs < 1 || !lg_ok(fd.lg) ||
+        (fd.vec_bytes != 4 && fd.vec_bytes != 8 && fd.vec_bytes != 16) ||
+        a->dst[f] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    for (int s = 0; s < a->n_shards; ++s)
+      if (a->src[f][s] == nullptr)
+        return static_cast<int>(cudaErrorInvalidValue);
+  }
+  DeviceGuard guard(a->device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  const dim3 grid(static_cast<unsigned>(a->grid_x),
+                  static_cast<unsigned>(a->n_shards),
+                  static_cast<unsigned>(a->n_fields));
+  ring_push_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      *a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* comd_comm_error_string(int err) {

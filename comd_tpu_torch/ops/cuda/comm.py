@@ -2,31 +2,42 @@
 
 Two kernels, one source (csrc/comm.cu), one build:
 
-- K3 ``ring_push`` replaces comd_tpu/parallel/pallas_comm.py::
-  _ring_push_kernel (driven by _ring_push): every shard of a mesh pushes
-  rows of its fields to the ring neighbor of one axis, the gather, the
-  push and the receiver's scatter of the Pallas path in one launch.  Users:
-  parallel/ki_comm.py's dfEmbed and atom exchanges.
-- K4 ``pass2_push`` replaces pallas_comm.py::_pass2_push_kernel (driven by
-  _pass2_push): F'(rhobar) of every shard's x-face plane, evaluated in the
-  kernel and written straight into the x neighbor's dfEmbed halo rows.
-  User: the x stage of ki_comm.exchange_scalar_ki_fused.
+- ``halo_fill`` replaces comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
+  (K3) as exchange_scalar_ki drives it, and _pass2_push_kernel (K4) as
+  exchange_scalar_ki_fused drives it: the whole staged dfEmbed fill of every
+  shard's [B, A] field in one cooperative launch, stages x, y and z in order
+  inside the kernel, the x stage evaluating F'(rhobar) when ``rhobar`` is
+  given (K4).  ``pass2_push`` is K4 alone: one direction of the x stage,
+  with each shard's local copy of its plane.
+- ``ring_push`` (K3) replaces _ring_push_kernel as exchange_atoms_ki drives
+  it: one stage of the atom exchange, both directions and every field of
+  every shard in one launch, each field at its own vector width.
 
-What bounds them on the card: bytes (a copy, and a copy with a short table
-read per value).  All shards live on one device, so stream order replaces
-the Pallas kernels' barrier and DMA semaphores (see csrc/comm.cu).
+Each launch follows a plan made once (``FillPlan``, ``PushPlan``;
+parallel/ki_comm.py caches them on the ``Halo``): the row lists and rings
+on the device, the fields' shapes, each field's vector width and the launch
+grid, checked against the kernels' limits when the plan is made, and a
+ctypes argument struct that every call reuses.  A call checks that the
+tensors it is given have the plan's shape, writes their base pointers into
+the struct and makes one ctypes call on the current stream.
+
+What bounds the kernels on the card: bytes (copies, and a copy with a short
+table read per value); at the mesh's sizes, latency and the launch.  All
+shards live on one device, so stream order and the fill's grid barrier
+replace the Pallas kernels' barrier and DMA semaphores (see csrc/comm.cu).
 
 Beside each kernel sits its plain PyTorch version (``*_plain``: an index
-gather plus a scatter per shard).  The wrappers take it only for tensors
-on the CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
-(ops/cuda/__init__.py) counts the launches under "ring_push" and
-"pass2_push".
+gather plus a scatter a shard and direction).  The wrappers take it only
+for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "halo_fill"
+and "ring_push".
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -35,40 +46,238 @@ from . import LAUNCHES
 from .nvcc import CSRC, build_library
 
 SOURCE = os.path.join(CSRC, "comm.cu")
-MAX_FIELDS = 4      # fields per K3 launch (csrc/comm.cu kMaxFields)
-MAX_ENTRIES = 192   # (field, shard) pairs per K3 launch (kMaxEntries)
-MAX_SHARDS = 128    # shards per K4 launch (kMaxShards)
+MAX_SHARDS = 64     # shards a launch (csrc/comm.cu kMaxShards)
+MAX_STAGES = 3      # stages a fill (kMaxStages)
+MAX_FIELDS = 4      # fields a ring_push launch (kMaxFields)
+WARPS = 8           # warps a block (kThreads / 32)
+
+
+# --------------------------------------------------------------------------
+# the plans
+# --------------------------------------------------------------------------
+
+def _vec_bytes(row_bytes: int) -> int:
+    """The widest move (16, 8 or 4 bytes) that tiles a row."""
+    for v in (16, 8, 4):
+        if row_bytes % v == 0:
+            return v
+    raise ValueError(f"rows of {row_bytes} bytes are not whole 32-bit words")
+
+
+def _lanes_lg(per_row: int) -> int:
+    """log2 of the lanes that share a row: the power of two at or above the
+    row's moves, at most a warp."""
+    return min(5, (per_row - 1).bit_length())
+
+
+def _blocks(n_rows: int, lg: int) -> int:
+    """Blocks of WARPS warps that cover n_rows rows, 32 >> lg a warp."""
+    per_block = WARPS * (32 >> lg)
+    return -(-n_rows // per_block)
+
+
+def _rows_list(rows: torch.Tensor, device: torch.device, B: int) -> int:
+    """Checks a row list once; returns its length."""
+    if rows.dtype != torch.int32 or rows.dim() != 1 or \
+            not rows.is_contiguous() or rows.device != device or \
+            rows.numel() < 1:
+        raise ValueError(f"a row list must be a non-empty contiguous int32 "
+                         f"vector on {device}")
+    if int(rows.min()) < 0 or int(rows.max()) >= B:
+        raise ValueError(f"row list outside the field's {B} rows")
+    return rows.numel()
+
+
+def _ring(ring, n_shards: int, device: torch.device):
+    """A ring as Python ints (the plain versions) and an int32 device
+    vector (the kernels); it must be a permutation of the shards, so every
+    destination is written by one shard."""
+    ring = [int(v) for v in ring]
+    if sorted(ring) != list(range(n_shards)):
+        raise ValueError(f"a ring must be a permutation of the "
+                         f"{n_shards} shards, got {ring}")
+    return ring, torch.as_tensor(ring, dtype=torch.int32, device=device)
+
+
+def _shards(n: int) -> None:
+    if not 1 <= n <= MAX_SHARDS:
+        raise ValueError(f"the comm kernels take 1 to {MAX_SHARDS} shards a "
+                         f"launch, got {n}")
+
+
+def _device(device) -> torch.device:
+    """``device`` with its index ("cuda" is the current card), as the
+    tensors on it report it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+class FillPlan:
+    """The launch plan of one dfEmbed fill (or of K4 alone).
+
+    ``stages``: the fill's stages in order, each a list of one or two
+    directions ``(send, recv, ring)``: shard s sends rows ``send`` of its
+    field into rows ``recv`` of shard ``ring[s]``'s field.  ``shape`` and
+    ``dtype``: every shard's [B, A] field."""
+
+    def __init__(self, stages, shape, dtype, device):
+        device = _device(device)
+        if not 1 <= len(stages) <= MAX_STAGES:
+            raise ValueError(f"a fill has 1 to {MAX_STAGES} stages")
+        n_dirs = len(stages[0])
+        if not 1 <= n_dirs <= 2 or any(len(st) != n_dirs for st in stages):
+            raise ValueError("every stage needs the same 1 or 2 directions")
+        shape = tuple(shape)
+        if len(shape) != 2 or dtype.itemsize not in (4, 8):
+            raise ValueError(f"the fill moves [B, A] fields of 4- or 8-byte "
+                             f"elements, got {dtype} {shape}")
+        B, A = shape
+        self.n_shards = len(stages[0][0][2])
+        _shards(self.n_shards)
+        self.shape, self.dtype, self.device = shape, dtype, device
+        self.stages = []        # [stage][d] -> (send, recv, ring as ints)
+        self.n_rows = []        # [stage]
+        keep = []               # device rings the struct points at
+        for st in stages:
+            dirs = []
+            for send, recv, ring in st:
+                n = _rows_list(send, device, B)
+                if _rows_list(recv, device, B) != n:
+                    raise ValueError("send and recv lists differ in length")
+                ring, ring_dev = _ring(ring, self.n_shards, device)
+                dirs.append((send, recv, ring))
+                keep.append(ring_dev)
+            if len({d[0].numel() for d in dirs}) != 1:
+                raise ValueError("a stage's directions move different rows")
+            self.stages.append(dirs)
+            self.n_rows.append(dirs[0][0].numel())
+        # rows of rhobar the fused stage reads: it must hold them
+        self.rho_rows = max(int(d[0].max()) for d in self.stages[0]) + 1
+        self.vec = _vec_bytes(A * dtype.itemsize)
+        self.row_vecs = A * dtype.itemsize // self.vec
+        self.vec_lg, self.elem_lg = _lanes_lg(self.row_vecs), _lanes_lg(A)
+        # blocks along rows (the widest stage) and along (direction, shard)
+        self.grid = (max(_blocks(n, lg) for n in self.n_rows
+                         for lg in (self.vec_lg, self.elem_lg)),
+                     n_dirs * self.n_shards)
+        self.args = None
+        if device.type == "cuda":
+            self._keep = keep
+            self.device_index = device.index
+            a = self.args = _FillArgs()
+            a.n_shards, a.n_dirs, a.n_stages = self.n_shards, n_dirs, len(
+                stages)
+            a.elem_bytes, a.vec_bytes = dtype.itemsize, self.vec
+            a.row_elems, a.row_vecs = A, self.row_vecs
+            a.vec_lg, a.elem_lg = self.vec_lg, self.elem_lg
+            a.grid_x, a.grid_y = self.grid
+            a.device = self.device_index
+            k = 0
+            for i, dirs in enumerate(self.stages):
+                g = a.stage[i]
+                g.n_rows = self.n_rows[i]
+                for d, (send, recv, _r) in enumerate(dirs):
+                    g.send[d], g.recv[d] = send.data_ptr(), recv.data_ptr()
+                    g.to[d] = keep[k].data_ptr()
+                    k += 1
+            self.ref = ctypes.byref(a)
+
+
+class PushedField(NamedTuple):
+    """One field of a stage push, as its plan moves it."""
+    shape: tuple        # a shard's field: [B], [B, A] or [P, B, A]
+    dtype: torch.dtype
+    vec_bytes: int      # the widest move that tiles a row: 16, 8 or 4
+    planes: int         # P (1 for [B] and [B, A])
+    row_vecs: int       # moves a row
+    lg: int             # log2 of the lanes a row
+    out_shape: tuple    # the arrivals: [n_dirs, S, ...] with n rows
+
+
+class PushPlan:
+    """The launch plan of one atom-exchange stage.
+
+    ``dirs``: one or two directions ``(send, ring)``: shard s sends rows
+    ``send`` of each field into row k of shard ``ring[s]``'s arrival buffer
+    of that direction.  ``fields``: ``(shape, dtype)`` of each field of a
+    shard, [B], [B, A] or [P, B, A] with rows along B."""
+
+    def __init__(self, dirs, fields, device):
+        device = _device(device)
+        if not 1 <= len(dirs) <= 2:
+            raise ValueError("a stage push has 1 or 2 directions")
+        if not 1 <= len(fields) <= MAX_FIELDS:
+            raise ValueError(f"a stage push moves 1 to {MAX_FIELDS} fields")
+        self.n_shards = len(dirs[0][1])
+        _shards(self.n_shards)
+        self.device = device
+        shapes = [tuple(shape) for shape, _dt in fields]
+        for shape, dtype in fields:
+            if not 1 <= len(shape) <= 3 or dtype.itemsize not in (4, 8):
+                raise ValueError(f"a pushed field is [B], [B, A] or [P, B, "
+                                 f"A] of 4- or 8-byte elements, got {dtype} "
+                                 f"{tuple(shape)}")
+        B = _rows_shape(shapes[0])[1]
+        if any(_rows_shape(sh)[1] != B for sh in shapes):
+            raise ValueError("the fields differ in rows")
+        self.dirs, keep = [], []
+        for send, ring in dirs:
+            _rows_list(send, device, B)
+            ring, ring_dev = _ring(ring, self.n_shards, device)
+            self.dirs.append((send, ring))
+            keep.append(ring_dev)
+        if len({s.numel() for s, _r in self.dirs}) != 1:
+            raise ValueError("the directions move different rows")
+        n = self.n_rows = self.dirs[0][0].numel()
+        self.fields = []
+        for shape, (_s, dtype) in zip(shapes, fields):
+            P, _B, E = _rows_shape(shape)
+            vec = _vec_bytes(E * dtype.itemsize)
+            rv = E * dtype.itemsize // vec
+            rest = (n,) + shape[1:] if len(shape) < 3 else (P, n, E)
+            self.fields.append(PushedField(
+                shape, dtype, vec, P, rv, _lanes_lg(rv),
+                (len(dirs), self.n_shards) + rest))
+        self.grid_x = max(_blocks(n, f.lg) for f in self.fields)
+        self.args = None
+        if device.type == "cuda":
+            self._keep = keep
+            self.device_index = device.index
+            a = self.args = _PushArgs()
+            a.n_fields, a.n_shards = len(fields), self.n_shards
+            a.n_dirs, a.n_rows = len(dirs), n
+            a.grid_x = self.grid_x
+            a.device = self.device_index
+            for d, ((send, _r), ring_dev) in enumerate(zip(self.dirs, keep)):
+                a.send[d], a.to[d] = send.data_ptr(), ring_dev.data_ptr()
+            for i, f in enumerate(self.fields):
+                a.field[i] = _PushField(f.planes, f.row_vecs, f.vec_bytes,
+                                        f.lg, B * f.row_vecs)
+            self.ref = ctypes.byref(a)
+
+
+def _rows_shape(shape) -> tuple:
+    """(planes, rows, elements a row) of a [B], [B, A] or [P, B, A] field."""
+    if len(shape) == 1:
+        return 1, shape[0], 1
+    if len(shape) == 2:
+        return 1, shape[0], shape[1]
+    return tuple(shape)
 
 
 # --------------------------------------------------------------------------
 # plain PyTorch versions
 # --------------------------------------------------------------------------
 
-def _as_rows(t: torch.Tensor) -> torch.Tensor:
-    """A field as [planes, rows, row]: [B] -> [1, B, 1], [B, A] -> [1, B, A];
-    [P, B, A] stays."""
-    if t.dim() == 1:
-        return t.reshape(1, -1, 1)
-    if t.dim() == 2:
-        return t.unsqueeze(0)
-    return t
-
-
-def ring_push_plain(fields, to, send, recv=None) -> None:
-    """For every (srcs, dsts) field and every shard s: copy rows ``send``
-    of ``srcs[s]`` into rows ``recv`` (row k when None) of
-    ``dsts[to[s]]``, in place.  Fields are [B], [B, A] or [P, B, A]
-    tensors, rows along the box axis.  All sources are read before any
-    destination is written."""
-    got = [[_as_rows(src).index_select(1, send) for src in srcs]
-           for srcs, _dsts in fields]
-    for (_srcs, dsts), rows in zip(fields, got):
-        for s, v in enumerate(rows):
-            dst = _as_rows(dsts[to[s]])
-            if recv is None:
-                dst.copy_(v)
-            else:
-                dst[:, recv] = v
+def fill_push_plain(x, ring, send, recv) -> None:
+    """One direction of one fill stage, in place: rows ``send`` of every
+    shard's field ``x[s]`` into rows ``recv`` of ``x[ring[s]]``.  All
+    shards are read before any is written."""
+    got = [v[send] for v in x]
+    for s, v in enumerate(got):
+        x[ring[s]][recv] = v
 
 
 def pass2_push_plain(rhobar, dfe, to, send, recv, emb: EmbedTable) -> list:
@@ -81,57 +290,93 @@ def pass2_push_plain(rhobar, dfe, to, send, recv, emb: EmbedTable) -> list:
     return local
 
 
+def halo_fill_plain(plan: FillPlan, x: list, rhobar=None,
+                    emb: EmbedTable = None) -> list:
+    """The fill of ``plan`` on every shard's field ``x[s]``, in place,
+    stage by stage; with ``rhobar`` the first stage pushes F'(rhobar)
+    (``emb``: pass 2's evaluator)."""
+    for i, dirs in enumerate(plan.stages):
+        for send, recv, ring in dirs:
+            if i == 0 and rhobar is not None:
+                pass2_push_plain(rhobar, x, ring, send, recv, emb)
+            else:
+                fill_push_plain(x, ring, send, recv)
+    return x
+
+
+def ring_push_plain(plan: PushPlan, srcs) -> list:
+    """One stage push of ``plan``: for every field f (``srcs[f]``, one
+    tensor a shard), direction d and shard s, rows ``send[d]`` of
+    ``srcs[f][s]`` into ``out[f][d, ring_d[s]]``.  Returns ``out``, one
+    [n_dirs, S, ...] arrival tensor a field."""
+    out = [torch.empty(f.out_shape, dtype=f.dtype, device=srcs[0][0].device)
+           for f in plan.fields]
+    for o, ts in zip(out, srcs):
+        axis = 1 if ts[0].dim() == 3 else 0
+        for d, (send, ring) in enumerate(plan.dirs):
+            for s, t in enumerate(ts):
+                o[d, ring[s]] = t.index_select(axis, send)
+    return out
+
+
 # --------------------------------------------------------------------------
 # the CUDA kernels: build, bind, launch
 # --------------------------------------------------------------------------
 
+class _FillStage(ctypes.Structure):
+    _fields_ = [("send", ctypes.c_void_p * 2), ("recv", ctypes.c_void_p * 2),
+                ("to", ctypes.c_void_p * 2), ("n_rows", ctypes.c_int)]
+
+
+class _FillArgs(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "n_shards", "n_dirs", "n_stages", "fused", "elem_bytes", "vec_bytes",
+        "row_elems", "row_vecs", "vec_lg", "elem_lg", "grid_x", "grid_y",
+        "device")] + [
+        ("stage", _FillStage * MAX_STAGES),
+        ("embed_n", ctypes.c_int), ("embed_x0", ctypes.c_double),
+        ("embed_inv_dx", ctypes.c_double), ("embed_table", ctypes.c_void_p),
+        ("x", ctypes.c_void_p * MAX_SHARDS),
+        ("rho", ctypes.c_void_p * MAX_SHARDS),
+        ("local", ctypes.c_void_p * MAX_SHARDS)]
+
+
 class _PushField(ctypes.Structure):
-    _fields_ = [("n_planes", ctypes.c_int), ("row_words", ctypes.c_int),
-                ("src_plane_words", ctypes.c_longlong),
-                ("dst_plane_words", ctypes.c_longlong)]
+    _fields_ = [("n_planes", ctypes.c_int), ("row_vecs", ctypes.c_int),
+                ("vec_bytes", ctypes.c_int), ("lg", ctypes.c_int),
+                ("src_plane", ctypes.c_longlong)]
 
 
 class _PushArgs(ctypes.Structure):
-    _fields_ = [("n_fields", ctypes.c_int), ("n_shards", ctypes.c_int),
-                ("field", _PushField * MAX_FIELDS),
-                ("src", ctypes.c_void_p * MAX_ENTRIES),
-                ("dst", ctypes.c_void_p * MAX_ENTRIES)]
-
-
-class _EmbedParams(ctypes.Structure):
-    _fields_ = [("n", ctypes.c_int), ("x0", ctypes.c_double),
-                ("inv_dx", ctypes.c_double), ("table", ctypes.c_void_p)]
-
-
-class _Pass2Args(ctypes.Structure):
-    _fields_ = [("n_shards", ctypes.c_int),
-                ("rho", ctypes.c_void_p * MAX_SHARDS),
-                ("dst", ctypes.c_void_p * MAX_SHARDS),
-                ("local", ctypes.c_void_p * MAX_SHARDS)]
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "n_fields", "n_shards", "n_dirs", "n_rows", "grid_x", "device")] + [
+        ("send", ctypes.c_void_p * 2), ("to", ctypes.c_void_p * 2),
+        ("field", _PushField * MAX_FIELDS),
+        ("src", (ctypes.c_void_p * MAX_SHARDS) * MAX_FIELDS),
+        ("dst", ctypes.c_void_p * MAX_FIELDS)]
 
 
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_SECONDS = None   # wall time of the nvcc build in this process
+_NOT_SUPPORTED = 801   # cudaErrorNotSupported
 
 
 def build():
     """Compile csrc/comm.cu for sm_90a (first use) and bind it.  -fmad=false
-    keeps K4's arithmetic rounded op by op, as PyTorch's eager pass 2."""
+    keeps the fused stage's arithmetic rounded op by op, as PyTorch's eager
+    pass 2."""
     global _lib, BUILD_SECONDS
     with _lib_lock:
         if _lib is not None:
             return _lib
         lib, BUILD_SECONDS = build_library(SOURCE, "comm", ("-fmad=false",))
+        lib.comd_halo_fill.restype = ctypes.c_int
+        lib.comd_halo_fill.argtypes = [ctypes.POINTER(_FillArgs),
+                                       ctypes.c_void_p]
         lib.comd_ring_push.restype = ctypes.c_int
-        lib.comd_ring_push.argtypes = [
-            ctypes.POINTER(_PushArgs), ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.comd_pass2_push.restype = ctypes.c_int
-        lib.comd_pass2_push.argtypes = [
-            ctypes.POINTER(_Pass2Args), ctypes.POINTER(_EmbedParams),
-            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p]
+        lib.comd_ring_push.argtypes = [ctypes.POINTER(_PushArgs),
+                                       ctypes.c_void_p]
         lib.comd_comm_error_string.restype = ctypes.c_char_p
         lib.comd_comm_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -139,151 +384,133 @@ def build():
 
 
 def _raise_on(lib, err: int, what: str) -> None:
+    if err == _NOT_SUPPORTED:
+        raise RuntimeError(f"{what}: the device has no cooperative launch, "
+                           f"which the fill's stage barriers need")
     if err != 0:
         msg = lib.comd_comm_error_string(err).decode()
         raise RuntimeError(f"{what} launch failed: {msg} (cudaError {err})")
 
 
-def _check_rows(rows: torch.Tensor, device, what: str) -> None:
-    if rows.dtype != torch.int32 or rows.dim() != 1 or \
-            not rows.is_contiguous() or rows.device != device:
-        raise ValueError(f"{what} must be a contiguous int32 vector on "
-                         f"{device}")
-
-
-def _rows_shape(shape) -> tuple:
-    """(planes, rows, elements per row) of a [B], [B, A] or [P, B, A]
-    field, as ``_as_rows`` views it."""
-    if len(shape) == 1:
-        return 1, shape[0], 1
-    if len(shape) == 2:
-        return 1, shape[0], shape[1]
-    return tuple(shape)
-
-
-def _check_field(ts, dev) -> None:
-    """One field's per-shard tensors: one shape and dtype, contiguous, on
-    ``dev``, of 4- or 8-byte elements."""
-    t0 = ts[0]
-    if t0.element_size() not in (4, 8) or t0.dim() > 3:
-        raise ValueError("K3 moves fields of 4- or 8-byte elements, [B], "
-                         f"[B, A] or [P, B, A], got {t0.dtype} "
-                         f"{tuple(t0.shape)}")
+def _pointers(ts, n: int, shape, dtype, device: int, what: str) -> list:
+    """The base pointers of one tensor a shard, each of the plan's shape
+    and dtype, contiguous, on its CUDA device."""
+    if len(ts) != n:
+        raise ValueError(f"{what}: {n} shards in the plan, {len(ts)} given")
+    ptrs = []
     for t in ts:
-        if t.shape != t0.shape or t.dtype != t0.dtype or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError("the shards' fields must share one shape and "
-                             "dtype and be contiguous on one device")
+        if t.shape != shape or t.dtype != dtype or not t.is_contiguous() or \
+                t.get_device() != device:
+            raise ValueError(f"{what}: expected contiguous {dtype} {shape} "
+                             f"on cuda:{device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        ptrs.append(t.data_ptr())
+    return ptrs
 
 
-def _ring_push_kernel(fields, to, send, recv) -> None:
-    dev = send.device
-    _check_rows(send, dev, "send rows")
-    if recv is not None:
-        _check_rows(recv, dev, "recv rows")
-    if not 1 <= len(fields) <= MAX_FIELDS:
-        raise ValueError(f"K3 takes 1 to {MAX_FIELDS} fields per launch")
-    n_shards = len(fields[0][0])
-    descr, ptrs = [], []
-    for srcs, dsts in fields:
-        if len(srcs) != n_shards or len(dsts) != n_shards:
-            raise ValueError("every field needs one source and one "
-                             "destination per shard")
-        _check_field(srcs, dev)
-        _check_field(dsts, dev)
-        sp, sr, sw = _rows_shape(srcs[0].shape)
-        dp, dr, dw = _rows_shape(dsts[0].shape)
-        if srcs[0].dtype != dsts[0].dtype or sp != dp or sw != dw or (
-                recv is None and dr != send.numel()):
-            raise ValueError("source and destination fields do not match")
-        words = srcs[0].element_size() // 4
-        sw *= words
-        descr.append((sp, sw, sr * sw, dr * sw))
-        ptrs.append(([t.data_ptr() for t in srcs],
-                     [dsts[to[s]].data_ptr() for s in range(n_shards)]))
-    vec = 4
-    for sp, sw, ss, ds in descr:
-        while vec > 1 and (sw % vec or ss % vec or ds % vec):
-            vec //= 2
-    for srcp, dstp in ptrs:
-        while vec > 1 and any(p % (4 * vec) for p in srcp + dstp):
-            vec //= 2
+def _aligned(ptrs, vec: int, what: str) -> None:
+    acc = 0
+    for p in ptrs:
+        acc |= p
+    if acc % vec:
+        raise ValueError(f"{what}: a pointer is not {vec}-byte aligned")
+
+
+def _launch_fill(plan: FillPlan, x, rhobar, emb, local) -> None:
+    a, S, A = plan.args, plan.n_shards, plan.shape[1]
+    ptrs = _pointers(x, S, plan.shape, plan.dtype, plan.device_index,
+                     "halo_fill field")
+    _aligned(ptrs, plan.vec, "halo_fill field")
+    a.x[:S] = ptrs
+    a.fused = int(rhobar is not None)
+    if rhobar is not None:
+        tab = emb.table
+        if plan.dtype not in (torch.float32, torch.float64) or \
+                tab.dtype != plan.dtype or not tab.is_contiguous() or \
+                tab.get_device() != plan.device_index:
+            raise ValueError("the fused fill needs a float32 or float64 "
+                             "field and a table of its dtype on its device")
+        if len(rhobar) != S:
+            raise ValueError(f"halo_fill rhobar: {S} shards in the plan, "
+                             f"{len(rhobar)} given")
+        rho_ptrs = []
+        for t in rhobar:
+            if t.dim() != 2 or t.shape[1] != A or \
+                    t.shape[0] < plan.rho_rows or t.dtype != plan.dtype or \
+                    not t.is_contiguous() or \
+                    t.get_device() != plan.device_index:
+                raise ValueError(f"halo_fill rhobar: expected contiguous "
+                                 f"{plan.dtype} [>= {plan.rho_rows}, {A}] "
+                                 f"on the field's device, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+            rho_ptrs.append(t.data_ptr())
+        a.rho[:S] = rho_ptrs
+        a.embed_n, a.embed_x0, a.embed_inv_dx = emb.n, emb.x0, emb.inv_dx
+        a.embed_table = tab.data_ptr()
+    if local is not None:
+        a.local[:S] = [t.data_ptr() for t in local]
     lib = build()
-    # a mesh with more (field, shard) pairs than one launch takes is pushed
-    # in groups of shards, one launch each
-    per = MAX_ENTRIES // len(fields)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for s0 in range(0, n_shards, per):
-            s1 = min(s0 + per, n_shards)
-            a = _PushArgs()
-            a.n_fields, a.n_shards = len(fields), s1 - s0
-            for f, ((sp, sw, ss, ds), (srcp, dstp)) in enumerate(
-                    zip(descr, ptrs)):
-                a.field[f] = _PushField(sp, sw, ss, ds)
-                for j, s in enumerate(range(s0, s1)):
-                    a.src[f * a.n_shards + j] = srcp[s]
-                    a.dst[f * a.n_shards + j] = dstp[s]
-            err = lib.comd_ring_push(
-                ctypes.byref(a), send.data_ptr(),
-                None if recv is None else recv.data_ptr(), send.numel(),
-                vec, stream)
-            _raise_on(lib, err, "K3 ring_push")
-            LAUNCHES["ring_push"] += 1
+    stream = torch.cuda.current_stream(plan.device_index).cuda_stream
+    _raise_on(lib, lib.comd_halo_fill(plan.ref, stream), "halo_fill")
+    LAUNCHES["halo_fill"] += 1
 
 
-def ring_push(fields, to, send, recv=None) -> None:
-    """K3: for every field (srcs, dsts) -- per-shard lists of [B], [B, A]
-    or [P, B, A] tensors -- and every shard s, rows ``send`` of
-    ``srcs[s]`` go into rows ``recv`` of ``dsts[to[s]]`` (row k of it when
-    ``recv`` is None), in place.  ``to`` is one ring direction of the mesh
-    (a permutation).  ``send``/``recv`` are int32 row lists on the fields'
-    device.  CPU tensors run the plain version; CUDA tensors the kernel."""
-    if send.device.type == "cpu":
-        return ring_push_plain(fields, to, send, recv)
-    return _ring_push_kernel(fields, to, send, recv)
+def halo_fill(plan: FillPlan, x: list, rhobar=None,
+              emb: EmbedTable = None) -> list:
+    """The dfEmbed fill of ``plan`` on every shard's [B, A] field ``x[s]``,
+    in place, in one launch: stage by stage, rows ``send`` of each shard
+    into rows ``recv`` of its ring neighbor's field.  With ``rhobar`` (per
+    shard [n_local, A]) and ``emb`` (pass 2's evaluator) the first stage
+    pushes F'(rhobar) of the send rows instead, op by op as pass 2 (K4).
+    CPU tensors run the plain version; CUDA tensors the kernel."""
+    if x[0].device.type == "cpu":
+        return halo_fill_plain(plan, x, rhobar, emb)
+    _launch_fill(plan, x, rhobar, emb, None)
+    return x
 
 
 def pass2_push(rhobar, dfe, to, send, recv, emb: EmbedTable) -> list:
-    """K4: for every shard s, F'(rhobar[s] at rows ``send``) -- the
+    """K4 alone: for every shard s, F'(rhobar[s] at rows ``send``) -- the
     derivative output of tables.interpolate, op by op -- written into rows
-    ``recv`` of ``dfe[to[s]]``, in place.  Returns each shard's local copy
-    [n_rows, A].  ``rhobar``: per-shard [n_local, A]; ``dfe``: per-shard
-    [B, A]; ``send``/``recv``: int32 row lists.  CPU tensors run the plain
-    version; CUDA tensors the kernel."""
+    ``recv`` of ``dfe[to[s]]``, in place; a one-stage, one-direction fill.
+    Returns each shard's local copy [n_rows, A].  ``rhobar``: per-shard
+    [n_local, A]; ``dfe``: per-shard [B, A]; ``send``/``recv``: int32 row
+    lists.  CPU tensors run the plain version; CUDA tensors the kernel."""
     if send.device.type == "cpu":
         return pass2_push_plain(rhobar, dfe, to, send, recv, emb)
-    dev = send.device
-    _check_rows(send, dev, "send rows")
-    _check_rows(recv, dev, "recv rows")
-    n = len(rhobar)
-    if not 1 <= n <= MAX_SHARDS or len(dfe) != n:
-        raise ValueError(f"K4 takes 1 to {MAX_SHARDS} shards, one rhobar and "
-                         f"one dfEmbed each")
-    dtype, A = emb.table.dtype, dfe[0].shape[-1]
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"unsupported dtype {dtype}")
-    for t in list(rhobar) + list(dfe) + [emb.table]:
-        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError("K4's operands must be contiguous, of the "
-                             "table's dtype, on one device")
-    if any(t.dim() != 2 or t.shape[1] != A for t in list(rhobar) + list(dfe)):
-        raise ValueError("rhobar and dfEmbed must be [rows, A]")
-    local = list(rhobar[0].new_empty((n, send.numel(), A)).unbind(0))
-    lib = build()
-    a = _Pass2Args()
-    a.n_shards = n
-    for s in range(n):
-        a.rho[s] = rhobar[s].data_ptr()
-        a.dst[s] = dfe[to[s]].data_ptr()
-        a.local[s] = local[s].data_ptr()
-    e = _EmbedParams(emb.n, emb.x0, emb.inv_dx, emb.table.data_ptr())
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.comd_pass2_push(
-            ctypes.byref(a), ctypes.byref(e),
-            0 if dtype == torch.float32 else 1, send.data_ptr(),
-            recv.data_ptr(), send.numel(), A, stream)
-    _raise_on(lib, err, "K4 pass2_push")
-    LAUNCHES["pass2_push"] += 1
+    plan = FillPlan([[(send, recv, to)]], dfe[0].shape, dfe[0].dtype,
+                    send.device)
+    local = list(rhobar[0].new_empty((len(dfe), send.numel(),
+                                      plan.shape[1])).unbind(0))
+    _launch_fill(plan, dfe, rhobar, emb, local)
     return local
+
+
+def ring_push(plan: PushPlan, srcs) -> list:
+    """One atom-exchange stage push of ``plan`` in one launch: for every
+    field f (``srcs[f]``: one tensor a shard), direction d and shard s, rows
+    ``send[d]`` of ``srcs[f][s]`` go into ``out[f][d, ring_d[s]]``, each
+    field at its own vector width.  Returns ``out``, one [n_dirs, S, ...]
+    arrival tensor a field (rows along the field's B axis replaced by the
+    sent rows).  CPU tensors run the plain version; CUDA tensors the
+    kernel."""
+    if srcs[0][0].device.type == "cpu":
+        return ring_push_plain(plan, srcs)
+    a, S = plan.args, plan.n_shards
+    if len(srcs) != len(plan.fields):
+        raise ValueError(f"ring_push: {len(plan.fields)} fields in the "
+                         f"plan, {len(srcs)} given")
+    dev = srcs[0][0].device
+    out = [torch.empty(f.out_shape, dtype=f.dtype, device=dev)
+           for f in plan.fields]
+    for i, (ts, f) in enumerate(zip(srcs, plan.fields)):
+        what = f"ring_push field {i}"
+        ptrs = _pointers(ts, S, f.shape, f.dtype, plan.device_index, what)
+        _aligned(ptrs + [out[i].data_ptr()], f.vec_bytes, what)
+        a.src[i][:S] = ptrs
+        a.dst[i] = out[i].data_ptr()
+    lib = build()
+    stream = torch.cuda.current_stream(plan.device_index).cuda_stream
+    _raise_on(lib, lib.comd_ring_push(plan.ref, stream), "ring_push")
+    LAUNCHES["ring_push"] += 1
+    return out

@@ -152,8 +152,9 @@ def atom_msg_bytes(plan: ExchangePlan, A: int, itemsize: int) -> dict:
 class Halo:
     """Everything an exchange needs: the mesh and its rings, the shards'
     common geometry and maps, the plan and its lists as int32 device
-    tensors (for torch indexing and the kernels alike), and the per-axis
-    PBC shifts rounded to the dynamics dtype."""
+    tensors (for torch indexing and the kernels alike), the per-axis PBC
+    shifts rounded to the dynamics dtype, and the kernels' launch plans
+    (ki_comm.py: one a field shape, made on first use)."""
     mesh: Mesh
     geom: CellGeometry
     maps: GeomMaps
@@ -164,6 +165,8 @@ class Halo:
     force_send: tuple     # [axis] -> (minus, plus)
     force_recv: tuple     # [axis] -> (minus, plus)
     ext: tuple            # [axis] local extent as a dtype-rounded float
+    launch_plans: dict = dataclasses.field(default_factory=dict,
+                                           compare=False, repr=False)
 
 
 def make_halo(mesh: Mesh, geom: CellGeometry, maps: GeomMaps,

@@ -1,4 +1,5 @@
-"""Kernel-initiated halo transports on K3 and K4 (comd_tpu's pallas_comm).
+"""Kernel-initiated halo transports on the fill and push kernels
+(comd_tpu's pallas_comm).
 
 The reference's kernel-initiated transport (src-mpi/comm_ki.cuh:187-310)
 lets the GPU post its halo sends itself instead of bouncing through the
@@ -7,89 +8,103 @@ ring neighbor with a remote copy (``--commImpl ki``), and one that fuses the
 x-stage push into the embedding-derivative evaluation (``ki_fused``).  Here
 the planes move with the hand-written kernels of ops/cuda/comm.py:
 
-  * ``exchange_scalar_ki``: the 3-stage dfEmbed exchange, one K3 launch per
-    (stage, direction) for every shard of the mesh;
-  * ``exchange_atoms_ki``: the 3-stage atom exchange, each face's cell
-    blocks (r, p, gid, counts) pushed by one K3 launch per direction into
-    per-shard arrival buffers, then re-binned by coordinate exactly as the
-    collective path does;
-  * ``exchange_scalar_ki_fused``: the x stage on K4, which evaluates
-    F'(rhobar) of the x-face planes in the kernel and writes it into the x
-    neighbor's halo rows; the y and z stages forward the assembled field
-    on K3.
+  * ``exchange_scalar_ki``: the 3-stage dfEmbed fill as one ``halo_fill``
+    launch for every shard of the mesh (stages x, y, z in order inside it);
+  * ``exchange_scalar_ki_fused``: the same launch with the x stage
+    evaluating F'(rhobar) of the x-face planes and writing it into the x
+    neighbor's halo rows (K4); y and z forward the assembled field;
+  * ``exchange_atoms_ki``: the 3-stage atom exchange, one ``ring_push``
+    launch a stage that moves each face's cell blocks (r, p, gid, counts)
+    of both directions into per-shard arrival buffers, then the arrivals
+    re-binned by coordinate exactly as the collective path does.
 
-The staged x -> y -> z order and the growing cross-sections are those of
-exchange.exchange_scalar / exchange_atoms, so all three transports give
-the same state bit for bit.  K3 moves raw 32-bit words, so the gid and
-count fields travel as int32 planes and comd_tpu's _pack_ints (ints
-through float buffers) has no counterpart.
+The launch plans (row lists, rings, vector widths, grid) are made on first
+use and kept on the ``Halo``, one a field shape.  The staged x -> y -> z
+order and the growing cross-sections are those of exchange.exchange_scalar
+/ exchange_atoms, so all three transports give the same state bit for bit.
+The kernels move raw 32-bit words, so the gid and count fields travel as
+int32 and comd_tpu's _pack_ints (ints through float buffers) has no
+counterpart.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops import binning
-from ..ops.cuda.comm import pass2_push, ring_push
+from ..ops.cuda.comm import FillPlan, PushPlan, halo_fill, ring_push
 from ..potentials.tables import EmbedTable
 from .exchange import Halo
 
 
-def _push_scalar_stage(h: Halo, x: list, axis: int) -> None:
-    send_m, send_p = h.force_send[axis]
-    recv_m, recv_p = h.force_recv[axis]
-    # my minus-face plane lands in my minus neighbor's plus halo, and back
-    ring_push([(x, x)], h.minus[axis], send_m, recv_p)
-    ring_push([(x, x)], h.plus[axis], send_p, recv_m)
+def fill_plan(h: Halo, x0: torch.Tensor) -> FillPlan:
+    """The dfEmbed fill's plan for fields like ``x0`` ([B, A]): for each
+    stage, my minus-face plane lands in my minus neighbor's plus halo
+    (direction 0), my plus-face plane in my plus neighbor's minus halo."""
+    key = ("fill", tuple(x0.shape), x0.dtype)
+    plan = h.launch_plans.get(key)
+    if plan is None:
+        stages = [[(h.force_send[a][0], h.force_recv[a][1], h.minus[a]),
+                   (h.force_send[a][1], h.force_recv[a][0], h.plus[a])]
+                  for a in range(3)]
+        plan = h.launch_plans[key] = FillPlan(stages, x0.shape, x0.dtype,
+                                              h.mesh.device)
+    return plan
+
+
+def atom_plan(h: Halo, axis: int, fields) -> PushPlan:
+    """The atom exchange's plan for stage ``axis`` and fields like
+    ``fields`` (one tensor a shard each): direction 0 pushes my plus planes
+    to my plus neighbor (arrivals from my minus neighbor), direction 1 my
+    minus planes to my minus neighbor."""
+    key = ("atoms", axis) + tuple((tuple(f[0].shape), f[0].dtype)
+                                  for f in fields)
+    plan = h.launch_plans.get(key)
+    if plan is None:
+        plan = h.launch_plans[key] = PushPlan(
+            [(h.atom_send[axis][1], h.plus[axis]),
+             (h.atom_send[axis][0], h.minus[axis])],
+            [(f[0].shape, f[0].dtype) for f in fields], h.mesh.device)
+    return plan
 
 
 def exchange_scalar_ki(h: Halo, x: list) -> list:
-    """dfEmbed halo exchange on K3, in place on every shard's [B, A] field:
-    the same 3-stage growing-cross-section schedule as
-    exchange.exchange_scalar (haloExchange.c:345-475), each plane pushed by
-    the kernel."""
-    for axis in range(3):
-        _push_scalar_stage(h, x, axis)
-    return x
+    """dfEmbed halo exchange in one kernel launch, in place on every
+    shard's [B, A] field: the same 3-stage growing-cross-section schedule
+    as exchange.exchange_scalar (haloExchange.c:345-475)."""
+    return halo_fill(fill_plan(h, x[0]), x)
 
 
 def exchange_atoms_ki(h: Halo, r: list, p: list, gid: list, n_atoms: list):
-    """3-stage staged atom exchange on K3 (the reference's
-    exchangeData_Atoms_KI, comm_ki.cuh:437-496).  Each face's two send
-    planes of whole cells (r, p, gid and the counts) are pushed, both
-    directions before any unload, into per-shard arrival buffers laid out
-    as comd_tpu's [8, n, A] arrivals (typed: r and p [3, n, A], gid [n, A],
-    counts [n]); arrivals are re-binned by coordinate as in
+    """3-stage staged atom exchange, one kernel launch a stage (the
+    reference's exchangeData_Atoms_KI, comm_ki.cuh:437-496).  Each face's
+    two send planes of whole cells (r, p, gid and the counts) are pushed,
+    both directions before any unload, into per-shard arrival buffers laid
+    out as comd_tpu's [8, n, A] arrivals (typed: r and p [3, n, A], gid
+    [n, A], counts [n]); arrivals are re-binned by coordinate as in
     exchange.exchange_atoms.  Returns new lists (r, p, gid, n_atoms) and the
     overflow flag."""
     geom, maps = h.geom, h.maps
     r, p, gid, n_atoms = list(r), list(p), list(gid), list(n_atoms)
-    S = len(r)
     A = r[0].shape[-1]
     slot = torch.arange(A, device=h.mesh.device)[None, :]
     overflow = torch.zeros((), dtype=torch.bool, device=h.mesh.device)
     for axis in range(3):
         ext = h.ext[axis]
-        got = []
-        for d, to in ((1, h.plus[axis]), (0, h.minus[axis])):
-            ids = h.atom_send[axis][d]
-            n = ids.numel()
-            buf = ([r[0].new_empty((3, n, A)) for _ in range(S)],
-                   [p[0].new_empty((3, n, A)) for _ in range(S)],
-                   [gid[0].new_empty((n, A)) for _ in range(S)],
-                   [n_atoms[0].new_empty((n,)) for _ in range(S)])
-            ring_push(list(zip((r, p, gid, n_atoms), buf)), to, ids)
-            got.append(buf)
-        # got[0]: from my minus neighbor (its plus planes), shift -ext;
-        # got[1]: from my plus neighbor, shift +ext
-        for s in range(S):
-            for (br, bp, bg, bn), shift in ((got[0], -ext), (got[1], +ext)):
-                valid = (slot < bn[s][:, None]).reshape(-1)
-                arr_r = br[s].reshape(3, -1)
+        fields = (r, p, gid, n_atoms)
+        got_r, got_p, got_g, got_n = ring_push(atom_plan(h, axis, fields),
+                                               fields)
+        # direction 0: from my minus neighbor (its plus planes), shift -ext;
+        # direction 1: from my plus neighbor, shift +ext
+        for s in range(len(r)):
+            for d, shift in ((0, -ext), (1, +ext)):
+                valid = (slot < got_n[d, s][:, None]).reshape(-1)
+                arr_r = got_r[d, s].reshape(3, -1)
                 arr_r[axis] += shift        # the sender's frame -> ours
                 r[s], p[s], gid[s], n_atoms[s], ovf = \
                     binning.append_arrivals(
                         geom, maps, r[s], p[s], gid[s], n_atoms[s], arr_r,
-                        bp[s].reshape(3, -1), bg[s].reshape(-1), valid)
+                        got_p[d, s].reshape(3, -1), got_g[d, s].reshape(-1),
+                        valid)
                 overflow = overflow | ovf
     return r, p, gid, n_atoms, overflow
 
@@ -98,16 +113,10 @@ def exchange_scalar_ki_fused(h: Halo, x: list, rhobar_l: list,
                              f_eval: EmbedTable) -> list:
     """dfEmbed exchange with the x-stage pushes fused into the embedding
     evaluation (the reference's exchangeData_Force_KI fusion,
-    comm_ki.cuh:187-310): K4 computes F'(rhobar) of each +-x face plane of
-    every shard and writes it into the x neighbor's halo rows.  ``f_eval``
-    is pass 2's evaluator, so the plane values equal the interior ones bit
-    for bit.  The y and z stages forward columns that hold x-stage
-    arrivals, so they stay K3 pushes of the assembled field.  In place on
-    every shard's [B, A] field."""
-    send_m, send_p = h.force_send[0]
-    recv_m, recv_p = h.force_recv[0]
-    pass2_push(rhobar_l, x, h.minus[0], send_m, recv_p, f_eval)
-    pass2_push(rhobar_l, x, h.plus[0], send_p, recv_m, f_eval)
-    for axis in (1, 2):
-        _push_scalar_stage(h, x, axis)
-    return x
+    comm_ki.cuh:187-310), in one kernel launch: the x stage computes
+    F'(rhobar) of each +-x face plane of every shard and writes it into the
+    x neighbor's halo rows.  ``f_eval`` is pass 2's evaluator, so the plane
+    values equal the interior ones bit for bit.  The y and z stages forward
+    columns that hold x-stage arrivals, so they copy the assembled field.
+    In place on every shard's [B, A] field."""
+    return halo_fill(fill_plan(h, x[0]), x, rhobar_l, f_eval)

@@ -10,8 +10,9 @@ one device, and a step is a Python loop over them with the mesh's
 exchanges between the per-shard phases:
 
   - ``ppermute`` along an axis -> a ring shift over the shards' tensors
-    (parallel/exchange.py, or the K3/K4 kernels of parallel/ki_comm.py
-    under ``--commImpl ki|ki_fused``);
+    (parallel/exchange.py, or the halo kernels of parallel/ki_comm.py
+    under ``--commImpl ki|ki_fused``: one launch a dfEmbed fill, three an
+    atom exchange);
   - ``psum`` -> a sum over shards.  The lazy trigger is read on the host
     once per step, as in the serial port; ePot, n_local and the overflow
     flag stay on the device.

@@ -107,8 +107,8 @@ def main(argv=None) -> int:
         # the device time of one launch of each hand-written kernel
         "hand_written_us_per_launch": {
             k[:90]: us / n for k, (us, n) in kern.items()
-            if any(w in k for w in ("stencil_kernel", "ring_push_kernel",
-                                    "pass2_push_kernel"))},
+            if any(w in k for w in ("stencil_kernel", "halo_fill_kernel",
+                                    "ring_push_kernel"))},
     }))
     return 0
 

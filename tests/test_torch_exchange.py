@@ -20,7 +20,15 @@ must be equal bit for bit:
     on a 1-D mesh, as tests/test_pallas_comm.py runs them: K3 bitwise (the
     atom buffer's int fields through comd_tpu's float packing); K4's local
     plane within 1e-12 relative in f64 (a direct table read against the
-    two-level one), and each received plane equal to the neighbor's.
+    two-level one), and each received plane equal to the neighbor's;
+  - the plain whole fill of the fill kernel (``halo_fill_plain``: ``ki``,
+    and ``ki_fused`` from F' of rhobar as pass 2 computes it) against
+    comd_tpu's ``exchange_scalar`` on 2x2x2 and 3x2x1, f32 and f64 (comd_tpu's
+    interpret-mode pushes run only on 1-D meshes, so the per-push tests
+    above cover the kernels' functions);
+  - the launch plans: each field at its own vector width, both directions
+    of a stage in one plan, rows and limits checked when the plan is made,
+    and a plan refused for a field or mesh the kernels cannot take.
 """
 import os
 
@@ -43,9 +51,12 @@ from comd_tpu.potentials.eam import init_eam_pot as j_init_eam
 from comd_tpu_torch import Config, cells as tcells, init_simulation
 from comd_tpu_torch.interop import shards_from_numpy, shards_to_numpy
 from comd_tpu_torch.ops import binning as tbin
-from comd_tpu_torch.ops.cuda.comm import pass2_push_plain, ring_push_plain
+from comd_tpu_torch.ops.cuda import comm as cm
+from comd_tpu_torch.ops.cuda.comm import (FillPlan, PushPlan,
+                                          halo_fill_plain, pass2_push_plain,
+                                          ring_push_plain)
 from comd_tpu_torch.ops.force_eam import make_f_eval
-from comd_tpu_torch.parallel import exchange as tex
+from comd_tpu_torch.parallel import exchange as tex, ki_comm
 from comd_tpu_torch.parallel.mesh import make_mesh
 from comd_tpu_torch.potentials.eam import init_eam_pot
 
@@ -288,10 +299,11 @@ def test_ring_push_plain_matches_pallas(direction):
         single_axis=True), jnp.asarray(x))
     mesh = make_mesh(N_RING, 1, 1, "cpu")
     src = [torch.from_numpy(b) for b in x.reshape(N_RING, 16, 32)]
-    dst = [torch.zeros(16, 32, dtype=torch.float64) for _ in range(N_RING)]
-    ring_push_plain([(src, dst)], mesh.ring(0, direction),
-                    torch.arange(16, dtype=torch.int32))
-    np.testing.assert_array_equal(np.stack([d.numpy() for d in dst]),
+    plan = PushPlan([(torch.arange(16, dtype=torch.int32),
+                      mesh.ring(0, direction))],
+                    [((16, 32), torch.float64)], "cpu")
+    dst, = ring_push_plain(plan, [src])
+    np.testing.assert_array_equal(dst[0].numpy(),
                                   got_j.reshape(N_RING, 16, 32))
 
 
@@ -320,12 +332,10 @@ def test_ring_push_plain_atom_buffer_matches_pallas():
     mesh = make_mesh(N_RING, 1, 1, "cpu")
     srcs = [[torch.from_numpy(np.array(a[s])) for s in range(N_RING)]
             for a in (r, p, gid, cnt)]
-    dsts = [[torch.zeros((3, n, A), dtype=torch.float64) for _ in srcs[0]],
-            [torch.zeros((3, n, A), dtype=torch.float64) for _ in srcs[0]],
-            [torch.zeros((n, A), dtype=torch.int32) for _ in srcs[0]],
-            [torch.zeros((n,), dtype=torch.int32) for _ in srcs[0]]]
-    ring_push_plain(list(zip(srcs, dsts)), mesh.ring(0, +1),
-                    torch.as_tensor(ids, dtype=torch.int32))
+    plan = PushPlan([(torch.as_tensor(ids, dtype=torch.int32),
+                      mesh.ring(0, +1))],
+                    [(f[0].shape, f[0].dtype) for f in srcs], "cpu")
+    dsts = [o[0] for o in ring_push_plain(plan, srcs)]
     for s in range(N_RING):
         np.testing.assert_array_equal(dsts[0][s].numpy(), got[s, 0:3])
         np.testing.assert_array_equal(dsts[1][s].numpy(), got[s, 3:6])
@@ -376,3 +386,115 @@ def test_pass2_push_plain_matches_pallas():
     # and equals pass 2's own F' of the same rhobar, bit for bit
     np.testing.assert_array_equal(
         loc_t, np.stack([f_eval(v)[1].numpy() for v in rhos]))
+
+
+# --------------------------------------------------------------------------
+# the fill kernel's plain version and the launch plans
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("setup", ["2x2x2", "3x2x1"], indirect=True)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_fill_plain_matches_exchange_scalar(setup, dtype):
+    """The whole fill of ``ki`` and of ``ki_fused`` (the x stage from F' of
+    rhobar, with pass 2's evaluator) equals comd_tpu's staged
+    exchange_scalar of the field whose local rows pass 2 filled, bit for
+    bit."""
+    sim, jg, jmesh, st, grid = setup
+    h = _halo(sim, sim.plan)
+    B, A = st["gid"].shape[3:]
+    nl = sim.geom.n_local
+    f_eval = make_f_eval(init_eam_pot(POTS, "Cu_u6.eam", "funcfl"), dtype,
+                         "cpu")
+    rng = np.random.default_rng(7)
+    rhobar = rng.uniform(0.5, 3.0, grid + (nl, A))
+    rho_t = [v.to(dtype) for v in _split(rhobar, grid)]
+    x = rng.uniform(-1, 1, grid + (B, A))
+    x_t = [v.to(dtype) for v in _split(x, grid)]
+    for xs, rho in zip(x_t, rho_t):
+        xs[:nl] = f_eval(rho)[1]          # pass 2's dfEmbed
+    x0 = _stack(x_t, grid)
+    jp = jex.make_plan(jg)
+    got_j = _shard_map(jmesh, lambda v: jex.exchange_scalar(jp, jg, v), x0)
+    plan = ki_comm.fill_plan(h, x_t[0])
+    assert plan is ki_comm.fill_plan(h, x_t[1])          # made once
+    for rho in (None, rho_t):
+        got_t = halo_fill_plain(plan, [v.clone() for v in x_t], rho, f_eval)
+        np.testing.assert_array_equal(_stack(got_t, grid), got_j)
+
+
+def test_plans_per_field_widths_and_rows(cube):
+    """The atom stage's plan moves r, p and gid in 16-byte vectors (4
+    words) at A = 16, f32 and f64, and the counts ([B]) in single words;
+    both directions sit in one plan; the fill's plan keeps each stage's
+    face rows, the field's vector width and its launch grid."""
+    sim, _jg, _m, _st, _grid = cube
+    h = _halo(sim, sim.plan)
+    B, S = sim.geom.n_total, sim.mesh.size
+    for dtype in (torch.float32, torch.float64):
+        fields = [((3, B, 16), dtype), ((3, B, 16), dtype),
+                  ((B, 16), torch.int32), ((B,), torch.int32)]
+        plan = PushPlan([(h.atom_send[0][1], h.plus[0]),
+                         (h.atom_send[0][0], h.minus[0])], fields, "cpu")
+        n = h.atom_send[0][0].numel()
+        assert [f.vec_bytes // 4 for f in plan.fields] == [4, 4, 4, 1]
+        assert [f.row_vecs for f in plan.fields] == \
+            [16 * dtype.itemsize // 16] * 2 + [4, 1]
+        assert [f.lg for f in plan.fields] == \
+            [2 if dtype == torch.float32 else 3] * 2 + [2, 0]
+        assert [f.out_shape for f in plan.fields] == [
+            (2, S, 3, n, 16), (2, S, 3, n, 16), (2, S, n, 16), (2, S, n)]
+        assert len(plan.dirs) == 2 and plan.n_rows == n
+        assert [d[1] for d in plan.dirs] == [list(h.plus[0]),
+                                             list(h.minus[0])]
+    x0 = torch.zeros((B, 48), dtype=torch.float64)
+    fp = ki_comm.fill_plan(h, x0)
+    assert fp.n_rows == [h.force_send[a][0].numel() for a in range(3)]
+    assert all(len(dirs) == 2 for dirs in fp.stages)
+    assert (fp.vec, fp.row_vecs, fp.vec_lg, fp.elem_lg) == (16, 24, 5, 5)
+    # a warp a row: 8 rows a block, z (the widest stage) sets the grid
+    assert fp.grid == (-(-fp.n_rows[2] // 8), 2 * S)
+    assert fp.rho_rows <= sim.geom.n_local
+    assert ki_comm.fill_plan(h, x0.float()) is not fp
+    assert ki_comm.atom_plan(h, 1, [[torch.zeros(3, B, 48)]]) is \
+        ki_comm.atom_plan(h, 1, [[torch.zeros(3, B, 48)]])
+
+
+def test_plans_refuse_what_the_kernels_cannot_take(cube):
+    sim, _jg, _m, _st, _grid = cube
+    h = _halo(sim, sim.plan)
+    B, S = sim.geom.n_total, sim.mesh.size
+    send, ring = h.atom_send[0][0], h.minus[0]
+    good = [((B, 16), torch.float32)]
+    for fields, match in (
+            ([((B, 16), torch.int16)], "4- or 8-byte"),
+            ([((B, 16), torch.bool)], "4- or 8-byte"),
+            ([((2, 3, B, 16), torch.float32)], r"\[P, B, A\]"),
+            ([((B, 16), torch.float32), ((B + 1,), torch.int32)],
+             "differ in rows"),
+            (good * 5, "1 to 4 fields")):
+        with pytest.raises(ValueError, match=match):
+            PushPlan([(send, ring)], fields, "cpu")
+    for dirs, match in (
+            ([(send, ring)] * 3, "1 or 2 directions"),
+            ([(send, ring), (send[:-1].clone(), ring)], "different rows"),
+            ([(send.long(), ring)], "int32"),
+            ([(send, [0] * S)], "permutation"),
+            ([(send + B, ring)], "outside"),
+            ([(send, list(range(65)))], "1 to 64 shards")):
+        with pytest.raises(ValueError, match=match):
+            PushPlan(dirs, good, "cpu")
+    st = [(h.force_send[0][0], h.force_recv[0][1], h.minus[0])]
+    for stages, shape, dtype, match in (
+            ([st] * 4, (B, 16), torch.float32, "1 to 3 stages"),
+            ([st], (B, 16, 1), torch.float32, r"\[B, A\]"),
+            ([st], (B, 16), torch.int16, "4- or 8-byte"),
+            ([st], (B, 5), torch.int16, "4- or 8-byte"),
+            ([[(h.force_send[0][0], h.force_recv[1][1], h.minus[0])]],
+             (B, 16), torch.float32, "differ in length"),
+            ([st, st + st], (B, 16), torch.float32, "same 1 or 2")):
+        with pytest.raises(ValueError, match=match):
+            FillPlan(stages, shape, dtype, "cpu")
+    assert cm._lanes_lg(1) == 0 and cm._lanes_lg(4) == 2
+    assert cm._lanes_lg(5) == 3 and cm._lanes_lg(24) == 5
+    assert cm._lanes_lg(100) == 5

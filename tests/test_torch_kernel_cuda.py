@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain versions: the
-cell-stencil kernels (K1, K2), the halo push kernels (K3, K4) and the
-archive probes' kernels (P1-P6: window_pair, row_lookup, lane_lookup).
+cell-stencil kernels (K1, K2), the halo kernels (the dfEmbed fill, K3's
+and K4's functions in one launch; the atom stage push, K3) and the archive
+probes' kernels (P1-P6: window_pair, row_lookup, lane_lookup).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -13,11 +14,13 @@ order, K2 with atomics in an order that changes from run to run); f64
 rtol 1e-12 (forces also atol 1e-12 * max|f|).  K2's outputs are compared
 dense and unfolded: kernel and plain version use the same half map.  K1
 adds each atom's pairs in one fixed order, so two launches on the same
-inputs must give the same bits.  K3
-and K4 only move and evaluate values, so they are held bit for bit (K4
-against pass 2's own F' at the same rows), and a sharded run gives the
-same bits under every transport.
+inputs must give the same bits.  The
+halo kernels only move and evaluate values, so they are held bit for bit
+(K4 against pass 2's own F' at the same rows), a fill is one launch and an
+atom exchange three, and a sharded run gives the same bits under every
+transport.
 """
+import dataclasses
 import os
 
 import numpy as np
@@ -30,6 +33,7 @@ from comd_tpu_torch.ops import binning
 from comd_tpu_torch.ops.cuda import comm as cm
 from comd_tpu_torch.ops.cuda import probe as cuda_probe
 from comd_tpu_torch.ops.cuda import stencil as st
+from comd_tpu_torch.parallel import ki_comm
 from comd_tpu_torch.probes import lookup, window
 
 POTS = os.path.join(os.path.dirname(os.path.dirname(
@@ -323,10 +327,17 @@ TRAJ = dict(nx=6, ny=6, nz=6, doeam=True, temperature=600.0,
             initial_delta=0.8, pot_dir=POTS, **MESH)
 
 
-def _mesh_sim(dtype, **kw):
-    sim = init_simulation(Config(nx=8, ny=8, nz=8, doeam=True,
+# the exchange tests' meshes: (box, mesh); on 3x2x1 the z ring is the
+# shard itself
+MESHES = {"2x2x2": ((8, 8, 8), MESH),
+          "3x2x1": ((9, 6, 6), dict(xproc=3, yproc=2, zproc=1))}
+
+
+def _mesh_sim(dtype, mesh="2x2x2", **kw):
+    box, grid = MESHES[mesh]
+    sim = init_simulation(Config(nx=box[0], ny=box[1], nz=box[2], doeam=True,
                                  temperature=600.0, dtype=dtype,
-                                 pot_dir=POTS, device="cuda", **MESH, **kw))
+                                 pot_dir=POTS, device="cuda", **grid, **kw))
     sim.step_block(5)
     return sim
 
@@ -335,41 +346,78 @@ def _equal(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+@pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-def test_ring_push_matches_plain(cuda_device, dtype):
-    """K3: the six dfEmbed pushes of the staged exchange, in order, and the
-    six atom messages (r, p, gid, counts), bit for bit."""
-    sim = _mesh_sim(dtype, comm_impl="ki")
+def test_ring_push_matches_plain(cuda_device, dtype, mesh):
+    """K3: the atom message of every stage (r, p, gid, counts; both
+    directions in one launch, each field at its own vector width), bit for
+    bit, three launches for the three stages."""
+    sim = _mesh_sim(dtype, mesh, comm_impl="ki")
     h = sim.halo
-    torch.manual_seed(0)
-    a = [torch.randn(s.gid.shape, dtype=sim.dtype, device=cuda_device)
-         for s in sim.states]
-    b = [v.clone() for v in a]
-    st.reset_launch_counts()
-    for axis in range(3):
-        (s_m, s_p), (r_m, r_p) = h.force_send[axis], h.force_recv[axis]
-        for to, send, recv in ((h.minus[axis], s_m, r_p),
-                               (h.plus[axis], s_p, r_m)):
-            cm.ring_push([(a, a)], to, send, recv)
-            cm.ring_push_plain([(b, b)], to, send, recv)
-            assert _equal(a, b)
     fields = [[getattr(s, k) for s in sim.states]
               for k in ("r", "p", "gid", "n_atoms")]
+    st.reset_launch_counts()
     for axis in range(3):
-        for d, to in ((0, h.minus[axis]), (1, h.plus[axis])):
-            ids = h.atom_send[axis][d]
-            outs = []
-            for fn in (cm.ring_push, cm.ring_push_plain):
-                buf = [[f[0].new_zeros(
-                    (3, ids.numel(), f[0].shape[2]) if f[0].dim() == 3
-                    else (ids.numel(),) + tuple(f[0].shape[1:]))
-                    for _ in f] for f in fields]
-                fn(list(zip(fields, buf)), to, ids)
-                outs.append(buf)
-            for fk, fp in zip(*outs):
-                assert _equal(fk, fp)
-            assert outs[0][2][0].ne(0).any()          # gids arrived
-    assert st.LAUNCHES["ring_push"] == 12
+        plan = ki_comm.atom_plan(h, axis, fields)
+        assert [f.vec_bytes for f in plan.fields] == [16, 16, 16, 4]
+        got = cm.ring_push(plan, fields)
+        want = cm.ring_push_plain(plan, fields)
+        assert _equal(got, want)
+        assert got[2].ne(0).any()                     # gids arrived
+    assert st.LAUNCHES["ring_push"] == 3
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["ki", "ki_fused"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_halo_fill_matches_plain(cuda_device, dtype, mesh, fused):
+    """The dfEmbed fill in one launch (stages x, y, z; with ``fused`` the
+    x stage evaluates F'(rhobar), K4) against its plain version, bit for
+    bit, on a field whose local rows pass 2 filled and whose halo rows hold
+    noise: every halo row is written."""
+    sim = _mesh_sim(dtype, mesh, comm_impl="ki_fused" if fused else "ki")
+    h, nl = sim.halo, sim.geom.n_local
+    rhobar = [st.eam_pass1(s.r, sim.maps.nbr_map, sim.pair_eval,
+                           want_energy=False)[2] for s in sim.states]
+    torch.manual_seed(1)
+    x = []
+    for s, rho in zip(sim.states, rhobar):
+        d = torch.randn(s.gid.shape, dtype=sim.dtype, device=cuda_device)
+        d[:nl] = sim.f_eval(rho)[1]
+        x.append(d)
+    extra = (rhobar, sim.f_eval) if fused else ()
+    plan = ki_comm.fill_plan(h, x[0])
+    st.reset_launch_counts()
+    a = cm.halo_fill(plan, [v.clone() for v in x], *extra)
+    b = cm.halo_fill_plain(plan, [v.clone() for v in x], *extra)
+    assert st.LAUNCHES["halo_fill"] == 1
+    assert _equal(a, b)
+    assert all((v[nl:] != w[nl:]).all() for v, w in zip(a, x))
+
+
+def test_comm_kernels_refuse_what_they_do_not_take(cuda_device):
+    """A call hands the kernels only tensors of its plan's shape, dtype and
+    device, at the plan's alignment."""
+    sim = _mesh_sim("float32")
+    h, states = sim.halo, sim.states
+    x = [torch.zeros_like(s.gid, dtype=torch.float32) for s in states]
+    plan = ki_comm.fill_plan(h, x[0])
+    with pytest.raises(ValueError, match="expected contiguous"):
+        cm.halo_fill(plan, x[:-1] + [x[-1][:, :-1]])
+    with pytest.raises(ValueError, match="shards"):
+        cm.halo_fill(plan, x[:-1])
+    fields = [[getattr(s, k) for s in states]
+              for k in ("r", "p", "gid", "n_atoms")]
+    aplan = ki_comm.atom_plan(h, 0, fields)
+    flat = torch.zeros(states[0].gid.numel() + 1, dtype=torch.int32,
+                       device=cuda_device)
+    gid = fields[2][:-1] + [flat[1:].view(states[0].gid.shape)]
+    with pytest.raises(ValueError, match="aligned"):
+        cm.ring_push(aplan, fields[:2] + [gid] + fields[3:])
+    with pytest.raises(ValueError, match="fused fill"):
+        cm.halo_fill(plan, x, [s.r[0] for s in states],
+                     dataclasses.replace(sim.f_eval,
+                                         table=sim.f_eval.table.double()))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -391,18 +439,23 @@ def test_pass2_push_matches_pass2(cuda_device, dtype):
         ref = [sim.f_eval(rho)[1][send] for rho in rhobar]
         assert _equal(local, ref) and _equal(plain, ref) and _equal(a, b)
         assert all(v[recv].ne(0).all() for v in a)
-    assert st.LAUNCHES["pass2_push"] == 2
+    assert st.LAUNCHES["halo_fill"] == 2
 
 
 @pytest.mark.parametrize("comm_impl", ["ki", "ki_fused"])
 def test_transports_bit_equal_on_card(cuda_device, comm_impl):
     """Eager f64 steps (an atom exchange every step) on the full-shell K1,
-    whose sums are deterministic: K3/K4 give the collective run's bits."""
+    whose sums are deterministic: the halo kernels give the collective
+    run's bits, with one fill launch and three atom-stage launches a
+    step."""
     sims = []
     for ci in ("collective", comm_impl):
         sim = init_simulation(Config(dtype="float64", lazy_shell=False,
                                      comm_impl=ci, device="cuda", **TRAJ))
+        st.reset_launch_counts()
         sim.step_block(5)
+        assert (st.LAUNCHES["halo_fill"], st.LAUNCHES["ring_push"]) == (
+            (0, 0) if ci == "collective" else (5, 15))
         sims.append(sim)
     assert sims[1].e_potential == sims[0].e_potential
     for x, y in zip(*[s.states for s in sims]):
