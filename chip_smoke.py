@@ -69,16 +69,19 @@ the first error:
  13. probes   -- the archive probes through their commands
                  (comd_tpu_torch.probes.window P1, P2, P3, P3 --lj;
                  .lookup P4, P5, P6), then window_pair against its plain
-                 version (P1, P2, P3 EAM and LJ at the probes' shapes and
-                 P3 at 72 chunks, 509.6M pairs ~ one K1 pass of phase 5:
-                 each element within 1e-5 of the sum of its terms'
-                 magnitudes and each output within 1e-5 of its largest
-                 value, all finite) and row_lookup / lane_lookup bit for
-                 bit at scale 1e-12 and 1, also on tables whose columns
-                 differ; times beside plain versions and bounds (flops
-                 the function needs: r2 on every pair, the pair function
-                 on the pairs inside the cutoff), the 72-chunk time per
-                 pair beside K1's pass 1.
+                 version (P1, P2, P3 EAM and LJ at the probes' shapes, P3
+                 at 72 chunks, 509.6M pairs ~ one K1 pass of phase 5, and
+                 P3 on a dense input whose lists drain many times: each
+                 element within 1e-5 of the sum of its terms' magnitudes
+                 and each output within 1e-5 of its largest value, all
+                 finite, two launches the same bits) and row_lookup /
+                 lane_lookup bit for bit at scale 1e-12 and 1, also on
+                 tables whose columns differ; times (CUDA events, host ms
+                 a call, device ms under torch.profiler) beside plain
+                 versions and bounds (flops the function needs: r2 on
+                 every pair, the pair function on the pairs inside the
+                 cutoff), window_pair's launch plan, the 72-chunk time per
+                 pair and list lengths beside K1's pass 1.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch, numpy and comd_tpu_torch only; builds
@@ -493,10 +496,17 @@ def push_bound(plan) -> tuple:
     return 1e3 * nbytes / PEAK_BYTES, "bytes"
 
 
-def host_and_device_ms(fn, reps: int = 20) -> tuple:
+def host_and_device_ms(fn, reps: int = 20, kernels_per_call: int = None
+                       ) -> tuple:
     """(host ms, device ms) of one call of fn: the host's wall clock a call
     over ``reps`` calls (the device runs behind), and the device's kernel
-    time a call under torch.profiler (the sum of its kernels' durations)."""
+    time a call under torch.profiler (the sum of its kernels' durations).
+
+    torch.profiler at times keeps fewer kernel records than were launched
+    (on an H100: 8 of 20), which makes that sum short.  Given
+    ``kernels_per_call``, the device time is that many times the mean
+    duration of the records kept, profiled again (three times at most)
+    while fewer than the launches come back."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -506,16 +516,27 @@ def host_and_device_ms(fn, reps: int = 20) -> tuple:
     for _ in range(reps):
         fn()
     host = 1e3 * (time.perf_counter() - t0) / reps
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "Loading" not in e.key)
-    return host, us / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and "Loading" not in e.key]
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in kernels)
+        if kernels_per_call is None:
+            return host, us / 1e3 / reps
+        n = sum(e.count for e in kernels)
+        if n >= kernels_per_call * reps:
+            break
+    if n == 0:
+        raise RuntimeError("torch.profiler kept no kernel record in three "
+                           "runs")
+    return host, kernels_per_call * us / n / 1e3
 
 
 def window_bound(sp, n_cols: int, row_len: int, n_close: int) -> tuple:
@@ -563,16 +584,21 @@ def lookup_bound(x, tab, flops_per_value: int) -> tuple:
 def run_probes(k1_pass1: tuple) -> dict:
     """Phase 13: the probe commands P1-P6 with the launch counts zeroed
     just before and read just after; then each kernel against its plain
-    version at the probes' own shapes (window_pair: every element within
-    1e-5 of its own scale, the sum of its terms' magnitudes, and every
-    output within 1e-5 of its largest value, all finite; the lookups bit
-    for bit at scale 1e-12 and 1, on the probes' tables and on tables
-    whose columns differ); times beside plain versions and bounds; P3's
-    physics at 72 chunks beside K1's pass 1 (``k1_pass1``: ms, slot pairs,
-    occupied candidate pairs, flops the function needs).
+    version at the probes' own shapes and, for window_pair, on a dense
+    input whose lists drain many times (every element within 1e-5 of its
+    own scale, the sum of its terms' magnitudes, and every output within
+    1e-5 of its largest value, all finite, two launches the same bits; the
+    lookups bit for bit at scale 1e-12 and 1, on the probes' tables and on
+    tables whose columns differ); times (CUDA events, the host's time a
+    call, the device's under torch.profiler, a mean over the kernel
+    records it keeps) beside plain versions and
+    bounds, with window_pair's launch plan; P3's physics at 72 chunks
+    beside K1's pass 1 (``k1_pass1``: ms, slot pairs, occupied candidate
+    pairs, flops the function needs), with the kernel's list lengths.
     Returns the three kernels-line rows."""
     import numpy as np
     import torch
+    from comd_tpu_torch.ops.cuda import probe as pr
     from comd_tpu_torch.ops.cuda import stencil as st
     from comd_tpu_torch.probes import lookup, time_ms, window
     st.reset_launch_counts()
@@ -585,48 +611,80 @@ def run_probes(k1_pass1: tuple) -> dict:
         check(n > 0, f"probes: {k} launched {n} times by the commands")
     say("probes", f"launches in the probe commands' run: {launches}")
 
-    timed = {}
-    for sp, chunks in ((window.P1, None), (window.P2, None),
-                       (window.P3, None), (window.P3_LJ, None),
-                       (window.P3, 72), (window.P3_LJ, 72)):
+    timed, lists = {}, {}
+    dense = np.random.RandomState(5)
+    for sp, chunks, span in ((window.P1, None, None),
+                             (window.P2, None, None),
+                             (window.P3, None, None),
+                             (window.P3_LJ, None, None),
+                             (window.P3, 72, None), (window.P3_LJ, 72, None),
+                             (window.P3, None, 10.0)):
         probe = int(sp.name[1])
-        rp = torch.from_numpy(window.make_inputs(probe, chunks)).cuda()
+        rp = window.make_inputs(probe, chunks)
+        if span is not None:     # most pairs inside the cutoff
+            rp = dense.uniform(0, span, rp.shape).astype(np.float32)
+        rp = torch.from_numpy(rp).cuda()
         got = window.window_pair(rp, sp)
+        again = window.window_pair(rp, sp)
         want = window.window_pair_plain(rp, sp)
         scale = window.window_pair_magnitude(rp, sp)
         n_close = window.n_in_cutoff(rp, sp)
+        n_cols = got[0].shape[1]
+        tag = f"{sp.name} {n_cols // window.CHUNK} chunks" + (
+            f" dense (span {span:g})" if span is not None else "")
         check(all(bool(torch.isfinite(t).all()) for t in got + want),
-              f"window_pair {sp.name}: non-finite sums")
+              f"window_pair {tag}: non-finite sums")
         rel = max(norm_rel(a, b) for a, b in zip(got, want))
         elem = window.element_error(got, want, scale)
         err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-        n_cols = got[0].shape[1]
-        tag = f"{sp.name} {n_cols // window.CHUNK} chunks"
         check(rel <= 1e-5 and elem <= 1e-5,
               f"window_pair {tag}: max|a-b|/max|b| {rel:.3e}, max|a-b|/S "
               f"{elem:.3e}")
-        del got, want, scale
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"window_pair {tag}: two launches differ")
+        plan = pr.card_window_plan(rp.device.index, sp, rp.shape[1],
+                                   rp.shape[2], n_cols)
+        if chunks == 72 and sp is window.P3:
+            # entries a lane lists over its walk (its column's i-slot,
+            # over its offset group); P3 LJ has the same positions
+            per = window.in_cutoff_counts(rp, sp).split(plan.group)
+            per = torch.stack([c.sum(0) for c in per]).float()
+            lists = {"mean": float(per.mean()), "max": int(per.max())}
+        del got, again, want, scale
         ms = time_ms(lambda: window.window_pair(rp, sp), 20)
+        host, dev = host_and_device_ms(lambda: window.window_pair(rp, sp),
+                                       kernels_per_call=1)
         plain_ms = time_ms(lambda: window.window_pair_plain(rp, sp), 2)
         b_ms, b_by, flops = window_bound(sp, n_cols, rp.shape[2], n_close)
         pairs = window.n_pairs(sp, n_cols)
+        occ = pr.occupancy(rp.device.index, "window_pair", plan.threads,
+                           physics=plan.physics, counts=plan.counts)
         say("timing", f"window_pair {tag} ({pairs:,} pairs, {n_close:,} "
-            f"inside the cutoff): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms; bound {b_ms:.4f} ms ({b_by}); {pairs / ms / 1e6:.2f} "
-            f"Gpairs/s, {flops / ms / 1e9:.3f} TFLOP/s needed; max|a-b|/S "
-            f"{elem:.2e}, max|a-b|/max|b| {rel:.2e}")
-        timed[tag] = (err, ms, plain_ms, b_ms, b_by, pairs, flops)
+            f"inside the cutoff): kernel {ms:.4f} ms (CUDA events), host "
+            f"{host:.4f} ms a call, device {dev:.4f} ms (torch.profiler); "
+            f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
+            f"{1e9 * dev / pairs:.3f} ps a pair on the device, "
+            f"{flops / dev / 1e9:.3f} TFLOP/s needed; max|a-b|/S "
+            f"{elem:.2e}, max|a-b|/max|b| {rel:.2e}, two launches the same "
+            f"bits; plan: {plan.n_groups} offset groups of {plan.group}, "
+            f"{plan.cols_per_block} columns a block, {plan.threads} "
+            f"threads, {plan.blocks} blocks, {occ.smem_bytes} B shared, "
+            f"{occ.blocks_per_sm} blocks/SM")
+        timed[tag] = (err, ms, plain_ms, b_ms, b_by, pairs, flops, host, dev)
         del rp
     k1_ms, k1_slots, k1_cand, k1_flops = k1_pass1
     for name in ("P3", "P3 LJ"):
-        _e, ms, _p, _b, _by, pairs, flops = timed[f"{name} 72 chunks"]
+        _e, ms, _p, _b, _by, pairs, flops, _h, dev = \
+            timed[f"{name} 72 chunks"]
         say("probes", f"{name} at 72 chunks: {pairs:,} candidate pairs in "
-            f"{ms:.4f} ms = {1e9 * ms / pairs:.3f} ps a pair, "
-            f"{flops / ms / 1e9:.3f} TFLOP/s needed; K1 EAM pass 1 (phase "
-            f"5): {k1_slots:,} slot pairs ({k1_cand:,} occupied) in "
-            f"{k1_ms:.4f} ms = {1e9 * k1_ms / k1_slots:.3f} "
-            f"({1e9 * k1_ms / k1_cand:.3f}) ps a pair, "
-            f"{k1_flops / k1_ms / 1e9:.3f} TFLOP/s needed")
+            f"{ms:.4f} ms = {1e9 * ms / pairs:.3f} ps a pair (device "
+            f"{dev:.4f} ms, {1e9 * dev / pairs:.3f} ps), "
+            f"{flops / ms / 1e9:.3f} TFLOP/s needed; a lane lists "
+            f"{lists['mean']:.2f} pairs over its walk, at most "
+            f"{lists['max']}; K1 EAM pass 1 (phase 5): {k1_slots:,} slot "
+            f"pairs ({k1_cand:,} occupied) in {k1_ms:.4f} ms = "
+            f"{1e9 * k1_ms / k1_slots:.3f} ({1e9 * k1_ms / k1_cand:.3f}) ps "
+            f"a pair, {k1_flops / k1_ms / 1e9:.3f} TFLOP/s needed")
 
     rng = np.random.default_rng(7)
     x4, t4 = (torch.from_numpy(a).cuda() for a in lookup.make_inputs(4))
@@ -651,26 +709,33 @@ def run_probes(k1_pass1: tuple) -> dict:
         "against their plain versions at scale 1e-12 and 1, on the probes' "
         "tables and on tables whose columns differ")
 
-    e, ms, plain_ms, b_ms, b_by, _pairs, _fl = timed["P3 8 chunks"]
-    rows = {"window_pair": (e, ms, plain_ms, b_ms, b_by)}
+    e, ms, plain_ms, b_ms, b_by, _pairs, _fl, host, dev = timed[
+        "P3 8 chunks"]
+    rows = {"window_pair": (e, ms, plain_ms, b_ms, b_by, host, dev)}
     for key, fn, plain, x, tab, per in (
             ("row_lookup", lookup.row_lookup, lookup.row_lookup_plain, x4, t4,
              8),
             ("lane_lookup", lookup.lane_lookup, lookup.lane_lookup_plain, x5,
              t5, 4)):
         ms = time_ms(lambda: fn(x, tab), 20)
+        host, dev = host_and_device_ms(lambda: fn(x, tab),
+                                       kernels_per_call=1)
         plain_ms = time_ms(lambda: plain(x, tab), 20)
         b_ms, b_by = lookup_bound(x, tab, per)
-        say("timing", f"{key} {x.numel():,} lookups: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by}); "
-            f"{x.numel() / ms / 1e6:.2f} G lookups/s, "
-            f"{8 * x.numel() / ms / 1e9:.3f} TB/s of x and out")
-        rows[key] = (0.0, ms, plain_ms, b_ms, b_by)
+        say("timing", f"{key} {x.numel():,} lookups: kernel {ms:.4f} ms "
+            f"(CUDA events), host {host:.4f} ms a call, device {dev:.4f} ms "
+            f"(torch.profiler); plain {plain_ms:.4f} ms; bound {b_ms:.4f} "
+            f"ms ({b_by}), device at {b_ms / dev:.1%} of it; "
+            f"{x.numel() / dev / 1e6:.2f} G lookups/s, "
+            f"{8 * x.numel() / dev / 1e9:.3f} TB/s of x and out on the "
+            f"device")
+        rows[key] = (0.0, ms, plain_ms, b_ms, b_by, host, dev)
     return {k: {"name": k, "route": "cuda", "source": PROBE_SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-            for k, (e, ms, plain_ms, b_ms, b_by) in rows.items()}
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "host_ms": host, "device_ms": dev}
+            for k, (e, ms, plain_ms, b_ms, b_by, host, dev) in rows.items()}
 
 
 def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,

@@ -23,7 +23,8 @@ The constants are private copies of the archive's (nothing is imported
 from tools/).  ``window_pair`` runs csrc/probe.cu on CUDA tensors and the
 plain version on CPU tensors.  ``window_pair_magnitude`` gives each output
 element the scale its rounding error is held against, ``n_in_cutoff`` the
-pairs whose terms the sums need.
+pairs whose terms the sums need (``in_cutoff_counts`` per offset and
+output).
 
     python -m comd_tpu_torch.probes.window {1,2,3} [--lj] [--chunks N]
         [--reps N] [--device cuda|cpu]
@@ -228,6 +229,21 @@ def n_in_cutoff(rp: torch.Tensor, sp: WindowSpec, col_chunk: int = 2048
     for *_, r2 in _pair_blocks(rp, sp, col_chunk):
         n += _in_cutoff(sp, r2).sum()
     return int(n)
+
+
+def in_cutoff_counts(rp: torch.Tensor, sp: WindowSpec, col_chunk: int = 2048
+                     ) -> torch.Tensor:
+    """[offsets, A, D] int32: per offset and output, the j-slots inside the
+    cutoff (what the kernel lists for that output and offset)."""
+    A = rp.shape[1]
+    D = n_columns(sp, rp.shape[2])
+    out = torch.zeros((len(sp.offsets), A, D), dtype=torch.int32,
+                      device=rp.device)
+    k = 0
+    for c0, c1, _dx, r2 in _pair_blocks(rp, sp, col_chunk):
+        out[k, :, c0:c1] = _in_cutoff(sp, r2).sum(1, dtype=torch.int32)
+        k = (k + 1) % len(sp.offsets)
+    return out
 
 
 def element_error(got, want, scale) -> float:

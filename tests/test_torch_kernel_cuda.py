@@ -463,27 +463,79 @@ def test_transports_bit_equal_on_card(cuda_device, comm_impl):
             assert torch.equal(getattr(x, k), getattr(y, k)), k
 
 
+def _hold_window(got, want, scale, n_cols):
+    """The window kernel's sums against the plain version's first
+    ``n_cols`` columns (another summation order, FMA contraction in the
+    Clenshaw chains): every element within 1e-5 of the sum of its terms'
+    magnitudes, every output within 1e-5 of its largest value, all finite."""
+    want = [b[:, :n_cols] for b in want]
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == (window.SLOTS, n_cols)
+        assert bool(torch.isfinite(a).all())
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+    assert window.element_error(
+        got, want, [s[:, :n_cols] for s in scale]) <= 1e-5
+
+
+def _same_bits(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 @pytest.mark.parametrize("probe,lj,chunks", [(1, False, 2), (2, False, 1),
                                              (3, False, 2), (3, True, 2)])
 def test_window_pair_matches_plain(cuda_device, probe, lj, chunks):
     """The probes' window kernel (P1, P2, P3 EAM and LJ) against its plain
-    version (another summation order, FMA contraction in the Clenshaw
-    chains): every element within 1e-5 of the sum of its terms'
-    magnitudes, every output within 1e-5 of its largest value, all values
-    finite."""
+    version; one launch a call, and two launches give the same bits (each
+    output's terms are summed in one fixed order)."""
     sp = window.spec(probe, lj)
     rp = torch.from_numpy(window.make_inputs(probe, chunks)).to(cuda_device)
     st.reset_launch_counts()
     got = window.window_pair(rp, sp)
-    want = window.window_pair_plain(rp, sp)
-    assert len(got) == len(want) == sp.n_out
-    for a, b in zip(got, want):
-        assert a.shape == (window.SLOTS, chunks * window.CHUNK)
-        assert bool(torch.isfinite(a).all())
-        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
-    assert window.element_error(
-        got, want, window.window_pair_magnitude(rp, sp)) <= 1e-5
     assert st.LAUNCHES["window_pair"] == 1
+    again = window.window_pair(rp, sp)
+    assert len(got) == sp.n_out
+    _hold_window(got, window.window_pair_plain(rp, sp),
+                 window.window_pair_magnitude(rp, sp), chunks * window.CHUNK)
+    assert _same_bits(got, again)
+    assert st.LAUNCHES["window_pair"] == 2
+
+
+@pytest.mark.parametrize("probe,span", [(1, 8.0), (2, 10.0), (3, 10.0)])
+def test_window_pair_dense_input(cuda_device, probe, span):
+    """Positions in a small box put most candidate pairs inside the cutoff
+    (against ~1% at the probes' own), so every lane's list fills and each
+    warp drains many times in its walk: the same checks and the same bits
+    on two launches."""
+    sp = window.spec(probe)
+    L = window.make_inputs(probe, 2).shape[2]
+    rng = np.random.RandomState(5)
+    rp = torch.from_numpy(rng.uniform(0, span, (3, window.SLOTS, L)).astype(
+        np.float32)).to(cuda_device)
+    D = window.n_columns(sp, L)
+    assert window.n_in_cutoff(rp, sp) > 0.3 * window.n_pairs(sp, D)
+    got = window.window_pair(rp, sp)
+    _hold_window(got, window.window_pair_plain(rp, sp),
+                 window.window_pair_magnitude(rp, sp), D)
+    assert _same_bits(got, window.window_pair(rp, sp))
+
+
+@pytest.mark.parametrize("probe,lj,chunks,n_cols", [
+    (1, False, 4, 1021), (3, False, 8, 2045), (3, True, 1, 253),
+    (2, False, 1, 1)])
+def test_window_pair_ragged_columns(cuda_device, probe, lj, chunks, n_cols):
+    """A column count that is not a multiple of the plan's columns a block
+    (P1 at 4 chunks: 2 a block, 4 offset groups; P3 at 8: 4 a block, 2
+    groups; 253 and 1 columns: 1 a block, up to 8 groups)."""
+    sp = window.spec(probe, lj)
+    rp = torch.from_numpy(window.make_inputs(probe, chunks)).to(cuda_device)
+    plan = cuda_probe.card_window_plan(rp.device.index, sp, window.SLOTS,
+                                       rp.shape[2], n_cols)
+    assert n_cols % plan.cols_per_block or plan.cols_per_block == 1
+    got = cuda_probe.window_pair(rp, sp, n_cols)
+    _hold_window(got, window.window_pair_plain(rp, sp),
+                 window.window_pair_magnitude(rp, sp), n_cols)
+    assert _same_bits(got, cuda_probe.window_pair(rp, sp, n_cols))
 
 
 @pytest.mark.parametrize("scale", [lookup.SCALE, 1.0])
@@ -491,14 +543,15 @@ def test_lookups_match_plain_bitwise(cuda_device, scale):
     """P4's row lookup and P5's (= P6's) lane lookup against their plain
     versions bit for bit: the probes' tables and tables whose columns
     differ, an x length off the float4 width, 64 lanes (two column
-    slices), indices past the table."""
+    slices), indices past the table, x of one row and of a row count off
+    the kernels' steps."""
     rng = np.random.default_rng(3)
     x4, t4 = (torch.from_numpy(a).to(cuda_device)
               for a in lookup.make_inputs(4, 1 << 16))
     t4b = torch.from_numpy(rng.normal(size=(512, 4)).astype(np.float32)
                            ).to(cuda_device)
     st.reset_launch_counts()
-    for x in (x4, x4[:1001], x4 * 1.1 - 20.0):
+    for x in (x4, x4[:1001], x4 * 1.1 - 20.0, x4[:1], x4[:4 * 1003]):
         for tab in (t4, t4b):
             assert torch.equal(lookup.row_lookup(x, tab, scale),
                                lookup.row_lookup_plain(x, tab, scale))
@@ -508,11 +561,12 @@ def test_lookups_match_plain_bitwise(cuda_device, scale):
                            ).to(cuda_device)
     for x, tab in ((x5, t5), (x5, t5b), (x5[:, :64].contiguous(),
                                          t5b[:, :64].contiguous()),
-                   (x5 * 1.1 - 20.0, t5b)):
+                   (x5 * 1.1 - 20.0, t5b), (x5[:1], t5b), (x5[:317], t5b)):
         got = lookup.lane_lookup(x, tab, scale)
         assert torch.equal(got, lookup.lane_lookup_plain(x, tab, scale))
         assert torch.equal(lookup.onehot_lookup(x, tab, scale), got)
-    assert (st.LAUNCHES["row_lookup"], st.LAUNCHES["lane_lookup"]) == (6, 8)
+    assert (st.LAUNCHES["row_lookup"], st.LAUNCHES["lane_lookup"]) == (10,
+                                                                       12)
 
 
 def test_probe_kernels_refuse_what_they_do_not_take(cuda_device):

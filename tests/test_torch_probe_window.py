@@ -191,3 +191,108 @@ def test_magnitude_and_pairs_in_cutoff(probe, lj):
         n += int(((r2 <= sp.rcut2) & (r2 > 0)).sum())
     assert window.n_in_cutoff(t, sp, col_chunk=100) == n
     assert 0 < n < window.n_pairs(sp, D) // 50
+
+
+# --------------------------------------------------------------------------
+# the window kernel's launch plan (ops/cuda/probe.py), made on the host
+# --------------------------------------------------------------------------
+
+H100_WARPS = 132 * 32    # window warps an H100 holds: 4 blocks of 8 an SM
+
+
+@pytest.mark.parametrize("probe,lj,chunks,n_cols,resident", [
+    (1, False, 1, 256, H100_WARPS), (2, False, 1, 256, H100_WARPS),
+    (3, False, 1, 253, H100_WARPS), (3, True, 1, 61, 10 ** 6),
+    (3, False, 1, 256, 1), (1, False, 1, 7, 40), (3, False, 2, 509, 900)])
+def test_window_plan_covers_every_pair_once(probe, lj, chunks, n_cols,
+                                            resident):
+    """The warps of the plan, as the kernel computes their work, cover
+    every (i-slot, column, offset, j-slot) exactly once: lanes are the
+    i-slots, each warp walks all A j-slots of its offsets, and the
+    columns' offset groups partition the offsets."""
+    sp = window.spec(probe, lj)
+    rp = window.make_inputs(probe, chunks)
+    A, L = rp.shape[1], rp.shape[2]
+    plan = cuda_probe.window_plan(sp, A, L, n_cols, resident)
+    assert plan.n_slots == A <= 32 and plan.warps <= cuda_probe.WINDOW_WARPS
+    assert plan.threads == 32 * plan.warps
+    K = len(sp.offsets)
+    seen = np.zeros((A, n_cols, K, A), np.int32)
+    for block in range(plan.blocks):
+        for warp in range(plan.warps):
+            work = plan.warp_work(block, warp)
+            if work is not None:
+                c, k0, k1 = work
+                seen[:, c, k0:k1, :] += 1
+    assert (seen == 1).all()
+    assert plan.warp_work(plan.blocks, 0) is None
+
+
+@pytest.mark.parametrize("n_offsets,n_cols,resident,want", [
+    (8, 1024, H100_WARPS, (2, 4, 2)),      # P1 at 4 chunks
+    (27, 2048, H100_WARPS, (14, 2, 4)),    # P2, P3 at 8 chunks
+    (27, 18432, H100_WARPS, (27, 1, 8)),   # P3 at 72 chunks
+    (27, 10, 10 ** 6, (4, 7, 1)),          # as many groups as a block takes
+    (8, 10, 10 ** 6, (1, 8, 1)), (1, 5, 10 ** 6, (1, 1, 8))])
+def test_split_offsets(n_offsets, n_cols, resident, want):
+    """The fewest offset groups that fill about one wave of the card, no
+    group empty, at most 8 warps a block."""
+    group, n_groups, cpb = cuda_probe.split_offsets(n_offsets, n_cols,
+                                                    resident)
+    assert (group, n_groups, cpb) == want
+    assert group * n_groups >= n_offsets > group * (n_groups - 1)
+    assert cpb * n_groups <= cuda_probe.WINDOW_WARPS
+
+
+@pytest.mark.parametrize("probe,lj", [(1, False), (2, False), (3, True)])
+def test_window_plan_made_once(probe, lj):
+    """A plan is made once per spec and shape: the cached plan is the same
+    object on every call, equals a fresh one, and carries the same kernel
+    parameters (offsets, coefficients, split)."""
+    sp = window.spec(probe, lj)
+    L = window.make_inputs(probe, 2).shape[2]
+    D = window.n_columns(sp, L)
+    plan = cuda_probe.window_plan(sp, 32, L, D, H100_WARPS)
+    assert cuda_probe.window_plan(sp, 32, L, D, H100_WARPS) is plan
+    fresh = cuda_probe.window_plan.__wrapped__(sp, 32, L, D, H100_WARPS)
+    assert fresh == plan and fresh is not plan
+    assert bytes(fresh.params) == bytes(plan.params)
+    p = plan.params
+    assert (p.n_slots, p.row_len, p.n_cols, p.pad, p.n_offsets) == (
+        32, L, D, sp.pad, len(sp.offsets))
+    assert (p.group, p.n_groups, p.cols_per_block) == (
+        plan.group, plan.n_groups, plan.cols_per_block)
+    assert list(p.offsets)[:len(sp.offsets)] == list(sp.offsets)
+    assert list(p.phi)[:len(sp.phi)] == list(sp.phi)
+    assert np.float32(p.rcut2) == np.float32(sp.rcut2)
+
+
+def test_window_plan_refuses_what_the_kernel_does_not_take():
+    sp = window.P3
+    L = window.make_inputs(3, 1).shape[2]
+    with pytest.raises(ValueError, match="slots"):
+        cuda_probe.window_plan(sp, 33, L, 256, H100_WARPS)
+    with pytest.raises(ValueError, match="fit"):
+        cuda_probe.window_plan(sp, 32, L, L, H100_WARPS)
+    with pytest.raises(ValueError, match="Clenshaw"):
+        cuda_probe.window_plan(dataclasses.replace(sp, rho=sp.rho[:5]), 32,
+                               L, 256, H100_WARPS)
+
+
+@pytest.mark.parametrize("probe", [1, 3])
+def test_in_cutoff_counts(probe):
+    """Per offset and output the pairs inside the cutoff; they add up to
+    n_in_cutoff."""
+    sp = window.spec(probe)
+    t = torch.from_numpy(window.make_inputs(probe, 1))
+    counts = window.in_cutoff_counts(t, sp, col_chunk=100)
+    assert counts.shape == (len(sp.offsets), 32, window.n_columns(
+        sp, t.shape[2]))
+    assert int(counts.sum()) == window.n_in_cutoff(t, sp)
+    d = sp.offsets.index(0)          # offset 0: the pair (a, a) has r2 = 0
+    rp = t.numpy()
+    ri = rp[:, :, sp.pad:sp.pad + 5]
+    dr = ri[:, :, None] - ri[:, None]
+    r2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
+    want = ((r2 <= sp.rcut2) & (r2 > 0)).sum(1)
+    assert (counts[d, :, :5].numpy() == want).all()
