@@ -82,10 +82,29 @@ the first error:
                  every pair, the pair function on the pairs inside the
                  cutoff), window_pair's launch plan, the 72-chunk time per
                  pair and list lengths beside K1's pass 1.
+ 14. nl       -- the Verlet-list kernels (csrc/nl.cu) against their plain
+                 versions on thermalized 10^3 states, EAM and LJ,
+                 f32/Chebyshev and f64/table: NL1 lists, counts and
+                 overflow bit for bit (also with K = 8, which must
+                 overflow), NL2 EAM passes 1 (with and without energy) and
+                 3 and LJ at phase 6's tolerances, two launches the same
+                 bits; the Adams golden at 6^3 f64 through -m
+                 thread_atom_nl; the 63^3 EAM -m thread_atom_nl and LJ -L
+                 headlines (run_main's checks, NL2 twice (EAM) or once (LJ)
+                 a force, one NL1 launch a build, builds counted), NL1/NL2
+                 at that state against their plain versions, times beside
+                 the plain versions and bounds, ms/step beside phases 5 and
+                 9; the EAM NL headline on a 2x2x2 mesh under ki and
+                 collective (-a auto: the row split): initial ePot and
+                 final energy within 1e-6 of the serial NL run's (63 is
+                 odd: atom planes lie on the shards' cell faces), three
+                 ring_push an atom
+                 exchange under ki, no halo_fill (the NL fill is
+                 collective), final r and ePot equal bit for bit.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch, numpy and comd_tpu_torch only; builds
-everything from this checkout (the three kernel sources with one nvcc each,
+everything from this checkout (the four kernel sources with one nvcc each,
 in parallel).
 """
 from __future__ import annotations
@@ -106,6 +125,7 @@ GOLDEN_LJ_5SIGMA = -1.406590686466
 SOURCE = "comd_tpu_torch/csrc/stencil.cu"
 COMM_SOURCE = "comd_tpu_torch/csrc/comm.cu"
 PROBE_SOURCE = "comd_tpu_torch/csrc/probe.cu"
+NL_SOURCE = "comd_tpu_torch/csrc/nl.cu"
 PROBE_KEYS = ("window_pair", "row_lookup", "lane_lookup")
 REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             "half": "comd_tpu/ops/pallas/stencil.py:204",
@@ -116,7 +136,11 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
                            "tools/archive/pallas_probe2.py:38, "
                            "tools/archive/pallas_probe3.py:62,94",
             "row_lookup": "tools/archive/gather_probe.py:94",
-            "lane_lookup": "tools/archive/gather_probe2.py:59,87"}
+            "lane_lookup": "tools/archive/gather_probe2.py:59,87",
+            # no Pallas site: comd_tpu computes these in XLA
+            "nl_build": "comd_tpu/ops/neighborlist.py:116 (build, XLA)",
+            "nl_sweep": "comd_tpu/ops/neighborlist.py:180 (pair_sweep_nl, "
+                        "XLA)"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -302,27 +326,15 @@ def pair_work(sim, half: bool, chunk: int = 1024):
     return int(cand), inside
 
 
-def bound(sim, key: str, energy: bool = False):
-    """(bound_ms, bound_by, flops, candidate pairs) of one launch of
-    ``key`` on sim's state: the bound is the larger of flops / f32 peak and
-    bytes / HBM rate.
-
-    Flops: 8 per candidate pair (3 differences, 3 products, 2 sums for r2)
-    plus, per pair inside the cutoff, the evaluator (Chebyshev: 4 for the
-    transform and argument, 2 per output to start the recurrence, 2 + 2
-    per output for each further term, 3 for the derivative factor, 1 per
-    derivative output; LJ: 1 division, 3 for r6, 5 for the coefficient),
-    the pair's coefficient (EAM pass 1: 1, pass 3: 3), 6 for the force
-    sum, 1 per scalar sum, and, half shell, 3 + 1 per scalar for the
-    j side.  A division counts as one.  Bytes: positions, neighbor map and
-    dfEmbed read once, the outputs written once."""
+def pair_flops(ev, pair: str, energy: bool) -> tuple:
+    """(flops, scalar outputs) of one pair inside the cutoff: the evaluator
+    (Chebyshev: 4 for the transform and argument, 2 per output to start the
+    recurrence, 2 + 2 per output for each further term, 3 for the
+    derivative factor, 1 per derivative output; LJ: 1 division, 3 for r6,
+    5 for the coefficient), the pair's coefficient (EAM pass 1: 1, pass 3:
+    3), 6 for the force sum and 1 per scalar sum.  A division counts as
+    one."""
     from comd_tpu_torch.ops.cuda import stencil as st
-    half = key.startswith("half_")
-    pair = key[5:] if half else key
-    ev, r = sim.pair_eval, sim.state.r
-    B, A = r.shape[1], r.shape[2]
-    n_local = sim.geom.n_local
-    esize = r.element_size()
 
     def cheb(wants, n_der):
         n_terms = st._cheb_params(ev, wants).n_terms
@@ -333,13 +345,29 @@ def bound(sim, key: str, energy: bool = False):
         wants = ([("phi", "val")] if energy else []) + \
             [("phi", "der"), ("rho", "val")]
         ns = len(wants) - 1
-        per = cheb(wants, 1) + 1 + 6 + ns
-    elif pair == "eam_pass3":
-        ns = 0
-        per = cheb([("rho", "der")], 1) + 3 + 6
-    else:
-        ns = 1 if energy else 0
-        per = 1 + 3 + 5 + 6 + (4 if energy else 0)
+        return cheb(wants, 1) + 1 + 6 + ns, ns
+    if pair == "eam_pass3":
+        return cheb([("rho", "der")], 1) + 3 + 6, 0
+    ns = 1 if energy else 0
+    return 1 + 3 + 5 + 6 + (4 if energy else 0), ns
+
+
+def bound(sim, key: str, energy: bool = False):
+    """(bound_ms, bound_by, flops, candidate pairs) of one launch of
+    ``key`` on sim's state: the bound is the larger of flops / f32 peak and
+    bytes / HBM rate.
+
+    Flops: 8 per candidate pair (3 differences, 3 products, 2 sums for r2)
+    plus, per pair inside the cutoff, ``pair_flops`` and, half shell,
+    3 + 1 per scalar for the j side.  Bytes: positions, neighbor map and
+    dfEmbed read once, the outputs written once."""
+    half = key.startswith("half_")
+    pair = key[5:] if half else key
+    ev, r = sim.pair_eval, sim.state.r
+    B, A = r.shape[1], r.shape[2]
+    n_local = sim.geom.n_local
+    esize = r.element_size()
+    per, ns = pair_flops(ev, pair, energy)
     if half:
         per += 3 + ns
     cand, inside = pair_work(sim, half)
@@ -804,6 +832,257 @@ def golden(tag: str, value: float, **kw) -> None:
         f"{e_atom:.12f} eV/atom (|diff| {abs(e_atom - value):.2e})")
 
 
+def nl_lists_and_rows(sim):
+    """The current list of a serial NL run and the atom rows of a rebuild
+    on its state: (rows (a_list, a_valid), build params)."""
+    from comd_tpu_torch.ops import neighborlist as nlmod
+    s = sim.state
+    params = sim.nl_build_params()
+    rows = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
+                           params["n_rows"], params["row_split"])
+    return rows, params
+
+
+def nl_calls(sim):
+    """{name: (kernel call, plain call, pair, energy)} of NL1 and every NL2
+    variant on a serial NL run's state (NL2 on its current list; EAM pass 3
+    on the dfEmbed of the plain pass 1)."""
+    from comd_tpu_torch.ops import binning
+    from comd_tpu_torch.ops import neighborlist as nlmod
+    from comd_tpu_torch.ops.cuda import nl as nlk
+    s, lst, ev = sim.state, sim.nlist, sim.pair_eval
+    (a_list, a_valid), p = nl_lists_and_rows(sim)
+    args = (s.r, a_list, a_valid, sim.maps.nbr_map, s.n_atoms)
+    kw = dict(k=p["k"], rcut2=p["rcut2"])
+    calls = {"nl_build": (lambda: nlk.nl_build(*args, **kw),
+                          lambda: nlk.nl_build_plain(*args, **kw), None,
+                          False)}
+    if not sim.is_eam:
+        for e in (True, False):
+            calls[f"lj {e}"] = (
+                lambda e=e: nlk.lj_pass(lst, s.r, ev, want_energy=e),
+                lambda e=e: nlk.lj_pass_plain(lst, s.r, ev, want_energy=e),
+                "lj", e)
+        return calls
+    _f, _phi, rho = nlk.eam_pass1_plain(lst, s.r, ev)
+    dfe = nlmod.scatter_rows(lst, sim.f_eval(rho)[1], *s.r.shape[1:])
+    binning.fill_halo_scalar_serial(sim.geom, sim.maps, dfe)
+    for e in (True, False):
+        calls[f"pass1 {e}"] = (
+            lambda e=e: nlk.eam_pass1(lst, s.r, ev, want_energy=e),
+            lambda e=e: nlk.eam_pass1_plain(lst, s.r, ev, want_energy=e),
+            "eam_pass1", e)
+    calls["pass3"] = (lambda: (nlk.eam_pass3(lst, s.r, ev, dfe),),
+                      lambda: (nlk.eam_pass3_plain(lst, s.r, ev, dfe),),
+                      "eam_pass3", False)
+    return calls
+
+
+def compare_nl(sim, tag: str, f_atol: float, s_rtol: float,
+               f_rtol: float = 0.0) -> dict:
+    """NL1 (lists, counts, overflow bit for bit; again with K = 8, which
+    must overflow) and NL2 (forces within f_atol + f_rtol max|f|, scalars
+    within s_rtol of their largest value; two launches the same bits)
+    against their plain versions on sim's state.  Returns {kernel: max abs
+    err} (forces for NL2)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import nl as nlk
+    calls = nl_calls(sim)
+    kern, plain, _p, _e = calls.pop("nl_build")
+    got, want = kern(), plain()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    s = sim.state
+    (a_list, a_valid), p = nl_lists_and_rows(sim)
+    small = [f(s.r, a_list, a_valid, sim.maps.nbr_map, s.n_atoms, k=8,
+               rcut2=p["rcut2"]) for f in (nlk.nl_build, nlk.nl_build_plain)]
+    same_small = all(torch.equal(g, w) for g, w in zip(*small))
+    check(same and not bool(got[2]) and same_small and bool(small[0][2]),
+          f"{tag} NL1: lists equal {same} (K = 8: {same_small}), overflow "
+          f"{bool(got[2])} (K = 8: {bool(small[0][2])})")
+    mean = float(got[1][a_valid].float().mean())
+    errs = {"nl_build": 0.0, "nl_sweep": 0.0}
+    for name, (kern, plain, _pair, _energy) in calls.items():
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        e_f = float((got[0] - want[0]).abs().max())
+        fmax = float(want[0].abs().max())
+        e_s = max([norm_rel(g, w) for g, w in zip(got[1:], want[1:])
+                   if w is not None], default=0.0)
+        again = kern()
+        bits = all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+        check(e_f <= f_atol + f_rtol * fmax and e_s <= s_rtol and bits,
+              f"{tag} NL2 {name}: force err {e_f:.3e} (|f|max {fmax:.3e}), "
+              f"scalar err {e_s:.3e}, same bits twice {bits}")
+        errs["nl_sweep"] = max(errs["nl_sweep"], e_f)
+    say("nl", f"{tag}: NL1 lists, counts and overflow equal (also K = 8, "
+        f"overflowing), {mean:.1f} entries a row (K {p['k']}); NL2 "
+        f"{', '.join(calls)} |df|max {errs['nl_sweep']:.3e}, two launches "
+        f"the same bits")
+    return errs
+
+
+def nl_bound(sim, name: str, pair, energy: bool) -> tuple:
+    """(bound_ms, bound_by) of one NL1 or NL2 launch on a serial NL run's
+    state, the larger of bytes / HBM rate and flops / f32 peak.  NL1:
+    positions, rows, neighbor map and occupancy read once, the [R, K] list
+    and the counts written once; 8 flops a candidate tested (the occupied
+    slots of each real row's 27 boxes).  NL2: positions, rows and the real
+    rows' lists (and dfEmbed) read once, [3 + ns, R] written once; 8 flops
+    an entry of a real row, plus ``pair_flops`` a pair inside the cutoff."""
+    import torch
+    s, lst = sim.state, sim.nlist
+    r = s.r
+    B, A = r.shape[1], r.shape[2]
+    e = r.element_size()
+    R, K = lst.nl.shape
+    n_real = int(lst.a_valid.sum())
+    if name == "nl_build":
+        nbr = sim.maps.nbr_map.to(torch.int64)
+        occ = s.n_atoms.clamp(max=A).to(torch.int64)
+        cand = int((occ[:nbr.shape[0]] * occ[nbr].sum(1)).sum())
+        nbytes = (3 * B * A * e + 5 * R + nbr.numel() * 4 + 4 * B
+                  + R * K * 4 + 4 * R)
+        flops = 8 * cand
+    else:
+        per, ns = pair_flops(sim.pair_eval, pair, energy)
+        r_flat = r.reshape(3, -1)
+        rc2 = sim.pair_eval.rcut2
+        inside = 0
+        for c0 in range(0, R, 65536):
+            rows = lst.a_list[c0:c0 + 65536].to(torch.int64)
+            nl = lst.nl[c0:c0 + 65536].to(torch.int64)
+            d = r_flat[:, rows][:, :, None] - r_flat[:, nl]
+            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+            inside += int(((r2 <= rc2) & (r2 > 0)
+                           & lst.a_valid[c0:c0 + 65536, None]).sum())
+        nbytes = (3 * B * A * e + 5 * R + n_real * K * 4
+                  + (B * A * e if pair == "eam_pass3" else 0)
+                  + (3 + ns) * R * e)
+        flops = 8 * n_real * K + per * inside
+    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def run_nl(serial_ms: float, lj_ms: float) -> dict:
+    """Phase 14: the Verlet-list kernels and paths.  Returns the kernels
+    line's nl_build and nl_sweep rows."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.probes import time_ms
+    errs = {"nl_build": 0.0, "nl_sweep": 0.0}
+    # NL1 and NL2 against their plain versions, thermalized 10^3
+    for dtype, impl, f_atol, s_rtol, f_rtol in (
+            ("float32", "cheb", 1e-4, 1e-5, 0.0),
+            ("float64", "rows", 0.0, 1e-12, 1e-12)):
+        for doeam in (True, False):
+            sim = init_simulation(Config(
+                nx=10, ny=10, nz=10, doeam=doeam, method="thread_atom_nl",
+                temperature=600.0, dtype=dtype, interp_impl=impl,
+                pot_dir=POTS, device="cuda"))
+            sim.step_block(10)
+            e = compare_nl(sim, f"10^3 {dtype}/{sim.pair_eval.kind} "
+                           f"A={sim.cfg.max_atoms}", f_atol, s_rtol, f_rtol)
+            errs = {k: max(errs[k], e[k]) for k in errs}
+            del sim
+    golden("Adams Cu 6^3 T=0 -m thread_atom_nl", GOLDEN_EAM_ADAMS, nx=6,
+           ny=6, nz=6, doeam=True, method="thread_atom_nl")
+
+    # the 63^3 headlines: EAM -m thread_atom_nl and LJ -L
+    rows, launched, timing, nl_epot, nl_final = {}, {}, {}, [], {}
+    for tag, kw, ref_ms, ref in (
+            ("nl main", dict(doeam=True, method="thread_atom_nl"), serial_ms,
+             "phase 5"),
+            ("nl LJ main", dict(use_pairlist=True), lj_ms, "phase 9")):
+        sim, launches = run_main(
+            tag, ("nl_sweep",),
+            on_init=(lambda x: nl_epot.append(x.e_potential))
+            if tag == "nl main" else None, **kw)
+        steps = 100
+        per_step = 2 if sim.is_eam else 1
+        check(launches["nl_sweep"] == per_step * (steps + 1)
+              and launches["nl_build"] == sim.n_nl_build >= 1,
+              f"{tag}: nl_sweep {launches['nl_sweep']}, nl_build "
+              f"{launches['nl_build']} for {sim.n_nl_build} builds")
+        say(tag, f"K {sim.nlist.nl.shape[1]}, rows {sim.nlist.nl.shape[0]:,}"
+            f" ({int(sim.nlist.a_valid.sum()):,} atoms); {sim.n_nl_build} "
+            f"builds (init and {sim.n_nl_build - 1} rebuilds in {steps} "
+            f"steps); nl_sweep {launches['nl_sweep']} launches ("
+            f"{per_step} a force); {sim.ms_step:.3f} ms/step against "
+            f"{ref_ms:.3f} on the cell path ({ref})")
+        e = compare_nl(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5)
+        errs = {k: max(errs[k], e[k]) for k in errs}
+        for name, (kern, plain, pair, energy) in nl_calls(sim).items():
+            if energy:
+                continue         # 99 of 100 steps run without energy
+            ms = time_ms(kern, 1 if name == "nl_build" else 20)
+            plain_ms = time_ms(plain, 1)
+            b_ms, b_by = nl_bound(sim, name, pair, energy)
+            timing[(tag, name)] = (ms, plain_ms, b_ms, b_by)
+            extra = ""
+            if name == "nl_build":
+                extra = (f"; {sim.n_nl_build - 1} rebuilds in {steps} steps:"
+                         f" {ms * (sim.n_nl_build - 1) / steps:.4f} ms a "
+                         f"step")
+            say("timing", f"{tag} {name}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+                f"{100 * b_ms / ms:.1f}% of it{extra}")
+        launched[tag] = launches
+        nl_final[tag] = (sim.e_potential + sim.kinetic_energy()) / sim.n_global
+        del sim
+
+    # the EAM NL headline on a 2x2x2 mesh: ki (ring_push) and collective
+    final = {}
+    for ci in ("ki", "collective"):
+        e0 = []
+        sim, launches = run_main(
+            f"nl sharded main {ci}", ("nl_sweep",), doeam=True,
+            method="thread_atom_nl", comm_impl=ci,
+            on_init=lambda x: e0.append(x.e_potential), **MESH)
+        rel = abs(e0[0] / nl_epot[0] - 1.0)
+        e1 = (sim.e_potential + sim.kinetic_energy()) / sim.n_global
+        rel1 = abs(e1 / nl_final["nl main"] - 1.0)
+        check(rel < 1e-6 and rel1 < 1e-6, f"nl sharded {ci}: initial ePot "
+              f"{e0[0]!r} vs serial {nl_epot[0]!r}, final energy {e1!r} vs "
+              f"serial {nl_final['nl main']!r}")
+        exchanges = sim.n_rebucket + 1
+        n_ring = launches["ring_push"]
+        check(launches["halo_fill"] == 0
+              and n_ring == (3 * exchanges if ci == "ki" else 0)
+              and launches["nl_build"] == 8 * sim.n_nl_build,
+              f"nl sharded {ci}: ring_push {n_ring} for {exchanges} "
+              f"exchanges, halo_fill {launches['halo_fill']}, nl_build "
+              f"{launches['nl_build']} for {sim.n_nl_build} builds")
+        say("nl sharded main", f"{ci}: initial ePot rel. diff to the serial"
+            f" NL run {rel:.3e}, final energy {rel1:.3e}; "
+            f"{sim.ms_step:.3f} ms/step on 8 shards; ring_push {n_ring} "
+            f"({exchanges} atom exchanges), halo_fill 0 (the NL fill is "
+            f"collective), {sim.n_nl_build} builds, row split "
+            f"{sim.nl_row_split is not None}")
+        final[ci] = ([s.r for s in sim.states], sim.e_potential)
+        del sim
+    same_r = all(torch.equal(a, b) for a, b in zip(final["ki"][0],
+                                                     final["collective"][0]))
+    check(same_r and final["ki"][1] == final["collective"][1],
+          f"nl sharded: ki and collective differ: r equal {same_r}, ePot "
+          f"{final['ki'][1]!r} vs {final['collective'][1]!r}")
+    say("nl sharded main", f"final r and ePot of ki and collective equal "
+        f"bit for bit (ePot {final['ki'][1]:.6f})")
+    del final
+
+    # the kernels line: NL1 a build, NL2 a pass 1 without energy (what 99
+    # of 100 steps run), at the EAM headline
+    for name, call in (("nl_build", "nl_build"), ("nl_sweep", "pass1 False")):
+        ms, plain_ms, b_ms, b_by = timing["nl main", call]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": NL_SOURCE,
+            "replaces": REPLACES[name],
+            "launches": launched["nl main"][name], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -812,6 +1091,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from comd_tpu_torch import Config, init_simulation
     from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import nl as nlk
     from comd_tpu_torch.ops.cuda import probe as pr
     from comd_tpu_torch.ops.cuda import stencil as st
     from comd_tpu_torch.probes import time_ms
@@ -828,10 +1108,11 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
-        list(pool.map(lambda m: m.build(), (st, cm, pr)))
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        list(pool.map(lambda m: m.build(), (st, cm, pr, nlk)))
     t_build = time.perf_counter() - t0
-    for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe")):
+    for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe"),
+                      (nlk, "nl")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
         entries = []       # (mangled name, registers, spill store bytes)
         if os.path.exists(log):
@@ -861,7 +1142,7 @@ def main() -> int:
                 + ", ".join(f"{k} {v}" for k, v in sorted(spill.items())))
             check(spill.get("f32", 0) == 0,
                   f"f32 stencil kernels spill {spill.get('f32')} bytes")
-    say("build", f"three sources in {t_build:.1f} s")
+    say("build", f"four sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -987,6 +1268,8 @@ def main() -> int:
     for half, key in ((False, "lj"), (True, "half_lj")):
         sim, launches = run_main("LJ half main" if half else "LJ main",
                                  (key,), half_shell=half)
+        if not half:
+            lj_ms = sim.ms_step
         errs = compare_lj(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5)
         r, ev, chunk = sim.state.r, sim.pair_eval, sim.cfg.resolved_box_chunk
         fn, plain = ((st.lj_pass_half, st.lj_pass_half_plain) if half
@@ -1131,11 +1414,14 @@ def main() -> int:
     # 13. the archive probes P1-P6 on their kernels
     rows.update(run_probes(k1_pass1))
 
+    # 14. the Verlet-list kernels NL1/NL2 and the NL paths
+    rows.update(run_nl(serial_ms, lj_ms))
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push")
-               + PROBE_KEYS]
+               + PROBE_KEYS + ("nl_build", "nl_sweep")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

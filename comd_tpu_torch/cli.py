@@ -3,6 +3,7 @@
     python -m comd_tpu_torch.cli -e -x 63 -y 63 -z 63      # on the GPU
     python -m comd_tpu_torch.cli -e -x 4 -y 4 -z 4 --device cpu
     python -m comd_tpu_torch.cli -e -i 2 -j 2 -k 2 --commImpl ki_fused
+    python -m comd_tpu_torch.cli -e -m thread_atom_nl     # Verlet lists
 
 Every option of comd_tpu.cli is accepted (flag table: src-mpi/mycommand.c:
 225-251) plus ``--device``.  The run loop reproduces the reference main():
@@ -205,6 +206,19 @@ def print_things(sim, i_step: int, elapsed: float, n_eval: int,
           file=out, flush=True)
 
 
+def check_overflow(sim, i_step: int) -> None:
+    """Abort on the overflow flag (set at init or by a step)."""
+    if sim.overflow:
+        cfg = sim.cfg
+        raise RuntimeError(
+            f"capacity overflow at step {i_step}: a cell exceeded "
+            f"--maxAtoms (max_atoms={cfg.max_atoms}), a neighbor list row "
+            f"exceeded its K (nl_max_neighbors={cfg.nl_max_neighbors}, 0 = "
+            f"auto), or a packed halo message exceeded --haloMsgFactor "
+            f"(current {cfg.halo_msg_factor}; 0 ships full planes). Raise "
+            f"the matching knob and rerun.")
+
+
 def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         analyze: bool = False, restore: str | None = None,
         checkpoint: str | None = None, checkpoint_rate: int = 0) -> dict:
@@ -234,12 +248,19 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
               "TRANSPORT and only applies to multi-device runs (-i/-j/-k); "
               "this serial run has no halo exchange to transport.",
               file=out)
-    if serial and cfg.gpu_async > 0:
-        # the serial implementation has no exchange to overlap
-        print("# WARNING: -a 1 overlaps interior force compute with the "
-              "halo collectives and only applies to multi-device runs "
-              "(-i/-j/-k); this serial run has no exchange to overlap "
-              "and ignores -a.", file=out)
+    if cfg.resolved_gpu_async:      # as comd_tpu/cli.py:244-265
+        uses_nl = cfg.use_nl or cfg.use_pairlist
+        if serial and cfg.gpu_async > 0:
+            # the serial implementation has no exchange to overlap
+            print("# WARNING: -a 1 overlaps interior force compute with the "
+                  "halo collectives and only applies to multi-device runs "
+                  "(-i/-j/-k); this serial run has no exchange to overlap "
+                  "and ignores -a.", file=out)
+        elif not serial and (cfg.method == "cta_cell" or
+                             (cfg.half_shell and not uses_nl)):
+            print("# WARNING: -a 1 replaces the cta_cell/half-shell sweep "
+                  "with the interior/boundary split sweeps (the overlap "
+                  "needs the split formulation).", file=out)
 
     e0 = (sim.e_potential + sim.kinetic_energy()) / sim.n_global
     n0 = sim.sum_atoms()
@@ -250,6 +271,7 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
     i_step = 0
     n_end = cfg.n_steps
     print_things(sim, i_step, 1e-9, 1, out=out, timers=timers)
+    check_overflow(sim, i_step)
     while i_step < n_end:
         n_block = min(cfg.print_rate, n_end - i_step)
         timers.start("timestep")
@@ -260,13 +282,7 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         dt_wall = time.perf_counter() - t0
         timers.stop("timestep")
         i_step += n_block
-        if sim.overflow:
-            raise RuntimeError(
-                f"capacity overflow at step {i_step}: a cell exceeded "
-                f"--maxAtoms (max_atoms={cfg.max_atoms}) or a packed halo "
-                f"message exceeded --haloMsgFactor (current "
-                f"{cfg.halo_msg_factor}; 0 ships full planes). Raise the "
-                f"matching knob and rerun.")
+        check_overflow(sim, i_step)
         print_things(sim, i_step, dt_wall, n_block, out=out, timers=timers)
     timers.stop("loop")
 

@@ -14,8 +14,10 @@ import torch
 
 # Kernel-strategy names accepted by -m/--method (src-mpi/defines.h:10-17).
 # In the port every cell-sweep name (thread_atom, warp_atom, cta_cell) runs
-# the one hand-written CUDA cell-stencil kernel (ops/cuda/stencil.py); the
-# neighbor-list names are not ported yet and raise NotImplementedError.
+# the one hand-written CUDA cell-stencil kernel (ops/cuda/stencil.py), and
+# every neighbor-list name (thread_atom_nl, warp_atom_nl, cpu_nl) and -L
+# the one Verlet-list path on the list kernels (ops/cuda/nl.py); cpu_nl
+# differs from the others only in its -a auto default (0), as in comd_tpu.
 # The per-name comments below describe comd_tpu's mapping.
 METHODS = (
     "thread_atom",     # default: XLA cell-pair sweep, auto formulation
@@ -207,7 +209,11 @@ class Config:
                                 # MAXNEIGHBORLISTSIZE=64 (defines.h:66) only
                                 # fits the EAM cutoff, not LJ 2.5*sigma
     nl_rows_factor: float = 1.0  # NL row capacity as fraction of n_local*A
-    nl_chunk: int = 2048        # NL rows per sweep chunk
+    nl_chunk: int = 2048        # port: accepted and ignored (the list
+                                # kernels take every row in one launch; the
+                                # plain versions chunk by a memory budget,
+                                # ops/neighborlist.PLAIN_BUDGET).  comd_tpu:
+                                # NL rows per sweep chunk
 
     def resolve(self) -> "Config":
         cfg = dataclasses.replace(self)

@@ -6,6 +6,8 @@ both packages can step from the identical state.  ``shards_from_numpy``
 and ``shards_to_numpy`` carry comd_tpu's sharded state -- array fields with
 a leading [Px, Py, Pz] mesh index, replicated scalars -- into the port's
 per-shard SimStates (shard order x-major, as parallel.mesh.Mesh) and back.
+``nlist_from_numpy`` and ``nlist_to_numpy`` carry a comd_tpu
+``NeighborList`` (its fields as numpy arrays) into the port and back.
 ``lj_potential_from_fields`` builds the port's LjPotential from a comd_tpu
 LjPotential's fields (``dataclasses.asdict``), so a test can show both
 packages hold the same LJ parameters.  An EAM potential needs no
@@ -19,6 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops.neighborlist import NeighborList
 from .potentials.lj import LjPotential
 from .sim import SimState
 
@@ -76,3 +79,23 @@ def shards_to_numpy(states: list, grid) -> dict:
            for k in FIELDS if k not in SCALARS}
     out.update({k: getattr(states[0], k).cpu().numpy() for k in SCALARS})
     return out
+
+
+NL_FIELDS = ("a_list", "a_valid", "nl", "last_r")
+
+
+def nlist_from_numpy(arrays: dict, device) -> NeighborList:
+    """The port's NeighborList on ``device`` from a comd_tpu NeighborList's
+    fields as numpy arrays (a_list and nl int32, a_valid bool, last_r in
+    the dynamics dtype)."""
+    missing = [k for k in NL_FIELDS if k not in arrays]
+    if missing:
+        raise KeyError(f"nlist_from_numpy: missing fields {missing}")
+    return NeighborList(**{
+        k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
+        for k in NL_FIELDS})
+
+
+def nlist_to_numpy(nlist: NeighborList) -> dict:
+    """A NeighborList's fields as numpy arrays, keyed as comd_tpu's."""
+    return {k: getattr(nlist, k).cpu().numpy() for k in NL_FIELDS}

@@ -1,0 +1,275 @@
+"""The Verlet-list build and sweep on hand-written CUDA kernels.
+
+Two kernels, one source (csrc/nl.cu), one build.  comd_tpu computes both
+in XLA (there is no Pallas kernel to port); on the card they are kernels
+because as torch ops they would cost ~10x the cell path (a [R, K] sweep
+moves ~1.7 GB an elementwise op, ~30 of them a pass):
+
+- NL1 ``nl_build`` replaces comd_tpu/ops/neighborlist.py::build: one warp a
+  row walks the row's 27 boxes, tests r2 <= (rcut + skin)^2 and keeps the
+  first K hits in candidate order with ballot/popc (the reference's
+  gpu_kernels.cu:1494-2029).  The lists equal the plain version's bit for
+  bit.
+- NL2 ``nl_sweep`` replaces ::pair_sweep_nl: one warp a valid row, lanes
+  striding over the K entries and evaluating K1's own pair function
+  (csrc/pair.cuh) on those inside the cutoff, summed in a fixed order
+  (the reference's warp_atom_nl, gpu_eam_thread_atom.h:144-266).
+  Wrappers ``eam_pass1``, ``eam_pass3``, ``lj_pass``; results per row.
+
+What bounds them on the card: bytes, the [R, K] list written once (NL1)
+and the real rows' lists read once (NL2); csrc/nl.cu's header has the
+numbers.  Beside each kernel sits its plain PyTorch version (``*_plain``,
+ops/neighborlist.py's torch code); the wrappers take it only for tensors on
+the CPU, a CUDA tensor launches the kernel or raises.  ``LAUNCHES``
+(ops/cuda/__init__.py) counts the launches under "nl_build" and "nl_sweep".
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+
+import torch
+
+from ...potentials.tables import as_dtype
+from .. import neighborlist as nlmod
+from ..neighborlist import NeighborList
+from . import LAUNCHES, stencil
+from .nvcc import CSRC, build_library
+from .stencil import PairEvaluator
+
+SOURCE = os.path.join(CSRC, "nl.cu")
+_PAIR_ID = {"eam_pass1": 0, "eam_pass3": 1, "lj": 2}
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_SECONDS = None   # wall time of the nvcc build in this process
+
+
+def build():
+    """Compile csrc/nl.cu for sm_90a (first use) and bind it."""
+    global _lib, BUILD_SECONDS
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib, BUILD_SECONDS = build_library(SOURCE, "nl")
+        p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.comd_nl_build.restype = i
+        lib.comd_nl_build.argtypes = [i, p, i, p, p, p, p, i, i, i, d, p, p,
+                                      p, p]
+        lib.comd_nl_sweep.restype = i
+        lib.comd_nl_sweep.argtypes = [
+            i, i, i, i, p, i, p, p, p, p, i, i, d,
+            ctypes.POINTER(stencil._ChebParams),
+            ctypes.POINTER(stencil._TableParams),
+            ctypes.POINTER(stencil._LjParams), p, p]
+        lib.comd_nl_error_string.restype = ctypes.c_char_p
+        lib.comd_nl_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+        return lib
+
+
+def _raise(err: int, what: str):
+    msg = build().comd_nl_error_string(err).decode()
+    raise RuntimeError(f"{what} kernel launch failed: {msg} "
+                       f"(cudaError {err})")
+
+
+def _check_cuda(r, tensors):
+    if r.device.type != "cuda":
+        raise ValueError(f"the neighbor-list kernels run CUDA tensors, got "
+                         f"{r.device}")
+    if r.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"unsupported dtype {r.dtype}")
+    if r.dim() != 3 or r.shape[0] != 3:
+        raise ValueError(f"r must be [3, B, A], got {tuple(r.shape)}")
+    for t in tensors:
+        if t.device != r.device:
+            raise ValueError("the neighbor-list operands lie on different "
+                             "devices")
+        if not t.is_contiguous():
+            raise ValueError("the neighbor-list operands must be contiguous")
+
+
+def _check_rows(a_list, a_valid, n_rows: int):
+    if a_list.shape != (n_rows,) or a_list.dtype != torch.int32:
+        raise ValueError(f"a_list must be [{n_rows}] int32")
+    if a_valid.shape != (n_rows,) or a_valid.dtype != torch.bool:
+        raise ValueError(f"a_valid must be [{n_rows}] bool")
+
+
+# --------------------------------------------------------------------------
+# NL1: the list build
+# --------------------------------------------------------------------------
+
+def nl_build_plain(r, a_list, a_valid, nbr_map, n_atoms, *, k: int,
+                   rcut2: float):
+    """Plain PyTorch NL1 -> (nl [R, k] int32, count [R] int32, overflow
+    0-dim bool)."""
+    nl, count = nlmod.candidate_lists(r, a_list, a_valid, nbr_map, k=k,
+                                      rcut2=rcut2)
+    return nl, count, ((count > k) & a_valid).any()
+
+
+def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float):
+    """The first ``k`` j of each row within sqrt(rcut2) (rcut + skin),
+    in candidate order, self-padded: (nl [R, k] int32, count [R] int32,
+    overflow 0-dim bool: a valid row has more than ``k``).  ``nbr_map``
+    [n_local, 27] int32, ``n_atoms`` [B] int32.  CPU tensors run the plain
+    version; CUDA tensors NL1."""
+    n_rows = a_list.shape[0]
+    _check_rows(a_list, a_valid, n_rows)
+    if nbr_map.dim() != 2 or nbr_map.shape[1] != 27 or \
+            nbr_map.dtype != torch.int32 or n_atoms.dtype != torch.int32:
+        raise ValueError("nbr_map must be [n_local, 27] int32 and n_atoms "
+                         "int32")
+    if r.device.type == "cpu":
+        return nl_build_plain(r, a_list, a_valid, nbr_map, n_atoms, k=k,
+                              rcut2=rcut2)
+    _check_cuda(r, (r, a_list, a_valid, nbr_map, n_atoms))
+    B, A = r.shape[1], r.shape[2]
+    dev = r.device
+    nl = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
+    count = torch.empty(n_rows, dtype=torch.int32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = build().comd_nl_build(
+            0 if r.dtype == torch.float32 else 1, r.data_ptr(), B * A,
+            a_list.data_ptr(), a_valid.data_ptr(), nbr_map.data_ptr(),
+            n_atoms.data_ptr(), n_rows, A, k, as_dtype(rcut2, r.dtype),
+            nl.data_ptr(), count.data_ptr(), overflow.data_ptr(), stream)
+    if err != 0:
+        _raise(err, "nl_build")
+    LAUNCHES["nl_build"] += 1
+    return nl, count, overflow != 0
+
+
+def build_list(geom, nbr_map, r, n_atoms, *, k: int, rcut2: float,
+               n_rows: int, row_split=None):
+    """Build the neighbor list of one shard: the compacted atom rows (torch
+    ops; interior rows first with ``row_split``), then NL1.  Returns
+    (NeighborList, overflow); ops/neighborlist.build is its plain
+    version."""
+    a_list, a_valid = nlmod.atom_rows(geom, n_atoms, r.shape[2], n_rows,
+                                      row_split)
+    nl, _count, overflow = nl_build(r, a_list, a_valid, nbr_map, n_atoms,
+                                    k=k, rcut2=rcut2)
+    return NeighborList(a_list=a_list, a_valid=a_valid, nl=nl,
+                        last_r=r), overflow
+
+
+# --------------------------------------------------------------------------
+# NL2: the list sweep
+# --------------------------------------------------------------------------
+
+def eam_pass1_plain(nlist: NeighborList, r, ev: PairEvaluator, *,
+                    want_energy: bool = True):
+    """Plain PyTorch NL2, EAM pass 1 -> (f1 [3, R], phi [R] | None,
+    rho [R])."""
+    f, scal = nlmod.pair_sweep_nl(nlist, r, stencil._pair1(ev, want_energy),
+                                  ev.rcut2)
+    return (f,) + (tuple(scal) if want_energy else (None, scal[0]))
+
+
+def eam_pass3_plain(nlist: NeighborList, r, ev: PairEvaluator, dfe):
+    """Plain PyTorch NL2, EAM pass 3 -> f3 [3, R]."""
+    f, _ = nlmod.pair_sweep_nl(nlist, r, stencil._pair3(ev), ev.rcut2,
+                               scalar_j=[dfe])
+    return f
+
+
+def lj_pass_plain(nlist: NeighborList, r, ev: PairEvaluator, *,
+                  want_energy: bool = True):
+    """Plain PyTorch NL2, LJ -> (f [3, R], e [R] | None), ``e`` the unscaled
+    pair-energy sum."""
+    f, scal = nlmod.pair_sweep_nl(nlist, r,
+                                  stencil._pair_lj(ev, want_energy), ev.rcut2)
+    return f, (scal[0] if want_energy else None)
+
+
+def _sweep(pair: str, nlist: NeighborList, r, ev: PairEvaluator,
+           want_energy: bool, dfe=None):
+    """One NL2 launch: [3 + ns, R] per-row outputs."""
+    n_rows, k = nlist.nl.shape
+    _check_rows(nlist.a_list, nlist.a_valid, n_rows)
+    if nlist.nl.dtype != torch.int32:
+        raise ValueError("the list must be int32")
+    if r.dtype != ev.dtype:
+        raise ValueError(f"r dtype {r.dtype} != evaluator dtype {ev.dtype}")
+    if (pair == "lj") != (ev.kind == "lj"):
+        raise ValueError(f"evaluator kind {ev.kind!r} does not fit {pair}")
+    tensors = [r, nlist.a_list, nlist.a_valid, nlist.nl]
+    if dfe is not None:
+        if dfe.shape != r.shape[1:] or dfe.dtype != r.dtype:
+            raise ValueError(f"df_embed must be {tuple(r.shape[1:])} "
+                             f"{r.dtype}")
+        tensors.append(dfe)
+    if ev.kind == "table":
+        tensors += [ev.phi, ev.rho]
+    _check_cuda(r, tensors)
+    B, A = r.shape[1], r.shape[2]
+    cheb = tab = lj = None
+    kind = 0
+    if ev.kind == "cheb":
+        if pair == "eam_pass1":
+            wants = ([("phi", "val")] if want_energy else []) + \
+                [("phi", "der"), ("rho", "val")]
+        else:
+            wants = [("rho", "der")]
+        cheb = stencil._cheb_params(ev, wants)
+    elif ev.kind == "table":
+        tab, kind = stencil._table_params(ev), 1
+    else:
+        lj = stencil._LjParams(ev.s6, ev.eps4, ev.e_shift)
+    n_s = stencil._n_scalars(pair, want_energy)
+    out = torch.empty((3 + n_s, n_rows), dtype=r.dtype, device=r.device)
+
+    def ref(p):
+        return ctypes.byref(p) if p is not None else None
+
+    with torch.cuda.device(r.device):
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = build().comd_nl_sweep(
+            _PAIR_ID[pair], 0 if r.dtype == torch.float32 else 1, kind,
+            int(want_energy), r.data_ptr(), B * A,
+            None if dfe is None else dfe.data_ptr(),
+            nlist.a_list.data_ptr(), nlist.a_valid.data_ptr(),
+            nlist.nl.data_ptr(), n_rows, k, ev.rcut2, ref(cheb), ref(tab),
+            ref(lj), out.data_ptr(), stream)
+    if err != 0:
+        _raise(err, "nl_sweep")
+    LAUNCHES["nl_sweep"] += 1
+    return out
+
+
+def eam_pass1(nlist: NeighborList, r, ev: PairEvaluator, *,
+              want_energy: bool = True):
+    """EAM pass 1 over the list (eamForceCpuNL, eam.c:266-419): per row
+    (f1 [3, R], phi_sum [R] or None without ``want_energy``, rhobar [R]),
+    zero on invalid rows.  CPU tensors run the plain version; CUDA tensors
+    NL2."""
+    if r.device.type == "cpu":
+        return eam_pass1_plain(nlist, r, ev, want_energy=want_energy)
+    out = _sweep("eam_pass1", nlist, r, ev, want_energy)
+    return (out[:3],) + ((out[3], out[4]) if want_energy else (None, out[3]))
+
+
+def eam_pass3(nlist: NeighborList, r, ev: PairEvaluator, dfe):
+    """EAM pass 3 over the list, ``dfe`` the halo-filled [B, A] dfEmbed:
+    per row f3 [3, R].  CPU tensors run the plain version; CUDA tensors
+    NL2."""
+    if r.device.type == "cpu":
+        return eam_pass3_plain(nlist, r, ev, dfe)
+    return _sweep("eam_pass3", nlist, r, ev, False, dfe)
+
+
+def lj_pass(nlist: NeighborList, r, ev: PairEvaluator, *,
+            want_energy: bool = True):
+    """LJ over the list (ljForceCpuNL, ljForce.c:146-265): per row (f [3, R],
+    e [R] | None), ``e`` the unscaled sum of r6 (r6 - 1) - e_shift.  CPU
+    tensors run the plain version; CUDA tensors NL2."""
+    if r.device.type == "cpu":
+        return lj_pass_plain(nlist, r, ev, want_energy=want_energy)
+    out = _sweep("lj", nlist, r, ev, want_energy)
+    return out[:3], (out[3] if want_energy else None)

@@ -2,7 +2,8 @@
 
 Each source is compiled on its own for sm_90a into the git-ignored
 ``comd_tpu_torch/_build/``, under a name that carries the hash of its
-content, and loaded with ctypes.  ptxas's report (registers, spills) is
+content and of the local headers it includes (``#include "x.cuh"``), and
+loaded with ctypes.  ptxas's report (registers, spills) is
 kept beside it as ``<stem>_ptxas.log``.  Two sources build in parallel when
 two threads ask for them.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,11 +34,24 @@ def nvcc() -> str:
     return found
 
 
+def source_digest(source: str) -> str:
+    """Hash of ``source`` and of the local headers it includes, so that a
+    changed header rebuilds every library built from it."""
+    h = hashlib.sha1()
+    with open(source, "rb") as fh:
+        text = fh.read()
+    h.update(text)
+    for name in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(os.path.dirname(source),
+                               name.decode()), "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:12]
+
+
 def build_library(source: str, stem: str, extra_flags=()):
     """Compile ``source`` (a path) for sm_90a unless a library of the same
     content exists, and load it.  Returns (ctypes.CDLL, seconds spent)."""
-    with open(source, "rb") as fh:
-        digest = hashlib.sha1(fh.read()).hexdigest()[:12]
+    digest = source_digest(source)
     path = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
     t0 = time.perf_counter()
     if not os.path.exists(path):

@@ -10,7 +10,9 @@ Algorithm per the reference (src-mpi/eam.c:44-86):
 
 Passes 1 and 3 run on the CUDA cell-stencil kernels (ops/cuda/stencil.py;
 their plain PyTorch versions on CPU tensors): the full-shell K1 in
-``eam_force`` and the half-shell K2 in ``eam_force_half``.  Pass 2 is
+``eam_force`` and the half-shell K2 in ``eam_force_half``; over Verlet
+lists (the *_nl methods) on the list sweep NL2 (ops/cuda/nl.py) in
+``eam_force_nl`` and ``eam_force_nl_split``.  Pass 2 is
 per-atom, 27x fewer evaluations than a pair pass, and stays torch ops: the
 direct quadratic interpolation of F (eam.c:557-579).  These are comd_tpu's
 eam_force_pallas contracts (half=False and half=True), taken over the
@@ -20,13 +22,14 @@ fill and fold are the mesh's exchanges, run once over all shards.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..potentials import tables
 from ..potentials.eam import EamPotential
-from .cuda import stencil
+from . import neighborlist as nlmod
+from .cuda import nl, stencil
 from .cuda.stencil import PairEvaluator
 
 
@@ -150,6 +153,92 @@ def eam_force_half(
                                            box_chunk=box_chunk)
               for r, (f1d, _phi, _rho), d in zip(rs, p1, dfe)])
     return list(zip(f, u, dfe))
+
+
+def _embed_rows(nlist, phi, rho, f_eval, e_dtype):
+    """Pass 2 on the rows of a list: (ePot | None, dfEmbed per row, zero on
+    invalid rows).  ``phi`` is None without the energy terms."""
+    f_emb, df = f_eval(rho)
+    zero = torch.zeros((), dtype=df.dtype, device=df.device)
+    df = torch.where(nlist.a_valid, df, zero)
+    if phi is None:
+        return None, df
+    u = 0.5 * phi.to(e_dtype) + f_emb.to(e_dtype)
+    u = torch.where(nlist.a_valid, u, torch.zeros((), dtype=e_dtype,
+                                                  device=u.device))
+    return u.sum(), df
+
+
+def eam_force_nl(
+    nlists: Sequence[nlmod.NeighborList],   # per shard
+    rs: Sequence[torch.Tensor],  # per shard: [3, B, A], halo cells filled
+    ev: PairEvaluator,
+    f_eval: tables.EmbedTable,
+    fill_halo_scalar: Callable,  # dfEmbed per shard -> halo rows filled
+    *,
+    e_dtype: torch.dtype = torch.float64,
+    want_energy: bool = True,
+):
+    """EAM over Verlet lists (thread_atom_nl / warp_atom_nl; the
+    reference's eamForceCpuNL, eam.c:266-419, and its *_nl GPU kernels,
+    gpu_eam_thread_atom.h:144-266) for every shard: pass 1 on NL2 per shard,
+    pass 2 on the rows, the dfEmbed fill once over all shards (scattered to
+    the cell layout first: the NL path has no fused transport), pass 3 on
+    NL2.  Returns, per shard, (force [3, B, A] with zero halo rows, ePot |
+    None, dfEmbed [B, A])."""
+    p1 = [nl.eam_pass1(lst, r, ev, want_energy=want_energy)
+          for lst, r in zip(nlists, rs)]
+    emb = [_embed_rows(lst, phi, rho, f_eval, e_dtype)
+           for lst, (_f, phi, rho) in zip(nlists, p1)]
+    dfe = fill_halo_scalar([nlmod.scatter_rows(lst, df, r.shape[1],
+                                               r.shape[2])
+                            for lst, r, (_e, df) in zip(nlists, rs, emb)])
+    return [(nlmod.scatter_rows(lst, f1 + nl.eam_pass3(lst, r, ev, d),
+                                r.shape[1], r.shape[2]), e_pot, d)
+            for lst, r, (f1, _p, _r), (e_pot, _df), d
+            in zip(nlists, rs, p1, emb, dfe)]
+
+
+def eam_force_nl_split(
+    nlists: Sequence[nlmod.NeighborList],   # per shard, built with row_split
+    rs: Sequence[torch.Tensor],  # per shard: [3, B, A] post-exchange
+    ev: PairEvaluator,
+    f_eval: tables.EmbedTable,
+    fill_halo_scalar: Callable,
+    n_rows_interior: int,        # rows [0, Ri) are interior-cell atoms
+    *,
+    r_pre: Optional[Sequence[torch.Tensor]] = None,
+    e_dtype: torch.dtype = torch.float64,
+    want_energy: bool = True,
+):
+    """``eam_force_nl`` with the interior/boundary row split (-a 1 on the
+    NL methods, the reference's timestep.c:257-265 / :328-351): interior
+    rows reference only local cells, so their passes 1 and 3 read the
+    pre-exchange positions ``r_pre`` and the pre-fill dfEmbed, and pass 3's
+    interior rows run before the fill.  On one stream nothing overlaps;
+    the split keeps comd_tpu's data flow.  Returns what eam_force_nl
+    does."""
+    r_pre = rs if r_pre is None else r_pre
+    parts = []
+    for lst, r, rp in zip(nlists, rs, r_pre):
+        n_rows = lst.a_list.shape[0]
+        seg = (nlmod.slice_rows(lst, 0, n_rows_interior),
+               nlmod.slice_rows(lst, n_rows_interior, n_rows))
+        p1 = [nl.eam_pass1(sl, x, ev, want_energy=want_energy)
+              for sl, x in zip(seg, (rp, r))]
+        f1 = torch.cat([p[0] for p in p1], dim=1)
+        phi = (torch.cat([p[1] for p in p1]) if want_energy else None)
+        e_pot, df = _embed_rows(lst, phi, torch.cat([p[2] for p in p1]),
+                                f_eval, e_dtype)
+        dfe = nlmod.scatter_rows(lst, df, r.shape[1], r.shape[2])
+        # interior pass 3 reads only local dfEmbed: before the fill
+        f3_i = nl.eam_pass3(seg[0], rp, ev, dfe)
+        parts.append((lst, seg, r, f1, f3_i, e_pot, dfe))
+    dfe = fill_halo_scalar([p[6] for p in parts])
+    return [(nlmod.scatter_rows(
+        lst, f1 + torch.cat([f3_i, nl.eam_pass3(seg[1], r, ev, d)], dim=1),
+        r.shape[1], r.shape[2]), e_pot, d)
+        for (lst, seg, r, f1, f3_i, e_pot, _d), d in zip(parts, dfe)]
 
 
 def finalize_eam_energy(u, valid_mask, e_dtype=torch.float64):

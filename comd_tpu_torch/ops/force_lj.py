@@ -8,20 +8,23 @@ Physics of the reference CPU oracle (ljForceCpuNL, src-mpi/ljForce.c:
 
 ``lj_force`` sweeps the full 27-cell shell on K1 (every pair visited from
 both sides, energy halved); ``lj_force_half`` evaluates each pair once on
-K2 and folds the halo rows back to their owners.  Both run the CUDA kernels
-of ops/cuda/stencil.py on CUDA tensors and their plain PyTorch versions on
-CPU tensors, over the shards of a mesh (per-shard lists, as in
-ops/force_eam.py; a single domain is a mesh of one).
+K2 and folds the halo rows back to their owners; ``lj_force_nl`` and
+``lj_force_nl_split`` sweep Verlet lists on NL2 (the *_nl methods and the
+-L pairlist).  All run the CUDA kernels of ops/cuda on CUDA tensors and
+their plain PyTorch versions on CPU tensors, over the shards of a mesh
+(per-shard lists, as in ops/force_eam.py; a single domain is a mesh of
+one).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from ..potentials.lj import LjPotential
 from ..potentials.tables import as_dtype
-from .cuda import stencil
+from . import neighborlist as nlmod
+from .cuda import nl, stencil
 from .cuda.stencil import PairEvaluator
 
 
@@ -74,3 +77,49 @@ def lj_force_half(half_nbr_map: torch.Tensor, pot: LjPotential,
         return [(f_s, None, None) for f_s in f]
     e = fold([ed for _fd, ed in sweeps])
     return [(f_s,) + _energy(pot, e_s, e_dtype) for f_s, e_s in zip(f, e)]
+
+
+def _nl_result(pot: LjPotential, nlist, r, f_rows, e_rows, e_dtype):
+    """Per-row sweep results to (force [3, B, A], U [B, A] | None,
+    ePot | None)."""
+    B, A = r.shape[1], r.shape[2]
+    force = nlmod.scatter_rows(nlist, f_rows, B, A)
+    if e_rows is None:
+        return force, None, None
+    u_rows, e_pot = _energy(pot, e_rows, e_dtype)   # zero on invalid rows
+    return force, nlmod.scatter_rows(nlist, u_rows.to(r.dtype), B, A), e_pot
+
+
+def lj_force_nl(nlists: Sequence[nlmod.NeighborList], pot: LjPotential,
+                rs: Sequence[torch.Tensor], ev: PairEvaluator, *,
+                e_dtype: torch.dtype = torch.float64,
+                want_energy: bool = True):
+    """LJ over Verlet lists (ljForceCpuNL, ljForce.c:146-265; the -L
+    pairlist) on NL2 for every shard.  Returns, per shard, (force [3, B, A]
+    with zero halo rows, U [B, A] | None, ePot | None)."""
+    return [_nl_result(pot, lst, r, *nl.lj_pass(lst, r, ev,
+                                                 want_energy=want_energy),
+                       e_dtype) for lst, r in zip(nlists, rs)]
+
+
+def lj_force_nl_split(nlists: Sequence[nlmod.NeighborList], pot: LjPotential,
+                      rs: Sequence[torch.Tensor], ev: PairEvaluator,
+                      n_rows_interior: int, *,
+                      r_pre: Optional[Sequence[torch.Tensor]] = None,
+                      e_dtype: torch.dtype = torch.float64,
+                      want_energy: bool = True):
+    """``lj_force_nl`` with the interior/boundary row split (-a 1): the
+    interior rows [0, Ri) sweep the pre-exchange positions ``r_pre``, the
+    boundary rows the refreshed ones.  Lists built with row_split."""
+    r_pre = rs if r_pre is None else r_pre
+    out = []
+    for lst, r, rp in zip(nlists, rs, r_pre):
+        n_rows = lst.a_list.shape[0]
+        f_i, e_i = nl.lj_pass(nlmod.slice_rows(lst, 0, n_rows_interior), rp,
+                              ev, want_energy=want_energy)
+        f_b, e_b = nl.lj_pass(nlmod.slice_rows(lst, n_rows_interior, n_rows),
+                              r, ev, want_energy=want_energy)
+        out.append(_nl_result(pot, lst, r, torch.cat([f_i, f_b], dim=1),
+                              torch.cat([e_i, e_b]) if want_energy else None,
+                              e_dtype))
+    return out

@@ -13,9 +13,17 @@ exchanges between the per-shard phases:
     (parallel/exchange.py, or the halo kernels of parallel/ki_comm.py
     under ``--commImpl ki|ki_fused``: one launch a dfEmbed fill, three an
     atom exchange);
-  - ``psum`` -> a sum over shards.  The lazy trigger is read on the host
-    once per step, as in the serial port; ePot, n_local and the overflow
-    flag stay on the device.
+  - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
+    are read on the host once per step, as in the serial port; ePot,
+    n_local and the overflow flag stay on the device.
+
+The neighbor-list methods (-m *_nl, -L) keep one Verlet list a shard,
+rebuilt after each atom exchange; their dfEmbed fill is the collective
+``exchange.exchange_scalar`` under every --commImpl, as in comd_tpu (the
+list rows carry no cell layout for the fused transport), while the atom
+exchange follows --commImpl.  Under -a 1 (auto for thread_atom_nl,
+warp_atom_nl and -L) the lists are built with the interior/boundary row
+split and the interior rows sweep the pre-exchange positions.
 
 Each shard's SimState carries the replicated scalars (e_potential,
 n_local, overflow) as the same tensors, as comd_tpu's replicated leaves.
@@ -33,6 +41,7 @@ from ..config import Config
 from ..constants import KB_EV
 from ..interop import state_from_numpy
 from ..ops import binning
+from ..ops import neighborlist as nlmod
 from ..ops.neighborlist import needs_rebuild
 from ..sim import (Physics, SimState, _sync, _tscope, bin_atoms_host_np,
                    init_potential, plan_geometry)
@@ -59,6 +68,10 @@ class ShardedSimulation(Physics):
         self.halo = exchange.make_halo(self.mesh, self.geom, self.maps,
                                        self.plan, self.dtype)
         self.last_r = None            # per shard, at the last rebucket
+        self.nlists = None            # per shard (the *_nl methods)
+        if self.uses_nl and self.cfg.resolved_gpu_async:
+            self.nl_row_split = nlmod.row_split_for(self.geom,
+                                                    self.cfg.max_atoms)
         if self.cfg.comm_impl not in ("collective", "ki", "ki_fused"):
             raise ValueError(f"invalid comm_impl {self.cfg.comm_impl!r}")
 
@@ -75,6 +88,10 @@ class ShardedSimulation(Physics):
 
     def _fold(self, x):
         return exchange.fold_halo(self.halo, x)
+
+    def _fill_nl(self, x):
+        """The neighbor-list path's dfEmbed fill: collective always."""
+        return exchange.exchange_scalar(self.halo, x)
 
     def _exchange_atoms(self, r, p, gid, n_atoms):
         """Atom exchange per --commImpl, then the canonical in-cell sort.
@@ -100,9 +117,16 @@ class ShardedSimulation(Physics):
         self.n_rebucket += 1
         return r, p, gid, n_atoms, ovf | ovf2
 
-    def _finish(self, states, r, p, gid, n_atoms, ovf, want_energy: bool):
-        """Force, second half kick and the mesh reductions."""
-        res = self.forces(r, n_atoms, self._fill, self._fold, want_energy)
+    def _finish(self, states, r, p, gid, n_atoms, ovf, want_energy: bool,
+                nlists=None, r_pre=None):
+        """Force (over ``nlists`` when given), second half kick and the mesh
+        reductions."""
+        if nlists is not None:
+            res = self.forces_nl(nlists, r, self._fill_nl, want_energy,
+                                 r_pre)
+        else:
+            res = self.forces(r, n_atoms, self._fill, self._fold,
+                              want_energy)
         s0 = states[0]
         e_pot = (torch.stack([e for _f, _u, e in res]).sum() if want_energy
                  else s0.e_potential)
@@ -152,6 +176,44 @@ class ShardedSimulation(Physics):
         return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy),
                 last_r)
 
+    def step_nl(self, states, nlists, want_energy: bool = True):
+        """Neighbor-list step over the mesh (comd_tpu's ``_shard_step_nl``):
+        when some atom of some shard moved skin/2 since the last build,
+        rebucket, exchange atoms, sort and rebuild every shard's list;
+        otherwise the slot-aligned ghost-position refresh, keeping the
+        pre-exchange positions for the split's interior rows.  Returns
+        (states, nlists)."""
+        rp = [self._drift(s) for s in states]
+        r = [x[0] for x in rp]
+        p = [x[1] for x in rp]
+        nl = self.geom.n_local
+        dirty = torch.stack([needs_rebuild(lst, rs, nl, self.skin)
+                             for lst, rs in zip(nlists, r)]).any()
+        if bool(dirty):
+            r, p, gid, n_atoms, ovf = self._redistribute(
+                r, p, [s.gid for s in states], [s.n_atoms for s in states])
+            nlists, ovf2 = self.build_lists(r, n_atoms)
+            ovf = ovf | ovf2
+            r_pre = r     # atoms may have migrated: no stale interior rows
+        else:
+            r_pre = ([x.clone() for x in r] if self.nl_row_split is not None
+                     else r)
+            exchange.exchange_positions(self.halo, r)
+            gid = [s.gid for s in states]
+            n_atoms = [s.n_atoms for s in states]
+            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy,
+                             nlists, r_pre), nlists)
+
+    def build_neighbor_list(self) -> None:
+        """Build every shard's list on the current states (init)."""
+        st = self.states
+        self.nlists, ovf = self.build_lists([s.r for s in st],
+                                            [s.n_atoms for s in st])
+        overflow = st[0].overflow | ovf
+        self.states = [dataclasses.replace(s, overflow=overflow)
+                       for s in st]
+
     def step_block(self, n_steps: int) -> None:
         """Run n_steps of velocity-Verlet; the energy terms only on the
         block's last step unless ``cfg.energy_every_step`` (as
@@ -159,7 +221,10 @@ class ShardedSimulation(Physics):
         for k in range(n_steps):
             want = (k == n_steps - 1 or n_steps == 1
                     or self.cfg.energy_every_step)
-            if self.uses_lazy:
+            if self.uses_nl:
+                self.states, self.nlists = self.step_nl(
+                    self.states, self.nlists, want)
+            elif self.uses_lazy:
                 if self.last_r is None:
                     self.last_r = [s.r for s in self.states]
                 self.states, self.last_r = self.step_lazy(
@@ -170,8 +235,12 @@ class ShardedSimulation(Physics):
     def compute_force(self) -> None:
         """Force-only evaluation of every shard (used at init)."""
         st = self.states
-        res = self.forces([s.r for s in st], [s.n_atoms for s in st],
-                          self._fill, self._fold)
+        if self.uses_nl:
+            res = self.forces_nl(self.nlists, [s.r for s in st],
+                                 self._fill_nl)
+        else:
+            res = self.forces([s.r for s in st], [s.n_atoms for s in st],
+                              self._fill, self._fold)
         e_pot = torch.stack([e for _f, _u, e in res]).sum()
         self.states = [dataclasses.replace(
             s, f=self._full_force(f_loc, s.f), e_potential=e_pot)
@@ -275,6 +344,10 @@ def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:
     with _tscope(timers, "redistribute"), _tscope(timers, "atomHalo"):
         sim.initial_exchange()
         _sync(sim.device)
+    if sim.uses_nl:
+        with _tscope(timers, "neighborList"):
+            sim.build_neighbor_list()
+            _sync(sim.device)
     with _tscope(timers, "force"):
         sim.compute_force()
         _sync(sim.device)

@@ -12,8 +12,10 @@ Port of comd_tpu.sim's serial half on PyTorch (with -i/-j/-k > 1,
 
 The main path is the lazy-shell cell step: atoms are rebucketed only when
 one of them moved skin/2 since the last rebucket (``needs_rebuild``); other
-steps refresh the ghost positions.  The trigger is read on the host (one
-device sync per step) where comd_tpu branched on the device with lax.cond.
+steps refresh the ghost positions.  The neighbor-list methods (-m *_nl,
+-L) step the same way on Verlet lists, rebuilt (NL1) after each such
+rebucket and swept by NL2.  The trigger is read on the host (one device
+sync per step) where comd_tpu branched on the device with lax.cond.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from . import cells, lattice
 from .config import Config
 from .constants import KB_EV
 from .ops import binning, force_eam, force_lj
+from .ops import neighborlist as nlmod
+from .ops.cuda import nl as nl_kernels
 from .ops.neighborlist import needs_rebuild
 from .ops.sweep import fold_halo_serial
 from .potentials.eam import EamPotential, init_eam_pot
@@ -45,6 +49,13 @@ class SimState:
     e_potential: torch.Tensor  # 0-dim energy_dtype
     n_local: torch.Tensor    # 0-dim int32: locally-owned atom count
     overflow: torch.Tensor   # 0-dim bool: any capacity overflow so far
+
+
+@dataclasses.dataclass
+class NLSimState:
+    """SimState + Verlet neighbor list (the *_nl method carry)."""
+    sim: SimState
+    nlist: nlmod.NeighborList
 
 
 @dataclasses.dataclass
@@ -68,11 +79,10 @@ def check_slice(cfg: Config) -> None:
         not_ported("-I table-interpolated LJ", "7")
     if cfg.spline:
         not_ported("-P spline tables", "8")
-    if cfg.use_nl or cfg.use_pairlist:
-        not_ported(f"the neighbor-list methods (-m {cfg.method}, -L)", "11")
-    if cfg.nprocs > 1 and cfg.gpu_async > 0:
-        not_ported("-a 1 (the interior/boundary split) on a multi-device "
-                   "mesh", "15")
+    if cfg.nprocs > 1 and cfg.gpu_async > 0 and not (cfg.use_nl
+                                                      or cfg.use_pairlist):
+        not_ported("-a 1 (the interior/boundary split) of the cell methods "
+                   "on a multi-device mesh", "15")
     if cfg.gpu_profile:
         not_ported("-s profiling mode", "6")
 
@@ -98,6 +108,8 @@ class Physics:
         else:
             self.pair_eval = force_lj.make_lj_evaluator(self.pot, self.dtype)
         self.n_rebucket = 0          # lazy/eager rebuckets so far
+        self.n_nl_build = 0          # neighbor-list builds so far
+        self.nl_row_split = None     # row_split_for under -a 1 on a mesh
         slot = torch.arange(cfg.max_atoms, device=self.device)
         self._slot = slot[None, :]
 
@@ -106,13 +118,19 @@ class Physics:
         return self.pot.mass
 
     @property
+    def uses_nl(self) -> bool:
+        """*_nl methods and the LJ pairlist (-L) run on Verlet lists."""
+        return self.cfg.use_nl or self.cfg.use_pairlist
+
+    @property
     def uses_lazy(self) -> bool:
         """Cell methods with a skin shell: rebucket on the skin/2 trigger."""
-        return self.cfg.lazy_shell and self.cfg.relative_skin_distance > 0
+        return (not self.uses_nl and self.cfg.lazy_shell
+                and self.cfg.relative_skin_distance > 0)
 
     @property
     def skin(self) -> float:
-        if not self.uses_lazy:
+        if not (self.uses_nl or self.uses_lazy):
             return 0.0
         if self.skin_eff is not None:
             return self.skin_eff
@@ -169,6 +187,67 @@ class Physics:
             res.append((f_loc, u, e_pot))
         return res
 
+    # ---------------- neighbor lists ----------------
+
+    def nl_build_params(self) -> dict:
+        """The list build's parameters (comd_tpu's ``_nl_build_params``):
+        K (``nl_max_neighbors``, or 1.4x the mean neighbor count inside
+        rcut + skin rounded up to a multiple of 32), (rcut + skin)^2, the
+        row capacity and, under -a 1 on a mesh, the row split."""
+        cfg = self.cfg
+        rcut_nl = self.pot.cutoff + self.skin
+        if cfg.nl_max_neighbors > 0:
+            k = cfg.nl_max_neighbors
+        else:
+            density = self.n_global / float(np.prod(self.global_extent))
+            mean_nbrs = density * 4.0 / 3.0 * np.pi * rcut_nl ** 3
+            k = int(-(-1.4 * mean_nbrs // 32) * 32)
+        return dict(k=k, rcut2=rcut_nl ** 2,
+                    n_rows=nlmod.n_rows_for(self.geom, cfg.max_atoms,
+                                            cfg.nl_rows_factor),
+                    row_split=self.nl_row_split)
+
+    def build_lists(self, rs, n_atoms):
+        """Build every shard's list (NL1): (lists, overflow)."""
+        params = self.nl_build_params()
+        built = [nl_kernels.build_list(self.geom, self.maps.nbr_map, r, n,
+                                       **params)
+                 for r, n in zip(rs, n_atoms)]
+        self.n_nl_build += 1
+        return ([b[0] for b in built],
+                torch.stack([b[1] for b in built]).any())
+
+    def forces_nl(self, nlists, rs, fill, want_energy: bool = True,
+                  r_pre=None):
+        """The force of every shard over its Verlet list (comd_tpu's
+        ``_force_fn_nl``): EAM or LJ on NL2, with the row split under -a 1
+        on a mesh (``r_pre``: the pre-exchange positions its interior rows
+        read).  ``fill`` is the dfEmbed halo fill over all shards.  Returns
+        per shard (f_loc [3, n_local, A], None, ePot | None)."""
+        kw = dict(e_dtype=self.cfg.torch_energy_dtype,
+                  want_energy=want_energy)
+        split = self.nl_row_split
+        if self.is_eam:
+            if split is not None:
+                out = force_eam.eam_force_nl_split(
+                    nlists, rs, self.pair_eval, self.f_eval, fill, split[1],
+                    r_pre=r_pre, **kw)
+            else:
+                out = force_eam.eam_force_nl(nlists, rs, self.pair_eval,
+                                             self.f_eval, fill, **kw)
+            res = [(f, e) for f, e, _dfe in out]
+        else:
+            if split is not None:
+                out = force_lj.lj_force_nl_split(
+                    nlists, self.pot, rs, self.pair_eval, split[1],
+                    r_pre=r_pre, **kw)
+            else:
+                out = force_lj.lj_force_nl(nlists, self.pot, rs,
+                                           self.pair_eval, **kw)
+            res = [(f, e) for f, _u, e in out]
+        # the lists hold local atoms only: the halo rows are zero
+        return [(f[:, :self.geom.n_local], None, e) for f, e in res]
+
 
 @dataclasses.dataclass
 class Simulation(Physics):
@@ -185,28 +264,32 @@ class Simulation(Physics):
     def __post_init__(self):
         self._setup_physics()
         self.last_r = None
+        self.nlist = None
 
     # ---------------- force + energy ----------------
 
-    def force(self, r, n_atoms, want_energy: bool = True):
+    def _fill(self, xs, _rhobar=None):
+        """The serial periodic dfEmbed halo fill."""
+        return [binning.fill_halo_scalar_serial(self.geom, self.maps, x)
+                for x in xs]
+
+    def force(self, r, n_atoms, want_energy: bool = True, nlist=None):
         """The force of the single domain: (f_loc [3, n_local, A],
         U [n_local, A] | None, ePot | None), with the serial periodic halo
-        fill and fold."""
+        fill and fold; over ``nlist`` when given (U is then None)."""
+        if nlist is not None:
+            return self.forces_nl([nlist], [r], self._fill, want_energy)[0]
         geom, maps = self.geom, self.maps
 
         def fold(xs):
             return [fold_halo_serial(geom, maps, x) for x in xs]
 
-        def fill(xs, _rhobar):
-            return [binning.fill_halo_scalar_serial(geom, maps, x)
-                    for x in xs]
-
-        return self.forces([r], [n_atoms], fill, fold, want_energy)[0]
+        return self.forces([r], [n_atoms], self._fill, fold, want_energy)[0]
 
     def _finish(self, s: SimState, r, p, gid, n_atoms, ovf,
-                want_energy: bool) -> SimState:
-        """Force, second half kick and bookkeeping shared by both steps."""
-        f_loc, _u, e_pot = self.force(r, n_atoms, want_energy)
+                want_energy: bool, nlist=None) -> SimState:
+        """Force, second half kick and bookkeeping shared by the steps."""
+        f_loc, _u, e_pot = self.force(r, n_atoms, want_energy, nlist)
         if e_pot is None:
             e_pot = s.e_potential
         f = self._full_force(f_loc, s.f)
@@ -253,6 +336,33 @@ class Simulation(Physics):
             sim=self._finish(s, r, p, gid, n_atoms, ovf, want_energy),
             last_r=last_r)
 
+    def step_nl(self, c: NLSimState, want_energy: bool = True) -> NLSimState:
+        """Neighbor-list step (comd_tpu's ``_make_step_nl``): when some atom
+        moved skin/2 since the last build, rebucket, refill the halo and
+        rebuild the list (NL1); otherwise refresh the ghost positions in
+        place, the cell layout and the list frozen.  The force sweeps the
+        list (NL2)."""
+        s, nlist = c.sim, c.nlist
+        r, p = self._drift(s)
+        if bool(needs_rebuild(nlist, r, self.geom.n_local, self.skin)):
+            r, p, gid, n_atoms, ovf = self._rebucket(r, p, s.gid, s.n_atoms)
+            (nlist,), ovf2 = self.build_lists([r], [n_atoms])
+            ovf = ovf | ovf2
+        else:
+            binning.refresh_halo_positions(self.geom, self.maps, r)
+            gid, n_atoms = s.gid, s.n_atoms
+            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
+        return NLSimState(sim=self._finish(s, r, p, gid, n_atoms, ovf,
+                                           want_energy, nlist),
+                          nlist=nlist)
+
+    def build_neighbor_list(self) -> None:
+        """Build the list on the current state (init); an undersized K
+        raises the overflow flag already here."""
+        s = self.state
+        (self.nlist,), ovf = self.build_lists([s.r], [s.n_atoms])
+        self.state = dataclasses.replace(s, overflow=s.overflow | ovf)
+
     # ---------------- stepping ----------------
 
     def step_block(self, n_steps: int) -> None:
@@ -266,7 +376,10 @@ class Simulation(Physics):
         for k in range(n_steps):
             want = (k == n_steps - 1 or n_steps == 1
                     or self.cfg.energy_every_step)
-            if self.uses_lazy:
+            if self.uses_nl:
+                out = self.step_nl(NLSimState(self.state, self.nlist), want)
+                self.state, self.nlist = out.sim, out.nlist
+            elif self.uses_lazy:
                 if self.last_r is None:
                     self.last_r = self.state.r
                 out = self.step_lazy(LazySimState(self.state, self.last_r),
@@ -278,7 +391,7 @@ class Simulation(Physics):
     def compute_force(self) -> None:
         """Force-only evaluation (used at init; CoMD.c:314)."""
         s = self.state
-        f_loc, _u, e_pot = self.force(s.r, s.n_atoms)
+        f_loc, _u, e_pot = self.force(s.r, s.n_atoms, nlist=self.nlist)
         self.state = dataclasses.replace(
             s, f=self._full_force(f_loc, s.f), e_potential=e_pot)
 
@@ -358,11 +471,15 @@ def init_simulation(cfg: Config, timers=None):
                      global_extent=global_extent, n_global=n_global,
                      state=state, lattice_const=lat, skin_eff=plan.skin)
 
-    # fill halo + first force (CoMD.c:303-318)
+    # fill halo + (NL build) + first force (CoMD.c:303-318)
     with _tscope(timers, "redistribute"), _tscope(timers, "atomHalo"):
         s = sim.state
         binning.fill_halo_serial(geom, sim.maps, s.r, s.gid, s.n_atoms)
         _sync(sim.device)
+    if sim.uses_nl:
+        with _tscope(timers, "neighborList"):
+            sim.build_neighbor_list()
+            _sync(sim.device)
     with _tscope(timers, "force"):
         sim.compute_force()
         _sync(sim.device)
@@ -373,10 +490,16 @@ def plan_geometry(cfg: Config, pot, lat: float, r_global: np.ndarray,
                   n_cells, proc_grid, local_min, local_max):
     """Resolve cell sizing + capacity (cells.plan_cells) and build the local
     CellGeometry.  Returns (cfg', geom, plan) with cfg' carrying the
-    *resolved* max_atoms and cell_mode.  Cell-sweep methods use the full
-    cell slack min(cell) - cutoff as the rebucket trigger."""
-    lazy = cfg.lazy_shell and cfg.relative_skin_distance > 0
-    skin_req = pot.cutoff * cfg.relative_skin_distance if lazy else 0.0
+    *resolved* max_atoms and cell_mode.
+
+    NL / pairlist methods keep the classic sizing and the requested -S skin
+    (a larger trigger skin would inflate the Verlet K); cell-sweep methods
+    use the full cell slack min(cell) - cutoff as the rebucket trigger."""
+    uses_nl = cfg.use_nl or cfg.use_pairlist
+    lazy = (not uses_nl and cfg.lazy_shell
+            and cfg.relative_skin_distance > 0)
+    use_skin = uses_nl or lazy
+    skin_req = pot.cutoff * cfg.relative_skin_distance if use_skin else 0.0
 
     # auto-capacity margin near/above melting or under large -r jitter
     # (comd_tpu.sim.plan_geometry)
@@ -385,13 +508,14 @@ def plan_geometry(cfg: Config, pot, lat: float, r_global: np.ndarray,
     plan = cells.plan_cells(
         cutoff=pot.cutoff, lat=lat, n_cells=n_cells, proc_grid=proc_grid,
         r_global=r_global, skin_req=skin_req, lazy=lazy,
-        mode=cfg.cell_mode, max_atoms=cfg.max_atoms, trigger_from_cell=True,
+        mode="classic" if uses_nl else cfg.cell_mode,
+        max_atoms=cfg.max_atoms, trigger_from_cell=not uses_nl,
         margin_slots=margin)
     cfg = dataclasses.replace(cfg, max_atoms=plan.max_atoms,
                               cell_mode=plan.mode)
     geom = cells.make_geometry(
         np.asarray(local_min, np.float64), np.asarray(local_max, np.float64),
-        pot.cutoff + (plan.skin if lazy else 0.0),
+        pot.cutoff + (plan.skin if use_skin else 0.0),
         use_hilbert=cfg.do_hilbert, cell_size=plan.cell_size)
     return cfg, geom, plan
 
@@ -406,7 +530,12 @@ def bin_atoms_host_np(geom: cells.CellGeometry, cfg: Config,
     B = geom.n_total
     dtype = np.dtype(cfg.dtype)
 
-    box = cells.box_from_coord(geom, r)
+    # bin the coordinates as the state stores them: an atom on a cell face
+    # can fall on the other side once rounded to f32, and the device bins
+    # a ghost copy of it from the rounded value; binning both from one
+    # value keeps a ghost cell's slots those of its source cell (the
+    # slot-aligned ghost refresh, and a neighbor list, rely on it)
+    box = cells.box_from_coord(geom, r.astype(dtype).astype(np.float64))
     if box.max() >= geom.n_local:
         raise ValueError("generated atom outside the local domain")
     order = np.lexsort((gid, box))

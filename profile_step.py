@@ -4,9 +4,13 @@
     python3 profile_step.py                        # serial EAM headline
     python3 profile_step.py --mesh 2 2 2 --comm ki_fused
     python3 profile_step.py --mesh 2 2 2 --comm collective --half
+    python3 profile_step.py --method thread_atom_nl      # Verlet lists
+    python3 profile_step.py --lj --pairlist              # LJ -L
 
 Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
-phases 5, 8 and 12) through ``init_simulation`` and ``step_block``: warm-up
+phases 5, 8 and 12), or with ``--method``/``--lj``/``--pairlist`` the
+neighbor-list runs of phase 14, through ``init_simulation`` and
+``step_block``: warm-up
 blocks of 10 steps up to the first rebucket (its kernels load on first
 use), ``--steps`` steps (blocks of 10) timed by the host clock, then as
 many under torch.profiler (device activity only).  Prints one JSON
@@ -36,6 +40,9 @@ def main(argv=None) -> int:
     ap.add_argument("--comm", default="collective",
                     choices=["collective", "ki", "ki_fused"])
     ap.add_argument("--half", action="store_true", help="--halfShell")
+    ap.add_argument("--method", default="thread_atom", help="-m")
+    ap.add_argument("--lj", action="store_true", help="Lennard-Jones")
+    ap.add_argument("--pairlist", action="store_true", help="-L")
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args(argv)
 
@@ -55,10 +62,11 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     px, py, pz = args.mesh
     sim = init_simulation(Config(
-        nx=args.n, ny=args.n, nz=args.n, doeam=True, temperature=600.0,
-        dtype="float32", pot_dir=os.path.join(ROOT, "pots"), device="cuda",
-        xproc=px, yproc=py, zproc=pz, comm_impl=args.comm,
-        half_shell=args.half))
+        nx=args.n, ny=args.n, nz=args.n, doeam=not args.lj,
+        temperature=600.0, dtype="float32",
+        pot_dir=os.path.join(ROOT, "pots"), device="cuda", xproc=px,
+        yproc=py, zproc=pz, comm_impl=args.comm, half_shell=args.half,
+        method=args.method, use_pairlist=args.pairlist))
     # warm up through a rebucket: its kernels load on their first launch
     for _ in range(20):
         sim.step_block(10)
@@ -92,9 +100,10 @@ def main(argv=None) -> int:
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
     print(smi)
     print(json.dumps({
-        "run": (f"{args.n}^3 EAM f32 lazy, mesh {px}x{py}x{pz}, "
-                f"--commImpl {args.comm}" + (" --halfShell"
-                                             if args.half else "")),
+        "run": (f"{args.n}^3 {'LJ' if args.lj else 'EAM'} f32 -m "
+                f"{args.method}" + (" -L" if args.pairlist else "")
+                + f", mesh {px}x{py}x{pz}, --commImpl {args.comm}"
+                + (" --halfShell" if args.half else "")),
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -108,7 +117,8 @@ def main(argv=None) -> int:
         "hand_written_us_per_launch": {
             k[:90]: us / n for k, (us, n) in kern.items()
             if any(w in k for w in ("stencil_kernel", "halo_fill_kernel",
-                                    "ring_push_kernel"))},
+                                    "ring_push_kernel", "nl_build_kernel",
+                                    "nl_sweep_kernel"))},
     }))
     return 0
 

@@ -6,9 +6,12 @@ the same command line (within 1e-9 at f64), with no atoms lost: EAM, LJ,
 and both with ``--halfShell``; a 2x2x2 mesh under ``--commImpl ki_fused``
 prints comd_tpu's rows to the printed digits.  ``--halfFetch``/
 ``--halfMaterialize`` are accepted and change nothing; ``--commImpl`` on a
-serial run warns, and an undersized ``--haloMsgFactor`` aborts.  Every
-option outside the ported slice raises NotImplementedError naming the
-ROADMAP.md item that ports it, instead of running something else.
+serial run warns, and an undersized ``--haloMsgFactor`` aborts.  The
+neighbor-list methods (-m thread_atom_nl, warp_atom_nl, cpu_nl, and -L)
+run, serial and on a 2x2x2 mesh, from comd_tpu's initial energy, and
+``-e -m thread_atom_nl`` prints comd_tpu's printThings rows.  Every option
+outside the ported slice raises NotImplementedError naming the ROADMAP.md
+item that ports it, instead of running something else.
 """
 import io
 import os
@@ -113,19 +116,61 @@ def test_cell_methods_run_the_stencil(method, capsys):
     assert res["e_initial"] == pytest.approx(-3.460523233086, abs=1e-9)
 
 
+@pytest.mark.parametrize("extra,box,e_initial", [
+    (["-e", "-m", "thread_atom_nl"], 4, -3.460523233086),
+    (["-e", "-m", "warp_atom_nl"], 4, -3.460523233086),
+    (["-e", "-m", "cpu_nl"], 4, -3.460523233086),
+    (["-e", "-L"], 4, -3.460523233086),
+    # 4^3 on 2x2x2 leaves one NL cell a shard, which both packages refuse
+    (["-e", "-i", "2", "-j", "2", "-k", "2", "-m", "thread_atom_nl"], 8,
+     -3.460523233086),
+    (["-i", "2", "-j", "2", "-k", "2", "-L"], 8, -1.166063303478),
+])
+def test_nl_methods_run(extra, box, e_initial):
+    """Every neighbor-list method name and -L runs (f64, on the CPU), from
+    the initial energy comd_tpu's CLI prints for the same flags, with no
+    atom lost.  cpu_nl runs the same path as the others."""
+    n = str(box)
+    res = tcli.run(tcli.config_from_args(tcli.build_parser().parse_args(
+        ["-x", n, "-y", n, "-z", n, "-N", "2", "-n", "2", "--dtype",
+         "float64", "--device", "cpu"] + extra)), out=io.StringIO())
+    assert res["atoms_lost"] == 0
+    assert res["e_initial"] == pytest.approx(e_initial, abs=1e-9)
+
+
+def test_cli_nl_matches_comd_tpu():
+    """-e -m thread_atom_nl prints comd_tpu's printThings rows (energies
+    within 1e-9) and validation numbers."""
+    args = ARGS + ["-m", "thread_atom_nl"]
+    ref = _numbers(_run("comd_tpu.cli", args=args))
+    got = _numbers(_run("comd_tpu_torch.cli", "--device", "cpu", args=args))
+    assert got[0] == pytest.approx(ref[0], abs=1e-9)
+    assert len(got[1]) == len(ref[1]) == 3
+    for row_t, row_j in zip(got[1], ref[1]):
+        assert row_t[:3] == pytest.approx(row_j[:3], abs=1e-9)
+        assert row_t[3] == pytest.approx(row_j[3], abs=1e-4)
+    for k in ref[2]:
+        assert got[2][k] == pytest.approx(ref[2][k], abs=1e-9)
+    assert got[3] == ref[3] == 256
+
+
+def test_cli_undersized_nl_k_aborts():
+    """A neighbor-list K too small raises the overflow flag at the build
+    and the run aborts before its first step."""
+    cfg = tcli.config_from_args(tcli.build_parser().parse_args(
+        ARGS + ["-N", "1", "-m", "thread_atom_nl", "--device", "cpu"]))
+    cfg.nl_max_neighbors = 8
+    with pytest.raises(RuntimeError, match="step 0: .*neighbor list row"):
+        tcli.run(cfg, out=io.StringIO())
+
+
 @pytest.mark.parametrize("extra,item", [
     (["-I"], "7"),                          # table-interpolated LJ
     (["-e", "-I"], "7"),
     (["-e", "-P"], "8"),
     (["-I", "--halfShell"], "7"),
-    (["-e", "-m", "thread_atom_nl"], "11"),
-    (["-e", "-m", "warp_atom_nl"], "11"),
-    (["-e", "-m", "cpu_nl"], "11"),
-    (["-e", "-L"], "11"),
     (["-e", "-i", "2", "-j", "2", "-k", "2", "-a", "1"], "15"),
     (["-e", "--numProcs", "2"], "14"),
-    (["-e", "-i", "2", "-j", "2", "-k", "2", "-m", "thread_atom_nl"], "11"),
-    (["-i", "2", "-j", "2", "-k", "2", "-L"], "11"),
     (["-e", "--restore", "ckpt"], "6"),
     (["-e", "--checkpoint", "ckpt"], "6"),
     (["-e", "-s"], "6"),

@@ -1,7 +1,10 @@
 """The CUDA kernels on the card against their plain versions: the
 cell-stencil kernels (K1, K2), the halo kernels (the dfEmbed fill, K3's
-and K4's functions in one launch; the atom stage push, K3) and the archive
-probes' kernels (P1-P6: window_pair, row_lookup, lane_lookup).
+and K4's functions in one launch; the atom stage push, K3), the archive
+probes' kernels (P1-P6: window_pair, row_lookup, lane_lookup) and the
+neighbor-list kernels (NL1 nl_build: the same lists, counts and overflow
+flag bit for bit; NL2 nl_sweep: the pair sums at the stencil tolerances,
+the same bits on two launches).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -30,7 +33,9 @@ import torch
 from comd_tpu_torch import Config, init_simulation
 from comd_tpu_torch.interop import FIELDS, state_from_numpy
 from comd_tpu_torch.ops import binning
+from comd_tpu_torch.ops import neighborlist as nlmod
 from comd_tpu_torch.ops.cuda import comm as cm
+from comd_tpu_torch.ops.cuda import nl as cuda_nl
 from comd_tpu_torch.ops.cuda import probe as cuda_probe
 from comd_tpu_torch.ops.cuda import stencil as st
 from comd_tpu_torch.parallel import ki_comm
@@ -604,3 +609,112 @@ def test_sharded_card_matches_cpu(cuda_device):
                                        getattr(c, k).numpy(), rtol=0,
                                        atol=1e-10)
     assert gpu.e_potential == pytest.approx(cpu.e_potential, rel=1e-12)
+
+
+def _nl_sim(dtype, impl="cheb", doeam=True, **kw):
+    """A thermalized 8^3 neighbor-list run on the card (A = 32 classic
+    cells, K = 96 EAM / 160 LJ)."""
+    return _sim(dtype, impl, 8, "cuda", doeam=doeam,
+                method="thread_atom_nl", **kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("split", [False, True])
+def test_nl_build_matches_plain(cuda_device, dtype, split):
+    """NL1: lists, counts and overflow flag bit for bit, with and without
+    the -a 1 row split, and with a K too small (overflow set, the first K
+    entries still equal); one launch a call."""
+    sim = _nl_sim(dtype)
+    s = sim.state
+    params = sim.nl_build_params()
+    row_split = nlmod.row_split_for(sim.geom, sim.cfg.max_atoms) \
+        if split else None
+    n_rows = (row_split[1] + row_split[2]) if split else params["n_rows"]
+    a_list, a_valid = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
+                                      n_rows, row_split)
+    for k in (params["k"], 8):
+        st.reset_launch_counts()
+        got = cuda_nl.nl_build(s.r, a_list, a_valid, sim.maps.nbr_map,
+                               s.n_atoms, k=k, rcut2=params["rcut2"])
+        assert st.LAUNCHES["nl_build"] == 1
+        want = cuda_nl.nl_build_plain(s.r, a_list, a_valid,
+                                      sim.maps.nbr_map, s.n_atoms, k=k,
+                                      rcut2=params["rcut2"])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert bool(got[2]) == (k == 8)
+
+
+def _nl_sweeps(sim):
+    """(name, kernel call, plain call) of every NL2 variant on sim's state
+    and list (EAM: pass 1 with and without energy, pass 3; LJ: with and
+    without energy)."""
+    s, lst, ev = sim.state, sim.nlist, sim.pair_eval
+    if not sim.is_eam:
+        return [(f"lj {e}", lambda e=e: cuda_nl.lj_pass(lst, s.r, ev,
+                                                        want_energy=e),
+                 lambda e=e: cuda_nl.lj_pass_plain(lst, s.r, ev,
+                                                   want_energy=e))
+                for e in (True, False)]
+    _f, _phi, rho = cuda_nl.eam_pass1_plain(lst, s.r, ev)
+    dfe = nlmod.scatter_rows(lst, sim.f_eval(rho)[1], *s.r.shape[1:])
+    binning.fill_halo_scalar_serial(sim.geom, sim.maps, dfe)
+    return [(f"pass1 {e}", lambda e=e: cuda_nl.eam_pass1(lst, s.r, ev,
+                                                         want_energy=e),
+             lambda e=e: cuda_nl.eam_pass1_plain(lst, s.r, ev,
+                                                 want_energy=e))
+            for e in (True, False)] + [
+        ("pass3", lambda: (cuda_nl.eam_pass3(lst, s.r, ev, dfe),),
+         lambda: (cuda_nl.eam_pass3_plain(lst, s.r, ev, dfe),))]
+
+
+@pytest.mark.parametrize("doeam", [True, False], ids=["eam", "lj"])
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_nl_sweep_matches_plain(cuda_device, dtype, impl, doeam):
+    """NL2 against its plain version per row (invalid rows zero in both),
+    the same bits on two launches, one launch a call."""
+    sim = _nl_sim(dtype, impl, doeam)
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    for name, kern, plain in _nl_sweeps(sim):
+        st.reset_launch_counts()
+        got = kern()
+        assert st.LAUNCHES["nl_sweep"] == 1, name
+        want = plain()
+        assert len(got) == len(want), name
+        _close(got[0], want[0], f_atol, f_rtol)
+        for g, w in zip(got[1:], want[1:]):
+            assert (g is None) == (w is None), name
+            if g is not None:
+                _close(g, w, 0.0, s_rtol)
+        again = kern()
+        assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("comm_impl", ["ki", "collective"])
+def test_nl_card_matches_cpu(cuda_device, comm_impl):
+    """20 f64 thread_atom_nl EAM steps through a rebuild on the card (NL1,
+    NL2) against the CPU (plain versions) from one state, serial and on a
+    2x2x2 mesh (the -a auto row split): summation order only."""
+    for mesh in ({}, MESH):
+        kw = dict(nx=8, ny=8, nz=8, doeam=True, temperature=1200.0,
+                  initial_delta=0.1, dtype="float64",
+                  method="thread_atom_nl", pot_dir=POTS, **mesh)
+        cpu = init_simulation(Config(device="cpu", **kw))
+        gpu = init_simulation(Config(device="cuda", comm_impl=comm_impl,
+                                     **kw))
+        for sim in (cpu, gpu):
+            sim.step_block(10)
+            sim.step_block(10)
+        assert gpu.n_nl_build == cpu.n_nl_build >= 2
+        assert gpu.e_potential == pytest.approx(cpu.e_potential, rel=1e-12)
+        assert gpu.sum_atoms() == cpu.n_global and not gpu.overflow
+
+
+def test_nl_golden_on_card(cuda_device):
+    sim = init_simulation(Config(nx=6, ny=6, nz=6, doeam=True,
+                                 method="thread_atom_nl", temperature=0.0,
+                                 dtype="float64", pot_dir=POTS,
+                                 device="cuda"))
+    assert sim.e_potential / sim.n_global == pytest.approx(GOLDEN_EAM_ADAMS,
+                                                           abs=1e-9)
