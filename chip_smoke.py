@@ -86,16 +86,20 @@ the first error:
                  versions on thermalized 10^3 states, EAM and LJ,
                  f32/Chebyshev and f64/table: NL1 lists, counts and
                  overflow bit for bit (also with K = 8, which must
-                 overflow), NL2 EAM passes 1 (with and without energy) and
-                 3 and LJ at phase 6's tolerances, two launches the same
+                 overflow, and with the -a 1 row split), NL2 EAM passes 1
+                 (with and without energy) and 3 and LJ at phase 6's
+                 tolerances on the run's list, the K = 8 list (no row
+                 padded) and the split list, two launches the same
                  bits; the Adams golden at 6^3 f64 through -m
                  thread_atom_nl; the 63^3 EAM -m thread_atom_nl and LJ -L
                  headlines (run_main's checks, NL2 twice (EAM) or once (LJ)
                  a force, one NL1 launch a build, builds counted), NL1/NL2
                  at that state against their plain versions, times beside
-                 the plain versions and bounds, ms/step beside phases 5 and
-                 9; the EAM NL headline on a 2x2x2 mesh under ki and
-                 collective (-a auto: the row split): initial ePot and
+                 the plain versions and bounds (NL2's also counting every
+                 entry of a real row, with ps a real list entry and a pair
+                 inside the cutoff beside K1's pass 1), ms/step beside
+                 phases 5 and 9; the EAM NL headline on a 2x2x2 mesh under
+                 ki and collective (-a auto: the row split): initial ePot and
                  final energy within 1e-6 of the serial NL run's (63 is
                  odd: atom planes lie on the shards' cell faces), three
                  ring_push an atom
@@ -843,14 +847,15 @@ def nl_lists_and_rows(sim):
     return rows, params
 
 
-def nl_calls(sim):
+def nl_calls(sim, lst=None):
     """{name: (kernel call, plain call, pair, energy)} of NL1 and every NL2
-    variant on a serial NL run's state (NL2 on its current list; EAM pass 3
-    on the dfEmbed of the plain pass 1)."""
+    variant on a serial NL run's state (NL2 on ``lst``, default the run's
+    current list; EAM pass 3 on the dfEmbed of the plain pass 1)."""
     from comd_tpu_torch.ops import binning
     from comd_tpu_torch.ops import neighborlist as nlmod
     from comd_tpu_torch.ops.cuda import nl as nlk
-    s, lst, ev = sim.state, sim.nlist, sim.pair_eval
+    s, ev = sim.state, sim.pair_eval
+    lst = sim.nlist if lst is None else lst
     (a_list, a_valid), p = nl_lists_and_rows(sim)
     args = (s.r, a_list, a_valid, sim.maps.nbr_map, s.n_atoms)
     kw = dict(k=p["k"], rcut2=p["rcut2"])
@@ -879,13 +884,16 @@ def nl_calls(sim):
 
 
 def compare_nl(sim, tag: str, f_atol: float, s_rtol: float,
-               f_rtol: float = 0.0) -> dict:
+               f_rtol: float = 0.0, more_lists: bool = False) -> dict:
     """NL1 (lists, counts, overflow bit for bit; again with K = 8, which
-    must overflow) and NL2 (forces within f_atol + f_rtol max|f|, scalars
-    within s_rtol of their largest value; two launches the same bits)
-    against their plain versions on sim's state.  Returns {kernel: max abs
-    err} (forces for NL2)."""
+    must overflow, and with the -a 1 row split) and NL2 (forces within
+    f_atol + f_rtol max|f|, scalars within s_rtol of their largest value;
+    two launches the same bits) against their plain versions on sim's
+    state: NL2 on the run's list and, with ``more_lists``, also on the
+    K = 8 list (no row has padding: the early stop's edge) and on the
+    split list.  Returns {kernel: max abs err} (forces for NL2)."""
     import torch
+    from comd_tpu_torch.ops import neighborlist as nlmod
     from comd_tpu_torch.ops.cuda import nl as nlk
     calls = nl_calls(sim)
     kern, plain, _p, _e = calls.pop("nl_build")
@@ -893,42 +901,74 @@ def compare_nl(sim, tag: str, f_atol: float, s_rtol: float,
     same = all(torch.equal(g, w) for g, w in zip(got, want))
     s = sim.state
     (a_list, a_valid), p = nl_lists_and_rows(sim)
-    small = [f(s.r, a_list, a_valid, sim.maps.nbr_map, s.n_atoms, k=8,
-               rcut2=p["rcut2"]) for f in (nlk.nl_build, nlk.nl_build_plain)]
-    same_small = all(torch.equal(g, w) for g, w in zip(*small))
-    check(same and not bool(got[2]) and same_small and bool(small[0][2]),
-          f"{tag} NL1: lists equal {same} (K = 8: {same_small}), overflow "
-          f"{bool(got[2])} (K = 8: {bool(small[0][2])})")
+    A = s.r.shape[2]
+    row_split = nlmod.row_split_for(sim.geom, A)
+    rows_split = nlmod.atom_rows(sim.geom, s.n_atoms, A,
+                                 row_split[1] + row_split[2], row_split)
+    built = {}
+    for name, (al, av), k in (("K = 8", (a_list, a_valid), 8),
+                              ("split", rows_split, p["k"])):
+        built[name] = ([f(s.r, al, av, sim.maps.nbr_map, s.n_atoms, k=k,
+                          rcut2=p["rcut2"])
+                        for f in (nlk.nl_build, nlk.nl_build_plain)], al, av)
+    same_more = {n: all(torch.equal(g, w) for g, w in zip(*b))
+                 for n, (b, _al, _av) in built.items()}
+    small = built["K = 8"][0][0]
+    check(same and not bool(got[2]) and all(same_more.values())
+          and bool(small[2]) and not bool(built["split"][0][0][2]),
+          f"{tag} NL1: lists equal {same} ({same_more}), overflow "
+          f"{bool(got[2])} (K = 8: {bool(small[2])}, split: "
+          f"{bool(built['split'][0][0][2])})")
     mean = float(got[1][a_valid].float().mean())
     errs = {"nl_build": 0.0, "nl_sweep": 0.0}
-    for name, (kern, plain, _pair, _energy) in calls.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        e_f = float((got[0] - want[0]).abs().max())
-        fmax = float(want[0].abs().max())
-        e_s = max([norm_rel(g, w) for g, w in zip(got[1:], want[1:])
-                   if w is not None], default=0.0)
-        again = kern()
-        bits = all(a is b or torch.equal(a, b) for a, b in zip(got, again))
-        check(e_f <= f_atol + f_rtol * fmax and e_s <= s_rtol and bits,
-              f"{tag} NL2 {name}: force err {e_f:.3e} (|f|max {fmax:.3e}), "
-              f"scalar err {e_s:.3e}, same bits twice {bits}")
-        errs["nl_sweep"] = max(errs["nl_sweep"], e_f)
+    lists = {"": sim.nlist}
+    if more_lists:
+        for name, ((_k, (nl, count, _o)), al, av) in built.items():
+            lists[name] = nlmod.NeighborList(a_list=al, a_valid=av, nl=nl,
+                                             last_r=s.r)
+        k8 = built["K = 8"][0][1][1]
+        check(bool((k8[a_valid] > 8).all()), f"{tag}: a K = 8 row has "
+              f"padding")
+    for list_name, lst in lists.items():
+        for name, (kern, plain, _pair, _energy) in nl_calls(sim,
+                                                            lst).items():
+            if name == "nl_build":
+                continue
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            e_f = float((got[0] - want[0]).abs().max())
+            fmax = float(want[0].abs().max())
+            e_s = max([norm_rel(g, w) for g, w in zip(got[1:], want[1:])
+                       if w is not None], default=0.0)
+            again = kern()
+            bits = all(a is b or torch.equal(a, b)
+                       for a, b in zip(got, again))
+            check(e_f <= f_atol + f_rtol * fmax and e_s <= s_rtol and bits,
+                  f"{tag} NL2 {name} {list_name}: force err {e_f:.3e} "
+                  f"(|f|max {fmax:.3e}), scalar err {e_s:.3e}, same bits "
+                  f"twice {bits}")
+            errs["nl_sweep"] = max(errs["nl_sweep"], e_f)
+    names = [n for n in calls]
     say("nl", f"{tag}: NL1 lists, counts and overflow equal (also K = 8, "
-        f"overflowing), {mean:.1f} entries a row (K {p['k']}); NL2 "
-        f"{', '.join(calls)} |df|max {errs['nl_sweep']:.3e}, two launches "
-        f"the same bits")
+        f"overflowing, and the row split), {mean:.1f} entries a row (K "
+        f"{p['k']}); NL2 {', '.join(names)} on the run's list"
+        + (" and the K = 8 and split lists" if more_lists else "")
+        + f" |df|max {errs['nl_sweep']:.3e}, two launches the same bits")
     return errs
 
 
-def nl_bound(sim, name: str, pair, energy: bool) -> tuple:
-    """(bound_ms, bound_by) of one NL1 or NL2 launch on a serial NL run's
-    state, the larger of bytes / HBM rate and flops / f32 peak.  NL1:
-    positions, rows, neighbor map and occupancy read once, the [R, K] list
-    and the counts written once; 8 flops a candidate tested (the occupied
-    slots of each real row's 27 boxes).  NL2: positions, rows and the real
-    rows' lists (and dfEmbed) read once, [3 + ns, R] written once; 8 flops
-    an entry of a real row, plus ``pair_flops`` a pair inside the cutoff."""
+def nl_bound(sim, name: str, pair, energy: bool) -> dict:
+    """The bound of one NL1 or NL2 launch on a serial NL run's state, the
+    larger of bytes / HBM rate and flops / f32 peak: {"ms", "by"} and the
+    work counted.  NL1: positions, rows, neighbor map and occupancy read
+    once, the [R, K] list and the counts written once; 8 flops a candidate
+    tested (the occupied slots of each real row's 27 boxes).  NL2:
+    positions, rows, the real rows' list entries up to each row's end
+    (min(count, K) a row) and dfEmbed read once, [3 + ns, R] written once;
+    8 flops a real entry, plus ``pair_flops`` a pair inside the cutoff.
+    ``all_k_ms``: NL2's bound counting every entry of a real row as read
+    and tested (n_real K), the count of the earlier records, so that their
+    shares stay comparable."""
     import torch
     s, lst = sim.state, sim.nlist
     r = s.r
@@ -936,36 +976,45 @@ def nl_bound(sim, name: str, pair, energy: bool) -> tuple:
     e = r.element_size()
     R, K = lst.nl.shape
     n_real = int(lst.a_valid.sum())
+
+    def ms(flops, nbytes):
+        t_ops = 1e3 * flops / PEAK_F32_FLOPS
+        t_bytes = 1e3 * nbytes / PEAK_BYTES
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
     if name == "nl_build":
         nbr = sim.maps.nbr_map.to(torch.int64)
         occ = s.n_atoms.clamp(max=A).to(torch.int64)
         cand = int((occ[:nbr.shape[0]] * occ[nbr].sum(1)).sum())
-        nbytes = (3 * B * A * e + 5 * R + nbr.numel() * 4 + 4 * B
-                  + R * K * 4 + 4 * R)
-        flops = 8 * cand
-    else:
-        per, ns = pair_flops(sim.pair_eval, pair, energy)
-        r_flat = r.reshape(3, -1)
-        rc2 = sim.pair_eval.rcut2
-        inside = 0
-        for c0 in range(0, R, 65536):
-            rows = lst.a_list[c0:c0 + 65536].to(torch.int64)
-            nl = lst.nl[c0:c0 + 65536].to(torch.int64)
-            d = r_flat[:, rows][:, :, None] - r_flat[:, nl]
-            r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-            inside += int(((r2 <= rc2) & (r2 > 0)
-                           & lst.a_valid[c0:c0 + 65536, None]).sum())
-        nbytes = (3 * B * A * e + 5 * R + n_real * K * 4
-                  + (B * A * e if pair == "eam_pass3" else 0)
-                  + (3 + ns) * R * e)
-        flops = 8 * n_real * K + per * inside
-    t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
+        b_ms, b_by = ms(8 * cand, 3 * B * A * e + 5 * R + nbr.numel() * 4
+                        + 4 * B + R * K * 4 + 4 * R)
+        return {"ms": b_ms, "by": b_by, "candidates": cand}
+    per, ns = pair_flops(sim.pair_eval, pair, energy)
+    r_flat = r.reshape(3, -1)
+    rc2 = sim.pair_eval.rcut2
+    inside = entries = 0
+    for c0 in range(0, R, 65536):
+        rows = lst.a_list[c0:c0 + 65536].to(torch.int64)
+        nl = lst.nl[c0:c0 + 65536].to(torch.int64)
+        valid = lst.a_valid[c0:c0 + 65536, None]
+        d = r_flat[:, rows][:, :, None] - r_flat[:, nl]
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        inside += int(((r2 <= rc2) & (r2 > 0) & valid).sum())
+        entries += int(((nl != rows[:, None]) & valid).sum())
+    fixed = (3 * B * A * e + 5 * R
+             + (B * A * e if pair == "eam_pass3" else 0) + (3 + ns) * R * e)
+    b_ms, b_by = ms(8 * entries + per * inside, fixed + 4 * entries)
+    all_k_ms, _by = ms(8 * n_real * K + per * inside,
+                       fixed + 4 * n_real * K)
+    return {"ms": b_ms, "by": b_by, "all_k_ms": all_k_ms, "entries": entries,
+            "inside": inside, "flops": 8 * entries + per * inside}
 
 
-def run_nl(serial_ms: float, lj_ms: float) -> dict:
-    """Phase 14: the Verlet-list kernels and paths.  Returns the kernels
+def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
+    """Phase 14: the Verlet-list kernels and paths; NL2's time a real list
+    entry and a pair inside the cutoff beside K1's pass 1 (``k1_pass1``:
+    ms, slot pairs, occupied candidate pairs, flops).  Returns the kernels
     line's nl_build and nl_sweep rows."""
     import torch
     from comd_tpu_torch import Config, init_simulation
@@ -982,7 +1031,8 @@ def run_nl(serial_ms: float, lj_ms: float) -> dict:
                 pot_dir=POTS, device="cuda"))
             sim.step_block(10)
             e = compare_nl(sim, f"10^3 {dtype}/{sim.pair_eval.kind} "
-                           f"A={sim.cfg.max_atoms}", f_atol, s_rtol, f_rtol)
+                           f"A={sim.cfg.max_atoms}", f_atol, s_rtol, f_rtol,
+                           more_lists=True)
             errs = {k: max(errs[k], e[k]) for k in errs}
             del sim
     golden("Adams Cu 6^3 T=0 -m thread_atom_nl", GOLDEN_EAM_ADAMS, nx=6,
@@ -1015,18 +1065,30 @@ def run_nl(serial_ms: float, lj_ms: float) -> dict:
         for name, (kern, plain, pair, energy) in nl_calls(sim).items():
             if energy:
                 continue         # 99 of 100 steps run without energy
-            ms = time_ms(kern, 1 if name == "nl_build" else 20)
+            ms = time_ms(kern, 5 if name == "nl_build" else 20)
             plain_ms = time_ms(plain, 1)
-            b_ms, b_by = nl_bound(sim, name, pair, energy)
-            timing[(tag, name)] = (ms, plain_ms, b_ms, b_by)
-            extra = ""
+            b = nl_bound(sim, name, pair, energy)
+            timing[(tag, name)] = (ms, plain_ms, b["ms"], b["by"])
             if name == "nl_build":
                 extra = (f"; {sim.n_nl_build - 1} rebuilds in {steps} steps:"
                          f" {ms * (sim.n_nl_build - 1) / steps:.4f} ms a "
                          f"step")
+            else:
+                k1_ms, _slots, k1_cand, k1_flops = k1_pass1
+                extra = (
+                    f"; counting every entry of a real row (n_real K) "
+                    f"bound {b['all_k_ms']:.4f} ms, "
+                    f"{100 * b['all_k_ms'] / ms:.1f}% "
+                    f"of it; {b['entries']:,} real list entries, "
+                    f"{b['inside']:,} pairs inside the cutoff: "
+                    f"{1e9 * ms / b['entries']:.3f} ps an entry, "
+                    f"{1e9 * ms / b['inside']:.3f} ps a pair, "
+                    f"{b['flops'] / ms / 1e9:.3f} TFLOP/s needed (K1 EAM "
+                    f"pass 1, phase 5: {1e9 * k1_ms / k1_cand:.3f} ps a "
+                    f"candidate pair, {k1_flops / k1_ms / 1e9:.3f} TFLOP/s)")
             say("timing", f"{tag} {name}: kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-                f"{100 * b_ms / ms:.1f}% of it{extra}")
+                f"{plain_ms:.4f} ms, bound {b['ms']:.4f} ms ({b['by']}), "
+                f"{100 * b['ms'] / ms:.1f}% of it{extra}")
         launched[tag] = launches
         nl_final[tag] = (sim.e_potential + sim.kinetic_energy()) / sim.n_global
         del sim
@@ -1415,7 +1477,7 @@ def main() -> int:
     rows.update(run_probes(k1_pass1))
 
     # 14. the Verlet-list kernels NL1/NL2 and the NL paths
-    rows.update(run_nl(serial_ms, lj_ms))
+    rows.update(run_nl(serial_ms, lj_ms, k1_pass1))
 
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",

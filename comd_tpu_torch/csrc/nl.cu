@@ -9,35 +9,67 @@
 //
 // Layout: positions are the state's [3, B, A] planes (empty slots at the
 // 1e10 sentinel); a list row is one compacted local atom, a_list[row] its
-// flat slot id, and nl[row, 0..K-1] the flat slot ids of its j.
-//
-// NL1, one warp a row: the row's 27 boxes (nbr_map[box] in column order)
-// are flattened to their occupied slots, min(n_atoms, A) a box, and the
-// warp walks them 32 candidates at a time, lane = candidate, finding its
-// box by a binary search over the warp's prefix sums (shuffles).  Each lane
-// tests r2 <= (rcut + skin)^2 (and r2 > 0) with r2 rounded product by
-// product (dist2), so the lists equal the plain version's bit for bit;
-// __ballot_sync and __popc give each hit its rank, and the first K hits in
-// candidate order (boxes in column order, slots ascending; an empty slot
-// is never a hit) are written.  The rest of the row is padded with the
-// row's own slot id, the row's full count is written, and a count above K
-// on a valid row sets the overflow flag.  Invalid rows (past the real
-// atoms) get an all-padding list and count 0.
-//
-// NL2, one warp a row (the warp_atom_nl analog): lanes stride over the K
-// entries, gather r_j (and dfEmbed_j in EAM pass 3), test r2 <= rcut^2 and
-// evaluate K1's own pair function (pair.cuh: pair_eval) on the pairs
-// inside; each lane sums its own entries in order and a fixed xor-butterfly
-// shuffle adds the 32 lanes, so every launch gives the same bits.  Invalid
-// rows write zeros.  Outputs are per row, [3 + ns, R]: force, then the
-// pass's scalars (EAM pass 1: [phi,] rho; LJ: [e]).
+// flat slot id, and nl[row, 0..K-1] the flat slot ids of its j, the first
+// min(count, K) real and the rest padding (the row's own slot id).  The
+// valid rows of a cell are contiguous, in slot order (ops/neighborlist
+// .atom_rows, with or without the -a 1 row split), and row_start[cell] is
+// the row of its slot 0 (neighborlist.cell_row_starts).
 //
 // What bounds them at the 63^3 EAM headline (A = 32 on 41^3 classic
-// cells, R = 2.2 M rows of which 1.0 M are atoms, K = 96): NL1 writes the
-// whole [R, K] list, 0.85 GB, against ~3 GFLOP of r2 tests, so bytes bound
-// it (~0.26 ms); NL2 reads the real rows' lists, 0.38 GB, so bytes bound
-// it too (~0.11 ms).  A simple first design: only ~45% of a warp's lanes
-// hold an entry inside the cutoff in NL2's pair function.
+// cells, R = 2.2 M rows of which 1.0 M are atoms, K = 96, ~391 occupied
+// candidates, ~54 list entries and ~43 pairs inside the cutoff a row):
+// NL1 writes the whole [R, K] list, 0.85 GB (0.46 GB of it the padding of
+// invalid rows), so bytes bound it (~0.27 ms); NL2 needs the real entries
+// of the lists, ~0.22 GB, the positions and its outputs (~0.09 ms by
+// bytes; chip_smoke.py's nl_bound).
+//
+// NL1, one block per local cell (plus blocks that pad the invalid rows):
+//  - the cell's 27 boxes (nbr_map in column order) and the prefix sums of
+//    their occupied slots, min(n_atoms, A) a box, are computed once;
+//  - the occupied candidates' positions are staged with cp.async in
+//    candidate order (boxes in column order, slots ascending), with their
+//    slot ids, in chunks of at most kStageMax (27 A can exceed it: 5-sigma
+//    LJ has A = 256), so each of the cell's ~14.5 rows reads a candidate
+//    with one shared load instead of repeating a search, shuffles and
+//    three global gathers a candidate for every row;
+//  - a warp walks kBuildRows of the cell's rows at once, 32 staged
+//    candidates at a time (one shared load serves both rows), tests
+//    0 < r2 <= (rcut + skin)^2 with r2 rounded product by product (dist2),
+//    ranks each row's hits with __ballot_sync/__popc and writes its first
+//    K in candidate order; the running counts stay in shared memory
+//    across chunks.  The rest of a row is padded with its own slot id,
+//    the full count is written, and a count above K sets the overflow
+//    flag.  The lists equal the plain version's bit for bit;
+//  - invalid rows (past the real atoms) get slot id a_list[row] (0) in
+//    every entry with 16-byte stores and count 0, kPadRows rows a block.
+//
+// NL2, a small kernel and the sweep, one call:
+//  - nl_pack_kernel writes each slot's x, y, z (and EAM pass 3's dfEmbed)
+//    as one 16-byte record (32 in double), so a j costs one gather, not
+//    three or four;
+//  - the sweep gives a warp kRowsAWarp consecutive rows and walks them
+//    together: each step loads the next 32 entries of every open row,
+//    then issues all their gathers, then tests them, so a warp has four
+//    rows' loads in flight at once;
+//  - a row ends at the first step holding padding (padding sits only at
+//    a row's tail, and no real entry is the row's own slot id, since the
+//    build needs r2 > 0), so a row of ~54 entries reads 2 chunks of
+//    K = 96's 3;
+//  - the entries with 0 < r2 <= rcut^2 are ranked with ballot/popc and
+//    appended, as (dx, dy, dz, dfEmbed_i + dfEmbed_j), to their row's ring
+//    of kQueue in shared memory;
+//  - the warp drains when every open row has kLanesARow pairs queued (or a
+//    ring nears full, and at the end): lanes grp * kLanesARow + sub
+//    evaluate row grp's next pairs with K1's own pair function (pair.cuh:
+//    pair_eval, on r2 = dist2(dx, dy, dz), the walk's bits), so the pair
+//    function runs with nearly every lane busy (testing in place would
+//    leave ~55% of them idle) and each lane sums one row only;
+//  - each row's sum is its lanes' sums in queue order, then a fixed xor
+//    butterfly over its kLanesARow lanes: one bit pattern on every launch;
+//  - no block-wide barrier: a warp writes its rows' [3 + ns] outputs
+//    itself (zeros for a warp without a valid row).
+// Outputs are per row, [3 + ns, R]: force, then the pass's scalars (EAM
+// pass 1: [phi,] rho; LJ: [e]).
 //
 // Plain C interface for ctypes: each entry point returns the cudaError_t
 // of its launch (0 = success) and does not synchronize.
@@ -49,140 +81,376 @@
 
 #include "pair.cuh"
 
-constexpr int kRowsABlock = 8;   // warps, one row each, a block
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBuildWarps = 4;     // NL1: warps of a cell's block
+constexpr int kBuildRows = 2;      // NL1: rows a warp walks at once
+constexpr int kStageMax = 1024;    // NL1: candidates staged a chunk
+constexpr int kPadRows = 64;       // NL1: rows a padding block
+constexpr int kSweepWarps = 4;     // NL2: warps a block
+constexpr int kRowsAWarp = 4;      // NL2: consecutive rows a warp
+constexpr int kQueue = 64;         // NL2: ring of queued pairs a row
+constexpr int kLanesARow = 32 / kRowsAWarp;   // NL2: a row's drain lanes
 
 namespace {
 
+// The padding of invalid rows [row0, row0 + kPadRows): every entry the
+// row's slot id, count 0.  A block without an invalid row exits.
+__device__ __forceinline__ void pad_rows(int row0, const int* a_list,
+                                         const unsigned char* a_valid,
+                                         int n_rows, int K, int* nl,
+                                         int* count, int* spad) {
+  const int t = threadIdx.x;
+  const int row = row0 + t;
+  bool inv = false;
+  if (t < kPadRows) {
+    spad[t] = -1;   // a valid row, or past the rows: not written
+    if (row < n_rows && !a_valid[row]) {
+      inv = true;
+      spad[t] = a_list[row];
+      count[row] = 0;
+    }
+  }
+  if (!__syncthreads_or(inv)) return;
+  const int rows = min(kPadRows, n_rows - row0);
+  int* base = nl + static_cast<size_t>(row0) * K;
+  if (K % 4 == 0) {
+    for (int u = t; u < rows * K / 4; u += blockDim.x) {
+      const int v = spad[u * 4 / K];
+      if (v >= 0) reinterpret_cast<int4*>(base)[u] = make_int4(v, v, v, v);
+    }
+  } else {
+    for (int e = t; e < rows * K; e += blockDim.x) {
+      const int v = spad[e / K];
+      if (v >= 0) base[e] = v;
+    }
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(32 * kRowsABlock)
+__global__ void __launch_bounds__(32 * kBuildWarps)
 nl_build_kernel(const T* __restrict__ r, int plane,
                 const int* __restrict__ a_list,
                 const unsigned char* __restrict__ a_valid,
                 const int* __restrict__ nbr_map,
-                const int* __restrict__ n_atoms, int n_rows, int A, int K,
-                T rcut2, int* __restrict__ nl, int* __restrict__ count,
-                int* __restrict__ overflow) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsABlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;   // whole warps
-  const int i = a_list[row];
-  int* __restrict__ out = nl + static_cast<size_t>(row) * K;
-  int n = 0;
-  if (a_valid[row]) {
-    const T xi = r[i], yi = r[plane + i], zi = r[2 * plane + i];
-    // lane c < 27: column c's box, its occupied slots and the prefix end
-    int nb = 0, cnt = 0;
+                const int* __restrict__ n_atoms,
+                const int* __restrict__ row_start, int n_local, int n_rows,
+                int A, int K, int cap, T rcut2, int* __restrict__ nl,
+                int* __restrict__ count, int* __restrict__ overflow) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int sbox[27], spre[28], spad[kPadRows];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  if (blockIdx.x >= n_local) {
+    pad_rows((blockIdx.x - n_local) * kPadRows, a_list, a_valid, n_rows, K,
+             nl, count, spad);
+    return;
+  }
+  const int c = blockIdx.x;
+  const int n_c = min(n_atoms[c], A);
+  if (n_c <= 0) return;
+  Rec<T>* srec = reinterpret_cast<Rec<T>*>(smem_raw);   // [cap] positions
+  int* sj = reinterpret_cast<int*>(srec + cap);         // [cap] slot ids
+  int* sn = sj + cap;                                   // [A] hits a row
+  if (warp == 0) {
+    // lane b < 27: column b's box and the end of its occupied slots
+    int nb = 0, end = 0;
     if (lane < 27) {
-      nb = nbr_map[(i / A) * 27 + lane];
-      cnt = min(n_atoms[nb], A);
+      nb = nbr_map[c * 27 + lane];
+      end = min(n_atoms[nb], A);
     }
-    int end = cnt;
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int v = __shfl_up_sync(kFull, end, d);
       if (lane >= d) end += v;
     }
-    const int total = __shfl_sync(kFull, end, 26);
-    for (int base = 0; base < total; base += 32) {
-      const int t = base + lane;
-      // column of candidate t: the number of columns ending at or before t
-      int c = 0;
-#pragma unroll
-      for (int step = 16; step > 0; step >>= 1) {
-        const int probe = c + step - 1;
-        const int e = __shfl_sync(kFull, end, probe < 27 ? probe : 26);
-        if (probe < 27 && e <= t) c += step;
-      }
-      c = c < 27 ? c : 26;
-      const int e_c = __shfl_sync(kFull, end, c);
-      const int n_c = __shfl_sync(kFull, cnt, c);
-      const int b_c = __shfl_sync(kFull, nb, c);
-      const int j = b_c * A + (t - (e_c - n_c));
-      bool hit = false;
-      if (t < total) {
-        const T r2 = dist2(xi - r[j], yi - r[plane + j], zi - r[2 * plane + j]);
-        hit = r2 <= rcut2 && r2 > T(0);
-      }
-      const unsigned mask = __ballot_sync(kFull, hit);
-      const int pos = n + __popc(mask & ((1u << lane) - 1u));
-      if (hit && pos < K) out[pos] = j;
-      n += __popc(mask);
+    if (lane < 27) {
+      sbox[lane] = nb;
+      spre[lane + 1] = end;
     }
+    if (lane == 0) spre[0] = 0;
   }
-  for (int p = min(n, K) + lane; p < K; p += 32) out[p] = i;
-  if (lane == 0) {
-    count[row] = n;
-    if (n > K) *overflow = 1;
+  for (int a = t; a < n_c; a += blockDim.x) sn[a] = 0;
+  __syncthreads();
+  const int total = spre[27];
+  const int rs = row_start[c];
+
+  for (int c0 = 0; c0 < total; c0 += cap) {
+    const int nc = min(cap, total - c0);
+    // stage candidates [c0, c0 + nc): box b holds [spre[b], spre[b + 1])
+    for (int s = t; s < nc; s += blockDim.x) {
+      const int idx = c0 + s;
+      int b = 0;   // the last column with spre[b] <= idx
+#pragma unroll
+      for (int step = 16; step > 0; step >>= 1)
+        if (b + step < 27 && spre[b + step] <= idx) b += step;
+      const int j = sbox[b] * A + (idx - spre[b]);
+      Rec<T>* d = srec + s;
+      copy_async(&d->x, r + j);
+      copy_async(&d->y, r + plane + j);
+      copy_async(&d->z, r + 2 * plane + j);
+      sj[s] = j;
+    }
+    copy_async_wait_all();
+    __syncthreads();
+    // a warp walks kBuildRows rows of the cell at once: one shared load
+    // a candidate serves them all
+    for (int a0 = warp * kBuildRows; a0 < n_c;
+         a0 += kBuildWarps * kBuildRows) {
+      bool ok[kBuildRows];
+      T xi[kBuildRows], yi[kBuildRows], zi[kBuildRows];
+      int n[kBuildRows];
+      int* out[kBuildRows];
+#pragma unroll
+      for (int b = 0; b < kBuildRows; ++b) {
+        const int a = a0 + b;
+        const int row = rs + a;
+        const int i = c * A + a;
+        ok[b] = a < n_c && row < n_rows && a_valid[row] && a_list[row] == i;
+        xi[b] = yi[b] = zi[b] = T(0);
+        n[b] = 0;
+        out[b] = nl + static_cast<size_t>(ok[b] ? row : 0) * K;
+        if (ok[b]) {
+          xi[b] = r[i];
+          yi[b] = r[plane + i];
+          zi[b] = r[2 * plane + i];
+          n[b] = sn[a];
+        }
+      }
+      for (int base = 0; base < nc; base += 32) {
+        const int s = base + lane;
+        Rec<T> v{};
+        if (s < nc) v = srec[s];
+#pragma unroll
+        for (int b = 0; b < kBuildRows; ++b) {
+          const T r2 = dist2(xi[b] - v.x, yi[b] - v.y, zi[b] - v.z);
+          const bool hit = ok[b] && s < nc && r2 <= rcut2 && r2 > T(0);
+          const unsigned mask = __ballot_sync(kFull, hit);
+          const int pos = n[b] + __popc(mask & ((1u << lane) - 1u));
+          if (hit && pos < K) out[b][pos] = sj[s];
+          n[b] += __popc(mask);
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int b = 0; b < kBuildRows; ++b)
+          if (ok[b]) sn[a0 + b] = n[b];
+      }
+    }
+    __syncthreads();   // the chunk is read no more
+  }
+
+  for (int a = warp; a < n_c; a += kBuildWarps) {
+    const int row = rs + a;
+    const int i = c * A + a;
+    if (row >= n_rows || !a_valid[row] || a_list[row] != i) continue;
+    const int n = sn[a];
+    int* __restrict__ out = nl + static_cast<size_t>(row) * K;
+    for (int p = min(n, K) + lane; p < K; p += 32) out[p] = i;
+    if (lane == 0) {
+      count[row] = n;
+      if (n > K) *overflow = 1;
+    }
   }
 }
 
+// NL2's gather records: slot s of [3, plane] positions (and EAM pass 3's
+// dfEmbed) as one 16-byte record (32 in double), so that a j costs one
+// gather instead of three or four.
+template <typename T>
+__global__ void __launch_bounds__(256)
+nl_pack_kernel(const T* __restrict__ r, int plane, const T* __restrict__ dfe,
+               Rec<T>* __restrict__ rec) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < plane)
+    rec[s] = Rec<T>{r[s], r[plane + s], r[2 * plane + s],
+                    dfe != nullptr ? dfe[s] : T(0)};
+}
+
 template <typename T, int PAIR, int EVAL, bool ENERGY>
-__global__ void __launch_bounds__(32 * kRowsABlock)
-nl_sweep_kernel(const T* __restrict__ r, int plane,
-                const T* __restrict__ dfe, const int* __restrict__ a_list,
+__global__ void __launch_bounds__(32 * kSweepWarps)
+nl_sweep_kernel(const Rec<T>* __restrict__ rec,
+                const int* __restrict__ a_list,
                 const unsigned char* __restrict__ a_valid,
                 const int* __restrict__ nl, int n_rows, int K, T rcut2,
                 const Cheb<T> cp, const Table<T> tp, const Lj<T> lj,
                 T* __restrict__ out) {
   constexpr int NS = n_scalars<PAIR, ENERGY>();
   constexpr int NOUT = 3 + NS;
+  static_assert(NOUT <= kLanesARow, "a row's lanes write its outputs");
+  __shared__ Rec<T> squeue[kSweepWarps][kRowsAWarp][kQueue];
+  __shared__ Rec<T> srow[kSweepWarps][kRowsAWarp];   // r_i, dfEmbed_i
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kRowsABlock + (threadIdx.x >> 5);
-  if (row >= n_rows) return;   // whole warps
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / kLanesARow;   // the row this lane drains
+  const int sub = lane % kLanesARow;
+  Rec<T>(*queue)[kQueue] = squeue[warp];
   T acc[NOUT];
 #pragma unroll
   for (int q = 0; q < NOUT; ++q) acc[q] = T(0);
-  if (a_valid[row]) {
-    const int i = a_list[row];
-    const T xi = r[i], yi = r[plane + i], zi = r[2 * plane + i];
-    const T di = PAIR == kEam3 ? dfe[i] : T(0);
-    const int* __restrict__ lst = nl + static_cast<size_t>(row) * K;
-    for (int k = lane; k < K; k += 32) {
-      const int j = lst[k];
-      const T dx = xi - r[j], dy = yi - r[plane + j],
-              dz = zi - r[2 * plane + j];
-      const T r2 = dist2(dx, dy, dz);
-      if (r2 <= rcut2 && r2 > T(0)) {
-        T sc[NS > 0 ? NS : 1];
-        const T dj = PAIR == kEam3 ? dfe[j] : T(0);
-        const T fc = pair_eval<T, PAIR, EVAL, ENERGY>(cp, tp, lj, r2, di, dj,
-                                                      sc);
-        acc[0] += fc * dx;
-        acc[1] += fc * dy;
-        acc[2] += fc * dz;
+  // row u's queued pairs are [head[u], tail[u]), at index & (kQueue - 1)
+  int head[kRowsAWarp], tail[kRowsAWarp];
 #pragma unroll
-        for (int q = 0; q < NS; ++q) acc[3 + q] += sc[q];
+  for (int u = 0; u < kRowsAWarp; ++u) head[u] = tail[u] = 0;
+  // lanes grp * kLanesARow + sub evaluate row grp's next pairs, up to
+  // kLanesARow a row; then the heads move past them
+  auto drain = [&]() {
+    int h = head[0], n = tail[0] - head[0];
+#pragma unroll
+    for (int u = 1; u < kRowsAWarp; ++u) {
+      if (grp == u) {
+        h = head[u];
+        n = tail[u] - head[u];
       }
     }
+    if (sub < n) {
+      const Rec<T> v = queue[grp][(h + sub) & (kQueue - 1)];
+      const T r2 = dist2(v.x, v.y, v.z);
+      T sc[NS > 0 ? NS : 1];
+      const T fc =
+          pair_eval<T, PAIR, EVAL, ENERGY>(cp, tp, lj, r2, v.w, T(0), sc);
+      acc[0] += fc * v.x;
+      acc[1] += fc * v.y;
+      acc[2] += fc * v.z;
 #pragma unroll
-    for (int q = 0; q < NOUT; ++q) {
+      for (int q = 0; q < NS; ++q) acc[3 + q] += sc[q];
+    }
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[q] += __shfl_xor_sync(kFull, acc[q], off);
+    for (int u = 0; u < kRowsAWarp; ++u)
+      head[u] += min(kLanesARow, tail[u] - head[u]);
+    __syncwarp();   // the drained entries may be overwritten
+  };
+
+  // lane u < kRowsAWarp: row u of the warp, its slot id and r_i
+  const int rbase = (blockIdx.x * kSweepWarps + warp) * kRowsAWarp;
+  int i_l = 0;
+  bool v_l = false;
+  if (lane < kRowsAWarp && rbase + lane < n_rows && a_valid[rbase + lane]) {
+    v_l = true;
+    i_l = a_list[rbase + lane];
+    srow[warp][lane] = rec[i_l];
+  }
+  // the rows still walking their lists (warp-uniform)
+  unsigned open = __ballot_sync(kFull, v_l) & ((1u << kRowsAWarp) - 1u);
+  int ids[kRowsAWarp];
+#pragma unroll
+  for (int u = 0; u < kRowsAWarp; ++u) ids[u] = __shfl_sync(kFull, i_l, u);
+  __syncwarp();
+  // one step: the next 32 entries of every open row, all loads issued
+  // before any is tested
+  for (int base = 0; open != 0 && base < K; base += 32) {
+    const int k = base + lane;
+    int j[kRowsAWarp];
+#pragma unroll
+    for (int u = 0; u < kRowsAWarp; ++u)
+      j[u] = ((open >> u) & 1u) && k < K
+                 ? nl[static_cast<size_t>(rbase + u) * K + k]
+                 : ids[u];
+    T dx[kRowsAWarp], dy[kRowsAWarp], dz[kRowsAWarp], dj[kRowsAWarp];
+#pragma unroll
+    for (int u = 0; u < kRowsAWarp; ++u) {
+      dx[u] = dy[u] = dz[u] = dj[u] = T(0);
+      if (j[u] != ids[u]) {
+        const Rec<T> ri = srow[warp][u];
+        const Rec<T> rj = rec[j[u]];
+        dx[u] = ri.x - rj.x;
+        dy[u] = ri.y - rj.y;
+        dz[u] = ri.z - rj.z;
+        if (PAIR == kEam3) dj[u] = ri.w + rj.w;
+      }
+    }
+    bool full = false;   // a row's ring could not take another step
+    bool ready = true;   // every row has a drain's worth, or has ended
+#pragma unroll
+    for (int u = 0; u < kRowsAWarp; ++u) {
+      const bool pad = j[u] == ids[u];
+      const T r2 = dist2(dx[u], dy[u], dz[u]);
+      const bool hit = !pad && r2 <= rcut2 && r2 > T(0);
+      const unsigned mask = __ballot_sync(kFull, hit);
+      if (hit) {
+        queue[u][(tail[u] + __popc(mask & ((1u << lane) - 1u))) &
+                 (kQueue - 1)] = Rec<T>{dx[u], dy[u], dz[u], dj[u]};
+      }
+      tail[u] += __popc(mask);
+      if (__ballot_sync(kFull, pad)) open &= ~(1u << u);   // the row's end
+      full = full || tail[u] - head[u] > kQueue - 32 - kLanesARow;
+      ready = ready && (tail[u] - head[u] >= kLanesARow ||
+                        !((open >> u) & 1u));
+    }
+    __syncwarp();
+    // drain while every row fills its lanes, and while a ring is too
+    // full for the next step's appends (fewer than kQueue - 32 stay)
+    while (full || (ready && open != 0)) {
+      drain();
+      full = ready = false;
+#pragma unroll
+      for (int u = 0; u < kRowsAWarp; ++u) {
+        full = full || tail[u] - head[u] > kQueue - 32 - kLanesARow;
+      }
+      ready = true;
+#pragma unroll
+      for (int u = 0; u < kRowsAWarp; ++u) {
+        ready = ready && (tail[u] - head[u] >= kLanesARow ||
+                          !((open >> u) & 1u));
+      }
     }
   }
-  if (lane == 0) {
+  // the rest, kLanesARow a row at a time
+  for (;;) {
+    bool left = false;
 #pragma unroll
-    for (int q = 0; q < NOUT; ++q)
-      out[static_cast<size_t>(q) * n_rows + row] = acc[q];
+    for (int u = 0; u < kRowsAWarp; ++u) left = left || tail[u] > head[u];
+    if (!left) break;
+    drain();
   }
-}
 
-int n_blocks(int n_rows) { return (n_rows + kRowsABlock - 1) / kRowsABlock; }
+  // each row's sums over its lanes (a fixed xor butterfly); lane
+  // grp * kLanesARow + q writes output q of row grp
+#pragma unroll
+  for (int q = 0; q < NOUT; ++q) {
+#pragma unroll
+    for (int off = kLanesARow / 2; off > 0; off >>= 1)
+      acc[q] += __shfl_xor_sync(kFull, acc[q], off);
+  }
+  T mine = acc[0];
+#pragma unroll
+  for (int q = 1; q < NOUT; ++q) {
+    if (sub == q) mine = acc[q];
+  }
+  if (sub < NOUT && rbase + grp < n_rows)
+    out[static_cast<size_t>(sub) * n_rows + rbase + grp] = mine;
+}
 
 template <typename T>
 cudaError_t launch_build(const void* r, int plane, const void* a_list,
                          const void* a_valid, const void* nbr_map,
-                         const void* n_atoms, int n_rows, int A, int K,
-                         double rcut2, void* nl, void* count, void* overflow,
+                         const void* n_atoms, const void* row_start,
+                         int n_local, int n_rows, int A, int K, double rcut2,
+                         void* nl, void* count, void* overflow,
                          cudaStream_t stream) {
-  if (n_rows > 0) {
-    nl_build_kernel<T><<<n_blocks(n_rows), 32 * kRowsABlock, 0, stream>>>(
+  auto kern = nl_build_kernel<T>;
+  const int cap = 27 * A < kStageMax ? 27 * A : kStageMax;
+  const size_t smem =
+      static_cast<size_t>(cap) * (sizeof(Rec<T>) + sizeof(int)) +
+      static_cast<size_t>(A) * sizeof(int);
+  // raise the dynamic shared-memory limit once per precision and size
+  static size_t smem_set = 48 * 1024;
+  if (smem > smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    smem_set = smem;
+  }
+  const long long blocks =
+      n_local + (static_cast<long long>(n_rows) + kPadRows - 1) / kPadRows;
+  if (blocks > 0) {
+    kern<<<static_cast<unsigned>(blocks), 32 * kBuildWarps, smem, stream>>>(
         static_cast<const T*>(r), plane, static_cast<const int*>(a_list),
         static_cast<const unsigned char*>(a_valid),
         static_cast<const int*>(nbr_map), static_cast<const int*>(n_atoms),
-        n_rows, A, K, static_cast<T>(rcut2), static_cast<int*>(nl),
+        static_cast<const int*>(row_start), n_local, n_rows, A, K, cap,
+        static_cast<T>(rcut2), static_cast<int*>(nl),
         static_cast<int*>(count), static_cast<int*>(overflow));
   }
   return cudaGetLastError();
@@ -192,6 +460,7 @@ struct Sweep {
   const void* r;
   int plane;
   const void* dfe;
+  void* rec;
   const void* a_list;
   const void* a_valid;
   const void* nl;
@@ -211,10 +480,15 @@ cudaError_t launch_sweep(const Sweep& a) {
   Lj<T> lj{};
   round_params<T, PAIR, EVAL>(a.cheb, a.tab, a.lj, cp, tp, lj);
   if (a.n_rows > 0) {
+    Rec<T>* rec = static_cast<Rec<T>*>(a.rec);
+    nl_pack_kernel<T><<<(a.plane + 255) / 256, 256, 0, a.stream>>>(
+        static_cast<const T*>(a.r), a.plane,
+        PAIR == kEam3 ? static_cast<const T*>(a.dfe) : nullptr, rec);
+    constexpr int rows = kSweepWarps * kRowsAWarp;
     nl_sweep_kernel<T, PAIR, EVAL, ENERGY>
-        <<<n_blocks(a.n_rows), 32 * kRowsABlock, 0, a.stream>>>(
-            static_cast<const T*>(a.r), a.plane, static_cast<const T*>(a.dfe),
-            static_cast<const int*>(a.a_list),
+        <<<(a.n_rows + rows - 1) / rows, 32 * kSweepWarps, 0,
+           a.stream>>>(
+            rec, static_cast<const int*>(a.a_list),
             static_cast<const unsigned char*>(a.a_valid),
             static_cast<const int*>(a.nl), a.n_rows, a.K,
             static_cast<T>(a.rcut2), cp, tp, lj, static_cast<T*>(a.out));
@@ -247,32 +521,37 @@ extern "C" {
 
 // NL1.  dtype: 0 float, 1 double.  r [3, plane] positions, a_list [n_rows]
 // int32, a_valid [n_rows] bool, nbr_map [n_local, 27] int32, n_atoms [B]
-// int32; writes nl [n_rows, K] int32 and count [n_rows] int32, and sets
-// *overflow (an int32 the caller zeroed) to 1 when a valid row has more
-// than K entries.  rcut2 is (rcut + skin)^2 already rounded to dtype.
+// int32, row_start [n_local] int32 (the row of each cell's slot 0); writes
+// nl [n_rows, K] int32 and count [n_rows] int32, and sets *overflow (an
+// int32 the caller zeroed) to 1 when a valid row has more than K entries.
+// rcut2 is (rcut + skin)^2 already rounded to dtype.
 int comd_nl_build(int dtype, const void* r, int plane, const void* a_list,
                   const void* a_valid, const void* nbr_map,
-                  const void* n_atoms, int n_rows, int A, int K,
-                  double rcut2, void* nl, void* count, void* overflow,
-                  void* stream) {
-  if (A < 1 || K < 1 || n_rows < 0)
+                  const void* n_atoms, const void* row_start, int n_local,
+                  int n_rows, int A, int K, double rcut2, void* nl,
+                  void* count, void* overflow, void* stream) {
+  if (A < 1 || K < 1 || n_rows < 0 || n_local < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_build<float>(r, plane, a_list, a_valid, nbr_map, n_atoms,
-                               n_rows, A, K, rcut2, nl, count, overflow, s);
+                               row_start, n_local, n_rows, A, K, rcut2, nl,
+                               count, overflow, s);
   if (dtype == 1)
     return launch_build<double>(r, plane, a_list, a_valid, nbr_map, n_atoms,
-                                n_rows, A, K, rcut2, nl, count, overflow, s);
+                                row_start, n_local, n_rows, A, K, rcut2, nl,
+                                count, overflow, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // NL2.  pair: 0 EAM pass 1, 1 EAM pass 3, 2 LJ; dtype: 0 float, 1 double;
 // eval (EAM): 0 Chebyshev, 1 table.  dfe [plane] is EAM pass 3's
-// halo-filled dfEmbed.  Writes out [3 + ns, n_rows]; rcut2 is the pair
-// cutoff squared, rounded to dtype.
+// halo-filled dfEmbed; rec is scratch for [plane, 4] records of dtype
+// (16-byte aligned), written by the pack kernel launched first.  Writes
+// out [3 + ns, n_rows]; rcut2 is the pair cutoff squared, rounded to
+// dtype.
 int comd_nl_sweep(int pair, int dtype, int eval, int want_energy,
-                  const void* r, int plane, const void* dfe,
+                  const void* r, int plane, const void* dfe, void* rec,
                   const void* a_list, const void* a_valid, const void* nl,
                   int n_rows, int K, double rcut2, const ChebParams* cheb,
                   const TableParams* tab, const LjParams* lj, void* out,
@@ -282,11 +561,11 @@ int comd_nl_sweep(int pair, int dtype, int eval, int want_energy,
       n_rows < 0 || (eam && eval == 0 && cheb == nullptr) ||
       (eam && eval == 1 && tab == nullptr) ||
       (pair == kLj && (lj == nullptr || eval != 0)) ||
-      (pair == kEam3 && dfe == nullptr) ||
+      (pair == kEam3 && dfe == nullptr) || rec == nullptr ||
       (eam && eval == 0 &&
        (cheb->n_terms < 2 || cheb->n_terms > kMaxCheb)))
     return static_cast<int>(cudaErrorInvalidValue);
-  Sweep a{r, plane, dfe, a_list, a_valid, nl, n_rows, K, rcut2,
+  Sweep a{r, plane, dfe, rec, a_list, a_valid, nl, n_rows, K, rcut2,
           cheb, tab, lj, out, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_eval<float>(eval, pair, want_energy, a);
   if (dtype == 1) return dispatch_eval<double>(eval, pair, want_energy, a);

@@ -1,7 +1,8 @@
 // Pair arithmetic shared by the pair kernels of this package: the
-// cell-stencil sweeps (stencil.cu, K1/K2) and the neighbor-list sweep
-// (nl.cu, NL2) evaluate every pair inside the cutoff with the same
-// pair_eval, on r2 rounded product by product by dist2.
+// cell-stencil sweeps (stencil.cu, K1/K2) and the neighbor-list kernels
+// (nl.cu, NL1/NL2) test r2 rounded product by product by dist2, and K1, K2
+// and NL2 evaluate every pair inside the cutoff with the same pair_eval.
+// Also the staging helpers they share: the 16-byte record and cp.async.
 //
 // ops/cuda/nvcc.py hashes this header with every source that includes
 // it, so a change here rebuilds them all.
@@ -67,6 +68,31 @@ template <typename T>
 struct Lj {
   T s6, eps4, e_shift;
 };
+
+// One staged record: a position and, in EAM pass 3, dfEmbed (w; unused
+// otherwise), so that a read is one 16-byte shared load (two for double).
+template <typename T>
+struct alignas(4 * sizeof(T)) Rec {
+  T x, y, z, w;
+};
+
+// cp.async of one 4- or 8-byte value from global to shared memory
+__device__ __forceinline__ void copy_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async(double* dst, const double* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void copy_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
+                   : "memory");
+}
 
 template <typename T>
 __device__ __forceinline__ T dev_log(T x);

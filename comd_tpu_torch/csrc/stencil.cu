@@ -100,13 +100,6 @@ constexpr int kThreads = 256;   // threads a block at most (a brick's slots)
 
 namespace {
 
-// One staged slot: position and, in EAM pass 3, dfEmbed (w; unused
-// otherwise), so that a j read is one 16-byte shared load (two for double).
-template <typename T>
-struct alignas(4 * sizeof(T)) Rec {
-  T x, y, z, w;
-};
-
 template <typename T>
 __device__ __forceinline__ T quiet_nan();
 template <>
@@ -116,24 +109,6 @@ __device__ __forceinline__ float quiet_nan<float>() {
 template <>
 __device__ __forceinline__ double quiet_nan<double>() {
   return __longlong_as_double(0x7ff8000000000000LL);
-}
-
-// cp.async of one 4- or 8-byte value from global to shared memory
-__device__ __forceinline__ void copy_async(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async(double* dst, const double* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void copy_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 // The brick plan (ops/binning.BrickPlan), device arrays.

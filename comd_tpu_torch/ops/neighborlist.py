@@ -121,6 +121,21 @@ def atom_rows(geom: CellGeometry, n_atoms, A: int, n_rows: int,
     return a_list, a_valid
 
 
+def cell_row_starts(a_list, a_valid, n_local: int, A: int):
+    """The row of each local cell's slot 0 in a compacted row layout, where
+    a cell's valid rows are contiguous and in slot order (``atom_rows``,
+    with or without the row split): [n_local] int32, 0 for a cell without
+    rows.  NL1 gives each cell one block over rows row_start[c] + slot.
+    Torch ops on a_list's device, no host sync; every valid row of a cell
+    writes the same value."""
+    dev = a_list.device
+    rows = torch.arange(a_list.shape[0], dtype=torch.int32, device=dev)
+    cell = torch.where(a_valid, a_list // A, n_local).to(torch.int64)
+    start = torch.zeros(n_local + 1, dtype=torch.int32, device=dev)
+    start[cell] = rows - a_list % A
+    return start[:n_local]
+
+
 def slice_rows(nlist: NeighborList, start: int, stop: int) -> NeighborList:
     """Row-range view of a NeighborList (shares last_r)."""
     return NeighborList(a_list=nlist.a_list[start:stop],

@@ -118,7 +118,7 @@ def main(argv=None) -> int:
             k[:90]: us / n for k, (us, n) in kern.items()
             if any(w in k for w in ("stencil_kernel", "halo_fill_kernel",
                                     "ring_push_kernel", "nl_build_kernel",
-                                    "nl_sweep_kernel"))},
+                                    "nl_pack_kernel", "nl_sweep_kernel"))},
     }))
     return 0
 

@@ -217,3 +217,17 @@ def test_breakdown_variants_apply(tmp_path):
     assert full == open(st.SOURCE).read()
     assert all(open(p).read() != full for k, p in paths.items()
                if k != "full")
+
+
+def test_nl_breakdown_variants_apply(tmp_path):
+    """stencil_breakdown.py --nl times copies of csrc/nl.cu with parts cut
+    out: each of NL_EDITS applies exactly once to the current source."""
+    import stencil_breakdown
+    from comd_tpu_torch.ops.cuda import nl as nlk
+    paths = stencil_breakdown.variant_sources(nlk.SOURCE, str(tmp_path),
+                                              stencil_breakdown.NL_EDITS)
+    assert set(paths) == set(stencil_breakdown.NL_EDITS)
+    full = open(paths["full"]).read()
+    assert full == open(nlk.SOURCE).read()
+    assert all(open(p).read() != full for k, p in paths.items()
+               if k != "full")

@@ -618,38 +618,97 @@ def _nl_sim(dtype, impl="cheb", doeam=True, **kw):
                 method="thread_atom_nl", **kw)
 
 
+def _crowd(sim):
+    """sim's state with one local cell emptied and another filled to its
+    capacity A (the extra atoms beside its first one), halo refreshed:
+    (r, n_atoms)."""
+    s = sim.state
+    r, gid, n_atoms = s.r.clone(), s.gid.clone(), s.n_atoms.clone()
+    A = r.shape[2]
+    n = n_atoms[:sim.geom.n_local]
+    full = int(torch.argmax(torch.where(n < A, n, -1)))
+    empty = (full + sim.geom.n_local // 2) % sim.geom.n_local
+    k = int(n_atoms[full])
+    g = torch.Generator().manual_seed(7)
+    shift = (torch.rand((3, A - k), generator=g, dtype=torch.float64)
+             - 0.5).to(r) * 1.5
+    r[:, full, k:] = r[:, full, :1] + shift
+    n_atoms[full] = A
+    r[:, empty] = binning.EMPTY_POS
+    n_atoms[empty] = 0
+    binning.fill_halo_serial(sim.geom, sim.maps, r, gid, n_atoms)
+    return r, n_atoms
+
+
+@pytest.mark.parametrize("case", ["thermal", "crowded", "lj5sigma"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("split", [False, True])
-def test_nl_build_matches_plain(cuda_device, dtype, split):
+def test_nl_build_matches_plain(cuda_device, dtype, split, case):
     """NL1: lists, counts and overflow flag bit for bit, with and without
     the -a 1 row split, and with a K too small (overflow set, the first K
-    entries still equal); one launch a call."""
-    sim = _nl_sim(dtype)
+    entries still equal); one launch a call.  Cases: a thermalized 8^3 EAM
+    state; the same with an empty cell and a cell at its capacity A; 5-sigma
+    LJ -L (A = 256, 27 A candidates staged in chunks)."""
+    if case == "lj5sigma":
+        sim = _sim(dtype, "auto", 8, "cuda", doeam=False,
+                   lj_cutoff_factor=5.0, use_pairlist=True)
+        assert 27 * sim.cfg.max_atoms > 1024      # NL1's staging chunk
+    else:
+        sim = _nl_sim(dtype)
     s = sim.state
+    r, n_atoms = _crowd(sim) if case == "crowded" else (s.r, s.n_atoms)
     params = sim.nl_build_params()
     row_split = nlmod.row_split_for(sim.geom, sim.cfg.max_atoms) \
         if split else None
     n_rows = (row_split[1] + row_split[2]) if split else params["n_rows"]
-    a_list, a_valid = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
+    a_list, a_valid = nlmod.atom_rows(sim.geom, n_atoms, r.shape[2],
                                       n_rows, row_split)
     for k in (params["k"], 8):
         st.reset_launch_counts()
-        got = cuda_nl.nl_build(s.r, a_list, a_valid, sim.maps.nbr_map,
-                               s.n_atoms, k=k, rcut2=params["rcut2"])
+        got = cuda_nl.nl_build(r, a_list, a_valid, sim.maps.nbr_map,
+                               n_atoms, k=k, rcut2=params["rcut2"])
         assert st.LAUNCHES["nl_build"] == 1
-        want = cuda_nl.nl_build_plain(s.r, a_list, a_valid,
-                                      sim.maps.nbr_map, s.n_atoms, k=k,
+        want = cuda_nl.nl_build_plain(r, a_list, a_valid,
+                                      sim.maps.nbr_map, n_atoms, k=k,
                                       rcut2=params["rcut2"])
         for g, w in zip(got, want):
             assert torch.equal(g, w)
         assert bool(got[2]) == (k == 8)
+        if case == "crowded":
+            assert int(want[1].max()) > 0
 
 
-def _nl_sweeps(sim):
+def _nl_list(sim, lists):
+    """sim's own list ("built"), or one built by the plain NL1 on its
+    state with K = 8, every valid row overflowing ("k8"), or with the -a 1
+    row split ("split")."""
+    if lists == "built":
+        return sim.nlist
+    s, p = sim.state, sim.nl_build_params()
+    row_split = None
+    n_rows, k = p["n_rows"], p["k"]
+    if lists == "split":
+        row_split = nlmod.row_split_for(sim.geom, sim.cfg.max_atoms)
+        n_rows = row_split[1] + row_split[2]
+    else:
+        k = 8
+    a_list, a_valid = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
+                                      n_rows, row_split)
+    nl, count, _o = cuda_nl.nl_build_plain(s.r, a_list, a_valid,
+                                           sim.maps.nbr_map, s.n_atoms, k=k,
+                                           rcut2=p["rcut2"])
+    if lists == "k8":
+        assert bool((count[a_valid] > k).all())   # no padding in any row
+    return nlmod.NeighborList(a_list=a_list, a_valid=a_valid, nl=nl,
+                              last_r=s.r)
+
+
+def _nl_sweeps(sim, lists="built"):
     """(name, kernel call, plain call) of every NL2 variant on sim's state
     and list (EAM: pass 1 with and without energy, pass 3; LJ: with and
     without energy)."""
-    s, lst, ev = sim.state, sim.nlist, sim.pair_eval
+    s, ev = sim.state, sim.pair_eval
+    lst = _nl_list(sim, lists)
     if not sim.is_eam:
         return [(f"lj {e}", lambda e=e: cuda_nl.lj_pass(lst, s.r, ev,
                                                         want_energy=e),
@@ -668,15 +727,18 @@ def _nl_sweeps(sim):
          lambda: (cuda_nl.eam_pass3_plain(lst, s.r, ev, dfe),))]
 
 
+@pytest.mark.parametrize("lists", ["built", "k8", "split"])
 @pytest.mark.parametrize("doeam", [True, False], ids=["eam", "lj"])
 @pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
                                         ("float64", "rows")])
-def test_nl_sweep_matches_plain(cuda_device, dtype, impl, doeam):
+def test_nl_sweep_matches_plain(cuda_device, dtype, impl, doeam, lists):
     """NL2 against its plain version per row (invalid rows zero in both),
-    the same bits on two launches, one launch a call."""
+    the same bits on two launches, one launch a call; on the run's own
+    list, on a K = 8 list whose rows have no padding (the early stop's
+    edge) and on a list built with the -a 1 row split."""
     sim = _nl_sim(dtype, impl, doeam)
     f_atol, s_rtol, f_rtol = _tols(dtype)
-    for name, kern, plain in _nl_sweeps(sim):
+    for name, kern, plain in _nl_sweeps(sim, lists):
         st.reset_launch_counts()
         got = kern()
         assert st.LAUNCHES["nl_sweep"] == 1, name

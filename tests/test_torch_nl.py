@@ -262,3 +262,77 @@ def test_undersized_k_overflows_at_init():
                                  nl_max_neighbors=16, **BASE))
     assert sim.overflow
     assert sim.nl_build_params()["k"] == 16
+
+
+def _padding_at_tail(a_list, a_valid, nl):
+    """Per valid row: every entry before the first padding entry (the row's
+    own slot id) is real and every entry from there on is padding (the
+    invariant NL2's early stop reads).  Returns the rows' padding mask."""
+    nl, a_list = np.asarray(nl), np.asarray(a_list)
+    v = np.asarray(a_valid)
+    pad = nl == a_list[:, None]
+    first = np.where(pad.any(1), pad.argmax(1), nl.shape[1])
+    tail = np.arange(nl.shape[1])[None, :] >= first[:, None]
+    np.testing.assert_array_equal(pad[v], tail[v])
+    return pad
+
+
+@pytest.mark.parametrize("lists", ["k", "k8", "split"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_padding_only_at_row_tails(pair, dtype, lists):
+    """NL2 stops a row at its first chunk holding padding.  On comd_tpu's
+    list and on the port's plain list (f32 and f64; K as the run sizes
+    it, K = 8 with every row overflowing, and the -a 1 row split): a valid
+    row's real entries come first and its padding after them, the real
+    ones number min(count, K); the port's invalid rows are all padding
+    (comd_tpu's hold slot 0's list, which no sweep reads)."""
+    jsim, tsim, _kw = pair
+    r = np.asarray(jsim.state.r).astype(dtype)
+    k = 8 if lists == "k8" else jsim._nl_build_params()["k"]
+    j_list, _jo, t_list, _to, tp = _build_both(jsim, tsim, r, k,
+                                               lists == "split")
+    _padding_at_tail(j_list.a_list, j_list.a_valid, j_list.nl)
+    pad = _padding_at_tail(t_list.a_list.numpy(), t_list.a_valid.numpy(),
+                           t_list.nl.numpy())
+    v = t_list.a_valid.numpy()
+    assert pad[~v].all()
+    _nl, count = nlmod.candidate_lists(t_list.last_r, t_list.a_list,
+                                       t_list.a_valid, tsim.maps.nbr_map,
+                                       k=k, rcut2=tp["rcut2"])
+    np.testing.assert_array_equal((~pad).sum(1),
+                                  np.minimum(count.numpy(), k))
+    if lists == "k8":
+        assert not pad[v].any()           # no row of K = 8 ends early
+    else:
+        assert pad[v].any(1).all()
+
+
+@pytest.mark.parametrize("split", [False, True])
+def test_cell_row_starts_match_atom_rows(pair, split):
+    """NL1's per-cell row offsets: each valid row of ``atom_rows`` sits at
+    row_start[a_list // A] + a_list % A (with and without the row split,
+    also with an emptied cell); without the split they are the exclusive
+    cumsum of min(n_atoms, A) over the local cells."""
+    _jsim, tsim, _kw = pair
+    geom, A = tsim.geom, tsim.cfg.max_atoms
+    row_split = nlmod.row_split_for(geom, A) if split else None
+    n_rows = (row_split[1] + row_split[2] if split
+              else nlmod.n_rows_for(geom, A))
+    for emptied in (False, True):
+        n_atoms = tsim.state.n_atoms.clone()
+        if emptied:
+            n_atoms[geom.n_local // 3] = 0
+        a_list, a_valid = nlmod.atom_rows(geom, n_atoms, A, n_rows,
+                                          row_split)
+        start = nlmod.cell_row_starts(a_list, a_valid, geom.n_local, A)
+        assert start.dtype == torch.int32 and start.shape == (geom.n_local,)
+        rows = torch.nonzero(a_valid).flatten()
+        al = a_list[rows].to(torch.int64)
+        np.testing.assert_array_equal(
+            (start.to(torch.int64)[al // A] + al % A).numpy(), rows.numpy())
+        if not split:
+            occ = n_atoms[:geom.n_local].clamp(max=A).to(torch.int64)
+            excl = torch.cumsum(occ, 0) - occ
+            has = occ > 0
+            np.testing.assert_array_equal(start[has].numpy(),
+                                          excl[has].numpy())
