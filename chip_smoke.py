@@ -8,9 +8,10 @@ the first error:
   1. device   -- a CUDA card is required; prints nvidia-smi's name and
                  power limit
   2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
-                 probe.cu) with nvcc, one process each, in parallel; prints
-                 registers and spill stores (stencil.cu's by variant) and
-                 fails if an f32 stencil kernel spills
+                 probe.cu, nl.cu) with nvcc, one process each, in
+                 parallel; prints registers and spill stores (stencil.cu's
+                 and nl.cu's pair kernels by variant) and fails if an f32
+                 pair kernel of a main path spills
   3. kernel   -- K1 against its plain PyTorch version on the same CUDA
                  tensors (thermalized 10^3 lattice, T = 600 K), EAM pass 1
                  and pass 3, f32/Chebyshev and f64/table
@@ -105,6 +106,29 @@ the first error:
                  ring_push an atom
                  exchange under ki, no halo_fill (the NL fill is
                  collective), final r and ePot equal bit for bit.
+ 15. options  -- -P (the cubic splines in r^2) and -I (the LJ table) on
+                 their kernel variants: K1's and K2's spline EAM passes 1
+                 (with and without energy) and 3, NL2's on its lists, and
+                 K1's LJ table (with and without energy) against their
+                 plain versions on thermalized 10^3 states, f32 and f64,
+                 at phase 6's tolerances, K1 and NL2 the same bits on two
+                 launches; the f64 goldens at 6^3, T = 0, within 1e-9
+                 (-e -P -3.538075619377 through K1, K2 and NL2; -I
+                 -1.243619465563 through K1; comd_tpu's values); the 63^3
+                 -P headline on K1, K2 (--halfShell) and NL2 (-m
+                 thread_atom_nl) and the 63^3 -I LJ headline on K1, each
+                 through run_main's checks with no launch of another
+                 evaluator's kernel, ms/step beside phases 5 and 9, the
+                 variants at that state against their plain versions and
+                 timed (mean of 20, CUDA events) beside the plain versions
+                 and bounds; -P on a 2x2x2 mesh under ki_fused: one
+                 halo_fill a force with the ki plan (the fused fill's entry
+                 point refuses to run), final energy within 1e-6 of the
+                 serial -P run; a checkpoint on the card (63^3 EAM f32, 50
+                 steps, save, restore into a fresh simulation, 50 more: r,
+                 p and ePot equal an uninterrupted 100-step run bit for
+                 bit); -s at 63^3 EAM: every phase positive, the force
+                 phase within 2x of K1's passes (phase 5) plus pass 2.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch, numpy and comd_tpu_torch only; builds
@@ -126,6 +150,10 @@ POTS = os.path.join(ROOT, "pots")
 GOLDEN_EAM_ADAMS = -3.538079224691
 GOLDEN_LJ = -1.243619295058
 GOLDEN_LJ_5SIGMA = -1.406590686466
+# comd_tpu on the CPU, T = 0 at 6^3, f64: -e -P and -I
+# (tests/test_torch_spline.py holds them to comd_tpu's values)
+GOLDEN_EAM_SPLINE = -3.538075619377
+GOLDEN_LJ_INTERP = -1.243619465563
 SOURCE = "comd_tpu_torch/csrc/stencil.cu"
 COMM_SOURCE = "comd_tpu_torch/csrc/comm.cu"
 PROBE_SOURCE = "comd_tpu_torch/csrc/probe.cu"
@@ -270,18 +298,22 @@ def compare_half(sim, tag: str, f_atol: float, s_rtol: float,
 
 
 def compare_lj(sim, tag: str, f_atol: float, s_rtol: float,
-               f_rtol: float = 0.0):
-    """K1's and K2's LJ variants vs their plain versions on sim's state,
-    with and without energy.  Returns {kernel: max abs force err}."""
+               f_rtol: float = 0.0, half: bool = True):
+    """K1's and (``half``) K2's LJ variants vs their plain versions on sim's
+    state, with and without energy (the -I table: K1 only, and K1 gives
+    the same bits on two launches).  Returns {kernel: max abs force
+    err}."""
     import torch
     from comd_tpu_torch.ops.cuda import stencil as st
     r, ev = sim.state.r, sim.pair_eval
     chunk = sim.cfg.resolved_box_chunk
     errs = {}
+    table = ev.kind == "lj_table"
     for key, fn, plain, nbr in (
-            ("lj", st.lj_pass, st.lj_pass_plain, sim.maps.nbr_map),
+            ("lj_table" if table else "lj", st.lj_pass, st.lj_pass_plain,
+             sim.maps.nbr_map),
             ("half_lj", st.lj_pass_half, st.lj_pass_half_plain,
-             sim.maps.half_nbr_map)):
+             sim.maps.half_nbr_map))[:2 if half else 1]:
         fp, ep = plain(r, nbr, ev, box_chunk=chunk)
         fmax = float(fp.abs().max())
         e_f = []
@@ -294,6 +326,12 @@ def compare_lj(sim, tag: str, f_atol: float, s_rtol: float,
                   and (ek is None) != energy,
                   f"{tag} {key} (energy {energy}): force err "
                   f"{e_f[-1]:.3e}, energy err {e_s:.3e}")
+            if table:
+                again = fn(r, nbr, ev, want_energy=energy)
+                check(all(a is b or torch.equal(a, b)
+                          for a, b in zip((fk, ek), again)),
+                      f"{tag} {key} (energy {energy}) differs between two "
+                      f"launches")
         errs[key] = max(e_f)
         say("lj", f"{tag}: {key} |df|max {errs[key]:.3e} "
             f"(|f|max {fmax:.3e})")
@@ -334,9 +372,15 @@ def pair_flops(ev, pair: str, energy: bool) -> tuple:
     """(flops, scalar outputs) of one pair inside the cutoff: the evaluator
     (Chebyshev: 4 for the transform and argument, 2 per output to start the
     recurrence, 2 + 2 per output for each further term, 3 for the
-    derivative factor, 1 per derivative output; LJ: 1 division, 3 for r6,
-    5 for the coefficient), the pair's coefficient (EAM pass 1: 1, pass 3:
-    3), 6 for the force sum and 1 per scalar sum.  A division counts as
+    derivative factor, 1 per derivative output; the -P spline: 6 for the
+    interval (sqrt, 2 for the clip, product, difference, floor), then per
+    table 2 for tmp = a r2 + b, 4 more for the value, 6 more for the
+    derivative 2 ((3 tmp - b) r2 + c); LJ: 1 division, 3 for r6, 5 for
+    the coefficient, 4 for the energy; the -I table: 6 for the index
+    (sqrt, clamp, difference, product, floor, fraction), 2 for the two
+    differences and 5 for the derivative, 2 for -de / r, 8 for the energy's
+    value), the pair's coefficient (EAM pass 1: 1, pass 3: 3), 6 for the
+    force sum and 1 per scalar sum.  A division or a sqrt counts as
     one."""
     from comd_tpu_torch.ops.cuda import stencil as st
 
@@ -345,15 +389,37 @@ def pair_flops(ev, pair: str, energy: bool) -> tuple:
         n_out = len(wants)
         return 4 + 2 * n_out + (n_terms - 2) * (2 + 2 * n_out) + 3 + n_der
 
+    def spline(wants):
+        return 6 + sum(2 + (4 if k == "val" else 6) for _n, k in wants)
+
+    evaluate = spline if ev.kind == "spline" else (lambda w: cheb(w, 1))
     if pair == "eam_pass1":
         wants = ([("phi", "val")] if energy else []) + \
             [("phi", "der"), ("rho", "val")]
         ns = len(wants) - 1
-        return cheb(wants, 1) + 1 + 6 + ns, ns
+        return evaluate(wants) + 1 + 6 + ns, ns
     if pair == "eam_pass3":
-        return cheb([("rho", "der")], 1) + 3 + 6, 0
+        return evaluate([("rho", "der")]) + 3 + 6, 0
     ns = 1 if energy else 0
+    if ev.kind == "lj_table":
+        return 6 + 2 + 5 + 2 + 6 + (8 + 1 if energy else 0), ns
     return 1 + 3 + 5 + 6 + (4 if energy else 0), ns
+
+
+def key_parts(key: str) -> tuple:
+    """(half, pair) of a launch counter name: ``spline_`` variants and
+    ``lj_table`` are the same sweeps with another pair function."""
+    if key == "lj_table":
+        return False, "lj"
+    key = key[len("spline_"):] if key.startswith("spline_") else key
+    half = key.startswith("half_")
+    return half, key[5:] if half else key
+
+
+def table_bytes(ev) -> int:
+    """Bytes of the evaluator's tables (spline coefficients, -I table)."""
+    return sum(t.numel() * t.element_size() for t in (ev.phi, ev.rho)
+               if t is not None)
 
 
 def bound(sim, key: str, energy: bool = False):
@@ -365,8 +431,7 @@ def bound(sim, key: str, energy: bool = False):
     plus, per pair inside the cutoff, ``pair_flops`` and, half shell,
     3 + 1 per scalar for the j side.  Bytes: positions, neighbor map and
     dfEmbed read once, the outputs written once."""
-    half = key.startswith("half_")
-    pair = key[5:] if half else key
+    half, pair = key_parts(key)
     ev, r = sim.pair_eval, sim.state.r
     B, A = r.shape[1], r.shape[2]
     n_local = sim.geom.n_local
@@ -379,7 +444,8 @@ def bound(sim, key: str, energy: bool = False):
     n_nbr = 14 if half else 27
     nbytes = (3 * B * A * esize + n_local * n_nbr * 4
               + (B * A * esize if pair == "eam_pass3" else 0)
-              + (3 + ns) * (B if half else n_local) * A * esize)
+              + (3 + ns) * (B if half else n_local) * A * esize
+              + table_bytes(ev))
     t_ops, t_bytes = 1e3 * flops / PEAK_F32_FLOPS, 1e3 * nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
             else "bytes", flops, cand)
@@ -393,9 +459,8 @@ def kernel_row(sim, key: str, launches: dict, err: float, ms: float,
     j-slot), the needed-flop rate, and the launch shape (brick, threads,
     shared memory, resident blocks an SM, list capacity)."""
     from comd_tpu_torch.ops.cuda import stencil as st
-    half = key.startswith("half_")
+    half, pair = key_parts(key)
     b_ms, b_by, flops, cand = bound(sim, key)
-    pair = key[5:] if half else key
     nbr = sim.maps.half_nbr_map if half else sim.maps.nbr_map
     shp = st.launch_shape(pair, half, sim.state.r, nbr, sim.pair_eval)
     say("timing", f"{key} kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; "
@@ -1145,6 +1210,266 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
     return rows
 
 
+#: the kernels-line rows of phase 15: the -P spline and -I LJ-table
+#: variants of K1, K2 and NL2 (launch counter names)
+OPTION_KEYS = ("spline_eam_pass1", "spline_eam_pass3",
+               "spline_half_eam_pass1", "spline_half_eam_pass3", "lj_table",
+               "nl_sweep_spline")
+
+
+def run_options(serial_ms: float, lj_ms: float, k1: tuple) -> dict:
+    """Phase 15: the -P spline and -I LJ-table variants of K1, K2 and NL2
+    against their plain versions, the -P and -I goldens, the 63^3 -P (K1,
+    K2, NL2) and -I (K1) headlines, -P on a 2x2x2 mesh under ki_fused (the
+    ki fill), a checkpoint and restore on the card, and -s at 63^3.
+    ``k1``: K1's EAM pass 1 and pass 3 ms from phase 5.  Returns the
+    kernels line's rows of OPTION_KEYS."""
+    import tempfile
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.parallel import ki_comm
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.utils import checkpoint as ckpt
+    from comd_tpu_torch.utils.profile import profile_phases, report_phases
+    errs = {k: 0.0 for k in OPTION_KEYS}
+
+    def upd(e, pairs):
+        for mine, theirs in pairs:
+            errs[mine] = max(errs[mine], e[theirs])
+
+    # the variants against their plain versions, thermalized 10^3
+    spline = dict(doeam=True, spline=True)
+    for dtype, f_atol, s_rtol, f_rtol in (
+            ("float32", 1e-4, 1e-5, 0.0), ("float64", 0.0, 1e-12, 1e-12)):
+        for kw in (spline, dict(spline, half_shell=True),
+                   dict(spline, method="thread_atom_nl"),
+                   dict(lj_interpolation=True)):
+            sim = init_simulation(Config(
+                nx=10, ny=10, nz=10, temperature=600.0, dtype=dtype,
+                pot_dir=POTS, device="cuda", **kw))
+            sim.step_block(10)
+            tag = (f"10^3 {dtype}/{sim.pair_eval.kind} "
+                   f"A={sim.cfg.max_atoms}")
+            if sim.uses_nl:
+                upd(compare_nl(sim, tag, f_atol, s_rtol, f_rtol,
+                               more_lists=True),
+                    [("nl_sweep_spline", "nl_sweep")])
+            elif sim.cfg.half_shell:
+                upd(compare_half(sim, tag, f_atol, s_rtol, f_rtol)[0],
+                    [("spline_half_eam_pass1", "half_eam_pass1"),
+                     ("spline_half_eam_pass3", "half_eam_pass3")])
+            elif not sim.is_eam:
+                upd(compare_lj(sim, tag, f_atol, s_rtol, f_rtol, half=False),
+                    [("lj_table", "lj_table")])
+            else:
+                e, (r, nbr, ev, dfe, _c) = compare_passes(
+                    sim, tag, f_atol, s_rtol, f_rtol)
+                upd(e, [("spline_eam_pass1", "eam_pass1"),
+                        ("spline_eam_pass3", "eam_pass3")])
+                check_k1_bits(r, nbr, ev, dfe, tag)
+            del sim
+
+    # f64 goldens at 6^3, T = 0, through each variant
+    for what, kw in (("K1", {}), ("K2 --halfShell", dict(half_shell=True)),
+                     ("NL2 -m thread_atom_nl",
+                      dict(method="thread_atom_nl"))):
+        golden(f"-e -P 6^3 T=0 {what}", GOLDEN_EAM_SPLINE, nx=6, ny=6, nz=6,
+               **spline, **kw)
+    golden("-I 6^3 T=0 K1", GOLDEN_LJ_INTERP, nx=6, ny=6, nz=6,
+           lj_interpolation=True)
+
+    # the 63^3 headlines through the variants, each kernel launched every
+    # step and the other evaluators' kernels never
+    rows, e_serial = {}, []
+    others = {"spline": ("eam_pass1", "eam_pass3", "half_eam_pass1",
+                         "half_eam_pass3", "nl_sweep"),
+              "lj_table": ("lj", "half_lj", "nl_sweep")}
+    for tag, keys, kw, ref_ms, ref in (
+            ("P main", ("spline_eam_pass1", "spline_eam_pass3"), spline,
+             serial_ms, "phase 5"),
+            ("P half main", ("spline_half_eam_pass1",
+                             "spline_half_eam_pass3"),
+             dict(spline, half_shell=True), serial_ms, "phase 5"),
+            ("P nl main", ("nl_sweep_spline",),
+             dict(spline, method="thread_atom_nl"), serial_ms, "phase 5"),
+            ("I main", ("lj_table",), dict(lj_interpolation=True), lj_ms,
+             "phase 9")):
+        sim, launches = run_main(tag, keys, **kw)
+        kind = sim.pair_eval.kind
+        stray = {k: launches[k] for k in others[kind] if launches[k]}
+        check(not stray, f"{tag}: other evaluators' kernels ran: {stray}")
+        say(tag, f"{sim.ms_step:.3f} ms/step against {ref_ms:.3f} without "
+            f"{'-P' if kind == 'spline' else '-I'} ({ref})")
+        if tag == "P main":
+            e_serial.append((sim.e_potential + sim.kinetic_energy())
+                            / sim.n_global)
+        r, ev, chunk = sim.state.r, sim.pair_eval, sim.cfg.resolved_box_chunk
+        if sim.uses_nl:
+            e = compare_nl(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5)
+            errs["nl_sweep_spline"] = max(errs["nl_sweep_spline"],
+                                          e["nl_sweep"])
+            calls = nl_calls(sim)
+            for name in ("pass1 False", "pass3"):
+                kern, plain, pair, energy = calls[name]
+                ms, plain_ms = time_ms(kern, 20), time_ms(plain, 1)
+                b = nl_bound(sim, name, pair, energy)
+                say("timing", f"{tag} nl_sweep_spline {name}: kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                    f"{b['ms']:.4f} ms ({b['by']}), {100 * b['ms'] / ms:.1f}"
+                    f"% of it; {b['flops'] / ms / 1e9:.3f} TFLOP/s needed")
+                if name == "pass1 False":
+                    rows["nl_sweep_spline"] = {
+                        "name": "nl_sweep_spline", "route": "cuda",
+                        "source": NL_SOURCE, "replaces": REPLACES["nl_sweep"],
+                        "launches": launches["nl_sweep_spline"],
+                        "max_abs_err": errs["nl_sweep_spline"], "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b["ms"],
+                        "bound_by": b["by"], "library_ms": None}
+            del sim, r, ev
+            continue
+        if kind == "lj_table":
+            e = compare_lj(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5,
+                           half=False)
+            nbr = sim.maps.nbr_map
+            timed = {"lj_table": (
+                lambda: st.lj_pass(r, nbr, ev, want_energy=False),
+                lambda: st.lj_pass_plain(r, nbr, ev, want_energy=False,
+                                         box_chunk=chunk))}
+            mine = {"lj_table": e["lj_table"]}
+        elif sim.cfg.half_shell:
+            e, (r, hm, ev, dfe, chunk) = compare_half(
+                sim, f"{HEADLINE_N}^3 float32/spline", 1e-4, 1e-5)
+            timed = {
+                "spline_half_eam_pass1": (
+                    lambda: st.eam_pass1_half(r, hm, ev, want_energy=False),
+                    lambda: st.eam_pass1_half_plain(
+                        r, hm, ev, want_energy=False, box_chunk=chunk)),
+                "spline_half_eam_pass3": (
+                    lambda: st.eam_pass3_half(r, hm, ev, dfe),
+                    lambda: st.eam_pass3_half_plain(r, hm, ev, dfe,
+                                                    box_chunk=chunk))}
+            mine = {"spline_half_eam_pass1": e["half_eam_pass1"],
+                    "spline_half_eam_pass3": e["half_eam_pass3"]}
+        else:
+            e, (r, nbr, ev, dfe, chunk) = compare_passes(
+                sim, f"{HEADLINE_N}^3 float32/spline", 1e-4, 1e-5)
+            check_k1_bits(r, nbr, ev, dfe, f"{HEADLINE_N}^3 -P")
+            timed = {
+                "spline_eam_pass1": (
+                    lambda: st.eam_pass1(r, nbr, ev, want_energy=False),
+                    lambda: st.eam_pass1_plain(r, nbr, ev, want_energy=False,
+                                               box_chunk=chunk)),
+                "spline_eam_pass3": (
+                    lambda: st.eam_pass3(r, nbr, ev, dfe),
+                    lambda: st.eam_pass3_plain(r, nbr, ev, dfe,
+                                               box_chunk=chunk))}
+            mine = {"spline_eam_pass1": e["eam_pass1"],
+                    "spline_eam_pass3": e["eam_pass3"]}
+        for k, (fn, plain) in timed.items():
+            errs[k] = max(errs[k], mine[k])
+            rows[k] = kernel_row(sim, k, launches, errs[k],
+                                 time_ms(fn, 20), time_ms(plain, 1))
+        del sim, r, ev
+
+    # -P on a 2x2x2 mesh under ki_fused: comd_tpu does not fuse F' into
+    # the fill under -P, so the fill is ki's (K3's copies); the fused
+    # transport's entry point refuses to run here
+    fused = ki_comm.exchange_scalar_ki_fused
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the fused F' fill ran under -P")
+
+    ki_comm.exchange_scalar_ki_fused = refuse
+    try:
+        sim, launches = run_main(
+            "P sharded main ki_fused", ("spline_eam_pass1",
+                                        "spline_eam_pass3", "halo_fill"),
+            comm_impl="ki_fused", **spline, **MESH)
+    finally:
+        ki_comm.exchange_scalar_ki_fused = fused
+    e1 = (sim.e_potential + sim.kinetic_energy()) / sim.n_global
+    rel = abs(e1 / e_serial[0] - 1.0)
+    check(launches["halo_fill"] == 101 and rel < 1e-6,
+          f"P sharded: halo_fill {launches['halo_fill']} for 101 forces, "
+          f"final energy {e1!r} vs serial {e_serial[0]!r}")
+    say("P sharded main", f"halo_fill {launches['halo_fill']} launches (one "
+        f"a force, the ki plan: K3's copies, no F' stage); final energy "
+        f"rel. diff to the serial -P run {rel:.3e}; {sim.ms_step:.3f} "
+        f"ms/step on 8 shards")
+    del sim
+
+    # a checkpoint on the card: 50 steps, save, restore into a fresh
+    # simulation, 50 more == 100 uninterrupted, bit for bit (K1 gives the
+    # same bits on every launch)
+    n = HEADLINE_N
+    cfg = Config(nx=n, ny=n, nz=n, doeam=True, temperature=600.0,
+                 dtype="float32", pot_dir=POTS, device="cuda")
+    whole = init_simulation(cfg)
+    for _ in range(10):
+        whole.step_block(10)
+    part = init_simulation(cfg)
+    for _ in range(5):
+        part.step_block(10)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save(d, part, 50)
+        t_save = time.perf_counter() - t0
+        del part
+        t0 = time.perf_counter()
+        back, step = ckpt.load(d, device="cuda")
+        t_load = time.perf_counter() - t0
+    for _ in range(5):
+        back.step_block(10)
+    torch.cuda.synchronize()
+    check(step == 50 and torch.equal(back.state.r, whole.state.r)
+          and torch.equal(back.state.p, whole.state.p)
+          and back.e_potential == whole.e_potential,
+          "checkpoint: the restored run differs from the uninterrupted one")
+    say("checkpoint", f"{n}^3 EAM f32: 50 steps, save ({t_save:.2f} s), "
+        f"restore ({t_load:.2f} s, init included), 50 steps: r, p and ePot "
+        f"equal the uninterrupted 100-step run bit for bit "
+        f"({back.n_rebucket} rebuckets after the restore)")
+    del back
+
+    # -s at 63^3 EAM on the uninterrupted run's state
+    phases = profile_phases(whole, out=sys.stdout)
+    print(report_phases(phases, whole.n_global), flush=True)
+    s = whole.state
+    rho = st.eam_pass1(s.r, whole.maps.nbr_map, whole.pair_eval,
+                       want_energy=False)[2]
+    pass2_ms = time_ms(lambda: whole.f_eval(rho), 20)
+    ref = k1[0] + k1[1] + pass2_ms
+    check(all(t > 0 for t in phases.values()) and
+          0.5 <= 1e3 * phases["force"] / ref <= 2.0,
+          f"-s: phases {phases}; force against K1's passes and pass 2 "
+          f"{ref:.4f} ms")
+    say("profile", f"-s at {n}^3: every phase positive; force "
+        f"{1e3 * phases['force']:.4f} ms against K1 pass 1 + pass 3 (phase "
+        f"5) + pass 2 = {k1[0]:.4f} + {k1[1]:.4f} + {pass2_ms:.4f} = "
+        f"{ref:.4f} ms")
+    del whole
+    return rows
+
+
+def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
+    """K1 pass 1 (with and without energy) and pass 3: two launches give
+    the same bits."""
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    for energy in (True, False):
+        a = st.eam_pass1(r, nbr, ev, want_energy=energy)
+        b = st.eam_pass1(r, nbr, ev, want_energy=energy)
+        check(all(x is y or torch.equal(x, y) for x, y in zip(a, b)),
+              f"{tag}: K1 pass 1 (energy {energy}) differs between two "
+              f"launches")
+    check(torch.equal(st.eam_pass3(r, nbr, ev, dfe),
+                      st.eam_pass3(r, nbr, ev, dfe)),
+          f"{tag}: K1 pass 3 differs between two launches")
+    say("kernel", f"{tag} {ev.kind}: two launches of K1 pass 1 (with and "
+        f"without energy) and pass 3 give the same bits")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1190,20 +1515,26 @@ def main() -> int:
             f"{len(entries)} kernels, registers {min(regs, default=0)}.."
             f"{max(regs, default=0)}, max spill stores "
             f"{max((e[2] for e in entries), default=0)} bytes")
-        if stem == "stencil":
-            # stencil_kernel<T, PAIR, EVAL, ...>: f32 K1/K2 on the main
-            # paths are the Chebyshev (EVAL 0) and LJ variants
+        if stem in ("stencil", "nl"):
+            # stencil_kernel<T, PAIR, EVAL, ...> / nl_sweep_kernel<...>:
+            # the f32 variants on the main paths (EAM Chebyshev and -P
+            # spline, LJ analytic and the -I table) must not spill; the
+            # f32 EAM quadratic table runs on no main path
             spill = {}
+            kern = "stencil_kernel" if stem == "stencil" else \
+                "nl_sweep_kernel"
             for name, nreg, nspill in entries:
-                m = re.search(r"stencil_kernelI([fd])Li(\d)ELi(\d)E", name)
+                m = re.search(kern + r"I([fd])Li(\d)ELi(\d)E", name)
                 if m:
                     tag = ("f32" if m.group(1) == "f" else "f64") + (
-                        " table" if m.group(3) == "1" else "")
+                        " lj" if m.group(2) == "2" else " eam") + {
+                        "0": "", "1": " table", "2": " spline"}[m.group(3)]
                     spill[tag] = max(spill.get(tag, 0), nspill)
-            say("build", "stencil.cu spill stores by variant (bytes, max): "
+            say("build", f"{stem}.cu spill stores by variant (bytes, max): "
                 + ", ".join(f"{k} {v}" for k, v in sorted(spill.items())))
-            check(spill.get("f32", 0) == 0,
-                  f"f32 stencil kernels spill {spill.get('f32')} bytes")
+            bad = {k: v for k, v in spill.items()
+                   if k.startswith("f32") and k != "f32 eam table" and v}
+            check(not bad, f"f32 {stem} kernels spill: {bad}")
     say("build", f"four sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
@@ -1252,16 +1583,7 @@ def main() -> int:
                 sim.geom.n_local * 27 * sim.cfg.max_atoms ** 2, k1_cand,
                 k1_flops)
     # K1 sums each i's pairs in one fixed order: two launches, same bits
-    for energy in (True, False):
-        a = st.eam_pass1(r, nbr, ev, want_energy=energy)
-        b = st.eam_pass1(r, nbr, ev, want_energy=energy)
-        check(all(x is y or torch.equal(x, y) for x, y in zip(a, b)),
-              f"K1 pass 1 (energy {energy}) differs between two launches")
-    check(torch.equal(st.eam_pass3(r, nbr, ev, dfe),
-                      st.eam_pass3(r, nbr, ev, dfe)),
-          "K1 pass 3 differs between two launches")
-    say("kernel", f"{HEADLINE_N}^3: two launches of K1 pass 1 (with and "
-        f"without energy) and pass 3 give the same bits")
+    check_k1_bits(r, nbr, ev, dfe, f"{HEADLINE_N}^3")
     del sim, r, nbr, ev, dfe
 
     # 6. K2 (EAM, LJ) and K1's LJ variant vs plain versions at 10^3
@@ -1479,11 +1801,15 @@ def main() -> int:
     # 14. the Verlet-list kernels NL1/NL2 and the NL paths
     rows.update(run_nl(serial_ms, lj_ms, k1_pass1))
 
+    # 15. -P, -I and the run tools
+    rows.update(run_options(serial_ms, lj_ms, (k1_ms["eam_pass1"][0],
+                                               k1_ms["eam_pass3"][0])))
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push")
-               + PROBE_KEYS + ("nl_build", "nl_sweep")]
+               + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

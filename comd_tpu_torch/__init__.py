@@ -1,11 +1,9 @@
 """comd_tpu_torch: the comd_tpu molecular-dynamics engine on PyTorch + CUDA.
 
 The port of comd_tpu (JAX on a TPU) to PyTorch on an NVIDIA H100: the same
-Config, CLI flags, cell layout and goldens, with the Pallas cell-stencil
-force kernels (full and half shell) rewritten as hand-written CUDA kernels
-(csrc/stencil.cu).  The port covers the serial EAM and LJ runs, full shell
-or --halfShell; other options raise NotImplementedError naming the
-ROADMAP.md item that ports them.
+Config, CLI flags, cell layout and goldens, with comd_tpu's Pallas kernels
+rewritten as hand-written CUDA kernels (csrc/).  Options outside the port
+raise NotImplementedError naming the ROADMAP.md item that ports them.
 
 The package imports torch and numpy only (never jax or comd_tpu).  Energy
 sums are taken in Config.energy_dtype (f64) whatever the dynamics dtype.

@@ -8,17 +8,22 @@
 Every option of comd_tpu.cli is accepted (flag table: src-mpi/mycommand.c:
 225-251) plus ``--device``.  The run loop reproduces the reference main():
 prolog -> printRate-step blocks with printThings lines -> validation ->
-timing report (CoMD.c:86-187, 463-494).  Options outside the ported slice
-(YAML, checkpoints, --analyze, -s, multi-process launch and the
-configurations listed in sim.check_slice) raise NotImplementedError naming
-the ROADMAP.md item that ports them.
+timing report (CoMD.c:86-187, 463-494), with comd_tpu's run tools:
+``--checkpoint/--checkpointRate/--restore`` (utils/checkpoint.py, comd_tpu's
+npz format), ``--yaml`` (utils/yaml_output.py), ``--analyze`` (the
+cell-occupancy histogram) and ``-s`` (utils/profile.py).  Options outside
+the ported slice (multi-process launch and the configurations listed in
+sim.check_slice) raise NotImplementedError naming the ROADMAP.md item that
+ports them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
+import numpy as np
 import torch
 
 from .config import Config
@@ -222,17 +227,34 @@ def check_overflow(sim, i_step: int) -> None:
 def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         analyze: bool = False, restore: str | None = None,
         checkpoint: str | None = None, checkpoint_rate: int = 0) -> dict:
-    """Full reference-style run. Returns a result summary dict."""
-    if restore is not None or checkpoint is not None:
-        not_ported("--restore/--checkpoint", "6")
-    if yaml_dir is not None:
-        not_ported("YAML output (--yaml)", "6")
-    if analyze:
-        not_ported("--analyze", "6")
+    """Full reference-style run (comd_tpu.cli.run). Returns a result summary
+    dict."""
+    from .utils import checkpoint as ckpt
 
     timers = PerfTimers()
     timers.start("total")
-    sim = init_simulation(cfg, timers=timers)
+    step0 = 0
+    if restore is not None:
+        sim, step0 = ckpt.load(restore, device=cfg.device)
+        print(f"Restored checkpoint {restore} at step {step0}", file=out)
+        # physics/geometry come from the stored config; the run-control
+        # flags (-N steps to add, -n print rate) and the device from THIS
+        # command line.  Warn about any other flag that differs from the
+        # stored config: it is ignored.
+        ignored = []
+        for f in dataclasses.fields(cfg):
+            if f.name in ("n_steps", "print_rate", "device"):
+                continue
+            new, old = getattr(cfg, f.name), getattr(sim.cfg, f.name)
+            if new != old and new != getattr(Config(), f.name):
+                ignored.append(f"{f.name}={new!r} (checkpoint has {old!r})")
+        if ignored:
+            print("# WARNING: --restore ignores these flags; the stored "
+                  "config wins: " + ", ".join(ignored), file=out)
+        sim.cfg = dataclasses.replace(sim.cfg, n_steps=cfg.n_steps,
+                                      print_rate=cfg.print_rate)
+    else:
+        sim = init_simulation(cfg, timers=timers)
     cfg = sim.cfg
 
     serial = cfg.nprocs == 1
@@ -243,6 +265,8 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
              f" shards on {sim.device}, --commImpl {cfg.comm_impl}"),
           file=out)
     print(file=out)
+    if analyze:
+        analyze_input(sim, out=out)
     if serial and cfg.comm_impl != "collective":
         print(f"# WARNING: --commImpl {cfg.comm_impl} selects a halo "
               "TRANSPORT and only applies to multi-device runs (-i/-j/-k); "
@@ -268,8 +292,8 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
     print(HEADER, file=out)
 
     timers.start("loop")
-    i_step = 0
-    n_end = cfg.n_steps
+    i_step = step0
+    n_end = step0 + cfg.n_steps
     print_things(sim, i_step, 1e-9, 1, out=out, timers=timers)
     check_overflow(sim, i_step)
     while i_step < n_end:
@@ -284,7 +308,19 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         i_step += n_block
         check_overflow(sim, i_step)
         print_things(sim, i_step, dt_wall, n_block, out=out, timers=timers)
+        # periodic checkpoint on interval CROSSINGS, so rates that are not
+        # a multiple of printRate still fire
+        if checkpoint is not None and checkpoint_rate > 0 and \
+                i_step < n_end and \
+                (i_step - step0) // checkpoint_rate > \
+                (i_step - n_block - step0) // checkpoint_rate:
+            ckpt.save(checkpoint, sim, i_step)
+            print(f"# checkpoint written at step {i_step}", file=out)
     timers.stop("loop")
+    if checkpoint is not None:
+        ckpt.save(checkpoint, sim, i_step)
+        print(f"# final checkpoint written to {checkpoint} "
+              f"(step {i_step})", file=out)
 
     # validation (validateResult, CoMD.c:413-440)
     e_final = (sim.e_potential + sim.kinetic_energy()) / sim.n_global
@@ -300,17 +336,84 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         print(f"# WARNING: {n0 - n_final:6d} atoms lost #", file=out)
         print("#############################", file=out)
 
+    # stop the run timers BEFORE any -s profiling: the profile's repeated
+    # phases must not inflate the reported total
     timers.stop("total")
+
+    if cfg.gpu_profile:
+        # -s: single-force profiling mode (CoMD.c:216-218) -- attribute the
+        # step phases, each timed on its own on clones of the state
+        from .utils.profile import profile_phases, report_phases
+        print("\nProfiling mode (-s): phase-attributed timing", file=out)
+        phases = profile_phases(sim, out=out)
+        print(report_phases(phases, sim.n_global), file=out)
+        analyze_input(sim, out=out)
     print(timers.report(sim.n_global, cfg.n_steps), file=out)
     print(timers.rank_stats(), file=out)
 
-    return {
+    result = {
         "e_initial": e0,
         "e_final": e_final,
         "atoms_lost": n0 - n_final,
         "atom_rate_atoms_per_us": timers.atom_rate(sim.n_global, cfg.n_steps),
         "n_global": sim.n_global,
     }
+    if yaml_dir is not None:
+        _write_yaml(yaml_dir, cfg, sim, result, out)
+    return result
+
+
+def _write_yaml(yaml_dir, cfg: Config, sim, result, out):
+    """YAML run report (yamlOutput.c, CoMD.c:498-552), comd_tpu's sections
+    and keys; the command-line parameters include the port's ``device``."""
+    from . import __version__
+    from .utils.yaml_output import YamlReport
+
+    max_occ = sim.max_occupancy()
+    rep = YamlReport(variant="comd-tpu-torch", out_dir=yaml_dir).open()
+    rep.header(__version__)
+    rep.section("Command Line Parameters")
+    for k, v in vars(cfg).items():
+        rep.kv(k, v)
+    rep.section("Simulation data")
+    rep.kv("Total atoms", sim.n_global)
+    rep.kv("Min global bounds", [0.0, 0.0, 0.0])
+    rep.kv("Max global bounds", list(sim.global_extent))
+    rep.section("Decomposition data")
+    rep.kv("Processors", [cfg.xproc, cfg.yproc, cfg.zproc])
+    rep.kv("Local boxes", list(sim.geom.grid))
+    rep.kv("Box size", list(sim.geom.box_size))
+    rep.kv("Box factor", list(sim.geom.box_size / sim.pot.cutoff))
+    rep.kv("Max Link Cell Occupancy",
+           f"{max_occ} of {cfg.max_atoms}")
+    rep.section("Potential data")
+    for k, v in sim.pot.describe():
+        rep.kv(k, v)
+    rep.section("Validation")
+    rep.kv("Initial energy", f"{result['e_initial']:.12f}")
+    rep.kv("Final energy", f"{result['e_final']:.12f}")
+    rep.kv("Atoms lost", result["atoms_lost"])
+    rep.section("Performance")
+    rep.kv("Atom rate (atoms/us)",
+           f"{result['atom_rate_atoms_per_us']:.4f}")
+    rep.close()
+    print(f"YAML report written to {rep.path}", file=out)
+
+
+def analyze_input(sim, out=sys.stdout):
+    """Occupancy histogram of link cells (AnalyzeInput,
+    src-mpi/gpu_utility.c:785-862)."""
+    hist = np.asarray(sim.occupancy_histogram())
+    print("# cell-occupancy histogram (atoms-per-cell, num-cells)", file=out)
+    for occ, n in enumerate(hist):
+        if n:
+            print(f"{occ:4d} {n:8d}", file=out)
+    occ = np.arange(len(hist))
+    n_cells = hist.sum()
+    mean = float((occ * hist).sum() / max(n_cells, 1))
+    hi = int(occ[hist > 0].max()) if n_cells else 0
+    print(f"# mean {mean:.2f}  max {hi}  "
+          f"capacity {sim.cfg.max_atoms}", file=out)
 
 
 def main(argv=None):

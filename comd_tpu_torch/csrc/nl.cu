@@ -69,7 +69,10 @@
 //  - no block-wide barrier: a warp writes its rows' [3 + ns] outputs
 //    itself (zeros for a warp without a valid row).
 // Outputs are per row, [3 + ns, R]: force, then the pass's scalars (EAM
-// pass 1: [phi,] rho; LJ: [e]).
+// pass 1: [phi,] rho; LJ: [e]).  EAM runs with each of K1's evaluators,
+// the -P spline included (pair.cuh; the drain is the same, only the pair
+// function differs); LJ with the analytic pair only, as comd_tpu's list
+// paths ignore -I.
 //
 // Plain C interface for ctypes: each entry point returns the cudaError_t
 // of its launch (0 = success) and does not synchronize.
@@ -274,7 +277,7 @@ nl_sweep_kernel(const Rec<T>* __restrict__ rec,
                 const unsigned char* __restrict__ a_valid,
                 const int* __restrict__ nl, int n_rows, int K, T rcut2,
                 const Cheb<T> cp, const Table<T> tp, const Lj<T> lj,
-                T* __restrict__ out) {
+                const Spline<T> sp, T* __restrict__ out) {
   constexpr int NS = n_scalars<PAIR, ENERGY>();
   constexpr int NOUT = 3 + NS;
   static_assert(NOUT <= kLanesARow, "a row's lanes write its outputs");
@@ -307,8 +310,8 @@ nl_sweep_kernel(const Rec<T>* __restrict__ rec,
       const Rec<T> v = queue[grp][(h + sub) & (kQueue - 1)];
       const T r2 = dist2(v.x, v.y, v.z);
       T sc[NS > 0 ? NS : 1];
-      const T fc =
-          pair_eval<T, PAIR, EVAL, ENERGY>(cp, tp, lj, r2, v.w, T(0), sc);
+      const T fc = pair_eval<T, PAIR, EVAL, ENERGY>(cp, tp, lj, sp, r2, v.w,
+                                                    T(0), sc);
       acc[0] += fc * v.x;
       acc[1] += fc * v.y;
       acc[2] += fc * v.z;
@@ -469,6 +472,7 @@ struct Sweep {
   const ChebParams* cheb;
   const TableParams* tab;
   const LjParams* lj;
+  const SplineParams* spline;
   void* out;
   cudaStream_t stream;
 };
@@ -478,7 +482,8 @@ cudaError_t launch_sweep(const Sweep& a) {
   Cheb<T> cp{};
   Table<T> tp{};
   Lj<T> lj{};
-  round_params<T, PAIR, EVAL>(a.cheb, a.tab, a.lj, cp, tp, lj);
+  Spline<T> sp{};
+  round_params<T, PAIR, EVAL>(a.cheb, a.tab, a.lj, a.spline, cp, tp, lj, sp);
   if (a.n_rows > 0) {
     Rec<T>* rec = static_cast<Rec<T>*>(a.rec);
     nl_pack_kernel<T><<<(a.plane + 255) / 256, 256, 0, a.stream>>>(
@@ -491,7 +496,7 @@ cudaError_t launch_sweep(const Sweep& a) {
             rec, static_cast<const int*>(a.a_list),
             static_cast<const unsigned char*>(a.a_valid),
             static_cast<const int*>(a.nl), a.n_rows, a.K,
-            static_cast<T>(a.rcut2), cp, tp, lj, static_cast<T*>(a.out));
+            static_cast<T>(a.rcut2), cp, tp, lj, sp, static_cast<T*>(a.out));
   }
   return cudaGetLastError();
 }
@@ -503,7 +508,9 @@ cudaError_t dispatch_pair(int pair, int want_energy, const Sweep& a) {
     if (want_energy) return launch_sweep<T, kEam1, EVAL, true>(a);
     return launch_sweep<T, kEam1, EVAL, false>(a);
   }
-  if (EVAL != 0) return cudaErrorInvalidValue;   // LJ has one evaluator
+  // LJ on the lists is the analytic pair only: comd_tpu's NL paths
+  // ignore -I
+  if (EVAL != 0) return cudaErrorInvalidValue;
   if (want_energy) return launch_sweep<T, kLj, 0, true>(a);
   return launch_sweep<T, kLj, 0, false>(a);
 }
@@ -512,7 +519,8 @@ template <typename T>
 cudaError_t dispatch_eval(int eval, int pair, int want_energy,
                           const Sweep& a) {
   if (eval == 0) return dispatch_pair<T, 0>(pair, want_energy, a);
-  return dispatch_pair<T, 1>(pair, want_energy, a);
+  if (eval == 1) return dispatch_pair<T, 1>(pair, want_energy, a);
+  return dispatch_pair<T, 2>(pair, want_energy, a);
 }
 
 }  // namespace
@@ -545,7 +553,8 @@ int comd_nl_build(int dtype, const void* r, int plane, const void* a_list,
 }
 
 // NL2.  pair: 0 EAM pass 1, 1 EAM pass 3, 2 LJ; dtype: 0 float, 1 double;
-// eval (EAM): 0 Chebyshev, 1 table.  dfe [plane] is EAM pass 3's
+// eval (EAM): 0 Chebyshev, 1 table, 2 the -P spline (LJ: 0 only).
+// dfe [plane] is EAM pass 3's
 // halo-filled dfEmbed; rec is scratch for [plane, 4] records of dtype
 // (16-byte aligned), written by the pack kernel launched first.  Writes
 // out [3 + ns, n_rows]; rcut2 is the pair cutoff squared, rounded to
@@ -554,19 +563,21 @@ int comd_nl_sweep(int pair, int dtype, int eval, int want_energy,
                   const void* r, int plane, const void* dfe, void* rec,
                   const void* a_list, const void* a_valid, const void* nl,
                   int n_rows, int K, double rcut2, const ChebParams* cheb,
-                  const TableParams* tab, const LjParams* lj, void* out,
-                  void* stream) {
+                  const TableParams* tab, const LjParams* lj,
+                  const SplineParams* spline, void* out, void* stream) {
   const bool eam = pair == kEam1 || pair == kEam3;
   if ((pair != kEam1 && pair != kEam3 && pair != kLj) || K < 1 ||
-      n_rows < 0 || (eam && eval == 0 && cheb == nullptr) ||
+      n_rows < 0 || eval < 0 || eval > 2 ||
+      (eam && eval == 0 && cheb == nullptr) ||
       (eam && eval == 1 && tab == nullptr) ||
+      (eam && eval == 2 && (spline == nullptr || spline->n < 1)) ||
       (pair == kLj && (lj == nullptr || eval != 0)) ||
       (pair == kEam3 && dfe == nullptr) || rec == nullptr ||
       (eam && eval == 0 &&
        (cheb->n_terms < 2 || cheb->n_terms > kMaxCheb)))
     return static_cast<int>(cudaErrorInvalidValue);
   Sweep a{r, plane, dfe, rec, a_list, a_valid, nl, n_rows, K, rcut2,
-          cheb, tab, lj, out, static_cast<cudaStream_t>(stream)};
+          cheb, tab, lj, spline, out, static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return dispatch_eval<float>(eval, pair, want_energy, a);
   if (dtype == 1) return dispatch_eval<double>(eval, pair, want_energy, a);
   return static_cast<int>(cudaErrorInvalidValue);

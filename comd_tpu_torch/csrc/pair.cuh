@@ -4,6 +4,12 @@
 // and NL2 evaluate every pair inside the cutoff with the same pair_eval.
 // Also the staging helpers they share: the 16-byte record and cp.async.
 //
+// Evaluators (EVAL): 0 the shared-basis Chebyshev fit (EAM); 1 the
+// quadratic interpolation of a table, the EAM phi/rho tables or, for LJ,
+// the -I table of 4 eps (r6 (r6 - 1) - e_shift) (comd_tpu's
+// lj_force_interp, gpu_utility.c:348-374); 2 the cubic spline in r2 of
+// -P (gpu_common.h:95-129), EAM only.  LJ's EVAL 0 is the analytic pair.
+//
 // ops/cuda/nvcc.py hashes this header with every source that includes
 // it, so a change here rebuilds them all.
 
@@ -35,6 +41,18 @@ struct TableParams {
 
 struct LjParams {
   double s6, eps4, e_shift;   // sigma^6, 4 epsilon, the cutoff shift
+};
+
+// The -P spline tables of phi and rho on one grid: n intervals, r in
+// [x0, xn], interval floor(r inv_dx - x0_inv_dx) with x0_inv_dx the
+// product x0 inv_dx taken in double (comd_tpu rounds it once, as a
+// Python-float product), coefficients [n, 4] (a, b, c, d) of the kernel's
+// precision, one 16-byte record an interval (32 in double).
+struct SplineParams {
+  int n;
+  double x0, xn, inv_dx, x0_inv_dx;
+  const void* phi;
+  const void* rho;
 };
 
 namespace {
@@ -74,6 +92,14 @@ struct Lj {
 template <typename T>
 struct alignas(4 * sizeof(T)) Rec {
   T x, y, z, w;
+};
+
+template <typename T>
+struct Spline {
+  int n;
+  T x0, xn, inv_dx, x0_inv_dx;
+  const Rec<T>* phi;   // [n] records (a, b, c, d)
+  const Rec<T>* rho;
 };
 
 // cp.async of one 4- or 8-byte value from global to shared memory
@@ -132,6 +158,55 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
 __device__ __forceinline__ double dist2(double dx, double dy, double dz) {
   return __dadd_rn(__dadd_rn(__dmul_rn(dx, dx), __dmul_rn(dy, dy)),
                    __dmul_rn(dz, dz));
+}
+
+// One IEEE operation, rounded on its own: never contracted into an FMA.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+
+// The spline interval of r2 (comd_tpu's interpolate_spline): r = sqrt(r2)
+// clipped to [x0, xn], floor(r inv_dx - x0_inv_dx) with the product and
+// the difference rounded on their own, clipped to [0, n - 1].
+template <typename T>
+__device__ __forceinline__ int spline_index(const Spline<T>& sp, T r2) {
+  T r = dev_sqrt<T>(r2);
+  r = r < sp.x0 ? sp.x0 : r;
+  r = r > sp.xn ? sp.xn : r;
+  int k = static_cast<int>(
+      dev_floor<T>(sub_rn(mul_rn(r, sp.inv_dx), sp.x0_inv_dx)));
+  k = k < 0 ? 0 : k;
+  return k > sp.n - 1 ? sp.n - 1 : k;
+}
+
+// The cubic of interval k at r2, op by op as the plain version (the
+// cubic cancels strongly in f32, so no FMA): tmp = a r2 + b,
+// f = (tmp r2 + c) r2 + d (if F) and df = (1/r) df/dr =
+// 2 ((3 tmp - b) r2 + c) (if DF).  One 16-byte load a table.
+template <typename T, bool F, bool DF>
+__device__ __forceinline__ void spline_eval(const Rec<T>* __restrict__ tab,
+                                            int k, T r2, T& f, T& df) {
+  const Rec<T> c = tab[k];
+  const T tmp = add_rn(mul_rn(c.x, r2), c.y);
+  if constexpr (F) f = add_rn(mul_rn(add_rn(mul_rn(tmp, r2), c.z), r2), c.w);
+  if constexpr (DF)
+    df = mul_rn(T(2), add_rn(mul_rn(sub_rn(mul_rn(T(3), tmp), c.y), r2),
+                             c.z));
 }
 
 // Shared-basis Chebyshev evaluation (tables.eval_cheb_fused): the outputs
@@ -205,12 +280,19 @@ __device__ __forceinline__ void table_eval(const T* __restrict__ tab, int n,
 
 // One pair inside the cutoff: returns the force coefficient fc (f_i +=
 // fc * (r_i - r_j)) and writes the pair's scalars into sc (EAM pass 1:
-// [phi,] rho; LJ: [e]).
+// [phi,] rho; LJ: [e], the -I table's e carrying 4 eps already).
 template <typename T, int PAIR, int EVAL, bool ENERGY>
 __device__ __forceinline__ T pair_eval(const Cheb<T>& cp, const Table<T>& tp,
-                                       const Lj<T>& lj, T r2, T di, T dj,
-                                       T* sc) {
-  if constexpr (PAIR == kLj) {
+                                       const Lj<T>& lj, const Spline<T>& sp,
+                                       T r2, T di, T dj, T* sc) {
+  if constexpr (PAIR == kLj && EVAL == 1) {
+    // -I: f_i = -(de/dr) / r (r_i - r_j) from the quadratic table
+    const T rr = dev_sqrt<T>(r2);
+    T e, de;
+    table_eval<T>(tp.phi, tp.n, tp.x0, tp.inv_dx, rr, e, de);
+    if constexpr (ENERGY) sc[0] = e;
+    return -de / rr;
+  } else if constexpr (PAIR == kLj) {
     const T inv_r2 = T(1) / r2;
     const T r6 = (lj.s6 * inv_r2) * (inv_r2 * inv_r2);
     if constexpr (ENERGY) sc[0] = r6 * (r6 - T(1)) - lj.e_shift;
@@ -221,6 +303,10 @@ __device__ __forceinline__ T pair_eval(const Cheb<T>& cp, const Table<T>& tp,
       T out[4];
       cheb_eval<T, 0x8>(cp, r2, out);
       scale = out[3];
+    } else if constexpr (EVAL == 2) {
+      T unused;   // the spline's derivative is (1/r) drho/dr already
+      spline_eval<T, false, true>(sp.rho, spline_index<T>(sp, r2), r2,
+                                  unused, scale);
     } else {
       const T rr = dev_sqrt<T>(r2);
       T rho, drho;
@@ -236,6 +322,15 @@ __device__ __forceinline__ T pair_eval(const Cheb<T>& cp, const Table<T>& tp,
       fc = -out[1];
       phi = ENERGY ? out[0] : T(0);
       rho = out[2];
+    } else if constexpr (EVAL == 2) {
+      // one interval for both tables (one grid): 8 coefficient loads a pair
+      // with the energy, phi's value skipped without it
+      const int k = spline_index<T>(sp, r2);
+      T dphi, unused;
+      phi = T(0);
+      spline_eval<T, ENERGY, true>(sp.phi, k, r2, phi, dphi);
+      spline_eval<T, true, false>(sp.rho, k, r2, rho, unused);
+      fc = -dphi;
     } else {
       const T rr = dev_sqrt<T>(r2);
       T dphi, drho;
@@ -255,12 +350,21 @@ __device__ __forceinline__ T pair_eval(const Cheb<T>& cp, const Table<T>& tp,
 
 
 // The host parameters rounded once to the kernel's precision, for the pair
-// function PAIR and evaluator EVAL (the others stay zero).
+// function PAIR and evaluator EVAL (the others stay zero).  The -I table
+// (LJ, EVAL 1) comes as a TableParams whose phi is the table.
 template <typename T, int PAIR, int EVAL>
 void round_params(const ChebParams* cheb, const TableParams* tab,
-                  const LjParams* ljp, Cheb<T>& cp, Table<T>& tp,
-                  Lj<T>& lj) {
-  if (PAIR == kLj) {
+                  const LjParams* ljp, const SplineParams* spl, Cheb<T>& cp,
+                  Table<T>& tp, Lj<T>& lj, Spline<T>& sp) {
+  if (EVAL == 2) {
+    sp.n = spl->n;
+    sp.x0 = static_cast<T>(spl->x0);
+    sp.xn = static_cast<T>(spl->xn);
+    sp.inv_dx = static_cast<T>(spl->inv_dx);
+    sp.x0_inv_dx = static_cast<T>(spl->x0_inv_dx);
+    sp.phi = static_cast<const Rec<T>*>(spl->phi);
+    sp.rho = static_cast<const Rec<T>*>(spl->rho);
+  } else if (PAIR == kLj && EVAL == 0) {
     lj.s6 = static_cast<T>(ljp->s6);
     lj.eps4 = static_cast<T>(ljp->eps4);
     lj.e_shift = static_cast<T>(ljp->e_shift);

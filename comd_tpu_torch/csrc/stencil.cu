@@ -82,8 +82,12 @@
 //
 // Variants: pair (EAM 1 with/without phi energy, EAM 3, LJ with/without
 // energy) x half (K1, K2) x precision (float, double) x evaluator (EAM:
-// shared-basis Chebyshev in w(u = r^2), or the exact quadratic
-// interpolation of the phi/rho tables, eam.c:557-579).  Built without fast
+// shared-basis Chebyshev in w(u = r^2), the exact quadratic interpolation
+// of the phi/rho tables, eam.c:557-579, or the -P cubic spline in r^2,
+// gpu_common.h:95-129; LJ: the analytic pair, or on K1 only the -I
+// quadratic table, gpu_utility.c:348-374, which comd_tpu never runs half
+// shell).  The new evaluators reuse the staging, walk and drain as they
+// are: only the pair function differs (pair.cuh).  Built without fast
 // math: the evaluators need IEEE 1/u, log and sqrt.
 //
 // Plain C interface for ctypes: comd_stencil returns the cudaError_t of the
@@ -254,7 +258,7 @@ __global__ void stencil_kernel(const T* __restrict__ r,
                                const T* __restrict__ dfe, T* __restrict__ out,
                                int n_local, int n_boxes, int A, Plan plan,
                                Shape sh, T rcut2, Cheb<T> cp, Table<T> tp,
-                               Lj<T> lj) {
+                               Lj<T> lj, Spline<T> sp) {
   constexpr int NS = n_scalars<PAIR, ENERGY>();
   constexpr int NOUT = 3 + NS;
   constexpr int NNBR = HALF ? 14 : 27;
@@ -442,7 +446,7 @@ __global__ void stencil_kernel(const T* __restrict__ r,
               const T r2 = dist2(dx, dy, dz);
               T sc[NS > 0 ? NS : 1];
               const T fc = pair_eval<T, PAIR, EVAL, ENERGY>(
-                  cp, tp, lj, r2, di, PAIR == kEam3 ? v.w : T(0), sc);
+                  cp, tp, lj, sp, r2, di, PAIR == kEam3 ? v.w : T(0), sc);
               const T px = fc * dx, py = fc * dy, pz = fc * dz;
               fx += px;
               fy += py;
@@ -536,6 +540,7 @@ struct Launch {
   const ChebParams* cheb;
   const TableParams* tab;
   const LjParams* lj;
+  const SplineParams* spline;
   cudaStream_t stream;
   int* shape_out;   // non-null: report the launch shape, do not launch
 };
@@ -584,33 +589,39 @@ cudaError_t launch(const Launch& a) {
   Cheb<T> cp{};
   Table<T> tp{};
   Lj<T> lj{};
-  round_params<T, PAIR, EVAL>(a.cheb, a.tab, a.lj, cp, tp, lj);
+  Spline<T> sp{};
+  round_params<T, PAIR, EVAL>(a.cheb, a.tab, a.lj, a.spline, cp, tp, lj, sp);
   if (a.plan.n_bricks > 0) {
     kern<<<a.plan.n_bricks, sh.nthr, sh.smem, a.stream>>>(
         static_cast<const T*>(a.r), static_cast<const T*>(a.dfe),
         static_cast<T*>(a.out), a.n_local, a.n_boxes, a.A, a.plan, sh,
-        static_cast<T>(a.rcut2), cp, tp, lj);
+        static_cast<T>(a.rcut2), cp, tp, lj, sp);
   }
   return cudaGetLastError();
 }
 
 template <typename T, int EVAL, bool HALF>
 cudaError_t dispatch_pair(int pair, int want_energy, const Launch& a) {
-  if (pair == kEam3) return launch<T, kEam3, EVAL, false, HALF>(a);
-  if (pair == kEam1) {
-    if (want_energy) return launch<T, kEam1, EVAL, true, HALF>(a);
-    return launch<T, kEam1, EVAL, false, HALF>(a);
+  if (pair == kLj) {
+    // LJ: the analytic pair on K1 and K2, the -I table on K1 only
+    if constexpr (EVAL == 0 || (EVAL == 1 && !HALF)) {
+      if (want_energy) return launch<T, kLj, EVAL, true, HALF>(a);
+      return launch<T, kLj, EVAL, false, HALF>(a);
+    } else {
+      return cudaErrorInvalidValue;
+    }
   }
-  if (EVAL != 0) return cudaErrorInvalidValue;   // LJ has one evaluator
-  if (want_energy) return launch<T, kLj, 0, true, HALF>(a);
-  return launch<T, kLj, 0, false, HALF>(a);
+  if (pair == kEam3) return launch<T, kEam3, EVAL, false, HALF>(a);
+  if (want_energy) return launch<T, kEam1, EVAL, true, HALF>(a);
+  return launch<T, kEam1, EVAL, false, HALF>(a);
 }
 
 template <typename T, bool HALF>
 cudaError_t dispatch_eval(int eval, int pair, int want_energy,
                           const Launch& a) {
   if (eval == 0) return dispatch_pair<T, 0, HALF>(pair, want_energy, a);
-  return dispatch_pair<T, 1, HALF>(pair, want_energy, a);
+  if (eval == 1) return dispatch_pair<T, 1, HALF>(pair, want_energy, a);
+  return dispatch_pair<T, 2, HALF>(pair, want_energy, a);
 }
 
 template <typename T>
@@ -626,7 +637,9 @@ extern "C" {
 
 // pair: 0 EAM pass 1, 1 EAM pass 3, 2 LJ; half: 0 K1 (full shell, 27
 // neighbor columns), 1 K2 (half shell, 14, self first); dtype: 0 float, 1
-// double; eval (EAM): 0 Chebyshev, 1 table.  The brick plan's arrays
+// double; eval: EAM 0 Chebyshev (cheb), 1 table (tab), 2 spline (spline);
+// LJ 0 analytic (lj), 1 the -I table (tab->phi; K1 only).  The brick
+// plan's arrays
 // (cells, region_ptr, region_box, slot) come from ops/binning.BrickPlan
 // for the same half flag.  shape_out:
 // null to launch; else five ints (threads, boxes a chunk, shared bytes,
@@ -638,14 +651,16 @@ int comd_stencil(int pair, int half, int dtype, int eval, int want_energy,
                  const void* region_ptr, const void* region_box,
                  const void* slot, int n_bricks, int cpb, int max_region,
                  double rcut2, const ChebParams* cheb,
-                 const TableParams* tab, const LjParams* lj, void* stream,
-                 int* shape_out) {
+                 const TableParams* tab, const LjParams* lj,
+                 const SplineParams* spline, void* stream, int* shape_out) {
   const bool eam = pair == kEam1 || pair == kEam3;
   if ((pair != kEam1 && pair != kEam3 && pair != kLj) || A < 1 ||
-      cpb < 1 || max_region < 1 ||
+      cpb < 1 || max_region < 1 || eval < 0 || eval > 2 ||
       (eam && eval == 0 && cheb == nullptr) ||
-      (eam && eval == 1 && tab == nullptr) ||
-      (pair == kLj && (lj == nullptr || eval != 0)) ||
+      (eval == 1 && (tab == nullptr || tab->n < 1)) ||
+      (eval == 2 && (!eam || spline == nullptr || spline->n < 1)) ||
+      (pair == kLj && eval == 0 && lj == nullptr) ||
+      (pair == kLj && eval == 1 && half) ||
       (pair == kEam3 && dfe == nullptr) ||
       (eam && eval == 0 &&
        (cheb->n_terms < 2 || cheb->n_terms > kMaxCheb)))
@@ -654,8 +669,8 @@ int comd_stencil(int pair, int half, int dtype, int eval, int want_energy,
             static_cast<const int*>(region_ptr),
             static_cast<const int*>(region_box),
             static_cast<const short*>(slot), n_bricks, cpb, max_region};
-  Launch a{r, dfe, out, n_local, n_boxes, A, plan, rcut2,
-           cheb, tab, lj, static_cast<cudaStream_t>(stream), shape_out};
+  Launch a{r, dfe, out, n_local, n_boxes, A, plan, rcut2, cheb, tab, lj,
+           spline, static_cast<cudaStream_t>(stream), shape_out};
   if (dtype == 0)
     return dispatch_half<float>(half, eval, pair, want_energy, a);
   if (dtype == 1)

@@ -28,7 +28,7 @@ the numbers.  Beside each kernel sits its plain PyTorch version
 (``*_plain``, ops/neighborlist.py's torch code); the wrappers take it only
 for tensors on the CPU, a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "nl_build"
-and "nl_sweep".
+and "nl_sweep", NL2's -P spline variant apart under "nl_sweep_spline".
 """
 from __future__ import annotations
 
@@ -69,7 +69,8 @@ def build():
             i, i, i, i, p, i, p, p, p, p, p, i, i, d,
             ctypes.POINTER(stencil._ChebParams),
             ctypes.POINTER(stencil._TableParams),
-            ctypes.POINTER(stencil._LjParams), p, p]
+            ctypes.POINTER(stencil._LjParams),
+            ctypes.POINTER(stencil._SplineParams), p, p]
         lib.comd_nl_error_string.restype = ctypes.c_char_p
         lib.comd_nl_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -209,6 +210,7 @@ def _sweep(pair: str, nlist: NeighborList, r, ev: PairEvaluator,
     if r.dtype != ev.dtype:
         raise ValueError(f"r dtype {r.dtype} != evaluator dtype {ev.dtype}")
     if (pair == "lj") != (ev.kind == "lj"):
+        # the list paths run analytic LJ only: comd_tpu's ignore -I
         raise ValueError(f"evaluator kind {ev.kind!r} does not fit {pair}")
     tensors = [r, nlist.a_list, nlist.a_valid, nlist.nl]
     if dfe is not None:
@@ -216,42 +218,29 @@ def _sweep(pair: str, nlist: NeighborList, r, ev: PairEvaluator,
             raise ValueError(f"df_embed must be {tuple(r.shape[1:])} "
                              f"{r.dtype}")
         tensors.append(dfe)
-    if ev.kind == "table":
-        tensors += [ev.phi, ev.rho]
     _check_cuda(r, tensors)
+    stencil.check_tables(ev, r.device)
     B, A = r.shape[1], r.shape[2]
-    cheb = tab = lj = None
-    kind = 0
-    if ev.kind == "cheb":
-        if pair == "eam_pass1":
-            wants = ([("phi", "val")] if want_energy else []) + \
-                [("phi", "der"), ("rho", "val")]
-        else:
-            wants = [("rho", "der")]
-        cheb = stencil._cheb_params(ev, wants)
-    elif ev.kind == "table":
-        tab, kind = stencil._table_params(ev), 1
-    else:
-        lj = stencil._LjParams(ev.s6, ev.eps4, ev.e_shift)
+    p = stencil.pair_params(ev, pair, want_energy)
     n_s = stencil._n_scalars(pair, want_energy)
     out = torch.empty((3 + n_s, n_rows), dtype=r.dtype, device=r.device)
     rec = torch.empty((B * A, 4), dtype=r.dtype, device=r.device)   # scratch
 
-    def ref(p):
-        return ctypes.byref(p) if p is not None else None
+    def ref(key):
+        return ctypes.byref(p[key]) if p[key] is not None else None
 
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = build().comd_nl_sweep(
-            _PAIR_ID[pair], 0 if r.dtype == torch.float32 else 1, kind,
+            _PAIR_ID[pair], 0 if r.dtype == torch.float32 else 1, p["eval"],
             int(want_energy), r.data_ptr(), B * A,
             None if dfe is None else dfe.data_ptr(), rec.data_ptr(),
             nlist.a_list.data_ptr(), nlist.a_valid.data_ptr(),
-            nlist.nl.data_ptr(), n_rows, k, ev.rcut2, ref(cheb), ref(tab),
-            ref(lj), out.data_ptr(), stream)
+            nlist.nl.data_ptr(), n_rows, k, ev.rcut2, ref("cheb"),
+            ref("tab"), ref("lj"), ref("spline"), out.data_ptr(), stream)
     if err != 0:
         _raise(err, "nl_sweep")
-    LAUNCHES["nl_sweep"] += 1
+    LAUNCHES["nl_sweep_spline" if ev.kind == "spline" else "nl_sweep"] += 1
     return out
 
 
@@ -280,7 +269,11 @@ def lj_pass(nlist: NeighborList, r, ev: PairEvaluator, *,
             want_energy: bool = True):
     """LJ over the list (ljForceCpuNL, ljForce.c:146-265): per row (f [3, R],
     e [R] | None), ``e`` the unscaled sum of r6 (r6 - 1) - e_shift.  CPU
-    tensors run the plain version; CUDA tensors NL2."""
+    tensors run the plain version; CUDA tensors NL2.  Analytic LJ only:
+    comd_tpu's list paths ignore -I."""
+    if ev.kind != "lj":
+        raise ValueError(f"the list sweep runs analytic LJ, not "
+                         f"{ev.kind!r}")
     if r.device.type == "cpu":
         return lj_pass_plain(nlist, r, ev, want_energy=want_energy)
     out = _sweep("lj", nlist, r, ev, want_energy)

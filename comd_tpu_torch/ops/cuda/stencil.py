@@ -43,6 +43,12 @@ neighbor maps (and, through them, the brick plan) directly: comd_tpu's
 transposed cells-on-lanes window, its locality plane and its overlap-added
 chunk spills were TPU lane artefacts and are gone.
 
+Pair functions (``PairEvaluator.kind``): EAM with the Chebyshev fit, the
+quadratic tables or the -P spline in r^2; LJ analytic or, on K1 only,
+from the -I table.  The spline and the LJ table are branches of the same
+kernels (csrc/pair.cuh), each counted under its own name in ``LAUNCHES``
+(``spline_*``, ``lj_table``).
+
 Beside each kernel sits its plain PyTorch version (ops/sweep.py sweeps with
 the same pair functions, ``*_plain``).  The wrappers take it only for
 tensors on the CPU; a CUDA tensor launches the kernel or raises.
@@ -79,6 +85,8 @@ MAX_CHEB = 40
 SOURCE = os.path.join(CSRC, "stencil.cu")
 _TRANSFORM_ID = {"u": 0, "inv_u": 1, "log_u": 2}
 _PAIR_ID = {"eam_pass1": 0, "eam_pass3": 1, "lj": 2}
+#: the kernels' evaluator id (csrc/pair.cuh: EVAL) of each evaluator kind
+_EVAL_ID = {"cheb": 0, "table": 1, "spline": 2, "lj": 0, "lj_table": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +96,15 @@ class PairEvaluator:
     ``kind`` "cheb": the EAM shared-basis Chebyshev fit (tables.ChebFused).
     ``kind`` "table": the EAM reference quadratic interpolation of the phi
     and rho tables, held as [n+4] device arrays (InterpTable.device_table).
+    ``kind`` "spline": the -P cubic splines in r^2 of phi and rho
+    (tables.make_spline), ``phi``/``rho`` their [n, 4] coefficients in
+    ``dtype``, on one grid: ``n`` intervals, ``x0``, ``xn``, ``inv_dx`` and
+    ``x0_inv_dx`` (the product taken in f64), each rounded to ``dtype``.
     ``kind`` "lj": the analytic Lennard-Jones pair (``s6`` = sigma^6,
     ``eps4`` = 4 epsilon, ``e_shift``), each rounded to ``dtype``.
+    ``kind`` "lj_table": the -I quadratic table of the shifted LJ energy
+    (4 eps carried in), ``phi`` its [n+4] device array, ``n``, ``x0`` and
+    ``inv_dx`` (ops/force_lj.make_lj_table_evaluator).
     """
     kind: str
     dtype: torch.dtype
@@ -100,6 +115,8 @@ class PairEvaluator:
     n: int = 0
     x0: float = 0.0
     inv_dx: float = 0.0
+    xn: float = 0.0
+    x0_inv_dx: float = 0.0
     s6: float = 0.0
     eps4: float = 0.0
     e_shift: float = 0.0
@@ -108,6 +125,11 @@ class PairEvaluator:
 # --------------------------------------------------------------------------
 # plain PyTorch pair functions (the kernels' per-pair arithmetic)
 # --------------------------------------------------------------------------
+
+def _spline(ev: PairEvaluator, coeffs, r2):
+    return tables.interpolate_spline(coeffs, ev.n, ev.x0, ev.xn, ev.inv_dx,
+                                     ev.x0_inv_dx, r2)
+
 
 def _pair1(ev: PairEvaluator, want_energy: bool):
     def pair(r2, mask, sj, si):
@@ -118,6 +140,11 @@ def _pair1(ev: PairEvaluator, want_energy: bool):
             outs = tables.eval_cheb_fused(ev.cheb, r2, wants)
             phi = outs[0] if want_energy else None
             dphi, rho = outs[-2], outs[-1]
+            fc = torch.where(mask, -dphi, zero)
+        elif ev.kind == "spline":
+            # u-form: the spline's derivative is (1/r) dphi/dr already
+            phi, dphi = _spline(ev, ev.phi, r2)
+            rho, _ = _spline(ev, ev.rho, r2)
             fc = torch.where(mask, -dphi, zero)
         else:
             rr = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
@@ -136,6 +163,8 @@ def _pair3(ev: PairEvaluator):
         zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
         if ev.kind == "cheb":
             (scale,) = tables.eval_cheb_fused(ev.cheb, r2, [("rho", "der")])
+        elif ev.kind == "spline":
+            _, scale = _spline(ev, ev.rho, r2)
         else:
             rr = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
             _, drho = tables.interpolate(ev.rho, ev.n, ev.x0, ev.inv_dx, rr)
@@ -147,9 +176,16 @@ def _pair3(ev: PairEvaluator):
 def _pair_lj(ev: PairEvaluator, want_energy: bool):
     """comd_tpu.ops.force_lj.make_lj_pair_fn (ljForce.c:146-265): the
     unscaled shifted energy r6 (r6 - 1) - e_shift and the force coefficient
-    4 eps r6 / r2 (12 r6 - 6)."""
+    4 eps r6 / r2 (12 r6 - 6).  With the -I table (kind "lj_table",
+    comd_tpu's lj_force_interp): the table's energy e (4 eps carried in)
+    and -(de/dr) / r."""
     def pair(r2, mask, sj, si):
         zero = torch.zeros((), dtype=r2.dtype, device=r2.device)
+        if ev.kind == "lj_table":
+            rr = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
+            e, de = tables.interpolate(ev.phi, ev.n, ev.x0, ev.inv_dx, rr)
+            fc = torch.where(mask, -de / rr, zero)
+            return fc, ([torch.where(mask, e, zero)] if want_energy else [])
         inv_r2 = torch.where(
             mask, 1.0 / torch.where(mask, r2, torch.ones_like(r2)), zero)
         r6 = (ev.s6 * inv_r2) * (inv_r2 * inv_r2)
@@ -236,6 +272,13 @@ class _LjParams(ctypes.Structure):
                 ("e_shift", ctypes.c_double)]
 
 
+class _SplineParams(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("x0", ctypes.c_double),
+                ("xn", ctypes.c_double), ("inv_dx", ctypes.c_double),
+                ("x0_inv_dx", ctypes.c_double),
+                ("phi", ctypes.c_void_p), ("rho", ctypes.c_void_p)]
+
+
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_SECONDS = None   # wall time of the nvcc build in this process
@@ -259,8 +302,8 @@ def build():
             ctypes.c_int, ctypes.c_int, ctypes.c_int,       # its sizes
             ctypes.c_double,                                # rcut2
             ctypes.POINTER(_ChebParams), ctypes.POINTER(_TableParams),
-            ctypes.POINTER(_LjParams), ctypes.c_void_p,
-            ctypes.POINTER(ctypes.c_int)]                   # shape query
+            ctypes.POINTER(_LjParams), ctypes.POINTER(_SplineParams),
+            ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]  # shape query
         lib.comd_cuda_error_string.restype = ctypes.c_char_p
         lib.comd_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -288,11 +331,56 @@ def _cheb_params(ev: PairEvaluator, wants) -> _ChebParams:
     return p
 
 
-def _table_params(ev: PairEvaluator) -> _TableParams:
-    p = _TableParams()
-    p.n, p.x0, p.inv_dx = ev.n, ev.x0, ev.inv_dx
-    p.phi, p.rho = ev.phi.data_ptr(), ev.rho.data_ptr()
+def pair_params(ev: PairEvaluator, pair: str, want_energy: bool) -> dict:
+    """The C interface's evaluator id and parameter structs for ``ev`` in
+    ``pair`` (shared with the list sweep, ops/cuda/nl.py): {"eval", "cheb",
+    "tab", "lj", "spline"}, the unused ones None."""
+    p = dict(eval=_EVAL_ID[ev.kind], cheb=None, tab=None, lj=None,
+             spline=None)
+    if ev.kind == "cheb":
+        if pair == "eam_pass1":
+            wants = ([("phi", "val")] if want_energy else []) + \
+                [("phi", "der"), ("rho", "val")]
+        else:
+            wants = [("rho", "der")]
+        p["cheb"] = _cheb_params(ev, wants)
+    elif ev.kind in ("table", "lj_table"):
+        t = p["tab"] = _TableParams()
+        t.n, t.x0, t.inv_dx = ev.n, ev.x0, ev.inv_dx
+        t.phi = ev.phi.data_ptr()
+        t.rho = ev.rho.data_ptr() if ev.rho is not None else None
+    elif ev.kind == "spline":
+        sp = p["spline"] = _SplineParams()
+        sp.n, sp.x0, sp.xn = ev.n, ev.x0, ev.xn
+        sp.inv_dx, sp.x0_inv_dx = ev.inv_dx, ev.x0_inv_dx
+        sp.phi, sp.rho = ev.phi.data_ptr(), ev.rho.data_ptr()
+    else:
+        p["lj"] = _LjParams(ev.s6, ev.eps4, ev.e_shift)
     return p
+
+
+def check_tables(ev: PairEvaluator, device) -> None:
+    """The evaluator's device arrays: on ``device``, of its dtype and shape
+    ([n+4] tables, [n, 4] contiguous spline coefficients)."""
+    if ev.kind not in ("table", "spline", "lj_table"):
+        return
+    want = (ev.n, 4) if ev.kind == "spline" else (ev.n + 4,)
+    for t in (ev.phi,) + ((ev.rho,) if ev.kind != "lj_table" else ()):
+        if t.device != device or t.dtype != ev.dtype or \
+                tuple(t.shape) != want or not t.is_contiguous():
+            raise ValueError(f"{ev.kind} arrays must be contiguous "
+                             f"{want} {ev.dtype} on {device}, got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def launch_key(name: str, ev: PairEvaluator) -> str:
+    """The ``LAUNCHES`` name of wrapper ``name``'s kernel with ``ev``: the
+    spline and LJ-table variants are counted apart."""
+    if ev.kind == "spline":
+        return f"spline_{name}"
+    if ev.kind == "lj_table":
+        return "lj_table"
+    return name
 
 
 def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27):
@@ -306,12 +394,14 @@ def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27):
         raise ValueError(f"nbr_map must be [n_local <= B, {n_nbr}] int32, "
                          f"got {tuple(nbr_map.shape)} {nbr_map.dtype}")
     tensors = [r, nbr_map] + ([dfe] if dfe is not None else [])
-    if ev.kind == "table":
-        tensors += [ev.phi, ev.rho]
     if any(t.device != r.device for t in tensors):
         raise ValueError("the stencil operands lie on different devices")
+    check_tables(ev, r.device)
     if dfe is not None and (dfe.shape != r.shape[1:] or dfe.dtype != r.dtype):
         raise ValueError(f"df_embed must be {tuple(r.shape[1:])} {r.dtype}")
+    if n_nbr == 14 and ev.kind == "lj_table":
+        raise ValueError("the -I LJ table runs full shell only (comd_tpu "
+                         "ignores --halfShell under -I)")
 
 
 def _n_scalars(pair: str, want_energy: bool) -> int:
@@ -329,34 +419,23 @@ def _call(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
     if plan.half != half:
         raise ValueError(f"{'K2' if half else 'K1'} needs the "
                          f"{'half' if half else 'full'} neighbor map")
-    cheb = tab = lj = None
-    kind = 0
-    if ev.kind == "cheb":
-        if pair == "eam_pass1":
-            wants = ([("phi", "val")] if want_energy else []) + \
-                [("phi", "der"), ("rho", "val")]
-        else:
-            wants = [("rho", "der")]
-        cheb = _cheb_params(ev, wants)
-    elif ev.kind == "table":
-        tab, kind = _table_params(ev), 1
-    else:
-        lj = _LjParams(ev.s6, ev.eps4, ev.e_shift)
+    p = pair_params(ev, pair, want_energy)
     dtype_id = 0 if r.dtype == torch.float32 else 1
 
-    def ref(p):
-        return ctypes.byref(p) if p is not None else None
+    def ref(k):
+        return ctypes.byref(p[k]) if p[k] is not None else None
 
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         return build().comd_stencil(
-            _PAIR_ID[pair], int(half), dtype_id, kind, int(want_energy),
+            _PAIR_ID[pair], int(half), dtype_id, p["eval"], int(want_energy),
             r.data_ptr(), None if dfe is None else dfe.data_ptr(),
             None if out is None else out.data_ptr(), nbr_map.shape[0], B, A,
             plan.cells.data_ptr(), plan.region_ptr.data_ptr(),
             plan.region_box.data_ptr(), plan.slot.data_ptr(), plan.n_bricks,
             plan.cells.shape[1], plan.max_region, ev.rcut2,
-            ref(cheb), ref(tab), ref(lj), stream, shape_out)
+            ref("cheb"), ref("tab"), ref("lj"), ref("spline"), stream,
+            shape_out)
 
 
 def _raise(err: int, what: str):
@@ -375,7 +454,7 @@ def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
                          f"{r.device}")
     if r.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"unsupported dtype {r.dtype}")
-    if (pair == "lj") != (ev.kind == "lj"):
+    if (pair == "lj") != (ev.kind in ("lj", "lj_table")):
         raise ValueError(f"evaluator kind {ev.kind!r} does not fit {pair}")
     B, A = r.shape[1], r.shape[2]
     if not 1 <= A <= MAX_A:
@@ -393,7 +472,7 @@ def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
     err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, out)
     if err != 0:
         _raise(err, "launch")
-    LAUNCHES[name] += 1
+    LAUNCHES[launch_key(name, ev)] += 1
     return out[:3], list(out[3:])
 
 

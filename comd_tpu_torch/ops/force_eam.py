@@ -9,7 +9,9 @@ Algorithm per the reference (src-mpi/eam.c:44-86):
   pass 3 (pairs): f_i -= (dfEmbed_i + dfEmbed_j) * rho'(r_ij) * rhat
 
 Passes 1 and 3 run on the CUDA cell-stencil kernels (ops/cuda/stencil.py;
-their plain PyTorch versions on CPU tensors): the full-shell K1 in
+their plain PyTorch versions on CPU tensors), with the pair evaluator of
+``make_pair_evaluator`` (Chebyshev, tables or the -P spline): the
+full-shell K1 in
 ``eam_force`` and the half-shell K2 in ``eam_force_half``; over Verlet
 lists (the *_nl methods) on the list sweep NL2 (ops/cuda/nl.py) in
 ``eam_force_nl`` and ``eam_force_nl_split``.  Pass 2 is
@@ -34,18 +36,33 @@ from .cuda.stencil import PairEvaluator
 
 
 def make_pair_evaluator(pot: EamPotential, dtype: torch.dtype, device,
-                        impl: str) -> PairEvaluator:
-    """The pair evaluator for ``interp_impl``: "cheb" -> the Chebyshev fit,
-    "rows"/"twolevel" -> the exact quadratic table interpolation."""
+                        impl: str, spline: bool = False) -> PairEvaluator:
+    """The pair evaluator, chosen as comd_tpu's make_evaluators chooses it:
+    ``spline`` (-P) -> the cubic splines in r^2 of phi and rho, whatever
+    ``interp_impl``; else "cheb" -> the Chebyshev fit, "rows"/"twolevel"
+    -> the exact quadratic table interpolation."""
     rcut2 = tables.as_dtype(pot.cutoff * pot.cutoff, dtype)
-    if impl == "cheb":
+    if impl == "cheb" and not spline:
         return PairEvaluator(kind="cheb", dtype=dtype, rcut2=rcut2,
                              cheb=pot.cheb_pair)
-    if impl not in ("rows", "twolevel"):
+    if impl not in ("rows", "twolevel", "cheb"):
         raise ValueError(f"invalid interp_impl {impl!r}")
     if pot.phi.n != pot.rho.n or pot.phi.x0 != pot.rho.x0 or \
             pot.phi.inv_dx != pot.rho.inv_dx:
         raise ValueError("phi and rho tables must share one grid")
+    if spline:
+        # n and values exactly as comd_tpu (gpu_utility.c:498-500): the
+        # padded table from values[0], so values[n] is readable
+        sp = [tables.make_spline(t.padded[1:], t.n, t.x0, t.inv_dx)
+              for t in (pot.phi, pot.rho)]
+        c = tables.as_dtype
+        return PairEvaluator(
+            kind="spline", dtype=dtype, rcut2=rcut2,
+            phi=torch.as_tensor(sp[0].coeffs, dtype=dtype, device=device),
+            rho=torch.as_tensor(sp[1].coeffs, dtype=dtype, device=device),
+            n=sp[0].n, x0=c(sp[0].x0, dtype), xn=c(sp[0].xn, dtype),
+            inv_dx=c(sp[0].inv_dx, dtype),
+            x0_inv_dx=c(sp[0].x0 * sp[0].inv_dx, dtype))
     return PairEvaluator(
         kind="table", dtype=dtype, rcut2=rcut2,
         phi=pot.phi.device_table(dtype, device),

@@ -7,7 +7,10 @@ Physics of the reference CPU oracle (ljForceCpuNL, src-mpi/ljForce.c:
   f_i   += 4*eps*r6*invr2*(12*r6-6) * (r_i - r_j)
 
 ``lj_force`` sweeps the full 27-cell shell on K1 (every pair visited from
-both sides, energy halved); ``lj_force_half`` evaluates each pair once on
+both sides, energy halved); ``lj_force_interp`` does so from the -I
+1000-point quadratic table of the shifted energy (comd_tpu's
+lj_force_interp, gpu_utility.c:348-374), on K1's LJ-table variant;
+``lj_force_half``  evaluates each pair once on
 K2 and folds the halo rows back to their owners; ``lj_force_nl`` and
 ``lj_force_nl_split`` sweep Verlet lists on NL2 (the *_nl methods and the
 -L pairlist).  All run the CUDA kernels of ops/cuda on CUDA tensors and
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..potentials.lj import LjPotential
@@ -35,6 +39,39 @@ def make_lj_evaluator(pot: LjPotential, dtype: torch.dtype) -> PairEvaluator:
         kind="lj", dtype=dtype, rcut2=as_dtype(pot.cutoff * pot.cutoff, dtype),
         s6=as_dtype(pot.s6, dtype), eps4=as_dtype(4.0 * pot.epsilon, dtype),
         e_shift=as_dtype(pot.e_shift, dtype))
+
+
+#: intervals of the -I table (initLJinterpolation, gpu_utility.c:348-374)
+LJ_TABLE_N = 1000
+
+
+def lj_table(pot: LjPotential) -> tuple:
+    """The -I table as comd_tpu's lj_force_interp builds it, in f64:
+    (values [n+3], n, x0 = sigma/2, inv_dx = n / (rcut - x0)), values[i] =
+    4 eps (r6 (r6 - 1) - e_shift) at r = x0 + (i - 1) / inv_dx."""
+    n = LJ_TABLE_N
+    x0 = 0.5 * pot.sigma
+    inv_dx = n / (pot.cutoff - x0)
+    x = x0 + (np.arange(n + 3) - 1) / inv_dx
+    r2x = 1.0 / (x * x)
+    r6x = pot.s6 * r2x ** 3
+    return (4.0 * pot.epsilon * (r6x * (r6x - 1.0) - pot.e_shift), n, x0,
+            inv_dx)
+
+
+def make_lj_table_evaluator(pot: LjPotential, dtype: torch.dtype,
+                            device) -> PairEvaluator:
+    """The -I evaluator: ``lj_table`` rounded once to ``dtype`` and padded
+    to [n+4] with its last value, because the 4-point stencil at the
+    clamped index n (r at the cutoff) reads entry n+3, which comd_tpu's
+    clamped gather reads as the last entry."""
+    vals, n, x0, inv_dx = lj_table(pot)
+    pad4 = np.concatenate([vals, vals[-1:]])
+    return PairEvaluator(
+        kind="lj_table", dtype=dtype,
+        rcut2=as_dtype(pot.cutoff * pot.cutoff, dtype),
+        phi=torch.as_tensor(pad4, dtype=dtype, device=device), n=n,
+        x0=as_dtype(x0, dtype), inv_dx=as_dtype(inv_dx, dtype))
 
 
 def _energy(pot: LjPotential, e, e_dtype):
@@ -58,6 +95,29 @@ def lj_force(nbr_map: torch.Tensor, pot: LjPotential,
                                box_chunk=box_chunk)
         out.append((f,) + (_energy(pot, e, e_dtype) if want_energy
                            else (None, None)))
+    return out
+
+
+def lj_force_interp(nbr_map: torch.Tensor, rs: Sequence[torch.Tensor],
+                    ev: PairEvaluator, *,
+                    e_dtype: torch.dtype = torch.float64,
+                    want_energy: bool = True, box_chunk: int = 256):
+    """Table-interpolated LJ (-I, comd_tpu's lj_force_interp) on K1 for
+    every shard, ``ev`` from ``make_lj_table_evaluator``.  The table
+    carries 4 eps and the shift, so U = 0.5 e (the atom sum counts every
+    pair twice).  comd_tpu computes the energy on every step; here only
+    when ``want_energy``, as for analytic LJ (the printed rows are the
+    same).  Returns, per shard, (force [3, n_local, A], U [n_local, A] |
+    None, ePot | None); U and ePot in ``e_dtype``."""
+    out = []
+    for r in rs:
+        f, e = stencil.lj_pass(r, nbr_map, ev, want_energy=want_energy,
+                               box_chunk=box_chunk)
+        if not want_energy:
+            out.append((f, None, None))
+            continue
+        u = 0.5 * e.to(e_dtype)
+        out.append((f, u, u.sum()))
     return out
 
 

@@ -78,11 +78,14 @@ class ShardedSimulation(Physics):
     # ---------------- the transports ----------------
 
     def _fill(self, x, rhobar):
-        """dfEmbed halo fill over the mesh, per --commImpl."""
-        if self.cfg.comm_impl == "ki_fused":
+        """dfEmbed halo fill over the mesh, per --commImpl.  Under -P
+        comd_tpu does not fuse F' into the fill (sharded.py:118-127), so
+        ki_fused then runs the ki fill, K3's copies alone."""
+        ci = self.cfg.comm_impl
+        if ci == "ki_fused" and not self.cfg.spline:
             return ki_comm.exchange_scalar_ki_fused(self.halo, x, rhobar,
                                                     self.f_eval)
-        if self.cfg.comm_impl == "ki":
+        if ci in ("ki", "ki_fused"):
             return ki_comm.exchange_scalar_ki(self.halo, x)
         return exchange.exchange_scalar(self.halo, x)
 
@@ -286,6 +289,13 @@ class ShardedSimulation(Physics):
     def max_occupancy(self) -> int:
         nl = self.geom.n_local
         return int(max(int(s.n_atoms[:nl].max()) for s in self.states))
+
+    def occupancy_histogram(self) -> np.ndarray:
+        """[capacity+1] global cell-occupancy histogram (--analyze)."""
+        nl = self.geom.n_local
+        counts = torch.cat([s.n_atoms[:nl] for s in self.states])
+        return np.bincount(counts.cpu().numpy(),
+                           minlength=self.cfg.max_atoms + 1)
 
 
 def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:

@@ -5,12 +5,14 @@ shared-basis Chebyshev fit ``ChebFused`` (copied from comd_tpu so both
 packages fit bit-identical coefficients from the same file).
 
 Torch half: the reference's direct quadratic interpolation (``interpolate``,
-src-mpi/eam.c:557-579) and the fused Chebyshev evaluator
-(``eval_cheb_fused``).  comd_tpu's TPU gather workarounds (row-stencil
-matrices, the two-level one-hot lookup with its f64 hi/lo planes) are not
-ported: a device gather is cheap on the GPU, so the direct interpolation
-replaces them.  The CUDA cell-stencil kernel (csrc/stencil.cu) evaluates
-the same two forms per pair.
+src-mpi/eam.c:557-579), the fused Chebyshev evaluator
+(``eval_cheb_fused``) and the cubic spline in r^2 of -P
+(``interpolate_spline``, src-mpi/gpu_common.h:95-129, on the coefficients
+of ``make_spline``, a copy of comd_tpu's).  comd_tpu's TPU gather
+workarounds (row-stencil matrices, the two-level one-hot lookup with its
+f64 hi/lo planes) are not ported: a device gather is cheap on the GPU, so
+the direct interpolation replaces them.  The CUDA pair kernels
+(csrc/pair.cuh) evaluate the same forms per pair.
 """
 from __future__ import annotations
 
@@ -341,3 +343,91 @@ def eval_cheb_fused(fz: ChebFused, r2: torch.Tensor, wants):
 
     return [a if kind == "val" else two_dwdu * a
             for (_n, kind), a in zip(wants, accs)]
+
+
+@dataclasses.dataclass(frozen=True)
+class SplineTable:
+    """Cubic-spline-in-r^2 table (gpu_utility.c:377-430, gpu_common.h:95-129).
+
+    ``coeffs[i] = (a, b, c, d)`` with f(r2) = ((a*r2 + b)*r2 + c)*r2 + d on
+    interval i, and (1/r) df/dr = 2*((3*(a*r2 + b) - b)*r2 + c).
+    """
+
+    n: int
+    x0: float
+    xn: float
+    inv_dx: float
+    coeffs: np.ndarray  # [n, 4] f64
+
+
+def make_spline(values: np.ndarray, n: int, x0: float,
+                inv_dx: float) -> SplineTable:
+    """Build spline coefficients over knots x_i = (x0 + i/invDx)^2 (copy of
+    comd_tpu.potentials.tables.make_spline, so both packages build the same
+    coefficients bit for bit).
+
+    Port of the reference tridiagonal sweep (gpu_utility.c:377-430): natural
+    (y''=0) at the left end, clamped (y'=0) at the right end.  ``values`` must
+    have at least n+1 entries (the reference reads values[n]).
+    """
+    values = np.asarray(values, dtype=np.float64)
+    if values.shape[0] < n + 1:
+        raise ValueError(f"make_spline needs {n + 1} values, got "
+                         f"{values.shape[0]}")
+    dx = 1.0 / inv_dx
+    xs = (x0 + np.arange(n + 2) * dx) ** 2  # knots in r^2 space
+
+    u = np.zeros(n, dtype=np.float64)
+    y2 = np.zeros(n + 1, dtype=np.float64)
+    for i in range(1, n):
+        xi, xp, xn_ = xs[i], xs[i - 1], xs[i + 1]
+        sig = (xi - xp) / (xn_ - xp)
+        p = sig * y2[i - 1] + 2.0
+        y2[i] = (sig - 1.0) / p
+        ui = (values[i + 1] - values[i]) / (xn_ - xi) - \
+            (values[i] - values[i - 1]) / (xi - xp)
+        u[i] = (6.0 * ui / (xn_ - xp) - sig * u[i - 1]) / p
+    xn_, xnp = xs[n], xs[n - 1]
+    qn = 0.5
+    un = (-3.0 / (xn_ - xnp)) * (values[n] - values[n - 1]) / (xn_ - xnp)
+    y2[n] = (un - qn * u[n - 1]) / (qn * y2[n - 1] + 1.0)
+    for i in range(n - 1, -1, -1):
+        y2[i] = y2[i] * y2[i + 1] + u[i]
+
+    coeffs = np.zeros((n, 4), dtype=np.float64)
+    for i in range(n):
+        x1, x2 = xs[i], xs[i + 1]
+        d2y1, d2y2 = y2[i], y2[i + 1]
+        y1v, y2v = values[i], values[i + 1]
+        h = x2 - x1
+        coeffs[i, 0] = (d2y2 - d2y1) / (6.0 * h)
+        coeffs[i, 1] = (x2 * d2y1 - x1 * d2y2) / (2.0 * h)
+        coeffs[i, 2] = (1.0 / h) * (
+            (-3 * x2 * x2 + h * h) * d2y1 / 6.0
+            + (3 * x1 * x1 - h * h) * d2y2 / 6.0
+            - y1v + y2v)
+        coeffs[i, 3] = (1.0 / h) * (
+            x2 * y1v - x1 * y2v
+            + d2y1 * (x2 ** 3 - x2 * h * h) / 6.0
+            + d2y2 * (-x1 ** 3 + x1 * h * h) / 6.0)
+    return SplineTable(n=n, x0=float(x0), xn=float(x0 + n * dx),
+                       inv_dx=float(inv_dx), coeffs=coeffs)
+
+
+def interpolate_spline(coeffs: torch.Tensor, n: int, x0: float, xn: float,
+                       inv_dx: float, x0_inv_dx: float, r2: torch.Tensor):
+    """Spline evaluation on r^2 tensors (gpu_common.h:95-129), op by op as
+    comd_tpu.potentials.tables.interpolate_spline: r = sqrt(r2) clipped to
+    [x0, xn], interval floor(r * inv_dx - x0 * inv_dx) clipped to [0, n-1],
+    then the cubic at r2 itself.  ``x0``, ``xn``, ``inv_dx`` and
+    ``x0_inv_dx`` (the product taken in f64) come rounded to r2's dtype, as
+    comd_tpu's Python-float constants are.  Returns (f, (1/r) df/dr).
+    """
+    r = torch.clamp(torch.sqrt(r2), x0, xn)
+    idx = torch.floor(r * inv_dx - x0_inv_dx).to(torch.int64)
+    idx = torch.clamp(idx, 0, n - 1)
+    a, b, c, d = coeffs[idx].unbind(-1)
+    tmp = a * r2 + b
+    f = (tmp * r2 + c) * r2 + d
+    df = 2.0 * ((3.0 * tmp - b) * r2 + c)
+    return f, df

@@ -75,16 +75,10 @@ def not_ported(what: str, item: str):
 
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for a configuration outside the port."""
-    if cfg.lj_interpolation:
-        not_ported("-I table-interpolated LJ", "7")
-    if cfg.spline:
-        not_ported("-P spline tables", "8")
     if cfg.nprocs > 1 and cfg.gpu_async > 0 and not (cfg.use_nl
                                                       or cfg.use_pairlist):
         not_ported("-a 1 (the interior/boundary split) of the cell methods "
                    "on a multi-device mesh", "15")
-    if cfg.gpu_profile:
-        not_ported("-s profiling mode", "6")
 
 
 class Physics:
@@ -102,9 +96,14 @@ class Physics:
         self.is_eam = isinstance(self.pot, EamPotential)
         if self.is_eam:
             self.pair_eval = force_eam.make_pair_evaluator(
-                self.pot, self.dtype, self.device, cfg.resolved_interp_impl)
+                self.pot, self.dtype, self.device, cfg.resolved_interp_impl,
+                spline=cfg.spline)
             self.f_eval = force_eam.make_f_eval(self.pot, self.dtype,
                                                 self.device)
+        elif cfg.lj_interpolation and not self.uses_nl:
+            # -I on the cell paths; comd_tpu's list paths ignore it
+            self.pair_eval = force_lj.make_lj_table_evaluator(
+                self.pot, self.dtype, self.device)
         else:
             self.pair_eval = force_lj.make_lj_evaluator(self.pot, self.dtype)
         self.n_rebucket = 0          # lazy/eager rebuckets so far
@@ -153,16 +152,20 @@ class Physics:
     def forces(self, rs, n_atoms, fill, fold, want_energy: bool = True):
         """The force of every shard (comd_tpu's ``_force_fn``): EAM or LJ,
         on the full-shell K1 or, with ``--halfShell`` (whatever the cell
-        method), the half-shell K2.  ``rs``/``n_atoms`` hold one entry per
-        shard; ``fill`` (dfEmbed halo fill) and ``fold`` (half-shell halo
-        fold) run over all shards.  Returns per shard (f_loc [3, n_local,
-        A], U [n_local, A] | None, ePot | None); ``want_energy=False``
-        skips the energy terms."""
+        method), the half-shell K2; -I (table LJ) always on K1, as
+        comd_tpu ignores ``--halfShell`` under -I.  ``rs``/``n_atoms``
+        hold one entry per shard; ``fill`` (dfEmbed halo fill) and
+        ``fold`` (half-shell halo fold) run over all shards.  Returns per
+        shard (f_loc [3, n_local, A], U [n_local, A] | None, ePot | None);
+        ``want_energy=False`` skips the energy terms."""
         geom, maps, cfg = self.geom, self.maps, self.cfg
         kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
                   box_chunk=cfg.resolved_box_chunk)
         half = cfg.half_shell
         if not self.is_eam:
+            if cfg.lj_interpolation:
+                return force_lj.lj_force_interp(maps.nbr_map, rs,
+                                                self.pair_eval, **kw)
             if half:
                 return force_lj.lj_force_half(maps.half_nbr_map, self.pot,
                                               rs, self.pair_eval, fold, **kw)
@@ -418,6 +421,11 @@ class Simulation(Physics):
 
     def max_occupancy(self) -> int:
         return int(self.state.n_atoms[:self.geom.n_local].max())
+
+    def occupancy_histogram(self) -> np.ndarray:
+        """[capacity+1] local cell-occupancy histogram (--analyze)."""
+        counts = self.state.n_atoms[:self.geom.n_local].cpu().numpy()
+        return np.bincount(counts, minlength=self.cfg.max_atoms + 1)
 
 
 def _tscope(timers, name: str):

@@ -6,6 +6,8 @@
     python3 profile_step.py --mesh 2 2 2 --comm collective --half
     python3 profile_step.py --method thread_atom_nl      # Verlet lists
     python3 profile_step.py --lj --pairlist              # LJ -L
+    python3 profile_step.py --spline                     # -e -P
+    python3 profile_step.py --lj --interp                # -I
 
 Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
 phases 5, 8 and 12), or with ``--method``/``--lj``/``--pairlist`` the
@@ -43,6 +45,8 @@ def main(argv=None) -> int:
     ap.add_argument("--method", default="thread_atom", help="-m")
     ap.add_argument("--lj", action="store_true", help="Lennard-Jones")
     ap.add_argument("--pairlist", action="store_true", help="-L")
+    ap.add_argument("--spline", action="store_true", help="-P")
+    ap.add_argument("--interp", action="store_true", help="-I")
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args(argv)
 
@@ -66,7 +70,8 @@ def main(argv=None) -> int:
         temperature=600.0, dtype="float32",
         pot_dir=os.path.join(ROOT, "pots"), device="cuda", xproc=px,
         yproc=py, zproc=pz, comm_impl=args.comm, half_shell=args.half,
-        method=args.method, use_pairlist=args.pairlist))
+        method=args.method, use_pairlist=args.pairlist, spline=args.spline,
+        lj_interpolation=args.interp))
     # warm up through a rebucket: its kernels load on their first launch
     for _ in range(20):
         sim.step_block(10)
@@ -103,7 +108,9 @@ def main(argv=None) -> int:
         "run": (f"{args.n}^3 {'LJ' if args.lj else 'EAM'} f32 -m "
                 f"{args.method}" + (" -L" if args.pairlist else "")
                 + f", mesh {px}x{py}x{pz}, --commImpl {args.comm}"
-                + (" --halfShell" if args.half else "")),
+                + (" --halfShell" if args.half else "")
+                + (" -P" if args.spline else "")
+                + (" -I" if args.interp else "")),
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,

@@ -74,7 +74,7 @@ EDITS = {
     "walk": [("for (int m = 0; m < cnt; ++m) {",
               "for (int m = 0; m < 0; ++m) {")],
     "nopair": [("""const T fc = pair_eval<T, PAIR, EVAL, ENERGY>(
-                  cp, tp, lj, r2, di, PAIR == kEam3 ? v.w : T(0), sc);""",
+                  cp, tp, lj, sp, r2, di, PAIR == kEam3 ? v.w : T(0), sc);""",
                 """const T fc = r2;
 #pragma unroll
               for (int q = 0; q < NS; ++q) sc[q] = r2;""")],
@@ -96,8 +96,8 @@ NL_EDITS = {
               "    if (sub < n) acc[0] += queue[grp][(h + sub) & "
               "(kQueue - 1)].x;\n    if (false) {\n"
               "      const Rec<T> v = queue[grp]")],
-    "nopair": [("pair_eval<T, PAIR, EVAL, ENERGY>(cp, tp, lj, r2, v.w, T(0), "
-                "sc);", "r2 + T(0) * v.w;\n"
+    "nopair": [("pair_eval<T, PAIR, EVAL, ENERGY>(cp, tp, lj, sp, r2, v.w,\n"
+                + " " * 52 + "T(0), sc);", "r2 + T(0) * v.w;\n"
                 "        for (int q = 0; q < NS; ++q) sc[q] = r2;")],
     "stage": [("for (int base = 0; base < nc; base += 32) {",
                "for (int base = 0; base < 0; base += 32) {")],

@@ -11,7 +11,8 @@ neighbor-list methods (-m thread_atom_nl, warp_atom_nl, cpu_nl, and -L)
 run, serial and on a 2x2x2 mesh, from comd_tpu's initial energy, and
 ``-e -m thread_atom_nl`` prints comd_tpu's printThings rows.  Every option
 outside the ported slice raises NotImplementedError naming the ROADMAP.md
-item that ports it, instead of running something else.
+item that ports it, instead of running something else.  (-P, -I and the
+run tools: tests/test_torch_cli_options.py, tests/test_torch_runtools.py.)
 """
 import io
 import os
@@ -165,17 +166,9 @@ def test_cli_undersized_nl_k_aborts():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["-I"], "7"),                          # table-interpolated LJ
-    (["-e", "-I"], "7"),
-    (["-e", "-P"], "8"),
-    (["-I", "--halfShell"], "7"),
-    (["-e", "-i", "2", "-j", "2", "-k", "2", "-a", "1"], "15"),
-    (["-e", "--numProcs", "2"], "14"),
-    (["-e", "--restore", "ckpt"], "6"),
-    (["-e", "--checkpoint", "ckpt"], "6"),
-    (["-e", "-s"], "6"),
-    (["-e", "--analyze"], "6"),
-    (["-e", "--yaml", "out"], "6"),
+    pytest.param(["-e", "-i", "2", "-j", "2", "-k", "2", "-a", "1"], "15",
+                 id="extra4-15"),
+    pytest.param(["-e", "--numProcs", "2"], "14", id="extra5-14"),
 ])
 def test_out_of_slice_options_raise(extra, item):
     argv = ["-x", "4", "-y", "4", "-z", "4", "-N", "1", "--device", "cpu"]

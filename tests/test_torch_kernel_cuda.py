@@ -780,3 +780,156 @@ def test_nl_golden_on_card(cuda_device):
                                  device="cuda"))
     assert sim.e_potential / sim.n_global == pytest.approx(GOLDEN_EAM_ADAMS,
                                                            abs=1e-9)
+
+
+# --------------------------------------------------------------------------
+# the -P spline and -I LJ-table variants of K1, K2 and NL2
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("half", [False, True], ids=["K1", "K2"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_spline_kernels_match_plain(cuda_device, dtype, half):
+    """K1's and K2's -P spline variants, EAM passes 1 (with and without
+    energy) and 3, at the stencil tolerances; counted apart from the other
+    evaluators; K1 the same bits on two launches."""
+    sim = _sim(dtype, "auto", 8, "cuda", spline=True, half_shell=half)
+    assert sim.pair_eval.kind == "spline"
+    r, ev = sim.state.r, sim.pair_eval
+    nbr = sim.maps.half_nbr_map if half else sim.maps.nbr_map
+    p1, p1_plain, p3, p3_plain = (
+        (st.eam_pass1_half, st.eam_pass1_half_plain, st.eam_pass3_half,
+         st.eam_pass3_half_plain) if half else
+        (st.eam_pass1, st.eam_pass1_plain, st.eam_pass3, st.eam_pass3_plain))
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    st.reset_launch_counts()
+    fp, pp, rp = p1_plain(r, nbr, ev, want_energy=True)
+    for energy in (True, False):
+        got = p1(r, nbr, ev, want_energy=energy)
+        _close(got[0], fp, f_atol, f_rtol)
+        _close(got[2], rp, 0.0, s_rtol)
+        if energy:
+            _close(got[1], pp, 0.0, s_rtol)
+        else:
+            assert got[1] is None
+        if not half:
+            again = p1(r, nbr, ev, want_energy=energy)
+            assert _same(got, again)
+    dfe = _dfe(sim, r)
+    f3 = p3(r, nbr, ev, dfe)
+    _close(f3, p3_plain(r, nbr, ev, dfe), f_atol, f_rtol)
+    pre = "spline_half_" if half else "spline_"
+    n1 = 2 if half else 4
+    assert (st.LAUNCHES[pre + "eam_pass1"], st.LAUNCHES[pre + "eam_pass3"]) \
+        == (n1, 1)
+    assert st.LAUNCHES["eam_pass1"] == st.LAUNCHES["half_eam_pass1"] == 0
+
+
+@pytest.mark.parametrize("lists", ["built", "k8", "split"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_nl_sweep_spline_matches_plain(cuda_device, dtype, lists):
+    """NL2's -P spline variant against its plain version per row, the
+    same bits on two launches, counted as nl_sweep_spline."""
+    sim = _nl_sim(dtype, "auto", spline=True)
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    for name, kern, plain in _nl_sweeps(sim, lists):
+        st.reset_launch_counts()
+        got = kern()
+        assert (st.LAUNCHES["nl_sweep_spline"], st.LAUNCHES["nl_sweep"]) \
+            == (1, 0), name
+        want = plain()
+        _close(got[0], want[0], f_atol, f_rtol)
+        for g, w in zip(got[1:], want[1:]):
+            assert (g is None) == (w is None), name
+            if g is not None:
+                _close(g, w, 0.0, s_rtol)
+        assert all(a is b or torch.equal(a, b) for a, b in zip(got, kern()))
+
+
+def _pair_rows(ev, dists, dtype):
+    """One list row a pair at each distance of ``dists`` (along x, the
+    pairs 20 A apart in z): (r [3, n, 2], NeighborList, dfEmbed [n, 2])."""
+    n = len(dists)
+    r = np.zeros((3, n, 2))
+    r[2] = 20.0 * np.arange(n)[:, None]
+    r[0, :, 1] = -np.asarray(dists, dtype=np.float64)
+    r = torch.as_tensor(r, dtype=dtype, device="cuda")
+    i = torch.arange(n, dtype=torch.int32, device="cuda") * 2
+    nl = torch.stack([i + 1, i, i, i], dim=1).contiguous()
+    valid = torch.ones_like(i, dtype=torch.bool)
+    lst = nlmod.NeighborList(a_list=i, a_valid=valid, nl=nl, last_r=r)
+    d = np.random.default_rng(5).uniform(-100.0, -90.0, size=(n, 2))
+    return r, lst, torch.as_tensor(d, dtype=dtype, device="cuda")
+
+
+def _cutoff_distance(rcut2: float, np_dtype):
+    """The largest distance d of ``np_dtype`` whose d * d (rounded) is
+    within the cutoff: the pair at the cutoff."""
+    d = np.sqrt(np_dtype(rcut2))
+    while d * d > np_dtype(rcut2):
+        d = np.nextafter(d, np_dtype(0))
+    while np.nextafter(d, np_dtype(np.inf)) ** 2 <= np_dtype(rcut2):
+        d = np.nextafter(d, np_dtype(np.inf))
+    return d
+
+
+@pytest.mark.parametrize("pot_type", ["funcfl", "setfl"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_spline_index_at_knots_and_edges(cuda_device, dtype, pot_type):
+    """The spline variant on single pairs (NL2 rows of one entry each) at
+    the knots, next to x0 (r -> 0) and at the cutoff (Mishin's setfl
+    tables end at the cutoff: r clipped to xn, the interval to n - 1):
+    the same bits as the plain version, passes 1 and 3, so the kernel
+    picks each pair's interval as the plain version does."""
+    sim = init_simulation(Config(nx=4, ny=4, nz=4, doeam=True, spline=True,
+                                 pot_type=pot_type, dtype=dtype,
+                                 pot_dir=POTS, device="cuda"))
+    ev = sim.pair_eval
+    np_dtype = np.float32 if dtype == "float32" else np.float64
+    dx = 1.0 / ev.inv_dx
+    cut = _cutoff_distance(ev.rcut2, np_dtype)
+    knots = [ev.x0 + k * dx for k in (1, 2, 3, ev.n // 2, ev.n - 1)]
+    dists = [1e-3, 0.5 * dx] + [np_dtype(x) for x in knots
+                                if x * x <= ev.rcut2] + [cut]
+    if pot_type == "setfl":
+        assert np_dtype(cut) * np_dtype(ev.inv_dx) >= ev.n - 1
+    r, lst, dfe = _pair_rows(ev, dists, sim.dtype)
+    for energy in (True, False):
+        got = cuda_nl.eam_pass1(lst, r, ev, want_energy=energy)
+        want = cuda_nl.eam_pass1_plain(lst, r, ev, want_energy=energy)
+        assert _same(got, want), energy
+    assert torch.equal(cuda_nl.eam_pass3(lst, r, ev, dfe),
+                       cuda_nl.eam_pass3_plain(lst, r, ev, dfe))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_lj_table_kernel_matches_plain(cuda_device, dtype):
+    """K1's -I LJ-table variant with and without energy, one pair put at
+    the cutoff, where the table index reaches n and the 4-point stencil
+    reads the pad entry; the same bits on two launches; counted as
+    lj_table; K2 and NL2 refuse the table (comd_tpu runs -I full shell
+    and ignores it on the lists)."""
+    sim = _sim(dtype, "auto", 6, "cuda", doeam=False, lj_interpolation=True)
+    ev = sim.pair_eval
+    assert ev.kind == "lj_table"
+    np_dtype = np.float32 if dtype == "float32" else np.float64
+    r = sim.state.r.clone()
+    cut = _cutoff_distance(ev.rcut2, np_dtype)
+    assert np.floor((cut - np_dtype(ev.x0)) * np_dtype(ev.inv_dx)) == ev.n
+    r[:, 0, 1] = r[:, 0, 0]
+    r[0, 0, 1] += float(cut)
+    assert float(((r[:, 0, 1] - r[:, 0, 0]) ** 2).sum()) <= ev.rcut2
+    nbr = sim.maps.nbr_map
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    st.reset_launch_counts()
+    fp, ep = st.lj_pass_plain(r, nbr, ev)
+    for energy in (True, False):
+        got = st.lj_pass(r, nbr, ev, want_energy=energy)
+        _close(got[0], fp, f_atol, f_rtol)
+        if energy:
+            _close(got[1], ep, 0.0, s_rtol)
+        assert _same(got, st.lj_pass(r, nbr, ev, want_energy=energy))
+    assert (st.LAUNCHES["lj_table"], st.LAUNCHES["lj"]) == (4, 0)
+    with pytest.raises(ValueError, match="full shell"):
+        st.lj_pass_half(r, sim.maps.half_nbr_map, ev)
+    with pytest.raises(ValueError, match="analytic LJ"):
+        cuda_nl.lj_pass(None, r, ev)
