@@ -129,6 +129,25 @@ the first error:
                  p and ePot equal an uninterrupted 100-step run bit for
                  bit); -s at 63^3 EAM: every phase positive, the force
                  phase within 2x of K1's passes (phase 5) plus pass 2.
+ 16. split    -- -a 1 of the cell methods on the 2x2x2 mesh: K1 over the
+                 interior and the boundary cells apart (21^3 cells a
+                 shard, 19^3 interior).  The 63^3 EAM headline under
+                 ki_fused and collective and 63^3 LJ under collective
+                 (with its -a 0 run beside it): run_main's checks, the
+                 initial ePot within 1e-6 of the serial run's (phases 5,
+                 9), exactly two launches of each K1 pass (LJ: of K1) a
+                 shard a force, the final r and ePot of the two EAM
+                 transports equal bit for bit, the final ePot within 1e-6
+                 of the same transport's -a 0 run (phase 12; LJ: its run
+                 here); K1 against its plain version on the interior and
+                 on the boundary subsets of one shard at phase 6's
+                 tolerances (EAM passes 1, with and without energy, and
+                 3; LJ), the two subsets' sum against the full launch, and
+                 the subset launches timed (mean of 20, CUDA events)
+                 beside the full one; then the -m cta_cell -P repair: the
+                 CLI's `-e -m cta_cell -P` printThings rows equal its
+                 `-e -m cta_cell` rows (f32, 20^3), on Chebyshev K1 with
+                 no spline launch.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch, numpy and comd_tpu_torch only; builds
@@ -1452,6 +1471,174 @@ def run_options(serial_ms: float, lj_ms: float, k1: tuple) -> dict:
     return rows
 
 
+def compare_subsets(sim, tag: str) -> None:
+    """K1 against its plain version over the -a 1 subsets of shard 0 of
+    the mesh ``sim`` at phase 6's f32 tolerances (forces atol 1e-4 eV/A,
+    scalars 1e-5 of their largest value): EAM passes 1 (with and without
+    energy) and 3, or LJ; the interior and boundary launches' sum against
+    the full launch; each launch without energy timed (mean of 20, CUDA
+    events) beside the full one, with its bricks and staged region
+    boxes."""
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.probes import time_ms
+    f_atol, s_rtol = 1e-4, 1e-5
+    maps, ev = sim.maps, sim.pair_eval
+    rs = [s.r for s in sim.states]
+    r, nbr = rs[0], maps.nbr_map
+    subsets = {"interior": maps.interior, "boundary": maps.boundary}
+    # (name, kernel, plain version, arguments, keywords); pass 3's one
+    # output made a tuple as the others'
+    if sim.is_eam:
+        # dfEmbed of the current state, halo rows filled by the mesh's fill
+        rho = [st.eam_pass1(x, nbr, ev, want_energy=False)[2] for x in rs]
+        dfe = sim._fill([torch.nn.functional.pad(
+            sim.f_eval(x)[1], (0, 0, 0, r.shape[1] - sim.geom.n_local))
+            for x in rho], rho)[0]
+        cases = [("eam_pass1", st.eam_pass1, st.eam_pass1_plain, (r, nbr, ev),
+                  dict(want_energy=e)) for e in (True, False)]
+        cases.append(("eam_pass3", lambda *a, **k: (st.eam_pass3(*a, **k),),
+                      lambda *a, **k: (st.eam_pass3_plain(*a, **k),),
+                      (r, nbr, ev, dfe), {}))
+    else:
+        cases = [("lj", st.lj_pass, st.lj_pass_plain, (r, nbr, ev),
+                  dict(want_energy=e)) for e in (True, False)]
+    for name, fn, plain, args, kw in cases:
+        what = name + ("" if kw.get("want_energy", True) else
+                       " (no energy)")
+        parts = []
+        for sub_name, sub in subsets.items():
+            got = fn(*args, boxes=sub, **kw)
+            want = plain(*args, boxes=sub, **kw)
+            torch.cuda.synchronize()
+            err = float((got[0] - want[0]).abs().max())
+            e_s = max((norm_rel(a, b) for a, b in zip(got[1:], want[1:])
+                       if b is not None), default=0.0)
+            check(err <= f_atol and e_s <= s_rtol,
+                  f"{tag} {what} over the {sub_name} cells: force err "
+                  f"{err:.3e}, scalar err {e_s:.3e}")
+            parts.append(got)
+            say("split", f"{tag}: K1 {what} over the {sub.n:,} {sub_name} "
+                f"cells of shard 0 against its plain version: |df|max "
+                f"{err:.3e}, scalars {e_s:.3e} of their largest value")
+        full = fn(*args, **kw)
+        d = max(float((a + b - c).abs().max()) for a, b, c in
+                zip(*parts, full) if c is not None)
+        check(d <= f_atol, f"{tag} {what}: interior + boundary against "
+              f"the full launch {d:.3e}")
+        say("split", f"{tag}: K1 {what} interior + boundary against the "
+            f"full launch: max |diff| {d:.3e}")
+        if kw.get("want_energy"):
+            continue      # timed without energy, as 99 of 100 steps run
+        launches = dict(subsets, full=None)
+        ms = {k: time_ms(lambda: fn(*args, boxes=b, **kw), 20)
+              for k, b in launches.items()}
+        shp = {k: st.launch_shape(name, False, r, nbr, ev, boxes=b)
+               for k, b in launches.items()}
+        say("timing", f"{tag} K1 {name} a shard ({sim.geom.grid} cells, "
+            f"{shp['full']['blocks_per_sm']} blocks/SM): "
+            + "; ".join(f"{k} {ms[k]:.4f} ms ({shp[k]['bricks']} bricks, "
+                        f"{shp[k]['region_boxes']:,} region boxes)"
+                        for k in ms)
+            + f"; interior + boundary {ms['interior'] + ms['boundary']:.4f}"
+            f" ms = {(ms['interior'] + ms['boundary']) / ms['full']:.3f}x "
+            f"the full launch (CUDA events, mean of 20)")
+
+
+def cli_rows(argv) -> tuple:
+    """The port CLI's printThings rows (step, time, energies per atom,
+    temperature; the timing column dropped) for ``argv``, and its
+    simulation's launch counts."""
+    import io
+    from comd_tpu_torch import cli
+    from comd_tpu_torch.ops.cuda import stencil as st
+    st.reset_launch_counts()
+    buf = io.StringIO()
+    cli.run(cli.config_from_args(cli.build_parser().parse_args(argv)),
+            out=buf)
+    rows = [m.group(1) for m in re.finditer(
+        r"^( +\d+ +[\d.]+ +-?[\d.]+ +-?[\d.]+ +-?[\d.]+ +-?[\d.]+) ",
+        buf.getvalue(), re.M)]
+    return rows, dict(st.LAUNCHES)
+
+
+def run_split(serial_e0: float, lj_e0: float, mesh_epot: dict) -> None:
+    """Phase 16: -a 1 of the cell methods on the 2x2x2 mesh, and the
+    -m cta_cell -P repair.  ``serial_e0``/``lj_e0``: the initial ePot of
+    phases 5 and 9; ``mesh_epot``: phase 12's final ePot by transport."""
+    import torch
+    steps, shards = 100, 8
+    final = {}
+    lj_a0 = run_main("split LJ -a 0 collective", ("lj",), gpu_async=0,
+                     comm_impl="collective", **MESH)[0].e_potential
+    for tag, kw, e_serial, e_a0 in (
+            ("split main ki_fused", dict(doeam=True, comm_impl="ki_fused"),
+             serial_e0, mesh_epot["ki_fused"]),
+            ("split main collective",
+             dict(doeam=True, comm_impl="collective"), serial_e0,
+             mesh_epot["collective"]),
+            ("split LJ main collective", dict(comm_impl="collective"),
+             lj_e0, lj_a0)):
+        keys = ("eam_pass1", "eam_pass3") if kw.get("doeam") else ("lj",)
+        e0 = []
+        sim, launches = run_main(
+            tag, keys, gpu_async=1,
+            on_init=lambda x: e0.append(x.e_potential), **kw, **MESH)
+        check(sim.uses_split and sim.maps.interior.n > 0,
+              f"{tag}: no interior/boundary split")
+        rel0 = abs(e0[0] / e_serial - 1.0)
+        rel1 = abs(sim.e_potential / e_a0 - 1.0)
+        check(rel0 < 1e-6, f"{tag}: initial ePot {e0[0]!r} vs serial "
+              f"{e_serial!r}")
+        check(rel1 < 1e-6, f"{tag}: final ePot {sim.e_potential!r} vs -a 0 "
+              f"{e_a0!r}")
+        want = 2 * shards * (steps + 1)
+        for k in keys:
+            check(launches[k] == want,
+                  f"{tag}: {k} launched {launches[k]} times, not two a "
+                  f"shard a force ({want} for the initial force and "
+                  f"{steps} steps)")
+        if kw["comm_impl"] == "ki_fused":
+            # the fused fill evaluates F' of the split's summed rhobar
+            check(launches["halo_fill"] == steps + 1,
+                  f"{tag}: {launches['halo_fill']} fill launches, not one "
+                  f"a force")
+        say("split", f"{tag}: {sim.maps.interior.n:,} interior and "
+            f"{sim.maps.boundary.n:,} boundary cells a shard; "
+            f"{ {k: launches[k] for k in keys + ('halo_fill',)} } "
+            f"launches (K1: two a shard a force); initial ePot rel. diff "
+            f"to the serial run {rel0:.3e}, final to the -a 0 run "
+            f"{rel1:.3e}; {sim.ms_step:.3f} ms/step")
+        if kw.get("doeam"):
+            final[kw["comm_impl"]] = ([s.r for s in sim.states],
+                                      sim.e_potential)
+        if tag != "split main collective":
+            compare_subsets(sim, tag)
+        del sim
+    same_r = all(torch.equal(a, b) for a, b in zip(final["ki_fused"][0],
+                                                     final["collective"][0]))
+    check(same_r and final["ki_fused"][1] == final["collective"][1],
+          f"split ki_fused and collective differ: r equal {same_r}, ePot "
+          f"{final['ki_fused'][1]!r} vs {final['collective'][1]!r}")
+    say("split", "final r and ePot of ki_fused and collective equal bit for "
+        "bit")
+    del final
+    # the repair: -m cta_cell takes the Chebyshev pair functions under -P
+    argv = ["-e", "-x", "20", "-y", "20", "-z", "20", "-N", "20", "-n", "10",
+            "-m", "cta_cell", "-d", POTS]
+    rows, n_cheb = cli_rows(argv)
+    rows_p, n_p = cli_rows(argv + ["-P"])
+    check(len(rows) == 3 and rows_p == rows,
+          f"-m cta_cell -P rows {rows_p} differ from -m cta_cell's {rows}")
+    spline = sum(v for k, v in n_p.items() if k.startswith("spline"))
+    check(spline == 0 and n_p["eam_pass1"] == n_cheb["eam_pass1"] > 0,
+          f"-m cta_cell -P launched {n_p}")
+    say("split", f"-e -m cta_cell -P at 20^3 f32 prints -e -m cta_cell's "
+        f"rows ({len(rows)}, ePot/atom at step 20 {rows[-1].split()[3]}) "
+        f"on Chebyshev K1: {n_p['eam_pass1']} pass-1 launches, no spline "
+        f"launch")
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -1649,9 +1836,11 @@ def main() -> int:
     del sim, r, hm, nbr, ev, dfe
 
     # 9. LJ at 63^3: full shell (K1) and --halfShell (K2)
+    lj_e0 = []
     for half, key in ((False, "lj"), (True, "half_lj")):
-        sim, launches = run_main("LJ half main" if half else "LJ main",
-                                 (key,), half_shell=half)
+        sim, launches = run_main(
+            "LJ half main" if half else "LJ main", (key,), half_shell=half,
+            on_init=None if half else lambda x: lj_e0.append(x.e_potential))
         if not half:
             lj_ms = sim.ms_step
         errs = compare_lj(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5)
@@ -1728,6 +1917,7 @@ def main() -> int:
               f"{final['ki_fused'][1]!r} vs {final[ci][1]!r}")
     say("sharded main", f"final r and ePot of ki_fused, ki and collective "
         f"equal bit for bit (ePot {final['ki_fused'][1]:.6f})")
+    mesh_epot = {ci: e for ci, (_r, e) in final.items()}
     del final
     errs, (dfe, rhobar) = check_comm(sharded, f"{HEADLINE_N}^3 float32 2x2x2")
     from comd_tpu_torch.parallel import exchange, ki_comm
@@ -1804,6 +1994,9 @@ def main() -> int:
     # 15. -P, -I and the run tools
     rows.update(run_options(serial_ms, lj_ms, (k1_ms["eam_pass1"][0],
                                                k1_ms["eam_pass3"][0])))
+
+    # 16. -a 1 of the cell methods on the mesh, and -m cta_cell -P
+    run_split(serial_epot[0], lj_e0[0], mesh_epot)
 
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",

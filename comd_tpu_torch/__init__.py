@@ -2,8 +2,10 @@
 
 The port of comd_tpu (JAX on a TPU) to PyTorch on an NVIDIA H100: the same
 Config, CLI flags, cell layout and goldens, with comd_tpu's Pallas kernels
-rewritten as hand-written CUDA kernels (csrc/).  Options outside the port
-raise NotImplementedError naming the ROADMAP.md item that ports them.
+rewritten as hand-written CUDA kernels (csrc/).  Everything comd_tpu runs
+in one process runs here; the multi-process launch and shards on several
+devices raise NotImplementedError naming ROADMAP.md item 14, which ports
+them.
 
 The package imports torch and numpy only (never jax or comd_tpu).  Energy
 sums are taken in Config.energy_dtype (f64) whatever the dynamics dtype.

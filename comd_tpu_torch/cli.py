@@ -11,10 +11,9 @@ prolog -> printRate-step blocks with printThings lines -> validation ->
 timing report (CoMD.c:86-187, 463-494), with comd_tpu's run tools:
 ``--checkpoint/--checkpointRate/--restore`` (utils/checkpoint.py, comd_tpu's
 npz format), ``--yaml`` (utils/yaml_output.py), ``--analyze`` (the
-cell-occupancy histogram) and ``-s`` (utils/profile.py).  Options outside
-the ported slice (multi-process launch and the configurations listed in
-sim.check_slice) raise NotImplementedError naming the ROADMAP.md item that
-ports them.
+cell-occupancy histogram) and ``-s`` (utils/profile.py).  The multi-process
+launch (--numProcs) is outside the port so far and raises
+NotImplementedError naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 

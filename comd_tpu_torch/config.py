@@ -14,7 +14,9 @@ import torch
 
 # Kernel-strategy names accepted by -m/--method (src-mpi/defines.h:10-17).
 # In the port every cell-sweep name (thread_atom, warp_atom, cta_cell) runs
-# the one hand-written CUDA cell-stencil kernel (ops/cuda/stencil.py), and
+# the one hand-written CUDA cell-stencil kernel (ops/cuda/stencil.py);
+# cta_cell takes the pair functions of comd_tpu's Pallas path (Chebyshev,
+# whatever -P says, in f32; sim.Physics._setup_physics), and
 # every neighbor-list name (thread_atom_nl, warp_atom_nl, cpu_nl) and -L
 # the one Verlet-list path on the list kernels (ops/cuda/nl.py); cpu_nl
 # differs from the others only in its -a auto default (0), as in comd_tpu.

@@ -20,7 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..cells import CellGeometry
+from ..cells import CellGeometry, boundary_lists
 
 #: coordinate sentinel for empty slots; far from any real atom, and pairs of
 #: empty slots coincide so r2==0 masks them out (reference instead stores one
@@ -49,6 +49,23 @@ class GeomMaps:
     halo_src: torch.Tensor      # [n_halo] int64
     halo_shift: torch.Tensor    # [n_halo, 3] dynamics dtype
     box_of_tuple: torch.Tensor  # [gx, gy, gz] int64 local numbering
+    interior: "BoxSubset"       # -a 1: cells whose 27 neighbors are local
+    boundary: "BoxSubset"       # -a 1: the other local cells
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BoxSubset:
+    """A subset of a geometry's local cells, for the cell-stencil sweeps
+    over part of the grid (the -a 1 interior/boundary split): its box ids,
+    ascending, on the host (``ids``, int32, which the brick plan is built
+    from) and on the maps' device (``index``, int64).  Compared and hashed
+    by identity: the brick plans over it are cached on it."""
+    ids: np.ndarray
+    index: torch.Tensor
+
+    @property
+    def n(self) -> int:
+        return len(self.ids)
 
 
 #: column of the self cell in ``nbr_map`` (offset (0, 0, 0))
@@ -60,6 +77,9 @@ NBR_OFFSETS = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1],
 
 def geom_maps(geom: CellGeometry, dtype: torch.dtype, device) -> GeomMaps:
     nbr = torch.as_tensor(geom.nbr_map, dtype=torch.int32, device=device)
+    subsets = [BoxSubset(ids=ids, index=torch.as_tensor(
+        ids, dtype=torch.int64, device=device))
+        for ids in boundary_lists(geom, ring=1)]
     maps = GeomMaps(
         nbr_map=nbr.contiguous(),
         half_nbr_map=nbr[:, SELF_COLUMN:].contiguous(),
@@ -69,6 +89,7 @@ def geom_maps(geom: CellGeometry, dtype: torch.dtype, device) -> GeomMaps:
                                    device=device),
         box_of_tuple=torch.as_tensor(geom.local_box_of_tuple,
                                      dtype=torch.int64, device=device),
+        interior=subsets[0], boundary=subsets[1],
     )
     # the stencil kernels take a neighbor map and find its geometry, and
     # the brick plans built from it, on the tensor (``brick_plan_for``)
@@ -124,26 +145,34 @@ class BrickPlan:
         return self.cells.shape[0]
 
 
-def build_brick_plan(geom: CellGeometry, shape, half: bool) -> BrickPlan:
+def build_brick_plan(geom: CellGeometry, shape, half: bool,
+                     ids=None) -> BrickPlan:
     """The brick plan (numpy) from the cells' grid coordinates
     (``geom.tuple_of_box``) and ``geom.nbr_map``, never from box ids (which
     -H Hilbert numbering scrambles).  Serves every shard of a mesh (they
     share one geometry), edge bricks where the grid does not divide, and
-    grids smaller than one brick."""
-    n_local = geom.n_local
+    grids smaller than one brick.  ``ids`` (local box ids, non-empty)
+    restricts the plan to those cells: the others are -1, as past the
+    grid's edge, the regions hold only their neighbor boxes, and bricks
+    with none of them are dropped (the full set drops none)."""
+    ids = (np.arange(geom.n_local) if ids is None
+           else np.asarray(ids)).astype(np.int64)
+    n_sel = len(ids)
     cols = np.arange(SELF_COLUMN, 27) if half else np.arange(27)
-    t = geom.tuple_of_box[:n_local].astype(np.int64)        # [n_local, 3]
-    boxes = geom.nbr_map[:, cols]                            # [n_local, n]
+    t = geom.tuple_of_box[ids].astype(np.int64)              # [n_sel, 3]
+    boxes = geom.nbr_map[ids][:, cols]                       # [n_sel, n]
     ntup = t[:, None, :] + NBR_OFFSETS[cols][None]           # -1 .. g
     b = np.asarray(shape, np.int64)
     n_b = -(-np.asarray(geom.grid, np.int64) // b)           # bricks/axis
     bt = t // b
-    brick = bt[:, 0] + n_b[0] * (bt[:, 1] + n_b[1] * bt[:, 2])
+    brick_all = bt[:, 0] + n_b[0] * (bt[:, 1] + n_b[1] * bt[:, 2])
+    used, brick = np.unique(brick_all, return_inverse=True)
+    brick = brick.reshape(-1)
     w = t - bt * b
     within = w[:, 0] + b[0] * (w[:, 1] + b[1] * w[:, 2])
-    n_bricks, cpb = int(np.prod(n_b)), int(np.prod(b))
+    n_bricks, cpb = len(used), int(np.prod(b))
     cells = np.full((n_bricks, cpb), -1, np.int32)
-    cells[brick, within] = np.arange(n_local, dtype=np.int32)
+    cells[brick, within] = ids.astype(np.int32)
     # one region entry per (brick, neighbor grid coordinate)
     gx, gy, gz = geom.grid
     code = ((ntup[..., 2] + 1) * (gy + 2) + ntup[..., 1] + 1) * (gx + 2) + \
@@ -159,7 +188,7 @@ def build_brick_plan(geom: CellGeometry, shape, half: bool) -> BrickPlan:
     region_ptr = np.zeros(n_bricks + 1, np.int32)
     region_ptr[1:] = np.cumsum(count)
     slot = np.zeros((n_bricks, cpb, len(cols)), np.int16)
-    slot[brick, within] = (inv.reshape(n_local, len(cols))
+    slot[brick, within] = (inv.reshape(n_sel, len(cols))
                            - region_ptr[brick][:, None])
     return BrickPlan(shape=tuple(int(v) for v in shape), half=half,
                      cells=cells, region_ptr=region_ptr,
@@ -167,23 +196,27 @@ def build_brick_plan(geom: CellGeometry, shape, half: bool) -> BrickPlan:
                      max_region=int(count.max()))
 
 
-def brick_plan_for(nbr_map: torch.Tensor, A: int) -> BrickPlan:
+def brick_plan_for(nbr_map: torch.Tensor, A: int,
+                   boxes: BoxSubset = None) -> BrickPlan:
     """The brick plan, as tensors on the map's device, of a neighbor map
     made by ``geom_maps`` (its ``nbr_map`` or ``half_nbr_map``) for cell
-    capacity ``A``; built once per brick shape."""
+    capacity ``A``, over all local cells or the non-empty subset
+    ``boxes`` (the maps' ``interior`` or ``boundary``); built once per
+    brick shape and subset."""
     owner = getattr(nbr_map, "brick_plans", None)
     if owner is None:
         raise ValueError("the cell-stencil kernels take the nbr_map or "
                          "half_nbr_map of a GeomMaps (binning.geom_maps), "
                          "whose geometry gives the brick plan")
     geom, half, plans = owner
-    shape = brick_shape(A, geom.grid)
-    if shape not in plans:
-        p = build_brick_plan(geom, shape, half)
-        plans[shape] = dataclasses.replace(p, **{
+    key = (brick_shape(A, geom.grid), boxes)
+    if key not in plans:
+        p = build_brick_plan(geom, key[0], half,
+                             None if boxes is None else boxes.ids)
+        plans[key] = dataclasses.replace(p, **{
             k: torch.as_tensor(getattr(p, k), device=nbr_map.device)
             for k in ("cells", "region_ptr", "region_box", "slot")})
-    return plans[shape]
+    return plans[key]
 
 
 def box_from_tuple(geom: CellGeometry, maps: GeomMaps, ix, iy, iz):

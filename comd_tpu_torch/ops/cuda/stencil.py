@@ -38,6 +38,11 @@ design 1.37 / 1.21 / 1.05), K2 0.72 / 0.66 / 1.05 (1.28 / 1.09 / 1.24).
 What bounds them now (stencil_breakdown.py): K1's r2 walk, 45-55% of it,
 then the pair function; K2's j-side compare-and-swap, 27-32% of it.
 
+K1 also sweeps a subset of the local cells (``boxes``, the maps'
+``interior`` or ``boundary`` binning.BoxSubset, for -a 1 on a mesh): its
+own brick plan, the other cells -1, outputs zero outside the subset, one
+counted launch a call and none for an empty subset.
+
 The kernels read the state's own [3, B, A] layout and the ``GeomMaps``
 neighbor maps (and, through them, the brick plan) directly: comd_tpu's
 transposed cells-on-lanes window, its locality plane and its overlap-added
@@ -197,29 +202,55 @@ def _pair_lj(ev: PairEvaluator, want_energy: bool):
     return pair
 
 
+def _sweep(r, nbr_map, pair_fn, rcut2, n_scalars: int, boxes, *,
+           scalar_j=(), chunk: int):
+    """``cell_pair_sweep`` over every local cell, or over the subset
+    ``boxes`` (binning.BoxSubset) into [.., n_local, A] outputs that are
+    zero outside it."""
+    if boxes is None:
+        return cell_pair_sweep(r, nbr_map, pair_fn, rcut2,
+                               scalar_j=scalar_j, chunk=chunk)
+    rows = (nbr_map.shape[0], r.shape[2])
+    f = r.new_zeros((3,) + rows)
+    scal = [r.new_zeros(rows) for _ in range(n_scalars)]
+    if boxes.n:
+        fs, ss = cell_pair_sweep(r, nbr_map, pair_fn, rcut2,
+                                 scalar_j=scalar_j, chunk=chunk,
+                                 boxes=boxes.index)
+        f.index_copy_(1, boxes.index, fs)
+        for out, v in zip(scal, ss):
+            out.index_copy_(0, boxes.index, v)
+    return f, scal
+
+
 def eam_pass1_plain(r, nbr_map, ev: PairEvaluator, *,
-                    want_energy: bool = True, box_chunk: int = 256):
-    """Plain PyTorch pass 1 -> (f1 [3, n_local, A], phi_sum | None, rhobar)."""
-    f1, scal = cell_pair_sweep(r, nbr_map, _pair1(ev, want_energy),
-                               ev.rcut2, chunk=box_chunk)
+                    want_energy: bool = True, box_chunk: int = 256,
+                    boxes=None):
+    """Plain PyTorch pass 1 -> (f1 [3, n_local, A], phi_sum | None, rhobar),
+    zero outside ``boxes`` when given."""
+    f1, scal = _sweep(r, nbr_map, _pair1(ev, want_energy), ev.rcut2,
+                      _n_scalars("eam_pass1", want_energy), boxes,
+                      chunk=box_chunk)
     phi_sum, rhobar = scal if want_energy else (None, scal[0])
     return f1, phi_sum, rhobar
 
 
 def eam_pass3_plain(r, nbr_map, ev: PairEvaluator, df_embed, *,
-                    box_chunk: int = 256):
-    """Plain PyTorch pass 3 -> f3 [3, n_local, A]."""
-    f3, _ = cell_pair_sweep(r, nbr_map, _pair3(ev), ev.rcut2,
-                            scalar_j=[df_embed], chunk=box_chunk)
+                    box_chunk: int = 256, boxes=None):
+    """Plain PyTorch pass 3 -> f3 [3, n_local, A], zero outside ``boxes``
+    when given."""
+    f3, _ = _sweep(r, nbr_map, _pair3(ev), ev.rcut2, 0, boxes,
+                   scalar_j=[df_embed], chunk=box_chunk)
     return f3
 
 
 def lj_pass_plain(r, nbr_map, ev: PairEvaluator, *, want_energy: bool = True,
-                  box_chunk: int = 256):
+                  box_chunk: int = 256, boxes=None):
     """Plain PyTorch LJ sweep -> (f [3, n_local, A], e [n_local, A] | None),
-    ``e`` the unscaled pair-energy sum."""
-    f, scal = cell_pair_sweep(r, nbr_map, _pair_lj(ev, want_energy),
-                              ev.rcut2, chunk=box_chunk)
+    ``e`` the unscaled pair-energy sum; zero outside ``boxes`` when
+    given."""
+    f, scal = _sweep(r, nbr_map, _pair_lj(ev, want_energy), ev.rcut2,
+                     _n_scalars("lj", want_energy), boxes, chunk=box_chunk)
     return f, (scal[0] if want_energy else None)
 
 
@@ -383,7 +414,8 @@ def launch_key(name: str, ev: PairEvaluator) -> str:
     return name
 
 
-def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27):
+def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27,
+           boxes=None):
     if r.dim() != 3 or r.shape[0] != 3:
         raise ValueError(f"r must be [3, B, A], got {tuple(r.shape)}")
     if r.dtype != ev.dtype:
@@ -393,7 +425,8 @@ def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27):
             n_local > r.shape[1] or nbr_map.dtype != torch.int32:
         raise ValueError(f"nbr_map must be [n_local <= B, {n_nbr}] int32, "
                          f"got {tuple(nbr_map.shape)} {nbr_map.dtype}")
-    tensors = [r, nbr_map] + ([dfe] if dfe is not None else [])
+    tensors = [r, nbr_map] + ([dfe] if dfe is not None else []) + (
+        [boxes.index] if boxes is not None else [])
     if any(t.device != r.device for t in tensors):
         raise ValueError("the stencil operands lie on different devices")
     check_tables(ev, r.device)
@@ -411,11 +444,12 @@ def _n_scalars(pair: str, want_energy: bool) -> int:
 
 
 def _call(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
-          want_energy: bool, dfe, out, shape_out=None) -> int:
-    """One comd_stencil call on ``nbr_map``'s brick plan: a launch, or with
-    ``shape_out`` (5 c_ints) the launch shape's report."""
+          want_energy: bool, dfe, out, shape_out=None, boxes=None) -> int:
+    """One comd_stencil call on ``nbr_map``'s brick plan (over ``boxes``
+    when given): a launch, or with ``shape_out`` (5 c_ints) the launch
+    shape's report."""
     B, A = r.shape[1], r.shape[2]
-    plan = binning.brick_plan_for(nbr_map, A)
+    plan = binning.brick_plan_for(nbr_map, A, boxes)
     if plan.half != half:
         raise ValueError(f"{'K2' if half else 'K1'} needs the "
                          f"{'half' if half else 'full'} neighbor map")
@@ -445,10 +479,12 @@ def _raise(err: int, what: str):
 
 
 def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
-            want_energy: bool, dfe=None):
-    """Launch K1 (``half`` False) or K2 for one pair function.  Returns
-    (force [3, rows, A], [scalars [rows, A] ...]) with rows = n_local for
-    K1 and B (dense, halo rows pending the fold) for K2."""
+            want_energy: bool, dfe=None, boxes=None):
+    """Launch K1 (``half`` False) or K2 for one pair function; K1 over the
+    cells of ``boxes`` when given (none launches for an empty subset).
+    Returns (force [3, rows, A], [scalars [rows, A] ...]) with rows =
+    n_local for K1 (zero outside ``boxes``) and B (dense, halo rows
+    pending the fold) for K2."""
     if r.device.type != "cuda":
         raise ValueError(f"the cell-stencil kernels run CUDA tensors, got "
                          f"{r.device}")
@@ -465,11 +501,15 @@ def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
             raise ValueError("the stencil operands must be contiguous")
     n_local = nbr_map.shape[0]
     n_s = _n_scalars(pair, want_energy)
-    # K1 writes every slot of its rows; K2 adds into a zeroed buffer
-    alloc = torch.zeros if half else torch.empty
+    # K1 writes every slot of its plan's cells; K2 adds into a zeroed
+    # buffer
+    alloc = torch.zeros if half or boxes is not None else torch.empty
     out = alloc((3 + n_s, B if half else n_local, A), dtype=r.dtype,
                 device=r.device)
-    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, out)
+    if boxes is not None and boxes.n == 0:
+        return out[:3], list(out[3:])
+    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, out,
+                boxes=boxes)
     if err != 0:
         _raise(err, "launch")
     LAUNCHES[launch_key(name, ev)] += 1
@@ -477,18 +517,19 @@ def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
 
 
 def launch_shape(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
-                 want_energy: bool = False) -> dict:
-    """How K1 (``half`` False) or K2 launches for these operands, without
-    launching: the brick, threads a block, shared memory a block, resident
-    blocks an SM, list entries a thread, bricks and staged region boxes in
-    all."""
+                 want_energy: bool = False, boxes=None) -> dict:
+    """How K1 (``half`` False) or K2 launches for these operands (K1 over
+    the non-empty subset ``boxes`` when given), without launching: the
+    brick, threads a block, shared memory a block, resident blocks an SM,
+    list entries a thread, bricks and staged region boxes in all."""
     q = (ctypes.c_int * 5)()
     # pass 3 needs a dfEmbed pointer; nothing is read from it
     dfe = r[0] if pair == "eam_pass3" else None
-    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, None, q)
+    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, None, q,
+                boxes=boxes)
     if err != 0:
         _raise(err, "shape query")
-    plan = binning.brick_plan_for(nbr_map, r.shape[2])
+    plan = binning.brick_plan_for(nbr_map, r.shape[2], boxes)
     return {"brick": plan.shape, "threads": q[0], "smem_bytes": q[2],
             "blocks_per_sm": q[3], "list_cap": q[4],
             "bricks": plan.n_bricks, "region_boxes": int(plan.region_ptr[-1])}
@@ -499,45 +540,49 @@ def launch_shape(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
 # --------------------------------------------------------------------------
 
 def eam_pass1(r, nbr_map, ev: PairEvaluator, *, want_energy: bool = True,
-              box_chunk: int = 256):
+              box_chunk: int = 256, boxes=None):
     """EAM pass 1 (gpu_eam_cta_cell.h:34-75): pair energy, density and pair
     force.  Returns (f1 [3, n_local, A], phi_sum [n_local, A] or None when
-    ``want_energy`` is False, rhobar [n_local, A]).  CPU tensors run the
-    plain version (chunked by ``box_chunk``); CUDA tensors the kernel."""
-    _check(r, nbr_map, ev)
+    ``want_energy`` is False, rhobar [n_local, A]), over the cells of
+    ``boxes`` (a binning.BoxSubset of the maps) when given and zero
+    outside them.  CPU tensors run the plain version (chunked by
+    ``box_chunk``); CUDA tensors the kernel."""
+    _check(r, nbr_map, ev, boxes=boxes)
     if r.device.type == "cpu":
         return eam_pass1_plain(r, nbr_map, ev, want_energy=want_energy,
-                               box_chunk=box_chunk)
+                               box_chunk=box_chunk, boxes=boxes)
     f, scal = _launch("eam_pass1", "eam_pass1", False, r, nbr_map, ev,
-                      want_energy)
+                      want_energy, boxes=boxes)
     return (f,) + (tuple(scal) if want_energy else (None, scal[0]))
 
 
 def eam_pass3(r, nbr_map, ev: PairEvaluator, df_embed, *,
-              box_chunk: int = 256):
+              box_chunk: int = 256, boxes=None):
     """EAM pass 3: f_i -= (dfe_i + dfe_j) * rho'(r) * rhat, with
     ``df_embed`` the halo-filled [B, A] field (eam.c:374-413).
-    Returns f3 [3, n_local, A].  CPU tensors run the plain version; CUDA
-    tensors the kernel."""
-    _check(r, nbr_map, ev, df_embed)
+    Returns f3 [3, n_local, A], over ``boxes`` as in ``eam_pass1``.  CPU
+    tensors run the plain version; CUDA tensors the kernel."""
+    _check(r, nbr_map, ev, df_embed, boxes=boxes)
     if r.device.type == "cpu":
-        return eam_pass3_plain(r, nbr_map, ev, df_embed, box_chunk=box_chunk)
+        return eam_pass3_plain(r, nbr_map, ev, df_embed, box_chunk=box_chunk,
+                               boxes=boxes)
     f3, _ = _launch("eam_pass3", "eam_pass3", False, r, nbr_map, ev, False,
-                    df_embed)
+                    df_embed, boxes=boxes)
     return f3
 
 
 def lj_pass(r, nbr_map, ev: PairEvaluator, *, want_energy: bool = True,
-            box_chunk: int = 256):
+            box_chunk: int = 256, boxes=None):
     """LJ over the 27-cell shell (comd_tpu's lj_force_stencil):
     (f [3, n_local, A], e [n_local, A] | None), ``e`` the unscaled sum of
-    r6 (r6 - 1) - e_shift over j.  CPU tensors run the plain version; CUDA
-    tensors the kernel."""
-    _check(r, nbr_map, ev)
+    r6 (r6 - 1) - e_shift over j; over ``boxes`` as in ``eam_pass1``.
+    CPU tensors run the plain version; CUDA tensors the kernel."""
+    _check(r, nbr_map, ev, boxes=boxes)
     if r.device.type == "cpu":
         return lj_pass_plain(r, nbr_map, ev, want_energy=want_energy,
-                             box_chunk=box_chunk)
-    f, scal = _launch("lj", "lj", False, r, nbr_map, ev, want_energy)
+                             box_chunk=box_chunk, boxes=boxes)
+    f, scal = _launch("lj", "lj", False, r, nbr_map, ev, want_energy,
+                      boxes=boxes)
     return f, (scal[0] if want_energy else None)
 
 

@@ -12,7 +12,9 @@ Passes 1 and 3 run on the CUDA cell-stencil kernels (ops/cuda/stencil.py;
 their plain PyTorch versions on CPU tensors), with the pair evaluator of
 ``make_pair_evaluator`` (Chebyshev, tables or the -P spline): the
 full-shell K1 in
-``eam_force`` and the half-shell K2 in ``eam_force_half``; over Verlet
+``eam_force`` (and, split into interior and boundary cells under -a 1 on a
+mesh, in ``eam_force_split``) and the half-shell K2 in ``eam_force_half``;
+over Verlet
 lists (the *_nl methods) on the list sweep NL2 (ops/cuda/nl.py) in
 ``eam_force_nl`` and ``eam_force_nl_split``.  Pass 2 is
 per-atom, 27x fewer evaluations than a pair pass, and stays torch ops: the
@@ -127,6 +129,55 @@ def eam_force(
     return [(f1 + stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk),
              u_s, d)
             for r, (f1, _phi, _rho), u_s, d in zip(rs, p1, u, dfe)]
+
+
+def eam_force_split(
+    nbr_map: torch.Tensor,       # [n_local, 27] int32 of a GeomMaps
+    rs: Sequence[torch.Tensor],  # per shard: [3, B, A] post-exchange
+    ev: PairEvaluator,
+    f_eval: tables.EmbedTable,
+    fill_halo_scalar: Callable,  # as in eam_force
+    interior,                    # binning.BoxSubset: cells reading no halo
+    boundary,                    # binning.BoxSubset: the other local cells
+    *,
+    r_pre: Optional[Sequence[torch.Tensor]] = None,
+    e_dtype: torch.dtype = torch.float64,
+    want_energy: bool = True,
+    box_chunk: int = 256,
+):
+    """``eam_force`` with the interior/boundary split (-a 1 of the cell
+    methods on a mesh; the reference's timestep.c:257-265, comd_tpu's
+    eam_force_split): K1 sweeps the interior cells on the pre-exchange
+    positions ``r_pre`` and the boundary cells on ``rs``, two launches a
+    pass.  Interior cells read no halo cell, so their pass 3 runs on the
+    pre-fill dfEmbed, before the fill; the boundary's after it.  Each
+    subset's outputs are zero outside it, so their sum is comd_tpu's
+    scatter of the two lists.  Pass 2 is per slot and runs once on the
+    summed rhobar (the same numbers as per subset).  On one stream nothing
+    overlaps; the split keeps comd_tpu's data flow.  Returns what
+    eam_force does."""
+    r_pre = rs if r_pre is None else r_pre
+    kw = dict(want_energy=want_energy, box_chunk=box_chunk)
+    p1 = []
+    for r, rp in zip(rs, r_pre):
+        f_i, phi_i, rho_i = stencil.eam_pass1(rp, nbr_map, ev,
+                                              boxes=interior, **kw)
+        f_b, phi_b, rho_b = stencil.eam_pass1(r, nbr_map, ev,
+                                              boxes=boundary, **kw)
+        p1.append((f_i + f_b, phi_i + phi_b if want_energy else None,
+                   rho_i + rho_b))
+    emb = [f_eval(rhobar) for _f1, _phi, rhobar in p1]
+    u = [0.5 * phi.to(e_dtype) + f_emb.to(e_dtype) if want_energy else None
+         for (_f1, phi, _rho), (f_emb, _df) in zip(p1, emb)]
+    dfe = [_local_field(df, r.shape[1]) for r, (_f, df) in zip(rs, emb)]
+    # interior pass 3 reads only local dfEmbed: before the fill
+    f3_i = [stencil.eam_pass3(rp, nbr_map, ev, d, box_chunk=box_chunk,
+                              boxes=interior) for rp, d in zip(r_pre, dfe)]
+    dfe = fill_halo_scalar(dfe, [rhobar for _f1, _phi, rhobar in p1])
+    return [(f1 + (f3 + stencil.eam_pass3(r, nbr_map, ev, d,
+                                          box_chunk=box_chunk,
+                                          boxes=boundary)), u_s, d)
+            for r, (f1, _phi, _rho), f3, u_s, d in zip(rs, p1, f3_i, u, dfe)]
 
 
 def eam_force_half(

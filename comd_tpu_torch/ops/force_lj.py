@@ -7,7 +7,9 @@ Physics of the reference CPU oracle (ljForceCpuNL, src-mpi/ljForce.c:
   f_i   += 4*eps*r6*invr2*(12*r6-6) * (r_i - r_j)
 
 ``lj_force`` sweeps the full 27-cell shell on K1 (every pair visited from
-both sides, energy halved); ``lj_force_interp`` does so from the -I
+both sides, energy halved), and ``lj_force_split`` in two launches, the
+interior and the boundary cells (-a 1 on a mesh); ``lj_force_interp`` does
+so from the -I
 1000-point quadratic table of the shifted energy (comd_tpu's
 lj_force_interp, gpu_utility.c:348-374), on K1's LJ-table variant;
 ``lj_force_half``  evaluates each pair once on
@@ -95,6 +97,30 @@ def lj_force(nbr_map: torch.Tensor, pot: LjPotential,
                                box_chunk=box_chunk)
         out.append((f,) + (_energy(pot, e, e_dtype) if want_energy
                            else (None, None)))
+    return out
+
+
+def lj_force_split(nbr_map: torch.Tensor, pot: LjPotential,
+                   rs: Sequence[torch.Tensor], ev: PairEvaluator, interior,
+                   boundary, *,
+                   r_pre: Optional[Sequence[torch.Tensor]] = None,
+                   e_dtype: torch.dtype = torch.float64,
+                   want_energy: bool = True, box_chunk: int = 256):
+    """``lj_force`` with the interior/boundary split (-a 1 of the cell
+    methods on a mesh, comd_tpu's lj_force_split): K1 over the interior
+    cells (binning.BoxSubset ``interior``) on the pre-exchange positions
+    ``r_pre`` and over the boundary cells on ``rs``; each launch's outputs
+    are zero outside its subset, so they add up to comd_tpu's scatter.
+    Analytic LJ always (``ev`` of kind "lj"): comd_tpu's sharded dispatch
+    takes the split before -I.  Returns what lj_force does."""
+    r_pre = rs if r_pre is None else r_pre
+    kw = dict(want_energy=want_energy, box_chunk=box_chunk)
+    out = []
+    for r, rp in zip(rs, r_pre):
+        f_i, e_i = stencil.lj_pass(rp, nbr_map, ev, boxes=interior, **kw)
+        f_b, e_b = stencil.lj_pass(r, nbr_map, ev, boxes=boundary, **kw)
+        out.append((f_i + f_b,) + (_energy(pot, e_i + e_b, e_dtype)
+                                   if want_energy else (None, None)))
     return out
 
 

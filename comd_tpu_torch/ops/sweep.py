@@ -16,7 +16,7 @@ reasons and are not ported.
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -31,9 +31,10 @@ def cell_pair_sweep(
     *,
     scalar_j: Sequence[torch.Tensor] = (),   # per-atom fields [B, A]
     chunk: int = 256,
+    boxes: Optional[torch.Tensor] = None,    # [n] int64 local box ids
 ):
     """Run ``pair_fn`` over all (atom i, 27-cell neighbor j) pairs of every
-    local cell.
+    local cell, or of the cells ``boxes`` only.
 
     ``pair_fn(r2, mask, sj, si)`` receives the squared distances
     [C, A, 27A], the validity mask, each per-atom field gathered at the j
@@ -41,25 +42,27 @@ def cell_pair_sweep(
     ``(fcoef, scalars)``: ``fcoef`` multiplies dr = r_i - r_j and is summed
     into the force on i, each entry of ``scalars`` is summed over j.
 
-    Returns (force [3, n_local, A], [scalars [n_local, A] ...]).  Every
-    cell's sums are independent of ``chunk``, which only bounds memory.
+    Returns (force [3, n, A], [scalars [n, A] ...]), n = n_local or one
+    row per entry of ``boxes``.  Every cell's sums are independent of
+    ``chunk``, which only bounds memory, and of the other cells swept.
     """
     A = r.shape[-1]
-    n_local = nbr_map.shape[0]
+    n = nbr_map.shape[0] if boxes is None else boxes.shape[0]
     rc2 = as_dtype(rcut2, r.dtype)
     chunk = max(1, chunk)
     forces, scalars_out = [], []
-    for c0 in range(0, n_local, chunk):
-        c1 = min(c0 + chunk, n_local)
+    for c0 in range(0, n, chunk):
+        c1 = min(c0 + chunk, n)
         C = c1 - c0
-        nbr = nbr_map[c0:c1].to(torch.int64)            # [C, 27]
-        ri = r[:, c0:c1]                                # [3, C, A]
+        rows = slice(c0, c1) if boxes is None else boxes[c0:c1]
+        nbr = nbr_map[rows].to(torch.int64)             # [C, 27]
+        ri = r[:, rows]                                 # [3, C, A]
         rj = r[:, nbr].reshape(3, C, 27 * A)
         dr = ri[:, :, :, None] - rj[:, :, None, :]      # [3, C, A, 27A]
         r2 = dr[0] * dr[0] + dr[1] * dr[1] + dr[2] * dr[2]
         mask = (r2 <= rc2) & (r2 > 0)
         sj = [s[nbr].reshape(C, 1, 27 * A) for s in scalar_j]
-        si = [s[c0:c1][:, :, None] for s in scalar_j]
+        si = [s[rows][:, :, None] for s in scalar_j]
         fcoef, scalars = pair_fn(r2, mask, sj, si)
         forces.append((fcoef[None] * dr).sum(dim=-1))   # [3, C, A]
         scalars_out.append([s.sum(dim=-1) for s in scalars])

@@ -23,7 +23,11 @@ rebuilt after each atom exchange; their dfEmbed fill is the collective
 list rows carry no cell layout for the fused transport), while the atom
 exchange follows --commImpl.  Under -a 1 (auto for thread_atom_nl,
 warp_atom_nl and -L) the lists are built with the interior/boundary row
-split and the interior rows sweep the pre-exchange positions.
+split and the interior rows sweep the pre-exchange positions; the cell
+methods under -a 1 sweep their interior and boundary cells apart on K1,
+the interior cells on the pre-exchange positions (Physics.forces).  All of
+it runs on one CUDA stream: the split keeps comd_tpu's data flow, and
+nothing overlaps.
 
 Each shard's SimState carries the replicated scalars (e_potential,
 n_local, overflow) as the same tensors, as comd_tpu's replicated leaves.
@@ -109,16 +113,26 @@ class ShardedSimulation(Physics):
 
     # ---------------- stepping ----------------
 
-    def _redistribute(self, r, p, gid, n_atoms):
-        """Rebucket every shard (halo landers kept), exchange, sort."""
+    def _redistribute(self, r, p, gid, n_atoms, pre: bool = False):
+        """Rebucket every shard (halo landers kept), exchange, sort.  With
+        ``pre`` (the eager step under -a 1) it also returns the positions
+        the interior sweeps read: the rebucketed ones, which equal the
+        exchanged ones on every local cell unless some atom left its
+        shard, and then the exchanged ones (comd_tpu's sharded.py:
+        258-265; the migration count is read on the host)."""
         out = [binning.rebucket(self.geom, self.maps, *t, keep_halo=True)
                for t in zip(r, p, gid, n_atoms)]
         ovf = torch.stack([o[5] for o in out]).any()
+        r_reb = [o[0] for o in out]
         r, p, gid, n_atoms, ovf2 = self._exchange_atoms(
-            [o[0] for o in out], [o[1] for o in out], [o[2] for o in out],
+            r_reb, [o[1] for o in out], [o[2] for o in out],
             [o[3] for o in out])
         self.n_rebucket += 1
-        return r, p, gid, n_atoms, ovf | ovf2
+        res = (r, p, gid, n_atoms, ovf | ovf2)
+        if not pre:
+            return res
+        migrated = bool((torch.stack([o[4] for o in out]) > 0).any())
+        return res + (r if migrated else r_reb,)
 
     def _finish(self, states, r, p, gid, n_atoms, ovf, want_energy: bool,
                 nlists=None, r_pre=None):
@@ -129,7 +143,7 @@ class ShardedSimulation(Physics):
                                  r_pre)
         else:
             res = self.forces(r, n_atoms, self._fill, self._fold,
-                              want_energy)
+                              want_energy, r_pre)
         s0 = states[0]
         e_pot = (torch.stack([e for _f, _u, e in res]).sum() if want_energy
                  else s0.e_potential)
@@ -151,16 +165,21 @@ class ShardedSimulation(Physics):
         """One step with a rebucket and atom exchange every step (comd_tpu's
         ``_shard_step``, the reference's per-step redistribution)."""
         rp = [self._drift(s) for s in states]
-        r, p, gid, n_atoms, ovf = self._redistribute(
+        r, p, gid, n_atoms, ovf, *r_pre = self._redistribute(
             [x[0] for x in rp], [x[1] for x in rp],
-            [s.gid for s in states], [s.n_atoms for s in states])
-        return self._finish(states, r, p, gid, n_atoms, ovf, want_energy)
+            [s.gid for s in states], [s.n_atoms for s in states],
+            pre=self.uses_split)
+        return self._finish(states, r, p, gid, n_atoms, ovf, want_energy,
+                            r_pre=r_pre[0] if r_pre else None)
 
     def step_lazy(self, states, last_r, want_energy: bool = True):
         """Lazy-shell step over the mesh (comd_tpu's ``_shard_step_lazy``,
         the main family): the full redistribution only when some atom of
         some shard moved skin/2 since the last rebucket, otherwise the
-        slot-aligned ghost-position refresh.  Returns (states, last_r)."""
+        slot-aligned ghost-position refresh.  Under -a 1 the interior
+        sweeps read the positions before the refresh, or after the
+        rebucket's exchange (atoms may have migrated; comd_tpu's
+        sharded.py:459-466).  Returns (states, last_r)."""
         rp = [self._drift(s) for s in states]
         r = [x[0] for x in rp]
         p = [x[1] for x in rp]
@@ -170,14 +189,15 @@ class ShardedSimulation(Physics):
         if bool(dirty):
             r, p, gid, n_atoms, ovf = self._redistribute(
                 r, p, [s.gid for s in states], [s.n_atoms for s in states])
-            last_r = r
+            last_r = r_pre = r
         else:
+            r_pre = [x.clone() for x in r] if self.uses_split else r
             exchange.exchange_positions(self.halo, r)
             gid = [s.gid for s in states]
             n_atoms = [s.n_atoms for s in states]
             ovf = torch.zeros((), dtype=torch.bool, device=self.device)
-        return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy),
-                last_r)
+        return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy,
+                             r_pre=r_pre), last_r)
 
     def step_nl(self, states, nlists, want_energy: bool = True):
         """Neighbor-list step over the mesh (comd_tpu's ``_shard_step_nl``):

@@ -73,14 +73,6 @@ def not_ported(what: str, item: str):
         f"item {item}); run it with comd_tpu")
 
 
-def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for a configuration outside the port."""
-    if cfg.nprocs > 1 and cfg.gpu_async > 0 and not (cfg.use_nl
-                                                      or cfg.use_pairlist):
-        not_ported("-a 1 (the interior/boundary split) of the cell methods "
-                   "on a multi-device mesh", "15")
-
-
 class Physics:
     """What a single-domain and a sharded simulation share: the device,
     dtype and cell maps, the pair and embedding evaluators, the stepping
@@ -95,13 +87,22 @@ class Physics:
         self.maps = binning.geom_maps(self.geom, self.dtype, self.device)
         self.is_eam = isinstance(self.pot, EamPotential)
         if self.is_eam:
+            # comd_tpu's -m cta_cell runs its Pallas stencil, whose pair
+            # functions are the Chebyshev fit whatever -P or --interpImpl
+            # say (comd_tpu/sim.py:121, parallel/sharded.py:133-134), in
+            # f32 only; the port runs f64 cta_cell with the resolved one
+            pallas = (cfg.method == "cta_cell" and not cfg.lj_interpolation
+                      and not self.uses_split
+                      and self.dtype == torch.float32)
             self.pair_eval = force_eam.make_pair_evaluator(
-                self.pot, self.dtype, self.device, cfg.resolved_interp_impl,
-                spline=cfg.spline)
+                self.pot, self.dtype, self.device,
+                "cheb" if pallas else cfg.resolved_interp_impl,
+                spline=cfg.spline and not pallas)
             self.f_eval = force_eam.make_f_eval(self.pot, self.dtype,
                                                 self.device)
-        elif cfg.lj_interpolation and not self.uses_nl:
-            # -I on the cell paths; comd_tpu's list paths ignore it
+        elif cfg.lj_interpolation and not (self.uses_nl or self.uses_split):
+            # -I on the cell paths; comd_tpu's list paths and its -a 1
+            # split ignore it
             self.pair_eval = force_lj.make_lj_table_evaluator(
                 self.pot, self.dtype, self.device)
         else:
@@ -120,6 +121,14 @@ class Physics:
     def uses_nl(self) -> bool:
         """*_nl methods and the LJ pairlist (-L) run on Verlet lists."""
         return self.cfg.use_nl or self.cfg.use_pairlist
+
+    @property
+    def uses_split(self) -> bool:
+        """-a 1 of a cell method on a mesh: K1 sweeps the interior and the
+        boundary cells apart, in place of --halfShell and cta_cell's sweep
+        (comd_tpu/parallel/sharded.py:132-137)."""
+        return (self.cfg.nprocs > 1 and bool(self.cfg.resolved_gpu_async)
+                and not self.uses_nl)
 
     @property
     def uses_lazy(self) -> bool:
@@ -149,11 +158,15 @@ class Physics:
         f[:, :self.geom.n_local] = f_loc.to(like.dtype)
         return f
 
-    def forces(self, rs, n_atoms, fill, fold, want_energy: bool = True):
+    def forces(self, rs, n_atoms, fill, fold, want_energy: bool = True,
+               r_pre=None):
         """The force of every shard (comd_tpu's ``_force_fn``): EAM or LJ,
         on the full-shell K1 or, with ``--halfShell`` (whatever the cell
         method), the half-shell K2; -I (table LJ) always on K1, as
-        comd_tpu ignores ``--halfShell`` under -I.  ``rs``/``n_atoms``
+        comd_tpu ignores ``--halfShell`` under -I.  Under -a 1 on a mesh
+        (``uses_split``) K1 sweeps the interior cells on ``r_pre`` (the
+        pre-exchange positions) and the boundary cells on ``rs``, whatever
+        --halfShell or -I say (analytic LJ).  ``rs``/``n_atoms``/``r_pre``
         hold one entry per shard; ``fill`` (dfEmbed halo fill) and
         ``fold`` (half-shell halo fold) run over all shards.  Returns per
         shard (f_loc [3, n_local, A], U [n_local, A] | None, ePot | None);
@@ -162,7 +175,14 @@ class Physics:
         kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
                   box_chunk=cfg.resolved_box_chunk)
         half = cfg.half_shell
+        split = self.uses_split
+        if split:
+            kw.update(r_pre=r_pre)
         if not self.is_eam:
+            if split:
+                return force_lj.lj_force_split(
+                    maps.nbr_map, self.pot, rs, self.pair_eval,
+                    maps.interior, maps.boundary, **kw)
             if cfg.lj_interpolation:
                 return force_lj.lj_force_interp(maps.nbr_map, rs,
                                                 self.pair_eval, **kw)
@@ -171,7 +191,11 @@ class Physics:
                                               rs, self.pair_eval, fold, **kw)
             return force_lj.lj_force(maps.nbr_map, self.pot, rs,
                                      self.pair_eval, **kw)
-        if half:
+        if split:
+            out = force_eam.eam_force_split(
+                maps.nbr_map, rs, self.pair_eval, self.f_eval, fill,
+                maps.interior, maps.boundary, **kw)
+        elif half:
             out = force_eam.eam_force_half(
                 maps.half_nbr_map, rs, self.pair_eval, self.f_eval, fill,
                 fold, **kw)
@@ -448,10 +472,8 @@ def init_potential(cfg: Config):
 def init_simulation(cfg: Config, timers=None):
     """Build the initial state (initSimulation, CoMD.c:200-327) on
     ``cfg.device``: a Simulation, or with -i/-j/-k > 1 a ShardedSimulation
-    over a mesh of shards (parallel/sharded.py).  EAM or LJ: other
-    configurations raise NotImplementedError (``check_slice``)."""
+    over a mesh of shards (parallel/sharded.py), EAM or LJ."""
     cfg = cfg.resolve()
-    check_slice(cfg)
     if cfg.nprocs > 1:
         from .parallel.sharded import init_sharded_simulation
         return init_sharded_simulation(cfg, timers=timers)

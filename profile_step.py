@@ -8,6 +8,7 @@
     python3 profile_step.py --lj --pairlist              # LJ -L
     python3 profile_step.py --spline                     # -e -P
     python3 profile_step.py --lj --interp                # -I
+    python3 profile_step.py --mesh 2 2 2 --gpuAsync 1    # -a 1: the split
 
 Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
 phases 5, 8 and 12), or with ``--method``/``--lj``/``--pairlist`` the
@@ -47,6 +48,8 @@ def main(argv=None) -> int:
     ap.add_argument("--pairlist", action="store_true", help="-L")
     ap.add_argument("--spline", action="store_true", help="-P")
     ap.add_argument("--interp", action="store_true", help="-I")
+    ap.add_argument("--gpuAsync", type=int, default=-1, choices=[-1, 0, 1],
+                    help="-a (-1: auto)")
     ap.add_argument("--steps", type=int, default=50)
     args = ap.parse_args(argv)
 
@@ -71,7 +74,7 @@ def main(argv=None) -> int:
         pot_dir=os.path.join(ROOT, "pots"), device="cuda", xproc=px,
         yproc=py, zproc=pz, comm_impl=args.comm, half_shell=args.half,
         method=args.method, use_pairlist=args.pairlist, spline=args.spline,
-        lj_interpolation=args.interp))
+        lj_interpolation=args.interp, gpu_async=args.gpuAsync))
     # warm up through a rebucket: its kernels load on their first launch
     for _ in range(20):
         sim.step_block(10)
@@ -110,7 +113,8 @@ def main(argv=None) -> int:
                 + f", mesh {px}x{py}x{pz}, --commImpl {args.comm}"
                 + (" --halfShell" if args.half else "")
                 + (" -P" if args.spline else "")
-                + (" -I" if args.interp else "")),
+                + (" -I" if args.interp else "")
+                + (f" -a {args.gpuAsync}" if args.gpuAsync >= 0 else "")),
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,

@@ -9,9 +9,10 @@ prints comd_tpu's rows to the printed digits.  ``--halfFetch``/
 serial run warns, and an undersized ``--haloMsgFactor`` aborts.  The
 neighbor-list methods (-m thread_atom_nl, warp_atom_nl, cpu_nl, and -L)
 run, serial and on a 2x2x2 mesh, from comd_tpu's initial energy, and
-``-e -m thread_atom_nl`` prints comd_tpu's printThings rows.  Every option
-outside the ported slice raises NotImplementedError naming the ROADMAP.md
-item that ports it, instead of running something else.  (-P, -I and the
+``-e -m thread_atom_nl`` prints comd_tpu's printThings rows, as does ``-a
+1`` (the interior/boundary split) on a 2x2x2 mesh.  The multi-process
+launch, outside the port so far, raises NotImplementedError naming the
+ROADMAP.md item that ports it, instead of running something else.  (-P, -I and the
 run tools: tests/test_torch_cli_options.py, tests/test_torch_runtools.py.)
 """
 import io
@@ -166,8 +167,6 @@ def test_cli_undersized_nl_k_aborts():
 
 
 @pytest.mark.parametrize("extra,item", [
-    pytest.param(["-e", "-i", "2", "-j", "2", "-k", "2", "-a", "1"], "15",
-                 id="extra4-15"),
     pytest.param(["-e", "--numProcs", "2"], "14", id="extra5-14"),
 ])
 def test_out_of_slice_options_raise(extra, item):
@@ -195,6 +194,24 @@ def test_cli_mesh_ki_fused_matches_comd_tpu():
     assert _rows(out) == _rows(ref)
     got, want = _numbers(out), _numbers(ref)
     assert got[0] == want[0] and got[3] == want[3] == 2048
+
+
+def test_cli_mesh_split_matches_comd_tpu():
+    """-a 1 of a cell method on a 2x2x2 mesh at 8^3 (2^3 cells a shard,
+    none of them interior: every cell sweeps as boundary) prints comd_tpu's
+    printThings rows to the printed digits, and the warning that the split
+    replaces the other sweeps."""
+    args = MESH_ARGS + ["-a", "1"]
+    ref = _run("comd_tpu.cli", args=args)
+    out = _run("comd_tpu_torch.cli", "--device", "cpu", args=args)
+    assert len(_rows(out)) == len(_rows(ref)) == 3     # steps 0, 2, 4
+    assert _rows(out) == _rows(ref)
+    got, want = _numbers(out), _numbers(ref)
+    assert got[0] == want[0] and got[3] == want[3] == 2048
+    with_half = _run("comd_tpu_torch.cli", "--device", "cpu", "--halfShell",
+                     args=args)
+    assert "-a 1 replaces the cta_cell/half-shell sweep" in with_half
+    assert _rows(with_half) == _rows(ref)
 
 
 def test_cli_serial_comm_impl_warns():

@@ -611,6 +611,81 @@ def test_sharded_card_matches_cpu(cuda_device):
     assert gpu.e_potential == pytest.approx(cpu.e_potential, rel=1e-12)
 
 
+@pytest.mark.parametrize("doeam", [True, False], ids=["eam", "lj"])
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_k1_subsets_match_plain(cuda_device, dtype, impl, doeam):
+    """K1 over the -a 1 interior and boundary cells of a 12^3 2x2x2 mesh's
+    first shard (4^3 cells, 8 interior) against its plain version, zero
+    outside its subset, one counted launch a subset; the two launches add
+    up to the full one.  An empty subset (8^3: 2^3 cells a shard) launches
+    nothing."""
+    sim = _sim(dtype, impl, 12, "cuda", doeam=doeam, gpu_async=1, **MESH)
+    maps, ev, nbr = sim.maps, sim.pair_eval, sim.maps.nbr_map
+    r = sim.states[0].r
+    assert sim.uses_split and maps.interior.n > 0
+    f_atol, s_rtol, f_rtol = _tols(dtype)
+    dfe = torch.rand(r.shape[1:], dtype=r.dtype, device=r.device)
+    if doeam:
+        calls = [(st.eam_pass1, st.eam_pass1_plain, (r, nbr, ev),
+                  dict(want_energy=e)) for e in (True, False)]
+        calls.append((lambda *a, **k: (st.eam_pass3(*a, **k),),
+                      lambda *a, **k: (st.eam_pass3_plain(*a, **k),),
+                      (r, nbr, ev, dfe), dict()))
+    else:
+        calls = [(st.lj_pass, st.lj_pass_plain, (r, nbr, ev),
+                  dict(want_energy=e)) for e in (True, False)]
+    for fn, plain, args, kw in calls:
+        st.reset_launch_counts()
+        parts = [fn(*args, boxes=b, **kw) for b in (maps.interior,
+                                                    maps.boundary)]
+        assert sum(st.LAUNCHES.values()) == 2
+        full = fn(*args, **kw)
+        for b, other, got in zip((maps.interior, maps.boundary),
+                                 (maps.boundary, maps.interior), parts):
+            want = plain(*args, boxes=b, **kw)
+            _close(got[0], want[0], f_atol, f_rtol)
+            for g, w in zip(got[1:], want[1:]):
+                if w is not None:
+                    np.testing.assert_allclose(g.cpu().numpy(),
+                                               w.cpu().numpy(),
+                                               rtol=s_rtol, atol=0)
+            assert not bool(got[0].index_select(1, other.index).any())
+        for a, b, c in zip(*parts, full):
+            if c is not None:
+                _close(a + b, c, f_atol, f_rtol)
+    empty = _sim(dtype, impl, 8, "cuda", doeam=doeam, gpu_async=1, **MESH)
+    assert empty.maps.interior.n == 0
+    st.reset_launch_counts()
+    r8 = empty.states[0].r
+    out = (st.eam_pass1 if doeam else st.lj_pass)(
+        r8, empty.maps.nbr_map, empty.pair_eval, boxes=empty.maps.interior)
+    assert sum(st.LAUNCHES.values()) == 0 and not bool(out[0].any())
+
+
+def test_split_card_matches_cpu(cuda_device):
+    """10 f64 lazy steps of the -a 1 mesh (12^3, 2x2x2, ki_fused) on the
+    card against the same run on the CPU (plain versions): summation order
+    only; every step two K1 launches a pass a shard."""
+    kw = dict(TRAJ, nx=12, ny=12, nz=12, dtype="float64", gpu_async=1,
+              comm_impl="ki_fused")
+    cpu = init_simulation(Config(device="cpu", **kw))
+    st.reset_launch_counts()
+    gpu = init_simulation(Config(device="cuda", **kw))
+    cpu.step_block(10)
+    gpu.step_block(10)
+    assert st.LAUNCHES["eam_pass1"] == st.LAUNCHES["eam_pass3"] == \
+        2 * 8 * 11
+    assert gpu.n_rebucket == cpu.n_rebucket
+    for c, g in zip(cpu.states, gpu.states):
+        assert torch.equal(g.gid.cpu(), c.gid)
+        for k in ("r", "p"):
+            np.testing.assert_allclose(getattr(g, k).cpu().numpy(),
+                                       getattr(c, k).numpy(), rtol=0,
+                                       atol=1e-10)
+    assert gpu.e_potential == pytest.approx(cpu.e_potential, rel=1e-12)
+
+
 def _nl_sim(dtype, impl="cheb", doeam=True, **kw):
     """A thermalized 8^3 neighbor-list run on the card (A = 32 classic
     cells, K = 96 EAM / 160 LJ)."""
