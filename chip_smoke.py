@@ -148,6 +148,29 @@ the first error:
                  CLI's `-e -m cta_cell -P` printThings rows equal its
                  `-e -m cta_cell` rows (f32, 20^3), on Chebyshev K1 with
                  no spline launch.
+ 17. multiproc -- the multi-process launch on the one card: processes
+                 share it, so the backend is gloo with every message staged
+                 through pinned host buffers.  The 63^3 headline on 2 and
+                 on 4 processes (this script again with --mp-worker, 4 or 2
+                 shards each, 2x2x2, collective, f32, 10 x step_block(10),
+                 the launch counts zeroed just before the steps and read
+                 just after): every worker's shards on cuda and K1's passes
+                 launched on every step of each shard; process 0's final
+                 ePot and the sha256 of the final r gathered in shard order
+                 equal phase 12's collective run bit for bit, the initial
+                 ePot within 1e-6 of phase 5's, no atom lost, no overflow;
+                 ms/step beside phase 12's, each process's kernels' busy
+                 ms/step (torch.profiler), the bytes a step that cross
+                 processes (a ghost-refresh step, a rebucket step) and the
+                 host ms a step in the staging copies and the transfer.
+                 Then short CLI runs at 20^3 (-N 20 -n 10), process 0's
+                 printThings rows against the single process's (cli_rows)
+                 digit for digit: 4 processes on 2x2x1; 2 with --halfShell
+                 (f64; K2's atomics may move its last printed digit: then
+                 held to 1.5e-12 eV/atom); 2 with -m thread_atom_nl.  A
+                 worker that fails or outlives its time limit fails the
+                 phase.  The kernels are built (phase 2) before any worker
+                 starts.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch, numpy and comd_tpu_torch only; builds
@@ -1639,6 +1662,261 @@ def run_split(serial_e0: float, lj_e0: float, mesh_epot: dict) -> None:
         f"launch")
 
 
+def r_digest(arrays) -> str:
+    """sha256 of the shards' positions, concatenated in shard order."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def spawn(cmds, timeout: int, tag: str) -> list:
+    """Run the commands as processes at once (cwd the checkout); returns
+    [(stdout, stderr)] once all have ended.  A process that fails or is
+    still running after ``timeout`` seconds fails the phase; every process
+    is stopped before this returns."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = []
+    try:
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            try:
+                out, err = p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                check(False, f"{tag}: a process ran past {timeout} s")
+            outs.append((out, err))
+            if p.returncode != 0:
+                print(err[-4000:], file=sys.stderr)
+                check(False, f"{tag}: process {len(outs) - 1} exited "
+                      f"{p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mp_worker(n_procs: int, port: int, proc: int, out_path: str) -> int:
+    """One process of phase 17's headline: the 63^3 EAM run on a 2x2x2 mesh
+    under --commImpl collective, this process's shards on the card, 10 x
+    step_block(10), launch counts zeroed just before the steps and read
+    just after; then 10 more steps with the staging copies timed.  Writes
+    its numbers as JSON to ``out_path``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, ROOT)
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.parallel import dist
+    dev = dist.init(n_procs, f"127.0.0.1:{port}", proc, "cuda")
+    try:
+        n = HEADLINE_N
+        sim = init_simulation(Config(
+            nx=n, ny=n, nz=n, temperature=600.0, dtype="float32",
+            max_atoms=0, cell_mode="auto", pot_dir=POTS, device=str(dev),
+            doeam=True, comm_impl="collective", **MESH))
+        n_owned = len(sim.states)
+        on_card = all(getattr(s, f).is_cuda for s in sim.states
+                      for f in ("r", "p", "f", "gid", "n_atoms"))
+        e0 = sim.e_potential
+        n0 = sim.sum_atoms()
+        h = sim.halo
+        h.traffic.clear()
+        reb0 = sim.n_rebucket
+        torch.cuda.synchronize()
+        dist.barrier()
+        st.reset_launch_counts()
+        t0 = time.perf_counter()
+        steps = 0
+        for _ in range(10):
+            sim.step_block(10)
+            steps += 10
+        torch.cuda.synchronize()
+        t_loop = time.perf_counter() - t0
+        launches = dict(st.LAUNCHES)
+        traffic = {k: v for k, v in h.traffic.items()}
+        rebuckets = sim.n_rebucket - reb0
+        e1 = sim.e_potential
+        n1 = sim.sum_atoms()
+        overflow = sim.overflow
+        r_all = dist.gather_to_root(np.stack([s.r.cpu().numpy()
+                                              for s in sim.states]))
+        digest = (r_digest(r_all.reshape((-1,) + r_all.shape[2:]))
+                  if r_all is not None else None)
+        # the staging copies' host time, on 10 more steps (each exchange
+        # then waits for the card first, so these steps are slower)
+        h.traffic.clear()
+        h.traffic["time"] = True
+        sim.step_block(10)
+        torch.cuda.synchronize()
+        stage_ms = 1e3 * h.traffic.get("stage_s", 0.0) / 10
+        transfer_ms = 1e3 * h.traffic.get("transfer_s", 0.0) / 10
+        # this process's kernels over 10 more steps (torch.profiler, CUDA
+        # activity only)
+        from torch.profiler import ProfilerActivity, profile
+        h.traffic["time"] = False
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sim.step_block(10)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        busy_us = sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "Loading" not in e.key)
+        res = dict(proc=proc, n_owned=n_owned, on_card=on_card,
+                   device=str(dev), backend=dist.describe(dev), e0=e0, e1=e1,
+                   n0=n0, n1=n1, overflow=overflow, digest=digest,
+                   ms_step=1e3 * t_loop / steps, steps=steps,
+                   rebuckets=rebuckets, launches=launches,
+                   traffic={"/".join(map(str, k)) if isinstance(k, tuple)
+                            else k: v for k, v in traffic.items()},
+                   stage_ms=stage_ms, transfer_ms=transfer_ms,
+                   busy_ms=busy_us / 1e3 / 10, prof_ms=1e3 * prof_wall / 10)
+        with open(out_path, "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy()
+    return 0
+
+
+def run_multiproc(serial_e0: float, coll: dict) -> None:
+    """Phase 17: the multi-process launch on the one card (processes share
+    it: gloo, each message staged through pinned host buffers).
+    ``serial_e0``: phase 5's initial ePot; ``coll``: phase 12's collective
+    run (final ePot, r digest, ms/step)."""
+    import tempfile
+    for n_procs in (2, 4):
+        with tempfile.TemporaryDirectory() as tmp:
+            port = free_port()
+            paths = [os.path.join(tmp, f"w{p}.json") for p in range(n_procs)]
+            spawn([[sys.executable, os.path.abspath(__file__), "--mp-worker",
+                    str(n_procs), str(port), str(p), paths[p]]
+                   for p in range(n_procs)], 600,
+                  f"multiproc main {n_procs}")
+            res = [json.load(open(x)) for x in paths]
+        tag = f"multiproc main {n_procs}"
+        steps = res[0]["steps"]
+        for w in res:
+            where = f"{tag}, process {w['proc']}"
+            check(w["on_card"] and w["device"].startswith("cuda"),
+                  f"{where}: shards not on the card ({w['device']})")
+            check(w["n_owned"] == 8 // n_procs,
+                  f"{where}: {w['n_owned']} shards")
+            for k in ("eam_pass1", "eam_pass3"):
+                check(w["launches"][k] >= steps * w["n_owned"],
+                      f"{where}: {k} launched {w['launches'][k]} times in "
+                      f"{steps} steps on {w['n_owned']} shards")
+            check("staged" in w["backend"], f"{where}: backend "
+                  f"{w['backend']}")
+        w = res[0]
+        check(w["n0"] == w["n1"] == HEADLINE_N ** 3 * 4,
+              f"{tag}: atoms {w['n0']} -> {w['n1']}")
+        check(not w["overflow"], f"{tag}: capacity overflow")
+        rel = abs(w["e0"] / serial_e0 - 1.0)
+        check(rel < 1e-6, f"{tag}: initial ePot {w['e0']!r} vs serial "
+              f"{serial_e0!r}")
+        check(w["e1"] == coll["e_pot"] and w["digest"] == coll["digest"],
+              f"{tag}: final ePot {w['e1']!r} and r digest {w['digest']} "
+              f"differ from phase 12's collective run ({coll['e_pot']!r}, "
+              f"{coll['digest']})")
+        t = w["traffic"]
+        refresh = steps - w["rebuckets"]
+        fill_b = t.get("bytes/scalar", 0) / steps      # the dfEmbed fill
+        refresh_b = t.get("bytes/positions", 0) / max(refresh, 1) + fill_b
+        rebucket_b = t.get("bytes/atoms", 0) / max(w["rebuckets"], 1) + \
+            fill_b
+        say("multiproc main", f"{n_procs} processes on the one card "
+            f"({w['backend']}), {w['n_owned']} shards each, {HEADLINE_N}^3 "
+            f"EAM f32 2x2x2 collective: final ePot {w['e1']:.6f} and r "
+            f"sha256 {w['digest'][:16]}.. equal phase 12's collective run "
+            f"bit for bit; initial ePot rel. diff to the serial run "
+            f"{rel:.3e}; K1 launches by process (pass 1, pass 3) "
+            + ", ".join(f"{x['launches']['eam_pass1']}/"
+                        f"{x['launches']['eam_pass3']}" for x in res)
+            + f" in {steps} steps")
+        say("multiproc main", f"{n_procs} processes: ms/step (host clock, "
+            f"{steps} steps) "
+            + ", ".join(f"{x['ms_step']:.3f}" for x in res)
+            + f" against {coll['ms']:.3f} in one process (phase 12, "
+            f"collective); under torch.profiler (10 steps) each process's "
+            f"kernels busy "
+            + ", ".join(f"{x['busy_ms']:.3f}" for x in res)
+            + " ms/step of "
+            + ", ".join(f"{x['prof_ms']:.3f}" for x in res)
+            + f", the card busy {sum(x['busy_ms'] for x in res) / max(x['prof_ms'] for x in res):.1%}")
+        say("multiproc main", f"{n_procs} processes: bytes process 0 sent "
+            f"in {steps} steps ({w['rebuckets']} rebuckets, {refresh} ghost "
+            f"refreshes): "
+            + ", ".join(f"{k} {v:,}" for k, v in sorted(t.items())
+                        if k.startswith("bytes"))
+            + f"; a refresh step {refresh_b:,.0f} B, a rebucket step "
+            + (f"{rebucket_b:,.0f} B" if w["rebuckets"]
+               else "(none in the run)")
+            + "; host ms a step in the exchanges (10 steps, the card waited "
+            "for first): "
+            + ", ".join(f"{x['stage_ms']:.3f} staging copies + "
+                        f"{x['transfer_ms']:.3f} transfer" for x in res))
+    # short CLI runs: process 0's rows against the single process's
+    base = ["-x", "20", "-y", "20", "-z", "20", "-N", "20", "-n", "10",
+            "-d", POTS]
+    for n, extra in ((4, ["-e", "-i", "2", "-j", "2", "-k", "1"]),
+                     (2, ["-e", "-i", "2", "-j", "2", "-k", "2",
+                          "--halfShell", "--dtype", "float64"]),
+                     (2, ["-e", "-i", "2", "-j", "2", "-k", "2", "-m",
+                          "thread_atom_nl"])):
+        argv = base + extra
+        single, _launches = cli_rows(argv)
+        port = free_port()
+        outs = spawn([[sys.executable, "-m", "comd_tpu_torch.cli", *argv,
+                       "--numProcs", str(n), "--coordinator",
+                       f"127.0.0.1:{port}", "--procId", str(p)]
+                      for p in range(n)], 300, f"multiproc cli {n}")
+        rows = [m.group(1) for m in re.finditer(
+            r"^( +\d+ +[\d.]+ +-?[\d.]+ +-?[\d.]+ +-?[\d.]+ +-?[\d.]+) ",
+            outs[0][0], re.M)]
+        quiet = all(not out.strip() or all(
+            ln.startswith("[Gloo]") for ln in out.splitlines())
+            for out, _err in outs[1:])
+        check(quiet, "multiproc cli: a process other than 0 printed")
+        check(f"Across {n} Ranks" in outs[0][0] and
+              "staged through pinned host buffers" in outs[0][0],
+              f"multiproc cli {argv}: no rank statistics or staging line")
+        how = "digit for digit"
+        if rows != single and "--halfShell" in argv and len(rows) == len(
+                single):
+            # K2's j side adds with atomics in run-to-run order: hold its
+            # rows to one unit in the last printed digit
+            worst = max(abs(float(a) - float(b))
+                        for ra, rb in zip(rows, single)
+                        for a, b in zip(ra.split()[2:5], rb.split()[2:5]))
+            check(worst <= 1.5e-12, f"multiproc cli {argv}: rows {rows} vs "
+                  f"{single}")
+            how = f"to {worst:.1e} eV/atom (K2's atomics)"
+        else:
+            check(len(rows) == 3 and rows == single,
+                  f"multiproc cli {argv}: rows {rows} vs single {single}")
+        say("multiproc cli", f"{n} processes, {' '.join(extra)} at "
+            f"20^3: process 0 prints the single process's {len(rows)} rows "
+            f"{how} (ePot/atom at step 20 {rows[-1].split()[3]}); the "
+            f"others print nothing of the run")
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -1905,6 +2183,10 @@ def main() -> int:
                 f"{n_ring} times ({exchanges} atom exchanges, three "
                 f"stages each)")
         final[ci] = ([s.r for s in sim.states], sim.e_potential)
+        if ci == "collective":
+            coll = dict(e_pot=sim.e_potential, ms=sim.ms_step,
+                        digest=r_digest([s.r.cpu().numpy()
+                                         for s in sim.states]))
         if ci == "ki_fused":
             sharded = sim
         else:
@@ -1998,6 +2280,9 @@ def main() -> int:
     # 16. -a 1 of the cell methods on the mesh, and -m cta_cell -P
     run_split(serial_epot[0], lj_e0[0], mesh_epot)
 
+    # 17. the multi-process launch on the one card
+    run_multiproc(serial_epot[0], coll)
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
@@ -2011,4 +2296,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]),
+                           int(sys.argv[4]), sys.argv[5]))
     sys.exit(main())

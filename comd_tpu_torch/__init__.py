@@ -3,9 +3,10 @@
 The port of comd_tpu (JAX on a TPU) to PyTorch on an NVIDIA H100: the same
 Config, CLI flags, cell layout and goldens, with comd_tpu's Pallas kernels
 rewritten as hand-written CUDA kernels (csrc/).  Everything comd_tpu runs
-in one process runs here; the multi-process launch and shards on several
-devices raise NotImplementedError naming ROADMAP.md item 14, which ports
-them.
+runs here, in one process or in a multi-process launch (one block of the
+mesh's shards a process, parallel/dist.py); the kernel-initiated
+transports across processes raise NotImplementedError naming ROADMAP.md
+item 18, which ports them.
 
 The package imports torch and numpy only (never jax or comd_tpu).  Energy
 sums are taken in Config.energy_dtype (f64) whatever the dynamics dtype.

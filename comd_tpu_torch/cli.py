@@ -4,6 +4,8 @@
     python -m comd_tpu_torch.cli -e -x 4 -y 4 -z 4 --device cpu
     python -m comd_tpu_torch.cli -e -i 2 -j 2 -k 2 --commImpl ki_fused
     python -m comd_tpu_torch.cli -e -m thread_atom_nl     # Verlet lists
+    python -m comd_tpu_torch.cli -e -i 2 -j 2 -k 2 --numProcs 2 \
+        --coordinator 127.0.0.1:29500 --procId P   # P = 0 and 1, 2 processes
 
 Every option of comd_tpu.cli is accepted (flag table: src-mpi/mycommand.c:
 225-251) plus ``--device``.  The run loop reproduces the reference main():
@@ -11,14 +13,19 @@ prolog -> printRate-step blocks with printThings lines -> validation ->
 timing report (CoMD.c:86-187, 463-494), with comd_tpu's run tools:
 ``--checkpoint/--checkpointRate/--restore`` (utils/checkpoint.py, comd_tpu's
 npz format), ``--yaml`` (utils/yaml_output.py), ``--analyze`` (the
-cell-occupancy histogram) and ``-s`` (utils/profile.py).  The multi-process
-launch (--numProcs) is outside the port so far and raises
+cell-occupancy histogram) and ``-s`` (utils/profile.py).  The
+multi-process launch (``--numProcs/--coordinator/--procId``, the
+reference's mpirun surface) runs every process with the same command line
+but its own ``--procId``; each owns a block of the mesh's shards
+(parallel/dist.py says which backend carries the exchanges) and only
+process 0 prints.  ``--commImpl ki|ki_fused`` across processes raises
 NotImplementedError naming the ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
@@ -26,6 +33,8 @@ import numpy as np
 import torch
 
 from .config import Config
+from .parallel import dist
+from .parallel.mesh import make_mesh
 from .sim import init_simulation, not_ported
 from .utils.timers import PerfTimers
 from .constants import KB_EV
@@ -141,16 +150,16 @@ def build_parser() -> argparse.ArgumentParser:
       help="torch device: cuda (the kernels) or cpu (their plain PyTorch "
            "versions); no fallback between them")
     # --- multi-host launch (the reference's mpirun surface, parallel.c) ---
-    import os as _os
-    a("--coordinator", default=_os.environ.get("COMD_COORDINATOR"),
+    a("--coordinator", default=os.environ.get("COMD_COORDINATOR"),
       metavar="HOST:PORT",
-      help="jax.distributed coordinator address (process 0's host:port); "
-           "enables multi-process execution together with --numProcs")
+      help="process 0's host:port, where the processes of a launch meet "
+           "(torch.distributed over tcp://); with --numProcs > 1")
     a("--numProcs", type=int,
-      default=int(_os.environ.get("COMD_NUM_PROCS", "1")),
-      help="total number of launched processes (multi-host slice)")
+      default=int(os.environ.get("COMD_NUM_PROCS", "1")),
+      help="total number of launched processes; each owns a block of "
+           "the mesh's shards")
     a("--procId", type=int,
-      default=int(_os.environ.get("COMD_PROC_ID", "-1")),
+      default=int(os.environ.get("COMD_PROC_ID", "-1")),
       help="this process's id in 0..numProcs-1")
     return p
 
@@ -261,8 +270,8 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
         print(f"  {key:<17}: {val}", file=out)
     print(f"  {'Processors':<17}: {cfg.xproc} x {cfg.yproc} x {cfg.zproc}"
           + ("" if serial else
-             f" shards on {sim.device}, --commImpl {cfg.comm_impl}"),
-          file=out)
+             f" shards on {sim.device}, --commImpl {cfg.comm_impl}")
+          + _launch_text(sim), file=out)
     print(file=out)
     if analyze:
         analyze_input(sim, out=out)
@@ -362,13 +371,26 @@ def run(cfg: Config, out=sys.stdout, yaml_dir: str | None = None,
     return result
 
 
+def _launch_text(sim) -> str:
+    """The multi-process launch as the prolog and the YAML report name it
+    ("" for a single process)."""
+    n = dist.process_count()
+    if n == 1:
+        return ""
+    return f", {n} processes ({dist.describe(sim.device)})"
+
+
 def _write_yaml(yaml_dir, cfg: Config, sim, result, out):
     """YAML run report (yamlOutput.c, CoMD.c:498-552), comd_tpu's sections
-    and keys; the command-line parameters include the port's ``device``."""
+    and keys; the command-line parameters include the port's ``device``,
+    and a multi-process launch adds "Processes".  Collective: every
+    process takes part in the reductions, process 0 writes."""
     from . import __version__
     from .utils.yaml_output import YamlReport
 
     max_occ = sim.max_occupancy()
+    if dist.process_index() != 0:
+        return
     rep = YamlReport(variant="comd-tpu-torch", out_dir=yaml_dir).open()
     rep.header(__version__)
     rep.section("Command Line Parameters")
@@ -380,6 +402,8 @@ def _write_yaml(yaml_dir, cfg: Config, sim, result, out):
     rep.kv("Max global bounds", list(sim.global_extent))
     rep.section("Decomposition data")
     rep.kv("Processors", [cfg.xproc, cfg.yproc, cfg.zproc])
+    if dist.process_count() > 1:
+        rep.kv("Processes", _launch_text(sim)[2:])
     rep.kv("Local boxes", list(sim.geom.grid))
     rep.kv("Box size", list(sim.geom.box_size))
     rep.kv("Box factor", list(sim.geom.box_size / sim.pot.cutoff))
@@ -418,15 +442,38 @@ def analyze_input(sim, out=sys.stdout):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
+    out = sys.stdout
     if args.numProcs > 1:
-        not_ported("multi-process launch (--numProcs/--coordinator)", "14")
+        if cfg.comm_impl != "collective":
+            not_ported("--commImpl ki|ki_fused across processes", "18")
+        # the launch (initParallel, parallel.c:66-118): every process runs
+        # the same program; only process 0 prints (printRank,
+        # parallel.c:48-52)
+        try:
+            # the shards split evenly over the processes, before any work
+            # (a restore's mesh comes from its checkpoint: init checks it)
+            if args.restore is None:
+                make_mesh(cfg.xproc, cfg.yproc, cfg.zproc, "cpu",
+                          nprocs=args.numProcs)
+            dev = dist.init(args.numProcs, args.coordinator, args.procId,
+                            cfg.device)
+        except ValueError as e:
+            print(f"comd-tpu-torch: {e}. Fatal Error.", file=sys.stderr)
+            return 1
+        cfg = dataclasses.replace(cfg, device=str(dev))
+        if dist.process_index() != 0:
+            out = open(os.devnull, "w")
     try:
-        run(cfg, out=sys.stdout, yaml_dir=args.yaml, analyze=args.analyze,
+        run(cfg, out=out, yaml_dir=args.yaml, analyze=args.analyze,
             restore=args.restore, checkpoint=args.checkpoint,
             checkpoint_rate=args.checkpointRate)
     except (ValueError, FileNotFoundError) as e:
         print(f"comd-tpu-torch: {e}. Fatal Error.", file=sys.stderr)
         return 1
+    finally:
+        if out is not sys.stdout:
+            out.close()
+        dist.destroy()
     return 0
 
 

@@ -49,9 +49,9 @@
 // permutations, and the two directions write different halo planes or
 // different arrival buffers), and the rows a stage reads (send) are never
 // rows it writes (recv: the halo planes on the other side of the axis), also
-// when a shard pushes to itself (an axis of size 1).  Shards on several
-// cards need comm_ki.cuh's cross-device ready flag per (stage, shard) where
-// the grid barrier stands now (ROADMAP item 14).
+// when a shard pushes to itself (an axis of size 1).  Shards in several
+// processes need CUDA IPC peer buffers and comm_ki.cuh's ready flag per
+// (stage, shard) where the grid barrier stands now (ROADMAP item 18).
 //
 // Bound: bytes.  Both kernels move each word once (the fused stage also
 // reads its ~4 KB table from cache) with a few integer operations a word;

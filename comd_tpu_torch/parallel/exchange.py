@@ -3,11 +3,20 @@
 Port of comd_tpu.parallel.exchange: the reference's 6-message staged
 pattern (src-mpi/haloExchange.c:8-29) -- x, then y, then z, with received
 edge and corner data forwarded by the later stages.  comd_tpu runs it as
-``lax.ppermute`` collectives inside ``shard_map``; here every shard of a
-``Mesh`` lives in one process, so a ppermute along an axis is a ring shift
-over the shards' tensors (plain torch gathers and scatters).  These
-functions are the ``--commImpl collective`` transport and the plain
-versions the kernel-initiated transports (ki_comm.py) are held against.
+``lax.ppermute`` collectives inside ``shard_map``; here a ppermute along
+an axis is a ring shift over the shards' tensors (plain torch gathers and
+scatters).  These functions are the ``--commImpl collective`` transport
+and the plain versions the kernel-initiated transports (ki_comm.py) are
+held against.  Each takes the lists of this process's shards (the mesh's
+``owned``, all of them in a single process):
+
+  * a message to a shard of the same process is the tensor itself;
+  * in a multi-process launch, every message of a stage for a shard of
+    another process goes into one flat byte buffer a peer process, in
+    shard order of the receivers and minus before plus, and moves with one
+    send and one receive a peer (``dist.exchange``).  The bytes travel
+    unchanged (no dtype cast) and the shapes are static, so the receive
+    buffers are made once and kept on the ``Halo``.
 
 Design, as in comd_tpu:
 
@@ -40,6 +49,7 @@ from ..cells import CellGeometry
 from ..ops import binning
 from ..ops.binning import EMPTY_GID, GeomMaps
 from ..potentials.tables import as_dtype
+from . import dist
 from .mesh import Mesh
 
 
@@ -153,8 +163,12 @@ class Halo:
     """Everything an exchange needs: the mesh and its rings, the shards'
     common geometry and maps, the plan and its lists as int32 device
     tensors (for torch indexing and the kernels alike), the per-axis PBC
-    shifts rounded to the dynamics dtype, and the kernels' launch plans
-    (ki_comm.py: one a field shape, made on first use)."""
+    shifts rounded to the dynamics dtype, the kernels' launch plans
+    (ki_comm.py: one a field shape, made on first use), and for the
+    exchanges across processes the routes (``_route``), the receive
+    buffers (one set a stage and message layout) and the traffic counters
+    (bytes sent, by kind of exchange under ("bytes", kind), and
+    ``dist.exchange``'s timing), all made on first use."""
     mesh: Mesh
     geom: CellGeometry
     maps: GeomMaps
@@ -167,6 +181,12 @@ class Halo:
     ext: tuple            # [axis] local extent as a dtype-rounded float
     launch_plans: dict = dataclasses.field(default_factory=dict,
                                            compare=False, repr=False)
+    bufs: dict = dataclasses.field(default_factory=dict, compare=False,
+                                   repr=False)
+    traffic: dict = dataclasses.field(default_factory=dict, compare=False,
+                                      repr=False)
+    routes: dict = dataclasses.field(default_factory=dict, compare=False,
+                                     repr=False)
 
 
 def make_halo(mesh: Mesh, geom: CellGeometry, maps: GeomMaps,
@@ -184,6 +204,99 @@ def make_halo(mesh: Mesh, geom: CellGeometry, maps: GeomMaps,
         force_send=lists(plan.force_send),
         force_recv=lists(plan.force_recv),
         ext=tuple(as_dtype(float(e), dtype) for e in plan.local_extent))
+
+
+# --------------------------------------------------------------------------
+# delivery: within the process, or across processes
+# --------------------------------------------------------------------------
+
+def _nbytes(t: torch.Tensor) -> int:
+    """A tensor's size in a message: its bytes padded to a multiple of 8,
+    so that every field of a message starts aligned for any dtype."""
+    return -(-t.numel() * t.element_size() // 8) * 8
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's bytes, flat, padded to ``_nbytes(t)``."""
+    b = t.contiguous().reshape(-1).view(torch.uint8)
+    pad = _nbytes(t) - b.numel()
+    return torch.cat([b, b.new_zeros(pad)]) if pad else b
+
+
+def _from_bytes(buf: torch.Tensor, off: int, like: torch.Tensor):
+    """The tensor shaped as ``like`` at byte ``off`` of ``buf``, and the
+    offset past it (``_as_bytes`` reversed; a view, no copy)."""
+    n = like.numel() * like.element_size()
+    t = buf[off:off + n].view(like.dtype).reshape(like.shape)
+    return t, off + _nbytes(like)
+
+
+def _route(h: Halo, axis: int):
+    """Where one stage's messages along ``axis`` go, made once a Halo:
+    (local, sends, recvs).  ``local``: (receiver slot, k, sender slot)
+    within the process; ``sends``: {peer: [(sender slot, k), ...]};
+    ``recvs``: {peer: [(receiver slot, k), ...]}.  k = 0 is the message
+    from the receiver's plus neighbor (its "to minus" message), k = 1 the
+    one from its minus neighbor.  Sender and receiver walk the same
+    (receiver, k) pairs in the same order: the receivers in shard order,
+    for each one k = 0 then k = 1."""
+    key = ("route", axis)
+    if key not in h.routes:
+        mesh, me = h.mesh, h.mesh.proc
+        src_of = (h.plus[axis], h.minus[axis])
+        local, sends, recvs = [], {}, {}
+        for dst in range(mesh.size):
+            for k in (0, 1):
+                src = src_of[k][dst]
+                if mesh.owner(dst) == me and mesh.owner(src) == me:
+                    local.append((mesh.slot(dst), k, mesh.slot(src)))
+                elif mesh.owner(dst) == me:
+                    recvs.setdefault(mesh.owner(src), []).append(
+                        (mesh.slot(dst), k))
+                elif mesh.owner(src) == me:
+                    sends.setdefault(mesh.owner(dst), []).append(
+                        (mesh.slot(src), k))
+        h.routes[key] = (local, sends, recvs)
+    return h.routes[key]
+
+
+def _deliver(h: Halo, key, axis: int, msgs: list) -> list:
+    """Deliver one stage's messages along ``axis``.  ``msgs[i]`` holds the
+    i-th owned shard's two messages, (to its minus neighbor, to its plus
+    neighbor), each a tuple of tensors; every shard's messages have the
+    same shapes and dtypes.  Returns for each owned shard (from its plus
+    neighbor, from its minus neighbor): the tensors themselves where the
+    sender is in this process, views of the receive buffer of ``key`` and
+    this layout where it is not (valid until the next such call).
+
+    With 2 processes on 2 shards along ``axis`` both directions go to the
+    same peer in its one buffer; on an axis of size 1 a shard is its own
+    neighbor and nothing leaves the process."""
+    local, sends, recvs = _route(h, axis)
+    got = [[None, None] for _ in msgs]
+    for i, k, j in local:
+        got[i][k] = msgs[j][k]
+    if not recvs:
+        return got
+    like = msgs[0][0]
+    nb = sum(_nbytes(t) for t in like)
+    layout = tuple((tuple(t.shape), t.dtype) for t in like)
+    sends = {q: torch.cat([_as_bytes(t) for j, k in v for t in msgs[j][k]])
+             for q, v in sends.items()}
+    count = ("bytes", key[0])
+    h.traffic[count] = h.traffic.get(count, 0) + sum(
+        b.numel() for b in sends.values())
+    bufs = dist.exchange(sends, {q: nb * len(v) for q, v in recvs.items()},
+                         h.bufs.setdefault((key, layout), {}), h.traffic)
+    for q, slots in recvs.items():
+        off = 0
+        for i, k in slots:
+            msg = []
+            for t in like:
+                x, off = _from_bytes(bufs[q], off, t)
+                msg.append(x)
+            got[i][k] = tuple(msg)
+    return got
 
 
 # --------------------------------------------------------------------------
@@ -224,9 +337,9 @@ def exchange_atoms(h: Halo, r: list, p: list, gid: list, n_atoms: list):
     """3-stage staged atom exchange (ghosts + migration + forwarding).
 
     Cells must be freshly rebucketed (``keep_halo=True``).  Returns new
-    lists (r, p, gid, n_atoms) and the overflow flag (a 0-dim bool, any
-    shard, any face); the caller applies ``sort_cells`` afterwards to
-    restore the canonical in-cell order.
+    lists (r, p, gid, n_atoms) and the overflow flag (a 0-dim bool, any of
+    this process's shards, any face); the caller applies ``sort_cells``
+    afterwards to restore the canonical in-cell order.
     """
     geom, maps = h.geom, h.maps
     r, p, gid, n_atoms = list(r), list(p), list(gid), list(n_atoms)
@@ -238,11 +351,12 @@ def exchange_atoms(h: Halo, r: list, p: list, gid: list, n_atoms: list):
                  for d in (0, 1)] for s in range(len(r))]
         for m in msgs:
             overflow = overflow | m[0][4] | m[1][4]
+        got = _deliver(h, ("atoms", axis), axis,
+                       [(m[0][:4], m[1][:4]) for m in msgs])
         for s in range(len(r)):
-            from_minus = msgs[h.minus[axis][s]][1]
-            from_plus = msgs[h.plus[axis][s]][0]
-            for (ar, ap, ag, valid, _o), shift in ((from_minus, -ext),
-                                                   (from_plus, +ext)):
+            from_plus, from_minus = got[s]
+            for (ar, ap, ag, valid), shift in ((from_minus, -ext),
+                                               (from_plus, +ext)):
                 ar = ar.clone()
                 ar[axis] += shift          # the sender's frame -> ours
                 r[s], p[s], gid[s], n_atoms[s], ovf = \
@@ -261,13 +375,14 @@ def exchange_positions(h: Halo, r: list) -> list:
         send_m, send_p = h.force_send[axis]
         recv_m, recv_p = h.force_recv[axis]
         ext = h.ext[axis]
-        got_p = [r[h.plus[axis][s]][:, send_m] for s in range(len(r))]
-        got_m = [r[h.minus[axis][s]][:, send_p] for s in range(len(r))]
+        got = _deliver(h, ("positions", axis), axis,
+                       [((x[:, send_m],), (x[:, send_p],)) for x in r])
         for s in range(len(r)):
-            got_p[s][axis] += ext
-            got_m[s][axis] -= ext
-            r[s][:, recv_p] = got_p[s]
-            r[s][:, recv_m] = got_m[s]
+            (got_p,), (got_m,) = got[s]
+            got_p[axis] += ext
+            got_m[axis] -= ext
+            r[s][:, recv_p] = got_p
+            r[s][:, recv_m] = got_m
     return r
 
 
@@ -286,13 +401,13 @@ def fold_halo(h: Halo, x: list) -> list:
         send_m, send_p = h.force_send[axis]
         recv_m, recv_p = h.force_recv[axis]
         # my -1 halo plane belongs to the minus neighbor's top local plane
-        got_p = [x[h.plus[axis][s]].index_select(-2, recv_m)
-                 for s in range(len(x))]
-        got_m = [x[h.minus[axis][s]].index_select(-2, recv_p)
-                 for s in range(len(x))]
+        got = _deliver(h, ("fold", axis), axis,
+                       [((v.index_select(-2, recv_m),),
+                         (v.index_select(-2, recv_p),)) for v in x])
         for s in range(len(x)):
-            x[s].index_add_(x[s].dim() - 2, send_p, got_p[s])
-            x[s].index_add_(x[s].dim() - 2, send_m, got_m[s])
+            (got_p,), (got_m,) = got[s]
+            x[s].index_add_(x[s].dim() - 2, send_p, got_p)
+            x[s].index_add_(x[s].dim() - 2, send_m, got_m)
     return [v[..., :h.geom.n_local, :] for v in x]
 
 
@@ -304,9 +419,10 @@ def exchange_scalar(h: Halo, x: list) -> list:
     for axis in range(3):
         send_m, send_p = h.force_send[axis]
         recv_m, recv_p = h.force_recv[axis]
-        got_p = [x[h.plus[axis][s]][send_m] for s in range(len(x))]
-        got_m = [x[h.minus[axis][s]][send_p] for s in range(len(x))]
+        got = _deliver(h, ("scalar", axis), axis,
+                       [((v[send_m],), (v[send_p],)) for v in x])
         for s in range(len(x)):
-            x[s][recv_p] = got_p[s]
-            x[s][recv_m] = got_m[s]
+            (got_p,), (got_m,) = got[s]
+            x[s][recv_p] = got_p
+            x[s][recv_m] = got_m
     return x

@@ -3,11 +3,16 @@
 comd_tpu decomposes the box over a ``jax.sharding.Mesh`` with axes
 ('x', 'y', 'z') and runs one ``shard_map`` program over it
 (sharded.make_mesh, the reference's MPI rank grid of
-src-mpi/decomposition.c).  The port keeps that single-controller design
-inside one process: a ``Mesh`` is the grid (px, py, pz), the shards'
-coordinates in ``np.ndindex`` order (x-major, z fastest) and each shard's
-ring neighbors along each axis.  All shards live on one torch device; each
-owns one brick of the box in its own local frame.
+src-mpi/decomposition.c).  A ``Mesh`` here is the grid (px, py, pz), the
+shards' coordinates in ``np.ndindex`` order (x-major, z fastest) and each
+shard's ring neighbors along each axis; each shard owns one brick of the
+box in its own local frame.
+
+With several processes (the multi-process launch, parallel/dist.py),
+process p of N owns the contiguous block of shards [p*S/N, (p+1)*S/N) in
+shard order and holds them on its one device: comd_tpu's map of devices to
+processes when each process has S/N devices (sharded.py:59-65, :679-686).
+A single process owns every shard.
 
 ``gen_shard_atoms`` generates one shard's atoms exactly as comd_tpu's
 ``_gen_shard_atoms`` does, so both packages partition the box alike.
@@ -26,7 +31,9 @@ from ..config import Config
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     grid: tuple            # (px, py, pz)
-    device: torch.device   # every shard's device
+    device: torch.device   # this process's shards' device
+    nprocs: int = 1        # processes of the launch
+    proc: int = 0          # this process's index
 
     @property
     def size(self) -> int:
@@ -51,19 +58,33 @@ class Mesh:
         """neighbor(s, axis, step) for every shard s."""
         return [self.neighbor(s, axis, step) for s in range(self.size)]
 
+    def owner(self, s: int) -> int:
+        """The process that owns shard ``s``."""
+        return s // (self.size // self.nprocs)
 
-def make_mesh(px: int, py: int, pz: int, device, devices=None) -> Mesh:
-    """A px x py x pz mesh of shards on ``device``.  Shards spread over
-    several devices (``devices`` with more than one entry) are not ported
-    yet."""
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "shards on several devices are not ported to comd_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 14); every shard of the mesh lives on "
-            "one device")
+    @property
+    def owned(self) -> range:
+        """This process's shards, in shard order."""
+        n = self.size // self.nprocs
+        return range(self.proc * n, (self.proc + 1) * n)
+
+    def slot(self, s: int) -> int:
+        """Shard ``s``'s place in this process's list of shards."""
+        return s - self.owned.start
+
+
+def make_mesh(px: int, py: int, pz: int, device, nprocs: int = 1,
+              proc: int = 0) -> Mesh:
+    """A px x py x pz mesh of shards spread over ``nprocs`` processes, as
+    seen by process ``proc``, whose shards live on ``device``."""
     if min(px, py, pz) < 1:
         raise ValueError(f"invalid mesh {(px, py, pz)}")
-    return Mesh(grid=(int(px), int(py), int(pz)), device=torch.device(device))
+    size = px * py * pz
+    if size % nprocs:
+        raise ValueError(f"the {size} shards of the {px}x{py}x{pz} mesh do "
+                         f"not split evenly over {nprocs} processes")
+    return Mesh(grid=(int(px), int(py), int(pz)), device=torch.device(device),
+                nprocs=int(nprocs), proc=int(proc))
 
 
 def gen_shard_atoms(cfg: Config, lat: float, global_extent, local_extent,

@@ -5,17 +5,25 @@ Port of comd_tpu.parallel.sharded.  The reference's MPI rank grid
 shard owns one brick of the box in its own local frame and holds its own
 ``SimState``.  All shards share one CellGeometry, GeomMaps and
 ExchangePlan, as comd_tpu's shards run one program.  comd_tpu runs each
-step as one ``shard_map`` program; here the shards live in one process on
-one device, and a step is a Python loop over them with the mesh's
-exchanges between the per-shard phases:
+step as one ``shard_map`` program; here each process holds its shards
+(all of them in a single process; a contiguous block of them a process in
+a multi-process launch, parallel/dist.py) on its one device, and a step is
+a Python loop over them with the mesh's exchanges between the per-shard
+phases:
 
-  - ``ppermute`` along an axis -> a ring shift over the shards' tensors
-    (parallel/exchange.py, or the halo kernels of parallel/ki_comm.py
-    under ``--commImpl ki|ki_fused``: one launch a dfEmbed fill, three an
-    atom exchange);
+  - ``ppermute`` along an axis -> a ring shift over the shards' tensors,
+    through ``torch.distributed`` where the neighbor is in another process
+    (parallel/exchange.py), or the halo kernels of parallel/ki_comm.py
+    under ``--commImpl ki|ki_fused`` (one launch a dfEmbed fill, three an
+    atom exchange; one process only: across processes they are ROADMAP.md
+    Queue 1 item 18);
   - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
-    are read on the host once per step, as in the serial port; ePot,
-    n_local and the overflow flag stay on the device.
+    and -a 1's migration count are read on the host once per step (one
+    allgather each across processes).  ePot, n_local and the overflow flag
+    stay on the device as this process's sums; the values the host reads
+    (``e_potential``, ``kinetic_energy``, ``sum_atoms``, ``overflow``, ...)
+    gather the per-shard partials of every process and reduce them in
+    shard order, so a multi-process run prints the single process's digits.
 
 The neighbor-list methods (-m *_nl, -L) keep one Verlet list a shard,
 rebuilt after each atom exchange; their dfEmbed fill is the collective
@@ -28,9 +36,6 @@ methods under -a 1 sweep their interior and boundary cells apart on K1,
 the interior cells on the pre-exchange positions (Physics.forces).  All of
 it runs on one CUDA stream: the split keeps comd_tpu's data flow, and
 nothing overlaps.
-
-Each shard's SimState carries the replicated scalars (e_potential,
-n_local, overflow) as the same tensors, as comd_tpu's replicated leaves.
 """
 from __future__ import annotations
 
@@ -48,8 +53,8 @@ from ..ops import binning
 from ..ops import neighborlist as nlmod
 from ..ops.neighborlist import needs_rebuild
 from ..sim import (Physics, SimState, _sync, _tscope, bin_atoms_host_np,
-                   init_potential, plan_geometry)
-from . import exchange, ki_comm
+                   init_potential, not_ported, plan_geometry)
+from . import dist, exchange, ki_comm
 from .mesh import Mesh, gen_shard_atoms, make_mesh
 
 
@@ -63,7 +68,7 @@ class ShardedSimulation(Physics):
     mesh: Mesh
     global_extent: np.ndarray
     n_global: int
-    states: list                      # one SimState per shard
+    states: list                      # one SimState per owned shard
     lattice_const: float
     skin_eff: Optional[float] = None  # resolved trigger skin (plan_cells)
 
@@ -78,6 +83,28 @@ class ShardedSimulation(Physics):
                                                     self.cfg.max_atoms)
         if self.cfg.comm_impl not in ("collective", "ki", "ki_fused"):
             raise ValueError(f"invalid comm_impl {self.cfg.comm_impl!r}")
+        if self.mesh.nprocs > 1 and self.cfg.comm_impl != "collective":
+            not_ported("--commImpl ki|ki_fused across processes", "18")
+        # per-shard ePot of this process's shards at the last energy step;
+        # None after a restore, whose states hold the mesh's ePot
+        self._e_parts = None
+
+    # ---------------- reductions over the processes ----------------
+
+    def _gather(self, parts: torch.Tensor) -> torch.Tensor:
+        """[n_owned, ...] values of this process's shards -> [n_shards,
+        ...] of every shard in shard order (an allgather across
+        processes)."""
+        if self.mesh.nprocs == 1:
+            return parts
+        return dist.allgather(parts).reshape((-1,) + tuple(parts.shape[1:]))
+
+    def _any(self, flag: torch.Tensor) -> bool:
+        """A 0-dim bool of this process's shards, or-ed over the processes
+        and read on the host."""
+        if self.mesh.nprocs == 1:
+            return bool(flag)
+        return bool(dist.allgather(flag).any())
 
     # ---------------- the transports ----------------
 
@@ -131,7 +158,7 @@ class ShardedSimulation(Physics):
         res = (r, p, gid, n_atoms, ovf | ovf2)
         if not pre:
             return res
-        migrated = bool((torch.stack([o[4] for o in out]) > 0).any())
+        migrated = self._any((torch.stack([o[4] for o in out]) > 0).any())
         return res + (r if migrated else r_reb,)
 
     def _finish(self, states, r, p, gid, n_atoms, ovf, want_energy: bool,
@@ -145,8 +172,11 @@ class ShardedSimulation(Physics):
             res = self.forces(r, n_atoms, self._fill, self._fold,
                               want_energy, r_pre)
         s0 = states[0]
-        e_pot = (torch.stack([e for _f, _u, e in res]).sum() if want_energy
-                 else s0.e_potential)
+        if want_energy:
+            self._e_parts = torch.stack([e for _f, _u, e in res])
+            e_pot = self._e_parts.sum()
+        else:
+            e_pot = s0.e_potential
         nl = self.geom.n_local
         n_local = torch.stack([n[:nl].sum(dtype=torch.int32)
                                for n in n_atoms]).sum(dtype=torch.int32)
@@ -184,9 +214,8 @@ class ShardedSimulation(Physics):
         r = [x[0] for x in rp]
         p = [x[1] for x in rp]
         nl = self.geom.n_local
-        dirty = torch.stack([needs_rebuild(lr, rs, nl, self.skin)
-                             for lr, rs in zip(last_r, r)]).any()
-        if bool(dirty):
+        if self._any(torch.stack([needs_rebuild(lr, rs, nl, self.skin)
+                                  for lr, rs in zip(last_r, r)]).any()):
             r, p, gid, n_atoms, ovf = self._redistribute(
                 r, p, [s.gid for s in states], [s.n_atoms for s in states])
             last_r = r_pre = r
@@ -210,9 +239,8 @@ class ShardedSimulation(Physics):
         r = [x[0] for x in rp]
         p = [x[1] for x in rp]
         nl = self.geom.n_local
-        dirty = torch.stack([needs_rebuild(lst, rs, nl, self.skin)
-                             for lst, rs in zip(nlists, r)]).any()
-        if bool(dirty):
+        if self._any(torch.stack([needs_rebuild(lst, rs, nl, self.skin)
+                                  for lst, rs in zip(nlists, r)]).any()):
             r, p, gid, n_atoms, ovf = self._redistribute(
                 r, p, [s.gid for s in states], [s.n_atoms for s in states])
             nlists, ovf2 = self.build_lists(r, n_atoms)
@@ -264,7 +292,8 @@ class ShardedSimulation(Physics):
         else:
             res = self.forces([s.r for s in st], [s.n_atoms for s in st],
                               self._fill, self._fold)
-        e_pot = torch.stack([e for _f, _u, e in res]).sum()
+        self._e_parts = torch.stack([e for _f, _u, e in res])
+        e_pot = self._e_parts.sum()
         self.states = [dataclasses.replace(
             s, f=self._full_force(f_loc, s.f), e_potential=e_pot)
             for s, (f_loc, _u, _e) in zip(st, res)]
@@ -287,44 +316,69 @@ class ShardedSimulation(Physics):
     def kinetic_energy(self) -> float:
         nl = self.geom.n_local
         e_dtype = self.cfg.torch_energy_dtype
-        total = torch.stack([(s.p[:, :nl].to(e_dtype) ** 2).sum()
-                             for s in self.states]).sum()
+        total = self._gather(torch.stack([
+            (s.p[:, :nl].to(e_dtype) ** 2).sum() for s in self.states])).sum()
         return float(0.5 * (1.0 / self.mass) * total)
 
     @property
     def e_potential(self) -> float:
-        return float(self.states[0].e_potential)
+        return float(self.mesh_scalars()["e_potential"])
 
     @property
     def overflow(self) -> bool:
-        return bool(self.states[0].overflow)
+        return self._any(self.states[0].overflow)
+
+    def _counts(self) -> torch.Tensor:
+        """Every shard's local atom count, in shard order."""
+        nl = self.geom.n_local
+        return self._gather(torch.stack([s.n_atoms[:nl].sum(dtype=torch.int32)
+                                         for s in self.states]))
 
     def sum_atoms(self) -> int:
-        nl = self.geom.n_local
-        return int(sum(int(s.n_atoms[:nl].sum()) for s in self.states))
+        return int(self._counts().sum())
+
+    def mesh_scalars(self) -> dict:
+        """The mesh's replicated scalars (e_potential, n_local, overflow) as
+        0-dim tensors: in a single process the states' own; across
+        processes the sums over every shard, in shard order."""
+        s0 = self.states[0]
+        if self.mesh.nprocs == 1:
+            return dict(e_potential=s0.e_potential, n_local=s0.n_local,
+                        overflow=s0.overflow)
+        e = (s0.e_potential if self._e_parts is None
+             else self._gather(self._e_parts).sum())
+        return dict(e_potential=e,
+                    n_local=self._counts().sum(dtype=torch.int32),
+                    overflow=self._gather(s0.overflow.reshape(1)).any())
 
     def temperature(self) -> float:
         return self.kinetic_energy() / self.n_global / KB_EV / 1.5
 
     def max_occupancy(self) -> int:
         nl = self.geom.n_local
-        return int(max(int(s.n_atoms[:nl].max()) for s in self.states))
+        return int(self._gather(torch.stack([s.n_atoms[:nl].max()
+                                             for s in self.states])).max())
 
     def occupancy_histogram(self) -> np.ndarray:
         """[capacity+1] global cell-occupancy histogram (--analyze)."""
         nl = self.geom.n_local
         counts = torch.cat([s.n_atoms[:nl] for s in self.states])
-        return np.bincount(counts.cpu().numpy(),
+        hist = np.bincount(counts.cpu().numpy(),
                            minlength=self.cfg.max_atoms + 1)
+        return dist.allgather(hist).sum(axis=0)
 
 
 def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:
-    """Sharded initSimulation: decompose, generate each shard's atoms, bin
-    them in the shard's local frame, exchange ghosts, first force.
+    """Sharded initSimulation: decompose, generate each owned shard's atoms,
+    bin them in the shard's local frame, exchange ghosts, first force.
 
-    Every shard generates only its own brick (initAtoms.c:81-124), and the
-    momenta come from the global (vcm, scale) of the gid-seeded streams, so
-    the state equals the single-domain one atom for atom."""
+    Every process generates and bins only the shards it owns
+    (initAtoms.c:81-124, comd_tpu's ``_owned_coords`` and
+    ``_gen_shard_atoms``), so host memory stays O(local atoms); the cell
+    plan's occupancy statistics are agreed by an allgather of (max, min)
+    over the processes (comd_tpu's sharded.py:721-727).  The momenta come
+    from the global (vcm, scale) of the gid-seeded streams, so the state
+    equals the single-domain one atom for atom."""
     cfg = cfg.resolve()
     pot = init_potential(cfg)
 
@@ -333,17 +387,26 @@ def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:
     pgrid = np.array([cfg.xproc, cfg.yproc, cfg.zproc])
     local_extent = global_extent / pgrid
     n_global = 4 * cfg.nx * cfg.ny * cfg.nz
-    mesh = make_mesh(cfg.xproc, cfg.yproc, cfg.zproc, cfg.device)
+    mesh = make_mesh(cfg.xproc, cfg.yproc, cfg.zproc, cfg.device,
+                     nprocs=dist.process_count(), proc=dist.process_index())
+    my_coords = [mesh.coords[s] for s in mesh.owned]
 
     # positions first: the cell plan needs the t=0 occupancy
     shard_atoms = {c: gen_shard_atoms(cfg, lat, global_extent, local_extent,
-                                      c) for c in mesh.coords}
-    # every atom, in the global frame: the shards partition the box
-    r_all = np.concatenate([a[0] for a in shard_atoms.values()])
+                                      c) for c in my_coords}
+    r_local = np.concatenate([a[0] for a in shard_atoms.values()])
+
+    stat_reduce = None
+    if mesh.nprocs > 1:
+        def stat_reduce(stats):
+            allv = dist.allgather(np.asarray(stats, np.float64))
+            return int(allv[:, 0].max()), float(allv[:, 1].min())
+
     # per-shard geometry in the shard-local frame [0, local_extent)
     cfg, geom, cplan = plan_geometry(
-        cfg, pot, lat, r_all, (cfg.nx, cfg.ny, cfg.nz),
-        (cfg.xproc, cfg.yproc, cfg.zproc), np.zeros(3), local_extent)
+        cfg, pot, lat, r_local, (cfg.nx, cfg.ny, cfg.nz),
+        (cfg.xproc, cfg.yproc, cfg.zproc), np.zeros(3), local_extent,
+        n_atoms_total=n_global, stat_reduce=stat_reduce)
     plan = exchange.make_plan(geom, msg_factor=cfg.halo_msg_factor,
                               max_atoms=cfg.max_atoms)
 
@@ -356,7 +419,7 @@ def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:
     n_local = torch.tensor(n_global, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
     states = []
-    for c in mesh.coords:
+    for c in my_coords:
         r_s, gid_s = shard_atoms[c]
         p_s = lattice.apply_temperature(gid_s, pot.mass, cfg.temperature,
                                         vcm, scale)

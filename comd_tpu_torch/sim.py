@@ -517,10 +517,14 @@ def init_simulation(cfg: Config, timers=None):
 
 
 def plan_geometry(cfg: Config, pot, lat: float, r_global: np.ndarray,
-                  n_cells, proc_grid, local_min, local_max):
+                  n_cells, proc_grid, local_min, local_max,
+                  n_atoms_total=None, stat_reduce=None):
     """Resolve cell sizing + capacity (cells.plan_cells) and build the local
     CellGeometry.  Returns (cfg', geom, plan) with cfg' carrying the
-    *resolved* max_atoms and cell_mode.
+    *resolved* max_atoms and cell_mode.  ``r_global`` may be this process's
+    atoms only: ``n_atoms_total`` then counts every atom and
+    ``stat_reduce`` combines the occupancy statistics across processes
+    (cells.plan_cells).
 
     NL / pairlist methods keep the classic sizing and the requested -S skin
     (a larger trigger skin would inflate the Verlet K); cell-sweep methods
@@ -540,6 +544,7 @@ def plan_geometry(cfg: Config, pot, lat: float, r_global: np.ndarray,
         r_global=r_global, skin_req=skin_req, lazy=lazy,
         mode="classic" if uses_nl else cfg.cell_mode,
         max_atoms=cfg.max_atoms, trigger_from_cell=not uses_nl,
+        n_atoms_total=n_atoms_total, stat_reduce=stat_reduce,
         margin_slots=margin)
     cfg = dataclasses.replace(cfg, max_atoms=plan.max_atoms,
                               cell_mode=plan.mode)

@@ -15,7 +15,16 @@ checkpoint:
 The port's Config has one field comd_tpu's lacks, ``device``: meta.json
 leaves it out (comd_tpu's load does ``Config(**meta["config"])``) and a
 restore takes the device from its caller.  comd_tpu writes orbax when
-orbax is installed; the port has no orbax and refuses such a checkpoint.
+orbax is installed, and always for its multi-process runs
+(comd_tpu/utils/checkpoint.py:53-78); the port has no orbax and refuses
+such a checkpoint loudly.
+
+A multi-process launch saves collectively: process 0 gathers every
+process's shards and writes the same npz a single process of the same mesh
+writes, then every process waits at a barrier.  A restore reads the npz on
+every process, and each takes its own shards, so a checkpoint moves freely
+between single-process and N-process runs of the same mesh (and to
+comd_tpu's single-process mesh).
 
 A restore continues the trajectory bit for bit on the cell paths (the
 state layout is canonical and the step deterministic); the list paths
@@ -30,6 +39,8 @@ import os
 import numpy as np
 import torch
 
+from ..parallel import dist
+
 _FIELDS = ("r", "p", "f", "gid", "n_atoms", "e_potential", "n_local",
            "overflow")
 
@@ -38,44 +49,61 @@ def _grid(sim):
     return (sim.cfg.xproc, sim.cfg.yproc, sim.cfg.zproc)
 
 
-def _state_dict(sim) -> dict:
-    """The state as numpy arrays in comd_tpu's layout."""
-    from ..interop import shards_to_numpy
-    if hasattr(sim, "states"):
-        d = shards_to_numpy(sim.states, _grid(sim))
+def _state_dict(sim):
+    """The state as numpy arrays in comd_tpu's layout; None on a process
+    other than 0 of a multi-process launch (a collective call)."""
+    from ..interop import SCALARS
+    if not hasattr(sim, "states"):
+        d = {f: getattr(sim.state, f).cpu().numpy() for f in _FIELDS}
         if sim.last_r is not None:
-            d["last_r"] = np.stack([x.cpu().numpy() for x in sim.last_r]) \
-                .reshape(_grid(sim) + tuple(sim.last_r[0].shape))
+            d["last_r"] = sim.last_r.cpu().numpy()
         return d
-    d = {f: getattr(sim.state, f).cpu().numpy() for f in _FIELDS}
+    scalars = {k: v.cpu().numpy() for k, v in sim.mesh_scalars().items()}
+    local = {k: [getattr(s, k) for s in sim.states]
+             for k in _FIELDS if k not in SCALARS}
     if sim.last_r is not None:
-        d["last_r"] = sim.last_r.cpu().numpy()
+        local["last_r"] = sim.last_r
+    d = {}
+    for k, v in local.items():        # this process's shards, then all
+        allv = dist.gather_to_root(np.stack([x.cpu().numpy() for x in v]))
+        if allv is not None:
+            d[k] = allv.reshape(_grid(sim) + allv.shape[2:])
+    if dist.process_index() != 0:
+        return None
+    last_r = d.pop("last_r", None)
+    d.update(scalars)
+    if last_r is not None:
+        d["last_r"] = last_r
     return d
 
 
 def save(path: str, sim, step: int) -> str:
-    """Save a Simulation/ShardedSimulation state at ``step``.  Returns the
+    """Save a Simulation/ShardedSimulation state at ``step``; collective
+    across the processes of a launch, process 0 writing.  Returns the
     path."""
-    os.makedirs(path, exist_ok=True)
     arrays = _state_dict(sim)
-    config = dataclasses.asdict(sim.cfg)
-    config.pop("device")
-    meta = {
-        "step": step,
-        "config": config,
-        "n_global": sim.n_global,
-        "has_last_r": "last_r" in arrays,
-        "format": "npz",
-    }
-    np.savez_compressed(os.path.join(path, "state.npz"), **arrays)
-    with open(os.path.join(path, "meta.json"), "w") as fh:
-        json.dump(meta, fh, indent=1)
+    if arrays is not None:
+        os.makedirs(path, exist_ok=True)
+        config = dataclasses.asdict(sim.cfg)
+        config.pop("device")
+        meta = {
+            "step": step,
+            "config": config,
+            "n_global": sim.n_global,
+            "has_last_r": "last_r" in arrays,
+            "format": "npz",
+        }
+        np.savez_compressed(os.path.join(path, "state.npz"), **arrays)
+        with open(os.path.join(path, "meta.json"), "w") as fh:
+            json.dump(meta, fh, indent=1)
+    dist.barrier()
     return path
 
 
 def load(path: str, device: str = "cuda"):
     """Returns (Simulation or ShardedSimulation on ``device``, step)
-    resumed from a checkpoint directory written by either package."""
+    resumed from a checkpoint directory written by either package; in a
+    multi-process launch each process takes its own shards."""
     from ..config import Config
     from ..interop import shards_from_numpy, state_from_numpy
     from ..sim import init_simulation
@@ -95,11 +123,13 @@ def load(path: str, device: str = "cuda"):
         data = {k: z[k] for k in z.files}
     last_r = data.pop("last_r", None)
     if hasattr(sim, "states"):
-        sim.states = shards_from_numpy(data, sim.device)
+        owned = sim.mesh.owned
+        sim.states = [shards_from_numpy(data, sim.device)[s] for s in owned]
+        sim._e_parts = None         # the states hold the mesh's ePot
         if last_r is not None:
-            sim.last_r = [torch.as_tensor(np.array(last_r[idx]),
-                                          device=sim.device)
-                          for idx in np.ndindex(*_grid(sim))]
+            flat = last_r.reshape((-1,) + last_r.shape[3:])
+            sim.last_r = [torch.as_tensor(np.array(flat[s]),
+                                          device=sim.device) for s in owned]
     else:
         sim.state = state_from_numpy(data, sim.device)
         if last_r is not None:

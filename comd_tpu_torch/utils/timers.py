@@ -2,9 +2,10 @@
 
 Same 12 timer names and report format as the reference (enum at
 performanceTimers.c:55-68; report :127-194), including the figure of merit in
-microseconds/atom/task and atoms/microsecond (:176-193).  Cross-rank
-min/max/avg/stddev statistics (:291-335) degenerate to the single-process
-values: the port runs one process.
+microseconds/atom/task and atoms/microsecond (:176-193).  The cross-rank
+min/max/avg/stddev statistics (:291-335) gather each timer's total over
+the processes of a multi-process launch (parallel/dist.py), one rank a
+process; a single process prints the degenerate statistics of one rank.
 
 Note: the step block enqueues its kernels asynchronously on the card, so the
 in-loop phase timers (velocity/position/redistribute/force) stay empty; the
@@ -120,13 +121,16 @@ class PerfTimers:
         return "\n".join(lines)
 
     def rank_stats(self) -> str:
-        """Cross-rank timer statistics (performanceTimers.c:291-335) for the
-        one rank the port runs: the degenerate stats the reference prints
-        on 1 rank."""
+        """Cross-rank timer statistics (performanceTimers.c:291-335): each
+        timer's total gathered over the processes (comd_tpu's
+        utils/timers.py:122-144), collective in a multi-process launch.
+        Every process has run the same timers."""
         import numpy as np
+        from ..parallel import dist
         names = [n.strip() for n in TIMER_NAMES
                  if self.timers[n.strip()].count > 0]
-        allt = np.array([self.timers[n].total for n in names])[None, :]
+        allt = dist.allgather(np.array([self.timers[n].total
+                                        for n in names]))
         lines = [
             "",
             "Timing Statistics Across " f"{allt.shape[0]} Ranks:",

@@ -10,9 +10,11 @@ serial run warns, and an undersized ``--haloMsgFactor`` aborts.  The
 neighbor-list methods (-m thread_atom_nl, warp_atom_nl, cpu_nl, and -L)
 run, serial and on a 2x2x2 mesh, from comd_tpu's initial energy, and
 ``-e -m thread_atom_nl`` prints comd_tpu's printThings rows, as does ``-a
-1`` (the interior/boundary split) on a 2x2x2 mesh.  The multi-process
-launch, outside the port so far, raises NotImplementedError naming the
-ROADMAP.md item that ports it, instead of running something else.  (-P, -I and the
+1`` (the interior/boundary split) on a 2x2x2 mesh.  The kernel-initiated
+transports across processes (``--commImpl ki --numProcs 2``), outside the
+port so far, raise NotImplementedError naming the ROADMAP.md item that
+ports them, before any process group exists, instead of running something
+else (the multi-process launch itself: tests/test_torch_multiproc*.py).  (-P, -I and the
 run tools: tests/test_torch_cli_options.py, tests/test_torch_runtools.py.)
 """
 import io
@@ -167,7 +169,8 @@ def test_cli_undersized_nl_k_aborts():
 
 
 @pytest.mark.parametrize("extra,item", [
-    pytest.param(["-e", "--numProcs", "2"], "14", id="extra5-14"),
+    pytest.param(["-e", "-i", "2", "--commImpl", "ki", "--numProcs", "2"],
+                 "18", id="extra5-18"),
 ])
 def test_out_of_slice_options_raise(extra, item):
     argv = ["-x", "4", "-y", "4", "-z", "4", "-N", "1", "--device", "cpu"]

@@ -128,16 +128,18 @@ def cube():
 
 def test_mesh_rings_and_devices():
     """Shard order is np.ndindex's; a ring of size 2 reaches one neighbor
-    both ways, a ring of size 1 is the shard itself; shards on several
-    devices are not ported yet."""
+    both ways, a ring of size 1 is the shard itself; a single process owns
+    every shard, and shards that do not split evenly over the processes
+    of a launch raise ValueError naming both numbers."""
     m = make_mesh(3, 2, 1, "cpu")
     assert m.coords == [idx for idx in np.ndindex(3, 2, 1)]
     assert m.ring(0, +1) == [2, 3, 4, 5, 0, 1]
     assert m.ring(0, -1) == [4, 5, 0, 1, 2, 3]
     assert m.ring(1, +1) == m.ring(1, -1) == [1, 0, 3, 2, 5, 4]
     assert m.ring(2, +1) == m.ring(2, -1) == list(range(6))
-    with pytest.raises(NotImplementedError, match=r"item 14\)"):
-        make_mesh(2, 2, 2, "cpu", devices=["cuda:0", "cuda:1"])
+    assert list(m.owned) == list(range(6))
+    with pytest.raises(ValueError, match=r"the 8 shards .* over 3 processes"):
+        make_mesh(2, 2, 2, "cpu", nprocs=3)
 
 
 def _halo(sim, plan):

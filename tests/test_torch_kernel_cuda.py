@@ -1008,3 +1008,23 @@ def test_lj_table_kernel_matches_plain(cuda_device, dtype):
         st.lj_pass_half(r, sim.maps.half_nbr_map, ev)
     with pytest.raises(ValueError, match="analytic LJ"):
         cuda_nl.lj_pass(None, r, ev)
+
+
+def test_multiproc_share_the_card(cuda_device):
+    """Two processes sharing the card (gloo, every message staged through
+    pinned host buffers), EAM f32 at 12^3 on 2x2x2 with 0.8 A
+    displacements: process 0 prints the single process's printThings rows
+    digit for digit, the other process prints nothing of the run.  The
+    kernels are built here first, so the processes only load them."""
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from test_torch_multiproc import launch, rows
+    st.build()
+    args = ["-e", "-x", "12", "-y", "12", "-z", "12", "-r", "0.8", "-N",
+            "10", "-n", "5", "-i", "2", "-j", "2", "-k", "2"]
+    single, outs = launch(2, args, device="cuda")
+    for rc, _out, err in outs:
+        assert rc == 0, err[-3000:]
+    assert len(rows(single)) == 3 and rows(outs[0][1]) == rows(single)
+    assert "2 processes (gloo, staged through pinned host buffers)" in \
+        outs[0][1]
+    assert not outs[1][1].strip()
