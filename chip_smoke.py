@@ -149,28 +149,43 @@ the first error:
                  `-e -m cta_cell` rows (f32, 20^3), on Chebyshev K1 with
                  no spline launch.
  17. multiproc -- the multi-process launch on the one card: processes
-                 share it, so the backend is gloo with every message staged
-                 through pinned host buffers.  The 63^3 headline on 2 and
-                 on 4 processes (this script again with --mp-worker, 4 or 2
-                 shards each, 2x2x2, collective, f32, 10 x step_block(10),
-                 the launch counts zeroed just before the steps and read
-                 just after): every worker's shards on cuda and K1's passes
-                 launched on every step of each shard; process 0's final
-                 ePot and the sha256 of the final r gathered in shard order
-                 equal phase 12's collective run bit for bit, the initial
-                 ePot within 1e-6 of phase 5's, no atom lost, no overflow;
-                 ms/step beside phase 12's, each process's kernels' busy
-                 ms/step (torch.profiler), the bytes a step that cross
-                 processes (a ghost-refresh step, a rebucket step) and the
-                 host ms a step in the staging copies and the transfer.
-                 Then short CLI runs at 20^3 (-N 20 -n 10), process 0's
-                 printThings rows against the single process's (cli_rows)
-                 digit for digit: 4 processes on 2x2x1; 2 with --halfShell
-                 (f64; K2's atomics may move its last printed digit: then
-                 held to 1.5e-12 eV/atom); 2 with -m thread_atom_nl.  A
-                 worker that fails or outlives its time limit fails the
-                 phase.  The kernels are built (phase 2) before any worker
-                 starts.
+                 share it, so the group's backend is gloo with every
+                 message staged through pinned host buffers, and under
+                 --commImpl ki|ki_fused the fill's and the atoms' planes
+                 go through CUDA IPC receive planes (each process's arena,
+                 opened by the others) ordered by counters on the stream.
+                 The 63^3 headline (this script again with --mp-worker,
+                 2x2x2, f32, 10 x step_block(10), the launch counts zeroed
+                 just before the steps and read just after) under
+                 collective on 2 and 4 processes, ki_fused on 2 and 4, ki
+                 on 2: every worker's shards on cuda and K1's passes
+                 launched on every step of each shard; under ki|ki_fused
+                 one halo_fill_stage launch a fill stage and one ring_push
+                 an atom stage on every process, no whole-fill launch, and
+                 no fill or atom message through gloo; process 0's final
+                 ePot and the sha256 of the final r gathered in shard
+                 order equal phase 12's collective run bit for bit, the
+                 initial ePot within 1e-6 of phase 5's, no atom lost, no
+                 overflow; ms/step beside phase 12's and this phase's
+                 collective, each process's kernels' busy ms/step
+                 (torch.profiler), the launches a step against phase 12's
+                 one process, the bytes a step through gloo and through
+                 the arena (a ghost-refresh step, a rebucket step), the
+                 host ms a step in the gloo staging copies and transfer,
+                 and the CUDA-event, host and device ms of one
+                 cross-process x fill stage and x atom stage beside phase
+                 12's one-process fill and stage.  Then short CLI runs at
+                 20^3 (-N 20 -n 10), process 0's printThings rows against
+                 the single process's (cli_rows) digit for digit: 4
+                 processes on 2x2x1; 2 with --halfShell (f64; K2's atomics
+                 may move its last printed digit: then held to 1.5e-12
+                 eV/atom); 2 with -m thread_atom_nl; 4 on 2x2x1 under ki;
+                 2 with -a 1 under ki_fused; 2 with -m thread_atom_nl
+                 under ki.  A worker that fails or outlives its time limit
+                 fails the phase.  The kernels are built (phase 2) before
+                 any worker starts.  (Phase 12 also holds halo_fill_stage,
+                 process 0 of 2's fused x stage with local scratch planes,
+                 against its plain version and times it.)
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after.  Imports torch, numpy and comd_tpu_torch only; builds
@@ -609,6 +624,59 @@ def check_comm(sim, tag: str) -> dict:
         f"ring_push bitwise on the 3 atom stages (field moves {widths} "
         f"bytes)")
     return err, (dfe, rhobar)
+
+
+def stage_row(sim, x, rhobar, table_bytes: int) -> dict:
+    """The kernels-line row of halo_fill_stage, one stage of a fill across
+    processes, at phase 12's 63^3 state: process 0 of 2's x stage (F' on
+    the sender, as ki_fused pushes it: rows for its own shards into their
+    fields, for process 1's shards into receive planes, here local scratch
+    buffers on the card) against its plain version, bitwise, and timed
+    beside it.  Its launches are filled in by phase 17."""
+    import types
+    import torch
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    from comd_tpu_torch.parallel.mesh import make_mesh
+    from comd_tpu_torch.probes import time_ms
+    m2 = make_mesh(2, 2, 2, sim.device, nprocs=2, proc=0)
+    h2 = exchange.make_halo(m2, sim.geom, sim.maps, sim.plan, sim.dtype)
+    dev = x[0].device
+    link = types.SimpleNamespace(
+        sizes=ki_comm.arena_layout(h2, x[0].shape[1], x[0].dtype)[1],
+        arena=None, inbox=lambda *a: None,
+        outbox=lambda kind, axis, q, n: torch.zeros(n, dtype=torch.uint8,
+                                                    device=dev))
+    stg = ki_comm._fill_stage(h2, link, 0, x[0])
+    plan = stg.plan
+    xs = [x[s].clone() for s in m2.owned]
+    rs = [rhobar[s] for s in m2.owned]
+    got = cm.halo_fill(plan, [v.clone() for v in xs], rs, sim.f_eval)
+    planes = [p.clone() for p in plan.planes]
+    want = cm.halo_fill_plain(plan, [v.clone() for v in xs], rs, sim.f_eval)
+    torch.cuda.synchronize()
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got + planes, want + plan.planes))
+    check(err == 0.0 and len(planes) == 8,
+          f"halo_fill_stage: {len(planes)} planes, |diff| {err:.3e} to its "
+          f"plain version")
+    fn = (lambda: cm.halo_fill(plan, xs, rs, sim.f_eval))
+    ms = time_ms(fn, 20)
+    plain_ms = time_ms(lambda: cm.halo_fill_plain(plan, xs, rs, sim.f_eval),
+                       20)
+    host, dev_ms = host_and_device_ms(fn, kernels_per_call=1)
+    b_ms, b_by = fill_bound(plan, table_bytes)
+    say("timing", f"halo_fill_stage, the fused x stage of process 0 of 2 "
+        f"({plan.n_shards} shards, {len(planes)} receive planes of "
+        f"{plan.n_rows[0]} rows, local scratch here): bitwise to its plain "
+        f"version; {ms:.4f} ms (CUDA events, mean of 20); host {host:.4f} "
+        f"ms a call, device {dev_ms:.5f} ms (torch.profiler); plain "
+        f"{plain_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by})")
+    return {"name": "halo_fill_stage", "route": "cuda",
+            "source": COMM_SOURCE, "replaces": REPLACES["halo_fill_fused"],
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def fill_bound(plan, table_bytes: int = 0) -> tuple:
@@ -1709,12 +1777,57 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def mp_worker(n_procs: int, port: int, proc: int, out_path: str) -> int:
+def ki_stage_timing(sim) -> dict:
+    """Phase 17's cross-process stages timed on this process, the same
+    calls on every process (they wait on each other): the x stage of the
+    fill (the one that crosses on 2 processes; F' on the sender under
+    ki_fused) as the run makes it -- push, delivery, unpack, release -- and
+    the x atom stage's push, delivery and release (no re-binning, which
+    one process does alike).  CUDA-event ms (mean of 20) and
+    host_and_device_ms's host and device ms a call."""
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.parallel import ki_comm
+    from comd_tpu_torch.probes import time_ms
+    h, states = sim.halo, sim.states
+    link = h.ipc["link"]
+    fused = sim.cfg.comm_impl == "ki_fused"
+    rho = [st.eam_pass1(s.r, sim.maps.nbr_map, sim.pair_eval,
+                        want_energy=False)[2] for s in states]
+    x = [torch.zeros(s.gid.shape, dtype=s.r.dtype, device=s.r.device)
+         for s in states]
+    fields = [[getattr(s, k) for s in states]
+              for k in ("r", "p", "gid", "n_atoms")]
+
+    def fill_stage():
+        stg, v = ki_comm._fill_push(h, link, 0, x, rho if fused else None,
+                                    sim.f_eval if fused else None)
+        ki_comm._fill_unpack(h, 0, stg, link.deliver(h, "fill", 0, v, stg),
+                             x)
+        link.release("fill", 0, v, stg)
+
+    def atom_stage():
+        stg, v, _got = ki_comm._atoms_push(h, link, 0, fields)
+        link.deliver(h, "atoms", 0, v, stg)
+        link.release("atoms", 0, v, stg)
+
+    out = {}
+    for name, fn in (("fill", fill_stage), ("atoms", atom_stage)):
+        ms = time_ms(fn, 20)
+        host, dev = host_and_device_ms(fn)
+        out[name] = dict(ms=ms, host_ms=host, device_ms=dev)
+    torch.cuda.synchronize()
+    return out
+
+
+def mp_worker(n_procs: int, port: int, proc: int, out_path: str,
+              comm_impl: str) -> int:
     """One process of phase 17's headline: the 63^3 EAM run on a 2x2x2 mesh
-    under --commImpl collective, this process's shards on the card, 10 x
+    under --commImpl ``comm_impl``, this process's shards on the card, 10 x
     step_block(10), launch counts zeroed just before the steps and read
-    just after; then 10 more steps with the staging copies timed.  Writes
-    its numbers as JSON to ``out_path``."""
+    just after; then 10 more steps with the staging copies timed, 10 under
+    the profiler, and under ki|ki_fused the cross-process stages timed.
+    Writes its numbers as JSON to ``out_path``."""
     import numpy as np
     import torch
     sys.path.insert(0, ROOT)
@@ -1727,7 +1840,7 @@ def mp_worker(n_procs: int, port: int, proc: int, out_path: str) -> int:
         sim = init_simulation(Config(
             nx=n, ny=n, nz=n, temperature=600.0, dtype="float32",
             max_atoms=0, cell_mode="auto", pot_dir=POTS, device=str(dev),
-            doeam=True, comm_impl="collective", **MESH))
+            doeam=True, comm_impl=comm_impl, **MESH))
         n_owned = len(sim.states)
         on_card = all(getattr(s, f).is_cuda for s in sim.states
                       for f in ("r", "p", "f", "gid", "n_atoms"))
@@ -1779,7 +1892,10 @@ def mp_worker(n_procs: int, port: int, proc: int, out_path: str) -> int:
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and "Loading" not in e.key)
+        stages = (ki_stage_timing(sim) if comm_impl != "collective"
+                  else None)
         res = dict(proc=proc, n_owned=n_owned, on_card=on_card,
+                   comm_impl=comm_impl, stages=stages,
                    device=str(dev), backend=dist.describe(dev), e0=e0, e1=e1,
                    n0=n0, n1=n1, overflow=overflow, digest=digest,
                    ms_step=1e3 * t_loop / steps, steps=steps,
@@ -1795,22 +1911,32 @@ def mp_worker(n_procs: int, port: int, proc: int, out_path: str) -> int:
     return 0
 
 
-def run_multiproc(serial_e0: float, coll: dict) -> None:
+def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
+                  timing: dict) -> dict:
     """Phase 17: the multi-process launch on the one card (processes share
-    it: gloo, each message staged through pinned host buffers).
-    ``serial_e0``: phase 5's initial ePot; ``coll``: phase 12's collective
-    run (final ePot, r digest, ms/step)."""
+    it: gloo, messages staged through pinned host buffers; under ki and
+    ki_fused the fill and atom planes through CUDA IPC receive planes,
+    ordered by counters on the stream).  ``serial_e0``: phase 5's initial
+    ePot; ``coll``: phase 12's collective run (final ePot, r digest,
+    ms/step); ``one_proc``: phase 12's launches by transport (halo_fill,
+    ring_push, atom exchanges, steps); ``timing``: phase 12's fill and
+    atom stage (CUDA-event, host and device ms).  Returns the launches of
+    halo_fill_stage in the 2-process ki_fused run (both processes)."""
     import tempfile
-    for n_procs in (2, 4):
+    stage_launches = 0
+    ms_coll = {}
+    for n_procs, ci in ((2, "collective"), (4, "collective"),
+                        (2, "ki_fused"), (4, "ki_fused"), (2, "ki")):
         with tempfile.TemporaryDirectory() as tmp:
             port = free_port()
             paths = [os.path.join(tmp, f"w{p}.json") for p in range(n_procs)]
             spawn([[sys.executable, os.path.abspath(__file__), "--mp-worker",
-                    str(n_procs), str(port), str(p), paths[p]]
+                    str(n_procs), str(port), str(p), paths[p], ci]
                    for p in range(n_procs)], 600,
-                  f"multiproc main {n_procs}")
+                  f"multiproc main {n_procs} {ci}")
             res = [json.load(open(x)) for x in paths]
-        tag = f"multiproc main {n_procs}"
+        tag = f"multiproc main {n_procs} {ci}"
+        ki = ci != "collective"
         steps = res[0]["steps"]
         for w in res:
             where = f"{tag}, process {w['proc']}"
@@ -1824,6 +1950,24 @@ def run_multiproc(serial_e0: float, coll: dict) -> None:
                       f"{steps} steps on {w['n_owned']} shards")
             check("staged" in w["backend"], f"{where}: backend "
                   f"{w['backend']}")
+            if ki:
+                n_st, n_ring = (w["launches"]["halo_fill_stage"],
+                                w["launches"]["ring_push"])
+                check(n_st == 3 * steps and n_ring == 3 * w["rebuckets"]
+                      and w["launches"]["halo_fill"] == 0,
+                      f"{where}: halo_fill_stage {n_st}, ring_push "
+                      f"{n_ring}, halo_fill {w['launches']['halo_fill']} "
+                      f"for {steps} steps and {w['rebuckets']} rebuckets, "
+                      f"not one stage launch a stage")
+                t = w["traffic"]
+                check(not t.get("bytes/scalar") and not t.get("bytes/atoms")
+                      and t.get("planes/fill", 0) > 0 and
+                      (t.get("planes/atoms", 0) > 0 or not w["rebuckets"]),
+                      f"{where}: a ki exchange went through the group, or "
+                      f"no plane crossed: {t}")
+        if ci == "ki_fused" and n_procs == 2:
+            stage_launches = sum(w["launches"]["halo_fill_stage"]
+                                 for w in res)
         w = res[0]
         check(w["n0"] == w["n1"] == HEADLINE_N ** 3 * 4,
               f"{tag}: atoms {w['n0']} -> {w['n1']}")
@@ -1837,41 +1981,84 @@ def run_multiproc(serial_e0: float, coll: dict) -> None:
               f"{coll['digest']})")
         t = w["traffic"]
         refresh = steps - w["rebuckets"]
-        fill_b = t.get("bytes/scalar", 0) / steps      # the dfEmbed fill
-        refresh_b = t.get("bytes/positions", 0) / max(refresh, 1) + fill_b
-        rebucket_b = t.get("bytes/atoms", 0) / max(w["rebuckets"], 1) + \
-            fill_b
+        via = "planes" if ki else "bytes"
+        fill_b = t.get(f"{via}/{'fill' if ki else 'scalar'}", 0) / steps
+        refresh_b = t.get("bytes/positions", 0) / max(refresh, 1)
+        rebucket_b = t.get(f"{via}/atoms", 0) / max(w["rebuckets"], 1)
         say("multiproc main", f"{n_procs} processes on the one card "
             f"({w['backend']}), {w['n_owned']} shards each, {HEADLINE_N}^3 "
-            f"EAM f32 2x2x2 collective: final ePot {w['e1']:.6f} and r "
+            f"EAM f32 2x2x2 {ci}: final ePot {w['e1']:.6f} and r "
             f"sha256 {w['digest'][:16]}.. equal phase 12's collective run "
             f"bit for bit; initial ePot rel. diff to the serial run "
             f"{rel:.3e}; K1 launches by process (pass 1, pass 3) "
             + ", ".join(f"{x['launches']['eam_pass1']}/"
                         f"{x['launches']['eam_pass3']}" for x in res)
             + f" in {steps} steps")
-        say("multiproc main", f"{n_procs} processes: ms/step (host clock, "
-            f"{steps} steps) "
+        if ci == "collective":
+            ms_coll[n_procs] = [x["ms_step"] for x in res]
+        say("multiproc main", f"{n_procs} processes {ci}: ms/step (host "
+            f"clock, {steps} steps) "
             + ", ".join(f"{x['ms_step']:.3f}" for x in res)
             + f" against {coll['ms']:.3f} in one process (phase 12, "
-            f"collective); under torch.profiler (10 steps) each process's "
+            f"collective)"
+            + (f" and {', '.join(f'{v:.3f}' for v in ms_coll[n_procs])} "
+               f"on {n_procs} processes under collective (this phase)"
+               if ki and n_procs in ms_coll else "")
+            + "; under torch.profiler (10 steps) each process's "
             f"kernels busy "
             + ", ".join(f"{x['busy_ms']:.3f}" for x in res)
             + " ms/step of "
             + ", ".join(f"{x['prof_ms']:.3f}" for x in res)
             + f", the card busy {sum(x['busy_ms'] for x in res) / max(x['prof_ms'] for x in res):.1%}")
-        say("multiproc main", f"{n_procs} processes: bytes process 0 sent "
-            f"in {steps} steps ({w['rebuckets']} rebuckets, {refresh} ghost "
-            f"refreshes): "
+        say("multiproc main", f"{n_procs} processes {ci}: bytes process 0 "
+            f"sent in {steps} steps ({w['rebuckets']} rebuckets, {refresh} "
+            f"ghost refreshes): "
             + ", ".join(f"{k} {v:,}" for k, v in sorted(t.items())
-                        if k.startswith("bytes"))
-            + f"; a refresh step {refresh_b:,.0f} B, a rebucket step "
-            + (f"{rebucket_b:,.0f} B" if w["rebuckets"]
-               else "(none in the run)")
-            + "; host ms a step in the exchanges (10 steps, the card waited "
-            "for first): "
+                        if k.startswith(("bytes", "planes")))
+            + f"; a refresh step {refresh_b + fill_b:,.0f} B, a rebucket "
+            f"step {rebucket_b + fill_b:,.0f} B; the fill "
+            f"{fill_b:,.0f} B a step "
+            + ("through the arena (CUDA IPC), the atoms "
+               f"{rebucket_b:,.0f} B a rebucket through the arena, the "
+               f"positions {refresh_b:,.0f} B a refresh through gloo"
+               if ki else "through gloo")
+            + "; host ms a step in the gloo exchanges (10 steps, the card "
+            "waited for first): "
             + ", ".join(f"{x['stage_ms']:.3f} staging copies + "
                         f"{x['transfer_ms']:.3f} transfer" for x in res))
+        if ki:
+            o = one_proc[ci]
+            say("multiproc main", f"{n_procs} processes {ci}: launches a "
+                f"step by process (halo_fill_stage, ring_push): "
+                + ", ".join(f"{x['launches']['halo_fill_stage'] / steps:.2f}"
+                            f"/{x['launches']['ring_push'] / steps:.2f}"
+                            for x in res)
+                + f" (3 a force, 3 a rebucket); one process (phase 12): "
+                f"halo_fill {o[0] / o[3]:.2f}, ring_push {o[1] / o[3]:.2f} "
+                f"a step ({o[0]} and {o[1]} over {o[3]} steps, {o[2]} atom "
+                f"exchanges)")
+            key = "halo_fill_fused" if ci == "ki_fused" else "halo_fill"
+            f1, r1 = timing[key], timing["ring_push"]
+            say("timing", f"{n_procs} processes {ci}: one x stage of the "
+                f"fill across processes (push, counters, unpack) by "
+                f"process: "
+                + ", ".join(f"{x['stages']['fill']['ms']:.4f} ms (CUDA "
+                            f"events), host {x['stages']['fill']['host_ms']:.4f}"
+                            f", device {1e3 * x['stages']['fill']['device_ms']:.2f} us"
+                            for x in res)
+                + f"; the whole fill in one process (phase 12): "
+                f"{f1[0]:.4f} ms, host {f1[1]:.4f}, device "
+                f"{1e3 * f1[2]:.2f} us")
+            say("timing", f"{n_procs} processes {ci}: one x atom stage "
+                f"across processes (push, counters, no re-binning) by "
+                f"process: "
+                + ", ".join(f"{x['stages']['atoms']['ms']:.4f} ms, host "
+                            f"{x['stages']['atoms']['host_ms']:.4f}, device "
+                            f"{1e3 * x['stages']['atoms']['device_ms']:.2f} us"
+                            for x in res)
+                + f"; one stage push in one process (phase 12): "
+                f"{r1[0]:.4f} ms, host {r1[1]:.4f}, device "
+                f"{1e3 * r1[2]:.2f} us")
     # short CLI runs: process 0's rows against the single process's
     base = ["-x", "20", "-y", "20", "-z", "20", "-N", "20", "-n", "10",
             "-d", POTS]
@@ -1879,7 +2066,13 @@ def run_multiproc(serial_e0: float, coll: dict) -> None:
                      (2, ["-e", "-i", "2", "-j", "2", "-k", "2",
                           "--halfShell", "--dtype", "float64"]),
                      (2, ["-e", "-i", "2", "-j", "2", "-k", "2", "-m",
-                          "thread_atom_nl"])):
+                          "thread_atom_nl"]),
+                     (4, ["-e", "-i", "2", "-j", "2", "-k", "1",
+                          "--commImpl", "ki"]),
+                     (2, ["-e", "-i", "2", "-j", "2", "-k", "2", "-a", "1",
+                          "--commImpl", "ki_fused"]),
+                     (2, ["-e", "-i", "2", "-j", "2", "-k", "2", "-m",
+                          "thread_atom_nl", "--commImpl", "ki"])):
         argv = base + extra
         single, _launches = cli_rows(argv)
         port = free_port()
@@ -1897,6 +2090,9 @@ def run_multiproc(serial_e0: float, coll: dict) -> None:
         check(f"Across {n} Ranks" in outs[0][0] and
               "staged through pinned host buffers" in outs[0][0],
               f"multiproc cli {argv}: no rank statistics or staging line")
+        check("--commImpl" not in argv or
+              "ki: CUDA IPC planes, stream-ordered flags" in outs[0][0],
+              f"multiproc cli {argv}: no ki transport line")
         how = "digit for digit"
         if rows != single and "--halfShell" in argv and len(rows) == len(
                 single):
@@ -1915,6 +2111,7 @@ def run_multiproc(serial_e0: float, coll: dict) -> None:
             f"20^3: process 0 prints the single process's {len(rows)} rows "
             f"{how} (ePot/atom at step 20 {rows[-1].split()[3]}); the "
             f"others print nothing of the run")
+    return stage_launches
 
 
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
@@ -2153,7 +2350,7 @@ def main() -> int:
            yproc=2, zproc=1, comm_impl="ki")
 
     # 12. the headline on a 2x2x2 mesh of shards: ki_fused, ki, collective
-    final, launches = {}, {}
+    final, launches, one_proc = {}, {}, {}
     steps = 100                          # run_main's 10 x step_block(10)
     for ci in ("ki_fused", "ki", "collective"):
         keys = ("eam_pass1", "eam_pass3") + (
@@ -2182,6 +2379,10 @@ def main() -> int:
                 f"(one a force: the initial one and every step), ring_push "
                 f"{n_ring} times ({exchanges} atom exchanges, three "
                 f"stages each)")
+        if ci != "collective":
+            one_proc[ci] = (launches[ci]["halo_fill"],
+                            launches[ci]["ring_push"], sim.n_rebucket + 1,
+                            steps)
         final[ci] = ([s.r for s in sim.states], sim.e_potential)
         if ci == "collective":
             coll = dict(e_pot=sim.e_potential, ms=sim.ms_step,
@@ -2234,10 +2435,12 @@ def main() -> int:
     what = {"halo_fill": "one fill (ki)",
             "halo_fill_fused": "one fill (ki_fused)",
             "ring_push": "one atom stage push (mean of the 3 stages)"}
+    timing = {}
     for k, (fn, plain, (b_ms, b_by), calls) in timed.items():
         ms = time_ms(fn, 20) / calls
         plain_ms = time_ms(plain, 20) / calls
         host, dev = (t / calls for t in host_and_device_ms(fn))
+        timing[k] = (ms, host, dev)
         say("timing", f"{k}, {what[k]}: {ms:.4f} ms (CUDA events, mean of "
             f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
             f"(torch.profiler); plain {plain_ms:.4f} ms; bound {b_ms:.6f} ms "
@@ -2265,6 +2468,7 @@ def main() -> int:
         f"the comparison for halo_fill): {ms:.4f} ms (CUDA events, mean of "
         f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
         f"(torch.profiler); bound {fill_bound(plan)[0]:.6f} ms (bytes)")
+    rows["halo_fill_stage"] = stage_row(sharded, x, rhobar, table_bytes)
     del sharded, x, dfe, rhobar, fields
 
     # 13. the archive probes P1-P6 on their kernels
@@ -2281,12 +2485,13 @@ def main() -> int:
     run_split(serial_epot[0], lj_e0[0], mesh_epot)
 
     # 17. the multi-process launch on the one card
-    run_multiproc(serial_epot[0], coll)
+    rows["halo_fill_stage"]["launches"] = run_multiproc(
+        serial_epot[0], coll, one_proc, timing)
 
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
-                                 "ring_push")
+                                 "ring_push", "halo_fill_stage")
                + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -2298,5 +2503,5 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-worker"]:
         sys.exit(mp_worker(int(sys.argv[2]), int(sys.argv[3]),
-                           int(sys.argv[4]), sys.argv[5]))
+                           int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

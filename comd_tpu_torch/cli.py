@@ -17,9 +17,9 @@ cell-occupancy histogram) and ``-s`` (utils/profile.py).  The
 multi-process launch (``--numProcs/--coordinator/--procId``, the
 reference's mpirun surface) runs every process with the same command line
 but its own ``--procId``; each owns a block of the mesh's shards
-(parallel/dist.py says which backend carries the exchanges) and only
-process 0 prints.  ``--commImpl ki|ki_fused`` across processes raises
-NotImplementedError naming the ROADMAP.md item that ports it.
+(parallel/dist.py says which backend carries the exchanges; under
+``--commImpl ki|ki_fused`` the halo kernels push into the other processes'
+CUDA IPC receive planes, parallel/ki_comm.py) and only process 0 prints.
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ import torch
 from .config import Config
 from .parallel import dist
 from .parallel.mesh import make_mesh
-from .sim import init_simulation, not_ported
+from .sim import init_simulation
 from .utils.timers import PerfTimers
 from .constants import KB_EV
 
@@ -377,7 +377,10 @@ def _launch_text(sim) -> str:
     n = dist.process_count()
     if n == 1:
         return ""
-    return f", {n} processes ({dist.describe(sim.device)})"
+    ki = ("; ki: CUDA IPC planes, stream-ordered flags"
+          if sim.device.type == "cuda" and sim.cfg.comm_impl != "collective"
+          else "")
+    return f", {n} processes ({dist.describe(sim.device)}{ki})"
 
 
 def _write_yaml(yaml_dir, cfg: Config, sim, result, out):
@@ -444,8 +447,6 @@ def main(argv=None):
     cfg = config_from_args(args)
     out = sys.stdout
     if args.numProcs > 1:
-        if cfg.comm_impl != "collective":
-            not_ported("--commImpl ki|ki_fused across processes", "18")
         # the launch (initParallel, parallel.c:66-118): every process runs
         # the same program; only process 0 prints (printRank,
         # parallel.c:48-52)

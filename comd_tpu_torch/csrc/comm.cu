@@ -1,6 +1,8 @@
 // Kernel-initiated halo transports for Hopper (sm_90a): the dfEmbed halo
-// fill (K3's plane pushes and K4's fused F'(rhobar) push, one launch a
-// fill) and the atom exchange's stage push (K3, one launch a stage).
+// fill (K3's plane pushes and K4's fused F'(rhobar) push: one launch a fill
+// in one process, one a stage across processes) and the atom exchange's
+// stage push (K3, one launch a stage); across processes, the receive-plane
+// arena shared by CUDA IPC and the stream-ordered ready counters.
 //
 // What they replace.  comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
 // (K3, driven by _ring_push) remote-copies one plane to the +-1 ring
@@ -15,11 +17,19 @@
 // selection-matmul table read was a Mosaic workaround; this is a direct
 // table read.
 //
-// halo_fill_kernel: the whole staged dfEmbed fill of every shard's [B, A]
-// field.  Stage by stage (x, y, z: haloExchange.c:345-475's growing cross
+// Destinations.  A launch moves rows of this process's shards (0..S-1).
+// to[d][s] names where shard s's rows of direction d go: a value t < S is
+// shard t of the same launch (its field, or its slab of the arrivals); a
+// value t >= S is receive plane t - S, a pointer of its own: in one
+// process there are none, across processes they are the planes of the
+// receivers in other processes, in those processes' arenas.
+//
+// halo_fill_kernel: the staged dfEmbed fill of every shard's [B, A] field.
+// Stage by stage (x, y, z: haloExchange.c:345-475's growing cross
 // section), for both directions d and every shard s, rows send[d][k] of
-// s's field go into rows recv[d][k] of the field of shard to[d][s]; with
-// `fused` the x stage writes F'(rhobar[s] at rows send[d][k]) instead (K4).
+// s's field go into rows recv[d][k] of the field of shard t = to[d][s], or
+// into row k of plane t - S; with `fused` the x stage writes F'(rhobar[s]
+// at rows send[d][k]) instead (K4).
 // The y stage forwards what the x stage wrote and z what y wrote, so the
 // stages are separated by a grid-wide barrier: a cooperative launch
 // (cudaLaunchCooperativeKernel, cooperative_groups::this_grid().sync(); no
@@ -29,29 +39,48 @@
 // refused (cudaErrorNotSupported), never worked around.  No host round trip
 // between the stages.  The barrier orders the stages' global writes; the
 // copies read with ld.global.cg (L2, not L1) so no stale L1 line of an
-// earlier stage is read.  K4 alone (pass2_push) is a one-stage fill with a
-// local copy of each plane.
+// earlier stage is read.  A one-stage launch has no barrier and is an
+// ordinary launch: K4 alone (pass2_push, with a local copy of each plane)
+// and each stage of a fill across processes.
 //
 // ring_push_kernel: one stage of the atom exchange.  For every field f (r,
 // p, gid, counts), both directions d and every shard s, rows send[d][k] of
-// s's field go into row k of the arrival buffer of shard to[d][s] for
-// direction d ([n_dirs, S, planes, n, row]).  Each field moves at its own
+// s's field go into row k of the arrival buffer of shard t = to[d][s] for
+// direction d ([n_dirs, S, planes, n, row]), or, for t >= S, into row k of
+// field f of plane set t - S (the fields at set_off[f] of one block, laid
+// out as in the arrival buffer).  Each field moves at its own
 // vector width: r, p and gid at 16 bytes where the row allows, the counts
 // ([B]: one word a row) at 4.  append_arrivals runs between the stages on
 // the host's stream (torch ops), so one launch never reads another stage's
 // arrivals.
 //
-// Ordering across launches.  Every shard lives on one device and every
+// Ordering in one process.  Every shard lives on one device and every
 // launch goes on PyTorch's current stream, after the kernels that wrote the
 // source rows and before those that read the destination, so stream order
 // is the Pallas kernels' barrier and semaphores.  Inside one stage every
-// destination row is written by one (shard, direction) only (the rings are
-// permutations, and the two directions write different halo planes or
-// different arrival buffers), and the rows a stage reads (send) are never
-// rows it writes (recv: the halo planes on the other side of the axis), also
-// when a shard pushes to itself (an axis of size 1).  Shards in several
-// processes need CUDA IPC peer buffers and comm_ki.cuh's ready flag per
-// (stage, shard) where the grid barrier stands now (ROADMAP item 18).
+// destination row is written by one (shard, direction) only (a direction's
+// destinations are distinct, and the two directions write different halo
+// planes or different arrival buffers), and the rows a stage reads (send)
+// are never rows it writes (recv: the halo planes on the other side of the
+// axis), also when a shard pushes to itself (an axis of size 1).
+//
+// Ordering across processes (the Pallas kernels' neighbor barrier and DMA
+// semaphores; the reference's comm_send_ready_on_stream /
+// comm_wait_ready_on_stream, comm.cc:326-397).  Each process allocates one
+// arena with cudaMalloc (comd_arena_alloc): the receive planes of its
+// shards whose sender is in another process, and a block of 32-bit
+// counters.  Every process opens its peers' arenas once by their IPC
+// handles (comd_ipc_open; never its own).  A stage is then one launch with
+// no grid barrier, ordered by counters that only grow, on the stream, with
+// no host wait: the sender waits until each receiver has drained its
+// previous plane (comd_stream_wait on its own "free" counter), pushes, and
+// bumps a "data" counter in each receiver's arena (comd_stream_write:
+// cuStreamWriteValue32 without NO_MEMORY_BARRIER, so the push's writes are
+// visible before the counter); the receiver waits on its data counters,
+// unpacks its planes (torch ops) and bumps the sender's free counter.  The
+// waits are the stream front end's (cuStreamWaitValue32), not a spinning
+// kernel, so a card time-sliced between processes runs the peer while one
+// waits.
 //
 // Bound: bytes.  Both kernels move each word once (the fused stage also
 // reads its ~4 KB table from cache) with a few integer operations a word;
@@ -69,15 +98,19 @@
 // operation, as PyTorch's eager kernels do for the interior values of pass
 // 2, so the planes it pushes equal the interior values bit for bit.
 //
-// Plain C interface for ctypes: each entry point returns the cudaError_t of
-// its launch (0 = success) and does not synchronize.
+// Plain C interface for ctypes: each launch entry point returns the
+// cudaError_t of its launch (0 = success) and does not synchronize; the
+// arena entry points return a cudaError_t, the counter entry points a
+// CUresult (cuda.h).  Linked with -lcuda for the stream memory operations.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
 
 constexpr int kMaxShards = 64;   // shards a launch
+constexpr int kMaxPlanes = 2 * kMaxShards;  // receive planes a launch
 constexpr int kMaxStages = 3;    // stages a fill
 constexpr int kMaxFields = 4;    // fields a ring_push launch
 constexpr int kMaxDevices = 64;  // devices the co-residency cache holds
@@ -88,7 +121,7 @@ constexpr int kWarps = kThreads / 32;
 struct FillStage {
   const int* send[2];   // [d]: rows each shard sends in direction d
   const int* recv[2];   // [d]: the rows they land in at the receiver
-  const int* to[2];     // [d]: to[d][s], the shard s pushes to
+  const int* to[2];     // [d]: to[d][s], where shard s pushes to
   int n_rows;           // rows a (shard, direction)
 };
 
@@ -102,7 +135,8 @@ struct FillArgs {
   int vec_lg;           // log2 of the lanes a row, copy stages
   int elem_lg;          // log2 of the lanes a row, the F' stage
   int grid_x, grid_y;   // blocks wanted (x clamped to co-residency)
-  int device;           // the CUDA device of every pointer
+  int device;           // the CUDA device of the launch
+  int n_planes;         // receive planes (destinations >= n_shards)
   FillStage stage[kMaxStages];
   int embed_n;          // F's table: InterpTable.device_table, [n + 4]
   double embed_x0, embed_inv_dx;
@@ -110,6 +144,7 @@ struct FillArgs {
   void* x[kMaxShards];           // shard s's [B, A] field
   const void* rho[kMaxShards];   // shard s's rhobar [n_local, A] (fused)
   void* local[kMaxShards];       // shard s's copy of its F' plane, or null
+  void* plane[kMaxPlanes];       // receive plane p, [n_rows, A]
 };
 
 // One field of a ring_push launch, the same for every shard.
@@ -125,11 +160,14 @@ struct PushArgs {
   int n_fields, n_shards, n_dirs, n_rows;
   int grid_x;
   int device;
+  int n_sets;            // receive plane sets (destinations >= n_shards)
   const int* send[2];    // [d]: rows each shard sends in direction d
-  const int* to[2];      // [d]: to[d][s], the shard s pushes to
+  const int* to[2];      // [d]: to[d][s], where shard s pushes to
   PushField field[kMaxFields];
   const void* src[kMaxFields][kMaxShards];   // shard s's field f
   void* dst[kMaxFields];  // field f's arrivals [n_dirs, S, planes, n, row]
+  void* set[kMaxPlanes];  // receive plane set p: every field of one sender
+  long long set_off[kMaxFields];   // bytes from a set to its field f
 };
 
 namespace {
@@ -185,24 +223,25 @@ __device__ __forceinline__ T embed_derivative(T rho, const Embed<T>& p) {
   return T(0.5) * (g1 + frac * (g2 - g1)) * p.inv_dx;
 }
 
-// The fused stage's rows for (direction d, shard s -> r): F'(rhobar) of
-// s's rows send[d][k] into rows recv[d][k] of r's field (and row k of s's
-// local copy, when there is one).
+// The fused stage's rows for (direction d, shard s): F'(rhobar) of s's
+// rows send[d][k] into rows recv[k] of dst (row k where recv is null: a
+// receive plane), and row k of s's local copy, when there is one.
 template <typename T>
 __device__ __forceinline__ void embed_rows(const FillArgs& a,
                                            const FillStage& g, int d, int s,
-                                           int r, int first, int stride) {
+                                           T* dst, const int* recv,
+                                           int first, int stride) {
   const Embed<T> p{a.embed_n, static_cast<T>(a.embed_x0),
                    static_cast<T>(a.embed_inv_dx),
                    static_cast<const T*>(a.embed_table)};
   const int A = a.row_elems;
   const int sub = threadIdx.x & ((1 << a.elem_lg) - 1);
   const T* rho = static_cast<const T*>(a.rho[s]);
-  T* dst = static_cast<T*>(a.x[r]);
   T* local = static_cast<T*>(a.local[s]);
   for (int k = first; k < g.n_rows; k += stride) {
     const long long from = static_cast<long long>(g.send[d][k]) * A;
-    const long long into = static_cast<long long>(g.recv[d][k]) * A;
+    const long long into =
+        static_cast<long long>(recv != nullptr ? recv[k] : k) * A;
     for (int w = sub; w < A; w += 1 << a.elem_lg) {
       const T df = embed_derivative(rho[from + w], p);
       dst[into + w] = df;
@@ -228,12 +267,15 @@ __global__ void __launch_bounds__(kThreads)
     for (int e = blockIdx.y; e < n_entries; e += gridDim.y) {
       const int d = e < a.n_shards ? 0 : 1;
       const int s = e - d * a.n_shards;
-      const int r = g.to[d][s];
+      const int t = g.to[d][s];
+      const bool into_plane = t >= a.n_shards;
+      void* dst = into_plane ? a.plane[t - a.n_shards] : a.x[t];
+      const int* recv = into_plane ? nullptr : g.recv[d];
       if (eval)
-        embed_rows<T>(a, g, d, s, r, first, stride);
+        embed_rows<T>(a, g, d, s, static_cast<T*>(dst), recv, first, stride);
       else
-        copy_rows<V>(static_cast<const V*>(a.x[s]), static_cast<V*>(a.x[r]),
-                     g.send[d], g.recv[d], g.n_rows, 1, a.row_vecs, lg, 0, 0,
+        copy_rows<V>(static_cast<const V*>(a.x[s]), static_cast<V*>(dst),
+                     g.send[d], recv, g.n_rows, 1, a.row_vecs, lg, 0, 0,
                      first, stride);
     }
   }
@@ -251,25 +293,29 @@ __global__ void __launch_bounds__(kThreads)
   const int stride = gridDim.x * kWarps * rows_per_warp;
   const long long dst_plane = static_cast<long long>(a.n_rows) * fd.row_vecs;
   for (int d = 0; d < a.n_dirs; ++d) {
-    // the receiver's slab of direction d's arrivals
-    const long long slab =
-        (static_cast<long long>(d) * a.n_shards + a.to[d][s]) * fd.n_planes *
-        dst_plane;
+    // the receiver's slab of direction d's arrivals, or its plane set
+    const int t = a.to[d][s];
+    char* out =
+        t < a.n_shards
+            ? static_cast<char*>(a.dst[f]) +
+                  (static_cast<long long>(d) * a.n_shards + t) *
+                      fd.n_planes * dst_plane * fd.vec_bytes
+            : static_cast<char*>(a.set[t - a.n_shards]) + a.set_off[f];
     if (fd.vec_bytes == 16)
       copy_rows(static_cast<const uint4*>(a.src[f][s]),
-                static_cast<uint4*>(a.dst[f]) + slab, a.send[d], nullptr,
-                a.n_rows, fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane,
-                dst_plane, first, stride);
+                reinterpret_cast<uint4*>(out), a.send[d], nullptr, a.n_rows,
+                fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane, dst_plane,
+                first, stride);
     else if (fd.vec_bytes == 8)
       copy_rows(static_cast<const uint2*>(a.src[f][s]),
-                static_cast<uint2*>(a.dst[f]) + slab, a.send[d], nullptr,
-                a.n_rows, fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane,
-                dst_plane, first, stride);
+                reinterpret_cast<uint2*>(out), a.send[d], nullptr, a.n_rows,
+                fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane, dst_plane,
+                first, stride);
     else
       copy_rows(static_cast<const unsigned int*>(a.src[f][s]),
-                static_cast<unsigned int*>(a.dst[f]) + slab, a.send[d],
-                nullptr, a.n_rows, fd.n_planes, fd.row_vecs, fd.lg,
-                fd.src_plane, dst_plane, first, stride);
+                reinterpret_cast<unsigned int*>(out), a.send[d], nullptr,
+                a.n_rows, fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane,
+                dst_plane, first, stride);
   }
 }
 
@@ -318,6 +364,13 @@ cudaError_t co_resident(int device, int* blocks) {
 
 template <typename T, typename V>
 cudaError_t launch_fill(const FillArgs& a, cudaStream_t stream) {
+  if (a.n_stages == 1) {   // no grid barrier: an ordinary launch
+    halo_fill_kernel<T, V>
+        <<<dim3(static_cast<unsigned>(a.grid_x),
+                static_cast<unsigned>(a.grid_y)),
+           kThreads, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
   int cap = 0;
   cudaError_t err = co_resident<T, V>(a.device, &cap);
   if (err != cudaSuccess) return err;
@@ -357,8 +410,12 @@ int comd_halo_fill(const FillArgs* a, void* stream) {
       a->grid_y != a->n_dirs * a->n_shards ||
       (a->elem_bytes != 4 && a->elem_bytes != 8) ||
       (a->vec_bytes != 4 && a->vec_bytes != 8 && a->vec_bytes != 16) ||
-      (a->fused && (a->embed_table == nullptr || a->embed_n < 1)))
+      (a->fused && (a->embed_table == nullptr || a->embed_n < 1)) ||
+      a->n_planes < 0 || a->n_planes > kMaxPlanes ||
+      (a->n_planes > 0 && a->n_stages != 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int p = 0; p < a->n_planes; ++p)
+    if (a->plane[p] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   for (int st = 0; st < a->n_stages; ++st) {
     const FillStage& g = a->stage[st];
     if (g.n_rows < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -380,8 +437,11 @@ int comd_halo_fill(const FillArgs* a, void* stream) {
 int comd_ring_push(const PushArgs* a, void* stream) {
   if (a == nullptr || a->n_fields < 1 || a->n_fields > kMaxFields ||
       a->n_shards < 1 || a->n_shards > kMaxShards || a->n_dirs < 1 ||
-      a->n_dirs > 2 || a->n_rows < 1 || a->grid_x < 1)
+      a->n_dirs > 2 || a->n_rows < 1 || a->grid_x < 1 || a->n_sets < 0 ||
+      a->n_sets > kMaxPlanes)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int p = 0; p < a->n_sets; ++p)
+    if (a->set[p] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   for (int d = 0; d < a->n_dirs; ++d)
     if (a->send[d] == nullptr || a->to[d] == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -407,6 +467,115 @@ int comd_ring_push(const PushArgs* a, void* stream) {
 
 const char* comd_comm_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// ---- the receive-plane arena (across processes) ----
+
+// `bytes` of device memory on `device` from cudaMalloc (its own
+// allocation, so that its IPC handle names it and nothing else), zeroed,
+// the zeros written before this returns.
+int comd_arena_alloc(void** ptr, long long bytes, int device) {
+  if (ptr == nullptr || bytes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  *ptr = nullptr;
+  cudaError_t err = cudaMalloc(ptr, static_cast<size_t>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemset(*ptr, 0, static_cast<size_t>(bytes));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err != cudaSuccess) {
+    cudaFree(*ptr);
+    *ptr = nullptr;
+  }
+  return static_cast<int>(err);
+}
+
+int comd_arena_free(void* ptr, int device) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  return static_cast<int>(cudaFree(ptr));
+}
+
+// The 64-byte IPC handle of an arena into `handle`.
+int comd_ipc_handle(void* ptr, int device, unsigned char* handle) {
+  if (ptr == nullptr || handle == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaIpcMemHandle_t h;
+  const cudaError_t err = cudaIpcGetMemHandle(&h, ptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int i = 0; i < static_cast<int>(sizeof(h.reserved)); ++i)
+    handle[i] = static_cast<unsigned char>(h.reserved[i]);
+  return 0;
+}
+
+// A peer process's arena, opened on `device` from its handle.  Never the
+// calling process's own handle: CUDA refuses that.
+int comd_ipc_open(const unsigned char* handle, int device, void** ptr) {
+  if (handle == nullptr || ptr == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaIpcMemHandle_t h;
+  for (int i = 0; i < static_cast<int>(sizeof(h.reserved)); ++i)
+    h.reserved[i] = static_cast<char>(handle[i]);
+  *ptr = nullptr;
+  return static_cast<int>(
+      cudaIpcOpenMemHandle(ptr, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+int comd_ipc_close(void* ptr, int device) {
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  return static_cast<int>(cudaIpcCloseMemHandle(ptr));
+}
+
+// Peer access from `device` to `peer` (a card a process): refused with
+// cudaErrorPeerAccessUnsupported where the two cards cannot reach each
+// other; enabling it twice is not an error.
+int comd_peer_access(int device, int peer) {
+  if (device == peer) return 0;
+  int can = 0;
+  cudaError_t err = cudaDeviceCanAccessPeer(&can, device, peer);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!can) return static_cast<int>(cudaErrorPeerAccessUnsupported);
+  DeviceGuard guard(device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    err = cudaSuccess;
+  }
+  return static_cast<int>(err);
+}
+
+// ---- the ready counters: stream memory operations (cuda.h, libcuda) ----
+
+// On `stream`: wait until the 32-bit counter at `addr` has reached `value`
+// (cyclic greater-or-equal).  The stream's front end waits; no kernel
+// spins.  Returns the CUresult.
+int comd_stream_wait(void* stream, void* addr, unsigned int value) {
+  return static_cast<int>(cuStreamWaitValue32(
+      static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(addr),
+      value, CU_STREAM_WAIT_VALUE_GEQ));
+}
+
+// On `stream`: write `value` to the 32-bit counter at `addr` (this
+// process's arena or a peer's), after a memory barrier that makes every
+// earlier write of the stream visible first.  Returns the CUresult.
+int comd_stream_write(void* stream, void* addr, unsigned int value) {
+  return static_cast<int>(cuStreamWriteValue32(
+      static_cast<CUstream>(stream), reinterpret_cast<CUdeviceptr>(addr),
+      value, CU_STREAM_WRITE_VALUE_DEFAULT));
+}
+
+const char* comd_cu_error_string(int err) {
+  const char* msg = nullptr;
+  if (cuGetErrorString(static_cast<CUresult>(err), &msg) != CUDA_SUCCESS ||
+      msg == nullptr)
+    return "unknown CUresult";
+  return msg;
 }
 
 }  // extern "C"

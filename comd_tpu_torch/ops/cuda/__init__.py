@@ -7,6 +7,8 @@ successful launch and nowhere else; a run zeroes it with
 LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             "half_eam_pass1": 0, "half_eam_pass3": 0, "half_lj": 0,
             "halo_fill": 0, "ring_push": 0, "nl_build": 0, "nl_sweep": 0,
+            # one stage of a dfEmbed fill across processes
+            "halo_fill_stage": 0,
             "window_pair": 0, "row_lookup": 0, "lane_lookup": 0,
             # the -P spline and -I LJ-table variants of K1, K2 and NL2
             "spline_eam_pass1": 0, "spline_eam_pass3": 0,

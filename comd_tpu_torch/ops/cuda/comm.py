@@ -4,33 +4,41 @@ Two kernels, one source (csrc/comm.cu), one build:
 
 - ``halo_fill`` replaces comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
   (K3) as exchange_scalar_ki drives it, and _pass2_push_kernel (K4) as
-  exchange_scalar_ki_fused drives it: the whole staged dfEmbed fill of every
-  shard's [B, A] field in one cooperative launch, stages x, y and z in order
-  inside the kernel, the x stage evaluating F'(rhobar) when ``rhobar`` is
-  given (K4).  ``pass2_push`` is K4 alone: one direction of the x stage,
-  with each shard's local copy of its plane.
+  exchange_scalar_ki_fused drives it: in one process the whole staged
+  dfEmbed fill of every shard's [B, A] field in one cooperative launch,
+  stages x, y and z in order inside the kernel; across processes one
+  ordinary launch a stage.  The x stage evaluates F'(rhobar) when
+  ``rhobar`` is given (K4).  ``pass2_push`` is K4 alone: one direction of
+  the x stage, with each shard's local copy of its plane.
 - ``ring_push`` (K3) replaces _ring_push_kernel as exchange_atoms_ki drives
   it: one stage of the atom exchange, both directions and every field of
   every shard in one launch, each field at its own vector width.
 
 Each launch follows a plan made once (``FillPlan``, ``PushPlan``;
-parallel/ki_comm.py caches them on the ``Halo``): the row lists and rings
-on the device, the fields' shapes, each field's vector width and the launch
-grid, checked against the kernels' limits when the plan is made, and a
-ctypes argument struct that every call reuses.  A call checks that the
-tensors it is given have the plan's shape, writes their base pointers into
-the struct and makes one ctypes call on the current stream.
+parallel/ki_comm.py caches them on the ``Halo``): the row lists and the
+destination maps on the device, the fields' shapes, each field's vector
+width and the launch grid, checked against the kernels' limits when the
+plan is made, and a ctypes argument struct that every call reuses.  A
+destination is a shard of the launch (a value below S in the map) or a
+receive plane of the plan (S + its index): the plane of a receiver in
+another process, in that process's arena.  A call checks that the tensors
+it is given have the plan's shape, writes their base pointers into the
+struct and makes one ctypes call on the current stream.
+
+Across processes (parallel/ki_comm.py) the receive planes live in one
+arena a process (``Arena``: cudaMalloc, shared by CUDA IPC handles), and
+the stages are ordered by 32-bit counters that the stream itself writes
+and waits on (``stream_write``, ``stream_wait``; see csrc/comm.cu).
 
 What bounds the kernels on the card: bytes (copies, and a copy with a short
-table read per value); at the mesh's sizes, latency and the launch.  All
-shards live on one device, so stream order and the fill's grid barrier
-replace the Pallas kernels' barrier and DMA semaphores (see csrc/comm.cu).
+table read per value); at the mesh's sizes, latency and the launch.
 
 Beside each kernel sits its plain PyTorch version (``*_plain``: an index
 gather plus a scatter a shard and direction).  The wrappers take it only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "halo_fill"
-and "ring_push".
+(a whole fill in one launch, or K4 alone), "halo_fill_stage" (one stage of
+a fill across processes) and "ring_push".
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import os
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ...potentials.tables import EmbedTable
@@ -49,6 +58,7 @@ SOURCE = os.path.join(CSRC, "comm.cu")
 MAX_SHARDS = 64     # shards a launch (csrc/comm.cu kMaxShards)
 MAX_STAGES = 3      # stages a fill (kMaxStages)
 MAX_FIELDS = 4      # fields a ring_push launch (kMaxFields)
+MAX_PLANES = 2 * MAX_SHARDS   # receive planes a launch (kMaxPlanes)
 WARPS = 8           # warps a block (kThreads / 32)
 
 
@@ -88,15 +98,47 @@ def _rows_list(rows: torch.Tensor, device: torch.device, B: int) -> int:
     return rows.numel()
 
 
-def _ring(ring, n_shards: int, device: torch.device):
-    """A ring as Python ints (the plain versions) and an int32 device
-    vector (the kernels); it must be a permutation of the shards, so every
-    destination is written by one shard."""
-    ring = [int(v) for v in ring]
-    if sorted(ring) != list(range(n_shards)):
-        raise ValueError(f"a ring must be a permutation of the "
-                         f"{n_shards} shards, got {ring}")
-    return ring, torch.as_tensor(ring, dtype=torch.int32, device=device)
+def _targets(to, n_shards: int, n_planes: int, device: torch.device):
+    """A direction's destination map as Python ints (the plain versions)
+    and an int32 device vector (the kernels): shard s's rows go to shard
+    ``to[s]`` of the launch (below ``n_shards``) or to receive plane
+    ``to[s] - n_shards``.  The destinations must be distinct, so every
+    destination row is written by one shard; in one process (no planes)
+    the map is a ring, a permutation of the shards."""
+    to = [int(v) for v in to]
+    if len(set(to)) != len(to) or \
+            any(not 0 <= v < n_shards + n_planes for v in to) or \
+            (n_planes == 0 and sorted(to) != list(range(n_shards))):
+        raise ValueError(f"a direction's destinations must be distinct "
+                         f"shards of the {n_shards} or planes of the "
+                         f"{n_planes} (with no planes a ring: a permutation "
+                         f"of the shards), got {to}")
+    return to, torch.as_tensor(to, dtype=torch.int32, device=device)
+
+
+def _planes_used(maps, n_shards: int, n_planes: int) -> None:
+    """Every receive plane is the destination of exactly one (direction,
+    shard)."""
+    used = sorted(t - n_shards for to in maps for t in to if t >= n_shards)
+    if used != list(range(n_planes)):
+        raise ValueError(f"the {n_planes} receive planes must each be the "
+                         f"destination of one (direction, shard), got "
+                         f"{used}")
+
+
+def _plane_ptrs(planes, shape, dtype, vec: int, what: str) -> list:
+    """The base pointers of receive planes (CUDA tensors of ``shape`` and
+    ``dtype``, contiguous, ``vec``-byte aligned)."""
+    ptrs = []
+    for t in planes:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype or \
+                not t.is_contiguous() or not t.is_cuda:
+            raise ValueError(f"{what}: a receive plane must be a contiguous "
+                             f"CUDA {dtype} {tuple(shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+        ptrs.append(t.data_ptr())
+    _aligned(ptrs, vec, what)
+    return ptrs
 
 
 def _shards(n: int) -> None:
@@ -115,14 +157,19 @@ def _device(device) -> torch.device:
 
 
 class FillPlan:
-    """The launch plan of one dfEmbed fill (or of K4 alone).
+    """The launch plan of one dfEmbed fill (or of K4 alone, or of one stage
+    of a fill across processes).
 
     ``stages``: the fill's stages in order, each a list of one or two
-    directions ``(send, recv, ring)``: shard s sends rows ``send`` of its
-    field into rows ``recv`` of shard ``ring[s]``'s field.  ``shape`` and
-    ``dtype``: every shard's [B, A] field."""
+    directions ``(send, recv, to)``: shard s sends rows ``send`` of its
+    field into rows ``recv`` of shard ``to[s]``'s field, or, where ``to[s]
+    >= S``, into row k (for its k-th sent row) of ``planes[to[s] - S]``.
+    ``shape`` and ``dtype``: every shard's [B, A] field.  ``planes``: the
+    receive planes, [n_rows, A] of the field's dtype (one stage only).
+    ``count_as``: the LAUNCHES key of its launches."""
 
-    def __init__(self, stages, shape, dtype, device):
+    def __init__(self, stages, shape, dtype, device, planes=(),
+                 count_as: str = "halo_fill"):
         device = _device(device)
         if not 1 <= len(stages) <= MAX_STAGES:
             raise ValueError(f"a fill has 1 to {MAX_STAGES} stages")
@@ -136,21 +183,30 @@ class FillPlan:
         B, A = shape
         self.n_shards = len(stages[0][0][2])
         _shards(self.n_shards)
+        self.planes = list(planes)
+        if self.planes and len(stages) != 1:
+            raise ValueError("receive planes take a one-stage plan")
+        if len(self.planes) > MAX_PLANES:
+            raise ValueError(f"a launch takes at most {MAX_PLANES} planes")
         self.shape, self.dtype, self.device = shape, dtype, device
-        self.stages = []        # [stage][d] -> (send, recv, ring as ints)
+        self.count_as = count_as
+        self.stages = []        # [stage][d] -> (send, recv, to as ints)
         self.n_rows = []        # [stage]
-        keep = []               # device rings the struct points at
+        keep = []               # device maps the struct points at
         for st in stages:
             dirs = []
-            for send, recv, ring in st:
+            for send, recv, to in st:
                 n = _rows_list(send, device, B)
                 if _rows_list(recv, device, B) != n:
                     raise ValueError("send and recv lists differ in length")
-                ring, ring_dev = _ring(ring, self.n_shards, device)
-                dirs.append((send, recv, ring))
-                keep.append(ring_dev)
+                to, to_dev = _targets(to, self.n_shards, len(self.planes),
+                                      device)
+                dirs.append((send, recv, to))
+                keep.append(to_dev)
             if len({d[0].numel() for d in dirs}) != 1:
                 raise ValueError("a stage's directions move different rows")
+            _planes_used([d[2] for d in dirs], self.n_shards,
+                         len(self.planes))
             self.stages.append(dirs)
             self.n_rows.append(dirs[0][0].numel())
         # rows of rhobar the fused stage reads: it must hold them
@@ -162,6 +218,11 @@ class FillPlan:
         self.grid = (max(_blocks(n, lg) for n in self.n_rows
                          for lg in (self.vec_lg, self.elem_lg)),
                      n_dirs * self.n_shards)
+        for t in self.planes:
+            if tuple(t.shape) != (self.n_rows[0], A) or t.dtype != dtype:
+                raise ValueError(f"a receive plane must be {dtype} "
+                                 f"{(self.n_rows[0], A)}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
         self.args = None
         if device.type == "cuda":
             self._keep = keep
@@ -174,11 +235,15 @@ class FillPlan:
             a.vec_lg, a.elem_lg = self.vec_lg, self.elem_lg
             a.grid_x, a.grid_y = self.grid
             a.device = self.device_index
+            a.n_planes = len(self.planes)
+            a.plane[:len(self.planes)] = _plane_ptrs(
+                self.planes, (self.n_rows[0], A), dtype, self.vec,
+                "halo_fill plane")
             k = 0
             for i, dirs in enumerate(self.stages):
                 g = a.stage[i]
                 g.n_rows = self.n_rows[i]
-                for d, (send, recv, _r) in enumerate(dirs):
+                for d, (send, recv, _t) in enumerate(dirs):
                     g.send[d], g.recv[d] = send.data_ptr(), recv.data_ptr()
                     g.to[d] = keep[k].data_ptr()
                     k += 1
@@ -199,12 +264,15 @@ class PushedField(NamedTuple):
 class PushPlan:
     """The launch plan of one atom-exchange stage.
 
-    ``dirs``: one or two directions ``(send, ring)``: shard s sends rows
-    ``send`` of each field into row k of shard ``ring[s]``'s arrival buffer
-    of that direction.  ``fields``: ``(shape, dtype)`` of each field of a
-    shard, [B], [B, A] or [P, B, A] with rows along B."""
+    ``dirs``: one or two directions ``(send, to)``: shard s sends rows
+    ``send`` of each field into row k of shard ``to[s]``'s arrival buffer
+    of that direction, or, where ``to[s] >= S``, of receive plane set
+    ``sets[to[s] - S]``.  ``fields``: ``(shape, dtype)`` of each field of a
+    shard, [B], [B, A] or [P, B, A] with rows along B.  ``sets``: flat
+    uint8 tensors of ``set_bytes``, each holding every field of one
+    (sender, direction) at ``set_off[f]`` (``set_views`` reads them)."""
 
-    def __init__(self, dirs, fields, device):
+    def __init__(self, dirs, fields, device, sets=()):
         device = _device(device)
         if not 1 <= len(dirs) <= 2:
             raise ValueError("a stage push has 1 or 2 directions")
@@ -212,6 +280,10 @@ class PushPlan:
             raise ValueError(f"a stage push moves 1 to {MAX_FIELDS} fields")
         self.n_shards = len(dirs[0][1])
         _shards(self.n_shards)
+        self.sets = list(sets)
+        if len(self.sets) > MAX_PLANES:
+            raise ValueError(f"a launch takes at most {MAX_PLANES} plane "
+                             f"sets")
         self.device = device
         shapes = [tuple(shape) for shape, _dt in fields]
         for shape, dtype in fields:
@@ -223,13 +295,15 @@ class PushPlan:
         if any(_rows_shape(sh)[1] != B for sh in shapes):
             raise ValueError("the fields differ in rows")
         self.dirs, keep = [], []
-        for send, ring in dirs:
+        for send, to in dirs:
             _rows_list(send, device, B)
-            ring, ring_dev = _ring(ring, self.n_shards, device)
-            self.dirs.append((send, ring))
-            keep.append(ring_dev)
+            to, to_dev = _targets(to, self.n_shards, len(self.sets), device)
+            self.dirs.append((send, to))
+            keep.append(to_dev)
         if len({s.numel() for s, _r in self.dirs}) != 1:
             raise ValueError("the directions move different rows")
+        _planes_used([t for _s, t in self.dirs], self.n_shards,
+                     len(self.sets))
         n = self.n_rows = self.dirs[0][0].numel()
         self.fields = []
         for shape, (_s, dtype) in zip(shapes, fields):
@@ -240,6 +314,14 @@ class PushPlan:
             self.fields.append(PushedField(
                 shape, dtype, vec, P, rv, _lanes_lg(rv),
                 (len(dirs), self.n_shards) + rest))
+        self.set_off, self.set_bytes = set_layout(
+            [(f.out_shape[2:], f.dtype) for f in self.fields])
+        for t in self.sets:
+            if t.dtype != torch.uint8 or t.dim() != 1 or \
+                    t.numel() != self.set_bytes:
+                raise ValueError(f"a receive plane set must be uint8 "
+                                 f"[{self.set_bytes}], got {t.dtype} "
+                                 f"{tuple(t.shape)}")
         self.grid_x = max(_blocks(n, f.lg) for f in self.fields)
         self.args = None
         if device.type == "cuda":
@@ -250,12 +332,39 @@ class PushPlan:
             a.n_dirs, a.n_rows = len(dirs), n
             a.grid_x = self.grid_x
             a.device = self.device_index
-            for d, ((send, _r), ring_dev) in enumerate(zip(self.dirs, keep)):
-                a.send[d], a.to[d] = send.data_ptr(), ring_dev.data_ptr()
+            for d, ((send, _r), to_dev) in enumerate(zip(self.dirs, keep)):
+                a.send[d], a.to[d] = send.data_ptr(), to_dev.data_ptr()
             for i, f in enumerate(self.fields):
                 a.field[i] = _PushField(f.planes, f.row_vecs, f.vec_bytes,
                                         f.lg, B * f.row_vecs)
+                a.set_off[i] = self.set_off[i]
+            a.n_sets = len(self.sets)
+            a.set[:len(self.sets)] = _plane_ptrs(
+                self.sets, (self.set_bytes,), torch.uint8, 16,
+                "ring_push plane set")
             self.ref = ctypes.byref(a)
+
+    def set_views(self, buf: torch.Tensor) -> list:
+        """The fields of one plane set ``buf`` (uint8 [set_bytes]), each
+        shaped as one (direction, shard) slab of its arrivals."""
+        out = []
+        for off, f in zip(self.set_off, self.fields):
+            size = int(np.prod(f.out_shape[2:])) * f.dtype.itemsize
+            out.append(buf[off:off + size].view(f.dtype)
+                       .reshape(f.out_shape[2:]))
+        return out
+
+
+def set_layout(slabs) -> tuple:
+    """(byte offset of each field, bytes) of one receive plane set: the
+    fields' (shape, dtype) slabs of one (sender, direction) in order, each
+    at a multiple of 16 bytes, so that every field keeps its 16-byte
+    moves."""
+    offs, at = [], 0
+    for shape, dtype in slabs:
+        offs.append(at)
+        at += -(-int(np.prod(shape)) * dtype.itemsize // 16) * 16
+    return offs, at
 
 
 def _rows_shape(shape) -> tuple:
@@ -271,22 +380,32 @@ def _rows_shape(shape) -> tuple:
 # plain PyTorch versions
 # --------------------------------------------------------------------------
 
-def fill_push_plain(x, ring, send, recv) -> None:
+def _put(x, t: int, recv, v, planes) -> None:
+    """Rows ``v`` into rows ``recv`` of shard ``t``'s field, or into
+    receive plane ``t - S``."""
+    if t < len(x):
+        x[t][recv] = v
+    else:
+        planes[t - len(x)].copy_(v)
+
+
+def fill_push_plain(x, to, send, recv, planes=()) -> None:
     """One direction of one fill stage, in place: rows ``send`` of every
-    shard's field ``x[s]`` into rows ``recv`` of ``x[ring[s]]``.  All
-    shards are read before any is written."""
+    shard's field ``x[s]`` into rows ``recv`` of ``x[to[s]]`` (or into
+    ``planes[to[s] - S]``).  All shards are read before any is written."""
     got = [v[send] for v in x]
     for s, v in enumerate(got):
-        x[ring[s]][recv] = v
+        _put(x, to[s], recv, v, planes)
 
 
-def pass2_push_plain(rhobar, dfe, to, send, recv, emb: EmbedTable) -> list:
+def pass2_push_plain(rhobar, dfe, to, send, recv, emb: EmbedTable,
+                     planes=()) -> list:
     """For every shard s: F'(rhobar[s] at rows ``send``) written into rows
-    ``recv`` of ``dfe[to[s]]``, in place.  Returns each shard's local copy
-    [n_rows, A] of its plane."""
+    ``recv`` of ``dfe[to[s]]`` (or into ``planes[to[s] - S]``), in place.
+    Returns each shard's local copy [n_rows, A] of its plane."""
     local = [emb(rho[send])[1] for rho in rhobar]
     for s, v in enumerate(local):
-        dfe[to[s]][recv] = v
+        _put(dfe, to[s], recv, v, planes)
     return local
 
 
@@ -294,28 +413,36 @@ def halo_fill_plain(plan: FillPlan, x: list, rhobar=None,
                     emb: EmbedTable = None) -> list:
     """The fill of ``plan`` on every shard's field ``x[s]``, in place,
     stage by stage; with ``rhobar`` the first stage pushes F'(rhobar)
-    (``emb``: pass 2's evaluator)."""
+    (``emb``: pass 2's evaluator).  Rows for receive planes go into the
+    plan's planes."""
     for i, dirs in enumerate(plan.stages):
-        for send, recv, ring in dirs:
+        for send, recv, to in dirs:
             if i == 0 and rhobar is not None:
-                pass2_push_plain(rhobar, x, ring, send, recv, emb)
+                pass2_push_plain(rhobar, x, to, send, recv, emb, plan.planes)
             else:
-                fill_push_plain(x, ring, send, recv)
+                fill_push_plain(x, to, send, recv, plan.planes)
     return x
 
 
 def ring_push_plain(plan: PushPlan, srcs) -> list:
     """One stage push of ``plan``: for every field f (``srcs[f]``, one
     tensor a shard), direction d and shard s, rows ``send[d]`` of
-    ``srcs[f][s]`` into ``out[f][d, ring_d[s]]``.  Returns ``out``, one
-    [n_dirs, S, ...] arrival tensor a field."""
+    ``srcs[f][s]`` into ``out[f][d, to_d[s]]``, or into field f of the
+    plan's plane set ``to_d[s] - S``.  Returns ``out``, one [n_dirs, S,
+    ...] arrival tensor a field."""
     out = [torch.empty(f.out_shape, dtype=f.dtype, device=srcs[0][0].device)
            for f in plan.fields]
-    for o, ts in zip(out, srcs):
+    sets = [plan.set_views(b) for b in plan.sets]
+    S = plan.n_shards
+    for i, (o, ts) in enumerate(zip(out, srcs)):
         axis = 1 if ts[0].dim() == 3 else 0
-        for d, (send, ring) in enumerate(plan.dirs):
+        for d, (send, to) in enumerate(plan.dirs):
             for s, t in enumerate(ts):
-                o[d, ring[s]] = t.index_select(axis, send)
+                v = t.index_select(axis, send)
+                if to[s] < S:
+                    o[d, to[s]] = v
+                else:
+                    sets[to[s] - S][i].copy_(v)
     return out
 
 
@@ -332,13 +459,14 @@ class _FillArgs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_int) for k in (
         "n_shards", "n_dirs", "n_stages", "fused", "elem_bytes", "vec_bytes",
         "row_elems", "row_vecs", "vec_lg", "elem_lg", "grid_x", "grid_y",
-        "device")] + [
+        "device", "n_planes")] + [
         ("stage", _FillStage * MAX_STAGES),
         ("embed_n", ctypes.c_int), ("embed_x0", ctypes.c_double),
         ("embed_inv_dx", ctypes.c_double), ("embed_table", ctypes.c_void_p),
         ("x", ctypes.c_void_p * MAX_SHARDS),
         ("rho", ctypes.c_void_p * MAX_SHARDS),
-        ("local", ctypes.c_void_p * MAX_SHARDS)]
+        ("local", ctypes.c_void_p * MAX_SHARDS),
+        ("plane", ctypes.c_void_p * MAX_PLANES)]
 
 
 class _PushField(ctypes.Structure):
@@ -349,11 +477,14 @@ class _PushField(ctypes.Structure):
 
 class _PushArgs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_int) for k in (
-        "n_fields", "n_shards", "n_dirs", "n_rows", "grid_x", "device")] + [
+        "n_fields", "n_shards", "n_dirs", "n_rows", "grid_x", "device",
+        "n_sets")] + [
         ("send", ctypes.c_void_p * 2), ("to", ctypes.c_void_p * 2),
         ("field", _PushField * MAX_FIELDS),
         ("src", (ctypes.c_void_p * MAX_SHARDS) * MAX_FIELDS),
-        ("dst", ctypes.c_void_p * MAX_FIELDS)]
+        ("dst", ctypes.c_void_p * MAX_FIELDS),
+        ("set", ctypes.c_void_p * MAX_PLANES),
+        ("set_off", ctypes.c_longlong * MAX_FIELDS)]
 
 
 _lib = None
@@ -365,20 +496,30 @@ _NOT_SUPPORTED = 801   # cudaErrorNotSupported
 def build():
     """Compile csrc/comm.cu for sm_90a (first use) and bind it.  -fmad=false
     keeps the fused stage's arithmetic rounded op by op, as PyTorch's eager
-    pass 2."""
+    pass 2; -lcuda links the stream memory operations of cuda.h."""
     global _lib, BUILD_SECONDS
     with _lib_lock:
         if _lib is not None:
             return _lib
-        lib, BUILD_SECONDS = build_library(SOURCE, "comm", ("-fmad=false",))
-        lib.comd_halo_fill.restype = ctypes.c_int
-        lib.comd_halo_fill.argtypes = [ctypes.POINTER(_FillArgs),
-                                       ctypes.c_void_p]
-        lib.comd_ring_push.restype = ctypes.c_int
-        lib.comd_ring_push.argtypes = [ctypes.POINTER(_PushArgs),
-                                       ctypes.c_void_p]
-        lib.comd_comm_error_string.restype = ctypes.c_char_p
-        lib.comd_comm_error_string.argtypes = [ctypes.c_int]
+        lib, BUILD_SECONDS = build_library(SOURCE, "comm",
+                                           ("-fmad=false", "-lcuda"))
+        P, I, V = ctypes.POINTER, ctypes.c_int, ctypes.c_void_p
+        for name, args in (
+                ("comd_halo_fill", [P(_FillArgs), V]),
+                ("comd_ring_push", [P(_PushArgs), V]),
+                ("comd_arena_alloc", [P(V), ctypes.c_longlong, I]),
+                ("comd_arena_free", [V, I]),
+                ("comd_ipc_handle", [V, I, ctypes.c_char_p]),
+                ("comd_ipc_open", [ctypes.c_char_p, I, P(V)]),
+                ("comd_ipc_close", [V, I]),
+                ("comd_peer_access", [I, I]),
+                ("comd_stream_wait", [V, V, ctypes.c_uint]),
+                ("comd_stream_write", [V, V, ctypes.c_uint])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = I, args
+        for name in ("comd_comm_error_string", "comd_cu_error_string"):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = ctypes.c_char_p, [I]
         _lib = lib
         return lib
 
@@ -452,7 +593,7 @@ def _launch_fill(plan: FillPlan, x, rhobar, emb, local) -> None:
     lib = build()
     stream = torch.cuda.current_stream(plan.device_index).cuda_stream
     _raise_on(lib, lib.comd_halo_fill(plan.ref, stream), "halo_fill")
-    LAUNCHES["halo_fill"] += 1
+    LAUNCHES[plan.count_as] += 1
 
 
 def halo_fill(plan: FillPlan, x: list, rhobar=None,
@@ -489,11 +630,11 @@ def pass2_push(rhobar, dfe, to, send, recv, emb: EmbedTable) -> list:
 def ring_push(plan: PushPlan, srcs) -> list:
     """One atom-exchange stage push of ``plan`` in one launch: for every
     field f (``srcs[f]``: one tensor a shard), direction d and shard s, rows
-    ``send[d]`` of ``srcs[f][s]`` go into ``out[f][d, ring_d[s]]``, each
-    field at its own vector width.  Returns ``out``, one [n_dirs, S, ...]
-    arrival tensor a field (rows along the field's B axis replaced by the
-    sent rows).  CPU tensors run the plain version; CUDA tensors the
-    kernel."""
+    ``send[d]`` of ``srcs[f][s]`` go into ``out[f][d, to_d[s]]`` (or into
+    the plan's plane set ``to_d[s] - S``), each field at its own vector
+    width.  Returns ``out``, one [n_dirs, S, ...] arrival tensor a field
+    (rows along the field's B axis replaced by the sent rows).  CPU tensors
+    run the plain version; CUDA tensors the kernel."""
     if srcs[0][0].device.type == "cpu":
         return ring_push_plain(plan, srcs)
     a, S = plan.args, plan.n_shards
@@ -514,3 +655,107 @@ def ring_push(plan: PushPlan, srcs) -> list:
     _raise_on(lib, lib.comd_ring_push(plan.ref, stream), "ring_push")
     LAUNCHES["ring_push"] += 1
     return out
+
+
+# --------------------------------------------------------------------------
+# across processes: the receive-plane arena and the ready counters
+# --------------------------------------------------------------------------
+
+def _check(err: int, what: str) -> None:
+    if err != 0:
+        msg = build().comd_comm_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} (cudaError {err})")
+
+
+def _check_cu(err: int, what: str) -> None:
+    if err != 0:
+        msg = build().comd_cu_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: {msg} (CUresult {err}); the "
+                           f"cross-process ki transports need the stream "
+                           f"memory operations (cuStreamWaitValue32, "
+                           f"cuStreamWriteValue32)")
+
+
+class _CudaArray:
+    """A device buffer as ``__cuda_array_interface__`` (bytes), so that
+    ``torch.as_tensor`` views it without owning it."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 2}
+
+
+def device_bytes(ptr: int, nbytes: int) -> torch.Tensor:
+    """A uint8 tensor over ``nbytes`` of device memory at ``ptr`` (this
+    process's arena or a peer's opened one), on the card that holds it;
+    the memory stays owned by whoever allocated or opened it."""
+    return torch.as_tensor(_CudaArray(ptr, nbytes))
+
+
+class Arena:
+    """One process's receive-plane arena: ``nbytes`` of device memory from
+    cudaMalloc, zeroed, with its 64-byte IPC handle (``handle``), and the
+    peers' arenas opened from theirs (``open``).  ``close`` closes the
+    peers and frees the arena; the caller makes sure first that no process
+    still writes into either (parallel/dist.destroy's barrier)."""
+
+    def __init__(self, nbytes: int, device):
+        self.device = _device(device)
+        self.index = self.device.index
+        lib = build()
+        ptr = ctypes.c_void_p()
+        _check(lib.comd_arena_alloc(ctypes.byref(ptr), int(nbytes),
+                                    self.index), "cudaMalloc of the arena")
+        self.ptr, self.nbytes = ptr.value, int(nbytes)
+        self.peers = {}          # process -> opened base pointer
+        buf = ctypes.create_string_buffer(64)
+        _check(lib.comd_ipc_handle(self.ptr, self.index, buf),
+               "cudaIpcGetMemHandle of the arena")
+        self.handle = buf.raw
+        self.view = device_bytes(self.ptr, self.nbytes)
+
+    def open(self, proc: int, handle: bytes, peer_device: int) -> int:
+        """Open process ``proc``'s arena (never this process's own) and
+        return its base pointer here.  With a card a process, peer access
+        to ``peer_device`` first (raises where it is refused)."""
+        lib = build()
+        if peer_device != self.index:
+            _check(lib.comd_peer_access(self.index, peer_device),
+                   f"peer access from cuda:{self.index} to "
+                   f"cuda:{peer_device}")
+        ptr = ctypes.c_void_p()
+        _check(lib.comd_ipc_open(bytes(handle), self.index,
+                                 ctypes.byref(ptr)),
+               f"cudaIpcOpenMemHandle of process {proc}'s arena")
+        self.peers[proc] = ptr.value
+        return ptr.value
+
+    def close(self) -> None:
+        lib = build()
+        for proc, ptr in sorted(self.peers.items()):
+            _check(lib.comd_ipc_close(ptr, self.index),
+                   f"cudaIpcCloseMemHandle of process {proc}'s arena")
+        self.peers = {}
+        if self.ptr is not None:
+            self.view = None
+            _check(lib.comd_arena_free(self.ptr, self.index),
+                   "cudaFree of the arena")
+            self.ptr = None
+
+
+def stream_wait(addr: int, value: int, device) -> None:
+    """The current stream waits until the 32-bit counter at ``addr`` has
+    reached ``value`` (cuStreamWaitValue32, greater or equal)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _check_cu(build().comd_stream_wait(stream, addr, value),
+                  "cuStreamWaitValue32")
+
+
+def stream_write(addr: int, value: int, device) -> None:
+    """The current stream writes ``value`` to the 32-bit counter at
+    ``addr`` after every earlier write of the stream (cuStreamWriteValue32
+    with its memory barrier)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _check_cu(build().comd_stream_write(stream, addr, value),
+                  "cuStreamWriteValue32")

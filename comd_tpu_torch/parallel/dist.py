@@ -22,9 +22,16 @@ The backend is chosen once, before any launch, from the device count alone
 A failure of ``init_process_group``, of a send or of a receive raises;
 nothing retries on another backend.  Without ``init`` every function here
 describes the single process (index 0 of 1).
+
+The kernel-initiated transports across processes (parallel/ki_comm.py)
+move their planes through CUDA IPC, not through the group: the group only
+gathers the arenas' handles once (``allgather`` of uint8 numpy), and
+``destroy`` frees the arenas (``at_destroy``) after a barrier, so that no
+process still writes into memory that another frees.
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -67,9 +74,40 @@ def init(num_procs: int, coordinator: str, proc_id: int,
     return dev
 
 
+_AT_DESTROY = []     # closers of the ki arenas, run by destroy
+
+
+def at_destroy(fn) -> None:
+    """Run ``fn`` (an arena's close) in ``destroy``, after every process
+    has finished its writes and before the group goes."""
+    _AT_DESTROY.append(fn)
+
+
 def destroy() -> None:
+    """Leave the group.  The ki arenas go first: every process waits for
+    its card, then for the others (a barrier), so that no peer's last
+    write lands in freed memory; then each arena is closed and freed.
+    While an exception propagates (this process failed) there is no
+    barrier, which the peers may never reach: the memory goes with the
+    process."""
+    if _AT_DESTROY:
+        failed = sys.exc_info()[0] is not None
+        if not failed:
+            torch.cuda.synchronize()
+            barrier()
+        while _AT_DESTROY:
+            fn = _AT_DESTROY.pop()
+            if not failed:
+                fn()
     if tdist.is_initialized():
         tdist.destroy_process_group()
+
+
+def all_ok(ok: bool) -> bool:
+    """Whether ``ok`` holds on every process (an allgather): a step that
+    one process failed fails on all, instead of leaving the others waiting
+    for it."""
+    return bool(allgather(np.array([ok], np.uint8)).all())
 
 
 def process_index() -> int:

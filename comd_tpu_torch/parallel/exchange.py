@@ -168,7 +168,11 @@ class Halo:
     exchanges across processes the routes (``_route``), the receive
     buffers (one set a stage and message layout) and the traffic counters
     (bytes sent, by kind of exchange under ("bytes", kind), and
-    ``dist.exchange``'s timing), all made on first use."""
+    ``dist.exchange``'s timing), all made on first use; and, for the ki
+    transports across processes, ``ipc``: the link (ki_comm.Link: this
+    process's arena of receive planes, the peers' opened arenas, the
+    call counters of the stage schedule) and the stages' plans and
+    planes, made on the first ki call."""
     mesh: Mesh
     geom: CellGeometry
     maps: GeomMaps
@@ -187,6 +191,8 @@ class Halo:
                                       repr=False)
     routes: dict = dataclasses.field(default_factory=dict, compare=False,
                                      repr=False)
+    ipc: dict = dataclasses.field(default_factory=dict, compare=False,
+                                  repr=False)
 
 
 def make_halo(mesh: Mesh, geom: CellGeometry, maps: GeomMaps,

@@ -18,23 +18,49 @@ the planes move with the hand-written kernels of ops/cuda/comm.py:
     of both directions into per-shard arrival buffers, then the arrivals
     re-binned by coordinate exactly as the collective path does.
 
-The launch plans (row lists, rings, vector widths, grid) are made on first
-use and kept on the ``Halo``, one a field shape.  The staged x -> y -> z
-order and the growing cross-sections are those of exchange.exchange_scalar
-/ exchange_atoms, so all three transports give the same state bit for bit.
-The kernels move raw 32-bit words, so the gid and count fields travel as
-int32 and comd_tpu's _pack_ints (ints through float buffers) has no
-counterpart.
+Across processes (a multi-process launch) every stage is one launch of
+this process's shards, as comd_tpu's kernels push into a neighbor on
+another device: a receiver in this process gets its rows directly, a
+receiver in another process gets a receive plane in that process's arena
+(``Link``: one cudaMalloc a process, opened by the peers through its CUDA
+IPC handle), and unpacks it into its halo rows itself, as comd_tpu's
+``x.at[recv].set`` does after its remote copy (fill: one indexed copy a
+plane; atoms: ``append_arrivals`` reads the planes).  The stages are
+ordered on the stream, with no host wait, by counters that only grow
+(``epoch_values``; csrc/comm.cu says how): the Pallas kernels' neighbor
+barrier and DMA semaphores, the reference's ready flags (comm.cc:326-397).
+On the CPU the same stages run on the plain versions and the planes for
+other processes move with ``dist.exchange`` in ``exchange._route``'s
+order; the receiver unpacks them with the same code.
+
+The launch plans (row lists, destination maps, planes, vector widths,
+grid) are made on first use and kept on the ``Halo``, one a field shape.
+The staged x -> y -> z order and the growing cross-sections are those of
+exchange.exchange_scalar / exchange_atoms, so all three transports give the
+same state bit for bit, in one process or several.  The kernels move raw
+32-bit words, so the gid and count fields travel as int32 and comd_tpu's
+_pack_ints (ints through float buffers) has no counterpart.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..ops import binning
+from ..ops.cuda import comm
 from ..ops.cuda.comm import FillPlan, PushPlan, halo_fill, ring_push
 from ..potentials.tables import EmbedTable
+from . import dist, exchange
 from .exchange import Halo
 
+KINDS = ("fill", "atoms")     # the stage kinds, each with its counters
+
+
+# --------------------------------------------------------------------------
+# in one process
+# --------------------------------------------------------------------------
 
 def fill_plan(h: Halo, x0: torch.Tensor) -> FillPlan:
     """The dfEmbed fill's plan for fields like ``x0`` ([B, A]): for each
@@ -68,10 +94,54 @@ def atom_plan(h: Halo, axis: int, fields) -> PushPlan:
 
 
 def exchange_scalar_ki(h: Halo, x: list) -> list:
-    """dfEmbed halo exchange in one kernel launch, in place on every
-    shard's [B, A] field: the same 3-stage growing-cross-section schedule
-    as exchange.exchange_scalar (haloExchange.c:345-475)."""
+    """dfEmbed halo exchange in one kernel launch (one a stage across
+    processes), in place on every shard's [B, A] field: the same 3-stage
+    growing-cross-section schedule as exchange.exchange_scalar
+    (haloExchange.c:345-475)."""
+    if h.mesh.nprocs > 1:
+        return _fill_across(h, x)
     return halo_fill(fill_plan(h, x[0]), x)
+
+
+def exchange_scalar_ki_fused(h: Halo, x: list, rhobar_l: list,
+                             f_eval: EmbedTable) -> list:
+    """dfEmbed exchange with the x-stage pushes fused into the embedding
+    evaluation (the reference's exchangeData_Force_KI fusion,
+    comm_ki.cuh:187-310), in one kernel launch (one a stage across
+    processes): the x stage computes F'(rhobar) of each +-x face plane of
+    every shard, on the sender, and writes it into the x neighbor's halo
+    rows (or its receive plane).  ``f_eval`` is pass 2's evaluator, so the
+    plane values equal the interior ones bit for bit.  The y and z stages
+    forward columns that hold x-stage arrivals, so they copy the assembled
+    field.  In place on every shard's [B, A] field."""
+    if h.mesh.nprocs > 1:
+        return _fill_across(h, x, rhobar_l, f_eval)
+    return halo_fill(fill_plan(h, x[0]), x, rhobar_l, f_eval)
+
+
+def _slots(h: Halo, A: int) -> torch.Tensor:
+    """[1, A]: the slot indices the counts are held against."""
+    return torch.arange(A, device=h.mesh.device)[None, :]
+
+
+def _unload(h: Halo, axis: int, r, p, gid, n_atoms, slab, slot, overflow):
+    """Re-bin one stage's arrivals into every shard, direction 0 (from my
+    minus neighbor, shift -ext) before direction 1 (from my plus neighbor,
+    +ext); ``slab(s, d)`` gives shard s's arrivals of direction d as
+    (r [3, n, A], p, gid [n, A], counts [n]).  In place on the lists;
+    returns the overflow flag."""
+    ext = h.ext[axis]
+    for s in range(len(r)):
+        for d, shift in ((0, -ext), (1, +ext)):
+            got_r, got_p, got_g, got_n = slab(s, d)
+            valid = (slot < got_n[:, None]).reshape(-1)
+            arr_r = got_r.reshape(3, -1)
+            arr_r[axis] += shift        # the sender's frame -> ours
+            r[s], p[s], gid[s], n_atoms[s], ovf = binning.append_arrivals(
+                h.geom, h.maps, r[s], p[s], gid[s], n_atoms[s], arr_r,
+                got_p.reshape(3, -1), got_g.reshape(-1), valid)
+            overflow = overflow | ovf
+    return overflow
 
 
 def exchange_atoms_ki(h: Halo, r: list, p: list, gid: list, n_atoms: list):
@@ -80,43 +150,423 @@ def exchange_atoms_ki(h: Halo, r: list, p: list, gid: list, n_atoms: list):
     two send planes of whole cells (r, p, gid and the counts) are pushed,
     both directions before any unload, into per-shard arrival buffers laid
     out as comd_tpu's [8, n, A] arrivals (typed: r and p [3, n, A], gid
-    [n, A], counts [n]); arrivals are re-binned by coordinate as in
-    exchange.exchange_atoms.  Returns new lists (r, p, gid, n_atoms) and the
-    overflow flag."""
-    geom, maps = h.geom, h.maps
+    [n, A], counts [n]), or into receivers' plane sets in other processes;
+    arrivals are re-binned by coordinate as in exchange.exchange_atoms.
+    Returns new lists (r, p, gid, n_atoms) and the overflow flag."""
+    if h.mesh.nprocs > 1:
+        return _atoms_across(h, r, p, gid, n_atoms)
     r, p, gid, n_atoms = list(r), list(p), list(gid), list(n_atoms)
-    A = r[0].shape[-1]
-    slot = torch.arange(A, device=h.mesh.device)[None, :]
+    slot = _slots(h, r[0].shape[-1])
     overflow = torch.zeros((), dtype=torch.bool, device=h.mesh.device)
     for axis in range(3):
-        ext = h.ext[axis]
         fields = (r, p, gid, n_atoms)
-        got_r, got_p, got_g, got_n = ring_push(atom_plan(h, axis, fields),
-                                               fields)
-        # direction 0: from my minus neighbor (its plus planes), shift -ext;
-        # direction 1: from my plus neighbor, shift +ext
-        for s in range(len(r)):
-            for d, shift in ((0, -ext), (1, +ext)):
-                valid = (slot < got_n[d, s][:, None]).reshape(-1)
-                arr_r = got_r[d, s].reshape(3, -1)
-                arr_r[axis] += shift        # the sender's frame -> ours
-                r[s], p[s], gid[s], n_atoms[s], ovf = \
-                    binning.append_arrivals(
-                        geom, maps, r[s], p[s], gid[s], n_atoms[s], arr_r,
-                        got_p[d, s].reshape(3, -1), got_g[d, s].reshape(-1),
-                        valid)
-                overflow = overflow | ovf
+        got = ring_push(atom_plan(h, axis, fields), fields)
+        overflow = _unload(h, axis, r, p, gid, n_atoms,
+                           lambda s, d: [g[d, s] for g in got], slot,
+                           overflow)
     return r, p, gid, n_atoms, overflow
 
 
-def exchange_scalar_ki_fused(h: Halo, x: list, rhobar_l: list,
-                             f_eval: EmbedTable) -> list:
-    """dfEmbed exchange with the x-stage pushes fused into the embedding
-    evaluation (the reference's exchangeData_Force_KI fusion,
-    comm_ki.cuh:187-310), in one kernel launch: the x stage computes
-    F'(rhobar) of each +-x face plane of every shard and writes it into the
-    x neighbor's halo rows.  ``f_eval`` is pass 2's evaluator, so the plane
-    values equal the interior ones bit for bit.  The y and z stages forward
-    columns that hold x-stage arrivals, so they copy the assembled field.
-    In place on every shard's [B, A] field."""
-    return halo_fill(fill_plan(h, x[0]), x, rhobar_l, f_eval)
+# --------------------------------------------------------------------------
+# across processes: the stage schedule, the arena, the stages
+# --------------------------------------------------------------------------
+
+def epoch_values(n: int) -> dict:
+    """The counter values of call ``n`` (1, 2, ...) of one (kind, axis)
+    stage across processes, the same on both sides of every (sender,
+    receiver) pair of processes: the sender waits until the receiver has
+    released call n - 1's planes ("free" >= n - 1), pushes, and writes
+    "data" = n into the receiver's arena; the receiver waits for "data" >=
+    n, unpacks, and writes "free" = n into the sender's arena.  Both count
+    their calls of each (kind, axis) alike, because every process makes
+    the same calls in the same order (the lazy and list triggers are
+    allgathered, so every process rebuckets on the same steps)."""
+    return {"wait_free": n - 1, "write_data": n, "wait_data": n,
+            "write_free": n}
+
+
+class Schedule:
+    """This process's calls of each (kind, axis) stage so far."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def next(self, kind: str, axis: int) -> dict:
+        """The counter values of the next call of (kind, axis)."""
+        n = self.calls[kind, axis] = self.calls.get((kind, axis), 0) + 1
+        return epoch_values(n)
+
+
+def counter_word(role: str, kind: str, axis: int, peer: int,
+                 nprocs: int) -> int:
+    """The index of a 32-bit counter in an arena's counter block: "data"
+    of (kind, axis) written by sender ``peer``, "free" of (kind, axis)
+    written by receiver ``peer``, or "probe" written by ``peer`` once when
+    the link is made."""
+    if role == "probe":
+        return 2 * len(KINDS) * 3 * nprocs + peer
+    base = {"data": 0, "free": len(KINDS) * 3 * nprocs}[role]
+    return base + (KINDS.index(kind) * 3 + axis) * nprocs + peer
+
+
+def _align(n: int, to: int) -> int:
+    return -(-n // to) * to
+
+
+def atom_slabs(n: int, A: int, dtype: torch.dtype) -> list:
+    """(shape, dtype) of one sender's atom message of ``n`` cells: r and p
+    [3, n, A], gid [n, A] and the counts [n] (int32)."""
+    return [((3, n, A), dtype), ((3, n, A), dtype), ((n, A), torch.int32),
+            ((n,), torch.int32)]
+
+
+def plane_bytes(h: Halo, kind: str, axis: int, A: int,
+                dtype: torch.dtype) -> int:
+    """Bytes of one receive plane of stage (kind, axis), a multiple of 16:
+    a fill plane [n_rows, A], or an atom plane set (``atom_slabs``)."""
+    if kind == "fill":
+        return _align(len(h.plan.force_send[axis][0]) * A * dtype.itemsize,
+                      16)
+    return comm.set_layout(atom_slabs(len(h.plan.atom_send[axis][0]), A,
+                                      dtype))[1]
+
+
+def arena_layout(h: Halo, A: int, dtype: torch.dtype) -> tuple:
+    """This process's arena: ({(kind, axis, sender process): byte offset
+    of the planes it sends here}, {(kind, axis): plane bytes}, bytes).
+    The counter block comes first; then, stage by stage, the planes of
+    each sender process in ``exchange._route``'s order (the order in which
+    the sender walks them too)."""
+    P = h.mesh.nprocs
+    at = _align(4 * (2 * len(KINDS) * 3 + 1) * P, 256)
+    offsets, sizes = {}, {}
+    for kind in KINDS:
+        for axis in range(3):
+            pb = sizes[kind, axis] = plane_bytes(h, kind, axis, A, dtype)
+            recvs = exchange._route(h, axis)[2]
+            for q in sorted(recvs):
+                offsets[kind, axis, q] = at
+                at += len(recvs[q]) * pb
+    return offsets, sizes, at
+
+
+def _peers(h: Halo) -> list:
+    """The processes this one sends planes to (and receives from)."""
+    return sorted({q for axis in range(3)
+                   for q in exchange._route(h, axis)[1]})
+
+
+class Link:
+    """This process's side of the ki transports across processes: the
+    arena layout, the stage schedule and, on the card, the arena (its
+    receive planes and counters), the peers' arenas opened through their
+    IPC handles, and where this process's planes go in each of them.  Made
+    at the first cross-process ki call, by every process at once."""
+
+    def __init__(self, h: Halo, A: int, dtype: torch.dtype):
+        mesh = h.mesh
+        self.A, self.dtype = A, dtype
+        self.device = mesh.device
+        self.nprocs, self.me = mesh.nprocs, mesh.proc
+        self.offsets, self.sizes, self.nbytes = arena_layout(h, A, dtype)
+        self.schedule = Schedule()
+        self.arena = None
+        self.peer_views = {}     # process -> uint8 view of its arena
+        self.peer_offsets = {}   # process -> {(kind, axis): my planes' off}
+        if self.device.type == "cuda":
+            self._open(h)
+
+    def _open(self, h: Halo) -> None:
+        """Allocate the arena, gather every process's handle, layout and
+        card, open the peers' arenas and probe the counters; a step that
+        fails on any process raises on all of them."""
+        P, me = self.nprocs, self.me
+        err = None
+        try:
+            self.arena = comm.Arena(self.nbytes, self.device)
+            handle = np.frombuffer(self.arena.handle, np.uint8)
+        except RuntimeError as e:
+            err, handle = e, np.zeros(64, np.uint8)
+        table = np.full((len(KINDS), 3, P), -1, np.int64)
+        for (kind, axis, q), off in self.offsets.items():
+            table[KINDS.index(kind), axis, q] = off
+        info = np.array([self.nbytes, self.device.index], np.int64)
+        handles, tables, infos = (dist.allgather(handle),
+                                  dist.allgather(table),
+                                  dist.allgather(info))
+        if not dist.all_ok(err is None):
+            raise err or RuntimeError("the ki arena failed on another "
+                                      "process")
+        dist.at_destroy(self.close)
+        try:
+            for q in _peers(h):
+                base = self.arena.open(q, handles[q].tobytes(),
+                                       int(infos[q, 1]))
+                self.peer_views[q] = comm.device_bytes(base,
+                                                       int(infos[q, 0]))
+                self.peer_offsets[q] = {
+                    (kind, axis): int(tables[q, k, axis, me])
+                    for k, kind in enumerate(KINDS) for axis in range(3)}
+                # the counters reach the peer's arena (once)
+                self.write(q, counter_word("probe", "", 0, me, P), 1)
+            own = counter_word("probe", "", 0, me, P)
+            self.write(me, own, 1)
+            self.wait(own, 1)
+            torch.cuda.synchronize(self.device)
+        except RuntimeError as e:
+            err = e
+        if not dist.all_ok(err is None):
+            raise err or RuntimeError("opening the ki arenas failed on "
+                                      "another process")
+
+    def close(self) -> None:
+        if self.arena is not None:
+            self.peer_views = {}
+            self.arena.close()
+            self.arena = None
+
+    # ---- counters (the card) ----
+
+    def _addr(self, proc: int, word: int) -> int:
+        base = self.arena.ptr if proc == self.me else \
+            self.peer_views[proc].data_ptr()
+        return base + 4 * word
+
+    def write(self, proc: int, word: int, value: int) -> None:
+        """The stream writes ``value`` to counter ``word`` of process
+        ``proc``'s arena, after every earlier write of the stream."""
+        comm.stream_write(self._addr(proc, word), value, self.device)
+
+    def wait(self, word: int, value: int) -> None:
+        """The stream waits until counter ``word`` of this process's arena
+        has reached ``value``."""
+        comm.stream_wait(self._addr(self.me, word), value, self.device)
+
+    # ---- buffers ----
+
+    def outbox(self, kind: str, axis: int, q: int, nbytes: int):
+        """Where this process's planes of stage (kind, axis) for process
+        ``q`` go: a view of q's arena (the card) or a host buffer that
+        ``dist.exchange`` sends (the CPU)."""
+        if self.arena is None:
+            return torch.zeros(nbytes, dtype=torch.uint8)
+        off = self.peer_offsets[q][kind, axis]
+        return self.peer_views[q][off:off + nbytes]
+
+    def inbox(self, kind: str, axis: int, q: int, nbytes: int):
+        """Where process ``q``'s planes of stage (kind, axis) arrive: a view
+        of this process's arena (the card); None on the CPU, where
+        ``dist.exchange`` returns them."""
+        if self.arena is None:
+            return None
+        off = self.offsets[kind, axis, q]
+        return self.arena.view[off:off + nbytes]
+
+    # ---- one stage ----
+
+    def begin(self, kind: str, axis: int, st: "_Stage") -> dict:
+        """Before the push of stage (kind, axis): its counter values, and
+        on the card the wait until every receiver has released its
+        planes."""
+        v = self.schedule.next(kind, axis)
+        if self.arena is not None and v["wait_free"] > 0:
+            for q in st.sends:
+                self.wait(counter_word("free", kind, axis, q, self.nprocs),
+                          v["wait_free"])
+        return v
+
+    def deliver(self, h: Halo, kind: str, axis: int, v: dict,
+                st: "_Stage") -> dict:
+        """After the push: the planes that arrived here, {sender process:
+        uint8 buffer}.  The card: the data counters written into the
+        receivers' arenas, then the wait on this process's own; the CPU:
+        one ``dist.exchange`` of the outboxes."""
+        sent = sum(len(v_) for v_ in st.sends.values()) * st.pb
+        count = ("planes", kind)
+        h.traffic[count] = h.traffic.get(count, 0) + sent
+        if not st.recvs:
+            return {}
+        if self.arena is None:
+            nbytes = {q: len(sl) * st.pb for q, sl in st.recvs.items()}
+            return dist.exchange(st.outbox, nbytes,
+                                 h.bufs.setdefault(("ki", kind, axis,
+                                                    st.pb), {}), h.traffic)
+        for q in st.sends:
+            self.write(q, counter_word("data", kind, axis, self.me,
+                                       self.nprocs), v["write_data"])
+        for q in st.recvs:
+            self.wait(counter_word("data", kind, axis, q, self.nprocs),
+                      v["wait_data"])
+        return st.inbox
+
+    def release(self, kind: str, axis: int, v: dict, st: "_Stage") -> None:
+        """After the unpack (the card): the free counters written into the
+        senders' arenas."""
+        if self.arena is None:
+            return
+        for q in st.recvs:
+            self.write(q, counter_word("free", kind, axis, self.me,
+                                       self.nprocs), v["write_free"])
+
+
+class _Stage(NamedTuple):
+    """One stage across processes, made once a field layout."""
+    plan: object      # FillPlan or PushPlan, its planes in the outboxes
+    pb: int           # bytes of a plane (fill) or plane set (atoms)
+    sends: dict       # receiver process -> [(sender slot, k)], in order
+    recvs: dict       # sender process -> [(receiver slot, k)], in order
+    outbox: dict      # receiver process -> uint8 buffer of its planes
+    inbox: dict       # sender process -> uint8 view of my arena (card)
+
+
+def _link(h: Halo, A: int, dtype: torch.dtype) -> Link:
+    link = h.ipc.get("link")
+    if link is None:
+        link = h.ipc["link"] = Link(h, A, dtype)
+    elif (link.A, link.dtype) != (A, dtype):
+        raise ValueError(f"the ki arena holds planes of A = {link.A} "
+                         f"{link.dtype}, not A = {A} {dtype}")
+    return link
+
+
+def _typed(buf: torch.Tensor, off: int, shape, dtype) -> torch.Tensor:
+    """The bytes of ``buf`` from ``off`` as a ``dtype`` tensor of
+    ``shape``."""
+    n = int(np.prod(shape)) * dtype.itemsize
+    return buf[off:off + n].view(dtype).reshape(shape)
+
+
+def _stage(h: Halo, link: Link, kind: str, axis: int, make):
+    """The routes, outboxes and inboxes of stage (kind, axis), and the
+    destination maps of its two kernel directions: ``to[d][j]`` is the
+    receiver slot of sender slot j's direction-d rows in this process, or
+    S + the index of its plane in another.  ``make(to, planes)`` makes the
+    plan.  The kernel's direction of a message k of ``_route`` (k = 0: to
+    the sender's minus neighbor) is k for the fill and 1 - k for the atoms
+    (ki_comm's directions, as fill_plan and atom_plan set them)."""
+    local, sends, recvs = exchange._route(h, axis)
+    S = len(h.mesh.owned)
+    pb = link.sizes[kind, axis]
+    to = [[None] * S for _ in range(2)]
+
+    def d_of(k):
+        return 1 - k if kind == "atoms" else k
+    for i, k, j in local:
+        to[d_of(k)][j] = i
+    outbox, planes = {}, []
+    for q in sorted(sends):
+        buf = outbox[q] = link.outbox(kind, axis, q, len(sends[q]) * pb)
+        for m, (j, k) in enumerate(sends[q]):
+            to[d_of(k)][j] = S + len(planes)
+            planes.append((buf, m * pb))
+    assert all(t is not None for d in to for t in d), "a message has no route"
+    inbox = {q: link.inbox(kind, axis, q, len(sl) * pb)
+             for q, sl in recvs.items()} if link.arena is not None else {}
+    return _Stage(make(to, planes), pb, sends, recvs, outbox, inbox)
+
+
+def _fill_stage(h: Halo, link: Link, axis: int, x0: torch.Tensor) -> _Stage:
+    key = ("fill stage", axis, tuple(x0.shape), x0.dtype)
+    if key not in h.ipc:
+        n, A = len(h.plan.force_send[axis][0]), x0.shape[1]
+
+        def make(to, planes):
+            return FillPlan(
+                [[(h.force_send[axis][k], h.force_recv[axis][1 - k], to[k])
+                  for k in (0, 1)]], x0.shape, x0.dtype, h.mesh.device,
+                [_typed(b, off, (n, A), x0.dtype) for b, off in planes],
+                count_as="halo_fill_stage")
+        h.ipc[key] = _stage(h, link, "fill", axis, make)
+    return h.ipc[key]
+
+
+def _atom_stage(h: Halo, link: Link, axis: int, fields) -> _Stage:
+    key = ("atom stage", axis) + tuple((tuple(f[0].shape), f[0].dtype)
+                                       for f in fields)
+    if key not in h.ipc:
+        pb = link.sizes["atoms", axis]
+
+        def make(to, planes):
+            return PushPlan(
+                [(h.atom_send[axis][1], to[0]), (h.atom_send[axis][0], to[1])],
+                [(f[0].shape, f[0].dtype) for f in fields], h.mesh.device,
+                [b[off:off + pb] for b, off in planes])
+        h.ipc[key] = _stage(h, link, "atoms", axis, make)
+    return h.ipc[key]
+
+
+def _fill_push(h: Halo, link: Link, axis: int, x: list, rhobar=None,
+               emb=None):
+    """Stage ``axis`` of the fill across processes, up to its push: one
+    launch of this process's shards (F'(rhobar) on the sender in the x
+    stage when ``rhobar`` is given) into this process's fields and the
+    other processes' planes.  Returns (stage, counter values)."""
+    st = _fill_stage(h, link, axis, x[0])
+    v = link.begin("fill", axis, st)
+    if axis == 0 and rhobar is not None:
+        halo_fill(st.plan, x, rhobar, emb)
+    else:
+        halo_fill(st.plan, x)
+    return st, v
+
+
+def _fill_unpack(h: Halo, axis: int, st: _Stage, got: dict, x: list):
+    """Each plane that arrived from another process (``got``: {sender
+    process: bytes}) copied into its receiver's halo rows, in place."""
+    shape = (st.plan.n_rows[0], st.plan.shape[1])
+    for q, slots in sorted(st.recvs.items()):
+        for m, (i, k) in enumerate(slots):
+            x[i][h.force_recv[axis][1 - k]] = _typed(got[q], m * st.pb,
+                                                     shape, x[i].dtype)
+
+
+def _fill_across(h: Halo, x: list, rhobar=None, emb=None) -> list:
+    """The dfEmbed fill across processes, stage by stage: the push, the
+    planes delivered, the unpack, the planes released.  In place."""
+    link = _link(h, x[0].shape[1], x[0].dtype)
+    for axis in range(3):
+        st, v = _fill_push(h, link, axis, x, rhobar, emb)
+        _fill_unpack(h, axis, st, link.deliver(h, "fill", axis, v, st), x)
+        link.release("fill", axis, v, st)
+    return x
+
+
+def _atoms_push(h: Halo, link: Link, axis: int, fields):
+    """Stage ``axis`` of the atom exchange across processes, up to its
+    push: one launch of this process's shards.  Returns (stage, counter
+    values, this process's arrival buffers)."""
+    st = _atom_stage(h, link, axis, fields)
+    v = link.begin("atoms", axis, st)
+    return st, v, ring_push(st.plan, fields)
+
+
+def _atoms_unpack(h: Halo, axis: int, st: _Stage, got: list, inbox: dict,
+                  r, p, gid, n_atoms, slot, overflow):
+    """Every shard's arrivals of both directions re-binned, from this
+    process's arrival buffers ``got`` or from the plane sets of other
+    processes (``inbox``: {sender process: bytes}), as in one process.  In
+    place on the lists; returns the overflow flag."""
+    remote = {}      # (receiver slot, direction) -> its arrivals
+    for q, slots in sorted(st.recvs.items()):
+        for m, (i, k) in enumerate(slots):
+            remote[i, 1 - k] = st.plan.set_views(
+                inbox[q][m * st.pb:(m + 1) * st.pb])
+    return _unload(h, axis, r, p, gid, n_atoms,
+                   lambda s, d: remote.get((s, d)) or [g[d, s] for g in got],
+                   slot, overflow)
+
+
+def _atoms_across(h: Halo, r: list, p: list, gid: list, n_atoms: list):
+    """The atom exchange across processes, stage by stage: the push, the
+    plane sets delivered, the re-binning, the planes released."""
+    r, p, gid, n_atoms = list(r), list(p), list(gid), list(n_atoms)
+    link = _link(h, r[0].shape[-1], r[0].dtype)
+    slot = _slots(h, r[0].shape[-1])
+    overflow = torch.zeros((), dtype=torch.bool, device=h.mesh.device)
+    for axis in range(3):
+        st, v, got = _atoms_push(h, link, axis, (r, p, gid, n_atoms))
+        inbox = link.deliver(h, "atoms", axis, v, st)
+        overflow = _atoms_unpack(h, axis, st, got, inbox, r, p, gid,
+                                 n_atoms, slot, overflow)
+        link.release("atoms", axis, v, st)
+    return r, p, gid, n_atoms, overflow

@@ -15,8 +15,9 @@ phases:
     through ``torch.distributed`` where the neighbor is in another process
     (parallel/exchange.py), or the halo kernels of parallel/ki_comm.py
     under ``--commImpl ki|ki_fused`` (one launch a dfEmbed fill, three an
-    atom exchange; one process only: across processes they are ROADMAP.md
-    Queue 1 item 18);
+    atom exchange; across processes one launch a stage, pushing into the
+    receive planes of the other processes' arenas over CUDA IPC, ordered by
+    counters on the stream);
   - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
     and -a 1's migration count are read on the host once per step (one
     allgather each across processes).  ePot, n_local and the overflow flag
@@ -53,7 +54,7 @@ from ..ops import binning
 from ..ops import neighborlist as nlmod
 from ..ops.neighborlist import needs_rebuild
 from ..sim import (Physics, SimState, _sync, _tscope, bin_atoms_host_np,
-                   init_potential, not_ported, plan_geometry)
+                   init_potential, plan_geometry)
 from . import dist, exchange, ki_comm
 from .mesh import Mesh, gen_shard_atoms, make_mesh
 
@@ -83,8 +84,6 @@ class ShardedSimulation(Physics):
                                                     self.cfg.max_atoms)
         if self.cfg.comm_impl not in ("collective", "ki", "ki_fused"):
             raise ValueError(f"invalid comm_impl {self.cfg.comm_impl!r}")
-        if self.mesh.nprocs > 1 and self.cfg.comm_impl != "collective":
-            not_ported("--commImpl ki|ki_fused across processes", "18")
         # per-shard ePot of this process's shards at the last energy step;
         # None after a restore, whose states hold the mesh's ePot
         self._e_parts = None

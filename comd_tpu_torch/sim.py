@@ -65,14 +65,6 @@ class LazySimState:
     last_r: torch.Tensor     # [3, B, A]
 
 
-def not_ported(what: str, item: str):
-    """Options outside the ported slice raise, naming the ROADMAP.md
-    Queue 1 item that ports them, instead of running something else."""
-    raise NotImplementedError(
-        f"{what} is not ported to comd_tpu_torch yet (ROADMAP.md Queue 1 "
-        f"item {item}); run it with comd_tpu")
-
-
 class Physics:
     """What a single-domain and a sharded simulation share: the device,
     dtype and cell maps, the pair and embedding evaluators, the stepping

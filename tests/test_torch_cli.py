@@ -1,4 +1,4 @@
-"""The port's CLI against comd_tpu's, and the options outside the slice.
+"""The port's CLI against comd_tpu's.
 
 ``python -m comd_tpu_torch.cli`` must print the same "Initial energy",
 per-step energies and validation numbers as ``python -m comd_tpu.cli`` for
@@ -10,12 +10,10 @@ serial run warns, and an undersized ``--haloMsgFactor`` aborts.  The
 neighbor-list methods (-m thread_atom_nl, warp_atom_nl, cpu_nl, and -L)
 run, serial and on a 2x2x2 mesh, from comd_tpu's initial energy, and
 ``-e -m thread_atom_nl`` prints comd_tpu's printThings rows, as does ``-a
-1`` (the interior/boundary split) on a 2x2x2 mesh.  The kernel-initiated
-transports across processes (``--commImpl ki --numProcs 2``), outside the
-port so far, raise NotImplementedError naming the ROADMAP.md item that
-ports them, before any process group exists, instead of running something
-else (the multi-process launch itself: tests/test_torch_multiproc*.py).  (-P, -I and the
-run tools: tests/test_torch_cli_options.py, tests/test_torch_runtools.py.)
+1`` (the interior/boundary split) on a 2x2x2 mesh.  (The multi-process
+launch, ki transports included: tests/test_torch_multiproc*.py; -P, -I and
+the run tools: tests/test_torch_cli_options.py,
+tests/test_torch_runtools.py.)
 """
 import io
 import os
@@ -166,16 +164,6 @@ def test_cli_undersized_nl_k_aborts():
     cfg.nl_max_neighbors = 8
     with pytest.raises(RuntimeError, match="step 0: .*neighbor list row"):
         tcli.run(cfg, out=io.StringIO())
-
-
-@pytest.mark.parametrize("extra,item", [
-    pytest.param(["-e", "-i", "2", "--commImpl", "ki", "--numProcs", "2"],
-                 "18", id="extra5-18"),
-])
-def test_out_of_slice_options_raise(extra, item):
-    argv = ["-x", "4", "-y", "4", "-z", "4", "-N", "1", "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=rf"item {item}\)"):
-        tcli.main(argv + extra)
 
 
 MESH_ARGS = ["-e", "-x", "8", "-y", "8", "-z", "8", "-i", "2", "-j", "2",

@@ -25,6 +25,7 @@ transport.
 """
 import dataclasses
 import os
+import types
 
 import numpy as np
 import pytest
@@ -38,7 +39,8 @@ from comd_tpu_torch.ops.cuda import comm as cm
 from comd_tpu_torch.ops.cuda import nl as cuda_nl
 from comd_tpu_torch.ops.cuda import probe as cuda_probe
 from comd_tpu_torch.ops.cuda import stencil as st
-from comd_tpu_torch.parallel import ki_comm
+from comd_tpu_torch.parallel import exchange, ki_comm
+from comd_tpu_torch.parallel.mesh import make_mesh
 from comd_tpu_torch.probes import lookup, window
 
 POTS = os.path.join(os.path.dirname(os.path.dirname(
@@ -445,6 +447,67 @@ def test_pass2_push_matches_pass2(cuda_device, dtype):
         assert _equal(local, ref) and _equal(plain, ref) and _equal(a, b)
         assert all(v[recv].ne(0).all() for v in a)
     assert st.LAUNCHES["halo_fill"] == 2
+
+
+def _scratch_link(h, A, dtype):
+    """A stand-in for ki_comm.Link whose receive planes for other
+    processes are local zeroed buffers on the card, so that a stage's
+    kernel and plain version can be held against each other in one
+    process."""
+    return types.SimpleNamespace(
+        sizes=ki_comm.arena_layout(h, A, dtype)[1], arena=None,
+        outbox=lambda kind, axis, q, n: torch.zeros(
+            n, dtype=torch.uint8, device=h.mesh.device),
+        inbox=lambda *a: None)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_stage_pushes_into_planes_match_plain(cuda_device, dtype, n):
+    """The stages across processes, process 0's view of a 2x2x2 mesh on
+    n processes: each fill stage (one ordinary launch; the x stage also
+    fused) and each atom stage writes this process's fields and the
+    receive planes of the others exactly as its plain version does."""
+    sim = _mesh_sim(dtype, comm_impl="ki_fused")
+    mesh = make_mesh(2, 2, 2, cuda_device, nprocs=n, proc=0)
+    h = exchange.make_halo(mesh, sim.geom, sim.maps, sim.plan, sim.dtype)
+    own = list(mesh.owned)
+    A = sim.states[0].gid.shape[1]
+    link = _scratch_link(h, A, sim.dtype)
+    rhobar = [st.eam_pass1(sim.states[s].r, sim.maps.nbr_map, sim.pair_eval,
+                           want_energy=False)[2] for s in own]
+    torch.manual_seed(2)
+    x = [torch.randn(sim.states[s].gid.shape, dtype=sim.dtype,
+                     device=cuda_device) for s in own]
+    crossed = 0
+    st.reset_launch_counts()
+    for axis in range(3):
+        stage = ki_comm._fill_stage(h, link, axis, x[0])
+        for extra in ((), (rhobar, sim.f_eval)) if axis == 0 else ((),):
+            for p in stage.plan.planes:
+                p.zero_()
+            a = cm.halo_fill(stage.plan, [v.clone() for v in x], *extra)
+            planes = [p.clone() for p in stage.plan.planes]
+            b = cm.halo_fill_plain(stage.plan, [v.clone() for v in x],
+                                   *extra)
+            assert _equal(a, b) and _equal(planes, stage.plan.planes)
+            assert all(p.ne(0).any() for p in planes)
+        crossed += len(stage.plan.planes)
+        fields = [[getattr(sim.states[s], k) for s in own]
+                  for k in ("r", "p", "gid", "n_atoms")]
+        astage = ki_comm._atom_stage(h, link, axis, fields)
+        got = cm.ring_push(astage.plan, fields)
+        sets = [b.clone() for b in astage.plan.sets]
+        want = cm.ring_push_plain(astage.plan, fields)
+        for d, (_send, to) in enumerate(astage.plan.dirs):
+            for j, t in enumerate(to):
+                if t < len(own):
+                    assert all(torch.equal(g[d, t], w[d, t])
+                               for g, w in zip(got, want))
+        assert _equal(sets, astage.plan.sets)
+    assert crossed > 0
+    assert (st.LAUNCHES["halo_fill_stage"], st.LAUNCHES["ring_push"]) == \
+        (4, 3)
 
 
 @pytest.mark.parametrize("comm_impl", ["ki", "ki_fused"])

@@ -9,8 +9,6 @@ other processes over torch.distributed (gloo here).  The checks:
   - every stage's routes agree between the processes: what process a sends
     process b, in order, is what b expects from a;
   - the backend rule, with the device count passed in;
-  - ``--commImpl ki|ki_fused --numProcs 2`` raises naming ROADMAP item 18
-    before any process group exists (no coordinator is given);
   - 4 processes on 2x2x1 (one shard each: x and y neighbors in other
     processes, z the shard itself) print, on process 0, the single-process
     mesh's printThings rows digit for digit (timing column dropped), and
@@ -117,7 +115,7 @@ def check_launch(n: int, args: list, n_rows: int, single=(), multi=(),
 
 
 # --------------------------------------------------------------------------
-# in-process: ownership, routes, the backend rule, the ki raise
+# in-process: ownership, routes, the backend rule
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
@@ -190,14 +188,6 @@ def test_backend_rule(device, n, count, want):
 def test_single_process_describes_itself():
     assert dist.process_index() == 0 and dist.process_count() == 1
     assert dist.allgather(torch.arange(3)).tolist() == [[0, 1, 2]]
-
-
-@pytest.mark.parametrize("impl", ["ki", "ki_fused"])
-def test_ki_across_processes_raises(impl):
-    argv = ["-e", "-x", "4", "-y", "4", "-z", "4", "-i", "2", "-N", "1",
-            "--device", "cpu", "--commImpl", impl, "--numProcs", "2"]
-    with pytest.raises(NotImplementedError, match=r"item 18\)"):
-        tcli.main(argv)
 
 
 def test_missing_coordinator_fails():
