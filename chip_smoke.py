@@ -186,15 +186,35 @@ the first error:
                  any worker starts.  (Phase 12 also holds halo_fill_stage,
                  process 0 of 2's fused x stage with local scratch planes,
                  against its plain version and times it.)
+ 18. graphs   -- the step's CUDA graphs (comd_tpu_torch/stepgraph.py)
+                 against the eager loop (``sim.cuda_graphs = False``), in
+                 this process one after the other, at 63^3 f32: EAM on
+                 K1, LJ on K1, EAM -m thread_atom_nl, EAM on 2x2x2
+                 ki_fused in one process.  Each run warms up through its
+                 first rebucket, steps 100 timed steps (launch counts
+                 zeroed just before), then 20 with the host syncs counted
+                 (torch.cuda.set_sync_debug_mode): ms/step of both,
+                 launches a step equal, graph replays a step, exactly one
+                 host sync a step outside the rebucket steps and the
+                 captures, the host time of a refresh step and of a
+                 rebucket step (between trigger reads), the bytes the
+                 in-place step copies into its buffers, and the final r
+                 (sha256) and ePot equal bit for bit.  --halfShell
+                 (K2's atomics) at 20^3 f64:
+                 the printed energies per atom within one unit of the
+                 last of 12 digits.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
-read just after.  Imports torch, numpy and comd_tpu_torch only; builds
+read just after; every one-process lazy and list path (phases 5, 8, 9,
+12, 14, 15, 16) steps through the CUDA graphs, whose replays credit the
+launches each graph's capture recorded.  Imports torch, numpy and comd_tpu_torch only; builds
 everything from this checkout (the four kernel sources with one nvcc each,
 in parallel).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import re
@@ -972,10 +992,16 @@ def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,
         st.LAUNCHES.update(at_init)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    ends = []
     for _ in range(n_blocks):
         sim.step_block(block)
-    torch.cuda.synchronize()
-    t_loop = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+    t_loop = ends[-1] - t0
+    # the first blocks carry one-off costs (the graphs' captures, first
+    # allocations): the median block beside the whole run
+    per_block = sorted(b - a for a, b in zip([t0] + ends, ends))
+    median_ms = 1e3 * per_block[len(per_block) // 2] / block
     launches = dict(st.LAUNCHES)
     n_steps = n_blocks * block
     e1 = (sim.e_potential + sim.kinetic_energy()) / n
@@ -993,7 +1019,8 @@ def run_main(tag: str, keys, n_blocks: int = 10, block: int = 10,
         f"grid={sim.geom.grid} "
         f"mode={sim.cfg.cell_mode} skin={sim.skin:.4f} "
         f"rebuckets={sim.n_rebucket} init {t_init:.2f} s; "
-        f"{n_steps} steps {ms_step:.3f} ms/step "
+        f"{n_steps} steps {ms_step:.3f} ms/step (median block "
+        f"{median_ms:.3f}, slowest {1e3 * per_block[-1]:.1f} ms) "
         f"{n * n_steps / t_loop:.4e} atom-steps/s; eInitial {e0:.12f} "
         f"eFinal {e1:.12f} ratio-1 {e1 / e0 - 1.0:.3e}; launches "
         f"{ {k: launches[k] for k in keys} }")
@@ -2114,6 +2141,207 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
     return stage_launches
 
 
+#: what torch.cuda.set_sync_debug_mode("warn") says of each host sync
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def count_syncs(sim, n_blocks: int, block: int) -> dict:
+    """Host syncs of ``n_blocks`` blocks, counted by
+    torch.cuda.set_sync_debug_mode: those inside the rebucket steps,
+    inside captures (the first use of a graph) and the rest (the
+    trigger's read, one a step)."""
+    import warnings
+    import torch
+    got = []
+    inside = {"rebucket": 0, "capture": 0}
+
+    def n_sync():
+        return sum(SYNC_WARNING in str(w.message) for w in got)
+
+    def wrap(key, fn):
+        def counted(*a, **kw):
+            n0 = n_sync()
+            try:
+                return fn(*a, **kw)
+            finally:
+                inside[key] += n_sync() - n0
+        return counted
+
+    sim._rebucket_step = wrap("rebucket", sim._rebucket_step)
+    graphs = sim._graphs
+    if graphs is not None:
+        graphs._capture = wrap("capture", graphs._capture)
+    reb0 = sim.n_rebucket
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            got = rec
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(n_blocks):
+                    sim.step_block(block)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            total = n_sync()
+    finally:
+        del sim._rebucket_step
+        if graphs is not None:
+            del graphs._capture
+    return dict(total=total, rebucket=inside["rebucket"],
+                capture=inside["capture"],
+                rest=total - inside["rebucket"] - inside["capture"],
+                rebuckets=sim.n_rebucket - reb0, steps=n_blocks * block)
+
+
+@contextlib.contextmanager
+def step_clock():
+    """Yields a list that gets (host time, flag) at every read of a step's
+    trigger, eager or graph (stepgraph's ``read``, a host sync each)."""
+    from comd_tpu_torch import stepgraph
+    reads = []
+    saved = {c: c.read for c in (stepgraph.EagerSteps, stepgraph.GraphSteps)}
+
+    def clocked(orig):
+        def read(self, reduce):
+            flag = orig(self, reduce)
+            reads.append((time.perf_counter(), flag))
+            return flag
+        return read
+
+    for c, orig in saved.items():
+        c.read = clocked(orig)
+    try:
+        yield reads
+    finally:
+        for c, orig in saved.items():
+            c.read = orig
+
+
+def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
+                   blocks: int = 10, block: int = 10, **kw) -> dict:
+    """Phase 18: one headline stepped by the eager loop and by the CUDA
+    graphs (``sim.cuda_graphs``), one after the other in this process.
+    Each run warms up through its first rebucket (the graphs captured),
+    then steps ``blocks`` blocks timed by the host clock with the launch
+    counts zeroed just before, then two blocks with the host syncs
+    counted.  Returns {mode: dict(ms, launches, replays, syncs, digest,
+    e_pot, e_atom, captures, refresh_ms, rebucket_ms)}."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    out = {}
+    for mode in ("eager", "graphs"):
+        sim = init_simulation(Config(
+            nx=n, ny=n, nz=n, temperature=600.0, dtype=dtype, max_atoms=0,
+            cell_mode="auto", pot_dir=POTS, device="cuda", **kw))
+        sim.cuda_graphs = mode == "graphs"
+        warm = 0
+        while warm < 200:
+            sim.step_block(block)
+            warm += block
+            if sim.n_rebucket:
+                break
+        captures0 = sim._graphs.captures if sim._graphs else 0
+        replays0 = sim._graphs.replays if sim._graphs else 0
+        reb0 = sim.n_rebucket
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        with step_clock() as reads:
+            t0 = time.perf_counter()
+            for _ in range(blocks):
+                sim.step_block(block)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        steps = blocks * block
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        g = sim._graphs
+        # a step between two trigger reads (each a host sync): a ghost
+        # refresh, or a rebucket when the first read was set
+        gaps = {True: [], False: []}
+        for (t_a, flag), (t_b, _f) in zip(reads, reads[1:]):
+            gaps[flag].append(1e3 * (t_b - t_a))
+        res = dict(ms=1e3 * wall / steps, steps=steps, warm=warm,
+                   refresh_ms=float(np.median(gaps[False])),
+                   rebucket_ms=(float(np.mean(gaps[True])) if gaps[True]
+                                else float("nan")),
+                   rebuckets=sim.n_rebucket - reb0,
+                   launches=launches,
+                   replays=(g.replays - replays0) / steps if g else 0.0,
+                   captures=(g.captures - captures0) if g else 0)
+        res["syncs"] = count_syncs(sim, 2, block)
+        states = sim.states if hasattr(sim, "states") else [sim.state]
+        res["digest"] = r_digest([s.r.cpu().numpy() for s in states])
+        # what the in-place step copies into its buffers: a rebucket step
+        # the new r, p, gid, counts and baseline (on the list paths the
+        # list's rows and baseline; NL1 writes the list itself in place),
+        # every step the force's rows into f
+        lists = (sim.nlists if hasattr(sim, "nlists") else [sim.nlist]) \
+            if sim.uses_nl else []
+        lasts = sim.last_r if hasattr(sim, "states") else [sim.last_r]
+        res["rebucket_bytes"] = sum(
+            s.r.nbytes + s.p.nbytes + s.gid.nbytes + s.n_atoms.nbytes
+            for s in states) + sum(
+            lst.a_list.nbytes + lst.a_valid.nbytes + lst.last_r.nbytes
+            for lst in lists) + (0 if sim.uses_nl else sum(
+                x.nbytes for x in lasts))
+        res["force_bytes"] = sum(s.f.nbytes for s in states)
+        res["e_pot"] = sim.e_potential
+        res["e_atom"] = ((sim.e_potential / sim.n_global),
+                         (sim.e_potential + sim.kinetic_energy())
+                         / sim.n_global)
+        check((g is not None) == (mode == "graphs"),
+              f"{tag}: the {mode} run's graphs: {g}")
+        check(sim.sum_atoms() == sim.n_global and not sim.overflow,
+              f"{tag} {mode}: atoms lost or overflow")
+        out[mode] = res
+        del sim, g, states
+        torch.cuda.empty_cache()
+    e, g = out["eager"], out["graphs"]
+    for m in (e, g):
+        sy = m["syncs"]
+        check(sy["rest"] == sy["steps"],
+              f"{tag}: {sy['rest']} host syncs outside rebucket steps and "
+              f"captures in {sy['steps']} steps: {sy}")
+    check(e["launches"] == g["launches"],
+          f"{tag}: launches differ: eager {e['launches']}, graphs "
+          f"{g['launches']}")
+    check(g["replays"] > 0, f"{tag}: no graph replayed")
+    return out
+
+
+def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
+    e, g = out["eager"], out["graphs"]
+    if bitwise:
+        check(e["digest"] == g["digest"] and e["e_pot"] == g["e_pot"],
+              f"{tag}: graphs and eager end apart: r sha256 "
+              f"{g['digest'][:16]} vs {e['digest'][:16]}, ePot "
+              f"{g['e_pot']!r} vs {e['e_pot']!r}")
+    steps = e["steps"]
+    per = {k: round(v / steps, 2) for k, v in e["launches"].items()}
+    say("graphs", f"{tag}: {steps} steps after {e['warm']} (eager) and "
+        f"{g['warm']} (graphs) of warm-up; eager {e['ms']:.3f} ms/step, "
+        f"graphs {g['ms']:.3f} ms/step ({e['ms'] / g['ms']:.2f}x); "
+        f"launches a step {per} (equal); graph replays a step "
+        f"{g['replays']:.2f}, captures in the timed steps {g['captures']}; "
+        f"rebuckets {e['rebuckets']}, {g['rebuckets']}; a step between "
+        f"trigger reads (host clock), refresh median {e['refresh_ms']:.3f} "
+        f"(eager), {g['refresh_ms']:.3f} (graphs) ms, rebucket mean "
+        f"{e['rebucket_ms']:.3f}, {g['rebucket_ms']:.3f} ms")
+    for mode, m in (("eager", e), ("graphs", g)):
+        sy = m["syncs"]
+        say("graphs", f"{tag} {mode}: host syncs in {sy['steps']} steps "
+            f"{sy['total']}: {sy['rest'] / sy['steps']:.2f} a step outside "
+            f"rebucket steps, {sy['rebucket']} in {sy['rebuckets']} "
+            f"rebucket steps, {sy['capture']} in captures")
+    say("graphs", f"{tag}: the in-place step copies "
+        f"{g['rebucket_bytes']:,} B into its buffers a rebucket step and "
+        f"writes {g['force_bytes']:,} B of f a step")
+    if bitwise:
+        say("graphs", f"{tag}: final r sha256 {g['digest'][:16]}.. and "
+            f"ePot {g['e_pot']:.6f} equal bit for bit")
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -2487,6 +2715,30 @@ def main() -> int:
     # 17. the multi-process launch on the one card
     rows["halo_fill_stage"]["launches"] = run_multiproc(
         serial_epot[0], coll, one_proc, timing)
+
+    # 18. the CUDA graphs of the step against the eager loop
+    for tag, kw in (("EAM K1", dict(doeam=True)),
+                    ("LJ K1", dict(doeam=False)),
+                    ("EAM -m thread_atom_nl", dict(
+                        doeam=True, method="thread_atom_nl")),
+                    ("EAM 2x2x2 ki_fused", dict(
+                        doeam=True, comm_impl="ki_fused", **MESH))):
+        say_graph_vs_eager(tag, graph_vs_eager(tag, **kw))
+    # --halfShell: K2's f32 sums use atomics, so in f64 the printed
+    # energies (12 digits) may differ by one unit in the last digit
+    half = graph_vs_eager("EAM --halfShell f64 20^3", n=20,
+                          dtype="float64", blocks=2, doeam=True,
+                          half_shell=True)
+    say_graph_vs_eager("EAM --halfShell f64 20^3", half, bitwise=False)
+    gap = max(abs(float(f"{a:.12f}") - float(f"{b:.12f}"))
+              for a, b in zip(half["eager"]["e_atom"],
+                              half["graphs"]["e_atom"]))
+    check(gap <= 1.5e-12, f"--halfShell graphs and eager print energies "
+          f"{gap:.3e} eV/atom apart")
+    say("graphs", f"EAM --halfShell f64 20^3: potential and total energy "
+        f"per atom {half['graphs']['e_atom'][0]:.12f}, "
+        f"{half['graphs']['e_atom'][1]:.12f}; printed digits "
+        f"{gap:.1e} eV/atom from the eager loop's")
 
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",

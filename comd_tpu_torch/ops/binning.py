@@ -264,13 +264,14 @@ def box_from_coord(geom: CellGeometry, maps: GeomMaps, r: torch.Tensor):
 
 
 def wrap_pbc(r: torch.Tensor, global_extent) -> torch.Tensor:
-    """Wrap coordinates into [0, L] per axis.
+    """Wrap coordinates into [0, L] per axis; ``global_extent`` [3] on the
+    host or, read without a copy, as a tensor of r's dtype and device.
 
     The result may land exactly on L for values infinitesimally below 0 (fp
     rounding); rebucket() folds such boundary cases back through the halo
     map, so no strict [0, L) guarantee is needed here.
     """
-    L = torch.as_tensor(np.asarray(global_extent), dtype=r.dtype,
+    L = torch.as_tensor(global_extent, dtype=r.dtype,
                         device=r.device).reshape(3, *([1] * (r.dim() - 1)))
     r = r - L * torch.floor(r / L)
     return torch.where(r >= L, r - L, r)

@@ -119,28 +119,42 @@ def nl_build_plain(r, a_list, a_valid, nbr_map, n_atoms, *, k: int,
     return nl, count, ((count > k) & a_valid).any()
 
 
-def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float):
+def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float,
+             out=None):
     """The first ``k`` j of each row within sqrt(rcut2) (rcut + skin),
     in candidate order, self-padded: (nl [R, k] int32, count [R] int32,
     overflow 0-dim bool: a valid row has more than ``k``).  ``nbr_map``
     [n_local, 27] int32, ``n_atoms`` [B] int32; the rows as ``atom_rows``
-    makes them (a cell's valid rows contiguous, in slot order).  CPU
-    tensors run the plain version; CUDA tensors NL1."""
+    makes them (a cell's valid rows contiguous, in slot order).  ``out``
+    (contiguous [R, k] int32 on r's device), when given, receives the
+    list in place and is returned as ``nl``.  CPU tensors run the plain
+    version; CUDA tensors NL1."""
     n_rows = a_list.shape[0]
     _check_rows(a_list, a_valid, n_rows)
     if nbr_map.dim() != 2 or nbr_map.shape[1] != 27 or \
             nbr_map.dtype != torch.int32 or n_atoms.dtype != torch.int32:
         raise ValueError("nbr_map must be [n_local, 27] int32 and n_atoms "
                          "int32")
+    if out is not None and (out.shape != (n_rows, k) or
+                            out.dtype != torch.int32 or
+                            not out.is_contiguous() or
+                            out.device != r.device):
+        raise ValueError(f"out must be a contiguous [{n_rows}, {k}] int32 "
+                         f"tensor on {r.device}")
     if r.device.type == "cpu":
-        return nl_build_plain(r, a_list, a_valid, nbr_map, n_atoms, k=k,
-                              rcut2=rcut2)
+        nl, count, overflow = nl_build_plain(r, a_list, a_valid, nbr_map,
+                                             n_atoms, k=k, rcut2=rcut2)
+        if out is not None:
+            nl = out.copy_(nl)
+        return nl, count, overflow
     _check_cuda(r, (r, a_list, a_valid, nbr_map, n_atoms))
     B, A = r.shape[1], r.shape[2]
     dev = r.device
     n_local = nbr_map.shape[0]
     row_start = nlmod.cell_row_starts(a_list, a_valid, n_local, A)
-    nl = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
+    nl = out if out is not None else torch.empty((n_rows, k),
+                                                 dtype=torch.int32,
+                                                 device=dev)
     count = torch.empty(n_rows, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -158,17 +172,25 @@ def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float):
 
 
 def build_list(geom, nbr_map, r, n_atoms, *, k: int, rcut2: float,
-               n_rows: int, row_split=None):
+               n_rows: int, row_split=None, into: NeighborList = None):
     """Build the neighbor list of one shard: the compacted atom rows (torch
     ops; interior rows first with ``row_split``), then NL1.  Returns
-    (NeighborList, overflow); ops/neighborlist.build is its plain
-    version."""
+    (NeighborList, overflow); with ``into`` the list is written into that
+    list's tensors (NL1 straight into its ``nl``) and ``into`` returned.
+    ops/neighborlist.build is its plain version."""
     a_list, a_valid = nlmod.atom_rows(geom, n_atoms, r.shape[2], n_rows,
                                       row_split)
-    nl, _count, overflow = nl_build(r, a_list, a_valid, nbr_map, n_atoms,
-                                    k=k, rcut2=rcut2)
-    return NeighborList(a_list=a_list, a_valid=a_valid, nl=nl,
-                        last_r=r), overflow
+    if into is None:
+        nl, _count, overflow = nl_build(r, a_list, a_valid, nbr_map,
+                                        n_atoms, k=k, rcut2=rcut2)
+        return NeighborList(a_list=a_list, a_valid=a_valid, nl=nl,
+                            last_r=r), overflow
+    into.a_list.copy_(a_list)
+    into.a_valid.copy_(a_valid)
+    _nl, _count, overflow = nl_build(r, into.a_list, into.a_valid, nbr_map,
+                                     n_atoms, k=k, rcut2=rcut2, out=into.nl)
+    into.last_r.copy_(r)
+    return into, overflow
 
 
 # --------------------------------------------------------------------------

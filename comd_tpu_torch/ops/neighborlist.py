@@ -100,7 +100,8 @@ def row_split_for(geom: CellGeometry, A: int):
 def build_atom_list_split(geom: CellGeometry, n_atoms, A: int, row_split):
     """Compact slot ids as [interior rows (Ri)] ++ [boundary rows (Rb)]:
     interior-cell atoms' entries reference only local cells, so their
-    sweeps can read pre-exchange state."""
+    sweeps can read pre-exchange state.  ``row_split``'s mask may be a
+    tensor on n_atoms' device (read without a copy)."""
     is_boundary, Ri, Rb = row_split
     occ = _occupied(geom, n_atoms, A)
     is_b = torch.as_tensor(is_boundary, device=n_atoms.device)[:, None]

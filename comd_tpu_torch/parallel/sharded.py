@@ -8,8 +8,10 @@ ExchangePlan, as comd_tpu's shards run one program.  comd_tpu runs each
 step as one ``shard_map`` program; here each process holds its shards
 (all of them in a single process; a contiguous block of them a process in
 a multi-process launch, parallel/dist.py) on its one device, and a step is
-a Python loop over them with the mesh's exchanges between the per-shard
-phases:
+a loop over them with the mesh's exchanges between the per-shard phases,
+cut at the trigger into a head and a tail as in sim.py; in one process on
+the card both are replayed as CUDA graphs over every shard
+(stepgraph.py):
 
   - ``ppermute`` along an axis -> a ring shift over the shards' tensors,
     through ``torch.distributed`` where the neighbor is in another process
@@ -19,9 +21,9 @@ phases:
     receive planes of the other processes' arenas over CUDA IPC, ordered by
     counters on the stream);
   - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
-    and -a 1's migration count are read on the host once per step (one
-    allgather each across processes).  ePot, n_local and the overflow flag
-    stay on the device as this process's sums; the values the host reads
+    are read on the host once per step, and -a 1's migration count on an
+    eager (-S 0) step (one allgather each across processes).  ePot,
+    n_local and the overflow flag stay on the device as this process's sums; the values the host reads
     (``e_potential``, ``kinetic_energy``, ``sum_atoms``, ``overflow``, ...)
     gather the per-shard partials of every process and reduce them in
     shard order, so a multi-process run prints the single process's digits.
@@ -46,14 +48,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import cells, lattice
+from .. import cells, lattice, stepgraph
 from ..config import Config
 from ..constants import KB_EV
 from ..interop import state_from_numpy
 from ..ops import binning
 from ..ops import neighborlist as nlmod
 from ..ops.neighborlist import needs_rebuild
-from ..sim import (Physics, SimState, _sync, _tscope, bin_atoms_host_np,
+from ..sim import (Physics, _sync, _tscope, bin_atoms_host_np,
                    init_potential, plan_geometry)
 from . import dist, exchange, ki_comm
 from .mesh import Mesh, gen_shard_atoms, make_mesh
@@ -80,13 +82,20 @@ class ShardedSimulation(Physics):
         self.last_r = None            # per shard, at the last rebucket
         self.nlists = None            # per shard (the *_nl methods)
         if self.uses_nl and self.cfg.resolved_gpu_async:
-            self.nl_row_split = nlmod.row_split_for(self.geom,
-                                                    self.cfg.max_atoms)
+            # the boundary mask on the device: a rebuild reads it without a
+            # copy from the host (the rebucket is a CUDA graph)
+            is_b, ri, rb = nlmod.row_split_for(self.geom, self.cfg.max_atoms)
+            self.nl_row_split = (torch.as_tensor(is_b, device=self.device),
+                                 ri, rb)
         if self.cfg.comm_impl not in ("collective", "ki", "ki_fused"):
             raise ValueError(f"invalid comm_impl {self.cfg.comm_impl!r}")
         # per-shard ePot of this process's shards at the last energy step;
         # None after a restore, whose states hold the mesh's ePot
         self._e_parts = None
+
+    @property
+    def n_processes(self) -> int:
+        return self.mesh.nprocs
 
     # ---------------- reductions over the processes ----------------
 
@@ -153,134 +162,92 @@ class ShardedSimulation(Physics):
         r, p, gid, n_atoms, ovf2 = self._exchange_atoms(
             r_reb, [o[1] for o in out], [o[2] for o in out],
             [o[3] for o in out])
-        self.n_rebucket += 1
         res = (r, p, gid, n_atoms, ovf | ovf2)
         if not pre:
             return res
         migrated = self._any((torch.stack([o[4] for o in out]) > 0).any())
         return res + (r if migrated else r_reb,)
 
-    def _finish(self, states, r, p, gid, n_atoms, ovf, want_energy: bool,
-                nlists=None, r_pre=None):
-        """Force (over ``nlists`` when given), second half kick and the mesh
-        reductions."""
-        if nlists is not None:
-            res = self.forces_nl(nlists, r, self._fill_nl, want_energy,
+    def _head(self):
+        """The head of a lazy or list step over the mesh, in place: every
+        shard's half kick and drift, and the skin trigger of this
+        process's shards (a 0-dim bool, or-ed over them)."""
+        st = self.states
+        self._drift(st)
+        last = self.nlists if self.uses_nl else self.last_r
+        nl = self.geom.n_local
+        return torch.stack([needs_rebuild(b, s.r, nl, self.skin)
+                            for b, s in zip(last, st)]).any()
+
+    def _tail(self, refresh: bool, want_energy: bool, r_pre=None) -> None:
+        """The tail of a step over the mesh, in place: the slot-aligned
+        ghost-position refresh (when ``refresh``), the force (over the
+        lists on the NL paths), the second half kick and the mesh
+        reductions.  Under -a 1 (the cell split or the NL row split) the
+        interior sweeps read the positions before the refresh, or
+        ``r_pre``, or after a rebucket's exchange (atoms may have
+        migrated; comd_tpu's sharded.py:459-466)."""
+        st = self.states
+        r = [s.r for s in st]
+        if refresh:
+            split = self.uses_split or self.nl_row_split is not None
+            r_pre = [x.clone() for x in r] if split else r
+            exchange.exchange_positions(self.halo, r)
+        elif r_pre is None:
+            r_pre = r
+        if self.uses_nl:
+            res = self.forces_nl(self.nlists, r, self._fill_nl, want_energy,
                                  r_pre)
         else:
-            res = self.forces(r, n_atoms, self._fill, self._fold,
-                              want_energy, r_pre)
-        s0 = states[0]
-        if want_energy:
-            self._e_parts = torch.stack([e for _f, _u, e in res])
-            e_pot = self._e_parts.sum()
-        else:
-            e_pot = s0.e_potential
-        nl = self.geom.n_local
-        n_local = torch.stack([n[:nl].sum(dtype=torch.int32)
-                               for n in n_atoms]).sum(dtype=torch.int32)
-        overflow = s0.overflow | ovf
-        half_dt = self._c(0.5 * self.cfg.dt)
-        out = []
-        for s, (f_loc, _u, _e) in enumerate(res):
-            f = self._full_force(f_loc, states[s].f)
-            out.append(SimState(r=r[s], p=p[s] + half_dt * f, f=f,
-                                gid=gid[s], n_atoms=n_atoms[s],
-                                e_potential=e_pot, n_local=n_local,
-                                overflow=overflow))
-        return out
+            res = self.forces(r, [s.n_atoms for s in st], self._fill,
+                              self._fold, want_energy, r_pre)
+        parts = self._land(st, res, want_energy)
+        if parts is not None and self.mesh.nprocs > 1:
+            self._e_parts = parts
 
-    def step_eager(self, states, want_energy: bool = True):
-        """One step with a rebucket and atom exchange every step (comd_tpu's
-        ``_shard_step``, the reference's per-step redistribution)."""
-        rp = [self._drift(s) for s in states]
+    def _rebucket_step(self, pre: bool = False):
+        """Rebucket every shard, exchange atoms and sort into the step's
+        buffers (``_redistribute``), then the new baseline or, on the list
+        paths, every shard's rebuild into its list's buffers.  With ``pre``
+        returns the positions -a 1's interior sweeps read (the eager
+        step, whose migration count is read on the host); without it no
+        host read, so it is captured too."""
+        st = self.states
         r, p, gid, n_atoms, ovf, *r_pre = self._redistribute(
-            [x[0] for x in rp], [x[1] for x in rp],
-            [s.gid for s in states], [s.n_atoms for s in states],
-            pre=self.uses_split)
-        return self._finish(states, r, p, gid, n_atoms, ovf, want_energy,
-                            r_pre=r_pre[0] if r_pre else None)
-
-    def step_lazy(self, states, last_r, want_energy: bool = True):
-        """Lazy-shell step over the mesh (comd_tpu's ``_shard_step_lazy``,
-        the main family): the full redistribution only when some atom of
-        some shard moved skin/2 since the last rebucket, otherwise the
-        slot-aligned ghost-position refresh.  Under -a 1 the interior
-        sweeps read the positions before the refresh, or after the
-        rebucket's exchange (atoms may have migrated; comd_tpu's
-        sharded.py:459-466).  Returns (states, last_r)."""
-        rp = [self._drift(s) for s in states]
-        r = [x[0] for x in rp]
-        p = [x[1] for x in rp]
-        nl = self.geom.n_local
-        if self._any(torch.stack([needs_rebuild(lr, rs, nl, self.skin)
-                                  for lr, rs in zip(last_r, r)]).any()):
-            r, p, gid, n_atoms, ovf = self._redistribute(
-                r, p, [s.gid for s in states], [s.n_atoms for s in states])
-            last_r = r_pre = r
-        else:
-            r_pre = [x.clone() for x in r] if self.uses_split else r
-            exchange.exchange_positions(self.halo, r)
-            gid = [s.gid for s in states]
-            n_atoms = [s.n_atoms for s in states]
-            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
-        return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy,
-                             r_pre=r_pre), last_r)
-
-    def step_nl(self, states, nlists, want_energy: bool = True):
-        """Neighbor-list step over the mesh (comd_tpu's ``_shard_step_nl``):
-        when some atom of some shard moved skin/2 since the last build,
-        rebucket, exchange atoms, sort and rebuild every shard's list;
-        otherwise the slot-aligned ghost-position refresh, keeping the
-        pre-exchange positions for the split's interior rows.  Returns
-        (states, nlists)."""
-        rp = [self._drift(s) for s in states]
-        r = [x[0] for x in rp]
-        p = [x[1] for x in rp]
-        nl = self.geom.n_local
-        if self._any(torch.stack([needs_rebuild(lst, rs, nl, self.skin)
-                                  for lst, rs in zip(nlists, r)]).any()):
-            r, p, gid, n_atoms, ovf = self._redistribute(
-                r, p, [s.gid for s in states], [s.n_atoms for s in states])
-            nlists, ovf2 = self.build_lists(r, n_atoms)
-            ovf = ovf | ovf2
-            r_pre = r     # atoms may have migrated: no stale interior rows
-        else:
-            r_pre = ([x.clone() for x in r] if self.nl_row_split is not None
-                     else r)
-            exchange.exchange_positions(self.halo, r)
-            gid = [s.gid for s in states]
-            n_atoms = [s.n_atoms for s in states]
-            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
-        return (self._finish(states, r, p, gid, n_atoms, ovf, want_energy,
-                             nlists, r_pre), nlists)
+            [s.r for s in st], [s.p for s in st], [s.gid for s in st],
+            [s.n_atoms for s in st], pre=pre)
+        for s, *new in zip(st, r, p, gid, n_atoms):
+            for t, v in zip((s.r, s.p, s.gid, s.n_atoms), new):
+                t.copy_(v)
+        overflow = st[0].overflow
+        overflow.logical_or_(ovf)
+        if self.uses_nl:
+            overflow.logical_or_(self.build_lists(
+                [s.r for s in st], [s.n_atoms for s in st],
+                into=self.nlists)[1])
+        elif self.uses_lazy:
+            for lr, s in zip(self.last_r, st):
+                lr.copy_(s.r)
+        return r_pre[0] if r_pre else None
 
     def build_neighbor_list(self) -> None:
         """Build every shard's list on the current states (init)."""
         st = self.states
         self.nlists, ovf = self.build_lists([s.r for s in st],
                                             [s.n_atoms for s in st])
+        self.n_nl_build += 1
         overflow = st[0].overflow | ovf
         self.states = [dataclasses.replace(s, overflow=overflow)
                        for s in st]
 
-    def step_block(self, n_steps: int) -> None:
-        """Run n_steps of velocity-Verlet; the energy terms only on the
-        block's last step unless ``cfg.energy_every_step`` (as
-        Simulation.step_block)."""
-        for k in range(n_steps):
-            want = (k == n_steps - 1 or n_steps == 1
-                    or self.cfg.energy_every_step)
-            if self.uses_nl:
-                self.states, self.nlists = self.step_nl(
-                    self.states, self.nlists, want)
-            elif self.uses_lazy:
-                if self.last_r is None:
-                    self.last_r = [s.r for s in self.states]
-                self.states, self.last_r = self.step_lazy(
-                    self.states, self.last_r, want)
-            else:
-                self.states = self.step_eager(self.states, want)
+    def _shards(self) -> list:
+        return self.states
+
+    def _bind(self) -> None:
+        """Every shard's state, baseline and list in the step's buffers
+        (``_bind_shards``)."""
+        self.states, self.last_r, self.nlists = self._bind_shards(
+            self.states, self.last_r, self.nlists)
 
     def compute_force(self) -> None:
         """Force-only evaluation of every shard (used at init)."""

@@ -4,8 +4,9 @@ Port of comd_tpu.sim's serial half on PyTorch (with -i/-j/-k > 1,
 ``init_simulation`` hands over to parallel/sharded.py):
   - SimFlat / SimGpu state          -> one SimState dataclass of tensors
   - initSimulation                  -> init_simulation (CoMD.c:200-327)
-  - timestep velocity-Verlet loop   -> Simulation.step_block, an eager
-    Python loop of kernel launches on the state's device (timestep.c:48-100)
+  - timestep velocity-Verlet loop   -> Simulation.step_block: on the card
+    CUDA graphs of the step replayed (stepgraph.py, comd_tpu's jitted
+    scan), else the same step as an eager loop (timestep.c:48-100)
   - redistributeAtoms + sortAtomsGpu -> ops.binning.rebucket
   - atom halo exchange              -> serial periodic halo fill
   - kineticEnergy / sumAtoms        -> reductions (timestep.c:109-133)
@@ -14,8 +15,11 @@ The main path is the lazy-shell cell step: atoms are rebucketed only when
 one of them moved skin/2 since the last rebucket (``needs_rebuild``); other
 steps refresh the ghost positions.  The neighbor-list methods (-m *_nl,
 -L) step the same way on Verlet lists, rebuilt (NL1) after each such
-rebucket and swept by NL2.  The trigger is read on the host (one device
-sync per step) where comd_tpu branched on the device with lax.cond.
+rebucket and swept by NL2.  The step is cut at the trigger into a head
+(kick, drift, trigger) and a tail (ghost refresh, force, kick), with the
+rebucket between them when the trigger fires, all in place on buffers
+the step owns; the trigger is read on the host once a step, where
+comd_tpu branched on the device with lax.cond.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import cells, lattice
+from . import cells, lattice, stepgraph
 from .config import Config
 from .constants import KB_EV
 from .ops import binning, force_eam, force_lj
@@ -51,18 +55,11 @@ class SimState:
     overflow: torch.Tensor   # 0-dim bool: any capacity overflow so far
 
 
-@dataclasses.dataclass
-class NLSimState:
-    """SimState + Verlet neighbor list (the *_nl method carry)."""
-    sim: SimState
-    nlist: nlmod.NeighborList
-
-
-@dataclasses.dataclass
-class LazySimState:
-    """SimState + rebucket-time position snapshot (lazy-shell stepping)."""
-    sim: SimState
-    last_r: torch.Tensor     # [3, B, A]
+#: the per-shard and the shared (mesh-wide) fields of a SimState, and the
+#: list's, as the step's buffers hold them
+_SHARD_FIELDS = ("r", "p", "f", "gid", "n_atoms")
+_SCALAR_FIELDS = ("e_potential", "n_local", "overflow")
+_LIST_FIELDS = ("a_list", "a_valid", "nl", "last_r")
 
 
 class Physics:
@@ -104,10 +101,20 @@ class Physics:
         self.nl_row_split = None     # row_split_for under -a 1 on a mesh
         slot = torch.arange(cfg.max_atoms, device=self.device)
         self._slot = slot[None, :]
+        # on the card the lazy and list steps replay CUDA graphs
+        # (stepgraph.py); False runs the same step as an eager loop
+        self.cuda_graphs = True
+        self._bufs = {}              # the step's buffers (stepgraph.keep)
+        self._graphs = None          # stepgraph.GraphSteps, at first use
 
     @property
     def mass(self) -> float:
         return self.pot.mass
+
+    @property
+    def n_processes(self) -> int:
+        """The processes stepping this simulation's shards together."""
+        return 1
 
     @property
     def uses_nl(self) -> bool:
@@ -140,15 +147,121 @@ class Physics:
         """A step constant rounded to the dynamics dtype."""
         return float(np.asarray(x, dtype=np.dtype(self.cfg.dtype)))
 
-    def _drift(self, s: SimState):
-        p = s.p + self._c(0.5 * self.cfg.dt) * s.f
-        r = s.r + p * self._c(self.cfg.dt * (1.0 / self.mass))
-        return r, p
+    def _drift(self, states) -> None:
+        """Half kick and drift of every shard, in place."""
+        half_dt = self._c(0.5 * self.cfg.dt)
+        r_dt = self._c(self.cfg.dt * (1.0 / self.mass))
+        for s in states:
+            s.p.add_(half_dt * s.f)
+            s.r.add_(s.p * r_dt)
 
     def _full_force(self, f_loc, like):
         f = torch.zeros_like(like)
         f[:, :self.geom.n_local] = f_loc.to(like.dtype)
         return f
+
+    def _land(self, states, res, want_energy: bool):
+        """The end of a step, in place: each shard's force (``res`` as
+        ``forces`` returns it; halo rows zero), the second half kick, the
+        local atom count and, with the energy terms, ePot.  Returns the
+        shards' ePot stacked, or None."""
+        nl = self.geom.n_local
+        half_dt = self._c(0.5 * self.cfg.dt)
+        for s, (f_loc, _u, _e) in zip(states, res):
+            s.f[:, :nl] = f_loc
+            s.f[:, nl:] = 0
+            s.p.add_(half_dt * s.f)
+        s0 = states[0]
+        s0.n_local.copy_(torch.stack([s.n_atoms[:nl].sum(dtype=torch.int32)
+                                      for s in states]).sum(
+                                          dtype=torch.int32))
+        if not want_energy:
+            return None
+        parts = torch.stack([e for _f, _u, e in res])
+        s0.e_potential.copy_(parts.sum())
+        return parts
+
+    # ---------------- the step's buffers and loop ----------------
+
+    def _wants(self, n_steps: int) -> list:
+        """Which steps of a block compute the energy terms: the last one
+        -- the block boundary IS the reporting boundary (CoMD.c:146-162)
+        -- or every one under ``cfg.energy_every_step``."""
+        return [k == n_steps - 1 or self.cfg.energy_every_step
+                for k in range(n_steps)]
+
+    def _bind_shards(self, states, last_r, nlists):
+        """Every shard's state, lazy baseline (``last_r``; None before the
+        first step: the positions) and list in the step's buffers
+        (stepgraph.keep: copied in where another tensor took a buffer's
+        place; new buffers drop the graphs).  Returns (states, last_r,
+        nlists) over the buffers; the shards share one ePot, n_local and
+        overflow."""
+        t = {}
+        for i, s in enumerate(states):
+            for f in _SHARD_FIELDS:
+                t[f, i] = getattr(s, f)
+            if self.uses_lazy:
+                t["last_r", i] = s.r if last_r is None else last_r[i]
+            if self.uses_nl:
+                for f in _LIST_FIELDS:
+                    t["nl_" + f, i] = getattr(nlists[i], f)
+        for f in _SCALAR_FIELDS:
+            t[f] = getattr(states[0], f)
+        if stepgraph.keep(self._bufs, t):
+            self._graphs = None
+        b = self._bufs
+        n = range(len(states))
+        states = [SimState(**{f: b[f, i] for f in _SHARD_FIELDS},
+                           **{f: b[f] for f in _SCALAR_FIELDS}) for i in n]
+        if self.uses_lazy:
+            last_r = [b["last_r", i] for i in n]
+        if self.uses_nl:
+            nlists = [nlmod.NeighborList(**{f: b["nl_" + f, i]
+                                            for f in _LIST_FIELDS})
+                      for i in n]
+        return states, last_r, nlists
+
+    def _steps(self):
+        """What runs a block's heads and tails: the simulation's
+        ``GraphSteps`` (made on the card at first use) unless
+        ``cuda_graphs`` is False or the mesh spans processes, else the
+        eager loop."""
+        if not self.cuda_graphs or self.n_processes > 1:
+            return stepgraph.EagerSteps()
+        if self._graphs is None:
+            if self.device.type != "cuda":
+                return stepgraph.EagerSteps()
+            self._graphs = stepgraph.GraphSteps(self.device)
+        return self._graphs
+
+    def step_block(self, n_steps: int) -> None:
+        """Run n_steps of velocity-Verlet, the energy terms on the block's
+        last step only unless ``cfg.energy_every_step`` (``_wants``).
+
+        Lazy and list steps (comd_tpu's ``_make_step_lazy``, the main path,
+        and ``_make_step_nl``; on a mesh ``_shard_step_lazy`` and
+        ``_shard_step_nl``) run as head and tail (stepgraph.run_block): the
+        redistribution only when some atom moved skin/2 since the last
+        rebucket or build (``_any``: or-ed over the processes), otherwise
+        the ghost refresh; replayed as CUDA graphs on the card in one
+        process.  ``-S 0`` (``lazy_shell=False``, comd_tpu's ``_make_step``
+        and ``_shard_step``: a rebucket every step) steps eagerly.  The
+        state, the lazy baseline and the list are updated in place."""
+        wants = self._wants(n_steps)
+        self._bind()
+        if not (self.uses_nl or self.uses_lazy):
+            for want in wants:
+                self._drift(self._shards())
+                r_pre = self._rebucket_step(pre=self.uses_split)
+                self._tail(False, want, r_pre)
+            self.n_rebucket += len(wants)
+            return
+        n = stepgraph.run_block(self._steps(), wants, self._head, self._tail,
+                                self._rebucket_step, self._any)
+        self.n_rebucket += n
+        if self.uses_nl:
+            self.n_nl_build += n
 
     def forces(self, rs, n_atoms, fill, fold, want_energy: bool = True,
                r_pre=None):
@@ -226,13 +339,13 @@ class Physics:
                                             cfg.nl_rows_factor),
                     row_split=self.nl_row_split)
 
-    def build_lists(self, rs, n_atoms):
-        """Build every shard's list (NL1): (lists, overflow)."""
+    def build_lists(self, rs, n_atoms, into=None):
+        """Build every shard's list (NL1): (lists, overflow); with ``into``
+        (a list a shard) into those lists' tensors, in place."""
         params = self.nl_build_params()
         built = [nl_kernels.build_list(self.geom, self.maps.nbr_map, r, n,
-                                       **params)
-                 for r, n in zip(rs, n_atoms)]
-        self.n_nl_build += 1
+                                       into=lst, **params)
+                 for r, n, lst in zip(rs, n_atoms, into or [None] * len(rs))]
         return ([b[0] for b in built],
                 torch.stack([b[1] for b in built]).any())
 
@@ -284,6 +397,10 @@ class Simulation(Physics):
         self._setup_physics()
         self.last_r = None
         self.nlist = None
+        # the periodic box on the device: the rebucket's wrap reads it
+        # without a copy from the host
+        self._extent = torch.as_tensor(self.global_extent, dtype=self.dtype,
+                                       device=self.device)
 
     # ---------------- force + energy ----------------
 
@@ -305,107 +422,68 @@ class Simulation(Physics):
 
         return self.forces([r], [n_atoms], self._fill, fold, want_energy)[0]
 
-    def _finish(self, s: SimState, r, p, gid, n_atoms, ovf,
-                want_energy: bool, nlist=None) -> SimState:
-        """Force, second half kick and bookkeeping shared by the steps."""
-        f_loc, _u, e_pot = self.force(r, n_atoms, want_energy, nlist)
-        if e_pot is None:
-            e_pot = s.e_potential
-        f = self._full_force(f_loc, s.f)
-        p = p + self._c(0.5 * self.cfg.dt) * f
-        n_local = n_atoms[:self.geom.n_local].sum(dtype=torch.int32)
-        return SimState(r=r, p=p, f=f, gid=gid, n_atoms=n_atoms,
-                        e_potential=e_pot, n_local=n_local,
-                        overflow=s.overflow | ovf)
+    def _head(self):
+        """The head of a lazy or list step, in place: half kick, drift and
+        the skin trigger (a 0-dim bool: some atom moved skin/2 since the
+        last rebucket or build)."""
+        s = self.state
+        self._drift([s])
+        last = self.nlist if self.uses_nl else self.last_r
+        return needs_rebuild(last, s.r, self.geom.n_local, self.skin)
 
-    def _rebucket(self, r, p, gid, n_atoms):
-        r_l, p_l, gid2, n2, _nm, ovf = binning.rebucket(
-            self.geom, self.maps, r, p, gid, n_atoms,
-            wrap_extent=self.global_extent)
-        r2, gid2, n2 = binning.fill_halo_serial(self.geom, self.maps, r_l,
-                                                gid2, n2)
-        self.n_rebucket += 1
-        return r2, p_l, gid2, n2, ovf
+    def _tail(self, refresh: bool, want_energy: bool, _r_pre=None) -> None:
+        """The tail of a step, in place: the ghost-position refresh (when
+        ``refresh``: the cell layout and the list frozen), the force (over
+        the list on the NL paths), the second half kick and bookkeeping."""
+        s = self.state
+        if refresh:
+            binning.refresh_halo_positions(self.geom, self.maps, s.r)
+        res = self.force(s.r, s.n_atoms, want_energy, self.nlist)
+        self._land([s], [res], want_energy)
 
-    def step_eager(self, s: SimState, want_energy: bool = True) -> SimState:
-        """One step with a rebucket every step (comd_tpu's ``_make_step``;
-        ``-S 0`` or ``lazy_shell=False``: the reference's per-step
-        redistribution)."""
-        r, p = self._drift(s)
-        r, p, gid, n_atoms, ovf = self._rebucket(r, p, s.gid, s.n_atoms)
-        return self._finish(s, r, p, gid, n_atoms, ovf, want_energy)
-
-    def step_lazy(self, c: LazySimState,
-                  want_energy: bool = True) -> LazySimState:
-        """Cell-sweep step with the skin/2 rebucket trigger (comd_tpu's
-        ``_make_step_lazy``, the main path): the dense
-        redistribution (sort + scatter + halo rebuild) runs only when some
-        atom moved skin/2 since the last rebucket; other steps refresh the
-        ghost positions (in place on the drifted positions)."""
-        s = c.sim
-        r, p = self._drift(s)
-        if bool(needs_rebuild(c.last_r, r, self.geom.n_local, self.skin)):
-            r, p, gid, n_atoms, ovf = self._rebucket(r, p, s.gid, s.n_atoms)
-            last_r = r
-        else:
-            binning.refresh_halo_positions(self.geom, self.maps, r)
-            gid, n_atoms, last_r = s.gid, s.n_atoms, c.last_r
-            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
-        return LazySimState(
-            sim=self._finish(s, r, p, gid, n_atoms, ovf, want_energy),
-            last_r=last_r)
-
-    def step_nl(self, c: NLSimState, want_energy: bool = True) -> NLSimState:
-        """Neighbor-list step (comd_tpu's ``_make_step_nl``): when some atom
-        moved skin/2 since the last build, rebucket, refill the halo and
-        rebuild the list (NL1); otherwise refresh the ghost positions in
-        place, the cell layout and the list frozen.  The force sweeps the
-        list (NL2)."""
-        s, nlist = c.sim, c.nlist
-        r, p = self._drift(s)
-        if bool(needs_rebuild(nlist, r, self.geom.n_local, self.skin)):
-            r, p, gid, n_atoms, ovf = self._rebucket(r, p, s.gid, s.n_atoms)
-            (nlist,), ovf2 = self.build_lists([r], [n_atoms])
-            ovf = ovf | ovf2
-        else:
-            binning.refresh_halo_positions(self.geom, self.maps, r)
-            gid, n_atoms = s.gid, s.n_atoms
-            ovf = torch.zeros((), dtype=torch.bool, device=self.device)
-        return NLSimState(sim=self._finish(s, r, p, gid, n_atoms, ovf,
-                                           want_energy, nlist),
-                          nlist=nlist)
+    def _rebucket_step(self, pre: bool = False) -> None:
+        """The dense redistribution (sort + scatter + halo rebuild) into the
+        step's buffers, the new baseline, and on the list paths the rebuild
+        (NL1) into the list's buffers (comd_tpu's ``_make_step_lazy`` and
+        ``_make_step_nl`` branches); no host read, so it is captured too.
+        ``pre`` (the mesh's -a 1) has no serial use."""
+        s = self.state
+        r, p, gid, n, _nm, ovf = binning.rebucket(
+            self.geom, self.maps, s.r, s.p, s.gid, s.n_atoms,
+            wrap_extent=self._extent)
+        r, gid, n = binning.fill_halo_serial(self.geom, self.maps, r, gid, n)
+        for t, v in zip((s.r, s.p, s.gid, s.n_atoms), (r, p, gid, n)):
+            t.copy_(v)
+        s.overflow.logical_or_(ovf)
+        if self.uses_nl:
+            s.overflow.logical_or_(self.build_lists([s.r], [s.n_atoms],
+                                                    into=[self.nlist])[1])
+        elif self.uses_lazy:
+            self.last_r.copy_(s.r)
 
     def build_neighbor_list(self) -> None:
         """Build the list on the current state (init); an undersized K
         raises the overflow flag already here."""
         s = self.state
         (self.nlist,), ovf = self.build_lists([s.r], [s.n_atoms])
+        self.n_nl_build += 1
         self.state = dataclasses.replace(s, overflow=s.overflow | ovf)
 
-    # ---------------- stepping ----------------
+    def _shards(self) -> list:
+        return [self.state]
 
-    def step_block(self, n_steps: int) -> None:
-        """Run n_steps of velocity-Verlet.
+    def _any(self, flag: torch.Tensor) -> bool:
+        """The trigger, read on the host."""
+        return bool(flag)
 
-        Forces are identical every step; the energy terms are computed only
-        on the LAST step of the block -- the block boundary IS the
-        reporting boundary (CoMD.c:146-162) -- unless
-        ``cfg.energy_every_step``.
-        """
-        for k in range(n_steps):
-            want = (k == n_steps - 1 or n_steps == 1
-                    or self.cfg.energy_every_step)
-            if self.uses_nl:
-                out = self.step_nl(NLSimState(self.state, self.nlist), want)
-                self.state, self.nlist = out.sim, out.nlist
-            elif self.uses_lazy:
-                if self.last_r is None:
-                    self.last_r = self.state.r
-                out = self.step_lazy(LazySimState(self.state, self.last_r),
-                                     want)
-                self.state, self.last_r = out.sim, out.last_r
-            else:
-                self.state = self.step_eager(self.state, want)
+    def _bind(self) -> None:
+        """The state, baseline and list in the step's buffers
+        (``_bind_shards``)."""
+        (self.state,), last_r, nlists = self._bind_shards(
+            [self.state], None if self.last_r is None else [self.last_r],
+            None if self.nlist is None else [self.nlist])
+        self.last_r = last_r[0] if last_r else None
+        self.nlist = nlists[0] if nlists else None
 
     def compute_force(self) -> None:
         """Force-only evaluation (used at init; CoMD.c:314)."""

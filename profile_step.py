@@ -9,20 +9,24 @@
     python3 profile_step.py --spline                     # -e -P
     python3 profile_step.py --lj --interp                # -I
     python3 profile_step.py --mesh 2 2 2 --gpuAsync 1    # -a 1: the split
+    python3 profile_step.py --eager                # the eager loop
 
 Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
 phases 5, 8 and 12), or with ``--method``/``--lj``/``--pairlist`` the
 neighbor-list runs of phase 14, through ``init_simulation`` and
-``step_block``: warm-up
+``step_block``, stepping through the step's CUDA graphs
+(comd_tpu_torch/stepgraph.py) or, with ``--eager``, the eager loop of
+the same head and tail functions: warm-up
 blocks of 10 steps up to the first rebucket (its kernels load on first
 use), ``--steps`` steps (blocks of 10) timed by the host clock, then as
 many under torch.profiler (device activity only).  Prints one JSON
 line: ms/step, the device's busy time per step (the sum of the kernels'
 durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
-most device time, and the device time of one launch of each hand-written
-kernel.  Needs a CUDA device; prints the card's
-name and power limit beside the numbers.
+most device time, the device time of one launch of each hand-written
+kernel, and one redistribution run eagerly (host ms to enqueue it, ms to
+its end, device ms, device operations).  Needs a CUDA device; prints the
+card's name and power limit beside the numbers.
 """
 from __future__ import annotations
 
@@ -51,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--gpuAsync", type=int, default=-1, choices=[-1, 0, 1],
                     help="-a (-1: auto)")
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--eager", action="store_true",
+                    help="step the eager loop, not the CUDA graphs")
     args = ap.parse_args(argv)
 
     import torch
@@ -75,6 +81,7 @@ def main(argv=None) -> int:
         yproc=py, zproc=pz, comm_impl=args.comm, half_shell=args.half,
         method=args.method, use_pairlist=args.pairlist, spline=args.spline,
         lj_interpolation=args.interp, gpu_async=args.gpuAsync))
+    sim.cuda_graphs = not args.eager
     # warm up through a rebucket: its kernels load on their first launch
     for _ in range(20):
         sim.step_block(10)
@@ -92,6 +99,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     rebuckets = sim.n_rebucket - rebuckets
+    replays = sim._graphs.replays if sim._graphs else 0
     reset_launch_counts()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(blocks):
@@ -106,6 +114,19 @@ def main(argv=None) -> int:
             kern[e.key] = (dev_us, e.count)
     busy_us = sum(v[0] for v in kern.values())
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
+    # one redistribution run eagerly, op by op, as the eager loop runs it:
+    # the host's time to enqueue it, its time to the end, its kernels
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim._rebucket_step()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    whole = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sim._rebucket_step()
+        torch.cuda.synchronize()
+    reb = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "Loading" not in e.key]
     print(smi)
     print(json.dumps({
         "run": (f"{args.n}^3 {'LJ' if args.lj else 'EAM'} f32 -m "
@@ -114,12 +135,21 @@ def main(argv=None) -> int:
                 + (" --halfShell" if args.half else "")
                 + (" -P" if args.spline else "")
                 + (" -I" if args.interp else "")
-                + (f" -a {args.gpuAsync}" if args.gpuAsync >= 0 else "")),
+                + (f" -a {args.gpuAsync}" if args.gpuAsync >= 0 else "")
+                + (", eager loop" if args.eager else ", CUDA graphs")),
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "kernel_launches_per_step": sum(v[1] for v in kern.values()) / steps,
         "rebuckets_in_timed_steps": rebuckets,
+        "eager_rebucket": {
+            "host_ms": 1e3 * enqueue, "ms": 1e3 * whole,
+            "device_ms": sum(getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0.0))
+                             for e in reb) / 1e3,
+            "device_ops": sum(e.count for e in reb)},
+        "graph_replays_per_step": (
+            (sim._graphs.replays - replays) / steps if sim._graphs else 0.0),
         "hand_written_launches": {k: v for k, v in LAUNCHES.items() if v},
         "top_kernels_ms_per_step": [
             {"name": k[:90], "ms": us / 1e3 / steps, "calls": n / steps}

@@ -21,11 +21,14 @@ inputs must give the same bits.  The
 halo kernels only move and evaluate values, so they are held bit for bit
 (K4 against pass 2's own F' at the same rows), a fill is one launch and an
 atom exchange three, and a sharded run gives the same bits under every
-transport.
+transport.  The step's CUDA graphs (comd_tpu_torch/stepgraph.py) give
+the eager loop's state bit for bit, serial (K1, NL2) and on a 2x2x2 mesh
+in one process, with one host sync a step outside rebucket steps.
 """
 import dataclasses
 import os
 import types
+import warnings
 
 import numpy as np
 import pytest
@@ -1091,3 +1094,53 @@ def test_multiproc_share_the_card(cuda_device):
     assert "2 processes (gloo, staged through pinned host buffers)" in \
         outs[0][1]
     assert not outs[1][1].strip()
+
+
+# --------------------------------------------------------------------------
+# the step's CUDA graphs (stepgraph.py) against the eager loop
+# --------------------------------------------------------------------------
+
+def _card_run(kw, graphs: bool, blocks=(10, 10)):
+    sim = init_simulation(Config(temperature=1200.0, dtype="float32",
+                                 pot_dir=POTS, device="cuda", **kw))
+    sim.cuda_graphs = graphs
+    sim.step_block(blocks[0])
+    n_reb = sim.n_rebucket
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sim.step_block(blocks[1])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("called a synchronizing CUDA operation" in str(w.message)
+                for w in got)
+    return sim, syncs, sim.n_rebucket - n_reb
+
+
+@pytest.mark.parametrize("kw", [
+    dict(nx=10, ny=10, nz=10, doeam=True),
+    dict(nx=10, ny=10, nz=10, doeam=True, method="thread_atom_nl"),
+    dict(nx=10, ny=10, nz=10, doeam=True, comm_impl="ki_fused",
+         xproc=2, yproc=2, zproc=2),
+    dict(nx=10, ny=10, nz=10, doeam=True, comm_impl="collective",
+         xproc=2, yproc=2, zproc=2),
+    dict(nx=10, ny=10, nz=10, doeam=False)],
+    ids=["eam", "eam_nl", "mesh_ki_fused", "mesh_collective", "lj"])
+def test_graphs_equal_eager_on_card(cuda_device, kw):
+    """The step replayed as CUDA graphs against the eager loop of the same
+    head and tail: r, p, gid, counts and ePot bit for bit (K1, NL2 and
+    the halo kernels are deterministic), and one host sync a step (the
+    trigger's read) outside the rebucket steps."""
+    (g, g_syncs, g_reb), (e, _s, _r) = [_card_run(kw, graphs)
+                                        for graphs in (True, False)]
+    assert g._graphs is not None and g._graphs.replays > 0
+    assert e._graphs is None
+    states = (lambda s: s.states if hasattr(s, "states") else [s.state])
+    for a, b in zip(states(g), states(e)):
+        for k in ("r", "p", "gid", "n_atoms"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert g.e_potential == e.e_potential
+    # one host read a step, plus the rebucket steps' own
+    assert g_syncs >= 10 and (g_reb > 0 or g_syncs == 10)
