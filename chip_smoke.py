@@ -6,10 +6,13 @@
 Phases, one line or more each, failing (non-zero exit, no result line) on
 the first error:
   1. device   -- a CUDA card is required; prints nvidia-smi's name and
-                 power limit
+                 power limit, whether torch's CUDAGraph has conditional-node
+                 calls (torch 2.11 has none: the step's IF nodes go through
+                 csrc/graph_if.cu) and the call that routes an IF body's
+                 allocations into a private pool (phase 18 needs it)
   2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
-                 probe.cu, nl.cu) with nvcc, one process each, in
-                 parallel; prints registers and spill stores (stencil.cu's
+                 probe.cu, nl.cu, graph_if.cu) with nvcc, one process each,
+                 in parallel; prints registers and spill stores (stencil.cu's
                  and nl.cu's pair kernels by variant) and fails if an f32
                  pair kernel of a main path spills
   3. kernel   -- K1 against its plain PyTorch version on the same CUDA
@@ -186,35 +189,46 @@ the first error:
                  any worker starts.  (Phase 12 also holds halo_fill_stage,
                  process 0 of 2's fused x stage with local scratch planes,
                  against its plain version and times it.)
- 18. graphs   -- the step's CUDA graphs (comd_tpu_torch/stepgraph.py)
-                 against the eager loop (``sim.cuda_graphs = False``), in
-                 this process one after the other, at 63^3 f32: EAM on
-                 K1, LJ on K1, EAM -m thread_atom_nl, EAM on 2x2x2
-                 ki_fused in one process.  Each run warms up through its
-                 first rebucket, steps 100 timed steps (launch counts
-                 zeroed just before), then 20 with the host syncs counted
-                 (torch.cuda.set_sync_debug_mode): ms/step of both,
-                 launches a step equal, graph replays a step, exactly one
-                 host sync a step outside the rebucket steps and the
-                 captures, the host time of a refresh step and of a
-                 rebucket step (between trigger reads), the bytes the
-                 in-place step copies into its buffers, and the final r
-                 (sha256) and ePot equal bit for bit.  --halfShell
-                 (K2's atomics) at 20^3 f64:
-                 the printed energies per atom within one unit of the
+ 18. graphs   -- set_condition (csrc/graph_if.cu, the IF node's kernel)
+                 against its plain version: a captured graph of two IF
+                 nodes on a predicate and its negation replayed with it set
+                 and clear, the bodies' runs counted against the host's
+                 branch, then timed (CUDA events) beside the plain version
+                 and its bound.  Then the step's CUDA graphs
+                 (comd_tpu_torch/stepgraph.py: one a step, the lazy and
+                 list rebucket a conditional node) against the eager loop
+                 (``sim.cuda_graphs = False``), in this process one after
+                 the other, at 63^3 f32: EAM on K1, LJ on K1, EAM -m
+                 thread_atom_nl, EAM on 2x2x2 ki_fused in one process, and
+                 -S 0 (a rebucket every step) on EAM K1 and on 2x2x2
+                 ki_fused under -a 0 and -a 1.  Each run warms up through
+                 its first rebucket (every graph captured), steps 100
+                 timed steps (the -S 0 mesh runs 20; launch counts zeroed
+                 just before), then 20 with the host syncs in step_block
+                 counted (torch.cuda.set_sync_debug_mode) and 20 under
+                 torch.profiler: ms/step of both, the device's busy
+                 ms/step and idle share of the wall clock, launches a step
+                 equal (the graphs' two set_condition a lazy step apart),
+                 one graph replay a step, host syncs outside captures
+                 exactly one a lazy block (the rebucket counter's read at
+                 its end) and none on -S 0,
+                 the rebucket counts equal, the graphs' capture and
+                 instantiation time, and the final r (sha256) and ePot
+                 equal bit for bit.  --halfShell (K2's atomics) at 20^3
+                 f64: the printed energies per atom within one unit of the
                  last of 12 digits.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
 12, 14, 15, 16) steps through the CUDA graphs, whose replays credit the
-launches each graph's capture recorded.  Imports torch, numpy and comd_tpu_torch only; builds
-everything from this checkout (the four kernel sources with one nvcc each,
-in parallel).
+launches each graph's capture recorded (a rebucket body's once a
+rebucket, from the device's rebucket counter read at a block's end).
+Imports torch, numpy and comd_tpu_torch only; builds everything from this
+checkout (the five sources with one nvcc each, in parallel).
 """
 from __future__ import annotations
 
 import concurrent.futures
-import contextlib
 import json
 import os
 import re
@@ -697,6 +711,31 @@ def stage_row(sim, x, rhobar, table_bytes: int) -> dict:
             "launches": 0, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+
+
+def fill_library(plan, x) -> tuple:
+    """K3's dfEmbed fill (``ki``) as one PyTorch call: a static row copy,
+    so one ``index_select`` of the shards' fields stacked [S * B, A] on
+    one composed row index (every row its own source, a halo row the row
+    its three stages finally copy into it: the plain fill run on a field
+    of row ids) computes the filled field.  The stack is layout and not
+    timed.  Returns (ms of the call, CUDA events, mean of 20; max |diff|
+    against ``halo_fill`` on the same field)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.probes import time_ms
+    S, (B, A) = len(x), x[0].shape
+    dev = x[0].device
+    rows = torch.arange(B, device=dev, dtype=torch.float32)[:, None]
+    ids = [(rows + s * B).expand(B, A).contiguous() for s in range(S)]
+    cm.halo_fill_plain(plan, ids)
+    index = torch.cat([i[:, 0] for i in ids]).long()
+    stacked = torch.stack(x).view(S * B, A)
+    filled = cm.halo_fill(plan, [t.clone() for t in x])
+    err = float((torch.index_select(stacked, 0, index).view(S, B, A)
+                 - torch.stack(filled)).abs().max())
+    ms = time_ms(lambda: torch.index_select(stacked, 0, index), 20)
+    return ms, err
 
 
 def fill_bound(plan, table_bytes: int = 0) -> tuple:
@@ -2146,32 +2185,30 @@ SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
 def count_syncs(sim, n_blocks: int, block: int) -> dict:
-    """Host syncs of ``n_blocks`` blocks, counted by
-    torch.cuda.set_sync_debug_mode: those inside the rebucket steps,
-    inside captures (the first use of a graph) and the rest (the
-    trigger's read, one a step)."""
+    """Host syncs of ``n_blocks`` blocks of ``step_block``, counted by
+    torch.cuda.set_sync_debug_mode: those inside captures (the first use
+    of a graph) and the rest (on the graphs the rebucket counter's read
+    at a lazy block's end; the eager loop also reads each trigger)."""
     import warnings
     import torch
     got = []
-    inside = {"rebucket": 0, "capture": 0}
+    inside = {"capture": 0}
 
     def n_sync():
         return sum(SYNC_WARNING in str(w.message) for w in got)
 
-    def wrap(key, fn):
+    graphs = sim._graphs
+    if graphs is not None:
+        orig = graphs._capture
+
         def counted(*a, **kw):
             n0 = n_sync()
             try:
-                return fn(*a, **kw)
+                return orig(*a, **kw)
             finally:
-                inside[key] += n_sync() - n0
-        return counted
+                inside["capture"] += n_sync() - n0
 
-    sim._rebucket_step = wrap("rebucket", sim._rebucket_step)
-    graphs = sim._graphs
-    if graphs is not None:
-        graphs._capture = wrap("capture", graphs._capture)
-    reb0 = sim.n_rebucket
+        graphs._capture = counted
     try:
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
@@ -2184,49 +2221,46 @@ def count_syncs(sim, n_blocks: int, block: int) -> dict:
                 torch.cuda.set_sync_debug_mode("default")
             total = n_sync()
     finally:
-        del sim._rebucket_step
         if graphs is not None:
             del graphs._capture
-    return dict(total=total, rebucket=inside["rebucket"],
-                capture=inside["capture"],
-                rest=total - inside["rebucket"] - inside["capture"],
-                rebuckets=sim.n_rebucket - reb0, steps=n_blocks * block)
+    return dict(total=total, capture=inside["capture"],
+                rest=total - inside["capture"], blocks=n_blocks,
+                steps=n_blocks * block)
 
 
-@contextlib.contextmanager
-def step_clock():
-    """Yields a list that gets (host time, flag) at every read of a step's
-    trigger, eager or graph (stepgraph's ``read``, a host sync each)."""
-    from comd_tpu_torch import stepgraph
-    reads = []
-    saved = {c: c.read for c in (stepgraph.EagerSteps, stepgraph.GraphSteps)}
-
-    def clocked(orig):
-        def read(self, reduce):
-            flag = orig(self, reduce)
-            reads.append((time.perf_counter(), flag))
-            return flag
-        return read
-
-    for c, orig in saved.items():
-        c.read = clocked(orig)
-    try:
-        yield reads
-    finally:
-        for c, orig in saved.items():
-            c.read = orig
+def device_busy_ms(sim, n_blocks: int, block: int) -> float:
+    """The device's busy ms a step over ``n_blocks`` blocks under
+    torch.profiler (CUDA activity: the sum of the kernels', copies' and
+    sets' durations; one stream, so they do not overlap).  The profiler
+    slows the host's launch of a graph of thousands of nodes, so the idle
+    share is taken against the unprofiled wall clock, as profile_step.py
+    takes it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_blocks):
+            sim.step_block(block)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and "Loading" not in e.key)
+    return us / 1e3 / (n_blocks * block)
 
 
 def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
                    blocks: int = 10, block: int = 10, **kw) -> dict:
     """Phase 18: one headline stepped by the eager loop and by the CUDA
     graphs (``sim.cuda_graphs``), one after the other in this process.
-    Each run warms up through its first rebucket (the graphs captured),
-    then steps ``blocks`` blocks timed by the host clock with the launch
-    counts zeroed just before, then two blocks with the host syncs
-    counted.  Returns {mode: dict(ms, launches, replays, syncs, digest,
-    e_pot, e_atom, captures, refresh_ms, rebucket_ms)}."""
-    import numpy as np
+    Each run warms up through its first rebucket (one block on -S 0: every
+    graph captured), then steps ``blocks`` blocks timed by the host clock
+    with the launch counts zeroed just before, then two blocks with the
+    host syncs counted and two under torch.profiler (the device's busy
+    ms a step; its idle share of the timed steps' wall clock).  Returns
+    {mode: dict(ms, launches, replays, syncs, busy, idle, digest, e_pot,
+    e_atom, captures, capture_s, instantiate_s)}."""
     import torch
     from comd_tpu_torch import Config, init_simulation
     from comd_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
@@ -2236,77 +2270,70 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
             nx=n, ny=n, nz=n, temperature=600.0, dtype=dtype, max_atoms=0,
             cell_mode="auto", pot_dir=POTS, device="cuda", **kw))
         sim.cuda_graphs = mode == "graphs"
+        lazy = sim.uses_lazy or sim.uses_nl
         warm = 0
         while warm < 200:
             sim.step_block(block)
             warm += block
             if sim.n_rebucket:
                 break
-        captures0 = sim._graphs.captures if sim._graphs else 0
-        replays0 = sim._graphs.replays if sim._graphs else 0
+        g = sim._graphs
+        check((g is not None) == (mode == "graphs"),
+              f"{tag}: the {mode} run's graphs: {g}")
+        captures0 = g.captures if g else 0
+        replays0 = g.replays if g else 0
         reb0 = sim.n_rebucket
+        nb = blocks
         reset_launch_counts()
         torch.cuda.synchronize()
-        with step_clock() as reads:
-            t0 = time.perf_counter()
-            for _ in range(blocks):
-                sim.step_block(block)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        steps = blocks * block
+        t0 = time.perf_counter()
+        for _ in range(nb):
+            sim.step_block(block)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = nb * block
         launches = {k: v for k, v in LAUNCHES.items() if v}
-        g = sim._graphs
-        # a step between two trigger reads (each a host sync): a ghost
-        # refresh, or a rebucket when the first read was set
-        gaps = {True: [], False: []}
-        for (t_a, flag), (t_b, _f) in zip(reads, reads[1:]):
-            gaps[flag].append(1e3 * (t_b - t_a))
-        res = dict(ms=1e3 * wall / steps, steps=steps, warm=warm,
-                   refresh_ms=float(np.median(gaps[False])),
-                   rebucket_ms=(float(np.mean(gaps[True])) if gaps[True]
-                                else float("nan")),
-                   rebuckets=sim.n_rebucket - reb0,
-                   launches=launches,
+        res = dict(ms=1e3 * wall / steps, steps=steps, warm=warm, lazy=lazy,
+                   rebuckets=sim.n_rebucket - reb0, launches=launches,
                    replays=(g.replays - replays0) / steps if g else 0.0,
-                   captures=(g.captures - captures0) if g else 0)
+                   captures=(g.captures - captures0) if g else 0,
+                   n_graphs=len(g.graphs) if g else 0,
+                   capture_s=g.capture_s if g else 0.0,
+                   instantiate_s=g.instantiate_s if g else 0.0)
         res["syncs"] = count_syncs(sim, 2, block)
+        res["busy"] = device_busy_ms(sim, 2, block)
+        res["idle"] = 1.0 - res["busy"] / res["ms"]
         states = sim.states if hasattr(sim, "states") else [sim.state]
         res["digest"] = r_digest([s.r.cpu().numpy() for s in states])
-        # what the in-place step copies into its buffers: a rebucket step
-        # the new r, p, gid, counts and baseline (on the list paths the
-        # list's rows and baseline; NL1 writes the list itself in place),
-        # every step the force's rows into f
-        lists = (sim.nlists if hasattr(sim, "nlists") else [sim.nlist]) \
-            if sim.uses_nl else []
-        lasts = sim.last_r if hasattr(sim, "states") else [sim.last_r]
-        res["rebucket_bytes"] = sum(
-            s.r.nbytes + s.p.nbytes + s.gid.nbytes + s.n_atoms.nbytes
-            for s in states) + sum(
-            lst.a_list.nbytes + lst.a_valid.nbytes + lst.last_r.nbytes
-            for lst in lists) + (0 if sim.uses_nl else sum(
-                x.nbytes for x in lasts))
-        res["force_bytes"] = sum(s.f.nbytes for s in states)
         res["e_pot"] = sim.e_potential
         res["e_atom"] = ((sim.e_potential / sim.n_global),
                          (sim.e_potential + sim.kinetic_energy())
                          / sim.n_global)
-        check((g is not None) == (mode == "graphs"),
-              f"{tag}: the {mode} run's graphs: {g}")
+        res["n_rebucket"] = sim.n_rebucket
         check(sim.sum_atoms() == sim.n_global and not sim.overflow,
               f"{tag} {mode}: atoms lost or overflow")
         out[mode] = res
         del sim, g, states
         torch.cuda.empty_cache()
     e, g = out["eager"], out["graphs"]
-    for m in (e, g):
-        sy = m["syncs"]
-        check(sy["rest"] == sy["steps"],
-              f"{tag}: {sy['rest']} host syncs outside rebucket steps and "
-              f"captures in {sy['steps']} steps: {sy}")
-    check(e["launches"] == g["launches"],
-          f"{tag}: launches differ: eager {e['launches']}, graphs "
-          f"{g['launches']}")
-    check(g["replays"] > 0, f"{tag}: no graph replayed")
+    sy = g["syncs"]
+    want = sy["blocks"] if g["lazy"] else 0
+    check(sy["rest"] == want and sy["capture"] == 0,
+          f"{tag}: {sy['rest']} host syncs in step_block outside captures "
+          f"in {sy['blocks']} blocks of the graphs, not {want}: {sy}")
+    e_per = {k: v / e["steps"] for k, v in e["launches"].items()}
+    g_per = {k: v / g["steps"] for k, v in g["launches"].items()
+             if k != "set_condition"}
+    check(e_per == g_per and "set_condition" not in e["launches"],
+          f"{tag}: launches a step differ: eager {e_per}, graphs {g_per}")
+    n_if = g["launches"].get("set_condition", 0) / g["steps"]
+    check(n_if == (2.0 if g["lazy"] else 0.0),
+          f"{tag}: {n_if} set_condition launches a step on the graphs")
+    check(e["n_rebucket"] == g["n_rebucket"],
+          f"{tag}: rebuckets {e['n_rebucket']} (eager), "
+          f"{g['n_rebucket']} (graphs)")
+    check(abs(g["replays"] - 1.0) < 1e-12,
+          f"{tag}: {g['replays']} graph replays a step, not one")
     return out
 
 
@@ -2317,29 +2344,90 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
               f"{tag}: graphs and eager end apart: r sha256 "
               f"{g['digest'][:16]} vs {e['digest'][:16]}, ePot "
               f"{g['e_pot']!r} vs {e['e_pot']!r}")
-    steps = e["steps"]
-    per = {k: round(v / steps, 2) for k, v in e["launches"].items()}
-    say("graphs", f"{tag}: {steps} steps after {e['warm']} (eager) and "
-        f"{g['warm']} (graphs) of warm-up; eager {e['ms']:.3f} ms/step, "
-        f"graphs {g['ms']:.3f} ms/step ({e['ms'] / g['ms']:.2f}x); "
-        f"launches a step {per} (equal); graph replays a step "
-        f"{g['replays']:.2f}, captures in the timed steps {g['captures']}; "
-        f"rebuckets {e['rebuckets']}, {g['rebuckets']}; a step between "
-        f"trigger reads (host clock), refresh median {e['refresh_ms']:.3f} "
-        f"(eager), {g['refresh_ms']:.3f} (graphs) ms, rebucket mean "
-        f"{e['rebucket_ms']:.3f}, {g['rebucket_ms']:.3f} ms")
+    per = {k: round(v / e["steps"], 2) for k, v in e["launches"].items()}
+    say("graphs", f"{tag}: after {e['warm']} (eager) and {g['warm']} "
+        f"(graphs) steps of warm-up, eager {e['steps']} steps "
+        f"{e['ms']:.3f} ms/step, graphs {g['steps']} steps {g['ms']:.3f} "
+        f"ms/step ({e['ms'] / g['ms']:.2f}x); device busy "
+        f"{e['busy']:.3f}, {g['busy']:.3f} ms/step, idle "
+        f"{100 * e['idle']:.1f}%, {100 * g['idle']:.1f}% of the wall "
+        f"clock (busy under torch.profiler, 2 more blocks); launches a "
+        f"step {per} (equal), set_condition "
+        f"{g['launches'].get('set_condition', 0) / g['steps']:.2f} on the "
+        f"graphs; graph replays a step {g['replays']:.2f}; rebuckets "
+        f"{e['rebuckets']}, {g['rebuckets']} in the timed steps, "
+        f"{e['n_rebucket']} in all (equal)")
     for mode, m in (("eager", e), ("graphs", g)):
         sy = m["syncs"]
-        say("graphs", f"{tag} {mode}: host syncs in {sy['steps']} steps "
-            f"{sy['total']}: {sy['rest'] / sy['steps']:.2f} a step outside "
-            f"rebucket steps, {sy['rebucket']} in {sy['rebuckets']} "
-            f"rebucket steps, {sy['capture']} in captures")
-    say("graphs", f"{tag}: the in-place step copies "
-        f"{g['rebucket_bytes']:,} B into its buffers a rebucket step and "
-        f"writes {g['force_bytes']:,} B of f a step")
+        say("graphs", f"{tag} {mode}: host syncs in step_block in "
+            f"{sy['blocks']} blocks of {sy['steps'] // sy['blocks']} "
+            f"steps: {sy['rest']} outside captures "
+            f"({sy['rest'] / sy['steps']:.2f} a step), {sy['capture']} in "
+            f"captures")
+    say("graphs", f"{tag}: {g['n_graphs']} graphs (one a want_energy), "
+        f"captured in {1e3 * g['capture_s']:.1f} ms and instantiated in "
+        f"{1e3 * g['instantiate_s']:.1f} ms in all (the warm-up of both "
+        f"branches not counted)")
     if bitwise:
         say("graphs", f"{tag}: final r sha256 {g['digest'][:16]}.. and "
             f"ePot {g['e_pot']:.6f} equal bit for bit")
+
+
+def run_if_node(launches: dict) -> dict:
+    """set_condition (csrc/graph_if.cu) against its plain version: a
+    captured graph of two IF nodes, on a predicate and on its negation,
+    each body adding one to a counter of its own, replayed with the
+    predicate set and clear; the counters against the plain version's
+    (the predicate read on the host, the body run or not).  Then one IF
+    node whose body adds one to a counter, timed as a replay of its graph
+    (CUDA events, mean of 200), beside the plain version (the read and
+    the body's launch) and the bound (one byte read).  ``launches``:
+    phase 5's counts.  Returns the kernels-line row."""
+    import torch
+    from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.stepgraph import cuda_capture
+    dev = torch.device("cuda")
+    pred = torch.zeros((), dtype=torch.bool, device=dev)
+    hits = torch.zeros(2, dtype=torch.int32, device=dev)
+    want = torch.zeros(2, dtype=torch.int32)
+    pool = torch.cuda.graph_pool_handle()
+    bodies = graph_if.BodyPool(dev)
+
+    def two():
+        graph_if.if_node(pred, lambda: hits[0].add_(1), False, bodies)
+        graph_if.if_node(pred, lambda: hits[1].add_(1), True, bodies)
+
+    graph, cap_s, inst_s = cuda_capture(two, pool)
+    for v in (True, False, False, True, True, False, True):
+        pred.fill_(v)
+        graph.replay()
+        host = torch.tensor(v)
+        graph_if.if_node_plain(host, lambda: want[0].add_(1))
+        graph_if.if_node_plain(host, lambda: want[1].add_(1), True)
+    err = float((hits.cpu() - want).abs().max())
+    check(err == 0, f"set_condition: IF bodies ran {hits.tolist()} times, "
+          f"the plain version {want.tolist()}")
+    one, _c, _i = cuda_capture(
+        lambda: graph_if.if_node(pred, lambda: hits[0].add_(1), False,
+                                 bodies),
+        pool)
+    ms = time_ms(one.replay, 200)
+    plain_ms = time_ms(lambda: graph_if.if_node_plain(
+        pred, lambda: hits[0].add_(1)), 200)
+    b_ms = 1e3 * 1 / PEAK_BYTES
+    say("timing", f"set_condition: IF bodies taken as the plain version "
+        f"takes them (7 replays, both polarities); a graph of one IF node "
+        f"and its one-kernel body {ms:.4f} ms a replay (CUDA events, mean "
+        f"of 200), the plain version (host read and launch) {plain_ms:.4f} "
+        f"ms; bound {b_ms:.3e} ms (one byte); the two-node graph captured "
+        f"in {1e3 * cap_s:.2f} ms, instantiated in {1e3 * inst_s:.2f} ms")
+    return {"name": "set_condition", "route": "cuda",
+            "source": "comd_tpu_torch/csrc/graph_if.cu",
+            "replaces": "comd_tpu/sim.py:319-320, :373-375 (lax.cond, XLA)",
+            "launches": launches["set_condition"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
@@ -2368,6 +2456,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from comd_tpu_torch import Config, init_simulation
     from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.ops.cuda import nl as nlk
     from comd_tpu_torch.ops.cuda import probe as pr
     from comd_tpu_torch.ops.cuda import stencil as st
@@ -2382,14 +2471,25 @@ def main() -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     say("device", f"{kind}, {count} visible, torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    # conditional graph nodes: torch's own calls, where this build has
+    # them; the step's IF nodes go through csrc/graph_if.cu either way,
+    # with the body's allocations routed into the capture's pool
+    has = {n: hasattr(torch.cuda.CUDAGraph, n) for n in (
+        "get_currently_capturing_graph", "begin_capture_to_if_node",
+        "end_capture_to_conditional_node")}
+    route = hasattr(torch._C, "_cuda_beginAllocateCurrentStreamToPool")
+    say("device", f"torch's conditional-node calls: {has}; IF nodes through "
+        f"csrc/graph_if.cu, body allocations routed into a private pool "
+        f"(torch._C._cuda_beginAllocateCurrentStreamToPool: {route})")
+    check(route, "no call routes a stream's allocations into a pool")
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        list(pool.map(lambda m: m.build(), (st, cm, pr, nlk)))
+    with concurrent.futures.ThreadPoolExecutor(5) as pool:
+        list(pool.map(lambda m: m.build(), (st, cm, pr, nlk, graph_if)))
     t_build = time.perf_counter() - t0
     for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe"),
-                      (nlk, "nl")):
+                      (nlk, "nl"), (graph_if, "graph_if")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
         entries = []       # (mangled name, registers, spill store bytes)
         if os.path.exists(log):
@@ -2425,7 +2525,7 @@ def main() -> int:
             bad = {k: v for k, v in spill.items()
                    if k.startswith("f32") and k != "f32 eam table" and v}
             check(not bad, f"f32 {stem} kernels spill: {bad}")
-    say("build", f"four sources in {t_build:.1f} s")
+    say("build", f"five sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -2445,8 +2545,9 @@ def main() -> int:
     # 5. main path at full width: the 63^3 headline run
     serial_epot = []
     sim, launches = run_main(
-        "main", ("eam_pass1", "eam_pass3"), doeam=True,
+        "main", ("eam_pass1", "eam_pass3", "set_condition"), doeam=True,
         on_init=lambda x: serial_epot.append(x.e_potential))
+    launches_main = launches
     serial_ms = sim.ms_step
     rows = {}
     # K1 vs plain at the main path's shape (not counted: read above)
@@ -2678,6 +2779,17 @@ def main() -> int:
                    "replaces": REPLACES[k], "launches": launched[k],
                    "max_abs_err": errs[k], "ms": ms, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # K3's fill is a static row copy: one index_select on a composed
+    # index computes it (the library call); the fused fill (K4's F') and
+    # the atom message (four fields, three shapes) have no single call
+    lib_ms, lib_err = fill_library(plan, x)
+    check(lib_err == 0, f"index_select on the composed index is "
+          f"{lib_err:.3e} from halo_fill")
+    rows["halo_fill"]["library_ms"] = lib_ms
+    say("timing", f"halo_fill (ki) as one torch.index_select of the "
+        f"stacked [{len(x)} x {x[0].shape[0]}, {x[0].shape[1]}] field on "
+        f"the composed row index: {lib_ms:.4f} ms (CUDA events, mean of "
+        f"20), the same bits; halo_fill {timing['halo_fill'][0]:.4f} ms")
     # what the fill's device time is made of: the same launch cut to its
     # first one and two stages (one stage has no grid barrier)
     cut = [cm.FillPlan(plan.stages[:k], plan.shape, plan.dtype, plan.device)
@@ -2716,14 +2828,25 @@ def main() -> int:
     rows["halo_fill_stage"]["launches"] = run_multiproc(
         serial_epot[0], coll, one_proc, timing)
 
-    # 18. the CUDA graphs of the step against the eager loop
-    for tag, kw in (("EAM K1", dict(doeam=True)),
-                    ("LJ K1", dict(doeam=False)),
-                    ("EAM -m thread_atom_nl", dict(
-                        doeam=True, method="thread_atom_nl")),
-                    ("EAM 2x2x2 ki_fused", dict(
-                        doeam=True, comm_impl="ki_fused", **MESH))):
-        say_graph_vs_eager(tag, graph_vs_eager(tag, **kw))
+    # 18. the CUDA graphs of the step against the eager loop: lazy and
+    # list steps (the rebucket a conditional node) and -S 0 (the eager
+    # mesh run cut to 20 steps)
+    rows["set_condition"] = run_if_node(launches_main)
+    for tag, kw, blocks in (
+            ("EAM K1", dict(doeam=True), 10),
+            ("LJ K1", dict(doeam=False), 10),
+            ("EAM -m thread_atom_nl", dict(doeam=True,
+                                           method="thread_atom_nl"), 10),
+            ("EAM 2x2x2 ki_fused", dict(doeam=True, comm_impl="ki_fused",
+                                        **MESH), 10),
+            ("-S 0 EAM K1", dict(doeam=True, lazy_shell=False), 10),
+            ("-S 0 EAM 2x2x2 ki_fused -a 0", dict(
+                doeam=True, lazy_shell=False, comm_impl="ki_fused",
+                gpu_async=0, **MESH), 2),
+            ("-S 0 EAM 2x2x2 ki_fused -a 1", dict(
+                doeam=True, lazy_shell=False, comm_impl="ki_fused",
+                gpu_async=1, **MESH), 2)):
+        say_graph_vs_eager(tag, graph_vs_eager(tag, blocks=blocks, **kw))
     # --halfShell: K2's f32 sums use atomics, so in f64 the printed
     # energies (12 digits) may differ by one unit in the last digit
     half = graph_vs_eager("EAM --halfShell f64 20^3", n=20,
@@ -2744,7 +2867,8 @@ def main() -> int:
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
-               + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS]
+               + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
+               + ("set_condition",)]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             # the -P spline and -I LJ-table variants of K1, K2 and NL2
             "spline_eam_pass1": 0, "spline_eam_pass3": 0,
             "spline_half_eam_pass1": 0, "spline_half_eam_pass3": 0,
-            "lj_table": 0, "nl_sweep_spline": 0}
+            "lj_table": 0, "nl_sweep_spline": 0,
+            # the step graph's conditional nodes (graph_if.py)
+            "set_condition": 0}
 
 
 def reset_launch_counts() -> None:

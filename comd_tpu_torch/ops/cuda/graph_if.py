@@ -1,0 +1,158 @@
+"""Conditional IF nodes of the step's CUDA graph (csrc/graph_if.cu).
+
+comd_tpu takes the skin-triggered rebucket on the device with
+``lax.cond`` (comd_tpu/sim.py:319-320, :373-375; parallel/sharded.py:416,
+:478).  ``if_node(pred, body)`` is its counterpart inside a CUDA graph
+capture: ``body``'s launches become the body of a conditional IF node,
+and one launch of ``set_condition_kernel`` (one thread) sets the node's
+handle from the 0-dim bool ``pred`` (or its negation) at every replay, so
+the branch is taken on the device with no read by the host.  Counted in
+``LAUNCHES["set_condition"]``.
+
+The body is captured on a stream of its own (``cudaStreamBeginCaptureToGraph``
+into the IF node's body graph) while PyTorch's capture of the step goes
+on.  Its allocations go to a private memory pool of the bodies
+(``BodyPool``; PyTorch records a pool no second time while its capture
+records into it), kept as long as the graphs that replay them, so
+whatever a body allocates is not handed to eager code between replays
+(torch._C's ``_cuda_beginAllocateCurrentStreamToPool``, the call behind
+PyTorch's own routing of a stream into a pool).
+
+On a CPU tensor ``if_node`` runs its plain version: the predicate read on
+the host and the body run or not, now.  A CUDA tensor launches the kernel
+or raises; outside a capture it raises (a condition outside a graph is a
+host read: use ``bool``).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+import weakref
+from typing import Callable
+
+import torch
+
+from . import LAUNCHES
+from .nvcc import CSRC, build_library
+
+SOURCE = os.path.join(CSRC, "graph_if.cu")
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_SECONDS = None   # wall time of the nvcc build in this process
+_BODY_STREAMS = {}     # device index -> the stream bodies are captured on
+
+
+def build():
+    """Compile csrc/graph_if.cu for sm_90a (first use) and bind it."""
+    global _lib, BUILD_SECONDS
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib, BUILD_SECONDS = build_library(SOURCE, "graph_if")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.comd_if_begin.restype = i
+        lib.comd_if_begin.argtypes = [p, p, i, p]
+        lib.comd_if_end.restype = i
+        lib.comd_if_end.argtypes = [p]
+        lib.comd_if_stream_create.restype = i
+        lib.comd_if_stream_create.argtypes = [i, ctypes.POINTER(p)]
+        lib.comd_if_error_string.restype = ctypes.c_char_p
+        lib.comd_if_error_string.argtypes = [i]
+        _lib = lib
+        return lib
+
+
+#: comd_if_begin's steps, as its error codes carry them
+_STEPS = ("", "capture info", "handle create", "set_condition launch",
+          "capture info after the launch", "add the IF node",
+          "update the capture's dependencies", "begin the body's capture")
+
+
+def _check(err: int, what: str) -> None:
+    if err:
+        msg = build().comd_if_error_string(err).decode()
+        step = _STEPS[err // 100000] if err < 800000 else ""
+        raise RuntimeError(f"{what} failed at {step or 'its end'}: {msg} "
+                           f"(error {err % 100000})")
+
+
+def _body_stream(dev: int):
+    """The stream IF bodies are captured on, one a device, made by
+    csrc/graph_if.cu: ``torch.cuda.Stream()`` hands out its pool's
+    streams round robin, so it could give the stream of the capture a
+    body joins (which cannot capture twice)."""
+    s = _BODY_STREAMS.get(dev)
+    if s is None:
+        handle = ctypes.c_void_p()
+        _check(build().comd_if_stream_create(dev, ctypes.byref(handle)),
+               "the IF bodies' stream")
+        s = _BODY_STREAMS[dev] = torch.cuda.ExternalStream(
+            handle.value, device=torch.device("cuda", dev))
+    return s
+
+
+class BodyPool:
+    """The private memory pool IF bodies allocate from, held from its
+    creation until ``close()`` or the object's collection: a body's
+    temporaries live at the same addresses at every replay."""
+
+    def __init__(self, device):
+        device = torch.device(device)
+        self.device = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        self.id = torch.cuda.graph_pool_handle()
+        with torch.cuda.stream(_body_stream(self.device)):
+            # makes the pool, held once
+            torch._C._cuda_beginAllocateCurrentStreamToPool(self.device,
+                                                            self.id)
+            torch._C._cuda_endAllocateToPool(self.device, self.id)
+        self._close = weakref.finalize(self, torch._C._cuda_releasePool,
+                                       self.device, self.id)
+
+    def close(self) -> None:
+        self._close()
+
+
+def if_node_plain(pred: torch.Tensor, body: Callable,
+                  negate: bool = False) -> None:
+    """The plain version: ``body()`` now when ``pred`` (xor ``negate``)."""
+    if bool(pred) != negate:
+        body()
+
+
+def if_node(pred: torch.Tensor, body: Callable, negate: bool = False,
+            pool: BodyPool = None) -> None:
+    """Capture ``body()`` into an IF node of the graph being captured on
+    the current stream, run at replay when the 0-dim bool ``pred`` is set
+    (clear with ``negate``); ``pool``: where the body allocates (held as
+    long as the graph).  A CPU ``pred`` runs the plain version."""
+    if pred.device.type != "cuda":
+        if_node_plain(pred, body, negate)
+        return
+    if pred.dim() != 0 or pred.dtype != torch.bool:
+        raise ValueError(f"an IF node's predicate is a 0-dim bool, got "
+                         f"{pred.dtype} {tuple(pred.shape)}")
+    if pool is None:
+        raise ValueError("if_node needs a BodyPool for the body's memory")
+    lib = build()
+    dev = pool.device
+    stream = torch.cuda.current_stream(dev)
+    body_stream = _body_stream(dev)
+    _check(lib.comd_if_begin(stream.cuda_stream, pred.data_ptr(),
+                             int(negate), body_stream.cuda_stream),
+           "the IF node's capture")
+    LAUNCHES["set_condition"] += 1
+    try:
+        with torch.cuda.stream(body_stream):
+            # the body stream's allocations into the pool
+            torch._C._cuda_beginAllocateCurrentStreamToPool(dev, pool.id)
+            try:
+                body()
+            finally:
+                torch._C._cuda_endAllocateToPool(dev, pool.id)
+                torch._C._cuda_releasePool(dev, pool.id)
+    finally:
+        _check(lib.comd_if_end(body_stream.cuda_stream),
+               "the IF node's body capture")

@@ -8,9 +8,10 @@ ExchangePlan, as comd_tpu's shards run one program.  comd_tpu runs each
 step as one ``shard_map`` program; here each process holds its shards
 (all of them in a single process; a contiguous block of them a process in
 a multi-process launch, parallel/dist.py) on its one device, and a step is
-a loop over them with the mesh's exchanges between the per-shard phases,
-cut at the trigger into a head and a tail as in sim.py; in one process on
-the card both are replayed as CUDA graphs over every shard
+a loop over them with the mesh's exchanges between the per-shard phases
+(a head, the rebucket or the ghost refresh as the trigger says, the rest,
+as in sim.py); in one process on the card each step is one CUDA graph
+over every shard, the rebucket a conditional node of it
 (stepgraph.py):
 
   - ``ppermute`` along an axis -> a ring shift over the shards' tensors,
@@ -21,8 +22,10 @@ the card both are replayed as CUDA graphs over every shard
     receive planes of the other processes' arenas over CUDA IPC, ordered by
     counters on the stream);
   - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
-    are read on the host once per step, and -a 1's migration count on an
-    eager (-S 0) step (one allgather each across processes).  ePot,
+    stay on the device in the graphs and are read on the host once a step
+    by the eager loop (an allgather across processes); -a 1's migration
+    flag on a -S 0 step is selected on the device (an allgather
+    across processes).  ePot,
     n_local and the overflow flag stay on the device as this process's sums; the values the host reads
     (``e_potential``, ``kinetic_energy``, ``sum_atoms``, ``overflow``, ...)
     gather the per-shard partials of every process and reduce them in
@@ -48,7 +51,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import cells, lattice, stepgraph
+from .. import cells, lattice
 from ..config import Config
 from ..constants import KB_EV
 from ..interop import state_from_numpy
@@ -150,11 +153,12 @@ class ShardedSimulation(Physics):
 
     def _redistribute(self, r, p, gid, n_atoms, pre: bool = False):
         """Rebucket every shard (halo landers kept), exchange, sort.  With
-        ``pre`` (the eager step under -a 1) it also returns the positions
+        ``pre`` (the -S 0 step under -a 1) it also returns the positions
         the interior sweeps read: the rebucketed ones, which equal the
         exchanged ones on every local cell unless some atom left its
-        shard, and then the exchanged ones (comd_tpu's sharded.py:
-        258-265; the migration count is read on the host)."""
+        shard, and then the exchanged ones, selected on the device
+        (comd_tpu's sharded.py:258-265: ``jnp.where(any_mig, r, r_pre)``;
+        across processes the migration flag is or-ed by an allgather)."""
         out = [binning.rebucket(self.geom, self.maps, *t, keep_halo=True)
                for t in zip(r, p, gid, n_atoms)]
         ovf = torch.stack([o[5] for o in out]).any()
@@ -165,8 +169,11 @@ class ShardedSimulation(Physics):
         res = (r, p, gid, n_atoms, ovf | ovf2)
         if not pre:
             return res
-        migrated = self._any((torch.stack([o[4] for o in out]) > 0).any())
-        return res + (r if migrated else r_reb,)
+        migrated = (torch.stack([o[4] for o in out]) > 0).any()
+        if self.mesh.nprocs > 1:
+            migrated = dist.allgather(migrated).any()
+        return res + ([torch.where(migrated, a, b)
+                       for a, b in zip(r, r_reb)],)
 
     def _head(self):
         """The head of a lazy or list step over the mesh, in place: every
@@ -179,22 +186,25 @@ class ShardedSimulation(Physics):
         return torch.stack([needs_rebuild(b, s.r, nl, self.skin)
                             for b, s in zip(last, st)]).any()
 
-    def _tail(self, refresh: bool, want_energy: bool, r_pre=None) -> None:
-        """The tail of a step over the mesh, in place: the slot-aligned
-        ghost-position refresh (when ``refresh``), the force (over the
-        lists on the NL paths), the second half kick and the mesh
-        reductions.  Under -a 1 (the cell split or the NL row split) the
-        interior sweeps read the positions before the refresh, or
-        ``r_pre``, or after a rebucket's exchange (atoms may have
-        migrated; comd_tpu's sharded.py:459-466)."""
+    def _refresh(self) -> None:
+        """The slot-aligned ghost-position refresh of a step that does not
+        rebucket; under -a 1 (the cell split or the NL row split) the
+        interior sweeps read the positions before it (comd_tpu's
+        sharded.py:459-466), copied into their buffers first."""
+        r = [s.r for s in self.states]
+        if self._reads_r_pre:
+            for b, x in zip(self._r_pre(), r):
+                b.copy_(x)
+        exchange.exchange_positions(self.halo, r)
+
+    def _rest(self, want_energy: bool) -> None:
+        """The rest of a step over the mesh, in place: the force (over the
+        lists on the NL paths; under -a 1 the interior sweeps on the
+        buffers ``_refresh`` or ``_rebucket_step`` filled), the second half
+        kick and the mesh reductions."""
         st = self.states
         r = [s.r for s in st]
-        if refresh:
-            split = self.uses_split or self.nl_row_split is not None
-            r_pre = [x.clone() for x in r] if split else r
-            exchange.exchange_positions(self.halo, r)
-        elif r_pre is None:
-            r_pre = r
+        r_pre = self._r_pre() if self._reads_r_pre else r
         if self.uses_nl:
             res = self.forces_nl(self.nlists, r, self._fill_nl, want_energy,
                                  r_pre)
@@ -205,20 +215,24 @@ class ShardedSimulation(Physics):
         if parts is not None and self.mesh.nprocs > 1:
             self._e_parts = parts
 
-    def _rebucket_step(self, pre: bool = False):
+    def _rebucket_step(self, pre: bool = False) -> None:
         """Rebucket every shard, exchange atoms and sort into the step's
         buffers (``_redistribute``), then the new baseline or, on the list
-        paths, every shard's rebuild into its list's buffers.  With ``pre``
-        returns the positions -a 1's interior sweeps read (the eager
-        step, whose migration count is read on the host); without it no
-        host read, so it is captured too."""
+        paths, every shard's rebuild into its list's buffers; one more on
+        the device rebucket counter.  Under -a 1 the interior sweeps read
+        the exchanged positions or, with ``pre`` (-S 0), the device's
+        select between them and the rebucketed ones.  No host read in one
+        process: it is a conditional body of the step's graph."""
         st = self.states
-        r, p, gid, n_atoms, ovf, *r_pre = self._redistribute(
+        r, p, gid, n_atoms, ovf, *sel = self._redistribute(
             [s.r for s in st], [s.p for s in st], [s.gid for s in st],
             [s.n_atoms for s in st], pre=pre)
         for s, *new in zip(st, r, p, gid, n_atoms):
             for t, v in zip((s.r, s.p, s.gid, s.n_atoms), new):
                 t.copy_(v)
+        if self._reads_r_pre:
+            for b, x in zip(self._r_pre(), sel[0] if sel else r):
+                b.copy_(x)
         overflow = st[0].overflow
         overflow.logical_or_(ovf)
         if self.uses_nl:
@@ -228,7 +242,7 @@ class ShardedSimulation(Physics):
         elif self.uses_lazy:
             for lr, s in zip(self.last_r, st):
                 lr.copy_(s.r)
-        return r_pre[0] if r_pre else None
+        self._bufs["rebuckets"].add_(1)
 
     def build_neighbor_list(self) -> None:
         """Build every shard's list on the current states (init)."""
@@ -246,8 +260,11 @@ class ShardedSimulation(Physics):
     def _bind(self) -> None:
         """Every shard's state, baseline and list in the step's buffers
         (``_bind_shards``)."""
-        self.states, self.last_r, self.nlists = self._bind_shards(
-            self.states, self.last_r, self.nlists)
+        self._assign(*self._bind_shards(self.states, self.last_r,
+                                        self.nlists))
+
+    def _assign(self, states, last_r, nlists) -> None:
+        self.states, self.last_r, self.nlists = states, last_r, nlists
 
     def compute_force(self) -> None:
         """Force-only evaluation of every shard (used at init)."""

@@ -15,11 +15,11 @@ The main path is the lazy-shell cell step: atoms are rebucketed only when
 one of them moved skin/2 since the last rebucket (``needs_rebuild``); other
 steps refresh the ghost positions.  The neighbor-list methods (-m *_nl,
 -L) step the same way on Verlet lists, rebuilt (NL1) after each such
-rebucket and swept by NL2.  The step is cut at the trigger into a head
-(kick, drift, trigger) and a tail (ghost refresh, force, kick), with the
-rebucket between them when the trigger fires, all in place on buffers
-the step owns; the trigger is read on the host once a step, where
-comd_tpu branched on the device with lax.cond.
+rebucket and swept by NL2.  A step is a head (kick, drift, trigger), the
+rebucket or the ghost refresh as the trigger says (comd_tpu's lax.cond;
+on the card a conditional node of the step's graph), and the rest (force,
+kick), all in place on buffers the step owns; ``-S 0`` rebuckets every
+step.
 """
 from __future__ import annotations
 
@@ -98,11 +98,13 @@ class Physics:
             self.pair_eval = force_lj.make_lj_evaluator(self.pot, self.dtype)
         self.n_rebucket = 0          # lazy/eager rebuckets so far
         self.n_nl_build = 0          # neighbor-list builds so far
+        # the device rebucket counter's value when the host last read it
+        self._rebuckets_read = 0
         self.nl_row_split = None     # row_split_for under -a 1 on a mesh
         slot = torch.arange(cfg.max_atoms, device=self.device)
         self._slot = slot[None, :]
-        # on the card the lazy and list steps replay CUDA graphs
-        # (stepgraph.py); False runs the same step as an eager loop
+        # on the card the steps replay CUDA graphs (stepgraph.py); False
+        # runs the same step as an eager loop
         self.cuda_graphs = True
         self._bufs = {}              # the step's buffers (stepgraph.keep)
         self._graphs = None          # stepgraph.GraphSteps, at first use
@@ -190,13 +192,20 @@ class Physics:
         return [k == n_steps - 1 or self.cfg.energy_every_step
                 for k in range(n_steps)]
 
+    @property
+    def _reads_r_pre(self) -> bool:
+        """-a 1 on a mesh (the cell split or the NL row split): the interior
+        sweeps read positions of their own, kept in a buffer a shard."""
+        return self.uses_split or self.nl_row_split is not None
+
     def _bind_shards(self, states, last_r, nlists):
         """Every shard's state, lazy baseline (``last_r``; None before the
         first step: the positions) and list in the step's buffers
         (stepgraph.keep: copied in where another tensor took a buffer's
-        place; new buffers drop the graphs).  Returns (states, last_r,
-        nlists) over the buffers; the shards share one ePot, n_local and
-        overflow."""
+        place; new buffers drop the graphs), beside the device rebucket
+        counter and, under -a 1 on a mesh, each shard's interior-sweep
+        positions.  Returns (states, last_r, nlists) over the buffers; the
+        shards share one ePot, n_local and overflow."""
         t = {}
         for i, s in enumerate(states):
             for f in _SHARD_FIELDS:
@@ -206,59 +215,113 @@ class Physics:
             if self.uses_nl:
                 for f in _LIST_FIELDS:
                     t["nl_" + f, i] = getattr(nlists[i], f)
+            if self._reads_r_pre:
+                b = self._bufs.get(("r_pre", i))
+                same = b is not None and (b.shape, b.dtype, b.device) == (
+                    s.r.shape, s.r.dtype, s.r.device)
+                t["r_pre", i] = b if same else s.r
         for f in _SCALAR_FIELDS:
             t[f] = getattr(states[0], f)
+        t["rebuckets"] = self._bufs.get("rebuckets")
+        if t["rebuckets"] is None:
+            t["rebuckets"] = torch.zeros((), dtype=torch.int64,
+                                         device=self.device)
         if stepgraph.keep(self._bufs, t):
             self._graphs = None
+        self._n_bound = len(states)
+        return self._views()
+
+    def _views(self):
+        """(states, last_r, nlists) over the step's buffers."""
         b = self._bufs
-        n = range(len(states))
+        n = range(self._n_bound)
         states = [SimState(**{f: b[f, i] for f in _SHARD_FIELDS},
                            **{f: b[f] for f in _SCALAR_FIELDS}) for i in n]
-        if self.uses_lazy:
-            last_r = [b["last_r", i] for i in n]
-        if self.uses_nl:
-            nlists = [nlmod.NeighborList(**{f: b["nl_" + f, i]
-                                            for f in _LIST_FIELDS})
-                      for i in n]
+        last_r = [b["last_r", i] for i in n] if self.uses_lazy else None
+        nlists = ([nlmod.NeighborList(**{f: b["nl_" + f, i]
+                                         for f in _LIST_FIELDS})
+                   for i in n] if self.uses_nl else None)
         return states, last_r, nlists
 
+    def _r_pre(self) -> list:
+        """Every shard's buffer of the positions -a 1's interior sweeps
+        read."""
+        return [self._bufs["r_pre", i] for i in range(self._n_bound)]
+
+    @contextlib.contextmanager
+    def _scratch(self):
+        """The step on throwaway clones of its buffers (a capture's warm-up
+        of both branches: the real state does not move)."""
+        saved = self._bufs
+        self._bufs = {k: v.clone() for k, v in saved.items()}
+        self._assign(*self._views())
+        try:
+            yield
+        finally:
+            self._bufs = saved
+            self._assign(*self._views())
+
     def _steps(self):
-        """What runs a block's heads and tails: the simulation's
-        ``GraphSteps`` (made on the card at first use) unless
-        ``cuda_graphs`` is False or the mesh spans processes, else the
-        eager loop."""
+        """What runs a block's steps: the simulation's ``GraphSteps`` (made
+        on the card at first use) unless ``cuda_graphs`` is False or the
+        mesh spans processes, else the eager loop."""
         if not self.cuda_graphs or self.n_processes > 1:
-            return stepgraph.EagerSteps()
+            return stepgraph.EagerSteps(self._any)
         if self._graphs is None:
             if self.device.type != "cuda":
-                return stepgraph.EagerSteps()
-            self._graphs = stepgraph.GraphSteps(self.device)
+                return stepgraph.EagerSteps(self._any)
+            self._graphs = stepgraph.GraphSteps(self.device,
+                                                scratch=self._scratch)
         return self._graphs
+
+    def _lazy_step(self, want_energy: bool, branch) -> None:
+        """A lazy or list step (comd_tpu's ``_make_step_lazy`` and
+        ``_make_step_nl``; on a mesh ``_shard_step_lazy`` and
+        ``_shard_step_nl``): the head, then the redistribution when some
+        atom moved skin/2 since the last rebucket or build, else the ghost
+        refresh (``branch``: comd_tpu's lax.cond), then the rest."""
+        trigger = self._head()
+        branch(trigger, self._rebucket_step, self._refresh)
+        self._rest(want_energy)
+
+    def _full_step(self, want_energy: bool, _branch=None) -> None:
+        """A ``-S 0`` step (comd_tpu's ``_make_step`` and ``_shard_step``):
+        drift, the redistribution (under -a 1 on a mesh with the interior
+        sweeps' positions selected on the device) and the rest."""
+        self._drift(self._shards())
+        self._rebucket_step(pre=self.uses_split)
+        self._rest(want_energy)
 
     def step_block(self, n_steps: int) -> None:
         """Run n_steps of velocity-Verlet, the energy terms on the block's
         last step only unless ``cfg.energy_every_step`` (``_wants``).
 
-        Lazy and list steps (comd_tpu's ``_make_step_lazy``, the main path,
-        and ``_make_step_nl``; on a mesh ``_shard_step_lazy`` and
-        ``_shard_step_nl``) run as head and tail (stepgraph.run_block): the
-        redistribution only when some atom moved skin/2 since the last
-        rebucket or build (``_any``: or-ed over the processes), otherwise
-        the ghost refresh; replayed as CUDA graphs on the card in one
-        process.  ``-S 0`` (``lazy_shell=False``, comd_tpu's ``_make_step``
-        and ``_shard_step``: a rebucket every step) steps eagerly.  The
-        state, the lazy baseline and the list are updated in place."""
+        Lazy and list steps rebucket where the trigger is set
+        (``_lazy_step``), ``-S 0`` (``lazy_shell=False``) every step
+        (``_full_step``); on the card in one process each step is one
+        CUDA graph replayed with no host read between (stepgraph.py),
+        else the eager loop, which reads the trigger on the host (``_any``:
+        or-ed over the processes).  The state, the lazy baseline and the
+        list are updated in place.  The host reads the device rebucket
+        counter once, at the block's end (lazy and list steps)."""
         wants = self._wants(n_steps)
         self._bind()
-        if not (self.uses_nl or self.uses_lazy):
-            for want in wants:
-                self._drift(self._shards())
-                r_pre = self._rebucket_step(pre=self.uses_split)
-                self._tail(False, want, r_pre)
-            self.n_rebucket += len(wants)
+        if not wants:
             return
-        n = stepgraph.run_block(self._steps(), wants, self._head, self._tail,
-                                self._rebucket_step, self._any)
+        steps = self._steps()
+        lazy = self.uses_nl or self.uses_lazy
+        step = self._lazy_step if lazy else self._full_step
+        for want in wants:
+            # one graph a want_energy; step(want, branch) is one step
+            steps.run(("step", want), lambda branch, w=want: step(w, branch))
+        if lazy:
+            count = int(self._bufs["rebuckets"])
+            n = count - self._rebuckets_read
+        else:
+            n = len(wants)
+            count = self._rebuckets_read + n
+        self._rebuckets_read = count
+        steps.settle(n)
         self.n_rebucket += n
         if self.uses_nl:
             self.n_nl_build += n
@@ -431,13 +494,15 @@ class Simulation(Physics):
         last = self.nlist if self.uses_nl else self.last_r
         return needs_rebuild(last, s.r, self.geom.n_local, self.skin)
 
-    def _tail(self, refresh: bool, want_energy: bool, _r_pre=None) -> None:
-        """The tail of a step, in place: the ghost-position refresh (when
-        ``refresh``: the cell layout and the list frozen), the force (over
-        the list on the NL paths), the second half kick and bookkeeping."""
+    def _refresh(self) -> None:
+        """The ghost-position refresh of a step that does not rebucket (the
+        cell layout and the list frozen)."""
+        binning.refresh_halo_positions(self.geom, self.maps, self.state.r)
+
+    def _rest(self, want_energy: bool) -> None:
+        """The rest of a step, in place: the force (over the list on the NL
+        paths), the second half kick and bookkeeping."""
         s = self.state
-        if refresh:
-            binning.refresh_halo_positions(self.geom, self.maps, s.r)
         res = self.force(s.r, s.n_atoms, want_energy, self.nlist)
         self._land([s], [res], want_energy)
 
@@ -445,8 +510,9 @@ class Simulation(Physics):
         """The dense redistribution (sort + scatter + halo rebuild) into the
         step's buffers, the new baseline, and on the list paths the rebuild
         (NL1) into the list's buffers (comd_tpu's ``_make_step_lazy`` and
-        ``_make_step_nl`` branches); no host read, so it is captured too.
-        ``pre`` (the mesh's -a 1) has no serial use."""
+        ``_make_step_nl`` branches); one more on the device rebucket
+        counter.  No host read: it is a conditional body of the step's
+        graph.  ``pre`` (the mesh's -a 1) has no serial use."""
         s = self.state
         r, p, gid, n, _nm, ovf = binning.rebucket(
             self.geom, self.maps, s.r, s.p, s.gid, s.n_atoms,
@@ -460,6 +526,7 @@ class Simulation(Physics):
                                                     into=[self.nlist])[1])
         elif self.uses_lazy:
             self.last_r.copy_(s.r)
+        self._bufs["rebuckets"].add_(1)
 
     def build_neighbor_list(self) -> None:
         """Build the list on the current state (init); an undersized K
@@ -479,9 +546,12 @@ class Simulation(Physics):
     def _bind(self) -> None:
         """The state, baseline and list in the step's buffers
         (``_bind_shards``)."""
-        (self.state,), last_r, nlists = self._bind_shards(
+        self._assign(*self._bind_shards(
             [self.state], None if self.last_r is None else [self.last_r],
-            None if self.nlist is None else [self.nlist])
+            None if self.nlist is None else [self.nlist]))
+
+    def _assign(self, states, last_r, nlists) -> None:
+        (self.state,) = states
         self.last_r = last_r[0] if last_r else None
         self.nlist = nlists[0] if nlists else None
 

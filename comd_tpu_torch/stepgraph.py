@@ -2,59 +2,73 @@
 ``step_block``.
 
 comd_tpu runs a printRate block as one compiled program: ``jax.jit`` of a
-``lax.scan`` over the step, the rebucket decided on the device by
-``lax.cond`` (comd_tpu/sim.py:373, :394-436; on the mesh one
-``shard_map`` program, parallel/sharded.py:282-316).  Here the step is cut
-at that decision into two parts, each captured once as a CUDA graph and
-replayed from ``step_block``:
+``lax.scan`` over the step, the skin-triggered rebucket taken on the
+device by ``lax.cond`` (comd_tpu/sim.py:319-320, :373-375, :403-422; on
+the mesh one ``shard_map`` program, parallel/sharded.py:416, :478).  Here
+each step is one CUDA graph, captured once a ``want_energy`` and replayed
+``n`` times from ``step_block`` with no host read between the replays:
 
-  - the **head**: the half kick, the drift and the skin trigger
-    (``needs_rebuild``), whose flag the graph copies into a pinned host
-    tensor (on a mesh the or of every shard's);
-  - the **tail**, one graph a (``refresh``, ``want_energy``): the ghost
-    refresh (when ``refresh``), the force with its halo fill, the second
-    half kick and the bookkeeping;
-  - the **rebucket**: the redistribution (sort, scatter, halo rebuild; on
-    a mesh the atom exchange; on the list paths the rebuild NL1) into the
-    same buffers.
+  - a lazy or list step: the head (half kick, drift, the skin trigger
+    ``needs_rebuild``; on a mesh the or over every shard), then two
+    conditional IF nodes on the trigger (``ops/cuda/graph_if.py``: a
+    one-thread kernel sets each node's handle from the trigger or its
+    negation; torch 2.11 has no conditional node that Python reaches,
+    and an IF/ELSE node needs CUDA 12.8's runtime): if set,
+    the rebucket (sort, scatter, halo rebuild; on a mesh the atom
+    exchange and in-cell sort; on the list paths the rebuild NL1; the
+    new baseline; one more on a device rebucket counter), if clear, the
+    ghost refresh (under -a 1 on a mesh with the copy of the positions
+    the interior sweeps read); then the rest both branches share (the
+    force with its halo fill, the second half kick, the bookkeeping);
+  - a ``-S 0`` step (comd_tpu's ``_make_step`` and ``_shard_step``):
+    drift, rebucket and rest, no condition; under -a 1 the interior
+    sweeps' positions are selected on the device.
 
-The host reads the flag once a step: one stream synchronize, counted by
-``torch.cuda.set_sync_debug_mode``.  A clear flag replays the tail and at
-once the next step's head, so the card runs them back to back while the
-host waits; a set flag replays the rebucket, then the tail without the
-refresh (comd_tpu's ``lax.cond`` branch, taken on the host: conditional
-graph nodes would take it onto the device).  A graph replays fixed
-addresses, so the state lives in buffers the step owns (``keep``) and
-every update is in place; whatever replaced a buffer's tensor between
-blocks (a restore, a test, ``compute_force``) is copied into it before the
-next replay.
+The host reads the rebucket counter once a block, at its end: the
+simulation's ``n_rebucket``/``n_nl_build`` and the launch credits of the
+rebucket bodies come from it.  A graph replays fixed addresses, so the
+state lives in buffers the step owns (``keep``) and every update is in
+place; whatever replaced a buffer's tensor between blocks (a restore, a
+test, ``compute_force``) is copied into it before the next replay, and
+whatever the rest reads after a conditional body (the positions, counts,
+lists, baseline, -a 1's interior positions) lies in a buffer both bodies
+write.
 
-A graph is captured at the first use of its key, right after that use has
-run the same function eagerly: the eager run is that step's own work and
-warms every lazy cache (the brick and fill plans, the kernels' builds and
-shared-memory limits, the comm kernel's occupancy query), so the capture
-records launches only.  A graph keeps the launches' parameters as they
-were at its capture (the pair evaluator's constants and tables, the brick
-and fill plans, every address), so it belongs to one simulation and one
-``want_energy``.  All graphs of a simulation share one memory pool:
-their temporaries are written and read within one replay, and the replays
-never overlap.  The kernels' Python wrappers count their launches
-(``ops.cuda.LAUNCHES``) when they run, which a replay does not: each
-capture records the counts its function added, takes them back (a capture
-launches nothing) and credits them on every replay.
+A conditional graph records both bodies at once, so before its capture
+the step runs once on throwaway clones of the buffers (``scratch``) with
+both branches taken: that warms every lazy cache of either body (the
+brick and fill plans, the kernels' builds and shared-memory limits, the
+comm kernel's occupancy query) without moving the real state, and the
+capture records launches only.  A graph keeps the launches' parameters
+as they were at its capture (the pair evaluator's constants and tables,
+the plans, every address), so it belongs to one simulation and one
+``want_energy``.  All graphs of a simulation share one memory pool, and
+their conditional bodies another (``BodyPool``).  The
+kernels' Python wrappers count their launches (``ops.cuda.LAUNCHES``)
+when they run, which a replay does not: each capture records the counts
+its step added (each conditional body's apart), takes them back (a
+capture launches nothing; the warm-up's launches are throwaway work,
+taken back too) and credits on every replay the common part and the
+refresh body; ``settle`` adds, for each rebucket of the block, the
+rebucket body's counts less the refresh body's.
 
 A capture or replay that fails raises: nothing steps eagerly in its
-place.  ``EagerSteps`` runs the same head and tail functions as a Python
-loop of launches: on the CPU, in a multi-process launch, and on the card
-when a simulation's ``cuda_graphs`` is False (for comparison).
+place.  ``EagerSteps`` runs the same step functions as a Python loop of
+launches, the trigger read on the host every step: on the CPU, in a
+multi-process launch, and on the card when a simulation's
+``cuda_graphs`` is False (for comparison).
 """
 from __future__ import annotations
 
-from typing import Callable, Sequence
+import gc
+import time
+import weakref
+from typing import Callable
 
 import torch
 
 from .ops.cuda import LAUNCHES
+from .ops.cuda.graph_if import BodyPool, if_node
 
 
 def keep(bufs: dict, tensors: dict) -> bool:
@@ -78,92 +92,131 @@ def keep(bufs: dict, tensors: dict) -> bool:
     return made
 
 
-def run_block(steps, wants: Sequence[bool], head: Callable,
-              tail: Callable, rebucket: Callable, read: Callable) -> int:
-    """One block of lazy or list steps; returns how many of them
-    rebucketed.  ``wants[k]``: step k computes the energy terms.
-    ``head()`` kicks, drifts and returns the trigger (a 0-dim bool
-    tensor), ``read`` reduces it to a Python bool (on a mesh of processes
-    an allgather), ``rebucket()`` redistributes into the buffers, and
-    ``tail(refresh, want_energy)`` finishes the step.  ``steps``
-    (``GraphSteps`` or ``EagerSteps``) runs or replays them; the host
-    counts the rebuckets, since a replay runs no Python."""
-    n_rebucket = 0
-    if not wants:
-        return n_rebucket
-    steps.head(head)
-    for k, want in enumerate(wants):
-        if steps.read(read):
-            steps.run(("rebucket",), rebucket)
-            n_rebucket += 1
-            steps.run(("tail", False, want), lambda w=want: tail(False, w))
-        else:
-            steps.run(("tail", True, want), lambda w=want: tail(True, w))
-        if k + 1 < len(wants):
-            steps.head(head)
-    return n_rebucket
+def _delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
 
 
 class EagerSteps:
-    """The head and tail run as they are: a Python loop of launches."""
+    """The steps run as they are: a Python loop of launches, each
+    condition read on the host through ``read`` (on a mesh of processes
+    an or over them)."""
 
-    def head(self, fn: Callable) -> None:
-        self._flag = fn()
+    def __init__(self, read: Callable):
+        self.read = read
 
-    def read(self, reduce: Callable) -> bool:
-        return reduce(self._flag)
+    def _branch(self, pred, if_true: Callable, if_false: Callable) -> None:
+        (if_true if self.read(pred) else if_false)()
 
     def run(self, key, fn: Callable) -> None:
-        fn()
+        fn(self._branch)
+
+    def settle(self, n_taken: int) -> None:
+        """The wrappers counted their launches as they ran."""
 
 
 def cuda_capture(fn: Callable, pool):
     """A CUDA graph of ``fn``'s launches, captured on a side stream, its
-    memory from ``pool``: ``torch.cuda.graph`` without its
-    ``gc.collect()`` and ``empty_cache()``, which would cost a capture in
-    the middle of a run tens of ms and free the cached memory the eager
-    steps reuse."""
-    g = torch.cuda.CUDAGraph()
+    memory from ``pool``, then instantiated: ``torch.cuda.graph`` without
+    its ``gc.collect()`` and ``empty_cache()``, which would cost a capture
+    in the middle of a run tens of ms and free the cached memory the eager
+    steps reuse.  Returns (graph, capture seconds, instantiation
+    seconds)."""
+    g = torch.cuda.CUDAGraph(keep_graph=True)
     torch.cuda.synchronize()
     side = torch.cuda.Stream()
-    with torch.cuda.stream(side):
-        g.capture_begin(pool=pool)
-        try:
-            fn()
-        finally:
-            g.capture_end()
+    t0 = time.perf_counter()
+    # no garbage collection inside the capture: it could destroy another
+    # simulation's graphs and release their pools, which a capture refuses
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.stream(side):
+            g.capture_begin(pool=pool)
+            try:
+                fn()
+            finally:
+                g.capture_end()
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.current_stream().wait_stream(side)
-    return g
+    t1 = time.perf_counter()
+    g.instantiate()
+    return g, t1 - t0, time.perf_counter() - t1
+
+
+def _both(_pred, if_true: Callable, if_false: Callable) -> None:
+    if_true()
+    if_false()
 
 
 class GraphSteps:
-    """The captured head, tails and rebucket of one simulation on one card,
-    replayed.
+    """The captured steps of one simulation on one card, replayed.
 
-    ``capture(fn, pool)`` makes a graph object with ``replay()`` (a CUDA
-    graph by default; the CPU tests give a stub).  ``replays`` and
-    ``captures`` count what this object did."""
+    ``capture(fn, pool)`` makes (graph, capture s, instantiation s) with
+    ``graph.replay()`` (a CUDA graph by default; the CPU tests give a stub
+    whose replay calls ``fn`` again, so each condition, ``if_node``'s
+    plain version on the CPU, is read at replay); ``scratch()`` (a
+    context manager) points the step at throwaway clones of its buffers
+    while both branches are warmed before a capture, or None (nothing to
+    warm).  ``replays``, ``captures``, ``capture_s`` and
+    ``instantiate_s`` count what this object did."""
 
-    def __init__(self, device, capture: Callable = cuda_capture):
+    def __init__(self, device, capture: Callable = cuda_capture,
+                 scratch: Callable = None):
         self.device = torch.device(device)
         self._capture_fn = capture
-        self.graphs = {}            # key -> (graph, launch counts a replay)
+        # held weakly: the simulation that owns the scratch holds this
+        self._scratch = None if scratch is None else weakref.WeakMethod(
+            scratch)
+        # key -> (graph, launch counts a replay)
+        self.graphs = {}
+        # launch counts a taken condition adds to a replay's: the true
+        # body's less the false body's
+        self.taken = None
         cuda = self.device.type == "cuda"
         self.pool = torch.cuda.graph_pool_handle() if cuda else None
-        # the head's flag lands here; pinned so the graph copies it itself
-        self.flag = torch.zeros((), dtype=torch.bool, pin_memory=cuda)
-        self._eager_flag = None
+        # the conditional bodies' memory
+        self.body_pool = BodyPool(self.device) if cuda else None
         self.replays = 0
         self.captures = 0
+        self.capture_s = 0.0
+        self.instantiate_s = 0.0
 
     def _capture(self, key, fn: Callable) -> None:
         before = dict(LAUNCHES)
-        graph = self._capture_fn(fn, self.pool)
-        added = {k: v - before[k] for k, v in LAUNCHES.items()
-                 if v != before[k]}
-        LAUNCHES.update(before)     # a capture launches nothing
-        self.graphs[key] = (graph, added)
+        if self._scratch is not None:
+            with self._scratch()():
+                fn(_both)
+            LAUNCHES.update(before)  # throwaway work, none of the run's
+        bodies = []                  # launch counts of each body, in order
+
+        def measured(body):
+            def run():
+                b0 = dict(LAUNCHES)
+                body()
+                bodies.append(_delta(b0))
+            return run
+
+        def branch(pred, if_true, if_false):
+            for negate, body in ((False, if_true), (True, if_false)):
+                if_node(pred, measured(body), negate, self.body_pool)
+
+        graph, t_cap, t_inst = self._capture_fn(lambda: fn(branch),
+                                                self.pool)
+        added = _delta(before)
+        LAUNCHES.update(before)      # a capture launches nothing
+        if bodies:                   # one condition: (if set, if clear)
+            if_true, if_false = bodies[:2]
+            for k, v in if_true.items():
+                added[k] -= v        # the refresh body stays in a replay
+            taken = {k: if_true.get(k, 0) - if_false.get(k, 0)
+                     for k in set(if_true) | set(if_false)}
+            self.taken = {k: v for k, v in taken.items() if v}
+        self.graphs[key] = (graph, {k: v for k, v in added.items() if v})
         self.captures += 1
+        self.capture_s += t_cap
+        self.instantiate_s += t_inst
 
     def _replay(self, key) -> None:
         graph, added = self.graphs[key]
@@ -173,29 +226,14 @@ class GraphSteps:
         self.replays += 1
 
     def run(self, key, fn: Callable) -> None:
-        """Replay ``key``'s graph; at its first use run ``fn`` eagerly (the
-        step's own work), then capture it."""
-        if key in self.graphs:
-            self._replay(key)
-            return
-        fn()
-        self._capture(key, fn)
+        """Replay ``key``'s graph, capturing it from ``fn`` at its first
+        use."""
+        if key not in self.graphs:
+            self._capture(key, fn)
+        self._replay(key)
 
-    def head(self, fn: Callable) -> None:
-        if "head" in self.graphs:
-            self._eager_flag = None
-            self._replay("head")
-            return
-        self._eager_flag = fn()
-        self._capture("head",
-                      lambda: self.flag.copy_(fn(), non_blocking=True))
+    def settle(self, n_taken: int) -> None:
+        """Credit the rebucket bodies of a block's ``n_taken`` rebuckets."""
+        for k, v in (self.taken or {}).items():
+            LAUNCHES[k] += n_taken * v
 
-    def read(self, reduce: Callable) -> bool:
-        """The head's flag on the host: after a replay, one synchronize of
-        the stream that holds the head and the pinned copy; after the eager
-        first head, ``reduce`` of its tensor."""
-        if self._eager_flag is not None:
-            return reduce(self._eager_flag)
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
-        return bool(self.flag)

@@ -9,14 +9,16 @@
     python3 profile_step.py --spline                     # -e -P
     python3 profile_step.py --lj --interp                # -I
     python3 profile_step.py --mesh 2 2 2 --gpuAsync 1    # -a 1: the split
+    python3 profile_step.py -S 0                   # a rebucket every step
     python3 profile_step.py --eager                # the eager loop
 
 Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
 phases 5, 8 and 12), or with ``--method``/``--lj``/``--pairlist`` the
 neighbor-list runs of phase 14, through ``init_simulation`` and
 ``step_block``, stepping through the step's CUDA graphs
-(comd_tpu_torch/stepgraph.py) or, with ``--eager``, the eager loop of
-the same head and tail functions: warm-up
+(comd_tpu_torch/stepgraph.py: one a step, the rebucket a conditional
+node of it; with ``-S 0`` a rebucket every step) or, with ``--eager``,
+the eager loop of the same step functions: warm-up
 blocks of 10 steps up to the first rebucket (its kernels load on first
 use), ``--steps`` steps (blocks of 10) timed by the host clock, then as
 many under torch.profiler (device activity only).  Prints one JSON
@@ -24,9 +26,10 @@ line: ms/step, the device's busy time per step (the sum of the kernels'
 durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
 most device time, the device time of one launch of each hand-written
-kernel, and one redistribution run eagerly (host ms to enqueue it, ms to
-its end, device ms, device operations).  Needs a CUDA device; prints the
-card's name and power limit beside the numbers.
+kernel, the graphs' capture and instantiation seconds, and one
+redistribution run eagerly (host ms to enqueue it, ms to its end, device
+ms, device operations).  Needs a CUDA device; prints the card's name and
+power limit beside the numbers.
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--interp", action="store_true", help="-I")
     ap.add_argument("--gpuAsync", type=int, default=-1, choices=[-1, 0, 1],
                     help="-a (-1: auto)")
+    ap.add_argument("-S", dest="lazy", type=int, default=1, choices=[0, 1],
+                    help="lazy shell (0: a rebucket every step)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--eager", action="store_true",
                     help="step the eager loop, not the CUDA graphs")
@@ -80,7 +85,8 @@ def main(argv=None) -> int:
         pot_dir=os.path.join(ROOT, "pots"), device="cuda", xproc=px,
         yproc=py, zproc=pz, comm_impl=args.comm, half_shell=args.half,
         method=args.method, use_pairlist=args.pairlist, spline=args.spline,
-        lj_interpolation=args.interp, gpu_async=args.gpuAsync))
+        lj_interpolation=args.interp, gpu_async=args.gpuAsync,
+        lazy_shell=bool(args.lazy)))
     sim.cuda_graphs = not args.eager
     # warm up through a rebucket: its kernels load on their first launch
     for _ in range(20):
@@ -136,6 +142,7 @@ def main(argv=None) -> int:
                 + (" -P" if args.spline else "")
                 + (" -I" if args.interp else "")
                 + (f" -a {args.gpuAsync}" if args.gpuAsync >= 0 else "")
+                + ("" if args.lazy else " -S 0")
                 + (", eager loop" if args.eager else ", CUDA graphs")),
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
@@ -150,6 +157,9 @@ def main(argv=None) -> int:
             "device_ops": sum(e.count for e in reb)},
         "graph_replays_per_step": (
             (sim._graphs.replays - replays) / steps if sim._graphs else 0.0),
+        "graph_capture_s": sim._graphs.capture_s if sim._graphs else None,
+        "graph_instantiate_s": (sim._graphs.instantiate_s if sim._graphs
+                                else None),
         "hand_written_launches": {k: v for k, v in LAUNCHES.items() if v},
         "top_kernels_ms_per_step": [
             {"name": k[:90], "ms": us / 1e3 / steps, "calls": n / steps}

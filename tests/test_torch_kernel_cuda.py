@@ -23,7 +23,9 @@ halo kernels only move and evaluate values, so they are held bit for bit
 atom exchange three, and a sharded run gives the same bits under every
 transport.  The step's CUDA graphs (comd_tpu_torch/stepgraph.py) give
 the eager loop's state bit for bit, serial (K1, NL2) and on a 2x2x2 mesh
-in one process, with one host sync a step outside rebucket steps.
+in one process, lazy (the rebucket a conditional node) and -S 0, with
+one host sync a lazy block (the rebucket counter) and none on -S 0; the
+IF node's kernel (set_condition) takes the branch its predicate says.
 """
 import dataclasses
 import os
@@ -1126,15 +1128,23 @@ def _card_run(kw, graphs: bool, blocks=(10, 10)):
          xproc=2, yproc=2, zproc=2),
     dict(nx=10, ny=10, nz=10, doeam=True, comm_impl="collective",
          xproc=2, yproc=2, zproc=2),
-    dict(nx=10, ny=10, nz=10, doeam=False)],
-    ids=["eam", "eam_nl", "mesh_ki_fused", "mesh_collective", "lj"])
+    dict(nx=10, ny=10, nz=10, doeam=False),
+    dict(nx=10, ny=10, nz=10, doeam=True, lazy_shell=False),
+    dict(nx=10, ny=10, nz=10, doeam=True, lazy_shell=False,
+         comm_impl="ki_fused", xproc=2, yproc=2, zproc=2, gpu_async=0),
+    dict(nx=12, ny=12, nz=12, doeam=True, lazy_shell=False,
+         comm_impl="ki_fused", xproc=2, yproc=2, zproc=2, gpu_async=1,
+         initial_delta=0.8)],
+    ids=["eam", "eam_nl", "mesh_ki_fused", "mesh_collective", "lj",
+         "eam_S0", "mesh_S0_a0", "mesh_S0_a1"])
 def test_graphs_equal_eager_on_card(cuda_device, kw):
-    """The step replayed as CUDA graphs against the eager loop of the same
-    head and tail: r, p, gid, counts and ePot bit for bit (K1, NL2 and
-    the halo kernels are deterministic), and one host sync a step (the
-    trigger's read) outside the rebucket steps."""
-    (g, g_syncs, g_reb), (e, _s, _r) = [_card_run(kw, graphs)
-                                        for graphs in (True, False)]
+    """The steps replayed as CUDA graphs against the eager loop of the same
+    step functions: r, p, gid, counts, ePot and the rebucket count bit for
+    bit (K1, NL2 and the halo kernels are deterministic); in a block once
+    captured one host sync on the graph path (the rebucket counter's
+    read; none on -S 0), the eager loop's trigger reads beside it."""
+    (g, g_syncs, g_reb), (e, e_syncs, e_reb) = [
+        _card_run(kw, graphs) for graphs in (True, False)]
     assert g._graphs is not None and g._graphs.replays > 0
     assert e._graphs is None
     states = (lambda s: s.states if hasattr(s, "states") else [s.state])
@@ -1142,5 +1152,33 @@ def test_graphs_equal_eager_on_card(cuda_device, kw):
         for k in ("r", "p", "gid", "n_atoms"):
             assert torch.equal(getattr(a, k), getattr(b, k)), k
     assert g.e_potential == e.e_potential
-    # one host read a step, plus the rebucket steps' own
-    assert g_syncs >= 10 and (g_reb > 0 or g_syncs == 10)
+    assert (g.n_rebucket, g_reb) == (e.n_rebucket, e_reb)
+    lazy = kw.get("lazy_shell", True)
+    assert g_syncs == (1 if lazy else 0)
+    assert e_syncs == g_syncs + (10 if lazy else 0)
+
+
+def test_if_node_takes_its_branch(cuda_device):
+    """set_condition in a captured graph: each IF body runs at a replay
+    exactly when its predicate (or its negation) holds, as the plain
+    version runs it on the host."""
+    from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.stepgraph import cuda_capture
+    pred = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    hits = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    pool = torch.cuda.graph_pool_handle()
+    bodies = graph_if.BodyPool(cuda_device)
+
+    def step():
+        graph_if.if_node(pred, lambda: hits[0].add_(1), False, bodies)
+        graph_if.if_node(pred, lambda: hits[1].add_(1), True, bodies)
+
+    graph = cuda_capture(step, pool)[0]
+    want = torch.zeros(2, dtype=torch.int32)
+    for v in (True, False, False, True, True):
+        pred.fill_(v)
+        graph.replay()
+        graph_if.if_node_plain(torch.tensor(v), lambda: want[0].add_(1))
+        graph_if.if_node_plain(torch.tensor(v), lambda: want[1].add_(1),
+                               True)
+    assert hits.cpu().tolist() == want.tolist() == [3, 2]

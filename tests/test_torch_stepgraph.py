@@ -1,11 +1,12 @@
 """The step cut into head and tail (comd_tpu_torch/stepgraph.py) against
 comd_tpu, and the graph runner's bookkeeping.
 
-On the CPU the head and tail run eagerly, or through ``GraphSteps`` with
-a stub graph that replays by calling the captured function again (the
-runner's control flow: the first use eager then captured, the flag read
-from its host copy, the tails keyed by refresh and energy).  From one
-comd_tpu state, carried over with ``state_from_numpy``:
+On the CPU the steps run eagerly, or through ``GraphSteps`` with a stub
+graph that replays by calling the captured step again (the runner's
+control flow: each step's graph captured at its first use after both
+branches were warmed on clones of the buffers, keyed by energy; the
+rebucket condition read at replay by ``if_node``'s plain version).  From
+one comd_tpu state, carried over with ``state_from_numpy``:
   - f64 lazy cell steps, hot enough that the skin trigger rebuckets inside
     the run, and the list path (-m thread_atom_nl, a rebuild inside the
     run), 20 steps in two blocks: r and p within 1e-8, gid and counts
@@ -16,7 +17,7 @@ comd_tpu state, carried over with ``state_from_numpy``:
   - a ``sim.state`` replaced between blocks is the state the next block
     steps from, and a replacement of another shape makes new buffers;
   - a capture's launch counts are taken back and credited once per
-    replay (a stub graph).
+    replay, a rebucket body's once per rebucket (stub graphs).
 The graphs on the card against the eager loop are in
 tests/test_torch_kernel_cuda.py (``-m cuda``).
 """
@@ -55,15 +56,18 @@ class ReplayStub:
         self.fn()
 
 
-def replaying_steps():
+def replaying_steps(sim=None):
+    """A runner of stub graphs; with ``sim``, each capture first warms
+    both branches on clones of its buffers, as on the card."""
     return stepgraph.GraphSteps(
-        "cpu", capture=lambda fn, pool: ReplayStub(fn))
+        "cpu", capture=lambda fn, pool: (ReplayStub(fn), 0.0, 0.0),
+        scratch=None if sim is None else sim._scratch)
 
 
 def _run(sim, runner: str, blocks=(10, 10)):
     if runner == "graphs" and sim._graphs is None:
         sim.step_block(0)            # binds the buffers the graphs read
-        sim._graphs = replaying_steps()
+        sim._graphs = replaying_steps(sim)
     for n in blocks:
         sim.step_block(n)
     return sim
@@ -98,9 +102,8 @@ def test_head_tail_matches_comd_tpu(runner, method):
                                      or tsim.n_nl_build >= 2)
     if runner == "graphs":
         g = tsim._graphs
-        # the head, the rebucket, and tails with and without refresh and
-        # energy
-        assert 4 <= g.captures <= 6 and g.replays >= 30
+        # one graph a step, with and without the energy terms
+        assert g.captures == 2 and g.replays == 20
     ts = {k: getattr(tsim.state, k).numpy() for k in FIELDS}
     js = {k: np.asarray(getattr(jsim.state, k)) for k in FIELDS}
     _assert_same(ts, js, tsim.e_potential, jsim.e_potential)
@@ -198,14 +201,14 @@ def test_keep_copies_into_buffers():
 
 
 def test_launch_credits_once_per_replay(monkeypatch):
-    """A capture runs the function's Python (the wrappers count as they
-    go) but launches nothing: its counts are taken back and credited on
-    each replay, so every run of the key counts once."""
+    """A capture runs the step's Python (the wrappers count as they go)
+    but launches nothing: its counts are taken back and credited on each
+    replay, so every run of the key counts once."""
     for k in LAUNCHES:
         monkeypatch.setitem(LAUNCHES, k, 0)
     calls = []
 
-    def fn():
+    def fn(_branch):
         LAUNCHES["eam_pass1"] += 1
         LAUNCHES["eam_pass3"] += 2
         calls.append(1)
@@ -218,26 +221,13 @@ def test_launch_credits_once_per_replay(monkeypatch):
 
     def capture(f, pool):
         f()                      # the Python body runs under a capture
-        return Counted()
+        return Counted(), 0.0, 0.0
 
     steps = stepgraph.GraphSteps("cpu", capture=capture)
     for _ in range(4):
         steps.run("k", fn)
-    # one eager run and the capture's call of fn; three replays
-    assert len(calls) == 2 and len(replays) == 3
-    assert steps.captures == 1 and steps.replays == 3
+    # the capture's call of fn; four replays
+    assert len(calls) == 1 and len(replays) == 4
+    assert steps.captures == 1 and steps.replays == 4
     assert LAUNCHES["eam_pass1"] == 4 and LAUNCHES["eam_pass3"] == 8
     assert sum(LAUNCHES.values()) == 12
-
-
-def test_head_flag_read_from_host_copy():
-    """The first head runs eagerly and is read from its tensor; replays
-    write the flag into the runner's host tensor."""
-    steps = replaying_steps()
-    flags = iter([True, False, True])
-    steps.head(lambda: torch.tensor(next(flags)))
-    assert steps.read(bool) is True
-    steps.head(None)            # replays the captured head
-    assert steps.read(bool) is False
-    steps.head(None)
-    assert steps.read(bool) is True
