@@ -11,10 +11,10 @@ the first error:
                  csrc/graph_if.cu) and the call that routes an IF body's
                  allocations into a private pool (phase 18 needs it)
   2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
-                 probe.cu, nl.cu, graph_if.cu) with nvcc, one process each,
-                 in parallel; prints registers and spill stores (stencil.cu's
-                 and nl.cu's pair kernels by variant) and fails if an f32
-                 pair kernel of a main path spills
+                 probe.cu, nl.cu, graph_if.cu, step.cu) with nvcc, one
+                 process each, in parallel; prints registers and spill
+                 stores (stencil.cu's and nl.cu's pair kernels by variant)
+                 and fails if an f32 pair kernel of a main path spills
   3. kernel   -- K1 against its plain PyTorch version on the same CUDA
                  tensors (thermalized 10^3 lattice, T = 600 K), EAM pass 1
                  and pass 3, f32/Chebyshev and f64/table
@@ -23,7 +23,12 @@ the first error:
   5. main     -- the headline run: 63^3 FCC Cu (1,000,188 atoms), EAM
                  funcfl, f32, auto commensurate cells, lazy-shell stepping,
                  10 x step_block(10); checks atom count, overflow, energy
-                 drift and that every step launched both K1 passes, then
+                 drift, that every step launched both K1 passes, and that
+                 the step kernels of csrc/step.cu launched 100 times each
+                 (kick_drift_trigger, land) and 101 (refresh_halo: the
+                 ghost refresh or the rebucket's halo fill, and the
+                 initial halo fill; embed_fill: the initial force too),
+                 then
                  times each pass against its plain version at that shape
                  and checks that two launches of K1 pass 1 (with and
                  without energy) and pass 3 give the same bits.
@@ -217,6 +222,20 @@ the first error:
                  equal bit for bit.  --halfShell (K2's atomics) at 20^3
                  f64: the printed energies per atom within one unit of the
                  last of 12 digits.
+ 19. step ops -- the step's small ops (csrc/step.cu: kick_drift_trigger,
+                 refresh_halo, embed_fill, land) against their plain
+                 versions on the same CUDA tensors, bit for bit, at phase
+                 5's 63^3 state (f32) and at a thermalized 10^3 state
+                 (f64): the trigger against a baseline and with one slot
+                 displaced by exactly (skin/2)^2 (clear), pass 2 with and
+                 without energy, serial fill and zero halo, the landing of
+                 two passes and of one force; then two steps (the second
+                 an energy step) from one state through the kernels and
+                 through the plain versions, a refresh step and a rebucket
+                 step, at both states: r, p, f, triggers, n_local and ePot
+                 equal bit for bit; each kernel timed at 63^3 (CUDA
+                 events, mean of 20) beside its plain version and its
+                 bound (bytes).
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
@@ -224,7 +243,7 @@ read just after; every one-process lazy and list path (phases 5, 8, 9,
 launches each graph's capture recorded (a rebucket body's once a
 rebucket, from the device's rebucket counter read at a block's end).
 Imports torch, numpy and comd_tpu_torch only; builds everything from this
-checkout (the five sources with one nvcc each, in parallel).
+checkout (the six sources with one nvcc each, in parallel).
 """
 from __future__ import annotations
 
@@ -263,7 +282,17 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             # no Pallas site: comd_tpu computes these in XLA
             "nl_build": "comd_tpu/ops/neighborlist.py:116 (build, XLA)",
             "nl_sweep": "comd_tpu/ops/neighborlist.py:180 (pair_sweep_nl, "
-                        "XLA)"}
+                        "XLA)",
+            # no Pallas site: comd_tpu's jitted step leaves these to XLA's
+            # fusions around the force
+            "kick_drift_trigger": "no Pallas site: XLA fusion of "
+                                  "comd_tpu/sim.py:367-370 and "
+                                  "comd_tpu/ops/neighborlist.py:161-168",
+            "refresh_halo": "no Pallas site: XLA fusion of "
+                            "comd_tpu/sim.py:353-358",
+            "embed_fill": "no Pallas site: XLA fusion of "
+                          "comd_tpu/ops/force_eam.py:371-380, :603",
+            "land": "no Pallas site: XLA fusion of comd_tpu/sim.py:380-383"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -584,7 +613,7 @@ def half_vs_full(sim) -> float:
         sim.maps.nbr_map, [s.r], sim.pair_eval, sim.f_eval,
         lambda xs, _rhobar: [binning.fill_halo_scalar_serial(
             sim.geom, sim.maps, x) for x in xs],
-        want_energy=False)[0]
+        n_atoms=[s.n_atoms], want_energy=False)[0]
     return float((f_half - f_full).abs().max())
 
 
@@ -2430,6 +2459,287 @@ def run_if_node(launches: dict) -> dict:
             "bound_by": "bytes", "library_ms": None}
 
 
+STEP_SOURCE = "comd_tpu_torch/csrc/step.cu"
+STEP_KEYS = ("kick_drift_trigger", "refresh_halo", "embed_fill", "land")
+# peak float64 rate outside the tensor cores (H100 SXM data sheet)
+PEAK_F64_FLOPS = 34e12
+
+
+def step_op_cases(sim) -> list:
+    """csrc/step.cu's kernels on ``sim``'s state (serial, EAM), as
+    (name, kernel, prep, run, bytes, flops): ``prep()`` makes fresh clones
+    of the operands a call writes, ``run(fn, ops)`` calls ``fn`` (the
+    kernel's wrapper or its plain version) on them and returns what it
+    wrote; bytes and flops are what the call needs (each input read once,
+    each output written once).  The trigger on the state against a
+    baseline 0.01 A away and on states with one slot displaced by exactly
+    (skin/2)^2 in the dtype (the others still: it must not fire), for the
+    run's skin and for 0.45 A, whose (skin/2)^2 rounds up in f32 (a
+    comparison in f64 would fire there), the ghost refresh, pass 2 with and without energy (rhobar and phi from
+    K1's pass 1 on the state) with the serial fill and with zero halo
+    rows, and the landing of K1's two passes and of one force."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    s, geom, maps = sim.state, sim.geom, sim.maps
+    nl, (B, A) = geom.n_local, s.r.shape[1:]
+    es = s.r.element_size()
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    skin = sim.skin
+    last = s.r.clone()
+    last[:, :nl] += 1e-2
+    np_dtype = s.r.cpu().numpy().dtype
+
+    def at_threshold(skin):
+        """(r, baseline) with one local slot (a, b, 0) from its baseline,
+        fl(fl(a a) + fl(b b)) == (skin/2)^2 in the dtype."""
+        thr = np_dtype.type((0.5 * skin) ** 2)
+        a = np.sqrt(thr)
+        for _ in range(8):
+            a = np.nextafter(a, np_dtype.type(0))
+            b = np.sqrt(thr - a * a) if a * a < thr else np_dtype.type(0)
+            if a * a + b * b == thr:
+                break
+        check(a * a + b * b == thr, f"no displacement of (skin/2)^2 = {thr}")
+        at, at_last = s.r.clone(), s.r.clone()
+        at[0, nl // 2, 0], at[1, nl // 2, 0] = float(a), float(b)
+        at_last[0, nl // 2, 0], at_last[1, nl // 2, 0] = 0.0, 0.0
+        return at, at_last
+
+    zero = torch.zeros_like(s.p)
+    f1, phi, rho = st.eam_pass1(s.r, maps.nbr_map, sim.pair_eval)
+    dfe, _u = sim.f_eval(rho)
+    dfe = torch.cat([dfe, torch.zeros((B - nl, A), dtype=dfe.dtype,
+                                      device=dfe.device)])
+    f3 = st.eam_pass3(s.r, maps.nbr_map, sim.pair_eval, dfe)
+    e_dtype = sim.cfg.torch_energy_dtype
+    n_halo = B - nl
+    slots, local = 3 * B * A, 3 * nl * A
+
+    def kdt(p, r, f, lst, skin=skin):
+        return (lambda: (p.clone(), r.clone()),
+                lambda fn, o: o + (fn(o[0], o[1], f, lst, nl, kick, drift,
+                                      skin),))
+
+    def kdt_at(skin):
+        at, at_last = at_threshold(skin)
+        return kdt(zero, at, zero, at_last, skin)
+
+    def land(two):
+        return (lambda: (s.f.clone(), s.p.clone(), s.n_local.clone()),
+                lambda fn, o: fn(o[0], o[1], f1, f3 if two else None,
+                                 s.n_atoms, o[2], nl, kick) or o)
+
+    kdt_bytes = es * (3 * slots + local + 2 * slots) + 1
+    kdt_flops = 4 * slots + 8 * nl * A
+    cases = [
+        ("kick_drift_trigger", "kick_drift_trigger",
+         *kdt(s.p, s.r, s.f, last), kdt_bytes, kdt_flops),
+        ("kick_drift_trigger at (skin/2)^2", "kick_drift_trigger",
+         *kdt_at(skin), kdt_bytes, kdt_flops),
+        ("kick_drift_trigger at (0.45/2)^2", "kick_drift_trigger",
+         *kdt_at(0.45), kdt_bytes, kdt_flops),
+        ("refresh_halo", "refresh_halo", lambda: (s.r.clone(),),
+         lambda fn, o: (fn(geom, maps, o[0]),),
+         es * (2 * 3 * n_halo * A + 3 * n_halo) + 8 * n_halo,
+         3 * n_halo * A)]
+    tab = (sim.f_eval.n + 4) * es
+    for energy in (True, False):
+        for src in (maps.halo_src, None):
+            n_b = es * (nl * A + B * A) + tab + (8 * n_halo if src is not None
+                                                 else 0)
+            if energy:
+                n_b += es * nl * A + 4 * nl + \
+                    torch.finfo(e_dtype).bits // 8 * nl * A
+            cases.append((
+                f"embed_fill energy={energy} serial={src is not None}",
+                "embed_fill", lambda: (),
+                lambda fn, _o, e=energy, h=src: fn(
+                    sim.f_eval, rho, phi if e else None, s.n_atoms, B, h,
+                    e_dtype),
+                n_b, 20 * (B * A if src is not None else nl * A)
+                + (3 * nl * A if energy else 0)))
+    for two in (True, False):
+        cases.append((f"land passes={1 + two}", "land", *land(two),
+                      es * ((1 + two) * local + 3 * slots) + 4 * nl + 4,
+                      (2 + two) * slots))
+    return cases
+
+
+def check_step_ops(sim, tag: str) -> dict:
+    """Phase 19's bitwise check at one state: each case of
+    ``step_op_cases`` through the kernel (one launch) and through its plain
+    version on the same CUDA tensors; the trigger at (skin/2)^2 clear.
+    Returns {case name: max |kernel - plain| over its outputs (0)}."""
+    import torch
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    from comd_tpu_torch.ops.cuda import step
+    errs = {}
+    for name, key, prep, run, _b, _f in step_op_cases(sim):
+        n0 = LAUNCHES[key]
+        got = run(getattr(step, key), prep())
+        check(LAUNCHES[key] == n0 + 1, f"{tag} {name}: "
+              f"{LAUNCHES[key] - n0} launches, not one")
+        want = run(getattr(step, key + "_plain"), prep())
+        err = 0.0
+        for x, y in zip(got, want):
+            check((x is None) == (y is None) and (
+                x is None or (x.dtype == y.dtype and torch.equal(x, y))),
+                  f"{tag} {name}: kernel and plain version differ")
+            if x is not None and x.is_floating_point():
+                err = max(err, float((x - y).abs().max()))
+        if name.startswith("kick_drift_trigger at"):
+            check(not bool(got[2]), f"{tag}: the trigger fired {name[19:]}")
+        errs[name] = err
+    say("step ops", f"{tag}: " + ", ".join(errs) + ": kernel and plain "
+        f"version equal bit for bit (the trigger clear at (skin/2)^2 and "
+        f"(0.45/2)^2)")
+    return errs
+
+
+def full_step_pair(sim, tag: str, force_rebucket: bool) -> None:
+    """One serial lazy EAM block of two steps (the second an energy step)
+    from one state, through the kernels and through their plain versions
+    (the four wrappers swapped for them; the eager loop), the state put
+    back between: r, p, f, the triggers, n_local and ePot equal bit for
+    bit.  ``force_rebucket``: one occupied baseline slot moved a skin away
+    first, so the first step takes the rebucket branch."""
+    import torch
+    from comd_tpu_torch.ops.cuda import step
+    saved = {k: v.clone() for k, v in sim._bufs.items()}
+    counters = (sim.n_rebucket, sim._rebuckets_read)
+    graphs, sim.cuda_graphs = sim.cuda_graphs, False
+    out = {}
+    for mode in ("kernels", "plain"):
+        for k, v in saved.items():
+            sim._bufs[k].copy_(v)
+        sim.n_rebucket, sim._rebuckets_read = counters
+        if force_rebucket:
+            box = int(torch.nonzero(sim.state.n_atoms[:sim.geom.n_local])[0])
+            sim.last_r[0, box, 0] += sim.skin
+        flags = []
+        fns = {k: getattr(step, k + ("_plain" if mode == "plain" else ""))
+               for k in STEP_KEYS}
+        orig = {k: getattr(step, k) for k in STEP_KEYS}
+
+        def kdt(*a, _fn=fns["kick_drift_trigger"], **kw):
+            flag = _fn(*a, **kw)
+            flags.append(bool(flag))
+            return flag
+
+        try:
+            for k in STEP_KEYS:
+                setattr(step, k, kdt if k == "kick_drift_trigger" else fns[k])
+            sim.step_block(2)
+        finally:
+            for k, fn in orig.items():
+                setattr(step, k, fn)
+        st_ = sim.state
+        out[mode] = (st_.r.clone(), st_.p.clone(), st_.f.clone(),
+                     int(st_.n_local), sim.e_potential, flags,
+                     sim.n_rebucket - counters[0])
+    for k, v in saved.items():
+        sim._bufs[k].copy_(v)
+    sim.n_rebucket, sim._rebuckets_read = counters
+    sim.cuda_graphs = graphs
+    (rk, pk, fk, nk, ek, tk, bk), (rp, pp, fp, np_, ep, tp, bp) = \
+        out["kernels"], out["plain"]
+    same = (torch.equal(rk, rp) and torch.equal(pk, pp) and
+            torch.equal(fk, fp) and nk == np_ and ek == ep and tk == tp
+            and bk == bp)
+    check(same, f"{tag}: the step through the kernels and through the "
+          f"plain versions differ: triggers {tk} / {tp}, n_local {nk} / "
+          f"{np_}, ePot {ek!r} / {ep!r}, rebuckets {bk} / {bp}")
+    check(tk[0] or not force_rebucket, f"{tag}: the moved baseline did "
+          f"not fire the trigger")
+    say("step ops", f"{tag}: two steps from one state (triggers {tk}, "
+        f"{bk} rebucket(s), the second an energy step) through the kernels "
+        f"and through the plain versions: r, p, f, triggers, n_local {nk} "
+        f"and ePot {ek:.6f} equal bit for bit")
+
+
+def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
+    """The device ms of one call of ``fn`` without the host's launch cost:
+    ``calls`` calls captured into one CUDA graph, replayed ``reps`` times
+    between CUDA events (torch.profiler at times keeps no record of a
+    short kernel)."""
+    import torch
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.stepgraph import cuda_capture
+    fn()
+    graph, _c, _i = cuda_capture(lambda: [fn() for _ in range(calls)],
+                                 torch.cuda.graph_pool_handle())
+    return time_ms(graph.replay, reps) / calls
+
+
+def run_step_ops(headline, launches: dict) -> dict:
+    """Phase 19: csrc/step.cu's four kernels against their plain versions,
+    bit for bit, at the 63^3 headline state (f32) and at a thermalized
+    10^3 state (f64); a full step through the kernels against the plain
+    versions at both, a refresh step and a rebucket step; the kernels
+    timed at the headline state (``graph_ms``, and a call from the host,
+    CUDA events) beside their plain versions and byte bounds.  ``headline``: phase
+    5's simulation; ``launches``: phase 5's counts.  Returns the
+    kernels-line rows."""
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import step
+    from comd_tpu_torch.probes import time_ms
+    small = init_simulation(Config(
+        nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+        dtype="float64", interp_impl="rows", pot_dir=POTS, device="cuda"))
+    small.step_block(10)
+    errs = {}
+    for sim, tag in ((headline, f"{HEADLINE_N}^3 float32"),
+                     (small, "10^3 float64")):
+        errs.update(check_step_ops(sim, tag))
+        for force in (False, True):
+            full_step_pair(sim, f"{tag} {'rebucket' if force else 'refresh'}"
+                           f" step", force)
+    del small
+    rows = {}
+    peak = PEAK_F32_FLOPS
+    for name, key, prep, run, n_bytes, flops in step_op_cases(headline):
+        if name.startswith("kick_drift_trigger at"):
+            continue
+        ops = prep()           # updated in place call after call
+
+        def kernel():
+            return run(getattr(step, key), ops)
+
+        def plain():
+            return run(getattr(step, key + "_plain"), ops)
+
+        calls_ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 20)
+        ms = graph_ms(kernel)
+        b_ms = 1e3 * max(n_bytes / PEAK_BYTES, flops / peak)
+        by = "bytes" if n_bytes / PEAK_BYTES >= flops / peak else \
+            "operations"
+        say("timing", f"{name} at {HEADLINE_N}^3 f32: {ms:.5f} ms a launch "
+            f"replayed in a graph of 20 (CUDA events; the bound at "
+            f"{b_ms / ms:.0%} of it), {calls_ms:.4f} ms a call from the host "
+            f"(CUDA events, mean of 20: the wrapper's host time when above "
+            f"the kernel's); plain {plain_ms:.4f} ms a call; bound "
+            f"{b_ms:.5f} ms ({by}: {n_bytes / 1e6:.2f} MB, "
+            f"{flops / 1e6:.2f} Mflop); {launches[key]} launches in phase "
+            f"5's run")
+        # the kernels line: a step's own calls (no energy: 99 of 100 steps)
+        if name in ("kick_drift_trigger", "refresh_halo",
+                    "embed_fill energy=False serial=True",
+                    "land passes=2"):
+            rows[key] = {
+                "name": key, "route": "cuda", "source": STEP_SOURCE,
+                "replaces": REPLACES[key], "launches": launches[key],
+                "max_abs_err": max(v for k, v in errs.items()
+                                   if k.startswith(key)),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                "bound_by": by, "library_ms": None}
+    say("timing", "no single PyTorch call computes one of the four (a "
+        "kick, a drift and a max; a gather plus a shift; an interpolation "
+        "with a fill and a mask; a sum, a copy and a kick): library_ms "
+        "none")
+    return rows
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -2460,6 +2770,7 @@ def main() -> int:
     from comd_tpu_torch.ops.cuda import nl as nlk
     from comd_tpu_torch.ops.cuda import probe as pr
     from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.ops.cuda import step
     from comd_tpu_torch.probes import time_ms
 
     # 1. device
@@ -2485,11 +2796,12 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(5) as pool:
-        list(pool.map(lambda m: m.build(), (st, cm, pr, nlk, graph_if)))
+    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+        list(pool.map(lambda m: m.build(), (st, cm, pr, nlk, graph_if,
+                                            step)))
     t_build = time.perf_counter() - t0
     for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe"),
-                      (nlk, "nl"), (graph_if, "graph_if")):
+                      (nlk, "nl"), (graph_if, "graph_if"), (step, "step")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
         entries = []       # (mangled name, registers, spill store bytes)
         if os.path.exists(log):
@@ -2525,7 +2837,7 @@ def main() -> int:
             bad = {k: v for k, v in spill.items()
                    if k.startswith("f32") and k != "f32 eam table" and v}
             check(not bad, f"f32 {stem} kernels spill: {bad}")
-    say("build", f"five sources in {t_build:.1f} s")
+    say("build", f"six sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -2545,9 +2857,20 @@ def main() -> int:
     # 5. main path at full width: the 63^3 headline run
     serial_epot = []
     sim, launches = run_main(
-        "main", ("eam_pass1", "eam_pass3", "set_condition"), doeam=True,
-        on_init=lambda x: serial_epot.append(x.e_potential))
+        "main", ("eam_pass1", "eam_pass3", "set_condition") + STEP_KEYS,
+        doeam=True, on_init=lambda x: serial_epot.append(x.e_potential))
     launches_main = launches
+    # one launch of each step kernel a step (the refresh in the ghost
+    # refresh or in the rebucket's halo fill), refresh_halo and
+    # embed_fill once more for the initial halo fill and force
+    n_steps = 100
+    want = {k: n_steps + (k in ("refresh_halo", "embed_fill"))
+            for k in STEP_KEYS}
+    got = {k: launches[k] for k in STEP_KEYS}
+    check(got == want, f"main: step kernels launched {got}, not {want}")
+    say("main", f"step kernels: {got} launches in {n_steps} steps "
+        f"({sim.n_rebucket} rebuckets; refresh_halo and embed_fill also "
+        f"at the initial halo fill and force)")
     serial_ms = sim.ms_step
     rows = {}
     # K1 vs plain at the main path's shape (not counted: read above)
@@ -2575,6 +2898,7 @@ def main() -> int:
                 k1_flops)
     # K1 sums each i's pairs in one fixed order: two launches, same bits
     check_k1_bits(r, nbr, ev, dfe, f"{HEADLINE_N}^3")
+    headline = sim          # phase 19 runs the step kernels on its state
     del sim, r, nbr, ev, dfe
 
     # 6. K2 (EAM, LJ) and K1's LJ variant vs plain versions at 10^3
@@ -2863,12 +3187,16 @@ def main() -> int:
         f"{half['graphs']['e_atom'][1]:.12f}; printed digits "
         f"{gap:.1e} eV/atom from the eager loop's")
 
+    # 19. the step's small ops (csrc/step.cu) against their plain versions
+    rows.update(run_step_ops(headline, launches_main))
+    del headline
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
                + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
-               + ("set_condition",)]
+               + ("set_condition",) + STEP_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

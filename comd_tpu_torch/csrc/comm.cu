@@ -12,10 +12,10 @@
 // atom buffer.  _pass2_push_kernel (K4, driven by _pass2_push) evaluates
 // F'(rhobar) of an x-face plane -- the quadratic interpolation of the
 // embedding table F, eam.c:557-579, as comd_tpu_torch/potentials/
-// tables.interpolate computes it -- and pushes it; exchange_scalar_ki_fused
-// runs it for the x stage and K3 for y and z.  The Pallas kernel's 0/1
-// selection-matmul table read was a Mosaic workaround; this is a direct
-// table read.
+// tables.interpolate computes it (csrc/embed.cuh) -- and pushes it;
+// exchange_scalar_ki_fused runs it for the x stage and K3 for y and z.
+// The Pallas kernel's 0/1 selection-matmul table read was a Mosaic
+// workaround; this is a direct table read.
 //
 // Destinations.  A launch moves rows of this process's shards (0..S-1).
 // to[d][s] names where shard s's rows of direction d go: a value t < S is
@@ -107,6 +107,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "embed.cuh"
+
 namespace cg = cooperative_groups;
 
 constexpr int kMaxShards = 64;   // shards a launch
@@ -195,32 +197,6 @@ __device__ __forceinline__ void copy_rows(const V* src, V* dst,
       for (int w = sub; w < row_vecs; w += 1 << lg)
         dst[q * dst_plane + into + w] = load_cg(src + q * src_plane + from + w);
   }
-}
-
-template <typename T>
-struct Embed {
-  int n;
-  T x0, inv_dx;
-  const T* table;
-};
-
-// tables.interpolate's derivative output, operation by operation.
-template <typename T>
-__device__ __forceinline__ T embed_derivative(T rho, const Embed<T>& p) {
-  const T r = rho < p.x0 ? p.x0 : rho;
-  const T rr = (r - p.x0) * p.inv_dx;
-  const T fl = floor(rr);
-  long long ii = static_cast<long long>(fl);
-  const bool over = ii > p.n;
-  if (over) ii = p.n;
-  const T frac = over ? T(0) : rr - fl;
-  const T tm1 = p.table[ii];
-  const T t0 = p.table[ii + 1];
-  const T t1 = p.table[ii + 2];
-  const T t2 = p.table[ii + 3];
-  const T g1 = t1 - tm1;
-  const T g2 = t2 - t0;
-  return T(0.5) * (g1 + frac * (g2 - g1)) * p.inv_dx;
 }
 
 // The fused stage's rows for (direction d, shard s): F'(rhobar) of s's

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..cells import CellGeometry, boundary_lists
+from .cuda import step as step_ops
 
 #: coordinate sentinel for empty slots; far from any real atom, and pairs of
 #: empty slots coincide so r2==0 masks them out (reference instead stores one
@@ -423,21 +424,15 @@ def sort_cells(r, p, gid):
     return torch.gather(r, -1, idx), torch.gather(p, -1, idx), gid
 
 
-def refresh_halo_positions(geom: CellGeometry, maps: GeomMaps, r):
-    """Rewrite the halo cells' positions from their periodic sources, in
-    place (the lazy step's ghost refresh between rebuckets)."""
-    r[:, geom.n_local:] = r[:, maps.halo_src] + maps.halo_shift.T[:, :, None]
-    return r
-
-
 def fill_halo_serial(geom: CellGeometry, maps: GeomMaps, r, gid, n_atoms):
-    """Periodic-image halo fill for the single-domain case, in place.
+    """Periodic-image halo fill for the single-domain case, in place; the
+    positions through the step's ghost refresh (ops/cuda/step.refresh_halo).
 
     Serial CoMD degenerates its halo exchange into self-copies with PBC
     shifts (doc: src-mpi/CoMD.c:1127-1129); here that is one static gather.
     """
     n_local = geom.n_local
-    refresh_halo_positions(geom, maps, r)
+    step_ops.refresh_halo(geom, maps, r)
     gid[n_local:] = gid[maps.halo_src]
     n_atoms[n_local:] = n_atoms[maps.halo_src]
     return r, gid, n_atoms

@@ -1,0 +1,357 @@
+"""The small ops of the step around the EAM force on hand-written CUDA
+kernels (csrc/step.cu, one source, one build, -fmad=false).
+
+comd_tpu has no Pallas kernel for these: its jitted step
+(comd_tpu/sim.py:337-390) leaves them to XLA, which fuses them around the
+force.  As PyTorch ops they cost the serial EAM step ~66 launches and
+~0.3 ms of device time on an H100, so each is one kernel here:
+
+- ``kick_drift_trigger``: the half kick and the drift of every slot, then
+  the skin trigger (comd_tpu/sim.py:367-373 and
+  ops/neighborlist.py::needs_rebuild) as the 0-dim bool the step graph's
+  IF nodes read (``last_r`` None: the kick and drift only, ``-S 0``);
+- ``refresh_halo``: the serial ghost refresh (sim.py:353-358), also the
+  positions of the rebucket's halo fill (``binning.fill_halo_serial``);
+- ``embed_fill``: EAM pass 2 (``tables.interpolate``'s F and F'), dfEmbed
+  [B, A] with the serial halo fill or zero halo rows, and on energy steps
+  U = 0.5 phi + F with empty slots 0 (comd_tpu/ops/force_eam.py:371-380,
+  :603);
+- ``land``: the force landing, the second half kick and the local atom
+  count (sim.py:380-383), summed over a mesh's shards launch by launch.
+
+Beside each sits its plain PyTorch version (``*_plain``: the step's torch
+code as it was); the wrappers take it only for tensors on the CPU, and a
+CUDA tensor launches the kernel or raises.  Kernel and plain version give
+the same bits.  Launches are counted in ``LAUNCHES`` (ops/cuda/
+__init__.py) under the kernels' names.  The trigger and the count reduce
+into a scratch buffer a device that each launch leaves clear (csrc/
+step.cu), made at the first launch, which must therefore not be inside a
+CUDA graph capture.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Optional
+
+import torch
+
+from ...potentials.tables import EmbedTable, as_dtype
+from .. import neighborlist as nlmod
+from . import LAUNCHES
+from .nvcc import CSRC, build_library
+
+SOURCE = os.path.join(CSRC, "step.cu")
+THREADS = 256          # csrc/step.cu's kThreads
+BLOCKS_PER_SM = 8      # the grid-stride loops' grid: at most this a SM
+
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_SECONDS = None   # wall time of the nvcc build in this process
+_SCRATCH = {}          # device index -> the reductions' scratch words
+_SMS = {}              # device index -> multiprocessors
+
+
+def build():
+    """Compile csrc/step.cu for sm_90a (first use) and bind it.
+    -fmad=false: each operation rounds once, as PyTorch's eager kernels
+    round it."""
+    global _lib, BUILD_SECONDS
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib, BUILD_SECONDS = build_library(SOURCE, "step", ("-fmad=false",))
+        p, i, d, q = (ctypes.c_void_p, ctypes.c_int, ctypes.c_double,
+                      ctypes.c_longlong)
+        for name, args in (
+                ("comd_kick_drift_trigger",
+                 [i, p, p, p, p, q, q, d, d, d, p, p, i, p]),
+                ("comd_refresh_halo", [i, p, p, p, q, i, q, q, i, p]),
+                ("comd_embed_fill",
+                 [i, i, p, p, p, p, p, p, i, q, q, i, d, d, p, i, p]),
+                ("comd_land", [i, p, p, p, q, p, q, q, q, d, p, i, p, i, p,
+                               i, p])):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = i, args
+        lib.comd_step_error_string.restype = ctypes.c_char_p
+        lib.comd_step_error_string.argtypes = [i]
+        _lib = lib
+        return lib
+
+
+def _launched(err: int, name: str) -> None:
+    if err != 0:
+        msg = build().comd_step_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} "
+                           f"(cudaError {err})")
+    LAUNCHES[name] += 1
+
+
+def _grid(n: int, device: torch.device) -> int:
+    """Blocks of a grid-stride loop over ``n`` items."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    sms = _SMS.get(dev)
+    if sms is None:
+        sms = _SMS[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms))
+
+
+def _scratch(device: torch.device) -> torch.Tensor:
+    """The device's scratch words (csrc/step.cu's Scratch, 32 bytes),
+    zero and left zero by every launch."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    s = _SCRATCH.get(dev)
+    if s is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the step kernels' scratch is made at their "
+                               "first launch, which may not be captured")
+        s = _SCRATCH[dev] = torch.zeros(4, dtype=torch.int64,
+                                        device=torch.device("cuda", dev))
+    return s
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _check_field(what: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    """``t`` is a contiguous tensor of ``like``'s shape, dtype, device."""
+    if t.shape != like.shape or t.dtype != like.dtype or \
+            t.device != like.device or not t.is_contiguous():
+        raise ValueError(f"{what}: expected contiguous {like.dtype} "
+                         f"{tuple(like.shape)} on {like.device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                         + ("" if t.is_contiguous() else " (strided)"))
+
+
+def _check_state(r: torch.Tensor) -> None:
+    if r.dim() != 3 or r.shape[0] != 3 or not r.is_contiguous() or \
+            r.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"expected a contiguous float32 or float64 [3, B, "
+                         f"A] field, got {r.dtype} {tuple(r.shape)}")
+
+
+# --------------------------------------------------------------------------
+# the head: half kick, drift, skin trigger
+# --------------------------------------------------------------------------
+
+def kick_drift_trigger_plain(p, r, f, last_r, n_local: int, kick: float,
+                             drift: float, skin: float):
+    """Plain PyTorch: ``p += kick f``, ``r += p drift``, then
+    ``needs_rebuild`` (a 0-dim bool), or None without ``last_r``."""
+    p.add_(kick * f)
+    r.add_(p * drift)
+    if last_r is None:
+        return None
+    return nlmod.needs_rebuild(last_r, r, n_local, skin)
+
+
+def kick_drift_trigger(p, r, f, last_r: Optional[torch.Tensor],
+                       n_local: int, kick: float, drift: float,
+                       skin: float = 0.0):
+    """The head of a step, in place on the [3, B, A] fields: the half kick
+    ``p += kick * f`` and the drift ``r += p * drift`` over every slot
+    (``kick``, ``drift``: the step's constants rounded to the dtype), then,
+    with the lazy baseline ``last_r`` ([3, B, A]), whether some local slot
+    moved more than skin/2 since it: a 0-dim bool, the max of |r -
+    last_r|^2 over the first ``n_local`` cells against (skin/2)^2 rounded
+    to the dtype.  Without ``last_r`` returns None.  CPU tensors run the
+    plain version; CUDA tensors the kernel."""
+    _check_state(r)
+    for what, t in (("p", p), ("f", f)) + (
+            (("last_r", last_r),) if last_r is not None else ()):
+        _check_field(what, t, r)
+    if r.device.type == "cpu":
+        return kick_drift_trigger_plain(p, r, f, last_r, n_local, kick,
+                                        drift, skin)
+    n = r.shape[1] * r.shape[2]
+    flag = None if last_r is None else torch.empty(
+        (), dtype=torch.bool, device=r.device)
+    thresh = as_dtype((0.5 * skin) ** 2, r.dtype)
+    err = build().comd_kick_drift_trigger(
+        r.element_size(), p.data_ptr(), r.data_ptr(), f.data_ptr(),
+        None if last_r is None else last_r.data_ptr(), n,
+        0 if last_r is None else n_local * r.shape[2], kick, drift, thresh,
+        _scratch(r.device).data_ptr(),
+        None if flag is None else flag.data_ptr(), _grid(n, r.device),
+        _stream(r))
+    _launched(err, "kick_drift_trigger")
+    return flag
+
+
+# --------------------------------------------------------------------------
+# the ghost refresh
+# --------------------------------------------------------------------------
+
+def refresh_halo_plain(geom, maps, r):
+    """Plain PyTorch: as ``refresh_halo``."""
+    r[:, geom.n_local:] = r[:, maps.halo_src] + maps.halo_shift.T[:, :, None]
+    return r
+
+
+def refresh_halo(geom, maps, r):
+    """The serial ghost refresh, in place: every halo cell's positions from
+    its periodic source cell plus the shift (``maps.halo_src``,
+    ``maps.halo_shift``).  The sources are local cells, so a launch reads
+    no row it writes.  Returns ``r``.  CPU tensors run the plain version;
+    CUDA tensors the kernel."""
+    _check_state(r)
+    B, A = r.shape[1], r.shape[2]
+    src, shift = maps.halo_src, maps.halo_shift
+    n_halo = B - geom.n_local
+    if src.shape != (n_halo,) or src.dtype != torch.int64 or \
+            shift.shape != (n_halo, 3) or shift.dtype != r.dtype or \
+            not (src.is_contiguous() and shift.is_contiguous()) or \
+            src.device != r.device or shift.device != r.device:
+        raise ValueError(f"refresh_halo: the maps' halo_src [{n_halo}] "
+                         f"int64 and halo_shift [{n_halo}, 3] {r.dtype} do "
+                         f"not fit r {tuple(r.shape)} on {r.device}")
+    if r.device.type == "cpu":
+        return refresh_halo_plain(geom, maps, r)
+    if n_halo == 0:
+        return r
+    err = build().comd_refresh_halo(
+        r.element_size(), r.data_ptr(), src.data_ptr(), shift.data_ptr(),
+        n_halo, A, geom.n_local, B * A, _grid(n_halo * A, r.device),
+        _stream(r))
+    _launched(err, "refresh_halo")
+    return r
+
+
+# --------------------------------------------------------------------------
+# EAM pass 2 and the dfEmbed field
+# --------------------------------------------------------------------------
+
+def embed_fill_plain(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
+                     halo_src=None, e_dtype=torch.float64):
+    """Plain PyTorch: (dfEmbed [n_rows, A], U [n_local, A] | None), as
+    ``embed_fill``."""
+    f_emb, df = f_eval(rhobar)
+    n_local, A = rhobar.shape
+    dfe = df.new_zeros((n_rows, A))
+    dfe[:n_local] = df
+    if halo_src is not None:
+        dfe[n_local:] = torch.index_select(dfe, 0, halo_src)
+    if phi is None:
+        return dfe, None
+    u = 0.5 * phi.to(e_dtype) + f_emb.to(e_dtype)
+    valid = torch.arange(A, device=u.device) < n_atoms[:n_local, None]
+    return dfe, torch.where(valid, u, torch.zeros((), dtype=e_dtype,
+                                                  device=u.device))
+
+
+def embed_fill(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
+               halo_src=None, e_dtype=torch.float64):
+    """EAM pass 2 of one shard from its density ``rhobar`` [n_local, A]
+    (eam.c:351-371): dfEmbed [n_rows, A] (B rows) holding F'(rhobar) in
+    the local rows and, in the halo rows, F' of the serial periodic source
+    rows ``halo_src`` ([B - n_local] int64: the serial fill, the same bits
+    as copying them) or 0 (``halo_src`` None: a mesh transport fills
+    them).  With the pair energy ``phi`` [n_local, A] (energy steps) also
+    U = 0.5 phi + F(rhobar) in ``e_dtype``, 0 in the slots at or past
+    ``n_atoms`` ([B] int32).  Returns (dfEmbed, U | None).  CPU tensors
+    run the plain version; CUDA tensors the kernel."""
+    if rhobar.dim() != 2 or not rhobar.is_contiguous() or \
+            rhobar.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"embed_fill: rhobar must be a contiguous float32 "
+                         f"or float64 [n_local, A], got {rhobar.dtype} "
+                         f"{tuple(rhobar.shape)}")
+    n_local, A = rhobar.shape
+    dev = rhobar.device
+    tab = f_eval.table
+    if tab.dtype != rhobar.dtype or tab.device != dev or \
+            not tab.is_contiguous():
+        raise ValueError("embed_fill: F's table must be contiguous, of "
+                         "rhobar's dtype, on its device")
+    if phi is not None:
+        _check_field("embed_fill phi", phi, rhobar)
+    if not isinstance(n_atoms, torch.Tensor) or (
+            n_atoms.dim() != 1 or n_atoms.shape[0] < n_local or
+            n_atoms.dtype != torch.int32 or n_atoms.device != dev or
+            not n_atoms.is_contiguous()):
+        raise ValueError(f"embed_fill: n_atoms must be a contiguous int32 "
+                         f"[>= {n_local}] on rhobar's device")
+    if halo_src is not None and (
+            halo_src.shape != (n_rows - n_local,) or
+            halo_src.dtype != torch.int64 or halo_src.device != dev or
+            not halo_src.is_contiguous()):
+        raise ValueError(f"embed_fill: halo_src must be a contiguous int64 "
+                         f"[{n_rows - n_local}] on rhobar's device")
+    if e_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"embed_fill: unsupported energy dtype {e_dtype}")
+    if dev.type == "cpu":
+        return embed_fill_plain(f_eval, rhobar, phi, n_atoms, n_rows,
+                                halo_src, e_dtype)
+    dfe = torch.empty((n_rows, A), dtype=rhobar.dtype, device=dev)
+    u = None if phi is None else torch.empty((n_local, A), dtype=e_dtype,
+                                             device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = build().comd_embed_fill(
+        rhobar.element_size(), 8 if e_dtype == torch.float64 else 4,
+        rhobar.data_ptr(), ptr(phi), n_atoms.data_ptr(), ptr(halo_src),
+        dfe.data_ptr(), ptr(u), A, n_local, n_rows, f_eval.n, f_eval.x0,
+        f_eval.inv_dx, tab.data_ptr(),
+        _grid(n_rows * A, dev), _stream(rhobar))
+    _launched(err, "embed_fill")
+    return dfe, u
+
+
+# --------------------------------------------------------------------------
+# the landing: force, second half kick, atom count
+# --------------------------------------------------------------------------
+
+def land_plain(f, p, f1, f3, n_atoms, n_local_out, n_local: int,
+               kick: float, add: bool = False) -> None:
+    """Plain PyTorch: as ``land``."""
+    f[:, :n_local] = f1 if f3 is None else f1 + f3
+    f[:, n_local:] = 0
+    p.add_(kick * f)
+    count = n_atoms[:n_local].sum(dtype=torch.int32)
+    n_local_out.copy_(n_local_out + count if add else count)
+
+
+def land(f, p, f1, f3, n_atoms, n_local_out, n_local: int, kick: float,
+         add: bool = False) -> None:
+    """The end of a step of one shard, in place: the force ``f`` [3, B, A]
+    gets ``f1`` (+ ``f3``: EAM's two passes, added here) in its first
+    ``n_local`` cells and 0 in the halo cells, then the half kick ``p +=
+    kick * f``, and ``n_local_out`` (0-dim int32) the atoms in the local
+    cells of ``n_atoms`` ([B] int32), added to its value with ``add`` (a
+    mesh's later shards).  ``f1``/``f3``: [3, n_local, A], each plane
+    contiguous (a plane stride of their own).  CPU tensors run the plain
+    version; CUDA tensors the kernel."""
+    _check_state(f)
+    _check_field("land p", p, f)
+    A = f.shape[2]
+    for what, t in (("f1", f1), ("f3", f3)):
+        if t is not None and (
+                t.shape != (3, n_local, A) or t.dtype != f.dtype or
+                t.device != f.device or t.stride()[1:] != (A, 1)):
+            raise ValueError(f"land {what}: expected {f.dtype} [3, "
+                             f"{n_local}, {A}] with contiguous planes on "
+                             f"{f.device}, got {t.dtype} {tuple(t.shape)} "
+                             f"strides {t.stride()} on {t.device}")
+    if n_atoms.shape != (f.shape[1],) or n_atoms.dtype != torch.int32 or \
+            not n_atoms.is_contiguous() or n_atoms.device != f.device or \
+            n_local_out.shape != () or n_local_out.dtype != torch.int32 or \
+            n_local_out.device != f.device:
+        raise ValueError("land: n_atoms must be a contiguous int32 [B] and "
+                         "n_local_out a 0-dim int32, on f's device")
+    if f.device.type == "cpu":
+        land_plain(f, p, f1, f3, n_atoms, n_local_out, n_local, kick, add)
+        return
+    n = f.shape[1] * A
+    err = build().comd_land(
+        f.element_size(), f.data_ptr(), p.data_ptr(), f1.data_ptr(),
+        f1.stride(0), None if f3 is None else f3.data_ptr(),
+        0 if f3 is None else f3.stride(0), n, n_local * A, kick,
+        n_atoms.data_ptr(), n_local, n_local_out.data_ptr(), int(add),
+        _scratch(f.device).data_ptr(), _grid(n, f.device), _stream(f))
+    _launched(err, "land")

@@ -17,8 +17,11 @@ mesh, in ``eam_force_split``) and the half-shell K2 in ``eam_force_half``;
 over Verlet
 lists (the *_nl methods) on the list sweep NL2 (ops/cuda/nl.py) in
 ``eam_force_nl`` and ``eam_force_nl_split``.  Pass 2 is
-per-atom, 27x fewer evaluations than a pair pass, and stays torch ops: the
-direct quadratic interpolation of F (eam.c:557-579).  These are comd_tpu's
+per-atom, 27x fewer evaluations than a pair pass: the direct quadratic
+interpolation of F (eam.c:557-579), on the cell paths one ``embed_fill``
+launch a shard (ops/cuda/step.py: dfEmbed with its serial halo fill or
+zero halo rows, and the masked U), on the lists' rows torch ops
+(``_embed_rows``).  These are comd_tpu's
 eam_force_pallas contracts (half=False and half=True), taken over the
 shards of a mesh: every argument and result that is per shard is a list
 with one entry per shard (a single domain is a mesh of one), and the halo
@@ -33,7 +36,7 @@ import torch
 from ..potentials import tables
 from ..potentials.eam import EamPotential
 from . import neighborlist as nlmod
-from .cuda import nl, stencil
+from .cuda import nl, stencil, step
 from .cuda.stencil import PairEvaluator
 
 
@@ -84,12 +87,14 @@ def make_f_eval(pot: EamPotential, dtype: torch.dtype,
         inv_dx=tables.as_dtype(pot.f.inv_dx, dtype))
 
 
-def _local_field(v: torch.Tensor, B: int) -> torch.Tensor:
-    """[B, A] field holding ``v`` [n_local, A] in its local rows, 0 in the
-    halo rows (filled by the halo exchange)."""
-    out = v.new_zeros((B, v.shape[1]))
-    out[:v.shape[0]] = v
-    return out
+def _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype) -> list:
+    """Pass 2 of every shard (step.embed_fill) from its pair energy ``phi``
+    (None without the energy terms) and density ``rhobar``: (dfEmbed [B,
+    A], U [n_local, A] | None), the halo rows of dfEmbed F' of the serial
+    sources ``halo_src`` or 0, U masked past each shard's ``n_atoms``."""
+    return [step.embed_fill(f_eval, rho, ph, n, r.shape[1], halo_src,
+                            e_dtype)
+            for r, ph, rho, n in zip(rs, phi, rhobar, n_atoms)]
 
 
 def eam_force(
@@ -100,6 +105,9 @@ def eam_force(
     fill_halo_scalar: Callable,  # (dfEmbed per shard, rhobar per shard)
                                  # -> dfEmbed per shard, halo rows filled
     *,
+    n_atoms: Sequence[torch.Tensor],   # per shard: [B] int32
+    halo_src: Optional[torch.Tensor] = None,
+    passes: bool = False,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
     box_chunk: int = 256,
@@ -109,26 +117,33 @@ def eam_force(
     all shards (it is the mesh's halo exchange), then pass 3 shard by
     shard -- comd_tpu's per-shard eam_force under shard_map, with the fill
     as its collective.  ``fill_halo_scalar`` also gets each shard's rhobar
-    [n_local, A], which the fused transport evaluates at its planes.
+    [n_local, A], which the fused transport evaluates at its planes.  With
+    ``halo_src`` (a single domain's periodic sources, ``maps.halo_src``)
+    pass 2 fills the halo rows itself and ``fill_halo_scalar`` is not
+    called.
 
-    Returns, per shard, (force [3, n_local, A], U_raw [n_local, A] | None,
-    dfEmbed [B, A]).  ``want_energy=False`` (dynamics-only steps between
-    reporting boundaries) skips the phi-value work and returns U_raw=None.
+    Returns, per shard, (force [3, n_local, A], U [n_local, A] | None,
+    dfEmbed [B, A]), U 0 in the slots at or past the shard's ``n_atoms``.
+    ``passes=True`` returns the force as its two passes (f1, f3) for the
+    step's landing to add.
+    ``want_energy=False`` (dynamics-only steps between reporting
+    boundaries) skips the phi-value work and returns U=None.
     ``box_chunk`` only chunks the plain version (CPU tensors).
     """
     p1 = [stencil.eam_pass1(r, nbr_map, ev, want_energy=want_energy,
                             box_chunk=box_chunk) for r in rs]
     # pass 2 (eam.c:351-366): every slot gets F(rhobar); empty slots are
-    # masked by the caller (finalize_eam_energy)
-    emb = [f_eval(rhobar) for _f1, _phi, rhobar in p1]
-    u = [0.5 * phi.to(e_dtype) + f_emb.to(e_dtype) if want_energy else None
-         for (_f1, phi, _rho), (f_emb, _df) in zip(p1, emb)]
-    dfe = fill_halo_scalar(
-        [_local_field(df, r.shape[1]) for r, (_f, df) in zip(rs, emb)],
-        [rhobar for _f1, _phi, rhobar in p1])
-    return [(f1 + stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk),
-             u_s, d)
-            for r, (f1, _phi, _rho), u_s, d in zip(rs, p1, u, dfe)]
+    # masked past n_atoms
+    _f1, phi, rhobar = zip(*p1)
+    emb = _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype)
+    dfe = [d for d, _u in emb]
+    if halo_src is None:
+        dfe = fill_halo_scalar(dfe, list(rhobar))
+    out = []
+    for r, (f1, _phi, _rho), (_d, u), d in zip(rs, p1, emb, dfe):
+        f3 = stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk)
+        out.append(((f1, f3) if passes else f1 + f3, u, d))
+    return out
 
 
 def eam_force_split(
@@ -141,6 +156,8 @@ def eam_force_split(
     boundary,                    # binning.BoxSubset: the other local cells
     *,
     r_pre: Optional[Sequence[torch.Tensor]] = None,
+    n_atoms: Sequence[torch.Tensor],   # per shard: [B] int32
+    passes: bool = False,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
     box_chunk: int = 256,
@@ -155,7 +172,7 @@ def eam_force_split(
     scatter of the two lists.  Pass 2 is per slot and runs once on the
     summed rhobar (the same numbers as per subset).  On one stream nothing
     overlaps; the split keeps comd_tpu's data flow.  Returns what
-    eam_force does."""
+    eam_force does (``passes``: f1 and the two pass-3 subsets' sum)."""
     r_pre = rs if r_pre is None else r_pre
     kw = dict(want_energy=want_energy, box_chunk=box_chunk)
     p1 = []
@@ -166,18 +183,19 @@ def eam_force_split(
                                               boxes=boundary, **kw)
         p1.append((f_i + f_b, phi_i + phi_b if want_energy else None,
                    rho_i + rho_b))
-    emb = [f_eval(rhobar) for _f1, _phi, rhobar in p1]
-    u = [0.5 * phi.to(e_dtype) + f_emb.to(e_dtype) if want_energy else None
-         for (_f1, phi, _rho), (f_emb, _df) in zip(p1, emb)]
-    dfe = [_local_field(df, r.shape[1]) for r, (_f, df) in zip(rs, emb)]
+    _f1, phi, rhobar = zip(*p1)
+    emb = _embed(f_eval, rs, phi, rhobar, n_atoms, None, e_dtype)
+    dfe = [d for d, _u in emb]
     # interior pass 3 reads only local dfEmbed: before the fill
     f3_i = [stencil.eam_pass3(rp, nbr_map, ev, d, box_chunk=box_chunk,
                               boxes=interior) for rp, d in zip(r_pre, dfe)]
-    dfe = fill_halo_scalar(dfe, [rhobar for _f1, _phi, rhobar in p1])
-    return [(f1 + (f3 + stencil.eam_pass3(r, nbr_map, ev, d,
-                                          box_chunk=box_chunk,
-                                          boxes=boundary)), u_s, d)
-            for r, (f1, _phi, _rho), f3, u_s, d in zip(rs, p1, f3_i, u, dfe)]
+    dfe = fill_halo_scalar(dfe, list(rhobar))
+    out = []
+    for r, (f1, _phi, _rho), f3, (_d, u), d in zip(rs, p1, f3_i, emb, dfe):
+        f3 = f3 + stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk,
+                                    boxes=boundary)
+        out.append(((f1, f3) if passes else f1 + f3, u, d))
+    return out
 
 
 def eam_force_half(
@@ -188,6 +206,8 @@ def eam_force_half(
     fill_halo_scalar: Callable,  # as in eam_force
     fold: Callable,              # per shard [..., B, A] -> [..., n_local, A]
     *,
+    n_atoms: Sequence[torch.Tensor],   # per shard: [B] int32
+    halo_src: Optional[torch.Tensor] = None,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
     box_chunk: int = 256,
@@ -197,30 +217,26 @@ def eam_force_half(
     every shard of a mesh.
 
     Pass 1 on K2, then ``fold`` delivers the halo rows of rhobar and
-    phi_sum to their owners; pass 2 as in ``eam_force``; the dfEmbed halo
-    fill; pass 3 on K2; the two dense force passes are folded once (fold is
-    linear).  ``fold`` and ``fill_halo_scalar`` run over all shards.
-    Returns, per shard, (force [3, n_local, A], U_raw [n_local, A] | None,
-    dfEmbed [B, A]).
+    phi_sum to their owners; pass 2 as in ``eam_force`` (with its
+    ``halo_src`` and ``n_atoms``); the dfEmbed halo fill; pass 3 on K2;
+    the two dense force passes are folded once (fold is linear).  ``fold``
+    and ``fill_halo_scalar`` run over all shards.  Returns, per shard,
+    (force [3, n_local, A], U [n_local, A] | None, dfEmbed [B, A]).
     """
     p1 = [stencil.eam_pass1_half(r, half_nbr_map, ev,
                                  want_energy=want_energy,
                                  box_chunk=box_chunk) for r in rs]
     rhobar = fold([rho_d for _f, _phi, rho_d in p1])
-    emb = [f_eval(rho) for rho in rhobar]
-    if want_energy:
-        phi = fold([phi_d for _f, phi_d, _rho in p1])
-        u = [0.5 * ph.to(e_dtype) + f_emb.to(e_dtype)
-             for ph, (f_emb, _df) in zip(phi, emb)]
-    else:
-        u = [None] * len(rs)
-    dfe = fill_halo_scalar(
-        [_local_field(df, r.shape[1]) for r, (_f, df) in zip(rs, emb)],
-        rhobar)
+    phi = (fold([phi_d for _f, phi_d, _rho in p1]) if want_energy
+           else [None] * len(rs))
+    emb = _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype)
+    dfe = [d for d, _u in emb]
+    if halo_src is None:
+        dfe = fill_halo_scalar(dfe, rhobar)
     f = fold([f1d + stencil.eam_pass3_half(r, half_nbr_map, ev, d,
                                            box_chunk=box_chunk)
               for r, (f1d, _phi, _rho), d in zip(rs, p1, dfe)])
-    return list(zip(f, u, dfe))
+    return [(f_s, u, d) for f_s, (_d, u), d in zip(f, emb, dfe)]
 
 
 def _embed_rows(nlist, phi, rho, f_eval, e_dtype):
@@ -307,14 +323,3 @@ def eam_force_nl_split(
         lst, f1 + torch.cat([f3_i, nl.eam_pass3(seg[1], r, ev, d)], dim=1),
         r.shape[1], r.shape[2]), e_pot, d)
         for (lst, seg, r, f1, f3_i, e_pot, _d), d in zip(parts, dfe)]
-
-
-def finalize_eam_energy(u, valid_mask, e_dtype=torch.float64):
-    """Mask the embedding energy of empty slots and reduce in ``e_dtype``.
-
-    Pass 2 assigns F(rhobar=0) != 0 to every slot; only slots holding real
-    atoms contribute (reference loops over nAtoms per box, eam.c:353-366).
-    """
-    u = torch.where(valid_mask, u, torch.zeros((), dtype=u.dtype,
-                                               device=u.device))
-    return u, u.to(e_dtype).sum()

@@ -57,7 +57,6 @@ from ..constants import KB_EV
 from ..interop import state_from_numpy
 from ..ops import binning
 from ..ops import neighborlist as nlmod
-from ..ops.neighborlist import needs_rebuild
 from ..sim import (Physics, _sync, _tscope, bin_atoms_host_np,
                    init_potential, plan_geometry)
 from . import dist, exchange, ki_comm
@@ -179,12 +178,9 @@ class ShardedSimulation(Physics):
         """The head of a lazy or list step over the mesh, in place: every
         shard's half kick and drift, and the skin trigger of this
         process's shards (a 0-dim bool, or-ed over them)."""
-        st = self.states
-        self._drift(st)
-        last = self.nlists if self.uses_nl else self.last_r
-        nl = self.geom.n_local
-        return torch.stack([needs_rebuild(b, s.r, nl, self.skin)
-                            for b, s in zip(last, st)]).any()
+        last = ([lst.last_r for lst in self.nlists] if self.uses_nl
+                else self.last_r)
+        return torch.stack(self._kick_drift(self.states, last)).any()
 
     def _refresh(self) -> None:
         """The slot-aligned ghost-position refresh of a step that does not
@@ -210,7 +206,7 @@ class ShardedSimulation(Physics):
                                  r_pre)
         else:
             res = self.forces(r, [s.n_atoms for s in st], self._fill,
-                              self._fold, want_energy, r_pre)
+                              self._fold, want_energy, r_pre, passes=True)
         parts = self._land(st, res, want_energy)
         if parts is not None and self.mesh.nprocs > 1:
             self._e_parts = parts

@@ -12,14 +12,15 @@ Port of comd_tpu.sim's serial half on PyTorch (with -i/-j/-k > 1,
   - kineticEnergy / sumAtoms        -> reductions (timestep.c:109-133)
 
 The main path is the lazy-shell cell step: atoms are rebucketed only when
-one of them moved skin/2 since the last rebucket (``needs_rebuild``); other
-steps refresh the ghost positions.  The neighbor-list methods (-m *_nl,
--L) step the same way on Verlet lists, rebuilt (NL1) after each such
+one of them moved skin/2 since the last rebucket (the skin trigger);
+other steps refresh the ghost positions.  The neighbor-list methods (-m
+*_nl, -L) step the same way on Verlet lists, rebuilt (NL1) after each such
 rebucket and swept by NL2.  A step is a head (kick, drift, trigger), the
 rebucket or the ghost refresh as the trigger says (comd_tpu's lax.cond;
 on the card a conditional node of the step's graph), and the rest (force,
 kick), all in place on buffers the step owns; ``-S 0`` rebuckets every
-step.
+step.  The ops around the force (kick, drift, trigger, ghost refresh,
+pass 2, the landing) are the hand-written kernels of ops/cuda/step.py.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from .constants import KB_EV
 from .ops import binning, force_eam, force_lj
 from .ops import neighborlist as nlmod
 from .ops.cuda import nl as nl_kernels
-from .ops.neighborlist import needs_rebuild
+from .ops.cuda import step as step_ops
 from .ops.sweep import fold_halo_serial
 from .potentials.eam import EamPotential, init_eam_pot
 from .potentials.lj import LjPotential, init_lj_pot
@@ -101,8 +102,6 @@ class Physics:
         # the device rebucket counter's value when the host last read it
         self._rebuckets_read = 0
         self.nl_row_split = None     # row_split_for under -a 1 on a mesh
-        slot = torch.arange(cfg.max_atoms, device=self.device)
-        self._slot = slot[None, :]
         # on the card the steps replay CUDA graphs (stepgraph.py); False
         # runs the same step as an eager loop
         self.cuda_graphs = True
@@ -149,13 +148,18 @@ class Physics:
         """A step constant rounded to the dynamics dtype."""
         return float(np.asarray(x, dtype=np.dtype(self.cfg.dtype)))
 
-    def _drift(self, states) -> None:
-        """Half kick and drift of every shard, in place."""
-        half_dt = self._c(0.5 * self.cfg.dt)
-        r_dt = self._c(self.cfg.dt * (1.0 / self.mass))
-        for s in states:
-            s.p.add_(half_dt * s.f)
-            s.r.add_(s.p * r_dt)
+    def _kick_drift(self, states, lasts=None) -> list:
+        """Half kick and drift of every shard, in place, and with the lazy
+        baselines ``lasts`` ([3, B, A] a shard) each shard's skin trigger,
+        a 0-dim bool (ops/cuda/step.kick_drift_trigger: one launch a
+        shard)."""
+        kick = self._c(0.5 * self.cfg.dt)
+        drift = self._c(self.cfg.dt * (1.0 / self.mass))
+        lasts = [None] * len(states) if lasts is None else lasts
+        return [step_ops.kick_drift_trigger(s.p, s.r, s.f, b,
+                                            self.geom.n_local, kick, drift,
+                                            self.skin)
+                for s, b in zip(states, lasts)]
 
     def _full_force(self, f_loc, like):
         f = torch.zeros_like(like)
@@ -164,19 +168,16 @@ class Physics:
 
     def _land(self, states, res, want_energy: bool):
         """The end of a step, in place: each shard's force (``res`` as
-        ``forces`` returns it; halo rows zero), the second half kick, the
-        local atom count and, with the energy terms, ePot.  Returns the
-        shards' ePot stacked, or None."""
-        nl = self.geom.n_local
-        half_dt = self._c(0.5 * self.cfg.dt)
-        for s, (f_loc, _u, _e) in zip(states, res):
-            s.f[:, :nl] = f_loc
-            s.f[:, nl:] = 0
-            s.p.add_(half_dt * s.f)
+        ``forces(passes=True)`` returns it: a force or EAM's two passes;
+        halo rows zero), the second half kick and the local atom count, one
+        ``land`` launch a shard (ops/cuda/step.py), and, with the energy
+        terms, ePot.  Returns the shards' ePot stacked, or None."""
+        kick = self._c(0.5 * self.cfg.dt)
         s0 = states[0]
-        s0.n_local.copy_(torch.stack([s.n_atoms[:nl].sum(dtype=torch.int32)
-                                      for s in states]).sum(
-                                          dtype=torch.int32))
+        for i, (s, (f_loc, _u, _e)) in enumerate(zip(states, res)):
+            f1, f3 = f_loc if isinstance(f_loc, tuple) else (f_loc, None)
+            step_ops.land(s.f, s.p, f1, f3, s.n_atoms, s0.n_local,
+                          self.geom.n_local, kick, add=i > 0)
         if not want_energy:
             return None
         parts = torch.stack([e for _f, _u, e in res])
@@ -288,7 +289,7 @@ class Physics:
         """A ``-S 0`` step (comd_tpu's ``_make_step`` and ``_shard_step``):
         drift, the redistribution (under -a 1 on a mesh with the interior
         sweeps' positions selected on the device) and the rest."""
-        self._drift(self._shards())
+        self._kick_drift(self._shards())
         self._rebucket_step(pre=self.uses_split)
         self._rest(want_energy)
 
@@ -326,8 +327,15 @@ class Physics:
         if self.uses_nl:
             self.n_nl_build += n
 
+    @property
+    def _halo_src(self):
+        """The periodic sources of a single domain's halo cells, from which
+        pass 2 fills dfEmbed's halo rows itself (``force_eam.eam_force``);
+        None on a mesh, whose transports fill them."""
+        return None
+
     def forces(self, rs, n_atoms, fill, fold, want_energy: bool = True,
-               r_pre=None):
+               r_pre=None, passes: bool = False):
         """The force of every shard (comd_tpu's ``_force_fn``): EAM or LJ,
         on the full-shell K1 or, with ``--halfShell`` (whatever the cell
         method), the half-shell K2; -I (table LJ) always on K1, as
@@ -337,9 +345,10 @@ class Physics:
         --halfShell or -I say (analytic LJ).  ``rs``/``n_atoms``/``r_pre``
         hold one entry per shard; ``fill`` (dfEmbed halo fill) and
         ``fold`` (half-shell halo fold) run over all shards.  Returns per
-        shard (f_loc [3, n_local, A], U [n_local, A] | None, ePot | None);
+        shard (f_loc [3, n_local, A], U [n_local, A] | None, ePot | None),
+        with ``passes`` EAM's f_loc as its two passes (f1, f3) on K1;
         ``want_energy=False`` skips the energy terms."""
-        geom, maps, cfg = self.geom, self.maps, self.cfg
+        maps, cfg = self.maps, self.cfg
         kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
                   box_chunk=cfg.resolved_box_chunk)
         half = cfg.half_shell
@@ -359,28 +368,24 @@ class Physics:
                                               rs, self.pair_eval, fold, **kw)
             return force_lj.lj_force(maps.nbr_map, self.pot, rs,
                                      self.pair_eval, **kw)
+        # EAM: pass 2 gives every slot F(rhobar = 0) != 0; n_atoms masks
+        # the empty slots' U
+        kw.update(n_atoms=n_atoms)
         if split:
             out = force_eam.eam_force_split(
                 maps.nbr_map, rs, self.pair_eval, self.f_eval, fill,
-                maps.interior, maps.boundary, **kw)
+                maps.interior, maps.boundary, passes=passes, **kw)
         elif half:
             out = force_eam.eam_force_half(
                 maps.half_nbr_map, rs, self.pair_eval, self.f_eval, fill,
-                fold, **kw)
+                fold, halo_src=self._halo_src, **kw)
         else:
             out = force_eam.eam_force(maps.nbr_map, rs, self.pair_eval,
-                                      self.f_eval, fill, **kw)
-        res = []
-        for (f_loc, u_raw, _dfe), n in zip(out, n_atoms):
-            if u_raw is None:
-                res.append((f_loc, None, None))
-                continue
-            # EAM: pass 2 gives every slot F(rhobar = 0) != 0; mask empties
-            valid = self._slot < n[:geom.n_local, None]
-            u, e_pot = force_eam.finalize_eam_energy(
-                u_raw, valid, cfg.torch_energy_dtype)
-            res.append((f_loc, u, e_pot))
-        return res
+                                      self.f_eval, fill,
+                                      halo_src=self._halo_src,
+                                      passes=passes, **kw)
+        return [(f_loc, u, None if u is None else u.sum())
+                for f_loc, u, _dfe in out]
 
     # ---------------- neighbor lists ----------------
 
@@ -468,14 +473,21 @@ class Simulation(Physics):
     # ---------------- force + energy ----------------
 
     def _fill(self, xs, _rhobar=None):
-        """The serial periodic dfEmbed halo fill."""
+        """The serial periodic dfEmbed halo fill (the list paths'; on the
+        cell paths pass 2 fills the halo rows, ``_halo_src``)."""
         return [binning.fill_halo_scalar_serial(self.geom, self.maps, x)
                 for x in xs]
 
-    def force(self, r, n_atoms, want_energy: bool = True, nlist=None):
+    @property
+    def _halo_src(self):
+        return self.maps.halo_src
+
+    def force(self, r, n_atoms, want_energy: bool = True, nlist=None,
+              passes: bool = False):
         """The force of the single domain: (f_loc [3, n_local, A],
         U [n_local, A] | None, ePot | None), with the serial periodic halo
-        fill and fold; over ``nlist`` when given (U is then None)."""
+        fill and fold; over ``nlist`` when given (U is then None);
+        ``passes`` as in ``forces``."""
         if nlist is not None:
             return self.forces_nl([nlist], [r], self._fill, want_energy)[0]
         geom, maps = self.geom, self.maps
@@ -483,27 +495,27 @@ class Simulation(Physics):
         def fold(xs):
             return [fold_halo_serial(geom, maps, x) for x in xs]
 
-        return self.forces([r], [n_atoms], self._fill, fold, want_energy)[0]
+        return self.forces([r], [n_atoms], self._fill, fold, want_energy,
+                           passes=passes)[0]
 
     def _head(self):
         """The head of a lazy or list step, in place: half kick, drift and
         the skin trigger (a 0-dim bool: some atom moved skin/2 since the
-        last rebucket or build)."""
-        s = self.state
-        self._drift([s])
-        last = self.nlist if self.uses_nl else self.last_r
-        return needs_rebuild(last, s.r, self.geom.n_local, self.skin)
+        last rebucket or build), one launch."""
+        last = self.nlist.last_r if self.uses_nl else self.last_r
+        (flag,) = self._kick_drift([self.state], [last])
+        return flag
 
     def _refresh(self) -> None:
         """The ghost-position refresh of a step that does not rebucket (the
-        cell layout and the list frozen)."""
-        binning.refresh_halo_positions(self.geom, self.maps, self.state.r)
+        cell layout and the list frozen), one launch."""
+        step_ops.refresh_halo(self.geom, self.maps, self.state.r)
 
     def _rest(self, want_energy: bool) -> None:
         """The rest of a step, in place: the force (over the list on the NL
         paths), the second half kick and bookkeeping."""
         s = self.state
-        res = self.force(s.r, s.n_atoms, want_energy, self.nlist)
+        res = self.force(s.r, s.n_atoms, want_energy, self.nlist, passes=True)
         self._land([s], [res], want_energy)
 
     def _rebucket_step(self, pre: bool = False) -> None:

@@ -8,8 +8,9 @@ the mesh one ``shard_map`` program, parallel/sharded.py:416, :478).  Here
 each step is one CUDA graph, captured once a ``want_energy`` and replayed
 ``n`` times from ``step_block`` with no host read between the replays:
 
-  - a lazy or list step: the head (half kick, drift, the skin trigger
-    ``needs_rebuild``; on a mesh the or over every shard), then two
+  - a lazy or list step: the head (half kick, drift and the skin trigger,
+    one ``kick_drift_trigger`` launch a shard, ops/cuda/step.py; on a
+    mesh the or over every shard), then two
     conditional IF nodes on the trigger (``ops/cuda/graph_if.py``: a
     one-thread kernel sets each node's handle from the trigger or its
     negation; torch 2.11 has no conditional node that Python reaches,

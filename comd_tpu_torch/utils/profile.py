@@ -4,21 +4,27 @@ The step enqueues its kernels asynchronously, so the run's own timers
 cannot attribute time to its phases.  This module runs each phase of the
 step on its own, on clones of the state (the run's state, counters and
 timers are untouched), and times it with comd_tpu's marginal-block method:
-a block of ``long`` calls minus one of ``short``, best of 3, so fixed
-overheads cancel.  On the card the blocks are timed with CUDA events; on
-the CPU with the wall clock.  The table is comparable to the reference's
-hierarchical timer report (performanceTimers.c:55-68) and to comd_tpu's
--s table: the phase names are comd_tpu's.
+the best of 5 blocks of ``long`` calls minus the best of 5 of ``short``,
+so fixed overheads cancel.  On the card the blocks are timed with CUDA
+events; on the CPU with the wall clock.  The table is comparable to the
+reference's hierarchical timer report (performanceTimers.c:55-68) and to
+comd_tpu's -s table: the phase names are comd_tpu's.
 
-Phases (reference enum names):
-  velocity      half kick (timestep.c:109-133)
-  position      drift (timestep.c:122-133)
+Phases (reference enum names), each the code the step runs:
+  velocity      the second half kick (timestep.c:109-133) with the force
+                landing and atom count: one ``land`` launch a shard
+  position      the drift (timestep.c:122-133) with the first half kick
+                and the skin trigger: one ``kick_drift_trigger`` launch a
+                shard (ops/cuda/step.py)
   redistribute  rebucket sort + scatter + halo rebuild (+ the atom
                 exchange and in-cell sort on a mesh)
   atomHalo      ghost position refresh alone
   force         full force evaluation (includes the in-force eamHalo)
   eamHalo       the dfEmbed halo fill alone (EAM only)
   neighborList  Verlet list build (NL methods only)
+
+``report_phases`` sums a step as comd_tpu's table does, velocity twice:
+here one ``land`` launch more than a step runs.
 """
 from __future__ import annotations
 
@@ -32,18 +38,34 @@ def _phase_fns(sim):
     """dict name -> (per-shard SimStates -> per-shard SimStates); a single
     domain is one shard."""
     from ..ops import binning
+    from ..ops.cuda import step
 
-    cfg, geom, maps = sim.cfg, sim.geom, sim.maps
+    geom, maps = sim.geom, sim.maps
     sharded = hasattr(sim, "states")
-    half_dt = sim._c(0.5 * cfg.dt)
-    r_dt = sim._c(cfg.dt * (1.0 / sim.mass))
     fns = {}
 
+    def forces(st, passes=False):
+        rs, ns = [s.r for s in st], [s.n_atoms for s in st]
+        if sharded and sim.uses_nl:
+            return sim.forces_nl(sim.nlists, rs, sim._fill_nl)
+        if sharded:
+            return sim.forces(rs, ns, sim._fill, sim._fold, passes=passes)
+        return [sim.force(rs[0], ns[0], nlist=sim.nlist, passes=passes)]
+
+    # the step's landing lands the force of its state (EAM's two passes)
+    landed = forces([_clone(s) for s in _states(sim)], passes=True)
+    # the skin trigger's baselines (the step's: r at the last rebucket);
+    # -S 0 steps without the trigger
+    lasts = ([s.r.clone() for s in _states(sim)]
+             if sim.uses_nl or sim.uses_lazy else None)
+
     def velocity(st):
-        return [dataclasses.replace(s, p=s.p + half_dt * s.f) for s in st]
+        sim._land(st, landed, want_energy=False)
+        return st
 
     def position(st):
-        return [dataclasses.replace(s, r=s.r + s.p * r_dt) for s in st]
+        sim._kick_drift(st, lasts)
+        return st
 
     fns["velocity"] = velocity
     fns["position"] = position
@@ -76,22 +98,15 @@ def _phase_fns(sim):
 
         def atom_halo(st):
             for s in st:
-                binning.refresh_halo_positions(geom, maps, s.r)
+                step.refresh_halo(geom, maps, s.r)
             return st
 
     fns["redistribute"] = redistribute
     fns["atomHalo"] = atom_halo
 
     def force(st):
-        rs, ns = [s.r for s in st], [s.n_atoms for s in st]
-        if sharded and sim.uses_nl:
-            res = sim.forces_nl(sim.nlists, rs, sim._fill_nl)
-        elif sharded:
-            res = sim.forces(rs, ns, sim._fill, sim._fold)
-        else:
-            res = [sim.force(rs[0], ns[0], nlist=sim.nlist)]
         return [dataclasses.replace(s, f=sim._full_force(f_loc, s.f))
-                for s, (f_loc, _u, _e) in zip(st, res)]
+                for s, (f_loc, _u, _e) in zip(st, forces(st))]
 
     fns["force"] = force
 
@@ -152,20 +167,24 @@ def _block_seconds(sim, fn, n: int) -> float:
 def profile_phases(sim, short: int = 2, long: int = 8, out=None):
     """Run the -s phase profile; returns {phase: seconds_per_invocation}.
 
-    Each phase runs as a block of ``short`` and ``long`` calls on clones of
-    the state; per-invocation time is the marginal difference, best of 3.
-    The simulation's rebucket and list-build counters are restored."""
+    Each phase runs as blocks of ``short`` and ``long`` calls on clones of
+    the state, 5 of each; per-invocation time is the marginal
+    difference of the two best blocks.  A hiccup only lengthens a block,
+    so each best is the least disturbed; the best of the per-trial
+    differences would instead keep the trial whose short block was
+    disturbed most, and read a phase whose launches are host-bound (a
+    few tens of microseconds) as zero.  The simulation's rebucket and
+    list-build counters are restored."""
     counters = (sim.n_rebucket, sim.n_nl_build)
     results = {}
     try:
         for name, fn in _phase_fns(sim).items():
             _block_seconds(sim, fn, short)      # warm
-            best = 1e30
-            for _ in range(3):
-                ts = _block_seconds(sim, fn, short)
-                tl = _block_seconds(sim, fn, long)
-                best = min(best, (tl - ts) / (long - short))
-            results[name] = max(best, 0.0)
+            ts = tl = 1e30
+            for _ in range(5):
+                ts = min(ts, _block_seconds(sim, fn, short))
+                tl = min(tl, _block_seconds(sim, fn, long))
+            results[name] = max((tl - ts) / (long - short), 0.0)
             if out is not None:
                 print(f"  [profile] {name:<14} {results[name]*1e3:10.3f} ms",
                       file=out, flush=True)

@@ -26,10 +26,12 @@ line: ms/step, the device's busy time per step (the sum of the kernels'
 durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
 most device time, the device time of one launch of each hand-written
-kernel, the graphs' capture and instantiation seconds, and one
-redistribution run eagerly (host ms to enqueue it, ms to its end, device
-ms, device operations).  Needs a CUDA device; prints the card's name and
-power limit beside the numbers.
+kernel (K1/K2, the halo and list kernels, set_condition, and the step's
+kick_drift_trigger, refresh_halo, embed_fill and land), the graphs'
+capture and instantiation seconds, and one redistribution run eagerly
+(host ms to enqueue it, ms to its end, device ms, device operations).
+Needs a CUDA device; prints the card's name and power limit beside the
+numbers.
 """
 from __future__ import annotations
 
@@ -169,7 +171,11 @@ def main(argv=None) -> int:
             k[:90]: us / n for k, (us, n) in kern.items()
             if any(w in k for w in ("stencil_kernel", "halo_fill_kernel",
                                     "ring_push_kernel", "nl_build_kernel",
-                                    "nl_pack_kernel", "nl_sweep_kernel"))},
+                                    "nl_pack_kernel", "nl_sweep_kernel",
+                                    "set_condition_kernel",
+                                    "kick_drift_trigger_kernel",
+                                    "refresh_halo_kernel",
+                                    "embed_fill_kernel", "land_kernel"))},
     }))
     return 0
 

@@ -36,7 +36,7 @@ def _jfill(geom):
     return lambda x, rhobar_l=None: jbin.fill_halo_scalar_serial(geom, x)
 
 
-def _port_force(sim, r, impl, want_energy=True):
+def _port_force(sim, r, n_atoms, impl, want_energy=True):
     pot = team.read_funcfl(os.path.join(POTS, "Cu_u6.eam"))
     rt = torch.from_numpy(r)
     maps = tbin.geom_maps(sim.geom, rt.dtype, "cpu")
@@ -46,7 +46,7 @@ def _port_force(sim, r, impl, want_energy=True):
         maps.nbr_map, [rt], ev, f_eval,
         lambda xs, _rhobar: [tbin.fill_halo_scalar_serial(sim.geom, maps, x)
                              for x in xs],
-        want_energy=want_energy)[0]
+        n_atoms=[torch.from_numpy(n_atoms)], want_energy=want_energy)[0]
     return f, u, dfe
 
 
@@ -81,34 +81,35 @@ def f64_rows():
 
 def test_eam_force_matches_pallas_f32(f32_pallas):
     sim, r, n_atoms, (fj, uj, dj) = f32_pallas
-    ft, ut, dt = _port_force(sim, r, "cheb")
+    ft, ut, dt = _port_force(sim, r, n_atoms, "cheb")
     np.testing.assert_allclose(ft.numpy(), fj, rtol=0, atol=1e-4)
-    np.testing.assert_allclose(ut.numpy(), uj, rtol=1e-5, atol=0)
     np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-5, atol=0)
+    # the port masks U's empty slots in pass 2: comd_tpu's masked U
     valid = _valid(sim, n_atoms, r.shape[-1])
-    _, e_t = tforce.finalize_eam_energy(ut, torch.from_numpy(valid))
-    _, e_j = jforce.finalize_eam_energy(jnp.asarray(uj), jnp.asarray(valid))
-    assert float(e_t) == pytest.approx(float(e_j), rel=1e-6)
+    u_j, e_j = jforce.finalize_eam_energy(jnp.asarray(uj), jnp.asarray(valid))
+    np.testing.assert_allclose(ut.numpy(), np.asarray(u_j), rtol=1e-5,
+                               atol=0)
+    assert float(ut.sum()) == pytest.approx(float(e_j), rel=1e-6)
 
 
 def test_eam_force_dynamics_only_variant_f32(f32_pallas):
-    sim, r, _n, (fj, _uj, _dj) = f32_pallas
-    ft, ut, _dt = _port_force(sim, r, "cheb", want_energy=False)
+    sim, r, n_atoms, (fj, _uj, _dj) = f32_pallas
+    ft, ut, _dt = _port_force(sim, r, n_atoms, "cheb", want_energy=False)
     assert ut is None
     np.testing.assert_allclose(ft.numpy(), fj, rtol=0, atol=1e-4)
 
 
 def test_eam_force_matches_rows_f64(f64_rows):
     sim, r, n_atoms, (fj, uj, dj) = f64_rows
-    ft, ut, dt = _port_force(sim, r, "rows")
+    ft, ut, dt = _port_force(sim, r, n_atoms, "rows")
     np.testing.assert_allclose(ft.numpy(), fj, rtol=1e-12,
                                atol=1e-12 * np.abs(fj).max())
-    np.testing.assert_allclose(ut.numpy(), uj, rtol=1e-12, atol=0)
     np.testing.assert_allclose(dt.numpy(), dj, rtol=1e-12, atol=0)
     valid = _valid(sim, n_atoms, r.shape[-1])
-    _, e_t = tforce.finalize_eam_energy(ut, torch.from_numpy(valid))
-    _, e_j = jforce.finalize_eam_energy(jnp.asarray(uj), jnp.asarray(valid))
-    assert float(e_t) == pytest.approx(float(e_j), rel=1e-12)
+    u_j, e_j = jforce.finalize_eam_energy(jnp.asarray(uj), jnp.asarray(valid))
+    np.testing.assert_allclose(ut.numpy(), np.asarray(u_j), rtol=1e-12,
+                               atol=0)
+    assert float(ut.sum()) == pytest.approx(float(e_j), rel=1e-12)
 
 
 @pytest.mark.parametrize("pot_type,golden,hilbert", [

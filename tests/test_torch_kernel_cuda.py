@@ -44,6 +44,7 @@ from comd_tpu_torch.ops.cuda import comm as cm
 from comd_tpu_torch.ops.cuda import nl as cuda_nl
 from comd_tpu_torch.ops.cuda import probe as cuda_probe
 from comd_tpu_torch.ops.cuda import stencil as st
+from comd_tpu_torch.ops.cuda import step as step_ops
 from comd_tpu_torch.parallel import exchange, ki_comm
 from comd_tpu_torch.parallel.mesh import make_mesh
 from comd_tpu_torch.probes import lookup, window
@@ -234,7 +235,7 @@ def test_empty_and_one_atom_cells(cuda_device, dtype, impl):
     r[:, empty] = binning.EMPTY_POS
     r[:, single] = binning.EMPTY_POS
     r[:, single, 3] = keep
-    binning.refresh_halo_positions(sim.geom, sim.maps, r)
+    step_ops.refresh_halo_plain(sim.geom, sim.maps, r)
     assert A > 4 and int((r[0, :n_local] < 1e9).sum()) > 0
     ev, dfe = sim.pair_eval, _dfe(sim, r)
     f_atol, s_rtol, f_rtol = _tols(dtype)
@@ -1182,3 +1183,97 @@ def test_if_node_takes_its_branch(cuda_device):
         graph_if.if_node_plain(torch.tensor(v), lambda: want[1].add_(1),
                                True)
     assert hits.cpu().tolist() == want.tolist() == [3, 2]
+
+
+def _step_ops_cases(sim):
+    """(the step module, [(name, call)]) for csrc/step.cu's four kernels
+    on clones of ``sim``'s state: ``call(fn)`` runs ``fn`` (a wrapper or
+    its plain version) and returns the tensors it wrote.  kick_drift_trigger
+    on the state and at the threshold (one slot displaced by exactly
+    (skin/2)^2 in the dtype, for the run's skin and for 0.45 A),
+    refresh_halo, embed_fill with and without energy, serial and zero
+    halo, land with one and two force passes."""
+    from comd_tpu_torch.ops.cuda import step
+    s, nl = sim.state, sim.geom.n_local
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    skin = sim.skin
+    last = s.r.clone()
+    last[:, :nl] += 1e-2 * torch.sin(torch.arange(
+        last[:, :nl].numel(), device=last.device,
+        dtype=last.dtype)).reshape(last[:, :nl].shape)
+    np_dtype = s.r.cpu().numpy().dtype
+
+    def at_threshold(skin):
+        """One slot displaced by (a, b, 0) with fl(fl(a a) + fl(b b))
+        equal to (skin/2)^2 in the dtype, the others still."""
+        thr = np_dtype.type((0.5 * skin) ** 2)
+        a = np.sqrt(thr)
+        for _ in range(8):
+            a = np.nextafter(a, np_dtype.type(0))
+            b = np.sqrt(thr - a * a) if a * a < thr else np_dtype.type(0)
+            if a * a + b * b == thr:
+                break
+        assert a * a + b * b == thr
+        at, at_last = s.r.clone(), s.r.clone()
+        at[0, nl // 2, 0], at[1, nl // 2, 0] = float(a), float(b)
+        at_last[0, nl // 2, 0], at_last[1, nl // 2, 0] = 0.0, 0.0
+        return at, at_last
+    zero = torch.zeros_like(s.p)
+    rho = (s.r[0, :nl] - s.r[0, :nl].min()).abs().contiguous() * 0.05
+    phi = s.r[1, :nl].contiguous()
+    f1, f3 = s.r[:, :nl].contiguous(), s.p[:, :nl].contiguous()
+
+    def kdt(fn, p, r, f, lst, skin=skin):
+        p, r = p.clone(), r.clone()
+        return (p, r, fn(p, r, f, lst, nl, kick, drift, skin))
+
+    def land(fn, two):
+        f, p, n = s.f.clone(), s.p.clone(), s.n_local.clone()
+        fn(f, p, f1, f3 if two else None, s.n_atoms, n, nl, kick)
+        return f, p, n
+
+    cases = [("kick_drift_trigger", lambda fn: kdt(fn, s.p, s.r, s.f, last)),
+             ("kick_drift_trigger at the threshold",
+              lambda fn, t=at_threshold(skin): kdt(fn, zero, t[0], zero,
+                                                   t[1])),
+             # (0.45/2)^2 rounds up in f32: a comparison in f64 would fire
+             ("kick_drift_trigger at the rounded-up threshold",
+              lambda fn, t=at_threshold(0.45): kdt(fn, zero, t[0], zero,
+                                                   t[1], 0.45)),
+             ("refresh_halo",
+              lambda fn: (fn(sim.geom, sim.maps, s.r.clone()),))]
+    for energy in (True, False):
+        for src in (sim.maps.halo_src, None):
+            cases.append((f"embed_fill energy={energy} "
+                          f"serial={src is not None}",
+                          lambda fn, e=energy, h=src: fn(
+                              sim.f_eval, rho, phi if e else None,
+                              s.n_atoms, s.r.shape[1], h)))
+    for two in (True, False):
+        cases.append((f"land passes={1 + two}",
+                      lambda fn, t=two: land(fn, t)))
+    return step, cases
+
+
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_step_kernels_match_plain(cuda_device, dtype, impl):
+    """csrc/step.cu's kernels against their plain versions on the same
+    CUDA tensors (thermalized 10^3 state), bit for bit, each launch
+    counted; the trigger placed at the threshold does not fire."""
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    sim = _sim(dtype, impl, 10, "cuda")
+    step, cases = _step_ops_cases(sim)
+    for name, call in cases:
+        key = name.split()[0]
+        n0 = LAUNCHES[key]
+        got = call(getattr(step, key))
+        assert LAUNCHES[key] == n0 + 1, name
+        want = call(getattr(step, key + "_plain"))
+        for a, b in zip(got, want):
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert a.dtype == b.dtype and torch.equal(a, b), name
+    for name, call in cases:
+        if name.startswith("kick_drift_trigger at"):
+            assert not bool(call(step.kick_drift_trigger)[2]), name

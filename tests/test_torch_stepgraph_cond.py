@@ -40,11 +40,12 @@ import torch
 
 from comd_tpu import Config as JConfig, init_simulation as j_init
 
-from comd_tpu_torch import Config, init_simulation, sim as tsim_mod, stepgraph
+from comd_tpu_torch import Config, init_simulation, stepgraph
 from comd_tpu_torch.interop import (FIELDS, shards_from_numpy,
                                     shards_to_numpy, state_from_numpy)
 from comd_tpu_torch.ops import binning
 from comd_tpu_torch.ops.cuda import LAUNCHES
+from comd_tpu_torch.ops.cuda import step as step_ops
 
 torch.set_num_threads(1)
 
@@ -206,10 +207,7 @@ def _counting(monkeypatch, sim):
 
         monkeypatch.setattr(obj, name, counted)
 
-    wrap(tsim_mod, "needs_rebuild", STAND_INS["head"])
-    if hasattr(sim, "states"):
-        from comd_tpu_torch.parallel import sharded
-        wrap(sharded, "needs_rebuild", STAND_INS["head"])
+    wrap(step_ops, "kick_drift_trigger", STAND_INS["head"])
     wrap(binning, "rebucket", STAND_INS["rebucket"])
     wrap(sim, "_refresh", STAND_INS["refresh"])
     wrap(sim, "_land", STAND_INS["rest"])
