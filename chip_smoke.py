@@ -194,12 +194,20 @@ the first error:
                  any worker starts.  (Phase 12 also holds halo_fill_stage,
                  process 0 of 2's fused x stage with local scratch planes,
                  against its plain version and times it.)
- 18. graphs   -- set_condition (csrc/graph_if.cu, the IF node's kernel)
-                 against its plain version: a captured graph of two IF
-                 nodes on a predicate and its negation replayed with it set
-                 and clear, the bodies' runs counted against the host's
-                 branch, then timed (CUDA events) beside the plain version
-                 and its bound.  Then the step's CUDA graphs
+ 18. graphs   -- the IF nodes' handles, which kick_drift_trigger
+                 (csrc/step.cu) sets itself in the step's graph (no
+                 set_condition kernel any more): a captured graph of one
+                 trigger launch on the 63^3 state and two IF bodies that
+                 count their runs, replayed with the trigger clear at a
+                 baseline, clear at one slot displaced by exactly
+                 (skin/2)^2 and set at its next ulp; the same over 8
+                 shards, each launch after the first with ``add``, the
+                 last setting the handles, one shard displaced; the bodies' counts against the plain
+                 version's branch (the trigger read on the host); then a
+                 graph of a trigger launch on one cell and one IF node
+                 timed (CUDA events) beside the plain version and its
+                 bound (set_condition's row, 0 launches, folded into
+                 kick_drift_trigger).  Then the step's CUDA graphs
                  (comd_tpu_torch/stepgraph.py: one a step, the lazy and
                  list rebucket a conditional node) against the eager loop
                  (``sim.cuda_graphs = False``), in this process one after
@@ -213,10 +221,9 @@ the first error:
                  counted (torch.cuda.set_sync_debug_mode) and 20 under
                  torch.profiler: ms/step of both, the device's busy
                  ms/step and idle share of the wall clock, launches a step
-                 equal (the graphs' two set_condition a lazy step apart),
-                 one graph replay a step, host syncs outside captures
-                 exactly one a lazy block (the rebucket counter's read at
-                 its end) and none on -S 0,
+                 equal and no set_condition, one graph replay a step,
+                 host syncs outside captures exactly one a lazy block (the
+                 rebucket counter's read at its end) and none on -S 0,
                  the rebucket counts equal, the graphs' capture and
                  instantiation time, and the final r (sha256) and ePot
                  equal bit for bit.  --halfShell (K2's atomics) at 20^3
@@ -228,7 +235,9 @@ the first error:
                  5's 63^3 state (f32) and at a thermalized 10^3 state
                  (f64): the trigger against a baseline and with one slot
                  displaced by exactly (skin/2)^2 (clear), pass 2 with and
-                 without energy, serial fill and zero halo, the landing of
+                 without energy, serial fill and zero halo (16-byte
+                 vectors) and at an odd number of slots a row (one slot a
+                 thread), the landing of
                  two passes and of one force; then two steps (the second
                  an energy step) from one state through the kernels and
                  through the plain versions, a refresh step and a rebucket
@@ -2351,13 +2360,11 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
           f"{tag}: {sy['rest']} host syncs in step_block outside captures "
           f"in {sy['blocks']} blocks of the graphs, not {want}: {sy}")
     e_per = {k: v / e["steps"] for k, v in e["launches"].items()}
-    g_per = {k: v / g["steps"] for k, v in g["launches"].items()
-             if k != "set_condition"}
-    check(e_per == g_per and "set_condition" not in e["launches"],
-          f"{tag}: launches a step differ: eager {e_per}, graphs {g_per}")
-    n_if = g["launches"].get("set_condition", 0) / g["steps"]
-    check(n_if == (2.0 if g["lazy"] else 0.0),
-          f"{tag}: {n_if} set_condition launches a step on the graphs")
+    g_per = {k: v / g["steps"] for k, v in g["launches"].items()}
+    check(e_per == g_per, f"{tag}: launches a step differ: eager {e_per}, "
+          f"graphs {g_per}")
+    check("set_condition" not in g["launches"],
+          f"{tag}: a set_condition launch on the graphs")
     check(e["n_rebucket"] == g["n_rebucket"],
           f"{tag}: rebuckets {e['n_rebucket']} (eager), "
           f"{g['n_rebucket']} (graphs)")
@@ -2381,9 +2388,8 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
         f"{e['busy']:.3f}, {g['busy']:.3f} ms/step, idle "
         f"{100 * e['idle']:.1f}%, {100 * g['idle']:.1f}% of the wall "
         f"clock (busy under torch.profiler, 2 more blocks); launches a "
-        f"step {per} (equal), set_condition "
-        f"{g['launches'].get('set_condition', 0) / g['steps']:.2f} on the "
-        f"graphs; graph replays a step {g['replays']:.2f}; rebuckets "
+        f"step {per} (equal, no set_condition: the trigger sets the IF "
+        f"handles); graph replays a step {g['replays']:.2f}; rebuckets "
         f"{e['rebuckets']}, {g['rebuckets']} in the timed steps, "
         f"{e['n_rebucket']} in all (equal)")
     for mode, m in (("eager", e), ("graphs", g)):
@@ -2402,61 +2408,136 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
             f"ePot {g['e_pot']:.6f} equal bit for bit")
 
 
-def run_if_node(launches: dict) -> dict:
-    """set_condition (csrc/graph_if.cu) against its plain version: a
-    captured graph of two IF nodes, on a predicate and on its negation,
-    each body adding one to a counter of its own, replayed with the
-    predicate set and clear; the counters against the plain version's
-    (the predicate read on the host, the body run or not).  Then one IF
-    node whose body adds one to a counter, timed as a replay of its graph
-    (CUDA events, mean of 200), beside the plain version (the read and
-    the body's launch) and the bound (one byte read).  ``launches``:
-    phase 5's counts.  Returns the kernels-line row."""
+def displaced(r, n_local: int, skin: float, over: bool = False):
+    """(r', baseline): copies of ``r`` [3, B, A] in which local slot (nl //
+    2, 0) sits at (a, b, 0) from its baseline (0, 0, 0) with fl(fl(a a) +
+    fl(b b)) == (skin/2)^2 in r's dtype (the trigger must stay clear), or
+    with ``over`` a raised by ulps until the sum first exceeds it (the
+    trigger must fire)."""
+    import numpy as np
+    dt = r.cpu().numpy().dtype
+    thr = dt.type((0.5 * skin) ** 2)
+    a = np.sqrt(thr)
+    for _ in range(8):
+        a = np.nextafter(a, dt.type(0))
+        b = np.sqrt(thr - a * a) if a * a < thr else dt.type(0)
+        if a * a + b * b == thr:
+            break
+    check(a * a + b * b == thr, f"no displacement of (skin/2)^2 = {thr}")
+    while over and not a * a + b * b > thr:
+        a = np.nextafter(a, dt.type(np.inf))
+    at, at_last = r.clone(), r.clone()
+    at[0, n_local // 2, 0], at[1, n_local // 2, 0] = float(a), float(b)
+    at_last[0, n_local // 2, 0], at_last[1, n_local // 2, 0] = 0.0, 0.0
+    return at, at_last
+
+
+def run_trigger_handles(sim) -> dict:
+    """Phase 18: kick_drift_trigger sets the step graph's IF handles (csrc/
+    step.cu; graph_if.condition makes them in the captured graph).  A
+    graph of the trigger's launch on ``sim``'s fields (p and f zero, so r
+    stays put) and two IF nodes whose bodies count their runs, replayed
+    with r at the baseline (clear), at one slot displaced by exactly
+    (skin/2)^2 (clear) and at its next ulp (set); then eight launches,
+    each after the first with ``add`` and the last setting the handles
+    (as the mesh's head does), on eight shards of which one is
+    displaced.  The bodies' counts against the plain version's branch
+    (kick_drift_trigger_plain on the same tensors, or-ed over the shards,
+    read on the host).  Then a graph of a trigger launch on a one-cell
+    state and one IF node with a one-kernel body, timed as a replay (CUDA
+    events, mean of 200) beside the plain version (the plain trigger, the
+    host's read and the body's launch) and the bound (one byte): the
+    set_condition row, its work now the trigger's, 0 launches."""
     import torch
     from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.ops.cuda import step
     from comd_tpu_torch.probes import time_ms
     from comd_tpu_torch.stepgraph import cuda_capture
     dev = torch.device("cuda")
-    pred = torch.zeros((), dtype=torch.bool, device=dev)
-    hits = torch.zeros(2, dtype=torch.int32, device=dev)
-    want = torch.zeros(2, dtype=torch.int32)
-    pool = torch.cuda.graph_pool_handle()
+    s, nl, skin = sim.state, sim.geom.n_local, sim.skin
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    p0, f0 = torch.zeros_like(s.r), torch.zeros_like(s.r)
+    at, base = displaced(s.r, nl, skin)
+    over, _b = displaced(s.r, nl, skin, over=True)
     bodies = graph_if.BodyPool(dev)
+    err, lines = 0.0, []
+    for shards in (1, 8):
+        rs = [base.clone() for _ in range(shards)]
+        moved = shards // 2 + 1 if shards > 1 else 0
+        hits = torch.zeros(2, dtype=torch.int32, device=dev)
 
-    def two():
-        graph_if.if_node(pred, lambda: hits[0].add_(1), False, bodies)
-        graph_if.if_node(pred, lambda: hits[1].add_(1), True, bodies)
+        def graph_fn():
+            cond = graph_if.condition(dev)
+            check(len(cond.handles) == 2, "no conditional handles in the "
+                  "capture")
+            for i, r in enumerate(rs):
+                cond.flag = step.kick_drift_trigger(
+                    p0, r, f0, base, nl, kick, drift, skin, cond.flag,
+                    add=i > 0, handles=cond.handles if i == shards - 1
+                    else ())
+            graph_if.if_node(cond, 0, lambda: hits[0].add_(1), bodies)
+            graph_if.if_node(cond, 1, lambda: hits[1].add_(1), bodies)
 
-    graph, cap_s, inst_s = cuda_capture(two, pool)
-    for v in (True, False, False, True, True, False, True):
-        pred.fill_(v)
-        graph.replay()
-        host = torch.tensor(v)
-        graph_if.if_node_plain(host, lambda: want[0].add_(1))
-        graph_if.if_node_plain(host, lambda: want[1].add_(1), True)
-    err = float((hits.cpu() - want).abs().max())
-    check(err == 0, f"set_condition: IF bodies ran {hits.tolist()} times, "
-          f"the plain version {want.tolist()}")
-    one, _c, _i = cuda_capture(
-        lambda: graph_if.if_node(pred, lambda: hits[0].add_(1), False,
-                                 bodies),
-        pool)
-    ms = time_ms(one.replay, 200)
-    plain_ms = time_ms(lambda: graph_if.if_node_plain(
-        pred, lambda: hits[0].add_(1)), 200)
+        graph, _c, _i = cuda_capture(graph_fn,
+                                     torch.cuda.graph_pool_handle())
+        want = torch.zeros(2, dtype=torch.int32)
+        seq = ("baseline", "over", "at", "over", "baseline", "at", "over")
+        for case in seq:
+            rs[moved].copy_({"baseline": base, "at": at, "over": over}[case])
+            graph.replay()
+            flag = None
+            for i, r in enumerate(rs):
+                flag = step.kick_drift_trigger_plain(
+                    p0.clone(), r.clone(), f0, base, nl, kick, drift,
+                    skin, flag, add=i > 0)
+            graph_if.if_node_plain(flag.cpu(), lambda: want[0].add_(1))
+            graph_if.if_node_plain(flag.cpu(), lambda: want[1].add_(1),
+                                   True)
+        e = float((hits.cpu() - want).abs().max())
+        check(e == 0 and want.tolist() == [3, 4],
+              f"trigger handles, {shards} shard(s): IF bodies ran "
+              f"{hits.tolist()} times, the plain version {want.tolist()}")
+        err = max(err, e)
+        lines.append(f"{shards} shard(s) (shard {moved} displaced) "
+                     f"{hits.tolist()}")
+        del graph, rs
+    # one cell: the set_condition row's time, as its one-node graph was
+    r1, p1, f1, l1 = (torch.zeros((3, 1, s.r.shape[2]), dtype=s.r.dtype,
+                                  device=dev) for _ in range(4))
+    hit = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def one():
+        cond = graph_if.condition(dev)
+        cond.flag = step.kick_drift_trigger(p1, r1, f1, l1, 1, kick, drift,
+                                            skin, handles=cond.handles)
+        graph_if.if_node(cond, 0, lambda: hit.sub_(1), bodies)
+        graph_if.if_node(cond, 1, lambda: hit.add_(1), bodies)
+
+    graph, cap_s, inst_s = cuda_capture(one, torch.cuda.graph_pool_handle())
+    ms = time_ms(graph.replay, 200)
+
+    def plain():
+        graph_if.if_node_plain(step.kick_drift_trigger_plain(
+            p1, r1, f1, l1, 1, kick, drift, skin), lambda: hit.add_(1),
+            True)
+
+    plain_ms = time_ms(plain, 200)
     b_ms = 1e3 * 1 / PEAK_BYTES
-    say("timing", f"set_condition: IF bodies taken as the plain version "
-        f"takes them (7 replays, both polarities); a graph of one IF node "
-        f"and its one-kernel body {ms:.4f} ms a replay (CUDA events, mean "
-        f"of 200), the plain version (host read and launch) {plain_ms:.4f} "
-        f"ms; bound {b_ms:.3e} ms (one byte); the two-node graph captured "
-        f"in {1e3 * cap_s:.2f} ms, instantiated in {1e3 * inst_s:.2f} ms")
-    return {"name": "set_condition", "route": "cuda",
-            "source": "comd_tpu_torch/csrc/graph_if.cu",
+    say("graphs", "trigger handles set by kick_drift_trigger: IF bodies "
+        "(if set, if clear) ran as the plain version takes them over 7 "
+        "replays (baseline, at (skin/2)^2, its next ulp): "
+        + "; ".join(lines))
+    say("timing", f"set_condition (folded into kick_drift_trigger, 0 "
+        f"launches): a graph of a trigger launch on one cell and the two "
+        f"IF nodes, each body one kernel, {ms:.4f} ms a replay (CUDA events, "
+        f"mean of 200), the plain version (trigger, host read, body) "
+        f"{plain_ms:.4f} ms; bound {b_ms:.3e} ms (one byte); captured in "
+        f"{1e3 * cap_s:.2f} ms, instantiated in {1e3 * inst_s:.2f} ms")
+    return {"name": "set_condition", "route": "cuda", "source": STEP_SOURCE,
             "replaces": "comd_tpu/sim.py:319-320, :373-375 (lax.cond, XLA)",
-            "launches": launches["set_condition"], "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": "bytes", "library_ms": None}
+            "launches": 0, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": "bytes",
+            "library_ms": None, "folded_into": "kick_drift_trigger"}
 
 
 STEP_SOURCE = "comd_tpu_torch/csrc/step.cu"
@@ -2475,10 +2556,11 @@ def step_op_cases(sim) -> list:
     baseline 0.01 A away and on states with one slot displaced by exactly
     (skin/2)^2 in the dtype (the others still: it must not fire), for the
     run's skin and for 0.45 A, whose (skin/2)^2 rounds up in f32 (a
-    comparison in f64 would fire there), the ghost refresh, pass 2 with and without energy (rhobar and phi from
-    K1's pass 1 on the state) with the serial fill and with zero halo
-    rows, and the landing of K1's two passes and of one force."""
-    import numpy as np
+    comparison in f64 would fire there), the ghost refresh, pass 2 with
+    and without energy (rhobar and phi from K1's pass 1 on the state)
+    with the serial fill and with zero halo rows, and with the serial
+    fill at an odd number of slots a row (one slot a thread), and the
+    landing of K1's two passes and of one force."""
     import torch
     from comd_tpu_torch.ops.cuda import stencil as st
     s, geom, maps = sim.state, sim.geom, sim.maps
@@ -2488,23 +2570,6 @@ def step_op_cases(sim) -> list:
     skin = sim.skin
     last = s.r.clone()
     last[:, :nl] += 1e-2
-    np_dtype = s.r.cpu().numpy().dtype
-
-    def at_threshold(skin):
-        """(r, baseline) with one local slot (a, b, 0) from its baseline,
-        fl(fl(a a) + fl(b b)) == (skin/2)^2 in the dtype."""
-        thr = np_dtype.type((0.5 * skin) ** 2)
-        a = np.sqrt(thr)
-        for _ in range(8):
-            a = np.nextafter(a, np_dtype.type(0))
-            b = np.sqrt(thr - a * a) if a * a < thr else np_dtype.type(0)
-            if a * a + b * b == thr:
-                break
-        check(a * a + b * b == thr, f"no displacement of (skin/2)^2 = {thr}")
-        at, at_last = s.r.clone(), s.r.clone()
-        at[0, nl // 2, 0], at[1, nl // 2, 0] = float(a), float(b)
-        at_last[0, nl // 2, 0], at_last[1, nl // 2, 0] = 0.0, 0.0
-        return at, at_last
 
     zero = torch.zeros_like(s.p)
     f1, phi, rho = st.eam_pass1(s.r, maps.nbr_map, sim.pair_eval)
@@ -2522,7 +2587,7 @@ def step_op_cases(sim) -> list:
                                       skin),))
 
     def kdt_at(skin):
-        at, at_last = at_threshold(skin)
+        at, at_last = displaced(s.r, nl, skin)
         return kdt(zero, at, zero, at_last, skin)
 
     def land(two):
@@ -2544,21 +2609,25 @@ def step_op_cases(sim) -> list:
          es * (2 * 3 * n_halo * A + 3 * n_halo) + 8 * n_halo,
          3 * n_halo * A)]
     tab = (sim.f_eval.n + 4) * es
+    # an odd number of slots a row: embed_fill's one-slot-a-thread form
+    odd = A - 1 - A % 2
+    rho_1, phi_1 = rho[:, :odd].contiguous(), phi[:, :odd].contiguous()
     for energy in (True, False):
-        for src in (maps.halo_src, None):
-            n_b = es * (nl * A + B * A) + tab + (8 * n_halo if src is not None
+        for src, a in ((maps.halo_src, A), (None, A), (maps.halo_src, odd)):
+            n_b = es * (nl * a + B * a) + tab + (8 * n_halo if src is not None
                                                  else 0)
             if energy:
-                n_b += es * nl * A + 4 * nl + \
-                    torch.finfo(e_dtype).bits // 8 * nl * A
+                n_b += es * nl * a + 4 * nl + \
+                    torch.finfo(e_dtype).bits // 8 * nl * a
+            rh, ph = (rho, phi) if a == A else (rho_1, phi_1)
             cases.append((
-                f"embed_fill energy={energy} serial={src is not None}",
-                "embed_fill", lambda: (),
-                lambda fn, _o, e=energy, h=src: fn(
-                    sim.f_eval, rho, phi if e else None, s.n_atoms, B, h,
+                f"embed_fill energy={energy} serial={src is not None}"
+                + ("" if a == A else f" A={a}"), "embed_fill", lambda: (),
+                lambda fn, _o, e=energy, h=src, rh=rh, ph=ph: fn(
+                    sim.f_eval, rh, ph if e else None, s.n_atoms, B, h,
                     e_dtype),
-                n_b, 20 * (B * A if src is not None else nl * A)
-                + (3 * nl * A if energy else 0)))
+                n_b, 20 * (B * a if src is not None else nl * a)
+                + (3 * nl * a if energy else 0)))
     for two in (True, False):
         cases.append((f"land passes={1 + two}", "land", *land(two),
                       es * ((1 + two) * local + 3 * slots) + 4 * nl + 4,
@@ -2622,7 +2691,9 @@ def full_step_pair(sim, tag: str, force_rebucket: bool) -> None:
                for k in STEP_KEYS}
         orig = {k: getattr(step, k) for k in STEP_KEYS}
 
-        def kdt(*a, _fn=fns["kick_drift_trigger"], **kw):
+        def kdt(*a, _fn=fns["kick_drift_trigger"], handles=(), **kw):
+            # the eager loop's heads: no IF handles to set
+            check(not handles, f"{tag}: IF handles in an eager step")
             flag = _fn(*a, **kw)
             flags.append(bool(flag))
             return flag
@@ -2672,6 +2743,36 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return time_ms(graph.replay, reps) / calls
 
 
+def graph_ms_handles(run, ops, calls: int = 20, reps: int = 10) -> float:
+    """kick_drift_trigger's device ms a launch as the step graph makes it:
+    ``calls`` launches (``run(fn, ops)`` with ``fn`` the wrapper) in one
+    CUDA graph, each setting the two handles of a condition made in that
+    graph, its two IF nodes after them (a one-kernel body each), replayed
+    ``reps`` times between CUDA events."""
+    import torch
+    from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.ops.cuda import step
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.stepgraph import cuda_capture
+    bodies = graph_if.BodyPool("cuda")
+    hit = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    def captured():
+        cond = graph_if.condition("cuda")
+
+        def fn(*a, **kw):
+            return step.kick_drift_trigger(*a, handles=cond.handles, **kw)
+
+        for _ in range(calls):
+            cond.flag = run(fn, ops)[2]
+        graph_if.if_node(cond, 0, lambda: hit.add_(1), bodies)
+        graph_if.if_node(cond, 1, lambda: hit.add_(1), bodies)
+
+    run(step.kick_drift_trigger, ops)
+    graph, _c, _i = cuda_capture(captured, torch.cuda.graph_pool_handle())
+    return time_ms(graph.replay, reps) / calls
+
+
 def run_step_ops(headline, launches: dict) -> dict:
     """Phase 19: csrc/step.cu's four kernels against their plain versions,
     bit for bit, at the 63^3 headline state (f32) and at a thermalized
@@ -2681,6 +2782,7 @@ def run_step_ops(headline, launches: dict) -> dict:
     CUDA events) beside their plain versions and byte bounds.  ``headline``: phase
     5's simulation; ``launches``: phase 5's counts.  Returns the
     kernels-line rows."""
+    import torch
     from comd_tpu_torch import Config, init_simulation
     from comd_tpu_torch.ops.cuda import step
     from comd_tpu_torch.probes import time_ms
@@ -2711,11 +2813,26 @@ def run_step_ops(headline, launches: dict) -> dict:
 
         calls_ms, plain_ms = time_ms(kernel, 20), time_ms(plain, 20)
         ms = graph_ms(kernel)
+        extra = ""
+        if key == "kick_drift_trigger":
+            # the step's launch sets the IF handles: its time with them
+            no_handles, ms = ms, graph_ms_handles(run, ops)
+            extra = (f" with the IF handles set (two IF nodes after the "
+                     f"20; {no_handles:.5f} ms without handles)")
+        elif key == "embed_fill":
+            a = int(name.split("A=")[1]) if "A=" in name else \
+                headline.state.r.shape[2]
+            e_elem = (torch.finfo(headline.cfg.torch_energy_dtype).bits // 8
+                      if "energy=True" in name else None)
+            w = step.embed_width(a, headline.state.r.element_size(), [],
+                                 e_elem)
+            form = f"{w}-slot 16-byte vectors" if w > 1 else "one slot"
+            extra = f" ({form} a thread, A={a})"
         b_ms = 1e3 * max(n_bytes / PEAK_BYTES, flops / peak)
         by = "bytes" if n_bytes / PEAK_BYTES >= flops / peak else \
             "operations"
         say("timing", f"{name} at {HEADLINE_N}^3 f32: {ms:.5f} ms a launch "
-            f"replayed in a graph of 20 (CUDA events; the bound at "
+            f"replayed in a graph of 20{extra} (CUDA events; the bound at "
             f"{b_ms / ms:.0%} of it), {calls_ms:.4f} ms a call from the host "
             f"(CUDA events, mean of 20: the wrapper's host time when above "
             f"the kernel's); plain {plain_ms:.4f} ms a call; bound "
@@ -2857,7 +2974,7 @@ def main() -> int:
     # 5. main path at full width: the 63^3 headline run
     serial_epot = []
     sim, launches = run_main(
-        "main", ("eam_pass1", "eam_pass3", "set_condition") + STEP_KEYS,
+        "main", ("eam_pass1", "eam_pass3") + STEP_KEYS,
         doeam=True, on_init=lambda x: serial_epot.append(x.e_potential))
     launches_main = launches
     # one launch of each step kernel a step (the refresh in the ghost
@@ -3155,7 +3272,7 @@ def main() -> int:
     # 18. the CUDA graphs of the step against the eager loop: lazy and
     # list steps (the rebucket a conditional node) and -S 0 (the eager
     # mesh run cut to 20 steps)
-    rows["set_condition"] = run_if_node(launches_main)
+    rows["set_condition"] = run_trigger_handles(headline)
     for tag, kw, blocks in (
             ("EAM K1", dict(doeam=True), 10),
             ("LJ K1", dict(doeam=False), 10),

@@ -32,9 +32,10 @@ __device__ __forceinline__ EmbedStencil<T> embed_stencil(T rho,
   const T r = rho < p.x0 ? p.x0 : rho;
   const T rr = (r - p.x0) * p.inv_dx;
   const T fl = floor(rr);
-  long long ii = static_cast<long long>(fl);
-  const bool over = ii > p.n;
-  if (over) ii = p.n;
+  // a 32-bit index: fl > n is PyTorch's int64(fl) > n for every fl >= 0
+  // (NaN compares false, as there), and fl is then within int's range
+  const bool over = fl > static_cast<T>(p.n);
+  const int ii = over ? p.n : static_cast<int>(fl);
   return {over ? T(0) : rr - fl, p.table[ii], p.table[ii + 1],
           p.table[ii + 2], p.table[ii + 3]};
 }

@@ -6,19 +6,22 @@
 // reach on every version the port runs on, so a body is captured through
 // here, inside a capture PyTorch began:
 //
-//   comd_if_begin(stream, pred, negate, body):
+//   comd_if_handle(stream, out):
 //     `stream` is capturing a graph.  Make a conditional handle in that
-//     graph, capture one launch of set_condition_kernel on `stream` (one
-//     thread: the handle's value is *pred, or its negation), add an IF
-//     node that depends on it (its body an empty graph of its own), make
-//     the IF node `stream`'s only dependency, and begin capturing `body`
-//     (a stream that is not capturing) into the IF node's body graph;
+//     graph.  A kernel captured into the same graph sets its value at
+//     every replay (csrc/step.cu's kick_drift_trigger, from the skin
+//     trigger): no kernel of this file does;
+//   comd_if_begin(stream, handle, body):
+//     add an IF node on `handle` after `stream`'s current nodes (its body
+//     an empty graph of its own), make the IF node `stream`'s only
+//     dependency, and begin capturing `body` (a stream that is not
+//     capturing) into the IF node's body graph;
 //   comd_if_end(body): end that capture.
 //
-// At each replay the kernel sets the handle and the IF node runs its body
-// when the handle is nonzero; nothing returns to the host.  A body may
-// hold kernel, memcpy, memset, child-graph and conditional nodes (the
-// CUDA programming guide's list): no event, host or allocation node.
+// At each replay the IF node runs its body when the handle is nonzero;
+// nothing returns to the host.  A body may hold kernel, memcpy, memset,
+// child-graph and conditional nodes (the CUDA programming guide's list):
+// no event, host or allocation node.
 //
 // The plain version (ops/cuda/graph_if.py) evaluates the predicate on the
 // host and runs the body or not.  Errors are cudaError_t values, plus
@@ -27,11 +30,6 @@
 #include <cuda_runtime.h>
 
 #define COMD_IF_NOT_CAPTURING 10001
-
-__global__ void set_condition_kernel(cudaGraphConditionalHandle handle,
-                                     const bool* pred, unsigned negate) {
-  cudaGraphSetConditional(handle, (*pred ? 1u : 0u) ^ negate);
-}
 
 // The capture's graph and the nodes the stream's next node depends on.
 static cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
@@ -49,7 +47,7 @@ static cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
   return err;
 }
 
-// An error of comd_if_begin's step k (1..7) returns k * COMD_IF_STEP + the
+// An error of comd_if_begin's step k (1..4) returns k * COMD_IF_STEP + the
 // cudaError_t value.
 #define COMD_IF_STEP 100000
 #define RETURN_IF(k, e)                                   \
@@ -58,20 +56,26 @@ static cudaError_t capture_info(cudaStream_t s, cudaGraph_t* graph,
     if (e_ != cudaSuccess) return (k) * COMD_IF_STEP + e_; \
   } while (0)
 
-extern "C" int comd_if_begin(cudaStream_t stream, const void* pred,
-                             int negate, cudaStream_t body) {
+extern "C" int comd_if_handle(cudaStream_t stream, unsigned long long* out) {
   cudaGraph_t graph;
   const cudaGraphNode_t* deps;
   size_t n_deps;
   cudaGetLastError();  // clear an error of an earlier call of this runtime
-  RETURN_IF(1, capture_info(stream, &graph, &deps, &n_deps));
+  cudaError_t err = capture_info(stream, &graph, &deps, &n_deps);
+  if (err != cudaSuccess) return err;
   cudaGraphConditionalHandle handle;
-  RETURN_IF(2, cudaGraphConditionalHandleCreate(&handle, graph, 0, 0));
-  set_condition_kernel<<<1, 1, 0, stream>>>(
-      handle, static_cast<const bool*>(pred), negate ? 1u : 0u);
-  RETURN_IF(3, cudaGetLastError());
-  // the dependencies now: the kernel's node
-  RETURN_IF(4, capture_info(stream, &graph, &deps, &n_deps));
+  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  if (err == cudaSuccess) *out = handle;
+  return err;
+}
+
+extern "C" int comd_if_begin(cudaStream_t stream, unsigned long long handle,
+                             cudaStream_t body) {
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  cudaGetLastError();
+  RETURN_IF(1, capture_info(stream, &graph, &deps, &n_deps));
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
   params.conditional.handle = handle;
@@ -79,17 +83,17 @@ extern "C" int comd_if_begin(cudaStream_t stream, const void* pred,
   params.conditional.size = 1;
   cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
-  RETURN_IF(5, cudaGraphAddNode(&node, graph, deps, nullptr, n_deps,
+  RETURN_IF(2, cudaGraphAddNode(&node, graph, deps, nullptr, n_deps,
                                 &params));
-  RETURN_IF(6, cudaStreamUpdateCaptureDependencies(
+  RETURN_IF(3, cudaStreamUpdateCaptureDependencies(
                    stream, &node, nullptr, 1,
                    cudaStreamSetCaptureDependencies));
 #else
-  RETURN_IF(5, cudaGraphAddNode(&node, graph, deps, n_deps, &params));
-  RETURN_IF(6, cudaStreamUpdateCaptureDependencies(
+  RETURN_IF(2, cudaGraphAddNode(&node, graph, deps, n_deps, &params));
+  RETURN_IF(3, cudaStreamUpdateCaptureDependencies(
                    stream, &node, 1, cudaStreamSetCaptureDependencies));
 #endif
-  RETURN_IF(7, cudaStreamBeginCaptureToGraph(
+  RETURN_IF(4, cudaStreamBeginCaptureToGraph(
                    body, params.conditional.phGraph_out[0], nullptr,
                    nullptr, 0, cudaStreamCaptureModeThreadLocal));
   return 0;

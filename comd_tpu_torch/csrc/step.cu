@@ -11,8 +11,13 @@
 //                       367-370), then the skin trigger: the max over the
 //                       local slots of |r - last_r|^2 against (skin/2)^2
 //                       (comd_tpu/ops/neighborlist.py:161-168), written as
-//                       the 0-dim bool the step graph's IF nodes read;
-//                       without a baseline (-S 0) the kick and drift only;
+//                       a 0-dim bool (or-ed into it: a mesh's later
+//                       shards) and, inside the step's CUDA graph, set as
+//                       the value of its IF nodes' conditional handles
+//                       (the rebucket's node the trigger, the ghost
+//                       refresh's its negation: no kernel of its own sets
+//                       them); without a baseline (-S 0) the kick and
+//                       drift only;
 //   refresh_halo        the ghost refresh r[:, halo] = r[:, halo_src] +
 //                       shift (comd_tpu/sim.py:353-358);
 //   embed_fill          EAM pass 2: F(rhobar) and F'(rhobar) (csrc/
@@ -47,8 +52,12 @@
 //
 // Bound: bytes.  Each slot is read and written once (kick_drift_trigger
 // at 63^3: p, f, r, the local baseline in, p and r out, ~96 MB; land ~78
-// MB), with a few operations a word; grid-stride loops over slots,
-// neighbouring threads on neighbouring words.
+// MB; embed_fill 10.3 MB), with a few operations a word; grid-stride loops
+// over slots, neighbouring threads on neighbouring words.  embed_fill,
+// the smallest pass, is built for its fixed cost: a vector of slots a
+// thread whose values (and U's, on energy steps) fit 16-byte accesses (4
+// f32 slots, 2 with U in f64 or in f64), 32-bit indices, the local and the
+// halo rows as separate ranges of blocks.
 //
 // Plain C interface for ctypes: each entry point launches on `stream`,
 // returns the cudaError_t of its launch (0 = success) and does not
@@ -61,6 +70,11 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The grid-stride grid's blocks an SM (ops/cuda/step.py's BLOCKS_PER_SM).
+// The trigger kernel is held to it: the calls that set the IF handles
+// would otherwise take registers enough to leave fewer blocks resident
+// and the grid a second, partial wave.
+constexpr int kBlocksPerSm = 8;
 
 // The scratch words the reductions fold into (a 32-byte device buffer,
 // zero before the first launch, left zero by every launch).
@@ -113,13 +127,28 @@ __device__ __forceinline__ bool last_block(unsigned int* ticket) {
   return atomicAdd(ticket, 1u) == gridDim.x - 1;
 }
 
+// The conditional handles of the step graph's IF nodes that a trigger
+// launch inside the graph sets: h[0] gets the trigger (the rebucket's
+// node), h[1] its negation (the ghost refresh's).  n = 0 outside a graph
+// (the eager loop, a warm-up), where setting a handle is undefined.
+struct IfHandles {
+  cudaGraphConditionalHandle h[2];
+  int n;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     kick_drift_trigger_kernel(T* __restrict__ p, T* __restrict__ r,
                               const T* __restrict__ f,
                               const T* __restrict__ last, long long n,
                               long long n_check, T c_kick, T c_drift,
-                              T thresh, Scratch* sc, bool* flag) {
+                              T thresh, Scratch* sc, bool* flag, int add,
+                              IfHandles ifs) {
+  // with add, the flag an earlier launch of the step wrote, read before
+  // the loop (that launch has ended, and this one writes the flag only
+  // after every block has begun), so the last block does not wait on it
+  __shared__ bool before;
+  if (threadIdx.x == 0) before = add && *flag;
   unsigned long long m = 0;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
@@ -148,8 +177,11 @@ __global__ void __launch_bounds__(kThreads)
     atomicMax(&sc->trigger_max, m);
     if (last_block(&sc->trigger_ticket)) {
       const unsigned long long v = atomicExch(&sc->trigger_max, 0ull);
-      *flag = from_bits<T>(v) > thresh;
+      const bool fire = from_bits<T>(v) > thresh || before;
+      *flag = fire;
       sc->trigger_ticket = 0;
+      if (ifs.n > 0) cudaGraphSetConditional(ifs.h[0], fire ? 1u : 0u);
+      if (ifs.n > 1) cudaGraphSetConditional(ifs.h[1], fire ? 0u : 1u);
     }
   }
 }
@@ -174,35 +206,86 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename E>
+// W slots of T at one aligned address: 16 bytes for the vector forms.
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Vec {
+  T v[W];
+};
+
+// Store W values at `to` (aligned to W values) in accesses of at most 16
+// bytes: U in f64 from f32 slots is two.
+template <typename E, int W>
+__device__ __forceinline__ void store_vec(E* to, const E (&x)[W]) {
+  constexpr int C = W * sizeof(E) > 16 ? 16 / sizeof(E) : W;
+#pragma unroll
+  for (int c = 0; c < W; c += C) {
+    Vec<E, C> y;
+#pragma unroll
+    for (int j = 0; j < C; ++j) y.v[j] = x[c + j];
+    *reinterpret_cast<Vec<E, C>*>(to + c) = y;
+  }
+}
+
+// One vector of W slots a thread (W divides A, every pointer aligned to
+// W slots); blocks [0, local_blocks) walk the n_local_vecs vectors of the
+// local rows, the others the halo rows' (a grid-stride loop over each
+// range, once round when the wrapper gives a block to every 256 vectors).
+// All indices fit in 32 bits (the wrapper checks n_rows * A < 2^31).
+template <typename T, typename E, int W>
 __global__ void __launch_bounds__(kThreads)
     embed_fill_kernel(const T* __restrict__ rho, const T* __restrict__ phi,
                       const int* __restrict__ n_atoms,
                       const long long* __restrict__ halo_src,
                       T* __restrict__ dfe, E* __restrict__ u, int A,
-                      long long n_local, long long n_rows, Embed<T> emb) {
-  const long long total = n_rows * A;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long k = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       k < total; k += stride) {
-    const long long row = k / A;
-    const long long s = k - row * A;
-    if (row < n_local) {
+                      int n_local_vecs, int n_halo_vecs, int local_blocks,
+                      Embed<T> emb) {
+  using V = Vec<T, W>;
+  const V* __restrict__ rv = reinterpret_cast<const V*>(rho);
+  V* __restrict__ dv = reinterpret_cast<V*>(dfe);
+  const int per_row = A / W;
+  if (static_cast<int>(blockIdx.x) < local_blocks) {
+    const int stride = local_blocks * kThreads;
+    for (int v = blockIdx.x * kThreads + threadIdx.x; v < n_local_vecs;
+         v += stride) {
+      const V x = rv[v];
+      V d;
       if (u != nullptr) {
-        T fv, dv;
-        embed_value_and_derivative(rho[k], emb, &fv, &dv);
-        dfe[k] = dv;
-        u[k] = s < n_atoms[row]
-                   ? E(0.5) * static_cast<E>(phi[k]) + static_cast<E>(fv)
-                   : E(0);
+        const V ph = reinterpret_cast<const V*>(phi)[v];
+        const int row = v / per_row;
+        const int s = (v - row * per_row) * W;
+        const int na = n_atoms[row];
+        E uv[W];
+#pragma unroll
+        for (int w = 0; w < W; ++w) {
+          T fv;
+          embed_value_and_derivative(x.v[w], emb, &fv, &d.v[w]);
+          uv[w] = s + w < na ? E(0.5) * static_cast<E>(ph.v[w]) +
+                                   static_cast<E>(fv)
+                             : E(0);
+        }
+        store_vec<E, W>(u + v * W, uv);
       } else {
-        dfe[k] = embed_derivative(rho[k], emb);
+#pragma unroll
+        for (int w = 0; w < W; ++w) d.v[w] = embed_derivative(x.v[w], emb);
       }
-    } else if (halo_src != nullptr) {
-      dfe[k] = embed_derivative(rho[halo_src[row - n_local] * A + s], emb);
-    } else {
-      dfe[k] = T(0);
+      dv[v] = d;
+    }
+  } else {
+    const int stride = (gridDim.x - local_blocks) * kThreads;
+    for (int v = (blockIdx.x - local_blocks) * kThreads + threadIdx.x;
+         v < n_halo_vecs; v += stride) {
+      V d;
+      if (halo_src != nullptr) {
+        const int h = v / per_row;
+        const V x = rv[static_cast<int>(halo_src[h]) * per_row +
+                       (v - h * per_row)];
+#pragma unroll
+        for (int w = 0; w < W; ++w) d.v[w] = embed_derivative(x.v[w], emb);
+      } else {
+#pragma unroll
+        for (int w = 0; w < W; ++w) d.v[w] = T(0);
+      }
+      dv[n_local_vecs + v] = d;
     }
   }
 }
@@ -247,26 +330,34 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
+// `handles`: n_handles (0..2) conditional handles of the graph this
+// launch is captured into (IfHandles); `add`: or the trigger into *flag.
 extern "C" int comd_kick_drift_trigger(int elem, void* p, void* r,
                                        const void* f, const void* last,
                                        long long n, long long n_check,
                                        double c_kick, double c_drift,
                                        double thresh, void* scratch,
-                                       void* flag, int grid,
+                                       void* flag, int add,
+                                       const unsigned long long* handles,
+                                       int n_handles, int grid,
                                        cudaStream_t stream) {
   Scratch* sc = static_cast<Scratch*>(scratch);
   bool* out = static_cast<bool*>(flag);
+  if (n_handles < 0 || n_handles > 2 || (n_handles > 0 && out == nullptr))
+    return cudaErrorInvalidValue;
+  IfHandles ifs{{0, 0}, n_handles};
+  for (int k = 0; k < n_handles; ++k) ifs.h[k] = handles[k];
   if (elem == 4)
     kick_drift_trigger_kernel<float><<<grid, kThreads, 0, stream>>>(
         static_cast<float*>(p), static_cast<float*>(r),
         static_cast<const float*>(f), static_cast<const float*>(last), n,
         n_check, static_cast<float>(c_kick), static_cast<float>(c_drift),
-        static_cast<float>(thresh), sc, out);
+        static_cast<float>(thresh), sc, out, add, ifs);
   else
     kick_drift_trigger_kernel<double><<<grid, kThreads, 0, stream>>>(
         static_cast<double*>(p), static_cast<double*>(r),
         static_cast<const double*>(f), static_cast<const double*>(last), n,
-        n_check, c_kick, c_drift, thresh, sc, out);
+        n_check, c_kick, c_drift, thresh, sc, out, add, ifs);
   return cudaGetLastError();
 }
 
@@ -286,46 +377,78 @@ extern "C" int comd_refresh_halo(int elem, void* r, const void* src,
   return cudaGetLastError();
 }
 
-template <typename T, typename E>
-static void launch_embed(const void* rho, const void* phi,
+template <typename T, typename E, int W>
+static void launch_embed_w(const void* rho, const void* phi,
                          const void* n_atoms, const void* halo_src,
-                         void* dfe, void* u, int A, long long n_local,
-                         long long n_rows, int table_n, double x0,
-                         double inv_dx, const void* table, int grid,
-                         cudaStream_t stream) {
-  const Embed<T> emb{table_n, static_cast<T>(x0), static_cast<T>(inv_dx),
-                     static_cast<const T*>(table)};
-  embed_fill_kernel<T, E><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(rho), static_cast<const T*>(phi),
-      static_cast<const int*>(n_atoms),
-      static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
-      static_cast<E*>(u), A, n_local, n_rows, emb);
+                         void* dfe, void* u, int A, int n_local,
+                         int n_rows, const Embed<T>& emb, int local_blocks,
+                         int halo_blocks, cudaStream_t stream) {
+  embed_fill_kernel<T, E, W>
+      <<<local_blocks + halo_blocks, kThreads, 0, stream>>>(
+          static_cast<const T*>(rho), static_cast<const T*>(phi),
+          static_cast<const int*>(n_atoms),
+          static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
+          static_cast<E*>(u), A, n_local * A / W, (n_rows - n_local) * A / W,
+          local_blocks, emb);
 }
 
-extern "C" int comd_embed_fill(int elem, int e_elem, const void* rho,
-                               const void* phi, const void* n_atoms,
-                               const void* halo_src, void* dfe, void* u,
-                               int A, long long n_local, long long n_rows,
-                               int table_n, double x0, double inv_dx,
-                               const void* table, int grid,
+// W slots a thread: 1, 2 or (f32) 4.
+template <typename T, typename E>
+static cudaError_t launch_embed(int width, const void* rho, const void* phi,
+                                const void* n_atoms, const void* halo_src,
+                                void* dfe, void* u, int A, int n_local,
+                                int n_rows, int table_n, double x0,
+                                double inv_dx, const void* table,
+                                int local_blocks, int halo_blocks,
+                                cudaStream_t stream) {
+  const Embed<T> emb{table_n, static_cast<T>(x0), static_cast<T>(inv_dx),
+                     static_cast<const T*>(table)};
+  if (width == 1)
+    launch_embed_w<T, E, 1>(rho, phi, n_atoms, halo_src, dfe, u, A, n_local,
+                            n_rows, emb, local_blocks, halo_blocks, stream);
+  else if (width == 2)
+    launch_embed_w<T, E, 2>(rho, phi, n_atoms, halo_src, dfe, u, A, n_local,
+                            n_rows, emb, local_blocks, halo_blocks, stream);
+  else if constexpr (sizeof(T) == 4) {
+    if (width != 4) return cudaErrorInvalidValue;
+    launch_embed_w<T, E, 4>(rho, phi, n_atoms, halo_src, dfe, u, A, n_local,
+                            n_rows, emb, local_blocks, halo_blocks, stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+// `width`: the slots a thread takes (A a multiple of it, every pointer
+// aligned to its access; the wrapper checks); `local_blocks` and
+// `halo_blocks`: the blocks of the two ranges.
+extern "C" int comd_embed_fill(int elem, int e_elem, int width,
+                               const void* rho, const void* phi,
+                               const void* n_atoms, const void* halo_src,
+                               void* dfe, void* u, int A, int n_local,
+                               int n_rows, int table_n, double x0,
+                               double inv_dx, const void* table,
+                               int local_blocks, int halo_blocks,
                                cudaStream_t stream) {
   if (elem == 4 && e_elem == 8)
-    launch_embed<float, double>(rho, phi, n_atoms, halo_src, dfe, u, A,
-                                n_local, n_rows, table_n, x0, inv_dx, table,
-                                grid, stream);
-  else if (elem == 4)
-    launch_embed<float, float>(rho, phi, n_atoms, halo_src, dfe, u, A,
-                               n_local, n_rows, table_n, x0, inv_dx, table,
-                               grid, stream);
-  else if (e_elem == 8)
-    launch_embed<double, double>(rho, phi, n_atoms, halo_src, dfe, u, A,
-                                 n_local, n_rows, table_n, x0, inv_dx, table,
-                                 grid, stream);
-  else
-    launch_embed<double, float>(rho, phi, n_atoms, halo_src, dfe, u, A,
-                                n_local, n_rows, table_n, x0, inv_dx, table,
-                                grid, stream);
-  return cudaGetLastError();
+    return launch_embed<float, double>(width, rho, phi, n_atoms, halo_src,
+                                       dfe, u, A, n_local, n_rows, table_n,
+                                       x0, inv_dx, table, local_blocks,
+                                       halo_blocks, stream);
+  if (elem == 4)
+    return launch_embed<float, float>(width, rho, phi, n_atoms, halo_src,
+                                      dfe, u, A, n_local, n_rows, table_n,
+                                      x0, inv_dx, table, local_blocks,
+                                      halo_blocks, stream);
+  if (e_elem == 8)
+    return launch_embed<double, double>(width, rho, phi, n_atoms, halo_src,
+                                        dfe, u, A, n_local, n_rows, table_n,
+                                        x0, inv_dx, table, local_blocks,
+                                        halo_blocks, stream);
+  return launch_embed<double, float>(width, rho, phi, n_atoms, halo_src, dfe,
+                                     u, A, n_local, n_rows, table_n, x0,
+                                     inv_dx, table, local_blocks, halo_blocks,
+                                     stream);
 }
 
 extern "C" int comd_land(int elem, void* f, void* p, const void* f1,

@@ -14,8 +14,6 @@ LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             "spline_eam_pass1": 0, "spline_eam_pass3": 0,
             "spline_half_eam_pass1": 0, "spline_half_eam_pass3": 0,
             "lj_table": 0, "nl_sweep_spline": 0,
-            # the step graph's conditional nodes (graph_if.py)
-            "set_condition": 0,
             # the step's small ops around the force (step.py)
             "kick_drift_trigger": 0, "refresh_halo": 0, "embed_fill": 0,
             "land": 0}

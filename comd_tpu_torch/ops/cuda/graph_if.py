@@ -2,12 +2,14 @@
 
 comd_tpu takes the skin-triggered rebucket on the device with
 ``lax.cond`` (comd_tpu/sim.py:319-320, :373-375; parallel/sharded.py:416,
-:478).  ``if_node(pred, body)`` is its counterpart inside a CUDA graph
-capture: ``body``'s launches become the body of a conditional IF node,
-and one launch of ``set_condition_kernel`` (one thread) sets the node's
-handle from the 0-dim bool ``pred`` (or its negation) at every replay, so
-the branch is taken on the device with no read by the host.  Counted in
-``LAUNCHES["set_condition"]``.
+:478).  Its counterpart inside a CUDA graph capture is a ``Condition``
+made by ``condition`` before the step's head, whose trigger kernel
+(ops/cuda/step.kick_drift_trigger) writes the trigger and sets the
+conditional handles at every replay, then ``if_node(cond, k, body)``:
+``body``'s launches become the body of a conditional IF node on handle
+``k`` (0: run when the trigger is set, 1: when it is clear).  The branch
+is taken on the device with no read by the host and no kernel of its
+own.
 
 The body is captured on a stream of its own (``cudaStreamBeginCaptureToGraph``
 into the IF node's body graph) while PyTorch's capture of the step goes
@@ -18,10 +20,10 @@ whatever a body allocates is not handed to eager code between replays
 (torch._C's ``_cuda_beginAllocateCurrentStreamToPool``, the call behind
 PyTorch's own routing of a stream into a pool).
 
-On a CPU tensor ``if_node`` runs its plain version: the predicate read on
-the host and the body run or not, now.  A CUDA tensor launches the kernel
-or raises; outside a capture it raises (a condition outside a graph is a
-host read: use ``bool``).
+On a CPU trigger ``if_node`` runs its plain version: the trigger read on
+the host and the body run or not, now.  A CUDA trigger needs the handles
+of a capture, else it raises (a condition outside a graph is a host
+read: use ``bool``).
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ from typing import Callable
 
 import torch
 
-from . import LAUNCHES
 from .nvcc import CSRC, build_library
 
 SOURCE = os.path.join(CSRC, "graph_if.cu")
@@ -52,8 +53,10 @@ def build():
             return _lib
         lib, BUILD_SECONDS = build_library(SOURCE, "graph_if")
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.comd_if_handle.restype = i
+        lib.comd_if_handle.argtypes = [p, ctypes.POINTER(ctypes.c_ulonglong)]
         lib.comd_if_begin.restype = i
-        lib.comd_if_begin.argtypes = [p, p, i, p]
+        lib.comd_if_begin.argtypes = [p, ctypes.c_ulonglong, p]
         lib.comd_if_end.restype = i
         lib.comd_if_end.argtypes = [p]
         lib.comd_if_stream_create.restype = i
@@ -65,17 +68,16 @@ def build():
 
 
 #: comd_if_begin's steps, as its error codes carry them
-_STEPS = ("", "capture info", "handle create", "set_condition launch",
-          "capture info after the launch", "add the IF node",
+_STEPS = ("", "capture info", "add the IF node",
           "update the capture's dependencies", "begin the body's capture")
 
 
 def _check(err: int, what: str) -> None:
     if err:
         msg = build().comd_if_error_string(err).decode()
-        step = _STEPS[err // 100000] if err < 800000 else ""
-        raise RuntimeError(f"{what} failed at {step or 'its end'}: {msg} "
-                           f"(error {err % 100000})")
+        step = _STEPS[err // 100000] if err < 500000 else ""
+        raise RuntimeError(f"{what} failed" + (f" at {step}" if step else "")
+                           + f": {msg} (error {err % 100000})")
 
 
 def _body_stream(dev: int):
@@ -115,6 +117,36 @@ class BodyPool:
         self._close()
 
 
+class Condition:
+    """A step's branch condition: ``flag``, the trigger its head writes (a
+    0-dim bool), and ``handles``, the IF nodes' conditional handles the
+    head's trigger kernel sets inside a capture (0: the trigger, 1: its
+    negation), () elsewhere."""
+
+    def __init__(self, handles: tuple = ()):
+        self.handles = tuple(handles)
+        self.flag = None
+
+
+def condition(device) -> Condition:
+    """The condition of a branch of the graph being captured on
+    ``device``'s current stream: two new handles of that graph (for the
+    head to set, before ``if_node`` adds their nodes).  On the CPU, or on
+    the card outside a capture, none."""
+    device = torch.device(device)
+    if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
+        return Condition()
+    lib = build()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    handles = []
+    for _ in range(2):
+        h = ctypes.c_ulonglong()
+        _check(lib.comd_if_handle(stream, ctypes.byref(h)),
+               "the IF node's conditional handle")
+        handles.append(h.value)
+    return Condition(handles)
+
+
 def if_node_plain(pred: torch.Tensor, body: Callable,
                   negate: bool = False) -> None:
     """The plain version: ``body()`` now when ``pred`` (xor ``negate``)."""
@@ -122,28 +154,34 @@ def if_node_plain(pred: torch.Tensor, body: Callable,
         body()
 
 
-def if_node(pred: torch.Tensor, body: Callable, negate: bool = False,
+def if_node(cond: Condition, k: int, body: Callable,
             pool: BodyPool = None) -> None:
-    """Capture ``body()`` into an IF node of the graph being captured on
-    the current stream, run at replay when the 0-dim bool ``pred`` is set
-    (clear with ``negate``); ``pool``: where the body allocates (held as
-    long as the graph).  A CPU ``pred`` runs the plain version."""
+    """Capture ``body()`` into an IF node, on ``cond.handles[k]``, of the
+    graph being captured on the current stream after its launches so far
+    (the head's, which sets the handle): run at replay when the trigger
+    ``cond.flag`` is set (``k`` 0) or clear (``k`` 1); ``pool``: where the
+    body allocates (held as long as the graph).  A CPU trigger runs the
+    plain version."""
+    pred = cond.flag
+    if not isinstance(pred, torch.Tensor) or pred.dim() != 0 or \
+            pred.dtype != torch.bool:
+        raise ValueError(f"an IF node's trigger is a 0-dim bool, got "
+                         f"{pred!r}")
     if pred.device.type != "cuda":
-        if_node_plain(pred, body, negate)
+        if_node_plain(pred, body, bool(k))
         return
-    if pred.dim() != 0 or pred.dtype != torch.bool:
-        raise ValueError(f"an IF node's predicate is a 0-dim bool, got "
-                         f"{pred.dtype} {tuple(pred.shape)}")
+    if len(cond.handles) != 2:
+        raise ValueError("a CUDA trigger's IF nodes need the handles of a "
+                         "capture (graph_if.condition), set by the head")
     if pool is None:
         raise ValueError("if_node needs a BodyPool for the body's memory")
     lib = build()
     dev = pool.device
     stream = torch.cuda.current_stream(dev)
     body_stream = _body_stream(dev)
-    _check(lib.comd_if_begin(stream.cuda_stream, pred.data_ptr(),
-                             int(negate), body_stream.cuda_stream),
+    _check(lib.comd_if_begin(stream.cuda_stream, cond.handles[k],
+                             body_stream.cuda_stream),
            "the IF node's capture")
-    LAUNCHES["set_condition"] += 1
     try:
         with torch.cuda.stream(body_stream):
             # the body stream's allocations into the pool

@@ -8,14 +8,18 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
 
 - ``kick_drift_trigger``: the half kick and the drift of every slot, then
   the skin trigger (comd_tpu/sim.py:367-373 and
-  ops/neighborlist.py::needs_rebuild) as the 0-dim bool the step graph's
-  IF nodes read (``last_r`` None: the kick and drift only, ``-S 0``);
+  ops/neighborlist.py::needs_rebuild) as a 0-dim bool (or-ed into a
+  mesh's earlier shards' with ``add``) and, inside the step's CUDA graph,
+  as the value of its IF nodes' conditional handles, set by the kernel's
+  last block (graph_if.py: no kernel of its own sets them); ``last_r``
+  None: the kick and drift only, ``-S 0``;
 - ``refresh_halo``: the serial ghost refresh (sim.py:353-358), also the
   positions of the rebucket's halo fill (``binning.fill_halo_serial``);
 - ``embed_fill``: EAM pass 2 (``tables.interpolate``'s F and F'), dfEmbed
   [B, A] with the serial halo fill or zero halo rows, and on energy steps
   U = 0.5 phi + F with empty slots 0 (comd_tpu/ops/force_eam.py:371-380,
-  :603);
+  :603); a thread takes the slots whose values (and U's) fit a 16-byte
+  access, where A and the pointers allow (``embed_width``);
 - ``land``: the force landing, the second half kick and the local atom
   count (sim.py:380-383), summed over a mesh's shards launch by launch.
 
@@ -45,6 +49,12 @@ from .nvcc import CSRC, build_library
 SOURCE = os.path.join(CSRC, "step.cu")
 THREADS = 256          # csrc/step.cu's kThreads
 BLOCKS_PER_SM = 8      # the grid-stride loops' grid: at most this a SM
+# embed_fill's blocks a SM in each of its two ranges, a grid-stride loop
+# over the vectors (None: a block to every 256 vectors, one vector a
+# thread), without and with energy: the faster of the forms
+# step_timing.py times at 63^3 f32 on an H100 (PERF.md §6); read at each
+# launch, so that it can time the others
+EMBED_BLOCKS_PER_SM = {False: 4, True: None}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -66,10 +76,10 @@ def build():
                       ctypes.c_longlong)
         for name, args in (
                 ("comd_kick_drift_trigger",
-                 [i, p, p, p, p, q, q, d, d, d, p, p, i, p]),
+                 [i, p, p, p, p, q, q, d, d, d, p, p, i, p, i, i, p]),
                 ("comd_refresh_halo", [i, p, p, p, q, i, q, q, i, p]),
                 ("comd_embed_fill",
-                 [i, i, p, p, p, p, p, p, i, q, q, i, d, d, p, i, p]),
+                 [i, i, i, p, p, p, p, p, p, i, i, i, i, d, d, p, i, i, p]),
                 ("comd_land", [i, p, p, p, q, p, q, q, q, d, p, i, p, i, p,
                                i, p])):
             fn = getattr(lib, name)
@@ -88,15 +98,19 @@ def _launched(err: int, name: str) -> None:
     LAUNCHES[name] += 1
 
 
-def _grid(n: int, device: torch.device) -> int:
-    """Blocks of a grid-stride loop over ``n`` items."""
+def _sms(device: torch.device) -> int:
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
     sms = _SMS.get(dev)
     if sms is None:
         sms = _SMS[dev] = torch.cuda.get_device_properties(
             dev).multi_processor_count
-    return max(1, min(-(-n // THREADS), BLOCKS_PER_SM * sms))
+    return sms
+
+
+def _grid(n: int, device: torch.device) -> int:
+    """Blocks of a grid-stride loop over ``n`` items."""
+    return max(1, min(-(-n // THREADS), BLOCKS_PER_SM * _sms(device)))
 
 
 def _scratch(device: torch.device) -> torch.Tensor:
@@ -140,45 +154,69 @@ def _check_state(r: torch.Tensor) -> None:
 # --------------------------------------------------------------------------
 
 def kick_drift_trigger_plain(p, r, f, last_r, n_local: int, kick: float,
-                             drift: float, skin: float):
+                             drift: float, skin: float, flag=None,
+                             add: bool = False):
     """Plain PyTorch: ``p += kick f``, ``r += p drift``, then
-    ``needs_rebuild`` (a 0-dim bool), or None without ``last_r``."""
+    ``needs_rebuild`` (a 0-dim bool, or-ed into ``flag`` with ``add``,
+    else written there when given), or None without ``last_r``."""
     p.add_(kick * f)
     r.add_(p * drift)
     if last_r is None:
         return None
-    return nlmod.needs_rebuild(last_r, r, n_local, skin)
+    t = nlmod.needs_rebuild(last_r, r, n_local, skin)
+    if flag is None:
+        return t
+    return flag.logical_or_(t) if add else flag.copy_(t)
 
 
 def kick_drift_trigger(p, r, f, last_r: Optional[torch.Tensor],
                        n_local: int, kick: float, drift: float,
-                       skin: float = 0.0):
+                       skin: float = 0.0, flag: torch.Tensor = None,
+                       add: bool = False, handles: tuple = ()):
     """The head of a step, in place on the [3, B, A] fields: the half kick
     ``p += kick * f`` and the drift ``r += p * drift`` over every slot
     (``kick``, ``drift``: the step's constants rounded to the dtype), then,
     with the lazy baseline ``last_r`` ([3, B, A]), whether some local slot
     moved more than skin/2 since it: a 0-dim bool, the max of |r -
     last_r|^2 over the first ``n_local`` cells against (skin/2)^2 rounded
-    to the dtype.  Without ``last_r`` returns None.  CPU tensors run the
+    to the dtype, written into ``flag`` (a 0-dim bool on r's device; a new
+    one when None) or, with ``add``, or-ed into the value an earlier launch
+    of the step wrote there (a mesh's later shards).  ``handles``: inside
+    a capture on the card, the IF nodes' conditional handles of that
+    graph (``graph_if.condition``), which the kernel sets from the flag
+    it writes: the first to the flag, the second to its negation.
+    Returns the flag, or None without ``last_r``.  CPU tensors run the
     plain version; CUDA tensors the kernel."""
     _check_state(r)
     for what, t in (("p", p), ("f", f)) + (
             (("last_r", last_r),) if last_r is not None else ()):
         _check_field(what, t, r)
+    if flag is not None and (flag.shape != () or flag.dtype != torch.bool
+                             or flag.device != r.device):
+        raise ValueError(f"kick_drift_trigger: flag must be a 0-dim bool on "
+                         f"{r.device}")
+    if (add and flag is None) or ((add or handles) and last_r is None) or \
+            len(handles) > 2:
+        raise ValueError("kick_drift_trigger: add needs a flag, add and "
+                         "handles a baseline, and at most two handles")
     if r.device.type == "cpu":
+        if handles:
+            raise ValueError("kick_drift_trigger: conditional handles are "
+                             "set by the kernel, on the card")
         return kick_drift_trigger_plain(p, r, f, last_r, n_local, kick,
-                                        drift, skin)
+                                        drift, skin, flag, add)
     n = r.shape[1] * r.shape[2]
-    flag = None if last_r is None else torch.empty(
-        (), dtype=torch.bool, device=r.device)
+    if flag is None and last_r is not None:
+        flag = torch.empty((), dtype=torch.bool, device=r.device)
     thresh = as_dtype((0.5 * skin) ** 2, r.dtype)
     err = build().comd_kick_drift_trigger(
         r.element_size(), p.data_ptr(), r.data_ptr(), f.data_ptr(),
         None if last_r is None else last_r.data_ptr(), n,
         0 if last_r is None else n_local * r.shape[2], kick, drift, thresh,
         _scratch(r.device).data_ptr(),
-        None if flag is None else flag.data_ptr(), _grid(n, r.device),
-        _stream(r))
+        None if flag is None else flag.data_ptr(), int(add),
+        (ctypes.c_ulonglong * 2)(*handles), len(handles),
+        _grid(n, r.device), _stream(r))
     _launched(err, "kick_drift_trigger")
     return flag
 
@@ -254,7 +292,8 @@ def embed_fill(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
     them).  With the pair energy ``phi`` [n_local, A] (energy steps) also
     U = 0.5 phi + F(rhobar) in ``e_dtype``, 0 in the slots at or past
     ``n_atoms`` ([B] int32).  Returns (dfEmbed, U | None).  CPU tensors
-    run the plain version; CUDA tensors the kernel."""
+    run the plain version; CUDA tensors the kernel, whose indices are 32
+    bits: ``n_rows * A`` must be below 2^31."""
     if rhobar.dim() != 2 or not rhobar.is_contiguous() or \
             rhobar.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"embed_fill: rhobar must be a contiguous float32 "
@@ -283,24 +322,50 @@ def embed_fill(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
                          f"[{n_rows - n_local}] on rhobar's device")
     if e_dtype not in (torch.float32, torch.float64):
         raise ValueError(f"embed_fill: unsupported energy dtype {e_dtype}")
+    if n_rows * A >= 2 ** 31:
+        raise ValueError(f"embed_fill: {n_rows} rows of {A} slots do not fit "
+                         f"the kernel's 32-bit indices")
     if dev.type == "cpu":
         return embed_fill_plain(f_eval, rhobar, phi, n_atoms, n_rows,
                                 halo_src, e_dtype)
     dfe = torch.empty((n_rows, A), dtype=rhobar.dtype, device=dev)
     u = None if phi is None else torch.empty((n_local, A), dtype=e_dtype,
                                              device=dev)
+    if n_rows * A == 0:
+        return dfe, u
+    width = embed_width(A, rhobar.element_size(),
+                        [t.data_ptr() for t in (rhobar, phi, dfe, u)
+                         if t is not None],
+                        None if u is None else u.element_size())
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    per_sm = EMBED_BLOCKS_PER_SM[phi is not None]
+
+    def blocks(rows):
+        n = -(-rows * A // width // THREADS)
+        return n if per_sm is None else min(n, per_sm * _sms(dev))
+
     err = build().comd_embed_fill(
         rhobar.element_size(), 8 if e_dtype == torch.float64 else 4,
-        rhobar.data_ptr(), ptr(phi), n_atoms.data_ptr(), ptr(halo_src),
-        dfe.data_ptr(), ptr(u), A, n_local, n_rows, f_eval.n, f_eval.x0,
-        f_eval.inv_dx, tab.data_ptr(),
-        _grid(n_rows * A, dev), _stream(rhobar))
+        width, rhobar.data_ptr(), ptr(phi), n_atoms.data_ptr(),
+        ptr(halo_src), dfe.data_ptr(), ptr(u), A, n_local, n_rows, f_eval.n,
+        f_eval.x0, f_eval.inv_dx, tab.data_ptr(), blocks(n_local),
+        blocks(n_rows - n_local), _stream(rhobar))
     _launched(err, "embed_fill")
     return dfe, u
+
+
+def embed_width(A: int, elem: int, ptrs, e_elem: int = None) -> int:
+    """The slots a thread of embed_fill takes: as many as fill a 16-byte
+    access of the ``elem``-byte values and, with energy, of U's
+    ``e_elem``-byte ones (4 f32, 2 f64 or with U in f64), when A is a
+    multiple of them and every pointer is 16-byte aligned; else 1."""
+    w = 16 // max(elem, e_elem or 0)
+    if A % w == 0 and all(q % 16 == 0 for q in ptrs):
+        return w
+    return 1
 
 
 # --------------------------------------------------------------------------

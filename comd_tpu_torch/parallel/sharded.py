@@ -174,13 +174,15 @@ class ShardedSimulation(Physics):
         return res + ([torch.where(migrated, a, b)
                        for a, b in zip(r, r_reb)],)
 
-    def _head(self):
+    def _head(self, cond) -> None:
         """The head of a lazy or list step over the mesh, in place: every
         shard's half kick and drift, and the skin trigger of this
-        process's shards (a 0-dim bool, or-ed over them)."""
+        process's shards (``cond.flag``, a 0-dim bool or-ed over them by
+        the launches themselves; ``cond.handles`` set from the or by the
+        last)."""
         last = ([lst.last_r for lst in self.nlists] if self.uses_nl
                 else self.last_r)
-        return torch.stack(self._kick_drift(self.states, last)).any()
+        cond.flag = self._kick_drift(self.states, last, cond.handles)
 
     def _refresh(self) -> None:
         """The slot-aligned ghost-position refresh of a step that does not

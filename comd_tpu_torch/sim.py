@@ -148,18 +148,23 @@ class Physics:
         """A step constant rounded to the dynamics dtype."""
         return float(np.asarray(x, dtype=np.dtype(self.cfg.dtype)))
 
-    def _kick_drift(self, states, lasts=None) -> list:
+    def _kick_drift(self, states, lasts=None, handles=()):
         """Half kick and drift of every shard, in place, and with the lazy
-        baselines ``lasts`` ([3, B, A] a shard) each shard's skin trigger,
-        a 0-dim bool (ops/cuda/step.kick_drift_trigger: one launch a
-        shard)."""
+        baselines ``lasts`` ([3, B, A] a shard) the skin trigger or-ed over
+        the shards, a 0-dim bool (ops/cuda/step.kick_drift_trigger: one
+        launch a shard, each after the first or-ing its trigger into the
+        flag; the last sets ``handles``, the step graph's IF nodes', from
+        the or).  Returns the flag, or None without ``lasts``."""
         kick = self._c(0.5 * self.cfg.dt)
         drift = self._c(self.cfg.dt * (1.0 / self.mass))
         lasts = [None] * len(states) if lasts is None else lasts
-        return [step_ops.kick_drift_trigger(s.p, s.r, s.f, b,
-                                            self.geom.n_local, kick, drift,
-                                            self.skin)
-                for s, b in zip(states, lasts)]
+        flag = None
+        for i, (s, b) in enumerate(zip(states, lasts)):
+            flag = step_ops.kick_drift_trigger(
+                s.p, s.r, s.f, b, self.geom.n_local, kick, drift, self.skin,
+                flag, add=flag is not None,
+                handles=handles if i == len(states) - 1 else ())
+        return flag
 
     def _full_force(self, f_loc, like):
         f = torch.zeros_like(like)
@@ -280,9 +285,12 @@ class Physics:
         ``_make_step_nl``; on a mesh ``_shard_step_lazy`` and
         ``_shard_step_nl``): the head, then the redistribution when some
         atom moved skin/2 since the last rebucket or build, else the ghost
-        refresh (``branch``: comd_tpu's lax.cond), then the rest."""
-        trigger = self._head()
-        branch(trigger, self._rebucket_step, self._refresh)
+        refresh (``branch``: comd_tpu's lax.cond, on the condition the
+        head's trigger writes and, in a captured graph, sets), then the
+        rest."""
+        cond = branch.condition()
+        self._head(cond)
+        branch(cond, self._rebucket_step, self._refresh)
         self._rest(want_energy)
 
     def _full_step(self, want_energy: bool, _branch=None) -> None:
@@ -498,13 +506,13 @@ class Simulation(Physics):
         return self.forces([r], [n_atoms], self._fill, fold, want_energy,
                            passes=passes)[0]
 
-    def _head(self):
+    def _head(self, cond) -> None:
         """The head of a lazy or list step, in place: half kick, drift and
-        the skin trigger (a 0-dim bool: some atom moved skin/2 since the
-        last rebucket or build), one launch."""
+        the skin trigger (``cond.flag``, a 0-dim bool: some atom moved
+        skin/2 since the last rebucket or build; ``cond.handles`` set from
+        it), one launch."""
         last = self.nlist.last_r if self.uses_nl else self.last_r
-        (flag,) = self._kick_drift([self.state], [last])
-        return flag
+        cond.flag = self._kick_drift([self.state], [last], cond.handles)
 
     def _refresh(self) -> None:
         """The ghost-position refresh of a step that does not rebucket (the

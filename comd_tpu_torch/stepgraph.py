@@ -10,11 +10,12 @@ each step is one CUDA graph, captured once a ``want_energy`` and replayed
 
   - a lazy or list step: the head (half kick, drift and the skin trigger,
     one ``kick_drift_trigger`` launch a shard, ops/cuda/step.py; on a
-    mesh the or over every shard), then two
-    conditional IF nodes on the trigger (``ops/cuda/graph_if.py``: a
-    one-thread kernel sets each node's handle from the trigger or its
-    negation; torch 2.11 has no conditional node that Python reaches,
-    and an IF/ELSE node needs CUDA 12.8's runtime): if set,
+    mesh each launch ors its shard's trigger into the flag), then two
+    conditional IF nodes on the trigger (``ops/cuda/graph_if.py``: the
+    step's ``Condition`` holds their handles, made in the captured graph
+    before the head, whose (last) trigger launch sets them, the first to
+    the trigger, the second to its negation; torch 2.11 has no
+    conditional node that Python reaches): if set,
     the rebucket (sort, scatter, halo rebuild; on a mesh the atom
     exchange and in-cell sort; on the list paths the rebuild NL1; the
     new baseline; one more on a device rebucket counter), if clear, the
@@ -69,7 +70,7 @@ from typing import Callable
 import torch
 
 from .ops.cuda import LAUNCHES
-from .ops.cuda.graph_if import BodyPool, if_node
+from .ops.cuda.graph_if import BodyPool, Condition, condition, if_node
 
 
 def keep(bufs: dict, tensors: dict) -> bool:
@@ -97,16 +98,58 @@ def _delta(before: dict) -> dict:
     return {k: v - before[k] for k, v in LAUNCHES.items() if v != before[k]}
 
 
+class Branch:
+    """How a step takes its branch (comd_tpu's lax.cond): ``cond =
+    branch.condition()`` before the head, which writes the trigger into
+    ``cond.flag`` (and sets ``cond.handles``, if any, on the device), then
+    ``branch(cond, if_true, if_false)``.  Here no handles, and the branch
+    taken on the host from ``read(cond.flag)``."""
+
+    def __init__(self, read: Callable = bool):
+        self.read = read
+
+    def condition(self) -> Condition:
+        return Condition()
+
+    def __call__(self, cond: Condition, if_true: Callable,
+                 if_false: Callable) -> None:
+        (if_true if self.read(cond.flag) else if_false)()
+
+
+class _Both(Branch):
+    """Both bodies taken (the warm-up before a capture)."""
+
+    def __call__(self, cond, if_true, if_false) -> None:
+        if_true()
+        if_false()
+
+
+_both = _Both()
+
+
+class _Nodes(Branch):
+    """The branch inside a capture: the condition's handles made in the
+    captured graph, each body an IF node on one of them (``wrap``: what a
+    body runs as, here its launches counted)."""
+
+    def __init__(self, device, pool, wrap: Callable):
+        self.device, self.pool, self.wrap = device, pool, wrap
+
+    def condition(self) -> Condition:
+        return condition(self.device)
+
+    def __call__(self, cond, if_true, if_false) -> None:
+        for k, body in enumerate((if_true, if_false)):
+            if_node(cond, k, self.wrap(body), self.pool)
+
+
 class EagerSteps:
     """The steps run as they are: a Python loop of launches, each
     condition read on the host through ``read`` (on a mesh of processes
     an or over them)."""
 
     def __init__(self, read: Callable):
-        self.read = read
-
-    def _branch(self, pred, if_true: Callable, if_false: Callable) -> None:
-        (if_true if self.read(pred) else if_false)()
+        self._branch = Branch(read)
 
     def run(self, key, fn: Callable) -> None:
         fn(self._branch)
@@ -144,11 +187,6 @@ def cuda_capture(fn: Callable, pool):
     t1 = time.perf_counter()
     g.instantiate()
     return g, t1 - t0, time.perf_counter() - t1
-
-
-def _both(_pred, if_true: Callable, if_false: Callable) -> None:
-    if_true()
-    if_false()
 
 
 class GraphSteps:
@@ -199,10 +237,7 @@ class GraphSteps:
                 bodies.append(_delta(b0))
             return run
 
-        def branch(pred, if_true, if_false):
-            for negate, body in ((False, if_true), (True, if_false)):
-                if_node(pred, measured(body), negate, self.body_pool)
-
+        branch = _Nodes(self.device, self.body_pool, measured)
         graph, t_cap, t_inst = self._capture_fn(lambda: fn(branch),
                                                 self.pool)
         added = _delta(before)

@@ -26,10 +26,14 @@ line: ms/step, the device's busy time per step (the sum of the kernels'
 durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
 most device time, the device time of one launch of each hand-written
-kernel (K1/K2, the halo and list kernels, set_condition, and the step's
-kick_drift_trigger, refresh_halo, embed_fill and land), the graphs'
-capture and instantiation seconds, and one redistribution run eagerly
-(host ms to enqueue it, ms to its end, device ms, device operations).
+kernel (K1/K2, the halo and list kernels, and the step's
+kick_drift_trigger, refresh_halo, embed_fill and land), the gap in the
+trace from the end of a step's last kick_drift_trigger to the start of
+its force's first pair kernel (median, least and largest over the
+profiled steps: the median is a ghost-refresh step's, where the branch
+and the refresh sit), the graphs' capture and instantiation seconds, and
+one redistribution run eagerly (host ms to enqueue it, ms to its end,
+device ms, device operations).
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
 """
@@ -43,6 +47,24 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def head_gaps(prof, device_type) -> list:
+    """Microseconds from the end of each step's last kick_drift_trigger
+    kernel to the start of the next pair kernel (K1/K2's stencil_kernel,
+    NL2's pack or sweep) in ``prof``'s device trace."""
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == device_type.CUDA),
+                 key=lambda e: e.time_range.start)
+    gaps, end = [], None
+    for e in evs:
+        if "kick_drift_trigger_kernel" in e.name:
+            end = e.time_range.end
+        elif end is not None and any(k in e.name for k in (
+                "stencil_kernel", "nl_pack_kernel", "nl_sweep_kernel")):
+            gaps.append(e.time_range.start - end)
+            end = None
+    return gaps
 
 
 def main(argv=None) -> int:
@@ -121,6 +143,7 @@ def main(argv=None) -> int:
                 "Loading" not in e.key:
             kern[e.key] = (dev_us, e.count)
     busy_us = sum(v[0] for v in kern.values())
+    gaps = sorted(head_gaps(prof, DeviceType))
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
     # one redistribution run eagerly, op by op, as the eager loop runs it:
     # the host's time to enqueue it, its time to the end, its kernels
@@ -163,6 +186,10 @@ def main(argv=None) -> int:
         "graph_instantiate_s": (sim._graphs.instantiate_s if sim._graphs
                                 else None),
         "hand_written_launches": {k: v for k, v in LAUNCHES.items() if v},
+        "head_to_force_gap_us": {
+            "median": gaps[len(gaps) // 2] if gaps else None,
+            "least": gaps[0] if gaps else None,
+            "largest": gaps[-1] if gaps else None, "steps": len(gaps)},
         "top_kernels_ms_per_step": [
             {"name": k[:90], "ms": us / 1e3 / steps, "calls": n / steps}
             for k, (us, n) in top],
@@ -172,7 +199,6 @@ def main(argv=None) -> int:
             if any(w in k for w in ("stencil_kernel", "halo_fill_kernel",
                                     "ring_push_kernel", "nl_build_kernel",
                                     "nl_pack_kernel", "nl_sweep_kernel",
-                                    "set_condition_kernel",
                                     "kick_drift_trigger_kernel",
                                     "refresh_halo_kernel",
                                     "embed_fill_kernel", "land_kernel"))},

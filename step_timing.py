@@ -1,0 +1,217 @@
+#!/usr/bin/env python3
+"""Time the step's small kernels (csrc/step.cu) and the step graph's
+branch of one or more source trees on one GPU, in turns.
+
+    python3 step_timing.py [TREE ...]
+
+Each TREE is a checkout of this repository (default: this one).  One
+worker process a tree builds that tree's kernels and, on the 63^3 EAM
+headline state (f32, rhobar and phi from K1's pass 1), times in CUDA
+graphs (CUDA events around replays; ms a launch):
+
+  embed_fill         pass 2 without energy, the serial halo fill (the
+                     main path's call, 99 steps of 100)
+  embed_fill energy  with U, serial fill;  embed_fill zero halo: no fill
+  embed_fill A=15    one slot fewer a row (A = 16: the one-slot form)
+  kick_drift_trigger the head's launch, no handles
+  mesh head          the 2x2x2 mesh's head on eight shard-sized copies
+                     (21^3 local cells of 23^3): eight trigger launches
+                     and the or of their flags (the parent tree's
+                     torch.stack and any, or each launch after the first
+                     or-ing into the flag)
+  refresh_halo       the ghost refresh (unchanged: a control)
+  branch             one replay of a graph of the head's launch and the
+                     step's two IF nodes (one-kernel bodies): the trigger
+                     and whatever sets the IF handles (the parent tree's
+                     two set_condition launches, or the trigger itself)
+
+and, where the tree has them (ops/cuda/step.py's EMBED_BLOCKS_PER_SM
+and embed_width), embed_fill's launch forms, with and without energy,
+the median of 3 rounds taken in turn: one vector a thread, and grids of
+2, 4 and 8 blocks an SM with a grid-stride loop; one slot a thread and
+4 (U's f64 in two 16-byte stores).  The
+workers run in the order given and then in reverse (give the parent and
+this tree: parent, change, change, parent).  Prints the card's name and
+power limit, one JSON line a worker, then one JSON line of each tree's
+means.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CALLS, REPS = 20, 20
+
+
+def graph_ms(torch, fn, calls: int = CALLS, reps: int = REPS) -> float:
+    """ms a call of ``fn``: ``calls`` calls captured into one CUDA graph,
+    replayed ``reps`` times between CUDA events."""
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.stepgraph import cuda_capture
+    fn()
+    graph = cuda_capture(lambda: [fn() for _ in range(calls)],
+                         torch.cuda.graph_pool_handle())[0]
+    return time_ms(graph.replay, reps) / calls
+
+
+def branch_ms(torch, sim, p, r, f, last, reps: int = 200) -> float:
+    """ms a replay of a graph of the head's trigger launch and the two IF
+    nodes (bodies: one small kernel each), built with this tree's
+    graph_if API."""
+    from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.ops.cuda import step
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.stepgraph import cuda_capture
+    nl, skin = sim.geom.n_local, sim.skin
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    hits = torch.zeros(2, dtype=torch.int32, device="cuda")
+    bodies = graph_if.BodyPool("cuda")
+    handles = hasattr(graph_if, "condition")
+
+    def fn():
+        if handles:
+            cond = graph_if.condition("cuda")
+            cond.flag = step.kick_drift_trigger(
+                p, r, f, last, nl, kick, drift, skin,
+                handles=cond.handles)
+            for k in (0, 1):
+                graph_if.if_node(cond, k, lambda k=k: hits[k].add_(1),
+                                 bodies)
+        else:
+            flag = step.kick_drift_trigger(p, r, f, last, nl, kick, drift,
+                                           skin)
+            for k in (0, 1):
+                graph_if.if_node(flag, lambda k=k: hits[k].add_(1), bool(k),
+                                 bodies)
+
+    step.kick_drift_trigger(p, r, f, last, nl, kick, drift, skin)
+    graph = cuda_capture(fn, torch.cuda.graph_pool_handle())[0]
+    return time_ms(graph.replay, reps)
+
+
+def embed_forms(torch, step, embed, rounds: int = 3) -> dict:
+    """embed_fill's launch forms, with and without energy, each timed
+    once a round over ``rounds`` rounds in turn (the median): the grid
+    (one vector a thread, or 2, 4, 8 blocks an SM) at the wrapper's
+    width, and at the wrapper's grids one slot a thread or 4 (U in f64
+    then in two 16-byte stores)."""
+    width, grid = step.embed_width, step.EMBED_BLOCKS_PER_SM
+    forms = {("one vector a thread" if n is None else f"{n} blocks/SM"):
+             ({False: n, True: n}, width) for n in (None, 2, 4, 8)}
+    forms["one slot a thread"] = (grid, lambda *a: 1)
+    forms["4 slots a thread"] = (grid, lambda A, elem, *a: 16 // elem)
+    times = {}
+    try:
+        for _ in range(rounds):
+            for form, (n, w) in forms.items():
+                step.EMBED_BLOCKS_PER_SM, step.embed_width = n, w
+                for energy in (False, True):
+                    times.setdefault(
+                        "embed_fill" + (" energy " if energy else " ")
+                        + form, []).append(graph_ms(torch,
+                                                    embed(energy=energy)))
+    finally:
+        step.EMBED_BLOCKS_PER_SM, step.embed_width = grid, width
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
+def worker(tree: str) -> dict:
+    """{case: ms} of ``tree``'s kernels at the headline state."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.ops.cuda import step
+    sim = init_simulation(Config(
+        nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
+        dtype="float32", max_atoms=0, cell_mode="auto",
+        pot_dir=os.path.join(ROOT, "pots"), device="cuda"))
+    s, maps, nl = sim.state, sim.maps, sim.geom.n_local
+    B, A = s.r.shape[1:]
+    _f1, phi, rho = st.eam_pass1(s.r, maps.nbr_map, sim.pair_eval)
+    e_dtype = sim.cfg.torch_energy_dtype
+    rho_1, phi_1 = rho[:, :A - 1].contiguous(), phi[:, :A - 1].contiguous()
+
+    def embed(energy=False, src=maps.halo_src, rh=rho, ph=phi):
+        return lambda: step.embed_fill(sim.f_eval, rh, ph if energy else
+                                       None, s.n_atoms, B, src, e_dtype)
+
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    p, r = s.p.clone(), s.r.clone()
+    last = s.r.clone()
+    last[:, :nl] += 1e-2
+    cases = {
+        "embed_fill": embed(),
+        "embed_fill energy": embed(energy=True),
+        "embed_fill zero halo": embed(src=None),
+        f"embed_fill A={A - 1}": embed(rh=rho_1, ph=phi_1),
+        "kick_drift_trigger": lambda: step.kick_drift_trigger(
+            p, r, s.f, last, nl, kick, drift, sim.skin),
+        "refresh_halo": lambda: step.refresh_halo(sim.geom, maps, r),
+    }
+    # eight shards of the 2x2x2 mesh: 23^3 cells, the first 21^3 local
+    b_s, nl_s = 23 ** 3, 21 ** 3
+    shards = [tuple(x[:, :b_s].clone() for x in (s.p, s.r, s.f, last))
+              for _ in range(8)]
+    add = "add" in inspect.signature(step.kick_drift_trigger).parameters
+
+    def mesh_head():
+        flag, flags = None, []
+        for ps, rs, fs, ls in shards:
+            if add:
+                flag = step.kick_drift_trigger(
+                    ps, rs, fs, ls, nl_s, kick, drift, sim.skin, flag,
+                    add=flag is not None)
+            else:
+                flags.append(step.kick_drift_trigger(
+                    ps, rs, fs, ls, nl_s, kick, drift, sim.skin))
+        return flag if add else torch.stack(flags).any()
+
+    cases["mesh head"] = mesh_head
+    out = {name: graph_ms(torch, fn) for name, fn in cases.items()}
+    out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
+    if hasattr(step, "EMBED_BLOCKS_PER_SM"):
+        out.update(embed_forms(torch, step, embed))
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("trees", nargs="*", default=[ROOT])
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        print(json.dumps(worker(args.worker)))
+        return 0
+    import torch
+    if not torch.cuda.is_available():
+        print("step_timing: no CUDA device available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    runs = {}
+    for tree in args.trees + args.trees[::-1]:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--worker", tree], capture_output=True,
+                             text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"worker {tree} failed:\n{res.stderr[-4000:]}")
+        got = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps({"tree": tree, "ms": got}), flush=True)
+        runs.setdefault(tree, []).append(got)
+    print(json.dumps({"means": {
+        tree: {k: sum(r[k] for r in rs) / len(rs) for k in rs[0]}
+        for tree, rs in runs.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -25,7 +25,8 @@ transport.  The step's CUDA graphs (comd_tpu_torch/stepgraph.py) give
 the eager loop's state bit for bit, serial (K1, NL2) and on a 2x2x2 mesh
 in one process, lazy (the rebucket a conditional node) and -S 0, with
 one host sync a lazy block (the rebucket counter) and none on -S 0; the
-IF node's kernel (set_condition) takes the branch its predicate says.
+trigger kernel sets the IF nodes' handles so that each body runs when
+the trigger says, serially and or-ed over eight shards.
 """
 import dataclasses
 import os
@@ -1159,30 +1160,48 @@ def test_graphs_equal_eager_on_card(cuda_device, kw):
     assert e_syncs == g_syncs + (10 if lazy else 0)
 
 
-def test_if_node_takes_its_branch(cuda_device):
-    """set_condition in a captured graph: each IF body runs at a replay
-    exactly when its predicate (or its negation) holds, as the plain
-    version runs it on the host."""
+@pytest.mark.parametrize("shards", [1, 8])
+def test_if_node_takes_its_branch(cuda_device, shards):
+    """kick_drift_trigger sets the IF nodes' handles in a captured graph
+    (no kernel of its own): each body runs at a replay exactly when the
+    trigger (or its negation) holds, as the plain version takes the
+    branch on the host; over eight shards with ``add`` (the last launch
+    setting the handles), one shard displaced, the or of them."""
     from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.stepgraph import cuda_capture
-    pred = torch.zeros((), dtype=torch.bool, device=cuda_device)
+    B, A, nl, skin = 40, 8, 27, 0.5
+    shape = (3, B, A)
+    zero = torch.zeros(shape, dtype=torch.float32, device=cuda_device)
+    last = [torch.rand(shape, generator=torch.Generator().manual_seed(i))
+            .to(cuda_device) for i in range(shards)]
+    r = [x.clone() for x in last]
     hits = torch.zeros(2, dtype=torch.int32, device=cuda_device)
-    pool = torch.cuda.graph_pool_handle()
     bodies = graph_if.BodyPool(cuda_device)
+    step_ops.kick_drift_trigger(zero.clone(), r[0], zero, last[0], nl, 0.0,
+                                0.0, skin)     # the scratch, made outside
 
     def step():
-        graph_if.if_node(pred, lambda: hits[0].add_(1), False, bodies)
-        graph_if.if_node(pred, lambda: hits[1].add_(1), True, bodies)
+        cond = graph_if.condition(cuda_device)
+        assert len(cond.handles) == 2
+        for i in range(shards):
+            cond.flag = step_ops.kick_drift_trigger(
+                zero.clone(), r[i], zero, last[i], nl, 0.0, 0.0, skin,
+                cond.flag, add=i > 0,
+                handles=cond.handles if i == shards - 1 else ())
+        graph_if.if_node(cond, 0, lambda: hits[0].add_(1), bodies)
+        graph_if.if_node(cond, 1, lambda: hits[1].add_(1), bodies)
 
-    graph = cuda_capture(step, pool)[0]
+    graph = cuda_capture(step, torch.cuda.graph_pool_handle())[0]
     want = torch.zeros(2, dtype=torch.int32)
-    for v in (True, False, False, True, True):
-        pred.fill_(v)
+    moved = shards // 2                 # the one shard that may fire
+    for d in (0.0, 0.3, 0.0, 0.2, 0.3):
+        r[moved].copy_(last[moved])
+        r[moved][0, nl // 2, 1] += d        # fires past skin/2 = 0.25
         graph.replay()
-        graph_if.if_node_plain(torch.tensor(v), lambda: want[0].add_(1))
-        graph_if.if_node_plain(torch.tensor(v), lambda: want[1].add_(1),
-                               True)
-    assert hits.cpu().tolist() == want.tolist() == [3, 2]
+        fired = torch.tensor(d > 0.25)
+        graph_if.if_node_plain(fired, lambda: want[0].add_(1))
+        graph_if.if_node_plain(fired, lambda: want[1].add_(1), True)
+    assert hits.cpu().tolist() == want.tolist() == [2, 3]
 
 
 def _step_ops_cases(sim):
@@ -1242,6 +1261,9 @@ def _step_ops_cases(sim):
                                                    t[1], 0.45)),
              ("refresh_halo",
               lambda fn: (fn(sim.geom, sim.maps, s.r.clone()),))]
+    # an odd number of slots a row: embed_fill's one-slot form
+    odd = rho.shape[1] - 1 - rho.shape[1] % 2
+    rho_1, phi_1 = rho[:, :odd].contiguous(), phi[:, :odd].contiguous()
     for energy in (True, False):
         for src in (sim.maps.halo_src, None):
             cases.append((f"embed_fill energy={energy} "
@@ -1249,6 +1271,10 @@ def _step_ops_cases(sim):
                           lambda fn, e=energy, h=src: fn(
                               sim.f_eval, rho, phi if e else None,
                               s.n_atoms, s.r.shape[1], h)))
+        cases.append((f"embed_fill energy={energy} serial=True odd A",
+                      lambda fn, e=energy: fn(
+                          sim.f_eval, rho_1, phi_1 if e else None,
+                          s.n_atoms, s.r.shape[1], sim.maps.halo_src)))
     for two in (True, False):
         cases.append((f"land passes={1 + two}",
                       lambda fn, t=two: land(fn, t)))

@@ -7,7 +7,9 @@ on a 5^3 box's cell layout (B = 343 cells, 125 local, A = 16):
   - kick_drift_trigger: the half kick and drift of comd_tpu/sim.py:367-370
     and comd_tpu.ops.neighborlist.needs_rebuild; the trigger also on
     states displaced exactly at, one ulp under and one ulp over (skin/2)^2
-    (in the dynamics dtype, where comd_tpu compares);
+    (in the dynamics dtype, where comd_tpu compares); with ``add`` over
+    eight shards, the or of comd_tpu's needs_rebuild over them (its
+    sharded step's ``any`` over the mesh);
   - refresh_halo: the ghost refresh of comd_tpu/sim.py:353-358;
   - embed_fill: comd_tpu.potentials.tables.interpolate on the F table,
     the placement and serial halo fill of comd_tpu/ops/force_eam.py:
@@ -127,6 +129,45 @@ def test_kick_drift_trigger_matches_comd_tpu(geoms, dtype):
     assert step.kick_drift_trigger(pt, rt, torch.from_numpy(f), None, nl,
                                    kick, drift) is None
     _close(rt.numpy(), np.asarray(rj), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("firing", [(), (5,), (0, 7)],
+                         ids=["none", "one", "two"])
+def test_trigger_add_ors_the_shards(geoms, dtype, firing):
+    """Eight shards' launches into one flag, each after the first with
+    ``add``: the flag after each equals the or of comd_tpu's
+    needs_rebuild over the shards so far; the shards in ``firing`` have
+    one local slot a skin from its baseline, the others none past skin/2,
+    and one launch with a flag but no ``add`` writes its own trigger."""
+    _jsim, tsim = geoms(dtype)
+    nl = tsim.geom.n_local
+    shape = tsim.state.r.shape
+    kick, drift = _c(0.5 * DT, dtype), _c(DT * (1.0 / MASS), dtype)
+    flag, want = None, False
+    for i in range(8):
+        p, f, r = _fields(shape, dtype, 10 + i)
+        f *= 1e-3
+        p *= 1e-3
+        last = r.copy()
+        if i in firing:
+            last[0, nl // 2, 1] += SKIN
+        rj = jnp.asarray(r) + (jnp.asarray(p) + jnp.asarray(p).dtype.type(
+            0.5 * DT) * jnp.asarray(f)) * jnp.asarray(p).dtype.type(
+            DT * (1.0 / MASS))
+        want = want or bool(jnl.needs_rebuild(jnp.asarray(last), rj, nl,
+                                              SKIN))
+        out = step.kick_drift_trigger(
+            torch.from_numpy(p), torch.from_numpy(r), torch.from_numpy(f),
+            torch.from_numpy(last), nl, kick, drift, SKIN, flag, add=i > 0)
+        assert flag is None or out is flag
+        flag = out
+        assert bool(flag) == want
+    assert want == bool(firing)
+    p, f, r = _fields(shape, dtype, 30)
+    assert not bool(step.kick_drift_trigger(
+        torch.from_numpy(p), torch.from_numpy(r), torch.from_numpy(f * 0),
+        torch.from_numpy(r.copy()), nl, kick, 0.0, SKIN, flag))
 
 
 def _square_sum_to(target, dtype):
@@ -298,6 +339,12 @@ def test_wrappers_check_their_operands(geoms):
     A = s.r.shape[2]
     with pytest.raises(ValueError):
         step.kick_drift_trigger(s.p, s.r, s.f.double(), None, nl, 0.5, 0.1)
+    for kw in (dict(add=True), dict(handles=(1, 2)),
+               dict(flag=torch.zeros(()), add=True)):
+        with pytest.raises(ValueError):     # add without a flag, handles
+            step.kick_drift_trigger(         # off the card, a float flag
+                s.p.clone(), s.r.clone(), s.f, s.r.clone(), nl, 0.5, 0.1,
+                **kw)
     with pytest.raises(ValueError):
         step.land(s.f, s.p, s.f[:, :nl].transpose(1, 2), None, s.n_atoms,
                   s.n_local, nl, 0.5)
@@ -314,6 +361,31 @@ def test_wrappers_check_their_operands(geoms):
                         s.r.shape[1], tsim.maps.halo_src[1:])
     with pytest.raises(ValueError):
         step.refresh_halo(tsim.geom, tsim.maps, s.r[:, :, :A - 1])
+
+
+@pytest.mark.parametrize("elem,e_elem,A,ptrs,want", [
+    (4, None, 16, [0, 4096], 4), (8, None, 16, [0, 4096], 2),
+    (4, 4, 16, [0], 4), (4, 8, 16, [0], 2), (8, 8, 16, [0], 2),
+    (8, 4, 16, [0], 2), (4, None, 15, [0], 1), (8, None, 15, [0], 1),
+    (4, None, 18, [0], 1), (8, None, 18, [0], 2), (4, 8, 18, [0], 2),
+    (4, None, 16, [0, 8], 1), (8, None, 16, [16, 4104], 1)])
+def test_embed_fill_vector_width_by_shape(elem, e_elem, A, ptrs, want):
+    """embed_fill's thread takes the slots whose values, and U's with
+    energy, fill a 16-byte access (4 f32; 2 f64, or f32 with U in f64)
+    when A is a multiple of them and every pointer is 16-byte aligned,
+    else one slot."""
+    assert step.embed_width(A, elem, ptrs, e_elem) == want
+
+
+def test_embed_fill_refuses_64_bit_indices(geoms):
+    """The kernel's indices are 32 bits: 2^31 slots or more are refused
+    (before the dispatch, so the CPU reaches the check)."""
+    _jsim, tsim = geoms("float32")
+    s, nl = tsim.state, tsim.geom.n_local
+    rho = s.r[0, :nl].contiguous()
+    with pytest.raises(ValueError, match="32-bit"):
+        step.embed_fill(tsim.f_eval, rho, None, s.n_atoms,
+                        2 ** 31 // rho.shape[1] + 1)
 
 
 def test_lazy_steps_through_the_step_ops_match_comd_tpu(monkeypatch):

@@ -25,7 +25,16 @@ comd_tpu state carried over with ``state_from_numpy``:
   - the graph runner's rebucket and list-build counters and launch
     counts equal the eager loop's, lazy, list, on the mesh and -S 0 (the
     kernels, which count only on the card, stood in for by counting
-    wrappers of the head, the two bodies and the rest).
+    wrappers of the head, the two bodies and the rest);
+  - a captured lazy or list step makes its condition before the head,
+    every shard's trigger launch after the first ors into the flag and
+    the last gets the condition's handles, and the IF nodes follow the
+    head with nothing launched between: no kernel sets a handle but the
+    head's;
+  - a lazy run on the 2x2x2 mesh whose trigger fires in one shard only
+    (one baseline slot moved a skin) rebuckets at the steps comd_tpu's
+    sharded lazy step does, eager and through the graphs, and ends on its
+    state.
 The lazy and list steps through the conditional graphs against comd_tpu
 are in tests/test_torch_stepgraph.py; on the card, against the eager
 loop, in tests/test_torch_kernel_cuda.py (``-m cuda``).
@@ -34,6 +43,7 @@ import dataclasses
 import os
 from unittest import mock
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -45,6 +55,7 @@ from comd_tpu_torch.interop import (FIELDS, shards_from_numpy,
                                     shards_to_numpy, state_from_numpy)
 from comd_tpu_torch.ops import binning
 from comd_tpu_torch.ops.cuda import LAUNCHES
+from comd_tpu_torch.ops.cuda.graph_if import if_node_plain
 from comd_tpu_torch.ops.cuda import step as step_ops
 
 torch.set_num_threads(1)
@@ -84,7 +95,7 @@ class GraphStub:
         LAUNCHES.update(held)
 
 
-def _both(_pred, body, negate=False, pool=None):
+def _both(_cond, _k, body, pool=None):
     body()
 
 
@@ -270,3 +281,158 @@ def test_scratch_leaves_the_state():
     assert sim.state.r is r and sim.last_r is sim._bufs["last_r", 0]
     for k, v in sim._bufs.items():
         assert torch.equal(v, before[k]), k
+
+
+#: the lazy cases of the head's handles: (configuration, shards)
+LAZY = {"lazy": (dict(BASE), 1),
+        "list": (dict(BASE, method="thread_atom_nl"), 1),
+        "mesh_lazy": (dict(BASE, temperature=600.0, initial_delta=0.8,
+                           **MESH), 8)}
+
+
+@pytest.mark.parametrize("case", list(LAZY))
+def test_head_sets_the_handles(monkeypatch, case):
+    """In a captured step the condition comes first (its handles made in
+    the graph, here two stand-in values), then the head's trigger
+    launches (a mesh's later shards with ``add``, the last given those
+    handles), then the two IF nodes on handles 0 and 1, with no launch
+    between the head and them; the launch counts (stand-ins, as above)
+    equal the eager loop's, and no counter of a condition kernel
+    exists."""
+    kw, shards = LAZY[case]
+    assert "set_condition" not in LAUNCHES
+    events = []
+    orig_kdt = step_ops.kick_drift_trigger
+
+    def kdt(*a, handles=(), add=False, **k):
+        events.append(("head", handles, add))
+        return orig_kdt(*a, add=add, **k)
+
+    def cond(_device):
+        events.append(("condition",))
+        return stepgraph.Condition((11, 12))
+
+    capturing = []
+
+    def node(c, k, body, pool=None):
+        """A capture records both bodies; a replay takes one."""
+        events.append(("if", c.handles[k], k))
+        if capturing:
+            body()
+        else:
+            if_node_plain(c.flag, body, bool(k))
+
+    runs = {}
+    for runner in ("eager", "graphs"):
+        sim = init_simulation(Config(device="cpu", **kw))
+        with monkeypatch.context() as m:
+            for k in LAUNCHES:
+                m.setitem(LAUNCHES, k, 0)
+            m.setattr(step_ops, "kick_drift_trigger", kdt)
+            _counting(m, sim)
+            m.setattr(stepgraph, "condition", cond)
+            m.setattr(stepgraph, "if_node", node)
+            if runner == "graphs":
+                sim.step_block(0)
+
+                def capture(fn, pool):
+                    del events[:]
+                    capturing.append(1)
+                    with sim._scratch():
+                        fn()
+                    capturing.pop()
+                    return GraphStub(fn), 0.0, 0.0
+
+                sim._graphs = stepgraph.GraphSteps(
+                    "cpu", capture=capture, scratch=sim._scratch)
+            del events[:]
+            sim.step_block(1)
+            runs[runner] = (dict(LAUNCHES), list(events))
+    (le, ee), (lg, eg) = runs["eager"], runs["graphs"]
+    assert le == lg and le[STAND_INS["head"]] == shards
+    # eager: no condition made, no handles, no IF node
+    assert ee == [("head", (), i > 0) for i in range(shards)]
+    # the capture, then the replay (a stub: the step run again)
+    step = ([("condition",)]
+            + [("head", (11, 12) if i == shards - 1 else (), i > 0)
+               for i in range(shards)]
+            + [("if", 11, 0), ("if", 12, 1)])
+    assert eg == step + step
+
+
+@pytest.fixture(scope="module")
+def one_shard_ref():
+    """comd_tpu's 2x2x2 lazy run (6^3, 600 K) from its initial state with
+    one baseline slot of one shard a skin away: (configuration, state,
+    baseline [Px, Py, Pz, 3, B, A], the shard, the steps that
+    rebucketed (the baseline moved), final state, ePot, atoms)."""
+    kw = dict(BASE, temperature=600.0, **MESH)
+    jsim = j_init(JConfig(**kw))
+    tsim = init_simulation(Config(device="cpu", **kw))
+    keys = FIELDS + ("e_potential", "n_local", "overflow")
+    start = {k: np.array(getattr(jsim.state, k)) for k in keys}
+    shard = (1, 0, 1)
+    n_local = tsim.geom.n_local
+    box = int(np.nonzero(start["n_atoms"][shard][:n_local])[0][0])
+    last = start["r"].copy()
+    last[shard][0, box, 0] += tsim.skin
+    jsim.last_r = jnp.asarray(last)
+    taken = []
+    for i in range(N_ONE):
+        before = np.array(jsim.last_r)
+        jsim.step_block(1)
+        if not np.array_equal(before, np.array(jsim.last_r)):
+            taken.append(i)
+    end = {k: np.asarray(getattr(jsim.state, k)) for k in FIELDS}
+    return (kw, start, last, shard, taken, end, jsim.e_potential,
+            jsim.sum_atoms())
+
+
+N_ONE = 6     # single-step blocks of the one-shard run
+
+
+@pytest.mark.parametrize("runner", ["eager", "graphs"])
+def test_one_shard_fires_the_mesh(one_shard_ref, monkeypatch, runner):
+    """The trigger fires in one shard of eight (and in no other) on the
+    first step: the mesh rebuckets at the same steps as comd_tpu's sharded
+    lazy step and ends on its state (r and p within 1e-8, gid and counts
+    equal, ePot within 1e-10 relative)."""
+    kw, start, last, shard, taken, end, e_j, n_j = one_shard_ref
+    assert taken and taken[0] == 0
+    sim = init_simulation(Config(device="cpu", **kw))
+    assert sim.uses_lazy and len(sim.geom.grid) == 3
+    sim.states = shards_from_numpy(start, "cpu")
+    sim.last_r = [torch.as_tensor(last[idx].copy())
+                  for idx in np.ndindex(2, 2, 2)]
+    fired = []                       # each shard's own trigger, in order
+    orig = step_ops.nlmod.needs_rebuild
+
+    def needs_rebuild(*a, **k):
+        t = orig(*a, **k)
+        fired.append(bool(t))
+        return t
+
+    monkeypatch.setattr(step_ops.nlmod, "needs_rebuild", needs_rebuild)
+    if runner == "graphs":
+        sim.step_block(0)
+        sim._graphs = stub_steps(sim)
+    got = []
+    for i in range(N_ONE):
+        n0 = sim.n_rebucket
+        del fired[:]
+        sim.step_block(1)
+        if sim.n_rebucket > n0:
+            got.append(i)
+        if i == 0:
+            # the step's own eight launches come last (a first replay
+            # follows the warm-up and the capture)
+            assert fired[-8:] == [idx == shard
+                                  for idx in np.ndindex(2, 2, 2)]
+    assert got == taken
+    ts = shards_to_numpy(sim.states, (2, 2, 2))
+    np.testing.assert_array_equal(ts["gid"], end["gid"])
+    np.testing.assert_array_equal(ts["n_atoms"], end["n_atoms"])
+    np.testing.assert_allclose(ts["r"], end["r"], rtol=0, atol=1e-8)
+    np.testing.assert_allclose(ts["p"], end["p"], rtol=0, atol=1e-8)
+    assert sim.e_potential == pytest.approx(e_j, rel=1e-10)
+    assert sim.sum_atoms() == n_j and not sim.overflow
