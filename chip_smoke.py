@@ -25,10 +25,10 @@ the first error:
                  10 x step_block(10); checks atom count, overflow, energy
                  drift, that every step launched both K1 passes, and that
                  the step kernels of csrc/step.cu launched 100 times each
-                 (kick_drift_trigger, land) and 101 (refresh_halo: the
-                 ghost refresh or the rebucket's halo fill, and the
-                 initial halo fill; embed_fill: the initial force too),
-                 then
+                 (kick_drift_trigger, with the ghost refresh; land), 101
+                 (embed_fill: the initial force too) and 1 + the
+                 rebuckets (refresh_halo: the rebucket's halo fill and
+                 the initial one), then
                  times each pass against its plain version at that shape
                  and checks that two launches of K1 pass 1 (with and
                  without energy) and pass 3 give the same bits.
@@ -221,8 +221,12 @@ the first error:
                  counted (torch.cuda.set_sync_debug_mode) and 20 under
                  torch.profiler: ms/step of both, the device's busy
                  ms/step and idle share of the wall clock, launches a step
-                 equal and no set_condition, one graph replay a step,
-                 host syncs outside captures exactly one a lazy block (the
+                 equal and no set_condition, one graph replay a step, the
+                 IF nodes a graph (serial lazy and list steps one, the
+                 rebucket's: the trigger launch refreshes the ghosts; the
+                 mesh two; -S 0 none), serially refresh_halo launched
+                 once a rebucket and never else, host syncs outside
+                 captures exactly one a lazy block (the
                  rebucket counter's read at its end) and none on -S 0,
                  the rebucket counts equal, the graphs' capture and
                  instantiation time, and the final r (sha256) and ePot
@@ -238,7 +242,11 @@ the first error:
                  without energy, serial fill and zero halo (16-byte
                  vectors) and at an odd number of slots a row (one slot a
                  thread), the landing of
-                 two passes and of one force; then two steps (the second
+                 two passes and of one force, the trigger with the serial
+                 image map (the ghost refresh in its launch; also in a
+                 graph, setting the serial step's one IF handle) and the
+                 whole halo fill (r, gid, n_atoms), both also at an odd
+                 number of slots a row; then two steps (the second
                  an energy step) from one state through the kernels and
                  through the plain versions, a refresh step and a rebucket
                  step, at both states: r, p, f, triggers, n_local and ePot
@@ -295,10 +303,10 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             # no Pallas site: comd_tpu's jitted step leaves these to XLA's
             # fusions around the force
             "kick_drift_trigger": "no Pallas site: XLA fusion of "
-                                  "comd_tpu/sim.py:367-370 and "
+                                  "comd_tpu/sim.py:367-370, :353-358 and "
                                   "comd_tpu/ops/neighborlist.py:161-168",
             "refresh_halo": "no Pallas site: XLA fusion of "
-                            "comd_tpu/sim.py:353-358",
+                            "comd_tpu/ops/binning.py:235-248",
             "embed_fill": "no Pallas site: XLA fusion of "
                           "comd_tpu/ops/force_eam.py:371-380, :603",
             "land": "no Pallas site: XLA fusion of comd_tpu/sim.py:380-383"}
@@ -2298,62 +2306,29 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
     host syncs counted and two under torch.profiler (the device's busy
     ms a step; its idle share of the timed steps' wall clock).  Returns
     {mode: dict(ms, launches, replays, syncs, busy, idle, digest, e_pot,
-    e_atom, captures, capture_s, instantiate_s)}."""
-    import torch
-    from comd_tpu_torch import Config, init_simulation
-    from comd_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    e_atom, captures, capture_s, instantiate_s, if_nodes)}: ``if_nodes``
+    the IF nodes a captured graph holds (the serial lazy and list steps
+    one, the rebucket's; a mesh's two; -S 0 none), and the serial runs'
+    refresh_halo launches one a rebucket (the head refreshes the ghosts
+    on the other steps; a mesh's exchange launches none)."""
+    from comd_tpu_torch import stepgraph
     out = {}
-    for mode in ("eager", "graphs"):
-        sim = init_simulation(Config(
-            nx=n, ny=n, nz=n, temperature=600.0, dtype=dtype, max_atoms=0,
-            cell_mode="auto", pot_dir=POTS, device="cuda", **kw))
-        sim.cuda_graphs = mode == "graphs"
-        lazy = sim.uses_lazy or sim.uses_nl
-        warm = 0
-        while warm < 200:
-            sim.step_block(block)
-            warm += block
-            if sim.n_rebucket:
-                break
-        g = sim._graphs
-        check((g is not None) == (mode == "graphs"),
-              f"{tag}: the {mode} run's graphs: {g}")
-        captures0 = g.captures if g else 0
-        replays0 = g.replays if g else 0
-        reb0 = sim.n_rebucket
-        nb = blocks
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(nb):
-            sim.step_block(block)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        steps = nb * block
-        launches = {k: v for k, v in LAUNCHES.items() if v}
-        res = dict(ms=1e3 * wall / steps, steps=steps, warm=warm, lazy=lazy,
-                   rebuckets=sim.n_rebucket - reb0, launches=launches,
-                   replays=(g.replays - replays0) / steps if g else 0.0,
-                   captures=(g.captures - captures0) if g else 0,
-                   n_graphs=len(g.graphs) if g else 0,
-                   capture_s=g.capture_s if g else 0.0,
-                   instantiate_s=g.instantiate_s if g else 0.0)
-        res["syncs"] = count_syncs(sim, 2, block)
-        res["busy"] = device_busy_ms(sim, 2, block)
-        res["idle"] = 1.0 - res["busy"] / res["ms"]
-        states = sim.states if hasattr(sim, "states") else [sim.state]
-        res["digest"] = r_digest([s.r.cpu().numpy() for s in states])
-        res["e_pot"] = sim.e_potential
-        res["e_atom"] = ((sim.e_potential / sim.n_global),
-                         (sim.e_potential + sim.kinetic_energy())
-                         / sim.n_global)
-        res["n_rebucket"] = sim.n_rebucket
-        check(sim.sum_atoms() == sim.n_global and not sim.overflow,
-              f"{tag} {mode}: atoms lost or overflow")
-        out[mode] = res
-        del sim, g, states
-        torch.cuda.empty_cache()
+    nodes = []
+    if_node = stepgraph.if_node
+
+    def counted_if_node(*a, **k):
+        nodes.append(1)
+        return if_node(*a, **k)
+
+    stepgraph.if_node = counted_if_node
+    try:
+        for mode in ("eager", "graphs"):
+            out[mode] = _graph_or_eager(tag, mode, n, dtype, blocks, block,
+                                        kw)
+    finally:
+        stepgraph.if_node = if_node
     e, g = out["eager"], out["graphs"]
+    g["if_nodes"] = len(nodes) / max(g["captures_all"], 1)
     sy = g["syncs"]
     want = sy["blocks"] if g["lazy"] else 0
     check(sy["rest"] == want and sy["capture"] == 0,
@@ -2370,7 +2345,73 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
           f"{g['n_rebucket']} (graphs)")
     check(abs(g["replays"] - 1.0) < 1e-12,
           f"{tag}: {g['replays']} graph replays a step, not one")
+    want = (2 if g["mesh"] else 1) if g["lazy"] else 0
+    check(g["if_nodes"] == want, f"{tag}: {g['if_nodes']} IF nodes a "
+          f"graph, not {want}")
+    want = 0 if g["mesh"] else g["rebuckets"]
+    got = g["launches"].get("refresh_halo", 0)
+    check(got == want, f"{tag}: refresh_halo launched {got} times in the "
+          f"timed steps, not {want} ({g['rebuckets']} rebuckets)")
     return out
+
+
+def _graph_or_eager(tag: str, mode: str, n: int, dtype: str, blocks: int,
+                    block: int, kw: dict) -> dict:
+    """One run of ``graph_vs_eager``: the eager loop or the graphs."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import LAUNCHES, reset_launch_counts
+    sim = init_simulation(Config(
+        nx=n, ny=n, nz=n, temperature=600.0, dtype=dtype, max_atoms=0,
+        cell_mode="auto", pot_dir=POTS, device="cuda", **kw))
+    sim.cuda_graphs = mode == "graphs"
+    lazy = sim.uses_lazy or sim.uses_nl
+    warm = 0
+    while warm < 200:
+        sim.step_block(block)
+        warm += block
+        if sim.n_rebucket:
+            break
+    g = sim._graphs
+    check((g is not None) == (mode == "graphs"),
+          f"{tag}: the {mode} run's graphs: {g}")
+    captures0 = g.captures if g else 0
+    replays0 = g.replays if g else 0
+    reb0 = sim.n_rebucket
+    nb = blocks
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(nb):
+        sim.step_block(block)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = nb * block
+    launches = {k: v for k, v in LAUNCHES.items() if v}
+    res = dict(ms=1e3 * wall / steps, steps=steps, warm=warm, lazy=lazy,
+               rebuckets=sim.n_rebucket - reb0, launches=launches,
+               replays=(g.replays - replays0) / steps if g else 0.0,
+               captures=(g.captures - captures0) if g else 0,
+               n_graphs=len(g.graphs) if g else 0,
+               capture_s=g.capture_s if g else 0.0,
+               instantiate_s=g.instantiate_s if g else 0.0)
+    res["syncs"] = count_syncs(sim, 2, block)
+    res["busy"] = device_busy_ms(sim, 2, block)
+    res["idle"] = 1.0 - res["busy"] / res["ms"]
+    states = sim.states if hasattr(sim, "states") else [sim.state]
+    res["digest"] = r_digest([s.r.cpu().numpy() for s in states])
+    res["e_pot"] = sim.e_potential
+    res["e_atom"] = ((sim.e_potential / sim.n_global),
+                     (sim.e_potential + sim.kinetic_energy())
+                     / sim.n_global)
+    res["n_rebucket"] = sim.n_rebucket
+    res["mesh"] = hasattr(sim, "states")
+    res["captures_all"] = g.captures if g else 0
+    check(sim.sum_atoms() == sim.n_global and not sim.overflow,
+          f"{tag} {mode}: atoms lost or overflow")
+    del sim, g, states
+    torch.cuda.empty_cache()
+    return res
 
 
 def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
@@ -2391,7 +2432,9 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
         f"step {per} (equal, no set_condition: the trigger sets the IF "
         f"handles); graph replays a step {g['replays']:.2f}; rebuckets "
         f"{e['rebuckets']}, {g['rebuckets']} in the timed steps, "
-        f"{e['n_rebucket']} in all (equal)")
+        f"{e['n_rebucket']} in all (equal); {g['if_nodes']:.0f} IF "
+        f"node(s) a graph; refresh_halo "
+        f"{g['launches'].get('refresh_halo', 0)} in the timed steps")
     for mode, m in (("eager", e), ("graphs", g)):
         sy = m["syncs"]
         say("graphs", f"{tag} {mode}: host syncs in step_block in "
@@ -2560,7 +2603,11 @@ def step_op_cases(sim) -> list:
     and without energy (rhobar and phi from K1's pass 1 on the state)
     with the serial fill and with zero halo rows, and with the serial
     fill at an odd number of slots a row (one slot a thread), and the
-    landing of K1's two passes and of one force."""
+    landing of K1's two passes and of one force; the trigger with the
+    serial image map (the main path's head: the ghost refresh in its
+    launch) and the whole halo fill (r, gid, n_atoms), each also at an
+    odd number of slots a row (the fields cut to it; one slot a thread
+    in the fill)."""
     import torch
     from comd_tpu_torch.ops.cuda import stencil as st
     s, geom, maps = sim.state, sim.geom, sim.maps
@@ -2581,10 +2628,10 @@ def step_op_cases(sim) -> list:
     n_halo = B - nl
     slots, local = 3 * B * A, 3 * nl * A
 
-    def kdt(p, r, f, lst, skin=skin):
+    def kdt(p, r, f, lst, skin=skin, images=None):
         return (lambda: (p.clone(), r.clone()),
                 lambda fn, o: o + (fn(o[0], o[1], f, lst, nl, kick, drift,
-                                      skin),))
+                                      skin, images=images),))
 
     def kdt_at(skin):
         at, at_last = displaced(s.r, nl, skin)
@@ -2597,6 +2644,29 @@ def step_op_cases(sim) -> list:
 
     kdt_bytes = es * (3 * slots + local + 2 * slots) + 1
     kdt_flops = 4 * slots + 8 * nl * A
+    # an odd number of slots a row (fields cut to it): the one-slot forms
+    odd = A - 1 - A % 2
+
+    def cut(x):
+        return x[..., :odd].contiguous()
+
+    def kdt_images(a):
+        """bytes, flops of the trigger with images at a slots a row: p, f
+        in, p out everywhere; r and the baseline in over the local slots;
+        r out everywhere (the halo rows as images); the map in."""
+        sl, lo, ha = 3 * B * a, 3 * nl * a, 3 * n_halo * a
+        return (es * (4 * sl + 2 * lo) + 4 * (nl + 1 + n_halo)
+                + es * 3 * n_halo + 1,
+                2 * sl + 2 * lo + 8 * nl * a + ha)
+
+    def fill(a):
+        """The whole halo fill at a slots a row: (prep, run, bytes,
+        flops)."""
+        r, g = (s.r, s.gid) if a == A else (cut(s.r), cut(s.gid))
+        return (lambda: (r.clone(), g.clone(), s.n_atoms.clone()),
+                lambda fn, o: (fn(geom, maps, *o),) + o[1:],
+                es * (2 * 3 * n_halo * a + 3 * n_halo) + 4 * 2 * n_halo * a
+                + 4 * 2 * n_halo + 8 * n_halo, 3 * n_halo * a)
     cases = [
         ("kick_drift_trigger", "kick_drift_trigger",
          *kdt(s.p, s.r, s.f, last), kdt_bytes, kdt_flops),
@@ -2604,13 +2674,18 @@ def step_op_cases(sim) -> list:
          *kdt_at(skin), kdt_bytes, kdt_flops),
         ("kick_drift_trigger at (0.45/2)^2", "kick_drift_trigger",
          *kdt_at(0.45), kdt_bytes, kdt_flops),
+        ("kick_drift_trigger images", "kick_drift_trigger",
+         *kdt(s.p, s.r, s.f, last, images=maps.images), *kdt_images(A)),
+        (f"kick_drift_trigger images A={odd}", "kick_drift_trigger",
+         *kdt(cut(s.p), cut(s.r), cut(s.f), cut(last),
+              images=maps.images), *kdt_images(odd)),
         ("refresh_halo", "refresh_halo", lambda: (s.r.clone(),),
          lambda fn, o: (fn(geom, maps, o[0]),),
          es * (2 * 3 * n_halo * A + 3 * n_halo) + 8 * n_halo,
-         3 * n_halo * A)]
+         3 * n_halo * A),
+        ("refresh_halo fill", "refresh_halo", *fill(A)),
+        (f"refresh_halo fill A={odd}", "refresh_halo", *fill(odd))]
     tab = (sim.f_eval.n + 4) * es
-    # an odd number of slots a row: embed_fill's one-slot-a-thread form
-    odd = A - 1 - A % 2
     rho_1, phi_1 = rho[:, :odd].contiguous(), phi[:, :odd].contiguous()
     for energy in (True, False):
         for src, a in ((maps.halo_src, A), (None, A), (maps.halo_src, odd)):
@@ -2635,11 +2710,48 @@ def step_op_cases(sim) -> list:
     return cases
 
 
+def kdt_in_graph(run, ops, n: int = 1) -> tuple:
+    """The trigger as the step graph runs it: ``run(fn, ops)`` (``fn`` the
+    wrapper) captured into a CUDA graph after a condition of ``n``
+    handles, which the launch sets, and an IF node a handle whose body
+    counts its runs; replayed once.  Returns (what ``run`` returned,
+    cloned after the replay; the bodies' runs)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.ops.cuda import step
+    from comd_tpu_torch.stepgraph import cuda_capture
+    bodies = graph_if.BodyPool("cuda")
+    hits = torch.zeros(n, dtype=torch.int32, device="cuda")
+    out = []
+
+    def captured():
+        cond = graph_if.condition("cuda", n)
+        check(len(cond.handles) == n, f"{len(cond.handles)} handles, not {n}")
+
+        def fn(*a, **kw):
+            return step.kick_drift_trigger(*a, handles=cond.handles, **kw)
+
+        out.append(run(fn, ops))
+        cond.flag = out[0][2]
+        for k in range(n):
+            graph_if.if_node(cond, k, lambda k=k: hits[k].add_(1), bodies)
+
+    graph, _c, _i = cuda_capture(captured, torch.cuda.graph_pool_handle())
+    graph.replay()
+    torch.cuda.synchronize()
+    got = tuple(x.clone() for x in out[0])
+    del graph
+    return got, hits.cpu().tolist()
+
+
 def check_step_ops(sim, tag: str) -> dict:
     """Phase 19's bitwise check at one state: each case of
     ``step_op_cases`` through the kernel (one launch) and through its plain
-    version on the same CUDA tensors; the trigger at (skin/2)^2 clear.
-    Returns {case name: max |kernel - plain| over its outputs (0)}."""
+    version on the same CUDA tensors; the trigger at (skin/2)^2 clear; the
+    trigger with images also in a graph with the serial step's one IF
+    handle set by the launch (``kdt_in_graph``), its body run as the flag
+    says.  Returns {case name: max |kernel - plain| over its outputs
+    (0)}."""
     import torch
     from comd_tpu_torch.ops.cuda import LAUNCHES
     from comd_tpu_torch.ops.cuda import step
@@ -2650,19 +2762,27 @@ def check_step_ops(sim, tag: str) -> dict:
         check(LAUNCHES[key] == n0 + 1, f"{tag} {name}: "
               f"{LAUNCHES[key] - n0} launches, not one")
         want = run(getattr(step, key + "_plain"), prep())
+        tries = [got]
+        if name.startswith("kick_drift_trigger images"):
+            in_graph, hits = kdt_in_graph(run, prep())
+            check(hits == [int(bool(want[2]))], f"{tag} {name}: the IF "
+                  f"body ran {hits} with the trigger {bool(want[2])}")
+            tries.append(in_graph)
         err = 0.0
-        for x, y in zip(got, want):
-            check((x is None) == (y is None) and (
-                x is None or (x.dtype == y.dtype and torch.equal(x, y))),
-                  f"{tag} {name}: kernel and plain version differ")
-            if x is not None and x.is_floating_point():
-                err = max(err, float((x - y).abs().max()))
+        for res in tries:
+            for x, y in zip(res, want):
+                check((x is None) == (y is None) and (
+                    x is None or (x.dtype == y.dtype and torch.equal(x, y))),
+                      f"{tag} {name}: kernel and plain version differ")
+                if x is not None and x.is_floating_point():
+                    err = max(err, float((x - y).abs().max()))
         if name.startswith("kick_drift_trigger at"):
             check(not bool(got[2]), f"{tag}: the trigger fired {name[19:]}")
         errs[name] = err
     say("step ops", f"{tag}: " + ", ".join(errs) + ": kernel and plain "
         f"version equal bit for bit (the trigger clear at (skin/2)^2 and "
-        f"(0.45/2)^2)")
+        f"(0.45/2)^2; with images also in a graph, setting the serial "
+        f"step's one IF handle)")
     return errs
 
 
@@ -2743,12 +2863,13 @@ def graph_ms(fn, calls: int = 20, reps: int = 10) -> float:
     return time_ms(graph.replay, reps) / calls
 
 
-def graph_ms_handles(run, ops, calls: int = 20, reps: int = 10) -> float:
+def graph_ms_handles(run, ops, n: int = 2, calls: int = 20,
+                     reps: int = 10) -> float:
     """kick_drift_trigger's device ms a launch as the step graph makes it:
     ``calls`` launches (``run(fn, ops)`` with ``fn`` the wrapper) in one
-    CUDA graph, each setting the two handles of a condition made in that
-    graph, its two IF nodes after them (a one-kernel body each), replayed
-    ``reps`` times between CUDA events."""
+    CUDA graph, each setting the ``n`` handles of a condition made in that
+    graph (1: the serial step's, 2: a mesh's), its IF nodes after them (a
+    one-kernel body each), replayed ``reps`` times between CUDA events."""
     import torch
     from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.ops.cuda import step
@@ -2758,15 +2879,15 @@ def graph_ms_handles(run, ops, calls: int = 20, reps: int = 10) -> float:
     hit = torch.zeros((), dtype=torch.int32, device="cuda")
 
     def captured():
-        cond = graph_if.condition("cuda")
+        cond = graph_if.condition("cuda", n)
 
         def fn(*a, **kw):
             return step.kick_drift_trigger(*a, handles=cond.handles, **kw)
 
         for _ in range(calls):
             cond.flag = run(fn, ops)[2]
-        graph_if.if_node(cond, 0, lambda: hit.add_(1), bodies)
-        graph_if.if_node(cond, 1, lambda: hit.add_(1), bodies)
+        for k in range(n):
+            graph_if.if_node(cond, k, lambda: hit.add_(1), bodies)
 
     run(step.kick_drift_trigger, ops)
     graph, _c, _i = cuda_capture(captured, torch.cuda.graph_pool_handle())
@@ -2816,9 +2937,11 @@ def run_step_ops(headline, launches: dict) -> dict:
         extra = ""
         if key == "kick_drift_trigger":
             # the step's launch sets the IF handles: its time with them
-            no_handles, ms = ms, graph_ms_handles(run, ops)
-            extra = (f" with the IF handles set (two IF nodes after the "
-                     f"20; {no_handles:.5f} ms without handles)")
+            # (the serial step's one with images, a mesh's two without)
+            n = 1 if "images" in name else 2
+            no_handles, ms = ms, graph_ms_handles(run, ops, n)
+            extra = (f" with the {n} IF handle(s) set ({n} IF node(s) "
+                     f"after the 20; {no_handles:.5f} ms without handles)")
         elif key == "embed_fill":
             a = int(name.split("A=")[1]) if "A=" in name else \
                 headline.state.r.shape[2]
@@ -2839,8 +2962,9 @@ def run_step_ops(headline, launches: dict) -> dict:
             f"{b_ms:.5f} ms ({by}: {n_bytes / 1e6:.2f} MB, "
             f"{flops / 1e6:.2f} Mflop); {launches[key]} launches in phase "
             f"5's run")
-        # the kernels line: a step's own calls (no energy: 99 of 100 steps)
-        if name in ("kick_drift_trigger", "refresh_halo",
+        # the kernels line: the main path's calls (no energy: 99 of 100
+        # steps; the head with images, the halo fill)
+        if name in ("kick_drift_trigger images", "refresh_halo fill",
                     "embed_fill energy=False serial=True",
                     "land passes=2"):
             rows[key] = {
@@ -2851,9 +2975,9 @@ def run_step_ops(headline, launches: dict) -> dict:
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
                 "bound_by": by, "library_ms": None}
     say("timing", "no single PyTorch call computes one of the four (a "
-        "kick, a drift and a max; a gather plus a shift; an interpolation "
-        "with a fill and a mask; a sum, a copy and a kick): library_ms "
-        "none")
+        "kick, a drift, a max and the ghost images; a gather plus a shift "
+        "and two copies; an interpolation with a fill and a mask; a sum, a "
+        "copy and a kick): library_ms none")
     return rows
 
 
@@ -2974,20 +3098,23 @@ def main() -> int:
     # 5. main path at full width: the 63^3 headline run
     serial_epot = []
     sim, launches = run_main(
-        "main", ("eam_pass1", "eam_pass3") + STEP_KEYS,
+        "main", ("eam_pass1", "eam_pass3") + tuple(
+            k for k in STEP_KEYS if k != "refresh_halo"),
         doeam=True, on_init=lambda x: serial_epot.append(x.e_potential))
     launches_main = launches
-    # one launch of each step kernel a step (the refresh in the ghost
-    # refresh or in the rebucket's halo fill), refresh_halo and
-    # embed_fill once more for the initial halo fill and force
+    # one launch of kick_drift_trigger (with the ghost refresh), embed_fill
+    # and land a step, embed_fill once more for the initial force;
+    # refresh_halo (the whole halo fill) once a rebucket and once for the
+    # initial fill
     n_steps = 100
-    want = {k: n_steps + (k in ("refresh_halo", "embed_fill"))
-            for k in STEP_KEYS}
+    want = {k: 1 + sim.n_rebucket if k == "refresh_halo" else
+            n_steps + (k == "embed_fill") for k in STEP_KEYS}
     got = {k: launches[k] for k in STEP_KEYS}
     check(got == want, f"main: step kernels launched {got}, not {want}")
     say("main", f"step kernels: {got} launches in {n_steps} steps "
-        f"({sim.n_rebucket} rebuckets; refresh_halo and embed_fill also "
-        f"at the initial halo fill and force)")
+        f"({sim.n_rebucket} rebuckets: refresh_halo fills the halo at "
+        f"each and at init, the trigger's launch refreshes it on the "
+        f"others; embed_fill also at the initial force)")
     serial_ms = sim.ms_step
     rows = {}
     # K1 vs plain at the main path's shape (not counted: read above)

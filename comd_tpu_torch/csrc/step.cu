@@ -15,11 +15,18 @@
 //                       shards) and, inside the step's CUDA graph, set as
 //                       the value of its IF nodes' conditional handles
 //                       (the rebucket's node the trigger, the ghost
-//                       refresh's its negation: no kernel of its own sets
-//                       them); without a baseline (-S 0) the kick and
-//                       drift only;
-//   refresh_halo        the ghost refresh r[:, halo] = r[:, halo_src] +
-//                       shift (comd_tpu/sim.py:353-358);
+//                       refresh's its negation, where a mesh has one: no
+//                       kernel of its own sets them); on the serial lazy
+//                       and list steps also the ghost refresh (comd_tpu/
+//                       sim.py:353-358): the thread that drifts a local
+//                       slot writes its periodic images into the halo
+//                       rows, so no other launch, and no IF node, is
+//                       needed for them; without a baseline (-S 0) the
+//                       kick and drift only;
+//   refresh_halo        the serial halo fill r[:, halo] = r[:, halo_src] +
+//                       shift, and with gid and n_atoms their copies from
+//                       the sources (comd_tpu/ops/binning.py:235-248): the
+//                       rebucket's halo and the initial one, one launch;
 //   embed_fill          EAM pass 2: F(rhobar) and F'(rhobar) (csrc/
 //                       embed.cuh), dfEmbed [B, A] with its local rows,
 //                       and its halo rows either F' of their serial
@@ -51,13 +58,14 @@
 // node and no write by the host.
 //
 // Bound: bytes.  Each slot is read and written once (kick_drift_trigger
-// at 63^3: p, f, r, the local baseline in, p and r out, ~96 MB; land ~78
-// MB; embed_fill 10.3 MB), with a few operations a word; grid-stride loops
-// over slots, neighbouring threads on neighbouring words.  embed_fill,
-// the smallest pass, is built for its fixed cost: a vector of slots a
-// thread whose values (and U's, on energy steps) fit 16-byte accesses (4
-// f32 slots, 2 with U in f64 or in f64), 32-bit indices, the local and the
-// halo rows as separate ranges of blocks.
+// at 63^3: p, f, r, the local baseline in, p and r out, the images' r
+// out and their map in, ~97 MB; land ~78 MB; embed_fill 10.3 MB), with a
+// few operations a word; grid-stride loops over slots, neighbouring
+// threads on neighbouring words.  embed_fill and refresh_halo, the
+// smallest passes, are built for their fixed cost: a vector of slots a
+// thread whose values (and U's, on energy steps; gids) fit 16-byte
+// accesses (4 f32 slots, 2 f64 or with U in f64), 32-bit indices, no
+// division by a runtime A in refresh_halo (a 2-D block, x along a row).
 //
 // Plain C interface for ctypes: each entry point launches on `stream`,
 // returns the cudaError_t of its launch (0 = success) and does not
@@ -127,6 +135,12 @@ __device__ __forceinline__ bool last_block(unsigned int* ticket) {
   return atomicAdd(ticket, 1u) == gridDim.x - 1;
 }
 
+// W slots of T at one aligned address: 16 bytes for the vector forms.
+template <typename T, int W>
+struct alignas(sizeof(T) * W) Vec {
+  T v[W];
+};
+
 // The conditional handles of the step graph's IF nodes that a trigger
 // launch inside the graph sets: h[0] gets the trigger (the rebucket's
 // node), h[1] its negation (the ghost refresh's).  n = 0 outside a graph
@@ -136,6 +150,20 @@ struct IfHandles {
   int n;
 };
 
+// The serial ghost images a trigger launch writes (null `start`: none, a
+// mesh's shard or -S 0): the images of local cell c are entries
+// [start[c], start[c + 1]), each a halo row and its periodic shift
+// [3]; `local` = n_local * A < 2^31 (the wrapper checks), so the cell of a
+// local slot is a 32-bit division.
+template <typename T>
+struct Images {
+  const int* start;
+  const int* row;
+  const T* shift;
+  int A;
+  int local;
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     kick_drift_trigger_kernel(T* __restrict__ p, T* __restrict__ r,
@@ -143,7 +171,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
                               const T* __restrict__ last, long long n,
                               long long n_check, T c_kick, T c_drift,
                               T thresh, Scratch* sc, bool* flag, int add,
-                              IfHandles ifs) {
+                              IfHandles ifs, Images<T> img) {
   // with add, the flag an earlier launch of the step wrote, read before
   // the loop (that launch has ended, and this one writes the flag only
   // after every block has begun), so the last block does not wait on it
@@ -154,14 +182,34 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
                      threadIdx.x;
        i < n; i += stride) {
+    // with images, a halo slot is written by its source's thread only:
+    // its own thread kicks p and leaves r alone (no slot drifted twice)
+    const bool local = img.start == nullptr || i < img.local;
     T x[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
       const long long k = a * n + i;
       const T pk = p[k] + c_kick * f[k];
       p[k] = pk;
-      x[a] = r[k] + pk * c_drift;
-      r[k] = x[a];
+      if (local) {
+        x[a] = r[k] + pk * c_drift;
+        r[k] = x[a];
+      }
+    }
+    if (img.start != nullptr && local) {
+      // the slot's images: x plus each image's shift, rounded once, the
+      // bits the refresh reads back from r and adds
+      const unsigned int c = static_cast<unsigned int>(i) /
+                             static_cast<unsigned int>(img.A);
+      const int s = static_cast<int>(i) - static_cast<int>(c) * img.A;
+      const int end = img.start[c + 1];
+      for (int j = img.start[c]; j < end; ++j) {
+        const long long to =
+            static_cast<long long>(img.row[j]) * img.A + s;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          r[a * n + to] = x[a] + img.shift[3 * j + a];
+      }
     }
     if (i < n_check) {
       const T d0 = x[0] - last[i];
@@ -186,31 +234,48 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   }
 }
 
-template <typename T>
+// The serial halo fill: each halo row's positions from its periodic
+// source row plus the row's shift, and with `gid` its gids and atom count
+// (`n_atoms`), W slots a thread in accesses of at most 16 bytes.  A block
+// is a 2-D array of threads, x along a row's vectors, y over rows, so no
+// thread divides; rows in a grid-stride loop.  32-bit indices within a
+// plane (the wrapper checks n_total * A < 2^31).
+template <typename T, int W>
 __global__ void __launch_bounds__(kThreads)
-    refresh_halo_kernel(T* r, const long long* __restrict__ src,
-                        const T* __restrict__ shift, long long n_halo, int A,
-                        long long n_local, long long plane) {
-  const long long total = n_halo * A;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long k = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       k < total; k += stride) {
-    const long long h = k / A;
-    const long long s = k - h * A;
-    const long long from = src[h] * A + s;
-    const long long to = (n_local + h) * A + s;
+    refresh_halo_kernel(T* __restrict__ r, int* __restrict__ gid,
+                        int* __restrict__ n_atoms,
+                        const long long* __restrict__ src,
+                        const T* __restrict__ shift, int n_halo,
+                        int n_local, int per_row, int plane_vecs) {
+  using V = Vec<T, W>;
+  using G = Vec<int, W>;
+  V* __restrict__ rv = reinterpret_cast<V*>(r);
+  G* __restrict__ gv = reinterpret_cast<G*>(gid);
+  const int rows = gridDim.x * blockDim.y;
+  for (int h = blockIdx.x * blockDim.y + threadIdx.y; h < n_halo;
+       h += rows) {
+    const int from_row = static_cast<int>(src[h]);
+    const int to_row = n_local + h;
+    T sh[3];
 #pragma unroll
-    for (int a = 0; a < 3; ++a)
-      r[a * plane + to] = r[a * plane + from] + shift[3 * h + a];
+    for (int a = 0; a < 3; ++a) sh[a] = shift[3 * h + a];
+    if (gid != nullptr && threadIdx.x == 0)
+      n_atoms[to_row] = n_atoms[from_row];
+    for (int v = threadIdx.x; v < per_row; v += blockDim.x) {
+      const int from = from_row * per_row + v;
+      const int to = to_row * per_row + v;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        V* pa = rv + static_cast<size_t>(a) * plane_vecs;
+        V x = pa[from];
+#pragma unroll
+        for (int w = 0; w < W; ++w) x.v[w] = x.v[w] + sh[a];
+        pa[to] = x;
+      }
+      if (gid != nullptr) gv[to] = gv[from];
+    }
   }
 }
-
-// W slots of T at one aligned address: 16 bytes for the vector forms.
-template <typename T, int W>
-struct alignas(sizeof(T) * W) Vec {
-  T v[W];
-};
 
 // Store W values at `to` (aligned to W values) in accesses of at most 16
 // bytes: U in f64 from f32 slots is two.
@@ -331,7 +396,9 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // `handles`: n_handles (0..2) conditional handles of the graph this
-// launch is captured into (IfHandles); `add`: or the trigger into *flag.
+// launch is captured into (IfHandles); `add`: or the trigger into *flag;
+// `img_start` (null: no images), `img_row`, `img_shift`: the serial ghost
+// images (Images), `A` slots a cell, `n_local` local cells.
 extern "C" int comd_kick_drift_trigger(int elem, void* p, void* r,
                                        const void* f, const void* last,
                                        long long n, long long n_check,
@@ -339,41 +406,85 @@ extern "C" int comd_kick_drift_trigger(int elem, void* p, void* r,
                                        double thresh, void* scratch,
                                        void* flag, int add,
                                        const unsigned long long* handles,
-                                       int n_handles, int grid,
+                                       int n_handles, const void* img_start,
+                                       const void* img_row,
+                                       const void* img_shift, int A,
+                                       int n_local, int grid,
                                        cudaStream_t stream) {
   Scratch* sc = static_cast<Scratch*>(scratch);
   bool* out = static_cast<bool*>(flag);
   if (n_handles < 0 || n_handles > 2 || (n_handles > 0 && out == nullptr))
     return cudaErrorInvalidValue;
+  if (img_start != nullptr &&
+      (A <= 0 || static_cast<long long>(n_local) * A >= (1ll << 31)))
+    return cudaErrorInvalidValue;
   IfHandles ifs{{0, 0}, n_handles};
   for (int k = 0; k < n_handles; ++k) ifs.h[k] = handles[k];
+  const int* start = static_cast<const int*>(img_start);
+  const int* row = static_cast<const int*>(img_row);
+  const int local = img_start == nullptr ? 0 : n_local * A;
   if (elem == 4)
     kick_drift_trigger_kernel<float><<<grid, kThreads, 0, stream>>>(
         static_cast<float*>(p), static_cast<float*>(r),
         static_cast<const float*>(f), static_cast<const float*>(last), n,
         n_check, static_cast<float>(c_kick), static_cast<float>(c_drift),
-        static_cast<float>(thresh), sc, out, add, ifs);
+        static_cast<float>(thresh), sc, out, add, ifs,
+        Images<float>{start, row, static_cast<const float*>(img_shift), A,
+                      local});
   else
     kick_drift_trigger_kernel<double><<<grid, kThreads, 0, stream>>>(
         static_cast<double*>(p), static_cast<double*>(r),
         static_cast<const double*>(f), static_cast<const double*>(last), n,
-        n_check, c_kick, c_drift, thresh, sc, out, add, ifs);
+        n_check, c_kick, c_drift, thresh, sc, out, add, ifs,
+        Images<double>{start, row, static_cast<const double*>(img_shift), A,
+                       local});
   return cudaGetLastError();
 }
 
-extern "C" int comd_refresh_halo(int elem, void* r, const void* src,
-                                 const void* shift, long long n_halo, int A,
-                                 long long n_local, long long plane, int grid,
+template <typename T, int W>
+static void launch_refresh_w(void* r, void* gid, void* n_atoms,
+                             const void* src, const void* shift, int n_halo,
+                             int A, int n_local, int n_total, dim3 block,
+                             int grid, cudaStream_t stream) {
+  refresh_halo_kernel<T, W><<<grid, block, 0, stream>>>(
+      static_cast<T*>(r), static_cast<int*>(gid), static_cast<int*>(n_atoms),
+      static_cast<const long long*>(src), static_cast<const T*>(shift),
+      n_halo, n_local, A / W, n_total * (A / W));
+}
+
+// `width`: the slots a thread takes (1, 2, or 4 with f32; A a multiple of
+// it, r and gid aligned to its access: the wrapper checks); `gid` null:
+// the positions only.  A block is (A / width) threads a row, up to 256,
+// times the rows that fit 256 threads; `grid` blocks.
+extern "C" int comd_refresh_halo(int elem, int width, void* r, void* gid,
+                                 void* n_atoms, const void* src,
+                                 const void* shift, int n_halo, int A,
+                                 int n_local, int n_total, int grid,
                                  cudaStream_t stream) {
-  const long long* s = static_cast<const long long*>(src);
-  if (elem == 4)
-    refresh_halo_kernel<float><<<grid, kThreads, 0, stream>>>(
-        static_cast<float*>(r), s, static_cast<const float*>(shift), n_halo,
-        A, n_local, plane);
-  else
-    refresh_halo_kernel<double><<<grid, kThreads, 0, stream>>>(
-        static_cast<double*>(r), s, static_cast<const double*>(shift),
-        n_halo, A, n_local, plane);
+  if (width <= 0 || A % width != 0 || (elem == 8 && width > 2) ||
+      width > 4 || width == 3 ||
+      static_cast<long long>(n_total) * A >= (1ll << 31))
+    return cudaErrorInvalidValue;
+  const int per_row = A / width;
+  const int bx = per_row < kThreads ? per_row : kThreads;
+  const dim3 block(bx, kThreads / bx);
+  if (elem == 4) {
+    if (width == 1)
+      launch_refresh_w<float, 1>(r, gid, n_atoms, src, shift, n_halo, A,
+                                 n_local, n_total, block, grid, stream);
+    else if (width == 2)
+      launch_refresh_w<float, 2>(r, gid, n_atoms, src, shift, n_halo, A,
+                                 n_local, n_total, block, grid, stream);
+    else
+      launch_refresh_w<float, 4>(r, gid, n_atoms, src, shift, n_halo, A,
+                                 n_local, n_total, block, grid, stream);
+  } else if (width == 1) {
+    launch_refresh_w<double, 1>(r, gid, n_atoms, src, shift, n_halo, A,
+                                n_local, n_total, block, grid, stream);
+  } else {
+    launch_refresh_w<double, 2>(r, gid, n_atoms, src, shift, n_halo, A,
+                                n_local, n_total, block, grid, stream);
+  }
   return cudaGetLastError();
 }
 

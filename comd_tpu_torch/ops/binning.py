@@ -52,6 +52,46 @@ class GeomMaps:
     box_of_tuple: torch.Tensor  # [gx, gy, gz] int64 local numbering
     interior: "BoxSubset"       # -a 1: cells whose 27 neighbors are local
     boundary: "BoxSubset"       # -a 1: the other local cells
+    images: "ImageMap"          # serial: each local cell's ghost images
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ImageMap:
+    """The serial ghost images of each local cell, the inverse of
+    ``halo_src`` as 32-bit CSR: local cell c is the periodic source of the
+    halo rows ``row[start[c]:start[c + 1]]`` (box ids n_local + h, in
+    ascending h), each shifted by its ``shift`` row.  Every halo row
+    appears once; a cell on a face of the grid has one image, on an edge
+    three, at a corner seven (more on an axis of one or two cells).  The
+    step's trigger kernel writes them (ops/cuda/step.kick_drift_trigger's
+    ``images``); its plain version refreshes through ``halo_src`` and
+    ``halo_shift``, the maps' own."""
+    start: torch.Tensor         # [n_local + 1] int32
+    row: torch.Tensor           # [n_halo] int32
+    shift: torch.Tensor         # [n_halo, 3] dynamics dtype
+    halo_src: torch.Tensor      # [n_halo] int64 (GeomMaps.halo_src)
+    halo_shift: torch.Tensor    # [n_halo, 3] (GeomMaps.halo_shift)
+
+    @property
+    def n_local(self) -> int:
+        return self.start.shape[0] - 1
+
+
+def image_map(geom: CellGeometry, halo_src: torch.Tensor,
+              halo_shift: torch.Tensor) -> ImageMap:
+    """The ImageMap of ``geom`` (numpy on the host, then on the device of
+    the maps' ``halo_src``/``halo_shift``)."""
+    src = np.asarray(geom.halo_src, np.int64)
+    order = np.argsort(src, kind="stable")
+    start = np.zeros(geom.n_local + 1, np.int32)
+    start[1:] = np.cumsum(np.bincount(src, minlength=geom.n_local))
+    dev = halo_src.device
+    return ImageMap(
+        start=torch.as_tensor(start, device=dev),
+        row=torch.as_tensor((geom.n_local + order).astype(np.int32),
+                            device=dev),
+        shift=halo_shift[torch.as_tensor(order, device=dev)].contiguous(),
+        halo_src=halo_src, halo_shift=halo_shift)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -81,16 +121,17 @@ def geom_maps(geom: CellGeometry, dtype: torch.dtype, device) -> GeomMaps:
     subsets = [BoxSubset(ids=ids, index=torch.as_tensor(
         ids, dtype=torch.int64, device=device))
         for ids in boundary_lists(geom, ring=1)]
+    halo_src = torch.as_tensor(geom.halo_src, dtype=torch.int64,
+                               device=device)
+    halo_shift = torch.as_tensor(geom.halo_shift, dtype=dtype, device=device)
     maps = GeomMaps(
         nbr_map=nbr.contiguous(),
         half_nbr_map=nbr[:, SELF_COLUMN:].contiguous(),
-        halo_src=torch.as_tensor(geom.halo_src, dtype=torch.int64,
-                                 device=device),
-        halo_shift=torch.as_tensor(geom.halo_shift, dtype=dtype,
-                                   device=device),
+        halo_src=halo_src, halo_shift=halo_shift,
         box_of_tuple=torch.as_tensor(geom.local_box_of_tuple,
                                      dtype=torch.int64, device=device),
         interior=subsets[0], boundary=subsets[1],
+        images=image_map(geom, halo_src, halo_shift),
     )
     # the stencil kernels take a neighbor map and find its geometry, and
     # the brick plans built from it, on the tensor (``brick_plan_for``)
@@ -425,16 +466,13 @@ def sort_cells(r, p, gid):
 
 
 def fill_halo_serial(geom: CellGeometry, maps: GeomMaps, r, gid, n_atoms):
-    """Periodic-image halo fill for the single-domain case, in place; the
-    positions through the step's ghost refresh (ops/cuda/step.refresh_halo).
+    """Periodic-image halo fill for the single-domain case, in place: the
+    positions, gids and counts in one launch (ops/cuda/step.refresh_halo).
 
     Serial CoMD degenerates its halo exchange into self-copies with PBC
     shifts (doc: src-mpi/CoMD.c:1127-1129); here that is one static gather.
     """
-    n_local = geom.n_local
-    step_ops.refresh_halo(geom, maps, r)
-    gid[n_local:] = gid[maps.halo_src]
-    n_atoms[n_local:] = n_atoms[maps.halo_src]
+    step_ops.refresh_halo(geom, maps, r, gid, n_atoms)
     return r, gid, n_atoms
 
 

@@ -7,9 +7,9 @@ made by ``condition`` before the step's head, whose trigger kernel
 (ops/cuda/step.kick_drift_trigger) writes the trigger and sets the
 conditional handles at every replay, then ``if_node(cond, k, body)``:
 ``body``'s launches become the body of a conditional IF node on handle
-``k`` (0: run when the trigger is set, 1: when it is clear).  The branch
-is taken on the device with no read by the host and no kernel of its
-own.
+``k`` (0: run when the trigger is set, 1: when it is clear; a step
+without a false body makes one handle).  The branch is taken on the
+device with no read by the host and no kernel of its own.
 
 The body is captured on a stream of its own (``cudaStreamBeginCaptureToGraph``
 into the IF node's body graph) while PyTorch's capture of the step goes
@@ -120,26 +120,28 @@ class BodyPool:
 class Condition:
     """A step's branch condition: ``flag``, the trigger its head writes (a
     0-dim bool), and ``handles``, the IF nodes' conditional handles the
-    head's trigger kernel sets inside a capture (0: the trigger, 1: its
-    negation), () elsewhere."""
+    head's trigger kernel sets inside a capture (0: the trigger, 1, if
+    made: its negation), () elsewhere."""
 
     def __init__(self, handles: tuple = ()):
         self.handles = tuple(handles)
         self.flag = None
 
 
-def condition(device) -> Condition:
+def condition(device, n: int = 2) -> Condition:
     """The condition of a branch of the graph being captured on
-    ``device``'s current stream: two new handles of that graph (for the
-    head to set, before ``if_node`` adds their nodes).  On the CPU, or on
-    the card outside a capture, none."""
+    ``device``'s current stream: ``n`` new handles of that graph (1 or 2,
+    one a body: for the head to set, before ``if_node`` adds their
+    nodes).  On the CPU, or on the card outside a capture, none."""
+    if n not in (1, 2):
+        raise ValueError(f"a condition has one or two handles, not {n}")
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_current_stream_capturing():
         return Condition()
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
     handles = []
-    for _ in range(2):
+    for _ in range(n):
         h = ctypes.c_ulonglong()
         _check(lib.comd_if_handle(stream, ctypes.byref(h)),
                "the IF node's conditional handle")
@@ -170,9 +172,9 @@ def if_node(cond: Condition, k: int, body: Callable,
     if pred.device.type != "cuda":
         if_node_plain(pred, body, bool(k))
         return
-    if len(cond.handles) != 2:
-        raise ValueError("a CUDA trigger's IF nodes need the handles of a "
-                         "capture (graph_if.condition), set by the head")
+    if not 0 <= k < len(cond.handles):
+        raise ValueError(f"a CUDA trigger's IF node needs handle {k} of a "
+                         f"capture (graph_if.condition), set by the head")
     if pool is None:
         raise ValueError("if_node needs a BodyPool for the body's memory")
     lib = build()

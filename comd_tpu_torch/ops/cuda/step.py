@@ -11,10 +11,15 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
   ops/neighborlist.py::needs_rebuild) as a 0-dim bool (or-ed into a
   mesh's earlier shards' with ``add``) and, inside the step's CUDA graph,
   as the value of its IF nodes' conditional handles, set by the kernel's
-  last block (graph_if.py: no kernel of its own sets them); ``last_r``
-  None: the kick and drift only, ``-S 0``;
-- ``refresh_halo``: the serial ghost refresh (sim.py:353-358), also the
-  positions of the rebucket's halo fill (``binning.fill_halo_serial``);
+  last block (graph_if.py: no kernel of its own sets them); with the
+  image map of a single domain (``images``) also the serial ghost refresh
+  (sim.py:353-358), written by the threads that drift the sources;
+  ``last_r`` None: the kick and drift only, ``-S 0``;
+- ``refresh_halo``: the serial halo fill (comd_tpu/ops/binning.py::
+  fill_halo_serial): the halo rows' positions from their sources plus the
+  shift, and their gids and counts, one launch (the rebucket's and the
+  initial one, ``binning.fill_halo_serial``); a 2-D block, 16-byte
+  vectors where A and the pointers allow (``halo_width``);
 - ``embed_fill``: EAM pass 2 (``tables.interpolate``'s F and F'), dfEmbed
   [B, A] with the serial halo fill or zero halo rows, and on energy steps
   U = 0.5 phi + F with empty slots 0 (comd_tpu/ops/force_eam.py:371-380,
@@ -55,6 +60,10 @@ BLOCKS_PER_SM = 8      # the grid-stride loops' grid: at most this a SM
 # step_timing.py times at 63^3 f32 on an H100 (PERF.md §6); read at each
 # launch, so that it can time the others
 EMBED_BLOCKS_PER_SM = {False: 4, True: None}
+# refresh_halo's grid: None, a block to every (256 / (A / width)) halo rows,
+# once round; else at most this many blocks a SM, a grid-stride loop over
+# the rows (step_timing.py times the forms; read at each launch)
+HALO_BLOCKS_PER_SM = None
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -76,8 +85,10 @@ def build():
                       ctypes.c_longlong)
         for name, args in (
                 ("comd_kick_drift_trigger",
-                 [i, p, p, p, p, q, q, d, d, d, p, p, i, p, i, i, p]),
-                ("comd_refresh_halo", [i, p, p, p, q, i, q, q, i, p]),
+                 [i, p, p, p, p, q, q, d, d, d, p, p, i, p, i, p, p, p, i,
+                  i, i, p]),
+                ("comd_refresh_halo", [i, i, p, p, p, p, p, i, i, i, i, i,
+                                       p]),
                 ("comd_embed_fill",
                  [i, i, i, p, p, p, p, p, p, i, i, i, i, d, d, p, i, i, p]),
                 ("comd_land", [i, p, p, p, q, p, q, q, q, d, p, i, p, i, p,
@@ -155,12 +166,15 @@ def _check_state(r: torch.Tensor) -> None:
 
 def kick_drift_trigger_plain(p, r, f, last_r, n_local: int, kick: float,
                              drift: float, skin: float, flag=None,
-                             add: bool = False):
-    """Plain PyTorch: ``p += kick f``, ``r += p drift``, then
+                             add: bool = False, images=None):
+    """Plain PyTorch: ``p += kick f``, ``r += p drift``, with ``images``
+    the ghost refresh (``refresh_halo_plain``'s positions), then
     ``needs_rebuild`` (a 0-dim bool, or-ed into ``flag`` with ``add``,
     else written there when given), or None without ``last_r``."""
     p.add_(kick * f)
     r.add_(p * drift)
+    if images is not None:
+        _refresh_plain(r, images.n_local, images.halo_src, images.halo_shift)
     if last_r is None:
         return None
     t = nlmod.needs_rebuild(last_r, r, n_local, skin)
@@ -169,10 +183,36 @@ def kick_drift_trigger_plain(p, r, f, last_r, n_local: int, kick: float,
     return flag.logical_or_(t) if add else flag.copy_(t)
 
 
+def _check_images(images, r: torch.Tensor, n_local: int) -> None:
+    """``images`` (binning.ImageMap) fits r [3, B, A] with ``n_local``
+    local cells: one image a halo row, every tensor contiguous on r's
+    device, the shifts in r's dtype, n_local * A < 2^31."""
+    B, A = r.shape[1], r.shape[2]
+    n_halo = B - n_local
+    ok = images.n_local == n_local and \
+        images.start.shape == (n_local + 1,) and \
+        images.row.shape == (n_halo,) and \
+        images.shift.shape == (n_halo, 3) and \
+        images.halo_src.shape == (n_halo,) and \
+        images.start.dtype == images.row.dtype == torch.int32 and \
+        images.shift.dtype == images.halo_shift.dtype == r.dtype and \
+        all(t.device == r.device and t.is_contiguous()
+            for t in (images.start, images.row, images.shift))
+    if not ok:
+        raise ValueError(f"kick_drift_trigger: the image map of "
+                         f"{images.n_local} local cells does not fit r "
+                         f"{r.dtype} {tuple(r.shape)} on {r.device} with "
+                         f"{n_local} local cells")
+    if n_local * A >= 2 ** 31:
+        raise ValueError(f"kick_drift_trigger: {n_local} local cells of {A} "
+                         f"slots do not fit the images' 32-bit indices")
+
+
 def kick_drift_trigger(p, r, f, last_r: Optional[torch.Tensor],
                        n_local: int, kick: float, drift: float,
                        skin: float = 0.0, flag: torch.Tensor = None,
-                       add: bool = False, handles: tuple = ()):
+                       add: bool = False, handles: tuple = (),
+                       images=None):
     """The head of a step, in place on the [3, B, A] fields: the half kick
     ``p += kick * f`` and the drift ``r += p * drift`` over every slot
     (``kick``, ``drift``: the step's constants rounded to the dtype), then,
@@ -183,10 +223,15 @@ def kick_drift_trigger(p, r, f, last_r: Optional[torch.Tensor],
     one when None) or, with ``add``, or-ed into the value an earlier launch
     of the step wrote there (a mesh's later shards).  ``handles``: inside
     a capture on the card, the IF nodes' conditional handles of that
-    graph (``graph_if.condition``), which the kernel sets from the flag
-    it writes: the first to the flag, the second to its negation.
-    Returns the flag, or None without ``last_r``.  CPU tensors run the
-    plain version; CUDA tensors the kernel."""
+    graph (``graph_if.condition``, one or two), which the kernel sets from
+    the flag it writes: the first to the flag, the second to its
+    negation.  ``images`` (``binning.ImageMap``, a single domain's): the
+    ghost refresh too, the halo rows' positions their periodic sources'
+    drifted ones plus the shift (the same bits as ``refresh_halo`` after
+    the drift); the kernel writes them from the threads that drift the
+    sources, and a halo slot's own thread kicks its p only.  Returns the
+    flag, or None without ``last_r``.  CPU tensors run the plain version;
+    CUDA tensors the kernel."""
     _check_state(r)
     for what, t in (("p", p), ("f", f)) + (
             (("last_r", last_r),) if last_r is not None else ()):
@@ -199,44 +244,59 @@ def kick_drift_trigger(p, r, f, last_r: Optional[torch.Tensor],
             len(handles) > 2:
         raise ValueError("kick_drift_trigger: add needs a flag, add and "
                          "handles a baseline, and at most two handles")
+    if images is not None:
+        _check_images(images, r, n_local)
     if r.device.type == "cpu":
         if handles:
             raise ValueError("kick_drift_trigger: conditional handles are "
                              "set by the kernel, on the card")
         return kick_drift_trigger_plain(p, r, f, last_r, n_local, kick,
-                                        drift, skin, flag, add)
+                                        drift, skin, flag, add, images)
     n = r.shape[1] * r.shape[2]
     if flag is None and last_r is not None:
         flag = torch.empty((), dtype=torch.bool, device=r.device)
     thresh = as_dtype((0.5 * skin) ** 2, r.dtype)
+    img = (None, None, None) if images is None else (
+        images.start.data_ptr(), images.row.data_ptr(),
+        images.shift.data_ptr())
     err = build().comd_kick_drift_trigger(
         r.element_size(), p.data_ptr(), r.data_ptr(), f.data_ptr(),
         None if last_r is None else last_r.data_ptr(), n,
         0 if last_r is None else n_local * r.shape[2], kick, drift, thresh,
         _scratch(r.device).data_ptr(),
         None if flag is None else flag.data_ptr(), int(add),
-        (ctypes.c_ulonglong * 2)(*handles), len(handles),
-        _grid(n, r.device), _stream(r))
+        (ctypes.c_ulonglong * 2)(*handles), len(handles), *img,
+        r.shape[2], n_local, _grid(n, r.device), _stream(r))
     _launched(err, "kick_drift_trigger")
     return flag
 
 
 # --------------------------------------------------------------------------
-# the ghost refresh
+# the serial halo fill
 # --------------------------------------------------------------------------
 
-def refresh_halo_plain(geom, maps, r):
+def _refresh_plain(r, n_local: int, src, shift) -> None:
+    r[:, n_local:] = r[:, src] + shift.T[:, :, None]
+
+
+def refresh_halo_plain(geom, maps, r, gid=None, n_atoms=None):
     """Plain PyTorch: as ``refresh_halo``."""
-    r[:, geom.n_local:] = r[:, maps.halo_src] + maps.halo_shift.T[:, :, None]
+    _refresh_plain(r, geom.n_local, maps.halo_src, maps.halo_shift)
+    if gid is not None:
+        gid[geom.n_local:] = gid[maps.halo_src]
+        n_atoms[geom.n_local:] = n_atoms[maps.halo_src]
     return r
 
 
-def refresh_halo(geom, maps, r):
-    """The serial ghost refresh, in place: every halo cell's positions from
-    its periodic source cell plus the shift (``maps.halo_src``,
-    ``maps.halo_shift``).  The sources are local cells, so a launch reads
-    no row it writes.  Returns ``r``.  CPU tensors run the plain version;
-    CUDA tensors the kernel."""
+def refresh_halo(geom, maps, r, gid=None, n_atoms=None):
+    """The serial halo fill, in place, one launch: every halo cell's
+    positions from its periodic source cell plus the shift
+    (``maps.halo_src``, ``maps.halo_shift``; comd_tpu/ops/binning.py::
+    fill_halo_serial), and with ``gid`` ([B, A] int32) and ``n_atoms``
+    ([B] int32) their gids and atom counts copied from the source.  The
+    sources are local cells, so a launch reads no row it writes.  Returns
+    ``r``.  CPU tensors run the plain version; CUDA tensors the kernel,
+    whose indices are 32 bits: B * A must be below 2^31."""
     _check_state(r)
     B, A = r.shape[1], r.shape[2]
     src, shift = maps.halo_src, maps.halo_shift
@@ -248,16 +308,44 @@ def refresh_halo(geom, maps, r):
         raise ValueError(f"refresh_halo: the maps' halo_src [{n_halo}] "
                          f"int64 and halo_shift [{n_halo}, 3] {r.dtype} do "
                          f"not fit r {tuple(r.shape)} on {r.device}")
+    if (gid is None) != (n_atoms is None) or (gid is not None and (
+            gid.shape != (B, A) or n_atoms.shape != (B,) or
+            gid.dtype != torch.int32 or n_atoms.dtype != torch.int32 or
+            not (gid.is_contiguous() and n_atoms.is_contiguous()) or
+            gid.device != r.device or n_atoms.device != r.device)):
+        raise ValueError(f"refresh_halo: gid [{B}, {A}] and n_atoms [{B}] "
+                         f"int32, contiguous on {r.device}, go together")
+    if B * A >= 2 ** 31:
+        raise ValueError(f"refresh_halo: {B} cells of {A} slots do not fit "
+                         f"the kernel's 32-bit indices")
     if r.device.type == "cpu":
-        return refresh_halo_plain(geom, maps, r)
+        return refresh_halo_plain(geom, maps, r, gid, n_atoms)
     if n_halo == 0:
         return r
+    width = halo_width(A, r.element_size(),
+                       [t.data_ptr() for t in (r, gid) if t is not None])
+    per_row = A // width
+    rows = THREADS // min(per_row, THREADS)
+    blocks = -(-n_halo // rows)
+    if HALO_BLOCKS_PER_SM is not None:
+        blocks = min(blocks, HALO_BLOCKS_PER_SM * _sms(r.device))
     err = build().comd_refresh_halo(
-        r.element_size(), r.data_ptr(), src.data_ptr(), shift.data_ptr(),
-        n_halo, A, geom.n_local, B * A, _grid(n_halo * A, r.device),
-        _stream(r))
+        r.element_size(), width, r.data_ptr(),
+        None if gid is None else gid.data_ptr(),
+        None if n_atoms is None else n_atoms.data_ptr(), src.data_ptr(),
+        shift.data_ptr(), n_halo, A, geom.n_local, B, blocks, _stream(r))
     _launched(err, "refresh_halo")
     return r
+
+
+def halo_width(A: int, elem: int, ptrs) -> int:
+    """The slots a thread of refresh_halo takes: as many as fill a 16-byte
+    access of the ``elem``-byte positions (4 f32, 2 f64), when A is a
+    multiple of them and every pointer is 16-byte aligned; else 1."""
+    w = 16 // elem
+    if A % w == 0 and all(q % 16 == 0 for q in ptrs):
+        return w
+    return 1
 
 
 # --------------------------------------------------------------------------

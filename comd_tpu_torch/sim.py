@@ -15,12 +15,14 @@ The main path is the lazy-shell cell step: atoms are rebucketed only when
 one of them moved skin/2 since the last rebucket (the skin trigger);
 other steps refresh the ghost positions.  The neighbor-list methods (-m
 *_nl, -L) step the same way on Verlet lists, rebuilt (NL1) after each such
-rebucket and swept by NL2.  A step is a head (kick, drift, trigger), the
-rebucket or the ghost refresh as the trigger says (comd_tpu's lax.cond;
-on the card a conditional node of the step's graph), and the rest (force,
-kick), all in place on buffers the step owns; ``-S 0`` rebuckets every
-step.  The ops around the force (kick, drift, trigger, ghost refresh,
-pass 2, the landing) are the hand-written kernels of ops/cuda/step.py.
+rebucket and swept by NL2.  A step is a head (kick, drift, trigger, and
+serially the ghost refresh in the same launch), the rebucket where the
+trigger says (comd_tpu's lax.cond; on the card a conditional node of the
+step's graph; a mesh's ghost refresh is the other branch), and the rest
+(force, kick), all in place on buffers the step owns; ``-S 0`` rebuckets
+every step.  The ops around the force (kick, drift, trigger, ghost
+refresh, pass 2, the landing) are the hand-written kernels of
+ops/cuda/step.py.
 """
 from __future__ import annotations
 
@@ -148,13 +150,15 @@ class Physics:
         """A step constant rounded to the dynamics dtype."""
         return float(np.asarray(x, dtype=np.dtype(self.cfg.dtype)))
 
-    def _kick_drift(self, states, lasts=None, handles=()):
+    def _kick_drift(self, states, lasts=None, handles=(), images=None):
         """Half kick and drift of every shard, in place, and with the lazy
         baselines ``lasts`` ([3, B, A] a shard) the skin trigger or-ed over
         the shards, a 0-dim bool (ops/cuda/step.kick_drift_trigger: one
         launch a shard, each after the first or-ing its trigger into the
         flag; the last sets ``handles``, the step graph's IF nodes', from
-        the or).  Returns the flag, or None without ``lasts``."""
+        the or); with ``images`` (a single domain's ``maps.images``) the
+        ghost refresh in the same launch.  Returns the flag, or None
+        without ``lasts``."""
         kick = self._c(0.5 * self.cfg.dt)
         drift = self._c(self.cfg.dt * (1.0 / self.mass))
         lasts = [None] * len(states) if lasts is None else lasts
@@ -163,7 +167,8 @@ class Physics:
             flag = step_ops.kick_drift_trigger(
                 s.p, s.r, s.f, b, self.geom.n_local, kick, drift, self.skin,
                 flag, add=flag is not None,
-                handles=handles if i == len(states) - 1 else ())
+                handles=handles if i == len(states) - 1 else (),
+                images=images)
         return flag
 
     def _full_force(self, f_loc, like):
@@ -285,10 +290,10 @@ class Physics:
         ``_make_step_nl``; on a mesh ``_shard_step_lazy`` and
         ``_shard_step_nl``): the head, then the redistribution when some
         atom moved skin/2 since the last rebucket or build, else the ghost
-        refresh (``branch``: comd_tpu's lax.cond, on the condition the
-        head's trigger writes and, in a captured graph, sets), then the
-        rest."""
-        cond = branch.condition()
+        refresh where it is not the head's (``_refresh``; ``branch``:
+        comd_tpu's lax.cond, on the condition the head's trigger writes
+        and, in a captured graph, sets), then the rest."""
+        cond = branch.condition(1 if self._refresh is None else 2)
         self._head(cond)
         branch(cond, self._rebucket_step, self._refresh)
         self._rest(want_energy)
@@ -507,17 +512,19 @@ class Simulation(Physics):
                            passes=passes)[0]
 
     def _head(self, cond) -> None:
-        """The head of a lazy or list step, in place: half kick, drift and
-        the skin trigger (``cond.flag``, a 0-dim bool: some atom moved
-        skin/2 since the last rebucket or build; ``cond.handles`` set from
-        it), one launch."""
+        """The head of a lazy or list step, in place: half kick, drift, the
+        ghost refresh (the halo rows' positions from their drifted
+        sources: the cell layout and the list are those of the last
+        rebucket, which overwrites the halo when it runs) and the skin
+        trigger (``cond.flag``, a 0-dim bool: some atom moved skin/2 since
+        the last rebucket or build; ``cond.handles`` set from it), one
+        launch."""
         last = self.nlist.last_r if self.uses_nl else self.last_r
-        cond.flag = self._kick_drift([self.state], [last], cond.handles)
+        cond.flag = self._kick_drift([self.state], [last], cond.handles,
+                                     images=self.maps.images)
 
-    def _refresh(self) -> None:
-        """The ghost-position refresh of a step that does not rebucket (the
-        cell layout and the list frozen), one launch."""
-        step_ops.refresh_halo(self.geom, self.maps, self.state.r)
+    #: no false body: the head refreshes the ghosts
+    _refresh = None
 
     def _rest(self, want_energy: bool) -> None:
         """The rest of a step, in place: the force (over the list on the NL

@@ -10,18 +10,20 @@ each step is one CUDA graph, captured once a ``want_energy`` and replayed
 
   - a lazy or list step: the head (half kick, drift and the skin trigger,
     one ``kick_drift_trigger`` launch a shard, ops/cuda/step.py; on a
-    mesh each launch ors its shard's trigger into the flag), then two
-    conditional IF nodes on the trigger (``ops/cuda/graph_if.py``: the
-    step's ``Condition`` holds their handles, made in the captured graph
-    before the head, whose (last) trigger launch sets them, the first to
-    the trigger, the second to its negation; torch 2.11 has no
-    conditional node that Python reaches): if set,
-    the rebucket (sort, scatter, halo rebuild; on a mesh the atom
-    exchange and in-cell sort; on the list paths the rebuild NL1; the
-    new baseline; one more on a device rebucket counter), if clear, the
-    ghost refresh (under -a 1 on a mesh with the copy of the positions
-    the interior sweeps read); then the rest both branches share (the
-    force with its halo fill, the second half kick, the bookkeeping);
+    mesh each launch ors its shard's trigger into the flag; serially the
+    same launch writes the ghost images), then a conditional IF node a
+    body on the trigger (``ops/cuda/graph_if.py``: the step's
+    ``Condition`` holds their handles, made in the captured graph before
+    the head, whose (last) trigger launch sets them, the first to the
+    trigger, the second to its negation; torch 2.11 has no conditional
+    node that Python reaches): if set, the rebucket (sort, scatter, halo
+    rebuild; on a mesh the atom exchange and in-cell sort; on the list
+    paths the rebuild NL1; the new baseline; one more on a device
+    rebucket counter), and on a mesh, if clear, the position exchange
+    (under -a 1 with the copy of the positions the interior sweeps read;
+    serially the head has refreshed the ghosts: no second body); then
+    the rest both branches share (the force with its halo fill, the
+    second half kick, the bookkeeping);
   - a ``-S 0`` step (comd_tpu's ``_make_step`` and ``_shard_step``):
     drift, rebucket and rest, no condition; under -a 1 the interior
     sweeps' positions are selected on the device.
@@ -51,8 +53,9 @@ when they run, which a replay does not: each capture records the counts
 its step added (each conditional body's apart), takes them back (a
 capture launches nothing; the warm-up's launches are throwaway work,
 taken back too) and credits on every replay the common part and the
-refresh body; ``settle`` adds, for each rebucket of the block, the
-rebucket body's counts less the refresh body's.
+false body (a mesh's position exchange; none serially); ``settle``
+adds, for each rebucket of the block, the rebucket body's counts less
+the false body's.
 
 A capture or replay that fails raises: nothing steps eagerly in its
 place.  ``EagerSteps`` runs the same step functions as a Python loop of
@@ -100,28 +103,32 @@ def _delta(before: dict) -> dict:
 
 class Branch:
     """How a step takes its branch (comd_tpu's lax.cond): ``cond =
-    branch.condition()`` before the head, which writes the trigger into
-    ``cond.flag`` (and sets ``cond.handles``, if any, on the device), then
-    ``branch(cond, if_true, if_false)``.  Here no handles, and the branch
-    taken on the host from ``read(cond.flag)``."""
+    branch.condition(n)`` before the head, for ``n`` bodies (1: no false
+    body), which writes the trigger into ``cond.flag`` (and sets
+    ``cond.handles``, if any, on the device), then ``branch(cond,
+    if_true, if_false)`` (``if_false`` None with one body).  Here no
+    handles, and the branch taken on the host from ``read(cond.flag)``."""
 
     def __init__(self, read: Callable = bool):
         self.read = read
 
-    def condition(self) -> Condition:
+    def condition(self, n: int = 2) -> Condition:
         return Condition()
 
     def __call__(self, cond: Condition, if_true: Callable,
-                 if_false: Callable) -> None:
-        (if_true if self.read(cond.flag) else if_false)()
+                 if_false: Callable = None) -> None:
+        body = if_true if self.read(cond.flag) else if_false
+        if body is not None:
+            body()
 
 
 class _Both(Branch):
     """Both bodies taken (the warm-up before a capture)."""
 
-    def __call__(self, cond, if_true, if_false) -> None:
+    def __call__(self, cond, if_true, if_false=None) -> None:
         if_true()
-        if_false()
+        if if_false is not None:
+            if_false()
 
 
 _both = _Both()
@@ -135,12 +142,13 @@ class _Nodes(Branch):
     def __init__(self, device, pool, wrap: Callable):
         self.device, self.pool, self.wrap = device, pool, wrap
 
-    def condition(self) -> Condition:
-        return condition(self.device)
+    def condition(self, n: int = 2) -> Condition:
+        return condition(self.device, n)
 
-    def __call__(self, cond, if_true, if_false) -> None:
+    def __call__(self, cond, if_true, if_false=None) -> None:
         for k, body in enumerate((if_true, if_false)):
-            if_node(cond, k, self.wrap(body), self.pool)
+            if body is not None:
+                if_node(cond, k, self.wrap(body), self.pool)
 
 
 class EagerSteps:
@@ -242,10 +250,10 @@ class GraphSteps:
                                                 self.pool)
         added = _delta(before)
         LAUNCHES.update(before)      # a capture launches nothing
-        if bodies:                   # one condition: (if set, if clear)
-            if_true, if_false = bodies[:2]
+        if bodies:                   # one condition: (if set[, if clear])
+            if_true, if_false = bodies[0], dict(*bodies[1:2])
             for k, v in if_true.items():
-                added[k] -= v        # the refresh body stays in a replay
+                added[k] -= v        # the false body stays in a replay
             taken = {k: if_true.get(k, 0) - if_false.get(k, 0)
                      for k in set(if_true) | set(if_false)}
             self.taken = {k: v for k, v in taken.items() if v}

@@ -15,10 +15,12 @@ Phases (reference enum names), each the code the step runs:
                 landing and atom count: one ``land`` launch a shard
   position      the drift (timestep.c:122-133) with the first half kick
                 and the skin trigger: one ``kick_drift_trigger`` launch a
-                shard (ops/cuda/step.py)
+                shard (ops/cuda/step.py), serially on the lazy and list
+                steps with the ghost refresh it writes
   redistribute  rebucket sort + scatter + halo rebuild (+ the atom
                 exchange and in-cell sort on a mesh)
-  atomHalo      ghost position refresh alone
+  atomHalo      ghost position refresh alone (serially the positions of
+                the ``refresh_halo`` fill)
   force         full force evaluation (includes the in-force eamHalo)
   eamHalo       the dfEmbed halo fill alone (EAM only)
   neighborList  Verlet list build (NL methods only)
@@ -63,8 +65,11 @@ def _phase_fns(sim):
         sim._land(st, landed, want_energy=False)
         return st
 
+    # serial lazy and list steps refresh the ghosts in the head's launch
+    images = maps.images if lasts is not None and not sharded else None
+
     def position(st):
-        sim._kick_drift(st, lasts)
+        sim._kick_drift(st, lasts, images=images)
         return st
 
     fns["velocity"] = velocity

@@ -30,8 +30,9 @@ kernel (K1/K2, the halo and list kernels, and the step's
 kick_drift_trigger, refresh_halo, embed_fill and land), the gap in the
 trace from the end of a step's last kick_drift_trigger to the start of
 its force's first pair kernel (median, least and largest over the
-profiled steps: the median is a ghost-refresh step's, where the branch
-and the refresh sit), the graphs' capture and instantiation seconds, and
+profiled steps: the median is a step's that does not rebucket, where
+the branch sits and, on a mesh, the position exchange), the graphs'
+capture and instantiation seconds, and
 one redistribution run eagerly (host ms to enqueue it, ms to its end,
 device ms, device operations).
 Needs a CUDA device; prints the card's name and power limit beside the

@@ -13,23 +13,32 @@ graphs (CUDA events around replays; ms a launch):
                      main path's call, 99 steps of 100)
   embed_fill energy  with U, serial fill;  embed_fill zero halo: no fill
   embed_fill A=15    one slot fewer a row (A = 16: the one-slot form)
-  kick_drift_trigger the head's launch, no handles
+  kick_drift_trigger the trigger's launch, no handles, no images
+  head               the serial step's head with its ghost refresh: the
+                     trigger with the image map (one launch), or on a
+                     tree without it the trigger and refresh_halo
   mesh head          the 2x2x2 mesh's head on eight shard-sized copies
                      (21^3 local cells of 23^3): eight trigger launches
                      and the or of their flags (the parent tree's
                      torch.stack and any, or each launch after the first
                      or-ing into the flag)
-  refresh_halo       the ghost refresh (unchanged: a control)
-  branch             one replay of a graph of the head's launch and the
-                     step's two IF nodes (one-kernel bodies): the trigger
-                     and whatever sets the IF handles (the parent tree's
-                     two set_condition launches, or the trigger itself)
+  refresh_halo       the ghost refresh of the positions alone
+  halo fill          binning.fill_halo_serial: r, gid and n_atoms (one
+                     launch, or refresh_halo and two index copies)
+  branch             one replay of a graph of the serial step's head and
+                     its IF nodes (the rebucket's body one small kernel):
+                     the trigger with the images and one IF node, or on a
+                     tree without them the trigger, the rebucket's node
+                     and the refresh's (refresh_halo its body)
 
 and, where the tree has them (ops/cuda/step.py's EMBED_BLOCKS_PER_SM
 and embed_width), embed_fill's launch forms, with and without energy,
 the median of 3 rounds taken in turn: one vector a thread, and grids of
 2, 4 and 8 blocks an SM with a grid-stride loop; one slot a thread and
-4 (U's f64 in two 16-byte stores).  The
+4 (U's f64 in two 16-byte stores); likewise, where the tree has
+HALO_BLOCKS_PER_SM and halo_width, the halo fill's: a block to every
+64 rows (one vector a thread), grids of 1, 2, 4 and 8 blocks an SM,
+and one slot a thread.  The
 workers run in the order given and then in reverse (give the parent and
 this tree: parent, change, change, parent).  Prints the card's name and
 power limit, one JSON line a worker, then one JSON line of each tree's
@@ -59,37 +68,55 @@ def graph_ms(torch, fn, calls: int = CALLS, reps: int = REPS) -> float:
     return time_ms(graph.replay, reps) / calls
 
 
+def has_images(step) -> bool:
+    """The tree's trigger writes the serial ghost images."""
+    return "images" in inspect.signature(step.kick_drift_trigger).parameters
+
+
 def branch_ms(torch, sim, p, r, f, last, reps: int = 200) -> float:
-    """ms a replay of a graph of the head's trigger launch and the two IF
-    nodes (bodies: one small kernel each), built with this tree's
-    graph_if API."""
+    """ms a replay of a graph of the serial step's head and IF nodes (the
+    rebucket's body one small kernel), built with this tree's graph_if
+    API: the trigger with the images and one node, or the trigger, the
+    rebucket's node and the refresh's (refresh_halo its body)."""
     from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.ops.cuda import step
     from comd_tpu_torch.probes import time_ms
     from comd_tpu_torch.stepgraph import cuda_capture
-    nl, skin = sim.geom.n_local, sim.skin
+    geom, maps, nl, skin = sim.geom, sim.maps, sim.geom.n_local, sim.skin
     kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
-    hits = torch.zeros(2, dtype=torch.int32, device="cuda")
+    hits = torch.zeros(1, dtype=torch.int32, device="cuda")
     bodies = graph_if.BodyPool("cuda")
     handles = hasattr(graph_if, "condition")
+    fused = has_images(step)
+
+    def rebucket():
+        hits.add_(1)
+
+    def refresh():
+        step.refresh_halo(geom, maps, r)
 
     def fn():
-        if handles:
+        if fused:
+            cond = graph_if.condition("cuda", 1)
+            cond.flag = step.kick_drift_trigger(
+                p, r, f, last, nl, kick, drift, skin,
+                handles=cond.handles, images=maps.images)
+            graph_if.if_node(cond, 0, rebucket, bodies)
+        elif handles:
             cond = graph_if.condition("cuda")
             cond.flag = step.kick_drift_trigger(
                 p, r, f, last, nl, kick, drift, skin,
                 handles=cond.handles)
-            for k in (0, 1):
-                graph_if.if_node(cond, k, lambda k=k: hits[k].add_(1),
-                                 bodies)
+            for k, body in enumerate((rebucket, refresh)):
+                graph_if.if_node(cond, k, body, bodies)
         else:
             flag = step.kick_drift_trigger(p, r, f, last, nl, kick, drift,
                                            skin)
-            for k in (0, 1):
-                graph_if.if_node(flag, lambda k=k: hits[k].add_(1), bool(k),
-                                 bodies)
+            for k, body in enumerate((rebucket, refresh)):
+                graph_if.if_node(flag, body, bool(k), bodies)
 
     step.kick_drift_trigger(p, r, f, last, nl, kick, drift, skin)
+    refresh()
     graph = cuda_capture(fn, torch.cuda.graph_pool_handle())[0]
     return time_ms(graph.replay, reps)
 
@@ -120,11 +147,33 @@ def embed_forms(torch, step, embed, rounds: int = 3) -> dict:
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
+def halo_forms(torch, step, fill, rounds: int = 3) -> dict:
+    """The halo fill's launch forms, each timed once a round over
+    ``rounds`` rounds in turn (the median): the grid (a block to every
+    256 / (A / width) rows, or 1, 2, 4, 8 blocks an SM) at the wrapper's
+    width, and one slot a thread at its grid."""
+    width, grid = step.halo_width, step.HALO_BLOCKS_PER_SM
+    forms = {("a block to every 256 threads' rows" if n is None
+              else f"{n} blocks/SM"): (n, width) for n in (None, 1, 2, 4, 8)}
+    forms["one slot a thread"] = (grid, lambda *a: 1)
+    times = {}
+    try:
+        for _ in range(rounds):
+            for form, (n, w) in forms.items():
+                step.HALO_BLOCKS_PER_SM, step.halo_width = n, w
+                times.setdefault("halo fill " + form, []).append(
+                    graph_ms(torch, fill))
+    finally:
+        step.HALO_BLOCKS_PER_SM, step.halo_width = grid, width
+    return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+
+
 def worker(tree: str) -> dict:
     """{case: ms} of ``tree``'s kernels at the headline state."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops import binning
     from comd_tpu_torch.ops.cuda import stencil as st
     from comd_tpu_torch.ops.cuda import step
     sim = init_simulation(Config(
@@ -143,8 +192,22 @@ def worker(tree: str) -> dict:
 
     kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
     p, r = s.p.clone(), s.r.clone()
+    gid, n_atoms = s.gid.clone(), s.n_atoms.clone()
     last = s.r.clone()
     last[:, :nl] += 1e-2
+
+    def head():
+        if has_images(step):
+            return step.kick_drift_trigger(p, r, s.f, last, nl, kick, drift,
+                                           sim.skin, images=maps.images)
+        flag = step.kick_drift_trigger(p, r, s.f, last, nl, kick, drift,
+                                       sim.skin)
+        step.refresh_halo(sim.geom, maps, r)
+        return flag
+
+    def fill():
+        binning.fill_halo_serial(sim.geom, maps, r, gid, n_atoms)
+
     cases = {
         "embed_fill": embed(),
         "embed_fill energy": embed(energy=True),
@@ -152,7 +215,9 @@ def worker(tree: str) -> dict:
         f"embed_fill A={A - 1}": embed(rh=rho_1, ph=phi_1),
         "kick_drift_trigger": lambda: step.kick_drift_trigger(
             p, r, s.f, last, nl, kick, drift, sim.skin),
+        "head": head,
         "refresh_halo": lambda: step.refresh_halo(sim.geom, maps, r),
+        "halo fill": fill,
     }
     # eight shards of the 2x2x2 mesh: 23^3 cells, the first 21^3 local
     b_s, nl_s = 23 ** 3, 21 ** 3
@@ -177,6 +242,8 @@ def worker(tree: str) -> dict:
     out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM"):
         out.update(embed_forms(torch, step, embed))
+    if hasattr(step, "HALO_BLOCKS_PER_SM"):
+        out.update(halo_forms(torch, step, fill))
     return out
 
 

@@ -26,7 +26,9 @@ the eager loop's state bit for bit, serial (K1, NL2) and on a 2x2x2 mesh
 in one process, lazy (the rebucket a conditional node) and -S 0, with
 one host sync a lazy block (the rebucket counter) and none on -S 0; the
 trigger kernel sets the IF nodes' handles so that each body runs when
-the trigger says, serially and or-ed over eight shards.
+the trigger says, serially and or-ed over eight shards, and with the
+serial image map writes the ghost images bit for bit as the plain head
+does, in a graph with the one handle of the serial step too.
 """
 import dataclasses
 import os
@@ -1210,8 +1212,10 @@ def _step_ops_cases(sim):
     its plain version) and returns the tensors it wrote.  kick_drift_trigger
     on the state and at the threshold (one slot displaced by exactly
     (skin/2)^2 in the dtype, for the run's skin and for 0.45 A),
-    refresh_halo, embed_fill with and without energy, serial and zero
-    halo, land with one and two force passes."""
+    with the serial image map (also at an odd number of slots a row),
+    refresh_halo (the positions alone, and the whole fill with gid and
+    n_atoms, also at an odd number of slots), embed_fill with and without
+    energy, serial and zero halo, land with one and two force passes."""
     from comd_tpu_torch.ops.cuda import step
     s, nl = sim.state, sim.geom.n_local
     kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
@@ -1242,9 +1246,18 @@ def _step_ops_cases(sim):
     phi = s.r[1, :nl].contiguous()
     f1, f3 = s.r[:, :nl].contiguous(), s.p[:, :nl].contiguous()
 
-    def kdt(fn, p, r, f, lst, skin=skin):
+    def kdt(fn, p, r, f, lst, skin=skin, images=None):
         p, r = p.clone(), r.clone()
-        return (p, r, fn(p, r, f, lst, nl, kick, drift, skin))
+        return (p, r, fn(p, r, f, lst, nl, kick, drift, skin,
+                         images=images))
+
+    def cut(x):
+        """x [..., A] cut to A - 1 slots (odd where A is even)."""
+        return x[..., :x.shape[-1] - 1].contiguous()
+
+    def fill(fn, r, gid, n):
+        r, gid, n = r.clone(), gid.clone(), n.clone()
+        return (fn(sim.geom, sim.maps, r, gid, n), gid, n)
 
     def land(fn, two):
         f, p, n = s.f.clone(), s.p.clone(), s.n_local.clone()
@@ -1259,8 +1272,18 @@ def _step_ops_cases(sim):
              ("kick_drift_trigger at the rounded-up threshold",
               lambda fn, t=at_threshold(0.45): kdt(fn, zero, t[0], zero,
                                                    t[1], 0.45)),
+             ("kick_drift_trigger images",
+              lambda fn: kdt(fn, s.p, s.r, s.f, last,
+                             images=sim.maps.images)),
+             ("kick_drift_trigger images odd A",
+              lambda fn: kdt(fn, cut(s.p), cut(s.r), cut(s.f), cut(last),
+                             images=sim.maps.images)),
              ("refresh_halo",
-              lambda fn: (fn(sim.geom, sim.maps, s.r.clone()),))]
+              lambda fn: (fn(sim.geom, sim.maps, s.r.clone()),)),
+             ("refresh_halo fill", lambda fn: fill(fn, s.r, s.gid,
+                                                   s.n_atoms)),
+             ("refresh_halo fill odd A",
+              lambda fn: fill(fn, cut(s.r), cut(s.gid), s.n_atoms))]
     # an odd number of slots a row: embed_fill's one-slot form
     odd = rho.shape[1] - 1 - rho.shape[1] % 2
     rho_1, phi_1 = rho[:, :odd].contiguous(), phi[:, :odd].contiguous()
@@ -1303,3 +1326,45 @@ def test_step_kernels_match_plain(cuda_device, dtype, impl):
     for name, call in cases:
         if name.startswith("kick_drift_trigger at"):
             assert not bool(call(step.kick_drift_trigger)[2]), name
+
+
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_trigger_images_in_a_graph_match_plain(cuda_device, dtype, impl):
+    """The serial step's head as its graph holds it: one condition of one
+    handle, the trigger launch with the image map setting it, one IF node;
+    one replay writes p, r (every halo row) and the flag as the plain
+    head does, bit for bit, and the body runs as the flag says."""
+    from comd_tpu_torch.ops.cuda import graph_if
+    from comd_tpu_torch.stepgraph import cuda_capture
+    sim = _sim(dtype, impl, 10, "cuda")
+    s, nl = sim.state, sim.geom.n_local
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    box = int(torch.nonzero(s.n_atoms[:nl])[0])     # an occupied cell
+    for moved in (0.0, sim.skin):
+        last = s.r.clone()
+        last[0, box, 0] += moved
+        p, r = s.p.clone(), s.r.clone()
+        hit = torch.zeros((), dtype=torch.int32, device=cuda_device)
+        bodies = graph_if.BodyPool(cuda_device)
+        out = {}
+
+        def head():
+            cond = graph_if.condition(cuda_device, 1)
+            assert len(cond.handles) == 1
+            out["flag"] = cond.flag = step_ops.kick_drift_trigger(
+                p, r, s.f, last, nl, kick, drift, sim.skin,
+                handles=cond.handles, images=sim.maps.images)
+            graph_if.if_node(cond, 0, lambda: hit.add_(1), bodies)
+
+        graph = cuda_capture(head, torch.cuda.graph_pool_handle())[0]
+        graph.replay()
+        torch.cuda.synchronize()
+        pp, rp = s.p.clone(), s.r.clone()
+        want = step_ops.kick_drift_trigger_plain(
+            pp, rp, s.f, last, nl, kick, drift, sim.skin,
+            images=sim.maps.images)
+        assert torch.equal(p, pp) and torch.equal(r, rp)
+        assert bool(out["flag"]) == bool(want) == (moved > 0)
+        assert int(hit) == int(bool(want))
+        del graph

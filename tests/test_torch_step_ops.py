@@ -9,8 +9,13 @@ on a 5^3 box's cell layout (B = 343 cells, 125 local, A = 16):
     states displaced exactly at, one ulp under and one ulp over (skin/2)^2
     (in the dynamics dtype, where comd_tpu compares); with ``add`` over
     eight shards, the or of comd_tpu's needs_rebuild over them (its
-    sharded step's ``any`` over the mesh);
-  - refresh_halo: the ghost refresh of comd_tpu/sim.py:353-358;
+    sharded step's ``any`` over the mesh); with the serial image map
+    (binning.ImageMap: the inverse of halo_src, checked on 6^3 and 7x5x4
+    grids) the kick and drift followed by comd_tpu's ghost refresh
+    (comd_tpu/sim.py:353-358), r and p bit for bit in every slot, also at
+    an odd number of slots a row;
+  - refresh_halo: the ghost refresh of comd_tpu/sim.py:353-358, and with
+    gid and n_atoms comd_tpu.ops.binning.fill_halo_serial bit for bit;
   - embed_fill: comd_tpu.potentials.tables.interpolate on the F table,
     the placement and serial halo fill of comd_tpu/ops/force_eam.py:
     371-380 and binning.fill_halo_scalar_serial, and finalize_eam_energy's
@@ -21,8 +26,8 @@ Tolerances: f32 1 ulp, f64 1e-15 relative (comd_tpu's XLA may contract
 a*b + c into an FMA; the port rounds every operation, as PyTorch does);
 the trigger's decisions, the halo rows' copies and the atom counts equal.
 Then the slice: 20 lazy EAM steps of the port (which runs the four ops
-through their wrappers, counted here) against comd_tpu's step_block from
-one state, at tests/test_torch_trajectory.py's bounds (f64 rows: r and p
+through their wrappers, counted here: refresh_halo only in the
+rebuckets' halo fills) against comd_tpu's step_block from one state, at tests/test_torch_trajectory.py's bounds (f64 rows: r and p
 within 1e-8, gid and counts equal, ePot within 1e-10 relative; a rebucket
 inside the run).
 """
@@ -41,8 +46,9 @@ from comd_tpu.potentials import tables as jtables
 from comd_tpu.potentials.eam import init_eam_pot as j_eam_pot
 
 from comd_tpu_torch import Config, init_simulation
+from comd_tpu_torch.cells import make_geometry
 from comd_tpu_torch.interop import FIELDS, state_from_numpy
-from comd_tpu_torch.ops import force_eam
+from comd_tpu_torch.ops import binning, force_eam
 from comd_tpu_torch.ops.cuda import step
 from comd_tpu_torch.potentials.eam import init_eam_pot as t_eam_pot
 
@@ -243,6 +249,122 @@ def f_tables():
         tpot, getattr(torch, dtype), "cpu")) for dtype in DTYPES}
 
 
+@pytest.mark.parametrize("grid,hilbert", [((6, 6, 6), False),
+                                          ((7, 5, 4), False),
+                                          ((8, 8, 8), True)])
+def test_image_map_inverts_halo_src(grid, hilbert):
+    """The serial image map lists every halo row once, under its source
+    cell (halo_src), with that row's shift; a cell on one face of the
+    grid has one image, on an edge three, at a corner seven, and an
+    inner cell none."""
+    geom = make_geometry(np.zeros(3), np.asarray(grid, np.float64), 1.0,
+                         use_hilbert=hilbert)
+    assert geom.grid == grid
+    maps = binning.geom_maps(geom, torch.float64, "cpu")
+    img = maps.images
+    nl, n_halo = geom.n_local, geom.n_halo
+    start, row = img.start.numpy(), img.row.numpy()
+    assert img.start.dtype == img.row.dtype == torch.int32
+    assert img.n_local == nl and start[0] == 0 and start[-1] == n_halo
+    assert np.all(np.diff(start) >= 0)
+    np.testing.assert_array_equal(np.sort(row), nl + np.arange(n_halo))
+    cell = np.repeat(np.arange(nl), np.diff(start))
+    np.testing.assert_array_equal(geom.halo_src[row - nl], cell)
+    np.testing.assert_array_equal(img.shift.numpy(),
+                                  geom.halo_shift[row - nl])
+    t = geom.tuple_of_box[:nl]
+    sides = ((t == 0) | (t == np.asarray(grid) - 1)).sum(axis=1)
+    np.testing.assert_array_equal(np.diff(start), 2 ** sides - 1)
+    assert np.diff(start).max() == 7
+
+
+def _head_case(tsim, dtype, odd, seed):
+    """Fields [3, B, A] (A - 1 slots a row with ``odd``) and a baseline a
+    little off r, numpy-seeded."""
+    B, A = tsim.state.r.shape[1:]
+    shape = (3, B, A - 1 if odd else A)
+    p, f, r = _fields(shape, dtype, seed)
+    f *= 1e-2
+    rng = np.random.default_rng(seed + 1)
+    last = (r + 1e-2 * rng.standard_normal(shape)).astype(dtype)
+    return p, f, r, last
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("odd", [False, True], ids=["A", "odd_A"])
+def test_fused_head_matches_comd_tpu_refresh(geoms, dtype, odd):
+    """kick_drift_trigger with the image map: comd_tpu's half kick and
+    drift (comd_tpu/sim.py:367-370), then its ghost refresh (the lazy
+    step's ``refresh``, :353-358), r and p bit for bit in every slot; the
+    trigger as comd_tpu's needs_rebuild, and as without the images."""
+    jsim, tsim = geoms(dtype)
+    geom, nl = jsim.geom, jsim.geom.n_local
+    p, f, r, last = _head_case(tsim, dtype, odd, 40)
+    kick, drift = _c(0.5 * DT, dtype), _c(DT * (1.0 / MASS), dtype)
+    pj = jnp.asarray(p) + jnp.asarray(p).dtype.type(0.5 * DT) * \
+        jnp.asarray(f)
+    rj = jnp.asarray(r) + pj * pj.dtype.type(DT * (1.0 / MASS))
+    src = jnp.asarray(geom.halo_src)
+    shift = jnp.asarray(geom.halo_shift, dtype=rj.dtype)
+    dirty = jnl.needs_rebuild(jnp.asarray(last), rj, nl, SKIN)
+    rj = rj.at[:, nl:].set(rj[:, src] + shift.T[:, :, None])
+    pt, rt = torch.from_numpy(p.copy()), torch.from_numpy(r.copy())
+    flag = step.kick_drift_trigger(pt, rt, torch.from_numpy(f),
+                                   torch.from_numpy(last), nl, kick, drift,
+                                   SKIN, images=tsim.maps.images)
+    np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    assert bool(flag) == bool(dirty)
+    # the same bits as the head without images, then the refresh
+    p2, r2 = torch.from_numpy(p.copy()), torch.from_numpy(r.copy())
+    flag2 = step.kick_drift_trigger(p2, r2, torch.from_numpy(f),
+                                    torch.from_numpy(last), nl, kick, drift,
+                                    SKIN)
+    step.refresh_halo(tsim.geom, tsim.maps, r2)
+    assert torch.equal(p2, pt) and torch.equal(r2, rt)
+    assert bool(flag2) == bool(flag)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("odd", [False, True], ids=["A", "odd_A"])
+def test_halo_fill_matches_comd_tpu(geoms, dtype, odd):
+    """refresh_halo with gid and n_atoms, and binning.fill_halo_serial
+    through it: comd_tpu.ops.binning.fill_halo_serial's r, gid and n_atoms
+    bit for bit; the local rows untouched."""
+    jsim, tsim = geoms(dtype)
+    geom, nl = jsim.geom, jsim.geom.n_local
+    B, A = tsim.state.r.shape[1:]
+    a = A - 1 if odd else A
+    (r,) = _fields((3, B, a), dtype, 41, n=1)
+    rng = np.random.default_rng(42)
+    gid = rng.integers(0, 2 ** 31 - 1, (B, a)).astype(np.int32)
+    n_atoms = rng.integers(0, a + 1, B).astype(np.int32)
+    rj, gj, nj = jbin.fill_halo_serial(geom, jnp.asarray(r),
+                                       jnp.asarray(gid),
+                                       jnp.asarray(n_atoms))
+    rt, gt, nt = (torch.from_numpy(x.copy()) for x in (r, gid, n_atoms))
+    assert step.refresh_halo(tsim.geom, tsim.maps, rt, gt, nt) is rt
+    for got, want in ((rt, rj), (gt, gj), (nt, nj)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(rt.numpy()[:, :nl], r[:, :nl])
+    rb, gb, nb = binning.fill_halo_serial(
+        tsim.geom, tsim.maps, *(torch.from_numpy(x.copy())
+                                for x in (r, gid, n_atoms)))
+    assert torch.equal(rb, rt) and torch.equal(gb, gt) and \
+        torch.equal(nb, nt)
+
+
+@pytest.mark.parametrize("elem,A,ptrs,want", [
+    (4, 16, [0, 4096], 4), (8, 16, [0, 4096], 2), (4, 15, [0], 1),
+    (8, 15, [0], 1), (4, 18, [0], 1), (8, 18, [0], 2), (4, 32, [0, 8], 1),
+    (8, 16, [16, 4104], 1)])
+def test_halo_fill_vector_width_by_shape(elem, A, ptrs, want):
+    """refresh_halo's thread takes the slots whose positions fill a
+    16-byte access (4 f32, 2 f64) when A is a multiple of them and r and
+    gid are 16-byte aligned, else one slot."""
+    assert step.halo_width(A, elem, ptrs) == want
+
+
 def _density(tab, shape, dtype, seed):
     """rhobar over F's table and past both ends (clamped, and frac = 0
     past the last entry), some slots on grid points."""
@@ -361,6 +483,18 @@ def test_wrappers_check_their_operands(geoms):
                         s.r.shape[1], tsim.maps.halo_src[1:])
     with pytest.raises(ValueError):
         step.refresh_halo(tsim.geom, tsim.maps, s.r[:, :, :A - 1])
+    with pytest.raises(ValueError):     # gid without n_atoms
+        step.refresh_halo(tsim.geom, tsim.maps, s.r.clone(), s.gid.clone())
+    with pytest.raises(ValueError):     # int64 counts
+        step.refresh_halo(tsim.geom, tsim.maps, s.r.clone(), s.gid.clone(),
+                          s.n_atoms.long())
+    with pytest.raises(ValueError):     # the images of another n_local
+        step.kick_drift_trigger(s.p.clone(), s.r.clone(), s.f, None, nl - 1,
+                                0.5, 0.1, images=tsim.maps.images)
+    with pytest.raises(ValueError):     # f64 images for f32 positions
+        other = binning.geom_maps(tsim.geom, torch.float64, "cpu").images
+        step.kick_drift_trigger(s.p.clone(), s.r.clone(), s.f, None, nl,
+                                0.5, 0.1, images=other)
 
 
 @pytest.mark.parametrize("elem,e_elem,A,ptrs,want", [
@@ -390,9 +524,9 @@ def test_embed_fill_refuses_64_bit_indices(geoms):
 
 def test_lazy_steps_through_the_step_ops_match_comd_tpu(monkeypatch):
     """20 lazy EAM steps (f64, exact tables) from one comd_tpu state: each
-    step runs kick_drift_trigger, embed_fill and land once and
-    refresh_halo once (the ghost refresh, or inside the rebucket's halo
-    fill); the state ends where comd_tpu's does."""
+    step runs kick_drift_trigger (with the ghost refresh), embed_fill and
+    land once, and refresh_halo runs once a rebucket (its halo fill);
+    the state ends where comd_tpu's does."""
     kw = dict(nx=6, ny=6, nz=6, doeam=True, temperature=1200.0,
               dtype="float64", interp_impl="rows", pot_dir=POTS)
     jsim = j_init(JConfig(**kw))
@@ -412,8 +546,9 @@ def test_lazy_steps_through_the_step_ops_match_comd_tpu(monkeypatch):
     jsim.step_block(20)
     tsim.step_block(20)
     assert tsim.uses_lazy and 1 <= tsim.n_rebucket < 20
-    assert calls == dict(kick_drift_trigger=20, refresh_halo=20,
-                         embed_fill=20, land=20)
+    assert calls == dict(kick_drift_trigger=20,
+                         refresh_halo=tsim.n_rebucket, embed_fill=20,
+                         land=20)
     js, ts = jsim.state, tsim.state
     np.testing.assert_array_equal(ts.gid.numpy(), np.asarray(js.gid))
     np.testing.assert_array_equal(ts.n_atoms.numpy(), np.asarray(js.n_atoms))
