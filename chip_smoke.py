@@ -11,8 +11,9 @@ the first error:
                  csrc/graph_if.cu) and the call that routes an IF body's
                  allocations into a private pool (phase 18 needs it)
   2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
-                 probe.cu, nl.cu, graph_if.cu, step.cu) with nvcc, one
-                 process each, in parallel; prints registers and spill
+                 probe.cu, nl.cu, graph_if.cu, step.cu, rebucket.cu)
+                 with nvcc, one process each, in parallel; prints
+                 registers and spill
                  stores (stencil.cu's and nl.cu's pair kernels by variant)
                  and fails if an f32 pair kernel of a main path spills
   3. kernel   -- K1 against its plain PyTorch version on the same CUDA
@@ -28,7 +29,8 @@ the first error:
                  (kick_drift_trigger, with the ghost refresh; land), 101
                  (embed_fill: the initial force too) and 1 + the
                  rebuckets (refresh_halo: the rebucket's halo fill and
-                 the initial one), then
+                 the initial one), csrc/rebucket.cu's bin and place
+                 launches once a rebucket, then
                  times each pass against its plain version at that shape
                  and checks that two launches of K1 pass 1 (with and
                  without energy) and pass 3 give the same bits.
@@ -225,7 +227,9 @@ the first error:
                  IF nodes a graph (serial lazy and list steps one, the
                  rebucket's: the trigger launch refreshes the ghosts; the
                  mesh two; -S 0 none), serially refresh_halo launched
-                 once a rebucket and never else, host syncs outside
+                 once a rebucket and never else, rebucket_bin and
+                 rebucket_place once a rebucket a shard (the eager
+                 loop's launches and the graphs' credits), host syncs outside
                  captures exactly one a lazy block (the
                  rebucket counter's read at its end) and none on -S 0,
                  the rebucket counts equal, the graphs' capture and
@@ -250,9 +254,26 @@ the first error:
                  an energy step) from one state through the kernels and
                  through the plain versions, a refresh step and a rebucket
                  step, at both states: r, p, f, triggers, n_local and ePot
-                 equal bit for bit; each kernel timed at 63^3 (CUDA
-                 events, mean of 20) beside its plain version and its
-                 bound (bytes).
+                 equal bit for bit (the rebucket in place on its kernels
+                 and on its plain version); each kernel timed at 63^3
+                 (CUDA events, mean of 20) beside its plain version and
+                 its bound (bytes).  Then the redistribution
+                 (csrc/rebucket.cu's rebucket_bin and rebucket_place)
+                 against rebucket_plain on the same CUDA tensors, bit for
+                 bit, and the in-place serial body against its plain
+                 version: the 63^3 f32 and 10^3 f64 states displaced by
+                 up to 1 A across cell faces and the periodic boundary
+                 (ten atoms on its faces or just across), halo landers
+                 folded back under a wrap extent past a domain (f32,
+                 f64), a shard of the 2x2x2 mesh (10^3 f64, keep_halo,
+                 atoms leaving it), a Hilbert-numbered 8^3 grid, A = 13
+                 and A = 40, a cell of A < n <= C atoms (exact, the flag
+                 set) and one of n > C (the counts, n_migrating and the
+                 flag equal; that cell's layout may differ); the serial
+                 body (rebucket_into and the halo fill) at 63^3 timed
+                 (CUDA events, mean of 20; each kernel's launch under
+                 torch.profiler) beside its plain version and the byte
+                 bounds.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
@@ -260,7 +281,7 @@ read just after; every one-process lazy and list path (phases 5, 8, 9,
 launches each graph's capture recorded (a rebucket body's once a
 rebucket, from the device's rebucket counter read at a block's end).
 Imports torch, numpy and comd_tpu_torch only; builds everything from this
-checkout (the six sources with one nvcc each, in parallel).
+checkout (the seven sources with one nvcc each, in parallel).
 """
 from __future__ import annotations
 
@@ -309,7 +330,14 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
                             "comd_tpu/ops/binning.py:235-248",
             "embed_fill": "no Pallas site: XLA fusion of "
                           "comd_tpu/ops/force_eam.py:371-380, :603",
-            "land": "no Pallas site: XLA fusion of comd_tpu/sim.py:380-383"}
+            "land": "no Pallas site: XLA fusion of comd_tpu/sim.py:380-383",
+            # no Pallas site: comd_tpu's rebucket is one XLA fusion
+            "rebucket_bin": "no Pallas site: XLA fusion of "
+                            "comd_tpu/ops/binning.py:91-172 (the wrap, "
+                            "bin and fold)",
+            "rebucket_place": "no Pallas site: XLA fusion of "
+                              "comd_tpu/ops/binning.py:91-172 (the sort "
+                              "and scatter)"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -2352,6 +2380,15 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
     got = g["launches"].get("refresh_halo", 0)
     check(got == want, f"{tag}: refresh_halo launched {got} times in the "
           f"timed steps, not {want} ({g['rebuckets']} rebuckets)")
+    for mode, m in (("eager", e), ("graphs", g)):
+        # the rebucket body's two launches, credited once a rebucket a
+        # shard (a graph's from the device counter, at a block's end)
+        want = m["rebuckets"] * m["shards"]
+        got = {k: m["launches"].get(k, 0) for k in REBUCKET_KEYS}
+        check(got == {k: want for k in REBUCKET_KEYS},
+              f"{tag} {mode}: rebucket kernels launched {got} in the timed "
+              f"steps, not {want} each ({m['rebuckets']} rebuckets, "
+              f"{m['shards']} shard(s))")
     return out
 
 
@@ -2406,6 +2443,7 @@ def _graph_or_eager(tag: str, mode: str, n: int, dtype: str, blocks: int,
                      / sim.n_global)
     res["n_rebucket"] = sim.n_rebucket
     res["mesh"] = hasattr(sim, "states")
+    res["shards"] = len(states)
     res["captures_all"] = g.captures if g else 0
     check(sim.sum_atoms() == sim.n_global and not sim.overflow,
           f"{tag} {mode}: atoms lost or overflow")
@@ -2434,7 +2472,9 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
         f"{e['rebuckets']}, {g['rebuckets']} in the timed steps, "
         f"{e['n_rebucket']} in all (equal); {g['if_nodes']:.0f} IF "
         f"node(s) a graph; refresh_halo "
-        f"{g['launches'].get('refresh_halo', 0)} in the timed steps")
+        f"{g['launches'].get('refresh_halo', 0)}, rebucket_bin and "
+        f"rebucket_place {g['launches'].get('rebucket_bin', 0)} in the "
+        f"timed steps (one a rebucket a shard)")
     for mode, m in (("eager", e), ("graphs", g)):
         sy = m["syncs"]
         say("graphs", f"{tag} {mode}: host syncs in step_block in "
@@ -2789,11 +2829,13 @@ def check_step_ops(sim, tag: str) -> dict:
 def full_step_pair(sim, tag: str, force_rebucket: bool) -> None:
     """One serial lazy EAM block of two steps (the second an energy step)
     from one state, through the kernels and through their plain versions
-    (the four wrappers swapped for them; the eager loop), the state put
+    (the four step wrappers and the in-place rebucket swapped for them;
+    the eager loop), the state put
     back between: r, p, f, the triggers, n_local and ePot equal bit for
     bit.  ``force_rebucket``: one occupied baseline slot moved a skin away
     first, so the first step takes the rebucket branch."""
     import torch
+    from comd_tpu_torch.ops.cuda import rebucket as rb
     from comd_tpu_torch.ops.cuda import step
     saved = {k: v.clone() for k, v in sim._bufs.items()}
     counters = (sim.n_rebucket, sim._rebuckets_read)
@@ -2818,13 +2860,17 @@ def full_step_pair(sim, tag: str, force_rebucket: bool) -> None:
             flags.append(bool(flag))
             return flag
 
+        into = rb.rebucket_into
         try:
             for k in STEP_KEYS:
                 setattr(step, k, kdt if k == "kick_drift_trigger" else fns[k])
+            if mode == "plain":
+                rb.rebucket_into = rb.rebucket_into_plain
             sim.step_block(2)
         finally:
             for k, fn in orig.items():
                 setattr(step, k, fn)
+            rb.rebucket_into = into
         st_ = sim.state
         out[mode] = (st_.r.clone(), st_.p.clone(), st_.f.clone(),
                      int(st_.n_local), sim.e_potential, flags,
@@ -2981,6 +3027,306 @@ def run_step_ops(headline, launches: dict) -> dict:
     return rows
 
 
+REBUCKET_SOURCE = "comd_tpu_torch/csrc/rebucket.cu"
+REBUCKET_KEYS = ("rebucket_bin", "rebucket_place")
+RB_CUT = 4.0          # the synthetic grids' least cell edge
+
+
+def rb_displaced(s, n_local: int, extent, seed: int, scale: float) -> list:
+    """Clones of state ``s``'s r, p, gid, n_atoms with every valid local
+    atom displaced by uniform(-scale, scale) per axis (numpy, seeded) and,
+    given the periodic ``extent``, ten of them put on its faces and just
+    across: 0, L, -1e-7, the float below L, the float above L, 2L, -L,
+    -0, L + L, 1e-30."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    r = s.r.clone()
+    A = r.shape[2]
+    valid = torch.arange(A, device=r.device)[None, :] < \
+        s.n_atoms[:n_local, None]
+    d = torch.as_tensor(rng.uniform(-scale, scale, (3, n_local, A)),
+                        dtype=r.dtype, device=r.device)
+    r[:, :n_local] += torch.where(valid[None], d, torch.zeros_like(d))
+    if extent is not None:
+        dt = np.float32 if r.dtype == torch.float32 else np.float64
+        cells, slots = (t.cpu().numpy() for t in torch.nonzero(
+            valid, as_tuple=True))
+        for k, i in enumerate(rng.choice(len(cells), 10, replace=False)):
+            L = dt(float(extent[k % 3]))
+            v = (dt(0), L, dt(-1e-7), np.nextafter(L, dt(0)),
+                 np.nextafter(L, dt(2 * L)), dt(2) * L, -L, dt(-0.0),
+                 L + L, dt(1e-30))[k]
+            r[k % 3, int(cells[i]), int(slots[i])] = float(v)
+    return [r, s.p.clone(), s.gid.clone(), s.n_atoms.clone()]
+
+
+def rb_synthetic(lo, hi, A: int, dtype: str, seed: int,
+                 use_hilbert: bool = False, spread: float = 0.75,
+                 crowd: int = 0) -> tuple:
+    """A domain [lo, hi) (cells of edge >= RB_CUT) and its cells of
+    capacity ``A`` on the card: up to A/2 atoms a local cell (gids unique
+    and shuffled), each within ``spread`` cell edges of its cell's centre
+    per axis, junk in the other slots; ``crowd`` atoms of other cells
+    moved into local cell 5.  Returns (geom, maps, [r, p, gid,
+    n_atoms])."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch.cells import make_geometry
+    from comd_tpu_torch.ops import binning
+    rng = np.random.default_rng(seed)
+    geom = make_geometry(lo, hi, RB_CUT, use_hilbert=use_hilbert)
+    B, nl = geom.n_total, geom.n_local
+    counts = rng.integers(0, A // 2 + 1, size=nl)
+    r = rng.uniform(-50.0, 50.0, size=(3, B, A))
+    p = rng.standard_normal((3, B, A))
+    gid = rng.integers(0, 2 ** 30, size=(B, A))
+    n_atoms = rng.integers(0, A + 1, size=B)
+    n_atoms[:nl] = counts
+    ids = rng.permutation(4 * int(counts.sum()))
+    centre = np.asarray(lo)[:, None] + (geom.tuple_of_box[:nl].T + 0.5) * \
+        geom.box_size[:, None]
+    occ = []
+    for c in range(nl):
+        for k in range(counts[c]):
+            gid[c, k] = ids[len(occ)]
+            r[:, c, k] = centre[:, c] + rng.uniform(
+                -spread, spread, size=3) * geom.box_size
+            occ.append((c, k))
+    if crowd:
+        occ = [o for o in occ if o[0] != 5]
+        for i in rng.choice(len(occ), size=crowd, replace=False):
+            r[:, occ[i][0], occ[i][1]] = centre[:, 5] + rng.uniform(
+                -0.4, 0.4, size=3) * geom.box_size
+    dt = getattr(torch, dtype)
+    maps = binning.geom_maps(geom, dt, "cuda")
+    return geom, maps, [torch.as_tensor(r, dtype=dt, device="cuda"),
+                        torch.as_tensor(p, dtype=dt, device="cuda"),
+                        torch.as_tensor(gid, dtype=torch.int32,
+                                        device="cuda"),
+                        torch.as_tensor(n_atoms, dtype=torch.int32,
+                                        device="cuda")]
+
+
+def rb_cases(headline) -> list:
+    """Phase 19's rebucket cases: (name, geom, maps, fields, wrap extent,
+    keep_halo).  The 63^3 f32 headline and a thermalized 10^3 f64 state
+    displaced by up to 1 A (the lattice's outer planes lie 0.90 A inside
+    the box) across cell faces and the periodic boundary (some atoms on
+    its faces), a wrap extent past a synthetic domain (halo landers folded
+    back under the wrap), a shard of the 2x2x2 mesh (10^3 f64, keep_halo,
+    atoms across its faces), a Hilbert grid, an odd A and A = 40, a cell
+    of A < n <= C atoms and one of n > C."""
+    import numpy as np
+    from comd_tpu_torch import Config, init_simulation
+    cases = []
+    s = headline.state
+    cases.append((f"{HEADLINE_N}^3 float32", headline.geom, headline.maps,
+                  rb_displaced(s, headline.geom.n_local,
+                               headline.global_extent, 31, 1.0),
+                  headline._extent, False))
+    small = init_simulation(Config(
+        nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+        dtype="float64", interp_impl="rows", pot_dir=POTS, device="cuda"))
+    small.step_block(10)
+    cases.append(("10^3 float64", small.geom, small.maps,
+                  rb_displaced(small.state, small.geom.n_local,
+                               small.global_extent, 32, 1.0),
+                  small._extent, False))
+    mesh = init_simulation(Config(
+        nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+        dtype="float64", interp_impl="rows", pot_dir=POTS, device="cuda",
+        **MESH))
+    mesh.step_block(10)
+    cases.append(("2x2x2 shard float64 keep_halo", mesh.geom, mesh.maps,
+                  rb_displaced(mesh.states[0], mesh.geom.n_local, None, 33,
+                               1.2), None, True))
+    for dtype in ("float32", "float64"):
+        g, m, f = rb_synthetic(np.zeros(3), np.full(3, 5 * RB_CUT), 16,
+                               dtype, 34, spread=0.9)
+        cases.append((f"fold {dtype}", g, m, f, np.full(3, 5.5 * RB_CUT),
+                       False))
+    g, m, f = rb_synthetic(np.zeros(3), np.full(3, 8.3 * RB_CUT), 16,
+                           "float32", 35, use_hilbert=True)
+    check(g.use_hilbert, "the Hilbert case's grid is not Hilbert-numbered")
+    cases.append(("Hilbert 8^3 float32", g, m, f, np.full(3, 8.3 * RB_CUT),
+                  False))
+    ext = np.array([3.1, 4.3, 3.6]) * RB_CUT
+    for A, dtype in ((13, "float32"), (40, "float64")):
+        g, m, f = rb_synthetic(np.zeros(3), ext, A, dtype, 36 + A)
+        cases.append((f"A={A} {dtype}", g, m, f, ext, False))
+    for name, n in (("overflow A < n <= C", 17), ("overflow n > C", 48)):
+        # every atom within its own cell: the crowded cell holds its own
+        # (up to A/2) and the n moved there
+        g, m, f = rb_synthetic(np.zeros(3), ext, 16, "float32", 37,
+                               spread=0.4, crowd=n)
+        cases.append((f"{name} float32", g, m, f, ext, False))
+    return cases
+
+
+def rb_check(name, geom, maps, f, ext, keep) -> float:
+    """One case: both kernels (one launch each) against rebucket_plain on
+    the same CUDA tensors, bit for bit in every cell of at most C atoms;
+    the counts, n_migrating and the flag in every case; and, serially,
+    the in-place body (rebucket_into: the baseline's local rows, the flag
+    or-ed) against its plain version.  Returns (max |kernel - plain| over
+    the floats of the cells held (0), n_migrating, the flag, the cells
+    past C)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    n0 = [LAUNCHES[k] for k in REBUCKET_KEYS]
+    got = rb.rebucket(geom, maps, *f, wrap_extent=ext, keep_halo=keep)
+    check([LAUNCHES[k] for k in REBUCKET_KEYS] == [n + 1 for n in n0],
+          f"rebucket {name}: not one launch of each kernel")
+    want = rb.rebucket_plain(geom, maps, *f, wrap_extent=ext,
+                             keep_halo=keep)
+    ok = want[3] <= rb.stage_capacity(f[0].shape[2])
+    for a, b in zip(got[3:], want[3:]):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"rebucket {name}: counts, n_migrating or the flag differ")
+    err = 0.0
+    for a, b in zip(got[:3], want[:3]):
+        a, b = a[..., ok, :], b[..., ok, :]
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              f"rebucket {name}: kernels and plain version differ")
+        if a.is_floating_point():
+            err = max(err, float((a - b).abs().max()))
+    if ext is not None and not keep:
+        outs = []
+        for fn in (rb.rebucket_into, rb.rebucket_into_plain):
+            t = [x.clone() for x in f]
+            last = torch.full_like(t[0], 7.0)
+            ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+            fn(geom, maps, *t, ovf, wrap_extent=ext, last_r=last)
+            outs.append([t[0][..., ok, :], t[1][..., ok, :],
+                         t[2][..., ok, :], t[3], last[..., ok, :], ovf])
+        check(all(torch.equal(a, b) for a, b in zip(*outs)),
+              f"rebucket {name}: the in-place body differs from its plain "
+              f"version")
+    return err, int(want[4]), bool(want[5]), int((~ok).sum())
+
+
+def kernel_us(fn, names, reps: int = 20) -> dict:
+    """{name: mean device us of one launch} of the kernels whose names hold
+    ``names`` over ``reps`` calls of ``fn`` under torch.profiler (the mean
+    of the records it keeps)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if n in e.key and e.count:
+                us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+                out[n] = us / e.count
+    check(set(out) == set(names), f"torch.profiler kept no record of "
+          f"{set(names) - set(out)}")
+    return out
+
+
+def run_rebucket(headline, launches: dict) -> dict:
+    """Phase 19's redistribution: csrc/rebucket.cu's bin and place launches
+    against rebucket_plain in every case of ``rb_cases``; then, at the
+    63^3 headline state, the serial body (rebucket_into and the halo
+    fill) timed (CUDA events, mean of 20; a launch of each kernel under
+    torch.profiler) beside its plain version and the byte bounds.
+    ``launches``: phase 5's counts.  Returns the kernels-line rows."""
+    import torch
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    from comd_tpu_torch.ops.cuda import step
+    from comd_tpu_torch.probes import time_ms
+    err = 0.0
+    for name, geom, maps, f, ext, keep in rb_cases(headline):
+        e, n_mig, ovf, big = rb_check(name, geom, maps, f, ext, keep)
+        err = max(err, e)
+        if keep:
+            check(n_mig > 0, f"rebucket {name}: no atom left the shard")
+        if name.startswith("overflow"):
+            check(ovf and (big > 0) == name.endswith("> C float32"),
+                  f"rebucket {name}: flag {ovf}, {big} cells past C")
+        say("rebucket", f"{name}: kernels and plain version equal bit for "
+            f"bit" + (f" outside the {big} cell(s) past C (counts, "
+                      f"n_migrating and the flag equal)" if big else "")
+            + f"; n_migrating {n_mig}, overflow {ovf}"
+            + (", the in-place body too" if ext is not None and not keep
+               else ""))
+    # the serial body at the headline state, as the lazy step runs it
+    sim = headline
+    s, geom, maps, ext = sim.state, sim.geom, sim.maps, sim._extent
+    f = [s.r.clone(), s.p.clone(), s.gid.clone(), s.n_atoms.clone()]
+    last = s.r.clone()
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def body():
+        rb.rebucket_into(geom, maps, *f, ovf, wrap_extent=ext, last_r=last)
+        step.refresh_halo(geom, maps, f[0], f[2], f[3])
+
+    def body_plain():
+        rb.rebucket_into_plain(geom, maps, *f, ovf, wrap_extent=ext,
+                               last_r=last)
+        step.refresh_halo_plain(geom, maps, f[0], f[2], f[3])
+
+    body_ms, plain_body_ms = time_ms(body, 20), time_ms(body_plain, 20)
+    body_graph = graph_ms(body)
+    plain_ms = time_ms(lambda: rb.rebucket_plain(
+        geom, maps, *f, wrap_extent=ext), 20)
+    us = kernel_us(body, ("rebucket_bin_kernel", "rebucket_place_kernel",
+                          "refresh_halo_kernel"))
+    B, A = f[0].shape[1:]
+    nl = geom.n_local
+    es = f[0].element_size()
+    atom = 6 * es + 4                 # r, p and gid of an atom
+    n_valid = int(f[3][:nl].clamp(max=A).sum())
+    n_bytes = {
+        # valid slots and the counts in, a record an atom and the counts
+        "rebucket_bin": atom * n_valid + 4 * nl + atom * n_valid + 4 * nl,
+        # the records and counts in, every slot, the baseline's local
+        # rows and the counts out
+        "rebucket_place": atom * n_valid + 4 * B + atom * B * A
+        + 3 * es * nl * A + 4 * B}
+    body_bytes = atom * n_valid + 4 * nl + atom * B * A + 3 * es * nl * A \
+        + 4 * B
+    rows = {}
+    for key, name in zip(REBUCKET_KEYS, ("rebucket_bin_kernel",
+                                         "rebucket_place_kernel")):
+        b_ms = 1e3 * n_bytes[key] / PEAK_BYTES
+        ms = us[name] / 1e3
+        say("timing", f"{key} at {HEADLINE_N}^3 f32 (the serial body): "
+            f"{ms:.5f} ms a launch (torch.profiler, mean of 20; the bound "
+            f"at {b_ms / ms:.0%} of it); bound {b_ms:.5f} ms (bytes: "
+            f"{n_bytes[key] / 1e6:.2f} MB); plain version (rebucket_plain, "
+            f"both kernels' function) {plain_ms:.4f} ms; {launches[key]} "
+            f"launches in phase 5's run")
+        rows[key] = {
+            "name": key, "route": "cuda", "source": REBUCKET_SOURCE,
+            "replaces": REPLACES[key], "launches": launches[key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+    b_ms = 1e3 * body_bytes / PEAK_BYTES
+    say("timing", f"the serial redistribution at {HEADLINE_N}^3 f32 "
+        f"(rebucket_into + refresh_halo: {n_valid} atoms, B={B}, A={A}): "
+        f"{body_ms:.4f} ms a call (CUDA events, mean of 20), "
+        f"{body_graph:.5f} ms replayed in a graph of 20; bin "
+        f"{us['rebucket_bin_kernel']:.2f} + place "
+        f"{us['rebucket_place_kernel']:.2f} + halo fill "
+        f"{us['refresh_halo_kernel']:.2f} us (torch.profiler); plain "
+        f"{plain_body_ms:.4f} ms; bound {b_ms:.5f} ms (bytes: "
+        f"{body_bytes / 1e6:.2f} MB, the body at {b_ms / body_graph:.0%})")
+    say("timing", "no single PyTorch call bins, orders and scatters atoms "
+        "into cells: library_ms none")
+    return rows
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -3010,6 +3356,7 @@ def main() -> int:
     from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.ops.cuda import nl as nlk
     from comd_tpu_torch.ops.cuda import probe as pr
+    from comd_tpu_torch.ops.cuda import rebucket as rb
     from comd_tpu_torch.ops.cuda import stencil as st
     from comd_tpu_torch.ops.cuda import step
     from comd_tpu_torch.probes import time_ms
@@ -3037,12 +3384,13 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(6) as pool:
+    with concurrent.futures.ThreadPoolExecutor(7) as pool:
         list(pool.map(lambda m: m.build(), (st, cm, pr, nlk, graph_if,
-                                            step)))
+                                            step, rb)))
     t_build = time.perf_counter() - t0
     for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe"),
-                      (nlk, "nl"), (graph_if, "graph_if"), (step, "step")):
+                      (nlk, "nl"), (graph_if, "graph_if"), (step, "step"),
+                      (rb, "rebucket")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
         entries = []       # (mangled name, registers, spill store bytes)
         if os.path.exists(log):
@@ -3078,7 +3426,7 @@ def main() -> int:
             bad = {k: v for k, v in spill.items()
                    if k.startswith("f32") and k != "f32 eam table" and v}
             check(not bad, f"f32 {stem} kernels spill: {bad}")
-    say("build", f"six sources in {t_build:.1f} s")
+    say("build", f"seven sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -3115,6 +3463,12 @@ def main() -> int:
         f"({sim.n_rebucket} rebuckets: refresh_halo fills the halo at "
         f"each and at init, the trigger's launch refreshes it on the "
         f"others; embed_fill also at the initial force)")
+    got = {k: launches[k] for k in REBUCKET_KEYS}
+    check(got == {k: sim.n_rebucket for k in REBUCKET_KEYS},
+          f"main: rebucket kernels launched {got}, not once each for "
+          f"each of the {sim.n_rebucket} rebuckets")
+    say("main", f"rebucket kernels: {got} launches, one bin and one place "
+        f"a rebucket ({sim.n_rebucket})")
     serial_ms = sim.ms_step
     rows = {}
     # K1 vs plain at the main path's shape (not counted: read above)
@@ -3433,6 +3787,7 @@ def main() -> int:
 
     # 19. the step's small ops (csrc/step.cu) against their plain versions
     rows.update(run_step_ops(headline, launches_main))
+    rows.update(run_rebucket(headline, launches_main))
     del headline
 
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
@@ -3440,7 +3795,7 @@ def main() -> int:
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
                + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
-               + ("set_condition",) + STEP_KEYS]
+               + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

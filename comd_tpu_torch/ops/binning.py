@@ -6,10 +6,12 @@ in-cell gid sort (UpdateLinkCells/CompactAtoms, src-mpi/gpu_redistribute.h;
 sortAtomsGpu, src-mpi/gpu_kernels.cu:1013-1043).  Here that is ONE
 fixed-shape canonicalization: compute each atom's destination cell from its
 coordinates (ownership rules of getBoxFromCoord, src-mpi/linkCells.c:
-448-480), sort the flat atom array by (cell, gid) with one stable
-``torch.sort`` on the int64 key ``box << 31 | gid``, and scatter into the
-dense [nBoxes, MAXATOMS] layout.  The (cell, gid) order is canonical, so the
-layout equals comd_tpu's slot for slot.
+448-480) and write every cell's atoms in ascending gid order into the
+dense [nBoxes, MAXATOMS] layout: on the card two kernels (csrc/
+rebucket.cu: bin and stage, then a per-cell gid rank), on the CPU their
+plain version, one stable ``torch.sort`` on the int64 key ``box << 31 |
+gid`` and a scatter (ops/cuda/rebucket.py).  The (cell, gid) order is
+canonical, so the layout equals comd_tpu's slot for slot.
 
 Halo cells are then filled by a static gather (serial/periodic case).
 """
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from ..cells import CellGeometry, boundary_lists
+from .cuda import rebucket as rebucket_ops
 from .cuda import step as step_ops
 
 #: coordinate sentinel for empty slots; far from any real atom, and pairs of
@@ -355,62 +358,23 @@ def rebucket(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms, *,
     Returns new tensors (r, p, gid, n_atoms, n_migrating, overflow) with
     stale halo boxes emptied and every box's atoms sorted by gid and
     compacted to the front.  ``n_migrating`` and ``overflow`` stay on the
-    device.
+    device.  On the card the two kernels of csrc/rebucket.cu, on the CPU
+    their plain version (ops/cuda/rebucket.py).
     """
-    A = r.shape[-1]
-    B = r.shape[1]
-    n_local = geom.n_local
-    flat_n = n_local * A
-    dev = r.device
+    return rebucket_ops.rebucket(geom, maps, r, p, gid, n_atoms,
+                                 wrap_extent=wrap_extent,
+                                 keep_halo=keep_halo)
 
-    rl = r[:, :n_local].reshape(3, flat_n)
-    pl = p[:, :n_local].reshape(3, flat_n)
-    gl = gid[:n_local].reshape(flat_n)
-    slot = torch.arange(A, device=dev, dtype=torch.int32).repeat(n_local)
-    valid = slot < n_atoms[:n_local].repeat_interleave(A)
 
-    if wrap_extent is not None:
-        rl = wrap_pbc(rl, wrap_extent)
-
-    box = box_from_coord(geom, maps, rl)
-
-    if wrap_extent is not None:
-        # an atom binned into a halo cell (a coordinate rounded exactly
-        # onto L) is owned by the periodic-image local cell: fold it back
-        # through the halo map (the reference's serial self-exchange with
-        # PBC shift, src-mpi/parallel.c:112-117)
-        in_halo = box >= n_local
-        h = (box - n_local).clamp(0, geom.n_halo - 1)
-        src = maps.halo_src[h]
-        shf = maps.halo_shift.to(rl.dtype)[h]            # [N, 3]
-        box = torch.where(in_halo, src, box)
-        rl = torch.where(in_halo[None, :], rl - shf.T, rl)
-
-    box = torch.where(valid, box, geom.n_total)          # empties sort last
-    migrating = valid & (box >= n_local)
-    n_migrating = migrating.sum(dtype=torch.int32)
-
-    box_s, perm = _sort_by_box_gid(box, gl)
-    rank, run_len = _run_rank(box_s, geom.n_total + 1)
-
-    max_box = geom.n_total if keep_halo else n_local
-    in_cell = box_s < max_box
-    overflow = (in_cell & (rank >= A)).any()
-    dest = torch.where(in_cell & (rank < A), box_s * A + rank, B * A)
-
-    def scatter(flat_vals, fill):
-        out = torch.full((B * A + 1,), fill, dtype=flat_vals.dtype,
-                         device=dev)
-        out[dest] = flat_vals[perm]          # slot B*A collects the drops
-        return out[:B * A].reshape(B, A)
-
-    new_r = torch.stack([scatter(rl[a], EMPTY_POS) for a in range(3)])
-    new_p = torch.stack([scatter(pl[a], 0.0) for a in range(3)])
-    new_gid = scatter(gl, int(EMPTY_GID))
-    # occupancy counts every atom binned into a kept box, stored or not
-    counts = torch.zeros(B, dtype=torch.int32, device=dev)
-    counts[:max_box] = run_len[:max_box].to(torch.int32)
-    return new_r, new_p, new_gid, counts, n_migrating, overflow
+def rebucket_into(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms,
+                  overflow, *, wrap_extent=None, last_r=None) -> None:
+    """``rebucket`` of the single domain in place (the serial step's
+    body): r, p, gid, n_atoms take the new layout with empty halo cells,
+    ``overflow`` (0-dim bool) is or-ed with the flag and ``last_r``, given,
+    takes the new positions in its local rows (ops/cuda/rebucket.py::
+    rebucket_into)."""
+    rebucket_ops.rebucket_into(geom, maps, r, p, gid, n_atoms, overflow,
+                               wrap_extent=wrap_extent, last_r=last_r)
 
 
 def append_arrivals(geom: CellGeometry, maps: GeomMaps, r, p, gid, n_atoms,

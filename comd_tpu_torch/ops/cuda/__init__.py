@@ -16,7 +16,9 @@ LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             "lj_table": 0, "nl_sweep_spline": 0,
             # the step's small ops around the force (step.py)
             "kick_drift_trigger": 0, "refresh_halo": 0, "embed_fill": 0,
-            "land": 0}
+            "land": 0,
+            # the redistribution (rebucket.py)
+            "rebucket_bin": 0, "rebucket_place": 0}
 
 
 def reset_launch_counts() -> None:

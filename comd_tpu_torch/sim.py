@@ -534,25 +534,25 @@ class Simulation(Physics):
         self._land([s], [res], want_energy)
 
     def _rebucket_step(self, pre: bool = False) -> None:
-        """The dense redistribution (sort + scatter + halo rebuild) into the
-        step's buffers, the new baseline, and on the list paths the rebuild
-        (NL1) into the list's buffers (comd_tpu's ``_make_step_lazy`` and
+        """The dense redistribution in place in the step's buffers (on the
+        card csrc/rebucket.cu's bin and place launches, which also write
+        the new baseline's local rows and or the overflow flag), the halo
+        rebuild (``refresh_halo``), on the list paths the rebuild (NL1)
+        into the list's buffers (comd_tpu's ``_make_step_lazy`` and
         ``_make_step_nl`` branches); one more on the device rebucket
-        counter.  No host read: it is a conditional body of the step's
-        graph.  ``pre`` (the mesh's -a 1) has no serial use."""
+        counter.  No host read (and no allocation but the list
+        rebuild's): it is a conditional body of the step's graph.  ``pre``
+        (the mesh's -a 1) has no serial use."""
         s = self.state
-        r, p, gid, n, _nm, ovf = binning.rebucket(
-            self.geom, self.maps, s.r, s.p, s.gid, s.n_atoms,
-            wrap_extent=self._extent)
-        r, gid, n = binning.fill_halo_serial(self.geom, self.maps, r, gid, n)
-        for t, v in zip((s.r, s.p, s.gid, s.n_atoms), (r, p, gid, n)):
-            t.copy_(v)
-        s.overflow.logical_or_(ovf)
+        binning.rebucket_into(
+            self.geom, self.maps, s.r, s.p, s.gid, s.n_atoms, s.overflow,
+            wrap_extent=self._extent,
+            last_r=self.last_r if self.uses_lazy and not self.uses_nl
+            else None)
+        binning.fill_halo_serial(self.geom, self.maps, s.r, s.gid, s.n_atoms)
         if self.uses_nl:
             s.overflow.logical_or_(self.build_lists([s.r], [s.n_atoms],
                                                     into=[self.nlist])[1])
-        elif self.uses_lazy:
-            self.last_r.copy_(s.r)
         self._bufs["rebuckets"].add_(1)
 
     def build_neighbor_list(self) -> None:

@@ -26,15 +26,18 @@ line: ms/step, the device's busy time per step (the sum of the kernels'
 durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
 most device time, the device time of one launch of each hand-written
-kernel (K1/K2, the halo and list kernels, and the step's
-kick_drift_trigger, refresh_halo, embed_fill and land), the gap in the
+kernel (K1/K2, the halo and list kernels, the step's
+kick_drift_trigger, refresh_halo, embed_fill and land, and the
+redistribution's rebucket_bin and rebucket_place), the gap in the
 trace from the end of a step's last kick_drift_trigger to the start of
 its force's first pair kernel (median, least and largest over the
 profiled steps: the median is a step's that does not rebucket, where
 the branch sits and, on a mesh, the position exchange), the graphs'
 capture and instantiation seconds, and
 one redistribution run eagerly (host ms to enqueue it, ms to its end,
-device ms, device operations).
+device ms, device operations and the eight that take the most device
+time: serially csrc/rebucket.cu's two launches, the halo fill and the
+counter's add).
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
 """
@@ -180,7 +183,18 @@ def main(argv=None) -> int:
             "device_ms": sum(getattr(e, "self_device_time_total",
                                      getattr(e, "self_cuda_time_total", 0.0))
                              for e in reb) / 1e3,
-            "device_ops": sum(e.count for e in reb)},
+            "device_ops": sum(e.count for e in reb),
+            # its operations by device time: on the card the serial one is
+            # csrc/rebucket.cu's bin and place launches, refresh_halo and
+            # the counter's add
+            "top_ops": [
+                {"name": e.key[:90], "us": getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)),
+                 "calls": e.count}
+                for e in sorted(reb, key=lambda e: -getattr(
+                    e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0)))[:8]]},
         "graph_replays_per_step": (
             (sim._graphs.replays - replays) / steps if sim._graphs else 0.0),
         "graph_capture_s": sim._graphs.capture_s if sim._graphs else None,
@@ -202,7 +216,9 @@ def main(argv=None) -> int:
                                     "nl_pack_kernel", "nl_sweep_kernel",
                                     "kick_drift_trigger_kernel",
                                     "refresh_halo_kernel",
-                                    "embed_fill_kernel", "land_kernel"))},
+                                    "embed_fill_kernel", "land_kernel",
+                                    "rebucket_bin_kernel",
+                                    "rebucket_place_kernel"))},
     }))
     return 0
 

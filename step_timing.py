@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the step's small kernels (csrc/step.cu) and the step graph's
-branch of one or more source trees on one GPU, in turns.
+"""Time the step's small kernels (csrc/step.cu), the serial rebucket body
+(csrc/rebucket.cu) and the step graph's branch of one or more source
+trees on one GPU, in turns.
 
     python3 step_timing.py [TREE ...]
 
@@ -25,6 +26,11 @@ graphs (CUDA events around replays; ms a launch):
   refresh_halo       the ghost refresh of the positions alone
   halo fill          binning.fill_halo_serial: r, gid and n_atoms (one
                      launch, or refresh_halo and two index copies)
+  rebucket body      the serial step's rebucket branch (sim.
+                     _rebucket_step: the redistribution in place, the
+                     halo fill, the baseline, the counter; on a tree
+                     without csrc/rebucket.cu the torch ops, the copies
+                     and the baseline's copy)
   branch             one replay of a graph of the serial step's head and
                      its IF nodes (the rebucket's body one small kernel):
                      the trigger with the images and one IF node, or on a
@@ -238,6 +244,10 @@ def worker(tree: str) -> dict:
         return flag if add else torch.stack(flags).any()
 
     cases["mesh head"] = mesh_head
+    # the serial redistribution as the lazy step's IF body runs it, on the
+    # step's buffers (a canonical state rebucketed again: the same work)
+    sim._bind()
+    cases["rebucket body"] = sim._rebucket_step
     out = {name: graph_ms(torch, fn) for name, fn in cases.items()}
     out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM"):

@@ -1368,3 +1368,164 @@ def test_trigger_images_in_a_graph_match_plain(cuda_device, dtype, impl):
         assert bool(out["flag"]) == bool(want) == (moved > 0)
         assert int(hit) == int(bool(want))
         del graph
+
+
+def _rb_synthetic(lo, hi, A, dtype, seed, use_hilbert=False, spread=0.75,
+                  fill=0.5, cut=4.0):
+    """A domain [lo, hi) (cells of edge >= ``cut``) and its cells of
+    capacity ``A`` on the card: up to ``fill * A`` atoms a local cell
+    (random gids, unique), each within ``spread`` cell edges of its cell's
+    centre per axis, junk in the other slots.  Returns (geom, maps,
+    [r, p, gid, n_atoms])."""
+    from comd_tpu_torch.cells import make_geometry
+    rng = np.random.default_rng(seed)
+    geom = make_geometry(lo, hi, cut, use_hilbert=use_hilbert)
+    B, nl = geom.n_total, geom.n_local
+    counts = rng.integers(0, int(fill * A) + 1, size=nl)
+    r = rng.uniform(-50.0, 50.0, size=(3, B, A))
+    p = rng.standard_normal((3, B, A))
+    gid = rng.integers(0, 2 ** 30, size=(B, A))
+    n_atoms = rng.integers(0, A + 1, size=B)
+    n_atoms[:nl] = counts
+    ids = rng.permutation(4 * int(counts.sum()))
+    centre = np.asarray(lo)[:, None] + (geom.tuple_of_box[:nl].T + 0.5) * \
+        geom.box_size[:, None]
+    k = 0
+    for c in range(nl):
+        for s in range(counts[c]):
+            gid[c, s] = ids[k]
+            r[:, c, s] = centre[:, c] + rng.uniform(
+                -spread, spread, size=3) * geom.box_size
+            k += 1
+    dt = getattr(torch, dtype)
+    maps = binning.geom_maps(geom, dt, "cuda")
+    return geom, maps, [torch.as_tensor(r, dtype=dt, device="cuda"),
+                        torch.as_tensor(p, dtype=dt, device="cuda"),
+                        torch.as_tensor(gid, dtype=torch.int32,
+                                        device="cuda"),
+                        torch.as_tensor(n_atoms, dtype=torch.int32,
+                                        device="cuda")]
+
+
+def _rb_crowd(geom, fields, cell, n, seed):
+    """``n`` atoms of other local cells moved into local cell ``cell``."""
+    rng = np.random.default_rng(seed)
+    r, _p, _g, n_atoms = fields
+    A = r.shape[2]
+    counts = n_atoms[:geom.n_local].cpu().numpy()
+    occ = [(c, s) for c in range(geom.n_local) if c != cell
+           for s in range(min(counts[c], A))]
+    pick = rng.choice(len(occ), size=n, replace=False)
+    t = geom.tuple_of_box[cell]
+    centre = geom.local_min + (t + 0.5) * geom.box_size
+    for i in pick:
+        c, s = occ[i]
+        r[:, c, s] = torch.as_tensor(centre + rng.uniform(-0.4, 0.4, 3) *
+                                     geom.box_size, dtype=r.dtype)
+
+
+def _rb_case(name, dtype):
+    """(geom, maps, fields, wrap extent, keep_halo) of a named case."""
+    cut = 4.0
+    if name == "state":
+        sim = _sim(dtype, "rows", 10, "cuda")
+        sim.step_block(10)
+        s = sim.state
+        g = torch.Generator(device="cpu").manual_seed(3)
+        r = s.r.clone()
+        nl = sim.geom.n_local
+        # up to 1 A: across the periodic boundary (0.90 A from the planes)
+        r[:, :nl] += ((torch.rand(r[:, :nl].shape, generator=g) - 0.5) * 2
+                      ).to(r.dtype).to("cuda")
+        return (sim.geom, sim.maps, [r, s.p.clone(), s.gid.clone(),
+                                     s.n_atoms.clone()], sim._extent, False)
+    if name == "shard":
+        lo = np.array([4.0, 0.0, 4.0]) * cut
+        geom, maps, f = _rb_synthetic(lo, lo + 4 * cut, 16, dtype, 21,
+                                      spread=1.0)
+        return geom, maps, f, None, True
+    if name == "fold":
+        geom, maps, f = _rb_synthetic(np.zeros(3), np.full(3, 5 * cut), 16,
+                                      dtype, 22, spread=0.9)
+        return geom, maps, f, np.full(3, 5.5 * cut), False
+    if name == "hilbert":
+        geom, maps, f = _rb_synthetic(np.zeros(3), np.full(3, 8.3 * cut), 16,
+                                      dtype, 23, use_hilbert=True)
+        assert geom.use_hilbert
+        return geom, maps, f, np.full(3, 8.3 * cut), False
+    A = {"odd": 13, "wide": 40, "crowd": 16, "past": 16}[name]
+    ext = np.array([3.1, 4.3, 3.6]) * cut
+    # the crowded cases keep every atom within its own cell
+    geom, maps, f = _rb_synthetic(np.zeros(3), ext, A, dtype, 24,
+                                  spread=0.4 if A == 16 else 0.75)
+    if name == "crowd":        # A < count <= C: exact
+        _rb_crowd(geom, f, 5, A + 1, 25)
+    if name == "past":         # count > C: the layout differs there
+        _rb_crowd(geom, f, 5, 3 * A, 26)
+    return geom, maps, f, ext, False
+
+
+RB_CASES = ("state", "shard", "fold", "hilbert", "odd", "wide", "crowd",
+            "past")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", RB_CASES)
+def test_rebucket_kernels_match_plain(cuda_device, dtype, name):
+    """csrc/rebucket.cu's two launches against rebucket_plain on the same
+    CUDA tensors, bit for bit up to C = stage_capacity(A) atoms a cell
+    (the crowded cell holds over A: the overflow flag set, the A smallest
+    gids kept); past C (``past``: 3A atoms in one cell) the counts,
+    n_migrating and the flag still agree, and every other cell's layout;
+    the serial in-place body (rebucket_into: the baseline's local rows,
+    the flag or-ed) against its plain version."""
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    geom, maps, f, ext, keep = _rb_case(name, dtype)
+    n0 = (LAUNCHES["rebucket_bin"], LAUNCHES["rebucket_place"])
+    got = rb.rebucket(geom, maps, *f, wrap_extent=ext, keep_halo=keep)
+    assert (LAUNCHES["rebucket_bin"], LAUNCHES["rebucket_place"]) == (
+        n0[0] + 1, n0[1] + 1)
+    want = rb.rebucket_plain(geom, maps, *f, wrap_extent=ext,
+                             keep_halo=keep)
+    torch.cuda.synchronize()
+    C = rb.stage_capacity(f[0].shape[2])
+    big = want[3] > C
+    assert bool(big.any()) == (name == "past")
+    if name != "state":
+        assert bool(want[5]) == (name in ("crowd", "past"))
+    for a, b in zip(got[3:], want[3:]):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    ok = ~big
+    for a, b in zip(got[:3], want[:3]):
+        assert a.dtype == b.dtype
+        assert torch.equal(a[..., ok, :], b[..., ok, :]), name
+    if keep or ext is None:
+        return
+    # the serial body in place, from the same inputs
+    outs = []
+    for fn in (rb.rebucket_into, rb.rebucket_into_plain):
+        t = [x.clone() for x in f]
+        last = torch.full_like(t[0], 7.0)
+        ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+        fn(geom, maps, *t, ovf, wrap_extent=ext, last_r=last)
+        outs.append(t + [last, ovf])
+    for a, b in zip(*outs):
+        if big.any() and a.dim() > 0 and a.shape[-1] == f[0].shape[2]:
+            a, b = a[..., ok, :], b[..., ok, :]
+        assert torch.equal(a, b), name
+
+
+def test_rebucket_kernels_refuse_what_they_do_not_take(cuda_device):
+    """The wrappers raise on operands the kernels do not take, on the
+    card: mixed devices, maps of another dtype under the wrap."""
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    geom, maps, f, ext, _keep = _rb_case("odd", "float32")
+    with pytest.raises(ValueError):
+        rb.rebucket(geom, maps, f[0], f[1].cpu(), f[2], f[3])
+    maps64 = binning.geom_maps(geom, torch.float64, "cuda")
+    with pytest.raises(ValueError):
+        rb.rebucket(geom, maps64, *f, wrap_extent=ext)
+    with pytest.raises(ValueError):
+        rb.rebucket(geom, maps, *f, wrap_extent=torch.zeros(
+            3, dtype=torch.float64, device="cuda"))

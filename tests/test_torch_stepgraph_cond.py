@@ -221,6 +221,8 @@ def _counting(monkeypatch, sim):
 
     wrap(step_ops, "kick_drift_trigger", STAND_INS["head"])
     wrap(binning, "rebucket", STAND_INS["rebucket"])
+    # the serial step's body rebuckets in place
+    wrap(binning, "rebucket_into", STAND_INS["rebucket"])
     if sim._refresh is not None:     # serially the head refreshes
         wrap(sim, "_refresh", STAND_INS["refresh"])
     wrap(sim, "_land", STAND_INS["rest"])
