@@ -11,7 +11,8 @@ the first error:
                  csrc/graph_if.cu) and the call that routes an IF body's
                  allocations into a private pool (phase 18 needs it)
   2. build    -- compiles the kernel sources (csrc/stencil.cu, comm.cu,
-                 probe.cu, nl.cu, graph_if.cu, step.cu, rebucket.cu)
+                 probe.cu, nl.cu, graph_if.cu, step.cu, rebucket.cu,
+                 arrivals.cu)
                  with nvcc, one process each, in parallel; prints
                  registers and spill
                  stores (stencil.cu's and nl.cu's pair kernels by variant)
@@ -274,6 +275,28 @@ the first error:
                  (CUDA events, mean of 20; each kernel's launch under
                  torch.profiler) beside its plain version and the byte
                  bounds.
+ 20. arrivals -- the atom exchange's unload (csrc/arrivals.cu:
+                 arrivals_bin and arrivals_place a stage over every
+                 shard, sort_cells over every shard) against its plain
+                 versions (append_stage_plain, sort_shards_plain) on the
+                 same CUDA tensors at every stage, bit for bit in every
+                 cell of at most C arrivals: the 63^3 f32 2x2x2 state
+                 displaced by up to 0.5 A and rebucketed, under ki (the
+                 sender's counts where ring_push left them), collective
+                 (a flag an entry) and count-packed collective messages;
+                 10^3 f64 on 2x2x2 and on 2x2x1 (an axis of one shard);
+                 a crowded cell of A < n <= C arrivals (exact, the flag
+                 set) and one of n > C (the counts and the flag equal);
+                 one bin and one place launch a stage, one sort.  At the
+                 63^3 state under ki each launch timed under
+                 torch.profiler (mean of 20), a stage replayed in a
+                 graph, the whole unload (3 ring_push, 3 bin, 3 place, 1
+                 sort) with CUDA events (mean of 20) and in a graph,
+                 beside the plain versions and the byte bounds; one eager
+                 mesh redistribution's device operations (at most 100).
+                 Phase 12 checks 3 bin, 3 place and 1 sort launch an
+                 exchange under every transport, phase 18 the graphs'
+                 credits of them.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
@@ -281,7 +304,7 @@ read just after; every one-process lazy and list path (phases 5, 8, 9,
 launches each graph's capture recorded (a rebucket body's once a
 rebucket, from the device's rebucket counter read at a block's end).
 Imports torch, numpy and comd_tpu_torch only; builds everything from this
-checkout (the seven sources with one nvcc each, in parallel).
+checkout (the eight sources with one nvcc each, in parallel).
 """
 from __future__ import annotations
 
@@ -337,7 +360,16 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
                             "bin and fold)",
             "rebucket_place": "no Pallas site: XLA fusion of "
                               "comd_tpu/ops/binning.py:91-172 (the sort "
-                              "and scatter)"}
+                              "and scatter)",
+            # no Pallas site: the shard's XLA program (exchange_atoms)
+            "arrivals_bin": "no Pallas site: XLA fusion of "
+                            "comd_tpu/ops/binning.py:175-214 "
+                            "(append_arrivals: the bin)",
+            "arrivals_place": "no Pallas site: XLA fusion of "
+                              "comd_tpu/ops/binning.py:175-214 "
+                              "(append_arrivals: the rank and scatter)",
+            "sort_cells": "no Pallas site: XLA sort of "
+                          "comd_tpu/ops/binning.py:217-232 (sort_cells)"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -845,7 +877,7 @@ def host_and_device_ms(fn, reps: int = 20, kernels_per_call: int = None
     torch.profiler at times keeps fewer kernel records than were launched
     (on an H100: 8 of 20), which makes that sum short.  Given
     ``kernels_per_call``, the device time is that many times the mean
-    duration of the records kept, profiled again (three times at most)
+    duration of the records kept, profiled again (eight times at most)
     while fewer than the launches come back."""
     import torch
     from torch.autograd import DeviceType
@@ -856,7 +888,7 @@ def host_and_device_ms(fn, reps: int = 20, kernels_per_call: int = None
     for _ in range(reps):
         fn()
     host = 1e3 * (time.perf_counter() - t0) / reps
-    for _ in range(3):
+    for _ in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -874,7 +906,7 @@ def host_and_device_ms(fn, reps: int = 20, kernels_per_call: int = None
         if n >= kernels_per_call * reps:
             break
     if n == 0:
-        raise RuntimeError("torch.profiler kept no kernel record in three "
+        raise RuntimeError("torch.profiler kept no kernel record in eight "
                            "runs")
     return host, kernels_per_call * us / n / 1e3
 
@@ -2389,6 +2421,13 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
               f"{tag} {mode}: rebucket kernels launched {got} in the timed "
               f"steps, not {want} each ({m['rebuckets']} rebuckets, "
               f"{m['shards']} shard(s))")
+        # a mesh's unload: one bin and one place a stage, one sort
+        n = m["rebuckets"] if m["mesh"] else 0
+        got = {k: m["launches"].get(k, 0) for k in ARRIVALS_KEYS}
+        want = {"arrivals_bin": 3 * n, "arrivals_place": 3 * n,
+                "sort_cells": n}
+        check(got == want, f"{tag} {mode}: the unload's kernels launched "
+              f"{got} in the timed steps, not {want}")
     return out
 
 
@@ -3210,25 +3249,29 @@ def rb_check(name, geom, maps, f, ext, keep) -> float:
 def kernel_us(fn, names, reps: int = 20) -> dict:
     """{name: mean device us of one launch} of the kernels whose names hold
     ``names`` over ``reps`` calls of ``fn`` under torch.profiler (the mean
-    of the records it keeps)."""
+    of the records it keeps; profiled again, eight times at most, while a
+    name has none)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for n in names:
-            if n in e.key and e.count:
-                us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-                out[n] = us / e.count
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for n in names:
+                if n in e.key and e.count and n not in out:
+                    us = getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                    out[n] = us / e.count
+        if set(out) == set(names):
+            break
     check(set(out) == set(names), f"torch.profiler kept no record of "
           f"{set(names) - set(out)}")
     return out
@@ -3327,6 +3370,356 @@ def run_rebucket(headline, launches: dict) -> dict:
     return rows
 
 
+ARRIVALS_SOURCE = "comd_tpu_torch/csrc/arrivals.cu"
+ARRIVALS_KEYS = ("arrivals_bin", "arrivals_place", "sort_cells")
+
+
+def av_fields(sim, seed: int, scale: float) -> list:
+    """Every shard of the mesh ``sim`` with its valid local atoms displaced
+    by uniform(-scale, scale) per axis (numpy, seeded) and rebucketed with
+    the halo landers kept (csrc/rebucket.cu): (r, p, gid, n_atoms)
+    lists, the exchange's input."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch.ops import binning
+    rng = np.random.default_rng(seed)
+    nl = sim.geom.n_local
+    reb = []
+    for s in sim.states:
+        A = s.r.shape[2]
+        r = s.r.clone()
+        valid = torch.arange(A, device="cuda")[None, :] < \
+            s.n_atoms[:nl, None]
+        d = torch.as_tensor(rng.uniform(-scale, scale, (3, nl, A)),
+                            dtype=r.dtype, device="cuda")
+        r[:, :nl] += torch.where(valid[None], d, torch.zeros_like(d))
+        reb.append(binning.rebucket(sim.geom, sim.maps, r, s.p, s.gid,
+                                    s.n_atoms, keep_halo=True)[:4])
+    return [list(f) for f in zip(*reb)]
+
+
+def av_stage_stats(before, after, arrivals, A: int) -> dict:
+    """What one stage's unload had to do, from its plain result: the valid
+    arrivals, the cells that got some, the slots stored (below A) and the
+    cells past C."""
+    import torch
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    C = av.stage_capacity(A)
+    n_valid = cells = stored = past = 0
+    for s, dirs in enumerate(arrivals):
+        for a in dirs:
+            n_valid += int(av._flat(a, A)[3].sum())
+        n0, n1 = before[3][s], after[3][s]
+        k = n1 - n0
+        cells += int((k > 0).sum())
+        past += int((k > C).sum())
+        stored += int(torch.minimum((A - n0).clamp(min=0), k).sum())
+    return dict(valid=n_valid, cells=cells, stored=stored, past=past)
+
+
+def av_chain(name, h, fields, transport: str) -> dict:
+    """Phase 20: the three stages of the atom exchange from ``fields``
+    under ``transport`` ("ki": the sender's counts where ring_push left
+    them; "collective": a flag an entry, full planes or count-packed as
+    the halo's plan says), each stage's unload on csrc/arrivals.cu's bin
+    and place launches against append_stage_plain on the same CUDA
+    tensors, bit for bit in every cell of at most C arrivals (past C the
+    counts and the flag), one launch of each a stage; then the sort of
+    every shard (one launch) against sort_shards_plain.  Returns the
+    stages ((state before, arrivals, shifts), stats), the exchanged
+    fields before the sort and the largest |kernel - plain| (0)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    A = fields[0][0].shape[2]
+    f = [[t.clone() for t in x] for x in fields]
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+    stages, err = [], 0.0
+    for axis in range(3):
+        arr = (ki_comm.push_arrivals(h, axis, f) if transport == "ki"
+               else exchange.atom_arrivals(h, axis, *f, ovf))
+        before = [[t.clone() for t in x] for x in f]
+        plain = [[t.clone() for t in x] for x in f]
+        ovf_p = ovf.clone()
+        shifts = (-h.ext[axis], h.ext[axis])
+        n0 = [LAUNCHES[k] for k in ARRIVALS_KEYS[:2]]
+        av.append_stage(h.geom, h.maps, *f, arr, ovf, axis, shifts)
+        check([LAUNCHES[k] for k in ARRIVALS_KEYS[:2]] == [n + 1 for n in n0],
+              f"arrivals {name}: not one bin and one place launch a stage")
+        av.append_stage_plain(h.geom, h.maps, *plain, arr, ovf_p, axis,
+                              shifts)
+        stats = av_stage_stats(before, plain, arr, A)
+        C = av.stage_capacity(A)
+        check(torch.equal(ovf, ovf_p) and all(
+            torch.equal(a, b) for a, b in zip(f[3], plain[3])),
+            f"arrivals {name} stage {axis}: counts or the flag differ")
+        for s in range(len(f[0])):
+            ok = plain[3][s] - before[3][s] <= C
+            for a, b in zip((x[s] for x in f[:3]), (x[s] for x in plain[:3])):
+                a, b = a[..., ok, :], b[..., ok, :]
+                check(a.dtype == b.dtype and torch.equal(a, b),
+                      f"arrivals {name} stage {axis} shard {s}: kernels and "
+                      f"plain version differ")
+                if a.is_floating_point():
+                    err = max(err, float((a - b).abs().max()))
+        stages.append(((before, arr, axis, shifts), stats))
+        f = plain              # past C the two may differ: go on from one
+    exchanged = [[t.clone() for t in x] for x in f]
+    want = [[t.clone() for t in x] for x in f[:3]]
+    av.sort_shards_plain(*want)
+    n0 = LAUNCHES["sort_cells"]
+    av.sort_shards(*f[:3])
+    check(LAUNCHES["sort_cells"] == n0 + 1,
+          f"arrivals {name}: not one sort launch")
+    check(all(torch.equal(a, b) for x, y in zip(f[:3], want)
+              for a, b in zip(x, y)),
+          f"arrivals {name}: the sort differs from sort_shards_plain")
+    moved = sum(st[1]["valid"] for st in stages)
+    check(moved > 0, f"arrivals {name}: no arrival")
+    say("arrivals", f"{name}: the three stages' bin and place launches and "
+        f"the sort equal the plain versions bit for bit; "
+        + ", ".join(f"stage {i}: {st[1]['valid']} arrivals into "
+                    f"{st[1]['cells']} cells, {st[1]['stored']} stored"
+                    for i, st in enumerate(stages))
+        + f"; overflow {bool(ovf)}")
+    return dict(stages=stages, exchanged=exchanged, err=err)
+
+
+def av_crowd(dtype: str, n: int) -> int:
+    """Phase 20's crowded cell: one shard's arrivals (a flag an entry),
+    ``n`` of them binned into one local cell, against the plain version:
+    within C every slot equal, the flag set; past C the counts, the flag
+    and every other cell's slots.  Returns the cells past C."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    geom, maps, f = rb_synthetic(np.array([4.0, 4.0, 8.0]) * RB_CUT,
+                                 np.array([8.0, 8.0, 12.0]) * RB_CUT, 16,
+                                 dtype, 51, spread=0.4)
+    A = 16
+    rng = np.random.default_rng(52)
+    M = 8 * A
+    cell = geom.local_min + geom.box_size * (np.array([1, 2, 1]) + 0.5)
+    r = np.ascontiguousarray(rng.uniform(
+        geom.local_min - geom.box_size, geom.local_max + geom.box_size,
+        (M, 3)).T)
+    r[:, :n] = cell[:, None] + rng.uniform(-0.4, 0.4, (3, n)) * \
+        geom.box_size[:, None]
+    dt = f[0].dtype
+    valid = rng.uniform(size=M) < 0.9
+    valid[:n] = True
+    src = (torch.as_tensor(r, dtype=dt, device="cuda"),
+           torch.as_tensor(rng.standard_normal((3, M)), dtype=dt,
+                           device="cuda"),
+           torch.as_tensor(rng.permutation(2 ** 20)[:M] + 2 ** 30,
+                           dtype=torch.int32, device="cuda"),
+           torch.as_tensor(valid, device="cuda"))
+    got, want = [[t.clone()] for t in f], [[t.clone()] for t in f]
+    ovf = [torch.zeros((), dtype=torch.bool, device="cuda") for _ in "ab"]
+    av.append_stage(geom, maps, *got, [[src]], ovf[0])
+    av.append_stage_plain(geom, maps, *want, [[src]], ovf[1])
+    check(bool(ovf[0]) and torch.equal(*ovf) and
+          torch.equal(got[3][0], want[3][0]),
+          f"arrivals crowd {n} {dtype}: the counts or the flag differ")
+    ok = want[3][0] - f[3] <= av.stage_capacity(A)
+    for a, b in zip(got[:3], want[:3]):
+        check(torch.equal(a[0][..., ok, :], b[0][..., ok, :]),
+              f"arrivals crowd {n} {dtype}: kernels and plain version "
+              f"differ")
+    return int((~ok).sum())
+
+
+def run_arrivals(launches: dict) -> dict:
+    """Phase 20: the atom exchange's unload (csrc/arrivals.cu) against its
+    plain versions in every case, then timed at the 63^3 2x2x2 f32 state
+    under ki (each launch under torch.profiler, mean of 20; the whole
+    unload with CUDA events, mean of 20, and replayed in a graph) beside
+    the plain versions and the byte bounds, and one eager mesh
+    redistribution's device operations.  ``launches``: phase 12's
+    ki_fused run (the main path's).  Returns the kernels-line rows."""
+    import numpy as np
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    from comd_tpu_torch.probes import time_ms
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n = HEADLINE_N
+    sim = init_simulation(Config(
+        nx=n, ny=n, nz=n, doeam=True, temperature=600.0, dtype="float32",
+        max_atoms=0, cell_mode="auto", pot_dir=POTS, device="cuda",
+        comm_impl="ki_fused", **MESH))
+    sim.cuda_graphs = False
+    sim.step_block(10)
+    h = sim.halo
+    fields = av_fields(sim, 61, 0.5)
+    A = fields[0][0].shape[2]
+    packed = exchange.make_halo(
+        h.mesh, h.geom, h.maps, exchange.make_plan(
+            h.geom, msg_factor=0.6, max_atoms=A), sim.dtype)
+    err = 0.0
+    main = None
+    for tag, halo, transport in (("ki", h, "ki"),
+                                 ("collective", h, "collective"),
+                                 ("collective packed", packed,
+                                  "collective")):
+        out = av_chain(f"{n}^3 float32 2x2x2 {tag}", halo, fields,
+                       transport)
+        err = max(err, out["err"])
+        if tag == "ki":
+            main = out
+    for tag, mesh in (("2x2x2", MESH),
+                      ("2x2x1 (an axis of one shard)",
+                       dict(xproc=2, yproc=2, zproc=1))):
+        small = init_simulation(Config(
+            nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+            dtype="float64", interp_impl="rows", pot_dir=POTS,
+            device="cuda", comm_impl="ki", **mesh))
+        small.cuda_graphs = False
+        small.step_block(10)
+        f64 = av_fields(small, 62, 1.2)
+        for transport in ("ki", "collective"):
+            av_chain(f"10^3 float64 {tag} {transport}", small.halo, f64,
+                     transport)
+        del small, f64
+    for dtype in ("float32", "float64"):
+        for k, what in ((19, "A < n <= C"), (48, "n > C")):
+            past = av_crowd(dtype, k)
+            check((past > 0) == (k > av.stage_capacity(16)),
+                  f"arrivals crowd {k}: {past} cells past C")
+            say("arrivals", f"crowded cell {what} ({k} arrivals, A = 16, "
+                f"C = {av.stage_capacity(16)}) {dtype}: kernels and plain "
+                f"version equal" + (f" outside the {past} cell past C (the "
+                                    f"counts and the flag equal)" if past
+                                    else " bit for bit") + ", flag set")
+
+    # timing at the 63^3 state under ki: each stage's unload from its own
+    # state, the state restored before each call (its copies timed apart)
+    stages = main["stages"]
+    work = [[t.clone() for t in x] for x in fields]
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def restore(i):
+        for w, b in zip(work, stages[i][0][0]):
+            for x, y in zip(w, b):
+                x.copy_(y)
+
+    def stage(i, fn=av.append_stage):
+        restore(i)
+        _b, arr, axis, shifts = stages[i][0]
+        fn(h.geom, h.maps, *work, arr, ovf, axis, shifts)
+
+    restore_ms = [time_ms(lambda: restore(i), 20) for i in range(3)]
+    # a stage's bin and place replayed in a graph (the host's launch cost
+    # out), the restore's replay taken out
+    k_ms = [graph_ms(lambda: stage(i)) - graph_ms(lambda: restore(i))
+            for i in range(3)]
+    p_ms = [time_ms(lambda: stage(i, av.append_stage_plain), 3)
+            - restore_ms[i] for i in range(3)]
+    us = kernel_us(lambda: [stage(i) for i in range(3)],
+                   ("arrivals_bin_kernel", "arrivals_place_kernel"))
+    ex = main["exchanged"]
+    out = [[torch.empty_like(t) for t in x] for x in ex[:3]]
+    sort_k = time_ms(lambda: av.sort_shards(*ex[:3], out), 20)
+    sort_p = time_ms(lambda: av.sort_shards_plain(*ex[:3], out), 3)
+    us.update(kernel_us(lambda: av.sort_shards(*ex[:3], out),
+                        ("sort_cells_kernel",)))
+
+    def unload():
+        restore(0)
+        ki_comm.exchange_atoms_ki(h, *work)
+        av.sort_shards(*work[:3], out)
+
+    def unload_plain():
+        restore(0)
+        o = torch.zeros((), dtype=torch.bool, device="cuda")
+        for axis in range(3):
+            av.append_stage_plain(h.geom, h.maps, *work,
+                                  ki_comm.push_arrivals(h, axis, work), o,
+                                  axis, (-h.ext[axis], h.ext[axis]))
+        av.sort_shards_plain(*work[:3], out)
+
+    whole = time_ms(unload, 20) - restore_ms[0]
+    whole_graph = graph_ms(unload) - graph_ms(lambda: restore(0))
+    whole_plain = time_ms(unload_plain, 3) - restore_ms[0]
+    S, B = len(ex[0]), ex[0][0].shape[1]
+    es = ex[0][0].element_size()
+    atom = 6 * es + 4                    # r, p and gid of an atom
+    st = [x[1] for x in stages]
+    n_src = [sum(a[3].numel() for dirs in x[0][1] for a in dirs)
+             for x in stages]
+    bytes_bin = [4 * m + v["valid"] * (2 * atom + 4)
+                 for m, v in zip(n_src, st)]
+    bytes_place = [4 * S * B + 12 * v["cells"] + v["valid"] * (atom + 4)
+                   + v["stored"] * atom for v in st]
+    bytes_sort = 2 * atom * S * B * A
+    rows = {}
+    for key, name, nb, ms, plain in (
+            ("arrivals_bin", "arrivals_bin_kernel", sum(bytes_bin) / 3,
+             us["arrivals_bin_kernel"] / 1e3, sum(p_ms) / 3),
+            ("arrivals_place", "arrivals_place_kernel",
+             sum(bytes_place) / 3, us["arrivals_place_kernel"] / 1e3,
+             sum(p_ms) / 3),
+            ("sort_cells", "sort_cells_kernel", bytes_sort,
+             us["sort_cells_kernel"] / 1e3, sort_p)):
+        b_ms = 1e3 * nb / PEAK_BYTES
+        say("timing", f"{key} at {n}^3 f32 2x2x2 (ki, a mean over the "
+            f"three stages for bin and place): {ms:.5f} ms a launch "
+            f"(torch.profiler, mean of 20; the bound at {b_ms / ms:.0%} of "
+            f"it); bound {b_ms:.5f} ms (bytes: {nb / 1e6:.3f} MB); plain "
+            f"version {plain:.4f} ms ("
+            + ("append_stage_plain a stage, both kernels' function"
+               if key != "sort_cells" else "sort_shards_plain")
+            + f"); {launches[key]} launches in phase 12's ki_fused run")
+        rows[key] = {
+            "name": key, "route": "cuda", "source": ARRIVALS_SOURCE,
+            "replaces": REPLACES[key], "launches": launches[key],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+    b_whole = 1e3 * (sum(bytes_bin) + sum(bytes_place) + bytes_sort) / \
+        PEAK_BYTES
+    say("timing", f"the unload at {n}^3 f32 2x2x2 (ki: 3 ring_push, 3 "
+        f"arrivals_bin, 3 arrivals_place, 1 sort_cells; the restore's "
+        f"copies taken out): {whole:.4f} ms a call (CUDA events, mean of "
+        f"20; the host's launches), {whole_graph:.4f} ms replayed in a "
+        f"graph of 20; a stage's bin and place " + ", ".join(
+            f"{x:.4f}" for x in k_ms)
+        + f" ms (replayed in a graph); the sort {sort_k:.4f} ms (CUDA "
+        f"events, mean of 20); plain (append_stage_plain, "
+        f"sort_shards_plain) {whole_plain:.3f} ms; bound of the unload's "
+        f"bins, places and sort {b_whole:.5f} ms (bytes)")
+    say("timing", "no single PyTorch call bins and appends atoms to cells, "
+        "nor sorts three fields by one key: library_ms none")
+
+    # one eager mesh redistribution (the lazy step's IF body), op by op:
+    # the profiler may drop records, so the most of five profiles
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sim._rebucket_step()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "Loading" not in e.key]
+        runs.append((sum(e.count for e in ops), sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in ops) / 1e3))
+    n_ops, dev_ms = max(runs)
+    check(n_ops <= 100, f"an eager mesh redistribution made {n_ops} device "
+          f"operations")
+    say("arrivals", f"one eager redistribution of the {n}^3 2x2x2 ki_fused "
+        f"mesh (sim._rebucket_step): {n_ops} device operations, "
+        f"{dev_ms:.4f} ms of device time (torch.profiler, the profile with "
+        f"the most records of five: " + ", ".join(str(r[0]) for r in runs)
+        + ")")
+    del sim, fields, main, work, ex, out
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -3352,6 +3745,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import arrivals as av
     from comd_tpu_torch.ops.cuda import comm as cm
     from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.ops.cuda import nl as nlk
@@ -3384,13 +3778,13 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(7) as pool:
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
         list(pool.map(lambda m: m.build(), (st, cm, pr, nlk, graph_if,
-                                            step, rb)))
+                                            step, rb, av)))
     t_build = time.perf_counter() - t0
     for mod, stem in ((st, "stencil"), (cm, "comm"), (pr, "probe"),
                       (nlk, "nl"), (graph_if, "graph_if"), (step, "step"),
-                      (rb, "rebucket")):
+                      (rb, "rebucket"), (av, "arrivals")):
         log = os.path.join(st.BUILD_DIR, f"{stem}_ptxas.log")
         entries = []       # (mangled name, registers, spill store bytes)
         if os.path.exists(log):
@@ -3426,7 +3820,7 @@ def main() -> int:
             bad = {k: v for k, v in spill.items()
                    if k.startswith("f32") and k != "f32 eam table" and v}
             check(not bad, f"f32 {stem} kernels spill: {bad}")
-    say("build", f"seven sources in {t_build:.1f} s")
+    say("build", f"eight sources in {t_build:.1f} s")
 
     # 3. K1 vs plain version on a thermalized 10^3 lattice
     for dtype, impl, f_atol, s_rtol, f_rtol in (
@@ -3630,6 +4024,15 @@ def main() -> int:
                 f"(one a force: the initial one and every step), ring_push "
                 f"{n_ring} times ({exchanges} atom exchanges, three "
                 f"stages each)")
+        exchanges = sim.n_rebucket + 1
+        got = {k: launches[ci][k] for k in ARRIVALS_KEYS}
+        want = {"arrivals_bin": 3 * exchanges,
+                "arrivals_place": 3 * exchanges, "sort_cells": exchanges}
+        check(got == want, f"sharded {ci}: the unload's kernels launched "
+              f"{got}, not {want} ({exchanges} atom exchanges)")
+        say("sharded main", f"{ci}: the unload's kernels launched {got}: "
+            f"one bin and one place launch a stage over the 8 shards and "
+            f"one sort an exchange ({exchanges} atom exchanges)")
         if ci != "collective":
             one_proc[ci] = (launches[ci]["halo_fill"],
                             launches[ci]["ring_push"], sim.n_rebucket + 1,
@@ -3790,12 +4193,16 @@ def main() -> int:
     rows.update(run_rebucket(headline, launches_main))
     del headline
 
+    # 20. the atom exchange's unload (csrc/arrivals.cu)
+    rows.update(run_arrivals(launches["ki_fused"]))
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
                + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
-               + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS]
+               + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS
+               + ARRIVALS_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

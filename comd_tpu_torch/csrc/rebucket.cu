@@ -8,8 +8,9 @@
 // torch.sort on box << 31 | gid, a run rank, seven scatters).  The
 // function: every valid local slot (slot < n_atoms[cell]) is wrapped into
 // [0, L) in r's dtype (with a wrap extent), binned in f64 by
-// getBoxFromCoord's rules (the halo numbering of getBoxFromTuple, the
-// Hilbert table where the geometry has one), folded back through the
+// getBoxFromCoord's rules (csrc/bin.cuh, shared with arrivals.cu: the
+// halo numbering of getBoxFromTuple, the Hilbert table where the geometry
+// has one), folded back through the
 // serial halo map if it binned into a halo cell (with a wrap), and every
 // kept cell (the local ones; every cell under keep_halo) holds its atoms
 // in ascending gid order from slot 0, the rest of its slots empty; the
@@ -68,6 +69,8 @@
 // `stream`, returns the cudaError_t of the launches (0 = success) and
 // does not synchronize.
 #include <cuda_runtime.h>
+
+#include "bin.cuh"
 
 // What ops/cuda/rebucket.py's _Args holds (the same order and types).
 struct RebucketArgs {
@@ -182,43 +185,9 @@ struct Record<double> {
   }
 };
 
-// getBoxFromCoord's cell index along one axis (linkCells.c:448-480), in
-// f64 as the plain version takes it: floor, a coordinate inside the
-// domain that rounds onto the far face kept in the last cell, outside
-// the domain past it, clamped to [-1, g].
-__device__ __forceinline__ int axis_index(double x, double lo, double hi,
-                                          double inv, int g) {
-  const double f = floor(__dmul_rn(__dsub_rn(x, lo), inv));
-  if (!(x < hi)) return g;
-  if (f == static_cast<double>(g)) return g - 1;
-  if (f < -1.0) return -1;
-  if (f > static_cast<double>(g)) return g;
-  return static_cast<int>(f);
-}
-
-// getBoxFromTuple (linkCells.c:299-346): the local cell, or the halo
-// cell's number (z faces over y faces over x faces).
-__device__ __forceinline__ int box_from_tuple(const Args& a, int ix, int iy,
-                                              int iz) {
-  const int gx = a.grid[0], gy = a.grid[1], gz = a.grid[2];
-  const int nl = a.n_local;
-  if (iz == -1 || iz == gz)
-    return nl + 2 * gz * gy + 2 * gz * (gx + 2) +
-           (iz == gz ? (gx + 2) * (gy + 2) : 0) + (gx + 2) * (iy + 1) +
-           (ix + 1);
-  if (iy == -1) return nl + 2 * gz * gy + iz * (gx + 2) + (ix + 1);
-  if (iy == gy) return nl + 2 * gz * gy + gz * (gx + 2) + (gx + 2) * iz +
-                       (ix + 1);
-  if (ix == -1) return nl + iz * gy + iy;
-  if (ix == gx) return nl + gy * gz + iz * gy + iy;
-  if (a.box_of_tuple != nullptr)
-    return static_cast<int>(a.box_of_tuple[(static_cast<long long>(ix) * gy +
-                                            iy) * gz + iz]);
-  return ix + iy * gx + iz * gx * gy;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads) rebucket_bin_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) rebucket_bin_kernel(
+    const __grid_constant__ Args a) {
   using R = Record<T>;
   const int n = a.n_local * a.A;
   const int s = blockIdx.x * kThreads + threadIdx.x;
@@ -244,12 +213,8 @@ __global__ void __launch_bounds__(kThreads) rebucket_bin_kernel(Args a) {
         }
         x[k] = y;
       }
-      int t[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        t[k] = axis_index(static_cast<double>(x[k]), a.local_min[k],
-                          a.local_max[k], a.inv_box[k], a.grid[k]);
-      int b = box_from_tuple(a, t[0], t[1], t[2]);
+      int b = bin_box(x, a.local_min, a.local_max, a.inv_box, a.grid,
+                      a.n_local, a.box_of_tuple);
       if (ext != nullptr && b >= a.n_local) {
         // a coordinate rounded onto L: the periodic image's local cell
         int h = b - a.n_local;
@@ -300,7 +265,8 @@ __host__ __device__ __forceinline__ int place_cells(int A) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) rebucket_place_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads) rebucket_place_kernel(
+    const __grid_constant__ Args a) {
   using R = Record<T>;
   using Piece = typename R::Piece;
   extern __shared__ int smem[];    // [P] counts, then [P][C] gids

@@ -18,7 +18,9 @@ LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             "kick_drift_trigger": 0, "refresh_halo": 0, "embed_fill": 0,
             "land": 0,
             # the redistribution (rebucket.py)
-            "rebucket_bin": 0, "rebucket_place": 0}
+            "rebucket_bin": 0, "rebucket_place": 0,
+            # the atom exchange's unload (arrivals.py)
+            "arrivals_bin": 0, "arrivals_place": 0, "sort_cells": 0}
 
 
 def reset_launch_counts() -> None:

@@ -119,21 +119,22 @@ class Workspace:
             self.counts.numel() >= 2 + n_cells
 
 
-def workspace(device: torch.device, stage_bytes: int,
-              n_cells: int) -> Workspace:
+def workspace(device: torch.device, stage_bytes: int, n_cells: int,
+              pool: dict = _WORK) -> Workspace:
     """A workspace of the device that holds ``stage_bytes`` of staging and
-    ``n_cells`` counters: the first that does, else a new one (made
-    outside a capture; the old ones stay, since graphs may replay them)."""
+    ``n_cells`` counters: the first of ``pool``'s that does, else a new
+    one (made outside a capture; the old ones stay, since graphs may
+    replay them)."""
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
-    held = _WORK.setdefault(dev, [])
+    held = pool.setdefault(dev, [])
     for w in held:
         if w.fits(stage_bytes, n_cells):
             return w
     if torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("the rebucket kernels' workspace is made at "
-                           "their first launch at a size, which may not be "
-                           "captured")
+        raise RuntimeError("a kernel workspace (csrc/rebucket.cu's, "
+                           "csrc/arrivals.cu's) is made at its first launch "
+                           "at a size, which may not be captured")
     w = Workspace(torch.device("cuda", dev), stage_bytes, n_cells)
     held.append(w)
     return w

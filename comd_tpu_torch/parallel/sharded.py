@@ -137,38 +137,43 @@ class ShardedSimulation(Physics):
         """The neighbor-list path's dfEmbed fill: collective always."""
         return exchange.exchange_scalar(self.halo, x)
 
-    def _exchange_atoms(self, r, p, gid, n_atoms):
-        """Atom exchange per --commImpl, then the canonical in-cell sort.
-        Returns lists (r, p, gid, n_atoms) and the overflow flag."""
+    def _exchange_atoms(self, r, p, gid, n_atoms, out=None):
+        """Atom exchange per --commImpl, in place on the lists' tensors,
+        then the canonical in-cell sort of every shard (one launch on the
+        card), in place or into ``out``'s (r, p, gid) lists.  Returns
+        lists (r, p, gid, n_atoms) and the overflow flag."""
         xatoms = (exchange.exchange_atoms
                   if self.cfg.comm_impl == "collective"
                   else ki_comm.exchange_atoms_ki)
         r, p, gid, n_atoms, ovf = xatoms(self.halo, r, p, gid, n_atoms)
-        out = [binning.sort_cells(*t) for t in zip(r, p, gid)]
-        return ([o[0] for o in out], [o[1] for o in out],
-                [o[2] for o in out], n_atoms, ovf)
+        binning.sort_shards(r, p, gid, out)
+        if out is not None:
+            r, p, gid = out
+        return r, p, gid, n_atoms, ovf
 
     # ---------------- stepping ----------------
 
-    def _redistribute(self, r, p, gid, n_atoms, pre: bool = False):
-        """Rebucket every shard (halo landers kept), exchange, sort.  With
-        ``pre`` (the -S 0 step under -a 1) it also returns the positions
-        the interior sweeps read: the rebucketed ones, which equal the
-        exchanged ones on every local cell unless some atom left its
-        shard, and then the exchanged ones, selected on the device
-        (comd_tpu's sharded.py:258-265: ``jnp.where(any_mig, r, r_pre)``;
-        across processes the migration flag is or-ed by an allgather)."""
-        out = [binning.rebucket(self.geom, self.maps, *t, keep_halo=True)
+    def _redistribute(self, r, p, gid, n_atoms, pre: bool = False,
+                      out=None):
+        """Rebucket every shard (halo landers kept), exchange, sort (into
+        ``out``'s (r, p, gid) lists when given).  With ``pre`` (the -S 0
+        step under -a 1) it also returns the positions the interior sweeps
+        read: the rebucketed ones, which equal the exchanged ones on every
+        local cell unless some atom left its shard, and then the exchanged
+        ones, selected on the device (comd_tpu's sharded.py:258-265:
+        ``jnp.where(any_mig, r, r_pre)``; across processes the migration
+        flag is or-ed by an allgather)."""
+        reb = [binning.rebucket(self.geom, self.maps, *t, keep_halo=True)
                for t in zip(r, p, gid, n_atoms)]
-        ovf = torch.stack([o[5] for o in out]).any()
-        r_reb = [o[0] for o in out]
+        ovf = torch.stack([o[5] for o in reb]).any()
+        # the exchange overwrites the rebucketed fields
+        r_reb = [o[0].clone() for o in reb] if pre else None
         r, p, gid, n_atoms, ovf2 = self._exchange_atoms(
-            r_reb, [o[1] for o in out], [o[2] for o in out],
-            [o[3] for o in out])
+            *[[o[k] for o in reb] for k in range(4)], out=out)
         res = (r, p, gid, n_atoms, ovf | ovf2)
         if not pre:
             return res
-        migrated = (torch.stack([o[4] for o in out]) > 0).any()
+        migrated = (torch.stack([o[4] for o in reb]) > 0).any()
         if self.mesh.nprocs > 1:
             migrated = dist.allgather(migrated).any()
         return res + ([torch.where(migrated, a, b)
@@ -215,7 +220,8 @@ class ShardedSimulation(Physics):
 
     def _rebucket_step(self, pre: bool = False) -> None:
         """Rebucket every shard, exchange atoms and sort into the step's
-        buffers (``_redistribute``), then the new baseline or, on the list
+        buffers (``_redistribute``; the sort writes r, p and gid there, the
+        counts are copied), then the new baseline or, on the list
         paths, every shard's rebuild into its list's buffers; one more on
         the device rebucket counter.  Under -a 1 the interior sweeps read
         the exchanged positions or, with ``pre`` (-S 0), the device's
@@ -224,10 +230,10 @@ class ShardedSimulation(Physics):
         st = self.states
         r, p, gid, n_atoms, ovf, *sel = self._redistribute(
             [s.r for s in st], [s.p for s in st], [s.gid for s in st],
-            [s.n_atoms for s in st], pre=pre)
-        for s, *new in zip(st, r, p, gid, n_atoms):
-            for t, v in zip((s.r, s.p, s.gid, s.n_atoms), new):
-                t.copy_(v)
+            [s.n_atoms for s in st], pre=pre,
+            out=([s.r for s in st], [s.p for s in st], [s.gid for s in st]))
+        for s, n in zip(st, n_atoms):
+            s.n_atoms.copy_(n)
         if self._reads_r_pre:
             for b, x in zip(self._r_pre(), sel[0] if sel else r):
                 b.copy_(x)

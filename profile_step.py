@@ -27,8 +27,9 @@ durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
 most device time, the device time of one launch of each hand-written
 kernel (K1/K2, the halo and list kernels, the step's
-kick_drift_trigger, refresh_halo, embed_fill and land, and the
-redistribution's rebucket_bin and rebucket_place), the gap in the
+kick_drift_trigger, refresh_halo, embed_fill and land, the
+redistribution's rebucket_bin and rebucket_place, and on a mesh the atom
+exchange's arrivals_bin, arrivals_place and sort_cells), the gap in the
 trace from the end of a step's last kick_drift_trigger to the start of
 its force's first pair kernel (median, least and largest over the
 profiled steps: the median is a step's that does not rebucket, where
@@ -37,7 +38,8 @@ capture and instantiation seconds, and
 one redistribution run eagerly (host ms to enqueue it, ms to its end,
 device ms, device operations and the eight that take the most device
 time: serially csrc/rebucket.cu's two launches, the halo fill and the
-counter's add).
+counter's add; on a mesh also the exchange's ring_push and
+csrc/arrivals.cu's launches, and the copies into the step's buffers).
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
 """
@@ -186,7 +188,7 @@ def main(argv=None) -> int:
             "device_ops": sum(e.count for e in reb),
             # its operations by device time: on the card the serial one is
             # csrc/rebucket.cu's bin and place launches, refresh_halo and
-            # the counter's add
+            # the counter's add; a mesh's adds the exchange's kernels
             "top_ops": [
                 {"name": e.key[:90], "us": getattr(
                     e, "self_device_time_total",
@@ -218,7 +220,10 @@ def main(argv=None) -> int:
                                     "refresh_halo_kernel",
                                     "embed_fill_kernel", "land_kernel",
                                     "rebucket_bin_kernel",
-                                    "rebucket_place_kernel"))},
+                                    "rebucket_place_kernel",
+                                    "arrivals_bin_kernel",
+                                    "arrivals_place_kernel",
+                                    "sort_cells_kernel"))},
     }))
     return 0
 

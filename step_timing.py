@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the step's small kernels (csrc/step.cu), the serial rebucket body
-(csrc/rebucket.cu) and the step graph's branch of one or more source
-trees on one GPU, in turns.
+"""Time the step's small kernels (csrc/step.cu), the serial and the mesh's
+rebucket body (csrc/rebucket.cu, csrc/arrivals.cu) and the step graph's
+branch of one or more source trees on one GPU, in turns.
 
     python3 step_timing.py [TREE ...]
 
@@ -31,6 +31,11 @@ graphs (CUDA events around replays; ms a launch):
                      halo fill, the baseline, the counter; on a tree
                      without csrc/rebucket.cu the torch ops, the copies
                      and the baseline's copy)
+  mesh rebucket body the 2x2x2 ki_fused mesh's (eight shard rebuckets,
+                     the atom exchange's three ring_push stages and
+                     their unloads, the sort, the copies into the step's
+                     buffers; on a tree without csrc/arrivals.cu the
+                     unload and the sort as torch ops), 2 calls a graph
   branch             one replay of a graph of the serial step's head and
                      its IF nodes (the rebucket's body one small kernel):
                      the trigger with the images and one IF node, or on a
@@ -249,6 +254,17 @@ def worker(tree: str) -> dict:
     sim._bind()
     cases["rebucket body"] = sim._rebucket_step
     out = {name: graph_ms(torch, fn) for name, fn in cases.items()}
+    # the 2x2x2 mesh's (ki_fused in one process): eight rebuckets, the
+    # atom exchange and the sort; a graph of 2 calls (a tree whose
+    # exchange is torch ops makes thousands of nodes a call)
+    mesh = init_simulation(Config(
+        nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
+        dtype="float32", max_atoms=0, cell_mode="auto",
+        pot_dir=os.path.join(ROOT, "pots"), device="cuda",
+        comm_impl="ki_fused", xproc=2, yproc=2, zproc=2))
+    mesh._bind()
+    out["mesh rebucket body"] = graph_ms(torch, mesh._rebucket_step,
+                                         calls=2, reps=5)
     out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM"):
         out.update(embed_forms(torch, step, embed))

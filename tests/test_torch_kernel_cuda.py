@@ -28,7 +28,11 @@ one host sync a lazy block (the rebucket counter) and none on -S 0; the
 trigger kernel sets the IF nodes' handles so that each body runs when
 the trigger says, serially and or-ed over eight shards, and with the
 serial image map writes the ghost images bit for bit as the plain head
-does, in a graph with the one handle of the serial step too.
+does, in a graph with the one handle of the serial step too.  The atom
+exchange's unload (csrc/arrivals.cu: bin and place a stage, the sort of
+every shard) equals its plain versions bit for bit at every stage under
+each transport, and in a crowded cell up to C arrivals (past C the counts
+and the flag); a mesh redistribution is 3 bin, 3 place and 1 sort launch.
 """
 import dataclasses
 import os
@@ -1529,3 +1533,189 @@ def test_rebucket_kernels_refuse_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         rb.rebucket(geom, maps, *f, wrap_extent=torch.zeros(
             3, dtype=torch.float64, device="cuda"))
+
+
+# --------------------------------------------------------------------------
+# the atom exchange's unload (csrc/arrivals.cu)
+# --------------------------------------------------------------------------
+
+def _displaced_shards(sim, seed, scale=0.6):
+    """Every shard's atoms displaced by up to ``scale`` A (numpy, seeded)
+    and rebucketed with the halo landers kept: (r, p, gid, n_atoms)
+    lists."""
+    rng = np.random.default_rng(seed)
+    nl, A = sim.geom.n_local, sim.cfg.max_atoms
+    reb = []
+    for s in sim.states:
+        r = s.r.clone()
+        valid = torch.arange(A, device="cuda")[None, :] < \
+            s.n_atoms[:nl, None]
+        d = torch.as_tensor(rng.uniform(-scale, scale, (3, nl, A)),
+                            dtype=r.dtype, device="cuda")
+        r[:, :nl] += torch.where(valid[None], d, torch.zeros_like(d))
+        reb.append(binning.rebucket(sim.geom, sim.maps, r, s.p, s.gid,
+                                    s.n_atoms, keep_halo=True)[:4])
+    return [list(f) for f in zip(*reb)]
+
+
+@pytest.mark.parametrize("transport", ["ki", "collective", "packed"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_arrivals_kernels_match_plain(cuda_device, dtype, mesh, transport):
+    """csrc/arrivals.cu's bin and place launches against
+    append_stage_plain on the same CUDA tensors, bit for bit, at every
+    stage of a displaced mesh state's exchange (ki: the sender's counts
+    read where ring_push left them; collective: a flag an entry, full
+    planes or count-packed), one launch of each a stage; then the sort
+    of every shard in one launch against sort_shards_plain."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    sim = _mesh_sim(dtype, mesh, comm_impl="ki",
+                    halo_msg_factor=0.6 if transport == "packed" else 0.0)
+    h = sim.halo
+    fields = _displaced_shards(sim, 7)
+    overflow = torch.zeros((), dtype=torch.bool, device="cuda")
+    for axis in range(3):
+        if transport == "ki":
+            arrivals = ki_comm.push_arrivals(h, axis, fields)
+        else:
+            arrivals = exchange.atom_arrivals(h, axis, *fields, overflow)
+        plain = [[t.clone() for t in f] for f in fields]
+        ovf_plain = overflow.clone()
+        st.reset_launch_counts()
+        shifts = (-h.ext[axis], h.ext[axis])
+        av.append_stage(h.geom, h.maps, *fields, arrivals, overflow, axis,
+                        shifts)
+        assert (st.LAUNCHES["arrivals_bin"],
+                st.LAUNCHES["arrivals_place"]) == (1, 1)
+        av.append_stage_plain(h.geom, h.maps, *plain, arrivals, ovf_plain,
+                              axis, shifts)
+        for a, b in zip(fields, plain):
+            assert _equal(a, b), axis
+        assert torch.equal(overflow, ovf_plain)
+    want = [[t.clone() for t in f] for f in fields[:3]]
+    av.sort_shards_plain(*want)
+    st.reset_launch_counts()
+    av.sort_shards(*fields[:3])
+    assert st.LAUNCHES["sort_cells"] == 1
+    for a, b in zip(fields[:3], want):
+        assert _equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("crowd", ["within C", "past C"])
+def test_arrivals_crowd_matches_plain(cuda_device, dtype, crowd):
+    """A cell that receives A < n <= C arrivals: the kernels' slots equal
+    the plain version's, the flag set; past C (n = 3A) the counts and the
+    flag equal, and every other cell's slots."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    geom, maps, f = _rb_synthetic(np.array([4.0, 4.0, 8.0]) * 4.0,
+                                  np.array([8.0, 8.0, 12.0]) * 4.0, 16,
+                                  dtype, 31)
+    A = 16
+    C = av.stage_capacity(A)
+    n = A + 3 if crowd == "within C" else 3 * A
+    rng = np.random.default_rng(32)
+    M = 8 * A
+    cell = geom.local_min + geom.box_size * (np.array([1, 2, 1]) + 0.5)
+    r = np.ascontiguousarray(rng.uniform(
+        geom.local_min - geom.box_size, geom.local_max + geom.box_size,
+        (M, 3)).T)
+    r[:, :n] = cell[:, None] + rng.uniform(-0.4, 0.4, (3, n)) * \
+        geom.box_size[:, None]
+    dt = f[0].dtype
+    src = (torch.as_tensor(r, dtype=dt, device="cuda"),
+           torch.randn((3, M), dtype=dt, device="cuda"),
+           torch.as_tensor(rng.permutation(2 ** 20)[:M] + 2 ** 30,
+                           dtype=torch.int32, device="cuda"),
+           torch.as_tensor(rng.uniform(size=M) < 0.9, device="cuda"))
+    src[3][:n] = True
+    got, want = [[t.clone()] for t in f], [[t.clone()] for t in f]
+    ovf = [torch.zeros((), dtype=torch.bool, device="cuda") for _ in "ab"]
+    av.append_stage(geom, maps, *got, [[src]], ovf[0])
+    av.append_stage_plain(geom, maps, *want, [[src]], ovf[1])
+    assert bool(ovf[0]) and torch.equal(*ovf)
+    assert torch.equal(got[3][0], want[3][0])
+    added = want[3][0] - f[3]
+    assert int(added.max()) == n and int((added > C).sum()) == (
+        crowd == "past C")
+    ok = added <= C
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a[0][..., ok, :], b[0][..., ok, :])
+
+
+@pytest.mark.parametrize("A", [13, 16, 300])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_sort_cells_kernel_matches_plain(cuda_device, dtype, A):
+    """The sort launch against sort_cells_plain, bit for bit, on rows with
+    many tied EMPTY_GIDs holding junk positions (kept in slot order), at
+    an odd A, A = 16 and A = 300 (one cell a block, a thread several
+    slots); into other tensors and in place; one launch for 3 shards."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    g = torch.Generator(device="cpu").manual_seed(A)
+    B = 500
+    dt = getattr(torch, dtype)
+    shards = []
+    for _ in range(3):
+        gid = torch.randint(0, 2 ** 30, (B, A), generator=g,
+                            dtype=torch.int32)
+        gid[torch.rand((B, A), generator=g) < 0.5] = binning.EMPTY_GID
+        shards.append([torch.randn((3, B, A), generator=g, dtype=dt).cuda(),
+                       torch.randn((3, B, A), generator=g, dtype=dt).cuda(),
+                       gid.cuda()])
+    want = [av.sort_cells_plain(*s) for s in shards]
+    lists = [[s[k] for s in shards] for k in range(3)]
+    out = [[torch.empty_like(t) for t in f] for f in lists]
+    st.reset_launch_counts()
+    av.sort_shards(*lists, out)
+    assert st.LAUNCHES["sort_cells"] == 1
+    for s, w in enumerate(want):
+        assert _equal([o[s] for o in out], w)
+    av.sort_shards(*lists)
+    for s, w in zip(shards, want):
+        assert _equal(s, w)
+    assert _equal(av.sort_cells(*want[0]), want[0])
+
+
+@pytest.mark.parametrize("comm_impl", ["ki_fused", "ki", "collective"])
+def test_mesh_redistribution_launches(cuda_device, comm_impl, monkeypatch):
+    """One mesh redistribution (``_rebucket_step``) of the 2x2x2 mesh in
+    one process: csrc/rebucket.cu's two launches a shard, then the atom
+    exchange's 3 stages, each one bin and one place launch over all eight
+    shards (and one ring_push under ki), and one sort launch; the same
+    state as the plain versions' bit for bit."""
+    sim = _mesh_sim("float32", comm_impl=comm_impl)
+    twin = _mesh_sim("float32", comm_impl=comm_impl)
+    st.reset_launch_counts()
+    sim._rebucket_step()
+    torch.cuda.synchronize()
+    want = {"rebucket_bin": 8, "rebucket_place": 8, "arrivals_bin": 3,
+            "arrivals_place": 3, "sort_cells": 1,
+            "ring_push": 0 if comm_impl == "collective" else 3}
+    assert {k: st.LAUNCHES[k] for k in want} == want
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    monkeypatch.setattr(rb, "rebucket", rb.rebucket_plain)
+    monkeypatch.setattr(av, "append_stage", av.append_stage_plain)
+    monkeypatch.setattr(av, "sort_shards", av.sort_shards_plain)
+    twin._rebucket_step()
+    for a, b in zip(sim.states, twin.states):
+        for k in ("r", "p", "gid", "n_atoms"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+def test_arrivals_kernels_refuse_what_they_do_not_take(cuda_device):
+    """The wrappers raise on operands on two devices, before a launch."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    geom, maps, f = _rb_synthetic(np.zeros(3), np.full(3, 12.0), 16,
+                                  "float32", 41, cut=4.0)
+    src = (f[0][:, :4].reshape(3, -1).contiguous(),
+           f[1][:, :4].reshape(3, -1).contiguous(),
+           f[2][:4].reshape(-1).contiguous(), f[3][:4].contiguous())
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+    for bad in ((src[0].cpu(),) + src[1:], src[:3] + (src[3].cpu(),)):
+        with pytest.raises(ValueError):
+            av.append_stage(geom, maps, *[[t] for t in f], [[bad]], ovf)
+    with pytest.raises(ValueError):
+        av.append_stage(geom, maps, *[[t] for t in f], [[src]], ovf.cpu())
+    with pytest.raises(ValueError):
+        av.sort_shards([f[0]], [f[1]], [f[2].cpu()])

@@ -161,12 +161,12 @@ def test_atoms_across_processes_in_one_process(mesh_sim, n):
         reb.append(binning.rebucket(sim.geom, sim.maps, r, s.p, s.gid,
                                     s.n_atoms, keep_halo=True)[:4])
     fields = [list(f) for f in zip(*reb)]
-    want = ki_comm.exchange_atoms_ki(sim.halo, *fields)
+    want = ki_comm.exchange_atoms_ki(sim.halo,
+                                     *[[t.clone() for t in f] for f in fields])
     procs = _processes(sim, n, A, torch.float64)
     mine = [[[f[s] for s in h.mesh.owned] for f in fields]
             for h, _l in procs]
     ovf = [torch.zeros((), dtype=torch.bool) for _ in procs]
-    slot = torch.arange(A)[None, :]
     for axis in range(3):
         pushed = [ki_comm._atoms_push(h, link, axis, tuple(f))
                   for (h, link), f in zip(procs, mine)]
@@ -174,7 +174,7 @@ def test_atoms_across_processes_in_one_process(mesh_sim, n):
         for b, ((h, _l), f) in enumerate(zip(procs, mine)):
             ovf[b] = ki_comm._atoms_unpack(
                 h, axis, st_of[b], pushed[b][2],
-                _handed(procs, b, st_of, "atoms", axis), *f, slot, ovf[b])
+                _handed(procs, b, st_of, "atoms", axis), *f, ovf[b])
     for k in range(4):
         got = [t for f in mine for t in f[k]]
         assert all(torch.equal(a, b) for a, b in zip(got, want[k]))
