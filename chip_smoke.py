@@ -277,7 +277,11 @@ the first error:
                  bounds.
  20. arrivals -- the atom exchange's unload (csrc/arrivals.cu:
                  arrivals_bin and arrivals_place a stage over every
-                 shard, sort_cells over every shard) against its plain
+                 shard, the place launch over the bin launch's list of
+                 the cells that got arrivals (a segment a bin warp), its
+                 length checked against the plain version's cells;
+                 sort_cells over every shard, the warp form at A <= 32)
+                 against its plain
                  versions (append_stage_plain, sort_shards_plain) on the
                  same CUDA tensors at every stage, bit for bit in every
                  cell of at most C arrivals: the 63^3 f32 2x2x2 state
@@ -289,7 +293,8 @@ the first error:
                  set) and one of n > C (the counts and the flag equal);
                  one bin and one place launch a stage, one sort.  At the
                  63^3 state under ki each launch timed under
-                 torch.profiler (mean of 20), a stage replayed in a
+                 torch.profiler (mean of 20; the sort in both forms, the
+                 earlier designs' times beside), a stage replayed in a
                  graph, the whole unload (3 ring_push, 3 bin, 3 place, 1
                  sort) with CUDA events (mean of 20) and in a graph,
                  beside the plain versions and the byte bounds; one eager
@@ -3372,6 +3377,11 @@ def run_rebucket(headline, launches: dict) -> dict:
 
 ARRIVALS_SOURCE = "comd_tpu_torch/csrc/arrivals.cu"
 ARRIVALS_KEYS = ("arrivals_bin", "arrivals_place", "sort_cells")
+# the first designs' ms a launch at phase 20's 63^3 f32 2x2x2 ki state
+# (this script on an NVIDIA H100 80GB HBM3 at 700 W): the place launch a
+# warp a cell over every cell, the sort in the block form at A = 16
+ARRIVALS_EARLIER_MS = {"arrivals_bin": 0.00687, "arrivals_place": 0.01534,
+                       "sort_cells": 0.05972}
 
 
 def av_fields(sim, seed: int, scale: float) -> list:
@@ -3447,9 +3457,15 @@ def av_chain(name, h, fields, transport: str) -> dict:
         av.append_stage(h.geom, h.maps, *f, arr, ovf, axis, shifts)
         check([LAUNCHES[k] for k in ARRIVALS_KEYS[:2]] == [n + 1 for n in n0],
               f"arrivals {name}: not one bin and one place launch a stage")
+        n_list = av.list_length(f[0][0].device)
         av.append_stage_plain(h.geom, h.maps, *plain, arr, ovf_p, axis,
                               shifts)
         stats = av_stage_stats(before, plain, arr, A)
+        stats["list"] = n_list
+        check(n_list == stats["cells"],
+              f"arrivals {name} stage {axis}: the place launch's list holds "
+              f"{n_list} cells, the plain version gave {stats['cells']} "
+              f"cells arrivals")
         C = av.stage_capacity(A)
         check(torch.equal(ovf, ovf_p) and all(
             torch.equal(a, b) for a, b in zip(f[3], plain[3])),
@@ -3480,7 +3496,8 @@ def av_chain(name, h, fields, transport: str) -> dict:
     say("arrivals", f"{name}: the three stages' bin and place launches and "
         f"the sort equal the plain versions bit for bit; "
         + ", ".join(f"stage {i}: {st[1]['valid']} arrivals into "
-                    f"{st[1]['cells']} cells, {st[1]['stored']} stored"
+                    f"{st[1]['cells']} cells (the list's length "
+                    f"{st[1]['list']}), {st[1]['stored']} stored"
                     for i, st in enumerate(stages))
         + f"; overflow {bool(ovf)}")
     return dict(stages=stages, exchanged=exchanged, err=err)
@@ -3518,10 +3535,14 @@ def av_crowd(dtype: str, n: int) -> int:
     got, want = [[t.clone()] for t in f], [[t.clone()] for t in f]
     ovf = [torch.zeros((), dtype=torch.bool, device="cuda") for _ in "ab"]
     av.append_stage(geom, maps, *got, [[src]], ovf[0])
+    n_list = av.list_length(got[0][0].device)
     av.append_stage_plain(geom, maps, *want, [[src]], ovf[1])
     check(bool(ovf[0]) and torch.equal(*ovf) and
           torch.equal(got[3][0], want[3][0]),
           f"arrivals crowd {n} {dtype}: the counts or the flag differ")
+    check(n_list == int((want[3][0] > f[3]).sum()),
+          f"arrivals crowd {n} {dtype}: the place launch's list holds "
+          f"{n_list} cells")
     ok = want[3][0] - f[3] <= av.stage_capacity(A)
     for a, b in zip(got[:3], want[:3]):
         check(torch.equal(a[0][..., ok, :], b[0][..., ok, :]),
@@ -3622,10 +3643,29 @@ def run_arrivals(launches: dict) -> dict:
                    ("arrivals_bin_kernel", "arrivals_place_kernel"))
     ex = main["exchanged"]
     out = [[torch.empty_like(t) for t in x] for x in ex[:3]]
+    form = av.sort_form(A)
+    sort_name = {"warp": "sort_cells_warp_kernel",
+                 "block": "sort_cells_kernel"}
     sort_k = time_ms(lambda: av.sort_shards(*ex[:3], out), 20)
     sort_p = time_ms(lambda: av.sort_shards_plain(*ex[:3], out), 3)
     us.update(kernel_us(lambda: av.sort_shards(*ex[:3], out),
-                        ("sort_cells_kernel",)))
+                        (sort_name[form],)))
+    # the other form on the same input (the block form takes any A), for
+    # the comparison only: its launches are not the main path's
+    other = "block" if form == "warp" else None
+    if other is not None:
+        chosen = av.sort_form
+        av.sort_form = lambda _a: other
+        try:
+            want = [[torch.empty_like(t) for t in x] for x in out]
+            av.sort_shards(*ex[:3], want)
+            check(all(torch.equal(a, b) for x, y in zip(out, want)
+                      for a, b in zip(x, y)),
+                  f"arrivals: the {other} sort differs from the {form} sort")
+            us.update(kernel_us(lambda: av.sort_shards(*ex[:3], want),
+                                (sort_name[other],)))
+        finally:
+            av.sort_form = chosen
 
     def unload():
         restore(0)
@@ -3662,14 +3702,24 @@ def run_arrivals(launches: dict) -> dict:
             ("arrivals_place", "arrivals_place_kernel",
              sum(bytes_place) / 3, us["arrivals_place_kernel"] / 1e3,
              sum(p_ms) / 3),
-            ("sort_cells", "sort_cells_kernel", bytes_sort,
-             us["sort_cells_kernel"] / 1e3, sort_p)):
+            ("sort_cells", sort_name[form], bytes_sort,
+             us[sort_name[form]] / 1e3, sort_p)):
         b_ms = 1e3 * nb / PEAK_BYTES
+        how = {"arrivals_bin": "a thread an arrival slot, the first "
+                               "leader a cell lists it in its warp's "
+                               "segment",
+               "arrivals_place": f"a grid of "
+                                 f"{av.place_blocks(ex[0][0].device, 4, A)} "
+                                 f"blocks striding over groups of 32 of "
+                                 f"the list's segments, a warp a listed "
+                                 f"cell",
+               "sort_cells": f"the {form} form at A = {A}"}[key]
         say("timing", f"{key} at {n}^3 f32 2x2x2 (ki, a mean over the "
-            f"three stages for bin and place): {ms:.5f} ms a launch "
+            f"three stages for bin and place; {how}): {ms:.5f} ms a launch "
             f"(torch.profiler, mean of 20; the bound at {b_ms / ms:.0%} of "
-            f"it); bound {b_ms:.5f} ms (bytes: {nb / 1e6:.3f} MB); plain "
-            f"version {plain:.4f} ms ("
+            f"it; the first design {ARRIVALS_EARLIER_MS[key]:.5f} ms on an "
+            f"H100 at 700 W); bound {b_ms:.5f} ms (bytes: {nb / 1e6:.3f} "
+            f"MB); plain version {plain:.4f} ms ("
             + ("append_stage_plain a stage, both kernels' function"
                if key != "sort_cells" else "sort_shards_plain")
             + f"); {launches[key]} launches in phase 12's ki_fused run")
@@ -3678,6 +3728,14 @@ def run_arrivals(launches: dict) -> dict:
             "replaces": REPLACES[key], "launches": launches[key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+    rows["sort_cells"]["form"] = form
+    if other is not None:
+        o_ms = us[sort_name[other]] / 1e3
+        b_ms = rows["sort_cells"]["bound_ms"]
+        say("timing", f"sort_cells in the {other} form on the same input: "
+            f"{o_ms:.5f} ms a launch (torch.profiler, mean of 20; the bound "
+            f"at {b_ms / o_ms:.0%} of it), the {form} form "
+            f"{rows['sort_cells']['ms']:.5f}")
     b_whole = 1e3 * (sum(bytes_bin) + sum(bytes_place) + bytes_sort) / \
         PEAK_BYTES
     say("timing", f"the unload at {n}^3 f32 2x2x2 (ki: 3 ring_push, 3 "

@@ -7,8 +7,8 @@
 // (comd_tpu/ops/binning.py:175-214) and sort_cells (:217-232) run inside
 // its per-shard XLA program; the port ran them as PyTorch ops, once a
 // shard, direction and stage (ops/cuda/arrivals.py's append_arrivals_plain:
-// the f64 binning, a stable torch.sort, a run rank, seven scatters and the
-// count add, ~143 operations a call; sort_cells_plain: a row sort and two
+// the f64 binning, a stable torch.sort, a run rank, seven scatters and
+// the count add, ~143 operations a call; sort_cells_plain: a row sort and two
 // gathers).  The function of one shard's append: every valid arrival
 // (r shifted along the stage's axis into the receiver's frame, in r's
 // dtype) is binned in f64 by getBoxFromCoord's rules (csrc/bin.cuh) into
@@ -26,28 +26,51 @@
 //                   cell's staging area from one atomicAdd a warp and a
 //                   cell (__match_any_sync), where it writes the arrival
 //                   as one record (gid and its rank tag, r, p: 32 bytes
-//                   in f32, 64 in f64).
-//   arrivals_place  a warp a cell of every shard of the launch: a cell
-//                   without arrivals returns at once; else the records'
-//                   keys into shared memory, each record's rank the
-//                   number of smaller (direction, gid, place) keys, the
-//                   record written to slot n_atoms + rank < A, the count
-//                   added, the flag set where a slot reached A, the
-//                   counter cleared.  Only the cells that got arrivals are
-//                   written; the other slots stay as they were.
-//   sort_cells      a block several cells of every shard (one slot a
-//                   thread up to A = 256): the gids into shared memory,
-//                   each slot's rank the number of smaller gids and of
-//                   equal gids in earlier slots (the stable sort: empty
-//                   slots all hold EMPTY_GID), the inverse permutation in
-//                   shared memory, then each field staged through shared
-//                   memory and written in the sorted order, in place or
-//                   into other tensors (in place a slot that keeps its
-//                   place is not written).
+//                   in f32, 64 in f64).  The leader that finds the cell's
+//                   counter at 0 is its first: it lists the cell in its
+//                   warp's own 32-entry segment of the list (a ballot of
+//                   the warp's first leaders), and lane 0 writes how many
+//                   it listed, 0 too.  Each cell that got arrivals is
+//                   listed once, in no fixed order.  No atomic or barrier
+//                   is added (one list behind an atomic a warp or a block
+//                   on its length cost this launch 59% or 11%, 32 lists
+//                   behind an atomic a warp 13%), and nothing is left to
+//                   clear: every launch writes every segment's length.
+//   arrivals_place  a fixed grid sized to the card (the SMs times the
+//                   blocks an SM holds) whose warps stride over groups of
+//                   32 segments, a power of two warps a group: a warp loads
+//                   the group's 32 lengths at once, scans them by
+//                   shuffles and takes its cells of the group (about one
+//                   a warp); a warp a listed cell loads its records
+//                   (k <= 32: one a lane, ranked by shuffles in
+//                   registers; more: their keys through shared memory),
+//                   ranks each by the number of smaller (direction, gid,
+//                   place) keys, writes it to slot n_atoms + rank < A,
+//                   adds the count, sets the flag where a slot reached A
+//                   and clears the counter.  Only the listed cells are
+//                   touched, whatever the list's order.
+//   sort_cells      every cell of every shard sorted by gid, stable (the
+//                   empty slots all hold EMPTY_GID: ties by slot); in
+//                   place or into other tensors (in place a slot that
+//                   keeps its place is not written).  Two forms, the
+//                   wrapper's choice by A:
+//                     warp  (A <= 32) a cell a warp segment of A rounded
+//                           up to a power of two lanes (two cells a warp
+//                           at A = 16), one slot a lane: the lane loads
+//                           its slot's seven words at once, ranks its gid
+//                           against the cell's by shuffles, and after a
+//                           __syncwarp stores the seven words to slot
+//                           rank; no shared memory, no block barrier;
+//                     block (A > 32) several cells a block, one slot a
+//                           thread up to A = 256: the gids into shared
+//                           memory, the rank, the inverse permutation in
+//                           shared memory, then each field staged through
+//                           shared memory and written in the sorted order.
 //
-// No memset: the counters are zero before the first launch and every place
-// launch leaves them zero, so a launch in a CUDA graph finds them clear at
-// each replay.
+// No memset: the counters are zero before the first launch and every
+// place launch leaves them zero, and the bin launch writes the whole list
+// it hands on, so a launch in a CUDA graph finds them right at each
+// replay.
 //
 // Overflow.  A cell stages at most C records (the wrapper's capacity, C >=
 // 2A).  Up to C arrivals a cell the slots are exact; past C the staged
@@ -61,14 +84,21 @@
 // value cast up; nothing else is computed.  Built with -fmad=false.
 //
 // Bound: bytes.  The bin launch reads the valid arrivals and the masks
-// and writes a record each; the place launch reads every counter, the
-// records and the counts of the cells that got arrivals, and writes their
-// stored slots and counts; the sort reads every slot's r, p and gid and
-// writes them (in place: the slots that move).  A few operations a word.
+// and writes a record each; the place launch reads the records and the
+// counts of the cells that got arrivals, and writes their stored slots
+// and counts; the sort reads every slot's r, p and gid and writes them
+// (in place: the slots that move).  A few operations a word.  What held
+// the first designs back was latency, not bytes: the place launch visited
+// every cell (a warp a cell, ~90% of them without arrivals, ~11 waves of
+// one dependent load each), the sort kept one 4-byte load a thread in
+// flight between 14 block barriers.  The list makes the place launch one
+// wave over the cells with work; the warp sort keeps 28 (f32) or 52 (f64)
+// bytes a lane in flight.
 //
 // Plain C interface for ctypes: comd_arrivals launches bin and place on
 // `stream`, comd_sort_cells the sort; both return the cudaError_t of the
 // launches (0 = success) and do not synchronize.
+// comd_arrivals_place_blocks gives the place launch's grid for a device.
 #include <cuda_runtime.h>
 
 #include "bin.cuh"
@@ -102,6 +132,9 @@ struct ArrivalsArgs {
   bool* overflow;                    // 0-dim bool, set (never cleared)
   void* stage;                       // [n_shards * B, C] records
   int* counts;                       // [n_shards * B], zero between calls
+  int* list;                         // [bin_warps][32] the cells each bin
+                                     // warp opened, in its segment
+  int* list_n;                       // [bin_warps] their number
   const long long* box_of_tuple;     // [gx, gy, gz]: Hilbert; null: dense
   double local_min[3];
   double local_max[3];
@@ -118,6 +151,10 @@ struct ArrivalsArgs {
   int axis;                          // the shifted axis, or -1: no shift
   int mask_counts;                   // 1: counts a cell; 0: a bool a slot
   int place_warps;                   // warps a place block
+  int place_blocks;                  // the place launch's grid
+  int place_fan_log2;                // place warps a group of 32
+                                     // segments: 1 << it (1-1024)
+  int bin_warps;                     // the bin launch's warps (0: none)
 };
 
 // What ops/cuda/arrivals.py's _SortArgs holds.
@@ -131,6 +168,7 @@ struct SortArgs {
   int n_shards;
   int B;
   int A;
+  int form;                          // 1: the warp form (A <= 32); 0: block
 };
 
 namespace {
@@ -163,11 +201,13 @@ struct Record<float> {
     const float4 a = at[0];
     return make_int2(__float_as_int(a.x), __float_as_int(a.y));
   }
-  __device__ __forceinline__ static void get(const Piece* at, float* x,
-                                             float* v) {
+  // the whole record, both pieces loaded before either is used
+  __device__ __forceinline__ static int2 load(const Piece* at, float* x,
+                                              float* v) {
     const float4 a = at[0], b = at[1];
     x[0] = a.z; x[1] = a.w; x[2] = b.x;
     v[0] = b.y; v[1] = b.z; v[2] = b.w;
+    return make_int2(__float_as_int(a.x), __float_as_int(a.y));
   }
 };
 
@@ -189,11 +229,14 @@ struct Record<double> {
     return make_int2(static_cast<int>(k & 0xffffffffll),
                      static_cast<int>(k >> 32));
   }
-  __device__ __forceinline__ static void get(const Piece* at, double* x,
-                                             double* v) {
+  __device__ __forceinline__ static int2 load(const Piece* at, double* x,
+                                              double* v) {
     const double2 a = at[0], b = at[1], c = at[2], d = at[3];
     x[0] = a.y; x[1] = b.x; x[2] = b.y;
     v[0] = c.x; v[1] = c.y; v[2] = d.x;
+    const long long k = __double_as_longlong(a.x);
+    return make_int2(static_cast<int>(k & 0xffffffffll),
+                     static_cast<int>(k >> 32));
   }
 };
 
@@ -243,17 +286,28 @@ __global__ void __launch_bounds__(kThreads)
   // one atomic a cell a warp: the lanes staging into one cell take
   // consecutive places from their leader's reservation
   const unsigned int peers = __match_any_sync(0xffffffffu, cell);
+  bool first = false;        // this lane's reservation opened the cell
   if (cell >= 0) {
     const int leader = __ffs(peers) - 1;
     int base = 0;
     if (lane == leader) base = atomicAdd(a.counts + cell, __popc(peers));
     base = __shfl_sync(peers, base, leader);
+    first = lane == leader && base == 0;
     const int q = base + __popc(peers & ((1u << lane) - 1u));
     if (q < a.C)
       R::put(static_cast<typename R::Piece*>(a.stage) +
                  (static_cast<size_t>(cell) * a.C + q) * R::kPieces,
              g, tag, x, v);
   }
+  // the cells this warp opened, into its own 32-entry segment of the
+  // list, and their number, 0 too: every segment's length is written
+  // every launch, so nothing is left to clear, and no atomic or barrier
+  // is added
+  const size_t seg = static_cast<size_t>(blockIdx.x) * (kThreads / 32) +
+                     (threadIdx.x >> 5);
+  const unsigned int firsts = __ballot_sync(0xffffffffu, first);
+  if (lane == 0) a.list_n[seg] = __popc(firsts);
+  if (first) a.list[seg * 32 + __popc(firsts & ((1u << lane) - 1u))] = cell;
 }
 
 // (direction, gid, place) of key o before key m's; tag = direction * M +
@@ -263,47 +317,65 @@ __device__ __forceinline__ bool before(int2 o, int2 m, int M) {
   return od < md || (od == md && (o.x < m.x || (o.x == m.x && o.y < m.y)));
 }
 
+// One record of the cell written to its slot n0 + rank where that is
+// below A.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    arrivals_place_kernel(const __grid_constant__ Args a) {
-  using R = Record<T>;
-  using Piece = typename R::Piece;
-  extern __shared__ int2 keys[];           // [place_warps][C]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long cell = static_cast<long long>(blockIdx.x) * a.place_warps +
-                         warp;
-  if (cell >= static_cast<long long>(a.n_shards) * a.B) return;
-  const int k = a.counts[cell];
-  if (k == 0) return;                      // no arrival: untouched
-  const int s = static_cast<int>(cell / a.B);
-  const int c = static_cast<int>(cell - static_cast<long long>(s) * a.B);
-  const int n0 = a.n_atoms[s][c];
-  const int nk = k < a.C ? k : a.C;
-  int2* key = keys + warp * a.C;
-  const Piece* st = static_cast<const Piece*>(a.stage) +
-                    static_cast<size_t>(cell) * a.C * R::kPieces;
-  for (int j = lane; j < nk; j += 32) key[j] = R::key(st + j * R::kPieces);
-  __syncwarp();
+__device__ __forceinline__ void put_slot(const Args& a, int s, int c, int slot,
+                                         int g, const T* x, const T* v) {
+  if (slot >= a.A) return;               // n0 may exceed A already
   const size_t plane = static_cast<size_t>(a.B) * a.A;
+  const size_t at = static_cast<size_t>(c) * a.A + slot;
   T* out_r = static_cast<T*>(a.r[s]);
   T* out_p = static_cast<T*>(a.p[s]);
-  int* out_g = a.gid[s];
-  for (int j = lane; j < nk; j += 32) {
-    const int2 m = key[j];
-    int rank = 0;
-    for (int o = 0; o < nk; ++o) rank += before(key[o], m, a.M);
-    const int slot = n0 + rank;            // n0 may exceed A already
-    if (slot < a.A) {
-      T x[3], v[3];
-      R::get(st + j * R::kPieces, x, v);
-      const size_t at = static_cast<size_t>(c) * a.A + slot;
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        out_r[d * plane + at] = x[d];
-        out_p[d * plane + at] = v[d];
-      }
-      out_g[at] = m.x;
+  for (int d = 0; d < 3; ++d) {
+    out_r[d * plane + at] = x[d];
+    out_p[d * plane + at] = v[d];
+  }
+  a.gid[s][at] = g;
+}
+
+// A warp places one listed cell.  kSmemKeys (C > 32): ``key`` holds the
+// warp's C keys in shared memory; else a cell's records, at most 32, are
+// ranked in registers.
+template <typename T, bool kSmemKeys>
+__device__ __forceinline__ void place_cell(const Args& a, int cell, int lane,
+                                           int2* key) {
+  using R = Record<T>;
+  using Piece = typename R::Piece;
+  const int s = cell / a.B;
+  const int c = cell - s * a.B;
+  // every lane reads the count and n0 before the shuffles or __syncwarp
+  // below, so lane 0's writes at the end find them read
+  const int k = a.counts[cell];
+  const int n0 = a.n_atoms[s][c];
+  const int nk = k < a.C ? k : a.C;
+  const Piece* st = static_cast<const Piece*>(a.stage) +
+                    static_cast<size_t>(cell) * a.C * R::kPieces;
+  if (!kSmemKeys || nk <= 32) {
+    // a record a lane, ranked against the others' keys in registers
+    int2 m = make_int2(0, 0);
+    T x[3], v[3];
+    if (lane < nk) m = R::load(st + lane * R::kPieces, x, v);
+    int rank = 0;
+    for (int o = 0; o < nk; ++o) {
+      const int2 ko = make_int2(__shfl_sync(0xffffffffu, m.x, o),
+                                __shfl_sync(0xffffffffu, m.y, o));
+      rank += before(ko, m, a.M);
     }
+    if (lane < nk) put_slot(a, s, c, n0 + rank, m.x, x, v);
+  } else {
+    for (int j = lane; j < nk; j += 32) key[j] = R::key(st + j * R::kPieces);
+    __syncwarp();
+    for (int j = lane; j < nk; j += 32) {
+      const int2 m = key[j];
+      int rank = 0;
+      for (int o = 0; o < nk; ++o) rank += before(key[o], m, a.M);
+      T x[3], v[3];
+      R::load(st + j * R::kPieces, x, v);
+      put_slot(a, s, c, n0 + rank, m.x, x, v);
+    }
+    __syncwarp();                          // the keys free for the next cell
   }
   if (lane == 0) {
     a.n_atoms[s][c] = n0 + k;
@@ -312,13 +384,57 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Cells a sort block takes: as many as fit 256 threads with one a slot,
-// at least one (then a thread takes every 256th slot).
+// The register form is held to 32 registers a thread (8 blocks of 256 an
+// SM: ~8.4k warps, at ~8k listed cells about one a warp).
+template <typename T, bool kSmemKeys>
+__global__ void __launch_bounds__(kThreads, kSmemKeys ? 1 : 8)
+    arrivals_place_kernel(const __grid_constant__ Args a) {
+  extern __shared__ int2 keys[];           // [place_warps][C] if kSmemKeys
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int lg = a.place_fan_log2;        // place warps a group: 1 << lg
+  const int groups = (a.bin_warps + 31) / 32;
+  const int stride = static_cast<int>(gridDim.x) * a.place_warps;
+  // item w: group w >> lg of 32 segments, its listed cells w % (1 << lg),
+  // + (1 << lg), ... in the order of the segments (32-bit indices: the
+  // wrapper keeps groups << lg below 2^31)
+  for (int w = static_cast<int>(blockIdx.x) * a.place_warps + warp;
+       w < (groups << lg); w += stride) {
+    const int g = w >> lg;
+    const int f = w & ((1 << lg) - 1);
+    const int seg = g * 32 + lane;
+    const int n = seg < a.bin_warps ? __ldcg(a.list_n + seg) : 0;
+    int end = n;                           // the segments' inclusive scan
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(0xffffffffu, end, d);
+      if (lane >= d) end += t;
+    }
+    const int total = __shfl_sync(0xffffffffu, end, 31);
+    for (int k = f; k < total; k += 1 << lg) {
+      // cell k of the group: in the first segment whose scan passes k
+      const int j = __popc(__ballot_sync(0xffffffffu, end <= k));
+      const int start = __shfl_sync(0xffffffffu, end - n, j);
+      const int cell = __ldcg(a.list + static_cast<size_t>(g * 32 + j) * 32 +
+                              (k - start));
+      place_cell<T, kSmemKeys>(a, cell, lane, keys + warp * a.C);
+    }
+  }
+}
+
+// Cells a block of the block form sorts: as many as fit 256 threads with
+// one a slot, at least one (then a thread takes every 256th slot).
 __host__ __device__ __forceinline__ int sort_cells_per_block(int A) {
   return A < kThreads ? kThreads / A : 1;
 }
 
-// The sort block's shared memory: a cell's gids, the inverse permutation
+// The warp form's lanes a cell: A rounded up to a power of two (A <= 32).
+__host__ __device__ __forceinline__ int sort_lanes(int A) {
+  int w = 1;
+  while (w < A) w <<= 1;
+  return w;
+}
+
+// The block sort's shared memory: a cell's gids, the inverse permutation
 // and one field's values (8 bytes a slot).
 __host__ __forceinline__ size_t sort_smem(int A) {
   return static_cast<size_t>(sort_cells_per_block(A)) * A * 16;
@@ -384,8 +500,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__host__ __forceinline__ size_t place_smem(const Args& a) {
-  return sizeof(int2) * static_cast<size_t>(a.place_warps) * a.C;
+// The warp form (A <= 32): a segment of L lanes a cell, one slot a lane.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sort_cells_warp_kernel(const __grid_constant__ SortArgs a) {
+  const int A = a.A;
+  const int L = sort_lanes(A);
+  const int cl = threadIdx.x / L;
+  const int t = threadIdx.x & (L - 1);
+  const int s = blockIdx.y;
+  const long long c = static_cast<long long>(blockIdx.x) * (kThreads / L) +
+                      cl;
+  const bool live = c < a.B && t < A;
+  const size_t plane = static_cast<size_t>(a.B) * A;
+  const size_t row = c < a.B ? static_cast<size_t>(c) * A : 0;
+  const T* r_in = static_cast<const T*>(a.r[s]) + row;
+  const T* p_in = static_cast<const T*>(a.p[s]) + row;
+  const int* g_in = a.gid[s] + row;
+  // the slot's seven words, all in flight before any is used
+  int g = 0;
+  T x[3], v[3];
+  if (live) {
+    g = g_in[t];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      x[d] = r_in[d * plane + t];
+      v[d] = p_in[d * plane + t];
+    }
+  }
+  // the stable rank: smaller gids, and equal gids in earlier slots
+  int rank = 0;
+  for (int j = 0; j < A; ++j) {
+    const int o = __shfl_sync(0xffffffffu, g, j, L);
+    rank += (o < g) | ((o == g) & (j < t));
+  }
+  __syncwarp();                            // in place: every load first
+  T* r_out = static_cast<T*>(a.out_r[s]) + row;
+  T* p_out = static_cast<T*>(a.out_p[s]) + row;
+  int* g_out = a.out_gid[s] + row;
+  const bool kept = rank == t && g_out == g_in && r_out == r_in &&
+                    p_out == p_in;           // in place, already there
+  if (live && !kept) {
+    g_out[rank] = g;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      r_out[d * plane + rank] = x[d];
+      p_out[d * plane + rank] = v[d];
+    }
+  }
+}
+
+__host__ __forceinline__ size_t place_smem(int place_warps, int C) {
+  return C > 32 ? sizeof(int2) * static_cast<size_t>(place_warps) * C : 0;
 }
 
 template <typename T>
@@ -397,15 +563,25 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                              kThreads, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long cells = static_cast<long long>(a.n_shards) * a.B;
-  arrivals_place_kernel<T><<<static_cast<unsigned>(
-                                 (cells + a.place_warps - 1) / a.place_warps),
-                             32 * a.place_warps, place_smem(a), stream>>>(a);
+  const size_t smem = place_smem(a.place_warps, a.C);
+  if (smem > 0)
+    arrivals_place_kernel<T, true><<<static_cast<unsigned>(a.place_blocks),
+                                     32 * a.place_warps, smem, stream>>>(a);
+  else
+    arrivals_place_kernel<T, false><<<static_cast<unsigned>(a.place_blocks),
+                                      32 * a.place_warps, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_sort(const SortArgs& a, cudaStream_t stream) {
+  if (a.form == 1) {
+    const int P = kThreads / sort_lanes(a.A);
+    const dim3 grid(static_cast<unsigned>((a.B + P - 1) / P),
+                    static_cast<unsigned>(a.n_shards));
+    sort_cells_warp_kernel<T><<<grid, kThreads, 0, stream>>>(a);
+    return cudaGetLastError();
+  }
   const int P = sort_cells_per_block(a.A);
   const dim3 grid(static_cast<unsigned>((a.B + P - 1) / P),
                   static_cast<unsigned>(a.n_shards));
@@ -413,22 +589,48 @@ cudaError_t launch_sort(const SortArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t place_blocks(int place_warps, int C, int device, int* blocks) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const size_t smem = place_smem(place_warps, C);
+  err = smem > 0 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, arrivals_place_kernel<T, true>,
+                       32 * place_warps, smem)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &per_sm, arrivals_place_kernel<T, false>,
+                       32 * place_warps, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * per_sm;
+  return *blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
+}
+
 }  // namespace
 
 // `elem`: 4 (f32) or 8 (f64).  The staging holds n_shards * B * C records
-// of 32 (f32) or 64 (f64) bytes, 16-byte aligned; a place block takes
-// place_warps * C * 8 bytes of shared memory.
+// of 32 (f32) or 64 (f64) bytes, 16-byte aligned; the list bin_warps * 32
+// ints and list_n bin_warps (the bin launch's warps: its blocks of 256
+// threads over n_shards * n_dirs * M slots, 8 warps each); where C > 32 a
+// place block takes place_warps * C * 8 bytes of shared memory.
 extern "C" int comd_arrivals(int elem, const ArrivalsArgs* args,
                              cudaStream_t stream) {
   const Args& a = *args;
   if ((elem != 4 && elem != 8) || a.A <= 0 || a.C < a.A || a.M < 0 ||
       a.n_shards < 1 || a.n_shards > kMaxShards || a.n_dirs < 1 ||
       a.n_dirs > 2 || a.axis < -1 || a.axis > 2 || a.place_warps < 1 ||
-      a.place_warps > kThreads / 32 ||
+      a.place_warps > kThreads / 32 || a.place_blocks < 1 ||
+      a.place_fan_log2 < 0 || a.place_fan_log2 > 10 ||
+      ((static_cast<long long>(a.bin_warps) + 31) / 32 << a.place_fan_log2) >=
+          (1ll << 31) ||
+      a.bin_warps != (static_cast<long long>(a.n_shards) * a.n_dirs * a.M +
+                      kThreads - 1) / kThreads * (kThreads / 32) ||
       static_cast<long long>(a.n_shards) * a.n_dirs * a.M >= (1ll << 31) ||
       static_cast<long long>(a.n_shards) * a.B >= (1ll << 31) ||
       static_cast<long long>(a.B) * a.A >= (1ll << 31) ||
-      (a.mask_counts && a.M % a.A != 0) || place_smem(a) > kSmemLimit)
+      (a.mask_counts && a.M % a.A != 0) ||
+      place_smem(a.place_warps, a.C) > kSmemLimit)
     return cudaErrorInvalidValue;
   return elem == 4 ? launch<float>(a, stream) : launch<double>(a, stream);
 }
@@ -439,11 +641,24 @@ extern "C" int comd_sort_cells(int elem, const SortArgs* args,
   if ((elem != 4 && elem != 8) || a.A <= 0 || a.B < 0 || a.n_shards < 1 ||
       a.n_shards > kSortShards ||
       static_cast<long long>(a.B) * a.A >= (1ll << 31) ||
-      sort_smem(a.A) > kSmemLimit)
+      (a.form != 0 && a.form != 1) || (a.form == 1 && a.A > 32) ||
+      (a.form == 0 && sort_smem(a.A) > kSmemLimit))
     return cudaErrorInvalidValue;
   if (a.B == 0) return cudaSuccess;
   return elem == 4 ? launch_sort<float>(a, stream)
                    : launch_sort<double>(a, stream);
+}
+
+// The place launch's grid on `device`: its SMs times the blocks of
+// `place_warps` warps (and their shared memory at capacity C) an SM holds.
+extern "C" int comd_arrivals_place_blocks(int elem, int place_warps, int C,
+                                          int device, int* blocks) {
+  if ((elem != 4 && elem != 8) || place_warps < 1 ||
+      place_warps > kThreads / 32 || C < 1 ||
+      place_smem(place_warps, C) > kSmemLimit)
+    return cudaErrorInvalidValue;
+  return elem == 4 ? place_blocks<float>(place_warps, C, device, blocks)
+                   : place_blocks<double>(place_warps, C, device, blocks);
 }
 
 extern "C" const char* comd_arrivals_error_string(int err) {

@@ -12,14 +12,21 @@ they are three kernels:
 - ``arrivals_bin``: one thread an arrival slot of every (shard,
   direction) source of a stage shifts it into the receiver's frame, bins
   it in f64 (csrc/bin.cuh, as rebucket_bin does) and stages it as one
-  record in its cell (one atomic a warp and a cell);
-- ``arrivals_place``: a warp a cell ranks the cell's records by
-  (direction, gid, place), writes them to slots n_atoms + rank < A, adds
+  record in its cell (one atomic a warp and a cell); the first to stage
+  into a cell lists it in its warp's own segment of the list;
+- ``arrivals_place``: a grid sized to the card (``place_blocks``) whose
+  warps stride over groups of 32 segments (``place_fan_log2``: a power
+  of two warps a group,
+  the group's lengths scanned by shuffles), a warp a listed cell: it
+  ranks the cell's records by (direction, gid, place) (k <= 32: by
+  shuffles in registers), writes them to slots n_atoms + rank < A, adds
   the count, sets the overflow flag where a slot reached A and clears its
   counter; cells without arrivals are left as they were;
 - ``sort_cells``: every cell of every shard sorted by gid (stable: ties,
   the empty slots' EMPTY_GID, by slot) in one launch, in place or into
-  other tensors.
+  other tensors; A <= 32 in the warp form (a cell a warp segment, a slot
+  a lane, its seven words loaded together and ranked by shuffles), larger
+  A in the block form (``sort_form``).
 
 ``append_stage`` takes one exchange stage's arrivals of both directions
 for every shard of the process and appends them in place (two launches,
@@ -32,11 +39,13 @@ Kernels and plain versions give the same bits while no cell receives more
 than ``stage_capacity(A)`` (C) arrivals in a stage; past that the counts
 and the overflow flag still agree but the stored slots of such a cell may
 differ (a run with overflow aborts).  Launches are counted in
-``LAUNCHES`` under the kernels' names.  The staging and the per-cell
-counters are made at the first launch on a device (a workspace kept for
-the process, as rebucket.py's: a captured graph replays its addresses),
-which must not be inside a CUDA graph capture; every place launch leaves
-the counters clear.
+``LAUNCHES`` under the kernels' names.  The staging (the records, then
+the list: a 32-entry segment and a length for each warp of the bin
+launch) and the per-cell counters are made at the first launch on a
+device at a size (a workspace kept for the process, as rebucket.py's: a
+captured graph replays its addresses), which must not be inside a CUDA
+graph capture; every place launch leaves the counters clear, and every
+bin launch writes the whole list it hands on.
 """
 from __future__ import annotations
 
@@ -61,14 +70,23 @@ _lib = None
 _lib_lock = threading.Lock()
 BUILD_SECONDS = None    # wall time of the nvcc build in this process
 _WORK = {}              # device index -> [Workspace, ...], never freed
+_LAST = {}              # device index -> (Workspace, list_n's byte offset
+                        # in its staging, bin warps) of the last launch
+_GRID = {}              # (device index, elem, A) -> place launch blocks
 
 stage_capacity = rebucket_ops.stage_capacity
 
 
 def place_warps(A: int) -> int:
-    """Warps (cells) a place block: 8, fewer where their keys (8 bytes a
-    staged record, C a cell) would pass the shared memory limit."""
+    """Warps a place block: 8, fewer where their keys (8 bytes a staged
+    record, C a cell) would pass the shared memory limit."""
     return max(1, min(8, SMEM_LIMIT // (8 * stage_capacity(A))))
+
+
+def sort_form(A: int) -> str:
+    """The sort launch's form: "warp" (a cell a warp segment of A rounded
+    up to a power of two lanes) for A <= 32, else "block"."""
+    return "warp" if A <= 32 else "block"
 
 
 def sort_smem(A: int) -> int:
@@ -88,21 +106,23 @@ class _Args(ctypes.Structure):
         (name, ctypes.c_void_p * MAX_SHARDS)
         for name in ("r", "p", "gid", "n_atoms")] + [
         (name, ctypes.c_void_p)
-        for name in ("overflow", "stage", "counts", "box_of_tuple")] + [
+        for name in ("overflow", "stage", "counts", "list", "list_n",
+                 "box_of_tuple")] + [
         ("local_min", ctypes.c_double * 3),
         ("local_max", ctypes.c_double * 3),
         ("inv_box", ctypes.c_double * 3),
         ("shift", ctypes.c_double * 2),
         ("grid", ctypes.c_int * 3)] + [(name, ctypes.c_int) for name in (
             "n_local", "B", "A", "C", "M", "n_shards", "n_dirs", "axis",
-            "mask_counts", "place_warps")]
+            "mask_counts", "place_warps", "place_blocks", "place_fan_log2",
+            "bin_warps")]
 
 
 class _SortArgs(ctypes.Structure):
     """csrc/arrivals.cu's SortArgs, field for field."""
     _fields_ = [(name, ctypes.c_void_p * SORT_SHARDS) for name in (
         "r", "p", "gid", "out_r", "out_p", "out_gid")] + [
-        (name, ctypes.c_int) for name in ("n_shards", "B", "A")]
+        (name, ctypes.c_int) for name in ("n_shards", "B", "A", "form")]
 
 
 def build():
@@ -121,6 +141,10 @@ def build():
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int, ctypes.POINTER(args),
                            ctypes.c_void_p]
+        lib.comd_arrivals_place_blocks.restype = ctypes.c_int
+        lib.comd_arrivals_place_blocks.argtypes = [
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int)]
         lib.comd_arrivals_error_string.restype = ctypes.c_char_p
         lib.comd_arrivals_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -348,6 +372,51 @@ def _raise_on(err: int, what: str) -> None:
                            f"(cudaError {err})")
 
 
+def place_blocks(device: torch.device, elem: int, A: int) -> int:
+    """The place launch's grid on ``device``: its SMs times the blocks an
+    SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor), asked once
+    a device, dtype and A and kept, so a graph replays the grid it
+    captured."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    key = (dev, elem, A)
+    if key not in _GRID:
+        n = ctypes.c_int(0)
+        _raise_on(build().comd_arrivals_place_blocks(
+            elem, place_warps(A), stage_capacity(A), dev, ctypes.byref(n)),
+            "arrivals_place grid")
+        _GRID[key] = n.value
+    return _GRID[key]
+
+
+def bin_warps(n: int) -> int:
+    """The bin launch's warps over ``n`` arrival slots (its blocks of 256
+    threads, 8 warps each; 0 where it does not launch): the list's
+    segments."""
+    return -(-n // 256) * 8
+
+
+def place_fan_log2(blocks: int, A: int, segments: int) -> int:
+    """log2 of the place warps a group of 32 list segments: the place
+    grid's warps over the groups, rounded up to a power of two, 1 to 1024
+    (a group lists at most 1024 cells), the items (groups times it) below
+    2^31."""
+    groups = max(-(-segments // 32), 1)
+    fan = min(-(-blocks * place_warps(A) // groups), 1024,
+              (2 ** 31 - 1) // groups)
+    return max(fan - 1, 0).bit_length()
+
+
+def list_length(device: torch.device) -> int:
+    """The cells the last launch pair on ``device`` listed (the cells that
+    got arrivals in its stage's last chunk of shards), read to the host:
+    for checks, not on the step's path."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    w, at, n = _LAST[dev]
+    return int(w.stage[at:at + 4 * n].view(torch.int32).sum())
+
+
 def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
                   axis: int, shifts, M: int, counts: bool) -> None:
     """Bin and place, one launch each, for every shard of the lists (at
@@ -355,8 +424,13 @@ def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
     S, n_dirs = len(r), len(arrivals[0])
     B, A = r[0].shape[1], r[0].shape[2]
     C = stage_capacity(A)
-    rec = 8 * r[0].element_size()            # 32 (f32) or 64 (f64) bytes
-    w = rebucket_ops.workspace(r[0].device, S * B * C * rec, S * B, _WORK)
+    elem = r[0].element_size()
+    rec = 8 * elem                           # 32 (f32) or 64 (f64) bytes
+    segs = bin_warps(S * n_dirs * M)
+    # the records, then the list's segments, then their lengths
+    at_list = S * B * C * rec
+    at_n = at_list + 4 * 32 * segs
+    w = rebucket_ops.workspace(r[0].device, at_n + 4 * segs, S * B, _WORK)
     a = _Args()
     for s in range(S):
         for d, (ar, ap, ag, mask) in enumerate(arrivals[s]):
@@ -366,6 +440,7 @@ def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
         a.gid[s], a.n_atoms[s] = gid[s].data_ptr(), n_atoms[s].data_ptr()
     a.overflow = overflow.data_ptr()
     a.stage, a.counts = w.stage.data_ptr(), w.counts.data_ptr()
+    a.list, a.list_n = a.stage + at_list, a.stage + at_n
     a.box_of_tuple = maps.box_of_tuple.data_ptr() if geom.use_hilbert \
         else None
     a.local_min[:] = [float(v) for v in geom.local_min]
@@ -376,9 +451,13 @@ def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
     a.n_local, a.B, a.A, a.C, a.M = geom.n_local, B, A, C, M
     a.n_shards, a.n_dirs, a.axis = S, n_dirs, axis
     a.mask_counts, a.place_warps = int(counts), place_warps(A)
+    a.place_blocks = place_blocks(r[0].device, elem, A)
+    a.place_fan_log2 = place_fan_log2(a.place_blocks, A, segs)
+    a.bin_warps = segs
     stream = torch.cuda.current_stream(r[0].device).cuda_stream
-    _raise_on(build().comd_arrivals(r[0].element_size(), ctypes.byref(a),
-                                    stream), "arrivals")
+    _raise_on(build().comd_arrivals(elem, ctypes.byref(a), stream),
+              "arrivals")
+    _LAST[w.counts.device.index] = (w, at_n, segs)
     if S * n_dirs * M > 0:
         LAUNCHES["arrivals_bin"] += 1
     LAUNCHES["arrivals_place"] += 1
@@ -437,7 +516,7 @@ def sort_shards(r, p, gid, out=None) -> None:
     """Sort every cell of every shard by gid (stable), in place on the
     lists' tensors or, with ``out`` ((r, p, gid) lists of tensors like
     them), into those.  CPU tensors run the plain version; CUDA tensors
-    one launch (one a ``SORT_SHARDS`` shards)."""
+    one launch (one a ``SORT_SHARDS`` shards) in ``sort_form(A)``."""
     _check_sort(r, p, gid, out)
     if r[0].device.type == "cpu":
         sort_shards_plain(r, p, gid, out)
@@ -454,6 +533,7 @@ def sort_shards(r, p, gid, out=None) -> None:
                                                             for o in dst)):
                 getattr(a, name)[i] = t.data_ptr()
         a.n_shards, a.B, a.A = len(part), B, A
+        a.form = int(sort_form(A) == "warp")
         _raise_on(build().comd_sort_cells(r[0].element_size(),
                                           ctypes.byref(a), stream),
                   "sort_cells")

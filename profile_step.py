@@ -223,7 +223,8 @@ def main(argv=None) -> int:
                                     "rebucket_place_kernel",
                                     "arrivals_bin_kernel",
                                     "arrivals_place_kernel",
-                                    "sort_cells_kernel"))},
+                                    "sort_cells_kernel",
+                                    "sort_cells_warp_kernel"))},
     }))
     return 0
 

@@ -36,6 +36,15 @@ graphs (CUDA events around replays; ms a launch):
                      their unloads, the sort, the copies into the step's
                      buffers; on a tree without csrc/arrivals.cu the
                      unload and the sort as torch ops), 2 calls a graph
+  unload (graph)     the 2x2x2 ki mesh's atom exchange alone (3
+                     ring_push, 3 arrivals_bin, 3 arrivals_place, the
+                     sort into other tensors) on a displaced state (every
+                     shard's local atoms moved by up to 0.5 A, numpy seed
+                     61, rebucketed with the halo landers kept: ~100k
+                     arrivals a stage), the state's restore taken out
+  unload arrivals_bin, unload arrivals_place, unload sort_cells
+                     each kernel's device ms a launch in that unload
+                     (torch.profiler over 20 unloads, mean a launch)
   branch             one replay of a graph of the serial step's head and
                      its IF nodes (the rebucket's body one small kernel):
                      the trigger with the images and one IF node, or on a
@@ -130,6 +139,69 @@ def branch_ms(torch, sim, p, r, f, last, reps: int = 200) -> float:
     refresh()
     graph = cuda_capture(fn, torch.cuda.graph_pool_handle())[0]
     return time_ms(graph.replay, reps)
+
+
+def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
+                 reps: int = 20) -> dict:
+    """The mesh's atom-exchange unload on a displaced state: the unload
+    replayed in a graph (its restore taken out) and each of its kernels'
+    device ms a launch (torch.profiler; profiled again, eight times at
+    most, while a kernel has no record)."""
+    import numpy as np
+    from comd_tpu_torch.ops import binning
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.parallel import ki_comm
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(seed)
+    nl = mesh.geom.n_local
+    start = []
+    for s in mesh.states:
+        A = s.r.shape[2]
+        r = s.r.clone()
+        valid = torch.arange(A, device="cuda")[None, :] < \
+            s.n_atoms[:nl, None]
+        d = torch.as_tensor(rng.uniform(-scale, scale, (3, nl, A)),
+                            dtype=r.dtype, device="cuda")
+        r[:, :nl] += torch.where(valid[None], d, torch.zeros_like(d))
+        start.append(binning.rebucket(mesh.geom, mesh.maps, r, s.p, s.gid,
+                                      s.n_atoms, keep_halo=True)[:4])
+    start = [list(f) for f in zip(*start)]
+    work = [[t.clone() for t in x] for x in start]
+    out = [[torch.empty_like(t) for t in x] for x in start[:3]]
+
+    def restore():
+        for w, b in zip(work, start):
+            for x, y in zip(w, b):
+                x.copy_(y)
+
+    def unload():
+        restore()
+        ki_comm.exchange_atoms_ki(mesh.halo, *work)
+        av.sort_shards(*work[:3], out)
+
+    res = {"unload (graph)": graph_ms(torch, unload)
+           - graph_ms(torch, restore)}
+    kernels = {"arrivals_bin_kernel": "unload arrivals_bin",
+               "arrivals_place_kernel": "unload arrivals_place",
+               "sort_cells": "unload sort_cells"}
+    for _ in range(8):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                unload()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or not e.count:
+                continue
+            for name, key in kernels.items():
+                if name in e.key and key not in res:
+                    res[key] = getattr(e, "self_device_time_total", getattr(
+                        e, "self_cuda_time_total", 0.0)) / e.count / 1e3
+        if all(k in res for k in kernels.values()):
+            return res
+    raise RuntimeError(f"torch.profiler kept no record of "
+                       f"{[k for k in kernels.values() if k not in res]}")
 
 
 def embed_forms(torch, step, embed, rounds: int = 3) -> dict:
@@ -265,6 +337,7 @@ def worker(tree: str) -> dict:
     mesh._bind()
     out["mesh rebucket body"] = graph_ms(torch, mesh._rebucket_step,
                                          calls=2, reps=5)
+    out.update(unload_times(torch, mesh))
     out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM"):
         out.update(embed_forms(torch, step, embed))

@@ -401,11 +401,14 @@ def test_operand_checks():
 
 
 def test_capacity_and_args_layout():
-    """The staging capacity C (>= 2A, >= 32), the place blocks' warps and
-    the sort blocks' shared memory (up to A = 3072 within 48 KB), and
+    """The staging capacity C (>= 2A, >= 32), the place blocks' warps, the
+    sort blocks' shared memory (up to A = 3072 within 48 KB), and
     csrc/arrivals.cu's ArrivalsArgs and SortArgs as ctypes lays them out:
-    64 sources of four pointers, 4 x 32 shard pointers, 4 pointers, 11
-    doubles, 13 ints (3,248 bytes); 6 x 64 pointers and 3 ints."""
+    64 sources of four pointers, 4 x 32 shard pointers, 6 pointers, 11
+    doubles, 16 ints (3,272 bytes, under the 4 KB of kernel parameters);
+    6 x 64 pointers and 4 ints.  The list: a 32-entry segment a bin warp
+    (8 a block of 256 slots), 1-1024 place warps (a power of two) a group
+    of 32 segments."""
     assert [av.stage_capacity(a) for a in (1, 16, 40)] == [32, 32, 80]
     assert [av.place_warps(a) for a in (16, 40, 384, 385, 3072)] == \
         [8, 8, 8, 7, 1]
@@ -418,9 +421,88 @@ def test_capacity_and_args_layout():
     assert ctypes.sizeof(av._Source) == 32
     assert av._Args.r.offset == 2048
     assert av._Args.overflow.offset == 2048 + 4 * 256
-    assert av._Args.local_min.offset == 3072 + 32
-    assert av._Args.grid.offset == 3104 + 11 * 8
-    assert av._Args.place_warps.offset == 3192 + 12 + 9 * 4
-    assert ctypes.sizeof(av._Args) == 3248
+    assert av._Args.list.offset == 3072 + 24
+    assert av._Args.local_min.offset == 3072 + 48
+    assert av._Args.grid.offset == 3120 + 11 * 8
+    assert av._Args.place_blocks.offset == 3208 + 12 + 10 * 4
+    assert av._Args.bin_warps.offset == 3268
+    assert ctypes.sizeof(av._Args) == 3272 < 4096
+    assert [av.bin_warps(n) for n in (0, 1, 256, 257, 136_000)] == \
+        [0, 8, 8, 16, 4256]
+    assert [av.place_fan_log2(1056, 16, s) for s in (
+        0, 1, 4256, 270_336, 300_000)] == [10, 10, 6, 0, 0]
+    assert av.place_fan_log2(1056, 16, 2 ** 26) == 0
+    assert av.place_fan_log2(1056, 40, 4256) == 6 == \
+        av.place_fan_log2(330, 16, 4256) + 1
     assert av._SortArgs.n_shards.offset == 6 * 64 * 8
+    assert av._SortArgs.form.offset == 6 * 64 * 8 + 12
     assert ctypes.sizeof(av._SortArgs) == 6 * 64 * 8 + 16
+
+
+def _cu_structs() -> tuple:
+    """csrc/arrivals.cu's argument structs as (name, kind, dims) member
+    lists, and its constants (kMaxShards, ...)."""
+    import re
+    with open(av.SOURCE) as fh:
+        text = fh.read()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (k\w+) = ([0-9]+)", text)}
+    consts["kSmemLimit"] = 48 * 1024
+    assert re.search(r"constexpr int kSmemLimit = 48 \* 1024;", text)
+    structs = {}
+    for name, body in re.findall(r"\nstruct (\w+) \{\n(.*?)\n\};", text,
+                                 re.S):
+        members = []
+        for line in body.splitlines():
+            line = line.split("//")[0].strip()
+            if not line:
+                continue
+            m = re.fullmatch(
+                r"(?:const )?(\w+(?: \w+)?)(\*?) (\w+)((?:\[\w+\])*);", line)
+            assert m, line
+            base, ptr, member, dims = m.groups()
+            dims = [consts[d] if d in consts else int(d)
+                    for d in re.findall(r"\[(\w+)\]", dims)]
+            members.append((member, "pointer" if ptr else base, dims))
+        structs[name] = members
+    return structs, consts
+
+
+def _ctypes_members(struct) -> list:
+    """A ctypes Structure's fields as (name, kind, dims)."""
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+             ctypes.c_double: "double", av._Source: "ArrivalSource"}
+    out = []
+    for name, t in struct._fields_:
+        dims = []
+        while hasattr(t, "_length_"):
+            dims.append(t._length_)
+            t = t._type_
+        out.append((name, kinds[t], dims))
+    return out
+
+
+def test_args_mirror_the_source():
+    """ops/cuda/arrivals.py's ctypes structs hold csrc/arrivals.cu's
+    ArrivalSource, ArrivalsArgs and SortArgs member for member, in order
+    and kind (a pointer, an int, a double, a source; the array extents),
+    and its constants equal the kernel's, so the mirror cannot drift."""
+    structs, consts = _cu_structs()
+    assert (consts["kMaxShards"], consts["kSortShards"],
+            consts["kSmemLimit"]) == (av.MAX_SHARDS, av.SORT_SHARDS,
+                                      av.SMEM_LIMIT)
+    assert set(structs) == {"ArrivalSource", "ArrivalsArgs", "SortArgs"}
+    for name, mirror in (("ArrivalSource", av._Source),
+                         ("ArrivalsArgs", av._Args),
+                         ("SortArgs", av._SortArgs)):
+        assert structs[name] == _ctypes_members(mirror), name
+
+
+@pytest.mark.parametrize("A", [1, 16, 32, 33, av.MAX_A])
+def test_sort_form_by_A(A):
+    """The wrapper's sort form: the warp form (a cell a warp segment, one
+    slot a lane, no shared memory) up to A = 32, the block form above,
+    whose shared memory fits every A up to MAX_A."""
+    assert av.sort_form(A) == ("warp" if A <= 32 else "block")
+    if av.sort_form(A) == "block":
+        assert av.sort_smem(A) <= av.SMEM_LIMIT

@@ -1643,14 +1643,164 @@ def test_arrivals_crowd_matches_plain(cuda_device, dtype, crowd):
         assert torch.equal(a[0][..., ok, :], b[0][..., ok, :])
 
 
-@pytest.mark.parametrize("A", [13, 16, 300])
+def _stage_against_plain(geom, maps, fields, src):
+    """One append_stage of ``src`` (one shard, one direction) on copies of
+    ``fields`` by the kernels and by the plain version: equal bit for bit,
+    the bin launch's list as long as the cells the plain version gave
+    arrivals, and the workspace's counters left clear.  Returns (the kernels' fields, the cells with arrivals)."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    got, want = [[t.clone()] for t in fields], [[t.clone()] for t in fields]
+    ovf = [torch.zeros((), dtype=torch.bool, device="cuda") for _ in "ab"]
+    st.reset_launch_counts()
+    av.append_stage(geom, maps, *got, [[src]], ovf[0])
+    assert (st.LAUNCHES["arrivals_bin"], st.LAUNCHES["arrivals_place"]) == (
+        1, 1)
+    av.append_stage_plain(geom, maps, *want, [[src]], ovf[1])
+    assert torch.equal(*ovf)
+    for a, b in zip(got, want):
+        assert torch.equal(a[0], b[0])
+    cells = int((want[3][0] > fields[3]).sum())
+    assert av.list_length(torch.device("cuda")) == cells
+    assert not av._LAST[torch.cuda.current_device()][0].counts.any()
+    return [t[0] for t in got], cells
+
+
+@pytest.mark.parametrize("case", ["no cell", "every local cell"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_arrivals_list_edge_stages(cuda_device, dtype, case):
+    """A stage in which no cell gets an arrival (every flag clear: the
+    place launch finds an empty list and touches nothing) and one in which
+    every local cell gets one (a list of every local cell), each followed
+    by a stage of random arrivals: the kernels
+    equal the plain version bit for bit at each, the list as long as the
+    cells that got arrivals."""
+    geom, maps, f = _rb_synthetic(np.zeros(3), np.full(3, 24.0), 16, dtype,
+                                  33, cut=4.0)
+    nl = geom.n_local
+    rng = np.random.default_rng(34)
+    centre = geom.local_min[:, None] + (geom.tuple_of_box[:nl].T + 0.5) * \
+        geom.box_size[:, None]
+    dt = f[0].dtype
+
+    def source(r, valid, gid0):
+        M = r.shape[1]
+        return (torch.as_tensor(np.ascontiguousarray(r), dtype=dt,
+                                device="cuda"),
+                torch.as_tensor(rng.standard_normal((3, M)), dtype=dt,
+                                device="cuda"),
+                torch.as_tensor(rng.permutation(2 ** 20)[:M] + gid0,
+                                dtype=torch.int32, device="cuda"),
+                torch.as_tensor(valid, device="cuda"))
+
+    r = centre + rng.uniform(-0.3, 0.3, centre.shape) * \
+        geom.box_size[:, None]
+    every = case == "every local cell"
+    got, cells = _stage_against_plain(
+        geom, maps, f, source(r, np.full(nl, every), 2 ** 30))
+    assert cells == (nl if every else 0)
+    M = 4 * nl
+    r = rng.uniform(geom.local_min - geom.box_size,
+                    geom.local_max + geom.box_size, (M, 3)).T
+    _got, cells = _stage_against_plain(
+        geom, maps, got, source(r, rng.uniform(size=M) < 0.5, 2 ** 29))
+    assert cells > 0
+
+
+def test_arrivals_stages_twice_without_cleanup(cuda_device):
+    """The three stages of a displaced 2x2x2 state's exchange, then the
+    same three again from the same state with nothing cleared between:
+    each stage's kernels equal append_stage_plain bit for bit and the
+    first round's results, the list as long as the cells the plain
+    version gave arrivals, and the counters clear after every stage."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    sim = _mesh_sim("float32", comm_impl="ki")
+    h = sim.halo
+    start = _displaced_shards(sim, 9)
+    dev = torch.device("cuda")
+    rounds = []
+    for _ in range(2):
+        fields = [[t.clone() for t in x] for x in start]
+        ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+        lengths = []
+        for axis in range(3):
+            arrivals = ki_comm.push_arrivals(h, axis, fields)
+            before = [n.clone() for n in fields[3]]
+            plain = [[t.clone() for t in x] for x in fields]
+            ovf_plain = ovf.clone()
+            shifts = (-h.ext[axis], h.ext[axis])
+            av.append_stage(h.geom, h.maps, *fields, arrivals, ovf, axis,
+                            shifts)
+            av.append_stage_plain(h.geom, h.maps, *plain, arrivals,
+                                  ovf_plain, axis, shifts)
+            for a, b in zip(fields, plain):
+                assert _equal(a, b), axis
+            assert torch.equal(ovf, ovf_plain)
+            lengths.append(av.list_length(dev))
+            assert lengths[-1] == sum(int((n1 > n0).sum()) for n0, n1 in
+                                      zip(before, plain[3]))
+            assert not av._LAST[torch.cuda.current_device()][0].counts.any()
+        rounds.append((fields, lengths))
+    (first, n_first), (second, n_second) = rounds
+    assert n_first == n_second and min(n_first) > 0
+    for a, b in zip(first, second):
+        assert _equal(a, b)
+
+
+def test_unload_replayed_in_a_cuda_graph(cuda_device):
+    """The ki unload of a displaced 2x2x2 state (3 ring_push, 3 bin, 3
+    place launches, the sort into other tensors) captured in one CUDA
+    graph and replayed twice from the restored state: both replays equal
+    the plain versions' result bit for bit (the counters left clear by
+    the first replay's place launches, the list written anew)."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.stepgraph import cuda_capture
+    sim = _mesh_sim("float32", comm_impl="ki")
+    h = sim.halo
+    start = _displaced_shards(sim, 11)
+    want = [[t.clone() for t in x] for x in start]
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+    for axis in range(3):
+        av.append_stage_plain(h.geom, h.maps, *want,
+                              ki_comm.push_arrivals(h, axis, want), ovf,
+                              axis, (-h.ext[axis], h.ext[axis]))
+    want_out = [[torch.empty_like(t) for t in x] for x in want[:3]]
+    av.sort_shards_plain(*want[:3], want_out)
+    work = [[t.clone() for t in x] for x in start]
+    out = [[torch.empty_like(t) for t in x] for x in start[:3]]
+
+    def restore():
+        for w, b in zip(work, start):
+            for x, y in zip(w, b):
+                x.copy_(y)
+
+    def unload():
+        ki_comm.exchange_atoms_ki(h, *work)
+        av.sort_shards(*work[:3], out)
+
+    unload()                      # the workspaces and the grid, uncaptured
+    torch.cuda.synchronize()
+    graph = cuda_capture(unload, torch.cuda.graph_pool_handle())[0]
+    for _ in range(2):
+        restore()
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want_out):
+            assert _equal(a, b)
+        assert _equal(work[3], want[3])
+
+
+@pytest.mark.parametrize("A", [13, 16, 32, 33, 256, 300, 3072])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_sort_cells_kernel_matches_plain(cuda_device, dtype, A):
     """The sort launch against sort_cells_plain, bit for bit, on rows with
-    many tied EMPTY_GIDs holding junk positions (kept in slot order), at
-    an odd A, A = 16 and A = 300 (one cell a block, a thread several
-    slots); into other tensors and in place; one launch for 3 shards."""
+    many tied EMPTY_GIDs holding junk positions (kept in slot order), in
+    both forms: the warp form at an odd A, A = 16 (two cells a warp) and
+    A = 32, the block form at A = 33, 256, 300 (one cell a block, a
+    thread several slots) and MAX_A; into other tensors and in place; one
+    launch for 3 shards."""
     from comd_tpu_torch.ops.cuda import arrivals as av
+    assert av.sort_form(A) == ("warp" if A <= 32 else "block")
+    assert A <= av.MAX_A
     g = torch.Generator(device="cpu").manual_seed(A)
     B = 500
     dt = getattr(torch, dtype)
