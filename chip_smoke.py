@@ -273,13 +273,19 @@ the first error:
                  flag equal; that cell's layout may differ); the serial
                  body (rebucket_into and the halo fill) at 63^3 timed
                  (CUDA events, mean of 20; each kernel's launch under
-                 torch.profiler) beside its plain version and the byte
-                 bounds.
+                 torch.profiler) beside its plain version, the byte
+                 bounds and the earlier designs' times, the place launch
+                 in the form rebucket.place_form(A) gives (the warp form
+                 up to A = 32) and, on the same input, in the block form
+                 (the same bits); both launches at a shard of the 63^3
+                 2x2x2 mesh (23^3 cells, halo landers kept) against
+                 rebucket_plain and timed in both forms.
  20. arrivals -- the atom exchange's unload (csrc/arrivals.cu:
                  arrivals_bin and arrivals_place a stage over every
                  shard, the place launch over the bin launch's list of
-                 the cells that got arrivals (a segment a bin warp), its
-                 length checked against the plain version's cells;
+                 the cells that got arrivals (one list, one atomic a bin
+                 block on its length), its length checked against the
+                 plain version's cells;
                  sort_cells over every shard, the warp form at A <= 32)
                  against its plain
                  versions (append_stage_plain, sort_shards_plain) on the
@@ -297,8 +303,12 @@ the first error:
                  earlier designs' times beside), a stage replayed in a
                  graph, the whole unload (3 ring_push, 3 bin, 3 place, 1
                  sort) with CUDA events (mean of 20) and in a graph,
-                 beside the plain versions and the byte bounds; one eager
-                 mesh redistribution's device operations (at most 100).
+                 beside the plain versions and the byte bounds; the bin
+                 and place launches at the state of a real lazy rebucket
+                 of the 63^3 2x2x2 ki_fused run (stepped eagerly until
+                 its trigger fires) against the plain version and timed
+                 likewise; one eager mesh redistribution's device
+                 operations (at most 100).
                  Phase 12 checks 3 bin, 3 place and 1 sort launch an
                  exchange under every transport, phase 18 the graphs'
                  credits of them.
@@ -3073,6 +3083,13 @@ def run_step_ops(headline, launches: dict) -> dict:
 
 REBUCKET_SOURCE = "comd_tpu_torch/csrc/rebucket.cu"
 REBUCKET_KEYS = ("rebucket_bin", "rebucket_place")
+# the place launch's kernel by form (rebucket.place_form)
+RB_PLACE_NAME = {"warp": "rebucket_place_warp_kernel",
+                 "block": "rebucket_place_kernel"}
+# the kernels' ms a launch before their redesigns, in the serial body at
+# 63^3 f32 (this script on an NVIDIA H100 80GB HBM3 at 700 W): the place
+# launch in the block form (a thread a slot, 16 cells a block)
+REBUCKET_EARLIER_MS = {"rebucket_bin": 0.02906, "rebucket_place": 0.08973}
 RB_CUT = 4.0          # the synthetic grids' least cell edge
 
 
@@ -3324,63 +3341,163 @@ def run_rebucket(headline, launches: dict) -> dict:
                                last_r=last)
         step.refresh_halo_plain(geom, maps, f[0], f[2], f[3])
 
+    B, A = f[0].shape[1:]
+    form = rb.place_form(A)
     body_ms, plain_body_ms = time_ms(body, 20), time_ms(body_plain, 20)
     body_graph = graph_ms(body)
     plain_ms = time_ms(lambda: rb.rebucket_plain(
         geom, maps, *f, wrap_extent=ext), 20)
-    us = kernel_us(body, ("rebucket_bin_kernel", "rebucket_place_kernel",
+    us = kernel_us(body, ("rebucket_bin_kernel", RB_PLACE_NAME[form],
                           "refresh_halo_kernel"))
-    B, A = f[0].shape[1:]
     nl = geom.n_local
-    es = f[0].element_size()
-    atom = 6 * es + 4                 # r, p and gid of an atom
     n_valid = int(f[3][:nl].clamp(max=A).sum())
-    n_bytes = {
-        # valid slots and the counts in, a record an atom and the counts
-        "rebucket_bin": atom * n_valid + 4 * nl + atom * n_valid + 4 * nl,
-        # the records and counts in, every slot, the baseline's local
-        # rows and the counts out
-        "rebucket_place": atom * n_valid + 4 * B + atom * B * A
-        + 3 * es * nl * A + 4 * B}
-    body_bytes = atom * n_valid + 4 * nl + atom * B * A + 3 * es * nl * A \
-        + 4 * B
+    n_bytes = rb_bytes(f[0], n_valid, nl, nl, True)
+    body_bytes = n_bytes["rebucket_bin"] + n_bytes["rebucket_place"] - \
+        2 * (atom_bytes(f[0]) * n_valid + 4 * nl)
+    # the other form on the same input (the block form takes any A), for
+    # the comparison only: its launches are not the main path's
+    other = rb_other_form(geom, maps, f, ext, False, form)
     rows = {}
     for key, name in zip(REBUCKET_KEYS, ("rebucket_bin_kernel",
-                                         "rebucket_place_kernel")):
+                                         RB_PLACE_NAME[form])):
         b_ms = 1e3 * n_bytes[key] / PEAK_BYTES
         ms = us[name] / 1e3
-        say("timing", f"{key} at {HEADLINE_N}^3 f32 (the serial body): "
-            f"{ms:.5f} ms a launch (torch.profiler, mean of 20; the bound "
-            f"at {b_ms / ms:.0%} of it); bound {b_ms:.5f} ms (bytes: "
-            f"{n_bytes[key] / 1e6:.2f} MB); plain version (rebucket_plain, "
-            f"both kernels' function) {plain_ms:.4f} ms; {launches[key]} "
-            f"launches in phase 5's run")
+        say("timing", f"{key} at {HEADLINE_N}^3 f32 (the serial body"
+            + (f", the {form} form at A = {A}" if key == "rebucket_place"
+               else "") + f"): {ms:.5f} ms a launch (torch.profiler, mean "
+            f"of 20; the bound at {b_ms / ms:.0%} of it; before "
+            f"{REBUCKET_EARLIER_MS[key]:.5f} ms on an H100 at 700 W); bound "
+            f"{b_ms:.5f} ms (bytes: {n_bytes[key] / 1e6:.2f} MB); plain "
+            f"version (rebucket_plain, both kernels' function) "
+            f"{plain_ms:.4f} ms; {launches[key]} launches in phase 5's run")
         rows[key] = {
             "name": key, "route": "cuda", "source": REBUCKET_SOURCE,
             "replaces": REPLACES[key], "launches": launches[key],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+    rows["rebucket_place"]["form"] = form
+    if other is not None:
+        b_ms = rows["rebucket_place"]["bound_ms"]
+        say("timing", f"rebucket_place in the {other} form on the same "
+            f"input: {rb_form_ms(other, body):.5f} ms a launch (torch."
+            f"profiler, mean of 20; the bound {b_ms:.5f}), the {form} form "
+            f"{rows['rebucket_place']['ms']:.5f}; the same bits")
     b_ms = 1e3 * body_bytes / PEAK_BYTES
     say("timing", f"the serial redistribution at {HEADLINE_N}^3 f32 "
         f"(rebucket_into + refresh_halo: {n_valid} atoms, B={B}, A={A}): "
         f"{body_ms:.4f} ms a call (CUDA events, mean of 20), "
         f"{body_graph:.5f} ms replayed in a graph of 20; bin "
         f"{us['rebucket_bin_kernel']:.2f} + place "
-        f"{us['rebucket_place_kernel']:.2f} + halo fill "
+        f"{us[RB_PLACE_NAME[form]]:.2f} + halo fill "
         f"{us['refresh_halo_kernel']:.2f} us (torch.profiler); plain "
         f"{plain_body_ms:.4f} ms; bound {b_ms:.5f} ms (bytes: "
         f"{body_bytes / 1e6:.2f} MB, the body at {b_ms / body_graph:.0%})")
+    rb_shard_timing()
     say("timing", "no single PyTorch call bins, orders and scatters atoms "
         "into cells: library_ms none")
     return rows
 
 
+def atom_bytes(r) -> int:
+    """r, p and gid of an atom."""
+    return 6 * r.element_size() + 4
+
+
+def rb_bytes(r, n_valid: int, nl: int, max_box: int, baseline: bool) -> dict:
+    """The least bytes of each rebucket kernel: the bin reads the valid
+    local slots and the counts and writes a record an atom and the
+    counters; the place reads the records and the counters and writes
+    every slot of the B cells, the baseline's local rows and the
+    counts."""
+    B, A = r.shape[1:]
+    atom = atom_bytes(r)
+    return {"rebucket_bin": 2 * (atom * n_valid + 4 * nl),
+            "rebucket_place": atom * n_valid + 4 * max_box + atom * B * A
+            + (3 * r.element_size() * nl * A if baseline else 0) + 4 * B}
+
+
+def rb_other_form(geom, maps, f, ext, keep: bool, form: str):
+    """The place launch's other form (the block form, which takes any A)
+    on ``f``: the same bits as the chosen form, or None where the chosen
+    form is the block form."""
+    import torch
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    if form != "warp":
+        return None
+    got = rb.rebucket(geom, maps, *f, wrap_extent=ext, keep_halo=keep)
+    chosen = rb.place_form
+    rb.place_form = lambda _a: "block"
+    try:
+        want = rb.rebucket(geom, maps, *f, wrap_extent=ext,
+                           keep_halo=keep)
+    finally:
+        rb.place_form = chosen
+    check(all(torch.equal(a, b) for a, b in zip(got, want)),
+          "rebucket_place: the block form differs from the warp form")
+    return "block"
+
+
+def rb_form_ms(form: str, fn) -> float:
+    """ms a launch of the place launch in ``form`` over calls of ``fn``
+    (torch.profiler, mean of 20)."""
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    chosen = rb.place_form
+    rb.place_form = lambda _a: form
+    try:
+        return kernel_us(fn, (RB_PLACE_NAME[form],))[RB_PLACE_NAME[form]] \
+            / 1e3
+    finally:
+        rb.place_form = chosen
+
+
+def rb_shard_timing() -> None:
+    """rebucket_bin and rebucket_place at a shard of the 63^3 2x2x2 mesh
+    (23^3 cells, halo landers kept) displaced by up to 0.5 A: bit for bit
+    with rebucket_plain, both place forms timed (torch.profiler, mean of
+    20) beside the byte bounds."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    n = HEADLINE_N
+    mesh = init_simulation(Config(
+        nx=n, ny=n, nz=n, doeam=True, temperature=600.0, dtype="float32",
+        max_atoms=0, cell_mode="auto", pot_dir=POTS, device="cuda",
+        **MESH))
+    geom, maps = mesh.geom, mesh.maps
+    f = rb_displaced(mesh.states[0], geom.n_local, None, 38, 0.5)
+    name = f"{n}^3 2x2x2 shard float32 keep_halo"
+    rb_check(name, geom, maps, f, None, True)
+    B, A = f[0].shape[1:]
+    form = rb.place_form(A)
+    other = rb_other_form(geom, maps, f, None, True, form)
+
+    def launch():
+        rb.rebucket(geom, maps, *f, keep_halo=True)
+
+    us = kernel_us(launch, ("rebucket_bin_kernel", RB_PLACE_NAME[form]))
+    nl = geom.n_local
+    n_valid = int(f[3][:nl].clamp(max=A).sum())
+    n_bytes = rb_bytes(f[0], n_valid, nl, geom.n_total, False)
+    b_bin, b_place = (1e3 * n_bytes[k] / PEAK_BYTES for k in REBUCKET_KEYS)
+    say("timing", f"rebucket at a {name} ({n_valid} atoms, B={B}, A={A}): "
+        f"bin {us['rebucket_bin_kernel'] / 1e3:.5f} ms (bound {b_bin:.5f}), "
+        f"place in the {form} form {us[RB_PLACE_NAME[form]] / 1e3:.5f} ms"
+        + (f", in the {other} form {rb_form_ms(other, launch):.5f} ms"
+           if other else "") + f" (bound {b_place:.5f}, bytes: "
+        f"{n_bytes['rebucket_place'] / 1e6:.2f} MB) a launch (torch."
+        f"profiler, mean of 20); the kernels equal rebucket_plain bit for "
+        f"bit")
+    del mesh, f
+    torch.cuda.empty_cache()
+
+
 ARRIVALS_SOURCE = "comd_tpu_torch/csrc/arrivals.cu"
 ARRIVALS_KEYS = ("arrivals_bin", "arrivals_place", "sort_cells")
-# the first designs' ms a launch at phase 20's 63^3 f32 2x2x2 ki state
-# (this script on an NVIDIA H100 80GB HBM3 at 700 W): the place launch a
-# warp a cell over every cell, the sort in the block form at A = 16
-ARRIVALS_EARLIER_MS = {"arrivals_bin": 0.00687, "arrivals_place": 0.01534,
+# each kernel's ms a launch before its latest redesign, at phase 20's 63^3
+# f32 2x2x2 ki state (this script on an NVIDIA H100 80GB HBM3 at 700 W):
+# the bin loading a slot after its mask, the list in per-warp segments
+# that the place launch read in groups, the sort in the block form
+ARRIVALS_EARLIER_MS = {"arrivals_bin": 0.00722, "arrivals_place": 0.00960,
                        "sort_cells": 0.05972}
 
 
@@ -3551,6 +3668,104 @@ def av_crowd(dtype: str, n: int) -> int:
     return int((~ok).sum())
 
 
+def av_time(h, stages, fields) -> dict:
+    """Each stage's bin and place launches from its own state, the state
+    restored before each call (its copies timed apart), the stage's
+    arrivals copied once: a stage replayed in a graph (the host's launch
+    cost out) less the restore's replay, the plain version a stage, each
+    kernel's device us a launch (torch.profiler, mean of 20 calls of the
+    three stages) and the byte bounds from the stages' stats.  Returns
+    them with the working fields and their restore."""
+    import torch
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.probes import time_ms
+    work = [[t.clone() for t in x] for x in fields]
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+    arrs = [[[tuple(t.clone() for t in a) for a in dirs]
+             for dirs in x[0][1]] for x in stages]
+
+    def restore(i):
+        for w, b in zip(work, stages[i][0][0]):
+            for x, y in zip(w, b):
+                x.copy_(y)
+
+    def stage(i, fn=av.append_stage):
+        restore(i)
+        _b, _arr, axis, shifts = stages[i][0]
+        fn(h.geom, h.maps, *work, arrs[i], ovf, axis, shifts)
+
+    restore_ms = [time_ms(lambda: restore(i), 20) for i in range(3)]
+    k_ms = [graph_ms(lambda: stage(i)) - graph_ms(lambda: restore(i))
+            for i in range(3)]
+    p_ms = [time_ms(lambda: stage(i, av.append_stage_plain), 3)
+            - restore_ms[i] for i in range(3)]
+    us = kernel_us(lambda: [stage(i) for i in range(3)],
+                   ("arrivals_bin_kernel", "arrivals_place_kernel"))
+    S, B = len(fields[0]), fields[0][0].shape[1]
+    atom = atom_bytes(fields[0][0])
+    st = [x[1] for x in stages]
+    n_src = [sum(a[3].numel() for dirs in x[0][1] for a in dirs)
+             for x in stages]
+    return dict(
+        work=work, restore=restore, restore_ms=restore_ms, k_ms=k_ms,
+        p_ms=p_ms, us=us,
+        # the masks and each valid arrival's fields in, a record out and
+        # in; the cells' counters, their counts and the stored slots
+        bytes_bin=[4 * m + v["valid"] * (2 * atom + 4)
+                   for m, v in zip(n_src, st)],
+        bytes_place=[4 * S * B + 12 * v["cells"] + v["valid"] * (atom + 4)
+                     + v["stored"] * atom for v in st])
+
+
+def av_real_rebucket(sim, launches: dict) -> None:
+    """The unload's bin and place launches at the state of a real lazy
+    rebucket of the 63^3 2x2x2 ki_fused mesh ``sim`` (stepped eagerly
+    until its trigger fires; the rebucketed shards that its exchange
+    takes): the three stages against their plain versions bit for bit,
+    then timed as ``av_time`` times them, beside the byte bounds."""
+    import torch
+    taken = []
+    exchange_atoms = sim._exchange_atoms
+
+    def spy(r, p, gid, n_atoms, out=None):
+        if not taken:
+            taken.append([[t.clone() for t in x]
+                          for x in (r, p, gid, n_atoms)])
+        return exchange_atoms(r, p, gid, n_atoms, out)
+
+    sim._exchange_atoms = spy
+    try:
+        for _ in range(20):
+            if taken:
+                break
+            sim.step_block(5)
+    finally:
+        del sim._exchange_atoms
+    check(bool(taken), "the 2x2x2 ki_fused mesh did not rebucket in 100 "
+          "steps")
+    n = HEADLINE_N
+    main = av_chain(f"{n}^3 float32 2x2x2 ki, a lazy rebucket of the "
+                    f"ki_fused run", sim.halo, taken[0], "ki")
+    tm = av_time(sim.halo, main["stages"], taken[0])
+    st = [x[1] for x in main["stages"]]
+    for key, nb in (("arrivals_bin", tm["bytes_bin"]),
+                    ("arrivals_place", tm["bytes_place"])):
+        ms = tm["us"][key + "_kernel"] / 1e3
+        b_ms = 1e3 * sum(nb) / 3 / PEAK_BYTES
+        say("timing", f"{key} at a lazy rebucket of the {n}^3 f32 2x2x2 "
+            f"ki_fused run (" + ", ".join(
+                f"{v['valid']} arrivals into {v['cells']} cells" for v in st)
+            + f"): {ms:.5f} ms a launch (torch.profiler, mean of 20 over "
+            f"the three stages; the bound at {b_ms / ms:.0%} of it); bound "
+            f"{b_ms:.5f} ms (bytes: {sum(nb) / 3 / 1e6:.3f} MB); "
+            f"{launches[key]} launches in phase 12's ki_fused run")
+    say("timing", f"a stage's bin and place at that rebucket: " + ", ".join(
+        f"{x:.4f}" for x in tm["k_ms"]) + " ms (replayed in a graph); plain "
+        + ", ".join(f"{x:.3f}" for x in tm["p_ms"]) + " ms")
+    del taken, main, tm
+    torch.cuda.empty_cache()
+
+
 def run_arrivals(launches: dict) -> dict:
     """Phase 20: the atom exchange's unload (csrc/arrivals.cu) against its
     plain versions in every case, then timed at the 63^3 2x2x2 f32 state
@@ -3616,31 +3831,10 @@ def run_arrivals(launches: dict) -> dict:
                                     f"counts and the flag equal)" if past
                                     else " bit for bit") + ", flag set")
 
-    # timing at the 63^3 state under ki: each stage's unload from its own
-    # state, the state restored before each call (its copies timed apart)
-    stages = main["stages"]
-    work = [[t.clone() for t in x] for x in fields]
-    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
-
-    def restore(i):
-        for w, b in zip(work, stages[i][0][0]):
-            for x, y in zip(w, b):
-                x.copy_(y)
-
-    def stage(i, fn=av.append_stage):
-        restore(i)
-        _b, arr, axis, shifts = stages[i][0]
-        fn(h.geom, h.maps, *work, arr, ovf, axis, shifts)
-
-    restore_ms = [time_ms(lambda: restore(i), 20) for i in range(3)]
-    # a stage's bin and place replayed in a graph (the host's launch cost
-    # out), the restore's replay taken out
-    k_ms = [graph_ms(lambda: stage(i)) - graph_ms(lambda: restore(i))
-            for i in range(3)]
-    p_ms = [time_ms(lambda: stage(i, av.append_stage_plain), 3)
-            - restore_ms[i] for i in range(3)]
-    us = kernel_us(lambda: [stage(i) for i in range(3)],
-                   ("arrivals_bin_kernel", "arrivals_place_kernel"))
+    # timing at the 63^3 state under ki
+    tm = av_time(h, main["stages"], fields)
+    work, restore, restore_ms = tm["work"], tm["restore"], tm["restore_ms"]
+    us, k_ms, p_ms = tm["us"], tm["k_ms"], tm["p_ms"]
     ex = main["exchanged"]
     out = [[torch.empty_like(t) for t in x] for x in ex[:3]]
     form = av.sort_form(A)
@@ -3685,16 +3879,8 @@ def run_arrivals(launches: dict) -> dict:
     whole_graph = graph_ms(unload) - graph_ms(lambda: restore(0))
     whole_plain = time_ms(unload_plain, 3) - restore_ms[0]
     S, B = len(ex[0]), ex[0][0].shape[1]
-    es = ex[0][0].element_size()
-    atom = 6 * es + 4                    # r, p and gid of an atom
-    st = [x[1] for x in stages]
-    n_src = [sum(a[3].numel() for dirs in x[0][1] for a in dirs)
-             for x in stages]
-    bytes_bin = [4 * m + v["valid"] * (2 * atom + 4)
-                 for m, v in zip(n_src, st)]
-    bytes_place = [4 * S * B + 12 * v["cells"] + v["valid"] * (atom + 4)
-                   + v["stored"] * atom for v in st]
-    bytes_sort = 2 * atom * S * B * A
+    bytes_bin, bytes_place = tm["bytes_bin"], tm["bytes_place"]
+    bytes_sort = 2 * atom_bytes(ex[0][0]) * S * B * A
     rows = {}
     for key, name, nb, ms, plain in (
             ("arrivals_bin", "arrivals_bin_kernel", sum(bytes_bin) / 3,
@@ -3705,20 +3891,20 @@ def run_arrivals(launches: dict) -> dict:
             ("sort_cells", sort_name[form], bytes_sort,
              us[sort_name[form]] / 1e3, sort_p)):
         b_ms = 1e3 * nb / PEAK_BYTES
-        how = {"arrivals_bin": "a thread an arrival slot, the first "
-                               "leader a cell lists it in its warp's "
-                               "segment",
+        how = {"arrivals_bin": "a thread an arrival slot, its fields "
+                               "loaded beside the mask, a block's first "
+                               "stagers listing their cells behind one "
+                               "atomic",
                "arrivals_place": f"a grid of "
                                  f"{av.place_blocks(ex[0][0].device, 4, A)} "
-                                 f"blocks striding over groups of 32 of "
-                                 f"the list's segments, a warp a listed "
-                                 f"cell",
+                                 f"blocks striding over the list, a warp a "
+                                 f"listed cell",
                "sort_cells": f"the {form} form at A = {A}"}[key]
         say("timing", f"{key} at {n}^3 f32 2x2x2 (ki, a mean over the "
             f"three stages for bin and place; {how}): {ms:.5f} ms a launch "
             f"(torch.profiler, mean of 20; the bound at {b_ms / ms:.0%} of "
-            f"it; the first design {ARRIVALS_EARLIER_MS[key]:.5f} ms on an "
-            f"H100 at 700 W); bound {b_ms:.5f} ms (bytes: {nb / 1e6:.3f} "
+            f"it; the earlier design {ARRIVALS_EARLIER_MS[key]:.5f} ms on "
+            f"an H100 at 700 W); bound {b_ms:.5f} ms (bytes: {nb / 1e6:.3f} "
             f"MB); plain version {plain:.4f} ms ("
             + ("append_stage_plain a stage, both kernels' function"
                if key != "sort_cells" else "sort_shards_plain")
@@ -3750,6 +3936,7 @@ def run_arrivals(launches: dict) -> dict:
         f"bins, places and sort {b_whole:.5f} ms (bytes)")
     say("timing", "no single PyTorch call bins and appends atoms to cells, "
         "nor sorts three fields by one key: library_ms none")
+    av_real_rebucket(sim, launches)
 
     # one eager mesh redistribution (the lazy step's IF body), op by op:
     # the profiler may drop records, so the most of five profiles

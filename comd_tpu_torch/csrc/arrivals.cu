@@ -21,27 +21,25 @@
 // rank is by (direction, gid, place).
 //
 //   arrivals_bin    one thread an arrival slot of every (shard, direction)
-//                   source: its validity (the sender's cell count, or a
-//                   flag an entry), the shift, the bin; a place in its
-//                   cell's staging area from one atomicAdd a warp and a
-//                   cell (__match_any_sync), where it writes the arrival
-//                   as one record (gid and its rank tag, r, p: 32 bytes
-//                   in f32, 64 in f64).  The leader that finds the cell's
-//                   counter at 0 is its first: it lists the cell in its
-//                   warp's own 32-entry segment of the list (a ballot of
-//                   the warp's first leaders), and lane 0 writes how many
-//                   it listed, 0 too.  Each cell that got arrivals is
-//                   listed once, in no fixed order.  No atomic or barrier
-//                   is added (one list behind an atomic a warp or a block
-//                   on its length cost this launch 59% or 11%, 32 lists
-//                   behind an atomic a warp 13%), and nothing is left to
-//                   clear: every launch writes every segment's length.
+//                   source: its r, p and gid loaded beside its validity
+//                   (the sender's cell count, or a flag an entry), so one
+//                   round trip to memory comes before the bin; the
+//                   shift, the bin; a place in its cell's staging area
+//                   from one atomicAdd a warp and a cell
+//                   (__match_any_sync), where it writes the arrival as
+//                   one record (gid and its rank tag, r, p: 32 bytes in
+//                   f32, 64 in f64).  The leader that finds the cell's
+//                   counter at 0 is its first: the block's first leaders
+//                   (a ballot a warp, a scan of the warps' counts) append
+//                   their cells to the one list behind one atomic a
+//                   block on its length.  Each cell that got arrivals is
+//                   listed once, in no fixed order.
 //   arrivals_place  a fixed grid sized to the card (the SMs times the
-//                   blocks an SM holds) whose warps stride over groups of
-//                   32 segments, a power of two warps a group: a warp loads
-//                   the group's 32 lengths at once, scans them by
-//                   shuffles and takes its cells of the group (about one
-//                   a warp); a warp a listed cell loads its records
+//                   blocks an SM holds): each block reads the list's
+//                   length, and the last block to read it (a ticket)
+//                   clears it and the ticket for the next bin launch and
+//                   keeps it for checks; the warps stride over the list,
+//                   a warp a listed cell: it loads the cell's records
 //                   (k <= 32: one a lane, ranked by shuffles in
 //                   registers; more: their keys through shared memory),
 //                   ranks each by the number of smaller (direction, gid,
@@ -67,10 +65,9 @@
 //                           shared memory, then each field staged through
 //                           shared memory and written in the sorted order.
 //
-// No memset: the counters are zero before the first launch and every
-// place launch leaves them zero, and the bin launch writes the whole list
-// it hands on, so a launch in a CUDA graph finds them right at each
-// replay.
+// No memset: the counters, the list's length and the ticket are zero
+// before the first launch and every place launch leaves them zero, so a
+// launch in a CUDA graph finds them right at each replay.
 //
 // Overflow.  A cell stages at most C records (the wrapper's capacity, C >=
 // 2A).  Up to C arrivals a cell the slots are exact; past C the staged
@@ -91,9 +88,12 @@
 // the first designs back was latency, not bytes: the place launch visited
 // every cell (a warp a cell, ~90% of them without arrivals, ~11 waves of
 // one dependent load each), the sort kept one 4-byte load a thread in
-// flight between 14 block barriers.  The list makes the place launch one
-// wave over the cells with work; the warp sort keeps 28 (f32) or 52 (f64)
-// bytes a lane in flight.
+// flight between 14 block barriers, the bin waited for the mask before it
+// loaded the slot.  The list makes the place launch one wave over the
+// cells with work (one list read at a stride: per-warp segments, read in
+// groups and scanned, cost the place launch more than one atomic a block
+// costs the bin); the warp sort keeps 28 (f32) or 52 (f64) bytes a lane
+// in flight.
 //
 // Plain C interface for ctypes: comd_arrivals launches bin and place on
 // `stream`, comd_sort_cells the sort; both return the cudaError_t of the
@@ -132,9 +132,13 @@ struct ArrivalsArgs {
   bool* overflow;                    // 0-dim bool, set (never cleared)
   void* stage;                       // [n_shards * B, C] records
   int* counts;                       // [n_shards * B], zero between calls
-  int* list;                         // [bin_warps][32] the cells each bin
-                                     // warp opened, in its segment
-  int* list_n;                       // [bin_warps] their number
+  int* list;                         // [n_shards * B] the cells that got
+                                     // arrivals, in no fixed order
+  int* list_n;                       // [2] the list's length and the
+                                     // place launch's ticket, zero between
+                                     // calls
+  int* listed;                       // the length the place launch read
+                                     // (for checks)
   const long long* box_of_tuple;     // [gx, gy, gz]: Hilbert; null: dense
   double local_min[3];
   double local_max[3];
@@ -152,9 +156,6 @@ struct ArrivalsArgs {
   int mask_counts;                   // 1: counts a cell; 0: a bool a slot
   int place_warps;                   // warps a place block
   int place_blocks;                  // the place launch's grid
-  int place_fan_log2;                // place warps a group of 32
-                                     // segments: 1 << it (1-1024)
-  int bin_warps;                     // the bin launch's warps (0: none)
 };
 
 // What ops/cuda/arrivals.py's _SortArgs holds.
@@ -244,19 +245,30 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
     arrivals_bin_kernel(const __grid_constant__ Args a) {
   using R = Record<T>;
-  const long long e = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  const long long total = static_cast<long long>(a.n_shards) * a.n_dirs *
-                          a.M;
+  // 32-bit slot indices (the wrapper keeps the slots below 2^31): the
+  // divisions before the loads stay short
+  const unsigned int e = blockIdx.x * kThreads + threadIdx.x;
+  const unsigned int total = a.n_shards * a.n_dirs * a.M;
   const int lane = threadIdx.x & 31;
   int cell = -1;             // the staging cell s * B + box, or -1
   int g = 0, tag = 0;
   T x[3], v[3];
   if (e < total) {
     const int src = static_cast<int>(e / a.M);
-    const int i = static_cast<int>(e - static_cast<long long>(src) * a.M);
+    const int i = static_cast<int>(e) - src * a.M;
     const int s = src / a.n_dirs, d = src - s * a.n_dirs;
     const ArrivalSource& in = a.src[s][d];
+    // the slot's r, p and gid loaded beside the mask, before it says
+    // whether the slot holds an arrival (every plane is M slots long): one
+    // round trip to memory before the bin instead of two
+    const T* r = static_cast<const T*>(in.r);
+    const T* p = static_cast<const T*>(in.p);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      x[k] = r[static_cast<long long>(k) * a.M + i];
+      v[k] = p[static_cast<long long>(k) * a.M + i];
+    }
+    const int gi = in.gid[i];
     bool valid;
     if (a.mask_counts) {
       const int c = i / a.A;
@@ -265,13 +277,6 @@ __global__ void __launch_bounds__(kThreads)
       valid = static_cast<const bool*>(in.mask)[i];
     }
     if (valid) {
-      const T* r = static_cast<const T*>(in.r);
-      const T* p = static_cast<const T*>(in.p);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        x[k] = r[static_cast<long long>(k) * a.M + i];
-        v[k] = p[static_cast<long long>(k) * a.M + i];
-      }
       // the sender's frame -> the receiver's
 #pragma unroll
       for (int k = 0; k < 3; ++k)
@@ -279,7 +284,7 @@ __global__ void __launch_bounds__(kThreads)
       const int b = bin_box(x, a.local_min, a.local_max, a.inv_box, a.grid,
                             a.n_local, a.box_of_tuple);
       cell = s * a.B + b;
-      g = in.gid[i];
+      g = gi;
       tag = d * a.M + i;
     }
   }
@@ -299,15 +304,27 @@ __global__ void __launch_bounds__(kThreads)
                  (static_cast<size_t>(cell) * a.C + q) * R::kPieces,
              g, tag, x, v);
   }
-  // the cells this warp opened, into its own 32-entry segment of the
-  // list, and their number, 0 too: every segment's length is written
-  // every launch, so nothing is left to clear, and no atomic or barrier
-  // is added
-  const size_t seg = static_cast<size_t>(blockIdx.x) * (kThreads / 32) +
-                     (threadIdx.x >> 5);
+  // the cells this block opened, appended to the list behind one atomic
+  // a block on its length: each warp's count, their scan, the reservation
+  __shared__ int opened[kThreads / 32];
+  __shared__ int base;
+  const int warp = threadIdx.x >> 5;
   const unsigned int firsts = __ballot_sync(0xffffffffu, first);
-  if (lane == 0) a.list_n[seg] = __popc(firsts);
-  if (first) a.list[seg * 32 + __popc(firsts & ((1u << lane) - 1u))] = cell;
+  if (lane == 0) opened[warp] = __popc(firsts);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      const int k = opened[w];
+      opened[w] = sum;
+      sum += k;
+    }
+    base = sum > 0 ? atomicAdd(a.list_n, sum) : 0;
+  }
+  __syncthreads();
+  if (first)
+    a.list[base + opened[warp] + __popc(firsts & ((1u << lane) - 1u))] =
+        cell;
 }
 
 // (direction, gid, place) of key o before key m's; tag = direction * M +
@@ -390,35 +407,28 @@ template <typename T, bool kSmemKeys>
 __global__ void __launch_bounds__(kThreads, kSmemKeys ? 1 : 8)
     arrivals_place_kernel(const __grid_constant__ Args a) {
   extern __shared__ int2 keys[];           // [place_warps][C] if kSmemKeys
+  __shared__ int length;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lg = a.place_fan_log2;        // place warps a group: 1 << lg
-  const int groups = (a.bin_warps + 31) / 32;
-  const int stride = static_cast<int>(gridDim.x) * a.place_warps;
-  // item w: group w >> lg of 32 segments, its listed cells w % (1 << lg),
-  // + (1 << lg), ... in the order of the segments (32-bit indices: the
-  // wrapper keeps groups << lg below 2^31)
-  for (int w = static_cast<int>(blockIdx.x) * a.place_warps + warp;
-       w < (groups << lg); w += stride) {
-    const int g = w >> lg;
-    const int f = w & ((1 << lg) - 1);
-    const int seg = g * 32 + lane;
-    const int n = seg < a.bin_warps ? __ldcg(a.list_n + seg) : 0;
-    int end = n;                           // the segments' inclusive scan
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int t = __shfl_up_sync(0xffffffffu, end, d);
-      if (lane >= d) end += t;
-    }
-    const int total = __shfl_sync(0xffffffffu, end, 31);
-    for (int k = f; k < total; k += 1 << lg) {
-      // cell k of the group: in the first segment whose scan passes k
-      const int j = __popc(__ballot_sync(0xffffffffu, end <= k));
-      const int start = __shfl_sync(0xffffffffu, end - n, j);
-      const int cell = __ldcg(a.list + static_cast<size_t>(g * 32 + j) * 32 +
-                              (k - start));
-      place_cell<T, kSmemKeys>(a, cell, lane, keys + warp * a.C);
+  if (threadIdx.x == 0) {
+    const int n = __ldcg(a.list_n);
+    length = n;
+    // the read before the ticket: the last block to take one knows every
+    // block has read the length, clears it and the ticket for the next
+    // bin launch and keeps it for checks
+    __threadfence();
+    if (atomicAdd(reinterpret_cast<unsigned int*>(a.list_n) + 1, 1u) ==
+        gridDim.x - 1) {
+      a.list_n[0] = 0;
+      a.list_n[1] = 0;
+      *a.listed = n;
     }
   }
+  __syncthreads();
+  const int n = length;
+  const int stride = static_cast<int>(gridDim.x) * a.place_warps;
+  for (int k = static_cast<int>(blockIdx.x) * a.place_warps + warp; k < n;
+       k += stride)
+    place_cell<T, kSmemKeys>(a, __ldcg(a.list + k), lane, keys + warp * a.C);
 }
 
 // Cells a block of the block form sorts: as many as fit 256 threads with
@@ -610,10 +620,9 @@ cudaError_t place_blocks(int place_warps, int C, int device, int* blocks) {
 }  // namespace
 
 // `elem`: 4 (f32) or 8 (f64).  The staging holds n_shards * B * C records
-// of 32 (f32) or 64 (f64) bytes, 16-byte aligned; the list bin_warps * 32
-// ints and list_n bin_warps (the bin launch's warps: its blocks of 256
-// threads over n_shards * n_dirs * M slots, 8 warps each); where C > 32 a
-// place block takes place_warps * C * 8 bytes of shared memory.
+// of 32 (f32) or 64 (f64) bytes, 16-byte aligned; the list n_shards * B
+// ints; where C > 32 a place block takes place_warps * C * 8 bytes of
+// shared memory.
 extern "C" int comd_arrivals(int elem, const ArrivalsArgs* args,
                              cudaStream_t stream) {
   const Args& a = *args;
@@ -621,11 +630,6 @@ extern "C" int comd_arrivals(int elem, const ArrivalsArgs* args,
       a.n_shards < 1 || a.n_shards > kMaxShards || a.n_dirs < 1 ||
       a.n_dirs > 2 || a.axis < -1 || a.axis > 2 || a.place_warps < 1 ||
       a.place_warps > kThreads / 32 || a.place_blocks < 1 ||
-      a.place_fan_log2 < 0 || a.place_fan_log2 > 10 ||
-      ((static_cast<long long>(a.bin_warps) + 31) / 32 << a.place_fan_log2) >=
-          (1ll << 31) ||
-      a.bin_warps != (static_cast<long long>(a.n_shards) * a.n_dirs * a.M +
-                      kThreads - 1) / kThreads * (kThreads / 32) ||
       static_cast<long long>(a.n_shards) * a.n_dirs * a.M >= (1ll << 31) ||
       static_cast<long long>(a.n_shards) * a.B >= (1ll << 31) ||
       static_cast<long long>(a.B) * a.A >= (1ll << 31) ||

@@ -24,19 +24,28 @@
 //                   the migrating atoms (binned outside the local cells)
 //                   and whether a kept cell got more than A counted into
 //                   two scratch words.
-//   rebucket_place  a thread a slot of a cell (16 cells a block of 256
-//                   at A = 16): the thread's first staged record loaded
-//                   beside the cell's count (one round trip to memory
-//                   for a cell of at most a block's share of atoms), the
-//                   gids into shared memory, each record's rank the
-//                   number of smaller gids (unique, so the layout does
-//                   not depend on the order the atomics gave), the
-//                   record written to slot rank < A, the other slots
-//                   empty, the count written and its counter cleared;
-//                   block 0 writes n_migrating and the overflow flag
-//                   (or-ed into it on request) and clears the scratch
-//                   words.  With a baseline (the serial lazy step's
-//                   last_r) the local cells' positions also go there.
+//   rebucket_place  every slot of a cell written from its staged records
+//                   ranked by gid (unique, so the layout does not depend
+//                   on the order the atomics gave), records to slots rank
+//                   < A, the other slots empty, the count written and its
+//                   counter cleared; block 0 writes n_migrating and the
+//                   overflow flag (or-ed into it on request) and clears the
+//                   scratch words.  With a baseline (the serial lazy step's
+//                   last_r) the local cells' positions also go there.  Two
+//                   forms, the wrapper's choice by A:
+//                     warp  (A <= 32) a segment of L lanes a cell, L = A
+//                           rounded up to a power of two (two cells a warp
+//                           at A = 16): lane t loads the cell's record t
+//                           beside the count (one round trip to memory),
+//                           lane 0 clears the counter, the rank by
+//                           shuffles, and each lane stores one slot a
+//                           field: its record's, or an empty one; no
+//                           shared memory, no block barrier.  A cell of
+//                           more than L records (overflow) is ranked in
+//                           rounds of L;
+//                     block (A > 32) a thread a slot of a cell, the first
+//                           record loaded beside the count, the gids and
+//                           the rank through shared memory, two barriers.
 //
 // In place.  The bin launch copies every live value into the staging
 // before the place launch writes, so the outputs may be the inputs: the
@@ -62,8 +71,12 @@
 // counts and writes a record an atom; the place launch reads the records
 // and writes every kept slot's r, p, gid (and the baseline's local
 // positions) and the counts.  Neither does more than a few operations a
-// word.  32-bit slot indices: B * A and B * C below 2^31 (the wrapper
-// checks).
+// word.  What held the block form of the place launch back was its
+// schedule, not bytes: a record waited through two block barriers and a
+// loop over shared memory between its load and its store (~27% of the
+// byte bound at A = 16 on an H100); the warp form keeps it in registers
+// from load to store and ranks with shuffles.  32-bit slot indices: B * A
+// and B * C below 2^31 (the wrapper checks).
 //
 // Plain C interface for ctypes: comd_rebucket launches both kernels on
 // `stream`, returns the cudaError_t of the launches (0 = success) and
@@ -103,6 +116,8 @@ struct RebucketArgs {
   int C;                       // staging records a cell
   int max_box;                 // kept cells: n_local, or n_total
   int or_overflow;             // or the flag into *overflow
+  int form;                    // place launch: 1 the warp form (A <= 32);
+                               // 0 the block form
 };
 
 namespace {
@@ -110,6 +125,8 @@ namespace {
 using Args = RebucketArgs;
 
 constexpr int kThreads = 256;
+constexpr int kSmemLimit = 48 * 1024;   // a block-form place block's
+constexpr unsigned int kAll = 0xffffffffu;
 constexpr double kEmptyPos = 1.0e10;
 constexpr int kEmptyGid = 2147483647;
 
@@ -264,6 +281,20 @@ __host__ __device__ __forceinline__ int place_cells(int A) {
   return A < kThreads ? kThreads / A : 1;
 }
 
+// A place launch's block 0, one thread: the bin launch is done, so its
+// two sums are final; written out and cleared.
+__device__ __forceinline__ void settle_scalars(const Args& a) {
+  const unsigned int mig = a.scalars[0], over = a.scalars[1];
+  if (a.n_migrating != nullptr)
+    *a.n_migrating = static_cast<int>(mig);
+  if (!a.or_overflow)
+    *a.overflow = over != 0;
+  else if (over)
+    *a.overflow = true;
+  a.scalars[0] = 0;
+  a.scalars[1] = 0;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) rebucket_place_kernel(
     const __grid_constant__ Args a) {
@@ -273,18 +304,7 @@ __global__ void __launch_bounds__(kThreads) rebucket_place_kernel(
   const int P = place_cells(a.A);
   const int W = kThreads / P;      // threads a cell (>= A below 256)
   const int cl = threadIdx.x / W, t = threadIdx.x - cl * W;
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    // the bin launch is done: its two sums are final
-    const unsigned int mig = a.scalars[0], over = a.scalars[1];
-    if (a.n_migrating != nullptr)
-      *a.n_migrating = static_cast<int>(mig);
-    if (!a.or_overflow)
-      *a.overflow = over != 0;
-    else if (over)
-      *a.overflow = true;
-    a.scalars[0] = 0;
-    a.scalars[1] = 0;
-  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) settle_scalars(a);
   const int c = blockIdx.x * P + cl;
   const bool live = cl < P && c < a.B;   // 256 % W threads idle
   const bool kept = live && c < a.max_box;
@@ -346,7 +366,89 @@ __global__ void __launch_bounds__(kThreads) rebucket_place_kernel(
   if (t == 0) a.out_n[c] = count;
 }
 
-// The place launch's shared memory: P counts and P * C gids.
+// The warp form's lanes a cell: A rounded up to a power of two (A <= 32).
+__host__ __device__ __forceinline__ int place_lanes(int A) {
+  int w = 1;
+  while (w < A) w <<= 1;
+  return w;
+}
+
+// The warp form (A <= 32): a segment of L lanes a cell, the cell's record
+// k in lane k % L (round k / L), ranked by (gid, place) with shuffles
+// across the segment; no shared memory, no block barrier.  Every loop
+// bound is the same for the warp's segments, so every shuffle has the
+// whole warp.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rebucket_place_warp_kernel(
+    const __grid_constant__ Args a) {
+  using R = Record<T>;
+  using Piece = typename R::Piece;
+  if (blockIdx.x == 0 && threadIdx.x == 0) settle_scalars(a);
+  const int L = place_lanes(a.A);
+  const int t = threadIdx.x & (L - 1);
+  const int c = blockIdx.x * (kThreads / L) + threadIdx.x / L;
+  const bool live = c < a.B;
+  const bool kept = live && c < a.max_box;
+  const Piece* st = static_cast<const Piece*>(a.stage) +
+                    static_cast<size_t>(kept ? c : 0) * a.C * R::kPieces;
+  // the lane's first record loaded beside the cell's count, before the
+  // count says whether it is one (t < L <= C: staged memory either way):
+  // one round trip to memory for a cell of at most L records
+  T x[3], v[3];
+  int g = 0, count = 0;
+  if (kept) {
+    R::get(st + t * R::kPieces, x, &g, v);
+    if (t == 0) count = a.counts[c];
+  }
+  count = __shfl_sync(kAll, count, 0, L);
+  if (kept && t == 0) a.counts[c] = 0;     // read by the whole segment
+  const int n = count < a.C ? count : a.C;
+  // rounds of L records (more than one only past L >= A: overflow), and
+  // the segments' most records a round
+  const int most = __reduce_max_sync(kAll, n);
+  const int rounds = most > L ? (most + L - 1) / L : 1;
+  const int reach = most < L ? most : L;
+  const size_t plane = static_cast<size_t>(a.B) * a.A;
+  const size_t row = static_cast<size_t>(live ? c : 0) * a.A;
+  T* out_r = static_cast<T*>(a.out_r);
+  T* out_p = static_cast<T*>(a.out_p);
+  T* last = live && c < a.n_local ? static_cast<T*>(a.last_r) : nullptr;
+  for (int i = 0; i < rounds; ++i) {
+    const int k = i * L + t;               // the lane's record this round
+    if (i > 0 && k < n) R::get(st + k * R::kPieces, x, &g, v);
+    // the rank: the records of smaller gid (unique; ties by place)
+    int rank = 0;
+    for (int i2 = 0; i2 < rounds; ++i2) {
+      const int k2 = i2 * L + t;
+      const int o2 = i2 == i ? g
+                             : (k2 < n ? R::gid(st + k2 * R::kPieces) : 0);
+      const int m = n - i2 * L;            // round i2's records
+      for (int j = 0; j < reach; ++j) {
+        const int o = __shfl_sync(kAll, o2, j, L);
+        rank += (j < m) & ((o < g) | ((o == g) & (i2 * L + j < k)));
+      }
+    }
+    // one store a field: the record to slot rank < A, or in the first
+    // round the empty slot t (n <= t < A; none once n >= A)
+    const bool empty = k >= n;
+    const int slot = !live ? -1 : !empty ? (rank < a.A ? rank : -1)
+                                         : (i == 0 && t < a.A ? t : -1);
+    if (slot >= 0) {
+      const size_t at = row + slot;
+      const T e = static_cast<T>(kEmptyPos);
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        out_r[d * plane + at] = empty ? e : x[d];
+        out_p[d * plane + at] = empty ? T(0) : v[d];
+        if (last != nullptr) last[d * plane + at] = empty ? e : x[d];
+      }
+      a.out_gid[at] = empty ? kEmptyGid : g;
+    }
+  }
+  if (live && t == 0) a.out_n[c] = count;
+}
+
+// The block form's shared memory: P counts and P * C gids.
 __host__ __forceinline__ size_t place_smem(int A, int C) {
   return sizeof(int) * static_cast<size_t>(place_cells(A)) * (1 + C);
 }
@@ -359,18 +461,24 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                              kThreads, 0, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int P = place_cells(a.A);
-  rebucket_place_kernel<T><<<(a.B + P - 1) / P, kThreads,
-                             place_smem(a.A, a.C), stream>>>(a);
+  if (a.form == 1) {
+    const int P = kThreads / place_lanes(a.A);
+    rebucket_place_warp_kernel<T><<<(a.B + P - 1) / P, kThreads, 0,
+                                    stream>>>(a);
+  } else {
+    const int P = place_cells(a.A);
+    rebucket_place_kernel<T><<<(a.B + P - 1) / P, kThreads,
+                               place_smem(a.A, a.C), stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // `elem`: 4 (f32) or 8 (f64).  The staging holds max_box * C records of
-// 32 (f32) or 64 (f64) bytes, 16-byte aligned; a place block takes
-// place_smem(A, C) bytes of shared memory (at most 48 KB: the wrapper
-// refuses larger A).
+// 32 (f32) or 64 (f64) bytes, 16-byte aligned; a block-form place block
+// takes place_smem(A, C) bytes of shared memory (at most 48 KB: the
+// wrapper refuses larger A), the warp form none.
 extern "C" int comd_rebucket(int elem, const RebucketArgs* args,
                              cudaStream_t stream) {
   const Args& a = *args;
@@ -378,7 +486,8 @@ extern "C" int comd_rebucket(int elem, const RebucketArgs* args,
       a.max_box > a.B || a.n_local > a.max_box ||
       static_cast<long long>(a.B) * a.A >= (1ll << 31) ||
       static_cast<long long>(a.max_box) * a.C >= (1ll << 31) ||
-      place_smem(a.A, a.C) > 48 * 1024)
+      (a.form != 0 && a.form != 1) || (a.form == 1 && a.A > 32) ||
+      place_smem(a.A, a.C) > kSmemLimit)
     return cudaErrorInvalidValue;
   return elem == 4 ? launch<float>(a, stream) : launch<double>(a, stream);
 }

@@ -10,18 +10,18 @@ redistribution made 48 appends and 8 sorts, ~6,900 launches, so here
 they are three kernels:
 
 - ``arrivals_bin``: one thread an arrival slot of every (shard,
-  direction) source of a stage shifts it into the receiver's frame, bins
-  it in f64 (csrc/bin.cuh, as rebucket_bin does) and stages it as one
-  record in its cell (one atomic a warp and a cell); the first to stage
-  into a cell lists it in its warp's own segment of the list;
+  direction) source of a stage loads the slot beside its mask, shifts it
+  into the receiver's frame, bins it in f64 (csrc/bin.cuh, as
+  rebucket_bin does) and stages it as one record in its cell (one atomic
+  a warp and a cell); the first to stage into a cell lists it, each
+  block's firsts behind one atomic on the list's length;
 - ``arrivals_place``: a grid sized to the card (``place_blocks``) whose
-  warps stride over groups of 32 segments (``place_fan_log2``: a power
-  of two warps a group,
-  the group's lengths scanned by shuffles), a warp a listed cell: it
-  ranks the cell's records by (direction, gid, place) (k <= 32: by
-  shuffles in registers), writes them to slots n_atoms + rank < A, adds
-  the count, sets the overflow flag where a slot reached A and clears its
-  counter; cells without arrivals are left as they were;
+  warps stride over the list, a warp a listed cell: it ranks the cell's
+  records by (direction, gid, place) (k <= 32: by shuffles in
+  registers), writes them to slots n_atoms + rank < A, adds the count,
+  sets the overflow flag where a slot reached A and clears its counter;
+  the last block to read the list's length clears it; cells without
+  arrivals are left as they were;
 - ``sort_cells``: every cell of every shard sorted by gid (stable: ties,
   the empty slots' EMPTY_GID, by slot) in one launch, in place or into
   other tensors; A <= 32 in the warp form (a cell a warp segment, a slot
@@ -39,13 +39,13 @@ Kernels and plain versions give the same bits while no cell receives more
 than ``stage_capacity(A)`` (C) arrivals in a stage; past that the counts
 and the overflow flag still agree but the stored slots of such a cell may
 differ (a run with overflow aborts).  Launches are counted in
-``LAUNCHES`` under the kernels' names.  The staging (the records, then
-the list: a 32-entry segment and a length for each warp of the bin
-launch) and the per-cell counters are made at the first launch on a
-device at a size (a workspace kept for the process, as rebucket.py's: a
-captured graph replays its addresses), which must not be inside a CUDA
-graph capture; every place launch leaves the counters clear, and every
-bin launch writes the whole list it hands on.
+``LAUNCHES`` under the kernels' names.  The staging (the records, the
+length the last place launch read, then the list of the cells) and the
+per-cell counters (then the list's length and the place launch's
+ticket) are made at the first launch on a device at a size (a workspace
+kept for the process, as rebucket.py's: a captured graph replays its
+addresses), which must not be inside a CUDA graph capture; every place
+launch leaves the counters, the length and the ticket clear.
 """
 from __future__ import annotations
 
@@ -70,8 +70,8 @@ _lib = None
 _lib_lock = threading.Lock()
 BUILD_SECONDS = None    # wall time of the nvcc build in this process
 _WORK = {}              # device index -> [Workspace, ...], never freed
-_LAST = {}              # device index -> (Workspace, list_n's byte offset
-                        # in its staging, bin warps) of the last launch
+_LAST = {}              # device index -> (Workspace, the byte offset in its
+                        # staging of the length the last launch read)
 _GRID = {}              # (device index, elem, A) -> place launch blocks
 
 stage_capacity = rebucket_ops.stage_capacity
@@ -107,15 +107,14 @@ class _Args(ctypes.Structure):
         for name in ("r", "p", "gid", "n_atoms")] + [
         (name, ctypes.c_void_p)
         for name in ("overflow", "stage", "counts", "list", "list_n",
-                 "box_of_tuple")] + [
+                     "listed", "box_of_tuple")] + [
         ("local_min", ctypes.c_double * 3),
         ("local_max", ctypes.c_double * 3),
         ("inv_box", ctypes.c_double * 3),
         ("shift", ctypes.c_double * 2),
         ("grid", ctypes.c_int * 3)] + [(name, ctypes.c_int) for name in (
             "n_local", "B", "A", "C", "M", "n_shards", "n_dirs", "axis",
-            "mask_counts", "place_warps", "place_blocks", "place_fan_log2",
-            "bin_warps")]
+            "mask_counts", "place_warps", "place_blocks")]
 
 
 class _SortArgs(ctypes.Structure):
@@ -389,32 +388,14 @@ def place_blocks(device: torch.device, elem: int, A: int) -> int:
     return _GRID[key]
 
 
-def bin_warps(n: int) -> int:
-    """The bin launch's warps over ``n`` arrival slots (its blocks of 256
-    threads, 8 warps each; 0 where it does not launch): the list's
-    segments."""
-    return -(-n // 256) * 8
-
-
-def place_fan_log2(blocks: int, A: int, segments: int) -> int:
-    """log2 of the place warps a group of 32 list segments: the place
-    grid's warps over the groups, rounded up to a power of two, 1 to 1024
-    (a group lists at most 1024 cells), the items (groups times it) below
-    2^31."""
-    groups = max(-(-segments // 32), 1)
-    fan = min(-(-blocks * place_warps(A) // groups), 1024,
-              (2 ** 31 - 1) // groups)
-    return max(fan - 1, 0).bit_length()
-
-
 def list_length(device: torch.device) -> int:
     """The cells the last launch pair on ``device`` listed (the cells that
     got arrivals in its stage's last chunk of shards), read to the host:
     for checks, not on the step's path."""
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
-    w, at, n = _LAST[dev]
-    return int(w.stage[at:at + 4 * n].view(torch.int32).sum())
+    w, at = _LAST[dev]
+    return int(w.stage[at:at + 4].view(torch.int32)[0])
 
 
 def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
@@ -426,11 +407,12 @@ def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
     C = stage_capacity(A)
     elem = r[0].element_size()
     rec = 8 * elem                           # 32 (f32) or 64 (f64) bytes
-    segs = bin_warps(S * n_dirs * M)
-    # the records, then the list's segments, then their lengths
-    at_list = S * B * C * rec
-    at_n = at_list + 4 * 32 * segs
-    w = rebucket_ops.workspace(r[0].device, at_n + 4 * segs, S * B, _WORK)
+    # the records, the length the place launch read, then the list; the
+    # list's length and the ticket after the counters
+    at_n = S * B * C * rec
+    at_list = at_n + 16
+    w = rebucket_ops.workspace(r[0].device, at_list + 4 * S * B, S * B + 2,
+                               _WORK)
     a = _Args()
     for s in range(S):
         for d, (ar, ap, ag, mask) in enumerate(arrivals[s]):
@@ -440,7 +422,8 @@ def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
         a.gid[s], a.n_atoms[s] = gid[s].data_ptr(), n_atoms[s].data_ptr()
     a.overflow = overflow.data_ptr()
     a.stage, a.counts = w.stage.data_ptr(), w.counts.data_ptr()
-    a.list, a.list_n = a.stage + at_list, a.stage + at_n
+    a.list, a.listed = a.stage + at_list, a.stage + at_n
+    a.list_n = a.counts + 4 * S * B
     a.box_of_tuple = maps.box_of_tuple.data_ptr() if geom.use_hilbert \
         else None
     a.local_min[:] = [float(v) for v in geom.local_min]
@@ -452,12 +435,10 @@ def _launch_stage(geom, maps, r, p, gid, n_atoms, arrivals, overflow,
     a.n_shards, a.n_dirs, a.axis = S, n_dirs, axis
     a.mask_counts, a.place_warps = int(counts), place_warps(A)
     a.place_blocks = place_blocks(r[0].device, elem, A)
-    a.place_fan_log2 = place_fan_log2(a.place_blocks, A, segs)
-    a.bin_warps = segs
     stream = torch.cuda.current_stream(r[0].device).cuda_stream
     _raise_on(build().comd_arrivals(elem, ctypes.byref(a), stream),
               "arrivals")
-    _LAST[w.counts.device.index] = (w, at_n, segs)
+    _LAST[w.counts.device.index] = (w, at_n)
     if S * n_dirs * M > 0:
         LAUNCHES["arrivals_bin"] += 1
     LAUNCHES["arrivals_place"] += 1

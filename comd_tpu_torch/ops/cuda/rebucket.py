@@ -12,11 +12,13 @@ device time on an H100, so it is two kernels here:
   atom, takes a place in its cell's staging area (one atomic a warp and a
   cell) and writes the atom there as one record; it counts the migrating
   atoms and whether a kept cell got more than A;
-- ``rebucket_place``: a thread a slot of a cell (16 cells a block at A =
-  16) loads its first staged record beside the cell's count, ranks the
-  records by gid, writes them to their slots and empties the rest, writes
-  the count and clears its counter; its block 0 writes n_migrating and
-  the overflow flag.
+- ``rebucket_place``: each cell's staged records ranked by gid, written
+  to their slots, the rest emptied, the count written and its counter
+  cleared; its block 0 writes n_migrating and the overflow flag.  A <= 32
+  in the warp form (``place_form``: a cell a segment of ``place_lanes(A)``
+  lanes, two cells a warp at A = 16, a record a lane loaded beside the
+  count and ranked by shuffles), larger A in the block form (a thread a
+  slot, the rank through shared memory).
 
 ``rebucket`` returns new tensors, as ``binning.rebucket`` (the mesh's
 shards, ``utils/profile.py``); ``rebucket_into`` writes in place into the
@@ -49,7 +51,8 @@ from .nvcc import CSRC, build_library
 
 SOURCE = os.path.join(CSRC, "rebucket.cu")
 THREADS = 256          # csrc/rebucket.cu's kThreads
-SMEM_LIMIT = 48 * 1024  # the place launch's shared memory, at most
+SMEM_LIMIT = 48 * 1024  # kSmemLimit: a block-form place block's shared
+                        # memory, at most
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -64,11 +67,24 @@ def stage_capacity(A: int) -> int:
 
 
 def place_smem(A: int) -> int:
-    """Shared memory bytes of a place block (csrc/rebucket.cu's
+    """Shared memory bytes of a block-form place block (csrc/rebucket.cu's
     place_smem): a count and C gids for each of its cells, as many cells
-    as fit 256 threads with one a slot."""
+    as fit 256 threads with one a slot.  The wrapper refuses an A whose
+    block would pass SMEM_LIMIT, whatever the form."""
     cells = THREADS // A if A < THREADS else 1
     return 4 * cells * (1 + stage_capacity(A))
+
+
+def place_form(A: int) -> str:
+    """The place launch's form: "warp" (a cell a segment of
+    ``place_lanes(A)`` lanes, no shared memory) for A <= 32, else
+    "block"."""
+    return "warp" if A <= 32 else "block"
+
+
+def place_lanes(A: int) -> int:
+    """The warp form's lanes a cell: A rounded up to a power of two."""
+    return 1 << max(A - 1, 0).bit_length()
 
 
 class _Args(ctypes.Structure):
@@ -81,7 +97,8 @@ class _Args(ctypes.Structure):
         ("local_max", ctypes.c_double * 3),
         ("inv_box", ctypes.c_double * 3),
         ("grid", ctypes.c_int * 3)] + [(name, ctypes.c_int) for name in (
-            "n_local", "n_halo", "B", "A", "C", "max_box", "or_overflow")]
+            "n_local", "n_halo", "B", "A", "C", "max_box", "or_overflow",
+            "form")]
 
 
 def build():
@@ -315,6 +332,7 @@ def _launch(geom, maps, r, p, gid, n_atoms, out, extent, keep_halo: bool,
     a.grid[:] = [int(v) for v in geom.grid]
     a.n_local, a.n_halo, a.B, a.A, a.C = geom.n_local, geom.n_halo, B, A, C
     a.max_box, a.or_overflow = max_box, int(or_overflow)
+    a.form = int(place_form(A) == "warp")
     stream = torch.cuda.current_stream(r.device).cuda_stream
     err = build().comd_rebucket(r.element_size(), ctypes.byref(a), stream)
     if err != 0:

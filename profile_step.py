@@ -221,6 +221,7 @@ def main(argv=None) -> int:
                                     "embed_fill_kernel", "land_kernel",
                                     "rebucket_bin_kernel",
                                     "rebucket_place_kernel",
+                                    "rebucket_place_warp_kernel",
                                     "arrivals_bin_kernel",
                                     "arrivals_place_kernel",
                                     "sort_cells_kernel",

@@ -3,7 +3,7 @@
 rebucket body (csrc/rebucket.cu, csrc/arrivals.cu) and the step graph's
 branch of one or more source trees on one GPU, in turns.
 
-    python3 step_timing.py [TREE ...]
+    python3 step_timing.py [--cases REGEX] [TREE ...]
 
 Each TREE is a checkout of this repository (default: this one).  One
 worker process a tree builds that tree's kernels and, on the 63^3 EAM
@@ -31,6 +31,12 @@ graphs (CUDA events around replays; ms a launch):
                      halo fill, the baseline, the counter; on a tree
                      without csrc/rebucket.cu the torch ops, the copies
                      and the baseline's copy)
+  rebucket_bin, rebucket_place
+                     each kernel's device ms a launch in that body
+                     (torch.profiler over 20 bodies, mean a launch); on a
+                     tree with rebucket.place_form also "rebucket body
+                     block form" and "rebucket_place block form": the
+                     place launch in its block form on the same state
   mesh rebucket body the 2x2x2 ki_fused mesh's (eight shard rebuckets,
                      the atom exchange's three ring_push stages and
                      their unloads, the sort, the copies into the step's
@@ -60,9 +66,11 @@ HALO_BLOCKS_PER_SM and halo_width, the halo fill's: a block to every
 64 rows (one vector a thread), grids of 1, 2, 4 and 8 blocks an SM,
 and one slot a thread.  The
 workers run in the order given and then in reverse (give the parent and
-this tree: parent, change, change, parent).  Prints the card's name and
-power limit, one JSON line a worker, then one JSON line of each tree's
-means.
+this tree: parent, change, change, parent).  ``--cases REGEX`` times
+only the cases whose names it matches (the launch forms' names start
+with "embed_fill " and "halo fill "), and starts the mesh only for a
+mesh or unload case.  Prints the card's name and power limit, one JSON
+line a worker, then one JSON line of each tree's means.
 """
 from __future__ import annotations
 
@@ -70,6 +78,7 @@ import argparse
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -151,8 +160,6 @@ def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
     from comd_tpu_torch.ops import binning
     from comd_tpu_torch.ops.cuda import arrivals as av
     from comd_tpu_torch.parallel import ki_comm
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(seed)
     nl = mesh.geom.n_local
     start = []
@@ -182,14 +189,26 @@ def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
 
     res = {"unload (graph)": graph_ms(torch, unload)
            - graph_ms(torch, restore)}
-    kernels = {"arrivals_bin_kernel": "unload arrivals_bin",
-               "arrivals_place_kernel": "unload arrivals_place",
-               "sort_cells": "unload sort_cells"}
+    res.update(kernel_ms(torch, unload, {
+        "arrivals_bin_kernel": "unload arrivals_bin",
+        "arrivals_place_kernel": "unload arrivals_place",
+        "sort_cells": "unload sort_cells"}, reps))
+    return res
+
+
+def kernel_ms(torch, fn, kernels: dict, reps: int = 20) -> dict:
+    """{kernels[name]: device ms a launch} of the kernels whose names hold
+    each key of ``kernels``, over ``reps`` calls of ``fn`` under
+    torch.profiler (profiled again, eight times at most, while a kernel
+    has no record)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    res = {}
     for _ in range(8):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
-                unload()
+                fn()
             torch.cuda.synchronize()
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or not e.count:
@@ -251,8 +270,32 @@ def halo_forms(torch, step, fill, rounds: int = 3) -> dict:
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
-def worker(tree: str) -> dict:
-    """{case: ms} of ``tree``'s kernels at the headline state."""
+def rebucket_kernels(torch, sim) -> dict:
+    """The serial rebucket body's kernels, device ms a launch, and on a
+    tree with ``place_form`` the body and the place launch again in the
+    block form."""
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    if not hasattr(rb, "place_form"):
+        return kernel_ms(torch, sim._rebucket_step, {
+            "rebucket_bin_kernel": "rebucket_bin",
+            "rebucket_place_kernel": "rebucket_place"})
+    res = kernel_ms(torch, sim._rebucket_step, {
+        "rebucket_bin_kernel": "rebucket_bin",
+        "rebucket_place_": "rebucket_place"})
+    chosen = rb.place_form
+    rb.place_form = lambda _a: "block"
+    try:
+        res["rebucket body block form"] = graph_ms(torch, sim._rebucket_step)
+        res.update(kernel_ms(torch, sim._rebucket_step, {
+            "rebucket_place_kernel": "rebucket_place block form"}))
+    finally:
+        rb.place_form = chosen
+    return res
+
+
+def worker(tree: str, cases_re: str) -> dict:
+    """{case: ms} of ``tree``'s kernels at the headline state, the cases
+    whose names match ``cases_re``."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from comd_tpu_torch import Config, init_simulation
@@ -325,23 +368,31 @@ def worker(tree: str) -> dict:
     # step's buffers (a canonical state rebucketed again: the same work)
     sim._bind()
     cases["rebucket body"] = sim._rebucket_step
-    out = {name: graph_ms(torch, fn) for name, fn in cases.items()}
-    # the 2x2x2 mesh's (ki_fused in one process): eight rebuckets, the
-    # atom exchange and the sort; a graph of 2 calls (a tree whose
-    # exchange is torch ops makes thousands of nodes a call)
-    mesh = init_simulation(Config(
-        nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
-        dtype="float32", max_atoms=0, cell_mode="auto",
-        pot_dir=os.path.join(ROOT, "pots"), device="cuda",
-        comm_impl="ki_fused", xproc=2, yproc=2, zproc=2))
-    mesh._bind()
-    out["mesh rebucket body"] = graph_ms(torch, mesh._rebucket_step,
-                                         calls=2, reps=5)
-    out.update(unload_times(torch, mesh))
-    out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
-    if hasattr(step, "EMBED_BLOCKS_PER_SM"):
+    want = re.compile(cases_re).search
+    out = {name: graph_ms(torch, fn) for name, fn in cases.items()
+           if want(name)}
+    if want("rebucket_"):
+        out.update(rebucket_kernels(torch, sim))
+    if want("mesh rebucket body") or want("unload "):
+        # the 2x2x2 mesh's (ki_fused in one process): eight rebuckets,
+        # the atom exchange and the sort; a graph of 2 calls (a tree
+        # whose exchange is torch ops makes thousands of nodes a call)
+        mesh = init_simulation(Config(
+            nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
+            dtype="float32", max_atoms=0, cell_mode="auto",
+            pot_dir=os.path.join(ROOT, "pots"), device="cuda",
+            comm_impl="ki_fused", xproc=2, yproc=2, zproc=2))
+        mesh._bind()
+        if want("mesh rebucket body"):
+            out["mesh rebucket body"] = graph_ms(
+                torch, mesh._rebucket_step, calls=2, reps=5)
+        if want("unload "):
+            out.update(unload_times(torch, mesh))
+    if want("branch"):
+        out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
+    if hasattr(step, "EMBED_BLOCKS_PER_SM") and want("embed_fill "):
         out.update(embed_forms(torch, step, embed))
-    if hasattr(step, "HALO_BLOCKS_PER_SM"):
+    if hasattr(step, "HALO_BLOCKS_PER_SM") and want("halo fill "):
         out.update(halo_forms(torch, step, fill))
     return out
 
@@ -349,10 +400,13 @@ def worker(tree: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", default=[ROOT])
+    ap.add_argument("--cases", default="",
+                    help="time only the cases whose names match this "
+                         "regular expression (default: every case)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, args.cases)))
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -366,8 +420,8 @@ def main() -> int:
     runs = {}
     for tree in args.trees + args.trees[::-1]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--worker", tree], capture_output=True,
-                             text=True, timeout=900)
+                              "--worker", tree, "--cases", args.cases],
+                             capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             raise RuntimeError(f"worker {tree} failed:\n{res.stderr[-4000:]}")
         got = json.loads(res.stdout.strip().splitlines()[-1])

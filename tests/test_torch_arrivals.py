@@ -404,11 +404,10 @@ def test_capacity_and_args_layout():
     """The staging capacity C (>= 2A, >= 32), the place blocks' warps, the
     sort blocks' shared memory (up to A = 3072 within 48 KB), and
     csrc/arrivals.cu's ArrivalsArgs and SortArgs as ctypes lays them out:
-    64 sources of four pointers, 4 x 32 shard pointers, 6 pointers, 11
-    doubles, 16 ints (3,272 bytes, under the 4 KB of kernel parameters);
-    6 x 64 pointers and 4 ints.  The list: a 32-entry segment a bin warp
-    (8 a block of 256 slots), 1-1024 place warps (a power of two) a group
-    of 32 segments."""
+    64 sources of four pointers, 4 x 32 shard pointers, 7 pointers (the
+    list, its length and ticket, the length read among them), 11
+    doubles, 14 ints (3,272 bytes, under the 4 KB of kernel parameters);
+    6 x 64 pointers and 4 ints."""
     assert [av.stage_capacity(a) for a in (1, 16, 40)] == [32, 32, 80]
     assert [av.place_warps(a) for a in (16, 40, 384, 385, 3072)] == \
         [8, 8, 8, 7, 1]
@@ -422,18 +421,11 @@ def test_capacity_and_args_layout():
     assert av._Args.r.offset == 2048
     assert av._Args.overflow.offset == 2048 + 4 * 256
     assert av._Args.list.offset == 3072 + 24
-    assert av._Args.local_min.offset == 3072 + 48
-    assert av._Args.grid.offset == 3120 + 11 * 8
-    assert av._Args.place_blocks.offset == 3208 + 12 + 10 * 4
-    assert av._Args.bin_warps.offset == 3268
+    assert av._Args.listed.offset == 3072 + 40
+    assert av._Args.local_min.offset == 3072 + 56
+    assert av._Args.grid.offset == 3128 + 11 * 8
+    assert av._Args.place_blocks.offset == 3216 + 12 + 10 * 4 == 3268
     assert ctypes.sizeof(av._Args) == 3272 < 4096
-    assert [av.bin_warps(n) for n in (0, 1, 256, 257, 136_000)] == \
-        [0, 8, 8, 16, 4256]
-    assert [av.place_fan_log2(1056, 16, s) for s in (
-        0, 1, 4256, 270_336, 300_000)] == [10, 10, 6, 0, 0]
-    assert av.place_fan_log2(1056, 16, 2 ** 26) == 0
-    assert av.place_fan_log2(1056, 40, 4256) == 6 == \
-        av.place_fan_log2(330, 16, 4256) + 1
     assert av._SortArgs.n_shards.offset == 6 * 64 * 8
     assert av._SortArgs.form.offset == 6 * 64 * 8 + 12
     assert ctypes.sizeof(av._SortArgs) == 6 * 64 * 8 + 16

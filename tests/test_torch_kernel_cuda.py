@@ -1429,8 +1429,11 @@ def _rb_crowd(geom, fields, cell, n, seed):
 
 
 def _rb_case(name, dtype):
-    """(geom, maps, fields, wrap extent, keep_halo) of a named case."""
+    """(geom, maps, fields, wrap extent, keep_halo) of a named case; a
+    name ending in a number (``crowd32``) is that case at that A."""
     cut = 4.0
+    kind = name.rstrip("0123456789")
+    A = int(name[len(kind):]) if kind != name else None
     if name == "state":
         sim = _sim(dtype, "rows", 10, "cuda")
         sim.step_block(10)
@@ -1443,9 +1446,9 @@ def _rb_case(name, dtype):
                       ).to(r.dtype).to("cuda")
         return (sim.geom, sim.maps, [r, s.p.clone(), s.gid.clone(),
                                      s.n_atoms.clone()], sim._extent, False)
-    if name == "shard":
+    if kind == "shard":
         lo = np.array([4.0, 0.0, 4.0]) * cut
-        geom, maps, f = _rb_synthetic(lo, lo + 4 * cut, 16, dtype, 21,
+        geom, maps, f = _rb_synthetic(lo, lo + 4 * cut, A or 16, dtype, 21,
                                       spread=1.0)
         return geom, maps, f, None, True
     if name == "fold":
@@ -1457,20 +1460,25 @@ def _rb_case(name, dtype):
                                       dtype, 23, use_hilbert=True)
         assert geom.use_hilbert
         return geom, maps, f, np.full(3, 8.3 * cut), False
-    A = {"odd": 13, "wide": 40, "crowd": 16, "past": 16}[name]
+    A = A or {"odd": 13, "wide": 40, "crowd": 16, "past": 16}[name]
     ext = np.array([3.1, 4.3, 3.6]) * cut
     # the crowded cases keep every atom within its own cell
+    crowded = kind in ("crowd", "past")
     geom, maps, f = _rb_synthetic(np.zeros(3), ext, A, dtype, 24,
-                                  spread=0.4 if A == 16 else 0.75)
-    if name == "crowd":        # A < count <= C: exact
+                                  spread=0.4 if crowded else 0.75)
+    if kind == "crowd":        # A < count <= C: exact
         _rb_crowd(geom, f, 5, A + 1, 25)
-    if name == "past":         # count > C: the layout differs there
+    if kind == "past":         # count > C: the layout differs there
         _rb_crowd(geom, f, 5, 3 * A, 26)
     return geom, maps, f, ext, False
 
 
+# the place launch's warp form at A = 13, 16, 32 (a cell of A < n <= C
+# in rounds of L lanes, n > C), its block form at A = 33 and 40; serially
+# in place and on a shard under keep_halo
 RB_CASES = ("state", "shard", "fold", "hilbert", "odd", "wide", "crowd",
-            "past")
+            "past") + tuple(f"{kind}{A}" for A in (13, 32, 33, 40)
+                            for kind in ("crowd", "past", "shard"))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -1482,10 +1490,12 @@ def test_rebucket_kernels_match_plain(cuda_device, dtype, name):
     gids kept); past C (``past``: 3A atoms in one cell) the counts,
     n_migrating and the flag still agree, and every other cell's layout;
     the serial in-place body (rebucket_into: the baseline's local rows,
-    the flag or-ed) against its plain version."""
+    the flag or-ed) against its plain version.  The place launch in the
+    form ``place_form(A)`` gives (the warp form up to A = 32)."""
     from comd_tpu_torch.ops.cuda import LAUNCHES
     from comd_tpu_torch.ops.cuda import rebucket as rb
     geom, maps, f, ext, keep = _rb_case(name, dtype)
+    kind = name.rstrip("0123456789")
     n0 = (LAUNCHES["rebucket_bin"], LAUNCHES["rebucket_place"])
     got = rb.rebucket(geom, maps, *f, wrap_extent=ext, keep_halo=keep)
     assert (LAUNCHES["rebucket_bin"], LAUNCHES["rebucket_place"]) == (
@@ -1495,9 +1505,9 @@ def test_rebucket_kernels_match_plain(cuda_device, dtype, name):
     torch.cuda.synchronize()
     C = rb.stage_capacity(f[0].shape[2])
     big = want[3] > C
-    assert bool(big.any()) == (name == "past")
+    assert bool(big.any()) == (kind == "past")
     if name != "state":
-        assert bool(want[5]) == (name in ("crowd", "past"))
+        assert bool(want[5]) == (kind in ("crowd", "past"))
     for a, b in zip(got[3:], want[3:]):
         assert a.dtype == b.dtype and torch.equal(a, b), name
     ok = ~big
@@ -1518,6 +1528,56 @@ def test_rebucket_kernels_match_plain(cuda_device, dtype, name):
         if big.any() and a.dim() > 0 and a.shape[-1] == f[0].shape[2]:
             a, b = a[..., ok, :], b[..., ok, :]
         assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", ["state", "crowd", "crowd32"])
+def test_rebucket_body_replayed_in_a_cuda_graph(cuda_device, dtype, name):
+    """The serial rebucket body (rebucket_into with the baseline, then the
+    halo fill) captured in one CUDA graph and replayed twice from the
+    restored state with nothing cleared between: both replays equal the
+    plain versions bit for bit (the crowded cases set the overflow
+    scratch word), and after each the workspace's counters and scratch
+    words are clear."""
+    from comd_tpu_torch.ops.cuda import rebucket as rb
+    from comd_tpu_torch.stepgraph import cuda_capture
+    geom, maps, f, ext, _keep = _rb_case(name, dtype)
+    if not isinstance(ext, torch.Tensor):
+        # as the serial step gives it: a tensor of r's dtype on the card
+        # (host values would be copied to the card inside the capture)
+        ext = torch.as_tensor(np.asarray(ext, np.float64), dtype=f[0].dtype,
+                              device="cuda")
+    want = [x.clone() for x in f]
+    want_last = torch.full_like(f[0], 7.0)
+    want_ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+    rb.rebucket_into_plain(geom, maps, *want, want_ovf, wrap_extent=ext,
+                           last_r=want_last)
+    step_ops.refresh_halo_plain(geom, maps, want[0], want[2], want[3])
+    if name != "state":
+        assert bool(want_ovf)
+    work = [x.clone() for x in f]
+    last = torch.full_like(f[0], 7.0)
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def body():
+        rb.rebucket_into(geom, maps, *work, ovf, wrap_extent=ext,
+                         last_r=last)
+        step_ops.refresh_halo(geom, maps, work[0], work[2], work[3])
+
+    body()                        # the workspace, made uncaptured
+    torch.cuda.synchronize()
+    graph = cuda_capture(body, torch.cuda.graph_pool_handle())[0]
+    for _ in range(2):
+        for w, x in zip(work, f):
+            w.copy_(x)
+        last.fill_(7.0)
+        ovf.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _equal(work, want) and torch.equal(last, want_last)
+        assert torch.equal(ovf, want_ovf)
+        assert not any(w.counts.any()
+                       for w in rb._WORK[torch.cuda.current_device()])
 
 
 def test_rebucket_kernels_refuse_what_they_do_not_take(cuda_device):

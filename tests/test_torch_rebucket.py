@@ -325,17 +325,81 @@ def test_operand_checks():
 
 
 def test_capacity_and_args_layout():
-    """The staging capacity C (>= 2A, >= 32), the place launch's shared
-    memory (16 cells a block at A = 16; one from A = 256; over 48 KB from
-    A = 6144) and csrc/rebucket.cu's Args as ctypes lays it out: 18
-    pointers, 9 doubles, 10 ints, 256 bytes."""
+    """The staging capacity C (>= 2A, >= 32), the block-form place
+    launch's shared memory (16 cells a block at A = 16; one from A = 256;
+    over 48 KB from A = 6144) and csrc/rebucket.cu's Args as ctypes lays
+    it out: 18 pointers, 9 doubles, 11 ints, 264 bytes (the last int, the
+    place launch's form, padded to 8)."""
     assert [rb.stage_capacity(a) for a in (1, 13, 16, 40)] == [32, 32, 32,
                                                                80]
     assert rb.place_smem(16) == 4 * 16 * 33
     assert rb.place_smem(13) == 4 * 19 * 33
     assert rb.place_smem(256) == 4 * 513
     assert rb.place_smem(6143) <= rb.SMEM_LIMIT < rb.place_smem(6144)
-    assert ctypes.sizeof(rb._Args) == 256
+    assert ctypes.sizeof(rb._Args) == 264
     assert rb._Args.local_min.offset == 18 * 8
     assert rb._Args.grid.offset == 18 * 8 + 9 * 8
     assert rb._Args.or_overflow.offset == 256 - 4
+    assert rb._Args.form.offset == 256
+
+
+@pytest.mark.parametrize("A", [1, 5, 13, 16, 17, 32, 33, 40])
+def test_place_form_by_A(A):
+    """The wrapper's place form: the warp form up to A = 32, a cell a
+    segment of A rounded up to a power of two lanes (13 and 16 two cells
+    a warp, 17 and 32 one), whose first round of records covers every
+    slot of the cell; the block form above, whose shared memory fits."""
+    if A > 32:
+        assert rb.place_form(A) == "block"
+        assert rb.place_smem(A) <= rb.SMEM_LIMIT
+        return
+    assert rb.place_form(A) == "warp"
+    L = rb.place_lanes(A)
+    assert L & (L - 1) == 0 and A <= L < 2 * A and 32 % L == 0
+    assert L <= rb.stage_capacity(A)         # a lane's first record staged
+    assert {13: 16, 16: 16, 17: 32, 32: 32}.get(A, L) == L
+
+
+def _cu_args() -> tuple:
+    """csrc/rebucket.cu's RebucketArgs as (name, kind, dims) members and
+    its integer constants (kThreads, kSmemLimit, kEmptyGid)."""
+    import re
+    with open(rb.SOURCE) as fh:
+        text = fh.read()
+    consts = {k: eval(v, {}) for k, v in re.findall(
+        r"constexpr int (k\w+) = ([0-9][0-9 *]*);", text)}
+    body = re.search(r"\nstruct RebucketArgs \{\n(.*?)\n\};", text,
+                     re.S).group(1)
+    members = []
+    for line in body.splitlines():
+        line = line.split("//")[0].strip()
+        if not line:
+            continue
+        m = re.fullmatch(r"(?:const )?(\w+(?: \w+)?)(\*?) (\w+)"
+                         r"((?:\[\w+\])*);", line)
+        assert m, line
+        base, ptr, name, dims = m.groups()
+        members.append((name, "pointer" if ptr else base,
+                        [int(d) for d in re.findall(r"\[(\w+)\]", dims)]))
+    return members, consts
+
+
+def test_args_mirror_the_source():
+    """ops/cuda/rebucket.py's _Args holds csrc/rebucket.cu's RebucketArgs
+    member for member, in order and kind (a pointer, an int, a double; the
+    array extents), and its constants equal the kernel's (the block size,
+    the shared memory limit, the empty gid), so the mirror cannot
+    drift."""
+    members, consts = _cu_args()
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+             ctypes.c_double: "double"}
+    mirror = []
+    for name, t in rb._Args._fields_:
+        dims = []
+        while hasattr(t, "_length_"):
+            dims.append(t._length_)
+            t = t._type_
+        mirror.append((name, kinds[t], dims))
+    assert members == mirror
+    assert (consts["kThreads"], consts["kSmemLimit"], consts["kEmptyGid"]) \
+        == (rb.THREADS, rb.SMEM_LIMIT, int(tbin.EMPTY_GID))
