@@ -312,6 +312,27 @@ the first error:
                  Phase 12 checks 3 bin, 3 place and 1 sort launch an
                  exchange under every transport, phase 18 the graphs'
                  credits of them.
+ 21. positions -- the mesh's ghost-position refresh between rebuckets
+                 (csrc/comm.cu's position_fill: one launch over the three
+                 stages composed into one row map, every halo row of
+                 every shard) against position_fill_plain and the staged
+                 exchange.exchange_positions, bit for bit: the 63^3 f32
+                 2x2x2 state displaced by up to 0.5 A (halo rows of
+                 noise, all overwritten), 10^3 f64 on 2x2x2 and on 2x2x1
+                 (an axis of one shard), each also at A = 13 (one slot a
+                 thread); one launch a refresh; at the 63^3 state timed
+                 (CUDA events, mean of 20; the device's time under
+                 torch.profiler; in a graph of 20, two replays of a
+                 captured refresh equal the plain version) beside the
+                 torch refresh it replaces (its device operations and
+                 time), the library form (one index_select of the stacked
+                 positions on the composed index, with and without the
+                 shifts' add) and the byte bound.  Phase 12 checks one
+                 position_fill launch a step that does not rebucket
+                 under every transport, phase 18 the graphs' credits of
+                 it, phase 17 one position_fill_stage launch a stage
+                 across processes under ki and ki_fused and no position
+                 bytes through gloo.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
@@ -384,7 +405,12 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
                               "comd_tpu/ops/binning.py:175-214 "
                               "(append_arrivals: the rank and scatter)",
             "sort_cells": "no Pallas site: XLA sort of "
-                          "comd_tpu/ops/binning.py:217-232 (sort_cells)"}
+                          "comd_tpu/ops/binning.py:217-232 (sort_cells)",
+            # no Pallas site: three ppermutes in comd_tpu's XLA step
+            "position_fill": "no Pallas site: XLA "
+                             "comd_tpu/parallel/exchange.py:242 "
+                             "(exchange_positions), called at "
+                             "comd_tpu/parallel/sharded.py:403, :467"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -2137,6 +2163,9 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
                       f"{steps} steps on {w['n_owned']} shards")
             check("staged" in w["backend"], f"{where}: backend "
                   f"{w['backend']}")
+            refreshes = steps - w["rebuckets"]
+            n_pos = (w["launches"]["position_fill"],
+                     w["launches"]["position_fill_stage"])
             if ki:
                 n_st, n_ring = (w["launches"]["halo_fill_stage"],
                                 w["launches"]["ring_push"])
@@ -2146,12 +2175,23 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
                       f"{n_ring}, halo_fill {w['launches']['halo_fill']} "
                       f"for {steps} steps and {w['rebuckets']} rebuckets, "
                       f"not one stage launch a stage")
+                check(n_pos == (0, 3 * refreshes),
+                      f"{where}: position_fill, position_fill_stage "
+                      f"{n_pos} for {refreshes} ghost refreshes, not one "
+                      f"stage launch a stage")
                 t = w["traffic"]
                 check(not t.get("bytes/scalar") and not t.get("bytes/atoms")
+                      and not t.get("bytes/positions")
                       and t.get("planes/fill", 0) > 0 and
-                      (t.get("planes/atoms", 0) > 0 or not w["rebuckets"]),
+                      (t.get("planes/atoms", 0) > 0 or not w["rebuckets"])
+                      and (t.get("planes/positions", 0) > 0
+                           or not refreshes),
                       f"{where}: a ki exchange went through the group, or "
                       f"no plane crossed: {t}")
+            else:
+                check(n_pos == (0, 0), f"{where}: position launches "
+                      f"{n_pos} under collective across processes (the "
+                      f"staged exchange through the group)")
         if ci == "ki_fused" and n_procs == 2:
             stage_launches = sum(w["launches"]["halo_fill_stage"]
                                  for w in res)
@@ -2170,7 +2210,7 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
         refresh = steps - w["rebuckets"]
         via = "planes" if ki else "bytes"
         fill_b = t.get(f"{via}/{'fill' if ki else 'scalar'}", 0) / steps
-        refresh_b = t.get("bytes/positions", 0) / max(refresh, 1)
+        refresh_b = t.get(f"{via}/positions", 0) / max(refresh, 1)
         rebucket_b = t.get(f"{via}/atoms", 0) / max(w["rebuckets"], 1)
         say("multiproc main", f"{n_procs} processes on the one card "
             f"({w['backend']}), {w['n_owned']} shards each, {HEADLINE_N}^3 "
@@ -2206,8 +2246,10 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
             f"step {rebucket_b + fill_b:,.0f} B; the fill "
             f"{fill_b:,.0f} B a step "
             + ("through the arena (CUDA IPC), the atoms "
-               f"{rebucket_b:,.0f} B a rebucket through the arena, the "
-               f"positions {refresh_b:,.0f} B a refresh through gloo"
+               f"{rebucket_b:,.0f} B a rebucket and the positions "
+               f"{refresh_b:,.0f} B a refresh through the arena, "
+               f"{t.get('bytes/positions', 0):,} B of positions through "
+               f"gloo"
                if ki else "through gloo")
             + "; host ms a step in the gloo exchanges (10 steps, the card "
             "waited for first): "
@@ -2216,11 +2258,14 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
         if ki:
             o = one_proc[ci]
             say("multiproc main", f"{n_procs} processes {ci}: launches a "
-                f"step by process (halo_fill_stage, ring_push): "
+                f"step by process (halo_fill_stage, ring_push, "
+                f"position_fill_stage): "
                 + ", ".join(f"{x['launches']['halo_fill_stage'] / steps:.2f}"
                             f"/{x['launches']['ring_push'] / steps:.2f}"
+                            f"/{x['launches']['position_fill_stage'] / steps:.2f}"
                             for x in res)
-                + f" (3 a force, 3 a rebucket); one process (phase 12): "
+                + f" (3 a force, 3 a rebucket, 3 a ghost refresh); one "
+                f"process (phase 12): "
                 f"halo_fill {o[0] / o[3]:.2f}, ring_push {o[1] / o[3]:.2f} "
                 f"a step ({o[0]} and {o[1]} over {o[3]} steps, {o[2]} atom "
                 f"exchanges)")
@@ -2428,6 +2473,15 @@ def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
     check(got == want, f"{tag}: refresh_halo launched {got} times in the "
           f"timed steps, not {want} ({g['rebuckets']} rebuckets)")
     for mode, m in (("eager", e), ("graphs", g)):
+        # a lazy mesh step that does not rebucket refreshes the ghosts in
+        # one position_fill launch (the graphs' IF body, credited a
+        # replay and taken back a rebucket)
+        want = m["steps"] - m["rebuckets"] if m["mesh"] and m["lazy"] else 0
+        got = m["launches"].get("position_fill", 0)
+        check(got == want, f"{tag} {mode}: position_fill launched {got} "
+              f"times in the timed steps, not {want} ({m['rebuckets']} "
+              f"rebuckets in {m['steps']} steps)")
+    for mode, m in (("eager", e), ("graphs", g)):
         # the rebucket body's two launches, credited once a rebucket a
         # shard (a graph's from the device counter, at a block's end)
         want = m["rebuckets"] * m["shards"]
@@ -2526,7 +2580,8 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
         f"{e['rebuckets']}, {g['rebuckets']} in the timed steps, "
         f"{e['n_rebucket']} in all (equal); {g['if_nodes']:.0f} IF "
         f"node(s) a graph; refresh_halo "
-        f"{g['launches'].get('refresh_halo', 0)}, rebucket_bin and "
+        f"{g['launches'].get('refresh_halo', 0)}, position_fill "
+        f"{g['launches'].get('position_fill', 0)}, rebucket_bin and "
         f"rebucket_place {g['launches'].get('rebucket_bin', 0)} in the "
         f"timed steps (one a rebucket a shard)")
     for mode, m in (("eager", e), ("graphs", g)):
@@ -3780,8 +3835,6 @@ def run_arrivals(launches: dict) -> dict:
     from comd_tpu_torch.ops.cuda import arrivals as av
     from comd_tpu_torch.parallel import exchange, ki_comm
     from comd_tpu_torch.probes import time_ms
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     n = HEADLINE_N
     sim = init_simulation(Config(
         nx=n, ny=n, nz=n, doeam=True, temperature=600.0, dtype="float32",
@@ -3940,18 +3993,7 @@ def run_arrivals(launches: dict) -> dict:
 
     # one eager mesh redistribution (the lazy step's IF body), op by op:
     # the profiler may drop records, so the most of five profiles
-    runs = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            sim._rebucket_step()
-            torch.cuda.synchronize()
-        ops = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and "Loading" not in e.key]
-        runs.append((sum(e.count for e in ops), sum(
-            getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-            for e in ops) / 1e3))
+    runs = device_ops(sim._rebucket_step)
     n_ops, dev_ms = max(runs)
     check(n_ops <= 100, f"an eager mesh redistribution made {n_ops} device "
           f"operations")
@@ -3963,6 +4005,210 @@ def run_arrivals(launches: dict) -> dict:
     del sim, fields, main, work, ex, out
     torch.cuda.empty_cache()
     return rows
+
+
+def bits(t):
+    """A float tensor's bits as integers (-0.0 is not +0.0)."""
+    import torch
+    return t.view(torch.int32 if t.element_size() == 4 else torch.int64)
+
+
+def pos_case(h, r, tag: str) -> float:
+    """position_fill over ``h``'s composed map against its plain version
+    and the staged exchange.exchange_positions on positions ``r`` (CUDA
+    tensors, one a shard), bit for bit: one launch, every halo row
+    written, no local row touched.  Returns the max |diff| (0)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    nl = h.geom.n_local
+    plan = ki_comm.position_plan(h, r[0])
+    before = st.LAUNCHES["position_fill"]
+    got = cm.position_fill(plan, [x.clone() for x in r])
+    n_launch = st.LAUNCHES["position_fill"] - before
+    plain = cm.position_fill_plain(plan, [x.clone() for x in r])
+    staged = exchange.exchange_positions(h, [x.clone() for x in r])
+    torch.cuda.synchronize()
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got + got, plain + staged))
+    same = all(torch.equal(bits(a), bits(b))
+               for a, b in zip(got + got, plain + staged))
+    written = all(torch.equal(bits(a[:, :nl]), bits(b[:, :nl])) and
+                  bool((a[:, nl:] != b[:, nl:]).all())
+                  for a, b in zip(got, r))
+    check(same and written and n_launch == 1,
+          f"positions {tag}: the kernel against position_fill_plain and "
+          f"exchange_positions: equal {same}, every halo row written and "
+          f"no local row touched {written}, {n_launch} launches; |diff| "
+          f"{err:.3e}")
+    say("positions", f"{tag}: position_fill ({plan.n_rows:,} halo rows of "
+        f"{len(r)} shards, {plan.vec}-byte moves, {plan.grid_x} blocks) in "
+        f"one launch equals position_fill_plain and the staged "
+        f"exchange_positions bit for bit; every halo row written, no local "
+        f"row touched")
+    return err
+
+
+def pos_inputs(sim, seed: int, scale: float, A: int = None) -> list:
+    """Every shard's positions for phase 21: the local rows displaced by
+    up to ``scale`` A (uniform), the halo rows noise that the refresh
+    must overwrite; at another A than the state's, noise throughout; the
+    first slot of every local row -0.0."""
+    import torch
+    nl = sim.geom.n_local
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for s in sim.states:
+        shape = (3, s.r.shape[1], A or s.r.shape[2])
+        u = 2 * torch.rand(shape, dtype=sim.dtype, device="cuda",
+                           generator=gen) - 1
+        x = 50 * u
+        if A is None:
+            x[:, :nl] = s.r[:, :nl] + scale * u[:, :nl]
+        x[:, :nl, 0] = -0.0     # a copy with no shift keeps the sign of 0
+        out.append(x)
+    return out
+
+
+def device_ops(fn, tries: int = 5) -> list:
+    """[(device operations, device ms)] of one call of ``fn`` under
+    torch.profiler, ``tries`` times (it may drop records: take the
+    profile with the most)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    runs = []
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "Loading" not in e.key]
+        runs.append((sum(e.count for e in ops), sum(
+            getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+            for e in ops) / 1e3))
+    return runs
+
+
+def run_positions(launches: dict) -> dict:
+    """Phase 21: the mesh's ghost-position refresh (csrc/comm.cu's
+    position_fill over the composed row map) against position_fill_plain
+    and the staged exchange.exchange_positions, bit for bit: the 63^3 f32
+    2x2x2 state displaced by up to 0.5 A, 10^3 f64 on 2x2x2 and on 2x2x1
+    (an axis of one shard), and an odd A (one slot a thread); at the 63^3
+    state timed (CUDA events, mean of 20; the device's time under
+    torch.profiler; replayed in a CUDA graph) beside the torch refresh it
+    replaces (its device operations and time), the library form (one
+    index_select of the stacked positions on the composed index, with and
+    without the shift's add) and the byte bound.  ``launches``: phase 12's
+    ki_fused run (the main path's).  Returns the kernels-line row."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.stepgraph import cuda_capture
+    n = HEADLINE_N
+    sim = init_simulation(Config(
+        nx=n, ny=n, nz=n, doeam=True, temperature=600.0, dtype="float32",
+        max_atoms=0, cell_mode="auto", pot_dir=POTS, device="cuda",
+        comm_impl="ki_fused", **MESH))
+    h = sim.halo
+    r = pos_inputs(sim, 71, 0.5)
+    err = pos_case(h, r, f"{n}^3 float32 2x2x2 displaced by up to 0.5 A")
+    for tag, mesh in (("2x2x2", MESH),
+                      ("2x2x1 (an axis of one shard)",
+                       dict(xproc=2, yproc=2, zproc=1))):
+        small = init_simulation(Config(
+            nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+            dtype="float64", interp_impl="rows", pot_dir=POTS,
+            device="cuda", **mesh))
+        for A in (None, 13):
+            what = "" if A is None else ", A = 13 (one slot a thread)"
+            err = max(err, pos_case(small.halo, pos_inputs(small, 72, 0.5, A),
+                                    f"10^3 float64 {tag}{what}"))
+        del small
+
+    # timing at the 63^3 state
+    plan = ki_comm.position_plan(h, r[0])
+    work = [x.clone() for x in r]
+    fn = (lambda: cm.position_fill(plan, work))
+    ms = time_ms(fn, 20)
+    host, dev = host_and_device_ms(fn, kernels_per_call=1)
+    g_ms = graph_ms(fn)
+    want = cm.position_fill_plain(plan, [x.clone() for x in r])
+    graph = cuda_capture(fn, torch.cuda.graph_pool_handle())[0]
+    for _ in range(2):
+        for w, x in zip(work, r):
+            w.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(a), bits(b)) for a, b in zip(work, want)),
+              "positions: a replay of the refresh's graph differs from the "
+              "plain version")
+    plain_ms = time_ms(lambda: cm.position_fill_plain(plan, work), 20)
+    staged = (lambda: exchange.exchange_positions(h, work))
+    staged_ms = time_ms(staged, 20)
+    staged_host, _d = host_and_device_ms(staged)
+    staged_ops, staged_dev = max(device_ops(staged))
+    # the library form: the positions stacked [3, S * B, A] (layout, not
+    # timed), one index_select on the composed row index (every row its
+    # own source, a halo row the local row the stages copy into it), then
+    # the shifts (-0.0 where none) added
+    S, (_three, B, A) = len(work), tuple(work[0].shape)
+    stacked = torch.stack(work, 1).reshape(3, S * B, A)
+    m = plan.map.long()
+    dst = m[:, 0] * B + m[:, 1]
+    index = torch.arange(S * B, device="cuda")
+    index[dst] = plan.src_index * B + plan.src_row_index
+    shift = torch.full((3, S * B, 1), -0.0, dtype=sim.dtype, device="cuda")
+    shift[:, dst, 0] = plan.shift.t()
+    lib = torch.index_select(stacked, 1, index).add_(shift)
+    cm.position_fill(plan, work)
+    check(torch.equal(bits(lib),
+                      bits(torch.stack(work, 1).reshape(3, S * B, A))),
+          "positions: index_select on the composed index plus the shifts "
+          "differs from position_fill")
+    lib_copy_ms = time_ms(lambda: torch.index_select(stacked, 1, index), 20)
+    lib_ms = time_ms(lambda: torch.index_select(stacked, 1, index)
+                     .add_(shift), 20)
+    esize = work[0].element_size()
+    nbytes = plan.n_rows * (2 * 3 * A * esize + 16)
+    b_ms = 1e3 * nbytes / PEAK_BYTES
+    say("timing", f"position_fill, one ghost refresh of the {n}^3 f32 "
+        f"2x2x2 state ({plan.n_rows:,} halo rows, {plan.vec}-byte moves on "
+        f"{1 << plan.lg} lanes a row, {plan.grid_x} blocks): {ms:.5f} ms "
+        f"(CUDA events, mean of 20); host {host:.4f} ms a call, device "
+        f"{dev:.5f} ms (torch.profiler); {g_ms:.5f} ms a launch replayed in "
+        f"a graph of 20 (two replays of a captured refresh equal the plain "
+        f"version); plain version {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
+        f"(bytes: {nbytes / 1e6:.3f} MB, the rows read and written once "
+        f"and the map; the bound at {b_ms / dev:.0%} of the device time)")
+    say("timing", f"the torch refresh it replaces (exchange.exchange_"
+        f"positions, staged): {staged_ms:.4f} ms (CUDA events, mean of "
+        f"20); host {staged_host:.4f} ms a call; {staged_ops} device "
+        f"operations, {staged_dev:.5f} ms of device time (torch.profiler, "
+        f"the profile with the most records of five)")
+    say("timing", f"the library form: one torch.index_select of the "
+        f"stacked [3, {S} x {B}, {A}] positions on the composed row index "
+        f"{lib_copy_ms:.5f} ms, with the shifts' add (a second call; the "
+        f"same bits as position_fill) {lib_ms:.5f} ms (CUDA events, mean "
+        f"of 20)")
+    key = "position_fill"
+    check(launches[key] > 0, f"positions: no position_fill launch in phase "
+          f"12's ki_fused run")
+    row = {"name": key, "route": "cuda", "source": COMM_SOURCE,
+           "replaces": REPLACES[key], "launches": launches[key],
+           "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+           "device_ms": dev, "graph_ms": g_ms, "torch_refresh_ms": staged_ms,
+           "torch_refresh_ops": staged_ops}
+    del sim, r, work, stacked, lib, graph
+    torch.cuda.empty_cache()
+    return {key: row}
 
 
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
@@ -4278,6 +4524,16 @@ def main() -> int:
         say("sharded main", f"{ci}: the unload's kernels launched {got}: "
             f"one bin and one place launch a stage over the 8 shards and "
             f"one sort an exchange ({exchanges} atom exchanges)")
+        n_pos = launches[ci]["position_fill"]
+        refreshes = steps - sim.n_rebucket
+        check(n_pos == refreshes and
+              launches[ci]["position_fill_stage"] == 0,
+              f"sharded {ci}: position_fill launched {n_pos} times in "
+              f"{steps} steps with {sim.n_rebucket} rebuckets, not one a "
+              f"ghost refresh ({refreshes})")
+        say("sharded main", f"{ci}: position_fill launched {n_pos} times: "
+            f"one a step that does not rebucket ({refreshes} ghost "
+            f"refreshes in {steps} steps)")
         if ci != "collective":
             one_proc[ci] = (launches[ci]["halo_fill"],
                             launches[ci]["ring_push"], sim.n_rebucket + 1,
@@ -4441,13 +4697,16 @@ def main() -> int:
     # 20. the atom exchange's unload (csrc/arrivals.cu)
     rows.update(run_arrivals(launches["ki_fused"]))
 
+    # 21. the mesh's ghost-position refresh (csrc/comm.cu position_fill)
+    rows.update(run_positions(launches["ki_fused"]))
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
                + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
                + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS
-               + ARRIVALS_KEYS]
+               + ARRIVALS_KEYS + ("position_fill",)]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

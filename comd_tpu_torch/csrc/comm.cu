@@ -1,8 +1,10 @@
 // Kernel-initiated halo transports for Hopper (sm_90a): the dfEmbed halo
 // fill (K3's plane pushes and K4's fused F'(rhobar) push: one launch a fill
-// in one process, one a stage across processes) and the atom exchange's
-// stage push (K3, one launch a stage); across processes, the receive-plane
-// arena shared by CUDA IPC and the stream-ordered ready counters.
+// in one process, one a stage across processes), the atom exchange's
+// stage push (K3, one launch a stage) and the mesh's ghost-position
+// refresh (one launch a refresh in one process, one a stage across
+// processes); across processes, the receive-plane arena shared by CUDA IPC
+// and the stream-ordered ready counters.
 //
 // What they replace.  comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
 // (K3, driven by _ring_push) remote-copies one plane to the +-1 ring
@@ -54,6 +56,26 @@
 // the host's stream (torch ops), so one launch never reads another stage's
 // arrivals.
 //
+// position_fill_kernel: the mesh's ghost-position refresh between
+// rebuckets.  It replaces no Pallas kernel: comd_tpu runs
+// parallel/exchange.py::exchange_positions (:242) as three ppermutes in its
+// compiled step (parallel/sharded.py:403, :467); the port's staged torch
+// version (parallel/exchange.py::exchange_positions) is the plain
+// reference.  A launch follows a row map: for every entry, coordinate
+// rows c = 0, 1, 2 of row `row` of shard `dst`'s [3, B, A] positions (or
+// of receive plane dst - S, [3, n, A]) get the same rows of row `src_row`
+// of shard `src`, plus sign_c * ext[c].  In one process the
+// map is the staged exchange composed (parallel/exchange.py::position_map:
+// every halo row of every shard once, its source the local row the three
+// stages finally copy into it), so a refresh is one ordinary launch with no
+// barrier: no row it writes is a row it reads.  Across processes it is one
+// stage's rows, one launch a stage, rows for another process's shards into
+// that process's receive planes (ki_comm.py).  Coordinate c is shifted only
+// in stage c, and ext[c] is already rounded to the field's dtype, so each
+// coordinate takes at most one add, rounded alone (__fadd_rn, __dadd_rn):
+// the staged version's bits.  A zero sign adds nothing (x + 0 would turn
+// -0 into +0).
+//
 // Ordering in one process.  Every shard lives on one device and every
 // launch goes on PyTorch's current stream, after the kernels that wrote the
 // source rows and before those that read the destination, so stream order
@@ -82,17 +104,20 @@
 // kernel, so a card time-sliced between processes runs the peer while one
 // waits.
 //
-// Bound: bytes.  Both kernels move each word once (the fused stage also
+// Bound: bytes.  The kernels move each word once (the fused stage also
 // reads its ~4 KB table from cache) with a few integer operations a word;
 // a fill moves ~3 MB over the 8 shards of the 63^3 headline, ~1 us at
-// 3.35 TB/s, so latency, the two barriers and the launch set its time.
+// 3.35 TB/s, so latency, the two barriers and the launch set its time; a
+// position refresh moves ~9.3 MB there (23,248 halo rows of 3 x 64 bytes,
+// read and written, and the map), ~2.8 us.
 // Work split: the lanes of a warp are cut into groups of 2^lg lanes, one
 // row a group (2^lg the power of two at or above the row's vectors, at
 // most 32), so a 64-byte row of A = 16 floats is four 16-byte moves on
 // four lanes and a warp moves eight rows at once; row and lane come from the
 // block and thread indices with shifts and masks, never a divide.  The grid
 // strides over rows (x) and over (direction, shard) entries (y; ring_push:
-// shards y, fields z).  No shared memory.
+// shards y, fields z; position_fill: map entries x only, a group moving the
+// three coordinate rows of its entry's slot row).  No shared memory.
 //
 // Built with -fmad=false: the fused stage must round F' operation by
 // operation, as PyTorch's eager kernels do for the interior values of pass
@@ -170,6 +195,28 @@ struct PushArgs {
   void* dst[kMaxFields];  // field f's arrivals [n_dirs, S, planes, n, row]
   void* set[kMaxPlanes];  // receive plane set p: every field of one sender
   long long set_off[kMaxFields];   // bytes from a set to its field f
+};
+
+// A position refresh (or one stage of it across processes).  Entry k of
+// the map is four ints: the destination (a shard < n_shards, else receive
+// plane dst - n_shards), its row, the source shard with the shift's signs
+// above bit 8 (bit 8 + 2c: +ext[c], bit 9 + 2c: -ext[c]), the source row.
+struct PositionArgs {
+  int n_shards;          // S: the launch's fields x[0..S-1]
+  int n_planes;          // receive planes (destinations >= S)
+  int n_rows;            // map entries
+  int elem_bytes;        // 4 (float) or 8 (double)
+  int vec_bytes;         // 16, 8 or 4: the moves
+  int row_vecs;          // moves a coordinate row (A slots)
+  int lg;                // log2 of the lanes a row
+  int grid_x;            // blocks
+  int device;            // the CUDA device of the launch
+  long long field_plane;   // moves from coordinate row c of a field to c + 1
+  long long recv_plane;    // the same in a receive plane
+  double ext[3];         // the shifts, rounded to the field's dtype
+  const int* map;        // [n_rows, 4], 16-byte aligned
+  void* x[kMaxShards];   // shard s's [3, B, A] positions
+  void* plane[kMaxPlanes];   // receive plane p, [3, n, A]
 };
 
 namespace {
@@ -293,6 +340,65 @@ __global__ void __launch_bounds__(kThreads)
                 a.n_rows, fd.n_planes, fd.row_vecs, fd.lg, fd.src_plane,
                 dst_plane, first, stride);
   }
+}
+
+// N elements of T moved as one aligned vector.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T v[N];
+};
+
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    position_fill_kernel(const __grid_constant__ PositionArgs a) {
+  using V = Pack<T, N>;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & ((1 << a.lg) - 1);
+  const int rows_per_warp = 32 >> a.lg;
+  const int stride = gridDim.x * kWarps * rows_per_warp;
+  const int4* map = reinterpret_cast<const int4*>(a.map);
+  for (int k = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * rows_per_warp +
+               (lane >> a.lg);
+       k < a.n_rows; k += stride) {
+    const int4 e = map[k];
+    const int src = e.z & 0xff;
+    const int signs = e.z >> 8;
+    const V* from = static_cast<const V*>(a.x[src]) +
+                    static_cast<long long>(e.w) * a.row_vecs;
+    const bool into_plane = e.x >= a.n_shards;
+    V* into = into_plane ? static_cast<V*>(a.plane[e.x - a.n_shards])
+                         : static_cast<V*>(a.x[e.x]);
+    into += static_cast<long long>(e.y) * a.row_vecs;
+    const long long into_plane_vecs =
+        into_plane ? a.recv_plane : a.field_plane;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const int sign = (signs >> (2 * c)) & 3;   // 1: +ext, 2: -ext, 0: none
+      const T shift = static_cast<T>(sign == 2 ? -a.ext[c] : a.ext[c]);
+      for (int w = sub; w < a.row_vecs; w += 1 << a.lg) {
+        V v = from[c * a.field_plane + w];
+        if (sign != 0) {
+#pragma unroll
+          for (int i = 0; i < N; ++i) v.v[i] = add_rn(v.v[i], shift);
+        }
+        into[c * into_plane_vecs + w] = v;
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_positions(const PositionArgs& a, cudaStream_t stream) {
+  position_fill_kernel<T, N>
+      <<<static_cast<unsigned>(a.grid_x), kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 // Makes `device` current for the launch and puts the caller's back.
@@ -439,6 +545,36 @@ int comd_ring_push(const PushArgs* a, void* stream) {
   ring_push_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       *a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A position refresh, or one stage of it.  Returns the launch's
+// cudaError_t.
+int comd_position_fill(const PositionArgs* a, void* stream) {
+  if (a == nullptr || a->n_shards < 1 || a->n_shards > kMaxShards ||
+      a->n_planes < 0 || a->n_planes > kMaxPlanes || a->n_rows < 1 ||
+      a->row_vecs < 1 || !lg_ok(a->lg) || a->grid_x < 1 ||
+      a->map == nullptr || a->field_plane < a->row_vecs ||
+      (a->n_planes > 0 && a->recv_plane < a->row_vecs) ||
+      (a->elem_bytes != 4 && a->elem_bytes != 8) ||
+      (a->vec_bytes != 4 && a->vec_bytes != 8 && a->vec_bytes != 16) ||
+      a->vec_bytes < a->elem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int s = 0; s < a->n_shards; ++s)
+    if (a->x[s] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  for (int p = 0; p < a->n_planes; ++p)
+    if (a->plane[p] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(a->device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a->elem_bytes == 4)
+    err = a->vec_bytes == 16  ? launch_positions<float, 4>(*a, st)
+          : a->vec_bytes == 8 ? launch_positions<float, 2>(*a, st)
+                              : launch_positions<float, 1>(*a, st);
+  else
+    err = a->vec_bytes == 16 ? launch_positions<double, 2>(*a, st)
+                             : launch_positions<double, 1>(*a, st);
+  return static_cast<int>(err);
 }
 
 const char* comd_comm_error_string(int err) {

@@ -9,6 +9,9 @@ LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             "halo_fill": 0, "ring_push": 0, "nl_build": 0, "nl_sweep": 0,
             # one stage of a dfEmbed fill across processes
             "halo_fill_stage": 0,
+            # the mesh's ghost-position refresh: whole, or a stage across
+            # processes
+            "position_fill": 0, "position_fill_stage": 0,
             "window_pair": 0, "row_lookup": 0, "lane_lookup": 0,
             # the -P spline and -I LJ-table variants of K1, K2 and NL2
             "spline_eam_pass1": 0, "spline_eam_pass3": 0,

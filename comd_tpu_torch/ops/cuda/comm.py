@@ -1,6 +1,6 @@
 """The kernel-initiated halo transports on hand-written CUDA kernels.
 
-Two kernels, one source (csrc/comm.cu), one build:
+Three kernels, one source (csrc/comm.cu), one build:
 
 - ``halo_fill`` replaces comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
   (K3) as exchange_scalar_ki drives it, and _pass2_push_kernel (K4) as
@@ -13,12 +13,18 @@ Two kernels, one source (csrc/comm.cu), one build:
 - ``ring_push`` (K3) replaces _ring_push_kernel as exchange_atoms_ki drives
   it: one stage of the atom exchange, both directions and every field of
   every shard in one launch, each field at its own vector width.
+- ``position_fill`` replaces no Pallas kernel: the mesh's ghost-position
+  refresh (comd_tpu's exchange_positions, three ppermutes in its XLA
+  step) as one launch over a row map, in one process the three stages
+  composed (parallel/exchange.py::position_map), across processes one
+  stage (ki_comm.py).
 
-Each launch follows a plan made once (``FillPlan``, ``PushPlan``;
-parallel/ki_comm.py caches them on the ``Halo``): the row lists and the
-destination maps on the device, the fields' shapes, each field's vector
-width and the launch grid, checked against the kernels' limits when the
-plan is made, and a ctypes argument struct that every call reuses.  A
+Each launch follows a plan made once (``FillPlan``, ``PushPlan``,
+``PositionPlan``; parallel/ki_comm.py caches them on the ``Halo``): the
+row lists and the destination maps on the device, the fields' shapes,
+each field's vector width and the launch grid, checked against the
+kernels' limits when the plan is made, and a ctypes argument struct that
+every call reuses.  A
 destination is a shard of the launch (a value below S in the map) or a
 receive plane of the plan (S + its index): the plane of a receiver in
 another process, in that process's arena.  A call checks that the tensors
@@ -38,7 +44,8 @@ gather plus a scatter a shard and direction).  The wrappers take it only
 for tensors on the CPU; a CUDA tensor launches the kernel or raises.
 ``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "halo_fill"
 (a whole fill in one launch, or K4 alone), "halo_fill_stage" (one stage of
-a fill across processes) and "ring_push".
+a fill across processes), "ring_push", "position_fill" (a whole refresh)
+and "position_fill_stage" (one stage of a refresh across processes).
 """
 from __future__ import annotations
 
@@ -367,6 +374,124 @@ def set_layout(slabs) -> tuple:
     return offs, at
 
 
+class RowMap(NamedTuple):
+    """A position refresh as a row map, numpy, one entry a destination
+    row: coordinate rows c = 0, 1, 2 of row ``dst_row`` of shard ``dst``'s
+    positions (or of receive plane ``dst - S``) get those of row
+    ``src_row`` of shard ``src``'s, plus ``signs[:, c]`` (-1, 0, +1) times
+    the shift ext[c]."""
+    dst: np.ndarray        # [N] int
+    dst_row: np.ndarray    # [N] int
+    src: np.ndarray        # [N] int
+    src_row: np.ndarray    # [N] int
+    signs: np.ndarray      # [N, 3] int
+
+
+class PositionPlan:
+    """The launch plan of a ghost-position refresh: the row map ``rows``
+    (``RowMap``; in one process the whole refresh composed, across
+    processes one stage) over ``n_shards`` shards' [3, B, A] positions of
+    ``shape`` and ``dtype``, the per-axis shifts ``ext`` (rounded to the
+    dtype) and the receive planes ``planes`` ([3, n, A] each).  Checked
+    when made: every destination row written once, no row both read and
+    written (so a launch needs no barrier), every plane row written.  On
+    the device: the map as [N, 4] int32 (dst, dst_row, src | sign bits <<
+    8, src_row), sorted by destination; for the plain version the gather
+    index, the shifts a row and coordinate (-0.0 where none: x + -0.0 is x,
+    also for x = -0.0) and the destination rows a target.  ``count_as``:
+    the LAUNCHES key of its launches."""
+
+    def __init__(self, rows: RowMap, shape, dtype, device, ext, n_shards,
+                 planes=(), count_as: str = "position_fill"):
+        device = _device(device)
+        shape = tuple(shape)
+        if len(shape) != 3 or shape[0] != 3 or \
+                dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"a position refresh moves [3, B, A] float32 or "
+                             f"float64 positions, got {dtype} {shape}")
+        _shards(n_shards)
+        self.planes = list(planes)
+        if len(self.planes) > MAX_PLANES:
+            raise ValueError(f"a launch takes at most {MAX_PLANES} planes")
+        _, B, A = shape
+        S, P = n_shards, len(self.planes)
+        self.n_shards, self.shape, self.dtype = S, shape, dtype
+        self.device, self.count_as = device, count_as
+        dst, dst_row, src, src_row = (np.asarray(v, np.int64) for v in
+                                      rows[:4])
+        signs = np.asarray(rows.signs, np.int64).reshape(-1, 3)
+        n = dst.size
+        if n < 1 or not all(v.shape == (n,) for v in (dst_row, src,
+                                                       src_row)) or \
+                signs.shape[0] != n:
+            raise ValueError("a row map needs one entry or more, all its "
+                             "arrays of one length")
+        n_plane = self.planes[0].shape[1] if P else 0
+        for t in self.planes:
+            if tuple(t.shape) != (3, n_plane, A) or t.dtype != dtype:
+                raise ValueError(f"a receive plane must be {dtype} "
+                                 f"{(3, n_plane, A)}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+        on_plane = dst >= S
+        if dst.min() < 0 or dst.max() >= S + P or src.min() < 0 or \
+                src.max() >= S or src_row.min() < 0 or src_row.max() >= B \
+                or dst_row.min() < 0 or \
+                (dst_row >= np.where(on_plane, n_plane, B)).any() or \
+                not np.isin(signs, (-1, 0, 1)).all():
+            raise ValueError("a row map entry lies outside the shards, "
+                             "planes, rows or signs of the plan")
+        order = np.lexsort((dst_row, dst))
+        dst, dst_row, src, src_row, signs = (v[order] for v in (
+            dst, dst_row, src, src_row, signs))
+        key = dst * B + dst_row
+        if (np.diff(key) == 0).any():
+            raise ValueError("a destination row appears twice in the map")
+        if np.isin(src * B + src_row, key[dst < S]).any():
+            raise ValueError("a row the map reads is a row it writes")
+        for p in range(P):
+            got = dst_row[dst == S + p]
+            if not np.array_equal(got, np.arange(n_plane)):
+                raise ValueError(f"receive plane {p} is not written row by "
+                                 f"row once")
+        self.n_rows = n
+        self.vec = _vec_bytes(A * dtype.itemsize)
+        self.row_vecs = A * dtype.itemsize // self.vec
+        self.lg = _lanes_lg(self.row_vecs)
+        self.grid_x = _blocks(n, self.lg)
+        self.ext = tuple(float(e) for e in ext)
+        # the plain version: one gather, one add, one put a target
+        self.src_index = torch.as_tensor(src, device=device)
+        self.src_row_index = torch.as_tensor(src_row, device=device)
+        shift = np.where(signs != 0, signs * np.asarray(self.ext), -0.0)
+        self.shift = torch.as_tensor(shift, dtype=torch.float64).to(
+            dtype).to(device)
+        cuts = np.flatnonzero(np.diff(dst)) + 1
+        self.targets = [(int(dst[lo]), lo, hi,
+                         torch.as_tensor(dst_row[lo:hi], device=device))
+                        for lo, hi in zip(np.r_[0, cuts], np.r_[cuts, n])]
+        code = src | (((signs == 1) << 2 * np.arange(3)).sum(1) |
+                      ((signs == -1) << 2 * np.arange(3) + 1).sum(1)) << 8
+        self.map = torch.as_tensor(
+            np.stack([dst, dst_row, code, src_row], 1).astype(np.int32),
+            device=device)
+        self.args = None
+        if device.type == "cuda":
+            self.device_index = device.index
+            _aligned([self.map.data_ptr()], 16, "position_fill map")
+            a = self.args = _PositionArgs()
+            a.n_shards, a.n_planes, a.n_rows = S, P, n
+            a.elem_bytes, a.vec_bytes = dtype.itemsize, self.vec
+            a.row_vecs, a.lg, a.grid_x = self.row_vecs, self.lg, self.grid_x
+            a.device = self.device_index
+            a.field_plane = B * self.row_vecs
+            a.recv_plane = n_plane * self.row_vecs
+            a.ext[:] = self.ext
+            a.map = self.map.data_ptr()
+            a.plane[:P] = _plane_ptrs(self.planes, (3, n_plane, A), dtype,
+                                      self.vec, "position_fill plane")
+            self.ref = ctypes.byref(a)
+
+
 def _rows_shape(shape) -> tuple:
     """(planes, rows, elements a row) of a [B], [B, A] or [P, B, A] field."""
     if len(shape) == 1:
@@ -422,6 +547,22 @@ def halo_fill_plain(plan: FillPlan, x: list, rhobar=None,
             else:
                 fill_push_plain(x, to, send, recv, plan.planes)
     return x
+
+
+def position_fill_plain(plan: PositionPlan, r: list) -> list:
+    """The refresh of ``plan`` on every shard's [3, B, A] positions
+    ``r[s]``, in place: one gather of the map's source rows from the
+    stacked shards, one add of each row's shifts, then each destination
+    shard's rows (or receive plane) written.  Returns ``r``."""
+    v = torch.stack(r)[plan.src_index, :, plan.src_row_index]   # [N, 3, A]
+    v += plan.shift[:, :, None]
+    S = plan.n_shards
+    for t, lo, hi, rows in plan.targets:
+        if t < S:
+            r[t][:, rows] = v[lo:hi].transpose(0, 1)
+        else:
+            plan.planes[t - S].copy_(v[lo:hi].transpose(0, 1))
+    return r
 
 
 def ring_push_plain(plan: PushPlan, srcs) -> list:
@@ -487,6 +628,16 @@ class _PushArgs(ctypes.Structure):
         ("set_off", ctypes.c_longlong * MAX_FIELDS)]
 
 
+class _PositionArgs(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "n_shards", "n_planes", "n_rows", "elem_bytes", "vec_bytes",
+        "row_vecs", "lg", "grid_x", "device")] + [
+        ("field_plane", ctypes.c_longlong), ("recv_plane", ctypes.c_longlong),
+        ("ext", ctypes.c_double * 3), ("map", ctypes.c_void_p),
+        ("x", ctypes.c_void_p * MAX_SHARDS),
+        ("plane", ctypes.c_void_p * MAX_PLANES)]
+
+
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_SECONDS = None   # wall time of the nvcc build in this process
@@ -507,6 +658,7 @@ def build():
         for name, args in (
                 ("comd_halo_fill", [P(_FillArgs), V]),
                 ("comd_ring_push", [P(_PushArgs), V]),
+                ("comd_position_fill", [P(_PositionArgs), V]),
                 ("comd_arena_alloc", [P(V), ctypes.c_longlong, I]),
                 ("comd_arena_free", [V, I]),
                 ("comd_ipc_handle", [V, I, ctypes.c_char_p]),
@@ -655,6 +807,27 @@ def ring_push(plan: PushPlan, srcs) -> list:
     _raise_on(lib, lib.comd_ring_push(plan.ref, stream), "ring_push")
     LAUNCHES["ring_push"] += 1
     return out
+
+
+def position_fill(plan: PositionPlan, r: list) -> list:
+    """The ghost-position refresh of ``plan`` on every shard's [3, B, A]
+    positions ``r[s]``, in place, in one launch: every map entry's three
+    coordinate rows copied from its source row, the shift added to
+    coordinate c where the entry's sign c says (one rounded add, as the
+    staged exchange adds it), into the destination shard's row or receive
+    plane.  CPU tensors run the plain version; CUDA tensors the kernel."""
+    if r[0].device.type == "cpu":
+        return position_fill_plain(plan, r)
+    a, S = plan.args, plan.n_shards
+    ptrs = _pointers(r, S, plan.shape, plan.dtype, plan.device_index,
+                     "position_fill positions")
+    _aligned(ptrs, plan.vec, "position_fill positions")
+    a.x[:S] = ptrs
+    lib = build()
+    stream = torch.cuda.current_stream(plan.device_index).cuda_stream
+    _raise_on(lib, lib.comd_position_fill(plan.ref, stream), "position_fill")
+    LAUNCHES[plan.count_as] += 1
+    return r
 
 
 # --------------------------------------------------------------------------

@@ -48,6 +48,7 @@ import torch
 from ..cells import CellGeometry
 from ..ops import binning
 from ..ops.binning import EMPTY_GID, GeomMaps
+from ..ops.cuda.comm import RowMap
 from ..potentials.tables import as_dtype
 from . import dist
 from .mesh import Mesh
@@ -164,7 +165,8 @@ class Halo:
     common geometry and maps, the plan and its lists as int32 device
     tensors (for torch indexing and the kernels alike), the per-axis PBC
     shifts rounded to the dynamics dtype, the kernels' launch plans
-    (ki_comm.py: one a field shape, made on first use), and for the
+    (ki_comm.py: one a field shape, made on first use; and the composed
+    position refresh, ``position_map``), and for the
     exchanges across processes the routes (``_route``), the receive
     buffers (one set a stage and message layout) and the traffic counters
     (bytes sent, by kind of exchange under ("bytes", kind), and
@@ -401,6 +403,64 @@ def exchange_positions(h: Halo, r: list) -> list:
             r[s][:, recv_p] = got_p
             r[s][:, recv_m] = got_m
     return r
+
+
+def position_map(h: Halo) -> RowMap:
+    """``exchange_positions`` of a mesh in one process composed into one
+    row map, made once a Halo (kept in ``launch_plans``): for every halo
+    row of every shard, the local row whose positions the three stages
+    finally copy into it and the sign (-1, 0, +1) of the shift each
+    coordinate gets on the way.
+
+    Composed, not derived: ``exchange_positions`` itself runs on a CPU
+    copy of the mesh whose positions are tagged (each row's three
+    coordinates its global row id s * B + row) and whose shifts are 1/4,
+    so a halo row comes out as its source's id plus sign_c / 4.  Why one
+    launch of the map keeps every bit: each halo row is written by one
+    stage only (the growing cross-sections), coordinate c is shifted only
+    in stage c, and ext[c] is rounded to the dtype already, so each
+    coordinate of a row takes at most one rounded add of +-ext[c] either
+    way.  Checked here: every halo row a destination once, no local row a
+    destination, every source a local row, every sign -1, 0 or +1."""
+    key = "position map"
+    if key not in h.launch_plans:
+        h.launch_plans[key] = _compose_positions(h)
+    return h.launch_plans[key]
+
+
+def _compose_positions(h: Halo) -> RowMap:
+    if h.mesh.nprocs != 1:
+        raise ValueError("the composed position refresh is one process's: "
+                         "across processes each stage is a launch")
+    S, B, nl = h.mesh.size, h.geom.n_total, h.geom.n_local
+    recv = np.sort(np.concatenate([v for pair in h.plan.force_recv
+                                   for v in pair]))
+    if not np.array_equal(recv, np.arange(nl, B)):
+        raise RuntimeError("the stages do not write every halo row once")
+    cpu = dataclasses.replace(
+        make_halo(dataclasses.replace(h.mesh, device=torch.device("cpu")),
+                  h.geom, h.maps, h.plan, torch.float64),
+        ext=(0.25, 0.25, 0.25))
+    tags = torch.arange(S * B, dtype=torch.float64).view(S, 1, B, 1)
+    r = [t.expand(3, B, 1).clone() for t in tags]
+    v = torch.stack(exchange_positions(cpu, r))[..., 0].numpy()   # [S, 3, B]
+    src = np.rint(v[:, 0])
+    signs = np.rint(4.0 * (v - src[:, None])).astype(np.int64)
+    if (np.rint(v) != src[:, None]).any() or \
+            (v != src[:, None] + 0.25 * signs).any() or \
+            (np.abs(signs) > 1).any():
+        raise RuntimeError("a halo row mixes sources or takes two shifts")
+    src = src.astype(np.int64)
+    local = np.arange(S)[:, None] * B + np.arange(nl)
+    if (src[:, :nl] != local).any() or signs[:, :, :nl].any():
+        raise RuntimeError("the refresh writes a local row")
+    src = src[:, nl:].reshape(-1)
+    if (src % B >= nl).any():
+        raise RuntimeError("a halo row's source is not a local row")
+    return RowMap(dst=np.repeat(np.arange(S), B - nl),
+                  dst_row=np.tile(np.arange(nl, B), S), src=src // B,
+                  src_row=src % B,
+                  signs=signs[:, :, nl:].transpose(0, 2, 1).reshape(-1, 3))
 
 
 def fold_halo(h: Halo, x: list) -> list:

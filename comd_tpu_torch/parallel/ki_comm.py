@@ -18,7 +18,11 @@ the planes move with the hand-written kernels of ops/cuda/comm.py:
     of both directions into per-shard arrival buffers, then every shard's
     arrivals re-binned by coordinate in one unload exactly as the
     collective path does (``binning.append_stage``: csrc/arrivals.cu's
-    bin and place launches, reading the buffers where they lie).
+    bin and place launches, reading the buffers where they lie);
+  * ``exchange_positions_ki``: the ghost-position refresh between
+    rebuckets as one ``position_fill`` launch over the three stages
+    composed (exchange.position_map); in one process every --commImpl
+    takes it, as comd_tpu runs one exchange_positions under each.
 
 Across processes (a multi-process launch) every stage is one launch of
 this process's shards, as comd_tpu's kernels push into a neighbor on
@@ -27,7 +31,8 @@ receiver in another process gets a receive plane in that process's arena
 (``Link``: one cudaMalloc a process, opened by the peers through its CUDA
 IPC handle), and unpacks it into its halo rows itself, as comd_tpu's
 ``x.at[recv].set`` does after its remote copy (fill: one indexed copy a
-plane; atoms: the unload reads the planes beside the arrival buffers).
+plane; positions: the same, the sender having added the shift; atoms: the
+unload reads the planes beside the arrival buffers).
 The stages are ordered on the stream, with no host wait, by counters that
 only grow (``epoch_values``; csrc/comm.cu says how): the Pallas kernels'
 neighbor barrier and DMA semaphores, the reference's ready flags
@@ -53,12 +58,14 @@ import torch
 
 from ..ops import binning
 from ..ops.cuda import comm
-from ..ops.cuda.comm import FillPlan, PushPlan, halo_fill, ring_push
+from ..ops.cuda.comm import (FillPlan, PositionPlan, PushPlan, RowMap,
+                              halo_fill, position_fill, ring_push)
 from ..potentials.tables import EmbedTable
 from . import dist, exchange
 from .exchange import Halo
 
-KINDS = ("fill", "atoms")     # the stage kinds, each with its counters
+# the stage kinds, each with its counters
+KINDS = ("fill", "atoms", "positions")
 
 
 # --------------------------------------------------------------------------
@@ -94,6 +101,31 @@ def atom_plan(h: Halo, axis: int, fields) -> PushPlan:
              (h.atom_send[axis][0], h.minus[axis])],
             [(f[0].shape, f[0].dtype) for f in fields], h.mesh.device)
     return plan
+
+
+def position_plan(h: Halo, r0: torch.Tensor) -> PositionPlan:
+    """The ghost-position refresh's plan in one process for positions like
+    ``r0`` ([3, B, A]): the three stages composed into one row map
+    (``exchange.position_map``), every halo row of every shard once."""
+    key = ("positions", tuple(r0.shape), r0.dtype)
+    plan = h.launch_plans.get(key)
+    if plan is None:
+        plan = h.launch_plans[key] = PositionPlan(
+            exchange.position_map(h), r0.shape, r0.dtype, h.mesh.device,
+            h.ext, h.mesh.size)
+    return plan
+
+
+def exchange_positions_ki(h: Halo, r: list) -> list:
+    """The slot-aligned ghost-position refresh, in place on every shard's
+    [3, B, A] positions, bit for bit exchange.exchange_positions'.  In one
+    process one ``position_fill`` launch over the composed map (whatever
+    the transport: comd_tpu runs the same exchange under every one);
+    across processes one launch a stage, rows for another process's
+    shards into its receive planes, shifted on the sender."""
+    if h.mesh.nprocs > 1:
+        return _positions_across(h, r)
+    return position_fill(position_plan(h, r[0]), r)
 
 
 def exchange_scalar_ki(h: Halo, x: list) -> list:
@@ -218,10 +250,11 @@ def atom_slabs(n: int, A: int, dtype: torch.dtype) -> list:
 def plane_bytes(h: Halo, kind: str, axis: int, A: int,
                 dtype: torch.dtype) -> int:
     """Bytes of one receive plane of stage (kind, axis), a multiple of 16:
-    a fill plane [n_rows, A], or an atom plane set (``atom_slabs``)."""
-    if kind == "fill":
-        return _align(len(h.plan.force_send[axis][0]) * A * dtype.itemsize,
-                      16)
+    a fill plane [n_rows, A], a position plane [3, n_rows, A], or an atom
+    plane set (``atom_slabs``)."""
+    if kind in ("fill", "positions"):
+        n = len(h.plan.force_send[axis][0]) * A * dtype.itemsize
+        return _align(3 * n if kind == "positions" else n, 16)
     return comm.set_layout(atom_slabs(len(h.plan.atom_send[axis][0]), A,
                                       dtype))[1]
 
@@ -566,3 +599,68 @@ def _atoms_across(h: Halo, r: list, p: list, gid: list, n_atoms: list):
         _atoms_unpack(h, axis, st, got, inbox, r, p, gid, n_atoms, overflow)
         link.release("atoms", axis, v, st)
     return r, p, gid, n_atoms, overflow
+
+
+def _position_stage(h: Halo, link: Link, axis: int,
+                    r0: torch.Tensor) -> _Stage:
+    """Stage ``axis`` of the position refresh across processes: direction
+    k of ``_route`` sends the face rows ``force_send[axis][k]`` into the
+    rows ``force_recv[axis][1 - k]`` of a shard of this process, or row by
+    row into a receive plane [3, n, A], with coordinate ``axis`` shifted
+    by +ext (k = 0, the message to the minus neighbor) or -ext."""
+    key = ("position stage", axis, tuple(r0.shape), r0.dtype)
+    if key not in h.ipc:
+        send, recv = h.plan.force_send[axis], h.plan.force_recv[axis]
+        n, S = len(send[0]), len(h.mesh.owned)
+        rows = np.arange(n)
+
+        def make(to, planes):
+            parts = []
+            for k in (0, 1):
+                signs = np.zeros((n, 3), np.int64)
+                signs[:, axis] = 1 - 2 * k
+                for j, t in enumerate(to[k]):
+                    parts.append((np.full(n, t),
+                                  recv[1 - k] if t < S else rows,
+                                  np.full(n, j), send[k], signs))
+            return PositionPlan(
+                RowMap(*(np.concatenate(v) for v in zip(*parts))),
+                r0.shape, r0.dtype, h.mesh.device, h.ext, S,
+                [_typed(b, off, (3, n) + tuple(r0.shape[2:]), r0.dtype)
+                 for b, off in planes], count_as="position_fill_stage")
+        h.ipc[key] = _stage(h, link, "positions", axis, make)
+    return h.ipc[key]
+
+
+def _positions_push(h: Halo, link: Link, axis: int, r: list):
+    """Stage ``axis`` of the position refresh across processes, up to its
+    push: one launch of this process's shards, its own receivers' rows
+    written and the other processes' into their planes, all shifted.
+    Returns (stage, counter values)."""
+    st = _position_stage(h, link, axis, r[0])
+    v = link.begin("positions", axis, st)
+    position_fill(st.plan, r)
+    return st, v
+
+
+def _positions_unpack(h: Halo, axis: int, st: _Stage, got: dict, r: list):
+    """Each plane that arrived from another process (``got``: {sender
+    process: bytes}), shifted by its sender, copied into its receiver's
+    halo rows, in place."""
+    shape = (3, len(h.plan.force_send[axis][0])) + tuple(r[0].shape[2:])
+    for q, slots in sorted(st.recvs.items()):
+        for m, (i, k) in enumerate(slots):
+            r[i][:, h.force_recv[axis][1 - k]] = _typed(got[q], m * st.pb,
+                                                        shape, r[i].dtype)
+
+
+def _positions_across(h: Halo, r: list) -> list:
+    """The position refresh across processes, stage by stage: the push,
+    the planes delivered, the unpack, the planes released.  In place."""
+    link = _link(h, r[0].shape[-1], r[0].dtype)
+    for axis in range(3):
+        st, v = _positions_push(h, link, axis, r)
+        _positions_unpack(h, axis, st,
+                          link.deliver(h, "positions", axis, v, st), r)
+        link.release("positions", axis, v, st)
+    return r

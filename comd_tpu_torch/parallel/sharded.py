@@ -20,7 +20,10 @@ over every shard, the rebucket a conditional node of it
     under ``--commImpl ki|ki_fused`` (one launch a dfEmbed fill, three an
     atom exchange; across processes one launch a stage, pushing into the
     receive planes of the other processes' arenas over CUDA IPC, ordered by
-    counters on the stream);
+    counters on the stream); the ghost-position refresh between rebuckets
+    is one ``position_fill`` launch in one process under every transport
+    (ki_comm.exchange_positions_ki), across processes one a stage under
+    ki and ki_fused;
   - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
     stay on the device in the graphs and are read on the host once a step
     by the eager loop (an allgather across processes); -a 1's migration
@@ -189,6 +192,18 @@ class ShardedSimulation(Physics):
                 else self.last_r)
         cond.flag = self._kick_drift(self.states, last, cond.handles)
 
+    def exchange_positions(self, r: list) -> None:
+        """The slot-aligned ghost-position refresh of every shard's
+        positions ``r``, in place: in one process one ``position_fill``
+        launch under every --commImpl (comd_tpu runs one exchange_positions
+        under each); across processes one stage launch a stage through the
+        receive planes under ki and ki_fused, and the staged
+        exchange.exchange_positions (gloo) under collective."""
+        if self.mesh.nprocs > 1 and self.cfg.comm_impl == "collective":
+            exchange.exchange_positions(self.halo, r)
+        else:
+            ki_comm.exchange_positions_ki(self.halo, r)
+
     def _refresh(self) -> None:
         """The slot-aligned ghost-position refresh of a step that does not
         rebucket; under -a 1 (the cell split or the NL row split) the
@@ -198,7 +213,7 @@ class ShardedSimulation(Physics):
         if self._reads_r_pre:
             for b, x in zip(self._r_pre(), r):
                 b.copy_(x)
-        exchange.exchange_positions(self.halo, r)
+        self.exchange_positions(r)
 
     def _rest(self, want_energy: bool) -> None:
         """The rest of a step over the mesh, in place: the force (over the

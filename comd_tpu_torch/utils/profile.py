@@ -20,7 +20,9 @@ Phases (reference enum names), each the code the step runs:
   redistribute  rebucket sort + scatter + halo rebuild (+ the atom
                 exchange and in-cell sort on a mesh)
   atomHalo      ghost position refresh alone (serially the positions of
-                the ``refresh_halo`` fill)
+                the ``refresh_halo`` fill; on a mesh the step's
+                ``exchange_positions``: one ``position_fill`` launch in one
+                process)
   force         full force evaluation (includes the in-force eamHalo)
   eamHalo       the dfEmbed halo fill alone (EAM only)
   neighborList  Verlet list build (NL methods only)
@@ -76,8 +78,6 @@ def _phase_fns(sim):
     fns["position"] = position
 
     if sharded:
-        from ..parallel import exchange
-
         def redistribute(st):
             r, p, gid, n, _ovf = sim._redistribute(
                 [s.r for s in st], [s.p for s in st], [s.gid for s in st],
@@ -87,7 +87,7 @@ def _phase_fns(sim):
                     for i, s in enumerate(st)]
 
         def atom_halo(st):
-            exchange.exchange_positions(sim.halo, [s.r for s in st])
+            sim.exchange_positions([s.r for s in st])
             return st
     else:
         def redistribute(st):

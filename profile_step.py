@@ -29,7 +29,8 @@ most device time, the device time of one launch of each hand-written
 kernel (K1/K2, the halo and list kernels, the step's
 kick_drift_trigger, refresh_halo, embed_fill and land, the
 redistribution's rebucket_bin and rebucket_place, and on a mesh the atom
-exchange's arrivals_bin, arrivals_place and sort_cells), the gap in the
+exchange's arrivals_bin, arrivals_place and sort_cells, and the ghost
+refresh's position_fill), the gap in the
 trace from the end of a step's last kick_drift_trigger to the start of
 its force's first pair kernel (median, least and largest over the
 profiled steps: the median is a step's that does not rebucket, where
@@ -39,7 +40,9 @@ one redistribution run eagerly (host ms to enqueue it, ms to its end,
 device ms, device operations and the eight that take the most device
 time: serially csrc/rebucket.cu's two launches, the halo fill and the
 counter's add; on a mesh also the exchange's ring_push and
-csrc/arrivals.cu's launches, and the copies into the step's buffers).
+csrc/arrivals.cu's launches, and the copies into the step's buffers),
+and on a mesh one ghost refresh run eagerly (the lazy step's other IF
+body: its device operations and device ms; one position_fill launch).
 Needs a CUDA device; prints the card's name and power limit beside the
 numbers.
 """
@@ -164,6 +167,21 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
     reb = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CUDA and "Loading" not in e.key]
+    # on a mesh the lazy step's other IF body, the ghost refresh, eagerly
+    refresh = None
+    if hasattr(sim, "states") and sim._refresh is not None:
+        sim._refresh()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sim._refresh()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and "Loading" not in e.key]
+        refresh = {
+            "device_ops": sum(e.count for e in ops),
+            "device_ms": sum(getattr(e, "self_device_time_total", getattr(
+                e, "self_cuda_time_total", 0.0)) for e in ops) / 1e3,
+            "ops": {e.key[:60]: e.count for e in ops}}
     print(smi)
     print(json.dumps({
         "run": (f"{args.n}^3 {'LJ' if args.lj else 'EAM'} f32 -m "
@@ -197,6 +215,7 @@ def main(argv=None) -> int:
                 for e in sorted(reb, key=lambda e: -getattr(
                     e, "self_device_time_total",
                     getattr(e, "self_cuda_time_total", 0.0)))[:8]]},
+        "eager_refresh": refresh,
         "graph_replays_per_step": (
             (sim._graphs.replays - replays) / steps if sim._graphs else 0.0),
         "graph_capture_s": sim._graphs.capture_s if sim._graphs else None,
@@ -225,7 +244,8 @@ def main(argv=None) -> int:
                                     "arrivals_bin_kernel",
                                     "arrivals_place_kernel",
                                     "sort_cells_kernel",
-                                    "sort_cells_warp_kernel"))},
+                                    "sort_cells_warp_kernel",
+                                    "position_fill_kernel"))},
     }))
     return 0
 

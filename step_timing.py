@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time the step's small kernels (csrc/step.cu), the serial and the mesh's
-rebucket body (csrc/rebucket.cu, csrc/arrivals.cu) and the step graph's
-branch of one or more source trees on one GPU, in turns.
+rebucket body (csrc/rebucket.cu, csrc/arrivals.cu), the mesh's ghost
+refresh (csrc/comm.cu) and the step graph's branch of one or more source
+trees on one GPU, in turns.
 
     python3 step_timing.py [--cases REGEX] [TREE ...]
 
@@ -51,6 +52,13 @@ graphs (CUDA events around replays; ms a launch):
   unload arrivals_bin, unload arrivals_place, unload sort_cells
                      each kernel's device ms a launch in that unload
                      (torch.profiler over 20 unloads, mean a launch)
+  mesh refresh body  the 2x2x2 ki_fused mesh's ghost refresh, the lazy
+                     step's other IF body (sim._refresh: one
+                     position_fill launch, or on a tree without it the
+                     staged torch exchange), 5 calls a graph
+  mesh refresh position_fill
+                     that launch's device ms (torch.profiler over 20
+                     refreshes, mean a launch), on a tree that has it
   branch             one replay of a graph of the serial step's head and
                      its IF nodes (the rebucket's body one small kernel):
                      the trigger with the images and one IF node, or on a
@@ -373,7 +381,8 @@ def worker(tree: str, cases_re: str) -> dict:
            if want(name)}
     if want("rebucket_"):
         out.update(rebucket_kernels(torch, sim))
-    if want("mesh rebucket body") or want("unload "):
+    if want("mesh rebucket body") or want("unload ") or \
+            want("mesh refresh"):
         # the 2x2x2 mesh's (ki_fused in one process): eight rebuckets,
         # the atom exchange and the sort; a graph of 2 calls (a tree
         # whose exchange is torch ops makes thousands of nodes a call)
@@ -388,6 +397,14 @@ def worker(tree: str, cases_re: str) -> dict:
                 torch, mesh._rebucket_step, calls=2, reps=5)
         if want("unload "):
             out.update(unload_times(torch, mesh))
+        if want("mesh refresh body"):
+            out["mesh refresh body"] = graph_ms(torch, mesh._refresh,
+                                                calls=5, reps=10)
+        from comd_tpu_torch.ops.cuda import comm
+        if want("mesh refresh position_fill") and \
+                hasattr(comm, "position_fill"):
+            out.update(kernel_ms(torch, mesh._refresh, {
+                "position_fill_kernel": "mesh refresh position_fill"}))
     if want("branch"):
         out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM") and want("embed_fill "):

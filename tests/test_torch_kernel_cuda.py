@@ -523,6 +523,107 @@ def test_stage_pushes_into_planes_match_plain(cuda_device, dtype, n):
         (4, 3)
 
 
+def _bit_equal(a, b):
+    """Lists of float tensors equal bit for bit (-0.0 is not +0.0)."""
+    def bits(t):
+        return t.view(torch.int32 if t.dtype == torch.float32
+                      else torch.int64)
+    return all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def _position_case(dtype, grid, A, seed=4):
+    """A 2x2x2 or 2x2x1 mesh on the card and positions [3, B, A] of its
+    shards: the state's displaced where A is its own, noise at another A
+    (an odd A: one slot a thread), halo rows of noise either way, the
+    first slot of every local row -0.0."""
+    sim = init_simulation(Config(
+        nx=8, ny=8, nz=8, doeam=True, temperature=600.0, dtype=dtype,
+        pot_dir=POTS, device="cuda", xproc=grid[0], yproc=grid[1],
+        zproc=grid[2]))
+    nl = sim.geom.n_local
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    r = []
+    for s in sim.states:
+        x = 20 * torch.rand((3, s.r.shape[1], A), dtype=sim.dtype,
+                            device="cuda", generator=gen) - 5
+        if A == s.r.shape[2]:
+            x[:, :nl] = s.r[:, :nl] + 0.5 * x[:, :nl] / 20
+        x[:, :nl, 0] = -0.0     # a copy with no shift keeps the sign of 0
+        r.append(x)
+    return sim, r
+
+
+@pytest.mark.parametrize("A", [16, 13])
+@pytest.mark.parametrize("grid", [(2, 2, 2), (2, 2, 1)],
+                         ids=["2x2x2", "2x2x1"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_position_fill_matches_plain(cuda_device, dtype, grid, A):
+    """The ghost-position refresh in one launch over the composed map
+    against its plain version and the staged exchange.exchange_positions,
+    bit for bit (on 2x2x1 a shard is its own z neighbor); every halo row
+    written, no local row touched."""
+    sim, r = _position_case(dtype, grid, A)
+    h, nl = sim.halo, sim.geom.n_local
+    plan = ki_comm.position_plan(h, r[0])
+    assert plan.vec == (16 if A % 4 == 0 or dtype == "float64" and A % 2 == 0
+                        else r[0].element_size())
+    st.reset_launch_counts()
+    got = cm.position_fill(plan, [x.clone() for x in r])
+    assert st.LAUNCHES["position_fill"] == 1
+    plain = cm.position_fill_plain(plan, [x.clone() for x in r])
+    staged = exchange.exchange_positions(h, [x.clone() for x in r])
+    assert _bit_equal(got, plain) and _bit_equal(got, staged)
+    assert all(_bit_equal([a[:, :nl]], [b[:, :nl]]) and
+               (a[:, nl:] != b[:, nl:]).all() for a, b in zip(got, r))
+
+
+def test_position_fill_replayed_in_a_cuda_graph(cuda_device):
+    """The refresh launch captured in a CUDA graph and replayed twice from
+    the restored positions: each replay equals the plain version."""
+    from comd_tpu_torch.stepgraph import cuda_capture
+    sim, r = _position_case("float32", (2, 2, 2), 16)
+    plan = ki_comm.position_plan(sim.halo, r[0])
+    want = cm.position_fill_plain(plan, [x.clone() for x in r])
+    work = [x.clone() for x in r]
+    cm.position_fill(plan, work)
+    graph = cuda_capture(lambda: cm.position_fill(plan, work),
+                         torch.cuda.graph_pool_handle())[0]
+    for _ in range(2):
+        for w, x in zip(work, r):
+            w.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _bit_equal(work, want)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_position_stages_into_planes_match_plain(cuda_device, dtype, n):
+    """The refresh's stages across processes, process 0's view of a 2x2x2
+    mesh on n processes, with local scratch planes: each stage launch
+    writes this process's positions and the other processes' planes
+    (shifted on the sender) exactly as its plain version does."""
+    sim, r = _position_case(dtype, (2, 2, 2), 16)
+    mesh = make_mesh(2, 2, 2, cuda_device, nprocs=n, proc=0)
+    h = exchange.make_halo(mesh, sim.geom, sim.maps, sim.plan, sim.dtype)
+    own = [r[s] for s in mesh.owned]
+    link = _scratch_link(h, own[0].shape[2], sim.dtype)
+    crossed = 0
+    st.reset_launch_counts()
+    for axis in range(3):
+        stage = ki_comm._position_stage(h, link, axis, own[0])
+        for p in stage.plan.planes:
+            p.zero_()
+        a = cm.position_fill(stage.plan, [v.clone() for v in own])
+        planes = [p.clone() for p in stage.plan.planes]
+        b = cm.position_fill_plain(stage.plan, [v.clone() for v in own])
+        assert _bit_equal(a, b) and _bit_equal(planes, stage.plan.planes)
+        assert all(p.ne(0).any() for p in planes)
+        crossed += len(planes)
+    assert crossed > 0
+    assert st.LAUNCHES["position_fill_stage"] == 3
+
+
 @pytest.mark.parametrize("comm_impl", ["ki", "ki_fused"])
 def test_transports_bit_equal_on_card(cuda_device, comm_impl):
     """Eager f64 steps (an atom exchange every step) on the full-shell K1,
@@ -1911,6 +2012,31 @@ def test_mesh_redistribution_launches(cuda_device, comm_impl, monkeypatch):
     for a, b in zip(sim.states, twin.states):
         for k in ("r", "p", "gid", "n_atoms"):
             assert torch.equal(getattr(a, k), getattr(b, k)), k
+
+
+@pytest.mark.parametrize("comm_impl", ["ki_fused", "ki", "collective"])
+def test_mesh_refresh_launches(cuda_device, comm_impl, monkeypatch):
+    """The 2x2x2 mesh's ghost refresh in one process under every
+    transport: one position_fill launch, the staged exchange's bits; in
+    the step's graphs one launch a step that does not rebucket (the IF
+    body credited a replay, taken back a rebucket)."""
+    sim = _mesh_sim("float32", comm_impl=comm_impl)
+    twin = _mesh_sim("float32", comm_impl=comm_impl)
+    st.reset_launch_counts()
+    sim._refresh()
+    torch.cuda.synchronize()
+    assert st.LAUNCHES["position_fill"] == 1
+    monkeypatch.setattr(ki_comm, "exchange_positions_ki",
+                        exchange.exchange_positions)
+    twin._refresh()
+    assert _bit_equal([s.r for s in sim.states], [s.r for s in twin.states])
+    monkeypatch.undo()
+    reb = sim.n_rebucket
+    st.reset_launch_counts()
+    sim.step_block(10)
+    sim.step_block(10)
+    assert sim._graphs is not None and sim._graphs.replays > 0
+    assert st.LAUNCHES["position_fill"] == 20 - (sim.n_rebucket - reb)
 
 
 def test_arrivals_kernels_refuse_what_they_do_not_take(cuda_device):

@@ -247,28 +247,37 @@ def _run_model(calls, nprocs: int, seed: int, wait_free: bool = True):
 
 
 def test_stage_schedule_counters():
-    """Fills (three stages a force) and atom stages (three a rebucket, on
-    the same steps everywhere), three processes all to all, and two whose
-    x stages alone cross: the counters order every push after the
+    """Fills (three stages a force), atom stages (three a rebucket, on
+    the same steps everywhere) and position stages (three a step that
+    does not rebucket), three processes all to all, and two whose x
+    stages alone cross: the counters order every push after the
     receiver's last unpack and every unpack after its push, whatever
     order the processes run in."""
     rng = random.Random(3)
-    calls = []
+    calls, refreshed = [], []
     for step in range(12):
         if step % 4 == 0 or rng.random() < 0.3:
             calls += [("atoms", a) for a in range(3)]
+            refreshed += [("atoms", a) for a in range(3)]
+        else:
+            refreshed += [("positions", a) for a in range(3)]
         calls += [("fill", a) for a in range(3)]
+        refreshed += [("fill", a) for a in range(3)]
     assert ki_comm.epoch_values(1) == {"wait_free": 0, "write_data": 1,
                                        "wait_data": 1, "write_free": 1}
+    assert ki_comm.KINDS == ("fill", "atoms", "positions")
     words = {ki_comm.counter_word(r, k, a, q, 3) for r in ("data", "free")
              for k in ki_comm.KINDS for a in range(3) for q in range(3)}
-    assert len(words) == 36 and max(words) < \
+    assert len(words) == 54 and max(words) < \
         ki_comm.counter_word("probe", "", 0, 0, 3)
     # 2 processes on 2x2x2: only the x stages cross
     x_only = [c for c in calls if c[1] == 0]
     for seed in range(20):
         assert _run_model(calls, 3, seed) == []
         assert _run_model(x_only, 2, seed) == []
+        assert _run_model(refreshed, 3, seed) == []
+        assert _run_model([c for c in refreshed if c[1] == 0], 2,
+                          seed) == []
     # without the wait on "free" a sender whose other stages stay in its
     # process runs ahead into a plane its receiver has not unpacked yet
     assert any(f[0] == "overwrite" for seed in range(20)
