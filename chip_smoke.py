@@ -47,8 +47,10 @@ the first error:
                  --halfShell; LJ 6^3 full and half; 5-sigma LJ 8^3 (A = 256
                  on a 2^3 grid) full and half.
   8. half main -- the headline run with --halfShell (K2 for passes 1 and 3),
-                 the same checks; K2 against K1's force at the initial and
-                 final states; K2's times beside K1's and the plain versions.
+                 the same checks; one fold_halo launch a fold (rhobar and
+                 the force every force, phi on the energy steps: 213); K2
+                 against K1's force at the initial and final states; K2's
+                 times beside K1's and the plain versions.
   9. LJ main  -- 63^3 LJ f32 (A = 32, 35^3 cells), full (K1) and
                  --halfShell (K2), 100 steps each, the same checks and times.
  10. comm kernels -- the halo kernels against their plain versions on a
@@ -63,9 +65,11 @@ the first error:
                  on 3x2x1 with --commImpl ki (2 cells per shard axis).
  12. sharded main -- the 63^3 headline on a 2x2x2 mesh of shards on the one
                  card, --commImpl ki_fused, ki, then collective: the run_main
-                 checks, K1 passes 1 and 3 on every step, under ki and
-                 ki_fused exactly one fill launch a force (init and every
-                 step) and three ring_push launches an atom exchange, the
+                 checks, K1 passes 1 and 3 on every step, under every
+                 transport exactly one fill launch a force (init and every
+                 step; collective's too: K3's copies), three ring_push
+                 launches an atom exchange under ki and ki_fused and three
+                 atom_pack under collective, the
                  final r and ePot of the three transports equal bit for bit,
                  the initial ePot within 1e-6 of phase 5's; the halo kernels
                  against their plain versions at that state; one whole fill
@@ -93,7 +97,9 @@ the first error:
                  versions and bounds (flops the function needs: r2 on
                  every pair, the pair function on the pairs inside the
                  cutoff), window_pair's launch plan, the 72-chunk time per
-                 pair and list lengths beside K1's pass 1.
+                 pair and list lengths beside K1's pass 1; the lookups'
+                 library calls (P4: torch.index_select of the rows, P5/P6:
+                 torch.gather of the lanes) timed.
  14. nl       -- the Verlet-list kernels (csrc/nl.cu) against their plain
                  versions on thermalized 10^3 states, EAM and LJ,
                  f32/Chebyshev and f64/table: NL1 lists, counts and
@@ -114,9 +120,10 @@ the first error:
                  ki and collective (-a auto: the row split): initial ePot and
                  final energy within 1e-6 of the serial NL run's (63 is
                  odd: atom planes lie on the shards' cell faces), three
-                 ring_push an atom
-                 exchange under ki, no halo_fill (the NL fill is
-                 collective), final r and ePot equal bit for bit.
+                 ring_push an atom exchange under ki and three atom_pack
+                 under collective, one halo_fill a force under both (the
+                 list fill is K3's copies), final r and ePot equal bit for
+                 bit.
  15. options  -- -P (the cubic splines in r^2) and -I (the LJ table) on
                  their kernel variants: K1's and K2's spline EAM passes 1
                  (with and without energy) and 3, NL2's on its lists, and
@@ -173,7 +180,9 @@ the first error:
                  launched on every step of each shard; under ki|ki_fused
                  one halo_fill_stage launch a fill stage and one ring_push
                  an atom stage on every process, no whole-fill launch, and
-                 no fill or atom message through gloo; process 0's final
+                 no fill or atom message through gloo; under collective
+                 no halo_fill (the staged fill through the group) and
+                 three atom_pack launches a rebucket; process 0's final
                  ePot and the sha256 of the final r gathered in shard
                  order equal phase 12's collective run bit for bit, the
                  initial ePot within 1e-6 of phase 5's, no atom lost, no
@@ -215,7 +224,8 @@ the first error:
                  list rebucket a conditional node) against the eager loop
                  (``sim.cuda_graphs = False``), in this process one after
                  the other, at 63^3 f32: EAM on K1, LJ on K1, EAM -m
-                 thread_atom_nl, EAM on 2x2x2 ki_fused in one process, and
+                 thread_atom_nl, EAM on 2x2x2 ki_fused and collective in
+                 one process, and
                  -S 0 (a rebucket every step) on EAM K1 and on 2x2x2
                  ki_fused under -a 0 and -a 1.  Each run warms up through
                  its first rebucket (every graph captured), steps 100
@@ -236,8 +246,10 @@ the first error:
                  the rebucket counts equal, the graphs' capture and
                  instantiation time, and the final r (sha256) and ePot
                  equal bit for bit.  --halfShell (K2's atomics) at 20^3
-                 f64: the printed energies per atom within one unit of the
-                 last of 12 digits.
+                 f64, serially and on 2x2x2 collective (the folds
+                 fold_halo's stage launches): the printed energies per atom
+                 within one unit of the last of 12 digits, whether the bits
+                 agree reported.
  19. step ops -- the step's small ops (csrc/step.cu: kick_drift_trigger,
                  refresh_halo, embed_fill, land) against their plain
                  versions on the same CUDA tensors, bit for bit, at phase
@@ -333,6 +345,29 @@ the first error:
                  it, phase 17 one position_fill_stage launch a stage
                  across processes under ki and ki_fused and no position
                  bytes through gloo.
+ 22. collective -- the collective transport's atom messages (csrc/comm.cu's
+                 atom_pack: one launch a stage over every shard and both
+                 faces) and the half-shell fold (fold_halo: one launch
+                 serially, one a stage on a mesh) against atom_pack_plain
+                 and fold_halo_plain, bit for bit: the 63^3 f32 2x2x2
+                 state displaced by up to 0.5 A and rebucketed, packed
+                 (the plan's caps), full planes and a cap of 64 that
+                 overflows, each exchange carried on through its stages;
+                 10^3 f64 on 2x2x2 and 2x2x1; the fold of [3, B, A] and
+                 [B, A] noise at A = 16 and 13 on those meshes and
+                 serially at 20^3 f64 and the 63^3 --halfShell geometry.
+                 At 63^3 timed (CUDA events, mean of 20; the device's
+                 time under torch.profiler): one atom_pack stage beside
+                 its plain version, the torch packing it replaces and the
+                 byte bound (no single PyTorch call packs a message); the
+                 serial fold beside its plain version, the clone +
+                 index_add_ it replaced (the library form) and the bound;
+                 the mesh fold's three launches beside the torch
+                 exchange.fold_halo; the collective fill on halo_fill
+                 beside the staged torch fill, the bound and the
+                 index_select library form.  Phase 12 checks three
+                 atom_pack launches an exchange under collective, phase 8
+                 one fold_halo a fold, phase 18 the graphs' credits.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
@@ -410,7 +445,15 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             "position_fill": "no Pallas site: XLA "
                              "comd_tpu/parallel/exchange.py:242 "
                              "(exchange_positions), called at "
-                             "comd_tpu/parallel/sharded.py:403, :467"}
+                             "comd_tpu/parallel/sharded.py:403, :467",
+            # no Pallas site: the collective transport's packing and the
+            # half-shell fold are XLA in comd_tpu
+            "atom_pack": "no Pallas site: XLA "
+                         "comd_tpu/parallel/exchange.py:186-210 (the "
+                         "count-packed atom message of exchange_atoms)",
+            "fold_halo": "no Pallas site: XLA scatter-adds "
+                         "comd_tpu/ops/sweep.py:615 (fold_halo_serial), "
+                         "comd_tpu/parallel/exchange.py:270 (fold_halo)"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
@@ -1143,11 +1186,25 @@ def run_probes(k1_pass1: tuple) -> dict:
             f"{8 * x.numel() / dev / 1e9:.3f} TB/s of x and out on the "
             f"device")
         rows[key] = (0.0, ms, plain_ms, b_ms, b_by, host, dev)
+    # the library calls of the lookups' table reads, at the rows the
+    # lookups compute (not timed): P4's rows by one torch.index_select,
+    # P5/P6's lanes by one torch.gather; window_pair has none
+    ii4 = lookup._row_and_frac(x4, t4.shape[0])[0].reshape(-1)
+    ii5 = lookup._row_and_frac(x5, t5.shape[0])[0]
+    library = {"window_pair": None,
+               "row_lookup": time_ms(lambda: torch.index_select(t4, 0, ii4),
+                                     20),
+               "lane_lookup": time_ms(lambda: torch.gather(t5, 0, ii5), 20)}
+    say("timing", f"library calls of the lookups' table reads: row_lookup "
+        f"(P4) torch.index_select of {ii4.numel():,} rows "
+        f"{library['row_lookup']:.4f} ms, lane_lookup (P5 = P6) "
+        f"torch.gather of {ii5.numel():,} lanes {library['lane_lookup']:.4f} "
+        f"ms (CUDA events, mean of 20)")
     return {k: {"name": k, "route": "cuda", "source": PROBE_SOURCE,
                 "replaces": REPLACES[k], "launches": launches[k],
                 "max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "host_ms": host, "device_ms": dev}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": library[k], "host_ms": host, "device_ms": dev}
             for k, (e, ms, plain_ms, b_ms, b_by, host, dev) in rows.items()}
 
 
@@ -1497,17 +1554,23 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
               f"serial {nl_final['nl main']!r}")
         exchanges = sim.n_rebucket + 1
         n_ring = launches["ring_push"]
-        check(launches["halo_fill"] == 0
+        n_pack = launches["atom_pack"]
+        n_fill = launches["halo_fill"]
+        # the list fill is K3's copies under every transport: one
+        # halo_fill a force (the initial one and 100 steps)
+        check(n_fill == 101
               and n_ring == (3 * exchanges if ci == "ki" else 0)
+              and n_pack == (3 * exchanges if ci == "collective" else 0)
               and launches["nl_build"] == 8 * sim.n_nl_build,
-              f"nl sharded {ci}: ring_push {n_ring} for {exchanges} "
-              f"exchanges, halo_fill {launches['halo_fill']}, nl_build "
+              f"nl sharded {ci}: ring_push {n_ring}, atom_pack {n_pack} "
+              f"for {exchanges} exchanges, halo_fill {n_fill}, nl_build "
               f"{launches['nl_build']} for {sim.n_nl_build} builds")
         say("nl sharded main", f"{ci}: initial ePot rel. diff to the serial"
             f" NL run {rel:.3e}, final energy {rel1:.3e}; "
-            f"{sim.ms_step:.3f} ms/step on 8 shards; ring_push {n_ring} "
-            f"({exchanges} atom exchanges), halo_fill 0 (the NL fill is "
-            f"collective), {sim.n_nl_build} builds, row split "
+            f"{sim.ms_step:.3f} ms/step on 8 shards; ring_push {n_ring}, "
+            f"atom_pack {n_pack} ({exchanges} atom exchanges), halo_fill "
+            f"{n_fill} (one a force: the list fill is K3's copies under "
+            f"every transport), {sim.n_nl_build} builds, row split "
             f"{sim.nl_row_split is not None}")
         final[ci] = ([s.r for s in sim.states], sim.e_potential)
         del sim
@@ -2192,6 +2255,15 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
                 check(n_pos == (0, 0), f"{where}: position launches "
                       f"{n_pos} under collective across processes (the "
                       f"staged exchange through the group)")
+                # the fill is the staged exchange through the group; the
+                # atom messages one atom_pack launch a stage
+                n_pack = w["launches"]["atom_pack"]
+                check(w["launches"]["halo_fill"] == 0 and
+                      w["launches"]["halo_fill_stage"] == 0 and
+                      n_pack == 3 * w["rebuckets"],
+                      f"{where}: halo_fill {w['launches']['halo_fill']}, "
+                      f"atom_pack {n_pack} for {w['rebuckets']} rebuckets "
+                      f"under collective across processes")
         if ci == "ki_fused" and n_procs == 2:
             stage_launches = sum(w["launches"]["halo_fill_stage"]
                                  for w in res)
@@ -4211,6 +4283,347 @@ def run_positions(launches: dict) -> dict:
     return {key: row}
 
 
+def pack_case(sim, caps: tuple, fields: list, tag: str) -> float:
+    """Phase 22: atom_pack against atom_pack_plain at each stage of one
+    atom exchange of ``sim``'s mesh from ``fields`` (r, p, gid, n_atoms
+    lists, CUDA tensors) with the per-axis capacities ``caps`` (0: full
+    planes), bit for bit in every buffer and the overflow flag, one launch
+    a stage; the exchange then goes on through the collective stage
+    (exchange.atom_arrivals and the unload), so the later stages pack
+    forwarded ghosts.  Returns the max |diff| of r and p (0)."""
+    import dataclasses
+    import torch
+    from comd_tpu_torch.ops import binning
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.parallel import exchange
+    r, p, gid, n_atoms = (list(f) for f in fields)
+    h = exchange.make_halo(sim.mesh, sim.geom, sim.maps,
+                           dataclasses.replace(sim.plan, atom_cap=caps),
+                           r[0].dtype)
+    S = len(r)
+    ovf = torch.zeros((), dtype=torch.bool, device="cuda")
+    err, counts, flags = 0.0, [], []
+    for axis in range(3):
+        kp, pp = (cm.AtomPackPlan(h.atom_send[axis], caps[axis], S,
+                                  r[0].shape, r[0].dtype, "cuda")
+                  for _ in range(2))
+        fk = torch.zeros((), dtype=torch.bool, device="cuda")
+        fp = torch.zeros((), dtype=torch.bool, device="cuda")
+        before = st.LAUNCHES["atom_pack"]
+        cm.atom_pack(kp, r, p, gid, n_atoms, fk)
+        n_launch = st.LAUNCHES["atom_pack"] - before
+        cm.atom_pack_plain(pp, r, p, gid, n_atoms, fp)
+        torch.cuda.synchronize()
+        same = torch.equal(bits(kp.rp), bits(pp.rp)) and \
+            torch.equal(kp.gid, pp.gid) and \
+            torch.equal(kp.valid, pp.valid) and bool(fk) == bool(fp)
+        err = max(err, float((kp.rp.double() - pp.rp.double()).abs().max()))
+        check(same and n_launch == 1,
+              f"atom_pack {tag} stage {axis}: the kernel against "
+              f"atom_pack_plain: equal {same}, flags {bool(fk)} "
+              f"{bool(fp)}, {n_launch} launches")
+        counts.append(int(pp.valid.sum()))
+        flags.append(bool(fp))
+        arrivals = exchange.atom_arrivals(h, axis, r, p, gid, n_atoms, ovf)
+        binning.append_stage(h.geom, h.maps, r, p, gid, n_atoms, arrivals,
+                             ovf, axis, (-h.ext[axis], h.ext[axis]))
+    say("collective", f"{tag}: atom_pack of {S} shards x 2 faces a stage, "
+        f"caps {caps} ({kp.grid_x} blocks a message): the three stages' "
+        f"buffers and overflow flags equal atom_pack_plain's bit for bit, "
+        f"one launch a stage; valid entries {counts}, overflow {flags}")
+    return err
+
+
+def fold_case(h, x: list, tag: str, maps=None) -> float:
+    """Phase 22: the half-shell fold of the fields ``x`` (CUDA tensors,
+    one a shard) against its plain version bit for bit: on a mesh
+    (``h``) ki_comm.fold_halo_ki (one fold_halo launch a stage) against
+    fold_halo_plain stage by stage over the same plans; serially (``h``
+    None, ``maps`` the geometry's) fold_halo_serial (one launch) against
+    fold_halo_plain; both in place.  Returns the max |diff| (0)."""
+    import torch
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.ops.sweep import fold_plan_serial
+    from comd_tpu_torch.parallel import ki_comm
+    got = [v.clone() for v in x]
+    want = [v.clone() for v in x]
+    before = st.LAUNCHES["fold_halo"]
+    if h is None:
+        plans = [fold_plan_serial(maps, got[0])]
+        cm.fold_halo(plans[0], got)
+    else:
+        plans = [ki_comm.fold_plan(h, axis, got[0]) for axis in (2, 1, 0)]
+        ki_comm.fold_halo_ki(h, got)
+    n_launch = st.LAUNCHES["fold_halo"] - before
+    for plan in plans:
+        cm.fold_halo_plain(plan, want)
+    torch.cuda.synchronize()
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(got, want))
+    same = all(torch.equal(bits(a), bits(b)) for a, b in zip(got, want))
+    check(same and n_launch == len(plans),
+          f"fold {tag}: the kernel against fold_halo_plain: equal {same}, "
+          f"{n_launch} launches for {len(plans)} plans")
+    say("fold", f"{tag}: fold_halo in {n_launch} launch(es) ("
+        + ", ".join(f"{pl.n_entries:,} rows of {pl.n_adds:,} adds, "
+                    f"{pl.vec}-byte moves" for pl in plans)
+        + ") equals fold_halo_plain bit for bit")
+    return err
+
+
+def fold_bytes(plan, x) -> int:
+    """Bytes one fold launch must move: each destination row of every
+    plane read and written, each source row read, the entries and
+    sources."""
+    row = x.shape[-1] * x.element_size() * (x.shape[0] if x.dim() == 3
+                                             else 1)
+    return (2 * plan.n_entries + plan.n_adds) * row + \
+        16 * plan.n_entries + 8 * plan.n_adds
+
+
+def run_collective(launches_coll: dict, launches_half: dict) -> dict:
+    """Phase 22: the collective transport's atom messages (csrc/comm.cu's
+    atom_pack: one launch a stage over every shard and both faces) and the
+    half-shell fold (fold_halo: one launch serially, one a stage on a
+    mesh) against their plain versions, bit for bit: the 63^3 f32 2x2x2
+    state displaced by up to 0.5 A and rebucketed, packed (the plan's
+    caps), full planes and a cap of 64 that overflows; 10^3 f64 on 2x2x2
+    and 2x2x1 (an axis of one shard); the fold of [3, B, A] and [B, A]
+    fields at A = 16 and 13 on those meshes and serially at 20^3 f64 and
+    at the 63^3 --halfShell geometry.  At 63^3 timed (CUDA events, mean
+    of 20; the device's time under torch.profiler): one atom_pack stage
+    beside its plain version, the torch packing it replaces
+    (exchange._atom_message a shard and face) and the byte bound; the
+    serial fold beside its plain version, the clone + index_add_ it
+    replaced (the library form) and the bound; the mesh fold's three
+    stage launches beside the torch exchange.fold_halo; and the
+    collective dfEmbed fill now on halo_fill beside the staged torch fill
+    (exchange.exchange_scalar), the bound and the library form.
+    ``launches_coll``: phase 12's collective run (atom_pack's main path);
+    ``launches_half``: phase 8's --halfShell run (the serial fold's).
+    Returns the kernels-line rows."""
+    import dataclasses
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.sweep import fold_halo_serial, fold_plan_serial
+    from comd_tpu_torch.parallel import exchange, ki_comm
+    from comd_tpu_torch.probes import time_ms
+    n = HEADLINE_N
+    sim = init_simulation(Config(
+        nx=n, ny=n, nz=n, doeam=True, temperature=600.0, dtype="float32",
+        max_atoms=0, cell_mode="auto", pot_dir=POTS, device="cuda",
+        comm_impl="collective", **MESH))
+    caps = sim.plan.atom_cap
+    fields = av_fields(sim, 81, 0.5)
+    pack_err = 0.0
+    for what, c in (("packed", caps), ("full planes", (0, 0, 0)),
+                    ("overflow", (64, 64, 64))):
+        pack_err = max(pack_err, pack_case(
+            sim, c, [[t.clone() for t in f] for f in fields],
+            f"{n}^3 float32 2x2x2 displaced by up to 0.5 A, {what}"))
+    h = sim.halo
+    B, A = sim.geom.n_total, sim.cfg.max_atoms
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    S = len(sim.states)
+
+    def noise(shape, dtype, k=S):
+        return [torch.rand(shape, dtype=dtype, device="cuda",
+                           generator=gen) - 0.5 for _ in range(k)]
+
+    fold_err = 0.0
+    for shape in ((3, B, A), (B, A)):
+        fold_err = max(fold_err, fold_case(
+            h, noise(shape, torch.float32), f"{n}^3 float32 2x2x2 "
+            f"{list(shape)}"))
+    for tag, mesh in (("2x2x2", MESH),
+                      ("2x2x1 (an axis of one shard)",
+                       dict(xproc=2, yproc=2, zproc=1))):
+        small = init_simulation(Config(
+            nx=10, ny=10, nz=10, doeam=True, temperature=600.0,
+            dtype="float64", interp_impl="rows", pot_dir=POTS,
+            device="cuda", comm_impl="collective", **mesh))
+        sf = av_fields(small, 83, 0.5)
+        sc = small.plan.atom_cap
+        for what, c in (("packed", sc), ("full planes", (0, 0, 0)),
+                        ("overflow", (64, 64, 64))):
+            pack_err = max(pack_err, pack_case(
+                small, c, [[t.clone() for t in f] for f in sf],
+                f"10^3 float64 {tag}, {what}"))
+        Bs, As = small.geom.n_total, small.cfg.max_atoms
+        for a in (As, 13):
+            for shape in ((3, Bs, a), (Bs, a)):
+                fold_err = max(fold_err, fold_case(
+                    small.halo, noise(shape, torch.float64,
+                                      len(small.states)),
+                    f"10^3 float64 {tag} {list(shape)}"))
+        del small, sf
+    serial = init_simulation(Config(
+        nx=20, ny=20, nz=20, doeam=True, temperature=600.0,
+        dtype="float64", interp_impl="rows", half_shell=True, pot_dir=POTS,
+        device="cuda"))
+    Bs, As = serial.geom.n_total, serial.cfg.max_atoms
+    for a in (As, 13):
+        for shape in ((3, Bs, a), (Bs, a)):
+            fold_err = max(fold_err, fold_case(
+                None, noise(shape, torch.float64, 1),
+                f"serial 20^3 float64 {list(shape)}", serial.maps))
+    del serial
+    half = init_simulation(Config(
+        nx=n, ny=n, nz=n, doeam=True, temperature=600.0, dtype="float32",
+        max_atoms=0, cell_mode="auto", half_shell=True, pot_dir=POTS,
+        device="cuda"))
+    Bh, Ah = half.geom.n_total, half.cfg.max_atoms
+    fold_err = max(fold_err, fold_case(
+        None, noise((3, Bh, Ah), torch.float32, 1),
+        f"serial {n}^3 float32 --halfShell [3, {Bh}, {Ah}]", half.maps))
+
+    rows = {}
+    # atom_pack: one stage at the 63^3 packed state (mean of the three)
+    r, p, gid, n_atoms = fields
+    plans = [exchange.pack_plan(h, axis, r[0]) for axis in range(3)]
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+
+    def packs(fn):
+        for pl in plans:
+            fn(pl, r, p, gid, n_atoms, flag)
+
+    ms = time_ms(lambda: packs(cm.atom_pack), 20) / 3
+    host, dev = (t / 3 for t in host_and_device_ms(
+        lambda: packs(cm.atom_pack), kernels_per_call=3))
+    g_ms = graph_ms(lambda: packs(cm.atom_pack)) / 3
+    plain_ms = time_ms(lambda: packs(cm.atom_pack_plain), 20) / 3
+
+    def torch_pack():
+        for axis in range(3):
+            for s in range(S):
+                for d in (0, 1):
+                    exchange._atom_message(h, axis, d, r[s], p[s], gid[s],
+                                           n_atoms[s])
+
+    torch_ms = time_ms(torch_pack, 20) / 3
+    torch_ops, torch_dev = max(device_ops(torch_pack))
+    packs(cm.atom_pack)
+    torch.cuda.synchronize()
+    esize = r[0].element_size()
+    nbytes = 0
+    for pl in plans:
+        real = int(pl.valid.sum())
+        nbytes += 2 * S * 2 * 4 * pl.n_cells      # ids and counts
+        nbytes += real * (6 * esize + 4) if pl.cap else \
+            2 * S * pl.n_out * (6 * esize + 4)
+        nbytes += 2 * S * pl.n_out * (6 * esize + 4 + 1)
+    b_ms = 1e3 * nbytes / 3 / PEAK_BYTES
+    say("timing", f"atom_pack, one stage's messages of the {n}^3 f32 2x2x2 "
+        f"displaced state ({S} shards x 2 faces, caps {caps}, "
+        f"{plans[0].n_cells} cells a face, {plans[0].grid_x} blocks a "
+        f"message; mean of the 3 stages): {ms:.5f} ms (CUDA events, mean of "
+        f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
+        f"(torch.profiler); {g_ms:.5f} ms a launch replayed in a graph; "
+        f"plain version {plain_ms:.4f} ms; the torch packing it replaces "
+        f"(exchange._atom_message a shard and face) {torch_ms:.4f} ms, "
+        f"{torch_ops / 3:.0f} device operations and {torch_dev / 3:.5f} ms "
+        f"of device time a stage; bound {b_ms:.5f} ms (bytes: "
+        f"{nbytes / 3 / 1e6:.3f} MB a stage, the real entries read once, "
+        f"every output entry written once, the cells' ids and counts); no "
+        f"single PyTorch call packs a message (a compaction of four "
+        f"fields of three shapes by a running count)")
+    key = "atom_pack"
+    check(launches_coll[key] > 0, "collective: no atom_pack launch in phase "
+          "12's collective run")
+    rows[key] = {"name": key, "route": "cuda", "source": COMM_SOURCE,
+                 "replaces": REPLACES[key], "launches": launches_coll[key],
+                 "max_abs_err": pack_err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None,
+                 "device_ms": dev, "graph_ms": g_ms, "torch_ms": torch_ms,
+                 "torch_ops": torch_ops / 3}
+
+    # the serial fold at the 63^3 --halfShell geometry, [3, B, A] f32
+    x0 = noise((3, Bh, Ah), torch.float32, 1)[0]
+    work = x0.clone()
+    fplan = fold_plan_serial(half.maps, work)
+    fn = (lambda: cm.fold_halo(fplan, [work]))
+    ms = time_ms(fn, 20)
+    host, dev = host_and_device_ms(fn, kernels_per_call=1)
+    g_ms = graph_ms(fn)
+    plain_ms = time_ms(lambda: cm.fold_halo_plain(fplan, [work]), 20)
+    nl = half.geom.n_local
+    src = half.maps.halo_src
+
+    def index_add():
+        return work[:, :nl].clone().index_add_(1, src, work[:, nl:])
+
+    lib_ms = time_ms(index_add, 20)
+    work.copy_(x0)
+    lib = index_add()
+    got = fold_halo_serial(half.geom, half.maps, work)
+    torch.cuda.synchronize()
+    lib_diff = float((lib.double() - got.double()).abs().max())
+    nbytes = fold_bytes(fplan, work)
+    b_ms = 1e3 * nbytes / PEAK_BYTES
+    say("timing", f"fold_halo, the serial fold of the {n}^3 f32 --halfShell "
+        f"force [3, {Bh}, {Ah}] ({fplan.n_entries:,} local rows of "
+        f"{fplan.n_adds:,} halo images, {fplan.vec}-byte moves): {ms:.5f} ms "
+        f"(CUDA events, mean of 20); host {host:.4f} ms a call, device "
+        f"{dev:.5f} ms (torch.profiler); {g_ms:.5f} ms a launch replayed in "
+        f"a graph; plain version {plain_ms:.4f} ms; the library form it "
+        f"replaced (clone + index_add_, f32 atomics in run-to-run order; "
+        f"{lib_diff:.3e} from the kernel) {lib_ms:.5f} ms; bound {b_ms:.5f} "
+        f"ms (bytes: {nbytes / 1e6:.3f} MB)")
+    key = "fold_halo"
+    check(launches_half[key] > 0, "fold: no fold_halo launch in phase 8's "
+          "--halfShell run")
+    rows[key] = {"name": key, "route": "cuda", "source": COMM_SOURCE,
+                 "replaces": REPLACES[key], "launches": launches_half[key],
+                 "max_abs_err": fold_err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": b_ms, "bound_by": "bytes", "library_ms": lib_ms,
+                 "device_ms": dev, "graph_ms": g_ms}
+    del half, x0, work, lib, got
+
+    # the mesh fold at 63^3 2x2x2 ([3, B, A] f32): three stage launches
+    xs = noise((3, B, A), torch.float32)
+    fn = (lambda: ki_comm.fold_halo_ki(h, xs))
+    ms = time_ms(fn, 20)
+    host, dev = host_and_device_ms(fn, kernels_per_call=3)
+    torch_ms = time_ms(lambda: exchange.fold_halo(h, xs), 20)
+    torch_ops, torch_dev = max(device_ops(lambda: exchange.fold_halo(h, xs)))
+    nbytes = sum(fold_bytes(ki_comm.fold_plan(h, axis, xs[0]), xs[0])
+                 for axis in range(3))
+    say("timing", f"fold_halo, the mesh fold of the {n}^3 f32 2x2x2 force "
+        f"[3, {B}, {A}] a shard (three stage launches): {ms:.5f} ms (CUDA "
+        f"events, mean of 20); host {host:.4f} ms a call, device {dev:.5f} "
+        f"ms (torch.profiler); the torch exchange.fold_halo it replaces "
+        f"{torch_ms:.4f} ms, {torch_ops} device operations, "
+        f"{torch_dev:.5f} ms of device time; bound "
+        f"{1e3 * nbytes / PEAK_BYTES:.5f} ms (bytes)")
+
+    # collective's dfEmbed fill, now one halo_fill launch
+    x = noise((B, A), torch.float32)
+    fplan = ki_comm.fill_plan(h, x[0])
+    fn = (lambda: ki_comm.exchange_scalar_ki(h, x))
+    ms = time_ms(fn, 20)
+    host, dev = host_and_device_ms(fn, kernels_per_call=1)
+    torch_ms = time_ms(lambda: exchange.exchange_scalar(h, x), 20)
+    torch_ops, torch_dev = max(device_ops(
+        lambda: exchange.exchange_scalar(h, x)))
+    lib_ms, lib_err = fill_library(fplan, x)
+    check(lib_err == 0, f"collective fill: index_select on the composed "
+          f"index is {lib_err:.3e} from halo_fill")
+    say("timing", f"collective fill on halo_fill (one launch, K3's copies; "
+        f"{launches_coll['halo_fill']} launches in phase 12's collective "
+        f"run): {ms:.5f} ms (CUDA events, mean of 20); host {host:.4f} ms a "
+        f"call, device {dev:.5f} ms (torch.profiler); the staged torch fill "
+        f"it replaces (exchange.exchange_scalar) {torch_ms:.4f} ms, "
+        f"{torch_ops} device operations, {torch_dev:.5f} ms of device time; "
+        f"bound {fill_bound(fplan)[0]:.6f} ms (bytes); library form (one "
+        f"index_select on the composed index) {lib_ms:.5f} ms")
+    del sim, h, fields, xs, x
+    torch.cuda.empty_cache()
+    return rows
+
+
 def check_k1_bits(r, nbr, ev, dfe, tag: str) -> None:
     """K1 pass 1 (with and without energy) and pass 3: two launches give
     the same bits."""
@@ -4416,9 +4829,18 @@ def main() -> int:
     # eV/A (f32, the two differ by summation order only)
     d_init = []
     sim, launches = run_main("half main", ("half_eam_pass1",
-                                           "half_eam_pass3"),
+                                           "half_eam_pass3", "fold_halo"),
                              on_init=lambda x: d_init.append(half_vs_full(x)),
                              doeam=True, half_shell=True)
+    launches_half = launches
+    # the serial fold: one fold_halo launch a fold, rhobar and the force
+    # every force, phi also on the 10 energy steps and the initial force
+    want = 2 * 101 + 11
+    check(launches["fold_halo"] == want, f"half main: fold_halo launched "
+          f"{launches['fold_halo']} times, not {want}")
+    say("half main", f"fold_halo launched {launches['fold_halo']} times: "
+        f"one a fold (rhobar and the force every force, phi on the 11 "
+        f"energy forces)")
     d_final = half_vs_full(sim)
     check(max(d_init[0], d_final) <= 1e-4, f"half vs full force: initial "
           f"{d_init[0]:.3e}, final {d_final:.3e}")
@@ -4489,8 +4911,7 @@ def main() -> int:
     final, launches, one_proc = {}, {}, {}
     steps = 100                          # run_main's 10 x step_block(10)
     for ci in ("ki_fused", "ki", "collective"):
-        keys = ("eam_pass1", "eam_pass3") + (
-            ("halo_fill",) if ci != "collective" else ())
+        keys = ("eam_pass1", "eam_pass3", "halo_fill")
         e0 = []
         sim, launches[ci] = run_main(
             f"sharded main {ci}", keys, doeam=True, comm_impl=ci,
@@ -4501,20 +4922,27 @@ def main() -> int:
         say("sharded main", f"{ci}: initial ePot rel. diff to the serial "
             f"run {rel:.3e}; {sim.ms_step:.3f} ms/step on 8 shards against "
             f"{serial_ms:.3f} serial (phase 5)")
-        if ci != "collective":
-            n_fill = launches[ci]["halo_fill"]
-            n_ring = launches[ci]["ring_push"]
-            exchanges = sim.n_rebucket + 1   # the rebuckets and the first
-            check(n_fill == steps + 1,
-                  f"sharded {ci}: {n_fill} fill launches for the initial "
-                  f"force and {steps} steps, not one a force")
-            check(n_ring == 3 * exchanges,
-                  f"sharded {ci}: {n_ring} ring_push launches for "
-                  f"{exchanges} atom exchanges, not three each")
-            say("sharded main", f"{ci}: halo_fill launched {n_fill} times "
-                f"(one a force: the initial one and every step), ring_push "
-                f"{n_ring} times ({exchanges} atom exchanges, three "
-                f"stages each)")
+        # every transport fills dfEmbed with one halo_fill a force (the
+        # initial one and every step); an atom exchange is three ring_push
+        # launches under ki and ki_fused, three atom_pack under collective
+        n_fill = launches[ci]["halo_fill"]
+        exchanges = sim.n_rebucket + 1   # the rebuckets and the first
+        stage_key = "atom_pack" if ci == "collective" else "ring_push"
+        other = "ring_push" if ci == "collective" else "atom_pack"
+        n_stage = launches[ci][stage_key]
+        check(n_fill == steps + 1,
+              f"sharded {ci}: {n_fill} fill launches for the initial "
+              f"force and {steps} steps, not one a force")
+        check(n_stage == 3 * exchanges and launches[ci][other] == 0 and
+              launches[ci]["fold_halo"] == 0,
+              f"sharded {ci}: {n_stage} {stage_key} launches for "
+              f"{exchanges} atom exchanges, not three each ({other} "
+              f"{launches[ci][other]}, fold_halo "
+              f"{launches[ci]['fold_halo']})")
+        say("sharded main", f"{ci}: halo_fill launched {n_fill} times "
+            f"(one a force: the initial one and every step), {stage_key} "
+            f"{n_stage} times ({exchanges} atom exchanges, three stages "
+            f"each), {other} 0")
         exchanges = sim.n_rebucket + 1
         got = {k: launches[ci][k] for k in ARRIVALS_KEYS}
         want = {"arrivals_bin": 3 * exchanges,
@@ -4665,6 +5093,9 @@ def main() -> int:
                                            method="thread_atom_nl"), 10),
             ("EAM 2x2x2 ki_fused", dict(doeam=True, comm_impl="ki_fused",
                                         **MESH), 10),
+            ("EAM 2x2x2 collective", dict(doeam=True,
+                                          comm_impl="collective", **MESH),
+             10),
             ("-S 0 EAM K1", dict(doeam=True, lazy_shell=False), 10),
             ("-S 0 EAM 2x2x2 ki_fused -a 0", dict(
                 doeam=True, lazy_shell=False, comm_impl="ki_fused",
@@ -4688,6 +5119,26 @@ def main() -> int:
         f"per atom {half['graphs']['e_atom'][0]:.12f}, "
         f"{half['graphs']['e_atom'][1]:.12f}; printed digits "
         f"{gap:.1e} eV/atom from the eager loop's")
+    # --halfShell on the 2x2x2 mesh: the folds are fold_halo's stage
+    # launches (deterministic); K2's atomics still order its f64 sums
+    # run by run, so the bits are reported and the printed digits held
+    tag = "EAM --halfShell f64 20^3 2x2x2 collective"
+    half = graph_vs_eager(tag, n=20, dtype="float64", blocks=2, doeam=True,
+                          half_shell=True, comm_impl="collective", **MESH)
+    say_graph_vs_eager(tag, half, bitwise=False)
+    gap = max(abs(float(f"{a:.12f}") - float(f"{b:.12f}"))
+              for a, b in zip(half["eager"]["e_atom"],
+                              half["graphs"]["e_atom"]))
+    folds = {m: half[m]["launches"].get("fold_halo", 0) / half[m]["steps"]
+             for m in ("eager", "graphs")}
+    check(gap <= 1.5e-12 and folds["eager"] >= 6,
+          f"{tag}: printed energies {gap:.3e} eV/atom apart, fold_halo "
+          f"launches a step {folds}")
+    same = (half["eager"]["digest"] == half["graphs"]["digest"] and
+            half["eager"]["e_pot"] == half["graphs"]["e_pot"])
+    say("graphs", f"{tag}: printed digits {gap:.1e} eV/atom from the eager "
+        f"loop's; final r and ePot bit for bit equal: {same}; fold_halo "
+        f"launches a step {folds} (three stages a fold)")
 
     # 19. the step's small ops (csrc/step.cu) against their plain versions
     rows.update(run_step_ops(headline, launches_main))
@@ -4700,13 +5151,18 @@ def main() -> int:
     # 21. the mesh's ghost-position refresh (csrc/comm.cu position_fill)
     rows.update(run_positions(launches["ki_fused"]))
 
+    # 22. the collective atom messages and the half-shell fold
+    # (csrc/comm.cu atom_pack, fold_halo)
+    rows.update(run_collective(launches["collective"], launches_half))
+
     kernels = [rows[k] for k in ("eam_pass1", "eam_pass3", "lj",
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
                + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
                + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS
-               + ARRIVALS_KEYS + ("position_fill",)]
+               + ARRIVALS_KEYS + ("position_fill", "atom_pack",
+                                  "fold_halo")]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

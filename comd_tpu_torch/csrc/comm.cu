@@ -1,10 +1,12 @@
 // Kernel-initiated halo transports for Hopper (sm_90a): the dfEmbed halo
 // fill (K3's plane pushes and K4's fused F'(rhobar) push: one launch a fill
 // in one process, one a stage across processes), the atom exchange's
-// stage push (K3, one launch a stage) and the mesh's ghost-position
-// refresh (one launch a refresh in one process, one a stage across
-// processes); across processes, the receive-plane arena shared by CUDA IPC
-// and the stream-ordered ready counters.
+// stage push (K3, one launch a stage), the mesh's ghost-position refresh
+// (one launch a refresh in one process, one a stage across processes), the
+// collective transport's count-packed atom messages (one launch a stage)
+// and the half-shell fold (one launch serially, one a stage on a mesh);
+// across processes, the receive-plane arena shared by CUDA IPC and the
+// stream-ordered ready counters.
 //
 // What they replace.  comd_tpu/parallel/pallas_comm.py::_ring_push_kernel
 // (K3, driven by _ring_push) remote-copies one plane to the +-1 ring
@@ -76,6 +78,41 @@
 // the staged version's bits.  A zero sign adds nothing (x + 0 would turn
 // -0 into +0).
 //
+// atom_pack_kernel: the atom messages of one stage of the collective
+// transport, for every shard and both faces.  It replaces no Pallas
+// kernel: comd_tpu packs them in XLA (parallel/exchange.py:186-210, the
+// reference's on-device size scan and packed AtomMsg, gpu_kernels.cu:
+// 684-690); the port's parallel/exchange.py::_atom_message is the plain
+// reference.  Message (d, s) is the cells ids[d] of shard s's two send
+// planes of face d.  Count-packed (cap > 0): the real slots (slot <
+// n_atoms[cell]), in cell order and then slot order, go to entries 0, 1,
+// ... of [cap] (r and p as one [6, cap] buffer, gid, valid = k < count),
+// entries past cap are dropped and `count > cap` is or-ed into the
+// overflow flag; the entries past the count are zero, EMPTY_GID and
+// invalid.  Full planes (cap = 0): every slot of every cell, entry c * A +
+// slot, valid where the slot is real.  Work split: a grid of (cell chunks,
+// messages); a block takes kPackCells cells of one message, sums the
+// counts of the message's cells before its chunk and in all (every block
+// reads them: a few thousand words from L2, so that no block waits on
+// another), scans its own chunk's counts in one warp, copies its cells'
+// real slots (consecutive threads on consecutive slots of a cell) and
+// writes its share of the message's valid flags and empty tail.
+//
+// fold_halo_kernel: the half-shell fold, halo rows added into their owner
+// rows.  It replaces no Pallas kernel: comd_tpu folds with XLA scatter-adds
+// (ops/sweep.py:615 fold_halo_serial; parallel/exchange.py:270 fold_halo,
+// three stages z, y, x of ppermutes and adds).  A launch follows a fold
+// plan: entries (destination shard, row, first source, end), each with its
+// sources (shard, row) in add order; the entry's row of every plane gets
+// ((x + s0) + s1) + ..., each add rounded alone, the order of the CPU
+// index_add_ (serially the images in ascending halo row; on a mesh the
+// plus neighbor's rows before the minus neighbor's).  One launch serially;
+// one a stage on a mesh (a stage adds rows an earlier stage summed, so the
+// stages are not composed: flattening would change the rounding).  No row
+// a launch reads is a row it writes (halo rows in the stage's axis against
+// local ones), so a launch needs no barrier, and a destination is one
+// entry, so no atomics: the same bits every launch.
+//
 // Ordering in one process.  Every shard lives on one device and every
 // launch goes on PyTorch's current stream, after the kernels that wrote the
 // source rows and before those that read the destination, so stream order
@@ -105,7 +142,8 @@
 // waits.
 //
 // Bound: bytes.  The kernels move each word once (the fused stage also
-// reads its ~4 KB table from cache) with a few integer operations a word;
+// reads its ~4 KB table from cache; atom_pack also the counts) with a few
+// integer operations a word;
 // a fill moves ~3 MB over the 8 shards of the 63^3 headline, ~1 us at
 // 3.35 TB/s, so latency, the two barriers and the launch set its time; a
 // position refresh moves ~9.3 MB there (23,248 halo rows of 3 x 64 bytes,
@@ -140,6 +178,8 @@ constexpr int kMaxShards = 64;   // shards a launch
 constexpr int kMaxPlanes = 2 * kMaxShards;  // receive planes a launch
 constexpr int kMaxStages = 3;    // stages a fill
 constexpr int kMaxFields = 4;    // fields a ring_push launch
+constexpr int kPackCells = 128;  // cells a block of atom_pack
+constexpr int kEmptyGid = 0x7fffffff;   // ops/binning.py EMPTY_GID
 constexpr int kMaxDevices = 64;  // devices the co-residency cache holds
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -217,6 +257,48 @@ struct PositionArgs {
   const int* map;        // [n_rows, 4], 16-byte aligned
   void* x[kMaxShards];   // shard s's [3, B, A] positions
   void* plane[kMaxPlanes];   // receive plane p, [3, n, A]
+};
+
+// One stage's atom messages of the collective transport: message (d, s),
+// d = 0 the minus face and 1 the plus face, s a shard, at entry (d * S + s)
+// of the outputs.
+struct AtomPackArgs {
+  int n_shards;          // S
+  int n_cells;           // cells of a face's two send planes
+  int row_elems;         // A: slots a cell
+  int n_rows;            // B: cells of a shard's fields
+  int cap;               // entries a packed message; 0: full planes
+  int n_out;             // entries a message: cap, or n_cells * A
+  int elem_bytes;        // 4 (float) or 8 (double)
+  int grid_x;            // blocks a message
+  int device;            // the CUDA device of the launch
+  const int* ids[2];     // [d]: the face's send cells (box ids)
+  const void* r[kMaxShards];       // shard s's [3, B, A] positions
+  const void* p[kMaxShards];       // shard s's [3, B, A] momenta
+  const int* gid[kMaxShards];      // shard s's [B, A] gids
+  const int* n_atoms[kMaxShards];  // shard s's [B] counts
+  void* rp;              // [2, S, 6, n_out]: r's three rows, then p's
+  int* gid_out;          // [2, S, n_out]
+  bool* valid;           // [2, S, n_out]
+  bool* overflow;        // 0-dim, or-ed (packed)
+};
+
+// One fold launch: entry k is four ints (destination shard, its row, the
+// first of its sources, the end of them), source j two (shard, row).
+struct FoldArgs {
+  int n_shards;          // S: the launch's fields x[0..S-1]
+  int n_entries;         // destination rows
+  int n_planes;          // P: planes of a field ([P, B, A]; [B, A]: 1)
+  int elem_bytes;        // 4 (float) or 8 (double)
+  int vec_bytes;         // 16, 8 or 4: the moves
+  int row_vecs;          // moves a row (A slots)
+  int lg;                // log2 of the lanes a row
+  int grid_x;            // blocks
+  int device;            // the CUDA device of the launch
+  long long plane_vecs;  // moves from a plane of a field to the next
+  const int* entry;      // [n_entries, 4], 16-byte aligned
+  const int* src;        // [sources, 2], 8-byte aligned
+  void* x[kMaxShards];   // shard s's [P, B, A] field
 };
 
 namespace {
@@ -401,6 +483,165 @@ cudaError_t launch_positions(const PositionArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+__device__ __forceinline__ int clamp_count(int n, int A) {
+  return n < 0 ? 0 : (n > A ? A : n);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    atom_pack_kernel(const __grid_constant__ AtomPackArgs a) {
+  __shared__ int box_s[kPackCells], cnt_s[kPackCells], off_s[kPackCells];
+  __shared__ int part_s[kWarps][2];
+  __shared__ int base_s, count_s;
+  const int m = blockIdx.y;                 // message d * S + s
+  const int d = m >= a.n_shards ? 1 : 0;
+  const int s = m - d * a.n_shards;
+  const int* ids = a.ids[d];
+  const int* n_atoms = a.n_atoms[s];
+  const int A = a.row_elems;
+  const int first = blockIdx.x * kPackCells;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bool packed = a.cap > 0;
+  if (packed) {   // the message's counts before this chunk, and in all
+    int before = 0, total = 0;
+    for (int c = threadIdx.x; c < a.n_cells; c += kThreads) {
+      const int n = clamp_count(n_atoms[ids[c]], A);
+      total += n;
+      if (c < first) before += n;
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      before += __shfl_xor_sync(0xffffffffu, before, o);
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+    }
+    if (lane == 0) {
+      part_s[warp][0] = before;
+      part_s[warp][1] = total;
+    }
+  }
+  if (warp == 0) {   // this chunk: boxes, counts, offsets (one warp scan)
+    constexpr int kPer = kPackCells / 32;
+    int n[kPer], sum = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int c = first + lane * kPer + i;
+      const int box = c < a.n_cells ? ids[c] : 0;
+      n[i] = c < a.n_cells ? clamp_count(n_atoms[box], A) : 0;
+      box_s[lane * kPer + i] = box;
+      cnt_s[lane * kPer + i] = n[i];
+      sum += n[i];
+    }
+    int inc = sum;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, inc, o);
+      if (lane >= o) inc += v;
+    }
+    int off = inc - sum;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      off_s[lane * kPer + i] = off;
+      off += n[i];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int before = 0, total = 0;
+    if (packed)
+      for (int w = 0; w < kWarps; ++w) {
+        before += part_s[w][0];
+        total += part_s[w][1];
+      }
+    base_s = before;
+    count_s = total;
+  }
+  __syncthreads();
+  const int base = base_s, count = count_s;
+  const long long n_out = a.n_out;
+  const long long plane = static_cast<long long>(a.n_rows) * A;
+  T* rp = static_cast<T*>(a.rp) + static_cast<long long>(m) * 6 * n_out;
+  int* gid_out = a.gid_out + m * n_out;
+  bool* valid = a.valid + m * n_out;
+  const T* r = static_cast<const T*>(a.r[s]);
+  const T* p = static_cast<const T*>(a.p[s]);
+  const int* gid = a.gid[s];
+  const int here = min(kPackCells, a.n_cells - first);
+  for (int i = threadIdx.x; i < here * A; i += kThreads) {
+    const int c = i / A;
+    const int slot = i - c * A;
+    const int n = cnt_s[c];
+    long long k;
+    if (packed) {
+      if (slot >= n) continue;
+      k = static_cast<long long>(base) + off_s[c] + slot;
+      if (k >= a.cap) continue;
+    } else {
+      k = static_cast<long long>(first + c) * A + slot;
+      valid[k] = slot < n;
+    }
+    const long long from = static_cast<long long>(box_s[c]) * A + slot;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) {
+      rp[q * n_out + k] = r[q * plane + from];
+      rp[(3 + q) * n_out + k] = p[q * plane + from];
+    }
+    gid_out[k] = gid[from];
+  }
+  if (packed) {   // this block's share of the valid flags and the tail
+    const int per = (a.cap + gridDim.x - 1) / gridDim.x;
+    const int lo = blockIdx.x * per;
+    const int hi = min(a.cap, lo + per);
+    for (int k = lo + threadIdx.x; k < hi; k += kThreads) {
+      valid[k] = k < count;
+      if (k >= count) {
+#pragma unroll
+        for (int q = 0; q < 6; ++q) rp[q * n_out + k] = T(0);
+        gid_out[k] = kEmptyGid;
+      }
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0 && count > a.cap)
+      *a.overflow = true;
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+    fold_halo_kernel(const __grid_constant__ FoldArgs a) {
+  using V = Pack<T, N>;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane & ((1 << a.lg) - 1);
+  const int rows_per_warp = 32 >> a.lg;
+  const int stride = gridDim.x * kWarps * rows_per_warp;
+  const int4* entry = reinterpret_cast<const int4*>(a.entry);
+  const int2* src = reinterpret_cast<const int2*>(a.src);
+  for (int k = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * rows_per_warp +
+               (lane >> a.lg);
+       k < a.n_entries; k += stride) {
+    const int4 e = entry[k];
+    V* into = static_cast<V*>(a.x[e.x]) +
+              static_cast<long long>(e.y) * a.row_vecs;
+    for (int q = 0; q < a.n_planes; ++q) {
+      const long long at = q * a.plane_vecs;
+      for (int w = sub; w < a.row_vecs; w += 1 << a.lg) {
+        V acc = into[at + w];
+        for (int j = e.z; j < e.w; ++j) {
+          const int2 f = src[j];
+          const V v = (static_cast<const V*>(a.x[f.x]) +
+                       static_cast<long long>(f.y) * a.row_vecs)[at + w];
+#pragma unroll
+          for (int i = 0; i < N; ++i) acc.v[i] = add_rn(acc.v[i], v.v[i]);
+        }
+        into[at + w] = acc;
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+cudaError_t launch_fold(const FoldArgs& a, cudaStream_t stream) {
+  fold_halo_kernel<T, N>
+      <<<static_cast<unsigned>(a.grid_x), kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // Makes `device` current for the launch and puts the caller's back.
 struct DeviceGuard {
   int prev = -1;
@@ -574,6 +815,60 @@ int comd_position_fill(const PositionArgs* a, void* stream) {
   else
     err = a->vec_bytes == 16 ? launch_positions<double, 2>(*a, st)
                              : launch_positions<double, 1>(*a, st);
+  return static_cast<int>(err);
+}
+
+// One stage's atom messages (collective).  Returns the launch's
+// cudaError_t.
+int comd_atom_pack(const AtomPackArgs* a, void* stream) {
+  if (a == nullptr || a->n_shards < 1 || a->n_shards > kMaxShards ||
+      a->n_cells < 1 || a->row_elems < 1 || a->n_rows < 1 || a->cap < 0 ||
+      a->n_out != (a->cap > 0 ? a->cap : a->n_cells * a->row_elems) ||
+      a->grid_x != (a->n_cells + kPackCells - 1) / kPackCells ||
+      (a->elem_bytes != 4 && a->elem_bytes != 8) || a->ids[0] == nullptr ||
+      a->ids[1] == nullptr || a->rp == nullptr || a->gid_out == nullptr ||
+      a->valid == nullptr || (a->cap > 0 && a->overflow == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int s = 0; s < a->n_shards; ++s)
+    if (a->r[s] == nullptr || a->p[s] == nullptr || a->gid[s] == nullptr ||
+        a->n_atoms[s] == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(a->device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  const dim3 grid(static_cast<unsigned>(a->grid_x),
+                  static_cast<unsigned>(2 * a->n_shards));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a->elem_bytes == 4)
+    atom_pack_kernel<float><<<grid, kThreads, 0, st>>>(*a);
+  else
+    atom_pack_kernel<double><<<grid, kThreads, 0, st>>>(*a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One fold launch (the serial fold, or one stage of the mesh's).  Returns
+// the launch's cudaError_t.
+int comd_fold_halo(const FoldArgs* a, void* stream) {
+  if (a == nullptr || a->n_shards < 1 || a->n_shards > kMaxShards ||
+      a->n_entries < 1 || a->n_planes < 1 || a->row_vecs < 1 ||
+      !lg_ok(a->lg) || a->grid_x < 1 || a->entry == nullptr ||
+      a->src == nullptr || a->plane_vecs < a->row_vecs ||
+      (a->elem_bytes != 4 && a->elem_bytes != 8) ||
+      (a->vec_bytes != 4 && a->vec_bytes != 8 && a->vec_bytes != 16) ||
+      a->vec_bytes < a->elem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  for (int s = 0; s < a->n_shards; ++s)
+    if (a->x[s] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  DeviceGuard guard(a->device);
+  if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a->elem_bytes == 4)
+    err = a->vec_bytes == 16  ? launch_fold<float, 4>(*a, st)
+          : a->vec_bytes == 8 ? launch_fold<float, 2>(*a, st)
+                              : launch_fold<float, 1>(*a, st);
+  else
+    err = a->vec_bytes == 16 ? launch_fold<double, 2>(*a, st)
+                             : launch_fold<double, 1>(*a, st);
   return static_cast<int>(err);
 }
 

@@ -69,12 +69,15 @@ class ImageMap:
     three, at a corner seven (more on an axis of one or two cells).  The
     step's trigger kernel writes them (ops/cuda/step.kick_drift_trigger's
     ``images``); its plain version refreshes through ``halo_src`` and
-    ``halo_shift``, the maps' own."""
+    ``halo_shift``, the maps' own.  The half-shell fold's plans over it
+    (ops/sweep.fold_halo_serial) are kept in ``fold_plans``, one a field
+    shape."""
     start: torch.Tensor         # [n_local + 1] int32
     row: torch.Tensor           # [n_halo] int32
     shift: torch.Tensor         # [n_halo, 3] dynamics dtype
     halo_src: torch.Tensor      # [n_halo] int64 (GeomMaps.halo_src)
     halo_shift: torch.Tensor    # [n_halo, 3] (GeomMaps.halo_shift)
+    fold_plans: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def n_local(self) -> int:

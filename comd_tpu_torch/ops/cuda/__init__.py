@@ -12,6 +12,9 @@ LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             # the mesh's ghost-position refresh: whole, or a stage across
             # processes
             "position_fill": 0, "position_fill_stage": 0,
+            # the collective transport's atom messages (one a stage) and
+            # the half-shell fold (serial, or one a stage on a mesh)
+            "atom_pack": 0, "fold_halo": 0,
             "window_pair": 0, "row_lookup": 0, "lane_lookup": 0,
             # the -P spline and -I LJ-table variants of K1, K2 and NL2
             "spline_eam_pass1": 0, "spline_eam_pass3": 0,

@@ -18,9 +18,20 @@ Three kernels, one source (csrc/comm.cu), one build:
   step) as one launch over a row map, in one process the three stages
   composed (parallel/exchange.py::position_map), across processes one
   stage (ki_comm.py).
+- ``atom_pack`` replaces no Pallas kernel: the collective transport's atom
+  messages of one stage (comd_tpu's XLA packing, parallel/exchange.py:
+  186-210; the port's exchange._atom_message is the plain reference), every
+  shard and both faces in one launch, count-packed or full planes, into
+  buffers the plan keeps.
+- ``fold_halo`` replaces no Pallas kernel: the half-shell fold (comd_tpu's
+  ops/sweep.py:615 fold_halo_serial and parallel/exchange.py:270
+  fold_halo, XLA scatter-adds), halo rows added into their owner rows in
+  place over a fold plan, one launch serially and one a stage on a mesh.
 
 Each launch follows a plan made once (``FillPlan``, ``PushPlan``,
-``PositionPlan``; parallel/ki_comm.py caches them on the ``Halo``): the
+``PositionPlan``, ``AtomPackPlan``, ``FoldPlan``; parallel/ki_comm.py and
+parallel/exchange.py cache them on the ``Halo``, ops/sweep.py the serial
+fold's on the geometry's image map): the
 row lists and the destination maps on the device, the fields' shapes,
 each field's vector width and the launch grid, checked against the
 kernels' limits when the plan is made, and a ctypes argument struct that
@@ -40,12 +51,17 @@ What bounds the kernels on the card: bytes (copies, and a copy with a short
 table read per value); at the mesh's sizes, latency and the launch.
 
 Beside each kernel sits its plain PyTorch version (``*_plain``: an index
-gather plus a scatter a shard and direction).  The wrappers take it only
-for tensors on the CPU; a CUDA tensor launches the kernel or raises.
+gather plus a scatter a shard and direction; the pack's a compaction by
+cumulative sums over the stacked shards; the fold's adds image rank by
+image rank, each rank's destinations distinct, so it gives the same bits
+on any device).  The wrappers take it only for tensors on the CPU; a CUDA
+tensor launches the kernel or raises.
 ``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "halo_fill"
 (a whole fill in one launch, or K4 alone), "halo_fill_stage" (one stage of
-a fill across processes), "ring_push", "position_fill" (a whole refresh)
-and "position_fill_stage" (one stage of a refresh across processes).
+a fill across processes), "ring_push", "position_fill" (a whole refresh),
+"position_fill_stage" (one stage of a refresh across processes),
+"atom_pack" (one stage's messages) and "fold_halo" (the serial fold, or
+one stage of the mesh's).
 """
 from __future__ import annotations
 
@@ -57,6 +73,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import binning
 from ...potentials.tables import EmbedTable
 from . import LAUNCHES
 from .nvcc import CSRC, build_library
@@ -67,6 +84,7 @@ MAX_STAGES = 3      # stages a fill (kMaxStages)
 MAX_FIELDS = 4      # fields a ring_push launch (kMaxFields)
 MAX_PLANES = 2 * MAX_SHARDS   # receive planes a launch (kMaxPlanes)
 WARPS = 8           # warps a block (kThreads / 32)
+PACK_CELLS = 128    # cells a block of atom_pack (kPackCells)
 
 
 # --------------------------------------------------------------------------
@@ -492,6 +510,157 @@ class PositionPlan:
             self.ref = ctypes.byref(a)
 
 
+class AtomPackPlan:
+    """The launch plan of one stage's atom messages of the collective
+    transport, and the buffers they are written into.
+
+    ``ids``: the two faces' send cells (int32 device vectors of one
+    length, d = 0 the minus face); ``cap``: entries a count-packed message
+    (0: full planes, n_cells * A entries); every shard's positions and
+    momenta [3, B, A] of ``dtype``.  Buffers, made once: ``rp`` [2, S, 6,
+    n_out] (r's three rows, then p's), ``gid`` [2, S, n_out] int32, ``valid``
+    [2, S, n_out] bool, message (d, s) at [d, s]."""
+
+    def __init__(self, ids, cap: int, n_shards: int, shape, dtype, device):
+        device = _device(device)
+        shape = tuple(shape)
+        if len(shape) != 3 or shape[0] != 3 or \
+                dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"atom_pack takes [3, B, A] float32 or float64 "
+                             f"positions, got {dtype} {shape}")
+        _shards(n_shards)
+        _, B, A = shape
+        n = _rows_list(ids[0], device, B)
+        if _rows_list(ids[1], device, B) != n:
+            raise ValueError("the two faces send different numbers of cells")
+        if cap < 0 or n * A >= 2 ** 31:
+            raise ValueError(f"an atom message of {n} cells of {A} slots "
+                             f"and cap {cap} does not fit 32-bit entries")
+        self.ids, self.cap, self.n_shards = tuple(ids), int(cap), n_shards
+        self.shape, self.dtype, self.device = shape, dtype, device
+        self.n_cells = n
+        self.n_out = self.cap or n * A
+        self.grid_x = -(-n // PACK_CELLS)
+        S = n_shards
+        self.rp = torch.zeros((2, S, 6, self.n_out), dtype=dtype,
+                              device=device)
+        self.gid = torch.zeros((2, S, self.n_out), dtype=torch.int32,
+                               device=device)
+        self.valid = torch.zeros((2, S, self.n_out), dtype=torch.bool,
+                                 device=device)
+        # the messages' views, made once: a stage's call hands them out
+        # without slicing 16 x 4 tensors on the host
+        self._messages = [[(self.rp[d, s, :3], self.rp[d, s, 3:],
+                            self.gid[d, s], self.valid[d, s])
+                           for d in (0, 1)] for s in range(S)]
+        self.args = None
+        if device.type == "cuda":
+            self.device_index = device.index
+            a = self.args = _AtomPackArgs()
+            a.n_shards, a.n_cells, a.row_elems, a.n_rows = S, n, A, B
+            a.cap, a.n_out, a.elem_bytes = self.cap, self.n_out, dtype.itemsize
+            a.grid_x, a.device = self.grid_x, self.device_index
+            a.ids[:] = [t.data_ptr() for t in self.ids]
+            a.rp, a.gid_out = self.rp.data_ptr(), self.gid.data_ptr()
+            a.valid = self.valid.data_ptr()
+            self.ref = ctypes.byref(a)
+
+    def messages(self) -> list:
+        """Each shard's two messages (to its minus neighbor, to its plus
+        neighbor), each (r [3, n_out], p [3, n_out], gid, valid), as views
+        of the buffers (the same list every call: read it, do not change
+        it)."""
+        return self._messages
+
+
+class FoldMap(NamedTuple):
+    """A fold as a list of adds, numpy, in add order: row ``dst_row`` of
+    shard ``dst`` gets row ``src_row`` of shard ``src`` added, on every
+    plane of the field."""
+    dst: np.ndarray        # [M] int
+    dst_row: np.ndarray    # [M] int
+    src: np.ndarray        # [M] int
+    src_row: np.ndarray    # [M] int
+
+
+class FoldPlan:
+    """The launch plan of one fold launch: the adds of ``adds``
+    (``FoldMap``) over ``n_shards`` shards' fields of ``shape`` ([B, A] or
+    [P, B, A]) and ``dtype``, grouped by destination (a destination's adds
+    keep their order).  Checked when made: no row the plan reads is a row
+    it writes, so a launch needs no barrier.  On the device: the entries
+    [N, 4] int32 (destination shard, row, first source, end) and the
+    sources [M, 2] int32 (shard, row); for the plain version the adds rank
+    by rank (the k-th add of every destination that has one), each rank as
+    (destination shard, source shard, destination rows, source rows)."""
+
+    def __init__(self, adds: FoldMap, shape, dtype, device, n_shards: int):
+        device = _device(device)
+        shape = tuple(shape)
+        if len(shape) not in (2, 3) or \
+                dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"a fold adds [B, A] or [P, B, A] float32 or "
+                             f"float64 fields, got {dtype} {shape}")
+        _shards(n_shards)
+        P, B, A = _rows_shape(shape)
+        S = self.n_shards = n_shards
+        self.shape, self.dtype, self.device = shape, dtype, device
+        dst, dst_row, src, src_row = (np.asarray(v, np.int64).reshape(-1)
+                                      for v in adds)
+        m = dst.size
+        if m < 1 or not all(v.size == m for v in (dst_row, src, src_row)):
+            raise ValueError("a fold needs one add or more, all its arrays "
+                             "of one length")
+        if min(dst.min(), src.min(), dst_row.min(), src_row.min()) < 0 or \
+                max(dst.max(), src.max()) >= S or \
+                max(dst_row.max(), src_row.max()) >= B:
+            raise ValueError("a fold's add lies outside the shards or rows "
+                             "of the plan")
+        key = dst * B + dst_row
+        if np.isin(src * B + src_row, key).any():
+            raise ValueError("a row the fold reads is a row it writes")
+        order = np.argsort(key, kind="stable")
+        key, dst, dst_row, src, src_row = (v[order] for v in (
+            key, dst, dst_row, src, src_row))
+        first = np.r_[0, np.flatnonzero(np.diff(key)) + 1]
+        end = np.r_[first[1:], m]
+        self.n_entries, self.n_adds = first.size, m
+        rank = np.arange(m) - np.repeat(first, end - first)
+        self.ranks = []
+        for k in range(int(rank.max()) + 1):
+            at = np.flatnonzero(rank == k)
+            groups = []
+            for t, s_ in sorted({(int(a), int(b)) for a, b in
+                                 zip(dst[at], src[at])}):
+                sel = at[(dst[at] == t) & (src[at] == s_)]
+                groups.append((t, s_, torch.as_tensor(dst_row[sel],
+                                                      device=device),
+                               torch.as_tensor(src_row[sel], device=device)))
+            self.ranks.append(groups)
+        self.entry = torch.as_tensor(np.stack(
+            [dst[first], dst_row[first], first, end], 1).astype(np.int32),
+            device=device)
+        self.src = torch.as_tensor(np.stack([src, src_row], 1).astype(
+            np.int32), device=device)
+        self.vec = _vec_bytes(A * dtype.itemsize)
+        self.row_vecs = A * dtype.itemsize // self.vec
+        self.lg = _lanes_lg(self.row_vecs)
+        self.grid_x = _blocks(self.n_entries, self.lg)
+        self.args = None
+        if device.type == "cuda":
+            self.device_index = device.index
+            _aligned([self.entry.data_ptr()], 16, "fold_halo entries")
+            _aligned([self.src.data_ptr()], 8, "fold_halo sources")
+            a = self.args = _FoldArgs()
+            a.n_shards, a.n_entries, a.n_planes = S, self.n_entries, P
+            a.elem_bytes, a.vec_bytes = dtype.itemsize, self.vec
+            a.row_vecs, a.lg, a.grid_x = self.row_vecs, self.lg, self.grid_x
+            a.device = self.device_index
+            a.plane_vecs = B * self.row_vecs
+            a.entry, a.src = self.entry.data_ptr(), self.src.data_ptr()
+            self.ref = ctypes.byref(a)
+
+
 def _rows_shape(shape) -> tuple:
     """(planes, rows, elements a row) of a [B], [B, A] or [P, B, A] field."""
     if len(shape) == 1:
@@ -563,6 +732,57 @@ def position_fill_plain(plan: PositionPlan, r: list) -> list:
         else:
             plan.planes[t - S].copy_(v[lo:hi].transpose(0, 1))
     return r
+
+
+def atom_pack_plain(plan: AtomPackPlan, r, p, gid, n_atoms,
+                    overflow) -> list:
+    """One stage's atom messages of every shard into the plan's buffers:
+    for each face d, the stacked shards' send cells, the real slots (slot
+    < n_atoms) counted by a cumulative sum and, count-packed, scattered to
+    their rank's entry below cap (the rest zero, EMPTY_GID, invalid;
+    ``count > cap`` or-ed into ``overflow`` in place); full planes
+    gathered whole with their slots' validity.  Returns ``messages()``."""
+    A, cap, S = plan.shape[2], plan.cap, plan.n_shards
+    slots = torch.arange(A, device=plan.device)
+    for d, ids in enumerate(plan.ids):
+        ids = ids.long()
+        n = torch.stack([c[ids] for c in n_atoms])             # [S, n]
+        ok = (slots < n[..., None]).reshape(S, -1)             # [S, M]
+        rpm = torch.cat([torch.stack([x[:, ids] for x in r]),
+                         torch.stack([x[:, ids] for x in p])],
+                        1).reshape(S, 6, -1)
+        gm = torch.stack([g[ids] for g in gid]).reshape(S, -1)
+        if not cap:
+            plan.rp[d].copy_(rpm)
+            plan.gid[d].copy_(gm)
+            plan.valid[d].copy_(ok)
+            continue
+        pos = torch.cumsum(ok, 1) - 1
+        count = ok.sum(1)
+        s_i, e_i = (ok & (pos < cap)).nonzero(as_tuple=True)
+        k_i = pos[s_i, e_i]
+        plan.rp[d].zero_()
+        plan.rp[d][s_i, :, k_i] = rpm[s_i, :, e_i]
+        plan.gid[d].fill_(int(binning.EMPTY_GID))
+        plan.gid[d][s_i, k_i] = gm[s_i, e_i]
+        plan.valid[d].copy_(torch.arange(cap, device=plan.device)
+                            < count[:, None])
+        overflow.logical_or_((count > cap).any())
+    return plan.messages()
+
+
+def fold_halo_plain(plan: FoldPlan, x: list) -> list:
+    """The fold of ``plan`` on every shard's field ``x[s]``, in place,
+    add rank by add rank: each rank's destination rows get their source
+    rows added, one gather, add and put a (destination, source) pair, its
+    destinations distinct, so every sum is rounded once in the plan's
+    order, on any device.  Returns ``x``."""
+    for groups in plan.ranks:
+        for t, s, drows, srows in groups:
+            dim = x[t].dim() - 2
+            v = x[t].index_select(dim, drows) + x[s].index_select(dim, srows)
+            x[t].index_copy_(dim, drows, v)
+    return x
 
 
 def ring_push_plain(plan: PushPlan, srcs) -> list:
@@ -638,6 +858,27 @@ class _PositionArgs(ctypes.Structure):
         ("plane", ctypes.c_void_p * MAX_PLANES)]
 
 
+class _AtomPackArgs(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "n_shards", "n_cells", "row_elems", "n_rows", "cap", "n_out",
+        "elem_bytes", "grid_x", "device")] + [
+        ("ids", ctypes.c_void_p * 2),
+        ("r", ctypes.c_void_p * MAX_SHARDS),
+        ("p", ctypes.c_void_p * MAX_SHARDS),
+        ("gid", ctypes.c_void_p * MAX_SHARDS),
+        ("n_atoms", ctypes.c_void_p * MAX_SHARDS),
+        ("rp", ctypes.c_void_p), ("gid_out", ctypes.c_void_p),
+        ("valid", ctypes.c_void_p), ("overflow", ctypes.c_void_p)]
+
+
+class _FoldArgs(ctypes.Structure):
+    _fields_ = [(k, ctypes.c_int) for k in (
+        "n_shards", "n_entries", "n_planes", "elem_bytes", "vec_bytes",
+        "row_vecs", "lg", "grid_x", "device")] + [
+        ("plane_vecs", ctypes.c_longlong), ("entry", ctypes.c_void_p),
+        ("src", ctypes.c_void_p), ("x", ctypes.c_void_p * MAX_SHARDS)]
+
+
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_SECONDS = None   # wall time of the nvcc build in this process
@@ -659,6 +900,8 @@ def build():
                 ("comd_halo_fill", [P(_FillArgs), V]),
                 ("comd_ring_push", [P(_PushArgs), V]),
                 ("comd_position_fill", [P(_PositionArgs), V]),
+                ("comd_atom_pack", [P(_AtomPackArgs), V]),
+                ("comd_fold_halo", [P(_FoldArgs), V]),
                 ("comd_arena_alloc", [P(V), ctypes.c_longlong, I]),
                 ("comd_arena_free", [V, I]),
                 ("comd_ipc_handle", [V, I, ctypes.c_char_p]),
@@ -828,6 +1071,57 @@ def position_fill(plan: PositionPlan, r: list) -> list:
     _raise_on(lib, lib.comd_position_fill(plan.ref, stream), "position_fill")
     LAUNCHES[plan.count_as] += 1
     return r
+
+
+def atom_pack(plan: AtomPackPlan, r, p, gid, n_atoms, overflow) -> list:
+    """One stage's atom messages of every shard (both faces, count-packed
+    or full planes, ``plan``) in one launch, into the plan's buffers;
+    ``count > cap`` of a packed message is or-ed into ``overflow`` (a 0-dim
+    bool) in place.  ``r``, ``p`` [3, B, A], ``gid`` [B, A] int32 and
+    ``n_atoms`` [B] int32: one tensor a shard.  Returns each shard's two
+    messages (``AtomPackPlan.messages``).  CPU tensors run the plain
+    version; CUDA tensors the kernel."""
+    if r[0].device.type == "cpu":
+        return atom_pack_plain(plan, r, p, gid, n_atoms, overflow)
+    a, S = plan.args, plan.n_shards
+    B, A = plan.shape[1:]
+    dev = plan.device_index
+    a.r[:S] = _pointers(r, S, plan.shape, plan.dtype, dev, "atom_pack r")
+    a.p[:S] = _pointers(p, S, plan.shape, plan.dtype, dev, "atom_pack p")
+    a.gid[:S] = _pointers(gid, S, (B, A), torch.int32, dev, "atom_pack gid")
+    a.n_atoms[:S] = _pointers(n_atoms, S, (B,), torch.int32, dev,
+                              "atom_pack n_atoms")
+    if overflow.shape != () or overflow.dtype != torch.bool or \
+            overflow.get_device() != dev:
+        raise ValueError(f"atom_pack overflow: expected a 0-dim bool on "
+                         f"cuda:{dev}, got {overflow.dtype} "
+                         f"{tuple(overflow.shape)} on {overflow.device}")
+    a.overflow = overflow.data_ptr()
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib, lib.comd_atom_pack(plan.ref, stream), "atom_pack")
+    LAUNCHES["atom_pack"] += 1
+    return plan.messages()
+
+
+def fold_halo(plan: FoldPlan, x: list) -> list:
+    """The fold of ``plan`` on every shard's field ``x[s]`` ([B, A] or [P,
+    B, A] as the plan's), in place, in one launch: each destination row of
+    every plane gets its source rows added in the plan's order, each add
+    rounded alone.  Returns ``x``.  CPU tensors run the plain version;
+    CUDA tensors the kernel."""
+    if x[0].device.type == "cpu":
+        return fold_halo_plain(plan, x)
+    a, S = plan.args, plan.n_shards
+    ptrs = _pointers(x, S, plan.shape, plan.dtype, plan.device_index,
+                     "fold_halo field")
+    _aligned(ptrs, plan.vec, "fold_halo field")
+    a.x[:S] = ptrs
+    lib = build()
+    stream = torch.cuda.current_stream(plan.device_index).cuda_stream
+    _raise_on(lib, lib.comd_fold_halo(plan.ref, stream), "fold_halo")
+    LAUNCHES["fold_halo"] += 1
+    return x
 
 
 # --------------------------------------------------------------------------

@@ -12,15 +12,18 @@ cutoff mask removes them without occupancy branches.  The CUDA kernels
 and are the card's comparison reference.  comd_tpu's other sweep
 formulations (dense slices, windows, transposed stencils, the half sweep's
 overlap-added chunk spills and locality plane) exist for TPU layout
-reasons and are not ported.
+reasons and are not ported.  The fold runs on csrc/comm.cu's ``fold_halo``
+(ops/cuda/comm.py) on the card and on its plain version on the CPU.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..potentials.tables import as_dtype
+from .cuda import comm
 
 
 def cell_pair_sweep(
@@ -133,12 +136,33 @@ def cell_pair_sweep_half(
     return force, scalars or []
 
 
+def fold_plan_serial(maps, x: torch.Tensor) -> comm.FoldPlan:
+    """The serial fold's plan for fields like ``x`` ([B, A] or [3, B,
+    A]), made once (kept on ``maps.images``): every local cell that halo
+    images mirror gets them added in ascending halo row, the order in
+    which comd_tpu's scatter-add and the CPU ``index_add_`` add them."""
+    im = maps.images
+    key = (tuple(x.shape), x.dtype)
+    plan = im.fold_plans.get(key)
+    if plan is None:
+        start = im.start.cpu().numpy()
+        rows = im.row.cpu().numpy()
+        dst = np.repeat(np.arange(im.n_local), np.diff(start))
+        zero = np.zeros(rows.size, np.int64)
+        plan = im.fold_plans[key] = comm.FoldPlan(
+            comm.FoldMap(zero, dst, zero, rows), x.shape, x.dtype, x.device,
+            1)
+    return plan
+
+
 def fold_halo_serial(geom, maps, x: torch.Tensor) -> torch.Tensor:
     """Fold halo-row contributions back into their owner cells (serial
-    periodic case): [..., n_total, A] -> [..., n_local, A].  A local cell
-    that several halo images mirror receives all of them (``index_add_``
-    adds duplicate sources).  Port of comd_tpu.ops.sweep.fold_halo_serial,
-    the half-shell force exchange."""
-    n_local = geom.n_local
-    out = x[..., :n_local, :].clone()
-    return out.index_add_(x.dim() - 2, maps.halo_src, x[..., n_local:, :])
+    periodic case), in place on ``x`` [..., n_total, A] (the caller's
+    fresh sweep output); returns its local rows [..., n_local, A], a view.
+    A local cell that several halo images mirror receives all of them, in
+    ascending halo row, each add rounded alone (one ``fold_halo`` launch
+    on the card; its plain version, image rank by image rank, on the
+    CPU).  Port of comd_tpu.ops.sweep.fold_halo_serial, the half-shell
+    force exchange."""
+    comm.fold_halo(fold_plan_serial(maps, x), [x])
+    return x[..., :geom.n_local, :]

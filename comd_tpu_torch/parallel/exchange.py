@@ -7,8 +7,10 @@ edge and corner data forwarded by the later stages.  comd_tpu runs it as
 an axis is a ring shift over the shards' tensors (plain torch gathers and
 scatters).  These functions are the ``--commImpl collective`` transport
 and the plain versions the kernel-initiated transports (ki_comm.py) are
-held against.  Each takes the lists of this process's shards (the mesh's
-``owned``, all of them in a single process):
+held against.  A stage's atom messages are one ``atom_pack`` launch over
+every shard and both faces (ops/cuda/comm.py; ``_atom_message`` stays the
+plain reference).  Each takes the lists of this process's shards (the
+mesh's ``owned``, all of them in a single process):
 
   * a message to a shard of the same process is the tensor itself;
   * in a multi-process launch, every message of a stage for a shard of
@@ -48,7 +50,7 @@ import torch
 from ..cells import CellGeometry
 from ..ops import binning
 from ..ops.binning import EMPTY_GID, GeomMaps
-from ..ops.cuda.comm import RowMap
+from ..ops.cuda.comm import AtomPackPlan, RowMap, atom_pack
 from ..potentials.tables import as_dtype
 from . import dist
 from .mesh import Mesh
@@ -272,10 +274,12 @@ def _deliver(h: Halo, key, axis: int, msgs: list) -> list:
     """Deliver one stage's messages along ``axis``.  ``msgs[i]`` holds the
     i-th owned shard's two messages, (to its minus neighbor, to its plus
     neighbor), each a tuple of tensors; every shard's messages have the
-    same shapes and dtypes.  Returns for each owned shard (from its plus
-    neighbor, from its minus neighbor): the tensors themselves where the
-    sender is in this process, views of the receive buffer of ``key`` and
-    this layout where it is not (valid until the next such call).
+    same shapes and dtypes; a message that goes to a shard of this process
+    may be None where the caller reads it itself.  Returns for each owned
+    shard (from its plus neighbor, from its minus neighbor): the tensors
+    themselves where the sender is in this process, views of the receive
+    buffer of ``key`` and this layout where it is not (valid until the
+    next such call).
 
     With 2 processes on 2 shards along ``axis`` both directions go to the
     same peer in its one buffer; on an axis of size 1 a shard is its own
@@ -286,7 +290,7 @@ def _deliver(h: Halo, key, axis: int, msgs: list) -> list:
         got[i][k] = msgs[j][k]
     if not recvs:
         return got
-    like = msgs[0][0]
+    like = next(m for pair in msgs for m in pair if m is not None)
     nb = sum(_nbytes(t) for t in like)
     layout = tuple((tuple(t.shape), t.dtype) for t in like)
     sends = {q: torch.cat([_as_bytes(t) for j, k in v for t in msgs[j][k]])
@@ -315,7 +319,8 @@ def _atom_message(h: Halo, axis: int, d: int, r, p, gid, n_atoms):
     """One shard's atom message for face (axis, d): the cells of its two
     send planes, as full-capacity planes or count-packed (capacity
     ``atom_cap``).  Returns (r [3, M], p [3, M], gid [M], valid [M],
-    overflow), each contiguous."""
+    overflow), each contiguous.  The plain reference of ``atom_pack``,
+    which ``atom_arrivals`` runs."""
     A = r.shape[-1]
     ids = h.atom_send[axis][d]
     slot_ok = (torch.arange(A, device=r.device)[None, :]
@@ -346,20 +351,31 @@ def _atom_message(h: Halo, axis: int, d: int, r, p, gid, n_atoms):
     return r6[:3], r6[3:], g[:cap], valid, count > cap
 
 
+def pack_plan(h: Halo, axis: int, r0: torch.Tensor) -> AtomPackPlan:
+    """Stage ``axis``'s atom-message plan and buffers for positions like
+    ``r0`` ([3, B, A]), made once a Halo: the face cells of
+    ``atom_send[axis]``, the plan's ``atom_cap[axis]`` (0: full planes),
+    this process's shards."""
+    key = ("atom pack", axis, tuple(r0.shape), r0.dtype)
+    plan = h.launch_plans.get(key)
+    if plan is None:
+        plan = h.launch_plans[key] = AtomPackPlan(
+            h.atom_send[axis], h.plan.atom_cap[axis], len(h.mesh.owned),
+            r0.shape, r0.dtype, h.mesh.device)
+    return plan
+
+
 def atom_arrivals(h: Halo, axis: int, r: list, p: list, gid: list,
                   n_atoms: list, overflow: torch.Tensor) -> list:
     """Stage ``axis``'s atom messages of every shard, packed (both
-    directions of every shard before any unload) and delivered.  Returns
-    for each shard its arrivals of direction 0 (from its minus neighbor)
-    and 1 (from its plus neighbor), each (r [3, M], p [3, M], gid [M],
-    valid [M]) in the sender's frame; a packed message's overflow is or-ed
-    into ``overflow`` in place."""
-    msgs = [[_atom_message(h, axis, d, r[s], p[s], gid[s], n_atoms[s])
-             for d in (0, 1)] for s in range(len(r))]
-    for m in msgs:
-        overflow.logical_or_(m[0][4]).logical_or_(m[1][4])
-    got = _deliver(h, ("atoms", axis), axis,
-                   [(m[0][:4], m[1][:4]) for m in msgs])
+    directions of every shard before any unload: one ``atom_pack`` launch
+    on the card) and delivered.  Returns for each shard its arrivals of
+    direction 0 (from its minus neighbor) and 1 (from its plus neighbor),
+    each (r [3, M], p [3, M], gid [M], valid [M]) in the sender's frame; a
+    packed message's overflow is or-ed into ``overflow`` in place.  The
+    messages live in the plan's buffers until the stage's next call."""
+    msgs = atom_pack(pack_plan(h, axis, r[0]), r, p, gid, n_atoms, overflow)
+    got = _deliver(h, ("atoms", axis), axis, msgs)
     return [(from_minus, from_plus) for from_plus, from_minus in got]
 
 

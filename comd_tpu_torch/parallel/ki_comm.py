@@ -22,7 +22,14 @@ the planes move with the hand-written kernels of ops/cuda/comm.py:
   * ``exchange_positions_ki``: the ghost-position refresh between
     rebuckets as one ``position_fill`` launch over the three stages
     composed (exchange.position_map); in one process every --commImpl
-    takes it, as comd_tpu runs one exchange_positions under each.
+    takes it, as comd_tpu runs one exchange_positions under each;
+  * ``fold_halo_ki``: the half-shell fold (exchange.fold_halo's stages z,
+    y, x), one ``fold_halo`` launch a stage over every shard, in place,
+    under every --commImpl (comd_tpu runs one fold_halo under each);
+    across processes each stage's messages for another process move as
+    exchange.fold_halo's do (``exchange._deliver``) and its receiver
+    copies them into its own halo rows of the stage's axis, which the
+    stage launch then adds.
 
 Across processes (a multi-process launch) every stage is one launch of
 this process's shards, as comd_tpu's kernels push into a neighbor on
@@ -58,8 +65,9 @@ import torch
 
 from ..ops import binning
 from ..ops.cuda import comm
-from ..ops.cuda.comm import (FillPlan, PositionPlan, PushPlan, RowMap,
-                              halo_fill, position_fill, ring_push)
+from ..ops.cuda.comm import (FillPlan, FoldMap, FoldPlan, PositionPlan,
+                              PushPlan, RowMap, fold_halo, halo_fill,
+                              position_fill, ring_push)
 from ..potentials.tables import EmbedTable
 from . import dist, exchange
 from .exchange import Halo
@@ -126,6 +134,70 @@ def exchange_positions_ki(h: Halo, r: list) -> list:
     if h.mesh.nprocs > 1:
         return _positions_across(h, r)
     return position_fill(position_plan(h, r[0]), r)
+
+
+def fold_plan(h: Halo, axis: int, x0: torch.Tensor) -> FoldPlan:
+    """Stage ``axis`` of the half-shell fold for fields like ``x0`` ([B,
+    A] or [3, B, A]), made once a Halo: exchange.fold_halo's adds in its
+    order, every owned shard's local face rows ``send_p`` getting the rows
+    ``recv_m`` of its plus neighbor, then ``send_m`` the rows ``recv_p`` of
+    its minus neighbor.  A neighbor in another process is this shard's own
+    halo plane on that side (``recv_p`` for the plus neighbor, ``recv_m``
+    for the minus one), into which ``_fold_unpack`` copies what it sent.
+    A stage reads halo rows of its axis and writes local ones, so no row
+    it reads is a row it writes."""
+    key = ("fold", axis, tuple(x0.shape), x0.dtype)
+    plan = h.launch_plans.get(key)
+    if plan is None:
+        send, recv = h.plan.force_send[axis], h.plan.force_recv[axis]
+        n = len(send[0])
+        local, _sends, recvs = exchange._route(h, axis)
+        src_of = {(i, k): (j, recv[k]) for i, k, j in local}
+        for slots in recvs.values():
+            for i, k in slots:
+                src_of[i, k] = (i, recv[1 - k])
+        parts = []
+        for i in range(len(h.mesh.owned)):
+            for k in (0, 1):        # from the plus neighbor, then the minus
+                j, rows = src_of[i, k]
+                parts.append((np.full(n, i), send[1 - k], np.full(n, j),
+                              rows))
+        plan = h.launch_plans[key] = FoldPlan(
+            FoldMap(*(np.concatenate(v) for v in zip(*parts))), x0.shape,
+            x0.dtype, h.mesh.device, len(h.mesh.owned))
+    return plan
+
+
+def _fold_unpack(h: Halo, axis: int, x: list) -> None:
+    """Across processes: stage ``axis``'s fold messages for and from
+    another process delivered (``exchange._deliver``, as exchange.fold_halo
+    sends them), each copied into its receiver's own halo plane on the
+    sender's side, in place."""
+    local, _sends, recvs = exchange._route(h, axis)
+    recv_m, recv_p = h.force_recv[axis]
+    fed = {(j, k) for _i, k, j in local}
+    dim = x[0].dim() - 2
+    msgs = [tuple(None if (j, k) in fed else (v.index_select(dim, rows),)
+                  for k, rows in ((0, recv_m), (1, recv_p)))
+            for j, v in enumerate(x)]
+    got = exchange._deliver(h, ("fold", axis), axis, msgs)
+    for _q, slots in sorted(recvs.items()):
+        for i, k in slots:
+            x[i][..., (recv_p, recv_m)[k], :] = got[i][k][0]
+
+
+def fold_halo_ki(h: Halo, x: list) -> list:
+    """The half-shell fold of every shard's dense [..., B, A] field, in
+    place: stages z, y, x, one ``fold_halo`` launch each over every owned
+    shard (``fold_plan``), bit for bit exchange.fold_halo's sums.  Returns
+    the local rows [..., n_local, A] of each field, views of it.  Across
+    processes a stage first delivers its messages for other processes
+    (``_fold_unpack``)."""
+    for axis in (2, 1, 0):
+        if h.mesh.nprocs > 1:
+            _fold_unpack(h, axis, x)
+        fold_halo(fold_plan(h, axis, x[0]), x)
+    return [v[..., :h.geom.n_local, :] for v in x]
 
 
 def exchange_scalar_ki(h: Halo, x: list) -> list:

@@ -23,7 +23,10 @@ over every shard, the rebucket a conditional node of it
     counters on the stream); the ghost-position refresh between rebuckets
     is one ``position_fill`` launch in one process under every transport
     (ki_comm.exchange_positions_ki), across processes one a stage under
-    ki and ki_fused;
+    ki and ki_fused; so is the dfEmbed fill of ``collective`` and of the
+    list paths in one process (``halo_fill``, K3's copies); collective's
+    atom messages are one ``atom_pack`` launch a stage; the half-shell
+    fold is one ``fold_halo`` launch a stage under every transport;
   - ``psum`` -> a sum over shards.  The lazy and neighbor-list triggers
     stay on the device in the graphs and are read on the host once a step
     by the eager loop (an allgather across processes); -a 1's migration
@@ -35,16 +38,16 @@ over every shard, the rebucket a conditional node of it
     shard order, so a multi-process run prints the single process's digits.
 
 The neighbor-list methods (-m *_nl, -L) keep one Verlet list a shard,
-rebuilt after each atom exchange; their dfEmbed fill is the collective
-``exchange.exchange_scalar`` under every --commImpl, as in comd_tpu (the
-list rows carry no cell layout for the fused transport), while the atom
-exchange follows --commImpl.  Under -a 1 (auto for thread_atom_nl,
-warp_atom_nl and -L) the lists are built with the interior/boundary row
-split and the interior rows sweep the pre-exchange positions; the cell
-methods under -a 1 sweep their interior and boundary cells apart on K1,
-the interior cells on the pre-exchange positions (Physics.forces).  All of
-it runs on one CUDA stream: the split keeps comd_tpu's data flow, and
-nothing overlaps.
+rebuilt after each atom exchange; their dfEmbed fill is comd_tpu's
+``exchange_scalar`` under every --commImpl (the list rows carry no cell
+layout for the fused transport), here K3's copies (``halo_fill``) in one
+process, while the atom exchange follows --commImpl.  Under -a 1 (auto
+for thread_atom_nl, warp_atom_nl and -L) the lists are built with the
+interior/boundary row split and the interior rows sweep the pre-exchange
+positions; the cell methods under -a 1 sweep their interior and boundary
+cells apart on K1, the interior cells on the pre-exchange positions
+(Physics.forces).  All of it runs on one CUDA stream: the split keeps
+comd_tpu's data flow, and nothing overlaps.
 """
 from __future__ import annotations
 
@@ -124,21 +127,35 @@ class ShardedSimulation(Physics):
     def _fill(self, x, rhobar):
         """dfEmbed halo fill over the mesh, per --commImpl.  Under -P
         comd_tpu does not fuse F' into the fill (sharded.py:118-127), so
-        ki_fused then runs the ki fill, K3's copies alone."""
+        ki_fused then runs the ki fill, K3's copies alone.  collective in
+        one process runs the same copies (one ``halo_fill`` launch: the
+        staged exchange's bits, pure copies); across processes the staged
+        exchange.exchange_scalar over the process group."""
         ci = self.cfg.comm_impl
         if ci == "ki_fused" and not self.cfg.spline:
             return ki_comm.exchange_scalar_ki_fused(self.halo, x, rhobar,
                                                     self.f_eval)
-        if ci in ("ki", "ki_fused"):
-            return ki_comm.exchange_scalar_ki(self.halo, x)
-        return exchange.exchange_scalar(self.halo, x)
+        return self._fill_nl(x)
 
     def _fold(self, x):
-        return exchange.fold_halo(self.halo, x)
+        """The half-shell fold over the mesh, in place on the dense
+        fields (the caller's fresh sweep outputs): one ``fold_halo``
+        launch a stage under every --commImpl (ki_comm.fold_halo_ki)."""
+        return ki_comm.fold_halo_ki(self.halo, x)
 
     def _fill_nl(self, x):
-        """The neighbor-list path's dfEmbed fill: collective always."""
-        return exchange.exchange_scalar(self.halo, x)
+        """The dfEmbed fill of K3's copies, the neighbor-list paths'
+        under every --commImpl.  comd_tpu's list fill is its collective
+        exchange_scalar (comd_tpu/parallel/sharded.py:350), staged
+        slot-aligned cell-block copies; ``halo_fill`` makes the same
+        copies in the same stage order, so the bits are the same: in one
+        process one launch (ki_comm.exchange_scalar_ki), across processes
+        one a stage through the receive planes under ki and ki_fused, and
+        the staged exchange.exchange_scalar over the process group under
+        collective."""
+        if self.mesh.nprocs > 1 and self.cfg.comm_impl == "collective":
+            return exchange.exchange_scalar(self.halo, x)
+        return ki_comm.exchange_scalar_ki(self.halo, x)
 
     def _exchange_atoms(self, r, p, gid, n_atoms, out=None):
         """Atom exchange per --commImpl, in place on the lists' tensors,

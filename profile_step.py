@@ -30,7 +30,8 @@ kernel (K1/K2, the halo and list kernels, the step's
 kick_drift_trigger, refresh_halo, embed_fill and land, the
 redistribution's rebucket_bin and rebucket_place, and on a mesh the atom
 exchange's arrivals_bin, arrivals_place and sort_cells, and the ghost
-refresh's position_fill), the gap in the
+refresh's position_fill, the collective atom messages' atom_pack and the
+half-shell fold's fold_halo), the gap in the
 trace from the end of a step's last kick_drift_trigger to the start of
 its force's first pair kernel (median, least and largest over the
 profiled steps: the median is a step's that does not rebucket, where
@@ -245,7 +246,9 @@ def main(argv=None) -> int:
                                     "arrivals_place_kernel",
                                     "sort_cells_kernel",
                                     "sort_cells_warp_kernel",
-                                    "position_fill_kernel"))},
+                                    "position_fill_kernel",
+                                    "atom_pack_kernel",
+                                    "fold_halo_kernel"))},
     }))
     return 0
 

@@ -13,8 +13,9 @@ must be equal bit for bit:
     on 2x2x2, 3x2x1 and 1x1x2 shard geometries;
   - ``exchange_scalar``, ``exchange_positions``, ``fold_halo``;
   - ``rebucket(keep_halo=True)`` of displaced atoms, then
-    ``exchange_atoms`` with full planes and count-packed, then
-    ``sort_cells``; and the overflow flag of an undersized packed message;
+    ``exchange_atoms`` with full planes and count-packed (one
+    ``atom_pack`` call a stage), then ``sort_cells``; and the overflow
+    flag of an undersized packed message;
   - K3's and K4's plain versions (``ring_push_plain``, ``pass2_push_plain``)
     against comd_tpu's ``_ring_push`` and ``_pass2_push`` in interpret mode
     on a 1-D mesh, as tests/test_pallas_comm.py runs them: K3 bitwise (the
@@ -215,10 +216,20 @@ def _displaced(sim, st, seed, scale):
 
 
 @pytest.mark.parametrize("factor", [0.0, 0.6])
-def test_rebucket_exchange_atoms_bit_equal(setup, factor):
+def test_rebucket_exchange_atoms_bit_equal(setup, factor, monkeypatch):
     """Drift, rebucket with halo landers kept, the staged atom exchange
-    (full planes, then count-packed), and the canonical sort."""
+    (full planes, then count-packed; each stage's messages of every shard
+    from one atom_pack call, the plain version here), and the canonical
+    sort."""
     sim, jg, jmesh, st, grid = setup
+    packs = []
+    orig = cm.atom_pack_plain
+
+    def counted(plan, *a):
+        packs.append(plan.cap)
+        return orig(plan, *a)
+
+    monkeypatch.setattr(cm, "atom_pack_plain", counted)
     A = sim.cfg.max_atoms
     jp = jex.make_plan(jg, msg_factor=factor, max_atoms=A)
     tp = tex.make_plan(sim.geom, msg_factor=factor, max_atoms=A)
@@ -242,6 +253,7 @@ def test_rebucket_exchange_atoms_bit_equal(setup, factor):
     assert int(j1[4].sum()) > 0               # atoms left their shards
     t2 = tex.exchange_atoms(_halo(sim, tp), *[[o[k] for o in t1]
                                               for k in range(4)])
+    assert packs == list(tp.atom_cap)
     for k in range(4):
         np.testing.assert_array_equal(_stack(t2[k], grid), j2[k])
     assert not bool(t2[4]) and not j2[4].any()

@@ -16,6 +16,9 @@ numpy-seeded halo-filled dfEmbed field, handed to both packages.
   1e-12 * max|f|, and sum f = 0 (each pair delivered with both signs).
 - The goldens with ``--halfShell`` through the plain versions, and 20-step
   f64 lazy trajectories with a rebucket inside, against comd_tpu.
+- The serial fold through the step's dispatch (``fold_halo``'s plain
+  version, in place) against the clone + ``index_add_`` it replaced: a
+  10-step f32 --halfShell run, EAM and LJ, ends with the same bits.
 
 The CUDA kernel itself is compared with this plain version on the card by
 tests/test_torch_kernel_cuda.py.
@@ -287,3 +290,44 @@ def test_half_wrappers_check_the_map(eam32):
     sim, r, _dfe, ev, maps, _ = eam32
     with pytest.raises(ValueError, match="14"):
         st.eam_pass1_half(torch.from_numpy(r), maps.nbr_map, ev)
+
+
+@pytest.mark.parametrize("doeam", [True, False], ids=["eam", "lj"])
+def test_serial_fold_through_the_dispatch_equals_index_add(doeam,
+                                                           monkeypatch):
+    """A serial --halfShell run (f32, 10 steps) whose folds go through the
+    dispatch (one fold_halo call a fold, in place; its plain version here)
+    ends with the bits of the same run on the clone + index_add_ the fold
+    replaced: r, p and ePot."""
+    from comd_tpu_torch import sim as tsim
+    from comd_tpu_torch.ops.cuda import comm as cm
+    cfg = Config(nx=6, ny=6, nz=6, doeam=doeam, temperature=600.0,
+                 initial_delta=0.2, half_shell=True, dtype="float32",
+                 pot_dir=POTS, device="cpu")
+    calls = []
+    orig = cm.fold_halo_plain
+
+    def counted(plan, x):
+        calls.append(plan.n_entries)
+        return orig(plan, x)
+
+    def index_add(geom, maps, x):
+        nl = geom.n_local
+        return x[..., :nl, :].clone().index_add_(x.dim() - 2, maps.halo_src,
+                                                 x[..., nl:, :])
+
+    runs = []
+    for old in (False, True):
+        with monkeypatch.context() as m:
+            m.setattr(cm, "fold_halo_plain", counted)
+            if old:
+                m.setattr(tsim, "fold_halo_serial", index_add)
+            sim = init_simulation(cfg)
+            calls.clear()
+            sim.step_block(10)
+            runs.append((sim, len(calls)))
+    (new, n_new), (ref, n_ref) = runs
+    assert n_new >= 10 * (2 if doeam else 1) and n_ref == 0
+    assert new.e_potential == ref.e_potential
+    for f in ("r", "p"):
+        assert torch.equal(getattr(new.state, f), getattr(ref.state, f))

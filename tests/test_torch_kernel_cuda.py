@@ -628,16 +628,18 @@ def test_position_stages_into_planes_match_plain(cuda_device, dtype, n):
 def test_transports_bit_equal_on_card(cuda_device, comm_impl):
     """Eager f64 steps (an atom exchange every step) on the full-shell K1,
     whose sums are deterministic: the halo kernels give the collective
-    run's bits, with one fill launch and three atom-stage launches a
-    step."""
+    run's bits, with one fill launch a step under every transport and
+    three atom-stage launches a step (ring_push under ki and ki_fused,
+    atom_pack under collective)."""
     sims = []
     for ci in ("collective", comm_impl):
         sim = init_simulation(Config(dtype="float64", lazy_shell=False,
                                      comm_impl=ci, device="cuda", **TRAJ))
         st.reset_launch_counts()
         sim.step_block(5)
-        assert (st.LAUNCHES["halo_fill"], st.LAUNCHES["ring_push"]) == (
-            (0, 0) if ci == "collective" else (5, 15))
+        assert (st.LAUNCHES["halo_fill"], st.LAUNCHES["ring_push"],
+                st.LAUNCHES["atom_pack"]) == (
+            (5, 0, 15) if ci == "collective" else (5, 15, 0))
         sims.append(sim)
     assert sims[1].e_potential == sims[0].e_potential
     for x, y in zip(*[s.states for s in sims]):
@@ -2055,3 +2057,136 @@ def test_arrivals_kernels_refuse_what_they_do_not_take(cuda_device):
         av.append_stage(geom, maps, *[[t] for t in f], [[src]], ovf.cpu())
     with pytest.raises(ValueError):
         av.sort_shards([f[0]], [f[1]], [f[2].cpu()])
+
+
+@pytest.mark.parametrize("cap", ["packed", "full", "overflow"])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_atom_pack_matches_plain(cuda_device, dtype, mesh, cap):
+    """csrc/comm.cu's atom_pack against atom_pack_plain on the same CUDA
+    tensors, bit for bit in every buffer (r, p, gid, valid) and the
+    overflow flag, at every stage of a displaced mesh state's collective
+    exchange, one launch a stage: count-packed at the plan's caps, full
+    planes, and a cap of 16 that overflows."""
+    import dataclasses
+    sim = _mesh_sim(dtype, mesh, comm_impl="collective")
+    caps = {"packed": sim.plan.atom_cap, "full": (0, 0, 0),
+            "overflow": (16, 16, 16)}[cap]
+    h = exchange.make_halo(sim.mesh, sim.geom, sim.maps,
+                           dataclasses.replace(sim.plan, atom_cap=caps),
+                           sim.dtype)
+    r, p, gid, n_atoms = _displaced_shards(sim, 8)
+    S = len(r)
+    overflow = torch.zeros((), dtype=torch.bool, device="cuda")
+    flags = []
+    for axis in range(3):
+        kp, pp = (cm.AtomPackPlan(h.atom_send[axis], caps[axis], S,
+                                  r[0].shape, r[0].dtype, "cuda")
+                  for _ in range(2))
+        fk = torch.zeros((), dtype=torch.bool, device="cuda")
+        fp = torch.zeros((), dtype=torch.bool, device="cuda")
+        st.reset_launch_counts()
+        cm.atom_pack(kp, r, p, gid, n_atoms, fk)
+        assert st.LAUNCHES["atom_pack"] == 1
+        cm.atom_pack_plain(pp, r, p, gid, n_atoms, fp)
+        assert _bit_equal([kp.rp], [pp.rp])
+        assert torch.equal(kp.gid, pp.gid) and torch.equal(kp.valid, pp.valid)
+        assert bool(fk) == bool(fp)
+        flags.append(bool(fp))
+        arrivals = exchange.atom_arrivals(h, axis, r, p, gid, n_atoms,
+                                          overflow)
+        binning.append_stage(h.geom, h.maps, r, p, gid, n_atoms, arrivals,
+                             overflow, axis, (-h.ext[axis], h.ext[axis]))
+    assert all(flags) if cap == "overflow" else not any(flags)
+
+
+@pytest.mark.parametrize("A", [None, 13])
+@pytest.mark.parametrize("where", ["serial", "2x2x2", "3x2x1"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fold_halo_matches_plain(cuda_device, dtype, where, A):
+    """csrc/comm.cu's fold_halo against fold_halo_plain on the same CUDA
+    tensors, bit for bit, [3, B, A] and [B, A] fields (also at A = 13:
+    one slot a move): serially one launch, on a mesh one a stage
+    (ki_comm.fold_halo_ki), in place; the same bits on two runs."""
+    from comd_tpu_torch.ops.sweep import fold_plan_serial
+    if where == "serial":
+        sim = _sim(dtype, "rows" if dtype == "float64" else "cheb", 8,
+                   "cuda", half_shell=True)
+    else:
+        sim = _mesh_sim(dtype, where, comm_impl="collective")
+    B = sim.geom.n_total
+    A = A or sim.cfg.max_atoms
+    S = 1 if where == "serial" else len(sim.states)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for shape in ((3, B, A), (B, A)):
+        x = [torch.rand(shape, dtype=sim.dtype, device="cuda",
+                        generator=gen) - 0.5 for _ in range(S)]
+        if where == "serial":
+            plans = [fold_plan_serial(sim.maps, x[0])]
+        else:
+            plans = [ki_comm.fold_plan(sim.halo, axis, x[0])
+                     for axis in (2, 1, 0)]
+        runs = []
+        for _ in range(2):
+            got = [v.clone() for v in x]
+            st.reset_launch_counts()
+            if where == "serial":
+                cm.fold_halo(plans[0], got)
+            else:
+                ki_comm.fold_halo_ki(sim.halo, got)
+            assert st.LAUNCHES["fold_halo"] == len(plans)
+            runs.append(got)
+        want = [v.clone() for v in x]
+        for plan in plans:
+            cm.fold_halo_plain(plan, want)
+        assert _bit_equal(runs[0], want) and _bit_equal(runs[1], want)
+
+
+def test_torch_exchanges_never_run_on_card(cuda_device, monkeypatch):
+    """In one process on the card no lazy or -S 0 mesh step, list step or
+    half-shell step reaches the staged torch fill
+    (exchange.exchange_scalar), the torch atom packing
+    (exchange._atom_message), the torch mesh fold (exchange.fold_halo),
+    index_add_, or a plain version of halo_fill, atom_pack or fold_halo:
+    each is replaced by a function that raises, and the steps still run
+    (launching halo_fill, atom_pack and fold_halo)."""
+    def refuse(name):
+        def fn(*_a, **_k):
+            raise AssertionError(f"{name} ran on the card")
+        return fn
+
+    for mod, name in ((exchange, "exchange_scalar"),
+                      (exchange, "_atom_message"), (exchange, "fold_halo"),
+                      (cm, "halo_fill_plain"), (cm, "atom_pack_plain"),
+                      (cm, "fold_halo_plain")):
+        monkeypatch.setattr(mod, name, refuse(name))
+    monkeypatch.setattr(torch.Tensor, "index_add_", refuse("index_add_"))
+    runs = {
+        "lazy collective": dict(nx=8, ny=8, nz=8, comm_impl="collective",
+                                **MESH),
+        "-S 0 collective": dict(nx=8, ny=8, nz=8, comm_impl="collective",
+                                lazy_shell=False, **MESH),
+        "list collective": dict(nx=8, ny=8, nz=8, comm_impl="collective",
+                                method="thread_atom_nl", **MESH),
+        "list ki": dict(nx=8, ny=8, nz=8, comm_impl="ki",
+                        method="thread_atom_nl", **MESH),
+        "half mesh": dict(nx=8, ny=8, nz=8, comm_impl="ki_fused",
+                          half_shell=True, **MESH),
+        "half serial": dict(nx=8, ny=8, nz=8, half_shell=True)}
+    for tag, kw in runs.items():
+        st.reset_launch_counts()
+        sim = init_simulation(Config(doeam=True, temperature=600.0,
+                                     initial_delta=0.3, dtype="float32",
+                                     pot_dir=POTS, device="cuda", **kw))
+        sim.step_block(10)
+        sim.step_block(10)
+        torch.cuda.synchronize()
+        assert sim.sum_atoms() == sim.n_global and not sim.overflow, tag
+        n = st.LAUNCHES
+        if tag.startswith("half"):
+            assert n["fold_halo"] >= 2 * 21, tag
+        else:
+            assert n["halo_fill"] == 21, tag
+        if "collective" in tag:
+            assert n["atom_pack"] == 3 * (sim.n_rebucket + 1) and \
+                n["ring_push"] == 0, tag
