@@ -357,7 +357,8 @@ the first error:
                  [B, A] noise at A = 16 and 13 on those meshes and
                  serially at 20^3 f64 and the 63^3 --halfShell geometry.
                  At 63^3 timed (CUDA events, mean of 20; the device's
-                 time under torch.profiler): one atom_pack stage beside
+                 time under torch.profiler, printed as a share of the
+                 bound): one atom_pack stage beside
                  its plain version, the torch packing it replaces and the
                  byte bound (no single PyTorch call packs a message); the
                  serial fold beside its plain version, the clone +
@@ -4518,10 +4519,12 @@ def run_collective(launches_coll: dict, launches_half: dict) -> dict:
     b_ms = 1e3 * nbytes / 3 / PEAK_BYTES
     say("timing", f"atom_pack, one stage's messages of the {n}^3 f32 2x2x2 "
         f"displaced state ({S} shards x 2 faces, caps {caps}, "
-        f"{plans[0].n_cells} cells a face, {plans[0].grid_x} blocks a "
-        f"message; mean of the 3 stages): {ms:.5f} ms (CUDA events, mean of "
-        f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
-        f"(torch.profiler); {g_ms:.5f} ms a launch replayed in a graph; "
+        f"{plans[0].n_cells} cells a face, {plans[0].grid_x} blocks of "
+        f"{cm.PACK_CELLS} cells a message; mean of the 3 stages): "
+        f"{ms:.5f} ms (CUDA events, mean of 20); host {host:.4f} ms a "
+        f"call, device {dev:.5f} ms (torch.profiler), "
+        f"{100 * b_ms / dev:.0f}% of the bound; {g_ms:.5f} ms a launch "
+        f"replayed in a graph; "
         f"plain version {plain_ms:.4f} ms; the torch packing it replaces "
         f"(exchange._atom_message a shard and face) {torch_ms:.4f} ms, "
         f"{torch_ops / 3:.0f} device operations and {torch_dev / 3:.5f} ms "
@@ -4565,10 +4568,12 @@ def run_collective(launches_coll: dict, launches_half: dict) -> dict:
     b_ms = 1e3 * nbytes / PEAK_BYTES
     say("timing", f"fold_halo, the serial fold of the {n}^3 f32 --halfShell "
         f"force [3, {Bh}, {Ah}] ({fplan.n_entries:,} local rows of "
-        f"{fplan.n_adds:,} halo images, {fplan.vec}-byte moves): {ms:.5f} ms "
-        f"(CUDA events, mean of 20); host {host:.4f} ms a call, device "
-        f"{dev:.5f} ms (torch.profiler); {g_ms:.5f} ms a launch replayed in "
-        f"a graph; plain version {plain_ms:.4f} ms; the library form it "
+        f"{fplan.n_adds:,} halo images, {fplan.vec}-byte moves, records of "
+        f"{fplan.record_vecs} 16-byte words): {ms:.5f} ms (CUDA events, mean "
+        f"of 20); host {host:.4f} ms a call, device {dev:.5f} ms "
+        f"(torch.profiler), {100 * b_ms / dev:.0f}% of the bound; "
+        f"{g_ms:.5f} ms a launch replayed in a graph; plain version "
+        f"{plain_ms:.4f} ms; the library form it "
         f"replaced (clone + index_add_, f32 atomics in run-to-run order; "
         f"{lib_diff:.3e} from the kernel) {lib_ms:.5f} ms; bound {b_ms:.5f} "
         f"ms (bytes: {nbytes / 1e6:.3f} MB)")
@@ -4591,13 +4596,14 @@ def run_collective(launches_coll: dict, launches_half: dict) -> dict:
     torch_ops, torch_dev = max(device_ops(lambda: exchange.fold_halo(h, xs)))
     nbytes = sum(fold_bytes(ki_comm.fold_plan(h, axis, xs[0]), xs[0])
                  for axis in range(3))
+    b_ms = 1e3 * nbytes / PEAK_BYTES
     say("timing", f"fold_halo, the mesh fold of the {n}^3 f32 2x2x2 force "
         f"[3, {B}, {A}] a shard (three stage launches): {ms:.5f} ms (CUDA "
         f"events, mean of 20); host {host:.4f} ms a call, device {dev:.5f} "
-        f"ms (torch.profiler); the torch exchange.fold_halo it replaces "
-        f"{torch_ms:.4f} ms, {torch_ops} device operations, "
-        f"{torch_dev:.5f} ms of device time; bound "
-        f"{1e3 * nbytes / PEAK_BYTES:.5f} ms (bytes)")
+        f"ms (torch.profiler), {100 * b_ms / dev:.0f}% of the bound; the "
+        f"torch exchange.fold_halo it replaces {torch_ms:.4f} ms, "
+        f"{torch_ops} device operations, {torch_dev:.5f} ms of device time; "
+        f"bound {b_ms:.5f} ms (bytes)")
 
     # collective's dfEmbed fill, now one halo_fill launch
     x = noise((B, A), torch.float32)

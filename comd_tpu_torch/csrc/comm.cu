@@ -91,27 +91,48 @@
 // overflow flag; the entries past the count are zero, EMPTY_GID and
 // invalid.  Full planes (cap = 0): every slot of every cell, entry c * A +
 // slot, valid where the slot is real.  Work split: a grid of (cell chunks,
-// messages); a block takes kPackCells cells of one message, sums the
-// counts of the message's cells before its chunk and in all (every block
-// reads them: a few thousand words from L2, so that no block waits on
-// another), scans its own chunk's counts in one warp, copies its cells'
-// real slots (consecutive threads on consecutive slots of a cell) and
-// writes its share of the message's valid flags and empty tail.
+// messages); a block takes kPackCells cells of one message.  No block
+// waits on another, so every block of a packed message sums all its counts
+// (a few thousand words from L2) in one pass in message order: every id
+// loaded, then every count, then the sums before its chunk and in all;
+// beside them a thread a cell of its chunk scans the chunk, one barrier
+// for both.  Then the block's share of the message's valid flags and
+// empty tail (issued before the copy, so the copy's loads overlap those
+// stores), then the copy: a group of 2^lg lanes a cell, each lane one
+// vector of `slots` slots (16 bytes where A allows) of each of r's and
+// p's six coordinate rows and of gid, all seven loaded before its stores,
+// cell and slot from shifts, no divide; a warp's real slots of a pass are
+// consecutive entries, staged in shared memory and stored by consecutive
+// lanes (a packed entry is not aligned to a vector); full planes the same
+// path.
 //
 // fold_halo_kernel: the half-shell fold, halo rows added into their owner
 // rows.  It replaces no Pallas kernel: comd_tpu folds with XLA scatter-adds
 // (ops/sweep.py:615 fold_halo_serial; parallel/exchange.py:270 fold_halo,
 // three stages z, y, x of ppermutes and adds).  A launch follows a fold
-// plan: entries (destination shard, row, first source, end), each with its
-// sources (shard, row) in add order; the entry's row of every plane gets
-// ((x + s0) + s1) + ..., each add rounded alone, the order of the CPU
-// index_add_ (serially the images in ascending halo row; on a mesh the
-// plus neighbor's rows before the minus neighbor's).  One launch serially;
-// one a stage on a mesh (a stage adds rows an earlier stage summed, so the
-// stages are not composed: flattening would change the rounding).  No row
-// a launch reads is a row it writes (halo rows in the stage's axis against
-// local ones), so a launch needs no barrier, and a destination is one
-// entry, so no atomics: the same bits every launch.
+// plan: a destination row and its sources in add order; the row of every
+// plane gets ((x + s0) + s1) + ..., each add rounded alone, the order of
+// the CPU index_add_ (serially the images in ascending halo row; on a mesh
+// the plus neighbor's rows before the minus neighbor's).  One launch
+// serially; one a stage on a mesh (a stage adds rows an earlier stage
+// summed, so the stages are not composed: flattening would change the
+// rounding).  No row a launch reads is a row it writes (halo rows in the
+// stage's axis against local ones), so a launch needs no barrier, and a
+// destination is one record, so no atomics: the same bits every launch.
+// A record is R 16-byte words (the plan's record_vecs, 1 to
+// kFoldRecordVecs): the destination (shard | row << kShardBits), the
+// source count with the start of its spill, and its first K = 4R - 2
+// sources inline (serially R = 3: a corner cell's 7 images; on a mesh R =
+// 1: two sources); sources past K, the order kept, in the spill list.
+// The record's words bound a plan (FoldPlan refuses more): rows below
+// 2^25, at most 255 sources a destination (the count's 8 bits), fewer than
+// 2^23 spilled sources in all (the spill start's 23 bits); the plans that
+// exist have at most 7 sources a destination serially and 2 on a mesh.
+// Work split: a group of 2^lg lanes a (record, plane), the plane the
+// grid's y, each lane one 16-byte vector of the row where A allows; the
+// group loads its record, then the destination vector and every source
+// vector, and only then adds them in order and stores once: two dependent
+// loads, record -> data.
 //
 // Ordering in one process.  Every shard lives on one device and every
 // launch goes on PyTorch's current stream, after the kernels that wrote the
@@ -175,10 +196,14 @@
 namespace cg = cooperative_groups;
 
 constexpr int kMaxShards = 64;   // shards a launch
+constexpr int kShardBits = 6;    // bits of a shard in a fold record's word
+static_assert(kMaxShards == 1 << kShardBits, "a record word's shard bits");
 constexpr int kMaxPlanes = 2 * kMaxShards;  // receive planes a launch
 constexpr int kMaxStages = 3;    // stages a fill
 constexpr int kMaxFields = 4;    // fields a ring_push launch
-constexpr int kPackCells = 128;  // cells a block of atom_pack
+constexpr int kPackCells = 64;   // cells a block of atom_pack
+constexpr int kScanCells = 8;    // cells a thread a round of atom_pack's sums
+constexpr int kFoldRecordVecs = 3;  // 16-byte words a fold record at most
 constexpr int kEmptyGid = 0x7fffffff;   // ops/binning.py EMPTY_GID
 constexpr int kMaxDevices = 64;  // devices the co-residency cache holds
 constexpr int kThreads = 256;
@@ -270,6 +295,9 @@ struct AtomPackArgs {
   int cap;               // entries a packed message; 0: full planes
   int n_out;             // entries a message: cap, or n_cells * A
   int elem_bytes;        // 4 (float) or 8 (double)
+  int slots;             // slots a lane moves as one vector (divides A)
+  int row_vecs;          // vectors a cell row: A / slots
+  int lg;                // log2 of the lanes a cell
   int grid_x;            // blocks a message
   int device;            // the CUDA device of the launch
   const int* ids[2];     // [d]: the face's send cells (box ids)
@@ -283,21 +311,24 @@ struct AtomPackArgs {
   bool* overflow;        // 0-dim, or-ed (packed)
 };
 
-// One fold launch: entry k is four ints (destination shard, its row, the
-// first of its sources, the end of them), source j two (shard, row).
+// One fold launch.  Record k is 4R ints: the destination (shard | row <<
+// kShardBits), its sources' count n with the start of its spill above bit
+// 8 (n | spill << 8), then its first K = 4R - 2 sources (shard | row <<
+// kShardBits) in add order; sources K..n-1 are spill[spill..].
 struct FoldArgs {
   int n_shards;          // S: the launch's fields x[0..S-1]
-  int n_entries;         // destination rows
+  int n_entries;         // destination rows: records
   int n_planes;          // P: planes of a field ([P, B, A]; [B, A]: 1)
   int elem_bytes;        // 4 (float) or 8 (double)
   int vec_bytes;         // 16, 8 or 4: the moves
   int row_vecs;          // moves a row (A slots)
   int lg;                // log2 of the lanes a row
-  int grid_x;            // blocks
+  int record_vecs;       // R: 16-byte words a record, 1..kFoldRecordVecs
+  int grid_x;            // blocks a plane (the grid's y: the planes)
   int device;            // the CUDA device of the launch
   long long plane_vecs;  // moves from a plane of a field to the next
-  const int* entry;      // [n_entries, 4], 16-byte aligned
-  const int* src;        // [sources, 2], 8-byte aligned
+  const int* record;     // [n_entries, 4R], 16-byte aligned
+  const int* spill;      // the sources past the records' K, in order
   void* x[kMaxShards];   // shard s's [P, B, A] field
 };
 
@@ -487,12 +518,20 @@ __device__ __forceinline__ int clamp_count(int n, int A) {
   return n < 0 ? 0 : (n > A ? A : n);
 }
 
-template <typename T>
+static_assert(kPackCells <= kThreads, "atom_pack's chunk: a thread a cell");
+
+template <typename T, int S>
 __global__ void __launch_bounds__(kThreads)
     atom_pack_kernel(const __grid_constant__ AtomPackArgs a) {
-  __shared__ int box_s[kPackCells], cnt_s[kPackCells], off_s[kPackCells];
-  __shared__ int part_s[kWarps][2];
-  __shared__ int base_s, count_s;
+  using VT = Pack<T, S>;
+  using VG = Pack<int, S>;
+  __shared__ int box_s[kPackCells], cnt_s[kPackCells];
+  __shared__ int off_s[kPackCells];
+  __shared__ int part_s[kWarps][3];   // a warp's sums: before, all, chunk
+  // each warp's staged entries: r's and p's six rows, gid, validity
+  __shared__ T stage_s[kWarps][6][32 * S];
+  __shared__ int gid_s[kWarps][32 * S];
+  __shared__ bool ok_s[kWarps][32 * S];
   const int m = blockIdx.y;                 // message d * S + s
   const int d = m >= a.n_shards ? 1 : 0;
   const int s = m - d * a.n_shards;
@@ -502,59 +541,66 @@ __global__ void __launch_bounds__(kThreads)
   const int first = blockIdx.x * kPackCells;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const bool packed = a.cap > 0;
-  if (packed) {   // the message's counts before this chunk, and in all
-    int before = 0, total = 0;
-    for (int c = threadIdx.x; c < a.n_cells; c += kThreads) {
-      const int n = clamp_count(n_atoms[ids[c]], A);
-      total += n;
-      if (c < first) before += n;
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      before += __shfl_xor_sync(0xffffffffu, before, o);
-      total += __shfl_xor_sync(0xffffffffu, total, o);
-    }
-    if (lane == 0) {
-      part_s[warp][0] = before;
-      part_s[warp][1] = total;
-    }
+  // this chunk's cells, a thread a cell
+  int mine = 0;
+  if (static_cast<int>(threadIdx.x) < kPackCells) {
+    const int c = first + threadIdx.x;
+    const int box = c < a.n_cells ? ids[c] : 0;
+    mine = c < a.n_cells ? clamp_count(n_atoms[box], A) : 0;
+    box_s[threadIdx.x] = box;
+    cnt_s[threadIdx.x] = mine;
   }
-  if (warp == 0) {   // this chunk: boxes, counts, offsets (one warp scan)
-    constexpr int kPer = kPackCells / 32;
-    int n[kPer], sum = 0;
+  int count = 0;   // the message's real slots (packed)
+  if (packed) {
+    // the message's counts in one pass: every id loaded, then every
+    // count, then the sums before this chunk and in all; beside them the
+    // chunk's own scan
+    int before = 0;
+    for (int r0 = 0; r0 < a.n_cells; r0 += kThreads * kScanCells) {
+      int box[kScanCells];
+      int cnt[kScanCells];
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      const int c = first + lane * kPer + i;
-      const int box = c < a.n_cells ? ids[c] : 0;
-      n[i] = c < a.n_cells ? clamp_count(n_atoms[box], A) : 0;
-      box_s[lane * kPer + i] = box;
-      cnt_s[lane * kPer + i] = n[i];
-      sum += n[i];
+      for (int i = 0; i < kScanCells; ++i) {
+        const int c = r0 + i * kThreads + threadIdx.x;
+        box[i] = c < a.n_cells ? ids[c] : 0;
+      }
+#pragma unroll
+      for (int i = 0; i < kScanCells; ++i) cnt[i] = n_atoms[box[i]];
+#pragma unroll
+      for (int i = 0; i < kScanCells; ++i) {
+        const int c = r0 + i * kThreads + threadIdx.x;
+        const int v = c < a.n_cells ? clamp_count(cnt[i], A) : 0;
+        count += v;
+        if (c < first) before += v;
+      }
     }
-    int inc = sum;
+    int inc = mine;
     for (int o = 1; o < 32; o <<= 1) {
       const int v = __shfl_up_sync(0xffffffffu, inc, o);
       if (lane >= o) inc += v;
     }
-    int off = inc - sum;
-#pragma unroll
-    for (int i = 0; i < kPer; ++i) {
-      off_s[lane * kPer + i] = off;
-      off += n[i];
+    for (int o = 16; o > 0; o >>= 1) {
+      before += __shfl_xor_sync(0xffffffffu, before, o);
+      count += __shfl_xor_sync(0xffffffffu, count, o);
     }
+    if (lane == 31) {
+      part_s[warp][0] = before;
+      part_s[warp][1] = count;
+      part_s[warp][2] = inc;
+    }
+    __syncthreads();
+    int off = inc - mine;
+    before = count = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      before += part_s[w][0];
+      count += part_s[w][1];
+      if (w < warp) off += part_s[w][2];
+    }
+    if (static_cast<int>(threadIdx.x) < kPackCells)
+      off_s[threadIdx.x] = before + off;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int before = 0, total = 0;
-    if (packed)
-      for (int w = 0; w < kWarps; ++w) {
-        before += part_s[w][0];
-        total += part_s[w][1];
-      }
-    base_s = before;
-    count_s = total;
-  }
-  __syncthreads();
-  const int base = base_s, count = count_s;
   const long long n_out = a.n_out;
   const long long plane = static_cast<long long>(a.n_rows) * A;
   T* rp = static_cast<T*>(a.rp) + static_cast<long long>(m) * 6 * n_out;
@@ -564,27 +610,8 @@ __global__ void __launch_bounds__(kThreads)
   const T* p = static_cast<const T*>(a.p[s]);
   const int* gid = a.gid[s];
   const int here = min(kPackCells, a.n_cells - first);
-  for (int i = threadIdx.x; i < here * A; i += kThreads) {
-    const int c = i / A;
-    const int slot = i - c * A;
-    const int n = cnt_s[c];
-    long long k;
-    if (packed) {
-      if (slot >= n) continue;
-      k = static_cast<long long>(base) + off_s[c] + slot;
-      if (k >= a.cap) continue;
-    } else {
-      k = static_cast<long long>(first + c) * A + slot;
-      valid[k] = slot < n;
-    }
-    const long long from = static_cast<long long>(box_s[c]) * A + slot;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      rp[q * n_out + k] = r[q * plane + from];
-      rp[(3 + q) * n_out + k] = p[q * plane + from];
-    }
-    gid_out[k] = gid[from];
-  }
+  const int sub = threadIdx.x & ((1 << a.lg) - 1);
+  const int lim_cap = packed ? a.cap : 0x7fffffff;
   if (packed) {   // this block's share of the valid flags and the tail
     const int per = (a.cap + gridDim.x - 1) / gridDim.x;
     const int lo = blockIdx.x * per;
@@ -600,45 +627,130 @@ __global__ void __launch_bounds__(kThreads)
     if (blockIdx.x == 0 && threadIdx.x == 0 && count > a.cap)
       *a.overflow = true;
   }
+  // a pass: every group one cell (and, past 32 vectors a row, one warp's
+  // width of its vectors at a time); a warp's real slots of a pass are
+  // consecutive entries, staged in shared memory and stored by
+  // consecutive lanes
+  for (int c0 = 0; c0 < here; c0 += kThreads >> a.lg) {
+    const int c = c0 + (threadIdx.x >> a.lg);
+    const bool live = c < here;
+    const int n = live ? cnt_s[c] : 0;
+    const int lim = packed ? n : A;   // the slots this cell sends
+    const long long row = live ? static_cast<long long>(box_s[c]) * A : 0;
+    const int at = !live ? 0 : packed ? off_s[c] : (first + c) * A;
+    for (int w0 = 0; w0 < a.row_vecs; w0 += 1 << a.lg) {
+      const int slot0 = (w0 + sub) * S;
+      const bool any = live && w0 + sub < a.row_vecs && slot0 < lim;
+      VT x[6];
+      VG g;
+      if (any) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          x[q] = *reinterpret_cast<const VT*>(r + q * plane + row + slot0);
+          x[3 + q] =
+              *reinterpret_cast<const VT*>(p + q * plane + row + slot0);
+        }
+        g = *reinterpret_cast<const VG*>(gid + row + slot0);
+      }
+      const int lo = __reduce_min_sync(
+          0xffffffffu, any ? at + slot0 : 0x7fffffff);
+      const int hi = min(lim_cap, __reduce_max_sync(
+          0xffffffffu, any ? at + min(slot0 + S, lim) : 0));
+      if (any) {
+#pragma unroll
+        for (int i = 0; i < S; ++i) {
+          const int e = at + slot0 + i - lo;
+          if (slot0 + i < lim && lo + e < hi) {
+#pragma unroll
+            for (int q = 0; q < 6; ++q) stage_s[warp][q][e] = x[q].v[i];
+            gid_s[warp][e] = g.v[i];
+            ok_s[warp][e] = slot0 + i < n;
+          }
+        }
+      }
+      __syncwarp();
+      for (int e = lane; e < hi - lo; e += 32) {
+        const long long k = lo + e;
+#pragma unroll
+        for (int q = 0; q < 6; ++q) rp[q * n_out + k] = stage_s[warp][q][e];
+        gid_out[k] = gid_s[warp][e];
+        if (!packed) valid[k] = ok_s[warp][e];
+      }
+      __syncwarp();
+    }
+  }
 }
 
-template <typename T, int N>
+template <typename T, int S>
+cudaError_t launch_pack(const AtomPackArgs& a, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(a.grid_x),
+                  static_cast<unsigned>(2 * a.n_shards));
+  atom_pack_kernel<T, S><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Row `word >> kShardBits` of shard `word & (kMaxShards - 1)`'s field.
+template <typename V>
+__device__ __forceinline__ V* fold_row(const FoldArgs& a, int word) {
+  return static_cast<V*>(a.x[word & (kMaxShards - 1)]) +
+         static_cast<long long>(word >> kShardBits) * a.row_vecs;
+}
+
+template <typename T, int N, int R>
 __global__ void __launch_bounds__(kThreads)
     fold_halo_kernel(const __grid_constant__ FoldArgs a) {
   using V = Pack<T, N>;
+  constexpr int K = 4 * R - 2;   // sources inline in a record
   const int lane = threadIdx.x & 31;
   const int sub = lane & ((1 << a.lg) - 1);
-  const int rows_per_warp = 32 >> a.lg;
-  const int stride = gridDim.x * kWarps * rows_per_warp;
-  const int4* entry = reinterpret_cast<const int4*>(a.entry);
-  const int2* src = reinterpret_cast<const int2*>(a.src);
-  for (int k = (blockIdx.x * kWarps + (threadIdx.x >> 5)) * rows_per_warp +
-               (lane >> a.lg);
-       k < a.n_entries; k += stride) {
-    const int4 e = entry[k];
-    V* into = static_cast<V*>(a.x[e.x]) +
-              static_cast<long long>(e.y) * a.row_vecs;
-    for (int q = 0; q < a.n_planes; ++q) {
-      const long long at = q * a.plane_vecs;
-      for (int w = sub; w < a.row_vecs; w += 1 << a.lg) {
-        V acc = into[at + w];
-        for (int j = e.z; j < e.w; ++j) {
-          const int2 f = src[j];
-          const V v = (static_cast<const V*>(a.x[f.x]) +
-                       static_cast<long long>(f.y) * a.row_vecs)[at + w];
+  const int k = (blockIdx.x * kWarps + (threadIdx.x >> 5)) *
+                    (32 >> a.lg) + (lane >> a.lg);
+  if (k >= a.n_entries) return;
+  int w[4 * R];
+  const int4* rec =
+      reinterpret_cast<const int4*>(a.record) + static_cast<long long>(k) * R;
 #pragma unroll
-          for (int i = 0; i < N; ++i) acc.v[i] = add_rn(acc.v[i], v.v[i]);
-        }
-        into[at + w] = acc;
+  for (int i = 0; i < R; ++i) {
+    const int4 q = rec[i];
+    w[4 * i] = q.x;
+    w[4 * i + 1] = q.y;
+    w[4 * i + 2] = q.z;
+    w[4 * i + 3] = q.w;
+  }
+  const int n = w[1] & 0xff;
+  const long long at = static_cast<long long>(blockIdx.y) * a.plane_vecs;
+  V* __restrict__ into = fold_row<V>(a, w[0]) + at;
+  for (int v = sub; v < a.row_vecs; v += 1 << a.lg) {
+    V acc = into[v];
+    V src[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j < n) src[j] = (fold_row<const V>(a, w[2 + j]) + at)[v];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (j < n) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) acc.v[i] = add_rn(acc.v[i], src[j].v[i]);
       }
+    for (int j = K; j < n; ++j) {   // the spill, in order
+      const V x = (fold_row<const V>(a, a.spill[(w[1] >> 8) + j - K]) + at)[v];
+#pragma unroll
+      for (int i = 0; i < N; ++i) acc.v[i] = add_rn(acc.v[i], x.v[i]);
     }
+    into[v] = acc;
   }
 }
 
 template <typename T, int N>
 cudaError_t launch_fold(const FoldArgs& a, cudaStream_t stream) {
-  fold_halo_kernel<T, N>
-      <<<static_cast<unsigned>(a.grid_x), kThreads, 0, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>(a.grid_x),
+                  static_cast<unsigned>(a.n_planes));
+  if (a.record_vecs == 1)
+    fold_halo_kernel<T, N, 1><<<grid, kThreads, 0, stream>>>(a);
+  else if (a.record_vecs == 2)
+    fold_halo_kernel<T, N, 2><<<grid, kThreads, 0, stream>>>(a);
+  else
+    fold_halo_kernel<T, N, 3><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -825,9 +937,14 @@ int comd_atom_pack(const AtomPackArgs* a, void* stream) {
       a->n_cells < 1 || a->row_elems < 1 || a->n_rows < 1 || a->cap < 0 ||
       a->n_out != (a->cap > 0 ? a->cap : a->n_cells * a->row_elems) ||
       a->grid_x != (a->n_cells + kPackCells - 1) / kPackCells ||
-      (a->elem_bytes != 4 && a->elem_bytes != 8) || a->ids[0] == nullptr ||
-      a->ids[1] == nullptr || a->rp == nullptr || a->gid_out == nullptr ||
-      a->valid == nullptr || (a->cap > 0 && a->overflow == nullptr))
+      (a->elem_bytes != 4 && a->elem_bytes != 8) ||
+      a->slots < 1 || (a->slots & (a->slots - 1)) != 0 ||
+      a->slots * a->elem_bytes > 16 ||
+      a->row_elems % a->slots != 0 ||
+      a->row_vecs != a->row_elems / a->slots || !lg_ok(a->lg) ||
+      a->ids[0] == nullptr || a->ids[1] == nullptr || a->rp == nullptr ||
+      a->gid_out == nullptr || a->valid == nullptr ||
+      (a->cap > 0 && a->overflow == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   for (int s = 0; s < a->n_shards; ++s)
     if (a->r[s] == nullptr || a->p[s] == nullptr || a->gid[s] == nullptr ||
@@ -835,14 +952,16 @@ int comd_atom_pack(const AtomPackArgs* a, void* stream) {
       return static_cast<int>(cudaErrorInvalidValue);
   DeviceGuard guard(a->device);
   if (guard.err != cudaSuccess) return static_cast<int>(guard.err);
-  const dim3 grid(static_cast<unsigned>(a->grid_x),
-                  static_cast<unsigned>(2 * a->n_shards));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (a->elem_bytes == 4)
-    atom_pack_kernel<float><<<grid, kThreads, 0, st>>>(*a);
+    err = a->slots == 4   ? launch_pack<float, 4>(*a, st)
+          : a->slots == 2 ? launch_pack<float, 2>(*a, st)
+                          : launch_pack<float, 1>(*a, st);
   else
-    atom_pack_kernel<double><<<grid, kThreads, 0, st>>>(*a);
-  return static_cast<int>(cudaGetLastError());
+    err = a->slots == 2 ? launch_pack<double, 2>(*a, st)
+                        : launch_pack<double, 1>(*a, st);
+  return static_cast<int>(err);
 }
 
 // One fold launch (the serial fold, or one stage of the mesh's).  Returns
@@ -850,8 +969,9 @@ int comd_atom_pack(const AtomPackArgs* a, void* stream) {
 int comd_fold_halo(const FoldArgs* a, void* stream) {
   if (a == nullptr || a->n_shards < 1 || a->n_shards > kMaxShards ||
       a->n_entries < 1 || a->n_planes < 1 || a->row_vecs < 1 ||
-      !lg_ok(a->lg) || a->grid_x < 1 || a->entry == nullptr ||
-      a->src == nullptr || a->plane_vecs < a->row_vecs ||
+      !lg_ok(a->lg) || a->grid_x < 1 || a->record == nullptr ||
+      a->record_vecs < 1 || a->record_vecs > kFoldRecordVecs ||
+      a->spill == nullptr || a->plane_vecs < a->row_vecs ||
       (a->elem_bytes != 4 && a->elem_bytes != 8) ||
       (a->vec_bytes != 4 && a->vec_bytes != 8 && a->vec_bytes != 16) ||
       a->vec_bytes < a->elem_bytes)

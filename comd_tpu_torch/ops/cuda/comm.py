@@ -84,7 +84,9 @@ MAX_STAGES = 3      # stages a fill (kMaxStages)
 MAX_FIELDS = 4      # fields a ring_push launch (kMaxFields)
 MAX_PLANES = 2 * MAX_SHARDS   # receive planes a launch (kMaxPlanes)
 WARPS = 8           # warps a block (kThreads / 32)
-PACK_CELLS = 128    # cells a block of atom_pack (kPackCells)
+PACK_CELLS = 64     # cells a block of atom_pack (kPackCells)
+SHARD_BITS = 6      # bits of a shard in a fold record's word (kShardBits)
+FOLD_RECORD_VECS = 3   # 16-byte words a fold record at most (kFoldRecordVecs)
 
 
 # --------------------------------------------------------------------------
@@ -518,8 +520,10 @@ class AtomPackPlan:
     length, d = 0 the minus face); ``cap``: entries a count-packed message
     (0: full planes, n_cells * A entries); every shard's positions and
     momenta [3, B, A] of ``dtype``.  Buffers, made once: ``rp`` [2, S, 6,
-    n_out] (r's three rows, then p's), ``gid`` [2, S, n_out] int32, ``valid``
-    [2, S, n_out] bool, message (d, s) at [d, s]."""
+    n_out] (r's three rows, then p's), ``gid`` [2, S, n_out] int32,
+    ``valid`` [2, S, n_out] bool, message (d, s) at [d, s].  On the
+    device a block takes PACK_CELLS cells, and each lane a vector of
+    ``slots`` slots (16 bytes where A allows)."""
 
     def __init__(self, ids, cap: int, n_shards: int, shape, dtype, device):
         device = _device(device)
@@ -541,6 +545,9 @@ class AtomPackPlan:
         self.n_cells = n
         self.n_out = self.cap or n * A
         self.grid_x = -(-n // PACK_CELLS)
+        self.slots = _vec_bytes(A * dtype.itemsize) // dtype.itemsize
+        self.row_vecs = A // self.slots
+        self.lg = _lanes_lg(self.row_vecs)
         S = n_shards
         self.rp = torch.zeros((2, S, 6, self.n_out), dtype=dtype,
                               device=device)
@@ -559,7 +566,8 @@ class AtomPackPlan:
             a = self.args = _AtomPackArgs()
             a.n_shards, a.n_cells, a.row_elems, a.n_rows = S, n, A, B
             a.cap, a.n_out, a.elem_bytes = self.cap, self.n_out, dtype.itemsize
-            a.grid_x, a.device = self.grid_x, self.device_index
+            a.slots, a.row_vecs = self.slots, self.row_vecs
+            a.lg, a.grid_x, a.device = self.lg, self.grid_x, self.device_index
             a.ids[:] = [t.data_ptr() for t in self.ids]
             a.rp, a.gid_out = self.rp.data_ptr(), self.gid.data_ptr()
             a.valid = self.valid.data_ptr()
@@ -588,11 +596,16 @@ class FoldPlan:
     (``FoldMap``) over ``n_shards`` shards' fields of ``shape`` ([B, A] or
     [P, B, A]) and ``dtype``, grouped by destination (a destination's adds
     keep their order).  Checked when made: no row the plan reads is a row
-    it writes, so a launch needs no barrier.  On the device: the entries
-    [N, 4] int32 (destination shard, row, first source, end) and the
-    sources [M, 2] int32 (shard, row); for the plain version the adds rank
-    by rank (the k-th add of every destination that has one), each rank as
-    (destination shard, source shard, destination rows, source rows)."""
+    it writes, so a launch needs no barrier.  On the device one record a
+    destination, ``record`` [N, 4R] int32 (R = ``record_vecs`` 16-byte
+    words, the fewest that hold every destination's sources inline, at
+    most FOLD_RECORD_VECS): the destination (shard | row << SHARD_BITS),
+    its sources' count n with the start of its spill (n | spill << 8),
+    then its first K = 4R - 2 sources (shard | row << SHARD_BITS) in add
+    order; ``spill`` holds every record's sources past K, in order.  For
+    the plain version the adds rank by rank (the k-th add of every
+    destination that has one), each rank as (destination shard, source
+    shard, destination rows, source rows)."""
 
     def __init__(self, adds: FoldMap, shape, dtype, device, n_shards: int):
         device = _device(device)
@@ -637,10 +650,27 @@ class FoldPlan:
                                                       device=device),
                                torch.as_tensor(src_row[sel], device=device)))
             self.ranks.append(groups)
-        self.entry = torch.as_tensor(np.stack(
-            [dst[first], dst_row[first], first, end], 1).astype(np.int32),
-            device=device)
-        self.src = torch.as_tensor(np.stack([src, src_row], 1).astype(
+        n_src = end - first
+        if B > 2 ** (31 - SHARD_BITS) or n_src.max() > 255:
+            raise ValueError(f"a fold record holds rows below "
+                             f"{2 ** (31 - SHARD_BITS)} and 255 sources a "
+                             f"row, got {B} rows, {n_src.max()} sources")
+        R = self.record_vecs = min(FOLD_RECORD_VECS,
+                                   -(-(int(n_src.max()) + 2) // 4))
+        K = 4 * R - 2
+        word = src | src_row << SHARD_BITS
+        spilled = np.maximum(n_src - K, 0)
+        spill_at = np.cumsum(spilled) - spilled
+        if spill_at[-1] + spilled[-1] >= 2 ** 23:
+            raise ValueError("a fold's spill outgrows its records' 23 bits")
+        record = np.zeros((first.size, 4 * R), np.int64)
+        record[:, 0] = dst[first] | dst_row[first] << SHARD_BITS
+        record[:, 1] = n_src | spill_at << 8
+        inline = np.arange(K) < n_src[:, None]
+        record[:, 2:][inline] = word[(first[:, None] + np.arange(K))[inline]]
+        self.record = torch.as_tensor(record.astype(np.int32), device=device)
+        # never empty: the kernel takes a pointer
+        self.spill = torch.as_tensor(np.r_[word[rank >= K], 0].astype(
             np.int32), device=device)
         self.vec = _vec_bytes(A * dtype.itemsize)
         self.row_vecs = A * dtype.itemsize // self.vec
@@ -649,15 +679,15 @@ class FoldPlan:
         self.args = None
         if device.type == "cuda":
             self.device_index = device.index
-            _aligned([self.entry.data_ptr()], 16, "fold_halo entries")
-            _aligned([self.src.data_ptr()], 8, "fold_halo sources")
+            _aligned([self.record.data_ptr()], 16, "fold_halo records")
             a = self.args = _FoldArgs()
             a.n_shards, a.n_entries, a.n_planes = S, self.n_entries, P
             a.elem_bytes, a.vec_bytes = dtype.itemsize, self.vec
             a.row_vecs, a.lg, a.grid_x = self.row_vecs, self.lg, self.grid_x
-            a.device = self.device_index
+            a.record_vecs, a.device = R, self.device_index
             a.plane_vecs = B * self.row_vecs
-            a.entry, a.src = self.entry.data_ptr(), self.src.data_ptr()
+            a.record = self.record.data_ptr()
+            a.spill = self.spill.data_ptr()
             self.ref = ctypes.byref(a)
 
 
@@ -861,7 +891,7 @@ class _PositionArgs(ctypes.Structure):
 class _AtomPackArgs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_int) for k in (
         "n_shards", "n_cells", "row_elems", "n_rows", "cap", "n_out",
-        "elem_bytes", "grid_x", "device")] + [
+        "elem_bytes", "slots", "row_vecs", "lg", "grid_x", "device")] + [
         ("ids", ctypes.c_void_p * 2),
         ("r", ctypes.c_void_p * MAX_SHARDS),
         ("p", ctypes.c_void_p * MAX_SHARDS),
@@ -874,9 +904,9 @@ class _AtomPackArgs(ctypes.Structure):
 class _FoldArgs(ctypes.Structure):
     _fields_ = [(k, ctypes.c_int) for k in (
         "n_shards", "n_entries", "n_planes", "elem_bytes", "vec_bytes",
-        "row_vecs", "lg", "grid_x", "device")] + [
-        ("plane_vecs", ctypes.c_longlong), ("entry", ctypes.c_void_p),
-        ("src", ctypes.c_void_p), ("x", ctypes.c_void_p * MAX_SHARDS)]
+        "row_vecs", "lg", "record_vecs", "grid_x", "device")] + [
+        ("plane_vecs", ctypes.c_longlong), ("record", ctypes.c_void_p),
+        ("spill", ctypes.c_void_p), ("x", ctypes.c_void_p * MAX_SHARDS)]
 
 
 _lib = None
@@ -1089,6 +1119,9 @@ def atom_pack(plan: AtomPackPlan, r, p, gid, n_atoms, overflow) -> list:
     a.r[:S] = _pointers(r, S, plan.shape, plan.dtype, dev, "atom_pack r")
     a.p[:S] = _pointers(p, S, plan.shape, plan.dtype, dev, "atom_pack p")
     a.gid[:S] = _pointers(gid, S, (B, A), torch.int32, dev, "atom_pack gid")
+    _aligned(list(a.r[:S]) + list(a.p[:S]), plan.slots * plan.dtype.itemsize,
+             "atom_pack r, p")
+    _aligned(a.gid[:S], plan.slots * 4, "atom_pack gid")
     a.n_atoms[:S] = _pointers(n_atoms, S, (B,), torch.int32, dev,
                               "atom_pack n_atoms")
     if overflow.shape != () or overflow.dtype != torch.bool or \

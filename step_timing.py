@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the step's small kernels (csrc/step.cu), the serial and the mesh's
 rebucket body (csrc/rebucket.cu, csrc/arrivals.cu), the mesh's ghost
-refresh (csrc/comm.cu) and the step graph's branch of one or more source
-trees on one GPU, in turns.
+refresh, the half-shell fold and the collective atom messages
+(csrc/comm.cu) and the step graph's branch of one or more source trees
+on one GPU, in turns.
 
     python3 step_timing.py [--cases REGEX] [TREE ...]
 
@@ -59,6 +60,17 @@ graphs (CUDA events around replays; ms a launch):
   mesh refresh position_fill
                      that launch's device ms (torch.profiler over 20
                      refreshes, mean a launch), on a tree that has it
+  fold serial        the half-shell fold's one launch at the 63^3
+                     --halfShell geometry, [3, B, A] f32 noise (device
+                     ms, torch.profiler over 20 folds, mean a launch)
+  fold mesh          the 2x2x2 mesh's fold (ki_comm.fold_halo_ki), its
+                     three stage launches together (3 x the mean a
+                     launch over 20 folds)
+  atom_pack stage    collective's atom messages of one stage (one launch,
+                     every shard and both faces) at the displaced 63^3
+                     f32 2x2x2 collective state (numpy seed 81, up to
+                     0.5 A, rebucketed with the halo landers kept): the
+                     mean a launch over the three stages' plans
   branch             one replay of a graph of the serial step's head and
                      its IF nodes (the rebucket's body one small kernel):
                      the trigger with the images and one IF node, or on a
@@ -77,7 +89,8 @@ workers run in the order given and then in reverse (give the parent and
 this tree: parent, change, change, parent).  ``--cases REGEX`` times
 only the cases whose names it matches (the launch forms' names start
 with "embed_fill " and "halo fill "), and starts the mesh only for a
-mesh or unload case.  Prints the card's name and power limit, one JSON
+mesh, unload or fold case (e.g. "fold|atom_pack": the two folds and the
+atom messages).  Prints the card's name and power limit, one JSON
 line a worker, then one JSON line of each tree's means.
 """
 from __future__ import annotations
@@ -158,16 +171,12 @@ def branch_ms(torch, sim, p, r, f, last, reps: int = 200) -> float:
     return time_ms(graph.replay, reps)
 
 
-def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
-                 reps: int = 20) -> dict:
-    """The mesh's atom-exchange unload on a displaced state: the unload
-    replayed in a graph (its restore taken out) and each of its kernels'
-    device ms a launch (torch.profiler; profiled again, eight times at
-    most, while a kernel has no record)."""
+def displaced(torch, mesh, seed: int, scale: float = 0.5) -> list:
+    """The mesh's shards with every local atom moved by up to ``scale`` A
+    (numpy, seeded) and rebucketed with the halo landers kept: (r, p,
+    gid, n_atoms) lists, the state an atom exchange starts from."""
     import numpy as np
     from comd_tpu_torch.ops import binning
-    from comd_tpu_torch.ops.cuda import arrivals as av
-    from comd_tpu_torch.parallel import ki_comm
     rng = np.random.default_rng(seed)
     nl = mesh.geom.n_local
     start = []
@@ -181,7 +190,18 @@ def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
         r[:, :nl] += torch.where(valid[None], d, torch.zeros_like(d))
         start.append(binning.rebucket(mesh.geom, mesh.maps, r, s.p, s.gid,
                                       s.n_atoms, keep_halo=True)[:4])
-    start = [list(f) for f in zip(*start)]
+    return [list(f) for f in zip(*start)]
+
+
+def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
+                 reps: int = 20) -> dict:
+    """The mesh's atom-exchange unload on a displaced state: the unload
+    replayed in a graph (its restore taken out) and each of its kernels'
+    device ms a launch (torch.profiler; profiled again, eight times at
+    most, while a kernel has no record)."""
+    from comd_tpu_torch.ops.cuda import arrivals as av
+    from comd_tpu_torch.parallel import ki_comm
+    start = displaced(torch, mesh, seed, scale)
     work = [[t.clone() for t in x] for x in start]
     out = [[torch.empty_like(t) for t in x] for x in start[:3]]
 
@@ -202,6 +222,60 @@ def unload_times(torch, mesh, seed: int = 61, scale: float = 0.5,
         "arrivals_place_kernel": "unload arrivals_place",
         "sort_cells": "unload sort_cells"}, reps))
     return res
+
+
+def pack_times(torch) -> dict:
+    """The collective transport's atom_pack at the displaced 63^3 f32
+    2x2x2 state (numpy seed 81, up to 0.5 A): device ms a launch, the
+    mean of the three stages' plans (torch.profiler)."""
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.parallel import exchange
+    sim = init_simulation(Config(
+        nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
+        dtype="float32", max_atoms=0, cell_mode="auto",
+        pot_dir=os.path.join(ROOT, "pots"), device="cuda",
+        comm_impl="collective", xproc=2, yproc=2, zproc=2))
+    r, p, gid, n_atoms = displaced(torch, sim, 81)
+    flag = torch.zeros((), dtype=torch.bool, device="cuda")
+    plans = [exchange.pack_plan(sim.halo, axis, r[0]) for axis in range(3)]
+
+    def packs():
+        for pl in plans:
+            cm.atom_pack(pl, r, p, gid, n_atoms, flag)
+    return kernel_ms(torch, packs, {"atom_pack_kernel": "atom_pack stage"})
+
+
+def fold_times(torch, mesh, want) -> dict:
+    """The half-shell fold's device ms (torch.profiler) on [3, B, A] f32
+    noise: serially one launch at the 63^3 --halfShell geometry; on the
+    2x2x2 ``mesh`` a fold's three stage launches (z, y, x) together."""
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops.cuda import comm as cm
+    from comd_tpu_torch.ops.sweep import fold_plan_serial
+    from comd_tpu_torch.parallel import ki_comm
+    gen = torch.Generator(device="cuda").manual_seed(82)
+    out = {}
+    if want("fold serial"):
+        half = init_simulation(Config(
+            nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
+            dtype="float32", max_atoms=0, cell_mode="auto",
+            half_shell=True, pot_dir=os.path.join(ROOT, "pots"),
+            device="cuda"))
+        x = torch.rand((3, half.geom.n_total, half.cfg.max_atoms),
+                       device="cuda", generator=gen) - 0.5
+        plan = fold_plan_serial(half.maps, x)
+        out.update(kernel_ms(torch, lambda: cm.fold_halo(plan, [x]),
+                             {"fold_halo_kernel": "fold serial"}))
+        del half, x, plan
+    if want("fold mesh"):
+        shape = (3, mesh.geom.n_total, mesh.cfg.max_atoms)
+        xs = [torch.rand(shape, device="cuda", generator=gen) - 0.5
+              for _ in mesh.states]
+        got = kernel_ms(torch, lambda: ki_comm.fold_halo_ki(mesh.halo, xs),
+                        {"fold_halo_kernel": "fold mesh"})
+        out["fold mesh"] = 3 * got["fold mesh"]
+    return out
 
 
 def kernel_ms(torch, fn, kernels: dict, reps: int = 20) -> dict:
@@ -382,7 +456,8 @@ def worker(tree: str, cases_re: str) -> dict:
     if want("rebucket_"):
         out.update(rebucket_kernels(torch, sim))
     if want("mesh rebucket body") or want("unload ") or \
-            want("mesh refresh"):
+            want("mesh refresh") or want("fold serial") or \
+            want("fold mesh"):
         # the 2x2x2 mesh's (ki_fused in one process): eight rebuckets,
         # the atom exchange and the sort; a graph of 2 calls (a tree
         # whose exchange is torch ops makes thousands of nodes a call)
@@ -405,6 +480,10 @@ def worker(tree: str, cases_re: str) -> dict:
                 hasattr(comm, "position_fill"):
             out.update(kernel_ms(torch, mesh._refresh, {
                 "position_fill_kernel": "mesh refresh position_fill"}))
+        out.update(fold_times(torch, mesh, want))
+        del mesh
+    if want("atom_pack stage"):
+        out.update(pack_times(torch))
     if want("branch"):
         out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM") and want("embed_fill "):

@@ -24,8 +24,12 @@ these tests hold, bit for bit, against:
     staged torch ``exchange.fold_halo`` (f32) on the three meshes;
   - a 2x2x2 --halfShell run (f32) through the dispatch against the same
     run on the torch fold;
+  - the fold plans' device records (the destination, the sources inline,
+    the spill) decoded with numpy against the FoldMap they were made
+    from, in its per-destination order: the serial plan at 8^3, a map
+    that spills, ki_comm.fold_plan on the three meshes;
   - the plans' refusals and the ctypes argument structs against
-    csrc/comm.cu's AtomPackArgs and FoldArgs.
+    csrc/comm.cu's AtomPackArgs and FoldArgs and its constants.
 
 The kernels themselves are held on the card (tests/test_torch_kernel_cuda.py,
 chip_smoke.py phase 22).
@@ -323,8 +327,9 @@ def test_half_mesh_run_through_the_dispatch_equals_torch_fold(monkeypatch):
 
 def test_plans_refuse_what_the_kernels_cannot_take(setup):
     """A fold plan is refused for a row it both reads and writes (its
-    launch has no barrier), an add outside the shards or rows, and an
-    integer field; a pack plan for faces of different lengths and
+    launch has no barrier), an add outside the shards or rows, more than
+    255 sources a destination (its record's 8-bit count), and an integer
+    field; a pack plan for faces of different lengths and
     positions that are not [3, B, A] float."""
     sim, reb, _jg, _jm, _grid = setup
     B, A = sim.geom.n_total, sim.cfg.max_atoms
@@ -341,6 +346,10 @@ def test_plans_refuse_what_the_kernels_cannot_take(setup):
     with pytest.raises(ValueError, match="outside"):
         cm.FoldPlan(ok._replace(src=np.array([0, 1])), (B, A),
                     torch.float32, "cpu", 1)
+    with pytest.raises(ValueError, match="255 sources"):
+        cm.FoldPlan(cm.FoldMap(np.zeros(256, int), np.zeros(256, int),
+                               np.zeros(256, int), np.full(256, B - 1)),
+                    (B, A), torch.float32, "cpu", 1)
     with pytest.raises(ValueError, match="float"):
         cm.FoldPlan(ok, (B, A), torch.int32, "cpu", 1)
     h = sim.halo
@@ -351,6 +360,100 @@ def test_plans_refuse_what_the_kernels_cannot_take(setup):
     with pytest.raises(ValueError, match=r"\[3, B, A\]"):
         cm.AtomPackPlan(ids, 0, sim.mesh.size, reb[0][2].shape,
                         torch.float64, "cpu")
+
+
+def _decoded_adds(plan) -> list:
+    """A fold plan's device records and spill read back with numpy: every
+    add as (destination shard, row, source shard, row), destination by
+    destination, each destination's sources in the order the kernel adds
+    them (its K inline sources, then its spill)."""
+    rec = plan.record.numpy().astype(np.int64)
+    spill = plan.spill.numpy().astype(np.int64)
+    K = 4 * plan.record_vecs - 2
+    assert rec.shape == (plan.n_entries, 4 * plan.record_vecs)
+    bits, mask = cm.SHARD_BITS, (1 << cm.SHARD_BITS) - 1
+    adds = []
+    for w in rec:
+        n, at = int(w[1] & 0xff), int(w[1] >> 8)
+        words = list(w[2:2 + min(n, K)]) + list(spill[at:at + max(n - K, 0)])
+        adds += [(int(w[0] & mask), int(w[0] >> bits), int(v & mask),
+                  int(v >> bits)) for v in words]
+    return adds
+
+
+def _fold_map_adds(adds, B) -> list:
+    """A FoldMap's adds grouped by destination in a stable order: the
+    order in which a fold adds them."""
+    dst, dst_row, src, src_row = (np.asarray(v, np.int64) for v in adds)
+    order = np.argsort(dst * B + dst_row, kind="stable")
+    return [tuple(int(v[k]) for v in (dst, dst_row, src, src_row))
+            for k in order]
+
+
+def _captured_plans(monkeypatch) -> list:
+    """Every FoldPlan made from here on, beside the FoldMap it was given."""
+    made = []
+
+    class Captured(cm.FoldPlan):
+        def __init__(self, adds, *args, **kwargs):
+            super().__init__(adds, *args, **kwargs)
+            made.append((adds, self))
+
+    monkeypatch.setattr(cm, "FoldPlan", Captured)
+    monkeypatch.setattr(ki_comm, "FoldPlan", Captured)
+    return made
+
+
+def test_fold_records_decode_to_the_serial_fold_map(monkeypatch):
+    """The serial fold plan's records at 8^3 (f32 --halfShell, [3, B, A]
+    and [B, A]) decode to the FoldMap's adds in its per-destination order:
+    three 16-byte words a record, so a corner cell's 7 images lie inline
+    and nothing spills; a map with a destination of 12 sources and one of
+    1 spills the 12's last two, in order, and folds as its adds say."""
+    made = _captured_plans(monkeypatch)
+    sim = init_simulation(Config(nx=8, ny=8, nz=8, doeam=True,
+                                 half_shell=True, dtype="float32",
+                                 pot_dir=POTS, device="cpu"))
+    B, A = sim.geom.n_total, sim.cfg.max_atoms
+    for shape in ((3, B, A), (B, A)):
+        fold_plan_serial(sim.maps, torch.zeros(shape))
+    assert len(made) == 2
+    for adds, plan in made:
+        assert plan.record_vecs == 3 and plan.spill.numel() == 1
+        assert max(np.bincount(np.asarray(adds.dst_row))) == 7
+        assert _decoded_adds(plan) == _fold_map_adds(adds, B)
+    made.clear()
+    big = cm.FoldMap(np.zeros(13, int), np.r_[np.full(12, 2), 0],
+                     np.zeros(13, int), np.arange(20, 7, -1))
+    plan = cm.FoldPlan(big, (B, A), torch.float64, "cpu", 1)
+    assert plan.record_vecs == 3 and plan.n_entries == 2
+    assert plan.spill.numpy().tolist() == [10 << cm.SHARD_BITS,
+                                           9 << cm.SHARD_BITS, 0]
+    assert _decoded_adds(plan) == _fold_map_adds(big, B)
+    x = torch.rand(B, A, dtype=torch.float64)
+    want = x.clone()
+    for t, r in zip(big.dst_row, big.src_row):
+        want[t] += x[r]
+    got = cm.fold_halo(plan, [x.clone()])[0]
+    assert torch.equal(got, want)
+
+
+def test_fold_records_decode_to_the_mesh_fold_map(setup, monkeypatch):
+    """ki_comm.fold_plan's records on each mesh (a fresh Halo, three
+    stages, [B, A] and [3, B, A]) decode to the FoldMap's adds in its
+    per-destination order (the plus neighbor's row before the minus
+    neighbor's): one 16-byte word a record, two sources inline."""
+    sim, _reb, _jg, _jm, _grid = setup
+    made = _captured_plans(monkeypatch)
+    h = tex.make_halo(sim.mesh, sim.geom, sim.maps, sim.plan, sim.dtype)
+    B, A = sim.geom.n_total, sim.cfg.max_atoms
+    for shape in ((B, A), (3, B, A)):
+        for axis in range(3):
+            ki_comm.fold_plan(h, axis, torch.zeros(shape))
+    assert len(made) == 6
+    for adds, plan in made:
+        assert plan.record_vecs == 1 and plan.spill.numel() == 1
+        assert _decoded_adds(plan) == _fold_map_adds(adds, B)
 
 
 def _cu_struct(name: str) -> list:
@@ -381,7 +484,8 @@ def _cu_struct(name: str) -> list:
 def test_args_mirror_the_source(name, mirror):
     """ops/cuda/comm.py's ctypes structs hold csrc/comm.cu's members in
     order and kind (an int, a long long, a pointer; the array extents),
-    and the pack's cells a block equal the kernel's."""
+    and the pack's chunk and the fold records' shard bits and width equal
+    the kernel's."""
     members, consts = _cu_struct(name)
     kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
              ctypes.c_longlong: "long long"}
@@ -394,5 +498,7 @@ def test_args_mirror_the_source(name, mirror):
         got.append((member, kinds[t], dims))
     assert members == got
     assert consts["kPackCells"] == cm.PACK_CELLS
-    assert consts["kMaxShards"] == cm.MAX_SHARDS
+    assert consts["kFoldRecordVecs"] == cm.FOLD_RECORD_VECS
+    assert consts["kMaxShards"] == cm.MAX_SHARDS == 1 << cm.SHARD_BITS
+    assert consts["kShardBits"] == cm.SHARD_BITS
     assert ctypes.sizeof(getattr(cm, mirror)) < 4096

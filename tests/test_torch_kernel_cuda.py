@@ -2059,7 +2059,51 @@ def test_arrivals_kernels_refuse_what_they_do_not_take(cuda_device):
         av.sort_shards([f[0]], [f[1]], [f[2].cpu()])
 
 
-@pytest.mark.parametrize("cap", ["packed", "full", "overflow"])
+def _pack_edges(r, p, gid) -> None:
+    """atom_pack against atom_pack_plain on synthetic messages of the
+    shards' fields (r, p, gid), bit for bit: messages of 2 chunks + 1
+    cells (PACK_CELLS a chunk; random cells, a cell at times twice; counts
+    0 to A + 2), count-packed with room, with a cap that overflows inside
+    the second chunk, all counts zero, full planes; each launched twice
+    into the same buffers, poisoned between the launches, the same
+    bits."""
+    S, (B, A) = len(r), r[0].shape[1:]
+    rng = np.random.default_rng(21)
+    counts = [torch.as_tensor(rng.integers(0, A + 3, B), dtype=torch.int32,
+                              device="cuda") for _ in range(S)]
+    zero = [torch.zeros_like(c) for c in counts]
+    chunk = cm.PACK_CELLS
+    n = 2 * chunk + 1
+    ids = tuple(torch.as_tensor(rng.integers(0, B, n),
+                                dtype=torch.int32, device="cuda")
+                for _ in range(2))
+    first = counts[0][ids[0].long()].clamp(0, A)
+    inside = int(first[:chunk + 5].sum()) + 1
+    for cnt, cap, tag in ((counts, n * A, "packed"),
+                          (counts, inside, "overflow"),
+                          (zero, 256, "zero"), (counts, 0, "full")):
+        kp, pp = (cm.AtomPackPlan(ids, cap, S, r[0].shape, r[0].dtype,
+                                  "cuda") for _ in range(2))
+        flags = [torch.zeros((), dtype=torch.bool, device="cuda")
+                 for _ in range(3)]
+        runs = []
+        for f in flags[:2]:
+            st.reset_launch_counts()
+            cm.atom_pack(kp, r, p, gid, cnt, f)
+            assert st.LAUNCHES["atom_pack"] == 1
+            runs.append([kp.rp.clone(), kp.gid.clone(), kp.valid.clone()])
+            kp.rp.fill_(float("nan"))
+            kp.gid.fill_(-7)
+            kp.valid.fill_(tag != "zero")
+        cm.atom_pack_plain(pp, r, p, gid, cnt, flags[2])
+        for got in runs:
+            assert _bit_equal([got[0]], [pp.rp]), tag
+            assert torch.equal(got[1], pp.gid), tag
+            assert torch.equal(got[2], pp.valid), tag
+        assert [bool(f) for f in flags] == [tag == "overflow"] * 3
+
+
+@pytest.mark.parametrize("cap", ["packed", "full", "overflow", "edges"])
 @pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_atom_pack_matches_plain(cuda_device, dtype, mesh, cap):
@@ -2067,15 +2111,19 @@ def test_atom_pack_matches_plain(cuda_device, dtype, mesh, cap):
     tensors, bit for bit in every buffer (r, p, gid, valid) and the
     overflow flag, at every stage of a displaced mesh state's collective
     exchange, one launch a stage: count-packed at the plan's caps, full
-    planes, and a cap of 16 that overflows."""
+    planes, and a cap of 16 that overflows; "edges": the chunks' edges on
+    synthetic messages (``_pack_edges``)."""
     import dataclasses
     sim = _mesh_sim(dtype, mesh, comm_impl="collective")
+    r, p, gid, n_atoms = _displaced_shards(sim, 8)
+    if cap == "edges":
+        _pack_edges(r, p, gid)
+        return
     caps = {"packed": sim.plan.atom_cap, "full": (0, 0, 0),
             "overflow": (16, 16, 16)}[cap]
     h = exchange.make_halo(sim.mesh, sim.geom, sim.maps,
                            dataclasses.replace(sim.plan, atom_cap=caps),
                            sim.dtype)
-    r, p, gid, n_atoms = _displaced_shards(sim, 8)
     S = len(r)
     overflow = torch.zeros((), dtype=torch.bool, device="cuda")
     flags = []
@@ -2100,29 +2148,50 @@ def test_atom_pack_matches_plain(cuda_device, dtype, mesh, cap):
     assert all(flags) if cap == "overflow" else not any(flags)
 
 
+def _spill_map(B: int) -> cm.FoldMap:
+    """A fold of two shards whose 40 destinations (rows 0-19 of each)
+    take 1 to 16 sources (random rows 100 and up of either shard, in
+    random order), so records spill past their K inline sources."""
+    rng = np.random.default_rng(17)
+    n = rng.integers(1, 17, 40)
+    dst = np.repeat(np.arange(40) // 20, n)
+    dst_row = np.repeat(np.arange(40) % 20, n)
+    src = rng.integers(0, 2, n.sum())
+    src_row = rng.integers(100, B, n.sum())
+    order = rng.permutation(n.sum())
+    return cm.FoldMap(dst[order], dst_row[order], src[order], src_row[order])
+
+
 @pytest.mark.parametrize("A", [None, 13])
-@pytest.mark.parametrize("where", ["serial", "2x2x2", "3x2x1"])
+@pytest.mark.parametrize("where", ["serial", "2x2x2", "3x2x1", "spill"])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 def test_fold_halo_matches_plain(cuda_device, dtype, where, A):
     """csrc/comm.cu's fold_halo against fold_halo_plain on the same CUDA
     tensors, bit for bit, [3, B, A] and [B, A] fields (also at A = 13:
     one slot a move): serially one launch, on a mesh one a stage
-    (ki_comm.fold_halo_ki), in place; the same bits on two runs."""
+    (ki_comm.fold_halo_ki), "spill" one launch of a two-shard map whose
+    records spill past their inline sources; in place; the same bits on
+    two runs."""
     from comd_tpu_torch.ops.sweep import fold_plan_serial
-    if where == "serial":
+    if where in ("serial", "spill"):
         sim = _sim(dtype, "rows" if dtype == "float64" else "cheb", 8,
                    "cuda", half_shell=True)
     else:
         sim = _mesh_sim(dtype, where, comm_impl="collective")
     B = sim.geom.n_total
     A = A or sim.cfg.max_atoms
-    S = 1 if where == "serial" else len(sim.states)
+    S = 1 if where == "serial" else 2 if where == "spill" else \
+        len(sim.states)
     gen = torch.Generator(device="cuda").manual_seed(9)
     for shape in ((3, B, A), (B, A)):
         x = [torch.rand(shape, dtype=sim.dtype, device="cuda",
                         generator=gen) - 0.5 for _ in range(S)]
         if where == "serial":
             plans = [fold_plan_serial(sim.maps, x[0])]
+        elif where == "spill":
+            plans = [cm.FoldPlan(_spill_map(B), shape, sim.dtype, "cuda", 2)]
+            assert plans[0].record_vecs == cm.FOLD_RECORD_VECS and \
+                plans[0].spill.numel() > 1
         else:
             plans = [ki_comm.fold_plan(sim.halo, axis, x[0])
                      for axis in (2, 1, 0)]
@@ -2130,7 +2199,7 @@ def test_fold_halo_matches_plain(cuda_device, dtype, where, A):
         for _ in range(2):
             got = [v.clone() for v in x]
             st.reset_launch_counts()
-            if where == "serial":
+            if where in ("serial", "spill"):
                 cm.fold_halo(plans[0], got)
             else:
                 ki_comm.fold_halo_ki(sim.halo, got)
