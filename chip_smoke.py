@@ -123,7 +123,21 @@ the first error:
                  ring_push an atom exchange under ki and three atom_pack
                  under collective, one halo_fill a force under both (the
                  list fill is K3's copies), final r and ePot equal bit for
-                 bit.
+                 bit.  The list paths' row ops (csrc/nl.cu's nl_rows,
+                 csrc/step.cu's embed_rows and land_rows) against their
+                 plain versions (ops/neighborlist.py) on the same CUDA
+                 tensors, bit for bit, at the thermalized 10^3 EAM states
+                 (f32, f64) and the 63^3 f32 NL headline: ER with and
+                 without energy, serial fill and zero halo rows, rows in
+                 one and two segments; LR of one and two passes, with and
+                 without the kick, one and two segments; NR with and
+                 without the row split; each timed at 63^3 (a launch
+                 replayed in a graph of 20 and a call from the host, CUDA
+                 events) beside its plain version and byte bound.
+                 The headlines count ER one a force a shard, LR one a
+                 step a shard (and the initial force's), NR one a build a
+                 shard, no embed_fill or land, and print the final r
+                 sha256 and ePot.
  15. options  -- -P (the cubic splines in r^2) and -I (the LJ table) on
                  their kernel variants: K1's and K2's spline EAM passes 1
                  (with and without energy) and 3, NL2's on its lists, and
@@ -224,8 +238,10 @@ the first error:
                  list rebucket a conditional node) against the eager loop
                  (``sim.cuda_graphs = False``), in this process one after
                  the other, at 63^3 f32: EAM on K1, LJ on K1, EAM -m
-                 thread_atom_nl, EAM on 2x2x2 ki_fused and collective in
-                 one process, and
+                 thread_atom_nl (its device operations a step at most
+                 10), EAM on 2x2x2 ki_fused, EAM -m thread_atom_nl on
+                 2x2x2 ki (at most 120) and collective in one process,
+                 and
                  -S 0 (a rebucket every step) on EAM K1 and on 2x2x2
                  ki_fused under -a 0 and -a 1.  Each run warms up through
                  its first rebucket (every graph captured), steps 100
@@ -233,7 +249,8 @@ the first error:
                  just before), then 20 with the host syncs in step_block
                  counted (torch.cuda.set_sync_debug_mode) and 20 under
                  torch.profiler: ms/step of both, the device's busy
-                 ms/step and idle share of the wall clock, launches a step
+                 ms/step, operations a step and idle share of the wall
+                 clock, launches a step
                  equal and no set_condition, one graph replay a step, the
                  IF nodes a graph (serial lazy and list steps one, the
                  rebucket's: the trigger launch refreshes the ghosts; the
@@ -416,6 +433,16 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
             "nl_build": "comd_tpu/ops/neighborlist.py:116 (build, XLA)",
             "nl_sweep": "comd_tpu/ops/neighborlist.py:180 (pair_sweep_nl, "
                         "XLA)",
+            # no Pallas site: the list paths' row ops, XLA in comd_tpu
+            "nl_rows": "no Pallas site: XLA comd_tpu/ops/neighborlist.py:"
+                       "46-57, :74 (build_atom_list, build_atom_list_split)",
+            "embed_rows": "no Pallas site: XLA fusion of "
+                          "comd_tpu/ops/force_eam.py:420-439 (pass 2 on the "
+                          "rows, scatter_rows, the dfEmbed fill)",
+            "land_rows": "no Pallas site: XLA comd_tpu/ops/force_eam.py:437 "
+                         "and comd_tpu/ops/force_lj.py:172-203 "
+                         "(scatter_rows of the force), fused with "
+                         "comd_tpu/sim.py:380-383",
             # no Pallas site: comd_tpu's jitted step leaves these to XLA's
             # fusions around the force
             "kick_drift_trigger": "no Pallas site: XLA fusion of "
@@ -457,6 +484,16 @@ REPLACES = {"stencil": "comd_tpu/ops/pallas/stencil.py:48",
                          "comd_tpu/parallel/exchange.py:270 (fold_halo)"}
 MESH = dict(xproc=2, yproc=2, zproc=2)
 HEADLINE_N = 63      # unit cells per axis of the main paths (1,000,188 atoms)
+# Phase 14's EAM list runs (serial; 2x2x2 under ki and collective) end on
+# these bits, final r sha256 and ePot: the values of the same runs on the
+# list paths' torch row ops (commit 94cac40), which NR, ER and LR keep
+NL_FINAL_BITS = {
+    "nl main": ("99b24fd1ce8c3ebbfa5ae269afac879666445cf016787831e9b30a748"
+                "d70b8d1", -3496386.8927383423),
+    "ki": ("5f262aa7fd18202f2ea5056059cc25487139f666374f3852deb3209cc21b4"
+           "3ed", -3496386.8973174095),
+    "collective": ("5f262aa7fd18202f2ea5056059cc25487139f666374f3852deb320"
+                   "9cc21b43ed", -3496386.8973174095)}
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -1283,13 +1320,13 @@ def golden(tag: str, value: float, **kw) -> None:
 
 
 def nl_lists_and_rows(sim):
-    """The current list of a serial NL run and the atom rows of a rebuild
-    on its state: (rows (a_list, a_valid), build params)."""
+    """The atom rows of a rebuild on a serial NL run's state: (rows
+    (a_list, a_valid, row_start), build params)."""
     from comd_tpu_torch.ops import neighborlist as nlmod
     s = sim.state
     params = sim.nl_build_params()
-    rows = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
-                           params["n_rows"], params["row_split"])
+    rows = nlmod.nl_rows_plain(sim.geom, s.n_atoms, s.r.shape[2],
+                               params["n_rows"], params["row_split"])
     return rows, params
 
 
@@ -1302,10 +1339,11 @@ def nl_calls(sim, lst=None):
     from comd_tpu_torch.ops.cuda import nl as nlk
     s, ev = sim.state, sim.pair_eval
     lst = sim.nlist if lst is None else lst
-    (a_list, a_valid), p = nl_lists_and_rows(sim)
+    (a_list, a_valid, start), p = nl_lists_and_rows(sim)
     args = (s.r, a_list, a_valid, sim.maps.nbr_map, s.n_atoms)
     kw = dict(k=p["k"], rcut2=p["rcut2"])
-    calls = {"nl_build": (lambda: nlk.nl_build(*args, **kw),
+    calls = {"nl_build": (lambda: nlk.nl_build(*args, row_start=start,
+                                               **kw),
                           lambda: nlk.nl_build_plain(*args, **kw), None,
                           False)}
     if not sim.is_eam:
@@ -1346,19 +1384,21 @@ def compare_nl(sim, tag: str, f_atol: float, s_rtol: float,
     got, want = kern(), plain()
     same = all(torch.equal(g, w) for g, w in zip(got, want))
     s = sim.state
-    (a_list, a_valid), p = nl_lists_and_rows(sim)
+    rows, p = nl_lists_and_rows(sim)
+    a_valid = rows[1]
     A = s.r.shape[2]
     row_split = nlmod.row_split_for(sim.geom, A)
-    rows_split = nlmod.atom_rows(sim.geom, s.n_atoms, A,
-                                 row_split[1] + row_split[2], row_split)
+    rows_split = nlmod.nl_rows_plain(sim.geom, s.n_atoms, A,
+                                     row_split[1] + row_split[2], row_split)
     built = {}
-    for name, (al, av), k in (("K = 8", (a_list, a_valid), 8),
-                              ("split", rows_split, p["k"])):
-        built[name] = ([f(s.r, al, av, sim.maps.nbr_map, s.n_atoms, k=k,
-                          rcut2=p["rcut2"])
-                        for f in (nlk.nl_build, nlk.nl_build_plain)], al, av)
-    same_more = {n: all(torch.equal(g, w) for g, w in zip(*b))
-                 for n, (b, _al, _av) in built.items()}
+    for name, (al, av, start), k in (("K = 8", rows, 8),
+                                     ("split", rows_split, p["k"])):
+        args = (s.r, al, av, sim.maps.nbr_map, s.n_atoms)
+        kw = dict(k=k, rcut2=p["rcut2"])
+        built[name] = ([nlk.nl_build(*args, row_start=start, **kw),
+                        nlk.nl_build_plain(*args, **kw)], al, av, start)
+    same_more = {n: all(torch.equal(g, w) for g, w in zip(*b[0]))
+                 for n, b in built.items()}
     small = built["K = 8"][0][0]
     check(same and not bool(got[2]) and all(same_more.values())
           and bool(small[2]) and not bool(built["split"][0][0][2]),
@@ -1369,9 +1409,10 @@ def compare_nl(sim, tag: str, f_atol: float, s_rtol: float,
     errs = {"nl_build": 0.0, "nl_sweep": 0.0}
     lists = {"": sim.nlist}
     if more_lists:
-        for name, ((_k, (nl, count, _o)), al, av) in built.items():
+        for name, ((_k, (nl, count, _o)), al, av, start) in \
+                built.items():
             lists[name] = nlmod.NeighborList(a_list=al, a_valid=av, nl=nl,
-                                             last_r=s.r)
+                                             last_r=s.r, row_start=start)
         k8 = built["K = 8"][0][1][1]
         check(bool((k8[a_valid] > 8).all()), f"{tag}: a K = 8 row has "
               f"padding")
@@ -1457,6 +1498,181 @@ def nl_bound(sim, name: str, pair, energy: bool) -> dict:
             "inside": inside, "flops": 8 * entries + per * inside}
 
 
+ROWS_KEYS = ("nl_rows", "embed_rows", "land_rows")
+
+
+def row_op_cases(sim) -> list:
+    """The list paths' row ops on a serial EAM NL run's state and list, as
+    (name, key, prep, run, bytes): ``prep()`` makes fresh copies of what
+    a call writes, ``run(fn, ops)`` calls ``fn`` (the wrapper or its plain
+    version) and returns what it wrote; bytes are what the call needs
+    (each input read once, each output written once; rows of the list
+    read only where valid).  ER (embed_rows) with and without energy, the
+    serial fill and zero halo rows (a mesh's), the rows in one segment
+    and in two (cut at the middle cell's first row, as the -a 1 split's
+    two sweeps give them), on NL2's pass 1 of the state; LR (land_rows)
+    of one pass (LJ) and two (EAM: pass 1 and pass 3 on ER's dfEmbed),
+    with the kick and the count and without (f only), two segments too;
+    NR (nl_rows) without and with the -a 1 row split (the boundary mask
+    on the card)."""
+    import torch
+    from comd_tpu_torch.ops import neighborlist as nlmod
+    from comd_tpu_torch.ops.cuda import nl as nlk
+    from comd_tpu_torch.ops.cuda import step
+    s, geom, maps, lst = sim.state, sim.geom, sim.maps, sim.nlist
+    (B, A), n_loc = s.r.shape[1:], geom.n_local
+    es = s.r.element_size()
+    R = lst.a_list.shape[0]
+    n_real = int(lst.a_valid.sum())
+    f1, phi, rho = nlk.eam_pass1(lst, s.r, sim.pair_eval)
+    dfe, _u = step.embed_rows(sim.f_eval, lst, s.n_atoms, (rho,), None,
+                              n_loc, B, maps.halo_src)
+    f3 = nlk.eam_pass3(lst, s.r, sim.pair_eval, dfe)
+    cut = int(lst.row_start[n_loc // 2])
+    e_dtype = sim.cfg.torch_energy_dtype
+    ee = torch.finfo(e_dtype).bits // 8
+    tab = sim.f_eval.table.numel() * es
+    kick = sim._c(0.5 * sim.cfg.dt)
+
+    def segs(x, two):
+        return (x[..., :cut], x[..., cut:]) if two else (x,)
+
+    cases = []
+    for energy in (False, True):
+        for halo in (maps.halo_src, None):
+            for two in (False, True):
+                args = (sim.f_eval, lst, s.n_atoms, segs(rho, two),
+                        segs(phi, two) if energy else None, n_loc, B, halo,
+                        e_dtype)
+                nb = es * (n_real + B * A) + 4 * 2 * n_loc + tab + (
+                    8 * (B - n_loc) if halo is not None else 0)
+                if energy:
+                    nb += es * n_real + R + ee * R
+                cases.append((
+                    f"embed_rows energy={energy} serial={halo is not None} "
+                    f"segments={1 + two}", "embed_rows", lambda: (),
+                    lambda fn, _o, a=args: fn(*a), nb))
+
+    def land(parts, k):
+        def run(fn, o):
+            fn(o[0], o[1], lst, s.n_atoms, parts, o[2], n_loc, k)
+            return o
+        return (lambda: (s.f.clone(), s.p.clone(), s.n_local.clone()), run)
+
+    for passes, k, two in ((2, kick, False), (2, kick, True), (1, kick, False),
+                           (2, None, False), (1, None, False)):
+        parts = (segs(f1, two), segs(f3, two))[:passes]
+        nb = es * (3 * n_real * passes + 3 * B * A) + 4 * 2 * n_loc
+        if k is not None:
+            nb += es * 2 * 3 * B * A + 4
+        cases.append((f"land_rows passes={passes} kick={k is not None} "
+                      f"segments={1 + two}", "land_rows", *land(parts, k),
+                      nb))
+    p = sim.nl_build_params()
+    is_b, ri, rb = nlmod.row_split_for(geom, A)
+    split = (torch.as_tensor(is_b, device="cuda"), ri, rb)
+    for rs in (None, split):
+        rows = p["n_rows"] if rs is None else ri + rb
+        cases.append((f"nl_rows split={rs is not None}", "nl_rows",
+                      lambda: (),
+                      lambda fn, _o, rs=rs: fn(geom, s.n_atoms, A,
+                                               p["n_rows"], rs),
+                      4 * 2 * n_loc + (n_loc if rs is not None else 0)
+                      + 5 * rows))
+    return cases
+
+
+def _row_fns(key: str) -> tuple:
+    """(wrapper, plain version) of a row op."""
+    from comd_tpu_torch.ops import neighborlist as nlmod
+    from comd_tpu_torch.ops.cuda import nl as nlk
+    from comd_tpu_torch.ops.cuda import step
+    mod = nlk if key == "nl_rows" else step
+    return getattr(mod, key), getattr(nlmod, key + "_plain")
+
+
+def check_row_ops(sim, tag: str) -> dict:
+    """Phase 14's bitwise check of the row ops at one state: each case of
+    ``row_op_cases`` through the kernel (one count) and through its plain
+    version on the same CUDA tensors, every output equal bit for bit (and
+    U's sum).  Returns {key: max |kernel - plain| (0)}."""
+    import torch
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    errs = {k: 0.0 for k in ROWS_KEYS}
+    names = []
+    for name, key, prep, run, _b in row_op_cases(sim):
+        kern, plain = _row_fns(key)
+        n0 = LAUNCHES[key]
+        got = run(kern, prep())
+        check(LAUNCHES[key] == n0 + 1, f"{tag} {name}: "
+              f"{LAUNCHES[key] - n0} counts, not one")
+        want = run(plain, prep())
+        for x, y in zip(got, want):
+            check((x is None) == (y is None) and (
+                x is None or (x.dtype == y.dtype and torch.equal(x, y))),
+                  f"{tag} {name}: kernel and plain version differ")
+            if x is not None and x.is_floating_point():
+                errs[key] = max(errs[key], float((x - y).abs().max()))
+                if x.dim() == 1:
+                    check(float(x.sum()) == float(y.sum()),
+                          f"{tag} {name}: U's sums differ")
+        names.append(name)
+    say("nl rows", f"{tag}: {', '.join(names)}: kernel and plain version "
+        f"equal bit for bit")
+    return errs
+
+
+def time_row_ops(sim, launches: dict, errs: dict) -> dict:
+    """Each row-op case at the 63^3 NL state timed beside its byte bound
+    (bytes / 3.35 TB/s): the device ms of a call replayed in a graph of
+    20 (``graph_ms``, CUDA events; the wrapper's host time does not
+    count), a call from the host (CUDA events, mean of 20) and the plain
+    version's call (mean of 5).  Returns the kernels line's rows: the
+    serial EAM step's calls (ER without energy, serial fill, one segment:
+    99 steps of 100; LR of two passes with the kick; NR without the
+    split)."""
+    from comd_tpu_torch.probes import time_ms
+    rows = {}
+    main = ("embed_rows energy=False serial=True segments=1",
+            "land_rows passes=2 kick=True segments=1", "nl_rows split=False")
+    for name, key, prep, run, nb in row_op_cases(sim):
+        kern, plain = _row_fns(key)
+        ops = prep()             # updated in place call after call
+        ms = graph_ms(lambda: run(kern, ops))
+        call_ms = time_ms(lambda: run(kern, ops), 20)
+        plain_ms = time_ms(lambda: run(plain, ops), 5)
+        b_ms = 1e3 * nb / PEAK_BYTES
+        say("timing", f"{name} at {HEADLINE_N}^3 f32: {ms:.5f} ms a call "
+            f"replayed in a graph of 20 (CUDA events), {call_ms:.4f} ms a "
+            f"call from the host (mean of 20), plain {plain_ms:.4f} ms; "
+            f"bound {b_ms:.5f} ms (bytes: {nb / 1e6:.2f} MB), "
+            f"{100 * b_ms / ms:.1f}% of it; {launches[key]} counts in the "
+            f"EAM NL main run")
+        if name in main:
+            rows[key] = {
+                "name": key, "route": "cuda",
+                "source": NL_SOURCE if key == "nl_rows" else STEP_SOURCE,
+                "replaces": REPLACES[key], "launches": launches[key],
+                "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+    say("timing", "row ops' library_ms none: no single PyTorch call "
+        "interpolates F' and places it in the cell layout with the halo "
+        "fill (ER), gathers a force by row_start with a kick and a count "
+        "(LR), or scans and compacts the rows (NR; nonzero + cumsum are "
+        "two calls and no row_start)")
+    return rows
+
+
+def check_final_bits(key: str, digest: str, e_pot: float) -> None:
+    """A phase 14 list run ends on ``NL_FINAL_BITS[key]``."""
+    want_digest, want_e = NL_FINAL_BITS[key]
+    check(digest == want_digest and e_pot == want_e,
+          f"{key}: final r sha256 {digest[:16]}.. and ePot {e_pot!r}, not "
+          f"{want_digest[:16]}.. and {want_e!r}")
+    say("nl bits", f"{key}: final r sha256 and ePot equal the torch row "
+        f"ops' (commit 94cac40)")
+
+
 def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
     """Phase 14: the Verlet-list kernels and paths; NL2's time a real list
     entry and a pair inside the cutoff beside K1's pass 1 (``k1_pass1``:
@@ -1466,7 +1682,9 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
     from comd_tpu_torch import Config, init_simulation
     from comd_tpu_torch.probes import time_ms
     errs = {"nl_build": 0.0, "nl_sweep": 0.0}
-    # NL1 and NL2 against their plain versions, thermalized 10^3
+    row_errs = {k: 0.0 for k in ROWS_KEYS}
+    # NL1 and NL2 against their plain versions, thermalized 10^3; the row
+    # ops against theirs on the EAM states
     for dtype, impl, f_atol, s_rtol, f_rtol in (
             ("float32", "cheb", 1e-4, 1e-5, 0.0),
             ("float64", "rows", 0.0, 1e-12, 1e-12)):
@@ -1476,10 +1694,12 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
                 temperature=600.0, dtype=dtype, interp_impl=impl,
                 pot_dir=POTS, device="cuda"))
             sim.step_block(10)
-            e = compare_nl(sim, f"10^3 {dtype}/{sim.pair_eval.kind} "
-                           f"A={sim.cfg.max_atoms}", f_atol, s_rtol, f_rtol,
-                           more_lists=True)
+            tag = f"10^3 {dtype}/{sim.pair_eval.kind} A={sim.cfg.max_atoms}"
+            e = compare_nl(sim, tag, f_atol, s_rtol, f_rtol, more_lists=True)
             errs = {k: max(errs[k], e[k]) for k in errs}
+            if doeam:
+                e = check_row_ops(sim, tag)
+                row_errs = {k: max(row_errs[k], e[k]) for k in row_errs}
             del sim
     golden("Adams Cu 6^3 T=0 -m thread_atom_nl", GOLDEN_EAM_ADAMS, nx=6,
            ny=6, nz=6, doeam=True, method="thread_atom_nl")
@@ -1500,6 +1720,19 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
               and launches["nl_build"] == sim.n_nl_build >= 1,
               f"{tag}: nl_sweep {launches['nl_sweep']}, nl_build "
               f"{launches['nl_build']} for {sim.n_nl_build} builds")
+        # the row ops: ER one a force, LR one a step and the initial
+        # force's (no kick), NR one a build; no cell-path pass 2 or land
+        got = {k: launches[k] for k in ROWS_KEYS + ("embed_fill", "land")}
+        want = {"embed_rows": (steps + 1) if sim.is_eam else 0,
+                "land_rows": steps + 1, "nl_rows": sim.n_nl_build,
+                "embed_fill": 0, "land": 0}
+        check(got == want, f"{tag}: row ops launched {got}, not {want}")
+        digest = r_digest([sim.state.r.cpu().numpy()])
+        say(tag, f"row ops {got} ({sim.n_nl_build} builds, {steps} steps "
+            f"and the initial force); final r sha256 {digest[:16]}.., ePot "
+            f"{sim.e_potential!r}")
+        if tag in NL_FINAL_BITS:
+            check_final_bits(tag, digest, sim.e_potential)
         say(tag, f"K {sim.nlist.nl.shape[1]}, rows {sim.nlist.nl.shape[0]:,}"
             f" ({int(sim.nlist.a_valid.sum()):,} atoms); {sim.n_nl_build} "
             f"builds (init and {sim.n_nl_build - 1} rebuilds in {steps} "
@@ -1508,6 +1741,10 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
             f"{ref_ms:.3f} on the cell path ({ref})")
         e = compare_nl(sim, f"{HEADLINE_N}^3 float32", 1e-4, 1e-5)
         errs = {k: max(errs[k], e[k]) for k in errs}
+        if sim.is_eam:
+            e = check_row_ops(sim, f"{HEADLINE_N}^3 float32")
+            row_errs = {k: max(row_errs[k], e[k]) for k in row_errs}
+            rows.update(time_row_ops(sim, launches, row_errs))
         for name, (kern, plain, pair, energy) in nl_calls(sim).items():
             if energy:
                 continue         # 99 of 100 steps run without energy
@@ -1566,6 +1803,17 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
               f"nl sharded {ci}: ring_push {n_ring}, atom_pack {n_pack} "
               f"for {exchanges} exchanges, halo_fill {n_fill}, nl_build "
               f"{launches['nl_build']} for {sim.n_nl_build} builds")
+        # ER one a force a shard, LR one a step a shard and the initial
+        # force's, NR one a build a shard
+        got = {k: launches[k] for k in ROWS_KEYS + ("embed_fill", "land")}
+        want = {"embed_rows": 8 * 101, "land_rows": 8 * 101,
+                "nl_rows": 8 * sim.n_nl_build, "embed_fill": 0, "land": 0}
+        check(got == want, f"nl sharded {ci}: row ops launched {got}, not "
+              f"{want}")
+        digest = r_digest([s.r.cpu().numpy() for s in sim.states])
+        say("nl sharded main", f"{ci}: row ops {got}; final r sha256 "
+            f"{digest[:16]}.., ePot {sim.e_potential!r}")
+        check_final_bits(ci, digest, sim.e_potential)
         say("nl sharded main", f"{ci}: initial ePot rel. diff to the serial"
             f" NL run {rel:.3e}, final energy {rel1:.3e}; "
             f"{sim.ms_step:.3f} ms/step on 8 shards; ring_push {n_ring}, "
@@ -2467,13 +2715,14 @@ def count_syncs(sim, n_blocks: int, block: int) -> dict:
                 steps=n_blocks * block)
 
 
-def device_busy_ms(sim, n_blocks: int, block: int) -> float:
+def device_busy_ms(sim, n_blocks: int, block: int) -> tuple:
     """The device's busy ms a step over ``n_blocks`` blocks under
     torch.profiler (CUDA activity: the sum of the kernels', copies' and
-    sets' durations; one stream, so they do not overlap).  The profiler
-    slows the host's launch of a graph of thousands of nodes, so the idle
-    share is taken against the unprofiled wall clock, as profile_step.py
-    takes it."""
+    sets' durations; one stream, so they do not overlap), and its device
+    operations a step (kernels, copies and sets, as profile_step.py
+    counts launches).  The profiler slows the host's launch of a graph of
+    thousands of nodes, so the idle share is taken against the unprofiled
+    wall clock, as profile_step.py takes it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2482,11 +2731,14 @@ def device_busy_ms(sim, n_blocks: int, block: int) -> float:
         for _ in range(n_blocks):
             sim.step_block(block)
         torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and "Loading" not in e.key
+           and getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) > 0]
     us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and "Loading" not in e.key)
-    return us / 1e3 / (n_blocks * block)
+                     getattr(e, "self_cuda_time_total", 0.0)) for e in evs)
+    steps = n_blocks * block
+    return us / 1e3 / steps, sum(e.count for e in evs) / steps
 
 
 def graph_vs_eager(tag: str, n: int = HEADLINE_N, dtype: str = "float32",
@@ -2614,7 +2866,7 @@ def _graph_or_eager(tag: str, mode: str, n: int, dtype: str, blocks: int,
                capture_s=g.capture_s if g else 0.0,
                instantiate_s=g.instantiate_s if g else 0.0)
     res["syncs"] = count_syncs(sim, 2, block)
-    res["busy"] = device_busy_ms(sim, 2, block)
+    res["busy"], res["device_ops"] = device_busy_ms(sim, 2, block)
     res["idle"] = 1.0 - res["busy"] / res["ms"]
     states = sim.states if hasattr(sim, "states") else [sim.state]
     res["digest"] = r_digest([s.r.cpu().numpy() for s in states])
@@ -2647,7 +2899,9 @@ def say_graph_vs_eager(tag: str, out: dict, bitwise: bool = True) -> None:
         f"ms/step ({e['ms'] / g['ms']:.2f}x); device busy "
         f"{e['busy']:.3f}, {g['busy']:.3f} ms/step, idle "
         f"{100 * e['idle']:.1f}%, {100 * g['idle']:.1f}% of the wall "
-        f"clock (busy under torch.profiler, 2 more blocks); launches a "
+        f"clock (busy under torch.profiler, 2 more blocks); device "
+        f"operations a step {e['device_ops']:.2f}, {g['device_ops']:.2f} "
+        f"(the same profile); launches a "
         f"step {per} (equal, no set_condition: the trigger sets the IF "
         f"handles); graph replays a step {g['replays']:.2f}; rebuckets "
         f"{e['rebuckets']}, {g['rebuckets']} in the timed steps, "
@@ -5099,6 +5353,9 @@ def main() -> int:
                                            method="thread_atom_nl"), 10),
             ("EAM 2x2x2 ki_fused", dict(doeam=True, comm_impl="ki_fused",
                                         **MESH), 10),
+            ("EAM -m thread_atom_nl 2x2x2 ki", dict(
+                doeam=True, method="thread_atom_nl", comm_impl="ki",
+                **MESH), 10),
             ("EAM 2x2x2 collective", dict(doeam=True,
                                           comm_impl="collective", **MESH),
              10),
@@ -5109,7 +5366,17 @@ def main() -> int:
             ("-S 0 EAM 2x2x2 ki_fused -a 1", dict(
                 doeam=True, lazy_shell=False, comm_impl="ki_fused",
                 gpu_async=1, **MESH), 2)):
-        say_graph_vs_eager(tag, graph_vs_eager(tag, blocks=blocks, **kw))
+        out = graph_vs_eager(tag, blocks=blocks, **kw)
+        say_graph_vs_eager(tag, out)
+        if "thread_atom_nl" in tag:
+            # the list step's device operations a step, the row ops on
+            # their launches (serially <= 10, on the mesh <= 120)
+            cap = 120 if "2x2x2" in tag else 10
+            ops = out["graphs"]["device_ops"]
+            check(ops <= cap, f"{tag}: {ops:.2f} device operations a "
+                  f"graph step, more than {cap}")
+            say("graphs", f"{tag}: {ops:.2f} device operations a step "
+                f"through the graphs (at most {cap})")
     # --halfShell: K2's f32 sums use atomics, so in f64 the printed
     # energies (12 digits) may differ by one unit in the last digit
     half = graph_vs_eager("EAM --halfShell f64 20^3", n=20,
@@ -5165,7 +5432,8 @@ def main() -> int:
                                  "half_eam_pass1", "half_eam_pass3",
                                  "half_lj", "halo_fill", "halo_fill_fused",
                                  "ring_push", "halo_fill_stage")
-               + PROBE_KEYS + ("nl_build", "nl_sweep") + OPTION_KEYS
+               + PROBE_KEYS + ("nl_build", "nl_sweep") + ROWS_KEYS
+               + OPTION_KEYS
                + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS
                + ARRIVALS_KEYS + ("position_fill", "atom_pack",
                                   "fold_halo")]

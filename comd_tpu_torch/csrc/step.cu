@@ -38,7 +38,26 @@
 //   land                the force landing f[:, :nl] = f1 (+ f3), f[:, nl:]
 //                       = 0, the second half kick and the local atom
 //                       count (comd_tpu/sim.py:380-383), the count summed
-//                       over a mesh's shards launch after launch.
+//                       over a mesh's shards launch after launch;
+//   embed_rows          (ER) EAM pass 2 of the list paths, on the rows of a
+//                       Verlet list (comd_tpu/ops/force_eam.py:420-439:
+//                       F(rho) and F'(rho) a row, the rows-to-cells
+//                       scatter of F' and the serial dfEmbed fill): a
+//                       thread a slot of dfEmbed [B, A] reads its row,
+//                       row_start[c] + s, or its serial source cell's (a
+//                       halo slot), or writes 0; on energy steps further
+//                       blocks write U = 0.5 phi + F a row, 0 on invalid
+//                       rows;
+//   land_rows           (LR) land's form for rows (comd_tpu/ops/
+//                       force_eam.py:420-439's scatter of f1 + f3,
+//                       comd_tpu/ops/force_lj.py:172-203): a thread a
+//                       slot of f [3, B, A] reads its row's force (EAM's
+//                       two passes added) or writes 0, then the kick and
+//                       the count as land; without the kick f only (the
+//                       initial force).
+// The row operands of ER and LR may come as two segments (the -a 1 row
+// split's interior and boundary sweeps, each its own output), read in row
+// order, so no concatenation is needed.
 //
 // Numbers.  Each kernel equals its plain PyTorch version
 // (ops/cuda/step.py) bit for bit: every operation is the one PyTorch does,
@@ -59,7 +78,9 @@
 //
 // Bound: bytes.  Each slot is read and written once (kick_drift_trigger
 // at 63^3: p, f, r, the local baseline in, p and r out, the images' r
-// out and their map in, ~97 MB; land ~78 MB; embed_fill 10.3 MB), with a
+// out and their map in, ~97 MB; land ~78 MB; embed_fill 10.3 MB; at the
+// list headline, A = 32 on 41^3 cells, embed_rows ~15 MB, land_rows
+// ~116 MB), with a
 // few operations a word; grid-stride loops over slots, neighbouring
 // threads on neighbouring words.  embed_fill and refresh_halo, the
 // smallest passes, are built for their fixed cost: a vector of slots a
@@ -393,6 +414,126 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// A per-row operand of ER and LR as one or two row segments: rows [0,
+// split) at p0, rows [split, ...) at p1 (at row - split), plane q of a
+// segment `plane0` or `plane1` elements after its plane 0.  One segment:
+// split at or past the rows, p1 never read.
+template <typename T>
+struct RowSegs {
+  const T* p0;
+  const T* p1;
+  long long plane0, plane1;
+  int split;
+  __device__ __forceinline__ T at(int q, int row) const {
+    return row < split ? p0[q * plane0 + row]
+                       : p1[q * plane1 + (row - split)];
+  }
+};
+
+// ER: blocks [0, slot_blocks) walk dfEmbed's n_slots = B A slots, the
+// others (energy steps) the rows.  A slot of local cell c, or of the
+// serial source cell of a halo cell, holds F'(rho) of row row_start[c] + s
+// when s < min(n_atoms[c], A) and the row is below n_rows, else 0; a halo
+// slot without halo_src 0.  n_slots < 2^31 (the wrapper checks).
+template <typename T, typename E>
+__global__ void __launch_bounds__(kThreads)
+    embed_rows_kernel(RowSegs<T> rho, RowSegs<T> phi,
+                      const unsigned char* __restrict__ a_valid,
+                      const int* __restrict__ row_start,
+                      const int* __restrict__ n_atoms,
+                      const long long* __restrict__ halo_src,
+                      T* __restrict__ dfe, E* __restrict__ u, int A,
+                      int n_local, int n_slots, int n_rows, int slot_blocks,
+                      Embed<T> emb) {
+  if (static_cast<int>(blockIdx.x) < slot_blocks) {
+    const int stride = slot_blocks * kThreads;
+    const int local = n_local * A;
+    for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_slots;
+         i += stride) {
+      int c = i / A;
+      const int s = i - c * A;
+      bool read = true;
+      if (i >= local) {
+        read = halo_src != nullptr;
+        if (read) c = static_cast<int>(halo_src[c - n_local]);
+      }
+      T d = T(0);
+      if (read && s < min(n_atoms[c], A)) {
+        const int row = row_start[c] + s;
+        if (row < n_rows) d = embed_derivative(rho.at(0, row), emb);
+      }
+      dfe[i] = d;
+    }
+  } else {
+    const int stride = (gridDim.x - slot_blocks) * kThreads;
+    for (int row = (blockIdx.x - slot_blocks) * kThreads + threadIdx.x;
+         row < n_rows; row += stride) {
+      E v = E(0);
+      if (a_valid[row]) {
+        T fv, dv;
+        embed_value_and_derivative(rho.at(0, row), emb, &fv, &dv);
+        v = E(0.5) * static_cast<E>(phi.at(0, row)) + static_cast<E>(fv);
+      }
+      u[row] = v;
+    }
+  }
+}
+
+// LR: a thread a slot of f's n_slots = B A (a grid-stride loop); local
+// slot (c, s) with s < min(n_atoms[c], A) and row = row_start[c] + s below
+// n_rows gets f1[row] (+ f3[row]), every other slot 0; with `kick` the
+// half kick and the count, as land_kernel.  n_slots < 2^31.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    land_rows_kernel(T* __restrict__ f, T* __restrict__ p, RowSegs<T> f1,
+                     RowSegs<T> f3, int has_f3,
+                     const int* __restrict__ row_start,
+                     const int* __restrict__ n_atoms, int A, int n_local,
+                     int n_slots, int n_rows, int kick, T c_kick,
+                     int* n_local_out, int add, Scratch* sc) {
+  const int first = blockIdx.x * kThreads + threadIdx.x;
+  const int stride = gridDim.x * kThreads;
+  const int local = n_local * A;
+  for (int i = first; i < n_slots; i += stride) {
+    T fv[3] = {T(0), T(0), T(0)};
+    if (i < local) {
+      const int c = i / A;
+      const int s = i - c * A;
+      if (s < min(n_atoms[c], A)) {
+        const int row = row_start[c] + s;
+        if (row < n_rows) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a) {
+            fv[a] = f1.at(a, row);
+            if (has_f3) fv[a] = fv[a] + f3.at(a, row);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const long long k = static_cast<long long>(a) * n_slots + i;
+      f[k] = fv[a];
+      if (kick) p[k] = p[k] + c_kick * fv[a];
+    }
+  }
+  if (!kick) return;
+  unsigned int c = 0;
+  for (int b = first; b < n_local; b += stride)
+    c += static_cast<unsigned int>(n_atoms[b]);
+  c = block_reduce<1>(c);
+  if (threadIdx.x == 0) {
+    atomicAdd(&sc->land_sum, c);
+    if (last_block(&sc->land_ticket)) {
+      const unsigned int total = atomicExch(&sc->land_sum, 0u);
+      const unsigned int before =
+          add ? static_cast<unsigned int>(*n_local_out) : 0u;
+      *n_local_out = static_cast<int>(before + total);
+      sc->land_ticket = 0;
+    }
+  }
+}
+
 }  // namespace
 
 // `handles`: n_handles (0..2) conditional handles of the graph this
@@ -583,6 +724,122 @@ extern "C" int comd_land(int elem, void* f, void* p, const void* f1,
         static_cast<const double*>(f1), f1_plane,
         static_cast<const double*>(f3), f3_plane, n, n_force, c_kick, na,
         n_local, out, add, sc);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static RowSegs<T> row_segs(const void* p0, const void* p1, long long plane0,
+                           long long plane1, int split) {
+  return RowSegs<T>{static_cast<const T*>(p0), static_cast<const T*>(p1),
+                    plane0, plane1, split};
+}
+
+template <typename T, typename E>
+static cudaError_t launch_embed_rows(
+    const void* rho0, const void* rho1, int rho_split, const void* phi0,
+    const void* phi1, int phi_split, const void* a_valid,
+    const void* row_start, const void* n_atoms, const void* halo_src,
+    void* dfe, void* u, int A, int n_local, int n_slots, int n_rows,
+    int table_n, double x0, double inv_dx, const void* table,
+    int slot_blocks, int row_blocks, cudaStream_t stream) {
+  const Embed<T> emb{table_n, static_cast<T>(x0), static_cast<T>(inv_dx),
+                     static_cast<const T*>(table)};
+  embed_rows_kernel<T, E><<<slot_blocks + row_blocks, kThreads, 0, stream>>>(
+      row_segs<T>(rho0, rho1, 0, 0, rho_split),
+      row_segs<T>(phi0, phi1, 0, 0, phi_split),
+      static_cast<const unsigned char*>(a_valid),
+      static_cast<const int*>(row_start), static_cast<const int*>(n_atoms),
+      static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
+      static_cast<E*>(u), A, n_local, n_slots, n_rows, slot_blocks, emb);
+  return cudaGetLastError();
+}
+
+// ER.  rho (and phi, null without energy) as one or two row segments
+// (rho1 at row rho_split); a_valid [n_rows] bool; row_start [n_local] and
+// n_atoms int32 indexed by cell; halo_src [n_slots / A - n_local] int64 or
+// null (zero halo rows); writes dfe [n_slots] and, with phi, u [n_rows]
+// of the energy dtype (e_elem bytes).  `row_blocks` 0 without phi.
+extern "C" int comd_embed_rows(int elem, int e_elem, const void* rho0,
+                               const void* rho1, int rho_split,
+                               const void* phi0, const void* phi1,
+                               int phi_split, const void* a_valid,
+                               const void* row_start, const void* n_atoms,
+                               const void* halo_src, void* dfe, void* u,
+                               int A, int n_local, int n_slots, int n_rows,
+                               int table_n, double x0, double inv_dx,
+                               const void* table, int slot_blocks,
+                               int row_blocks, cudaStream_t stream) {
+  if (A < 1 || n_local < 0 || n_slots < n_local * A || slot_blocks < 1 ||
+      (u == nullptr) != (row_blocks == 0) || (u != nullptr && !phi0))
+    return cudaErrorInvalidValue;
+  if (elem == 4 && e_elem == 8)
+    return launch_embed_rows<float, double>(
+        rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
+        n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
+        inv_dx, table, slot_blocks, row_blocks, stream);
+  if (elem == 4)
+    return launch_embed_rows<float, float>(
+        rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
+        n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
+        inv_dx, table, slot_blocks, row_blocks, stream);
+  if (e_elem == 8)
+    return launch_embed_rows<double, double>(
+        rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
+        n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
+        inv_dx, table, slot_blocks, row_blocks, stream);
+  return launch_embed_rows<double, float>(
+      rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
+      n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
+      inv_dx, table, slot_blocks, row_blocks, stream);
+}
+
+template <typename T>
+static void launch_land_rows(void* f, void* p, const RowSegs<T>& f1,
+                             const RowSegs<T>& f3, int has_f3,
+                             const void* row_start, const void* n_atoms,
+                             int A, int n_local, int n_slots, int n_rows,
+                             int kick, double c_kick, void* n_local_out,
+                             int add, void* scratch, int grid,
+                             cudaStream_t stream) {
+  land_rows_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<T*>(f), static_cast<T*>(p), f1, f3, has_f3,
+      static_cast<const int*>(row_start), static_cast<const int*>(n_atoms),
+      A, n_local, n_slots, n_rows, kick, static_cast<T>(c_kick),
+      static_cast<int*>(n_local_out), add, static_cast<Scratch*>(scratch));
+}
+
+// LR.  f (and, with kick, p) [3, n_slots]; f1 and f3 (null: one pass) as
+// one or two row segments of [3, rows] planes (segment k's planes
+// f*_plane{k} apart, the second segment at row f*_split); row_start
+// [n_local] and n_atoms int32 indexed by cell; with kick also
+// n_local_out (0-dim int32) and the scratch words.
+extern "C" int comd_land_rows(int elem, void* f, void* p, const void* f1_0,
+                              const void* f1_1, long long f1_plane0,
+                              long long f1_plane1, int f1_split,
+                              const void* f3_0, const void* f3_1,
+                              long long f3_plane0, long long f3_plane1,
+                              int f3_split, const void* row_start,
+                              const void* n_atoms, int A, int n_local,
+                              int n_slots, int n_rows, int kick,
+                              double c_kick, void* n_local_out, int add,
+                              void* scratch, int grid, cudaStream_t stream) {
+  if (A < 1 || n_local < 0 || n_slots < n_local * A || grid < 1 ||
+      (kick && (p == nullptr || n_local_out == nullptr ||
+                scratch == nullptr)))
+    return cudaErrorInvalidValue;
+  const int has_f3 = f3_0 != nullptr;
+  if (elem == 4)
+    launch_land_rows<float>(
+        f, p, row_segs<float>(f1_0, f1_1, f1_plane0, f1_plane1, f1_split),
+        row_segs<float>(f3_0, f3_1, f3_plane0, f3_plane1, f3_split), has_f3,
+        row_start, n_atoms, A, n_local, n_slots, n_rows, kick, c_kick,
+        n_local_out, add, scratch, grid, stream);
+  else
+    launch_land_rows<double>(
+        f, p, row_segs<double>(f1_0, f1_1, f1_plane0, f1_plane1, f1_split),
+        row_segs<double>(f3_0, f3_1, f3_plane0, f3_plane1, f3_split),
+        has_f3, row_start, n_atoms, A, n_local, n_slots, n_rows, kick,
+        c_kick, n_local_out, add, scratch, grid, stream);
   return cudaGetLastError();
 }
 

@@ -7,7 +7,9 @@ and ``shards_to_numpy`` carry comd_tpu's sharded state -- array fields with
 a leading [Px, Py, Pz] mesh index, replicated scalars -- into the port's
 per-shard SimStates (shard order x-major, as parallel.mesh.Mesh) and back.
 ``nlist_from_numpy`` and ``nlist_to_numpy`` carry a comd_tpu
-``NeighborList`` (its fields as numpy arrays) into the port and back.
+``NeighborList`` (its fields as numpy arrays) into the port and back; the
+port's ``row_start``, which comd_tpu's list has not, is derived from its
+rows.
 ``lj_potential_from_fields`` builds the port's LjPotential from a comd_tpu
 LjPotential's fields (``dataclasses.asdict``), so a test can show both
 packages hold the same LJ parameters.  An EAM potential needs no
@@ -21,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .ops.neighborlist import NeighborList
+from .ops.neighborlist import NeighborList, cell_row_starts
 from .potentials.lj import LjPotential
 from .sim import SimState
 
@@ -84,16 +86,19 @@ def shards_to_numpy(states: list, grid) -> dict:
 NL_FIELDS = ("a_list", "a_valid", "nl", "last_r")
 
 
-def nlist_from_numpy(arrays: dict, device) -> NeighborList:
+def nlist_from_numpy(arrays: dict, device, n_local: int) -> NeighborList:
     """The port's NeighborList on ``device`` from a comd_tpu NeighborList's
     fields as numpy arrays (a_list and nl int32, a_valid bool, last_r in
-    the dynamics dtype)."""
+    the dynamics dtype), its ``row_start`` over the ``n_local`` local
+    cells from the rows (``neighborlist.cell_row_starts``)."""
     missing = [k for k in NL_FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"nlist_from_numpy: missing fields {missing}")
-    return NeighborList(**{
-        k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
-        for k in NL_FIELDS})
+    t = {k: torch.as_tensor(np.array(arrays[k], copy=True), device=device)
+         for k in NL_FIELDS}
+    t["row_start"] = cell_row_starts(t["a_list"], t["a_valid"], n_local,
+                                     t["last_r"].shape[2])
+    return NeighborList(**t)
 
 
 def nlist_to_numpy(nlist: NeighborList) -> dict:

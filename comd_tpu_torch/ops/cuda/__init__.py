@@ -7,6 +7,9 @@ successful launch and nowhere else; a run zeroes it with
 LAUNCHES = {"eam_pass1": 0, "eam_pass3": 0, "lj": 0,
             "half_eam_pass1": 0, "half_eam_pass3": 0, "half_lj": 0,
             "halo_fill": 0, "ring_push": 0, "nl_build": 0, "nl_sweep": 0,
+            # the list paths' row ops: the build's rows (nl.py), pass 2 on
+            # the rows and the landing of a list force (step.py)
+            "nl_rows": 0, "embed_rows": 0, "land_rows": 0,
             # one stage of a dfEmbed fill across processes
             "halo_fill_stage": 0,
             # the mesh's ghost-position refresh: whole, or a stage across

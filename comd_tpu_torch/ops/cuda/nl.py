@@ -1,18 +1,22 @@
 """The Verlet-list build and sweep on hand-written CUDA kernels.
 
-Two kernels, one source (csrc/nl.cu), one build.  comd_tpu computes both
+Three kernels, one source (csrc/nl.cu), one build.  comd_tpu computes them
 in XLA (there is no Pallas kernel to port); on the card they are kernels
 because as torch ops they would cost ~10x the cell path (a [R, K] sweep
 moves ~1.7 GB an elementwise op, ~30 of them a pass):
 
+- NR ``nl_rows`` replaces comd_tpu/ops/neighborlist.py::build_atom_list
+  and ::build_atom_list_split (~15 torch ops a shard here before): a
+  one-block scan of min(n_atoms, A) over the local cells writes each
+  cell's ``row_start``, then a grid writes a_list and a_valid, two
+  launches a build; the same bits as ``nl_rows_plain``, comd_tpu's rows.
 - NL1 ``nl_build`` replaces comd_tpu/ops/neighborlist.py::build: one block
   a local cell stages the occupied slots of its 27 boxes once in shared
   memory, then a warp walks two rows of the cell at a time, tests
   r2 <= (rcut + skin)^2 and keeps the first K hits in candidate order with
   ballot/popc (the reference's gpu_kernels.cu:1494-2029); further blocks
-  pad the invalid rows.  The per-cell row offsets are torch ops
-  (neighborlist.cell_row_starts).  The lists equal the plain version's bit
-  for bit.
+  pad the invalid rows.  It reads NR's row_start.  The lists equal the
+  plain version's bit for bit.
 - NL2 ``nl_sweep`` replaces ::pair_sweep_nl: a small kernel packs the
   positions (and dfEmbed) into 16-byte records in a scratch tensor, then
   one warp walks four rows together, each list read up to its first
@@ -27,8 +31,9 @@ and the real rows' list entries read once (NL2); csrc/nl.cu's header has
 the numbers.  Beside each kernel sits its plain PyTorch version
 (``*_plain``, ops/neighborlist.py's torch code); the wrappers take it only
 for tensors on the CPU, a CUDA tensor launches the kernel or raises.
-``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "nl_build"
-and "nl_sweep", NL2's -P spline variant apart under "nl_sweep_spline".
+``LAUNCHES`` (ops/cuda/__init__.py) counts the launches under "nl_rows"
+(one a build, its two kernels), "nl_build" and "nl_sweep", NL2's -P
+spline variant apart under "nl_sweep_spline".
 """
 from __future__ import annotations
 
@@ -71,6 +76,8 @@ def build():
             ctypes.POINTER(stencil._TableParams),
             ctypes.POINTER(stencil._LjParams),
             ctypes.POINTER(stencil._SplineParams), p, p]
+        lib.comd_nl_rows.restype = i
+        lib.comd_nl_rows.argtypes = [p, p, i, i, i, i, p, p, p, p, i, p]
         lib.comd_nl_error_string.restype = ctypes.c_char_p
         lib.comd_nl_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -107,6 +114,72 @@ def _check_rows(a_list, a_valid, n_rows: int):
 
 
 # --------------------------------------------------------------------------
+# NR: the build's rows
+# --------------------------------------------------------------------------
+
+def nl_rows(geom, n_atoms, A: int, n_rows: int, row_split=None, out=None):
+    """The rows of a build: (a_list [R] int32, a_valid [R] bool, row_start
+    [n_local] int32), as ``neighborlist.nl_rows_plain`` defines them (R =
+    ``n_rows``, or Ri + Rb with ``row_split``, whose boundary mask may be
+    a bool tensor on n_atoms' device).  ``out``, when given, is such a
+    triple (contiguous, on n_atoms' device), written in place and
+    returned.  CPU tensors run the plain version; CUDA tensors NR, two
+    launches, one count."""
+    n_local = geom.n_local
+    if row_split is not None:
+        n_rows = row_split[1] + row_split[2]
+    if n_atoms.dim() != 1 or n_atoms.shape[0] < n_local or \
+            n_atoms.dtype != torch.int32 or not n_atoms.is_contiguous():
+        raise ValueError(f"nl_rows: n_atoms must be a contiguous int32 "
+                         f"[>= {n_local}]")
+    dev = n_atoms.device
+    if out is not None:
+        shapes = ((n_rows,), (n_rows,), (n_local,))
+        dtypes = (torch.int32, torch.bool, torch.int32)
+        if len(out) != 3 or any(
+                t.shape != sh or t.dtype != dt or t.device != dev or
+                not t.is_contiguous()
+                for t, sh, dt in zip(out, shapes, dtypes)):
+            raise ValueError(f"nl_rows: out must be contiguous [{n_rows}] "
+                             f"int32, [{n_rows}] bool and [{n_local}] int32 "
+                             f"on {dev}")
+    if dev.type == "cpu":
+        got = nlmod.nl_rows_plain(geom, n_atoms, A, n_rows, row_split)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return tuple(out)
+    if n_local * A >= 2 ** 31:
+        raise ValueError(f"nl_rows: {n_local} cells of {A} slots do not fit "
+                         f"32-bit slot ids")
+    is_b, ri = None, n_rows
+    if row_split is not None:
+        is_b = torch.as_tensor(row_split[0], device=dev)
+        ri = row_split[1]
+        if is_b.shape != (n_local,) or is_b.dtype != torch.bool or \
+                not is_b.is_contiguous():
+            raise ValueError(f"nl_rows: the boundary mask must be a "
+                             f"contiguous [{n_local}] bool")
+    if out is None:
+        out = (torch.empty(n_rows, dtype=torch.int32, device=dev),
+               torch.empty(n_rows, dtype=torch.bool, device=dev),
+               torch.empty(n_local, dtype=torch.int32, device=dev))
+    counts = torch.empty(2, dtype=torch.int32, device=dev)
+    grid = max(1, min(-(-max(n_local * A, n_rows) // 256), 1 << 16))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = build().comd_nl_rows(
+            n_atoms.data_ptr(), None if is_b is None else is_b.data_ptr(),
+            n_local, A, n_rows, ri, out[0].data_ptr(), out[1].data_ptr(),
+            out[2].data_ptr(), counts.data_ptr(), grid, stream)
+    if err != 0:
+        _raise(err, "nl_rows")
+    LAUNCHES["nl_rows"] += 1
+    return tuple(out)
+
+
+# --------------------------------------------------------------------------
 # NL1: the list build
 # --------------------------------------------------------------------------
 
@@ -119,22 +192,28 @@ def nl_build_plain(r, a_list, a_valid, nbr_map, n_atoms, *, k: int,
     return nl, count, ((count > k) & a_valid).any()
 
 
-def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float,
-             out=None):
+def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, row_start, k: int,
+             rcut2: float, out=None):
     """The first ``k`` j of each row within sqrt(rcut2) (rcut + skin),
     in candidate order, self-padded: (nl [R, k] int32, count [R] int32,
     overflow 0-dim bool: a valid row has more than ``k``).  ``nbr_map``
-    [n_local, 27] int32, ``n_atoms`` [B] int32; the rows as ``atom_rows``
-    makes them (a cell's valid rows contiguous, in slot order).  ``out``
-    (contiguous [R, k] int32 on r's device), when given, receives the
-    list in place and is returned as ``nl``.  CPU tensors run the plain
-    version; CUDA tensors NL1."""
+    [n_local, 27] int32, ``n_atoms`` [B] int32; the rows and their
+    ``row_start`` [n_local] int32 as ``nl_rows`` makes them (a cell's
+    valid rows contiguous, in slot order).  ``out`` (contiguous [R, k]
+    int32 on r's device), when given, receives the list in place and is
+    returned as ``nl``.  CPU tensors run the plain version; CUDA tensors
+    NL1."""
     n_rows = a_list.shape[0]
     _check_rows(a_list, a_valid, n_rows)
     if nbr_map.dim() != 2 or nbr_map.shape[1] != 27 or \
             nbr_map.dtype != torch.int32 or n_atoms.dtype != torch.int32:
         raise ValueError("nbr_map must be [n_local, 27] int32 and n_atoms "
                          "int32")
+    n_local = nbr_map.shape[0]
+    if row_start.shape != (n_local,) or row_start.dtype != torch.int32 or \
+            row_start.device != r.device or not row_start.is_contiguous():
+        raise ValueError(f"row_start must be a contiguous [{n_local}] int32 "
+                         f"on {r.device}")
     if out is not None and (out.shape != (n_rows, k) or
                             out.dtype != torch.int32 or
                             not out.is_contiguous() or
@@ -150,8 +229,6 @@ def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float,
     _check_cuda(r, (r, a_list, a_valid, nbr_map, n_atoms))
     B, A = r.shape[1], r.shape[2]
     dev = r.device
-    n_local = nbr_map.shape[0]
-    row_start = nlmod.cell_row_starts(a_list, a_valid, n_local, A)
     nl = out if out is not None else torch.empty((n_rows, k),
                                                  dtype=torch.int32,
                                                  device=dev)
@@ -173,22 +250,25 @@ def nl_build(r, a_list, a_valid, nbr_map, n_atoms, *, k: int, rcut2: float,
 
 def build_list(geom, nbr_map, r, n_atoms, *, k: int, rcut2: float,
                n_rows: int, row_split=None, into: NeighborList = None):
-    """Build the neighbor list of one shard: the compacted atom rows (torch
-    ops; interior rows first with ``row_split``), then NL1.  Returns
-    (NeighborList, overflow); with ``into`` the list is written into that
-    list's tensors (NL1 straight into its ``nl``) and ``into`` returned.
+    """Build the neighbor list of one shard: the rows (NR; interior rows
+    first with ``row_split``), then NL1.  Returns (NeighborList,
+    overflow); with ``into`` the list is written into that list's tensors
+    (NR into its rows, NL1 into its ``nl``) and ``into`` returned.
     ops/neighborlist.build is its plain version."""
-    a_list, a_valid = nlmod.atom_rows(geom, n_atoms, r.shape[2], n_rows,
-                                      row_split)
+    A = r.shape[2]
     if into is None:
+        a_list, a_valid, row_start = nl_rows(geom, n_atoms, A, n_rows,
+                                             row_split)
         nl, _count, overflow = nl_build(r, a_list, a_valid, nbr_map,
-                                        n_atoms, k=k, rcut2=rcut2)
+                                        n_atoms, row_start=row_start, k=k,
+                                        rcut2=rcut2)
         return NeighborList(a_list=a_list, a_valid=a_valid, nl=nl,
-                            last_r=r), overflow
-    into.a_list.copy_(a_list)
-    into.a_valid.copy_(a_valid)
+                            last_r=r, row_start=row_start), overflow
+    nl_rows(geom, n_atoms, A, n_rows, row_split,
+            out=(into.a_list, into.a_valid, into.row_start))
     _nl, _count, overflow = nl_build(r, into.a_list, into.a_valid, nbr_map,
-                                     n_atoms, k=k, rcut2=rcut2, out=into.nl)
+                                     n_atoms, row_start=into.row_start, k=k,
+                                     rcut2=rcut2, out=into.nl)
     into.last_r.copy_(r)
     return into, overflow
 

@@ -26,10 +26,19 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
   :603); a thread takes the slots whose values (and U's) fit a 16-byte
   access, where A and the pointers allow (``embed_width``);
 - ``land``: the force landing, the second half kick and the local atom
-  count (sim.py:380-383), summed over a mesh's shards launch by launch.
+  count (sim.py:380-383), summed over a mesh's shards launch by launch;
+- ``embed_rows`` (ER): pass 2 of the list paths on a Verlet list's rows
+  (comd_tpu/ops/force_eam.py:420-439): dfEmbed [B, A] in the cell layout,
+  each slot F' of its row (``row_start[c] + s``), its serial halo fill
+  or zero halo rows, and on energy steps U a row;
+- ``land_rows`` (LR): ``land``'s form for a list force per row: each
+  slot its row's force (EAM's two passes added), the kick and the count;
+  without the kick the force only (the initial force, ``-s``).
+ER and LR take their row operands as one or two row segments (the -a 1
+split's interior and boundary sweeps), so no concatenation runs.
 
 Beside each sits its plain PyTorch version (``*_plain``: the step's torch
-code as it was); the wrappers take it only for tensors on the CPU, and a
+code as it was; ER's and LR's in ops/neighborlist.py); the wrappers take it only for tensors on the CPU, and a
 CUDA tensor launches the kernel or raises.  Kernel and plain version give
 the same bits.  Launches are counted in ``LAUNCHES`` (ops/cuda/
 __init__.py) under the kernels' names.  The trigger and the count reduce
@@ -92,7 +101,13 @@ def build():
                 ("comd_embed_fill",
                  [i, i, i, p, p, p, p, p, p, i, i, i, i, d, d, p, i, i, p]),
                 ("comd_land", [i, p, p, p, q, p, q, q, q, d, p, i, p, i, p,
-                               i, p])):
+                               i, p]),
+                ("comd_embed_rows",
+                 [i, i, p, p, i, p, p, i, p, p, p, p, p, p, i, i, i, i, i,
+                  d, d, p, i, i, p]),
+                ("comd_land_rows",
+                 [i, p, p, p, p, q, q, i, p, p, q, q, i, p, p, i, i, i, i,
+                  i, d, p, i, p, i, p])):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = i, args
         lib.comd_step_error_string.restype = ctypes.c_char_p
@@ -508,3 +523,143 @@ def land(f, p, f1, f3, n_atoms, n_local_out, n_local: int, kick: float,
         n_atoms.data_ptr(), n_local, n_local_out.data_ptr(), int(add),
         _scratch(f.device).data_ptr(), _grid(n, f.device), _stream(f))
     _launched(err, "land")
+
+
+# --------------------------------------------------------------------------
+# the list paths: pass 2 on the rows, the landing of a list force
+# --------------------------------------------------------------------------
+
+def _segments(what: str, segs, n_rows: int, planes: int, dtype, dev):
+    """(ptr0, ptr1, plane stride 0, plane stride 1, split) of a row operand
+    given as a tuple of one or two segments whose rows add up to
+    ``n_rows``: [rows] (``planes`` 0) or [planes, rows] tensors, rows
+    contiguous, of ``dtype`` on ``dev``."""
+    segs = tuple(segs)
+    ok = len(segs) in (1, 2)
+    for t in segs if ok else ():
+        shape_ok = (t.dim() == 1 if planes == 0 else
+                    t.dim() == 2 and t.shape[0] == planes)
+        ok = ok and shape_ok and t.dtype == dtype and t.device == dev and \
+            t.stride(-1) == 1
+    if not ok or sum(t.shape[-1] for t in segs) != n_rows:
+        shape = "[rows]" if planes == 0 else f"[{planes}, rows]"
+        raise ValueError(f"{what}: expected one or two {dtype} {shape} row "
+                         f"segments, rows contiguous, on {dev}, {n_rows} "
+                         f"rows in all")
+    plane = [t.stride(0) if planes else 0 for t in segs]
+    if len(segs) == 1:
+        return segs[0].data_ptr(), None, plane[0], 0, n_rows
+    return (segs[0].data_ptr(), segs[1].data_ptr(), plane[0], plane[1],
+            segs[0].shape[-1])
+
+
+def _check_rows_of(what: str, nlist, n_atoms, n_local: int, dev):
+    """The list's rows and ``row_start`` and ``n_atoms`` fit together."""
+    R = nlist.a_list.shape[0]
+    rs = nlist.row_start
+    if nlist.a_valid.shape != (R,) or nlist.a_valid.dtype != torch.bool or \
+            rs.dim() != 1 or rs.shape[0] < n_local or \
+            rs.dtype != torch.int32 or not rs.is_contiguous() or \
+            not nlist.a_valid.is_contiguous() or \
+            n_atoms.dim() != 1 or n_atoms.shape[0] < n_local or \
+            n_atoms.dtype != torch.int32 or not n_atoms.is_contiguous() or \
+            any(t.device != dev for t in (nlist.a_valid, rs, n_atoms)):
+        raise ValueError(f"{what}: the list's a_valid [R] bool, row_start "
+                         f"[>= {n_local}] int32 and n_atoms [>= {n_local}] "
+                         f"int32 must be contiguous on {dev}")
+    return R
+
+
+def embed_rows(f_eval: EmbedTable, nlist, n_atoms, rho, phi, n_local: int,
+               B: int, halo_src=None, e_dtype=torch.float64):
+    """EAM pass 2 on the rows of a Verlet list (ER): (dfEmbed [B, A], U [R]
+    | None), as ``neighborlist.embed_rows_plain`` defines them.  ``rho``
+    (and ``phi`` on energy steps, else None) are the rows' sums as a tuple
+    of one or two row segments ([R_s], rows in order: the -a 1 split's
+    interior and boundary sweeps); ``n_atoms`` the counts by cell;
+    ``halo_src`` ([B - n_local] int64) the serial fill's sources, None on a
+    mesh (zero halo rows).  CPU tensors run the plain version; CUDA
+    tensors the kernel, one launch, 32-bit indices (B * A < 2^31)."""
+    A = nlist.last_r.shape[2]
+    tab = f_eval.table
+    dtype, dev = tab.dtype, tab.device
+    if dtype not in (torch.float32, torch.float64) or \
+            not tab.is_contiguous():
+        raise ValueError(f"embed_rows: F's table must be a contiguous "
+                         f"float32 or float64 tensor, got {dtype}")
+    R = _check_rows_of("embed_rows", nlist, n_atoms, n_local, dev)
+    rho_s = _segments("embed_rows rho", rho, R, 0, dtype, dev)
+    phi_s = (None, None, 0, 0, R) if phi is None else \
+        _segments("embed_rows phi", phi, R, 0, dtype, dev)
+    if halo_src is not None and (
+            halo_src.shape != (B - n_local,) or
+            halo_src.dtype != torch.int64 or halo_src.device != dev or
+            not halo_src.is_contiguous()):
+        raise ValueError(f"embed_rows: halo_src must be a contiguous int64 "
+                         f"[{B - n_local}] on {dev}")
+    if e_dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"embed_rows: unsupported energy dtype {e_dtype}")
+    if B * A >= 2 ** 31:
+        raise ValueError(f"embed_rows: {B} cells of {A} slots do not fit "
+                         f"the kernel's 32-bit indices")
+    if dev.type == "cpu":
+        return nlmod.embed_rows_plain(f_eval, nlist, n_atoms, rho, phi,
+                                      n_local, B, halo_src, e_dtype)
+    dfe = torch.empty((B, A), dtype=dtype, device=dev)
+    u = None if phi is None else torch.empty(R, dtype=e_dtype, device=dev)
+    err = build().comd_embed_rows(
+        tab.element_size(), 8 if e_dtype == torch.float64 else 4,
+        rho_s[0], rho_s[1], rho_s[4], phi_s[0], phi_s[1], phi_s[4],
+        nlist.a_valid.data_ptr(), nlist.row_start.data_ptr(),
+        n_atoms.data_ptr(), None if halo_src is None else halo_src.data_ptr(),
+        dfe.data_ptr(), None if u is None else u.data_ptr(), A, n_local,
+        B * A, R, f_eval.n, f_eval.x0, f_eval.inv_dx, tab.data_ptr(),
+        _grid(B * A, dev), 0 if u is None else _grid(R, dev), _stream(tab))
+    _launched(err, "embed_rows")
+    return dfe, u
+
+
+def land_rows(f, p, nlist, n_atoms, parts, n_local_out, n_local: int,
+              kick: Optional[float] = None, add: bool = False) -> None:
+    """The landing of a list force (LR), in place: ``parts`` the force's
+    passes (EAM's f1 and f3, added row by row; LJ's one), each a tuple of
+    one or two [3, R_s] row segments (rows contiguous, planes any stride
+    apart: NL2's outputs).  ``f`` [3, B, A] gets each local slot's row
+    force (``row_start[c] + s``) and 0 in every other slot; then, with
+    ``kick`` (the step's half-kick constant), ``p += kick * f`` and
+    ``n_local_out`` (0-dim int32) the local atoms of ``n_atoms``, added to
+    its value with ``add``.  Without ``kick`` only f is written (``p`` and
+    ``n_local_out`` may be None).  CPU tensors run the plain version; CUDA
+    tensors the kernel, one launch, 32-bit indices (B * A < 2^31)."""
+    _check_state(f)
+    dev = f.device
+    if kick is not None:
+        _check_field("land_rows p", p, f)
+        if n_local_out is None or n_local_out.shape != () or \
+                n_local_out.dtype != torch.int32 or \
+                n_local_out.device != dev:
+            raise ValueError("land_rows: n_local_out must be a 0-dim int32 "
+                             "on f's device")
+    R = _check_rows_of("land_rows", nlist, n_atoms, n_local, dev)
+    if len(parts) not in (1, 2):
+        raise ValueError("land_rows: one or two force passes")
+    segs = [_segments(f"land_rows pass {k + 1}", part, R, 3, f.dtype, dev)
+            for k, part in enumerate(parts)]
+    B, A = f.shape[1], f.shape[2]
+    if B * A >= 2 ** 31:
+        raise ValueError(f"land_rows: {B} cells of {A} slots do not fit "
+                         f"the kernel's 32-bit indices")
+    if dev.type == "cpu":
+        nlmod.land_rows_plain(f, p, nlist, n_atoms, parts, n_local_out,
+                              n_local, kick, add)
+        return
+    f3 = segs[1] if len(segs) == 2 else (None, None, 0, 0, R)
+    scratch = None if kick is None else _scratch(dev).data_ptr()
+    err = build().comd_land_rows(
+        f.element_size(), f.data_ptr(),
+        None if kick is None else p.data_ptr(), *segs[0], *f3,
+        nlist.row_start.data_ptr(), n_atoms.data_ptr(), A, n_local, B * A, R,
+        int(kick is not None), 0.0 if kick is None else kick,
+        None if kick is None else n_local_out.data_ptr(), int(add), scratch,
+        _grid(B * A, dev), _stream(f))
+    _launched(err, "land_rows")

@@ -165,47 +165,54 @@ def lj_force_half(half_nbr_map: torch.Tensor, pot: LjPotential,
     return [(f_s,) + _energy(pot, e_s, e_dtype) for f_s, e_s in zip(f, e)]
 
 
-def _nl_result(pot: LjPotential, nlist, r, f_rows, e_rows, e_dtype):
-    """Per-row sweep results to (force [3, B, A], U [B, A] | None,
-    ePot | None)."""
-    B, A = r.shape[1], r.shape[2]
-    force = nlmod.scatter_rows(nlist, f_rows, B, A)
+def _nl_result(pot: LjPotential, nlist, n_atoms, f_rows, e_rows, e_dtype):
+    """Per-row sweep results to (RowForce, U [R] | None, ePot | None); no
+    dense field is built (``land_rows`` lands the force).  ``f_rows`` and
+    ``e_rows`` are tuples of row segments; the energy's are joined on
+    energy steps only, so that ePot is one sum over the rows."""
+    force = nlmod.RowForce(nlist, n_atoms, (tuple(f_rows),))
     if e_rows is None:
         return force, None, None
-    u_rows, e_pot = _energy(pot, e_rows, e_dtype)   # zero on invalid rows
-    return force, nlmod.scatter_rows(nlist, u_rows.to(r.dtype), B, A), e_pot
+    e = e_rows[0] if len(e_rows) == 1 else torch.cat(e_rows)
+    return (force,) + _energy(pot, e, e_dtype)   # zero on invalid rows
 
 
 def lj_force_nl(nlists: Sequence[nlmod.NeighborList], pot: LjPotential,
                 rs: Sequence[torch.Tensor], ev: PairEvaluator, *,
+                n_atoms: Sequence[torch.Tensor],
                 e_dtype: torch.dtype = torch.float64,
                 want_energy: bool = True):
     """LJ over Verlet lists (ljForceCpuNL, ljForce.c:146-265; the -L
-    pairlist) on NL2 for every shard.  Returns, per shard, (force [3, B, A]
-    with zero halo rows, U [B, A] | None, ePot | None)."""
-    return [_nl_result(pot, lst, r, *nl.lj_pass(lst, r, ev,
-                                                 want_energy=want_energy),
-                       e_dtype) for lst, r in zip(nlists, rs)]
+    pairlist) on NL2 for every shard (``n_atoms``: the counts by cell the
+    lists were built from).  Returns, per shard, (RowForce, U [R] | None,
+    ePot | None)."""
+    out = []
+    for lst, r, n in zip(nlists, rs, n_atoms):
+        f, e = nl.lj_pass(lst, r, ev, want_energy=want_energy)
+        out.append(_nl_result(pot, lst, n, (f,),
+                              None if e is None else (e,), e_dtype))
+    return out
 
 
 def lj_force_nl_split(nlists: Sequence[nlmod.NeighborList], pot: LjPotential,
                       rs: Sequence[torch.Tensor], ev: PairEvaluator,
                       n_rows_interior: int, *,
+                      n_atoms: Sequence[torch.Tensor],
                       r_pre: Optional[Sequence[torch.Tensor]] = None,
                       e_dtype: torch.dtype = torch.float64,
                       want_energy: bool = True):
     """``lj_force_nl`` with the interior/boundary row split (-a 1): the
     interior rows [0, Ri) sweep the pre-exchange positions ``r_pre``, the
-    boundary rows the refreshed ones.  Lists built with row_split."""
+    boundary rows the refreshed ones; the two sweeps' rows stay segments.
+    Lists built with row_split."""
     r_pre = rs if r_pre is None else r_pre
     out = []
-    for lst, r, rp in zip(nlists, rs, r_pre):
+    for lst, r, rp, n in zip(nlists, rs, r_pre, n_atoms):
         n_rows = lst.a_list.shape[0]
         f_i, e_i = nl.lj_pass(nlmod.slice_rows(lst, 0, n_rows_interior), rp,
                               ev, want_energy=want_energy)
         f_b, e_b = nl.lj_pass(nlmod.slice_rows(lst, n_rows_interior, n_rows),
                               r, ev, want_energy=want_energy)
-        out.append(_nl_result(pot, lst, r, torch.cat([f_i, f_b], dim=1),
-                              torch.cat([e_i, e_b]) if want_energy else None,
-                              e_dtype))
+        out.append(_nl_result(pot, lst, n, (f_i, f_b),
+                              (e_i, e_b) if want_energy else None, e_dtype))
     return out

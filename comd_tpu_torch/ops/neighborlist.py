@@ -12,7 +12,7 @@ of ``nbr_map`` in column order, slots 0..A-1 within each), the rest padded
 with the row's own slot id, so a padded entry gives r2 == 0 and masks out.
 Rows past the real atoms (``a_valid`` False) carry slot id 0 and an
 all-padding list: comd_tpu builds slot 0's list there, which nothing reads
-(``scatter_rows`` drops those rows), so lists compare on valid rows.
+(no slot maps to those rows), so lists compare on valid rows.
 
 Between rebuilds the cell layout is frozen: ghosts are refreshed by
 slot-aligned position copies and only the skin trigger rebuckets.
@@ -24,6 +24,16 @@ a cumsum in candidate order (comd_tpu's stable ``lax.top_k`` over a 0/1
 mask keeps the same first K).  comd_tpu's chunking by ``nl_chunk`` rows and
 its top_k VMEM budget were TPU limits: the plain versions chunk by a memory
 budget instead.
+
+The row ops around the sweeps have plain versions here too, of kernels in
+csrc/nl.cu and csrc/step.cu: ``nl_rows_plain`` (NR: the build's rows and
+each cell's ``row_start``), ``embed_rows_plain`` (ER: pass 2 on the rows,
+dfEmbed in the cell layout with its serial halo fill, U per row) and
+``land_rows_plain`` (LR: the per-row force into the cell layout, the
+second half kick and the atom count).  Local slot (c, s) is row
+``row_start[c] + s`` when s < min(n_atoms[c], A) and that row is below the
+row capacity; every other slot has no row.  Rows may come as segments
+(the -a 1 split's interior and boundary sweeps), read in row order.
 """
 from __future__ import annotations
 
@@ -46,6 +56,19 @@ class NeighborList:
     a_valid: torch.Tensor  # [R] bool
     nl: torch.Tensor       # [R, K] int32 flat slot ids (self-id padded)
     last_r: torch.Tensor   # [3, B, A] positions at build time
+    row_start: torch.Tensor  # [n_local] int32: the row of each cell's slot 0
+
+
+@dataclasses.dataclass
+class RowForce:
+    """A list force per row, as the sweeps leave it, for the landing
+    (``land_rows``): ``parts`` the force's passes (EAM's f1 and f3, added
+    row by row; LJ's f), each a tuple of one or two [3, R_s] row segments
+    in row order (the -a 1 split's interior and boundary sweeps), over
+    ``nlist``'s rows, built from the counts ``n_atoms``."""
+    nlist: NeighborList
+    n_atoms: torch.Tensor
+    parts: tuple
 
 
 def n_rows_for(geom: CellGeometry, max_atoms: int,
@@ -110,38 +133,124 @@ def build_atom_list_split(geom: CellGeometry, n_atoms, A: int, row_split):
     return (torch.cat([idx_i, idx_b]), torch.cat([v_i, v_b]), n_i + n_b)
 
 
-def atom_rows(geom: CellGeometry, n_atoms, A: int, n_rows: int,
-              row_split=None):
-    """(a_list, a_valid) of a build: all local atoms, or with
-    ``row_split`` (row_split_for) interior rows first."""
+def _exclusive(x):
+    return (torch.cumsum(x, 0) - x).to(torch.int32)
+
+
+def nl_rows_plain(geom: CellGeometry, n_atoms, A: int, n_rows: int,
+                  row_split=None):
+    """The rows of a build (NR's plain version): (a_list [R] int32,
+    a_valid [R] bool, row_start [n_local] int32).  a_list and a_valid are
+    ``build_atom_list``'s (R = ``n_rows``) or, with ``row_split``
+    (row_split_for), ``build_atom_list_split``'s (R = Ri + Rb, interior
+    rows first), comd_tpu's bit for bit.  ``row_start[c]`` is where cell
+    c's min(n_atoms[c], A) rows begin: the exclusive scan of those counts
+    over the local cells (with the split over the interior cells from 0
+    and over the boundary cells from Ri); a slot whose row would be at or
+    past R (more atoms than ``n_rows`` holds) has none."""
     if row_split is not None:
         a_list, a_valid, _n = build_atom_list_split(geom, n_atoms, A,
                                                     row_split)
     else:
         a_list, a_valid, _n = build_atom_list(geom, n_atoms, A, n_rows)
-    return a_list, a_valid
+    occ = n_atoms[:geom.n_local].clamp(0, A).to(torch.int64)
+    if row_split is None:
+        return a_list, a_valid, _exclusive(occ)
+    is_b = torch.as_tensor(row_split[0], device=n_atoms.device)
+    zero = torch.zeros_like(occ)
+    start_i = _exclusive(torch.where(is_b, zero, occ))
+    start_b = _exclusive(torch.where(is_b, occ, zero)) + row_split[1]
+    return a_list, a_valid, torch.where(is_b, start_b, start_i)
 
 
 def cell_row_starts(a_list, a_valid, n_local: int, A: int):
-    """The row of each local cell's slot 0 in a compacted row layout, where
-    a cell's valid rows are contiguous and in slot order (``atom_rows``,
-    with or without the row split): [n_local] int32, 0 for a cell without
-    rows.  NL1 gives each cell one block over rows row_start[c] + slot.
-    Torch ops on a_list's device, no host sync; every valid row of a cell
-    writes the same value."""
+    """``row_start`` of a list made elsewhere (a comd_tpu list carried
+    over): the row of each local cell's slot 0 where the cell has rows,
+    else R (so none of its slots has one).  A cell's valid rows are
+    contiguous and in slot order, as every build makes them.  Equals
+    ``nl_rows_plain``'s on every cell with rows."""
     dev = a_list.device
-    rows = torch.arange(a_list.shape[0], dtype=torch.int32, device=dev)
+    n_rows = a_list.shape[0]
+    rows = torch.arange(n_rows, dtype=torch.int32, device=dev)
     cell = torch.where(a_valid, a_list // A, n_local).to(torch.int64)
-    start = torch.zeros(n_local + 1, dtype=torch.int32, device=dev)
+    start = torch.full((n_local + 1,), n_rows, dtype=torch.int32,
+                       device=dev)
     start[cell] = rows - a_list % A
     return start[:n_local]
+
+
+def slot_rows(row_start, n_atoms, n_cells: int, A: int, n_rows: int):
+    """The row of every slot of cells [0, n_cells) (``row_start`` and
+    ``n_atoms`` indexed by cell) and whether it has one: ([n_cells, A]
+    int64 clamped into [0, R), [n_cells, A] bool)."""
+    slot = torch.arange(A, device=n_atoms.device)
+    row = row_start[:n_cells, None].to(torch.int64) + slot
+    has = (slot < n_atoms[:n_cells, None].clamp(0, A)) & (row < n_rows)
+    return row.clamp(0, max(n_rows - 1, 0)), has
+
+
+def _rows(segs):
+    """Row segments as one tensor over the rows (the last dimension)."""
+    segs = tuple(segs)
+    return segs[0] if len(segs) == 1 else torch.cat(segs, dim=-1)
+
+
+def embed_rows_plain(f_eval, nlist: NeighborList, n_atoms, rho, phi,
+                     n_local: int, B: int, halo_src=None,
+                     e_dtype=torch.float64):
+    """Pass 2 on the rows of a list (ER's plain version): (dfEmbed [B, A],
+    U [R] | None).  ``rho`` (and ``phi``, None without the energy terms)
+    are the rows' density (pair energy) as a tuple of row segments.  Local
+    slot (c, s) gets F'(rho[row]) of its row, a slot without one 0; halo
+    cell h gets its serial source's values, ``halo_src[h - n_local]``, or 0
+    without ``halo_src`` (a mesh transport fills it).  U = 0.5 phi +
+    F(rho) in ``e_dtype`` on valid rows, 0 on the others."""
+    rho = _rows(rho)
+    A = nlist.last_r.shape[2]
+    f_emb, df = f_eval(rho)
+    row, has = slot_rows(nlist.row_start, n_atoms, n_local, A,
+                         rho.shape[0])
+    dfe = df.new_zeros((B, A))
+    dfe[:n_local] = torch.where(has, df[row], torch.zeros((), dtype=df.dtype,
+                                                          device=df.device))
+    if halo_src is not None:
+        dfe[n_local:] = torch.index_select(dfe, 0, halo_src)
+    if phi is None:
+        return dfe, None
+    u = 0.5 * _rows(phi).to(e_dtype) + f_emb.to(e_dtype)
+    return dfe, torch.where(nlist.a_valid, u, torch.zeros(
+        (), dtype=e_dtype, device=u.device))
+
+
+def land_rows_plain(f, p, nlist: NeighborList, n_atoms, parts, n_local_out,
+                    n_local: int, kick=None, add: bool = False) -> None:
+    """The landing of a list force (LR's plain version), in place: ``parts``
+    the force's passes (EAM's f1 and f3, added row by row; LJ's f), each a
+    tuple of [3, R_s] row segments.  Local slot (c, s) of ``f`` [3, B, A]
+    gets its row's force, every other slot 0; then, with ``kick``, the
+    half kick ``p += kick * f`` and ``n_local_out`` the local atoms of
+    ``n_atoms`` (added to its value with ``add``)."""
+    rows = _rows(parts[0])
+    for more in parts[1:]:
+        rows = rows + _rows(more)
+    A = f.shape[2]
+    row, has = slot_rows(nlist.row_start, n_atoms, n_local, A, rows.shape[1])
+    f[:, :n_local] = torch.where(has, rows[:, row], torch.zeros(
+        (), dtype=rows.dtype, device=rows.device))
+    f[:, n_local:] = 0
+    if kick is None:
+        return
+    p.add_(kick * f)
+    count = n_atoms[:n_local].sum(dtype=torch.int32)
+    n_local_out.copy_(n_local_out + count if add else count)
 
 
 def slice_rows(nlist: NeighborList, start: int, stop: int) -> NeighborList:
     """Row-range view of a NeighborList (shares last_r)."""
     return NeighborList(a_list=nlist.a_list[start:stop],
                         a_valid=nlist.a_valid[start:stop],
-                        nl=nlist.nl[start:stop], last_r=nlist.last_r)
+                        nl=nlist.nl[start:stop], last_r=nlist.last_r,
+                        row_start=nlist.row_start)
 
 
 def _rows_a_chunk(per_row_bytes: int) -> int:
@@ -190,10 +299,12 @@ def build(geom: CellGeometry, nbr_map, r, n_atoms, *, k: int, rcut2: float,
     ``overflow`` a 0-dim bool, true when some valid row has more than ``k``
     entries.  ``row_split`` (row_split_for) orders rows interior first, as
     -a 1 sweeps them."""
-    a_list, a_valid = atom_rows(geom, n_atoms, r.shape[2], n_rows, row_split)
+    a_list, a_valid, row_start = nl_rows_plain(geom, n_atoms, r.shape[2],
+                                               n_rows, row_split)
     nl, count = candidate_lists(r, a_list, a_valid, nbr_map, k=k,
                                 rcut2=rcut2)
-    return (NeighborList(a_list=a_list, a_valid=a_valid, nl=nl, last_r=r),
+    return (NeighborList(a_list=a_list, a_valid=a_valid, nl=nl, last_r=r,
+                         row_start=row_start),
             ((count > k) & a_valid).any())
 
 
@@ -215,7 +326,8 @@ def pair_sweep_nl(nlist: NeighborList, r, pair_fn, rcut2: float, *,
     cell_pair_sweep pair-function contract: ``pair_fn(r2, mask, sj, si)``
     gets [C, K] pair tensors and returns (fcoef, scalars).  Returns per-ROW
     outputs (force [3, R], [scalars [R] ...]), zero on invalid rows; the
-    caller scatters them to slots with ``scatter_rows``."""
+    caller lands them in the cell layout (``embed_rows_plain``,
+    ``land_rows_plain``; ``scatter_rows`` is comd_tpu's form)."""
     B, A = r.shape[1], r.shape[2]
     r_flat = r.reshape(3, B * A)
     rc2 = as_dtype(rcut2, r.dtype)

@@ -241,8 +241,8 @@ class ShardedSimulation(Physics):
         r = [s.r for s in st]
         r_pre = self._r_pre() if self._reads_r_pre else r
         if self.uses_nl:
-            res = self.forces_nl(self.nlists, r, self._fill_nl, want_energy,
-                                 r_pre)
+            res = self.forces_nl(self.nlists, r, [s.n_atoms for s in st],
+                                 self._fill_nl, want_energy, r_pre)
         else:
             res = self.forces(r, [s.n_atoms for s in st], self._fill,
                               self._fold, want_energy, r_pre, passes=True)
@@ -307,7 +307,7 @@ class ShardedSimulation(Physics):
         st = self.states
         if self.uses_nl:
             res = self.forces_nl(self.nlists, [s.r for s in st],
-                                 self._fill_nl)
+                                 [s.n_atoms for s in st], self._fill_nl)
         else:
             res = self.forces([s.r for s in st], [s.n_atoms for s in st],
                               self._fill, self._fold)

@@ -21,8 +21,8 @@ trigger says (comd_tpu's lax.cond; on the card a conditional node of the
 step's graph; a mesh's ghost refresh is the other branch), and the rest
 (force, kick), all in place on buffers the step owns; ``-S 0`` rebuckets
 every step.  The ops around the force (kick, drift, trigger, ghost
-refresh, pass 2, the landing) are the hand-written kernels of
-ops/cuda/step.py.
+refresh, pass 2, the landing; on the list paths pass 2 and the landing
+from the list's rows) are the hand-written kernels of ops/cuda/step.py.
 """
 from __future__ import annotations
 
@@ -62,7 +62,7 @@ class SimState:
 #: list's, as the step's buffers hold them
 _SHARD_FIELDS = ("r", "p", "f", "gid", "n_atoms")
 _SCALAR_FIELDS = ("e_potential", "n_local", "overflow")
-_LIST_FIELDS = ("a_list", "a_valid", "nl", "last_r")
+_LIST_FIELDS = ("a_list", "a_valid", "nl", "last_r", "row_start")
 
 
 class Physics:
@@ -172,19 +172,34 @@ class Physics:
         return flag
 
     def _full_force(self, f_loc, like):
+        """The [3, B, A] force field of a shard's force ``f_loc``: a list
+        force per row (``neighborlist.RowForce``) landed by one
+        ``land_rows`` launch without the kick, else [3, n_local, A] in the
+        local cells; halo rows zero."""
+        if isinstance(f_loc, nlmod.RowForce):
+            f = torch.empty_like(like)
+            step_ops.land_rows(f, None, f_loc.nlist, f_loc.n_atoms,
+                               f_loc.parts, None, self.geom.n_local)
+            return f
         f = torch.zeros_like(like)
         f[:, :self.geom.n_local] = f_loc.to(like.dtype)
         return f
 
     def _land(self, states, res, want_energy: bool):
         """The end of a step, in place: each shard's force (``res`` as
-        ``forces(passes=True)`` returns it: a force or EAM's two passes;
-        halo rows zero), the second half kick and the local atom count, one
-        ``land`` launch a shard (ops/cuda/step.py), and, with the energy
-        terms, ePot.  Returns the shards' ePot stacked, or None."""
+        ``forces(passes=True)`` or ``forces_nl`` returns it: a force,
+        EAM's two passes, or a list force per row), the second half kick
+        and the local atom count, one ``land`` (``land_rows``) launch a
+        shard (ops/cuda/step.py), and, with the energy terms, ePot.
+        Returns the shards' ePot stacked, or None."""
         kick = self._c(0.5 * self.cfg.dt)
         s0 = states[0]
         for i, (s, (f_loc, _u, _e)) in enumerate(zip(states, res)):
+            if isinstance(f_loc, nlmod.RowForce):
+                step_ops.land_rows(s.f, s.p, f_loc.nlist, f_loc.n_atoms,
+                                   f_loc.parts, s0.n_local,
+                                   self.geom.n_local, kick, add=i > 0)
+                continue
             f1, f3 = f_loc if isinstance(f_loc, tuple) else (f_loc, None)
             step_ops.land(s.f, s.p, f1, f3, s.n_atoms, s0.n_local,
                           self.geom.n_local, kick, add=i > 0)
@@ -430,14 +445,17 @@ class Physics:
         return ([b[0] for b in built],
                 torch.stack([b[1] for b in built]).any())
 
-    def forces_nl(self, nlists, rs, fill, want_energy: bool = True,
+    def forces_nl(self, nlists, rs, n_atoms, fill, want_energy: bool = True,
                   r_pre=None):
         """The force of every shard over its Verlet list (comd_tpu's
         ``_force_fn_nl``): EAM or LJ on NL2, with the row split under -a 1
         on a mesh (``r_pre``: the pre-exchange positions its interior rows
-        read).  ``fill`` is the dfEmbed halo fill over all shards.  Returns
-        per shard (f_loc [3, n_local, A], None, ePot | None)."""
-        kw = dict(e_dtype=self.cfg.torch_energy_dtype,
+        read); pass 2 and, for the landing, the force stay on the rows.
+        ``n_atoms``: the counts by cell the lists were built from; ``fill``
+        is the dfEmbed halo fill over all shards (a single domain's pass 2
+        fills its halo rows itself, ``_halo_src``).  Returns per shard
+        (RowForce, None, ePot | None)."""
+        kw = dict(n_atoms=n_atoms, e_dtype=self.cfg.torch_energy_dtype,
                   want_energy=want_energy)
         split = self.nl_row_split
         if self.is_eam:
@@ -447,19 +465,17 @@ class Physics:
                     r_pre=r_pre, **kw)
             else:
                 out = force_eam.eam_force_nl(nlists, rs, self.pair_eval,
-                                             self.f_eval, fill, **kw)
-            res = [(f, e) for f, e, _dfe in out]
+                                             self.f_eval, fill,
+                                             halo_src=self._halo_src, **kw)
+            return [(f, None, e) for f, e, _dfe in out]
+        if split is not None:
+            out = force_lj.lj_force_nl_split(
+                nlists, self.pot, rs, self.pair_eval, split[1], r_pre=r_pre,
+                **kw)
         else:
-            if split is not None:
-                out = force_lj.lj_force_nl_split(
-                    nlists, self.pot, rs, self.pair_eval, split[1],
-                    r_pre=r_pre, **kw)
-            else:
-                out = force_lj.lj_force_nl(nlists, self.pot, rs,
-                                           self.pair_eval, **kw)
-            res = [(f, e) for f, _u, e in out]
-        # the lists hold local atoms only: the halo rows are zero
-        return [(f[:, :self.geom.n_local], None, e) for f, e in res]
+            out = force_lj.lj_force_nl(nlists, self.pot, rs, self.pair_eval,
+                                       **kw)
+        return [(f, None, e) for f, _u, e in out]
 
 
 @dataclasses.dataclass
@@ -486,8 +502,9 @@ class Simulation(Physics):
     # ---------------- force + energy ----------------
 
     def _fill(self, xs, _rhobar=None):
-        """The serial periodic dfEmbed halo fill (the list paths'; on the
-        cell paths pass 2 fills the halo rows, ``_halo_src``)."""
+        """The serial periodic dfEmbed halo fill, for callers without the
+        maps' sources (the step's pass 2, on the cells or the list's rows,
+        fills the halo rows itself, ``_halo_src``)."""
         return [binning.fill_halo_scalar_serial(self.geom, self.maps, x)
                 for x in xs]
 
@@ -499,10 +516,16 @@ class Simulation(Physics):
               passes: bool = False):
         """The force of the single domain: (f_loc [3, n_local, A],
         U [n_local, A] | None, ePot | None), with the serial periodic halo
-        fill and fold; over ``nlist`` when given (U is then None);
-        ``passes`` as in ``forces``."""
+        fill and fold; over ``nlist`` when given (U is then None; with
+        ``passes`` f_loc is the force per row, ``neighborlist.RowForce``,
+        for the landing); ``passes`` as in ``forces``."""
         if nlist is not None:
-            return self.forces_nl([nlist], [r], self._fill, want_energy)[0]
+            res = self.forces_nl([nlist], [r], [n_atoms], self._fill,
+                                 want_energy)[0]
+            if passes:
+                return res
+            return ((self._full_force(res[0], r)[:, :self.geom.n_local],)
+                    + res[1:])
         geom, maps = self.geom, self.maps
 
         def fold(xs):
@@ -583,9 +606,11 @@ class Simulation(Physics):
         self.nlist = nlists[0] if nlists else None
 
     def compute_force(self) -> None:
-        """Force-only evaluation (used at init; CoMD.c:314)."""
+        """Force-only evaluation (used at init; CoMD.c:314); on the list
+        paths the rows landed by ``land_rows`` without the kick."""
         s = self.state
-        f_loc, _u, e_pot = self.force(s.r, s.n_atoms, nlist=self.nlist)
+        f_loc, _u, e_pot = self.force(s.r, s.n_atoms, nlist=self.nlist,
+                                      passes=self.nlist is not None)
         self.state = dataclasses.replace(
             s, f=self._full_force(f_loc, s.f), e_potential=e_pot)
 

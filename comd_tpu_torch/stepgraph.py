@@ -18,12 +18,14 @@ each step is one CUDA graph, captured once a ``want_energy`` and replayed
     trigger, the second to its negation; torch 2.11 has no conditional
     node that Python reaches): if set, the rebucket (sort, scatter, halo
     rebuild; on a mesh the atom exchange and in-cell sort; on the list
-    paths the rebuild NL1; the new baseline; one more on a device
-    rebucket counter), and on a mesh, if clear, the position exchange
+    paths the rebuild, NR's rows and NL1, into the list's buffers; the
+    new baseline; one more on a device rebucket counter), and on a mesh,
+    if clear, the position exchange
     (under -a 1 with the copy of the positions the interior sweeps read;
     serially the head has refreshed the ghosts: no second body); then
     the rest both branches share (the force with its halo fill, the
-    second half kick, the bookkeeping);
+    second half kick, the bookkeeping; on the list paths pass 2 and the
+    landing from the list's rows, ER and LR);
   - a ``-S 0`` step (comd_tpu's ``_make_step`` and ``_shard_step``):
     drift, rebucket and rest, no condition; under -a 1 the interior
     sweeps' positions are selected on the device.

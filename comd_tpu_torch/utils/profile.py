@@ -13,6 +13,7 @@ comd_tpu's -s table: the phase names are comd_tpu's.
 Phases (reference enum names), each the code the step runs:
   velocity      the second half kick (timestep.c:109-133) with the force
                 landing and atom count: one ``land`` launch a shard
+                (``land_rows`` from the rows on the list paths)
   position      the drift (timestep.c:122-133) with the first half kick
                 and the skin trigger: one ``kick_drift_trigger`` launch a
                 shard (ops/cuda/step.py), serially on the lazy and list
@@ -23,7 +24,9 @@ Phases (reference enum names), each the code the step runs:
                 the ``refresh_halo`` fill; on a mesh the step's
                 ``exchange_positions``: one ``position_fill`` launch in one
                 process)
-  force         full force evaluation (includes the in-force eamHalo)
+  force         full force evaluation (includes the in-force eamHalo;
+                on the list paths the rows landed by ``land_rows``
+                without the kick)
   eamHalo       the dfEmbed halo fill alone (EAM only)
   neighborList  Verlet list build (NL methods only)
 
@@ -51,10 +54,12 @@ def _phase_fns(sim):
     def forces(st, passes=False):
         rs, ns = [s.r for s in st], [s.n_atoms for s in st]
         if sharded and sim.uses_nl:
-            return sim.forces_nl(sim.nlists, rs, sim._fill_nl)
+            return sim.forces_nl(sim.nlists, rs, ns, sim._fill_nl)
         if sharded:
             return sim.forces(rs, ns, sim._fill, sim._fold, passes=passes)
-        return [sim.force(rs[0], ns[0], nlist=sim.nlist, passes=passes)]
+        # the list force stays per row; ``force`` lands it
+        return [sim.force(rs[0], ns[0], nlist=sim.nlist,
+                          passes=passes or sim.uses_nl)]
 
     # the step's landing lands the force of its state (EAM's two passes)
     landed = forces([_clone(s) for s in _states(sim)], passes=True)

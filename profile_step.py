@@ -11,6 +11,8 @@
     python3 profile_step.py --mesh 2 2 2 --gpuAsync 1    # -a 1: the split
     python3 profile_step.py -S 0                   # a rebucket every step
     python3 profile_step.py --eager                # the eager loop
+    python3 profile_step.py --tree _scratch/parent  # another checkout's
+                                                    # package, same run
 
 Runs the 63^3 EAM headline (f32, lazy stepping; the run of chip_smoke.py
 phases 5, 8 and 12), or with ``--method``/``--lj``/``--pairlist`` the
@@ -27,7 +29,8 @@ durations: one stream, so they do not overlap) and its idle share of the
 unprofiled wall clock, kernel launches per step, the kernels that take the
 most device time, the device time of one launch of each hand-written
 kernel (K1/K2, the halo and list kernels, the step's
-kick_drift_trigger, refresh_halo, embed_fill and land, the
+kick_drift_trigger, refresh_halo, embed_fill and land, the list
+paths' embed_rows, land_rows and nl_rows, the
 redistribution's rebucket_bin and rebucket_place, and on a mesh the atom
 exchange's arrivals_bin, arrivals_place and sort_cells, and the ghost
 refresh's position_fill, the collective atom messages' atom_pack and the
@@ -45,11 +48,15 @@ csrc/arrivals.cu's launches, and the copies into the step's buffers),
 and on a mesh one ghost refresh run eagerly (the lazy step's other IF
 body: its device operations and device ms; one position_fill launch).
 Needs a CUDA device; prints the card's name and power limit beside the
-numbers.
+numbers.  The JSON also holds the sha256 of every shard's positions and
+the potential energy after the timed and profiled steps (before the eager
+redistribution), so that two trees driven through ``--tree`` in one call
+show whether they step the same bits.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -96,13 +103,16 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--eager", action="store_true",
                     help="step the eager loop, not the CUDA graphs")
+    ap.add_argument("--tree", default=ROOT,
+                    help="the checkout whose comd_tpu_torch runs (default: "
+                         "this one)")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device available", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.tree))
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from comd_tpu_torch import Config, init_simulation
@@ -153,6 +163,10 @@ def main(argv=None) -> int:
                 "Loading" not in e.key:
             kern[e.key] = (dev_us, e.count)
     busy_us = sum(v[0] for v in kern.values())
+    digest = hashlib.sha256()
+    for st in (sim.states if hasattr(sim, "states") else [sim.state]):
+        digest.update(st.r.cpu().numpy().tobytes())
+    e_pot = sim.e_potential
     gaps = sorted(head_gaps(prof, DeviceType))
     top = sorted(kern.items(), key=lambda kv: -kv[1][0])[:12]
     # one redistribution run eagerly, op by op, as the eager loop runs it:
@@ -194,6 +208,9 @@ def main(argv=None) -> int:
                 + (f" -a {args.gpuAsync}" if args.gpuAsync >= 0 else "")
                 + ("" if args.lazy else " -S 0")
                 + (", eager loop" if args.eager else ", CUDA graphs")),
+        "tree": os.path.abspath(args.tree),
+        "final_r_sha256": digest.hexdigest(),
+        "e_potential": e_pot,
         "ms_per_step": 1e3 * wall / steps,
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -239,6 +256,9 @@ def main(argv=None) -> int:
                                     "kick_drift_trigger_kernel",
                                     "refresh_halo_kernel",
                                     "embed_fill_kernel", "land_kernel",
+                                    "embed_rows_kernel", "land_rows_kernel",
+                                    "nl_rows_scan_kernel",
+                                    "nl_rows_fill_kernel",
                                     "rebucket_bin_kernel",
                                     "rebucket_place_kernel",
                                     "rebucket_place_warp_kernel",

@@ -183,12 +183,22 @@ def nl_worker(tree: str) -> dict:
         sim.step_block(10)
         s, lst, ev = sim.state, sim.nlist, sim.pair_eval
         p = sim.nl_build_params()
-        a_list, a_valid = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
-                                          p["n_rows"], p["row_split"])
+        # the build's rows and, where NL1 reads it, their row_start
+        # (nl_rows_plain; atom_rows on older trees, whose NL1 derives it)
+        if hasattr(nlmod, "nl_rows_plain"):
+            a_list, a_valid, start = nlmod.nl_rows_plain(
+                sim.geom, s.n_atoms, s.r.shape[2], p["n_rows"],
+                p["row_split"])
+            kw = dict(row_start=start)
+        else:
+            a_list, a_valid = nlmod.atom_rows(sim.geom, s.n_atoms,
+                                              s.r.shape[2], p["n_rows"],
+                                              p["row_split"])
+            kw = {}
         tag = "eam" if doeam else "lj"
         fns = {f"{tag} nl_build": (lambda: nlk.nl_build(
             s.r, a_list, a_valid, sim.maps.nbr_map, s.n_atoms, k=p["k"],
-            rcut2=p["rcut2"]), 5)}
+            rcut2=p["rcut2"], **kw), 5)}
         if doeam:
             rho = nlk.eam_pass1(lst, s.r, ev)[2]
             dfe = nlmod.scatter_rows(lst, sim.f_eval(rho)[1],

@@ -4,7 +4,8 @@ and K4's functions in one launch; the atom stage push, K3), the archive
 probes' kernels (P1-P6: window_pair, row_lookup, lane_lookup) and the
 neighbor-list kernels (NL1 nl_build: the same lists, counts and overflow
 flag bit for bit; NL2 nl_sweep: the pair sums at the stencil tolerances,
-the same bits on two launches).
+the same bits on two launches) and the list paths' row ops (NR nl_rows,
+ER embed_rows, LR land_rows: bit for bit).
 
 Run on a machine with an NVIDIA GPU and nvcc:
 
@@ -915,12 +916,14 @@ def test_nl_build_matches_plain(cuda_device, dtype, split, case):
     row_split = nlmod.row_split_for(sim.geom, sim.cfg.max_atoms) \
         if split else None
     n_rows = (row_split[1] + row_split[2]) if split else params["n_rows"]
-    a_list, a_valid = nlmod.atom_rows(sim.geom, n_atoms, r.shape[2],
-                                      n_rows, row_split)
+    a_list, a_valid, start = nlmod.nl_rows_plain(sim.geom, n_atoms,
+                                                 r.shape[2], n_rows,
+                                                 row_split)
     for k in (params["k"], 8):
         st.reset_launch_counts()
         got = cuda_nl.nl_build(r, a_list, a_valid, sim.maps.nbr_map,
-                               n_atoms, k=k, rcut2=params["rcut2"])
+                               n_atoms, row_start=start, k=k,
+                               rcut2=params["rcut2"])
         assert st.LAUNCHES["nl_build"] == 1
         want = cuda_nl.nl_build_plain(r, a_list, a_valid,
                                       sim.maps.nbr_map, n_atoms, k=k,
@@ -946,15 +949,16 @@ def _nl_list(sim, lists):
         n_rows = row_split[1] + row_split[2]
     else:
         k = 8
-    a_list, a_valid = nlmod.atom_rows(sim.geom, s.n_atoms, s.r.shape[2],
-                                      n_rows, row_split)
+    a_list, a_valid, start = nlmod.nl_rows_plain(sim.geom, s.n_atoms,
+                                                 s.r.shape[2], n_rows,
+                                                 row_split)
     nl, count, _o = cuda_nl.nl_build_plain(s.r, a_list, a_valid,
                                            sim.maps.nbr_map, s.n_atoms, k=k,
                                            rcut2=p["rcut2"])
     if lists == "k8":
         assert bool((count[a_valid] > k).all())   # no padding in any row
     return nlmod.NeighborList(a_list=a_list, a_valid=a_valid, nl=nl,
-                              last_r=s.r)
+                              last_r=s.r, row_start=start)
 
 
 def _nl_sweeps(sim, lists="built"):
@@ -1005,6 +1009,143 @@ def test_nl_sweep_matches_plain(cuda_device, dtype, impl, doeam, lists):
                 _close(g, w, 0.0, s_rtol)
         again = kern()
         assert all(a is b or torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("split,case", [
+    (False, "thermal"), (True, "thermal"), (False, "crowded"),
+    (True, "crowded"), (False, "short")])
+def test_nl_rows_matches_plain(cuda_device, split, case):
+    """NR (nl_rows: the scan and the fill) against nl_rows_plain bit for
+    bit, with and without the -a 1 row split (the boundary mask on the
+    card), new tensors and in place over poisoned ones, one count a call:
+    a thermalized 8^3 state, the same with an empty cell and cells at and
+    past A, and a row capacity a quarter of the slots (no split)."""
+    sim = _nl_sim("float32")
+    if case == "crowded":
+        _r, n_atoms = _crowd(sim)
+        n_atoms = n_atoms.clone()
+        n_atoms[sim.geom.n_local // 5] = sim.cfg.max_atoms + 4
+    else:
+        n_atoms = sim.state.n_atoms
+    A = sim.cfg.max_atoms
+    row_split = None
+    if split:
+        is_b, ri, rb = nlmod.row_split_for(sim.geom, A)
+        row_split = (torch.as_tensor(is_b, device="cuda"), ri, rb)
+    n_rows = nlmod.n_rows_for(sim.geom, A, 0.25 if case == "short" else 1.0)
+    want = nlmod.nl_rows_plain(sim.geom, n_atoms, A, n_rows, row_split)
+    st.reset_launch_counts()
+    got = cuda_nl.nl_rows(sim.geom, n_atoms, A, n_rows, row_split)
+    out = tuple(torch.full_like(w, 3) if w.dtype != torch.bool
+                else torch.ones_like(w) for w in want)
+    again = cuda_nl.nl_rows(sim.geom, n_atoms, A, n_rows, row_split,
+                            out=out)
+    assert st.LAUNCHES["nl_rows"] == 2
+    assert all(a is b for a, b in zip(again, out))
+    for g, a, w in zip(got, again, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+        assert torch.equal(a, w)
+
+
+def _row_ops_inputs(sim, split: bool, seed: int):
+    """A list of sim's state (the plain build, with or without the row
+    split) and per-row rho, phi and two force passes as NL2 leaves them
+    (0 on invalid rows; the first pass's planes strided as pass 1's
+    [5, R] output), from a numpy seed."""
+    s, p = sim.state, sim.nl_build_params()
+    A = sim.cfg.max_atoms
+    row_split = nlmod.row_split_for(sim.geom, A) if split else None
+    lst, _o = nlmod.build(sim.geom, sim.maps.nbr_map, s.r, s.n_atoms,
+                          k=p["k"], rcut2=p["rcut2"], n_rows=p["n_rows"],
+                          row_split=row_split)
+    R = lst.a_list.shape[0]
+    rng = np.random.default_rng(seed)
+    v = lst.a_valid.cpu().numpy()
+    f = sim.pot.f
+    hi = f.x0 + (f.n - 1) / f.inv_dx
+
+    def rows(x):
+        return torch.as_tensor(np.where(v, x, 0.0), dtype=s.r.dtype,
+                               device="cuda")
+
+    rho = rows(rng.uniform(0.0, 1.1 * hi, R))
+    phi = rows(rng.uniform(-1.0, 0.5, R))
+    f1 = rows(rng.normal(size=(5, R)))[:3]
+    f3 = rows(rng.normal(size=(3, R)))
+    cut = row_split[1] if split else R // 3
+    return lst, rho, phi, f1, f3, cut
+
+
+def _two(x, cut):
+    return (x[..., :cut].clone(), x[..., cut:].clone())
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_embed_rows_matches_plain(cuda_device, dtype, impl, split):
+    """ER against embed_rows_plain on the same CUDA tensors, bit for bit:
+    with and without energy, the serial fill and zero halo rows, rows in
+    one segment and in two (the split's interior and boundary, or a cut
+    at R/3), the energy in f64 and f32; one launch a call."""
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    sim = _nl_sim(dtype, impl)
+    lst, rho, phi, _f1, _f3, cut = _row_ops_inputs(sim, split, 3)
+    s, nl = sim.state, sim.geom.n_local
+    B = s.r.shape[1]
+    for energy in (True, False):
+        for halo in (sim.maps.halo_src, None):
+            for segs in ((lambda x: (x,)), (lambda x: _two(x, cut))):
+                for e_dtype in (torch.float64, torch.float32):
+                    args = (sim.f_eval, lst, s.n_atoms, segs(rho),
+                            segs(phi) if energy else None, nl, B, halo,
+                            e_dtype)
+                    n0 = LAUNCHES["embed_rows"]
+                    got = step_ops.embed_rows(*args)
+                    assert LAUNCHES["embed_rows"] == n0 + 1
+                    want = nlmod.embed_rows_plain(*args)
+                    assert torch.equal(got[0], want[0])
+                    assert (got[1] is None) == (want[1] is None) == \
+                        (not energy)
+                    if energy:
+                        assert got[1].dtype == e_dtype
+                        assert torch.equal(got[1], want[1])
+                        assert got[1].sum().item() == want[1].sum().item()
+
+
+@pytest.mark.parametrize("split", [False, True])
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_land_rows_matches_plain(cuda_device, dtype, impl, split):
+    """LR against land_rows_plain on the same CUDA tensors, bit for bit:
+    one and two passes, with the kick (and the count, also added to an
+    earlier shard's) and without (f only), rows in one segment and in
+    two; one launch a call."""
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    sim = _nl_sim(dtype, impl)
+    lst, _rho, _phi, f1, f3, cut = _row_ops_inputs(sim, split, 5)
+    s, nl = sim.state, sim.geom.n_local
+    kick = sim._c(0.5 * sim.cfg.dt)
+    for two in (True, False):
+        for segs in ((lambda x: (x,)), (lambda x: _two(x, cut))):
+            parts = (segs(f1),) + ((segs(f3),) if two else ())
+            for k, add in ((kick, False), (kick, True), (None, False)):
+                outs = []
+                for fn in (step_ops.land_rows, nlmod.land_rows_plain):
+                    f = torch.full_like(s.f, float("nan"))
+                    p = s.p.clone()
+                    n_out = torch.full((), 7, dtype=torch.int32,
+                                       device="cuda")
+                    n0 = LAUNCHES["land_rows"]
+                    fn(f, p, lst, s.n_atoms, parts, n_out, nl, k, add)
+                    assert LAUNCHES["land_rows"] == n0 + (
+                        fn is step_ops.land_rows)
+                    outs.append((f, p, n_out))
+                (fk, pk, nk), (fp, pp, np_) = outs
+                assert torch.equal(fk, fp) and torch.equal(pk, pp)
+                assert int(nk) == int(np_)
+                if k is None:
+                    assert torch.equal(pk, s.p) and int(nk) == 7
 
 
 @pytest.mark.parametrize("comm_impl", ["ki", "collective"])
@@ -1110,7 +1251,9 @@ def _pair_rows(ev, dists, dtype):
     i = torch.arange(n, dtype=torch.int32, device="cuda") * 2
     nl = torch.stack([i + 1, i, i, i], dim=1).contiguous()
     valid = torch.ones_like(i, dtype=torch.bool)
-    lst = nlmod.NeighborList(a_list=i, a_valid=valid, nl=nl, last_r=r)
+    lst = nlmod.NeighborList(a_list=i, a_valid=valid, nl=nl, last_r=r,
+                             row_start=torch.arange(n, dtype=torch.int32,
+                                                    device="cuda"))
     d = np.random.default_rng(5).uniform(-100.0, -90.0, size=(n, 2))
     return r, lst, torch.as_tensor(d, dtype=dtype, device="cuda")
 

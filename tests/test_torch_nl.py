@@ -10,8 +10,8 @@ Both packages start from one comd_tpu state (6^3 FCC Cu, f64, T = 1200 K,
     table; LJ) on comd_tpu's own list, carried over with
     ``nlist_from_numpy``, against pair_sweep_nl + scatter_rows: 1e-12
     relative to the largest value;
-  - eam_force_nl(_split) and lj_force_nl(_split): force 1e-12 relative,
-    ePot 1e-9;
+  - eam_force_nl(_split) and lj_force_nl(_split), their per-row forces
+    landed by land_rows: force 1e-12 relative, ePot 1e-9;
   - 20-step trajectories through at least one rebuild, -m thread_atom_nl
     EAM and -L LJ: ePot within 1e-9 at t = 0 and 1e-7 after (the
     tolerances of tests/test_neighborlist.py), no atom lost.
@@ -30,11 +30,12 @@ from comd_tpu.ops import force_eam as jeam, force_lj as jlj
 from comd_tpu.ops import neighborlist as jnl
 
 from comd_tpu_torch import Config, init_simulation
-from comd_tpu_torch.interop import (FIELDS, nlist_from_numpy,
+from comd_tpu_torch.interop import (FIELDS, NL_FIELDS, nlist_from_numpy,
                                     nlist_to_numpy, state_from_numpy)
 from comd_tpu_torch.ops import force_eam, force_lj
 from comd_tpu_torch.ops import neighborlist as nlmod
 from comd_tpu_torch.ops.cuda import nl as cuda_nl
+from comd_tpu_torch.ops.cuda import step as step_ops
 
 torch.set_num_threads(1)
 
@@ -157,8 +158,8 @@ def test_sweep_matches_pair_sweep_nl(pair):
     forces and scalars within 1e-12 of their largest value."""
     jsim, tsim, kw = pair
     lst = nlist_from_numpy(
-        {k: np.asarray(getattr(jsim.nlist, k)) for k in nlmod.NeighborList
-         .__dataclass_fields__}, "cpu")
+        {k: np.asarray(getattr(jsim.nlist, k)) for k in NL_FIELDS}, "cpu",
+        tsim.geom.n_local)
     back = nlist_to_numpy(lst)
     for k, v in back.items():
         np.testing.assert_array_equal(v, np.asarray(getattr(jsim.nlist, k)))
@@ -191,12 +192,15 @@ def test_sweep_matches_pair_sweep_nl(pair):
 @pytest.mark.parametrize("split", [False, True])
 def test_force_nl_matches_comd_tpu(pair, split):
     """eam_force_nl(_split) and lj_force_nl(_split) on comd_tpu's state,
-    each package on its own list built with the same row split."""
+    each package on its own list built with the same row split; the
+    port's per-row force landed in the cell layout by land_rows (no
+    kick)."""
     jsim, tsim, kw = pair
     k = jsim._nl_build_params()["k"]
     j_list, _jo, t_list, _to, _tp = _build_both(
         jsim, tsim, np.asarray(jsim.state.r), k, split)
     r_j, r_t = jsim.state.r, tsim.state.r
+    n_t = [tsim.state.n_atoms]
     Ri = nlmod.row_split_for(tsim.geom, tsim.cfg.max_atoms)[1]
     if kw["doeam"]:
         def j_fill(x, rhobar_l=None):
@@ -207,21 +211,27 @@ def test_force_nl_matches_comd_tpu(pair, split):
                                                  j_fill, Ri, **jargs)
             (ft, et, _dt), = force_eam.eam_force_nl_split(
                 [t_list], [r_t], tsim.pair_eval, tsim.f_eval, tsim._fill,
-                Ri)
+                Ri, n_atoms=n_t)
         else:
             fj, ej, _d = jeam.eam_force_nl(j_list, jsim.pot, r_j, j_fill,
                                            **jargs)
             (ft, et, _dt), = force_eam.eam_force_nl(
-                [t_list], [r_t], tsim.pair_eval, tsim.f_eval, tsim._fill)
+                [t_list], [r_t], tsim.pair_eval, tsim.f_eval, tsim._fill,
+                n_atoms=n_t)
     else:
         if split:
             fj, _u, ej = jlj.lj_force_nl_split(j_list, jsim.pot, r_j, Ri)
             (ft, _ut, et), = force_lj.lj_force_nl_split(
-                [t_list], tsim.pot, [r_t], tsim.pair_eval, Ri)
+                [t_list], tsim.pot, [r_t], tsim.pair_eval, Ri, n_atoms=n_t)
         else:
             fj, _u, ej = jlj.lj_force_nl(j_list, jsim.pot, r_j)
             (ft, _ut, et), = force_lj.lj_force_nl(
-                [t_list], tsim.pot, [r_t], tsim.pair_eval)
+                [t_list], tsim.pot, [r_t], tsim.pair_eval, n_atoms=n_t)
+    assert isinstance(ft, nlmod.RowForce)
+    f_dense = torch.full_like(r_t, np.nan)
+    step_ops.land_rows(f_dense, None, ft.nlist, ft.n_atoms, ft.parts, None,
+                       tsim.geom.n_local)
+    ft = f_dense
     fj = np.asarray(fj)
     np.testing.assert_allclose(ft.numpy(), fj, rtol=0,
                                atol=1e-12 * np.abs(fj).max())
@@ -309,10 +319,13 @@ def test_padding_only_at_row_tails(pair, dtype, lists):
 
 @pytest.mark.parametrize("split", [False, True])
 def test_cell_row_starts_match_atom_rows(pair, split):
-    """NL1's per-cell row offsets: each valid row of ``atom_rows`` sits at
-    row_start[a_list // A] + a_list % A (with and without the row split,
-    also with an emptied cell); without the split they are the exclusive
-    cumsum of min(n_atoms, A) over the local cells."""
+    """NL1's, ER's and LR's per-cell row offsets: each valid row of the
+    build's rows (``nl_rows_plain``) sits at row_start[a_list // A] +
+    a_list % A (with and without the row split, also with an emptied
+    cell); without the split row_start is the exclusive cumsum of
+    min(n_atoms, A) over the local cells, with it the interior cells'
+    from 0 and the boundary cells' from Ri; ``cell_row_starts`` (a list
+    made elsewhere) gives the same on every cell with rows."""
     _jsim, tsim, _kw = pair
     geom, A = tsim.geom, tsim.cfg.max_atoms
     row_split = nlmod.row_split_for(geom, A) if split else None
@@ -322,17 +335,25 @@ def test_cell_row_starts_match_atom_rows(pair, split):
         n_atoms = tsim.state.n_atoms.clone()
         if emptied:
             n_atoms[geom.n_local // 3] = 0
-        a_list, a_valid = nlmod.atom_rows(geom, n_atoms, A, n_rows,
-                                          row_split)
-        start = nlmod.cell_row_starts(a_list, a_valid, geom.n_local, A)
+        a_list, a_valid, start = nlmod.nl_rows_plain(geom, n_atoms, A,
+                                                     n_rows, row_split)
         assert start.dtype == torch.int32 and start.shape == (geom.n_local,)
         rows = torch.nonzero(a_valid).flatten()
         al = a_list[rows].to(torch.int64)
         np.testing.assert_array_equal(
             (start.to(torch.int64)[al // A] + al % A).numpy(), rows.numpy())
+        occ = n_atoms[:geom.n_local].clamp(max=A).to(torch.int64)
+        has = occ > 0
+        derived = nlmod.cell_row_starts(a_list, a_valid, geom.n_local, A)
+        np.testing.assert_array_equal(derived[has].numpy(),
+                                      start[has].numpy())
         if not split:
-            occ = n_atoms[:geom.n_local].clamp(max=A).to(torch.int64)
             excl = torch.cumsum(occ, 0) - occ
-            has = occ > 0
-            np.testing.assert_array_equal(start[has].numpy(),
-                                          excl[has].numpy())
+            np.testing.assert_array_equal(start.numpy(), excl.numpy())
+        else:
+            is_b = torch.as_tensor(row_split[0])
+            for mask, base in ((~is_b, 0), (is_b, row_split[1])):
+                o = occ[mask]
+                np.testing.assert_array_equal(
+                    start[mask].numpy(), (torch.cumsum(o, 0) - o + base)
+                    .numpy())

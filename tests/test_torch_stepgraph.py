@@ -43,7 +43,7 @@ POTS = os.path.join(os.path.dirname(os.path.dirname(
 BASE = dict(nx=6, ny=6, nz=6, doeam=True, temperature=1200.0,
             dtype="float64", interp_impl="rows", pot_dir=POTS)
 MESH = dict(xproc=2, yproc=2, zproc=2)
-LIST_FIELDS = ("a_list", "a_valid", "nl", "last_r")
+LIST_FIELDS = ("a_list", "a_valid", "nl", "last_r", "row_start")
 
 
 class ReplayStub:
