@@ -133,7 +133,13 @@ the first error:
                  without the kick, one and two segments; NR with and
                  without the row split; each timed at 63^3 (a launch
                  replayed in a graph of 20 and a call from the host, CUDA
-                 events) beside its plain version and byte bound.
+                 events) beside its plain version and byte bound, and
+                 torch.cumsum of the clamped counts beside NR as a
+                 yardstick for its scan.  At the 10^3 states also NR's
+                 tiles and ER's vector and scalar forms on synthetic
+                 counts (row_form_cases: 1300 and 100 cells, A = 32, 13,
+                 30, 40, the split, short capacities), each twice bit
+                 for bit.
                  The headlines count ER one a force a shard, LR one a
                  step a shard (and the initial force's), NR one a build a
                  shard, no embed_fill or land, and print the final r
@@ -1622,6 +1628,126 @@ def check_row_ops(sim, tag: str) -> dict:
     return errs
 
 
+def row_form_cases(sim) -> list:
+    """NR's and ER's launch forms on synthetic states beside the run's:
+    1300 local cells (11 of NR's 128-cell tiles, the last partial) and
+    100 (fewer than a tile), counts drawn from [-2, A + 5] (numpy seed),
+    one cell emptied; NR at A = 32, 13 (16-lane segments) and 40 (a thread
+    a slot), with and without the -a 1 split (a random boundary mask:
+    boundary cells in every tile), a capacity a quarter of the slots, an
+    interior capacity half its rows; ER on NR's plain lists at A = 32 (the
+    vector form), 13 (the scalar form) and 30 (f32 scalar, f64 vector by
+    a divide), with and without energy, the serial fill from random local
+    sources and zero halo rows, rho and phi cut two rows into a cell's
+    vector; each as (name, key, run) with ``run(fn)`` the outputs of the
+    wrapper or the plain version ``fn``."""
+    import types
+    import numpy as np
+    import torch
+    from comd_tpu_torch.ops import neighborlist as nlmod
+    f, tdt = sim.f_eval, sim.state.r.dtype
+    hi = sim.pot.f.x0 + (sim.pot.f.n - 1) / sim.pot.f.inv_dx
+
+    def pad(k):
+        return max(128, -(-k // 128) * 128)
+
+    def state(n_local, A, seed, split, factor=1.0, short=False):
+        rng = np.random.default_rng(seed)
+        n = rng.integers(-2, A + 6, size=n_local + 7).astype(np.int32)
+        n[n_local // 3] = 0
+        geom = types.SimpleNamespace(n_local=n_local)
+        n_atoms = torch.from_numpy(n).cuda()
+        if not split:
+            return geom, n_atoms, None, pad(int(n_local * A * factor))
+        is_b = rng.random(n_local) < 0.4
+        ri = pad(int((~is_b).sum()) * A)
+        if short:
+            ri = max(1, int(np.clip(n[:n_local], 0, A)[~is_b].sum()) // 2)
+        rs = (torch.from_numpy(is_b).cuda(), ri,
+              pad(int(is_b.sum()) * A))
+        return geom, n_atoms, rs, rs[1] + rs[2]
+
+    cases = []
+    for n_local, A, split, factor, short in (
+            (1300, 32, False, 1.0, False), (1300, 32, True, 1.0, False),
+            (1300, 32, False, 0.25, False), (1300, 32, True, 1.0, True),
+            (1300, 13, True, 1.0, False), (100, 32, True, 1.0, False),
+            (700, 40, True, 1.0, False), (700, 40, False, 0.25, False)):
+        geom, n_atoms, rs, R = state(n_local, A, n_local + A, split, factor,
+                                     short)
+        cases.append((
+            f"nl_rows {n_local} cells A={A} split={split} "
+            f"capacity={'half interior' if short else factor}", "nl_rows",
+            lambda fn, a=(geom, n_atoms, A, R, rs): fn(*a)))
+    rng = np.random.default_rng(29)
+    n_local, B = 1300, 1307
+    for A in (32, 13, 30):
+        for split in (False, True):
+            geom, n_atoms, rs, R = state(n_local, A, 7 * A, split)
+            a_list, a_valid, row_start = nlmod.nl_rows_plain(
+                geom, n_atoms, A, R, rs)
+            v = a_valid.cpu().numpy()
+            rho = torch.as_tensor(np.where(v, rng.uniform(0, 1.1 * hi, R),
+                                           0), dtype=tdt, device="cuda")
+            phi = torch.as_tensor(np.where(v, rng.uniform(-1, 0.5, R), 0),
+                                  dtype=tdt, device="cuda")
+            occ = np.clip(n_atoms[:n_local].cpu().numpy(), 0, A)
+            cut = int(row_start[int(np.flatnonzero(occ >= 4)[5])]) + 2
+            halo = torch.as_tensor(rng.integers(0, n_local, B - n_local),
+                                   dtype=torch.int64, device="cuda")
+            lst = nlmod.NeighborList(
+                a_list=a_list, a_valid=a_valid,
+                nl=torch.zeros((R, 1), dtype=torch.int32, device="cuda"),
+                last_r=torch.empty((3, B, A), dtype=tdt, device="cuda"),
+                row_start=row_start)
+            for energy in (False, True):
+                for src in (halo, None):
+                    segs = (rho[:cut], rho[cut:]), (phi[:cut], phi[cut:])
+                    for two in (False, True):
+                        r_s, p_s = segs if two else ((rho,), (phi,))
+                        cases.append((
+                            f"embed_rows A={A} split={split} energy="
+                            f"{energy} serial={src is not None} segments="
+                            f"{1 + two}", "embed_rows",
+                            lambda fn, a=(f, lst, n_atoms, r_s,
+                                          p_s if energy else None, n_local,
+                                          B, src, sim.cfg.torch_energy_dtype):
+                            fn(*a)))
+    return cases
+
+
+def check_row_forms(sim, tag: str) -> dict:
+    """Phase 14's bitwise check of NR's and ER's forms on the synthetic
+    states of ``row_form_cases`` (``sim`` gives F's table and the dtype):
+    each case through the kernel twice (one count a call, the same bits)
+    and through its plain version, every output equal bit for bit.
+    Returns {key: max |kernel - plain| (0)}."""
+    import torch
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    errs = {"nl_rows": 0.0, "embed_rows": 0.0}
+    cases = row_form_cases(sim)
+    for name, key, run in cases:
+        kern, plain = _row_fns(key)
+        n0 = LAUNCHES[key]
+        got = [tuple(x.clone() if x is not None else None
+                     for x in run(kern)) for _ in range(2)]
+        check(LAUNCHES[key] == n0 + 2, f"{tag} {name}: "
+              f"{LAUNCHES[key] - n0} counts in two calls, not two")
+        want = run(plain)
+        for out in got:
+            for x, y in zip(out, want):
+                check((x is None) == (y is None) and (
+                    x is None or (x.dtype == y.dtype and torch.equal(x, y))),
+                      f"{tag} {name}: kernel and plain version differ")
+                if x is not None and x.is_floating_point():
+                    errs[key] = max(errs[key], float((x - y).abs().max()))
+    say("nl rows", f"{tag}: {len(cases)} synthetic cases of NR's tiles "
+        f"(1300 and 100 cells; A = 32, 13, 40; split, short capacities) "
+        f"and ER's vector and scalar forms (A = 32, 13, 30): kernel twice "
+        f"and plain version equal bit for bit")
+    return errs
+
+
 def time_row_ops(sim, launches: dict, errs: dict) -> dict:
     """Each row-op case at the 63^3 NL state timed beside its byte bound
     (bytes / 3.35 TB/s): the device ms of a call replayed in a graph of
@@ -1631,6 +1757,7 @@ def time_row_ops(sim, launches: dict, errs: dict) -> dict:
     serial EAM step's calls (ER without energy, serial fill, one segment:
     99 steps of 100; LR of two passes with the kick; NR without the
     split)."""
+    import torch
     from comd_tpu_torch.probes import time_ms
     rows = {}
     main = ("embed_rows energy=False serial=True segments=1",
@@ -1655,6 +1782,14 @@ def time_row_ops(sim, launches: dict, errs: dict) -> dict:
                 "replaces": REPLACES[key], "launches": launches[key],
                 "max_abs_err": errs[key], "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b_ms, "bound_by": "bytes", "library_ms": None}
+    n_clamped = sim.state.n_atoms[:sim.geom.n_local].clamp(
+        0, sim.state.r.shape[2]).contiguous()
+    cs_ms = graph_ms(lambda: torch.cumsum(n_clamped, 0, dtype=torch.int32))
+    say("timing", f"torch.cumsum of the {n_clamped.numel():,} clamped "
+        f"int32 counts (NR's scan stage alone, a yardstick): {cs_ms:.5f} ms "
+        f"a call replayed in a graph of 20; nl_rows split=False "
+        f"{rows['nl_rows']['ms']:.5f} ms scans, writes row_start and fills "
+        f"the rows")
     say("timing", "row ops' library_ms none: no single PyTorch call "
         "interpolates F' and places it in the cell layout with the halo "
         "fill (ER), gathers a force by row_start with a kick and a count "
@@ -1700,6 +1835,9 @@ def run_nl(serial_ms: float, lj_ms: float, k1_pass1: tuple) -> dict:
             if doeam:
                 e = check_row_ops(sim, tag)
                 row_errs = {k: max(row_errs[k], e[k]) for k in row_errs}
+                e = check_row_forms(sim, tag)
+                row_errs = {k: max(row_errs[k], e.get(k, 0.0))
+                            for k in row_errs}
             del sim
     golden("Adams Cu 6^3 T=0 -m thread_atom_nl", GOLDEN_EAM_ADAMS, nx=6,
            ny=6, nz=6, doeam=True, method="thread_atom_nl")

@@ -19,22 +19,30 @@
 // interior cells' rows first, the boundary cells' from Ri).
 //
 // NR, two launches (a build a shard; the plain version is
-// ops/neighborlist.py::nl_rows_plain):
-//  - nl_rows_scan_kernel, one block of 1024 threads: each thread sums
-//    min(n_atoms, A) over a contiguous chunk of the local cells (interior
-//    and boundary apart), a block scan by shuffles gives each chunk its
-//    start, and a second pass over the chunk writes row_start; the last
-//    thread writes the two segments' row counts.  68,921 cells at the 63^3
-//    headline are ~67 a thread, read from L1 on the second pass;
-//  - nl_rows_fill_kernel, a grid over max(local slots, rows): slot (c, s)
-//    with s < min(n_atoms[c], A) writes a_list[row] = c A + s and
-//    a_valid[row] = 1 at row = row_start[c] + s below R; a row past its
-//    segment's count writes 0 and 0.  The two roles touch disjoint rows.
-//  Two launches, not one: the fill needs every cell's start and the
-//  counts, which exist only when the whole scan is done; a single launch
-//  would need a grid-wide wait (a look-back chain or a cooperative grid),
-//  while the scan is small enough for one block and the fill's bytes
-//  (~20 MB at 63^3) want the whole card.
+// ops/neighborlist.py::nl_rows_plain), a tile of kRowsTile = 128 local
+// cells a block in both (539 tiles at the 63^3 headline's 68,921 cells,
+// 73 on a 2x2x2 shard's 9,261; 256- and 512-cell tiles measured no
+// faster at 63^3 on an H100):
+//  - nl_rows_tile_kernel: each tile's sums of min(max(n_atoms, 0), A),
+//    interior and boundary cells apart, four counts a thread loaded as
+//    one 16-byte vector, into a [tiles] scratch that every build
+//    overwrites;
+//  - nl_rows_fill_kernel: a block adds the sums of the tiles before its
+//    own (and of all, the two segments' row counts), scans its tile by
+//    shuffles and writes row_start; then a warp segment a cell, a lane a
+//    slot (A <= 32; else a thread a slot), writes each valid row's
+//    a_list = c A + s at row_start[c] + s below its segment's end; and
+//    the blocks together write a_valid (each segment's first
+//    min(count, capacity) rows 1, the rest 0) and a_list 0 past the
+//    counts, 16 bytes a store.
+//  Two launches: the fill needs the sums of the tiles before its own,
+//  which exist only when every tile is summed; one launch would need a
+//  grid-wide wait (a look-back chain, whose flags must then be cleared).
+//  A single block does not suffice: the earlier one-block scan, a thread
+//  walking ~67 cells twice, took 90.4 us of a 104 us build at 63^3 on an
+//  H100 while 131 SMs sat idle; over tiles every SM scans at once.
+//  Bytes bound NR (11.6 MB at 63^3: the counts, row_start, the rows'
+//  a_list and a_valid).
 //
 // What bounds them at the 63^3 EAM headline (A = 32 on 41^3 classic
 // cells, R = 2.2 M rows of which 1.0 M are atoms, K = 96, ~391 occupied
@@ -150,29 +158,155 @@ __device__ __forceinline__ void pad_rows(int row0, const int* a_list,
   }
 }
 
-constexpr int kScanThreads = 1024;  // NR: the scan's one block
+// NR (see the header): both launches give a block one tile of kRowsTile
+// local cells.  The tile sums [n_tiles] (x: the rows of the interior, or
+// every, cell of the tile; y: the boundary cells') are the wrapper's
+// scratch: the first launch writes every entry, the second reads them, so
+// nothing is left to clear between builds or graph replays.  The first
+// launch takes 4 cells a thread, the second a cell a thread.
 
-// NR's scan (see the header): row_start [n_local] and counts [2] (the
-// interior, or every, cell's rows; the boundary cells' rows).  is_b null:
-// no row split.
-__global__ void __launch_bounds__(kScanThreads)
-nl_rows_scan_kernel(const int* __restrict__ n_atoms,
+constexpr int kRowsTile = 128;
+
+__device__ __forceinline__ int cell_rows(int n, int A) {
+  return min(max(n, 0), A);
+}
+
+// NR's tiles: one at least (an empty shard's block still zeros its rows).
+inline int rows_tiles(int n_local) {
+  return n_local > kRowsTile ? (n_local + kRowsTile - 1) / kRowsTile : 1;
+}
+
+// NR's first launch: the tile's two row sums.  `vec`: n_atoms is 16-byte
+// and is_b 4-byte aligned, so a thread loads its four counts (and masks)
+// in one access.  is_b null: no row split.
+__global__ void __launch_bounds__(kRowsTile / 4)
+nl_rows_tile_kernel(const int* __restrict__ n_atoms,
                     const unsigned char* __restrict__ is_b, int n_local,
-                    int A, int ri, int* __restrict__ row_start,
-                    int* __restrict__ counts) {
-  __shared__ int part_i[kScanThreads / 32], part_b[kScanThreads / 32];
+                    int A, int vec, int2* __restrict__ tile_sums) {
+  constexpr int kWarps = kRowsTile / 4 / 32;
+  __shared__ int part[kWarps][2];
+  const int c0 = blockIdx.x * kRowsTile + 4 * threadIdx.x;
+  int n[4] = {0, 0, 0, 0};
+  unsigned int m = 0;   // byte k: cell c0 + k is a boundary cell
+  if (vec && c0 + 4 <= n_local) {
+    const int4 x = *reinterpret_cast<const int4*>(n_atoms + c0);
+    n[0] = x.x;
+    n[1] = x.y;
+    n[2] = x.z;
+    n[3] = x.w;
+    if (is_b != nullptr)
+      m = *reinterpret_cast<const unsigned int*>(is_b + c0);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (c0 + k < n_local) {
+        n[k] = n_atoms[c0 + k];
+        if (is_b != nullptr)
+          m |= static_cast<unsigned int>(is_b[c0 + k]) << (8 * k);
+      }
+    }
+  }
+  int si = 0, sb = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int r = cell_rows(n[k], A);
+    if ((m >> (8 * k)) & 0xffu) sb += r; else si += r;
+  }
+  si = __reduce_add_sync(kFull, si);
+  sb = __reduce_add_sync(kFull, sb);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    part[warp][0] = si;
+    part[warp][1] = sb;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int ti = 0, tb = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      ti += part[w][0];
+      tb += part[w][1];
+    }
+    tile_sums[blockIdx.x] = make_int2(ti, tb);
+  }
+}
+
+// Set p's rows [lo, hi) to x (0 or 1) over the grid (thread g of
+// `stride`): with `vec` (p 16-byte aligned) the 16-byte groups wholly
+// inside the range as one store each, the rows at its two ends one at a
+// time.
+template <typename T>
+__device__ __forceinline__ void fill_rows(T* p, int lo, int hi, int x,
+                                          int vec, int g, int stride) {
+  constexpr int K = 16 / sizeof(T);
+  int q0 = hi, q1 = hi;   // [q0, q1): the rows of whole groups
+  if (vec && lo < hi) {
+    q0 = min(hi, (lo + K - 1) / K * K);
+    q1 = max(q0, hi / K * K);
+  }
+  // x in every byte of a word (x is 0 or 1)
+  const unsigned int w = static_cast<unsigned int>(x) *
+                         (sizeof(T) == 1 ? 0x01010101u : 1u);
+  for (int r = lo + g; r < q0; r += stride) p[r] = static_cast<T>(x);
+  for (int q = q0 / K + g; q < q1 / K; q += stride)
+    reinterpret_cast<uint4*>(p)[q] = make_uint4(w, w, w, w);
+  for (int r = q1 + g; r < hi; r += stride) p[r] = static_cast<T>(x);
+}
+
+// NR's second launch, block b on tile b:
+//  - the sums of the tiles before b and of every tile (each block adds
+//    them itself: 539 tiles at the 63^3 headline, ~4 loads a thread);
+//  - a block scan of the tile's counts by shuffles writes row_start, and
+//    keeps each cell's start and its rows (those below its segment's end:
+//    Ri for an interior cell, n_rows for a boundary one) in shared memory;
+//  - the tile's valid rows' a_list: at A <= 32 (seg >= 0) a warp segment
+//    of 2^seg lanes a cell and a lane a slot, so a cell's count and start
+//    are read once and consecutive lanes store consecutive rows; else a
+//    thread a slot;
+//  - the block's share of a_valid over every row and of a_list over the
+//    rows past each segment's count, 16 bytes a store (vec: a_list and
+//    a_valid 16-byte aligned): a segment's valid rows are the first
+//    min(count, capacity) of it, so a_valid is two runs of ones, known
+//    from the totals that every block forms, and no byte is stored a cell
+//    at a time.
+__global__ void __launch_bounds__(kRowsTile)
+nl_rows_fill_kernel(const int* __restrict__ n_atoms,
+                    const unsigned char* __restrict__ is_b,
+                    const int2* __restrict__ tile_sums, int n_tiles,
+                    int n_local, int A, int n_rows, int ri, int seg,
+                    int vec, int* __restrict__ a_list,
+                    unsigned char* __restrict__ a_valid,
+                    int* __restrict__ row_start) {
+  constexpr int kFillWarps = kRowsTile / 32;
+  __shared__ int s_start[kRowsTile], s_rows[kRowsTile];
+  __shared__ int s_warp[kFillWarps][6];
+  __shared__ int s_sum[4];
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int chunk = (n_local + kScanThreads - 1) / kScanThreads;
-  const int c0 = min(t * chunk, n_local);
-  const int c1 = min(c0 + chunk, n_local);
-  int si = 0, sb = 0;
-  for (int c = c0; c < c1; ++c) {
-    const int n = min(max(n_atoms[c], 0), A);
-    if (is_b != nullptr && is_b[c]) sb += n; else si += n;
+  const int b = blockIdx.x;
+  // the cell's count and mask first, so that their loads and the tile
+  // sums' overlap (the block's phases are otherwise one chain of loads)
+  const int c = b * kRowsTile + t;
+  int n = 0;
+  bool bnd = false;
+  if (c < n_local) {
+    n = cell_rows(n_atoms[c], A);
+    bnd = is_b != nullptr && is_b[c];
   }
-  int xi = si, xb = sb;   // inclusive scans over the warp's lanes
+  int before_i = 0, before_b = 0, all_i = 0, all_b = 0;
+#pragma unroll 4
+  for (int k = t; k < n_tiles; k += kRowsTile) {
+    const int2 s = tile_sums[k];
+    all_i += s.x;
+    all_b += s.y;
+    if (k < b) {
+      before_i += s.x;
+      before_b += s.y;
+    }
+  }
+  const int own_i = bnd ? 0 : n, own_b = bnd ? n : 0;
+  int xi = own_i, xb = own_b;   // inclusive scans over the warp's lanes
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
     const int vi = __shfl_up_sync(kFull, xi, d);
@@ -182,15 +316,27 @@ nl_rows_scan_kernel(const int* __restrict__ n_atoms,
       xb += vb;
     }
   }
+  before_i = __reduce_add_sync(kFull, before_i);
+  before_b = __reduce_add_sync(kFull, before_b);
+  all_i = __reduce_add_sync(kFull, all_i);
+  all_b = __reduce_add_sync(kFull, all_b);
   if (lane == 31) {
-    part_i[warp] = xi;
-    part_b[warp] = xb;
+    s_warp[warp][0] = xi;
+    s_warp[warp][1] = xb;
+  }
+  if (lane == 0) {
+    s_warp[warp][2] = before_i;
+    s_warp[warp][3] = before_b;
+    s_warp[warp][4] = all_i;
+    s_warp[warp][5] = all_b;
   }
   __syncthreads();
-  if (warp == 0) {        // inclusive scans over the warps' totals
-    int wi = part_i[lane], wb = part_b[lane];
+  if (warp == 0) {   // the warps' totals: exclusive scans and the sums
+    const bool w = lane < kFillWarps;
+    const int oi = w ? s_warp[lane][0] : 0, ob = w ? s_warp[lane][1] : 0;
+    int wi = oi, wb = ob;
 #pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
+    for (int d = 1; d < kFillWarps; d <<= 1) {
       const int vi = __shfl_up_sync(kFull, wi, d);
       const int vb = __shfl_up_sync(kFull, wb, d);
       if (lane >= d) {
@@ -198,58 +344,56 @@ nl_rows_scan_kernel(const int* __restrict__ n_atoms,
         wb += vb;
       }
     }
-    part_i[lane] = wi;
-    part_b[lane] = wb;
+    int sums[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      sums[q] = __reduce_add_sync(kFull, w ? s_warp[lane][2 + q] : 0);
+    __syncwarp();
+    if (w) {
+      s_warp[lane][0] = wi - oi;
+      s_warp[lane][1] = wb - ob;
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s_sum[q] = sums[q];
+    }
   }
   __syncthreads();
-  int run_i = xi - si + (warp > 0 ? part_i[warp - 1] : 0);
-  int run_b = xb - sb + (warp > 0 ? part_b[warp - 1] : 0) + ri;
-  for (int c = c0; c < c1; ++c) {
-    const int n = min(max(n_atoms[c], 0), A);
-    if (is_b != nullptr && is_b[c]) {
-      row_start[c] = run_b;
-      run_b += n;
-    } else {
-      row_start[c] = run_i;
-      run_i += n;
+  const int start =
+      bnd ? ri + s_sum[1] + s_warp[warp][1] + xb - own_b
+          : s_sum[0] + s_warp[warp][0] + xi - own_i;
+  const int end = bnd ? n_rows : ri;
+  if (c < n_local) row_start[c] = start;
+  s_start[t] = start;
+  s_rows[t] = max(0, min(n, end - start));
+  const int count_i = s_sum[2], count_b = s_sum[3];
+  __syncthreads();
+  const int first = b * kRowsTile;
+  const int cells = min(kRowsTile, n_local - first);
+  if (seg >= 0) {
+    const int per_warp = 32 >> seg;
+    const int s = lane & ((1 << seg) - 1);
+    for (int k = warp * per_warp + (lane >> seg); k < cells;
+         k += kFillWarps * per_warp) {
+      if (s < s_rows[k]) a_list[s_start[k] + s] = (first + k) * A + s;
+    }
+  } else {
+    for (int i = t; i < cells * A; i += kRowsTile) {
+      const int k = i / A;
+      const int s = i - k * A;
+      if (s < s_rows[k]) a_list[s_start[k] + s] = (first + k) * A + s;
     }
   }
-  if (t == kScanThreads - 1) {
-    counts[0] = part_i[kScanThreads / 32 - 1];
-    counts[1] = part_b[kScanThreads / 32 - 1];
-  }
-}
-
-// NR's fill (see the header): rows [0, ri) hold the interior (or every)
-// cell's rows, [ri, n_rows) the boundary cells'; n_local * A < 2^31.
-__global__ void __launch_bounds__(256)
-nl_rows_fill_kernel(const int* __restrict__ n_atoms,
-                    const int* __restrict__ row_start,
-                    const int* __restrict__ counts, int n_local, int A,
-                    int n_rows, int ri, int* __restrict__ a_list,
-                    unsigned char* __restrict__ a_valid) {
-  const int n_slots = n_local * A;
-  const int n = max(n_slots, n_rows);
-  const int stride = gridDim.x * blockDim.x;
-  const int count_i = counts[0];
-  const int count_b = counts[1];
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (i < n_slots) {
-      const int c = i / A;
-      const int s = i - c * A;
-      if (s < min(n_atoms[c], A)) {
-        const int row = row_start[c] + s;
-        if (row < n_rows) {
-          a_list[row] = i;
-          a_valid[row] = 1;
-        }
-      }
-    }
-    if (i < n_rows && (i < ri ? i >= count_i : i - ri >= count_b)) {
-      a_list[i] = 0;
-      a_valid[i] = 0;
-    }
-  }
+  const int g = b * kRowsTile + t;
+  const int stride = gridDim.x * kRowsTile;
+  const int lo_i = min(count_i, ri);
+  const int lo_b = ri + min(count_b, n_rows - ri);
+  fill_rows(a_valid, 0, lo_i, 1, vec, g, stride);
+  fill_rows(a_valid, lo_i, ri, 0, vec, g, stride);
+  fill_rows(a_valid, ri, lo_b, 1, vec, g, stride);
+  fill_rows(a_valid, lo_b, n_rows, 0, vec, g, stride);
+  fill_rows(a_list, lo_i, ri, 0, vec, g, stride);
+  fill_rows(a_list, lo_b, n_rows, 0, vec, g, stride);
 }
 
 template <typename T>
@@ -650,25 +794,44 @@ cudaError_t dispatch_eval(int eval, int pair, int want_energy,
 
 extern "C" {
 
+// NR's tile count for n_local local cells: the int2 entries that
+// comd_nl_rows' tile_sums needs.
+int comd_nl_rows_tiles(int n_local) { return rows_tiles(n_local); }
+
 // NR.  n_atoms [>= n_local] int32, is_boundary [n_local] bool or null (no
 // row split; then ri = n_rows); writes a_list [n_rows] int32, a_valid
-// [n_rows] bool, row_start [n_local] int32 and counts [2] int32 (scratch
-// the fill reads), two launches on `stream`.
+// [n_rows] bool, row_start [n_local] int32 and tile_sums (`sums_len` int2
+// entries, at least comd_nl_rows_tiles(n_local); scratch: the first launch
+// writes it, the second reads it), two launches on `stream`.  At A <= 32
+// the fill gives a cell a warp segment of 2^seg lanes, A rounded up to a
+// power of two (a lane a slot), else a thread a slot (seg -1).
 int comd_nl_rows(const void* n_atoms, const void* is_boundary, int n_local,
                  int A, int n_rows, int ri, void* a_list, void* a_valid,
-                 void* row_start, void* counts, int grid, void* stream) {
+                 void* row_start, void* tile_sums, int sums_len,
+                 void* stream) {
   if (A < 1 || n_local < 0 || n_rows < 0 || ri < 0 || ri > n_rows ||
-      grid < 1 || static_cast<long long>(n_local) * A >= (1ll << 31))
+      static_cast<long long>(n_local) * A >= (1ll << 31) ||
+      sums_len < rows_tiles(n_local))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = rows_tiles(n_local);
+  int seg = A <= 32 ? 0 : -1;
+  while (seg >= 0 && (1 << seg) < A) ++seg;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  nl_rows_scan_kernel<<<1, kScanThreads, 0, s>>>(
-      static_cast<const int*>(n_atoms),
-      static_cast<const unsigned char*>(is_boundary), n_local, A, ri,
-      static_cast<int*>(row_start), static_cast<int*>(counts));
-  nl_rows_fill_kernel<<<grid, 256, 0, s>>>(
-      static_cast<const int*>(n_atoms), static_cast<const int*>(row_start),
-      static_cast<const int*>(counts), n_local, A, n_rows, ri,
-      static_cast<int*>(a_list), static_cast<unsigned char*>(a_valid));
+  const int* na = static_cast<const int*>(n_atoms);
+  const unsigned char* is_b = static_cast<const unsigned char*>(is_boundary);
+  int* al = static_cast<int*>(a_list);
+  unsigned char* av = static_cast<unsigned char*>(a_valid);
+  int2* sums = static_cast<int2*>(tile_sums);
+  const auto aligned = [](const void* p, int k) {
+    return reinterpret_cast<uintptr_t>(p) % k == 0;
+  };
+  nl_rows_tile_kernel<<<tiles, kRowsTile / 4, 0, s>>>(
+      na, is_b, n_local, A,
+      aligned(na, 16) && (is_b == nullptr || aligned(is_b, 4)), sums);
+  nl_rows_fill_kernel<<<tiles, kRowsTile, 0, s>>>(
+      na, is_b, sums, tiles, n_local, A, n_rows, ri, seg,
+      aligned(al, 16) && aligned(av, 16), al, av,
+      static_cast<int*>(row_start));
   return static_cast<int>(cudaGetLastError());
 }
 

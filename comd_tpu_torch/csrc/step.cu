@@ -42,12 +42,15 @@
 //   embed_rows          (ER) EAM pass 2 of the list paths, on the rows of a
 //                       Verlet list (comd_tpu/ops/force_eam.py:420-439:
 //                       F(rho) and F'(rho) a row, the rows-to-cells
-//                       scatter of F' and the serial dfEmbed fill): a
-//                       thread a slot of dfEmbed [B, A] reads its row,
-//                       row_start[c] + s, or its serial source cell's (a
-//                       halo slot), or writes 0; on energy steps further
-//                       blocks write U = 0.5 phi + F a row, 0 on invalid
-//                       rows;
+//                       scatter of F' and the serial dfEmbed fill):
+//                       embed_fill's form on the rows, a thread a vector
+//                       of a cell's slots of dfEmbed [B, A] (16 bytes
+//                       where A allows, else one slot), each slot F' of
+//                       its row, row_start[c] + s, or of its serial
+//                       source cell's (a halo slot), or 0; on energy
+//                       steps the thread that owns a valid row writes
+//                       its U = 0.5 phi + F from the same evaluation and
+//                       further blocks zero U on the invalid rows;
 //   land_rows           (LR) land's form for rows (comd_tpu/ops/
 //                       force_eam.py:420-439's scatter of f1 + f3,
 //                       comd_tpu/ops/force_lj.py:172-203): a thread a
@@ -86,13 +89,17 @@
 // smallest passes, are built for their fixed cost: a vector of slots a
 // thread whose values (and U's, on energy steps; gids) fit 16-byte
 // accesses (4 f32 slots, 2 f64 or with U in f64), 32-bit indices, no
-// division by a runtime A in refresh_halo (a 2-D block, x along a row).
+// division by a runtime A in refresh_halo (a 2-D block, x along a row);
+// embed_rows likewise, a cell's count and row start loaded once a
+// vector, the cell found by a shift where A / W is a power of two.
 //
 // Plain C interface for ctypes: each entry point launches on `stream`,
 // returns the cudaError_t of its launch (0 = success) and does not
 // synchronize.  `elem` is the element size of the floating tensors (4 or
 // 8), `e_elem` the energy dtype's.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "embed.cuh"
 
@@ -428,14 +435,36 @@ struct RowSegs {
     return row < split ? p0[q * plane0 + row]
                        : p1[q * plane1 + (row - split)];
   }
+  // Plane 0's rows [row, row + n) through one pointer, or null where the
+  // split falls inside them.
+  __device__ __forceinline__ const T* run(int row, int n) const {
+    if (row < split && row + n > split) return nullptr;
+    return row < split ? p0 + row : p1 + (row - split);
+  }
 };
 
-// ER: blocks [0, slot_blocks) walk dfEmbed's n_slots = B A slots, the
-// others (energy steps) the rows.  A slot of local cell c, or of the
-// serial source cell of a halo cell, holds F'(rho) of row row_start[c] + s
-// when s < min(n_atoms[c], A) and the row is below n_rows, else 0; a halo
-// slot without halo_src 0.  n_slots < 2^31 (the wrapper checks).
-template <typename T, typename E>
+// ER's row blocks: rows a thread (ops/cuda/step.py's ROWS_A_THREAD).
+constexpr int kRowsAThread = 4;
+
+// ER: blocks [0, slot_blocks) walk dfEmbed's n_vecs vectors, W slots of
+// one cell a thread (W divides A: 16 bytes of slots, or W = 1, the
+// scalar form), the others (energy steps) U's invalid rows.  A vector of local
+// cell c, or of the serial source cell of a halo cell, holds F'(rho) of
+// row row_start[c] + s for each of its slots s < min(n_atoms[c], A) whose
+// row is below n_rows, else 0; a halo vector without halo_src 0.  The
+// cell is v >> cell_shift where A / W is a power of two (else a divide),
+// its count and start are loaded once a vector, its W rows (consecutive,
+// not aligned) as scalars, all before the first evaluation, and the
+// vector is stored as one access.  On energy steps the thread of a local
+// slot with a row writes U[row] = 0.5 phi + F from the same evaluation
+// as F' (rho and F's table read once a row); the row blocks zero U on
+// the rows whose a_valid is false, kRowsAThread consecutive rows a
+// thread (neighbouring threads on neighbouring rows), their flags read as
+// one word (valid_vec: a_valid 4-byte aligned) and their zeros stored as
+// one vector where all are invalid.  The slots own exactly the valid rows
+// when NR built the list from these counts.  n_slots < 2^31 (the wrapper
+// checks).
+template <typename T, typename E, int W>
 __global__ void __launch_bounds__(kThreads)
     embed_rows_kernel(RowSegs<T> rho, RowSegs<T> phi,
                       const unsigned char* __restrict__ a_valid,
@@ -443,38 +472,82 @@ __global__ void __launch_bounds__(kThreads)
                       const int* __restrict__ n_atoms,
                       const long long* __restrict__ halo_src,
                       T* __restrict__ dfe, E* __restrict__ u, int A,
-                      int n_local, int n_slots, int n_rows, int slot_blocks,
-                      Embed<T> emb) {
+                      int n_local, int n_vecs, int n_rows, int cell_shift,
+                      int valid_vec, int slot_blocks, Embed<T> emb) {
   if (static_cast<int>(blockIdx.x) < slot_blocks) {
+    const int per_cell = A / W;
     const int stride = slot_blocks * kThreads;
-    const int local = n_local * A;
-    for (int i = blockIdx.x * kThreads + threadIdx.x; i < n_slots;
-         i += stride) {
-      int c = i / A;
-      const int s = i - c * A;
+    for (int v = blockIdx.x * kThreads + threadIdx.x; v < n_vecs;
+         v += stride) {
+      const int c = cell_shift >= 0 ? v >> cell_shift : v / per_cell;
+      const int s0 = (v - c * per_cell) * W;
+      int src = c;
       bool read = true;
-      if (i >= local) {
+      if (c >= n_local) {
         read = halo_src != nullptr;
-        if (read) c = static_cast<int>(halo_src[c - n_local]);
+        if (read) src = static_cast<int>(halo_src[c - n_local]);
       }
-      T d = T(0);
-      if (read && s < min(n_atoms[c], A)) {
-        const int row = row_start[c] + s;
-        if (row < n_rows) d = embed_derivative(rho.at(0, row), emb);
+      int n = 0, row0 = 0;
+      if (read) {
+        n = min(n_atoms[src], A);
+        row0 = row_start[src] + s0;
       }
-      dfe[i] = d;
+      const bool own = u != nullptr && c < n_local;
+      // slots w < lim have a row; their rows through one pointer each
+      // unless a segment boundary falls among them
+      const int lim = min(n - s0, n_rows - row0);
+      const T* rp = rho.run(row0, W);
+      const T* pp = own ? phi.run(row0, W) : nullptr;
+      bool has[W];
+      T x[W], ph[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        has[w] = w < lim;
+        x[w] = !has[w] ? T(0) : rp != nullptr ? rp[w] : rho.at(0, row0 + w);
+        ph[w] = !has[w] || !own ? T(0)
+                : pp != nullptr ? pp[w] : phi.at(0, row0 + w);
+      }
+      T d[W];
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        d[w] = T(0);
+        if (!has[w]) continue;
+        if (own) {
+          T fv;
+          embed_value_and_derivative(x[w], emb, &fv, &d[w]);
+          u[row0 + w] = E(0.5) * static_cast<E>(ph[w]) + static_cast<E>(fv);
+        } else {
+          d[w] = embed_derivative(x[w], emb);
+        }
+      }
+      store_vec<T, W>(dfe + static_cast<size_t>(v) * W, d);
     }
   } else {
     const int stride = (gridDim.x - slot_blocks) * kThreads;
-    for (int row = (blockIdx.x - slot_blocks) * kThreads + threadIdx.x;
-         row < n_rows; row += stride) {
-      E v = E(0);
-      if (a_valid[row]) {
-        T fv, dv;
-        embed_value_and_derivative(rho.at(0, row), emb, &fv, &dv);
-        v = E(0.5) * static_cast<E>(phi.at(0, row)) + static_cast<E>(fv);
+    const int groups = (n_rows + kRowsAThread - 1) / kRowsAThread;
+    for (int g = (blockIdx.x - slot_blocks) * kThreads + threadIdx.x;
+         g < groups; g += stride) {
+      const int r0 = kRowsAThread * g;
+      unsigned int m = 0;   // byte k: a_valid[r0 + k] (past n_rows: 1)
+      if (valid_vec && r0 + kRowsAThread <= n_rows) {
+        m = reinterpret_cast<const unsigned int*>(a_valid)[g];
+      } else {
+#pragma unroll
+        for (int k = 0; k < kRowsAThread; ++k)
+          m |= static_cast<unsigned int>(r0 + k < n_rows ? a_valid[r0 + k]
+                                                          : 1)
+               << (8 * k);
       }
-      u[row] = v;
+      if (m == 0u) {   // four invalid rows below n_rows
+        E z[kRowsAThread];
+#pragma unroll
+        for (int k = 0; k < kRowsAThread; ++k) z[k] = E(0);
+        store_vec<E, kRowsAThread>(u + r0, z);
+        continue;
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsAThread; ++k)
+        if (((m >> (8 * k)) & 0xffu) == 0u) u[r0 + k] = E(0);
     }
   }
 }
@@ -734,63 +807,99 @@ static RowSegs<T> row_segs(const void* p0, const void* p1, long long plane0,
                     plane0, plane1, split};
 }
 
+template <typename T, typename E, int W>
+static void launch_embed_rows_w(const RowSegs<T>& rho, const RowSegs<T>& phi,
+                                const void* a_valid, const void* row_start,
+                                const void* n_atoms, const void* halo_src,
+                                void* dfe, void* u, int A, int n_local,
+                                int n_slots, int n_rows, const Embed<T>& emb,
+                                int slot_blocks, int row_blocks,
+                                cudaStream_t stream) {
+  const int per_cell = A / W;
+  const int shift =
+      (per_cell & (per_cell - 1)) == 0 ? __builtin_ctz(per_cell) : -1;
+  embed_rows_kernel<T, E, W><<<slot_blocks + row_blocks, kThreads, 0,
+                               stream>>>(
+      rho, phi, static_cast<const unsigned char*>(a_valid),
+      static_cast<const int*>(row_start), static_cast<const int*>(n_atoms),
+      static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
+      static_cast<E*>(u), A, n_local, n_slots / W, n_rows, shift,
+      reinterpret_cast<uintptr_t>(a_valid) % 4 == 0, slot_blocks, emb);
+}
+
+// W slots a thread: 16 / sizeof(T) (the vector form: one 16-byte
+// store) or 1 (the scalar form, for A that the vector's width does not
+// divide).  Two vectors a thread measured slower at the 63^3 list
+// headline on an H100.
 template <typename T, typename E>
 static cudaError_t launch_embed_rows(
-    const void* rho0, const void* rho1, int rho_split, const void* phi0,
-    const void* phi1, int phi_split, const void* a_valid,
+    int width, const void* rho0, const void* rho1, int rho_split,
+    const void* phi0, const void* phi1, int phi_split, const void* a_valid,
     const void* row_start, const void* n_atoms, const void* halo_src,
     void* dfe, void* u, int A, int n_local, int n_slots, int n_rows,
     int table_n, double x0, double inv_dx, const void* table,
     int slot_blocks, int row_blocks, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  if ((width != 1 && width != kVec) || A % width != 0)
+    return cudaErrorInvalidValue;
   const Embed<T> emb{table_n, static_cast<T>(x0), static_cast<T>(inv_dx),
                      static_cast<const T*>(table)};
-  embed_rows_kernel<T, E><<<slot_blocks + row_blocks, kThreads, 0, stream>>>(
-      row_segs<T>(rho0, rho1, 0, 0, rho_split),
-      row_segs<T>(phi0, phi1, 0, 0, phi_split),
-      static_cast<const unsigned char*>(a_valid),
-      static_cast<const int*>(row_start), static_cast<const int*>(n_atoms),
-      static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
-      static_cast<E*>(u), A, n_local, n_slots, n_rows, slot_blocks, emb);
+  const RowSegs<T> rho = row_segs<T>(rho0, rho1, 0, 0, rho_split);
+  const RowSegs<T> phi = row_segs<T>(phi0, phi1, 0, 0, phi_split);
+  if (width == kVec)
+    launch_embed_rows_w<T, E, kVec>(rho, phi, a_valid, row_start, n_atoms,
+                                    halo_src, dfe, u, A, n_local, n_slots,
+                                    n_rows, emb, slot_blocks, row_blocks,
+                                    stream);
+  else
+    launch_embed_rows_w<T, E, 1>(rho, phi, a_valid, row_start, n_atoms,
+                                 halo_src, dfe, u, A, n_local, n_slots,
+                                 n_rows, emb, slot_blocks, row_blocks,
+                                 stream);
   return cudaGetLastError();
 }
 
 // ER.  rho (and phi, null without energy) as one or two row segments
 // (rho1 at row rho_split); a_valid [n_rows] bool; row_start [n_local] and
 // n_atoms int32 indexed by cell; halo_src [n_slots / A - n_local] int64 or
-// null (zero halo rows); writes dfe [n_slots] and, with phi, u [n_rows]
-// of the energy dtype (e_elem bytes).  `row_blocks` 0 without phi.
-extern "C" int comd_embed_rows(int elem, int e_elem, const void* rho0,
-                               const void* rho1, int rho_split,
-                               const void* phi0, const void* phi1,
-                               int phi_split, const void* a_valid,
-                               const void* row_start, const void* n_atoms,
-                               const void* halo_src, void* dfe, void* u,
-                               int A, int n_local, int n_slots, int n_rows,
-                               int table_n, double x0, double inv_dx,
-                               const void* table, int slot_blocks,
-                               int row_blocks, cudaStream_t stream) {
-  if (A < 1 || n_local < 0 || n_slots < n_local * A || slot_blocks < 1 ||
-      (u == nullptr) != (row_blocks == 0) || (u != nullptr && !phi0))
+// null (zero halo rows); writes dfe [n_slots] (16-byte aligned) and, with
+// phi, u [n_rows] of the energy dtype (e_elem bytes, 16-byte aligned).
+// `width`: the slots a thread (launch_embed_rows); `row_blocks` 0 without
+// phi.
+extern "C" int comd_embed_rows(int elem, int e_elem, int width,
+                               const void* rho0, const void* rho1,
+                               int rho_split, const void* phi0,
+                               const void* phi1, int phi_split,
+                               const void* a_valid, const void* row_start,
+                               const void* n_atoms, const void* halo_src,
+                               void* dfe, void* u, int A, int n_local,
+                               int n_slots, int n_rows, int table_n,
+                               double x0, double inv_dx, const void* table,
+                               int slot_blocks, int row_blocks,
+                               cudaStream_t stream) {
+  if (A < 1 || n_local < 0 || n_slots < n_local * A || n_slots % A != 0 ||
+      slot_blocks < 1 || (u == nullptr) != (row_blocks == 0) ||
+      (u != nullptr && !phi0))
     return cudaErrorInvalidValue;
   if (elem == 4 && e_elem == 8)
     return launch_embed_rows<float, double>(
-        rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
-        n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
-        inv_dx, table, slot_blocks, row_blocks, stream);
+        width, rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid,
+        row_start, n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows,
+        table_n, x0, inv_dx, table, slot_blocks, row_blocks, stream);
   if (elem == 4)
     return launch_embed_rows<float, float>(
-        rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
-        n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
-        inv_dx, table, slot_blocks, row_blocks, stream);
+        width, rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid,
+        row_start, n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows,
+        table_n, x0, inv_dx, table, slot_blocks, row_blocks, stream);
   if (e_elem == 8)
     return launch_embed_rows<double, double>(
-        rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
-        n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
-        inv_dx, table, slot_blocks, row_blocks, stream);
+        width, rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid,
+        row_start, n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows,
+        table_n, x0, inv_dx, table, slot_blocks, row_blocks, stream);
   return launch_embed_rows<double, float>(
-      rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid, row_start,
-      n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows, table_n, x0,
-      inv_dx, table, slot_blocks, row_blocks, stream);
+      width, rho0, rho1, rho_split, phi0, phi1, phi_split, a_valid,
+      row_start, n_atoms, halo_src, dfe, u, A, n_local, n_slots, n_rows,
+      table_n, x0, inv_dx, table, slot_blocks, row_blocks, stream);
 }
 
 template <typename T>

@@ -6,10 +6,12 @@ because as torch ops they would cost ~10x the cell path (a [R, K] sweep
 moves ~1.7 GB an elementwise op, ~30 of them a pass):
 
 - NR ``nl_rows`` replaces comd_tpu/ops/neighborlist.py::build_atom_list
-  and ::build_atom_list_split (~15 torch ops a shard here before): a
-  one-block scan of min(n_atoms, A) over the local cells writes each
-  cell's ``row_start``, then a grid writes a_list and a_valid, two
-  launches a build; the same bits as ``nl_rows_plain``, comd_tpu's rows.
+  and ::build_atom_list_split (~15 torch ops a shard here before): over
+  tiles of 128 local cells, one launch sums min(n_atoms, A) a tile, a
+  second scans each tile after the sums of the tiles before it, writes
+  each cell's ``row_start`` and its valid rows (a warp segment a cell at
+  A <= 32) and zeros the rows past the counts; two launches a build, the
+  same bits as ``nl_rows_plain``, comd_tpu's rows.
 - NL1 ``nl_build`` replaces comd_tpu/ops/neighborlist.py::build: one block
   a local cell stages the occupied slots of its 27 boxes once in shared
   memory, then a warp walks two rows of the cell at a time, tests
@@ -78,6 +80,8 @@ def build():
             ctypes.POINTER(stencil._SplineParams), p, p]
         lib.comd_nl_rows.restype = i
         lib.comd_nl_rows.argtypes = [p, p, i, i, i, i, p, p, p, p, i, p]
+        lib.comd_nl_rows_tiles.restype = i
+        lib.comd_nl_rows_tiles.argtypes = [i]
         lib.comd_nl_error_string.restype = ctypes.c_char_p
         lib.comd_nl_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -165,14 +169,15 @@ def nl_rows(geom, n_atoms, A: int, n_rows: int, row_split=None, out=None):
         out = (torch.empty(n_rows, dtype=torch.int32, device=dev),
                torch.empty(n_rows, dtype=torch.bool, device=dev),
                torch.empty(n_local, dtype=torch.int32, device=dev))
-    counts = torch.empty(2, dtype=torch.int32, device=dev)
-    grid = max(1, min(-(-max(n_local * A, n_rows) // 256), 1 << 16))
+    # the tile sums (int2 a tile): written whole by the first launch
+    tiles = build().comd_nl_rows_tiles(n_local)
+    tile_sums = torch.empty(2 * tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = build().comd_nl_rows(
             n_atoms.data_ptr(), None if is_b is None else is_b.data_ptr(),
             n_local, A, n_rows, ri, out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), counts.data_ptr(), grid, stream)
+            out[2].data_ptr(), tile_sums.data_ptr(), tiles, stream)
     if err != 0:
         _raise(err, "nl_rows")
     LAUNCHES["nl_rows"] += 1

@@ -30,7 +30,9 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
 - ``embed_rows`` (ER): pass 2 of the list paths on a Verlet list's rows
   (comd_tpu/ops/force_eam.py:420-439): dfEmbed [B, A] in the cell layout,
   each slot F' of its row (``row_start[c] + s``), its serial halo fill
-  or zero halo rows, and on energy steps U a row;
+  or zero halo rows, and on energy steps U a row, written by the slot
+  that owns the row; ``embed_fill``'s 16-byte vectors of slots where A
+  allows (``embed_rows_plan``);
 - ``land_rows`` (LR): ``land``'s form for a list force per row: each
   slot its row's force (EAM's two passes added), the kick and the count;
   without the kick the force only (the initial force, ``-s``).
@@ -73,6 +75,7 @@ EMBED_BLOCKS_PER_SM = {False: 4, True: None}
 # once round; else at most this many blocks a SM, a grid-stride loop over
 # the rows (step_timing.py times the forms; read at each launch)
 HALO_BLOCKS_PER_SM = None
+ROWS_A_THREAD = 4      # csrc/step.cu's kRowsAThread: embed_rows' U rows
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -103,8 +106,8 @@ def build():
                 ("comd_land", [i, p, p, p, q, p, q, q, q, d, p, i, p, i, p,
                                i, p]),
                 ("comd_embed_rows",
-                 [i, i, p, p, i, p, p, i, p, p, p, p, p, p, i, i, i, i, i,
-                  d, d, p, i, i, p]),
+                 [i, i, i, p, p, i, p, p, i, p, p, p, p, p, p, i, i, i, i,
+                  i, d, d, p, i, i, p]),
                 ("comd_land_rows",
                  [i, p, p, p, p, q, q, i, p, p, q, q, i, p, p, i, i, i, i,
                   i, d, p, i, p, i, p])):
@@ -570,6 +573,32 @@ def _check_rows_of(what: str, nlist, n_atoms, n_local: int, dev):
     return R
 
 
+def rows_width(A: int, elem: int) -> int:
+    """The slots a thread of embed_rows takes: a 16-byte vector of the
+    ``elem``-byte values (4 f32, 2 f64) when A is a multiple of it, else
+    1.  U is a row's, stored a row at a time (rows are not aligned to
+    slots), so its dtype does not enter."""
+    w = 16 // elem
+    return w if A % w == 0 else 1
+
+
+def embed_rows_plan(A: int, elem: int, n_slots: int, n_rows: int,
+                    energy: bool) -> tuple:
+    """embed_rows' launch plan: (width, slot blocks, row blocks).  The
+    slot blocks cover the ``n_slots / width`` vectors of dfEmbed, the row
+    blocks (energy steps only, else 0) U's ``n_rows``, ``ROWS_A_THREAD``
+    rows a thread; each range a block to every 256 threads, one at least
+    (grids capped at 4 or 8 blocks an SM measured slower at the 63^3 list
+    headline on an H100)."""
+    width = rows_width(A, elem)
+
+    def blocks(n):
+        return max(1, -(-n // THREADS))
+
+    return (width, blocks(n_slots // width),
+            blocks(-(-n_rows // ROWS_A_THREAD)) if energy else 0)
+
+
 def embed_rows(f_eval: EmbedTable, nlist, n_atoms, rho, phi, n_local: int,
                B: int, halo_src=None, e_dtype=torch.float64):
     """EAM pass 2 on the rows of a Verlet list (ER): (dfEmbed [B, A], U [R]
@@ -578,8 +607,11 @@ def embed_rows(f_eval: EmbedTable, nlist, n_atoms, rho, phi, n_local: int,
     of one or two row segments ([R_s], rows in order: the -a 1 split's
     interior and boundary sweeps); ``n_atoms`` the counts by cell;
     ``halo_src`` ([B - n_local] int64) the serial fill's sources, None on a
-    mesh (zero halo rows).  CPU tensors run the plain version; CUDA
-    tensors the kernel, one launch, 32-bit indices (B * A < 2^31)."""
+    mesh (zero halo rows).  The list's valid rows are those that
+    ``row_start`` and ``n_atoms`` give the local slots (NR built it from
+    these counts): on the card the slot that owns a row writes its U.  CPU
+    tensors run the plain version; CUDA tensors the kernel, one launch,
+    32-bit indices (B * A < 2^31)."""
     A = nlist.last_r.shape[2]
     tab = f_eval.table
     dtype, dev = tab.dtype, tab.device
@@ -607,14 +639,16 @@ def embed_rows(f_eval: EmbedTable, nlist, n_atoms, rho, phi, n_local: int,
                                       n_local, B, halo_src, e_dtype)
     dfe = torch.empty((B, A), dtype=dtype, device=dev)
     u = None if phi is None else torch.empty(R, dtype=e_dtype, device=dev)
+    width, slot_blocks, row_blocks = embed_rows_plan(
+        A, tab.element_size(), B * A, R, u is not None)
     err = build().comd_embed_rows(
-        tab.element_size(), 8 if e_dtype == torch.float64 else 4,
+        tab.element_size(), 8 if e_dtype == torch.float64 else 4, width,
         rho_s[0], rho_s[1], rho_s[4], phi_s[0], phi_s[1], phi_s[4],
         nlist.a_valid.data_ptr(), nlist.row_start.data_ptr(),
         n_atoms.data_ptr(), None if halo_src is None else halo_src.data_ptr(),
         dfe.data_ptr(), None if u is None else u.data_ptr(), A, n_local,
         B * A, R, f_eval.n, f_eval.x0, f_eval.inv_dx, tab.data_ptr(),
-        _grid(B * A, dev), 0 if u is None else _grid(R, dev), _stream(tab))
+        slot_blocks, row_blocks, _stream(tab))
     _launched(err, "embed_rows")
     return dfe, u
 

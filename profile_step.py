@@ -257,8 +257,10 @@ def main(argv=None) -> int:
                                     "refresh_halo_kernel",
                                     "embed_fill_kernel", "land_kernel",
                                     "embed_rows_kernel", "land_rows_kernel",
-                                    "nl_rows_scan_kernel",
+                                    "nl_rows_tile_kernel",
                                     "nl_rows_fill_kernel",
+                                    # a parent tree's (--tree) NR scan
+                                    "nl_rows_scan_kernel",
                                     "rebucket_bin_kernel",
                                     "rebucket_place_kernel",
                                     "rebucket_place_warp_kernel",

@@ -71,6 +71,16 @@ graphs (CUDA events around replays; ms a launch):
                      f32 2x2x2 collective state (numpy seed 81, up to
                      0.5 A, rebucketed with the halo landers kept): the
                      mean a launch over the three stages' plans
+  nl_rows            NR, a build's rows at the 63^3 EAM -m thread_atom_nl
+                     state (f32), no split; nl_rows split: the -a 1 split;
+                     nl_rows first launch, second launch: each launch's
+                     device ms (torch.profiler over 20 builds, mean a
+                     launch)
+  embed_rows         ER at that state (rho and phi from NL2's pass 1), the
+                     main path's call: no energy, the serial fill;
+                     embed_rows energy: with U; embed_rows zero halo: the
+                     mesh's; on a tree with rows_width also its scalar
+                     form (one slot a thread, with and without energy)
   branch             one replay of a graph of the serial step's head and
                      its IF nodes (the rebucket's body one small kernel):
                      the trigger with the images and one IF node, or on a
@@ -352,6 +362,69 @@ def halo_forms(torch, step, fill, rounds: int = 3) -> dict:
     return {k: sorted(v)[len(v) // 2] for k, v in times.items()}
 
 
+def row_times(torch, want) -> dict:
+    """The list paths' NR and ER at the 63^3 EAM -m thread_atom_nl state
+    (f32; rho and phi from NL2's pass 1 on the run's list), in CUDA
+    graphs: ``nl_rows`` (a build's rows, no split; ``nl_rows split``
+    with the -a 1 row split), ``embed_rows`` (the main path's call: no
+    energy, the serial fill), ``embed_rows energy``, ``embed_rows zero
+    halo``; each NR launch's device ms (torch.profiler over 20 builds);
+    and, on a tree with ``rows_width``, ER's scalar form, one slot a
+    thread (the median of 3 rounds, in turn with the wrapper's form)."""
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops import neighborlist as nlmod
+    from comd_tpu_torch.ops.cuda import nl as nlk
+    from comd_tpu_torch.ops.cuda import step
+    sim = init_simulation(Config(
+        nx=63, ny=63, nz=63, doeam=True, temperature=600.0,
+        dtype="float32", max_atoms=0, cell_mode="auto",
+        method="thread_atom_nl", pot_dir=os.path.join(ROOT, "pots"),
+        device="cuda"))
+    s, lst, nl = sim.state, sim.nlist, sim.geom.n_local
+    B, A = s.r.shape[1:]
+    R = lst.a_list.shape[0]
+    _f1, phi, rho = nlk.eam_pass1(lst, s.r, sim.pair_eval)
+    is_b, ri, rb = nlmod.row_split_for(sim.geom, A)
+    split = (torch.as_tensor(is_b, device="cuda"), ri, rb)
+
+    def rows(rs=None):
+        return lambda: nlk.nl_rows(sim.geom, s.n_atoms, A, R, rs)
+
+    def embed(energy=False, src=sim.maps.halo_src):
+        return lambda: step.embed_rows(
+            sim.f_eval, lst, s.n_atoms, (rho,), (phi,) if energy else None,
+            nl, B, src, sim.cfg.torch_energy_dtype)
+
+    cases = {"nl_rows": rows(), "nl_rows split": rows(split),
+             "embed_rows": embed(), "embed_rows energy": embed(True),
+             "embed_rows zero halo": embed(src=None)}
+    out = {name: graph_ms(torch, fn) for name, fn in cases.items()
+           if want(name)}
+    if want("nl_rows "):
+        out.update(kernel_ms(torch, rows(), {
+            "nl_rows_scan_kernel": "nl_rows first launch",
+            "nl_rows_tile_kernel": "nl_rows first launch",
+            "nl_rows_fill_kernel": "nl_rows second launch"}))
+    if want("embed_rows ") and hasattr(step, "rows_width"):
+        width = step.rows_width
+        forms = {"one vector a thread": width,
+                 "one slot a thread": lambda *a: 1}
+        times = {}
+        try:
+            for _ in range(3):
+                for form, w in forms.items():
+                    step.rows_width = w
+                    for energy in (False, True):
+                        times.setdefault(
+                            "embed_rows" + (" energy " if energy else " ")
+                            + form, []).append(
+                                graph_ms(torch, embed(energy)))
+        finally:
+            step.rows_width = width
+        out.update({k: sorted(v)[len(v) // 2] for k, v in times.items()})
+    return out
+
+
 def rebucket_kernels(torch, sim) -> dict:
     """The serial rebucket body's kernels, device ms a launch, and on a
     tree with ``place_form`` the body and the place launch again in the
@@ -484,6 +557,8 @@ def worker(tree: str, cases_re: str) -> dict:
         del mesh
     if want("atom_pack stage"):
         out.update(pack_times(torch))
+    if want("nl_rows") or want("embed_rows"):
+        out.update(row_times(torch, want))
     if want("branch"):
         out["branch"] = branch_ms(torch, sim, p, r, s.f, last)
     if hasattr(step, "EMBED_BLOCKS_PER_SM") and want("embed_fill "):

@@ -1047,6 +1047,144 @@ def test_nl_rows_matches_plain(cuda_device, split, case):
         assert torch.equal(a, w)
 
 
+def _rows_state(n_local: int, A: int, seed: int, split: bool,
+                factor: float = 1.0, short: bool = False):
+    """Synthetic counts of ``n_local`` cells and seven halo cells, drawn
+    from [-2, A + 5] with a numpy seed, one cell emptied, on the card;
+    with ``split`` a random boundary mask (boundary cells in every tile)
+    and row_split_for's capacities (``short``: the interior one half its
+    rows).  Returns (geom, n_atoms [B] int32, row_split | None, n_rows)."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(-2, A + 6, size=n_local + 7).astype(np.int32)
+    n[n_local // 3] = 0
+    geom = types.SimpleNamespace(n_local=n_local)
+    n_atoms = torch.from_numpy(n).cuda()
+
+    def pad(k):
+        return max(128, -(-k // 128) * 128)
+
+    if not split:
+        return geom, n_atoms, None, pad(int(n_local * A * factor))
+    is_b = rng.random(n_local) < 0.4
+    ri = pad(int((~is_b).sum()) * A)
+    if short:
+        ri = max(1, int(np.clip(n[:n_local], 0, A)[~is_b].sum()) // 2)
+    rb = pad(int(is_b.sum()) * A)
+    return (geom, n_atoms, (torch.from_numpy(is_b).cuda(), ri, rb),
+            ri + rb)
+
+
+def _unaligned(t):
+    """A copy of ``t`` one element into a larger tensor: contiguous, not
+    16-byte aligned."""
+    big = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    big[1:] = t
+    return big[1:]
+
+
+@pytest.mark.parametrize("n_local,A,split,factor,short", [
+    (1300, 32, False, 1.0, False), (1300, 32, True, 1.0, False),
+    (1300, 32, False, 0.25, False), (1300, 13, True, 1.0, False),
+    (100, 32, True, 1.0, False), (100, 32, False, 1.0, False),
+    (700, 40, True, 1.0, False), (700, 40, False, 0.25, False),
+    (1300, 32, True, 1.0, True), (1, 32, False, 1.0, False)])
+def test_nl_rows_tiles_match_plain(cuda_device, n_local, A, split, factor,
+                                   short):
+    """NR's tiled form against nl_rows_plain bit for bit on synthetic
+    counts: several 128-cell tiles with a partial last one (1300 cells)
+    and fewer cells than a tile (100, 1), the -a 1 split with boundary cells in every tile (a boundary
+    segment starting mid-tile), counts past A, negative and zero, a
+    capacity a quarter of the slots, an interior capacity below its
+    count, A = 13 (16-lane segments) and A = 40 (a thread a slot); new
+    tensors, twice in place over poisoned ones (the same bits: the tile
+    sums are rewritten every build), and into views that are not 16-byte
+    aligned, from unaligned counts and mask (the scalar loads and
+    stores); one count a call."""
+    geom, n_atoms, row_split, n_rows = _rows_state(n_local, A, 3 + n_local,
+                                                   split, factor, short)
+    want = nlmod.nl_rows_plain(geom, n_atoms, A, n_rows, row_split)
+    st.reset_launch_counts()
+    outs = [cuda_nl.nl_rows(geom, n_atoms, A, n_rows, row_split)]
+    out = tuple(torch.full_like(w, 3) if w.dtype != torch.bool
+                else torch.ones_like(w) for w in want)
+    for _ in range(2):
+        got = cuda_nl.nl_rows(geom, n_atoms, A, n_rows, row_split, out=out)
+        assert all(g is o for g, o in zip(got, out))
+        outs.append(tuple(g.clone() for g in got))
+    views = tuple(_unaligned(torch.full_like(w, 5) if w.dtype != torch.bool
+                             else torch.ones_like(w)) for w in want)
+    split_view = None if row_split is None else (
+        _unaligned(row_split[0]),) + row_split[1:]
+    outs.append(cuda_nl.nl_rows(geom, _unaligned(n_atoms), A, n_rows,
+                                split_view, out=views))
+    assert st.LAUNCHES["nl_rows"] == 4
+    for got in outs:
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("A", [32, 30, 13, 40])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_embed_rows_forms_match_plain(cuda_device, dtype, A):
+    """ER's vector form (16 bytes of slots: A = 32 by a shift, A = 40 in
+    f32 and A = 30 in f64 by a divide) and its scalar form (A = 13, and A
+    = 30 in f32) against embed_rows_plain bit for bit, on NR's plain lists
+    of 1300 synthetic cells (counts past A, negative and zero), with and
+    without the -a 1 split: with and without energy (U in f64 and f32),
+    the serial fill from random local sources and zero halo rows, rho
+    and phi in one segment and in two cut inside a cell's vector, an
+    a_valid that is not 16-byte aligned (U's byte loads); two launches
+    give the same bits; one launch a call."""
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    sim = _nl_sim(dtype)
+    f = sim.f_eval
+    hi = sim.pot.f.x0 + (sim.pot.f.n - 1) / sim.pot.f.inv_dx
+    tdt = sim.state.r.dtype
+    rng = np.random.default_rng(A)
+    n_local, B = 1300, 1307
+    for split in (False, True):
+        geom, n_atoms, row_split, R = _rows_state(n_local, A, 17 + A, split)
+        a_list, a_valid, row_start = nlmod.nl_rows_plain(
+            geom, n_atoms, A, R, row_split)
+        v = a_valid.cpu().numpy()
+        rho = torch.as_tensor(np.where(v, rng.uniform(0.0, 1.1 * hi, R), 0),
+                              dtype=tdt, device="cuda")
+        phi = torch.as_tensor(np.where(v, rng.uniform(-1.0, 0.5, R), 0),
+                              dtype=tdt, device="cuda")
+        # a cut two rows into a cell with at least four rows
+        full = int(np.flatnonzero(np.clip(n_atoms[:n_local].cpu().numpy(),
+                                          0, A) >= 4)[5])
+        cut = int(row_start[full]) + 2
+        halo = torch.as_tensor(rng.integers(0, n_local, B - n_local),
+                               dtype=torch.int64, device="cuda")
+        for valid in (a_valid, _unaligned(a_valid)):
+            lst = nlmod.NeighborList(
+                a_list=a_list, a_valid=valid,
+                nl=torch.zeros((R, 1), dtype=torch.int32, device="cuda"),
+                last_r=torch.empty((3, B, A), dtype=tdt, device="cuda"),
+                row_start=row_start)
+            for energy in (True, False):
+                for src in (halo, None):
+                    for segs in ((lambda x: (x,)),
+                                 (lambda x: (x[:cut].clone(),
+                                             x[cut:].clone()))):
+                        for e_dtype in (torch.float64, torch.float32):
+                            args = (f, lst, n_atoms, segs(rho),
+                                    segs(phi) if energy else None, n_local,
+                                    B, src, e_dtype)
+                            want = nlmod.embed_rows_plain(*args)
+                            n0 = LAUNCHES["embed_rows"]
+                            got = step_ops.embed_rows(*args)
+                            again = step_ops.embed_rows(*args)
+                            assert LAUNCHES["embed_rows"] == n0 + 2
+                            for g in (got, again):
+                                assert torch.equal(g[0], want[0])
+                                assert (g[1] is None) == (not energy)
+                                if energy:
+                                    assert g[1].dtype == e_dtype
+                                    assert torch.equal(g[1], want[1])
+
+
 def _row_ops_inputs(sim, split: bool, seed: int):
     """A list of sim's state (the plain build, with or without the row
     split) and per-row rho, phi and two force passes as NL2 leaves them
