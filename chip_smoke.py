@@ -65,7 +65,9 @@ the first error:
                  on 3x2x1 with --commImpl ki (2 cells per shard axis).
  12. sharded main -- the 63^3 headline on a 2x2x2 mesh of shards on the one
                  card, --commImpl ki_fused, ki, then collective: the run_main
-                 checks, K1 passes 1 and 3 on every step, under every
+                 checks, K1 passes 1 and 3, embed_fill, kick_drift_trigger
+                 and land each one launch a force (a step) over the 8
+                 shards' stack, under every
                  transport exactly one fill launch a force (init and every
                  step; collective's too: K3's copies), three ring_push
                  launches an atom exchange under ki and ki_fused and three
@@ -174,7 +176,7 @@ the first error:
                  (with its -a 0 run beside it): run_main's checks, the
                  initial ePot within 1e-6 of the serial run's (phases 5,
                  9), exactly two launches of each K1 pass (LJ: of K1) a
-                 shard a force, the final r and ePot of the two EAM
+                 force over the 8 shards, the final r and ePot of the two EAM
                  transports equal bit for bit, the final ePot within 1e-6
                  of the same transport's -a 0 run (phase 12; LJ: its run
                  here); K1 against its plain version on the interior and
@@ -196,8 +198,9 @@ the first error:
                  2x2x2, f32, 10 x step_block(10), the launch counts zeroed
                  just before the steps and read just after) under
                  collective on 2 and 4 processes, ki_fused on 2 and 4, ki
-                 on 2: every worker's shards on cuda and K1's passes
-                 launched on every step of each shard; under ki|ki_fused
+                 on 2: every worker's shards on cuda and K1's passes,
+                 kick_drift_trigger and land one launch a step over its
+                 shards' stack; under ki|ki_fused
                  one halo_fill_stage launch a fill stage and one ring_push
                  an atom stage on every process, no whole-fill launch, and
                  no fill or atom message through gloo; under collective
@@ -232,10 +235,9 @@ the first error:
                  trigger launch on the 63^3 state and two IF bodies that
                  count their runs, replayed with the trigger clear at a
                  baseline, clear at one slot displaced by exactly
-                 (skin/2)^2 and set at its next ulp; the same over 8
-                 shards, each launch after the first with ``add``, the
-                 last setting the handles, one shard displaced; the bodies' counts against the plain
-                 version's branch (the trigger read on the host); then a
+                 (skin/2)^2 and set at its next ulp; the same in one
+                 launch over a stack of 8 shards, one shard displaced;
+                 the bodies' counts against the plain version's branch (the trigger read on the host); then a
                  graph of a trigger launch on one cell and one IF node
                  timed (CUDA events) beside the plain version and its
                  bound (set_condition's row, 0 launches, folded into
@@ -392,6 +394,26 @@ the first error:
                  index_select library form.  Phase 12 checks three
                  atom_pack launches an exchange under collective, phase 8
                  one fold_halo a fold, phase 18 the graphs' credits.
+ 23. stacked -- (run right after phase 12, on its ki_fused state) the
+                 mesh's phases as one launch over its stack of 8 shards:
+                 K1 passes 1 (with and without energy) and 3 over every
+                 cell and over the -a 1 interior and boundary subsets,
+                 kick_drift_trigger (one shard past skin/2: the or
+                 fires), embed_fill (energy and not, zero halo, K1's
+                 strided rhobar) and land (two passes, the count of every
+                 shard), each against the 8 launches of S = 1 on the
+                 shards' slices bit for bit and against its plain version
+                 (the one-shard plain version shard by shard) at phase 6's
+                 tolerances (the step kernels bit for bit); K2's three
+                 passes in f64 on a 10^3 2x2x2 mesh likewise (bit for bit
+                 unless two runs of the S = 1 launches differ themselves:
+                 its j-side atomics); each stacked launch timed (CUDA
+                 events, mean of 20; in a graph of 20) beside the 8 S = 1
+                 launches, the serial launch at 42^3 (phase 5's state) and
+                 its plain version, with the bound over the 8 shards; then
+                 the device operations and busy ms a step of the lazy
+                 2x2x2 ki_fused and collective, -S 0, --halfShell and -a 1
+                 graph steps at 63^3.  The kernels line's stacked_* rows.
 Then the kernels' JSON line and, last, {"ok": true, "device": {...}}.
 Each main path runs with the launch counts set to 0 just before it and
 read just after; every one-process lazy and list path (phases 5, 8, 9,
@@ -811,15 +833,16 @@ def kernel_row(sim, key: str, launches: dict, err: float, ms: float,
 def half_vs_full(sim) -> float:
     """max |f_K2 - f_K1| of the EAM force on sim's state (f32: the two
     differ by summation order only)."""
+    import torch
     from comd_tpu_torch.ops import binning, force_eam
     s = sim.state
     f_half, _u, _e = sim.force(s.r, s.n_atoms, want_energy=False)
     f_full, _u, _d = force_eam.eam_force(
-        sim.maps.nbr_map, [s.r], sim.pair_eval, sim.f_eval,
-        lambda xs, _rhobar: [binning.fill_halo_scalar_serial(
-            sim.geom, sim.maps, x) for x in xs],
-        n_atoms=[s.n_atoms], want_energy=False)[0]
-    return float((f_half - f_full).abs().max())
+        sim.maps.nbr_map, s.r[None], sim.pair_eval, sim.f_eval,
+        lambda xs, _rhobar: torch.stack([binning.fill_halo_scalar_serial(
+            sim.geom, sim.maps, x) for x in xs]),
+        n_atoms=s.n_atoms[None], want_energy=False)
+    return float((f_half - f_full[0]).abs().max())
 
 
 def check_comm(sim, tag: str) -> dict:
@@ -2346,12 +2369,12 @@ def run_split(serial_e0: float, lj_e0: float, mesh_epot: dict) -> None:
               f"{e_serial!r}")
         check(rel1 < 1e-6, f"{tag}: final ePot {sim.e_potential!r} vs -a 0 "
               f"{e_a0!r}")
-        want = 2 * shards * (steps + 1)
+        want = 2 * (steps + 1)
         for k in keys:
             check(launches[k] == want,
                   f"{tag}: {k} launched {launches[k]} times, not two a "
-                  f"shard a force ({want} for the initial force and "
-                  f"{steps} steps)")
+                  f"force over the {shards} shards' stack ({want} for the "
+                  f"initial force and {steps} steps)")
         if kw["comm_impl"] == "ki_fused":
             # the fused fill evaluates F' of the split's summed rhobar
             check(launches["halo_fill"] == steps + 1,
@@ -2360,7 +2383,8 @@ def run_split(serial_e0: float, lj_e0: float, mesh_epot: dict) -> None:
         say("split", f"{tag}: {sim.maps.interior.n:,} interior and "
             f"{sim.maps.boundary.n:,} boundary cells a shard; "
             f"{ {k: launches[k] for k in keys + ('halo_fill',)} } "
-            f"launches (K1: two a shard a force); initial ePot rel. diff "
+            f"launches (K1: two a force, interior and boundary, each over "
+            f"the {shards} shards); initial ePot rel. diff "
             f"to the serial run {rel0:.3e}, final to the -a 0 run "
             f"{rel1:.3e}; {sim.ms_step:.3f} ms/step")
         if kw.get("doeam"):
@@ -2607,10 +2631,12 @@ def run_multiproc(serial_e0: float, coll: dict, one_proc: dict,
                   f"{where}: shards not on the card ({w['device']})")
             check(w["n_owned"] == 8 // n_procs,
                   f"{where}: {w['n_owned']} shards")
-            for k in ("eam_pass1", "eam_pass3"):
-                check(w["launches"][k] >= steps * w["n_owned"],
+            for k in ("eam_pass1", "eam_pass3", "kick_drift_trigger",
+                      "land"):
+                check(w["launches"][k] == steps,
                       f"{where}: {k} launched {w['launches'][k]} times in "
-                      f"{steps} steps on {w['n_owned']} shards")
+                      f"{steps} steps on {w['n_owned']} shards, not once "
+                      f"a step over their stack")
             check("staged" in w["backend"], f"{where}: backend "
                   f"{w['backend']}")
             refreshes = steps - w["rebuckets"]
@@ -3095,12 +3121,11 @@ def run_trigger_handles(sim) -> dict:
     graph of the trigger's launch on ``sim``'s fields (p and f zero, so r
     stays put) and two IF nodes whose bodies count their runs, replayed
     with r at the baseline (clear), at one slot displaced by exactly
-    (skin/2)^2 (clear) and at its next ulp (set); then eight launches,
-    each after the first with ``add`` and the last setting the handles
-    (as the mesh's head does), on eight shards of which one is
-    displaced.  The bodies' counts against the plain version's branch
-    (kick_drift_trigger_plain on the same tensors, or-ed over the shards,
-    read on the host).  Then a graph of a trigger launch on a one-cell
+    (skin/2)^2 (clear) and at its next ulp (set); then one launch over a
+    stack of eight shards, of which one is displaced (as the mesh's head
+    does).  The bodies' counts against the plain version's branch
+    (kick_drift_trigger_plain on the same tensors shard by shard, or-ed
+    over the shards, read on the host).  Then a graph of a trigger launch on a one-cell
     state and one IF node with a one-kernel body, timed as a replay (CUDA
     events, mean of 200) beside the plain version (the plain trigger, the
     host's read and the body's launch) and the bound (one byte): the
@@ -3119,7 +3144,8 @@ def run_trigger_handles(sim) -> dict:
     bodies = graph_if.BodyPool(dev)
     err, lines = 0.0, []
     for shards in (1, 8):
-        rs = [base.clone() for _ in range(shards)]
+        rs = torch.stack([base] * shards)
+        ps, fs, bs = (torch.stack([x] * shards) for x in (p0, f0, base))
         moved = shards // 2 + 1 if shards > 1 else 0
         hits = torch.zeros(2, dtype=torch.int32, device=dev)
 
@@ -3127,11 +3153,9 @@ def run_trigger_handles(sim) -> dict:
             cond = graph_if.condition(dev)
             check(len(cond.handles) == 2, "no conditional handles in the "
                   "capture")
-            for i, r in enumerate(rs):
-                cond.flag = step.kick_drift_trigger(
-                    p0, r, f0, base, nl, kick, drift, skin, cond.flag,
-                    add=i > 0, handles=cond.handles if i == shards - 1
-                    else ())
+            cond.flag = step.kick_drift_trigger(
+                ps, rs, fs, bs, nl, kick, drift, skin,
+                handles=cond.handles)
             graph_if.if_node(cond, 0, lambda: hits[0].add_(1), bodies)
             graph_if.if_node(cond, 1, lambda: hits[1].add_(1), bodies)
 
@@ -3143,9 +3167,9 @@ def run_trigger_handles(sim) -> dict:
             rs[moved].copy_({"baseline": base, "at": at, "over": over}[case])
             graph.replay()
             flag = None
-            for i, r in enumerate(rs):
+            for i in range(shards):
                 flag = step.kick_drift_trigger_plain(
-                    p0.clone(), r.clone(), f0, base, nl, kick, drift,
+                    p0.clone(), rs[i].clone(), f0, base, nl, kick, drift,
                     skin, flag, add=i > 0)
             graph_if.if_node_plain(flag.cpu(), lambda: want[0].add_(1))
             graph_if.if_node_plain(flag.cpu(), lambda: want[1].add_(1),
@@ -3198,6 +3222,10 @@ def run_trigger_handles(sim) -> dict:
 
 
 STEP_SOURCE = "comd_tpu_torch/csrc/step.cu"
+# the kernels-line rows of phase 23's stacked launches (one over the
+# mesh's 8 shards)
+STACKED_KEYS = tuple(f"stacked_{k}" for k in (
+    "eam_pass1", "eam_pass3", "kick_drift_trigger", "embed_fill", "land"))
 STEP_KEYS = ("kick_drift_trigger", "refresh_halo", "embed_fill", "land")
 # peak float64 rate outside the tensor cores (H100 SXM data sheet)
 PEAK_F64_FLOPS = 34e12
@@ -3512,6 +3540,401 @@ def graph_ms_handles(run, ops, n: int = 2, calls: int = 20,
     run(step.kick_drift_trigger, ops)
     graph, _c, _i = cuda_capture(captured, torch.cuda.graph_pool_handle())
     return time_ms(graph.replay, reps) / calls
+
+
+def _bitwise(got, want) -> bool:
+    """Every tensor of ``got`` equals ``want``'s bit for bit (None beside
+    None)."""
+    import torch
+    if isinstance(got, torch.Tensor) or got is None:
+        got, want = (got,), (want,)
+    return all((a is None) == (b is None) and
+               (a is None or (a.dtype == b.dtype and torch.equal(a, b)))
+               for a, b in zip(got, want))
+
+
+def _per_shard(outs):
+    """Per-shard results [(out, ...), ...] stacked like a stacked call's."""
+    import torch
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(None if outs[0][k] is None
+                 else torch.stack([o[k] for o in outs])
+                 for k in range(len(outs[0])))
+
+
+def stacked_k2_f64(device: str = "cuda") -> list:
+    """K2's three passes over the stack of a 10^3 f64 2x2x2 mesh (table
+    evaluator) against the eight S = 1 launches on the shards' slices bit
+    for bit, and against the plain versions at phase 6's f64 tolerance
+    (1e-12 of the largest value: the dense outputs hold partial sums near
+    zero on halo rows, ``norm_rel``).  K2 adds its j side with atomics, in
+    an order that may change from launch to launch: where two runs of the
+    S = 1 launches themselves differ in their bits, the stacked launch is
+    held to them within 1e-12 of the largest value instead, and the line
+    says so.  Returns the lines to print."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    from comd_tpu_torch.ops import force_lj
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.potentials.lj import init_lj_pot
+    from comd_tpu_torch.sim import stack_of
+    sim = init_simulation(Config(
+        nx=10, ny=10, nz=10, doeam=True, temperature=600.0, dtype="float64",
+        interp_impl="rows", pot_dir=POTS, device=device, **MESH))
+    r = stack_of(s.r for s in sim.states)
+    nbr, ev = sim.maps.half_nbr_map, sim.pair_eval
+    dfe = (0.01 * r[:, 0]).contiguous()
+    lj_ev = force_lj.make_lj_evaluator(init_lj_pot(2.5), torch.float64)
+    lines = []
+    for name, stacked, one, plain in (
+            ("K2 EAM pass 1", lambda x: st.eam_pass1_half(x, nbr, ev),
+             None, lambda x: st.eam_pass1_half_plain(x, nbr, ev)),
+            ("K2 EAM pass 3",
+             lambda x, d=dfe: st.eam_pass3_half(x, nbr, ev, d),
+             lambda i: st.eam_pass3_half(r[i], nbr, ev, dfe[i]),
+             lambda i: st.eam_pass3_half_plain(r[i], nbr, ev, dfe[i])),
+            ("K2 LJ", lambda x: st.lj_pass_half(x, nbr, lj_ev), None,
+             lambda x: st.lj_pass_half_plain(x, nbr, lj_ev))):
+        got = stacked(r)
+        if one is None:
+            shards = _per_shard([stacked(r[i]) for i in range(len(r))])
+            ref = _per_shard([plain(r[i]) for i in range(len(r))])
+        else:
+            shards = _per_shard([one(i) for i in range(len(r))])
+            ref = _per_shard([plain(i) for i in range(len(r))])
+        if one is None:
+            again = _per_shard([stacked(r[i]) for i in range(len(r))])
+        else:
+            again = _per_shard([one(i) for i in range(len(r))])
+        if r.is_cuda:
+            torch.cuda.synchronize()
+        got_t = (got,) if isinstance(got, torch.Tensor) else got
+        ref_t = (ref,) if isinstance(ref, torch.Tensor) else ref
+        sh_t = (shards,) if isinstance(shards, torch.Tensor) else shards
+        same = _bitwise(got, shards)
+        steady = _bitwise(shards, again)
+        d_sh = max(norm_rel(a, b) for a, b in zip(got_t, sh_t)
+                   if a is not None)
+        check(same or (not steady and d_sh <= 1e-12),
+              f"stacked {name} f64: the stacked launch differs from the 8 "
+              f"S = 1 launches (rel {d_sh:.3e}; two runs of them equal bit "
+              f"for bit: {steady})")
+        err = max(norm_rel(a, b) for a, b in zip(got_t, ref_t)
+                  if a is not None)
+        check(err <= 1e-12, f"stacked {name} f64: rel err {err:.3e} to "
+              f"the plain version")
+        lines.append(f"{name} f64 (10^3 2x2x2): one launch over the 8 "
+                     f"shards against the 8 S = 1 launches: "
+                     + ("bit for bit" if same else
+                        f"rel {d_sh:.2e} (two runs of the S = 1 launches "
+                        f"differ in their bits too: the j side's atomics)")
+                     + f"; plain rel err {err:.2e}")
+    del sim
+    return lines
+
+
+def run_stacked(sharded, headline, launches_12: dict) -> dict:
+    """Phase 23: the one-card mesh's phases as one launch over its stack.
+    On phase 12's ki_fused 63^3 f32 2x2x2 state (``sharded``): K1 passes 1
+    (with and without energy) and 3 over every cell and over the -a 1
+    interior and boundary subsets, the head (kick_drift_trigger, one
+    shard displaced past skin/2 so that the or fires), pass 2 (embed_fill,
+    with and without energy, the mesh's zero halo rows, on K1's strided
+    rhobar) and the landing (two passes, the count of every shard): each
+    stacked launch against the 8 launches of S = 1 on the shards' slices
+    bit for bit, and against its plain version (the one-shard plain
+    version shard by shard) at phase 6's tolerances (K1; the step kernels
+    bit for bit).  K2 in f64 on a 10^3 2x2x2 mesh likewise
+    (``stacked_k2_f64``).  Timed (CUDA events, mean of 20; the device's
+    time in a graph of 20 launches) beside the 8 S = 1 launches and the
+    serial launch at 42^3 (phase 5's ``headline`` state, the same cells
+    and atoms).  Then the launches (device operations) a step and the
+    device's busy ms a step of the lazy 2x2x2 ki_fused and collective,
+    -S 0, --halfShell and -a 1 graph steps at 63^3.  ``launches_12``:
+    phase 12's counts under ki_fused (the rows' launches)."""
+    import types
+    import torch
+    from comd_tpu_torch.ops.cuda import stencil as st
+    from comd_tpu_torch.ops.cuda import step
+    from comd_tpu_torch.probes import time_ms
+    from comd_tpu_torch.sim import stack_of
+    sim, maps, ev = sharded, sharded.maps, sharded.pair_eval
+    S, nl = len(sim.states), sim.geom.n_local
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    r, p, f, n_atoms = (stack_of(getattr(x, k) for x in sim.states)
+                        for k in ("r", "p", "f", "n_atoms"))
+    B, A = r.shape[2], r.shape[3]
+    nbr = maps.nbr_map
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    e_dtype = sim.cfg.torch_energy_dtype
+    chunk = sim.cfg.resolved_box_chunk
+    f1, phi, rho = st.eam_pass1(r, nbr, ev)
+    dfe, _u = step.embed_fill(sim.f_eval, rho, None, n_atoms, B)
+    f3 = st.eam_pass3(r, nbr, ev, dfe)
+    last = r.clone()
+    last[:, :, :nl] += 1e-2
+    last[S - 1, 0, nl // 2, 0] += 2.0 * sim.skin    # the or fires
+    hs = headline.state
+    h_last = hs.r.clone()
+    h_last[:, :headline.geom.n_local] += 1e-2
+    dev = r.device
+    n_out = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def kdt_prep():
+        return p.clone(), r.clone()
+
+    def k1(pass_, boxes=None, energy=False):
+        if pass_ == 1:
+            return (lambda x: st.eam_pass1(x, nbr, ev, want_energy=energy,
+                                           boxes=boxes),
+                    lambda i: st.eam_pass1(r[i], nbr, ev,
+                                           want_energy=energy, boxes=boxes),
+                    lambda i: st.eam_pass1_plain(r[i], nbr, ev,
+                                                 want_energy=energy,
+                                                 box_chunk=chunk,
+                                                 boxes=boxes))
+        return (lambda x: st.eam_pass3(x, nbr, ev, dfe, boxes=boxes),
+                lambda i: st.eam_pass3(r[i], nbr, ev, dfe[i], boxes=boxes),
+                lambda i: st.eam_pass3_plain(r[i], nbr, ev, dfe[i],
+                                             box_chunk=chunk, boxes=boxes))
+    lines, errs = [], {}
+    for name, (stacked, one, plain) in (
+            ("K1 pass 1", k1(1)), ("K1 pass 1 energy", k1(1, energy=True)),
+            ("K1 pass 3", k1(3)),
+            ("K1 pass 1 interior", k1(1, maps.interior)),
+            ("K1 pass 1 boundary", k1(1, maps.boundary)),
+            ("K1 pass 3 interior", k1(3, maps.interior)),
+            ("K1 pass 3 boundary", k1(3, maps.boundary))):
+        got = stacked(r)
+        shards = _per_shard([one(i) for i in range(S)])
+        ref = _per_shard([plain(i) for i in range(S)])
+        sync()
+        check(_bitwise(got, shards), f"stacked {name}: the stacked launch "
+              f"differs from the {S} S = 1 launches")
+        got_t = (got,) if isinstance(got, torch.Tensor) else got
+        ref_t = (ref,) if isinstance(ref, torch.Tensor) else ref
+        e_f = float((got_t[0] - ref_t[0]).abs().max())
+        e_s = max([max_rel(a, b) for a, b in zip(got_t[1:], ref_t[1:])
+                   if a is not None] or [0.0])
+        check(e_f <= 1e-4 and e_s <= 1e-5, f"stacked {name}: force err "
+              f"{e_f:.3e}, scalar rel err {e_s:.3e} to the plain version")
+        errs[name] = e_f
+        lines.append(f"{name}: one launch over the {S} shards equals the "
+                     f"{S} S = 1 launches bit for bit; plain |df| "
+                     f"{e_f:.2e}, scalars rel {e_s:.2e}")
+
+    # the step kernels: bit for bit with the S = 1 launches and the plain
+    def kdt_run(fn_stack, per_shard):
+        pa, ra = kdt_prep()
+        if per_shard:
+            flags = [fn_stack(pa[i], ra[i], f[i], last[i], nl, kick, drift,
+                              sim.skin) for i in range(S)]
+            flag = torch.stack(flags).any()
+        else:
+            flag = fn_stack(pa, ra, f, last, nl, kick, drift, sim.skin)
+        return pa, ra, flag.reshape(())
+
+    def plain_kdt(pa, ra, fa, la, *a):
+        flag = None
+        for i in range(S):
+            flag = step.kick_drift_trigger_plain(pa[i], ra[i], fa[i], la[i],
+                                                 *a, flag, i > 0)
+        return flag
+
+    got = kdt_run(step.kick_drift_trigger, False)
+    check(_bitwise(got, kdt_run(step.kick_drift_trigger, True)) and
+          bool(got[2]), "stacked kick_drift_trigger differs from the S = 1 "
+          "launches (or did not fire)")
+    check(_bitwise(got, kdt_run(plain_kdt, False)),
+          "stacked kick_drift_trigger differs from its plain version")
+    lines.append(f"kick_drift_trigger: one launch over the {S} shards "
+                 f"(one displaced: the or fires) equals the {S} S = 1 "
+                 f"launches and the plain version bit for bit")
+    for energy in (False, True):
+        ph = phi if energy else None
+        got = step.embed_fill(sim.f_eval, rho, ph, n_atoms, B, None, e_dtype)
+        shards = _per_shard([step.embed_fill(
+            sim.f_eval, rho[i], None if ph is None else ph[i], n_atoms[i],
+            B, None, e_dtype) for i in range(S)])
+        ref = _per_shard([step.embed_fill_plain(
+            sim.f_eval, rho[i], None if ph is None else ph[i], n_atoms[i],
+            B, None, e_dtype) for i in range(S)])
+        check(_bitwise(got, shards) and _bitwise(got, ref),
+              f"stacked embed_fill energy={energy}: differs from the S = 1 "
+              f"launches or the plain version")
+    lines.append(f"embed_fill (energy and not, zero halo, K1's strided "
+                 f"rhobar): one launch equals the {S} S = 1 launches and "
+                 f"the plain version bit for bit")
+
+    def land_run(mode):
+        fa, pa = f.clone(), p.clone()
+        na = torch.zeros((), dtype=torch.int32, device=dev)
+        if mode == "stacked":
+            step.land(fa, pa, f1, f3, n_atoms, na, nl, kick)
+            return fa, pa, na
+        total = 0
+        for i in range(S):
+            (step.land if mode == "one" else step.land_plain)(
+                fa[i], pa[i], f1[i], f3[i], n_atoms[i], na, nl, kick)
+            total += int(na)
+        return fa, pa, torch.tensor(total, dtype=torch.int32, device=dev)
+
+    got = land_run("stacked")
+    check(_bitwise(got, land_run("one")) and _bitwise(got, land_run("plain"))
+          and int(got[2]) == sim.n_global,
+          f"stacked land differs from the S = 1 launches or the plain "
+          f"version (n_local {int(got[2])})")
+    lines.append(f"land (two passes): one launch equals the {S} S = 1 "
+                 f"launches and the plain version bit for bit, n_local "
+                 f"{int(got[2]):,} summed over the shards")
+    lines += stacked_k2_f64(str(dev))
+    for line in lines:
+        say("stacked", line)
+
+    # timing: the stacked launch, the S launches of S = 1, the serial one
+    h_f1, _hphi, h_rho = st.eam_pass1(hs.r, headline.maps.nbr_map,
+                                      headline.pair_eval)
+    h_dfe, _hu = step.embed_fill(headline.f_eval, h_rho, None, hs.n_atoms,
+                                 hs.r.shape[1])
+    h_f3 = st.eam_pass3(hs.r, headline.maps.nbr_map, headline.pair_eval,
+                        h_dfe)
+    hnl, hev, hnbr = headline.geom.n_local, headline.pair_eval, \
+        headline.maps.nbr_map
+    pa, ra = kdt_prep()
+    hp, hr = hs.p.clone(), hs.r.clone()
+    fa = f.clone()
+    hfa = hs.f.clone()
+
+    def each(fn):
+        return lambda: [fn(i) for i in range(S)]
+
+    timed = {
+        "eam_pass1": (
+            lambda: st.eam_pass1(r, nbr, ev, want_energy=False),
+            each(lambda i: st.eam_pass1(r[i], nbr, ev, want_energy=False)),
+            lambda: st.eam_pass1(hs.r, hnbr, hev, want_energy=False),
+            lambda: [st.eam_pass1_plain(r[i], nbr, ev, want_energy=False,
+                                        box_chunk=chunk) for i in range(S)]),
+        "eam_pass3": (
+            lambda: st.eam_pass3(r, nbr, ev, dfe),
+            each(lambda i: st.eam_pass3(r[i], nbr, ev, dfe[i])),
+            lambda: st.eam_pass3(hs.r, hnbr, hev, h_dfe),
+            lambda: [st.eam_pass3_plain(r[i], nbr, ev, dfe[i],
+                                        box_chunk=chunk) for i in range(S)]),
+        "kick_drift_trigger": (
+            lambda: step.kick_drift_trigger(pa, ra, f, last, nl, kick,
+                                            drift, sim.skin),
+            each(lambda i: step.kick_drift_trigger(
+                pa[i], ra[i], f[i], last[i], nl, kick, drift, sim.skin)),
+            lambda: step.kick_drift_trigger(hp, hr, hs.f, h_last, hnl, kick,
+                                            drift, headline.skin),
+            lambda: plain_kdt(pa, ra, f, last, nl, kick, drift, sim.skin)),
+        "embed_fill": (
+            lambda: step.embed_fill(sim.f_eval, rho, None, n_atoms, B),
+            each(lambda i: step.embed_fill(sim.f_eval, rho[i], None,
+                                           n_atoms[i], B)),
+            lambda: step.embed_fill(headline.f_eval, h_rho, None,
+                                    hs.n_atoms, hs.r.shape[1]),
+            lambda: [step.embed_fill_plain(sim.f_eval, rho[i], None,
+                                           n_atoms[i], B)
+                     for i in range(S)]),
+        "land": (
+            lambda: step.land(fa, pa, f1, f3, n_atoms, n_out, nl, kick),
+            each(lambda i: step.land(fa[i], pa[i], f1[i], f3[i],
+                                     n_atoms[i], n_out, nl, kick)),
+            lambda: step.land(hfa, hp, h_f1, h_f3, hs.n_atoms, n_out, hnl,
+                              kick),
+            lambda: [step.land_plain(fa[i], pa[i], f1[i], f3[i],
+                                     n_atoms[i], n_out, nl, kick, add=i > 0)
+                     for i in range(S)])}
+    es = r.element_size()
+    slots, local = 3 * B * A, 3 * nl * A
+    step_bytes = {     # a shard's, as phase 19's (each read and write once)
+        "kick_drift_trigger": es * (3 * slots + local + 2 * slots) + 1,
+        "embed_fill": es * (nl * A + B * A) + (sim.f_eval.n + 4) * es,
+        "land": es * (2 * local + 3 * slots) + 4 * nl + 4}
+    rows = {}
+    for key, (stacked, ones, serial, plain) in timed.items():
+        ms = time_ms(stacked, 20)
+        g_ms = graph_ms(stacked)
+        ones_ms, ones_g = time_ms(ones, 20), graph_ms(ones)
+        ser_ms, ser_g = time_ms(serial, 20), graph_ms(serial)
+        plain_ms = time_ms(plain, 2)
+        if key.startswith("eam_pass"):
+            b_ms = sum(bound(types.SimpleNamespace(
+                state=x, pair_eval=ev, geom=sim.geom, maps=maps), key)[0]
+                for x in sim.states)
+            b_by = "operations"
+        else:
+            b_ms = 1e3 * S * step_bytes[key] / PEAK_BYTES
+            b_by = "bytes"
+        say("timing", f"stacked {key} over {S} shards (63^3 2x2x2 f32): "
+            f"{ms:.4f} ms a call (CUDA events, mean of 20), {g_ms:.4f} ms "
+            f"in a graph of 20; {S} launches of S = 1 {ones_ms:.4f} "
+            f"({ones_g:.4f} in a graph); the serial launch at 42^3 "
+            f"{ser_ms:.4f} ({ser_g:.4f}); plain version {plain_ms:.4f}; "
+            f"bound {b_ms:.4f} ms ({b_by}, the {S} shards' sum)")
+        err = errs.get("K1 pass 1" if key == "eam_pass1" else
+                       "K1 pass 3", 0.0) if key.startswith("eam") else 0.0
+        rows[f"stacked_{key}"] = {
+            "name": f"stacked_{key}", "route": "cuda",
+            "source": SOURCE if key.startswith("eam") else STEP_SOURCE,
+            "replaces": (REPLACES["stencil"] + " (every shard of the mesh "
+                         "in one launch: comd_tpu's shard_map)"
+                         if key.startswith("eam") else REPLACES[key]),
+            "launches": launches_12[key], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "ms_graph": g_ms, "ms_shard_launches": ones_g,
+            "ms_serial_42": ser_g}
+    del pa, ra, fa, hp, hr, hfa
+    torch.cuda.empty_cache()
+
+    # the launches a step of the mesh's graph steps
+    for tag, kw in (("ki_fused", dict(comm_impl="ki_fused")),
+                    ("collective", dict(comm_impl="collective")),
+                    ("-S 0 collective", dict(comm_impl="collective",
+                                             lazy_shell=False)),
+                    ("--halfShell collective", dict(comm_impl="collective",
+                                                    half_shell=True)),
+                    ("-a 1 ki_fused", dict(comm_impl="ki_fused",
+                                           gpu_async=1))):
+        busy, ops, ms = mesh_graph_ops(**kw)
+        say("stacked", f"2x2x2 {tag} graph step at 63^3: {ops:.2f} device "
+            f"operations a step, device busy {busy:.4f} ms a step, "
+            f"{ms:.4f} ms/step (20 steps after the first rebucket)")
+    return rows
+
+
+def mesh_graph_ops(**kw) -> tuple:
+    """(busy ms a step, device operations a step, ms/step) of the 63^3
+    EAM 2x2x2 graph step with ``kw``: warmed through its first rebucket,
+    then 20 steps timed by the host clock and 20 under torch.profiler."""
+    import torch
+    from comd_tpu_torch import Config, init_simulation
+    n = HEADLINE_N
+    sim = init_simulation(Config(
+        nx=n, ny=n, nz=n, temperature=600.0, dtype="float32", max_atoms=0,
+        cell_mode="auto", pot_dir=POTS, device="cuda", doeam=True, **MESH,
+        **kw))
+    for _ in range(20):
+        sim.step_block(10)
+        if sim.n_rebucket:
+            break
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.step_block(20)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 20
+    busy, ops = device_busy_ms(sim, 2, 10)
+    check(sim.sum_atoms() == sim.n_global and not sim.overflow,
+          f"mesh graph step {kw}: atoms lost or overflow")
+    del sim
+    torch.cuda.empty_cache()
+    return busy, ops, ms
 
 
 def run_step_ops(headline, launches: dict) -> dict:
@@ -5155,6 +5578,10 @@ def main() -> int:
             n_steps + (k == "embed_fill") for k in STEP_KEYS}
     got = {k: launches[k] for k in STEP_KEYS}
     check(got == want, f"main: step kernels launched {got}, not {want}")
+    k1 = {k: launches[k] for k in ("eam_pass1", "eam_pass3")}
+    check(all(v == n_steps + 1 for v in k1.values()),
+          f"main: K1 launched {k1}, not once a pass a force "
+          f"({n_steps + 1})")
     say("main", f"step kernels: {got} launches in {n_steps} steps "
         f"({sim.n_rebucket} rebuckets: refresh_halo fills the halo at "
         f"each and at init, the trigger's launch refreshes it on the "
@@ -5331,6 +5758,15 @@ def main() -> int:
         check(n_fill == steps + 1,
               f"sharded {ci}: {n_fill} fill launches for the initial "
               f"force and {steps} steps, not one a force")
+        # the cell path's phases: one launch over the 8 shards' stack
+        want = {"eam_pass1": steps + 1, "eam_pass3": steps + 1,
+                "embed_fill": steps + 1, "kick_drift_trigger": steps,
+                "land": steps}
+        got = {k: launches[ci][k] for k in want}
+        check(got == want, f"sharded {ci}: the stacked phases launched "
+              f"{got}, not {want} (one launch over every shard a phase)")
+        say("sharded main", f"{ci}: {got}: one launch a phase over the "
+            f"8 shards' stack")
         check(n_stage == 3 * exchanges and launches[ci][other] == 0 and
               launches[ci]["fold_halo"] == 0,
               f"sharded {ci}: {n_stage} {stage_key} launches for "
@@ -5461,7 +5897,10 @@ def main() -> int:
         f"20); host {host:.4f} ms a call, device {dev:.5f} ms "
         f"(torch.profiler); bound {fill_bound(plan)[0]:.6f} ms (bytes)")
     rows["halo_fill_stage"] = stage_row(sharded, x, rhobar, table_bytes)
-    del sharded, x, dfe, rhobar, fields
+    del x, dfe, rhobar, fields
+    # 23. the mesh's phases as one launch over its stack (on this state)
+    rows.update(run_stacked(sharded, headline, launches["ki_fused"]))
+    del sharded
 
     # 13. the archive probes P1-P6 on their kernels
     rows.update(run_probes(k1_pass1))
@@ -5574,7 +6013,7 @@ def main() -> int:
                + OPTION_KEYS
                + ("set_condition",) + STEP_KEYS + REBUCKET_KEYS
                + ARRIVALS_KEYS + ("position_fill", "atom_pack",
-                                  "fold_halo")]
+                                  "fold_halo") + STACKED_KEYS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

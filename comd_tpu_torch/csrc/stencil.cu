@@ -253,12 +253,27 @@ __device__ __forceinline__ void test_pair(const Rec<T>* rj, int j, int jmin,
 // flushes them once per chunk (once per brick unless the region is
 // chunked) with one global atomicAdd per non-zero value; its i side goes
 // in with one atomicAdd per slot and output.
+//
+// Every shard of a stack at once: block (brick, shard) sweeps its brick of
+// shard blockIdx.y, whose positions, dfEmbed and outputs lie `r`,
+// `dfe` and `out` elements (Strides) after the previous shard's (the
+// shards share one geometry, so one brick plan serves them all).
+struct Strides {
+  long long r, dfe, out;
+};
+
 template <typename T, int PAIR, int EVAL, bool ENERGY, bool HALF>
-__global__ void stencil_kernel(const T* __restrict__ r,
-                               const T* __restrict__ dfe, T* __restrict__ out,
+__global__ void stencil_kernel(const T* __restrict__ r_all,
+                               const T* __restrict__ dfe_all,
+                               T* __restrict__ out_all, Strides stride_s,
                                int n_local, int n_boxes, int A, Plan plan,
                                Shape sh, T rcut2, Cheb<T> cp, Table<T> tp,
                                Lj<T> lj, Spline<T> sp) {
+  const long long shard = blockIdx.y;
+  const T* __restrict__ r = r_all + shard * stride_s.r;
+  const T* __restrict__ dfe =
+      dfe_all == nullptr ? nullptr : dfe_all + shard * stride_s.dfe;
+  T* __restrict__ out = out_all + shard * stride_s.out;
   constexpr int NS = n_scalars<PAIR, ENERGY>();
   constexpr int NOUT = 3 + NS;
   constexpr int NNBR = HALF ? 14 : 27;
@@ -534,6 +549,8 @@ struct Launch {
   const void* r;
   const void* dfe;
   void* out;
+  int n_shards;
+  Strides stride;
   int n_local, n_boxes, A;
   Plan plan;
   double rcut2;
@@ -591,11 +608,12 @@ cudaError_t launch(const Launch& a) {
   Lj<T> lj{};
   Spline<T> sp{};
   round_params<T, PAIR, EVAL>(a.cheb, a.tab, a.lj, a.spline, cp, tp, lj, sp);
-  if (a.plan.n_bricks > 0) {
-    kern<<<a.plan.n_bricks, sh.nthr, sh.smem, a.stream>>>(
+  if (a.plan.n_bricks > 0 && a.n_shards > 0) {
+    const dim3 grid(a.plan.n_bricks, a.n_shards);
+    kern<<<grid, sh.nthr, sh.smem, a.stream>>>(
         static_cast<const T*>(a.r), static_cast<const T*>(a.dfe),
-        static_cast<T*>(a.out), a.n_local, a.n_boxes, a.A, a.plan, sh,
-        static_cast<T>(a.rcut2), cp, tp, lj, sp);
+        static_cast<T*>(a.out), a.stride, a.n_local, a.n_boxes, a.A, a.plan,
+        sh, static_cast<T>(a.rcut2), cp, tp, lj, sp);
   }
   return cudaGetLastError();
 }
@@ -635,8 +653,10 @@ cudaError_t dispatch_half(int half, int eval, int pair, int want_energy,
 
 extern "C" {
 
-// pair: 0 EAM pass 1, 1 EAM pass 3, 2 LJ; half: 0 K1 (full shell, 27
-// neighbor columns), 1 K2 (half shell, 14, self first); dtype: 0 float, 1
+// n_shards: the shards of the stack swept at once (a grid of (bricks,
+// n_shards) blocks), shard s's r, dfe and out at r + s r_stride, ... (in
+// elements).  pair: 0 EAM pass 1, 1 EAM pass 3, 2 LJ; half: 0 K1 (full
+// shell, 27 neighbor columns), 1 K2 (half shell, 14, self first); dtype: 0 float, 1
 // double; eval: EAM 0 Chebyshev (cheb), 1 table (tab), 2 spline (spline);
 // LJ 0 analytic (lj), 1 the -I table (tab->phi; K1 only).  The brick
 // plan's arrays
@@ -646,7 +666,9 @@ extern "C" {
 // blocks an SM, list capacity) are written and nothing runs.  Returns the
 // launch's cudaError_t (0 on success); does not synchronize.
 int comd_stencil(int pair, int half, int dtype, int eval, int want_energy,
-                 const void* r, const void* dfe, void* out, int n_local,
+                 const void* r, const void* dfe, void* out, int n_shards,
+                 long long r_stride, long long dfe_stride,
+                 long long out_stride, int n_local,
                  int n_boxes, int A, const void* cells,
                  const void* region_ptr, const void* region_box,
                  const void* slot, int n_bricks, int cpb, int max_region,
@@ -655,6 +677,7 @@ int comd_stencil(int pair, int half, int dtype, int eval, int want_energy,
                  const SplineParams* spline, void* stream, int* shape_out) {
   const bool eam = pair == kEam1 || pair == kEam3;
   if ((pair != kEam1 && pair != kEam3 && pair != kLj) || A < 1 ||
+      n_shards < 1 || n_shards > 65535 ||
       cpb < 1 || max_region < 1 || eval < 0 || eval > 2 ||
       (eam && eval == 0 && cheb == nullptr) ||
       (eval == 1 && (tab == nullptr || tab->n < 1)) ||
@@ -669,8 +692,9 @@ int comd_stencil(int pair, int half, int dtype, int eval, int want_energy,
             static_cast<const int*>(region_ptr),
             static_cast<const int*>(region_box),
             static_cast<const short*>(slot), n_bricks, cpb, max_region};
-  Launch a{r, dfe, out, n_local, n_boxes, A, plan, rcut2, cheb, tab, lj,
-           spline, static_cast<cudaStream_t>(stream), shape_out};
+  Launch a{r, dfe, out, n_shards, Strides{r_stride, dfe_stride, out_stride},
+           n_local, n_boxes, A, plan, rcut2, cheb, tab, lj, spline,
+           static_cast<cudaStream_t>(stream), shape_out};
   if (dtype == 0)
     return dispatch_half<float>(half, eval, pair, want_energy, a);
   if (dtype == 1)

@@ -10,9 +10,10 @@
 //                       r += p (dt/m) over every slot (comd_tpu/sim.py:
 //                       367-370), then the skin trigger: the max over the
 //                       local slots of |r - last_r|^2 against (skin/2)^2
-//                       (comd_tpu/ops/neighborlist.py:161-168), written as
-//                       a 0-dim bool (or-ed into it: a mesh's later
-//                       shards) and, inside the step's CUDA graph, set as
+//                       (comd_tpu/ops/neighborlist.py:161-168), every
+//                       shard of a mesh in one launch, written as a 0-dim
+//                       bool (the or of the shards' triggers) and,
+//                       inside the step's CUDA graph, set as
 //                       the value of its IF nodes' conditional handles
 //                       (the rebucket's node the trigger, the ghost
 //                       refresh's its negation, where a mesh has one: no
@@ -37,8 +38,8 @@
 //                       force_eam.py:371-380, :603);
 //   land                the force landing f[:, :nl] = f1 (+ f3), f[:, nl:]
 //                       = 0, the second half kick and the local atom
-//                       count (comd_tpu/sim.py:380-383), the count summed
-//                       over a mesh's shards launch after launch;
+//                       count (comd_tpu/sim.py:380-383), every shard of a
+//                       mesh in one launch, the count summed over them;
 //   embed_rows          (ER) EAM pass 2 of the list paths, on the rows of a
 //                       Verlet list (comd_tpu/ops/force_eam.py:420-439:
 //                       F(rho) and F'(rho) a row, the rows-to-cells
@@ -61,6 +62,12 @@
 // The row operands of ER and LR may come as two segments (the -a 1 row
 // split's interior and boundary sweeps, each its own output), read in row
 // order, so no concatenation is needed.
+//
+// A mesh's shards.  kick_drift_trigger, embed_fill and land take the
+// shards of a mesh as one stack (the step's buffers hold every field as
+// one [S, ...] tensor, comd_tpu's leading shard index) and run them all
+// in one launch: a grid of (blocks, shard), each shard's operands at the
+// stack's stride from the previous one's.  Serially the stack is of one.
 //
 // Numbers.  Each kernel equals its plain PyTorch version
 // (ops/cuda/step.py) bit for bit: every operation is the one PyTorch does,
@@ -112,13 +119,20 @@ constexpr int kThreads = 256;
 // and the grid a second, partial wave.
 constexpr int kBlocksPerSm = 8;
 
-// The scratch words the reductions fold into (a 32-byte device buffer,
-// zero before the first launch, left zero by every launch).
+// The shards one launch of the stacked kernels takes at most
+// (ops/cuda/step.py's MAX_SHARDS): the trigger keeps a word a shard.
+constexpr int kMaxShards = 1024;
+
+// The scratch words the reductions fold into (a device buffer of
+// 16 + 8 kMaxShards bytes, zero before the first launch, left zero by
+// every launch).
 struct Scratch {
-  unsigned long long trigger_max;  // bit pattern of the largest |dr|^2
   unsigned int trigger_ticket;
   unsigned int land_sum;           // local atoms counted so far
   unsigned int land_ticket;
+  unsigned int pad;
+  // bit pattern of each shard's largest |dr|^2
+  unsigned long long trigger_max[kMaxShards];
 };
 
 __device__ __forceinline__ unsigned long long to_bits(float x) {
@@ -157,10 +171,11 @@ __device__ __forceinline__ U block_reduce(U v) {
 }
 
 // Thread 0 of every block: after its atomic, draw a ticket; true in the
-// block that draws the last one (every block's atomic is then visible).
+// block that draws the last one of the (x, y) grid (every block's atomic
+// is then visible).
 __device__ __forceinline__ bool last_block(unsigned int* ticket) {
   __threadfence();
-  return atomicAdd(ticket, 1u) == gridDim.x - 1;
+  return atomicAdd(ticket, 1u) == gridDim.x * gridDim.y - 1;
 }
 
 // W slots of T at one aligned address: 16 bytes for the vector forms.
@@ -192,19 +207,23 @@ struct Images {
   int local;
 };
 
+// Every shard of a stack: blocks (x, shard), shard s's fields 3 n slots
+// after shard s - 1's; each shard's trigger is its own max against the
+// threshold (a NaN there clears it, as PyTorch's max of that shard), and
+// the flag their or, written by the grid's last block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
-    kick_drift_trigger_kernel(T* __restrict__ p, T* __restrict__ r,
-                              const T* __restrict__ f,
-                              const T* __restrict__ last, long long n,
+    kick_drift_trigger_kernel(T* __restrict__ p_all, T* __restrict__ r_all,
+                              const T* __restrict__ f_all,
+                              const T* __restrict__ last_all, long long n,
                               long long n_check, T c_kick, T c_drift,
-                              T thresh, Scratch* sc, bool* flag, int add,
+                              T thresh, Scratch* sc, bool* flag,
                               IfHandles ifs, Images<T> img) {
-  // with add, the flag an earlier launch of the step wrote, read before
-  // the loop (that launch has ended, and this one writes the flag only
-  // after every block has begun), so the last block does not wait on it
-  __shared__ bool before;
-  if (threadIdx.x == 0) before = add && *flag;
+  const long long off = static_cast<long long>(blockIdx.y) * 3 * n;
+  T* __restrict__ p = p_all + off;
+  T* __restrict__ r = r_all + off;
+  const T* __restrict__ f = f_all + off;
+  const T* __restrict__ last = last_all == nullptr ? nullptr : last_all + off;
   unsigned long long m = 0;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
@@ -250,10 +269,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm)
   if (flag == nullptr) return;  // -S 0: the kick and drift only
   m = block_reduce<0>(m);
   if (threadIdx.x == 0) {
-    atomicMax(&sc->trigger_max, m);
+    atomicMax(&sc->trigger_max[blockIdx.y], m);
     if (last_block(&sc->trigger_ticket)) {
-      const unsigned long long v = atomicExch(&sc->trigger_max, 0ull);
-      const bool fire = from_bits<T>(v) > thresh || before;
+      bool fire = false;
+      for (unsigned int s = 0; s < gridDim.y; ++s) {
+        const unsigned long long v = atomicExch(&sc->trigger_max[s], 0ull);
+        fire = fire || from_bits<T>(v) > thresh;
+      }
       *flag = fire;
       sc->trigger_ticket = 0;
       if (ifs.n > 0) cudaGraphSetConditional(ifs.h[0], fire ? 1u : 0u);
@@ -319,19 +341,34 @@ __device__ __forceinline__ void store_vec(E* to, const E (&x)[W]) {
   }
 }
 
+// Where the shards of a stack lie: shard s of each operand `*_shard`
+// elements after shard s - 1's.
+struct EmbedStrides {
+  long long rho, phi, n_atoms, dfe, u;
+};
+
 // One vector of W slots a thread (W divides A, every pointer aligned to
-// W slots); blocks [0, local_blocks) walk the n_local_vecs vectors of the
-// local rows, the others the halo rows' (a grid-stride loop over each
-// range, once round when the wrapper gives a block to every 256 vectors).
-// All indices fit in 32 bits (the wrapper checks n_rows * A < 2^31).
+// W slots); blocks (x, shard): x in [0, local_blocks) walks the
+// n_local_vecs vectors of the shard's local rows, the others its halo
+// rows' (a grid-stride loop over each range, once round when the wrapper
+// gives a block to every 256 vectors).  All indices within a shard fit
+// in 32 bits (the wrapper checks n_rows * A < 2^31).
 template <typename T, typename E, int W>
 __global__ void __launch_bounds__(kThreads)
-    embed_fill_kernel(const T* __restrict__ rho, const T* __restrict__ phi,
-                      const int* __restrict__ n_atoms,
+    embed_fill_kernel(const T* __restrict__ rho_all,
+                      const T* __restrict__ phi_all,
+                      const int* __restrict__ n_atoms_all,
                       const long long* __restrict__ halo_src,
-                      T* __restrict__ dfe, E* __restrict__ u, int A,
-                      int n_local_vecs, int n_halo_vecs, int local_blocks,
-                      Embed<T> emb) {
+                      T* __restrict__ dfe_all, E* __restrict__ u_all,
+                      EmbedStrides st, int A, int n_local_vecs,
+                      int n_halo_vecs, int local_blocks, Embed<T> emb) {
+  const long long shard = blockIdx.y;
+  const T* __restrict__ rho = rho_all + shard * st.rho;
+  const T* __restrict__ phi =
+      phi_all == nullptr ? nullptr : phi_all + shard * st.phi;
+  const int* __restrict__ n_atoms = n_atoms_all + shard * st.n_atoms;
+  T* __restrict__ dfe = dfe_all + shard * st.dfe;
+  E* __restrict__ u = u_all == nullptr ? nullptr : u_all + shard * st.u;
   using V = Vec<T, W>;
   const V* __restrict__ rv = reinterpret_cast<const V*>(rho);
   V* __restrict__ dv = reinterpret_cast<V*>(dfe);
@@ -383,13 +420,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Every shard of a stack: blocks (x, shard), shard s's f and p 3 n slots
+// after shard s - 1's, its f1, f3 and counts `f1_shard`, `f3_shard` and
+// `count_shard` elements after; n_local_out the atoms of every shard.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    land_kernel(T* __restrict__ f, T* __restrict__ p,
-                const T* __restrict__ f1, long long f1_plane,
-                const T* __restrict__ f3, long long f3_plane, long long n,
-                long long n_force, T c_kick, const int* __restrict__ n_atoms,
-                int n_local, int* n_local_out, int add, Scratch* sc) {
+    land_kernel(T* __restrict__ f_all, T* __restrict__ p_all,
+                const T* __restrict__ f1_all, long long f1_shard,
+                long long f1_plane, const T* __restrict__ f3_all,
+                long long f3_shard, long long f3_plane, long long n,
+                long long n_force, T c_kick,
+                const int* __restrict__ n_atoms_all, long long count_shard,
+                int n_local, int* n_local_out, Scratch* sc) {
+  const long long shard = blockIdx.y;
+  T* __restrict__ f = f_all + shard * 3 * n;
+  T* __restrict__ p = p_all + shard * 3 * n;
+  const T* __restrict__ f1 = f1_all + shard * f1_shard;
+  const T* __restrict__ f3 =
+      f3_all == nullptr ? nullptr : f3_all + shard * f3_shard;
+  const int* __restrict__ n_atoms = n_atoms_all + shard * count_shard;
   const long long first =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
@@ -412,10 +461,7 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) {
     atomicAdd(&sc->land_sum, c);
     if (last_block(&sc->land_ticket)) {
-      const unsigned int total = atomicExch(&sc->land_sum, 0u);
-      const unsigned int before =
-          add ? static_cast<unsigned int>(*n_local_out) : 0u;
-      *n_local_out = static_cast<int>(before + total);
+      *n_local_out = static_cast<int>(atomicExch(&sc->land_sum, 0u));
       sc->land_ticket = 0;
     }
   }
@@ -609,47 +655,51 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// `handles`: n_handles (0..2) conditional handles of the graph this
-// launch is captured into (IfHandles); `add`: or the trigger into *flag;
-// `img_start` (null: no images), `img_row`, `img_shift`: the serial ghost
-// images (Images), `A` slots a cell, `n_local` local cells.
+// `n_shards` shards of a stack, `grid` blocks a shard; `handles`:
+// n_handles (0..2) conditional handles of the graph this launch is
+// captured into (IfHandles); `img_start` (null: no images; one shard
+// only), `img_row`, `img_shift`: the serial ghost images (Images), `A`
+// slots a cell, `n_local` local cells.
 extern "C" int comd_kick_drift_trigger(int elem, void* p, void* r,
                                        const void* f, const void* last,
                                        long long n, long long n_check,
                                        double c_kick, double c_drift,
                                        double thresh, void* scratch,
-                                       void* flag, int add,
+                                       void* flag,
                                        const unsigned long long* handles,
                                        int n_handles, const void* img_start,
                                        const void* img_row,
                                        const void* img_shift, int A,
-                                       int n_local, int grid,
+                                       int n_local, int n_shards, int grid,
                                        cudaStream_t stream) {
   Scratch* sc = static_cast<Scratch*>(scratch);
   bool* out = static_cast<bool*>(flag);
-  if (n_handles < 0 || n_handles > 2 || (n_handles > 0 && out == nullptr))
+  if (n_handles < 0 || n_handles > 2 || (n_handles > 0 && out == nullptr) ||
+      n_shards < 1 || n_shards > kMaxShards || grid < 1)
     return cudaErrorInvalidValue;
   if (img_start != nullptr &&
-      (A <= 0 || static_cast<long long>(n_local) * A >= (1ll << 31)))
+      (A <= 0 || n_shards != 1 ||
+       static_cast<long long>(n_local) * A >= (1ll << 31)))
     return cudaErrorInvalidValue;
+  const dim3 blocks(grid, n_shards);
   IfHandles ifs{{0, 0}, n_handles};
   for (int k = 0; k < n_handles; ++k) ifs.h[k] = handles[k];
   const int* start = static_cast<const int*>(img_start);
   const int* row = static_cast<const int*>(img_row);
   const int local = img_start == nullptr ? 0 : n_local * A;
   if (elem == 4)
-    kick_drift_trigger_kernel<float><<<grid, kThreads, 0, stream>>>(
+    kick_drift_trigger_kernel<float><<<blocks, kThreads, 0, stream>>>(
         static_cast<float*>(p), static_cast<float*>(r),
         static_cast<const float*>(f), static_cast<const float*>(last), n,
         n_check, static_cast<float>(c_kick), static_cast<float>(c_drift),
-        static_cast<float>(thresh), sc, out, add, ifs,
+        static_cast<float>(thresh), sc, out, ifs,
         Images<float>{start, row, static_cast<const float*>(img_shift), A,
                       local});
   else
-    kick_drift_trigger_kernel<double><<<grid, kThreads, 0, stream>>>(
+    kick_drift_trigger_kernel<double><<<blocks, kThreads, 0, stream>>>(
         static_cast<double*>(p), static_cast<double*>(r),
         static_cast<const double*>(f), static_cast<const double*>(last), n,
-        n_check, c_kick, c_drift, thresh, sc, out, add, ifs,
+        n_check, c_kick, c_drift, thresh, sc, out, ifs,
         Images<double>{start, row, static_cast<const double*>(img_shift), A,
                        local});
   return cudaGetLastError();
@@ -702,19 +752,26 @@ extern "C" int comd_refresh_halo(int elem, int width, void* r, void* gid,
   return cudaGetLastError();
 }
 
+// The stacked form's operands: `n_shards` shards, where each lies
+// (EmbedStrides), and each range's blocks a shard.
+struct EmbedGrid {
+  EmbedStrides st;
+  int n_shards, local_blocks, halo_blocks;
+};
+
 template <typename T, typename E, int W>
 static void launch_embed_w(const void* rho, const void* phi,
-                         const void* n_atoms, const void* halo_src,
-                         void* dfe, void* u, int A, int n_local,
-                         int n_rows, const Embed<T>& emb, int local_blocks,
-                         int halo_blocks, cudaStream_t stream) {
-  embed_fill_kernel<T, E, W>
-      <<<local_blocks + halo_blocks, kThreads, 0, stream>>>(
-          static_cast<const T*>(rho), static_cast<const T*>(phi),
-          static_cast<const int*>(n_atoms),
-          static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
-          static_cast<E*>(u), A, n_local * A / W, (n_rows - n_local) * A / W,
-          local_blocks, emb);
+                           const void* n_atoms, const void* halo_src,
+                           void* dfe, void* u, int A, int n_local,
+                           int n_rows, const Embed<T>& emb,
+                           const EmbedGrid& g, cudaStream_t stream) {
+  const dim3 blocks(g.local_blocks + g.halo_blocks, g.n_shards);
+  embed_fill_kernel<T, E, W><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(rho), static_cast<const T*>(phi),
+      static_cast<const int*>(n_atoms),
+      static_cast<const long long*>(halo_src), static_cast<T*>(dfe),
+      static_cast<E*>(u), g.st, A, n_local * A / W,
+      (n_rows - n_local) * A / W, g.local_blocks, emb);
 }
 
 // W slots a thread: 1, 2 or (f32) 4.
@@ -724,79 +781,93 @@ static cudaError_t launch_embed(int width, const void* rho, const void* phi,
                                 void* dfe, void* u, int A, int n_local,
                                 int n_rows, int table_n, double x0,
                                 double inv_dx, const void* table,
-                                int local_blocks, int halo_blocks,
-                                cudaStream_t stream) {
+                                const EmbedGrid& g, cudaStream_t stream) {
   const Embed<T> emb{table_n, static_cast<T>(x0), static_cast<T>(inv_dx),
                      static_cast<const T*>(table)};
   if (width == 1)
     launch_embed_w<T, E, 1>(rho, phi, n_atoms, halo_src, dfe, u, A, n_local,
-                            n_rows, emb, local_blocks, halo_blocks, stream);
+                            n_rows, emb, g, stream);
   else if (width == 2)
     launch_embed_w<T, E, 2>(rho, phi, n_atoms, halo_src, dfe, u, A, n_local,
-                            n_rows, emb, local_blocks, halo_blocks, stream);
+                            n_rows, emb, g, stream);
   else if constexpr (sizeof(T) == 4) {
     if (width != 4) return cudaErrorInvalidValue;
     launch_embed_w<T, E, 4>(rho, phi, n_atoms, halo_src, dfe, u, A, n_local,
-                            n_rows, emb, local_blocks, halo_blocks, stream);
+                            n_rows, emb, g, stream);
   } else {
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-// `width`: the slots a thread takes (A a multiple of it, every pointer
-// aligned to its access; the wrapper checks); `local_blocks` and
-// `halo_blocks`: the blocks of the two ranges.
+// `width`: the slots a thread takes (A a multiple of it, every shard's
+// pointers aligned to its access; the wrapper checks); `n_shards` shards,
+// shard s of rho, phi, n_atoms, dfe and u `*_shard` elements after shard
+// s - 1's; `local_blocks` and `halo_blocks`: the blocks of the two ranges
+// a shard.
 extern "C" int comd_embed_fill(int elem, int e_elem, int width,
                                const void* rho, const void* phi,
                                const void* n_atoms, const void* halo_src,
                                void* dfe, void* u, int A, int n_local,
                                int n_rows, int table_n, double x0,
                                double inv_dx, const void* table,
+                               int n_shards, long long rho_shard,
+                               long long phi_shard, long long n_atoms_shard,
+                               long long dfe_shard, long long u_shard,
                                int local_blocks, int halo_blocks,
                                cudaStream_t stream) {
+  if (n_shards < 1 || n_shards > 65535)
+    return cudaErrorInvalidValue;
+  const EmbedGrid g{
+      EmbedStrides{rho_shard, phi_shard, n_atoms_shard, dfe_shard, u_shard},
+      n_shards, local_blocks, halo_blocks};
   if (elem == 4 && e_elem == 8)
     return launch_embed<float, double>(width, rho, phi, n_atoms, halo_src,
                                        dfe, u, A, n_local, n_rows, table_n,
-                                       x0, inv_dx, table, local_blocks,
-                                       halo_blocks, stream);
+                                       x0, inv_dx, table, g, stream);
   if (elem == 4)
     return launch_embed<float, float>(width, rho, phi, n_atoms, halo_src,
                                       dfe, u, A, n_local, n_rows, table_n,
-                                      x0, inv_dx, table, local_blocks,
-                                      halo_blocks, stream);
+                                      x0, inv_dx, table, g, stream);
   if (e_elem == 8)
     return launch_embed<double, double>(width, rho, phi, n_atoms, halo_src,
                                         dfe, u, A, n_local, n_rows, table_n,
-                                        x0, inv_dx, table, local_blocks,
-                                        halo_blocks, stream);
+                                        x0, inv_dx, table, g, stream);
   return launch_embed<double, float>(width, rho, phi, n_atoms, halo_src, dfe,
                                      u, A, n_local, n_rows, table_n, x0,
-                                     inv_dx, table, local_blocks, halo_blocks,
-                                     stream);
+                                     inv_dx, table, g, stream);
 }
 
+// `n_shards` shards of a stack, `grid` blocks a shard: shard s's f and p
+// 3 n slots after shard s - 1's, its f1, f3 and n_atoms `f1_shard`,
+// `f3_shard` and `n_atoms_shard` elements after; *n_local_out gets the
+// atoms in the first n_local cells of every shard.
 extern "C" int comd_land(int elem, void* f, void* p, const void* f1,
-                         long long f1_plane, const void* f3,
+                         long long f1_shard, long long f1_plane,
+                         const void* f3, long long f3_shard,
                          long long f3_plane, long long n, long long n_force,
-                         double c_kick, const void* n_atoms, int n_local,
-                         void* n_local_out, int add, void* scratch, int grid,
-                         cudaStream_t stream) {
+                         double c_kick, const void* n_atoms,
+                         long long n_atoms_shard, int n_local,
+                         void* n_local_out, void* scratch, int n_shards,
+                         int grid, cudaStream_t stream) {
   Scratch* sc = static_cast<Scratch*>(scratch);
   const int* na = static_cast<const int*>(n_atoms);
   int* out = static_cast<int*>(n_local_out);
+  if (n_shards < 1 || n_shards > 65535 || grid < 1)
+    return cudaErrorInvalidValue;
+  const dim3 blocks(grid, n_shards);
   if (elem == 4)
-    land_kernel<float><<<grid, kThreads, 0, stream>>>(
+    land_kernel<float><<<blocks, kThreads, 0, stream>>>(
         static_cast<float*>(f), static_cast<float*>(p),
-        static_cast<const float*>(f1), f1_plane,
-        static_cast<const float*>(f3), f3_plane, n, n_force,
-        static_cast<float>(c_kick), na, n_local, out, add, sc);
+        static_cast<const float*>(f1), f1_shard, f1_plane,
+        static_cast<const float*>(f3), f3_shard, f3_plane, n, n_force,
+        static_cast<float>(c_kick), na, n_atoms_shard, n_local, out, sc);
   else
-    land_kernel<double><<<grid, kThreads, 0, stream>>>(
+    land_kernel<double><<<blocks, kThreads, 0, stream>>>(
         static_cast<double*>(f), static_cast<double*>(p),
-        static_cast<const double*>(f1), f1_plane,
-        static_cast<const double*>(f3), f3_plane, n, n_force, c_kick, na,
-        n_local, out, add, sc);
+        static_cast<const double*>(f1), f1_shard, f1_plane,
+        static_cast<const double*>(f3), f3_shard, f3_plane, n, n_force,
+        c_kick, na, n_atoms_shard, n_local, out, sc);
   return cudaGetLastError();
 }
 

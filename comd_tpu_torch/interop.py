@@ -5,7 +5,9 @@
 both packages can step from the identical state.  ``shards_from_numpy``
 and ``shards_to_numpy`` carry comd_tpu's sharded state -- array fields with
 a leading [Px, Py, Pz] mesh index, replicated scalars -- into the port's
-per-shard SimStates (shard order x-major, as parallel.mesh.Mesh) and back.
+per-shard SimStates (shard order x-major, as parallel.mesh.Mesh), views of
+one [S, ...] stack a field as the step holds them, and back, each field by
+one reshape.
 ``nlist_from_numpy`` and ``nlist_to_numpy`` carry a comd_tpu
 ``NeighborList`` (its fields as numpy arrays) into the port and back; the
 port's ``row_start``, which comd_tpu's list has not, is derived from its
@@ -25,7 +27,7 @@ import torch
 
 from .ops.neighborlist import NeighborList, cell_row_starts
 from .potentials.lj import LjPotential
-from .sim import SimState
+from .sim import SimState, stack_of
 
 FIELDS = ("r", "p", "f", "gid", "n_atoms", "e_potential", "n_local",
           "overflow")
@@ -58,25 +60,28 @@ SCALARS = ("e_potential", "n_local", "overflow")
 
 def shards_from_numpy(arrays: dict, device) -> list:
     """Per-shard SimStates on ``device`` from comd_tpu's sharded state as
-    numpy arrays: each array field [Px, Py, Pz, ...] is cut into its shards
-    in np.ndindex order; the replicated scalars are shared by all shards."""
+    numpy arrays: each array field [Px, Py, Pz, ...] becomes one [S, ...]
+    stack by a reshape (shards in np.ndindex order), each shard's state
+    its views; the replicated scalars are shared by all shards."""
     missing = [k for k in FIELDS if k not in arrays]
     if missing:
         raise KeyError(f"shards_from_numpy: missing fields {missing}")
     grid = np.asarray(arrays["n_atoms"]).shape[:3]
+    n = int(np.prod(grid))
     scalars = {k: torch.as_tensor(np.array(arrays[k], copy=True).reshape(()),
                                   device=device) for k in SCALARS}
-    return [SimState(**{
-        k: torch.as_tensor(np.array(np.asarray(arrays[k])[idx], copy=True),
-                           device=device)
-        for k in FIELDS if k not in SCALARS}, **scalars)
-        for idx in np.ndindex(*grid)]
+    stacks = {k: torch.as_tensor(np.array(
+        np.asarray(arrays[k]).reshape((n,) + np.shape(arrays[k])[3:]),
+        copy=True), device=device) for k in FIELDS if k not in SCALARS}
+    return [SimState(**{k: v[i] for k, v in stacks.items()}, **scalars)
+            for i in range(n)]
 
 
 def shards_to_numpy(states: list, grid) -> dict:
-    """comd_tpu's sharded layout from per-shard SimStates: array fields
-    stacked to [Px, Py, Pz, ...], the scalars from the first shard."""
-    out = {k: np.stack([getattr(s, k).cpu().numpy() for s in states])
+    """comd_tpu's sharded layout from per-shard SimStates, views of one
+    stack a field (``sim.stack_of``): each stack [S, ...] reshaped to
+    [Px, Py, Pz, ...], the scalars from the first shard."""
+    out = {k: stack_of(getattr(s, k) for s in states).cpu().numpy()
            .reshape(tuple(grid) + tuple(getattr(states[0], k).shape))
            for k in FIELDS if k not in SCALARS}
     out.update({k: getattr(states[0], k).cpu().numpy() for k in SCALARS})

@@ -77,7 +77,7 @@ from ...potentials import tables
 from ...potentials.tables import ChebFused
 from .. import binning
 from ..sweep import cell_pair_sweep, cell_pair_sweep_half
-from . import LAUNCHES, reset_launch_counts  # noqa: F401 (re-exported)
+from . import LAUNCHES, as_stack, reset_launch_counts  # noqa: F401
 from .nvcc import BUILD_DIR, CSRC, build_library  # noqa: F401
 
 #: largest cell capacity the kernels take (they loop over i-slots in rounds
@@ -327,6 +327,8 @@ def build():
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int,                                   # pair..energy
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # r dfe out
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong,                              # the stack
             ctypes.c_int, ctypes.c_int, ctypes.c_int,       # sizes
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p,                                # brick plan
@@ -414,15 +416,29 @@ def launch_key(name: str, ev: PairEvaluator) -> str:
     return name
 
 
+def _stack(r, dfe=None):
+    """(one, r, dfe): the operands as a stack of shards, [S, 3, B, A] and
+    [S, B, A], and whether they were one shard's (``as_stack``)."""
+    one, r = as_stack("r", r, 3)
+    if dfe is not None:
+        d_one, dfe = as_stack("df_embed", dfe, 2)
+        if d_one != one:
+            raise ValueError("r and df_embed: one shard's, or both stacks")
+    return one, r, dfe
+
+
 def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27,
            boxes=None):
-    if r.dim() != 3 or r.shape[0] != 3:
-        raise ValueError(f"r must be [3, B, A], got {tuple(r.shape)}")
+    """The operands of a sweep of the stack ``r`` [S, 3, B, A] (``dfe``
+    [S, B, A])."""
+    if r.dim() != 4 or r.shape[1] != 3 or r.shape[0] < 1:
+        raise ValueError(f"r must be [S >= 1, 3, B, A], got "
+                         f"{tuple(r.shape)}")
     if r.dtype != ev.dtype:
         raise ValueError(f"r dtype {r.dtype} != evaluator dtype {ev.dtype}")
     n_local = nbr_map.shape[0]
     if nbr_map.dim() != 2 or nbr_map.shape[1] != n_nbr or \
-            n_local > r.shape[1] or nbr_map.dtype != torch.int32:
+            n_local > r.shape[2] or nbr_map.dtype != torch.int32:
         raise ValueError(f"nbr_map must be [n_local <= B, {n_nbr}] int32, "
                          f"got {tuple(nbr_map.shape)} {nbr_map.dtype}")
     tensors = [r, nbr_map] + ([dfe] if dfe is not None else []) + (
@@ -430,8 +446,11 @@ def _check(r, nbr_map, ev: PairEvaluator, dfe=None, n_nbr: int = 27,
     if any(t.device != r.device for t in tensors):
         raise ValueError("the stencil operands lie on different devices")
     check_tables(ev, r.device)
-    if dfe is not None and (dfe.shape != r.shape[1:] or dfe.dtype != r.dtype):
-        raise ValueError(f"df_embed must be {tuple(r.shape[1:])} {r.dtype}")
+    if dfe is not None and (dfe.shape != r.shape[:1] + r.shape[2:] or
+                            dfe.dtype != r.dtype):
+        raise ValueError(f"df_embed must be "
+                         f"{tuple(r.shape[:1] + r.shape[2:])} {r.dtype}, "
+                         f"got {tuple(dfe.shape)} {dfe.dtype}")
     if n_nbr == 14 and ev.kind == "lj_table":
         raise ValueError("the -I LJ table runs full shell only (comd_tpu "
                          "ignores --halfShell under -I)")
@@ -445,10 +464,10 @@ def _n_scalars(pair: str, want_energy: bool) -> int:
 
 def _call(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
           want_energy: bool, dfe, out, shape_out=None, boxes=None) -> int:
-    """One comd_stencil call on ``nbr_map``'s brick plan (over ``boxes``
-    when given): a launch, or with ``shape_out`` (5 c_ints) the launch
-    shape's report."""
-    B, A = r.shape[1], r.shape[2]
+    """One comd_stencil call over every shard of the stack ``r`` on
+    ``nbr_map``'s brick plan (over ``boxes`` when given): a launch, or with
+    ``shape_out`` (5 c_ints) the launch shape's report."""
+    S, B, A = r.shape[0], r.shape[2], r.shape[3]
     plan = binning.brick_plan_for(nbr_map, A, boxes)
     if plan.half != half:
         raise ValueError(f"{'K2' if half else 'K1'} needs the "
@@ -464,7 +483,9 @@ def _call(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
         return build().comd_stencil(
             _PAIR_ID[pair], int(half), dtype_id, p["eval"], int(want_energy),
             r.data_ptr(), None if dfe is None else dfe.data_ptr(),
-            None if out is None else out.data_ptr(), nbr_map.shape[0], B, A,
+            None if out is None else out.data_ptr(), S, r.stride(0),
+            0 if dfe is None else dfe.stride(0),
+            0 if out is None else out.stride(0), nbr_map.shape[0], B, A,
             plan.cells.data_ptr(), plan.region_ptr.data_ptr(),
             plan.region_box.data_ptr(), plan.slot.data_ptr(), plan.n_bricks,
             plan.cells.shape[1], plan.max_region, ev.rcut2,
@@ -480,11 +501,12 @@ def _raise(err: int, what: str):
 
 def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
             want_energy: bool, dfe=None, boxes=None):
-    """Launch K1 (``half`` False) or K2 for one pair function; K1 over the
-    cells of ``boxes`` when given (none launches for an empty subset).
-    Returns (force [3, rows, A], [scalars [rows, A] ...]) with rows =
-    n_local for K1 (zero outside ``boxes``) and B (dense, halo rows
-    pending the fold) for K2."""
+    """Launch K1 (``half`` False) or K2 for one pair function over every
+    shard of the stack ``r`` [S, 3, B, A], one launch; K1 over the cells
+    of ``boxes`` when given (none launches for an empty subset).  Returns
+    (force [S, 3, rows, A], [scalars [S, rows, A] ...]), views of one
+    [S, 3 + ns, rows, A] buffer, with rows = n_local for K1 (zero outside
+    ``boxes``) and B (dense, halo rows pending the fold) for K2."""
     if r.device.type != "cuda":
         raise ValueError(f"the cell-stencil kernels run CUDA tensors, got "
                          f"{r.device}")
@@ -492,98 +514,139 @@ def _launch(name: str, pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
         raise ValueError(f"unsupported dtype {r.dtype}")
     if (pair == "lj") != (ev.kind in ("lj", "lj_table")):
         raise ValueError(f"evaluator kind {ev.kind!r} does not fit {pair}")
-    B, A = r.shape[1], r.shape[2]
+    S, B, A = r.shape[0], r.shape[2], r.shape[3]
     if not 1 <= A <= MAX_A:
         raise ValueError(f"cell capacity A={A} exceeds the kernels' limit "
                          f"{MAX_A}")
-    for t in (r, nbr_map) + ((dfe,) if dfe is not None else ()):
-        if not t.is_contiguous():
-            raise ValueError("the stencil operands must be contiguous")
+    if S > 65535:
+        raise ValueError(f"{S} shards exceed the grid's 65535")
+    # each shard one contiguous block, the shards any distance apart
+    if not all(t[0].is_contiguous() for t in
+               (r,) + ((dfe,) if dfe is not None else ())) or \
+            not nbr_map.is_contiguous():
+        raise ValueError("the stencil operands must be contiguous a shard")
     n_local = nbr_map.shape[0]
     n_s = _n_scalars(pair, want_energy)
     # K1 writes every slot of its plan's cells; K2 adds into a zeroed
     # buffer
     alloc = torch.zeros if half or boxes is not None else torch.empty
-    out = alloc((3 + n_s, B if half else n_local, A), dtype=r.dtype,
+    out = alloc((S, 3 + n_s, B if half else n_local, A), dtype=r.dtype,
                 device=r.device)
-    if boxes is not None and boxes.n == 0:
-        return out[:3], list(out[3:])
-    err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, out,
-                boxes=boxes)
-    if err != 0:
-        _raise(err, "launch")
-    LAUNCHES[launch_key(name, ev)] += 1
-    return out[:3], list(out[3:])
+    if not (boxes is not None and boxes.n == 0):
+        err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, out,
+                    boxes=boxes)
+        if err != 0:
+            _raise(err, "launch")
+        LAUNCHES[launch_key(name, ev)] += 1
+    return out[:, :3], [out[:, 3 + q] for q in range(n_s)]
 
 
 def launch_shape(pair: str, half: bool, r, nbr_map, ev: PairEvaluator,
                  want_energy: bool = False, boxes=None) -> dict:
-    """How K1 (``half`` False) or K2 launches for these operands (K1 over
-    the non-empty subset ``boxes`` when given), without launching: the
-    brick, threads a block, shared memory a block, resident blocks an SM,
-    list entries a thread, bricks and staged region boxes in all."""
+    """How K1 (``half`` False) or K2 launches for these operands (``r`` one
+    shard's or a stack; K1 over the non-empty subset ``boxes`` when
+    given), without launching: the brick, threads a block, shared memory
+    a block, resident blocks an SM, list entries a thread, bricks (a
+    shard) and staged region boxes in all."""
+    _one, r, _d = _stack(r)
     q = (ctypes.c_int * 5)()
     # pass 3 needs a dfEmbed pointer; nothing is read from it
-    dfe = r[0] if pair == "eam_pass3" else None
+    dfe = r[:, 0] if pair == "eam_pass3" else None
     err = _call(pair, half, r, nbr_map, ev, want_energy, dfe, None, q,
                 boxes=boxes)
     if err != 0:
         _raise(err, "shape query")
-    plan = binning.brick_plan_for(nbr_map, r.shape[2], boxes)
+    plan = binning.brick_plan_for(nbr_map, r.shape[3], boxes)
     return {"brick": plan.shape, "threads": q[0], "smem_bytes": q[2],
             "blocks_per_sm": q[3], "list_cap": q[4],
             "bricks": plan.n_bricks, "region_boxes": int(plan.region_ptr[-1])}
 
 
+def _loop(plain, r, dfe, **kw):
+    """The plain version of a stacked sweep: ``plain`` (one shard's) on
+    each shard in order, the results stacked."""
+    outs = [plain(r[s], *(() if dfe is None else (dfe[s],)), **kw)
+            for s in range(r.shape[0])]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(None if outs[0][k] is None else
+                 torch.stack([o[k] for o in outs])
+                 for k in range(len(outs[0])))
+
+
+def _unstack(one: bool, res):
+    """One shard's results from a stack of one."""
+    if not one:
+        return res
+    if isinstance(res, torch.Tensor):
+        return res[0]
+    return tuple(None if x is None else x[0] for x in res)
+
+
 # --------------------------------------------------------------------------
 # K1: full shell
 # --------------------------------------------------------------------------
+#
+# Each wrapper takes one shard's positions [3, B, A] or a stack of shards
+# [S, 3, B, A] (each shard contiguous, the shards any distance apart) and
+# sweeps every shard in one launch; its outputs carry the same leading
+# shape.  The plain version of a stack is the one-shard plain version on
+# each shard in order.
 
 def eam_pass1(r, nbr_map, ev: PairEvaluator, *, want_energy: bool = True,
               box_chunk: int = 256, boxes=None):
     """EAM pass 1 (gpu_eam_cta_cell.h:34-75): pair energy, density and pair
-    force.  Returns (f1 [3, n_local, A], phi_sum [n_local, A] or None when
-    ``want_energy`` is False, rhobar [n_local, A]), over the cells of
-    ``boxes`` (a binning.BoxSubset of the maps) when given and zero
-    outside them.  CPU tensors run the plain version (chunked by
-    ``box_chunk``); CUDA tensors the kernel."""
+    force.  Returns (f1 [.., 3, n_local, A], phi_sum [.., n_local, A] or
+    None when ``want_energy`` is False, rhobar [.., n_local, A]), over the
+    cells of ``boxes`` (a binning.BoxSubset of the maps) when given and
+    zero outside them.  CPU tensors run the plain version (chunked by
+    ``box_chunk``); CUDA tensors the kernel, one launch over every
+    shard."""
+    one, r, _d = _stack(r)
     _check(r, nbr_map, ev, boxes=boxes)
     if r.device.type == "cpu":
-        return eam_pass1_plain(r, nbr_map, ev, want_energy=want_energy,
-                               box_chunk=box_chunk, boxes=boxes)
+        return _unstack(one, _loop(eam_pass1_plain, r, None, nbr_map=nbr_map,
+                                   ev=ev, want_energy=want_energy,
+                                   box_chunk=box_chunk, boxes=boxes))
     f, scal = _launch("eam_pass1", "eam_pass1", False, r, nbr_map, ev,
                       want_energy, boxes=boxes)
-    return (f,) + (tuple(scal) if want_energy else (None, scal[0]))
+    return _unstack(one, (f,) + (tuple(scal) if want_energy
+                                 else (None, scal[0])))
 
 
 def eam_pass3(r, nbr_map, ev: PairEvaluator, df_embed, *,
               box_chunk: int = 256, boxes=None):
     """EAM pass 3: f_i -= (dfe_i + dfe_j) * rho'(r) * rhat, with
-    ``df_embed`` the halo-filled [B, A] field (eam.c:374-413).
-    Returns f3 [3, n_local, A], over ``boxes`` as in ``eam_pass1``.  CPU
-    tensors run the plain version; CUDA tensors the kernel."""
+    ``df_embed`` the halo-filled [.., B, A] field (eam.c:374-413).
+    Returns f3 [.., 3, n_local, A], over ``boxes`` as in ``eam_pass1``.
+    CPU tensors run the plain version; CUDA tensors the kernel."""
+    one, r, df_embed = _stack(r, df_embed)
     _check(r, nbr_map, ev, df_embed, boxes=boxes)
     if r.device.type == "cpu":
-        return eam_pass3_plain(r, nbr_map, ev, df_embed, box_chunk=box_chunk,
-                               boxes=boxes)
+        return _unstack(one, _loop(
+            lambda x, d, **kw: eam_pass3_plain(x, nbr_map, ev, d, **kw), r,
+            df_embed, box_chunk=box_chunk, boxes=boxes))
     f3, _ = _launch("eam_pass3", "eam_pass3", False, r, nbr_map, ev, False,
                     df_embed, boxes=boxes)
-    return f3
+    return _unstack(one, f3)
 
 
 def lj_pass(r, nbr_map, ev: PairEvaluator, *, want_energy: bool = True,
             box_chunk: int = 256, boxes=None):
     """LJ over the 27-cell shell (comd_tpu's lj_force_stencil):
-    (f [3, n_local, A], e [n_local, A] | None), ``e`` the unscaled sum of
-    r6 (r6 - 1) - e_shift over j; over ``boxes`` as in ``eam_pass1``.
-    CPU tensors run the plain version; CUDA tensors the kernel."""
+    (f [.., 3, n_local, A], e [.., n_local, A] | None), ``e`` the unscaled
+    sum of r6 (r6 - 1) - e_shift over j; over ``boxes`` as in
+    ``eam_pass1``.  CPU tensors run the plain version; CUDA tensors the
+    kernel."""
+    one, r, _d = _stack(r)
     _check(r, nbr_map, ev, boxes=boxes)
     if r.device.type == "cpu":
-        return lj_pass_plain(r, nbr_map, ev, want_energy=want_energy,
-                             box_chunk=box_chunk, boxes=boxes)
+        return _unstack(one, _loop(lj_pass_plain, r, None, nbr_map=nbr_map,
+                                   ev=ev, want_energy=want_energy,
+                                   box_chunk=box_chunk, boxes=boxes))
     f, scal = _launch("lj", "lj", False, r, nbr_map, ev, want_energy,
                       boxes=boxes)
-    return f, (scal[0] if want_energy else None)
+    return _unstack(one, (f, scal[0] if want_energy else None))
 
 
 # --------------------------------------------------------------------------
@@ -592,41 +655,50 @@ def lj_pass(r, nbr_map, ev: PairEvaluator, *, want_energy: bool = True,
 
 def eam_pass1_half(r, half_nbr_map, ev: PairEvaluator, *,
                    want_energy: bool = True, box_chunk: int = 256):
-    """Half-shell EAM pass 1: dense (f1 [3, B, A], phi_sum [B, A] | None,
-    rhobar [B, A]).  CPU tensors run the plain version; CUDA tensors K2."""
+    """Half-shell EAM pass 1: dense (f1 [.., 3, B, A], phi_sum [.., B, A] |
+    None, rhobar [.., B, A]).  CPU tensors run the plain version; CUDA
+    tensors K2, one launch over every shard."""
+    one, r, _d = _stack(r)
     _check(r, half_nbr_map, ev, n_nbr=14)
     if r.device.type == "cpu":
-        return eam_pass1_half_plain(r, half_nbr_map, ev,
-                                    want_energy=want_energy,
-                                    box_chunk=box_chunk)
+        return _unstack(one, _loop(eam_pass1_half_plain, r, None,
+                                   half_nbr_map=half_nbr_map, ev=ev,
+                                   want_energy=want_energy,
+                                   box_chunk=box_chunk))
     f, scal = _launch("half_eam_pass1", "eam_pass1", True, r, half_nbr_map,
                       ev, want_energy)
-    return (f,) + (tuple(scal) if want_energy else (None, scal[0]))
+    return _unstack(one, (f,) + (tuple(scal) if want_energy
+                                 else (None, scal[0])))
 
 
 def eam_pass3_half(r, half_nbr_map, ev: PairEvaluator, df_embed, *,
                    box_chunk: int = 256):
-    """Half-shell EAM pass 3: dense f3 [3, B, A].  CPU tensors run the
+    """Half-shell EAM pass 3: dense f3 [.., 3, B, A].  CPU tensors run the
     plain version; CUDA tensors K2."""
+    one, r, df_embed = _stack(r, df_embed)
     _check(r, half_nbr_map, ev, df_embed, n_nbr=14)
     if r.device.type == "cpu":
-        return eam_pass3_half_plain(r, half_nbr_map, ev, df_embed,
-                                    box_chunk=box_chunk)
+        return _unstack(one, _loop(
+            lambda x, d, **kw: eam_pass3_half_plain(x, half_nbr_map, ev, d,
+                                                    **kw),
+            r, df_embed, box_chunk=box_chunk))
     f3, _ = _launch("half_eam_pass3", "eam_pass3", True, r, half_nbr_map, ev,
                     False, df_embed)
-    return f3
+    return _unstack(one, f3)
 
 
 def lj_pass_half(r, half_nbr_map, ev: PairEvaluator, *,
                  want_energy: bool = True, box_chunk: int = 256):
     """Half-shell LJ (comd_tpu's lj_force_stencil_half before its fold):
-    dense (f [3, B, A], e [B, A] | None).  CPU tensors run the plain
-    version; CUDA tensors K2."""
+    dense (f [.., 3, B, A], e [.., B, A] | None).  CPU tensors run the
+    plain version; CUDA tensors K2."""
+    one, r, _d = _stack(r)
     _check(r, half_nbr_map, ev, n_nbr=14)
     if r.device.type == "cpu":
-        return lj_pass_half_plain(r, half_nbr_map, ev,
-                                  want_energy=want_energy,
-                                  box_chunk=box_chunk)
+        return _unstack(one, _loop(lj_pass_half_plain, r, None,
+                                   half_nbr_map=half_nbr_map, ev=ev,
+                                   want_energy=want_energy,
+                                   box_chunk=box_chunk))
     f, scal = _launch("half_lj", "lj", True, r, half_nbr_map, ev,
                       want_energy)
-    return f, (scal[0] if want_energy else None)
+    return _unstack(one, (f, scal[0] if want_energy else None))

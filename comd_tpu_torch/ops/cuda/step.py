@@ -8,8 +8,8 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
 
 - ``kick_drift_trigger``: the half kick and the drift of every slot, then
   the skin trigger (comd_tpu/sim.py:367-373 and
-  ops/neighborlist.py::needs_rebuild) as a 0-dim bool (or-ed into a
-  mesh's earlier shards' with ``add``) and, inside the step's CUDA graph,
+  ops/neighborlist.py::needs_rebuild) as a 0-dim bool (the or over a
+  mesh's shards) and, inside the step's CUDA graph,
   as the value of its IF nodes' conditional handles, set by the kernel's
   last block (graph_if.py: no kernel of its own sets them); with the
   image map of a single domain (``images``) also the serial ghost refresh
@@ -26,7 +26,7 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
   :603); a thread takes the slots whose values (and U's) fit a 16-byte
   access, where A and the pointers allow (``embed_width``);
 - ``land``: the force landing, the second half kick and the local atom
-  count (sim.py:380-383), summed over a mesh's shards launch by launch;
+  count (sim.py:380-383), summed over a mesh's shards;
 - ``embed_rows`` (ER): pass 2 of the list paths on a Verlet list's rows
   (comd_tpu/ops/force_eam.py:420-439): dfEmbed [B, A] in the cell layout,
   each slot F' of its row (``row_start[c] + s``), its serial halo fill
@@ -38,6 +38,10 @@ force.  As PyTorch ops they cost the serial EAM step ~66 launches and
   without the kick the force only (the initial force, ``-s``).
 ER and LR take their row operands as one or two row segments (the -a 1
 split's interior and boundary sweeps), so no concatenation runs.
+``kick_drift_trigger``, ``embed_fill`` and ``land`` take one shard's
+fields or a mesh's stack of them ([S, ...], the step's buffers: comd_tpu's
+leading shard index) and run every shard in one launch; their plain
+versions run the shards one by one.  ER and LR stay one launch a shard.
 
 Beside each sits its plain PyTorch version (``*_plain``: the step's torch
 code as it was; ER's and LR's in ops/neighborlist.py); the wrappers take it only for tensors on the CPU, and a
@@ -59,7 +63,7 @@ import torch
 
 from ...potentials.tables import EmbedTable, as_dtype
 from .. import neighborlist as nlmod
-from . import LAUNCHES
+from . import LAUNCHES, as_stack
 from .nvcc import CSRC, build_library
 
 SOURCE = os.path.join(CSRC, "step.cu")
@@ -76,6 +80,7 @@ EMBED_BLOCKS_PER_SM = {False: 4, True: None}
 # the rows (step_timing.py times the forms; read at each launch)
 HALO_BLOCKS_PER_SM = None
 ROWS_A_THREAD = 4      # csrc/step.cu's kRowsAThread: embed_rows' U rows
+MAX_SHARDS = 1024      # csrc/step.cu's kMaxShards: the trigger's words
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -97,14 +102,15 @@ def build():
                       ctypes.c_longlong)
         for name, args in (
                 ("comd_kick_drift_trigger",
-                 [i, p, p, p, p, q, q, d, d, d, p, p, i, p, i, p, p, p, i,
+                 [i, p, p, p, p, q, q, d, d, d, p, p, p, i, p, p, p, i, i,
                   i, i, p]),
                 ("comd_refresh_halo", [i, i, p, p, p, p, p, i, i, i, i, i,
                                        p]),
                 ("comd_embed_fill",
-                 [i, i, i, p, p, p, p, p, p, i, i, i, i, d, d, p, i, i, p]),
-                ("comd_land", [i, p, p, p, q, p, q, q, q, d, p, i, p, i, p,
-                               i, p]),
+                 [i, i, i, p, p, p, p, p, p, i, i, i, i, d, d, p, i, q, q, q,
+                  q, q, i, i, p]),
+                ("comd_land", [i, p, p, p, q, q, p, q, q, q, q, d, p, q, i,
+                               p, p, i, i, p]),
                 ("comd_embed_rows",
                  [i, i, i, p, p, i, p, p, i, p, p, p, p, p, p, i, i, i, i,
                   i, d, d, p, i, i, p]),
@@ -143,8 +149,8 @@ def _grid(n: int, device: torch.device) -> int:
 
 
 def _scratch(device: torch.device) -> torch.Tensor:
-    """The device's scratch words (csrc/step.cu's Scratch, 32 bytes),
-    zero and left zero by every launch."""
+    """The device's scratch words (csrc/step.cu's Scratch: 16 bytes and a
+    trigger word a shard), zero and left zero by every launch."""
     dev = device.index if device.index is not None \
         else torch.cuda.current_device()
     s = _SCRATCH.get(dev)
@@ -152,7 +158,7 @@ def _scratch(device: torch.device) -> torch.Tensor:
         if torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the step kernels' scratch is made at their "
                                "first launch, which may not be captured")
-        s = _SCRATCH[dev] = torch.zeros(4, dtype=torch.int64,
+        s = _SCRATCH[dev] = torch.zeros(2 + MAX_SHARDS, dtype=torch.int64,
                                         device=torch.device("cuda", dev))
     return s
 
@@ -178,6 +184,17 @@ def _check_state(r: torch.Tensor) -> None:
                          f"A] field, got {r.dtype} {tuple(r.shape)}")
 
 
+def _check_stack(r: torch.Tensor) -> None:
+    """``r`` is a contiguous float32 or float64 stack [S, 3, B, A] of at
+    most MAX_SHARDS shards."""
+    if r.dim() != 4 or r.shape[1] != 3 or not r.is_contiguous() or \
+            r.dtype not in (torch.float32, torch.float64) or \
+            not 1 <= r.shape[0] <= MAX_SHARDS:
+        raise ValueError(f"expected a contiguous float32 or float64 stack "
+                         f"[1..{MAX_SHARDS}, 3, B, A], got {r.dtype} "
+                         f"{tuple(r.shape)}")
+
+
 # --------------------------------------------------------------------------
 # the head: half kick, drift, skin trigger
 # --------------------------------------------------------------------------
@@ -188,7 +205,16 @@ def kick_drift_trigger_plain(p, r, f, last_r, n_local: int, kick: float,
     """Plain PyTorch: ``p += kick f``, ``r += p drift``, with ``images``
     the ghost refresh (``refresh_halo_plain``'s positions), then
     ``needs_rebuild`` (a 0-dim bool, or-ed into ``flag`` with ``add``,
-    else written there when given), or None without ``last_r``."""
+    else written there when given), or None without ``last_r``.  Of a
+    stack [S, 3, B, A], shard by shard, each after the first or-ing its
+    trigger into the flag."""
+    if r.dim() == 4:
+        for s in range(r.shape[0]):
+            out = kick_drift_trigger_plain(
+                p[s], r[s], f[s], None if last_r is None else last_r[s],
+                n_local, kick, drift, skin, flag, add or s > 0, images)
+            flag = out if flag is None else flag
+        return flag
     p.add_(kick * f)
     r.add_(p * drift)
     if images is not None:
@@ -229,62 +255,73 @@ def _check_images(images, r: torch.Tensor, n_local: int) -> None:
 def kick_drift_trigger(p, r, f, last_r: Optional[torch.Tensor],
                        n_local: int, kick: float, drift: float,
                        skin: float = 0.0, flag: torch.Tensor = None,
-                       add: bool = False, handles: tuple = (),
-                       images=None):
-    """The head of a step, in place on the [3, B, A] fields: the half kick
-    ``p += kick * f`` and the drift ``r += p * drift`` over every slot
-    (``kick``, ``drift``: the step's constants rounded to the dtype), then,
-    with the lazy baseline ``last_r`` ([3, B, A]), whether some local slot
-    moved more than skin/2 since it: a 0-dim bool, the max of |r -
-    last_r|^2 over the first ``n_local`` cells against (skin/2)^2 rounded
-    to the dtype, written into ``flag`` (a 0-dim bool on r's device; a new
-    one when None) or, with ``add``, or-ed into the value an earlier launch
-    of the step wrote there (a mesh's later shards).  ``handles``: inside
-    a capture on the card, the IF nodes' conditional handles of that
-    graph (``graph_if.condition``, one or two), which the kernel sets from
-    the flag it writes: the first to the flag, the second to its
-    negation.  ``images`` (``binning.ImageMap``, a single domain's): the
-    ghost refresh too, the halo rows' positions their periodic sources'
-    drifted ones plus the shift (the same bits as ``refresh_halo`` after
-    the drift); the kernel writes them from the threads that drift the
-    sources, and a halo slot's own thread kicks its p only.  Returns the
-    flag, or None without ``last_r``.  CPU tensors run the plain version;
-    CUDA tensors the kernel."""
-    _check_state(r)
-    for what, t in (("p", p), ("f", f)) + (
-            (("last_r", last_r),) if last_r is not None else ()):
+                       handles: tuple = (), images=None):
+    """The head of a step, in place on every shard's fields, one launch:
+    ``p``, ``r``, ``f`` (and ``last_r``) one shard's [3, B, A] or a mesh's
+    stack [S, 3, B, A], each contiguous.  The half kick ``p += kick * f``
+    and the drift ``r += p * drift`` over every slot (``kick``, ``drift``:
+    the step's constants rounded to the dtype), then, with the lazy
+    baseline ``last_r``, whether some local slot of some shard moved more
+    than skin/2 since it: a 0-dim bool, the or over the shards of each
+    shard's max of |r - last_r|^2 over its first ``n_local`` cells against
+    (skin/2)^2 rounded to the dtype, written into ``flag`` (a 0-dim bool on
+    r's device; a new one when None).  ``handles``: inside a capture on the
+    card, the IF nodes' conditional handles of that graph
+    (``graph_if.condition``, one or two), which the kernel sets from the
+    flag it writes: the first to the flag, the second to its negation.
+    ``images`` (``binning.ImageMap``, a single domain's; one shard only):
+    the ghost refresh too, the halo rows' positions their periodic
+    sources' drifted ones plus the shift (the same bits as
+    ``refresh_halo`` after the drift); the kernel writes them from the
+    threads that drift the sources, and a halo slot's own thread kicks
+    its p only.  Returns the flag, or None without ``last_r``.  CPU
+    tensors run the plain version, shard by shard (each after the first
+    or-ing its trigger into the flag); CUDA tensors the kernel."""
+    one, r = as_stack("kick_drift_trigger r", r, 3)
+    fields = [("p", p), ("f", f)] + (
+        [("last_r", last_r)] if last_r is not None else [])
+    fields = [(w, as_stack(f"kick_drift_trigger {w}", t, 3)[1])
+              for w, t in fields]
+    _check_stack(r)
+    for what, t in fields:
         _check_field(what, t, r)
+    p, f = fields[0][1], fields[1][1]
+    last_r = fields[2][1] if last_r is not None else None
+    S = r.shape[0]
     if flag is not None and (flag.shape != () or flag.dtype != torch.bool
                              or flag.device != r.device):
         raise ValueError(f"kick_drift_trigger: flag must be a 0-dim bool on "
                          f"{r.device}")
-    if (add and flag is None) or ((add or handles) and last_r is None) or \
-            len(handles) > 2:
-        raise ValueError("kick_drift_trigger: add needs a flag, add and "
-                         "handles a baseline, and at most two handles")
+    if (handles and last_r is None) or len(handles) > 2:
+        raise ValueError("kick_drift_trigger: handles need a baseline, and "
+                         "at most two")
     if images is not None:
-        _check_images(images, r, n_local)
+        if S != 1:
+            raise ValueError("kick_drift_trigger: the serial images take one "
+                             "shard")
+        _check_images(images, r[0], n_local)
     if r.device.type == "cpu":
         if handles:
             raise ValueError("kick_drift_trigger: conditional handles are "
                              "set by the kernel, on the card")
         return kick_drift_trigger_plain(p, r, f, last_r, n_local, kick,
-                                        drift, skin, flag, add, images)
-    n = r.shape[1] * r.shape[2]
+                                        drift, skin, flag, False, images)
+    n = r.shape[2] * r.shape[3]
     if flag is None and last_r is not None:
         flag = torch.empty((), dtype=torch.bool, device=r.device)
     thresh = as_dtype((0.5 * skin) ** 2, r.dtype)
     img = (None, None, None) if images is None else (
         images.start.data_ptr(), images.row.data_ptr(),
         images.shift.data_ptr())
+    grid = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * _sms(r.device) // S))
     err = build().comd_kick_drift_trigger(
         r.element_size(), p.data_ptr(), r.data_ptr(), f.data_ptr(),
         None if last_r is None else last_r.data_ptr(), n,
-        0 if last_r is None else n_local * r.shape[2], kick, drift, thresh,
+        0 if last_r is None else n_local * r.shape[3], kick, drift, thresh,
         _scratch(r.device).data_ptr(),
-        None if flag is None else flag.data_ptr(), int(add),
+        None if flag is None else flag.data_ptr(),
         (ctypes.c_ulonglong * 2)(*handles), len(handles), *img,
-        r.shape[2], n_local, _grid(n, r.device), _stream(r))
+        r.shape[3], n_local, S, grid, _stream(r))
     _launched(err, "kick_drift_trigger")
     return flag
 
@@ -373,7 +410,15 @@ def halo_width(A: int, elem: int, ptrs) -> int:
 def embed_fill_plain(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
                      halo_src=None, e_dtype=torch.float64):
     """Plain PyTorch: (dfEmbed [n_rows, A], U [n_local, A] | None), as
-    ``embed_fill``."""
+    ``embed_fill``; of a stack [S, n_local, A], shard by shard, the
+    results stacked."""
+    if rhobar.dim() == 3:
+        outs = [embed_fill_plain(f_eval, rhobar[s],
+                                 None if phi is None else phi[s], n_atoms[s],
+                                 n_rows, halo_src, e_dtype)
+                for s in range(rhobar.shape[0])]
+        return (torch.stack([d for d, _u in outs]),
+                None if phi is None else torch.stack([u for _d, u in outs]))
     f_emb, df = f_eval(rhobar)
     n_local, A = rhobar.shape
     dfe = df.new_zeros((n_rows, A))
@@ -390,22 +435,26 @@ def embed_fill_plain(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
 
 def embed_fill(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
                halo_src=None, e_dtype=torch.float64):
-    """EAM pass 2 of one shard from its density ``rhobar`` [n_local, A]
-    (eam.c:351-371): dfEmbed [n_rows, A] (B rows) holding F'(rhobar) in
-    the local rows and, in the halo rows, F' of the serial periodic source
-    rows ``halo_src`` ([B - n_local] int64: the serial fill, the same bits
-    as copying them) or 0 (``halo_src`` None: a mesh transport fills
-    them).  With the pair energy ``phi`` [n_local, A] (energy steps) also
-    U = 0.5 phi + F(rhobar) in ``e_dtype``, 0 in the slots at or past
-    ``n_atoms`` ([B] int32).  Returns (dfEmbed, U | None).  CPU tensors
-    run the plain version; CUDA tensors the kernel, whose indices are 32
-    bits: ``n_rows * A`` must be below 2^31."""
-    if rhobar.dim() != 2 or not rhobar.is_contiguous() or \
+    """EAM pass 2 of every shard, one launch, from its density ``rhobar``
+    (one shard's [n_local, A] or a mesh's stack [S, n_local, A], each
+    shard contiguous, the shards any distance apart; eam.c:351-371):
+    dfEmbed [.., n_rows, A] (B rows) holding F'(rhobar) in the local rows
+    and, in the halo rows, F' of the serial periodic source rows
+    ``halo_src`` ([B - n_local] int64: the serial fill, the same bits as
+    copying them) or 0 (``halo_src`` None: a mesh transport fills them).
+    With the pair energy ``phi`` (rhobar's shape; energy steps) also U =
+    0.5 phi + F(rhobar) [.., n_local, A] in ``e_dtype``, 0 in the slots at
+    or past the shard's ``n_atoms`` ([.., B] int32).  Returns (dfEmbed,
+    U | None).  CPU tensors run the plain version shard by shard; CUDA
+    tensors the kernel, whose indices within a shard are 32 bits:
+    ``n_rows * A`` must be below 2^31."""
+    one, rhobar = as_stack("embed_fill rhobar", rhobar, 2)
+    if not rhobar[0].is_contiguous() or \
             rhobar.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"embed_fill: rhobar must be a contiguous float32 "
-                         f"or float64 [n_local, A], got {rhobar.dtype} "
-                         f"{tuple(rhobar.shape)}")
-    n_local, A = rhobar.shape
+        raise ValueError(f"embed_fill: rhobar must be float32 or float64 "
+                         f"[n_local, A] a shard, each contiguous, got "
+                         f"{rhobar.dtype} {tuple(rhobar.shape)}")
+    S, n_local, A = rhobar.shape
     dev = rhobar.device
     tab = f_eval.table
     if tab.dtype != rhobar.dtype or tab.device != dev or \
@@ -413,13 +462,20 @@ def embed_fill(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
         raise ValueError("embed_fill: F's table must be contiguous, of "
                          "rhobar's dtype, on its device")
     if phi is not None:
-        _check_field("embed_fill phi", phi, rhobar)
+        phi = as_stack("embed_fill phi", phi, 2)[1]
+        if phi.shape != rhobar.shape or phi.dtype != rhobar.dtype or \
+                phi.device != dev or not phi[0].is_contiguous():
+            raise ValueError(f"embed_fill phi: expected {rhobar.dtype} "
+                             f"{tuple(rhobar.shape)}, each shard contiguous, "
+                             f"on {dev}")
+    if isinstance(n_atoms, torch.Tensor):
+        n_atoms = as_stack("embed_fill n_atoms", n_atoms, 1)[1]
     if not isinstance(n_atoms, torch.Tensor) or (
-            n_atoms.dim() != 1 or n_atoms.shape[0] < n_local or
+            n_atoms.shape[0] != S or n_atoms.shape[1] < n_local or
             n_atoms.dtype != torch.int32 or n_atoms.device != dev or
-            not n_atoms.is_contiguous()):
-        raise ValueError(f"embed_fill: n_atoms must be a contiguous int32 "
-                         f"[>= {n_local}] on rhobar's device")
+            n_atoms.stride(1) != 1):
+        raise ValueError(f"embed_fill: n_atoms must be int32 [>= {n_local}] "
+                         f"a shard, each contiguous, on rhobar's device")
     if halo_src is not None and (
             halo_src.shape != (n_rows - n_local,) or
             halo_src.dtype != torch.int64 or halo_src.device != dev or
@@ -431,35 +487,44 @@ def embed_fill(f_eval: EmbedTable, rhobar, phi, n_atoms, n_rows: int,
     if n_rows * A >= 2 ** 31:
         raise ValueError(f"embed_fill: {n_rows} rows of {A} slots do not fit "
                          f"the kernel's 32-bit indices")
+    if S > 65535:
+        raise ValueError(f"embed_fill: {S} shards exceed the grid's 65535")
     if dev.type == "cpu":
-        return embed_fill_plain(f_eval, rhobar, phi, n_atoms, n_rows,
-                                halo_src, e_dtype)
-    dfe = torch.empty((n_rows, A), dtype=rhobar.dtype, device=dev)
-    u = None if phi is None else torch.empty((n_local, A), dtype=e_dtype,
+        dfe, u = embed_fill_plain(f_eval, rhobar, phi, n_atoms, n_rows,
+                                  halo_src, e_dtype)
+        return (dfe[0], None if u is None else u[0]) if one else (dfe, u)
+    dfe = torch.empty((S, n_rows, A), dtype=rhobar.dtype, device=dev)
+    u = None if phi is None else torch.empty((S, n_local, A), dtype=e_dtype,
                                              device=dev)
-    if n_rows * A == 0:
-        return dfe, u
-    width = embed_width(A, rhobar.element_size(),
-                        [t.data_ptr() for t in (rhobar, phi, dfe, u)
-                         if t is not None],
-                        None if u is None else u.element_size())
+    if n_rows * A > 0:
+        # every shard's pointers aligned: the bases and the shard strides
+        ptrs = [q for t in (rhobar, phi, dfe, u) if t is not None
+                for q in (t.data_ptr(),
+                          t.data_ptr() + t.stride(0) * t.element_size())]
+        width = embed_width(A, rhobar.element_size(), ptrs,
+                            None if u is None else u.element_size())
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+        def ptr(t):
+            return None if t is None else t.data_ptr()
 
-    per_sm = EMBED_BLOCKS_PER_SM[phi is not None]
+        per_sm = EMBED_BLOCKS_PER_SM[phi is not None]
 
-    def blocks(rows):
-        n = -(-rows * A // width // THREADS)
-        return n if per_sm is None else min(n, per_sm * _sms(dev))
+        def blocks(rows):
+            n = -(-rows * A // width // THREADS)
+            return n if per_sm is None else \
+                min(n, max(1, per_sm * _sms(dev) // S))
 
-    err = build().comd_embed_fill(
-        rhobar.element_size(), 8 if e_dtype == torch.float64 else 4,
-        width, rhobar.data_ptr(), ptr(phi), n_atoms.data_ptr(),
-        ptr(halo_src), dfe.data_ptr(), ptr(u), A, n_local, n_rows, f_eval.n,
-        f_eval.x0, f_eval.inv_dx, tab.data_ptr(), blocks(n_local),
-        blocks(n_rows - n_local), _stream(rhobar))
-    _launched(err, "embed_fill")
+        err = build().comd_embed_fill(
+            rhobar.element_size(), 8 if e_dtype == torch.float64 else 4,
+            width, rhobar.data_ptr(), ptr(phi), n_atoms.data_ptr(),
+            ptr(halo_src), dfe.data_ptr(), ptr(u), A, n_local, n_rows,
+            f_eval.n, f_eval.x0, f_eval.inv_dx, tab.data_ptr(), S,
+            rhobar.stride(0), 0 if phi is None else phi.stride(0),
+            n_atoms.stride(0), dfe.stride(0), 0 if u is None else u.stride(0),
+            blocks(n_local), blocks(n_rows - n_local), _stream(rhobar))
+        _launched(err, "embed_fill")
+    if one:
+        return dfe[0], None if u is None else u[0]
     return dfe, u
 
 
@@ -480,7 +545,13 @@ def embed_width(A: int, elem: int, ptrs, e_elem: int = None) -> int:
 
 def land_plain(f, p, f1, f3, n_atoms, n_local_out, n_local: int,
                kick: float, add: bool = False) -> None:
-    """Plain PyTorch: as ``land``."""
+    """Plain PyTorch: as ``land``; of a stack [S, 3, B, A], shard by
+    shard, each after the first adding its count."""
+    if f.dim() == 4:
+        for s in range(f.shape[0]):
+            land_plain(f[s], p[s], f1[s], None if f3 is None else f3[s],
+                       n_atoms[s], n_local_out, n_local, kick, add or s > 0)
+        return
     f[:, :n_local] = f1 if f3 is None else f1 + f3
     f[:, n_local:] = 0
     p.add_(kick * f)
@@ -488,43 +559,61 @@ def land_plain(f, p, f1, f3, n_atoms, n_local_out, n_local: int,
     n_local_out.copy_(n_local_out + count if add else count)
 
 
-def land(f, p, f1, f3, n_atoms, n_local_out, n_local: int, kick: float,
-         add: bool = False) -> None:
-    """The end of a step of one shard, in place: the force ``f`` [3, B, A]
-    gets ``f1`` (+ ``f3``: EAM's two passes, added here) in its first
-    ``n_local`` cells and 0 in the halo cells, then the half kick ``p +=
-    kick * f``, and ``n_local_out`` (0-dim int32) the atoms in the local
-    cells of ``n_atoms`` ([B] int32), added to its value with ``add`` (a
-    mesh's later shards).  ``f1``/``f3``: [3, n_local, A], each plane
-    contiguous (a plane stride of their own).  CPU tensors run the plain
-    version; CUDA tensors the kernel."""
-    _check_state(f)
+def land(f, p, f1, f3, n_atoms, n_local_out, n_local: int,
+         kick: float) -> None:
+    """The end of a step of every shard, in place, one launch: the force
+    ``f`` (one shard's [3, B, A] or a mesh's stack [S, 3, B, A],
+    contiguous, as ``p``) gets ``f1`` (+ ``f3``: EAM's two passes, added
+    here) in its first ``n_local`` cells and 0 in the halo cells, then the
+    half kick ``p += kick * f``, and ``n_local_out`` (0-dim int32) the
+    atoms in the local cells of every shard's ``n_atoms`` ([.., B] int32,
+    each shard contiguous).  ``f1``/``f3``: [.., 3, n_local, A], each plane
+    contiguous (planes and shards any distance apart).  CPU tensors run
+    the plain version shard by shard, each after the first adding its
+    count; CUDA tensors the kernel."""
+    f = as_stack("land f", f, 3)[1]
+    _check_stack(f)
+    p = as_stack("land p", p, 3)[1]
     _check_field("land p", p, f)
-    A = f.shape[2]
+    S, A = f.shape[0], f.shape[3]
+    parts = []
     for what, t in (("f1", f1), ("f3", f3)):
-        if t is not None and (
-                t.shape != (3, n_local, A) or t.dtype != f.dtype or
-                t.device != f.device or t.stride()[1:] != (A, 1)):
-            raise ValueError(f"land {what}: expected {f.dtype} [3, "
-                             f"{n_local}, {A}] with contiguous planes on "
-                             f"{f.device}, got {t.dtype} {tuple(t.shape)} "
-                             f"strides {t.stride()} on {t.device}")
-    if n_atoms.shape != (f.shape[1],) or n_atoms.dtype != torch.int32 or \
-            not n_atoms.is_contiguous() or n_atoms.device != f.device or \
+        if t is not None:
+            t = as_stack(f"land {what}", t, 3)[1]
+            if t.shape != (S, 3, n_local, A) or t.dtype != f.dtype or \
+                    t.device != f.device or t.stride()[2:] != (A, 1):
+                raise ValueError(f"land {what}: expected {f.dtype} [{S}, 3, "
+                                 f"{n_local}, {A}] with contiguous planes on "
+                                 f"{f.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} strides {t.stride()} on "
+                                 f"{t.device}")
+        parts.append(t)
+    f1, f3 = parts
+    if isinstance(n_atoms, torch.Tensor):
+        n_atoms = as_stack("land n_atoms", n_atoms, 1)[1]
+    if not isinstance(n_atoms, torch.Tensor) or \
+            n_atoms.shape != (S, f.shape[2]) or \
+            n_atoms.dtype != torch.int32 or n_atoms.stride(1) != 1 or \
+            n_atoms.device != f.device or \
             n_local_out.shape != () or n_local_out.dtype != torch.int32 or \
             n_local_out.device != f.device:
-        raise ValueError("land: n_atoms must be a contiguous int32 [B] and "
-                         "n_local_out a 0-dim int32, on f's device")
+        raise ValueError("land: n_atoms must be int32 [B] a shard, each "
+                         "contiguous, and n_local_out a 0-dim int32, on f's "
+                         "device")
+    if S > 65535:
+        raise ValueError(f"land: {S} shards exceed the grid's 65535")
     if f.device.type == "cpu":
-        land_plain(f, p, f1, f3, n_atoms, n_local_out, n_local, kick, add)
+        land_plain(f, p, f1, f3, n_atoms, n_local_out, n_local, kick)
         return
-    n = f.shape[1] * A
+    n = f.shape[2] * A
+    grid = max(1, min(-(-n // THREADS), BLOCKS_PER_SM * _sms(f.device) // S))
     err = build().comd_land(
         f.element_size(), f.data_ptr(), p.data_ptr(), f1.data_ptr(),
-        f1.stride(0), None if f3 is None else f3.data_ptr(),
-        0 if f3 is None else f3.stride(0), n, n_local * A, kick,
-        n_atoms.data_ptr(), n_local, n_local_out.data_ptr(), int(add),
-        _scratch(f.device).data_ptr(), _grid(n, f.device), _stream(f))
+        f1.stride(0), f1.stride(1), None if f3 is None else f3.data_ptr(),
+        0 if f3 is None else f3.stride(0), 0 if f3 is None else f3.stride(1),
+        n, n_local * A, kick, n_atoms.data_ptr(), n_atoms.stride(0), n_local,
+        n_local_out.data_ptr(), _scratch(f.device).data_ptr(), S, grid,
+        _stream(f))
     _launched(err, "land")
 
 

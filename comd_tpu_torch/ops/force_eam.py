@@ -19,15 +19,18 @@ lists (the *_nl methods) on the list sweep NL2 (ops/cuda/nl.py) in
 ``eam_force_nl`` and ``eam_force_nl_split``.  Pass 2 is
 per-atom, 27x fewer evaluations than a pair pass: the direct quadratic
 interpolation of F (eam.c:557-579), on the cell paths one ``embed_fill``
-launch a shard (ops/cuda/step.py: dfEmbed with its serial halo fill or
-zero halo rows, and the masked U), on the lists' rows one ``embed_rows``
-launch a shard (the same, from the rows: dfEmbed in the cell layout, U a
-row).  The list forces stay per row (``neighborlist.RowForce``) for the
-step's ``land_rows``.  These are comd_tpu's
-eam_force_pallas contracts (half=False and half=True), taken over the
-shards of a mesh: every argument and result that is per shard is a list
-with one entry per shard (a single domain is a mesh of one), and the halo
-fill and fold are the mesh's exchanges, run once over all shards.
+launch over every shard (ops/cuda/step.py: dfEmbed with its serial halo
+fill or zero halo rows, and the masked U), on the lists' rows one
+``embed_rows`` launch a shard (the same, from the rows: dfEmbed in the
+cell layout, U a row).  The list forces stay per row
+(``neighborlist.RowForce``) for the step's ``land_rows``.  These are
+comd_tpu's eam_force_pallas contracts (half=False and half=True), taken
+over the shards of a mesh.  On the cell paths every argument and result
+that is per shard is one stack [S, ...] with the shard first, comd_tpu's
+mesh layout (a single domain is a stack of one), and each pass is one
+launch over it; a list of per-shard tensors raises.  The list paths take
+a list with one entry per shard.  The halo fill and fold are the mesh's
+exchanges, run once over all shards.
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ import torch
 from ..potentials import tables
 from ..potentials.eam import EamPotential
 from . import neighborlist as nlmod
-from .cuda import nl, stencil, step
+from .cuda import nl, require_stack, stencil, step
 from .cuda.stencil import PairEvaluator
 
 
@@ -89,76 +92,80 @@ def make_f_eval(pot: EamPotential, dtype: torch.dtype,
         inv_dx=tables.as_dtype(pot.f.inv_dx, dtype))
 
 
-def _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype) -> list:
-    """Pass 2 of every shard (step.embed_fill) from its pair energy ``phi``
-    (None without the energy terms) and density ``rhobar``: (dfEmbed [B,
-    A], U [n_local, A] | None), the halo rows of dfEmbed F' of the serial
-    sources ``halo_src`` or 0, U masked past each shard's ``n_atoms``."""
-    return [step.embed_fill(f_eval, rho, ph, n, r.shape[1], halo_src,
-                            e_dtype)
-            for r, ph, rho, n in zip(rs, phi, rhobar, n_atoms)]
+def _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype):
+    """Pass 2 of every shard, one ``step.embed_fill`` launch, from the
+    stacks of its pair energy ``phi`` (None without the energy terms) and
+    density ``rhobar`` ([S, n_local, A]): (dfEmbed [S, B, A], U [S,
+    n_local, A] | None), the halo rows of dfEmbed F' of the serial sources
+    ``halo_src`` or 0, U masked past each shard's ``n_atoms``."""
+    return step.embed_fill(f_eval, rhobar, phi, n_atoms, rs.shape[2],
+                           halo_src, e_dtype)
+
+
+def _stacks(rs, n_atoms, r_pre=None):
+    """The force's operands as the mesh's stacks: positions [S, 3, B, A],
+    counts [S, B] (a list of per-shard tensors raises)."""
+    require_stack("the positions", rs, 4)
+    require_stack("n_atoms", n_atoms, 2)
+    if r_pre is not None:
+        require_stack("r_pre", r_pre, 4)
 
 
 def eam_force(
     nbr_map: torch.Tensor,       # [n_local, 27] int32 on r's device
-    rs: Sequence[torch.Tensor],  # per shard: [3, B, A], halo cells filled
+    rs: torch.Tensor,            # [S, 3, B, A] stack, halo cells filled
     ev: PairEvaluator,
     f_eval: tables.EmbedTable,   # make_f_eval
-    fill_halo_scalar: Callable,  # (dfEmbed per shard, rhobar per shard)
-                                 # -> dfEmbed per shard, halo rows filled
+    fill_halo_scalar: Callable,  # (dfEmbed [S, B, A], rhobar [S, n_local,
+                                 # A]) -> dfEmbed, halo rows filled
     *,
-    n_atoms: Sequence[torch.Tensor],   # per shard: [B] int32
+    n_atoms: torch.Tensor,       # [S, B] int32
     halo_src: Optional[torch.Tensor] = None,
     passes: bool = False,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
     box_chunk: int = 256,
 ):
-    """The full-shell force of every shard of a mesh (one shard on a single
-    domain).  Passes 1 and 2 run shard by shard, the dfEmbed fill once over
-    all shards (it is the mesh's halo exchange), then pass 3 shard by
-    shard -- comd_tpu's per-shard eam_force under shard_map, with the fill
-    as its collective.  ``fill_halo_scalar`` also gets each shard's rhobar
-    [n_local, A], which the fused transport evaluates at its planes.  With
-    ``halo_src`` (a single domain's periodic sources, ``maps.halo_src``)
-    pass 2 fills the halo rows itself and ``fill_halo_scalar`` is not
-    called.
+    """The full-shell force of every shard of a mesh (a stack of one on a
+    single domain), one launch a phase over the stack: pass 1, pass 2, the
+    dfEmbed fill (the mesh's halo exchange), pass 3 -- comd_tpu's
+    per-shard eam_force under shard_map, with the fill as its collective.
+    ``fill_halo_scalar`` also gets the stack's rhobar, which the fused
+    transport evaluates at its planes.  With ``halo_src`` (a single
+    domain's periodic sources, ``maps.halo_src``) pass 2 fills the halo
+    rows itself and ``fill_halo_scalar`` is not called.
 
-    Returns, per shard, (force [3, n_local, A], U [n_local, A] | None,
-    dfEmbed [B, A]), U 0 in the slots at or past the shard's ``n_atoms``.
+    Returns (force [S, 3, n_local, A], U [S, n_local, A] | None, dfEmbed
+    [S, B, A]), U 0 in the slots at or past each shard's ``n_atoms``.
     ``passes=True`` returns the force as its two passes (f1, f3) for the
-    step's landing to add.
-    ``want_energy=False`` (dynamics-only steps between reporting
-    boundaries) skips the phi-value work and returns U=None.
-    ``box_chunk`` only chunks the plain version (CPU tensors).
+    step's landing to add.  ``want_energy=False`` (dynamics-only steps
+    between reporting boundaries) skips the phi-value work and returns
+    U=None.  ``box_chunk`` only chunks the plain version (CPU tensors).
     """
-    p1 = [stencil.eam_pass1(r, nbr_map, ev, want_energy=want_energy,
-                            box_chunk=box_chunk) for r in rs]
+    _stacks(rs, n_atoms)
+    f1, phi, rhobar = stencil.eam_pass1(rs, nbr_map, ev,
+                                        want_energy=want_energy,
+                                        box_chunk=box_chunk)
     # pass 2 (eam.c:351-366): every slot gets F(rhobar); empty slots are
     # masked past n_atoms
-    _f1, phi, rhobar = zip(*p1)
-    emb = _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype)
-    dfe = [d for d, _u in emb]
+    dfe, u = _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype)
     if halo_src is None:
-        dfe = fill_halo_scalar(dfe, list(rhobar))
-    out = []
-    for r, (f1, _phi, _rho), (_d, u), d in zip(rs, p1, emb, dfe):
-        f3 = stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk)
-        out.append(((f1, f3) if passes else f1 + f3, u, d))
-    return out
+        dfe = fill_halo_scalar(dfe, rhobar)
+    f3 = stencil.eam_pass3(rs, nbr_map, ev, dfe, box_chunk=box_chunk)
+    return (f1, f3) if passes else f1 + f3, u, dfe
 
 
 def eam_force_split(
     nbr_map: torch.Tensor,       # [n_local, 27] int32 of a GeomMaps
-    rs: Sequence[torch.Tensor],  # per shard: [3, B, A] post-exchange
+    rs: torch.Tensor,            # [S, 3, B, A] post-exchange
     ev: PairEvaluator,
     f_eval: tables.EmbedTable,
     fill_halo_scalar: Callable,  # as in eam_force
     interior,                    # binning.BoxSubset: cells reading no halo
     boundary,                    # binning.BoxSubset: the other local cells
     *,
-    r_pre: Optional[Sequence[torch.Tensor]] = None,
-    n_atoms: Sequence[torch.Tensor],   # per shard: [B] int32
+    r_pre: Optional[torch.Tensor] = None,
+    n_atoms: torch.Tensor,       # [S, B] int32
     passes: bool = False,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
@@ -166,49 +173,45 @@ def eam_force_split(
 ):
     """``eam_force`` with the interior/boundary split (-a 1 of the cell
     methods on a mesh; the reference's timestep.c:257-265, comd_tpu's
-    eam_force_split): K1 sweeps the interior cells on the pre-exchange
-    positions ``r_pre`` and the boundary cells on ``rs``, two launches a
-    pass.  Interior cells read no halo cell, so their pass 3 runs on the
-    pre-fill dfEmbed, before the fill; the boundary's after it.  Each
-    subset's outputs are zero outside it, so their sum is comd_tpu's
-    scatter of the two lists.  Pass 2 is per slot and runs once on the
-    summed rhobar (the same numbers as per subset).  On one stream nothing
-    overlaps; the split keeps comd_tpu's data flow.  Returns what
-    eam_force does (``passes``: f1 and the two pass-3 subsets' sum)."""
+    eam_force_split): K1 sweeps the interior cells of every shard on the
+    pre-exchange positions ``r_pre`` and the boundary cells on ``rs``, two
+    launches a pass over the stack.  Interior cells read no halo cell, so
+    their pass 3 runs on the pre-fill dfEmbed, before the fill; the
+    boundary's after it.  Each subset's outputs are zero outside it, so
+    their sum is comd_tpu's scatter of the two lists.  Pass 2 is per slot
+    and runs once on the summed rhobar (the same numbers as per subset).
+    On one stream nothing overlaps; the split keeps comd_tpu's data flow.
+    Returns what eam_force does (``passes``: f1 and the two pass-3
+    subsets' sum)."""
     r_pre = rs if r_pre is None else r_pre
+    _stacks(rs, n_atoms, r_pre)
     kw = dict(want_energy=want_energy, box_chunk=box_chunk)
-    p1 = []
-    for r, rp in zip(rs, r_pre):
-        f_i, phi_i, rho_i = stencil.eam_pass1(rp, nbr_map, ev,
-                                              boxes=interior, **kw)
-        f_b, phi_b, rho_b = stencil.eam_pass1(r, nbr_map, ev,
-                                              boxes=boundary, **kw)
-        p1.append((f_i + f_b, phi_i + phi_b if want_energy else None,
-                   rho_i + rho_b))
-    _f1, phi, rhobar = zip(*p1)
-    emb = _embed(f_eval, rs, phi, rhobar, n_atoms, None, e_dtype)
-    dfe = [d for d, _u in emb]
+    f_i, phi_i, rho_i = stencil.eam_pass1(r_pre, nbr_map, ev, boxes=interior,
+                                          **kw)
+    f_b, phi_b, rho_b = stencil.eam_pass1(rs, nbr_map, ev, boxes=boundary,
+                                          **kw)
+    f1 = f_i + f_b
+    rhobar = rho_i + rho_b
+    phi = phi_i + phi_b if want_energy else None
+    dfe, u = _embed(f_eval, rs, phi, rhobar, n_atoms, None, e_dtype)
     # interior pass 3 reads only local dfEmbed: before the fill
-    f3_i = [stencil.eam_pass3(rp, nbr_map, ev, d, box_chunk=box_chunk,
-                              boxes=interior) for rp, d in zip(r_pre, dfe)]
-    dfe = fill_halo_scalar(dfe, list(rhobar))
-    out = []
-    for r, (f1, _phi, _rho), f3, (_d, u), d in zip(rs, p1, f3_i, emb, dfe):
-        f3 = f3 + stencil.eam_pass3(r, nbr_map, ev, d, box_chunk=box_chunk,
-                                    boxes=boundary)
-        out.append(((f1, f3) if passes else f1 + f3, u, d))
-    return out
+    f3_i = stencil.eam_pass3(r_pre, nbr_map, ev, dfe, box_chunk=box_chunk,
+                             boxes=interior)
+    dfe = fill_halo_scalar(dfe, rhobar)
+    f3 = f3_i + stencil.eam_pass3(rs, nbr_map, ev, dfe, box_chunk=box_chunk,
+                                  boxes=boundary)
+    return (f1, f3) if passes else f1 + f3, u, dfe
 
 
 def eam_force_half(
     half_nbr_map: torch.Tensor,  # [n_local, 14] int32 on r's device
-    rs: Sequence[torch.Tensor],  # per shard: [3, B, A], halo cells filled
+    rs: torch.Tensor,            # [S, 3, B, A], halo cells filled
     ev: PairEvaluator,
     f_eval: tables.EmbedTable,   # make_f_eval
     fill_halo_scalar: Callable,  # as in eam_force
-    fold: Callable,              # per shard [..., B, A] -> [..., n_local, A]
+    fold: Callable,              # [S, .., B, A] -> [S, .., n_local, A]
     *,
-    n_atoms: Sequence[torch.Tensor],   # per shard: [B] int32
+    n_atoms: torch.Tensor,       # [S, B] int32
     halo_src: Optional[torch.Tensor] = None,
     e_dtype: torch.dtype = torch.float64,
     want_energy: bool = True,
@@ -216,29 +219,27 @@ def eam_force_half(
 ):
     """EAM with Newton's-3rd-law half sweeps for passes 1 and 3 (each pair
     evaluated once, the reference's half-list kernels, eam.c:266-419), for
-    every shard of a mesh.
+    every shard of a mesh, one K2 launch a pass over the stack.
 
     Pass 1 on K2, then ``fold`` delivers the halo rows of rhobar and
     phi_sum to their owners; pass 2 as in ``eam_force`` (with its
     ``halo_src`` and ``n_atoms``); the dfEmbed halo fill; pass 3 on K2;
     the two dense force passes are folded once (fold is linear).  ``fold``
-    and ``fill_halo_scalar`` run over all shards.  Returns, per shard,
-    (force [3, n_local, A], U [n_local, A] | None, dfEmbed [B, A]).
+    and ``fill_halo_scalar`` run over all shards.  Returns (force [S, 3,
+    n_local, A], U [S, n_local, A] | None, dfEmbed [S, B, A]).
     """
-    p1 = [stencil.eam_pass1_half(r, half_nbr_map, ev,
-                                 want_energy=want_energy,
-                                 box_chunk=box_chunk) for r in rs]
-    rhobar = fold([rho_d for _f, _phi, rho_d in p1])
-    phi = (fold([phi_d for _f, phi_d, _rho in p1]) if want_energy
-           else [None] * len(rs))
-    emb = _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype)
-    dfe = [d for d, _u in emb]
+    _stacks(rs, n_atoms)
+    f1d, phi_d, rho_d = stencil.eam_pass1_half(rs, half_nbr_map, ev,
+                                               want_energy=want_energy,
+                                               box_chunk=box_chunk)
+    rhobar = fold(rho_d)
+    phi = fold(phi_d) if want_energy else None
+    dfe, u = _embed(f_eval, rs, phi, rhobar, n_atoms, halo_src, e_dtype)
     if halo_src is None:
         dfe = fill_halo_scalar(dfe, rhobar)
-    f = fold([f1d + stencil.eam_pass3_half(r, half_nbr_map, ev, d,
-                                           box_chunk=box_chunk)
-              for r, (f1d, _phi, _rho), d in zip(rs, p1, dfe)])
-    return [(f_s, u, d) for f_s, (_d, u), d in zip(f, emb, dfe)]
+    f = fold(f1d + stencil.eam_pass3_half(rs, half_nbr_map, ev, dfe,
+                                          box_chunk=box_chunk))
+    return f, u, dfe
 
 
 def eam_force_nl(

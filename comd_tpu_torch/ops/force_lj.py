@@ -17,7 +17,8 @@ K2 and folds the halo rows back to their owners; ``lj_force_nl`` and
 ``lj_force_nl_split`` sweep Verlet lists on NL2 (the *_nl methods and the
 -L pairlist).  All run the CUDA kernels of ops/cuda on CUDA tensors and
 their plain PyTorch versions on CPU tensors, over the shards of a mesh
-(per-shard lists, as in ops/force_eam.py; a single domain is a mesh of
+(as in ops/force_eam.py: the cell paths take the shards' stack and launch
+once over it, the list paths a list a shard; a single domain is a mesh of
 one).
 """
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from ..potentials.lj import LjPotential
 from ..potentials.tables import as_dtype
 from . import neighborlist as nlmod
-from .cuda import nl, stencil
+from .cuda import nl, require_stack, stencil
 from .cuda.stencil import PairEvaluator
 
 
@@ -80,89 +81,87 @@ def _energy(pot: LjPotential, e, e_dtype):
     # the atom sum counts every pair twice (full sweep, or both deliveries
     # of the half sweep) -> x0.5, then the global 4*epsilon (ljForce.c:
     # 256-261)
-    u = (0.5 * 4.0 * pot.epsilon) * e.to(e_dtype)
-    return u, u.sum()
+    return (0.5 * 4.0 * pot.epsilon) * e.to(e_dtype)
 
 
-def lj_force(nbr_map: torch.Tensor, pot: LjPotential,
-             rs: Sequence[torch.Tensor], ev: PairEvaluator, *,
-             e_dtype: torch.dtype = torch.float64, want_energy: bool = True,
-             box_chunk: int = 256):
-    """LJ on K1 for every shard (positions ``rs``, one [3, B, A] per
-    shard).  Returns, per shard, (force [3, n_local, A], U [n_local, A] |
-    None, ePot | None); U and ePot in ``e_dtype``."""
-    out = []
-    for r in rs:
-        f, e = stencil.lj_pass(r, nbr_map, ev, want_energy=want_energy,
-                               box_chunk=box_chunk)
-        out.append((f,) + (_energy(pot, e, e_dtype) if want_energy
-                           else (None, None)))
-    return out
+def shard_sums(u: torch.Tensor) -> torch.Tensor:
+    """[S] each shard's own sum of the stack ``u`` [S, ...], in shard
+    order (the bits of the shard's sum alone)."""
+    return torch.stack([u[s].sum() for s in range(u.shape[0])])
+
+
+def _stacked(u):
+    return (u, shard_sums(u)) if u is not None else (None, None)
+
+
+def lj_force(nbr_map: torch.Tensor, pot: LjPotential, rs: torch.Tensor,
+             ev: PairEvaluator, *, e_dtype: torch.dtype = torch.float64,
+             want_energy: bool = True, box_chunk: int = 256):
+    """LJ on K1 for every shard of the stack ``rs`` [S, 3, B, A], one
+    launch.  Returns (force [S, 3, n_local, A], U [S, n_local, A] | None,
+    ePot a shard [S] | None); U and ePot in ``e_dtype``."""
+    require_stack("the positions", rs, 4)
+    f, e = stencil.lj_pass(rs, nbr_map, ev, want_energy=want_energy,
+                           box_chunk=box_chunk)
+    return (f,) + _stacked(_energy(pot, e, e_dtype) if want_energy
+                           else None)
 
 
 def lj_force_split(nbr_map: torch.Tensor, pot: LjPotential,
-                   rs: Sequence[torch.Tensor], ev: PairEvaluator, interior,
+                   rs: torch.Tensor, ev: PairEvaluator, interior,
                    boundary, *,
-                   r_pre: Optional[Sequence[torch.Tensor]] = None,
+                   r_pre: Optional[torch.Tensor] = None,
                    e_dtype: torch.dtype = torch.float64,
                    want_energy: bool = True, box_chunk: int = 256):
     """``lj_force`` with the interior/boundary split (-a 1 of the cell
     methods on a mesh, comd_tpu's lj_force_split): K1 over the interior
     cells (binning.BoxSubset ``interior``) on the pre-exchange positions
-    ``r_pre`` and over the boundary cells on ``rs``; each launch's outputs
-    are zero outside its subset, so they add up to comd_tpu's scatter.
-    Analytic LJ always (``ev`` of kind "lj"): comd_tpu's sharded dispatch
-    takes the split before -I.  Returns what lj_force does."""
+    ``r_pre`` and over the boundary cells on ``rs``, each one launch over
+    the stack; each launch's outputs are zero outside its subset, so they
+    add up to comd_tpu's scatter.  Analytic LJ always (``ev`` of kind
+    "lj"): comd_tpu's sharded dispatch takes the split before -I.  Returns
+    what lj_force does."""
     r_pre = rs if r_pre is None else r_pre
+    require_stack("the positions", rs, 4)
+    require_stack("r_pre", r_pre, 4)
     kw = dict(want_energy=want_energy, box_chunk=box_chunk)
-    out = []
-    for r, rp in zip(rs, r_pre):
-        f_i, e_i = stencil.lj_pass(rp, nbr_map, ev, boxes=interior, **kw)
-        f_b, e_b = stencil.lj_pass(r, nbr_map, ev, boxes=boundary, **kw)
-        out.append((f_i + f_b,) + (_energy(pot, e_i + e_b, e_dtype)
-                                   if want_energy else (None, None)))
-    return out
+    f_i, e_i = stencil.lj_pass(r_pre, nbr_map, ev, boxes=interior, **kw)
+    f_b, e_b = stencil.lj_pass(rs, nbr_map, ev, boxes=boundary, **kw)
+    return (f_i + f_b,) + _stacked(_energy(pot, e_i + e_b, e_dtype)
+                                   if want_energy else None)
 
 
-def lj_force_interp(nbr_map: torch.Tensor, rs: Sequence[torch.Tensor],
+def lj_force_interp(nbr_map: torch.Tensor, rs: torch.Tensor,
                     ev: PairEvaluator, *,
                     e_dtype: torch.dtype = torch.float64,
                     want_energy: bool = True, box_chunk: int = 256):
     """Table-interpolated LJ (-I, comd_tpu's lj_force_interp) on K1 for
-    every shard, ``ev`` from ``make_lj_table_evaluator``.  The table
-    carries 4 eps and the shift, so U = 0.5 e (the atom sum counts every
-    pair twice).  comd_tpu computes the energy on every step; here only
-    when ``want_energy``, as for analytic LJ (the printed rows are the
-    same).  Returns, per shard, (force [3, n_local, A], U [n_local, A] |
-    None, ePot | None); U and ePot in ``e_dtype``."""
-    out = []
-    for r in rs:
-        f, e = stencil.lj_pass(r, nbr_map, ev, want_energy=want_energy,
-                               box_chunk=box_chunk)
-        if not want_energy:
-            out.append((f, None, None))
-            continue
-        u = 0.5 * e.to(e_dtype)
-        out.append((f, u, u.sum()))
-    return out
+    every shard of the stack, ``ev`` from ``make_lj_table_evaluator``.
+    The table carries 4 eps and the shift, so U = 0.5 e (the atom sum
+    counts every pair twice).  comd_tpu computes the energy on every step;
+    here only when ``want_energy``, as for analytic LJ (the printed rows
+    are the same).  Returns what lj_force does."""
+    require_stack("the positions", rs, 4)
+    f, e = stencil.lj_pass(rs, nbr_map, ev, want_energy=want_energy,
+                           box_chunk=box_chunk)
+    return (f,) + _stacked(0.5 * e.to(e_dtype) if want_energy else None)
 
 
 def lj_force_half(half_nbr_map: torch.Tensor, pot: LjPotential,
-                  rs: Sequence[torch.Tensor], ev: PairEvaluator,
+                  rs: torch.Tensor, ev: PairEvaluator,
                   fold: Callable, *, e_dtype: torch.dtype = torch.float64,
                   want_energy: bool = True, box_chunk: int = 256):
-    """LJ on K2 for every shard, each pair evaluated once; ``fold`` maps
-    the shards' dense [..., B, A] contributions to [..., n_local, A] (the
-    mesh's halo fold, run over all shards).  Returns, per shard,
-    (force [3, n_local, A], U [n_local, A] | None, ePot | None)."""
-    sweeps = [stencil.lj_pass_half(r, half_nbr_map, ev,
-                                   want_energy=want_energy,
-                                   box_chunk=box_chunk) for r in rs]
-    f = fold([fd for fd, _ed in sweeps])
-    if not want_energy:
-        return [(f_s, None, None) for f_s in f]
-    e = fold([ed for _fd, ed in sweeps])
-    return [(f_s,) + _energy(pot, e_s, e_dtype) for f_s, e_s in zip(f, e)]
+    """LJ on K2 for every shard of the stack, each pair evaluated once, one
+    launch; ``fold`` maps the dense [S, .., B, A] contributions to [S, ..,
+    n_local, A] (the mesh's halo fold, run over all shards).  Returns what
+    lj_force does."""
+    require_stack("the positions", rs, 4)
+    fd, ed = stencil.lj_pass_half(rs, half_nbr_map, ev,
+                                  want_energy=want_energy,
+                                  box_chunk=box_chunk)
+    f = fold(fd)
+    return (f,) + _stacked(_energy(pot, fold(ed), e_dtype) if want_energy
+                           else None)
 
 
 def _nl_result(pot: LjPotential, nlist, n_atoms, f_rows, e_rows, e_dtype):
@@ -174,7 +173,8 @@ def _nl_result(pot: LjPotential, nlist, n_atoms, f_rows, e_rows, e_dtype):
     if e_rows is None:
         return force, None, None
     e = e_rows[0] if len(e_rows) == 1 else torch.cat(e_rows)
-    return (force,) + _energy(pot, e, e_dtype)   # zero on invalid rows
+    u = _energy(pot, e, e_dtype)        # zero on invalid rows
+    return force, u, u.sum()
 
 
 def lj_force_nl(nlists: Sequence[nlmod.NeighborList], pot: LjPotential,

@@ -4,15 +4,19 @@ Port of comd_tpu.parallel.sharded.  The reference's MPI rank grid
 (initDecomposition, src-mpi/decomposition.c) is a ``Mesh`` of shards; each
 shard owns one brick of the box in its own local frame and holds its own
 ``SimState``.  All shards share one CellGeometry, GeomMaps and
-ExchangePlan, as comd_tpu's shards run one program.  comd_tpu runs each
-step as one ``shard_map`` program; here each process holds its shards
-(all of them in a single process; a contiguous block of them a process in
-a multi-process launch, parallel/dist.py) on its one device, and a step is
-a loop over them with the mesh's exchanges between the per-shard phases
-(a head, the rebucket or the ghost refresh as the trigger says, the rest,
-as in sim.py); in one process on the card each step is one CUDA graph
-over every shard, the rebucket a conditional node of it
-(stepgraph.py):
+ExchangePlan, as comd_tpu's shards run one program.  comd_tpu holds every
+mesh array with a leading [Px, Py, Pz] shard index and runs each step as
+one ``shard_map`` program; here each process holds its shards (all of
+them in a single process; a contiguous block of them a process in a
+multi-process launch, parallel/dist.py) on its one device, every
+per-shard field as one [S, ...] stack of them (the step's buffers; each
+shard's ``SimState`` views of the stacks, sim.stack_of), and each phase
+of the cell paths -- the head (kick, drift, trigger), K1/K2's passes,
+pass 2 and the landing -- is one launch over the stack, with the mesh's
+exchanges between the phases (a head, the rebucket or the ghost refresh
+as the trigger says, the rest, as in sim.py); in one process on the card
+each step is one CUDA graph over every shard, the rebucket a conditional
+node of it (stepgraph.py):
 
   - ``ppermute`` along an axis -> a ring shift over the shards' tensors,
     through ``torch.distributed`` where the neighbor is in another process
@@ -60,11 +64,10 @@ import torch
 from .. import cells, lattice
 from ..config import Config
 from ..constants import KB_EV
-from ..interop import state_from_numpy
 from ..ops import binning
 from ..ops import neighborlist as nlmod
-from ..sim import (Physics, _sync, _tscope, bin_atoms_host_np,
-                   init_potential, plan_geometry)
+from ..sim import (Physics, SimState, _sync, _tscope, bin_atoms_host_np,
+                   init_potential, plan_geometry, restack, stack_of)
 from . import dist, exchange, ki_comm
 from .mesh import Mesh, gen_shard_atoms, make_mesh
 
@@ -125,23 +128,29 @@ class ShardedSimulation(Physics):
     # ---------------- the transports ----------------
 
     def _fill(self, x, rhobar):
-        """dfEmbed halo fill over the mesh, per --commImpl.  Under -P
-        comd_tpu does not fuse F' into the fill (sharded.py:118-127), so
-        ki_fused then runs the ki fill, K3's copies alone.  collective in
-        one process runs the same copies (one ``halo_fill`` launch: the
-        staged exchange's bits, pure copies); across processes the staged
-        exchange.exchange_scalar over the process group."""
+        """dfEmbed halo fill over the mesh, per --commImpl, in place on
+        the shards' [B, A] fields ``x`` (the stack [S, B, A] or a list);
+        ``rhobar`` the shards' [n_local, A] densities.  Returns the
+        filled fields like ``x`` (``sim.restack``).
+        Under -P comd_tpu does not fuse F' into the fill
+        (sharded.py:118-127), so ki_fused then runs the ki fill, K3's
+        copies alone.  collective in one process runs the same copies (one
+        ``halo_fill`` launch: the staged exchange's bits, pure copies);
+        across processes the staged exchange.exchange_scalar over the
+        process group."""
         ci = self.cfg.comm_impl
         if ci == "ki_fused" and not self.cfg.spline:
-            return ki_comm.exchange_scalar_ki_fused(self.halo, x, rhobar,
-                                                    self.f_eval)
+            return restack(x, ki_comm.exchange_scalar_ki_fused(
+                self.halo, list(x), list(rhobar), self.f_eval))
         return self._fill_nl(x)
 
     def _fold(self, x):
-        """The half-shell fold over the mesh, in place on the dense
-        fields (the caller's fresh sweep outputs): one ``fold_halo``
-        launch a stage under every --commImpl (ki_comm.fold_halo_ki)."""
-        return ki_comm.fold_halo_ki(self.halo, x)
+        """The half-shell fold over the mesh, in place on the stack of
+        dense fields ``x`` [S, .., B, A] (the caller's fresh sweep
+        outputs): one ``fold_halo`` launch a stage under every --commImpl
+        (ki_comm.fold_halo_ki).  Returns the local rows [S, .., n_local,
+        A]."""
+        return restack(x, ki_comm.fold_halo_ki(self.halo, list(x)))
 
     def _fill_nl(self, x):
         """The dfEmbed fill of K3's copies, the neighbor-list paths'
@@ -154,8 +163,8 @@ class ShardedSimulation(Physics):
         the staged exchange.exchange_scalar over the process group under
         collective."""
         if self.mesh.nprocs > 1 and self.cfg.comm_impl == "collective":
-            return exchange.exchange_scalar(self.halo, x)
-        return ki_comm.exchange_scalar_ki(self.halo, x)
+            return restack(x, exchange.exchange_scalar(self.halo, list(x)))
+        return restack(x, ki_comm.exchange_scalar_ki(self.halo, list(x)))
 
     def _exchange_atoms(self, r, p, gid, n_atoms, out=None):
         """Atom exchange per --commImpl, in place on the lists' tensors,
@@ -187,7 +196,7 @@ class ShardedSimulation(Physics):
                for t in zip(r, p, gid, n_atoms)]
         ovf = torch.stack([o[5] for o in reb]).any()
         # the exchange overwrites the rebucketed fields
-        r_reb = [o[0].clone() for o in reb] if pre else None
+        r_reb = torch.stack([o[0] for o in reb]) if pre else None
         r, p, gid, n_atoms, ovf2 = self._exchange_atoms(
             *[[o[k] for o in reb] for k in range(4)], out=out)
         res = (r, p, gid, n_atoms, ovf | ovf2)
@@ -196,15 +205,14 @@ class ShardedSimulation(Physics):
         migrated = (torch.stack([o[4] for o in reb]) > 0).any()
         if self.mesh.nprocs > 1:
             migrated = dist.allgather(migrated).any()
-        return res + ([torch.where(migrated, a, b)
-                       for a, b in zip(r, r_reb)],)
+        return res + (torch.where(migrated, stack_of(r), r_reb),)
 
     def _head(self, cond) -> None:
-        """The head of a lazy or list step over the mesh, in place: every
-        shard's half kick and drift, and the skin trigger of this
-        process's shards (``cond.flag``, a 0-dim bool or-ed over them by
-        the launches themselves; ``cond.handles`` set from the or by the
-        last)."""
+        """The head of a lazy or list step over the mesh, in place, one
+        launch over the stacks: every shard's half kick and drift, and the
+        skin trigger of this process's shards (``cond.flag``, a 0-dim bool
+        or-ed over them by the launch; ``cond.handles`` set from the
+        or)."""
         last = ([lst.last_r for lst in self.nlists] if self.uses_nl
                 else self.last_r)
         cond.flag = self._kick_drift(self.states, last, cond.handles)
@@ -225,27 +233,30 @@ class ShardedSimulation(Physics):
         """The slot-aligned ghost-position refresh of a step that does not
         rebucket; under -a 1 (the cell split or the NL row split) the
         interior sweeps read the positions before it (comd_tpu's
-        sharded.py:459-466), copied into their buffers first."""
+        sharded.py:459-466), copied into their stack first (one copy)."""
         r = [s.r for s in self.states]
         if self._reads_r_pre:
-            for b, x in zip(self._r_pre(), r):
-                b.copy_(x)
+            self._r_pre().copy_(stack_of(r))
         self.exchange_positions(r)
 
     def _rest(self, want_energy: bool) -> None:
         """The rest of a step over the mesh, in place: the force (over the
         lists on the NL paths; under -a 1 the interior sweeps on the
         buffers ``_refresh`` or ``_rebucket_step`` filled), the second half
-        kick and the mesh reductions."""
+        kick and the mesh reductions: on the cell paths each phase one
+        launch over the shards' stacks."""
         st = self.states
         r = [s.r for s in st]
-        r_pre = self._r_pre() if self._reads_r_pre else r
         if self.uses_nl:
+            r_pre = list(self._r_pre()) if self._reads_r_pre else r
             res = self.forces_nl(self.nlists, r, [s.n_atoms for s in st],
                                  self._fill_nl, want_energy, r_pre)
         else:
-            res = self.forces(r, [s.n_atoms for s in st], self._fill,
-                              self._fold, want_energy, r_pre, passes=True)
+            rs = stack_of(r)
+            res = self.forces(rs, stack_of(s.n_atoms for s in st),
+                              self._fill, self._fold, want_energy,
+                              self._r_pre() if self._reads_r_pre else rs,
+                              passes=True)
         parts = self._land(st, res, want_energy)
         if parts is not None and self.mesh.nprocs > 1:
             self._e_parts = parts
@@ -264,11 +275,12 @@ class ShardedSimulation(Physics):
             [s.r for s in st], [s.p for s in st], [s.gid for s in st],
             [s.n_atoms for s in st], pre=pre,
             out=([s.r for s in st], [s.p for s in st], [s.gid for s in st]))
-        for s, n in zip(st, n_atoms):
-            s.n_atoms.copy_(n)
+        # the counts into their stack, the baselines and -a 1's positions
+        # from the positions' stack: one operation a field
+        torch.stack(n_atoms, out=stack_of(s.n_atoms for s in st))
+        rs = stack_of(r)
         if self._reads_r_pre:
-            for b, x in zip(self._r_pre(), sel[0] if sel else r):
-                b.copy_(x)
+            self._r_pre().copy_(sel[0] if sel else rs)
         overflow = st[0].overflow
         overflow.logical_or_(ovf)
         if self.uses_nl:
@@ -276,8 +288,7 @@ class ShardedSimulation(Physics):
                 [s.r for s in st], [s.n_atoms for s in st],
                 into=self.nlists)[1])
         elif self.uses_lazy:
-            for lr, s in zip(self.last_r, st):
-                lr.copy_(s.r)
+            stack_of(self.last_r).copy_(rs)
         self._bufs["rebuckets"].add_(1)
 
     def build_neighbor_list(self) -> None:
@@ -303,19 +314,23 @@ class ShardedSimulation(Physics):
         self.states, self.last_r, self.nlists = states, last_r, nlists
 
     def compute_force(self) -> None:
-        """Force-only evaluation of every shard (used at init)."""
+        """Force-only evaluation of every shard (used at init; the shards'
+        states views of one stack a field)."""
         st = self.states
         if self.uses_nl:
             res = self.forces_nl(self.nlists, [s.r for s in st],
                                  [s.n_atoms for s in st], self._fill_nl)
+            self._e_parts = torch.stack([e for _f, _u, e in res])
+            f = [self._full_force(f_loc, s.f)
+                 for s, (f_loc, _u, _e) in zip(st, res)]
         else:
-            res = self.forces([s.r for s in st], [s.n_atoms for s in st],
-                              self._fill, self._fold)
-        self._e_parts = torch.stack([e for _f, _u, e in res])
+            f_loc, _u, self._e_parts = self.forces(
+                stack_of(s.r for s in st), stack_of(s.n_atoms for s in st),
+                self._fill, self._fold)
+            f = self._full_force(f_loc, stack_of(s.f for s in st))
         e_pot = self._e_parts.sum()
-        self.states = [dataclasses.replace(
-            s, f=self._full_force(f_loc, s.f), e_potential=e_pot)
-            for s, (f_loc, _u, _e) in zip(st, res)]
+        self.states = [dataclasses.replace(s, f=f[i], e_potential=e_pot)
+                       for i, s in enumerate(st)]
 
     def initial_exchange(self) -> None:
         """The first ghost fill: the atom exchange on the freshly binned
@@ -437,17 +452,19 @@ def init_sharded_simulation(cfg: Config, timers=None) -> ShardedSimulation:
     e_pot = torch.zeros((), dtype=cfg.torch_energy_dtype, device=dev)
     n_local = torch.tensor(n_global, dtype=torch.int32, device=dev)
     overflow = torch.zeros((), dtype=torch.bool, device=dev)
-    states = []
+    binned = []
     for c in my_coords:
         r_s, gid_s = shard_atoms[c]
         p_s = lattice.apply_temperature(gid_s, pot.mass, cfg.temperature,
                                         vcm, scale)
-        d = bin_atoms_host_np(geom, cfg, r_s - np.asarray(c) * local_extent,
-                              p_s, gid_s)
-        d.update(e_potential=0.0, n_local=0, overflow=False)
-        states.append(dataclasses.replace(
-            state_from_numpy(d, dev), e_potential=e_pot, n_local=n_local,
-            overflow=overflow))
+        binned.append(bin_atoms_host_np(
+            geom, cfg, r_s - np.asarray(c) * local_extent, p_s, gid_s))
+    # the owned shards' fields as one stack each, the states its views
+    stacks = {k: torch.as_tensor(np.stack([d[k] for d in binned]),
+                                 device=dev) for k in binned[0]}
+    states = [SimState(**{k: v[i] for k, v in stacks.items()},
+                       e_potential=e_pot, n_local=n_local,
+                       overflow=overflow) for i in range(len(binned))]
 
     sim = ShardedSimulation(
         cfg=cfg, pot=pot, geom=geom, plan=plan, mesh=mesh,

@@ -59,10 +59,62 @@ class SimState:
 
 
 #: the per-shard and the shared (mesh-wide) fields of a SimState, and the
-#: list's, as the step's buffers hold them
+#: list's, as the step's buffers hold them: a per-shard field one [S, ...]
+#: stack (comd_tpu's leading shard index), each shard's SimState a view
 _SHARD_FIELDS = ("r", "p", "f", "gid", "n_atoms")
 _SCALAR_FIELDS = ("e_potential", "n_local", "overflow")
 _LIST_FIELDS = ("a_list", "a_valid", "nl", "last_r", "row_start")
+
+
+def stack_of(ts) -> torch.Tensor:
+    """The one tensor [S, ...] of which the per-shard tensors ``ts`` are
+    the shards: views of one storage, alike, at one stride apart in order
+    (the step's buffers' views; one tensor is a stack of one).  Raises
+    ValueError for tensors that are not one stack: the cell paths' kernels
+    take a mesh's shards as one tensor, never one by one."""
+    ts = list(ts)
+    t0 = ts[0]
+    if len(ts) == 1:
+        return t0[None]
+    es = t0.element_size()
+    step, rem = divmod(ts[1].data_ptr() - t0.data_ptr(), es)
+    span = 1 + sum((n - 1) * st for n, st in zip(t0.shape, t0.stride()))
+    base = t0.untyped_storage().data_ptr()
+    ok = rem == 0 and step >= span and all(
+        t.shape == t0.shape and t.stride() == t0.stride() and
+        t.dtype == t0.dtype and t.device == t0.device and
+        t.untyped_storage().data_ptr() == base and
+        t.data_ptr() - t0.data_ptr() == i * step * es
+        for i, t in enumerate(ts))
+    if not ok:
+        raise ValueError(f"the {len(ts)} shards' {tuple(t0.shape)} tensors "
+                         f"are not one stack")
+    return t0.as_strided((len(ts),) + tuple(t0.shape),
+                         (step,) + tuple(t0.stride()), t0.storage_offset())
+
+
+def restack(x, ts):
+    """The result of an exchange on the shards of ``x`` (a stack, or a
+    list of per-shard tensors) that returns per-shard tensors ``ts``: a
+    list for a list; for a stack, the one stack ``ts`` are views of (an
+    exchange in place), else their values stacked anew."""
+    if not isinstance(x, torch.Tensor):
+        return ts
+    try:
+        return stack_of(ts)
+    except ValueError:
+        return torch.stack(list(ts))
+
+
+def clone_stacked(states) -> list:
+    """Clones of the shards' SimStates, views of new [S, ...] stacks a
+    per-shard field as the step's buffers hold them; the shared scalars
+    cloned once."""
+    t = {f: torch.stack([getattr(s, f) for s in states])
+         for f in _SHARD_FIELDS}
+    sc = {f: getattr(states[0], f).clone() for f in _SCALAR_FIELDS}
+    return [SimState(**{f: t[f][i] for f in _SHARD_FIELDS}, **sc)
+            for i in range(len(states))]
 
 
 class Physics:
@@ -152,60 +204,63 @@ class Physics:
 
     def _kick_drift(self, states, lasts=None, handles=(), images=None):
         """Half kick and drift of every shard, in place, and with the lazy
-        baselines ``lasts`` ([3, B, A] a shard) the skin trigger or-ed over
-        the shards, a 0-dim bool (ops/cuda/step.kick_drift_trigger: one
-        launch a shard, each after the first or-ing its trigger into the
-        flag; the last sets ``handles``, the step graph's IF nodes', from
-        the or); with ``images`` (a single domain's ``maps.images``) the
-        ghost refresh in the same launch.  Returns the flag, or None
-        without ``lasts``."""
+        baselines ``lasts`` ([3, B, A] a shard, views of one stack) the
+        skin trigger or-ed over the shards, a 0-dim bool: one
+        ops/cuda/step.kick_drift_trigger launch over the shards' stacks,
+        which sets ``handles``, the step graph's IF nodes', from the or;
+        with ``images`` (a single domain's ``maps.images``) the ghost
+        refresh in the same launch.  Returns the flag, or None without
+        ``lasts``."""
         kick = self._c(0.5 * self.cfg.dt)
         drift = self._c(self.cfg.dt * (1.0 / self.mass))
-        lasts = [None] * len(states) if lasts is None else lasts
-        flag = None
-        for i, (s, b) in enumerate(zip(states, lasts)):
-            flag = step_ops.kick_drift_trigger(
-                s.p, s.r, s.f, b, self.geom.n_local, kick, drift, self.skin,
-                flag, add=flag is not None,
-                handles=handles if i == len(states) - 1 else (),
-                images=images)
-        return flag
+        p, r, f = (stack_of(getattr(s, k) for s in states)
+                   for k in ("p", "r", "f"))
+        return step_ops.kick_drift_trigger(
+            p, r, f, None if lasts is None else stack_of(lasts),
+            self.geom.n_local, kick, drift, self.skin, handles=handles,
+            images=images)
 
     def _full_force(self, f_loc, like):
-        """The [3, B, A] force field of a shard's force ``f_loc``: a list
-        force per row (``neighborlist.RowForce``) landed by one
-        ``land_rows`` launch without the kick, else [3, n_local, A] in the
-        local cells; halo rows zero."""
+        """The force field of a force ``f_loc`` (``like``'s shape: a
+        shard's [3, B, A] or a stack [S, 3, B, A]): a list force per row
+        (``neighborlist.RowForce``, one shard's) landed by one
+        ``land_rows`` launch without the kick, else [.., 3, n_local, A] in
+        the local cells; halo rows zero."""
         if isinstance(f_loc, nlmod.RowForce):
             f = torch.empty_like(like)
             step_ops.land_rows(f, None, f_loc.nlist, f_loc.n_atoms,
                                f_loc.parts, None, self.geom.n_local)
             return f
         f = torch.zeros_like(like)
-        f[:, :self.geom.n_local] = f_loc.to(like.dtype)
+        f[..., :self.geom.n_local, :] = f_loc.to(like.dtype)
         return f
 
     def _land(self, states, res, want_energy: bool):
-        """The end of a step, in place: each shard's force (``res`` as
-        ``forces(passes=True)`` or ``forces_nl`` returns it: a force,
-        EAM's two passes, or a list force per row), the second half kick
-        and the local atom count, one ``land`` (``land_rows``) launch a
-        shard (ops/cuda/step.py), and, with the energy terms, ePot.
-        Returns the shards' ePot stacked, or None."""
+        """The end of a step, in place: the shards' force, the second half
+        kick and the local atom count, and, with the energy terms, ePot.
+        ``res`` as ``forces(passes=True)`` returns it (the stacks' force
+        or EAM's two passes, U, each shard's ePot): one ``land`` launch
+        over the shards' stacks; or as ``forces_nl`` returns it (a list
+        force per row a shard): one ``land_rows`` launch a shard
+        (ops/cuda/step.py).  Returns the shards' ePot stacked, or None."""
         kick = self._c(0.5 * self.cfg.dt)
         s0 = states[0]
-        for i, (s, (f_loc, _u, _e)) in enumerate(zip(states, res)):
-            if isinstance(f_loc, nlmod.RowForce):
+        if isinstance(res, list):
+            for i, (s, (f_loc, _u, _e)) in enumerate(zip(states, res)):
                 step_ops.land_rows(s.f, s.p, f_loc.nlist, f_loc.n_atoms,
                                    f_loc.parts, s0.n_local,
                                    self.geom.n_local, kick, add=i > 0)
-                continue
+            parts = (torch.stack([e for _f, _u, e in res]) if want_energy
+                     else None)
+        else:
+            f_loc, _u, parts = res
             f1, f3 = f_loc if isinstance(f_loc, tuple) else (f_loc, None)
-            step_ops.land(s.f, s.p, f1, f3, s.n_atoms, s0.n_local,
-                          self.geom.n_local, kick, add=i > 0)
+            f, p, n = (stack_of(getattr(s, k) for s in states)
+                       for k in ("f", "p", "n_atoms"))
+            step_ops.land(f, p, f1, f3, n, s0.n_local, self.geom.n_local,
+                          kick)
         if not want_energy:
             return None
-        parts = torch.stack([e for _f, _u, e in res])
         s0.e_potential.copy_(parts.sum())
         return parts
 
@@ -226,26 +281,26 @@ class Physics:
 
     def _bind_shards(self, states, last_r, nlists):
         """Every shard's state, lazy baseline (``last_r``; None before the
-        first step: the positions) and list in the step's buffers
-        (stepgraph.keep: copied in where another tensor took a buffer's
-        place; new buffers drop the graphs), beside the device rebucket
-        counter and, under -a 1 on a mesh, each shard's interior-sweep
-        positions.  Returns (states, last_r, nlists) over the buffers; the
+        first step: the positions) and list in the step's buffers, one
+        [S, ...] stack a field (stepgraph.keep: copied in where another
+        tensor took a shard's place; new buffers drop the graphs), beside
+        the device rebucket counter and, under -a 1 on a mesh, the stack of
+        the interior sweeps' positions.  Returns (states, last_r, nlists)
+        over the buffers, each shard's fields views of the stacks; the
         shards share one ePot, n_local and overflow."""
-        t = {}
-        for i, s in enumerate(states):
-            for f in _SHARD_FIELDS:
-                t[f, i] = getattr(s, f)
-            if self.uses_lazy:
-                t["last_r", i] = s.r if last_r is None else last_r[i]
-            if self.uses_nl:
-                for f in _LIST_FIELDS:
-                    t["nl_" + f, i] = getattr(nlists[i], f)
-            if self._reads_r_pre:
-                b = self._bufs.get(("r_pre", i))
-                same = b is not None and (b.shape, b.dtype, b.device) == (
-                    s.r.shape, s.r.dtype, s.r.device)
-                t["r_pre", i] = b if same else s.r
+        t = {f: [getattr(s, f) for s in states] for f in _SHARD_FIELDS}
+        if self.uses_lazy:
+            t["last_r"] = [s.r for s in states] if last_r is None \
+                else list(last_r)
+        if self.uses_nl:
+            for f in _LIST_FIELDS:
+                t["nl_" + f] = [getattr(lst, f) for lst in nlists]
+        if self._reads_r_pre:
+            b = self._bufs.get("r_pre")
+            r0 = states[0].r
+            same = b is not None and (b.shape, b.dtype, b.device) == (
+                (len(states),) + tuple(r0.shape), r0.dtype, r0.device)
+            t["r_pre"] = b if same else [s.r for s in states]
         for f in _SCALAR_FIELDS:
             t[f] = getattr(states[0], f)
         t["rebuckets"] = self._bufs.get("rebuckets")
@@ -258,26 +313,29 @@ class Physics:
         return self._views()
 
     def _views(self):
-        """(states, last_r, nlists) over the step's buffers."""
+        """(states, last_r, nlists) over the step's buffers: shard i's
+        fields the stacks' views [i]."""
         b = self._bufs
         n = range(self._n_bound)
-        states = [SimState(**{f: b[f, i] for f in _SHARD_FIELDS},
+        states = [SimState(**{f: b[f][i] for f in _SHARD_FIELDS},
                            **{f: b[f] for f in _SCALAR_FIELDS}) for i in n]
-        last_r = [b["last_r", i] for i in n] if self.uses_lazy else None
-        nlists = ([nlmod.NeighborList(**{f: b["nl_" + f, i]
+        last_r = [b["last_r"][i] for i in n] if self.uses_lazy else None
+        nlists = ([nlmod.NeighborList(**{f: b["nl_" + f][i]
                                          for f in _LIST_FIELDS})
                    for i in n] if self.uses_nl else None)
         return states, last_r, nlists
 
-    def _r_pre(self) -> list:
-        """Every shard's buffer of the positions -a 1's interior sweeps
+    def _r_pre(self) -> torch.Tensor:
+        """The stack [S, 3, B, A] of the positions -a 1's interior sweeps
         read."""
-        return [self._bufs["r_pre", i] for i in range(self._n_bound)]
+        return self._bufs["r_pre"]
 
     @contextlib.contextmanager
     def _scratch(self):
         """The step on throwaway clones of its buffers (a capture's warm-up
-        of both branches: the real state does not move)."""
+        of both branches: the real state does not move): each stack cloned
+        whole and the shards' views taken anew on the clones, so the
+        warm-up runs on stacks as the step does."""
         saved = self._bufs
         self._bufs = {k: v.clone() for k, v in saved.items()}
         self._assign(*self._views())
@@ -370,11 +428,13 @@ class Physics:
         comd_tpu ignores ``--halfShell`` under -I.  Under -a 1 on a mesh
         (``uses_split``) K1 sweeps the interior cells on ``r_pre`` (the
         pre-exchange positions) and the boundary cells on ``rs``, whatever
-        --halfShell or -I say (analytic LJ).  ``rs``/``n_atoms``/``r_pre``
-        hold one entry per shard; ``fill`` (dfEmbed halo fill) and
-        ``fold`` (half-shell halo fold) run over all shards.  Returns per
-        shard (f_loc [3, n_local, A], U [n_local, A] | None, ePot | None),
-        with ``passes`` EAM's f_loc as its two passes (f1, f3) on K1;
+        --halfShell or -I say (analytic LJ).  ``rs`` [S, 3, B, A],
+        ``n_atoms`` [S, B] and ``r_pre`` are the shards' stacks (a list of
+        shards raises), each pass one launch over them; ``fill`` (dfEmbed
+        halo fill) and ``fold`` (half-shell halo fold) run over all shards
+        of a stack.  Returns (f_loc [S, 3, n_local, A], U [S, n_local, A] |
+        None, ePot a shard [S] | None: each shard's sum of its U), with
+        ``passes`` EAM's f_loc as its two passes (f1, f3) on K1;
         ``want_energy=False`` skips the energy terms."""
         maps, cfg = self.maps, self.cfg
         kw = dict(e_dtype=cfg.torch_energy_dtype, want_energy=want_energy,
@@ -412,8 +472,8 @@ class Physics:
                                       self.f_eval, fill,
                                       halo_src=self._halo_src,
                                       passes=passes, **kw)
-        return [(f_loc, u, None if u is None else u.sum())
-                for f_loc, u, _dfe in out]
+        f_loc, u, _dfe = out
+        return f_loc, u, None if u is None else force_lj.shard_sums(u)
 
     # ---------------- neighbor lists ----------------
 
@@ -502,11 +562,19 @@ class Simulation(Physics):
     # ---------------- force + energy ----------------
 
     def _fill(self, xs, _rhobar=None):
-        """The serial periodic dfEmbed halo fill, for callers without the
-        maps' sources (the step's pass 2, on the cells or the list's rows,
-        fills the halo rows itself, ``_halo_src``)."""
-        return [binning.fill_halo_scalar_serial(self.geom, self.maps, x)
-                for x in xs]
+        """The serial periodic dfEmbed halo fill of each [B, A] field of
+        ``xs`` (a stack or a list), for callers without the maps' sources
+        (the step's pass 2, on the cells or the list's rows, fills the halo
+        rows itself, ``_halo_src``); like ``xs`` (``restack``)."""
+        return restack(xs, [binning.fill_halo_scalar_serial(
+            self.geom, self.maps, x) for x in xs])
+
+    def _fold(self, x):
+        """The serial half-shell fold of the stack ``x`` [S, .., B, A],
+        in place (one ``fold_halo`` launch a shard: serially one); returns
+        its local rows [S, .., n_local, A]."""
+        return restack(x, [fold_halo_serial(self.geom, self.maps, v)
+                           for v in x])
 
     @property
     def _halo_src(self):
@@ -526,13 +594,13 @@ class Simulation(Physics):
                 return res
             return ((self._full_force(res[0], r)[:, :self.geom.n_local],)
                     + res[1:])
-        geom, maps = self.geom, self.maps
-
-        def fold(xs):
-            return [fold_halo_serial(geom, maps, x) for x in xs]
-
-        return self.forces([r], [n_atoms], self._fill, fold, want_energy,
-                           passes=passes)[0]
+        f_loc, u, parts = self.forces(r[None], n_atoms[None], self._fill,
+                                      self._fold, want_energy,
+                                      passes=passes)
+        f_loc = (tuple(x[0] for x in f_loc) if isinstance(f_loc, tuple)
+                 else f_loc[0])
+        return (f_loc,) + tuple(None if x is None else x[0]
+                                for x in (u, parts))
 
     def _head(self, cond) -> None:
         """The head of a lazy or list step, in place: half kick, drift, the
@@ -553,8 +621,13 @@ class Simulation(Physics):
         """The rest of a step, in place: the force (over the list on the NL
         paths), the second half kick and bookkeeping."""
         s = self.state
-        res = self.force(s.r, s.n_atoms, want_energy, self.nlist, passes=True)
-        self._land([s], [res], want_energy)
+        if self.uses_nl:
+            res = [self.force(s.r, s.n_atoms, want_energy, self.nlist,
+                              passes=True)]
+        else:
+            res = self.forces(s.r[None], s.n_atoms[None], self._fill,
+                              self._fold, want_energy, passes=True)
+        self._land([s], res, want_energy)
 
     def _rebucket_step(self, pre: bool = False) -> None:
         """The dense redistribution in place in the step's buffers (on the

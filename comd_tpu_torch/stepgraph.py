@@ -9,12 +9,12 @@ each step is one CUDA graph, captured once a ``want_energy`` and replayed
 ``n`` times from ``step_block`` with no host read between the replays:
 
   - a lazy or list step: the head (half kick, drift and the skin trigger,
-    one ``kick_drift_trigger`` launch a shard, ops/cuda/step.py; on a
-    mesh each launch ors its shard's trigger into the flag; serially the
-    same launch writes the ghost images), then a conditional IF node a
+    one ``kick_drift_trigger`` launch over the stack of every shard,
+    ops/cuda/step.py, the flag the or of the shards' triggers; serially
+    the same launch writes the ghost images), then a conditional IF node a
     body on the trigger (``ops/cuda/graph_if.py``: the step's
     ``Condition`` holds their handles, made in the captured graph before
-    the head, whose (last) trigger launch sets them, the first to the
+    the head, whose trigger launch sets them, the first to the
     trigger, the second to its negation; torch 2.11 has no conditional
     node that Python reaches): if set, the rebucket (sort, scatter, halo
     rebuild; on a mesh the atom exchange and in-cell sort; on the list
@@ -33,8 +33,9 @@ each step is one CUDA graph, captured once a ``want_energy`` and replayed
 The host reads the rebucket counter once a block, at its end: the
 simulation's ``n_rebucket``/``n_nl_build`` and the launch credits of the
 rebucket bodies come from it.  A graph replays fixed addresses, so the
-state lives in buffers the step owns (``keep``) and every update is in
-place; whatever replaced a buffer's tensor between blocks (a restore, a
+state lives in buffers the step owns (``keep``; a per-shard field one
+[S, ...] stack of every shard, each shard's state its views) and every
+update is in place; whatever replaced a buffer's tensor between blocks (a restore, a
 test, ``compute_force``) is copied into it before the next replay, and
 whatever the rest reads after a conditional body (the positions, counts,
 lists, baseline, -a 1's interior positions) lies in a buffer both bodies
@@ -78,24 +79,44 @@ from .ops.cuda import LAUNCHES
 from .ops.cuda.graph_if import BodyPool, Condition, condition, if_node
 
 
+def _is_view(t: torch.Tensor, b: torch.Tensor) -> bool:
+    """``t`` is the buffer view ``b`` itself: the same elements."""
+    return t.data_ptr() == b.data_ptr() and t.shape == b.shape and \
+        t.stride() == b.stride() and t.dtype == b.dtype and \
+        t.device == b.device
+
+
 def keep(bufs: dict, tensors: dict) -> bool:
     """Bring the step's buffers ``bufs`` (name -> tensor, filled in place)
     up to date with ``tensors`` (name -> the tensor that now holds that
-    value): a tensor that is its buffer is skipped, another one is copied
-    into it, and a name without a buffer of the same shape, dtype and
-    device gets a clone of its own.  Returns True when a buffer was made
-    (the graphs captured on the old ones must go)."""
+    value, or for a per-shard field the list of the shards' tensors, whose
+    buffer is one [S, ...] stack): a tensor that is its buffer (a shard's
+    that is its view of the stack) is skipped, another one is copied into
+    it, and a name without a buffer of the same shape, dtype and device
+    gets one of its own (a clone, or the shards stacked).  Returns True
+    when a buffer was made (the graphs captured on the old ones must
+    go)."""
     made = False
     for name, t in tensors.items():
         b = bufs.get(name)
         if b is t:
             continue
-        if b is None or b.shape != t.shape or b.dtype != t.dtype or \
-                b.device != t.device:
-            bufs[name] = t.clone(memory_format=torch.contiguous_format)
-            made = True
+        if isinstance(t, torch.Tensor):
+            shape, dtype, device = t.shape, t.dtype, t.device
         else:
+            shape = (len(t),) + tuple(t[0].shape)
+            dtype, device = t[0].dtype, t[0].device
+        if b is None or b.shape != shape or b.dtype != dtype or \
+                b.device != device:
+            bufs[name] = (t.clone(memory_format=torch.contiguous_format)
+                          if isinstance(t, torch.Tensor) else torch.stack(t))
+            made = True
+        elif isinstance(t, torch.Tensor):
             b.copy_(t)
+        else:
+            for i, x in enumerate(t):
+                if not _is_view(x, b[i]):
+                    b[i].copy_(x)
     return made
 
 

@@ -12,12 +12,13 @@ comd_tpu's -s table: the phase names are comd_tpu's.
 
 Phases (reference enum names), each the code the step runs:
   velocity      the second half kick (timestep.c:109-133) with the force
-                landing and atom count: one ``land`` launch a shard
-                (``land_rows`` from the rows on the list paths)
+                landing and atom count: one ``land`` launch over every
+                shard (``land_rows`` from the rows a shard on the list
+                paths)
   position      the drift (timestep.c:122-133) with the first half kick
-                and the skin trigger: one ``kick_drift_trigger`` launch a
-                shard (ops/cuda/step.py), serially on the lazy and list
-                steps with the ghost refresh it writes
+                and the skin trigger: one ``kick_drift_trigger`` launch
+                over every shard (ops/cuda/step.py), serially on the lazy
+                and list steps with the ghost refresh it writes
   redistribute  rebucket sort + scatter + halo rebuild (+ the atom
                 exchange and in-cell sort on a mesh)
   atomHalo      ghost position refresh alone (serially the positions of
@@ -42,10 +43,12 @@ import torch
 
 
 def _phase_fns(sim):
-    """dict name -> (per-shard SimStates -> per-shard SimStates); a single
+    """dict name -> (per-shard SimStates -> per-shard SimStates), the
+    states views of one stack a field (sim.clone_stacked); a single
     domain is one shard."""
     from ..ops import binning
     from ..ops.cuda import step
+    from ..sim import stack_of
 
     geom, maps = sim.geom, sim.maps
     sharded = hasattr(sim, "states")
@@ -53,19 +56,19 @@ def _phase_fns(sim):
 
     def forces(st, passes=False):
         rs, ns = [s.r for s in st], [s.n_atoms for s in st]
-        if sharded and sim.uses_nl:
-            return sim.forces_nl(sim.nlists, rs, ns, sim._fill_nl)
-        if sharded:
-            return sim.forces(rs, ns, sim._fill, sim._fold, passes=passes)
-        # the list force stays per row; ``force`` lands it
-        return [sim.force(rs[0], ns[0], nlist=sim.nlist,
-                          passes=passes or sim.uses_nl)]
+        if sim.uses_nl:
+            # the list force stays per row; ``_full_force`` lands it
+            if sharded:
+                return sim.forces_nl(sim.nlists, rs, ns, sim._fill_nl)
+            return [sim.force(rs[0], ns[0], nlist=sim.nlist, passes=True)]
+        return sim.forces(stack_of(rs), stack_of(ns), sim._fill, sim._fold,
+                          passes=passes)
 
     # the step's landing lands the force of its state (EAM's two passes)
-    landed = forces([_clone(s) for s in _states(sim)], passes=True)
+    landed = forces(_clone(_states(sim)), passes=True)
     # the skin trigger's baselines (the step's: r at the last rebucket);
     # -S 0 steps without the trigger
-    lasts = ([s.r.clone() for s in _states(sim)]
+    lasts = (list(torch.stack([s.r for s in _states(sim)]))
              if sim.uses_nl or sim.uses_lazy else None)
 
     def velocity(st):
@@ -115,8 +118,13 @@ def _phase_fns(sim):
     fns["atomHalo"] = atom_halo
 
     def force(st):
-        return [dataclasses.replace(s, f=sim._full_force(f_loc, s.f))
-                for s, (f_loc, _u, _e) in zip(st, forces(st))]
+        res = forces(st)
+        if isinstance(res, list):
+            f = [sim._full_force(f_loc, s.f)
+                 for s, (f_loc, _u, _e) in zip(st, res)]
+        else:
+            f = sim._full_force(res[0], stack_of(s.f for s in st))
+        return [dataclasses.replace(s, f=f[i]) for i, s in enumerate(st)]
 
     fns["force"] = force
 
@@ -124,13 +132,13 @@ def _phase_fns(sim):
         def eam_halo(st):
             # the run's fill on any [B, A] field, in place on the clones'
             # f[0]; the fused transport reads f[1]'s local rows as rhobar
-            xs = [s.f[0] for s in st]
+            f = stack_of(s.f for s in st)
             if not sharded:
-                sim._fill(xs)
+                sim._fill(f[:, 0])
             elif sim.uses_nl:
-                sim._fill_nl(xs)
+                sim._fill_nl(list(f[:, 0]))
             else:
-                sim._fill(xs, [s.f[1][:geom.n_local] for s in st])
+                sim._fill(f[:, 0], f[:, 1, :geom.n_local])
             return st
 
         fns["eamHalo"] = eam_halo
@@ -149,15 +157,16 @@ def _states(sim) -> list:
     return sim.states if hasattr(sim, "states") else [sim.state]
 
 
-def _clone(s):
-    return dataclasses.replace(s, **{
-        f.name: getattr(s, f.name).clone() for f in dataclasses.fields(s)})
+def _clone(states) -> list:
+    """Clones of the shards' states, views of new stacks as the step's."""
+    from ..sim import clone_stacked
+    return clone_stacked(states)
 
 
 def _block_seconds(sim, fn, n: int) -> float:
     """Seconds for ``n`` calls of ``fn`` on fresh clones of the state:
     CUDA events on the card, the wall clock on the CPU."""
-    st = [_clone(s) for s in _states(sim)]
+    st = _clone(_states(sim))
     if sim.device.type == "cuda":
         torch.cuda.synchronize(sim.device)
         start = torch.cuda.Event(enable_timing=True)

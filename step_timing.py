@@ -21,10 +21,15 @@ graphs (CUDA events around replays; ms a launch):
                      trigger with the image map (one launch), or on a
                      tree without it the trigger and refresh_halo
   mesh head          the 2x2x2 mesh's head on eight shard-sized copies
-                     (21^3 local cells of 23^3): eight trigger launches
-                     and the or of their flags (the parent tree's
-                     torch.stack and any, or each launch after the first
-                     or-ing into the flag)
+                     (21^3 local cells of 23^3): on a tree with the
+                     stacked step kernels (step.MAX_SHARDS) one trigger
+                     launch over their stack, else eight launches and the
+                     or of their flags (torch.stack and any, or each
+                     launch after the first or-ing into the flag)
+  mesh embed_fill, mesh land
+                     pass 2 (no energy, zero halo) and the landing (two
+                     passes) of those eight shards: one launch over the
+                     stack, or eight
   refresh_halo       the ghost refresh of the positions alone
   halo fill          binning.fill_halo_serial: r, gid and n_atoms (one
                      launch, or refresh_halo and two index copies)
@@ -505,8 +510,35 @@ def worker(tree: str, cases_re: str) -> dict:
     shards = [tuple(x[:, :b_s].clone() for x in (s.p, s.r, s.f, last))
               for _ in range(8)]
     add = "add" in inspect.signature(step.kick_drift_trigger).parameters
+    stacked = hasattr(step, "MAX_SHARDS")
+    stacks = [torch.stack([sh[k] for sh in shards]) for k in range(4)]
+    rho_s = [rho[:nl_s].clone() for _ in shards]
+    n_s = [s.n_atoms[:b_s].clone() for _ in shards]
+    f1_s = [s.f[:, :nl_s].clone() for _ in shards]
+    n_out = torch.zeros((), dtype=torch.int32, device="cuda")
+
+    stack_in = [torch.stack(x) for x in (f1_s, n_s, rho_s)]
+
+    def mesh_embed():
+        if stacked:
+            return step.embed_fill(sim.f_eval, stack_in[2], None,
+                                   stack_in[1], b_s, None, e_dtype)
+        return [step.embed_fill(sim.f_eval, x, None, n, b_s, None, e_dtype)
+                for x, n in zip(rho_s, n_s)]
+
+    def mesh_land():
+        if stacked:
+            step.land(stacks[2], stacks[0], stack_in[0], stack_in[0],
+                      stack_in[1], n_out, nl_s, kick)
+            return
+        for i, ((ps, _rs, fs, _ls), f1, n) in enumerate(
+                zip(shards, f1_s, n_s)):
+            step.land(fs, ps, f1, f1, n, n_out, nl_s, kick, add=i > 0)
 
     def mesh_head():
+        if stacked:
+            return step.kick_drift_trigger(*stacks, nl_s, kick, drift,
+                                           sim.skin)
         flag, flags = None, []
         for ps, rs, fs, ls in shards:
             if add:
@@ -519,6 +551,8 @@ def worker(tree: str, cases_re: str) -> dict:
         return flag if add else torch.stack(flags).any()
 
     cases["mesh head"] = mesh_head
+    cases["mesh embed_fill"] = mesh_embed
+    cases["mesh land"] = mesh_land
     # the serial redistribution as the lazy step's IF body runs it, on the
     # step's buffers (a canonical state rebucketed again: the same work)
     sim._bind()

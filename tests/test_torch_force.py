@@ -43,11 +43,11 @@ def _port_force(sim, r, n_atoms, impl, want_energy=True):
     ev = tforce.make_pair_evaluator(pot, rt.dtype, "cpu", impl)
     f_eval = tforce.make_f_eval(pot, rt.dtype, "cpu")
     f, u, dfe = tforce.eam_force(
-        maps.nbr_map, [rt], ev, f_eval,
-        lambda xs, _rhobar: [tbin.fill_halo_scalar_serial(sim.geom, maps, x)
-                             for x in xs],
-        n_atoms=[torch.from_numpy(n_atoms)], want_energy=want_energy)[0]
-    return f, u, dfe
+        maps.nbr_map, rt[None], ev, f_eval,
+        lambda xs, _rhobar: torch.stack([
+            tbin.fill_halo_scalar_serial(sim.geom, maps, x) for x in xs]),
+        n_atoms=torch.from_numpy(n_atoms)[None], want_energy=want_energy)
+    return f[0], None if u is None else u[0], dfe[0]
 
 
 def _ref_state(dtype, interp):

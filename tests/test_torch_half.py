@@ -103,6 +103,11 @@ def _close(ft, fj, atol, rtol):
                                atol=atol + rtol * np.abs(fj).max())
 
 
+def _one(res):
+    """One shard's results from the force of a stack of one."""
+    return tuple(None if x is None else x[0] for x in res)
+
+
 @pytest.fixture(scope="module")
 def eam32():
     sim, r, dfe, ev, maps = _eam_setup("float32", "cheb")
@@ -185,9 +190,10 @@ def test_lj_half_matches_pallas_half_f32():
     fj, uj, ej = lj_force_stencil_half(
         sim.geom, sim.pot, jnp.asarray(r), lambda x: j_fold(sim.geom, x),
         chunk=128, interpret=True)
-    ft, ut, et = tlj.lj_force_half(
-        maps.half_nbr_map, pot, [torch.from_numpy(r)], ev,
-        lambda xs: [fold_halo_serial(sim.geom, maps, x) for x in xs])[0]
+    ft, ut, et = _one(tlj.lj_force_half(
+        maps.half_nbr_map, pot, torch.from_numpy(r)[None], ev,
+        lambda xs: torch.stack([fold_halo_serial(sim.geom, maps, x)
+                                for x in xs])))
     _close(ft.numpy(), np.asarray(fj), 1e-4, 0.0)
     np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=1e-5,
                                atol=1e-6 * np.abs(np.asarray(uj)).max())
@@ -198,9 +204,10 @@ def test_lj_half_matches_xla_half_f64():
     sim, r, pot, ev, maps = _lj_setup("float64")
     fj, uj, ej = jlj.lj_force_half(sim.geom, sim.pot, jnp.asarray(r),
                                    lambda x: j_fold(sim.geom, x), chunk=32)
-    ft, ut, et = tlj.lj_force_half(
-        maps.half_nbr_map, pot, [torch.from_numpy(r)], ev,
-        lambda xs: [fold_halo_serial(sim.geom, maps, x) for x in xs])[0]
+    ft, ut, et = _one(tlj.lj_force_half(
+        maps.half_nbr_map, pot, torch.from_numpy(r)[None], ev,
+        lambda xs: torch.stack([fold_halo_serial(sim.geom, maps, x)
+                                for x in xs])))
     _close(ft.numpy(), np.asarray(fj), 0.0, 1e-12)
     _close(ut.numpy(), np.asarray(uj), 0.0, 1e-12)
     assert float(et) == pytest.approx(float(ej), rel=1e-12)

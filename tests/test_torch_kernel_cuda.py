@@ -846,7 +846,7 @@ def test_k1_subsets_match_plain(cuda_device, dtype, impl, doeam):
 def test_split_card_matches_cpu(cuda_device):
     """10 f64 lazy steps of the -a 1 mesh (12^3, 2x2x2, ki_fused) on the
     card against the same run on the CPU (plain versions): summation order
-    only; every step two K1 launches a pass a shard."""
+    only; every force two K1 launches a pass, each over every shard."""
     kw = dict(TRAJ, nx=12, ny=12, nz=12, dtype="float64", gpu_async=1,
               comm_impl="ki_fused")
     cpu = init_simulation(Config(device="cpu", **kw))
@@ -854,8 +854,7 @@ def test_split_card_matches_cpu(cuda_device):
     gpu = init_simulation(Config(device="cuda", **kw))
     cpu.step_block(10)
     gpu.step_block(10)
-    assert st.LAUNCHES["eam_pass1"] == st.LAUNCHES["eam_pass3"] == \
-        2 * 8 * 11
+    assert st.LAUNCHES["eam_pass1"] == st.LAUNCHES["eam_pass3"] == 2 * 11
     assert gpu.n_rebucket == cpu.n_rebucket
     for c, g in zip(cpu.states, gpu.states):
         assert torch.equal(g.gid.cpu(), c.gid)
@@ -1555,29 +1554,28 @@ def test_if_node_takes_its_branch(cuda_device, shards):
     """kick_drift_trigger sets the IF nodes' handles in a captured graph
     (no kernel of its own): each body runs at a replay exactly when the
     trigger (or its negation) holds, as the plain version takes the
-    branch on the host; over eight shards with ``add`` (the last launch
-    setting the handles), one shard displaced, the or of them."""
+    branch on the host; over a stack of eight shards in one launch, one
+    shard displaced, the or of them."""
     from comd_tpu_torch.ops.cuda import graph_if
     from comd_tpu_torch.stepgraph import cuda_capture
     B, A, nl, skin = 40, 8, 27, 0.5
-    shape = (3, B, A)
+    shape = (shards, 3, B, A)
     zero = torch.zeros(shape, dtype=torch.float32, device=cuda_device)
-    last = [torch.rand(shape, generator=torch.Generator().manual_seed(i))
-            .to(cuda_device) for i in range(shards)]
-    r = [x.clone() for x in last]
+    last = torch.stack([
+        torch.rand(shape[1:], generator=torch.Generator().manual_seed(i))
+        for i in range(shards)]).to(cuda_device)
+    r = last.clone()
     hits = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     bodies = graph_if.BodyPool(cuda_device)
-    step_ops.kick_drift_trigger(zero.clone(), r[0], zero, last[0], nl, 0.0,
+    step_ops.kick_drift_trigger(zero.clone(), r, zero, last, nl, 0.0,
                                 0.0, skin)     # the scratch, made outside
 
     def step():
         cond = graph_if.condition(cuda_device)
         assert len(cond.handles) == 2
-        for i in range(shards):
-            cond.flag = step_ops.kick_drift_trigger(
-                zero.clone(), r[i], zero, last[i], nl, 0.0, 0.0, skin,
-                cond.flag, add=i > 0,
-                handles=cond.handles if i == shards - 1 else ())
+        cond.flag = step_ops.kick_drift_trigger(
+            zero.clone(), r, zero, last, nl, 0.0, 0.0, skin,
+            handles=cond.handles)
         graph_if.if_node(cond, 0, lambda: hits[0].add_(1), bodies)
         graph_if.if_node(cond, 1, lambda: hits[1].add_(1), bodies)
 
@@ -1592,6 +1590,138 @@ def test_if_node_takes_its_branch(cuda_device, shards):
         graph_if.if_node_plain(fired, lambda: want[0].add_(1))
         graph_if.if_node_plain(fired, lambda: want[1].add_(1), True)
     assert hits.cpu().tolist() == want.tolist() == [2, 3]
+
+
+def _stack_equal(got, want) -> bool:
+    if isinstance(got, torch.Tensor) or got is None:
+        got, want = (got,), (want,)
+    return all((a is None) == (b is None) and
+               (a is None or (a.dtype == b.dtype and torch.equal(a, b)))
+               for a, b in zip(got, want))
+
+
+def _stack_of_results(outs):
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(None if outs[0][k] is None else
+                 torch.stack([o[k] for o in outs])
+                 for k in range(len(outs[0])))
+
+
+@pytest.mark.parametrize("dtype,impl", [("float32", "cheb"),
+                                        ("float64", "rows")])
+def test_stacked_launches_equal_shard_launches(cuda_device, dtype, impl):
+    """One launch over the stack of a 12^3 2x2x2 mesh's shards (8 interior
+    cells a shard) against the 8 launches of S = 1 on the shards' slices,
+    bit for bit: K1 passes 1 (with and without energy) and 3 and LJ over
+    every cell and the -a 1 interior and boundary subsets, the head (its
+    flag the or, one shard displaced), pass 2 (with and without energy,
+    serial and zero halo, on K1's strided rhobar) and the landing (the
+    count of every shard); K2 in f64, bit for bit where two runs of the
+    S = 1 launches agree bit for bit with each other, else within 1e-12 of
+    the largest value (K2's j side adds with atomics, in an order that
+    changes from launch to launch).  Each stacked call is one counted
+    launch."""
+    from comd_tpu_torch.ops import force_lj
+    from comd_tpu_torch.ops.cuda import LAUNCHES
+    from comd_tpu_torch.potentials.lj import init_lj_pot
+    from comd_tpu_torch.sim import stack_of
+    sim = _sim(dtype, impl, 12, "cuda", xproc=2, yproc=2, zproc=2)
+    S, nl, maps, ev = len(sim.states), sim.geom.n_local, sim.maps, \
+        sim.pair_eval
+    assert S == 8 and maps.interior.n > 0
+    r, p, f, n_atoms = (stack_of(getattr(x, k) for x in sim.states)
+                        for k in ("r", "p", "f", "n_atoms"))
+    B = r.shape[2]
+    dfe = (0.01 * r[:, 0]).contiguous()
+    lj_ev = force_lj.make_lj_evaluator(init_lj_pot(2.5), r.dtype)
+
+    def check(name, key, stacked, one):
+        n0 = LAUNCHES[key]
+        got = stacked()
+        assert LAUNCHES[key] == n0 + 1, name
+        assert _stack_equal(got, _stack_of_results([one(i)
+                                                    for i in range(S)])), \
+            name
+
+    for boxes in (None, maps.interior, maps.boundary):
+        for e in (True, False):
+            check(f"pass 1 {e} {boxes and boxes.n}", "eam_pass1",
+                  lambda: st.eam_pass1(r, maps.nbr_map, ev, want_energy=e,
+                                       boxes=boxes),
+                  lambda i: st.eam_pass1(r[i], maps.nbr_map, ev,
+                                         want_energy=e, boxes=boxes))
+            check(f"lj {e} {boxes and boxes.n}", "lj",
+                  lambda: st.lj_pass(r, maps.nbr_map, lj_ev, want_energy=e,
+                                     boxes=boxes),
+                  lambda i: st.lj_pass(r[i], maps.nbr_map, lj_ev,
+                                       want_energy=e, boxes=boxes))
+        check(f"pass 3 {boxes and boxes.n}", "eam_pass3",
+              lambda: st.eam_pass3(r, maps.nbr_map, ev, dfe, boxes=boxes),
+              lambda i: st.eam_pass3(r[i], maps.nbr_map, ev, dfe[i],
+                                     boxes=boxes))
+    if dtype == "float64":
+        hn = maps.half_nbr_map
+        for name, key, stacked, one in (
+                ("K2 pass 1", "half_eam_pass1",
+                 lambda: st.eam_pass1_half(r, hn, ev),
+                 lambda i: st.eam_pass1_half(r[i], hn, ev)),
+                ("K2 pass 3", "half_eam_pass3",
+                 lambda: st.eam_pass3_half(r, hn, ev, dfe),
+                 lambda i: st.eam_pass3_half(r[i], hn, ev, dfe[i])),
+                ("K2 LJ", "half_lj", lambda: st.lj_pass_half(r, hn, lj_ev),
+                 lambda i: st.lj_pass_half(r[i], hn, lj_ev))):
+            got = stacked()
+            runs = [_stack_of_results([one(i) for i in range(S)])
+                    for _ in range(2)]
+            if _stack_equal(runs[0], runs[1]):
+                assert _stack_equal(got, runs[0]), name
+            else:    # the j side's atomics: the launches differ themselves
+                for a, b in zip(got if isinstance(got, tuple) else (got,),
+                                runs[0] if isinstance(runs[0], tuple)
+                                else (runs[0],)):
+                    if a is not None:
+                        _close(a, b, 0.0, 1e-12)
+    # the head: one shard displaced, so that the or fires
+    kick, drift = sim._c(0.5 * sim.cfg.dt), sim._c(sim.cfg.dt / sim.mass)
+    last = r.clone()
+    last[S // 2, 0, nl // 2, 0] += 2.0 * sim.skin
+    pa, ra, pb, rb = p.clone(), r.clone(), p.clone(), r.clone()
+    n0 = LAUNCHES["kick_drift_trigger"]
+    flag = step_ops.kick_drift_trigger(pa, ra, f, last, nl, kick, drift,
+                                       sim.skin)
+    assert LAUNCHES["kick_drift_trigger"] == n0 + 1
+    flags = [step_ops.kick_drift_trigger(pb[i], rb[i], f[i], last[i], nl,
+                                         kick, drift, sim.skin)
+             for i in range(S)]
+    assert torch.equal(pa, pb) and torch.equal(ra, rb)
+    assert bool(flag) and [bool(x) for x in flags] == [
+        i == S // 2 for i in range(S)]
+    # pass 2 on K1's rhobar, a view of its output
+    _f1, phi, rho = st.eam_pass1(r, maps.nbr_map, ev)
+    e_dtype = sim.cfg.torch_energy_dtype
+    for energy in (True, False):
+        for src in (None, maps.halo_src):
+            ph = phi if energy else None
+            check(f"embed_fill {energy} {src is not None}", "embed_fill",
+                  lambda: step_ops.embed_fill(sim.f_eval, rho, ph, n_atoms,
+                                              B, src, e_dtype),
+                  lambda i: step_ops.embed_fill(
+                      sim.f_eval, rho[i], None if ph is None else ph[i],
+                      n_atoms[i], B, src, e_dtype))
+    # the landing of two passes
+    f3 = st.eam_pass3(r, maps.nbr_map, ev, dfe)
+    fa, pa, fb, pb = f.clone(), p.clone(), f.clone(), p.clone()
+    n_a = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    n_b = torch.zeros((), dtype=torch.int32, device=cuda_device)
+    step_ops.land(fa, pa, _f1, f3, n_atoms, n_a, nl, kick)
+    total = 0
+    for i in range(S):
+        step_ops.land(fb[i], pb[i], _f1[i], f3[i], n_atoms[i], n_b, nl,
+                      kick)
+        total += int(n_b)
+    assert torch.equal(fa, fb) and torch.equal(pa, pb)
+    assert int(n_a) == total == sim.n_global
 
 
 def _step_ops_cases(sim):

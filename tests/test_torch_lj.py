@@ -59,6 +59,11 @@ def _close(ft, fj, atol, rtol):
                                atol=atol + rtol * np.abs(fj).max())
 
 
+def _one(res):
+    """One shard's results from the force of a stack of one."""
+    return tuple(None if x is None else x[0] for x in res)
+
+
 @pytest.fixture(scope="module")
 def f32():
     sim, r, pot, ev, maps = _setup("float32")
@@ -81,7 +86,8 @@ def test_potential_carried_over(factor):
 
 def test_lj_plain_matches_pallas_f32(f32):
     sim, r, pot, ev, maps, (fj, uj, ej) = f32
-    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, [torch.from_numpy(r)], ev)[0]
+    ft, ut, et = _one(tlj.lj_force(maps.nbr_map, pot,
+                                   torch.from_numpy(r)[None], ev))
     _close(ft.numpy(), fj, 1e-4, 0.0)
     np.testing.assert_allclose(ut.numpy(), uj, rtol=1e-5,
                                atol=1e-6 * np.abs(uj).max())
@@ -91,8 +97,9 @@ def test_lj_plain_matches_pallas_f32(f32):
 
 def test_lj_no_energy_variant_f32(f32):
     sim, r, pot, ev, maps, (fj, _uj, _ej) = f32
-    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, [torch.from_numpy(r)], ev,
-                              want_energy=False)[0]
+    ft, ut, et = _one(tlj.lj_force(maps.nbr_map, pot,
+                                   torch.from_numpy(r)[None], ev,
+                                   want_energy=False))
     assert ut is None and et is None
     _close(ft.numpy(), fj, 1e-4, 0.0)
 
@@ -100,7 +107,8 @@ def test_lj_no_energy_variant_f32(f32):
 def test_lj_plain_matches_xla_f64():
     sim, r, pot, ev, maps = _setup("float64")
     fj, uj, ej = jlj.lj_force(sim.geom, sim.pot, jnp.asarray(r), chunk=32)
-    ft, ut, et = tlj.lj_force(maps.nbr_map, pot, [torch.from_numpy(r)], ev)[0]
+    ft, ut, et = _one(tlj.lj_force(maps.nbr_map, pot,
+                                   torch.from_numpy(r)[None], ev))
     _close(ft.numpy(), np.asarray(fj), 0.0, 1e-12)
     _close(ut.numpy(), np.asarray(uj), 0.0, 1e-12)
     assert float(et) == pytest.approx(float(ej), rel=1e-12)

@@ -60,8 +60,8 @@ def _cutoff_distance(rcut2, np_dtype):
 def _compare(jsim, tsim, r_np, dtype):
     jf, ju, je = jlj.lj_force_interp(jsim.geom, jsim.pot, jnp.asarray(r_np),
                                      chunk=64)
-    (tf, tu, te), = tlj.lj_force_interp(
-        tsim.maps.nbr_map, [torch.from_numpy(r_np)], tsim.pair_eval)
+    tf, tu, te = (x[0] for x in tlj.lj_force_interp(
+        tsim.maps.nbr_map, torch.from_numpy(r_np)[None], tsim.pair_eval))
     jf, ju = np.asarray(jf), np.asarray(ju)
     if dtype == "float64":
         np.testing.assert_allclose(tf.numpy(), jf, rtol=1e-12,

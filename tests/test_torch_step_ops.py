@@ -141,16 +141,16 @@ def test_kick_drift_trigger_matches_comd_tpu(geoms, dtype):
 @pytest.mark.parametrize("firing", [(), (5,), (0, 7)],
                          ids=["none", "one", "two"])
 def test_trigger_add_ors_the_shards(geoms, dtype, firing):
-    """Eight shards' launches into one flag, each after the first with
-    ``add``: the flag after each equals the or of comd_tpu's
-    needs_rebuild over the shards so far; the shards in ``firing`` have
-    one local slot a skin from its baseline, the others none past skin/2,
-    and one launch with a flag but no ``add`` writes its own trigger."""
+    """The stacks of the first k of eight shards in one call (k = 1..8),
+    into one flag: the flag equals the or of comd_tpu's needs_rebuild
+    over those shards; the shards in ``firing`` have one local slot a skin
+    from its baseline, the others none past skin/2, and one launch with a
+    flag on a shard of its own writes that shard's trigger."""
     _jsim, tsim = geoms(dtype)
     nl = tsim.geom.n_local
     shape = tsim.state.r.shape
     kick, drift = _c(0.5 * DT, dtype), _c(DT * (1.0 / MASS), dtype)
-    flag, want = None, False
+    fields, wants = [], []
     for i in range(8):
         p, f, r = _fields(shape, dtype, 10 + i)
         f *= 1e-3
@@ -161,15 +161,19 @@ def test_trigger_add_ors_the_shards(geoms, dtype, firing):
         rj = jnp.asarray(r) + (jnp.asarray(p) + jnp.asarray(p).dtype.type(
             0.5 * DT) * jnp.asarray(f)) * jnp.asarray(p).dtype.type(
             DT * (1.0 / MASS))
-        want = want or bool(jnl.needs_rebuild(jnp.asarray(last), rj, nl,
-                                              SKIN))
-        out = step.kick_drift_trigger(
-            torch.from_numpy(p), torch.from_numpy(r), torch.from_numpy(f),
-            torch.from_numpy(last), nl, kick, drift, SKIN, flag, add=i > 0)
-        assert flag is None or out is flag
-        flag = out
-        assert bool(flag) == want
-    assert want == bool(firing)
+        wants.append(bool(jnl.needs_rebuild(jnp.asarray(last), rj, nl,
+                                            SKIN)))
+        fields.append((p, r, f, last))
+    flag = torch.zeros((), dtype=torch.bool)
+    for k in range(1, 9):
+        p, r, f, last = (torch.from_numpy(np.stack([x[j] for x in
+                                                    fields[:k]]))
+                         for j in range(4))
+        out = step.kick_drift_trigger(p, r, f, last, nl, kick, drift, SKIN,
+                                      flag)
+        assert out is flag
+        assert bool(flag) == any(wants[:k])
+    assert any(wants) == bool(firing)
     p, f, r = _fields(shape, dtype, 30)
     assert not bool(step.kick_drift_trigger(
         torch.from_numpy(p), torch.from_numpy(r), torch.from_numpy(f * 0),
@@ -448,9 +452,12 @@ def test_land_matches_comd_tpu(geoms, dtype, two):
     _close(ft.numpy(), np.asarray(fj), dtype)
     _close(pt.numpy(), np.asarray(pj), dtype)
     assert int(n_out) == n_j
-    # a mesh's second shard adds its count to the first's
-    step.land(ft, pt, torch.from_numpy(f1), None, torch.from_numpy(n_atoms),
-              n_out, nl, kick, add=True)
+    # a mesh of two shards in one call: the counts of both
+    two_f = torch.from_numpy(np.stack([f_old, f_old]))
+    two_p = torch.from_numpy(np.stack([p, p]))
+    step.land(two_f, two_p, torch.from_numpy(np.stack([f1, f1])), None,
+              torch.from_numpy(np.stack([n_atoms, n_atoms])), n_out, nl,
+              kick)
     assert int(n_out) == 2 * n_j
 
 
@@ -461,12 +468,14 @@ def test_wrappers_check_their_operands(geoms):
     A = s.r.shape[2]
     with pytest.raises(ValueError):
         step.kick_drift_trigger(s.p, s.r, s.f.double(), None, nl, 0.5, 0.1)
-    for kw in (dict(add=True), dict(handles=(1, 2)),
-               dict(flag=torch.zeros(()), add=True)):
-        with pytest.raises(ValueError):     # add without a flag, handles
-            step.kick_drift_trigger(         # off the card, a float flag
+    for kw in (dict(handles=(1, 2)), dict(flag=torch.zeros(()))):
+        with pytest.raises(ValueError):     # handles off the card, a
+            step.kick_drift_trigger(         # float flag
                 s.p.clone(), s.r.clone(), s.f, s.r.clone(), nl, 0.5, 0.1,
                 **kw)
+    with pytest.raises(ValueError):         # a list of shards: no stack
+        step.kick_drift_trigger([s.p.clone()], [s.r.clone()], [s.f], None,
+                                nl, 0.5, 0.1)
     with pytest.raises(ValueError):
         step.land(s.f, s.p, s.f[:, :nl].transpose(1, 2), None, s.n_atoms,
                   s.n_local, nl, 0.5)

@@ -165,9 +165,10 @@ def test_replaced_state_is_stepped(runner, method):
     dst.compute_force()            # a replace() on top of the new state
     assert dst.e_potential == e_src
     dst.step_block(10)
-    # the same buffers, the replacement copied into them
+    # the same buffers, the replacement copied into them (the state's
+    # fields the views of their stacks)
     assert all(dst._bufs[k] is v for k, v in bufs.items())
-    assert dst.state.r is bufs["r", 0]
+    assert dst.state.r.data_ptr() == bufs["r"].data_ptr()
     for k in FIELDS:
         assert torch.equal(getattr(dst.state, k), getattr(src.state, k)), k
     assert dst.e_potential == src.e_potential

@@ -261,7 +261,8 @@ def test_counters_and_launches_equal_eager(monkeypatch, case):
     assert le[STAND_INS["rest"]] == 20
     assert le[STAND_INS["rebucket"]] == shards * e.n_rebucket
     if lazy:
-        assert le[STAND_INS["head"]] == 20 * shards
+        # one head launch a step over the stack of every shard
+        assert le[STAND_INS["head"]] == 20
         assert le.get(STAND_INS["refresh"], 0) == (
             20 - e.n_rebucket if shards > 1 else 0)
     if e.uses_nl:
@@ -282,10 +283,13 @@ def test_scratch_leaves_the_state():
     before = {k: v.clone() for k, v in sim._bufs.items()}
     r = sim.state.r
     with sim._scratch():
-        assert sim.state.r is not r
+        assert sim.state.r.data_ptr() != r.data_ptr()
         sim._lazy_step(True, stepgraph._both)
         assert int(sim._bufs["rebuckets"]) == int(before["rebuckets"]) + 1
-    assert sim.state.r is r and sim.last_r is sim._bufs["last_r", 0]
+    # the views are the stacks' again
+    assert sim.state.r.data_ptr() == r.data_ptr() == \
+        sim._bufs["r"].data_ptr()
+    assert sim.last_r.data_ptr() == sim._bufs["last_r"].data_ptr()
     for k, v in sim._bufs.items():
         assert torch.equal(v, before[k]), k
 
@@ -301,9 +305,9 @@ LAZY = {"lazy": (dict(BASE), 1),
 def test_head_sets_the_handles(monkeypatch, case):
     """In a captured step the condition comes first (its handles made in
     the graph, here stand-in values: one serially, two on the mesh), then
-    the head's trigger launches (a mesh's later shards with ``add``, the
-    last given those handles), then the IF nodes on handles 0 (and 1 on
-    the mesh), with no launch between the head and them; the launch
+    the head's one trigger launch over the stack of every shard, given
+    those handles, then the IF nodes on handles 0 (and 1 on the mesh),
+    with no launch between the head and them; the launch
     counts (stand-ins, as above) equal the eager loop's, and no counter
     of a condition kernel exists."""
     kw, shards = LAZY[case]
@@ -311,9 +315,9 @@ def test_head_sets_the_handles(monkeypatch, case):
     events = []
     orig_kdt = step_ops.kick_drift_trigger
 
-    def kdt(*a, handles=(), add=False, **k):
-        events.append(("head", handles, add))
-        return orig_kdt(*a, add=add, **k)
+    def kdt(p, r, *a, handles=(), **k):
+        events.append(("head", handles, tuple(r.shape[:-3])))
+        return orig_kdt(p, r, *a, **k)
 
     def cond(_device, n=2):
         events.append(("condition", n))
@@ -356,14 +360,13 @@ def test_head_sets_the_handles(monkeypatch, case):
             sim.step_block(1)
             runs[runner] = (dict(LAUNCHES), list(events))
     (le, ee), (lg, eg) = runs["eager"], runs["graphs"]
-    assert le == lg and le[STAND_INS["head"]] == shards
-    # eager: no condition made, no handles, no IF node
-    assert ee == [("head", (), i > 0) for i in range(shards)]
+    assert le == lg and le[STAND_INS["head"]] == 1
+    # eager: no condition made, no handles, no IF node; the head's one
+    # launch takes the stack of every shard
+    assert ee == [("head", (), (shards,))]
     # the capture, then the replay (a stub: the step run again)
     n = 1 if shards == 1 else 2
-    step = ([("condition", n)]
-            + [("head", (11, 12)[:n] if i == shards - 1 else (), i > 0)
-               for i in range(shards)]
+    step = ([("condition", n), ("head", (11, 12)[:n], (shards,))]
             + [("if", 11, 0), ("if", 12, 1)][:n])
     assert eg == step + step
 
